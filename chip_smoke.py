@@ -1,0 +1,430 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py            # from the repository root, one card
+
+The main path is gated block-sparse decoding of qwen3_0_6b at full width
+through ``DecodeEngine.generate``. Phases (any failure exits non-zero):
+
+  1. the card's name and power limit (nvidia-smi); build both CUDA kernels
+     from ``src/repro_torch/kernels/csrc`` (one nvcc per source, started
+     together) and print the build seconds and ptxas register/spill info;
+  2. small-input agreement: the tiny config decoded on the card against
+     the same engine on the CPU (plain PyTorch path, itself held against
+     the JAX reference by the CPU tests): tokens equal, logits close;
+  3. kernel vs plain on the card, on the tensors the main path gives
+     layer 0 in its first decode step (captured from a real prefill +
+     step): gate select for budget/threshold x force flags x n_valid
+     full/partial/1 (ids equal up to swaps of near-tied blocks), and the
+     block-sparse decode with -1 padding, a partial last block and a
+     peaked softmax (max abs error within 8 bf16 ulps of the plain
+     output's largest element, and within 2e-2); each kernel, its plain
+     version and the library yardstick timed with CUDA events (median of
+     30 runs);
+  4. end to end: ``generate`` on qwen3_0_6b in bf16 with random weights
+     from a seed, every launch counter set to 0 just before and read just
+     after; each kernel must launch layers x decode steps times; all
+     logits finite;
+  5. profile, last so that it cannot slow the timed run: a few decode
+     steps before, under and after torch.profiler, the top device kernels
+     and the device's busy share.
+
+The line before the last is a JSON object with each kernel's numbers;
+the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+device, or outside the repository, the script exits non-zero and prints
+no result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.config import reduced  # noqa: E402
+from repro_torch.convert import params_to  # noqa: E402
+from repro_torch.kernels import block_sparse_decode as bsd  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import gate_select as gs  # noqa: E402
+from repro_torch.models.transformer import init_lm  # noqa: E402
+from repro_torch.serve.engine import DecodeEngine  # noqa: E402
+
+# published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+DECODE_TOL = 2e-2          # absolute cap on the decode kernel's error ...
+DECODE_ULPS = 8            # ... which must also stay within this many ulps
+                           # of max|o_plain| in the output dtype
+TIE_REL = 1e-5            # a gate-select swap is accepted only below this gap
+# the main path: batch 4, a 16384-token prompt, 32 tokens per row (1 from
+# prefill + 31 decode steps), random weights and prompt from seed 0
+BATCH, PROMPT_LEN, NEW_TOKENS, SEED = 4, 16384, 32, 0
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(fn, runs: int = 30, warmup: int = 3) -> float:
+    """Median device time of one call, from CUDA events around each call."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def compare_ids(k_idx, p_idx, scores):
+    """-> (swaps, max |score gap| over differing slots). Fails unless every
+    difference is a swap of two blocks whose plain fp32 scores differ by
+    less than TIE_REL relative."""
+    k_idx, p_idx, scores = (t.cpu().numpy() for t in (k_idx, p_idx, scores))
+    if k_idx.shape != p_idx.shape:
+        fail(f"gate_select shape {k_idx.shape} != plain {p_idx.shape}")
+    swaps, gap = 0, 0.0
+    for pos in zip(*np.nonzero(k_idx != p_idx)):
+        a, b = int(k_idx[pos]), int(p_idx[pos])
+        if a < 0 or b < 0:
+            fail(f"gate_select differs at {pos}: kernel {a}, plain {b}")
+        sa, sb = float(scores[pos[:-1] + (a,)]), float(scores[pos[:-1] + (b,)])
+        if abs(sa - sb) > TIE_REL * max(abs(sa), abs(sb), 1e-30):
+            fail(f"gate_select differs at {pos}: kernel {a} ({sa}), plain {b} ({sb})")
+        swaps += 1
+        gap = max(gap, abs(sa - sb))
+    return swaps, gap
+
+
+def decode_limit(o_plain):
+    """-> (limit, ulp, max|o_plain|). The limit is DECODE_ULPS units in the
+    last place of max|o_plain| in the output dtype, capped at DECODE_TOL.
+    Kernel and plain both round fp32 results to that dtype, so they may
+    differ by about one such ulp; a fault in the mathematics (a wrong
+    rescale or scale factor, a skipped block) moves the output by a
+    fraction of its own size, far more than a few ulps."""
+    top = float(o_plain.float().abs().max())
+    ulp = torch.finfo(o_plain.dtype).eps * 2.0 ** math.floor(math.log2(top)) if top > 0 else 0.0
+    return min(DECODE_TOL, DECODE_ULPS * ulp), ulp, top
+
+
+def gate_bound_ms(qg, kg, nv, k_sel):
+    es = qg.element_size()
+    b, h, _, dg = kg.shape
+    rows = int(nv.sum().item()) * h
+    nbytes = qg.numel() * es + rows * dg * es + nv.numel() * 4 + b * h * k_sel * 4
+    ops_n = 2 * rows * dg
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_n / BF16_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def decode_bound_ms(q, idx, kv_len, block_size):
+    es = q.element_size()
+    b, h, g, dh = q.shape
+    ix = idx.long().cpu()
+    lens = kv_len.long().cpu()[:, None, None]
+    tokens = torch.clamp(lens - ix * block_size, 0, block_size)
+    tokens = int(torch.where(ix >= 0, tokens, 0).sum())
+    nbytes = 2 * q.numel() * es + idx.numel() * 4 + b * 4 + 2 * tokens * dh * es
+    ops_n = 4 * g * dh * tokens
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_n / BF16_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    secs = build.build(verbose=True)
+    for name in build.SOURCES:
+        build.load(name)
+    print(f"build: {time.perf_counter() - t0:.1f} s wall "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items()) or 'cached'})")
+
+
+def phase_small():
+    """Tiny config on the card vs the CPU plain path: same tokens, close logits."""
+    cfg = reduced(configs.get("qwen3_0_6b")).replace(dtype="float32")
+    cfg = cfg.replace(gate=dataclasses.replace(cfg.gate, block_size=8, d_gate=16,
+                                               token_budget=32))
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 41))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = DecodeEngine(cfg, params_to(params, dev), max_len=64, device=dev)
+        tok, st = eng.prefill({"tokens": toks})
+        lgs, tks = [], []
+        for _ in range(12):
+            tok, lg, st, _ = eng._step(eng.params, st, tok)
+            lgs.append(lg.float().cpu())
+            tks.append(tok.cpu())
+        runs[dev] = (torch.stack(lgs), torch.stack(tks))
+    err = float((runs["cpu"][0] - runs["cuda"][0]).abs().max())
+    if not torch.equal(runs["cpu"][1], runs["cuda"][1]) or err > 1e-4:
+        fail(f"small-input agreement: tokens equal {torch.equal(runs['cpu'][1], runs['cuda'][1])}, "
+             f"logits max abs diff {err:.3e} (limit 1e-4)")
+    print(f"small-input agreement (tiny qwen3, fp32, 2x41 prompt, 12 steps): "
+          f"tokens equal, logits max abs diff {err:.3e}")
+
+
+def capture_layer0(eng, batch):
+    """Prefill + one decode step; the kernel arguments of layer 0 of that step."""
+    seen = {}
+    real = (ops.gate_select, ops.sparse_decode)
+
+    def grab(name, fn):
+        def wrapper(*a, **kw):
+            seen.setdefault(name, (a, kw))
+            return fn(*a, **kw)
+        return wrapper
+
+    ops.gate_select = grab("gate_select", real[0])
+    ops.sparse_decode = grab("sparse_decode", real[1])
+    try:
+        tok, state = eng.prefill(batch)
+        eng._step(eng.params, state, tok)
+    finally:
+        ops.gate_select, ops.sparse_decode = real
+    torch.cuda.synchronize()
+    return seen, state
+
+
+def phase_kernels(seen):
+    """Kernel vs plain on the main path's layer-0 tensors; timings."""
+    (qg, kg, nv, gcfg, ms), _ = seen["gate_select"]
+    (q, kc, vc, idx, kv_len), kw = seen["sparse_decode"]
+    bs = kw["block_size"]
+    nb = kg.shape[2]
+    print(f"layer-0 shapes: qg {tuple(qg.shape)} kg {tuple(kg.shape)} n_valid "
+          f"{nv.tolist()} | q {tuple(q.shape)} caches {tuple(kc.shape)} idx "
+          f"{tuple(idx.shape)} kv_len {kv_len.tolist()} ({kc.dtype})")
+
+    # gate select: budget/threshold x force flags x n_valid full/partial/1
+    swaps = checks = 0
+    gate_err = 0.0
+    full = nv
+    part = torch.clamp(nv // 2 + 1, max=nb).to(torch.int32)
+    one = torch.ones_like(nv)
+    for method in ("budget", "threshold"):
+        for ff, fl in ((True, True), (False, True), (False, False)):
+            c = dataclasses.replace(gcfg, method=method, always_first_block=ff,
+                                    always_last_block=fl)
+            for n_valid in (full, part, one):
+                k_idx = gs.gate_select_cuda(qg, kg, n_valid, c, ms)
+                p_idx = gs.gate_select_plain(qg, kg, n_valid, c, ms)
+                torch.cuda.synchronize()
+                s, gap = compare_ids(k_idx, p_idx, gs.gate_scores_plain(qg, kg, n_valid, c))
+                swaps += s
+                gate_err = max(gate_err, gap)
+                checks += 1
+    print(f"gate_select: {checks} cases (budget/threshold x force flags x n_valid "
+          f"full/partial/1) equal to plain; near-tie swaps {swaps}")
+
+    # block-sparse decode: the captured selection, with -1 padding, a
+    # threshold selection (natural -1 padding), and the captured selection
+    # with q x 8 (exact in bf16), whose peaked softmax leans on the
+    # running-max rescale; kv_len leaves a partial block
+    pad = idx.clone()
+    pad[:, :, idx.shape[-1] // 2:] = -1
+    thr = gs.gate_select_plain(qg, kg, nv, dataclasses.replace(gcfg, method="threshold"), ms)
+    dec_err = 0.0
+    for name, qq, ix in (("captured", q, idx), ("half -1 padding", q, pad),
+                         ("threshold", q, thr), ("q x 8", q * 8, idx)):
+        o_k = bsd.sparse_decode_cuda(qq, kc, vc, ix, kv_len, block_size=bs)
+        o_p = bsd.sparse_decode_plain(qq, kc, vc, ix, kv_len, block_size=bs)
+        torch.cuda.synchronize()
+        err = float((o_k.float() - o_p.float()).abs().max())
+        lim, ulp, top = decode_limit(o_p)
+        n_pad = int((ix < 0).sum())
+        print(f"block_sparse_decode [{name}, {n_pad} padding slots]: max abs err "
+              f"{err:.3e} = {err / ulp if ulp else 0.0:.3g} ulp of max|o_plain| "
+              f"{top:.4f} (limit {lim:.3e} = min({DECODE_ULPS} ulp, {DECODE_TOL}))")
+        if not err <= lim:
+            fail(f"block_sparse_decode disagrees with plain [{name}]: {err} > {lim}")
+        dec_err = max(dec_err, err)
+    if int(kv_len[0]) % bs == 0:
+        fail("expected a partial last block at the captured kv_len")
+
+    # timings (median of 30 CUDA-event-timed calls each)
+    t_gk = time_ms(lambda: gs.gate_select_cuda(qg, kg, nv, gcfg, ms))
+    t_gp = time_ms(lambda: gs.gate_select_plain(qg, kg, nv, gcfg, ms))
+    t_dk = time_ms(lambda: bsd.sparse_decode_cuda(q, kc, vc, idx, kv_len, block_size=bs))
+    t_dp = time_ms(lambda: bsd.sparse_decode_plain(q, kc, vc, idx, kv_len, block_size=bs))
+    b, hkv, g, dh = q.shape
+    n = int(kv_len.max())
+    qs = q.reshape(b, hkv * g, 1, dh)
+    ks, vs = kc[:, :, :n], vc[:, :, :n]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_lib = time_ms(lambda: sdpa(qs, ks, vs, enable_gqa=True))
+    k_sel = gs.n_selected(gcfg, nb, ms)
+    gb, gby = gate_bound_ms(qg, kg, nv, k_sel)
+    db, dby = decode_bound_ms(q, idx, kv_len, bs)
+    print(f"gate_select: kernel {t_gk:.4f} ms, plain {t_gp:.4f} ms, bound {gb:.5f} ms ({gby})")
+    print(f"block_sparse_decode: kernel {t_dk:.4f} ms, plain {t_dp:.4f} ms, "
+          f"bound {db:.5f} ms ({dby}), SDPA dense over {n} tokens {t_lib:.4f} ms")
+    return {
+        "gate_select": dict(max_abs_err=gate_err, ms=t_gk, plain_ms=t_gp,
+                            bound_ms=gb, bound_by=gby, library_ms=None),
+        "block_sparse_decode": dict(max_abs_err=dec_err, ms=t_dk, plain_ms=t_dp,
+                                    bound_ms=db, bound_by=dby, library_ms=t_lib),
+    }
+
+
+def phase_profile(eng, batch, steps: int = 3):
+    """Where a decode step's time goes, after the end-to-end run so that
+    the profiler cannot touch its timing: a fresh prefill, the wall time
+    of a few plain steps, torch.profiler over as many more (top device
+    kernels, device busy share), then as many plain steps again, which
+    shows what the profiler leaves behind."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        nonlocal tok, state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok, _, state, _ = eng._step(eng.params, state, tok)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / steps
+
+    tok, state = eng.prefill(batch)
+    before = run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        under = run()
+    after = run()
+    ka = prof.key_averages()
+    kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps   # ms/step
+    print(ka.table(sort_by="self_device_time_total", row_limit=15))
+    print(f"profile: decode step {before:.2f} ms wall before the profiler, "
+          f"{under:.2f} ms under it, {after:.2f} ms after it; device busy "
+          f"{busy:.2f} ms/step = {100 * busy / under:.1f}% of the profiled wall; "
+          f"{sum(e.count for e in kernels) / steps:.0f} kernel launches/step")
+
+
+def host_launch_us(n: int = 2000) -> float:
+    """Host time to enqueue one tiny CUDA op, in µs: the pace of a
+    host-bound decode step, which launches a few thousand of them."""
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / n
+
+
+def phase_end_to_end(eng, batch, n_new, n_layers):
+    """generate() with every launch counter at 0 just before; logits checked."""
+    print(f"host: {host_launch_us():.2f} µs to enqueue a tiny CUDA op, "
+          f"{os.cpu_count()} CPUs, load average {os.getloadavg()[0]:.2f}")
+    finite = []
+    step = eng._step
+
+    def checked_step(*a):
+        out = step(*a)
+        finite.append(torch.isfinite(out[1]).all())
+        return out
+
+    eng._step = checked_step
+    ops.reset_launch_counts()
+    res = eng.generate(batch, n_new)
+    counts = ops.launch_counts()
+    eng._step = step
+    stats = eng.sparsity_stats()
+    n_steps = n_new - 1
+    b = batch["tokens"].shape[0]
+    print(f"end to end: prefill {res['prefill_s']:.2f} s, decode "
+          f"{1e3 * res['decode_s'] / n_steps:.2f} ms/step, {res['tok_per_s']:.1f} tok/s "
+          f"(batch {b}, {n_steps} steps), measured sparsity {stats['sparsity']:.4f} "
+          f"(sel {stats['sel_blocks']:.1f} of {stats['vis_blocks']:.1f} blocks), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    print(f"launch counts over generate: {counts} (expected {n_layers} x {n_steps} = "
+          f"{n_layers * n_steps} each)")
+    for name, c in counts.items():
+        if c != n_layers * n_steps:
+            fail(f"{name} launched {c} times, expected {n_layers * n_steps}")
+    if len(finite) != n_steps or not bool(torch.stack(finite).all()):
+        fail("non-finite logits in the decode steps")
+    toks = res["tokens"]
+    if tuple(toks.shape) != (b, n_new) or int(toks.min()) < 0 \
+            or int(toks.max()) >= eng.cfg.vocab_size:
+        fail(f"bad tokens: shape {tuple(toks.shape)}")
+    return counts
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    print(card_line())
+    phase_build()
+    phase_small()
+
+    cfg = configs.get("qwen3_0_6b")
+    bs = cfg.gate.block_size
+    max_len = -(-(PROMPT_LEN + NEW_TOKENS) // bs) * bs
+    print(f"qwen3_0_6b: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}; gate block {bs}, d_gate {cfg.gate.d_gate}, "
+          f"budget {cfg.gate.token_budget}; batch {BATCH}, prompt {PROMPT_LEN}, "
+          f"max_len {max_len} ({max_len // bs} blocks), {NEW_TOKENS} new tokens")
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    print(f"random weights (seed {SEED}): {time.perf_counter() - t0:.1f} s")
+    toks = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT_LEN)).astype(np.int32)
+    batch = {"tokens": toks}
+    eng = DecodeEngine(cfg, params, max_len=max_len)
+
+    seen, state = capture_layer0(eng, batch)
+    numbers = phase_kernels(seen)
+    del seen, state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    counts = phase_end_to_end(eng, batch, NEW_TOKENS, cfg.num_layers)
+    phase_profile(eng, batch)
+
+    meta = {
+        "gate_select": ("src/repro_torch/kernels/csrc/gate_select.cu",
+                        "src/repro/kernels/gate_select.py:133"),
+        "block_sparse_decode": ("src/repro_torch/kernels/csrc/block_sparse_decode.cu",
+                                "src/repro/kernels/block_sparse_decode.py:222"),
+    }
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=counts[name], **numbers[name])
+               for name, (src, rep) in meta.items()]
+    print(card_line())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

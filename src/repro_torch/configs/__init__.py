@@ -1,0 +1,29 @@
+"""Architecture registry of the port: one module per ported architecture.
+
+``get(arch_id)`` returns the full-size ModelConfig. Only the dense
+``qwen3_0_6b`` family is ported so far; the other JAX configs arrive with
+their families' slices.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.config import ModelConfig
+
+ARCH_IDS = [
+    "qwen3_0_6b",
+]
+
+_ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
+
+
+def canon(arch_id: str) -> str:
+    return _ALIASES.get(arch_id, arch_id)
+
+
+def get(arch_id: str) -> ModelConfig:
+    name = canon(arch_id)
+    if name not in ARCH_IDS:
+        raise ValueError(f"unknown or unported arch {arch_id!r}; have {ARCH_IDS}")
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    return mod.CONFIG

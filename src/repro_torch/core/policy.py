@@ -1,0 +1,113 @@
+"""Block-selection policies + the ``DecodeOptions`` decode API (port slice).
+
+The JAX package's ``core/policy.py``, reduced to what the contiguous gated
+decode path needs:
+
+  GatePolicy     the paper's learned gate: gate query -> fused gate score +
+                 top-k over the K-compression cache (kernels/gate_select)
+  DensePolicy    no selection; full dense decode attention
+
+``DecodeOptions`` is frozen (hashable) and threaded engine -> model ->
+kernels, as in the reference. Kernel choice is NOT an option here: the
+kernel wrappers dispatch on the device of the tensors they are given
+(``kernels/ops.py``). The schedule, quantize, eviction and split-k fields
+of the reference arrive with their slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.core import kcache as kc
+from repro_torch.serve.sampling import GREEDY, SamplingParams
+
+
+class SelectionInputs(NamedTuple):
+    """Everything a selection policy may consume for ONE decode step
+    (contiguous views only in this slice; all caches HEAD-MAJOR)."""
+    q_nope: torch.Tensor                 # [B, 1, H, Dh] pre-rope queries
+    qr: torch.Tensor                     # [B, 1, H, Dh] post-rope queries
+    pos: torch.Tensor                    # [B, 1] query positions
+    new_len: torch.Tensor                # [B] kv length incl. the new token
+    gate_params: Optional[Dict[str, Any]] = None   # per-layer gate or None
+    kg: Optional[torch.Tensor] = None           # [B, Hkv, nb, Dg]
+    k_cache: Optional[torch.Tensor] = None      # [B, Hkv, S, Dh] post-rope
+
+
+@dataclasses.dataclass(frozen=True)
+class GatePolicy:
+    """The paper's learned AttnGate (default): the gate query scores the
+    Kg cache through the fused gate-select kernel."""
+    dense = False
+    needs_gate = True
+
+    def select(self, inp: SelectionInputs, cfg: ModelConfig, *,
+               max_selected: Optional[int] = None) -> torch.Tensor:
+        """-> selected logical block ids [B, Hkv, k] int32, -1 padding."""
+        from repro_torch.core import attngate as ag
+        from repro_torch.kernels import ops
+        qg = ag.gate_q(inp.gate_params, inp.q_nope, inp.pos, cfg.gate)[:, 0]
+        n_valid = kc.visible_blocks(torch.clamp_min(inp.new_len, 1),
+                                    cfg.gate.block_size)
+        return ops.gate_select(qg, inp.kg, n_valid.to(torch.int32), cfg.gate,
+                               max_selected)
+
+
+@dataclasses.dataclass(frozen=True)
+class DensePolicy:
+    """No selection: full dense decode attention."""
+    dense = True
+    needs_gate = False
+
+    def select(self, inp: SelectionInputs, cfg: ModelConfig, *,
+               max_selected: Optional[int] = None) -> torch.Tensor:
+        raise NotImplementedError("DensePolicy performs no block selection")
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeOptions:
+    """Frozen decode-time options, threaded engine -> model -> kernels.
+
+    policy:           block-selection strategy (GatePolicy or DensePolicy)
+    sampling:         SamplingParams (greedy in this slice)
+    budget_override:  token budget replacing ``cfg.gate.token_budget``
+                      (None = config budget)
+    measure_sparsity: compute the measured selection telemetry (aux) in
+                      every decode step
+    """
+    policy: Any = GatePolicy()
+    sampling: SamplingParams = GREEDY
+    budget_override: Optional[int] = None
+    measure_sparsity: bool = True
+
+    def __post_init__(self):
+        if self.budget_override is not None and self.budget_override <= 0:
+            raise ValueError(
+                f"budget_override must be positive: {self.budget_override}")
+
+    def max_selected(self, cfg: ModelConfig) -> Optional[int]:
+        """Selected-list width override in BLOCKS (None = config budget).
+        CEIL division: an override that is not a multiple of the block
+        size rounds UP, so a request never gets fewer tokens of attention
+        than it asked for (the config budget keeps the paper's floor)."""
+        if self.budget_override is None:
+            return None
+        return max(1, -(-self.budget_override // cfg.gate.block_size))
+
+    def replace(self, **kw) -> "DecodeOptions":
+        return dataclasses.replace(self, **kw)
+
+
+def default_options(cfg: ModelConfig) -> DecodeOptions:
+    """GatePolicy when the config carries a gate, dense otherwise."""
+    gate_on = cfg.gate.enabled and cfg.has_attention and cfg.is_decoder
+    if not gate_on:
+        return DecodeOptions(policy=DensePolicy())
+    if cfg.gate.dense_first_layers:
+        raise NotImplementedError(
+            "gate.dense_first_layers maps onto a SelectionSchedule, which "
+            "is not ported yet")
+    return DecodeOptions(policy=GatePolicy())

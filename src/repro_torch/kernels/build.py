@@ -1,0 +1,114 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each source under ``csrc/`` compiles on its own into a shared library
+with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o <lib>.so csrc/<name>.cu
+
+No PyTorch header is included, so a build takes seconds. Libraries are
+built at first use into ``_build/`` beside this file (listed in
+``.gitignore``), named by a hash of the source and the flags, so an
+edited source rebuilds and an unchanged one is reused. ``build()``
+starts one nvcc per source, all at once, and waits for them.
+
+Every C entry point takes its pointers and the CUDA stream as
+``void*`` (``ctypes.c_void_p`` here: a plain ``int`` argument would be
+cut to 32 bits) and returns ``cudaGetLastError()`` after its launch;
+``check()`` turns a non-zero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("gate_select", "block_sparse_decode")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else the toolkit's default install location."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if Path(c).is_file():
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the CUDA kernels are built from source at first use")
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{h}.so"
+
+
+def build(names: Sequence[str] = SOURCES, *, verbose: bool = False
+          ) -> Dict[str, float]:
+    """Compile the named sources that are not built yet, one nvcc each, all
+    started together. Returns {name: seconds} for the ones compiled.
+    ``verbose`` adds ``-Xptxas -v`` and prints each kernel's registers,
+    shared memory and spills."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    secs, errors = {}, []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        secs[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
+            continue
+        if verbose and log.strip():
+            print(f"[nvcc {name}]\n{log.rstrip()}")
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return secs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu``, compiling it if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = lib_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.repro_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

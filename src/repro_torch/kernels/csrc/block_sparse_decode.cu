@@ -1,0 +1,247 @@
+// Block-sparse flash decoding over a contiguous head-major KV cache
+// (Hopper, sm_90a).
+//
+// Replaces the TPU kernel src/repro/kernels/block_sparse_decode.py::
+// block_sparse_decode (fp body _kernel -> _flash_group -> _flash_accum).
+// Same contract:
+//   q        [B, Hkv, G, Dh]    one new query token, grouped per kv head
+//   k, v     [B, Hkv, S, Dh]    post-rope caches (bf16 or fp32, same as q)
+//   idx      [B, Hkv, nsel]     int32 selected block ids, -1 = padding
+//   kv_len   [B] int32          valid lengths (masks the partial last block)
+//   out      [B, Hkv, G, Dh]    in q's dtype
+// GQA flash decode over ONLY the selected blocks: -1 entries are skipped,
+// positions >= kv_len are masked, scale 1/sqrt(Dh), fp32 online softmax
+// and accumulation, normalised by max(l, 1e-30): a row with no valid key
+// gives 0.
+//
+// Design: one CTA per (b, kv-head) loops over its nsel selected blocks. A
+// block's K and V rows [bs, Dh] are one contiguous range of the head-major
+// cache, so each is copied into shared memory with 16-byte vector loads,
+// all of a thread's K and V loads issued before its stores (rows past
+// kv_len are neither copied nor read). The CTA computes the G x bs scores
+// in fp32 (one warp per (row, key) pair, lanes across Dh), runs the
+// online-softmax update per row, then accumulates P.V into registers
+// (each thread owns G*Dh/256 output elements). The TPU tiling
+// (blocks_per_step, the 16-row G padding, the 128-lane m/l scratch) is not
+// carried over: each CTA reads its own block-index row in place of the
+// scalar-prefetch index map.
+//
+// Bound on the H100: at the main path's shape (B=4, Hkv=8, k=64 blocks x
+// 64 tokens x Dh 128, bf16, K+V) one call must read ~67 MB: ~20 us at
+// 3.35 TB/s. This simple kernel does not reach it: B*Hkv = 32 CTAs run on
+// 32 of the 132 SMs, and each CTA waits for a block's loads before it
+// computes on them, so at most one block per CTA is in flight (no
+// cp.async/TMA pipeline across blocks, no split across SMs, no wgmma).
+// Splitting the selected list across SMs (split-K) and pipelining the
+// block copies are the work of a later change.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxPerThread = 16;  // G*Dh <= kThreads*kMaxPerThread = 4096
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f32(float x, float* o) { *o = x; }
+__device__ __forceinline__ void from_f32(float x, __nv_bfloat16* o) { *o = __float2bfloat16(x); }
+
+// copy the n valid elements of one block of K and of V (contiguous in the
+// head-major cache) global -> shared. Each thread issues all its K and V
+// loads before its stores, so a block's reads are in flight together
+// instead of one 16-byte load at a time. Rows past kv_len are not copied:
+// the score and P.V loops never read them.
+template <typename T>
+__device__ __forceinline__ void load_kv(T* ks, T* vs, const T* __restrict__ kg,
+                                        const T* __restrict__ vg, int n, bool vec) {
+  if (vec) {
+    constexpr int kPer = 16 / sizeof(T);
+    constexpr int kUnroll = 4;
+    const int n4 = n / kPer;  // n is a multiple of Dh, Dh*sizeof(T) % 16 == 0
+    const uint4* k4 = reinterpret_cast<const uint4*>(kg);
+    const uint4* v4 = reinterpret_cast<const uint4*>(vg);
+    uint4* dk = reinterpret_cast<uint4*>(ks);
+    uint4* dv = reinterpret_cast<uint4*>(vs);
+    for (int base = threadIdx.x; base < n4; base += kThreads * kUnroll) {
+      uint4 rk[kUnroll], rv[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = base + u * kThreads;
+        if (i < n4) {
+          rk[u] = k4[i];
+          rv[u] = v4[i];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = base + u * kThreads;
+        if (i < n4) {
+          dk[i] = rk[u];
+          dv[i] = rv[u];
+        }
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      ks[i] = kg[i];
+      vs[i] = vg[i];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+block_sparse_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                           const T* __restrict__ vc, const int* __restrict__ idx,
+                           const int* __restrict__ kv_len, T* __restrict__ out, int H, int G,
+                           int Dh, int S, int nsel, int bs, float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int GD = G * Dh;
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [G*Dh]
+  float* ps = qs + GD;                             // [G*bs] scores, then p
+  float* m_s = ps + G * bs;                        // [G] running max
+  float* l_s = m_s + G;                            // [G] running sum
+  float* a_s = l_s + G;                            // [G] this block's rescale
+  size_t off = ((size_t)(GD + G * bs + 3 * G) * sizeof(float) + 15) & ~(size_t)15;
+  T* ks = reinterpret_cast<T*>(smem_raw + off);  // [bs*Dh]
+  T* vs = ks + (size_t)bs * Dh;                  // [bs*Dh]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int len = kv_len[b];
+  const T* kbase = kc + (size_t)bh * S * Dh;
+  const T* vbase = vc + (size_t)bh * S * Dh;
+  const int* irow = idx + (size_t)bh * nsel;
+
+  for (int e = tid; e < GD; e += kThreads) qs[e] = to_f32(q[(size_t)bh * GD + e]);
+  for (int g = tid; g < G; g += kThreads) {
+    m_s[g] = kNegInf;
+    l_s[g] = 0.f;
+  }
+  float acc[kMaxPerThread];
+#pragma unroll
+  for (int i = 0; i < kMaxPerThread; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < nsel; ++j) {
+    const int blk = irow[j];
+    if (blk < 0) continue;                       // -1 padding
+    const int t0 = blk * bs;
+    int nt = min(bs, min(len, S) - t0);          // valid rows of this block
+    if (nt <= 0) continue;                       // wholly past kv_len: adds nothing
+    __syncthreads();                             // previous block done with ks/vs/ps
+    load_kv(ks, vs, kbase + (size_t)t0 * Dh, vbase + (size_t)t0 * Dh, nt * Dh, vec != 0);
+    __syncthreads();
+
+    // scores s[g][t] = q[g] . k[t] * scale, masked past kv_len
+    for (int pr = warp; pr < G * bs; pr += kWarps) {
+      const int g = pr / bs, t = pr - g * bs;
+      float s = 0.f;
+      if (t < nt) {
+        const float* qg = qs + g * Dh;
+        const T* kt = ks + (size_t)t * Dh;
+        for (int d = lane; d < Dh; d += 32) s += qg[d] * to_f32(kt[d]);
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      }
+      if (lane == 0) ps[pr] = (t < nt) ? s * scale : kNegInf;
+    }
+    __syncthreads();
+
+    // online-softmax update, one warp per query row
+    for (int g = warp; g < G; g += kWarps) {
+      float* pg = ps + g * bs;
+      float mx = kNegInf;
+      for (int t = lane; t < bs; t += 32) mx = fmaxf(mx, pg[t]);
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_prev = m_s[g];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int t = lane; t < bs; t += 32) {
+        // guard: a masked key would give exp(NEG_INF - NEG_INF) = 1
+        const float p = (pg[t] > kNegInf / 2) ? expf(pg[t] - m_new) : 0.f;
+        pg[t] = p;
+        sum += p;
+      }
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        l_s[g] = alpha * l_s[g] + sum;
+        m_s[g] = m_new;
+        a_s[g] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // acc[g][d] = alpha[g] * acc[g][d] + sum_t p[g][t] * v[t][d]
+#pragma unroll
+    for (int i = 0; i < kMaxPerThread; ++i) {
+      const int e = tid + i * kThreads;
+      if (e < GD) {
+        const int g = e / Dh, d = e - g * Dh;
+        const float* pg = ps + g * bs;
+        float a = acc[i] * a_s[g];
+        for (int t = 0; t < nt; ++t) a += pg[t] * to_f32(vs[(size_t)t * Dh + d]);
+        acc[i] = a;
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kMaxPerThread; ++i) {
+    const int e = tid + i * kThreads;
+    if (e < GD) {
+      const int g = e / Dh;
+      from_f32(acc[i] / fmaxf(l_s[g], 1e-30f), out + (size_t)bh * GD + e);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* idx, const void* kv_len,
+           void* out, int B, int H, int G, int Dh, int S, int nsel, int bs, float scale,
+           cudaStream_t stream) {
+  const size_t head = ((size_t)(G * Dh + G * bs + 3 * G) * sizeof(float) + 15) & ~(size_t)15;
+  const size_t smem = head + 2 * (size_t)bs * Dh * sizeof(T);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(block_sparse_decode_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int vec = ((uintptr_t)k % 16 == 0) && ((uintptr_t)v % 16 == 0) &&
+                  ((Dh * sizeof(T)) % 16 == 0);
+  block_sparse_decode_kernel<T><<<B * H, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(idx), static_cast<const int*>(kv_len), static_cast<T*>(out), H, G,
+      Dh, S, nsel, bs, scale, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
+int block_sparse_decode_launch(const void* q, const void* k, const void* v, const void* idx,
+                               const void* kv_len, void* out, int B, int H, int G, int Dh, int S,
+                               int nsel, int bs, float scale, int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || G <= 0 || Dh <= 0 || S <= 0 || nsel <= 0 || bs <= 0 ||
+      G * Dh > kThreads * kMaxPerThread)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(q, k, v, idx, kv_len, out, B, H, G, Dh, S, nsel, bs, scale, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, idx, kv_len, out, B, H, G, Dh, S, nsel, bs, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* repro_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,115 @@
+"""Fused gate-score + block-selection: plain PyTorch version + CUDA kernel.
+
+Replaces the TPU kernel ``repro/kernels/gate_select.py::fused_gate_select``
+(one decode step, head-major Kg cache):
+
+  qg       [B, Hkv, Dg]      post-rope gate query of the new token
+  kg       [B, Hkv, nb, Dg]  head-major K-compression cache
+  n_valid  [B] int32         number of currently visible blocks
+  -> idx   [B, Hkv, k] int32 selected LOGICAL block ids, -1 padding
+
+``gate_select_plain`` is the twin of the reference's ``gate_select_ref``
+(fp32 scores -> visibility mask -> [softmax] -> ``select_blocks``): the
+CPU execution path and the oracle the kernel is held against on the card.
+``gate_select_cuda`` launches ``csrc/gate_select.cu`` (built by
+``kernels/build.py``) on the current stream and counts its launches in
+``gate_select_cuda.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.config import GateConfig
+from repro_torch.core import sparsity as sp
+from repro_torch.kernels import build
+from repro_torch.models.common import NEG_INF
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def n_selected(cfg: GateConfig, nb: int,
+               max_selected: Optional[int] = None) -> int:
+    """Static selected-list width: ``sparsity.resolve_max_selected`` plus
+    select_blocks' per-method floor/cap (budget floor for the forced
+    blocks, cap at nb)."""
+    k = sp.resolve_max_selected(cfg, max_selected)
+    if cfg.method == "budget":
+        k = max(k, int(cfg.always_last_block) + int(cfg.always_first_block))
+    elif cfg.method != "threshold":
+        raise ValueError(cfg.method)
+    return min(k, nb)
+
+
+def gate_scores_plain(qg: torch.Tensor, kg: torch.Tensor, n_valid: torch.Tensor,
+                      cfg: GateConfig) -> torch.Tensor:
+    """The values selection ranks, [B, Hkv, nb] fp32: qg.Kg^T/sqrt(Dg) with
+    blocks at or past n_valid masked, softmaxed for the threshold method."""
+    dg = qg.shape[-1]
+    scores = torch.einsum("bhd,bhnd->bhn", qg.to(torch.float32),
+                          kg.to(torch.float32)) / math.sqrt(dg)
+    nb = scores.shape[-1]
+    ar = torch.arange(nb, device=scores.device)
+    vmask = ar[None, None] < n_valid[:, None, None]
+    scores = torch.where(vmask, scores, NEG_INF)
+    if cfg.method == "threshold":
+        scores = torch.softmax(scores, dim=-1)
+    return scores
+
+
+def gate_select_plain(qg: torch.Tensor, kg: torch.Tensor,
+                      n_valid: torch.Tensor, cfg: GateConfig,
+                      max_selected: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch gate scoring + ``select_blocks`` (any device)."""
+    scores = gate_scores_plain(qg, kg, n_valid, cfg)
+    idx, _ = sp.select_blocks(scores, n_valid, cfg, max_selected)
+    return idx
+
+
+def _bind(lib: ctypes.CDLL):
+    fn = lib.gate_select_launch
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, i, f, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def gate_select_cuda(qg: torch.Tensor, kg: torch.Tensor, n_valid: torch.Tensor,
+                     cfg: GateConfig, max_selected: Optional[int] = None
+                     ) -> torch.Tensor:
+    """Launch the CUDA gate-select kernel; same result as the plain version
+    (ids equal up to swaps of blocks whose fp32 scores tie to rounding)."""
+    if not (qg.is_cuda and kg.device == qg.device and n_valid.device == qg.device):
+        raise ValueError("gate_select_cuda: qg, kg and n_valid must be on one CUDA device")
+    if qg.dtype not in _DTYPES or kg.dtype != qg.dtype:
+        raise TypeError(f"gate_select_cuda: qg/kg must share dtype float32 or "
+                        f"bfloat16, got {qg.dtype}/{kg.dtype}")
+    if n_valid.dtype != torch.int32:
+        raise TypeError(f"gate_select_cuda: n_valid must be int32, got {n_valid.dtype}")
+    b, hkv, dg = qg.shape
+    if kg.dim() != 4 or kg.shape[:2] != (b, hkv) or kg.shape[3] != dg \
+            or tuple(n_valid.shape) != (b,):
+        raise ValueError(f"gate_select_cuda: shapes qg {tuple(qg.shape)}, "
+                         f"kg {tuple(kg.shape)}, n_valid {tuple(n_valid.shape)}")
+    if not (qg.is_contiguous() and kg.is_contiguous() and n_valid.is_contiguous()):
+        raise ValueError("gate_select_cuda: inputs must be contiguous")
+    nb = kg.shape[2]
+    k_sel = n_selected(cfg, nb, max_selected)
+    out = torch.empty((b, hkv, k_sel), dtype=torch.int32, device=qg.device)
+    lib = build.load("gate_select")
+    rc = _bind(lib)(
+        qg.data_ptr(), kg.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
+        b, hkv, nb, dg, k_sel, int(cfg.method == "threshold"),
+        float(cfg.threshold), int(cfg.always_first_block),
+        int(cfg.always_last_block), 1.0 / math.sqrt(dg), _DTYPES[qg.dtype],
+        torch.cuda.current_stream(qg.device).cuda_stream)
+    build.check(lib, rc, "gate_select kernel launch")
+    gate_select_cuda.launches += 1
+    return out
+
+
+gate_select_cuda.launches = 0

@@ -1,0 +1,66 @@
+"""Device-dispatching entry points over the port's kernels.
+
+Models call these. The device of the tensors decides the path, and
+nothing else does:
+
+  * a CPU tensor takes the plain PyTorch version;
+  * a CUDA tensor launches the hand-written CUDA kernel, or raises (a
+    build or launch error propagates; nothing falls back to the plain
+    version).
+
+``launch_counts()``/``reset_launch_counts()`` read and clear each CUDA
+wrapper's launch counter, so a run can show that its path went through
+the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import block_sparse_decode as bsd
+from repro_torch.kernels import gate_select as gs
+
+KERNELS = {"gate_select": gs.gate_select_cuda,
+           "block_sparse_decode": bsd.sparse_decode_cuda}
+
+
+def _route(t: torch.Tensor, name: str) -> bool:
+    """True for the CUDA kernel, False for the plain version."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
+def gate_select(qg: torch.Tensor, kg: torch.Tensor, n_valid: torch.Tensor,
+                cfg, max_selected: Optional[int] = None) -> torch.Tensor:
+    """Fused gate scoring + discrete block selection for ONE decode step.
+
+    qg [B,Hkv,Dg] post-rope gate queries; kg [B,Hkv,nb,Dg] HEAD-MAJOR
+    K-compression cache; n_valid [B] int32 visible blocks. Returns logical
+    block ids [B,Hkv,k] int32 with -1 padding."""
+    if _route(qg, "gate_select"):
+        return gs.gate_select_cuda(qg, kg, n_valid, cfg, max_selected)
+    return gs.gate_select_plain(qg, kg, n_valid, cfg, max_selected)
+
+
+def sparse_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  block_indices: torch.Tensor, kv_len: torch.Tensor, *,
+                  block_size: int) -> torch.Tensor:
+    """Block-sparse decode attention; caches HEAD-MAJOR [B, Hkv, S, Dh]."""
+    if _route(q, "sparse_decode"):
+        return bsd.sparse_decode_cuda(q, k_cache, v_cache, block_indices,
+                                      kv_len, block_size=block_size)
+    return bsd.sparse_decode_plain(q, k_cache, v_cache, block_indices, kv_len,
+                                   block_size=block_size)
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

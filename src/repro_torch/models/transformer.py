@@ -1,0 +1,289 @@
+"""Decoder transformer LM with SeerAttention-R gates (dense family), PyTorch.
+
+Port of the serving half of the JAX package's ``models/transformer.py``:
+``init_lm``, ``DecodeState``/``init_decode_state``, ``lm_prefill`` and
+the contiguous decode step (``attention_decode`` -> ``block_decode`` ->
+``lm_decode_step``, the non-staged, non-sharded branch).
+
+Differences of idiom, not of result:
+  * parameters are a dict whose ``"blocks"`` entry is a LIST of per-layer
+    dicts, and a Python loop over layers replaces ``lax.scan``;
+  * the decode state's caches are updated IN PLACE (the reference returns
+    new arrays and donates the old state); ``lm_decode_step`` returns a
+    ``DecodeState`` holding the same cache tensors and the advanced
+    ``cur_len``;
+  * prefill writes each layer's K/V/Kg straight into the preallocated
+    head-major state instead of stacking all layers and padding after.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.core import attngate as ag
+from repro_torch.core import kcache as kc
+from repro_torch.core.policy import (DecodeOptions, SelectionInputs,
+                                     default_options)
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models.attn_core import (_dense_aux, _policy_active, _qkv,
+                                          _selection_aux, _zero_layer_aux,
+                                          aggregate_decode_aux)
+from repro_torch.models.common import (_randn, apply_rope, chunked_attention,
+                                       decode_attention, init_linear, init_mlp,
+                                       init_rmsnorm, linear, mlp, rms_norm,
+                                       torch_dtype)
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, *,
+                   with_gate: bool) -> Params:
+    dh = cfg.resolved_head_dim
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+    p: Params = {
+        "wq": init_linear(gen, d, h * dh, cfg.dtype),
+        "wk": init_linear(gen, d, hkv * dh, cfg.dtype),
+        "wv": init_linear(gen, d, hkv * dh, cfg.dtype),
+        "wo": init_linear(gen, h * dh, d, cfg.dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(dh, cfg.dtype, gen.device)
+        p["k_norm"] = init_rmsnorm(dh, cfg.dtype, gen.device)
+    if with_gate:
+        p["gate"] = ag.init_attngate(
+            gen, n_kv_heads=hkv, group=cfg.gqa_group, head_dim=dh,
+            cfg=cfg.gate, dtype=cfg.dtype)
+    return p
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, *,
+               with_gate: bool) -> Params:
+    return {
+        "ln1": init_rmsnorm(cfg.d_model, cfg.dtype, gen.device),
+        "ln2": init_rmsnorm(cfg.d_model, cfg.dtype, gen.device),
+        "attn": init_attention(gen, cfg, with_gate=with_gate),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, cfg.dtype),
+    }
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.cross_attn_period:
+        raise NotImplementedError(
+            f"family {cfg.family!r}: only the dense transformer is ported")
+
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Random parameters drawn from ``gen`` on ``gen.device`` (the
+    reference's ``init_lm(key, cfg)`` with a torch Generator for the key;
+    the numbers differ from JAX's, the shapes and scales do not)."""
+    _check_family(cfg)
+    gate_on = cfg.gate.enabled and cfg.has_attention and cfg.is_decoder
+    p: Params = {"embed": {"w": (_randn(gen, (cfg.vocab_size, cfg.d_model))
+                                 * 0.02).to(torch_dtype(cfg.dtype))}}
+    p["blocks"] = [init_block(gen, cfg, with_gate=gate_on)
+                   for _ in range(cfg.num_layers)]
+    p["final_norm"] = init_rmsnorm(cfg.d_model, cfg.dtype, gen.device)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size, cfg.dtype)
+    return p
+
+
+def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["w"].T
+    return linear(params["lm_head"], x)
+
+
+# ---------------------------------------------------------------------------
+# serving state
+# ---------------------------------------------------------------------------
+
+class DecodeState(NamedTuple):
+    """All caches are HEAD-MAJOR; decode reads and writes them in place."""
+    k_cache: torch.Tensor                   # [L, B, Hkv, S_max, Dh] (post-rope)
+    v_cache: torch.Tensor                   # [L, B, Hkv, S_max, Dh]
+    kg_cache: Optional[torch.Tensor]        # [L, B, Hkv, nb_max, Dg]
+    kg_n: Optional[torch.Tensor]            # [L, B] int32
+    cur_len: torch.Tensor                   # [B] int32
+
+
+def n_self_layers(cfg: ModelConfig) -> int:
+    return cfg.num_layers
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      dtype: Optional[torch.dtype] = None, *,
+                      device: torch.device | str | None = None) -> DecodeState:
+    """Zeroed caches on ``device`` (``None`` = CUDA, which raises without
+    a card)."""
+    device = resolve_device(device)
+    dt = dtype or torch_dtype(cfg.dtype)
+    dh, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    nl = n_self_layers(cfg)
+    nb_max = max_len // cfg.gate.block_size
+    kg = kg_n = None
+    if cfg.gate.enabled:
+        kg = torch.zeros((nl, batch, hkv, nb_max, cfg.gate.d_gate), dtype=dt,
+                         device=device)
+        kg_n = torch.zeros((nl, batch), dtype=torch.int32, device=device)
+    return DecodeState(
+        k_cache=torch.zeros((nl, batch, hkv, max_len, dh), dtype=dt, device=device),
+        v_cache=torch.zeros((nl, batch, hkv, max_len, dh), dtype=dt, device=device),
+        kg_cache=kg, kg_n=kg_n,
+        cur_len=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
+               cfg: ModelConfig, max_len: int,
+               options: Optional[DecodeOptions] = None
+               ) -> Tuple[torch.Tensor, DecodeState]:
+    """Full forward filling the caches. Returns (last logits [B, V], state).
+
+    ``batch["tokens"]`` [B, L] on the parameters' device. Only COMPLETE
+    blocks enter the K-compression cache (the trailing partial block stays
+    a zero row until decode completes it). Right-padded prompts
+    (``batch["lengths"]``) belong to the paged slice and are refused.
+    ``options`` is accepted for the reference's signature; no policy of
+    this slice builds a prefill-side cache."""
+    _check_family(cfg)
+    if batch.get("lengths") is not None:
+        raise NotImplementedError("bucketed prefill (batch['lengths']) is not ported")
+    tokens = batch["tokens"]
+    b, l = tokens.shape
+    if l > max_len:
+        raise ValueError(f"prompt length {l} > max_len {max_len}")
+    dev = params["embed"]["w"].device
+    state = init_decode_state(cfg, b, max_len, device=dev)
+    bs = cfg.gate.block_size
+    nb = l // bs
+    pos = torch.arange(l, device=dev)[None, :].expand(b, l)
+    x = params["embed"]["w"][tokens]
+    for i, lp in enumerate(params["blocks"]):
+        p = lp["attn"]
+        h = rms_norm(lp["ln1"], x, cfg.norm_eps)
+        q, k, v = _qkv(p, h, cfg)
+        qr = apply_rope(q, pos, cfg.rope_theta)
+        kr = apply_rope(k, pos, cfg.rope_theta)
+        o = chunked_attention(qr, kr, v, causal=cfg.causal, q_chunk=cfg.q_chunk,
+                              logit_softcap=cfg.attn_logit_softcap)
+        # the ONE-TIME layout conversion: seq-major activations ->
+        # head-major caches
+        state.k_cache[i, :, :, :l] = kr.transpose(1, 2)
+        state.v_cache[i, :, :, :l] = v.transpose(1, 2)
+        if state.kg_cache is not None and "gate" in p and nb:
+            kg = ag.gate_k(p["gate"], k[:, :nb * bs], cfg.gate)   # [B,nb,Hkv,Dg]
+            state.kg_cache[i, :, :, :nb] = kg.transpose(1, 2).to(state.kg_cache.dtype)
+        x = x + linear(p["wo"], o.reshape(b, l, -1))
+        x = x + mlp(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps), cfg.activation)
+        del q, k, v, qr, kr, o
+    state.cur_len.fill_(l)
+    if state.kg_n is not None:
+        state.kg_n.fill_(nb)
+    return _logits(params, x[:, -1], cfg), state
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
+                     k_cache, v_cache, kg_cache, kg_n, cur_len,
+                     options: DecodeOptions):
+    """One token. x1 [B,1,d]; caches for ONE layer HEAD-MAJOR [B,Hkv,S,Dh].
+    Returns (out, (k_cache, v_cache, kg_cache, kg_n), selection_aux).
+
+    Writes the new K/V at ``cur_len`` and advances the Kg cache with
+    ``new_len = cur_len + 1`` (in place); selects with ``n_valid =
+    visible_blocks(max(new_len, 1))`` and decodes with ``kv_len = new_len``.
+    """
+    b = x1.shape[0]
+    dh, hkv, g = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.gqa_group
+    bs = cfg.gate.block_size
+    policy = options.policy
+    sparse_on = _policy_active(policy, p)
+    q, k, v = _qkv(p, x1, cfg)
+    q_nope = q
+    pos = cur_len[:, None]                                 # [B,1]
+    qr = apply_rope(q, pos, cfg.rope_theta)
+    kr = apply_rope(k, pos, cfg.rope_theta)
+
+    bidx = torch.arange(b, device=x1.device)
+    k_cache[bidx, :, cur_len] = kr[:, 0]
+    v_cache[bidx, :, cur_len] = v[:, 0]
+    new_len = cur_len + 1
+
+    if sparse_on:
+        # the Kg cache only advances for the policy that reads it
+        if policy.needs_gate and "gate" in p and kg_cache is not None:
+            cache = kc.update_kcache(
+                kc.KCompressionCache(kg_cache, kg_n), p["gate"], k_cache,
+                new_len, cfg.gate, cache_is_roped=True,
+                rope_theta=cfg.rope_theta)
+            kg_cache, kg_n = cache.kg, cache.n_complete
+        inp = SelectionInputs(q_nope=q_nope, qr=qr, pos=pos, new_len=new_len,
+                              gate_params=p.get("gate"), kg=kg_cache,
+                              k_cache=k_cache)
+        idx = policy.select(inp, cfg, max_selected=options.max_selected(cfg))
+        qgrp = qr[:, 0].reshape(b, hkv, g, dh)
+        o = ops.sparse_decode(qgrp, k_cache, v_cache, idx, new_len, block_size=bs)
+        o = o.reshape(b, 1, hkv * g, dh)
+        aux = (_selection_aux(idx, kc.visible_blocks(
+                   torch.clamp_min(new_len, 1), bs), k_cache.shape[2] // bs)
+               if options.measure_sparsity else _zero_layer_aux(b, x1.device))
+    else:
+        o = decode_attention(qr, k_cache, v_cache, new_len,
+                             logit_softcap=cfg.attn_logit_softcap)
+        aux = (_dense_aux(new_len, bs) if options.measure_sparsity
+               else _zero_layer_aux(b, x1.device))
+    out = linear(p["wo"], o.reshape(b, 1, hkv * g * dh))
+    return out, (k_cache, v_cache, kg_cache, kg_n), aux
+
+
+def block_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, layer_state,
+                 cur_len: torch.Tensor, *, options: DecodeOptions):
+    k_cache, v_cache, kg_cache, kg_n = layer_state
+    h = rms_norm(p["ln1"], x1, cfg.norm_eps)
+    attn_out, new_state, aux = attention_decode(
+        p["attn"], h, cfg, k_cache=k_cache, v_cache=v_cache,
+        kg_cache=kg_cache, kg_n=kg_n, cur_len=cur_len, options=options)
+    x1 = x1 + attn_out
+    h2 = rms_norm(p["ln2"], x1, cfg.norm_eps)
+    return x1 + mlp(p["mlp"], h2, cfg.activation), new_state, aux
+
+
+def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
+                   cfg: ModelConfig, *,
+                   options: Optional[DecodeOptions] = None):
+    """token [B] -> (logits [B, V], DecodeState, aux dict).
+
+    The caches in ``state`` are updated in place; the returned state holds
+    the same cache tensors and ``cur_len + 1``. ``aux`` reports the
+    MEASURED selection of this step (sparsity/sel_blocks/vis_blocks),
+    averaged over layers."""
+    options = options if options is not None else default_options(cfg)
+    x1 = params["embed"]["w"][token[:, None]]
+    auxs = []
+    for i, lp in enumerate(params["blocks"]):
+        kg = state.kg_cache[i] if state.kg_cache is not None else None
+        kgn = state.kg_n[i] if state.kg_n is not None else None
+        x1, (_, _, _, new_n), aux = block_decode(
+            lp, x1, cfg, (state.k_cache[i], state.v_cache[i], kg, kgn),
+            state.cur_len, options=options)
+        if kgn is not None and new_n is not kgn:
+            kgn.copy_(new_n)
+        auxs.append(aux)
+    logits = _logits(params, x1, cfg)
+    new_state = state._replace(cur_len=state.cur_len + 1)
+    return logits[:, 0], new_state, aggregate_decode_aux(auxs)

@@ -1,0 +1,209 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU with ``nvcc`` (the kernels are built
+from ``src/repro_torch/kernels/csrc`` at first use): they carry the
+``cuda`` marker and skip with a reason where there is no card. Run them
+on a GPU machine with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+This file imports neither jax nor the reference package; the plain
+versions it compares against are themselves held against the JAX
+reference on the CPU (tests/test_torch_kernels.py, test_torch_engine.py).
+"""
+import ctypes
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import config as t_config
+from repro_torch.configs import get as t_get
+from repro_torch.convert import params_to
+from repro_torch.kernels import block_sparse_decode as bsd
+from repro_torch.kernels import build
+from repro_torch.kernels import gate_select as gs
+from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.cuda
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_GS = dict(block_size=8, d_gate=16, token_budget=32)
+GATES = [
+    t_config.GateConfig(**_GS, method="budget"),
+    t_config.GateConfig(**_GS, method="budget", always_first_block=False,
+                        always_last_block=False),
+    t_config.GateConfig(**_GS, method="threshold", threshold=5e-3),
+    t_config.GateConfig(**_GS, method="threshold", threshold=2e-2,
+                        always_first_block=False, always_last_block=False),
+]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def ids_agree(k_idx, p_idx, scores, rel=1e-5):
+    """Kernel ids == plain ids, except swaps of two blocks whose plain fp32
+    scores differ by < ``rel`` relative. Returns the number of such swaps."""
+    k_idx, p_idx, scores = (t.cpu().numpy() for t in (k_idx, p_idx, scores))
+    swaps = 0
+    for pos in zip(*np.nonzero(k_idx != p_idx)):
+        row, a, b = pos[:-1], k_idx[pos], p_idx[pos]
+        assert a >= 0 and b >= 0, (pos, a, b)
+        sa, sb = scores[row + (a,)], scores[row + (b,)]
+        assert abs(sa - sb) <= rel * max(abs(sa), abs(sb), 1e-30), (pos, sa, sb)
+        swaps += 1
+    return swaps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cfg", GATES, ids=range(len(GATES)))
+@pytest.mark.parametrize("shape", [(3, 2, 16, 16), (4, 8, 257, 128)])
+def test_gate_select_kernel_matches_plain(dev, dtype, cfg, shape):
+    b, hkv, nb, dg = shape
+    g = torch.Generator(device=dev).manual_seed(1)
+    qg = torch.randn(b, hkv, dg, generator=g, device=dev).to(dtype)
+    kg = torch.randn(b, hkv, nb, dg, generator=g, device=dev).to(dtype)
+    nv = torch.tensor(([nb, nb // 2 + 1, 1] * b)[:b], dtype=torch.int32, device=dev)
+    for ms in (None, 5):
+        k_idx = gs.gate_select_cuda(qg, kg, nv, cfg, ms)
+        p_idx = gs.gate_select_plain(qg, kg, nv, cfg, ms)
+        torch.cuda.synchronize()
+        assert k_idx.shape == p_idx.shape and k_idx.dtype == torch.int32
+        ids_agree(k_idx, p_idx, gs.gate_scores_plain(qg, kg, nv, cfg))
+
+
+def _sparse_inputs(dev, dtype, b, hkv, g, dh, nb, bs, nsel, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s = nb * bs
+    q = torch.randn(b, hkv, g, dh, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(dtype)
+    r = np.random.default_rng(seed)
+    idx = np.full((b, hkv, nsel), -1, np.int32)
+    kv_len = r.integers(s - bs + 1, s, size=(b,)).astype(np.int32)
+    for bi in range(b):
+        for hi in range(hkv):
+            n = r.integers(1, nsel + 1)
+            idx[bi, hi, :n] = r.choice(nb, n, replace=False)
+        idx[bi, :, 0] = (kv_len[bi] - 1) // bs
+    idx[0, 0, :] = -1                                  # a row with no valid key
+    return (q, k, v, torch.tensor(idx, device=dev),
+            torch.tensor(kv_len, device=dev))
+
+
+def _decode_limit(o_plain):
+    """chip_smoke.py's limit for the decode kernel: 8 ulps of max|o_plain|
+    in the output dtype, capped at 2e-2."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    return chip_smoke.decode_limit(o_plain)[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hkv,g,dh,nb,bs,nsel", [
+    (2, 2, 2, 16, 8, 8, 4),
+    (3, 1, 5, 32, 6, 16, 6),
+    (4, 8, 2, 128, 40, 64, 16),
+])
+def test_sparse_decode_kernel_matches_plain(dev, dtype, b, hkv, g, dh, nb, bs, nsel):
+    q, k, v, idx, kv_len = _sparse_inputs(dev, dtype, b, hkv, g, dh, nb, bs, nsel)
+    o_k = bsd.sparse_decode_cuda(q, k, v, idx, kv_len, block_size=bs)
+    o_p = bsd.sparse_decode_plain(q, k, v, idx, kv_len, block_size=bs)
+    torch.cuda.synchronize()
+    assert o_k.dtype == dtype
+    if dtype == torch.float32:
+        np.testing.assert_allclose(o_k.cpu().numpy(), o_p.cpu().numpy(),
+                                   atol=1e-5, rtol=1e-5)
+    else:
+        assert float((o_k.float() - o_p.float()).abs().max()) <= _decode_limit(o_p)
+    assert torch.equal(o_k[0, 0], torch.zeros_like(o_k[0, 0]))
+
+
+# one-line faults in the decode kernel's arithmetic: (source line, edit)
+MUTANTS = {
+    "no running-max rescale": ("const float alpha = expf(m_prev - m_new);",
+                               "const float alpha = 1.f;"),
+    "sum not rescaled": ("l_s[g] = alpha * l_s[g] + sum;", "l_s[g] = l_s[g] + sum;"),
+    "scale x 1.05": ("ps[pr] = (t < nt) ? s * scale", "ps[pr] = (t < nt) ? s * scale * 1.05f"),
+    "last selected block skipped": ("for (int j = 0; j < nsel; ++j) {",
+                                    "for (int j = 0; j < nsel - 1; ++j) {"),
+    "last key dropped from P.V": ("for (int t = 0; t < nt; ++t) a +=",
+                                  "for (int t = 0; t < nt - 1; ++t) a +="),
+}
+
+
+@pytest.mark.parametrize("mutant", list(MUTANTS))
+def test_decode_limit_rejects_a_faulty_kernel(dev, mutant, tmp_path, monkeypatch):
+    """The decode check of chip_smoke.py must reject a kernel with a fault
+    in its mathematics. The inputs have the main path's shape and layer-0
+    value scale: bf16 q, k, v ~ N(0, 1), so q.k/sqrt(Dh) ~ N(0, 1); 64
+    blocks of 64 selected out of 257 per (b, kv-head), the 1-token last
+    block among them, in random order. The outputs are then about 0.02, so
+    a fixed 2e-2 limit would pass most of these faults; the limit of 8
+    ulps of max|o_plain| must not. The correct kernel passes the same
+    check on the same inputs."""
+    old, new = MUTANTS[mutant]
+    src = (build.CSRC / "block_sparse_decode.cu").read_text()
+    assert src.count(old) == 1, mutant
+    cu = tmp_path / "mutant.cu"
+    cu.write_text(src.replace(old, new))
+    so = tmp_path / "mutant.so"
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+
+    b, hkv, g, dh, nb, bs, nsel = 4, 8, 2, 128, 257, 64, 64
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(b, hkv, g, dh, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(b, hkv, nb * bs, dh, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(b, hkv, nb * bs, dh, generator=gen, device=dev).to(torch.bfloat16)
+    r = np.random.default_rng(0)
+    idx = np.stack([np.concatenate([[0, nb - 1], r.choice(np.arange(1, nb - 1),
+                                                          nsel - 2, replace=False)])
+                    for _ in range(b * hkv)])
+    idx = np.stack([r.permutation(row) for row in idx]).reshape(b, hkv, nsel)
+    idx = torch.tensor(idx, dtype=torch.int32, device=dev)
+    kv_len = torch.full((b,), (nb - 1) * bs + 1, dtype=torch.int32, device=dev)
+
+    o_p = bsd.sparse_decode_plain(q, k, v, idx, kv_len, block_size=bs)
+    lim = _decode_limit(o_p)
+    o_k = bsd.sparse_decode_cuda(q, k, v, idx, kv_len, block_size=bs)
+    good = float((o_k.float() - o_p.float()).abs().max())
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    o_m = bsd.sparse_decode_cuda(q, k, v, idx, kv_len, block_size=bs)
+    torch.cuda.synchronize()
+    bad = float((o_m.float() - o_p.float()).abs().max())
+    print(f"[{mutant}] max|o_plain| {float(o_p.float().abs().max()):.4f}, limit "
+          f"{lim:.3e}: correct kernel {good:.3e}, faulty kernel {bad:.3e}")
+    assert good <= lim
+    assert bad > lim, f"{mutant}: error {bad} within the limit {lim}"
+
+
+def test_engine_cuda_matches_cpu_and_counts_launches(dev):
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import DecodeEngine
+    cfg = t_config.reduced(t_get("qwen3_0_6b")).replace(dtype="float32")
+    cfg = cfg.replace(gate=dataclasses.replace(cfg.gate, block_size=8, d_gate=16,
+                                               token_budget=32))
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 41))
+    cpu = DecodeEngine(cfg, params, max_len=64, device="cpu").generate(
+        {"tokens": toks}, 13)
+    gpu_params = params_to(params, dev)
+    ops.reset_launch_counts()
+    eng = DecodeEngine(cfg, gpu_params, max_len=64)
+    res = eng.generate({"tokens": toks}, 13)
+    assert ops.launch_counts() == {"gate_select": 2 * 12, "block_sparse_decode": 2 * 12}
+    np.testing.assert_array_equal(res["tokens"].cpu().numpy(), cpu["tokens"].numpy())
+
