@@ -3,15 +3,21 @@
 
     python3 chip_smoke.py            # from the repository root, one card
 
-The main path is gated block-sparse decoding of qwen3_0_6b at full width
-through ``DecodeEngine.generate``. Phases (any failure exits non-zero):
+Two main paths, gated block-sparse decoding of qwen3_0_6b at full width:
+the contiguous path through ``DecodeEngine.generate`` (kernels
+``gate_select`` and ``block_sparse_decode``) and the paged continuous-
+batching path through ``DecodeEngine.serve`` (kernels
+``gate_select_paged`` and ``block_sparse_decode_paged``). Phases (any
+failure exits non-zero):
 
-  1. the card's name and power limit (nvidia-smi); build both CUDA kernels
+  1. the card's name and power limit (nvidia-smi); build the CUDA kernels
      from ``src/repro_torch/kernels/csrc`` (one nvcc per source, started
      together) and print the build seconds and ptxas register/spill info;
   2. small-input agreement: the tiny config decoded on the card against
      the same engine on the CPU (plain PyTorch path, itself held against
-     the JAX reference by the CPU tests): tokens equal, logits close;
+     the JAX reference by the CPU tests): ``generate`` tokens equal and
+     logits close; ``serve`` with an ample and a tight (preempting) pool,
+     tokens equal and logits close;
   3. kernel vs plain on the card, on the tensors the main path gives
      layer 0 in its first decode step (captured from a real prefill +
      step): gate select for budget/threshold x force flags x n_valid
@@ -25,9 +31,26 @@ through ``DecodeEngine.generate``. Phases (any failure exits non-zero):
      from a seed, every launch counter set to 0 just before and read just
      after; each kernel must launch layers x decode steps times; all
      logits finite;
-  5. profile, last so that it cannot slow the timed run: a few decode
+  5. profile, after the timed run so that it cannot slow it: a few decode
      steps before, under and after torch.profiler, the top device kernels
-     and the device's busy share.
+     and the device's busy share;
+  6. serve: ``serve`` on qwen3_0_6b in bf16 (seed-0 weights, 4 slots, six
+     requests of 16384/12345/8191/4097/1500/63 numpy-seeded prompt tokens
+     and 32/24/40/16/48/8 new tokens), once with the default (ample) pool
+     and once with 644 pages, which forces a preemption. Launch counters
+     set to 0 just before each run and read just after: each paged kernel
+     must launch layers x decode steps times, the contiguous pair never;
+     every request retires with its tokens, the active rows' logits are
+     finite, the tight run preempts and resumes and reproduces the ample
+     run's tokens and logits;
+  7. the paged kernels against their plain versions on the tensors layer
+     0 of the ample run's first decode step gave them (captured during
+     that run), with the decode limit of phase 3, and timed the same way;
+     the library yardstick of the paged decode is dense SDPA over the
+     slots' ``gather_kv`` view, masked at each slot's length;
+  8. serve profile: the four longest requests on 4 slots, torch.profiler
+     over three whole decode iterations (model step and host scheduling),
+     the top device kernels and the device's busy share.
 
 The line before the last is a JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -56,6 +79,7 @@ from repro_torch.kernels import block_sparse_decode as bsd  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import gate_select as gs  # noqa: E402
 from repro_torch.models.transformer import init_lm  # noqa: E402
+from repro_torch.serve import paging as pg  # noqa: E402
 from repro_torch.serve.engine import DecodeEngine  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -68,6 +92,13 @@ TIE_REL = 1e-5            # a gate-select swap is accepted only below this gap
 # the main path: batch 4, a 16384-token prompt, 32 tokens per row (1 from
 # prefill + 31 decode steps), random weights and prompt from seed 0
 BATCH, PROMPT_LEN, NEW_TOKENS, SEED = 4, 16384, 32, 0
+# the serve phase: 4 slots, six requests (prompt tokens, new tokens) with
+# prompts from numpy seed 1, run with the default pool and with 644 pages
+# (the first four prompts' 642 pages, the null page and one more), which
+# the scheduler alone predicts to cost 62 decode steps either way and one
+# preemption (and resume) of the 16384-token request in the tight run
+SERVE_SLOTS, SERVE_SEED, TIGHT_PAGES = 4, 1, 644
+SERVE_SPECS = ((16384, 32), (12345, 24), (8191, 40), (4097, 16), (1500, 48), (63, 8))
 
 
 def fail(msg: str) -> None:
@@ -128,17 +159,31 @@ def decode_limit(o_plain):
     return min(DECODE_TOL, DECODE_ULPS * ulp), ulp, top
 
 
-def gate_bound_ms(qg, kg, nv, k_sel):
-    es = qg.element_size()
-    b, h, _, dg = kg.shape
-    rows = int(nv.sum().item()) * h
-    nbytes = qg.numel() * es + rows * dg * es + nv.numel() * 4 + b * h * k_sel * 4
-    ops_n = 2 * rows * dg
+def bound_ms(nbytes, ops_n):
+    """-> (least ms, "bytes" or "operations"): the larger of the bytes over
+    the HBM rate and the operations over the bf16 tensor-core rate."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_n / BF16_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def decode_bound_ms(q, idx, kv_len, block_size):
+def gate_work(qg, nv, k_sel):
+    """(bytes, operations) of gate select: q, the visible Kg rows, n_valid
+    and the ids written."""
+    es = qg.element_size()
+    b, h, dg = qg.shape
+    rows = int(nv.sum().item()) * h
+    nbytes = qg.numel() * es + rows * dg * es + nv.numel() * 4 + b * h * k_sel * 4
+    return nbytes, 2 * rows * dg
+
+
+def gate_bound_ms(qg, nv, k_sel):
+    return bound_ms(*gate_work(qg, nv, k_sel))
+
+
+def decode_work(q, idx, kv_len, block_size):
+    """(bytes, operations) of the block-sparse decode: q and the output,
+    the ids, kv_len, and the K and V rows of the valid tokens of the
+    selected blocks (what this run's data needs)."""
     es = q.element_size()
     b, h, g, dh = q.shape
     ix = idx.long().cpu()
@@ -146,9 +191,23 @@ def decode_bound_ms(q, idx, kv_len, block_size):
     tokens = torch.clamp(lens - ix * block_size, 0, block_size)
     tokens = int(torch.where(ix >= 0, tokens, 0).sum())
     nbytes = 2 * q.numel() * es + idx.numel() * 4 + b * 4 + 2 * tokens * dh * es
-    ops_n = 4 * g * dh * tokens
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_n / BF16_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return nbytes, 4 * g * dh * tokens
+
+
+def decode_bound_ms(q, idx, kv_len, block_size):
+    return bound_ms(*decode_work(q, idx, kv_len, block_size))
+
+
+def paged_decode_bound_ms(q, idx, kv_len, block_size):
+    """The contiguous decode's work plus one 4-byte page-table entry for
+    each distinct (slot, block) that holds valid tokens."""
+    nbytes, ops_n = decode_work(q, idx, kv_len, block_size)
+    ix = idx.long().cpu()
+    live = (ix >= 0) & (ix * block_size < kv_len.long().cpu()[:, None, None])
+    b = ix.shape[0]
+    keys = torch.where(live, torch.arange(b)[:, None, None] * (1 << 32) + ix, -1)
+    n_entries = int(torch.unique(keys[keys >= 0]).numel())
+    return bound_ms(nbytes + 4 * n_entries, ops_n)
 
 
 def phase_build():
@@ -183,6 +242,26 @@ def phase_small():
              f"logits max abs diff {err:.3e} (limit 1e-4)")
     print(f"small-input agreement (tiny qwen3, fp32, 2x41 prompt, 12 steps): "
           f"tokens equal, logits max abs diff {err:.3e}")
+
+    # serve(): three ragged requests on 3 slots, ample pool and 8 pages
+    r = np.random.default_rng(4)
+    reqs = [{"rid": i, "max_new_tokens": m,
+             "tokens": r.integers(0, cfg.vocab_size, size=(p,)).astype(np.int32)}
+            for i, (p, m) in enumerate([(20, 12), (18, 10), (22, 9)])]
+    engines = {dev: DecodeEngine(cfg, params_to(params, dev), max_len=64, device=dev)
+               for dev in ("cpu", "cuda")}
+    for pool in (None, 8):
+        res = {dev: e.serve(reqs, n_slots=3, num_pages=pool, collect_logits=True)
+               for dev, e in engines.items()}
+        same = all(res["cpu"][i] == res["cuda"][i] for i in range(len(reqs)))
+        err = max(float(np.abs(res["cpu"]["logits"][i] - res["cuda"]["logits"][i]).max())
+                  for i in range(len(reqs)))
+        pre = res["cuda"]["stats"]["preemptions"]
+        if not same or err > 1e-4 or (pre > 0) != (pool is not None):
+            fail(f"small serve agreement (pool {pool}): tokens equal {same}, logits "
+                 f"max abs diff {err:.3e} (limit 1e-4), preemptions {pre}")
+        print(f"small serve agreement (pool {pool or 'default'}, 3 requests on 3 slots): "
+              f"tokens equal, logits max abs diff {err:.3e}, preemptions {pre}")
 
 
 def capture_layer0(eng, batch):
@@ -275,7 +354,7 @@ def phase_kernels(seen):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t_lib = time_ms(lambda: sdpa(qs, ks, vs, enable_gqa=True))
     k_sel = gs.n_selected(gcfg, nb, ms)
-    gb, gby = gate_bound_ms(qg, kg, nv, k_sel)
+    gb, gby = gate_bound_ms(qg, nv, k_sel)
     db, dby = decode_bound_ms(q, idx, kv_len, bs)
     print(f"gate_select: kernel {t_gk:.4f} ms, plain {t_gp:.4f} ms, bound {gb:.5f} ms ({gby})")
     print(f"block_sparse_decode: kernel {t_dk:.4f} ms, plain {t_dp:.4f} ms, "
@@ -359,10 +438,11 @@ def phase_end_to_end(eng, batch, n_new, n_layers):
           f"(sel {stats['sel_blocks']:.1f} of {stats['vis_blocks']:.1f} blocks), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     print(f"launch counts over generate: {counts} (expected {n_layers} x {n_steps} = "
-          f"{n_layers * n_steps} each)")
+          f"{n_layers * n_steps} for each contiguous kernel, 0 for the paged ones)")
     for name, c in counts.items():
-        if c != n_layers * n_steps:
-            fail(f"{name} launched {c} times, expected {n_layers * n_steps}")
+        want = 0 if name.endswith("_paged") else n_layers * n_steps
+        if c != want:
+            fail(f"{name} launched {c} times, expected {want}")
     if len(finite) != n_steps or not bool(torch.stack(finite).all()):
         fail("non-finite logits in the decode steps")
     toks = res["tokens"]
@@ -370,6 +450,259 @@ def phase_end_to_end(eng, batch, n_new, n_layers):
             or int(toks.max()) >= eng.cfg.vocab_size:
         fail(f"bad tokens: shape {tuple(toks.shape)}")
     return counts
+
+
+def serve_requests(vocab):
+    rng = np.random.default_rng(SERVE_SEED)
+    return [{"rid": i, "max_new_tokens": m,
+             "tokens": rng.integers(0, vocab, size=(p,)).astype(np.int32)}
+            for i, (p, m) in enumerate(SERVE_SPECS)]
+
+
+def capture_paged_layer0():
+    """Patch the paged dispatchers so that their FIRST call (layer 0 of the
+    first decode step) keeps a copy of its arguments; the pools are updated
+    in place later, so tensors are cloned. Returns (seen, restore)."""
+    seen = {}
+    real = (ops.gate_select_paged, ops.paged_sparse_decode)
+
+    def grab(name, fn):
+        def wrapper(*a, **kw):
+            if name not in seen:
+                seen[name] = (tuple(x.clone() if torch.is_tensor(x) else x for x in a), kw)
+            return fn(*a, **kw)
+        return wrapper
+
+    ops.gate_select_paged = grab("gate_select_paged", real[0])
+    ops.paged_sparse_decode = grab("paged_sparse_decode", real[1])
+
+    def restore():
+        ops.gate_select_paged, ops.paged_sparse_decode = real
+    return seen, restore
+
+
+def run_serve(eng, reqs, num_pages, n_layers):
+    """One serve() with the launch counters at 0 just before and read just
+    after, and the prefill time taken apart (synchronised)."""
+    prefill = eng._paged_prefill
+    spent = [0.0]
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(*a, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    eng._paged_prefill = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        res = eng.serve(reqs, n_slots=SERVE_SLOTS, num_pages=num_pages, collect_logits=True)
+    finally:
+        counts = ops.launch_counts()
+        eng._paged_prefill = prefill
+    st = res["stats"]
+    steps = st["decode_steps"]
+    decode_s = st["wall_s"] - spent[0]
+    decode_toks = st["generated_tokens"] - st["admitted"]
+    print(f"serve (pool {st['num_pages']} pages): wall {st['wall_s']:.2f} s, prefill "
+          f"{spent[0]:.2f} s, {steps} decode steps, decode {1e3 * decode_s / steps:.2f} ms/step, "
+          f"{decode_toks / decode_s:.1f} decode tok/s, {st['tok_per_s']:.1f} tok/s over the "
+          f"wall; peak pages {st['peak_pages_used']}, preemptions {st['preemptions']}, resumed "
+          f"{st['resumed']}, swapped out {st['swapped_out_bytes']} B, in "
+          f"{st['swapped_in_bytes']} B; mean active slots {st['mean_active_slots']:.2f}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    print(f"serve measured sparsity by rid: "
+          + ", ".join(f"{k}: {v:.4f}" for k, v in st["sparsity_by_rid"].items())
+          + f"; launch counts {counts}")
+    want = {"gate_select": 0, "block_sparse_decode": 0,
+            "gate_select_paged": n_layers * steps, "block_sparse_decode_paged": n_layers * steps}
+    if counts != want:
+        fail(f"serve launch counts {counts}, expected {want}")
+    if st["retired"] != len(reqs) or st["failed"] or st["errors"]:
+        fail(f"serve: retired {st['retired']} of {len(reqs)}, errors {st['errors']}")
+    for r in reqs:
+        got = res[r["rid"]]
+        if len(got) != r["max_new_tokens"] or min(got) < 0 or max(got) >= eng.cfg.vocab_size:
+            fail(f"serve rid {r['rid']}: {len(got)} tokens, expected {r['max_new_tokens']}")
+        if not np.isfinite(res["logits"][r["rid"]]).all():
+            fail(f"serve rid {r['rid']}: non-finite logits")
+    return res, counts, spent[0]
+
+
+def phase_serve(cfg, params):
+    """serve() at full width, ample pool then tight pool; layer-0 paged
+    kernel arguments captured from the ample run's first decode step."""
+    reqs = serve_requests(cfg.vocab_size)
+    eng = DecodeEngine(cfg, params, max_len=max(p + m for p, m in SERVE_SPECS))
+    seen, restore = capture_paged_layer0()
+    try:
+        ample, counts, _ = run_serve(eng, reqs, None, cfg.num_layers)
+    finally:
+        restore()
+    if ample["stats"]["preemptions"]:
+        fail("the ample pool preempted")
+    tight, _, _ = run_serve(eng, reqs, TIGHT_PAGES, cfg.num_layers)
+    st = tight["stats"]
+    if st["preemptions"] < 1 or st["resumed"] != st["preemptions"]:
+        fail(f"tight pool: preemptions {st['preemptions']}, resumed {st['resumed']}")
+    worst = 0.0
+    for r in reqs:
+        rid = r["rid"]
+        if tight[rid] != ample[rid]:
+            fail(f"tight pool changed rid {rid}'s tokens")
+        a, b = ample["logits"][rid], tight["logits"][rid]
+        if not np.array_equal(a, b):
+            top = float(np.abs(a).max())
+            ulp = 2.0 ** -7 * 2.0 ** math.floor(math.log2(top))
+            worst = max(worst, float(np.abs(a - b).max()) / ulp)
+    if worst > DECODE_ULPS:
+        fail(f"tight pool logits differ by {worst:.2f} bf16 ulps (limit {DECODE_ULPS})")
+    print(f"tight pool reproduces the ample run: tokens equal for every rid, logits "
+          + ("bitwise equal" if worst == 0 else f"within {worst:.2f} bf16 ulps"))
+    return counts, seen
+
+
+def phase_paged_kernels(seen):
+    """Paged kernels vs plain on the serve path's layer-0 tensors; timings."""
+    (qg, kgp, pt, nv, gcfg, ms), _ = seen["gate_select_paged"]
+    (q, kp, vp, idx, pt_d, kv_len), kw = seen["paged_sparse_decode"]
+    bs = kw["block_size"]
+    npt = pt.shape[1]
+    print(f"serve layer-0 shapes: qg {tuple(qg.shape)} kg_pages {tuple(kgp.shape)} page_table "
+          f"{tuple(pt.shape)} n_valid {nv.tolist()} | q {tuple(q.shape)} pools "
+          f"{tuple(kp.shape)} idx {tuple(idx.shape)} kv_len {kv_len.tolist()} ({kp.dtype})")
+    # a copy of the pools with the physical pages shuffled under the table:
+    # the kernels read through the table, so their outputs must not move
+    n_pages = kp.shape[0]
+    perm = torch.cat([torch.zeros(1, dtype=torch.long),
+                      1 + torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(0))]
+                     ).to(kp.device)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(n_pages, device=kp.device)
+    pt_s, pt_ds = perm[pt.long()].int(), perm[pt_d.long()].int()
+    kgp_s, kp_s, vp_s = kgp[inv], kp[inv], vp[inv]
+
+    swaps = checks = 0
+    gate_err = 0.0
+    part = torch.clamp(nv // 2 + 1, max=npt).to(torch.int32)
+    for method in ("budget", "threshold"):
+        for ff, fl in ((True, True), (False, True), (False, False)):
+            c = dataclasses.replace(gcfg, method=method, always_first_block=ff,
+                                    always_last_block=fl)
+            for n_valid in (nv, part, torch.ones_like(nv)):
+                k_idx = gs.gate_select_paged_cuda(qg, kgp, pt, n_valid, c, ms)
+                p_idx = gs.gate_select_paged_plain(qg, kgp, pt, n_valid, c, ms)
+                s_idx = gs.gate_select_paged_cuda(qg, kgp_s, pt_s, n_valid, c, ms)
+                torch.cuda.synchronize()
+                if not torch.equal(k_idx, s_idx):
+                    fail("gate_select_paged: shuffled pages changed the ids")
+                scores = gs.gate_scores_plain(qg, pg.gather_kg(kgp, pt), n_valid, c)
+                sw, gap = compare_ids(k_idx, p_idx, scores)
+                swaps += sw
+                gate_err = max(gate_err, gap)
+                checks += 1
+    print(f"gate_select_paged: {checks} cases (budget/threshold x force flags x n_valid "
+          f"captured/partial/1) equal to plain, and to the kernel over shuffled pages; "
+          f"near-tie swaps {swaps}")
+
+    pad = idx.clone()
+    pad[:, :, idx.shape[-1] // 2:] = -1
+    thr = gs.gate_select_paged_plain(qg, kgp, pt, nv,
+                                     dataclasses.replace(gcfg, method="threshold"), ms)
+    dec_err = 0.0
+    for name, qq, ix in (("captured", q, idx), ("half -1 padding", q, pad),
+                         ("threshold", q, thr), ("q x 8", q * 8, idx)):
+        o_k = bsd.sparse_decode_paged_cuda(qq, kp, vp, ix, pt_d, kv_len, block_size=bs)
+        o_p = bsd.sparse_decode_paged_plain(qq, kp, vp, ix, pt_d, kv_len, block_size=bs)
+        o_s = bsd.sparse_decode_paged_cuda(qq, kp_s, vp_s, ix, pt_ds, kv_len, block_size=bs)
+        torch.cuda.synchronize()
+        if not torch.equal(o_k, o_s):
+            fail(f"block_sparse_decode_paged [{name}]: shuffled pages changed the output")
+        err = float((o_k.float() - o_p.float()).abs().max())
+        lim, ulp, top = decode_limit(o_p)
+        print(f"block_sparse_decode_paged [{name}, {int((ix < 0).sum())} padding slots]: "
+              f"max abs err {err:.3e} = {err / ulp if ulp else 0.0:.3g} ulp of max|o_plain| "
+              f"{top:.4f} (limit {lim:.3e}); shuffled pages bitwise equal")
+        if not err <= lim:
+            fail(f"block_sparse_decode_paged disagrees with plain [{name}]: {err} > {lim}")
+        dec_err = max(dec_err, err)
+    if int(kv_len[0]) % bs == 0:
+        fail("expected a partial last block at the captured kv_len")
+    del kgp_s, kp_s, vp_s
+
+    t_gk = time_ms(lambda: gs.gate_select_paged_cuda(qg, kgp, pt, nv, gcfg, ms))
+    t_gp = time_ms(lambda: gs.gate_select_paged_plain(qg, kgp, pt, nv, gcfg, ms))
+    t_dk = time_ms(lambda: bsd.sparse_decode_paged_cuda(q, kp, vp, idx, pt_d, kv_len,
+                                                        block_size=bs))
+    t_dp = time_ms(lambda: bsd.sparse_decode_paged_plain(q, kp, vp, idx, pt_d, kv_len,
+                                                         block_size=bs))
+    # yardstick: dense SDPA over the slots' gathered view (the gather is
+    # not timed), each slot masked at its length, K/V heads expanded
+    s_, hkv, g, dh = q.shape
+    kc, vc = pg.gather_kv(kp, pt_d), pg.gather_kv(vp, pt_d)
+    ke, ve = kc.repeat_interleave(g, dim=1), vc.repeat_interleave(g, dim=1)
+    mask = (torch.arange(kc.shape[2], device=q.device)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    qs = q.reshape(s_, hkv * g, 1, dh)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_lib = time_ms(lambda: sdpa(qs, ke, ve, attn_mask=mask))
+    del kc, vc, ke, ve
+    k_sel = gs.n_selected(gcfg, npt, ms)
+    gbytes, gops = gate_work(qg, nv, k_sel)
+    gb, gby = bound_ms(gbytes + 4 * int(nv.sum()), gops)     # + page-table entries
+    db, dby = paged_decode_bound_ms(q, idx, kv_len, bs)
+    print(f"gate_select_paged: kernel {t_gk:.4f} ms, plain {t_gp:.4f} ms, bound {gb:.5f} ms ({gby})")
+    print(f"block_sparse_decode_paged: kernel {t_dk:.4f} ms, plain {t_dp:.4f} ms, bound "
+          f"{db:.5f} ms ({dby}), SDPA dense over the gathered view (masked at kv_len) "
+          f"{t_lib:.4f} ms")
+    return {
+        "gate_select_paged": dict(max_abs_err=gate_err, ms=t_gk, plain_ms=t_gp,
+                                  bound_ms=gb, bound_by=gby, library_ms=None),
+        "block_sparse_decode_paged": dict(max_abs_err=dec_err, ms=t_dk, plain_ms=t_dp,
+                                          bound_ms=db, bound_by=dby, library_ms=t_lib),
+    }
+
+
+def phase_serve_profile(cfg, params, skip: int = 2, steps: int = 3):
+    """Where a serve() decode iteration's time goes: torch.profiler from the
+    start of decode step ``skip`` to the start of step ``skip + steps``, so
+    the window holds whole iterations (the model step, the argmax copy and
+    the host's scheduling), with every slot busy."""
+    from torch.profiler import ProfilerActivity, profile
+    reqs = [dict(r, max_new_tokens=skip + steps + 2)
+            for r in serve_requests(cfg.vocab_size)[:SERVE_SLOTS]]
+    eng = DecodeEngine(cfg, params, max_len=max(p for p, _ in SERVE_SPECS) + 8)
+    real = eng.api.decode_step_paged
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    calls, wall = [0], [0.0]
+
+    def step(*a, **kw):
+        if calls[0] == skip:
+            prof.start()
+            torch.cuda.synchronize()
+            wall[0] = time.perf_counter()
+        elif calls[0] == skip + steps:
+            torch.cuda.synchronize()
+            wall[0] = time.perf_counter() - wall[0]
+            prof.stop()
+        calls[0] += 1
+        return real(*a, **kw)
+
+    eng.api = eng.api._replace(decode_step_paged=step)
+    eng.serve(reqs, n_slots=SERVE_SLOTS)
+    ka = prof.key_averages()
+    kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps   # ms/step
+    per_step = 1e3 * wall[0] / steps
+    print(ka.table(sort_by="self_device_time_total", row_limit=15))
+    print(f"serve profile ({SERVE_SLOTS} slots busy, {steps} iterations): {per_step:.2f} ms "
+          f"per iteration under the profiler; device busy {busy:.2f} ms/iteration = "
+          f"{100 * busy / per_step:.1f}% of it; "
+          f"{sum(e.count for e in kernels) / steps:.0f} kernel launches/iteration")
 
 
 def main() -> int:
@@ -408,12 +741,28 @@ def main() -> int:
 
     counts = phase_end_to_end(eng, batch, NEW_TOKENS, cfg.num_layers)
     phase_profile(eng, batch)
+    del eng
+    torch.cuda.empty_cache()
+
+    print(f"serve: {SERVE_SLOTS} slots, (prompt, new tokens) {list(SERVE_SPECS)}, "
+          f"prompts from seed {SERVE_SEED}; default pool, then {TIGHT_PAGES} pages")
+    serve_counts, seen = phase_serve(cfg, params)
+    numbers.update(phase_paged_kernels(seen))
+    del seen
+    counts = {**counts, **{k: serve_counts[k] for k in
+                           ("gate_select_paged", "block_sparse_decode_paged")}}
+    torch.cuda.empty_cache()
+    phase_serve_profile(cfg, params)
 
     meta = {
         "gate_select": ("src/repro_torch/kernels/csrc/gate_select.cu",
                         "src/repro/kernels/gate_select.py:133"),
         "block_sparse_decode": ("src/repro_torch/kernels/csrc/block_sparse_decode.cu",
                                 "src/repro/kernels/block_sparse_decode.py:222"),
+        "gate_select_paged": ("src/repro_torch/kernels/csrc/gate_select.cu",
+                              "src/repro/kernels/gate_select.py:218"),
+        "block_sparse_decode_paged": ("src/repro_torch/kernels/csrc/block_sparse_decode.cu",
+                                      "src/repro/kernels/block_sparse_decode.py:285"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **numbers[name])

@@ -1,7 +1,7 @@
 """Block-selection policies + the ``DecodeOptions`` decode API (port slice).
 
-The JAX package's ``core/policy.py``, reduced to what the contiguous gated
-decode path needs:
+The JAX package's ``core/policy.py``, reduced to what the gated decode
+paths (contiguous and paged) need:
 
   GatePolicy     the paper's learned gate: gate query -> fused gate score +
                  top-k over the K-compression cache (kernels/gate_select)
@@ -10,8 +10,9 @@ decode path needs:
 ``DecodeOptions`` is frozen (hashable) and threaded engine -> model ->
 kernels, as in the reference. Kernel choice is NOT an option here: the
 kernel wrappers dispatch on the device of the tensors they are given
-(``kernels/ops.py``). The schedule, quantize, eviction and split-k fields
-of the reference arrive with their slices.
+(``kernels/ops.py``). The schedule, eviction and split-k fields of the
+reference arrive with their slices; ``quantize`` exists and refuses
+"int8" until the int8 slice.
 """
 from __future__ import annotations
 
@@ -26,21 +27,28 @@ from repro_torch.serve.sampling import GREEDY, SamplingParams
 
 
 class SelectionInputs(NamedTuple):
-    """Everything a selection policy may consume for ONE decode step
-    (contiguous views only in this slice; all caches HEAD-MAJOR)."""
+    """Everything a selection policy may consume for ONE decode step.
+    Contiguous and paged decode fill different cache views (the unused
+    ones stay None); all caches HEAD-MAJOR."""
     q_nope: torch.Tensor                 # [B, 1, H, Dh] pre-rope queries
     qr: torch.Tensor                     # [B, 1, H, Dh] post-rope queries
     pos: torch.Tensor                    # [B, 1] query positions
     new_len: torch.Tensor                # [B] kv length incl. the new token
     gate_params: Optional[Dict[str, Any]] = None   # per-layer gate or None
+    # contiguous views
     kg: Optional[torch.Tensor] = None           # [B, Hkv, nb, Dg]
     k_cache: Optional[torch.Tensor] = None      # [B, Hkv, S, Dh] post-rope
+    # paged views
+    kg_pages: Optional[torch.Tensor] = None     # [P, Hkv, Dg]
+    k_pages: Optional[torch.Tensor] = None      # [P, Hkv, ps, Dh] post-rope
+    page_table: Optional[torch.Tensor] = None   # [B, npt] int32
 
 
 @dataclasses.dataclass(frozen=True)
 class GatePolicy:
     """The paper's learned AttnGate (default): the gate query scores the
-    Kg cache through the fused gate-select kernel."""
+    Kg cache (contiguous) or the Kg page pool through the page table
+    (paged) with the fused gate-select kernels."""
     dense = False
     needs_gate = True
 
@@ -52,8 +60,11 @@ class GatePolicy:
         qg = ag.gate_q(inp.gate_params, inp.q_nope, inp.pos, cfg.gate)[:, 0]
         n_valid = kc.visible_blocks(torch.clamp_min(inp.new_len, 1),
                                     cfg.gate.block_size)
-        return ops.gate_select(qg, inp.kg, n_valid.to(torch.int32), cfg.gate,
-                               max_selected)
+        n_valid = n_valid.to(torch.int32)
+        if inp.kg is not None:
+            return ops.gate_select(qg, inp.kg, n_valid, cfg.gate, max_selected)
+        return ops.gate_select_paged(qg, inp.kg_pages, inp.page_table, n_valid,
+                                     cfg.gate, max_selected)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,13 +88,20 @@ class DecodeOptions:
                       (None = config budget)
     measure_sparsity: compute the measured selection telemetry (aux) in
                       every decode step
+    quantize:         page-pool storage (None = the working dtype; the
+                      reference's "int8" pools are a later slice)
     """
     policy: Any = GatePolicy()
     sampling: SamplingParams = GREEDY
     budget_override: Optional[int] = None
     measure_sparsity: bool = True
+    quantize: Optional[str] = None
 
     def __post_init__(self):
+        if self.quantize is not None:
+            raise NotImplementedError(
+                f"quantize={self.quantize!r}: int8 pools (Queue A item 8) "
+                "are not ported")
         if self.budget_override is not None and self.budget_override <= 0:
             raise ValueError(
                 f"budget_override must be positive: {self.budget_override}")

@@ -1,9 +1,12 @@
-// Block-sparse flash decoding over a contiguous head-major KV cache
+// Block-sparse flash decoding over a head-major KV cache or page pool
 // (Hopper, sm_90a).
 //
-// Replaces the TPU kernel src/repro/kernels/block_sparse_decode.py::
-// block_sparse_decode (fp body _kernel -> _flash_group -> _flash_accum).
-// Same contract:
+// Replaces two TPU kernels of src/repro/kernels/block_sparse_decode.py:
+//   block_sparse_decode        (fp body _kernel -> _flash_group ->
+//                              _flash_accum): block_sparse_decode_launch;
+//   block_sparse_decode_paged  (fp body _kernel_paged): the same body over
+//                              the page pools, block_sparse_decode_paged_launch.
+// Contiguous contract:
 //   q        [B, Hkv, G, Dh]    one new query token, grouped per kv head
 //   k, v     [B, Hkv, S, Dh]    post-rope caches (bf16 or fp32, same as q)
 //   idx      [B, Hkv, nsel]     int32 selected block ids, -1 = padding
@@ -13,6 +16,15 @@
 // positions >= kv_len are masked, scale 1/sqrt(Dh), fp32 online softmax
 // and accumulation, normalised by max(l, 1e-30): a row with no valid key
 // gives 0.
+//
+// Paged contract: k, v are the pools [P, Hkv, ps, Dh] with ps == bs, and
+// page_table [B, npt] int32 maps a LOGICAL block id to its physical page.
+// Selected ids stay logical: the block's base address becomes
+// ((page_table[b, blk] * Hkv + h) * ps) * Dh (the page id clamped at 0, as
+// the reference's kv_map does) in place of the cache row blk*bs, while the
+// masking stays in logical positions (t0 = blk*bs against kv_len), as
+// _kernel_paged does. One page is one contiguous [ps, Dh] range, so the
+// copy is the contiguous kernel's.
 //
 // Design: one CTA per (b, kv-head) loops over its nsel selected blocks. A
 // block's K and V rows [bs, Dh] are one contiguous range of the head-major
@@ -28,7 +40,8 @@
 //
 // Bound on the H100: at the main path's shape (B=4, Hkv=8, k=64 blocks x
 // 64 tokens x Dh 128, bf16, K+V) one call must read ~67 MB: ~20 us at
-// 3.35 TB/s. This simple kernel does not reach it: B*Hkv = 32 CTAs run on
+// 3.35 TB/s (the paged entry point adds 4 bytes of page table per selected
+// block). This simple kernel does not reach it: B*Hkv = 32 CTAs run on
 // 32 of the 132 SMs, and each CTA waits for a block's loads before it
 // computes on them, so at most one block per CTA is in flight (no
 // cp.async/TMA pipeline across blocks, no split across SMs, no wgmma).
@@ -93,12 +106,26 @@ __device__ __forceinline__ void load_kv(T* ks, T* vs, const T* __restrict__ kg,
   }
 }
 
-template <typename T>
+// Offset of the first element of logical block blk of (b, h): a row range
+// of the contiguous cache [B, H, S, Dh], or a page of the pool [P, H, ps, Dh]
+// through the page table (npt entries per row).
+template <bool Paged>
+__device__ __forceinline__ size_t block_offset(const int* __restrict__ page_table, int b, int h,
+                                               int H, int S, int npt, int Dh, int bs, int blk) {
+  if (Paged) {
+    const int phys = max(page_table[(size_t)b * npt + blk], 0);
+    return ((size_t)phys * H + h) * bs * Dh;
+  }
+  return (((size_t)b * H + h) * S + (size_t)blk * bs) * Dh;
+}
+
+template <typename T, bool Paged>
 __global__ void __launch_bounds__(kThreads)
 block_sparse_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                            const T* __restrict__ vc, const int* __restrict__ idx,
+                           const int* __restrict__ page_table,
                            const int* __restrict__ kv_len, T* __restrict__ out, int H, int G,
-                           int Dh, int S, int nsel, int bs, float scale, int vec) {
+                           int Dh, int S, int npt, int nsel, int bs, float scale, int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int GD = G * Dh;
   float* qs = reinterpret_cast<float*>(smem_raw);  // [G*Dh]
@@ -111,11 +138,9 @@ block_sparse_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   T* vs = ks + (size_t)bs * Dh;                  // [bs*Dh]
 
   const int bh = blockIdx.x;
-  const int b = bh / H;
+  const int b = bh / H, h = bh - b * H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = kv_len[b];
-  const T* kbase = kc + (size_t)bh * S * Dh;
-  const T* vbase = vc + (size_t)bh * S * Dh;
   const int* irow = idx + (size_t)bh * nsel;
 
   for (int e = tid; e < GD; e += kThreads) qs[e] = to_f32(q[(size_t)bh * GD + e]);
@@ -134,7 +159,8 @@ block_sparse_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     int nt = min(bs, min(len, S) - t0);          // valid rows of this block
     if (nt <= 0) continue;                       // wholly past kv_len: adds nothing
     __syncthreads();                             // previous block done with ks/vs/ps
-    load_kv(ks, vs, kbase + (size_t)t0 * Dh, vbase + (size_t)t0 * Dh, nt * Dh, vec != 0);
+    const size_t boff = block_offset<Paged>(page_table, b, h, H, S, npt, Dh, bs, blk);
+    load_kv(ks, vs, kc + boff, vc + boff, nt * Dh, vec != 0);
     __syncthreads();
 
     // scores s[g][t] = q[g] . k[t] * scale, masked past kv_len
@@ -200,25 +226,43 @@ block_sparse_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* idx, const void* kv_len,
-           void* out, int B, int H, int G, int Dh, int S, int nsel, int bs, float scale,
-           cudaStream_t stream) {
+template <typename T, bool Paged>
+int launch(const void* q, const void* k, const void* v, const void* idx, const void* page_table,
+           const void* kv_len, void* out, int B, int H, int G, int Dh, int S, int npt, int nsel,
+           int bs, float scale, cudaStream_t stream) {
   const size_t head = ((size_t)(G * Dh + G * bs + 3 * G) * sizeof(float) + 15) & ~(size_t)15;
   const size_t smem = head + 2 * (size_t)bs * Dh * sizeof(T);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(block_sparse_decode_kernel<T>,
+    cudaError_t e = cudaFuncSetAttribute(block_sparse_decode_kernel<T, Paged>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int vec = ((uintptr_t)k % 16 == 0) && ((uintptr_t)v % 16 == 0) &&
                   ((Dh * sizeof(T)) % 16 == 0);
-  block_sparse_decode_kernel<T><<<B * H, kThreads, smem, stream>>>(
+  block_sparse_decode_kernel<T, Paged><<<B * H, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(idx), static_cast<const int*>(kv_len), static_cast<T*>(out), H, G,
-      Dh, S, nsel, bs, scale, vec);
+      static_cast<const int*>(idx), static_cast<const int*>(page_table),
+      static_cast<const int*>(kv_len), static_cast<T*>(out), H, G, Dh, S, npt, nsel, bs, scale,
+      vec);
   return (int)cudaGetLastError();
+}
+
+template <bool Paged>
+int dispatch(const void* q, const void* k, const void* v, const void* idx,
+             const void* page_table, const void* kv_len, void* out, int B, int H, int G, int Dh,
+             int S, int npt, int nsel, int bs, float scale, int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || G <= 0 || Dh <= 0 || S <= 0 || nsel <= 0 || bs <= 0 ||
+      (Paged && npt <= 0) || G * Dh > kThreads * kMaxPerThread)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, Paged>(q, k, v, idx, page_table, kv_len, out, B, H, G, Dh, S, npt,
+                                nsel, bs, scale, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, Paged>(q, k, v, idx, page_table, kv_len, out, B, H, G, Dh, S,
+                                        npt, nsel, bs, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -229,15 +273,18 @@ extern "C" {
 int block_sparse_decode_launch(const void* q, const void* k, const void* v, const void* idx,
                                const void* kv_len, void* out, int B, int H, int G, int Dh, int S,
                                int nsel, int bs, float scale, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || G <= 0 || Dh <= 0 || S <= 0 || nsel <= 0 || bs <= 0 ||
-      G * Dh > kThreads * kMaxPerThread)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k, v, idx, kv_len, out, B, H, G, Dh, S, nsel, bs, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, idx, kv_len, out, B, H, G, Dh, S, nsel, bs, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(q, k, v, idx, nullptr, kv_len, out, B, H, G, Dh, S, 0, nsel, bs, scale,
+                         dtype, stream);
+}
+
+// k_pages, v_pages [P, H, ps, Dh] with ps == bs; page_table [B, npt]. Blocks
+// are masked in logical positions against kv_len, up to npt * ps.
+int block_sparse_decode_paged_launch(const void* q, const void* k_pages, const void* v_pages,
+                                     const void* idx, const void* page_table, const void* kv_len,
+                                     void* out, int B, int H, int G, int Dh, int npt, int nsel,
+                                     int bs, float scale, int dtype, void* stream) {
+  return dispatch<true>(q, k_pages, v_pages, idx, page_table, kv_len, out, B, H, G, Dh, npt * bs,
+                        npt, nsel, bs, scale, dtype, stream);
 }
 
 const char* repro_error_string(int code) {

@@ -1,7 +1,11 @@
 // Fused gate scoring + block selection for one decode step (Hopper, sm_90a).
 //
-// Replaces the TPU kernel src/repro/kernels/gate_select.py::fused_gate_select
-// (body _select_kernel, selection core _rank_and_pick). Same contract:
+// Replaces two TPU kernels of src/repro/kernels/gate_select.py:
+//   fused_gate_select        (body _select_kernel, selection core
+//                            _rank_and_pick): gate_select_launch below;
+//   fused_gate_select_paged  (body _select_paged_kernel): the same kernel
+//                            over the paged Kg pool, gate_select_paged_launch.
+// Contiguous contract:
 //   qg      [B, Hkv, Dg]       post-rope gate query (bf16 or fp32)
 //   kg      [B, Hkv, nb, Dg]   head-major K-compression cache (same dtype)
 //   n_valid [B] int32          visible blocks
@@ -12,6 +16,13 @@
 // and last visible blocks are pinned; then an exact top-k in descending
 // score order, the LOWER index first on ties (jax.lax.top_k's order).
 //
+// Paged contract: kg is the pool kg_pages [P, Hkv, Dg] (one row per
+// physical page) and page_table [B, npt] int32 maps logical block j to its
+// page; nb = npt. Logical block j of (b, h) reads row
+// kg_pages[page_table[b, j], h] in place of kg[b, h, j]. Entries at or past
+// n_valid (the null page 0, or stale ids) are masked before ranking, so
+// their rows are not read at all.
+//
 // Design: one CTA per (b, kv-head). The CTA scores its nb blocks into shared
 // memory (one warp per block row, lanes across Dg: coalesced reads of each
 // Kg row), applies mask/softmax/threshold/pinning as _rank_and_pick does,
@@ -20,7 +31,8 @@
 // slots are then filled with -1 at once).
 //
 // Bound on the H100: at the main path's shape (B=4, Hkv=8, nb=257, Dg=128,
-// bf16) one call reads ~2.1 MB of Kg: ~0.6 us at 3.35 TB/s, so the call is
+// bf16) one call reads ~2.1 MB of Kg (the paged kernel also reads the
+// page table, 4 bytes per visible block): ~0.6 us at 3.35 TB/s, so the call is
 // bound by launch latency and by the k sequential argmax rounds (two
 // barriers each), not by bytes. The design keeps everything after the
 // scoring pass in shared memory (nb*4 bytes, ~1 KB) and stops the rounds
@@ -70,9 +82,22 @@ __device__ float block_sum(float v, float* red) {
   return v;
 }
 
-template <typename T>
+// The address of Kg row (b, h, logical block j): contiguous cache, or the
+// page pool through the page table.
+template <typename T, bool Paged>
+__device__ __forceinline__ const T* kg_row(const T* kg, const int* page_table, int b, int h,
+                                           int H, int nb, int dg, int j) {
+  if (Paged) {
+    const int phys = max(page_table[(size_t)b * nb + j], 0);
+    return kg + ((size_t)phys * H + h) * dg;
+  }
+  return kg + (((size_t)b * H + h) * nb + j) * dg;
+}
+
+template <typename T, bool Paged>
 __global__ void __launch_bounds__(kThreads)
 gate_select_kernel(const T* __restrict__ qg, const T* __restrict__ kg,
+                   const int* __restrict__ page_table,
                    const int* __restrict__ n_valid, int* __restrict__ out,
                    int H, int nb, int dg, int k_sel, int threshold_method,
                    float threshold, int force_first, int force_last, float scale) {
@@ -84,22 +109,23 @@ gate_select_kernel(const T* __restrict__ qg, const T* __restrict__ kg,
   __shared__ float best_v;
 
   const int bh = blockIdx.x;
-  const int b = bh / H;
+  const int b = bh / H, h = bh - b * H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nv = n_valid[b];
   const T* qrow = qg + (size_t)bh * dg;
-  const T* kbase = kg + (size_t)bh * nb * dg;
   int* orow = out + (size_t)bh * k_sel;
 
   for (int d = tid; d < dg; d += kThreads) q[d] = to_f32(qrow[d]);
   __syncthreads();
 
-  // scores with the visibility mask
+  // scores with the visibility mask (masked rows are not read)
   for (int j = warp; j < nb; j += kWarps) {
-    const T* krow = kbase + (size_t)j * dg;
     float acc = 0.f;
-    for (int d = lane; d < dg; d += 32) acc += q[d] * to_f32(krow[d]);
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (j < nv) {
+      const T* krow = kg_row<T, Paged>(kg, page_table, b, h, H, nb, dg, j);
+      for (int d = lane; d < dg; d += 32) acc += q[d] * to_f32(krow[d]);
+      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    }
     if (lane == 0) ranked[j] = (j < nv) ? acc * scale : kNegInf;
   }
   __syncthreads();
@@ -166,21 +192,41 @@ gate_select_kernel(const T* __restrict__ qg, const T* __restrict__ kg,
   }
 }
 
-template <typename T>
-int launch(const void* qg, const void* kg, const void* n_valid, void* out, int B, int H,
-           int nb, int dg, int k_sel, int threshold_method, float threshold, int force_first,
-           int force_last, float scale, cudaStream_t stream) {
+template <typename T, bool Paged>
+int launch(const void* qg, const void* kg, const void* page_table, const void* n_valid,
+           void* out, int B, int H, int nb, int dg, int k_sel, int threshold_method,
+           float threshold, int force_first, int force_last, float scale, cudaStream_t stream) {
   const size_t smem = (size_t)(dg + nb) * sizeof(float);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(gate_select_kernel<T>,
+    cudaError_t e = cudaFuncSetAttribute(gate_select_kernel<T, Paged>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  gate_select_kernel<T><<<B * H, kThreads, smem, stream>>>(
-      static_cast<const T*>(qg), static_cast<const T*>(kg), static_cast<const int*>(n_valid),
+  gate_select_kernel<T, Paged><<<B * H, kThreads, smem, stream>>>(
+      static_cast<const T*>(qg), static_cast<const T*>(kg),
+      static_cast<const int*>(page_table), static_cast<const int*>(n_valid),
       static_cast<int*>(out), H, nb, dg, k_sel, threshold_method, threshold, force_first,
       force_last, scale);
   return (int)cudaGetLastError();
+}
+
+template <bool Paged>
+int dispatch(const void* qg, const void* kg, const void* page_table, const void* n_valid,
+             void* out, int B, int H, int nb, int dg, int k_sel, int threshold_method,
+             float threshold, int force_first, int force_last, float scale, int dtype,
+             void* stream) {
+  if (B <= 0 || H <= 0 || nb <= 0 || dg <= 0 || k_sel <= 0 || k_sel > nb ||
+      (size_t)(dg + nb) * sizeof(float) > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, Paged>(qg, kg, page_table, n_valid, out, B, H, nb, dg, k_sel,
+                                threshold_method, threshold, force_first, force_last, scale, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, Paged>(qg, kg, page_table, n_valid, out, B, H, nb, dg, k_sel,
+                                        threshold_method, threshold, force_first, force_last,
+                                        scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -191,17 +237,18 @@ extern "C" {
 int gate_select_launch(const void* qg, const void* kg, const void* n_valid, void* out, int B,
                        int H, int nb, int dg, int k_sel, int threshold_method, float threshold,
                        int force_first, int force_last, float scale, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || nb <= 0 || dg <= 0 || k_sel <= 0 || k_sel > nb ||
-      (size_t)(dg + nb) * sizeof(float) > 227 * 1024)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(qg, kg, n_valid, out, B, H, nb, dg, k_sel, threshold_method,
-                         threshold, force_first, force_last, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(qg, kg, n_valid, out, B, H, nb, dg, k_sel, threshold_method,
-                                 threshold, force_first, force_last, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(qg, kg, nullptr, n_valid, out, B, H, nb, dg, k_sel, threshold_method,
+                         threshold, force_first, force_last, scale, dtype, stream);
+}
+
+// kg_pages [P, H, dg], page_table [B, npt]; nb = npt.
+int gate_select_paged_launch(const void* qg, const void* kg_pages, const void* page_table,
+                             const void* n_valid, void* out, int B, int H, int npt, int dg,
+                             int k_sel, int threshold_method, float threshold, int force_first,
+                             int force_last, float scale, int dtype, void* stream) {
+  return dispatch<true>(qg, kg_pages, page_table, n_valid, out, B, H, npt, dg, k_sel,
+                        threshold_method, threshold, force_first, force_last, scale, dtype,
+                        stream);
 }
 
 const char* repro_error_string(int code) {

@@ -1,6 +1,6 @@
-"""Fused gate-score + block-selection: plain PyTorch version + CUDA kernel.
+"""Fused gate-score + block-selection: plain PyTorch versions + CUDA kernels.
 
-Replaces the TPU kernel ``repro/kernels/gate_select.py::fused_gate_select``
+Replaces the TPU kernels ``repro/kernels/gate_select.py::fused_gate_select``
 (one decode step, head-major Kg cache):
 
   qg       [B, Hkv, Dg]      post-rope gate query of the new token
@@ -14,6 +14,20 @@ CPU execution path and the oracle the kernel is held against on the card.
 ``gate_select_cuda`` launches ``csrc/gate_select.cu`` (built by
 ``kernels/build.py``) on the current stream and counts its launches in
 ``gate_select_cuda.launches``.
+
+and ``fused_gate_select_paged`` (the same selection over the paged Kg
+pool, read through the page table):
+
+  qg          [S, Hkv, Dg]   per-slot gate queries
+  kg_pages    [P, Hkv, Dg]   one Kg row per physical page
+  page_table  [S, npt] int32 logical block -> physical page
+  n_valid     [S] int32
+  -> idx      [S, Hkv, k] int32 LOGICAL ids, -1 padding; k from npt
+
+``gate_select_paged_plain`` is the twin of ``gate_select_paged_ref``
+(``paging.gather_kg`` then the contiguous plain version);
+``gate_select_paged_cuda`` launches the paged entry point of the same
+source and counts in ``gate_select_paged_cuda.launches``.
 """
 from __future__ import annotations
 
@@ -69,13 +83,40 @@ def gate_select_plain(qg: torch.Tensor, kg: torch.Tensor,
     return idx
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.gate_select_launch
+def gate_select_paged_plain(qg: torch.Tensor, kg_pages: torch.Tensor,
+                            page_table: torch.Tensor, n_valid: torch.Tensor,
+                            cfg: GateConfig, max_selected: Optional[int] = None
+                            ) -> torch.Tensor:
+    """Plain PyTorch paged gate select (any device): the per-slot Kg
+    gather through the page table, then the contiguous selection."""
+    from repro_torch.serve.paging import gather_kg   # no kernels -> serve cycle
+    return gate_select_plain(qg, gather_kg(kg_pages, page_table), n_valid,
+                             cfg, max_selected)
+
+
+def _bind(lib: ctypes.CDLL, paged: bool = False):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if paged:
+        fn = lib.gate_select_paged_launch
+        types = [p, p, p, p, p, i, i, i, i, i, i, f, i, i, f, i, p]
+    else:
+        fn = lib.gate_select_launch
+        types = [p, p, p, p, i, i, i, i, i, i, f, i, i, f, i, p]
     if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, i, f, i, p]
+        fn.argtypes = types
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check_q(name: str, qg: torch.Tensor, kg: torch.Tensor,
+             n_valid: torch.Tensor) -> None:
+    if not (qg.is_cuda and kg.device == qg.device and n_valid.device == qg.device):
+        raise ValueError(f"{name}: qg, kg and n_valid must be on one CUDA device")
+    if qg.dtype not in _DTYPES or kg.dtype != qg.dtype:
+        raise TypeError(f"{name}: qg/kg must share dtype float32 or "
+                        f"bfloat16, got {qg.dtype}/{kg.dtype}")
+    if n_valid.dtype != torch.int32:
+        raise TypeError(f"{name}: n_valid must be int32, got {n_valid.dtype}")
 
 
 def gate_select_cuda(qg: torch.Tensor, kg: torch.Tensor, n_valid: torch.Tensor,
@@ -83,13 +124,7 @@ def gate_select_cuda(qg: torch.Tensor, kg: torch.Tensor, n_valid: torch.Tensor,
                      ) -> torch.Tensor:
     """Launch the CUDA gate-select kernel; same result as the plain version
     (ids equal up to swaps of blocks whose fp32 scores tie to rounding)."""
-    if not (qg.is_cuda and kg.device == qg.device and n_valid.device == qg.device):
-        raise ValueError("gate_select_cuda: qg, kg and n_valid must be on one CUDA device")
-    if qg.dtype not in _DTYPES or kg.dtype != qg.dtype:
-        raise TypeError(f"gate_select_cuda: qg/kg must share dtype float32 or "
-                        f"bfloat16, got {qg.dtype}/{kg.dtype}")
-    if n_valid.dtype != torch.int32:
-        raise TypeError(f"gate_select_cuda: n_valid must be int32, got {n_valid.dtype}")
+    _check_q("gate_select_cuda", qg, kg, n_valid)
     b, hkv, dg = qg.shape
     if kg.dim() != 4 or kg.shape[:2] != (b, hkv) or kg.shape[3] != dg \
             or tuple(n_valid.shape) != (b,):
@@ -113,3 +148,43 @@ def gate_select_cuda(qg: torch.Tensor, kg: torch.Tensor, n_valid: torch.Tensor,
 
 
 gate_select_cuda.launches = 0
+
+
+def gate_select_paged_cuda(qg: torch.Tensor, kg_pages: torch.Tensor,
+                           page_table: torch.Tensor, n_valid: torch.Tensor,
+                           cfg: GateConfig, max_selected: Optional[int] = None
+                           ) -> torch.Tensor:
+    """Launch the CUDA paged gate-select kernel; same result as
+    ``gate_select_paged_plain`` (ids equal up to swaps of blocks whose
+    fp32 scores tie to rounding). The list width comes from the page-table
+    width ``npt``."""
+    _check_q("gate_select_paged_cuda", qg, kg_pages, n_valid)
+    if page_table.device != qg.device or page_table.dtype != torch.int32:
+        raise TypeError("gate_select_paged_cuda: page_table must be int32 on "
+                        "qg's device")
+    s, hkv, dg = qg.shape
+    if kg_pages.dim() != 3 or kg_pages.shape[1:] != (hkv, dg) \
+            or page_table.dim() != 2 or page_table.shape[0] != s \
+            or tuple(n_valid.shape) != (s,):
+        raise ValueError(f"gate_select_paged_cuda: shapes qg {tuple(qg.shape)}, "
+                         f"kg_pages {tuple(kg_pages.shape)}, page_table "
+                         f"{tuple(page_table.shape)}, n_valid {tuple(n_valid.shape)}")
+    if not all(t.is_contiguous() for t in (qg, kg_pages, page_table, n_valid)):
+        raise ValueError("gate_select_paged_cuda: inputs must be contiguous")
+    npt = page_table.shape[1]
+    k_sel = n_selected(cfg, npt, max_selected)
+    out = torch.empty((s, hkv, k_sel), dtype=torch.int32, device=qg.device)
+    lib = build.load("gate_select")
+    rc = _bind(lib, paged=True)(
+        qg.data_ptr(), kg_pages.data_ptr(), page_table.data_ptr(),
+        n_valid.data_ptr(), out.data_ptr(), s, hkv, npt, dg, k_sel,
+        int(cfg.method == "threshold"), float(cfg.threshold),
+        int(cfg.always_first_block), int(cfg.always_last_block),
+        1.0 / math.sqrt(dg), _DTYPES[qg.dtype],
+        torch.cuda.current_stream(qg.device).cuda_stream)
+    build.check(lib, rc, "gate_select_paged kernel launch")
+    gate_select_paged_cuda.launches += 1
+    return out
+
+
+gate_select_paged_cuda.launches = 0

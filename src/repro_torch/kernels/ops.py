@@ -22,7 +22,9 @@ from repro_torch.kernels import block_sparse_decode as bsd
 from repro_torch.kernels import gate_select as gs
 
 KERNELS = {"gate_select": gs.gate_select_cuda,
-           "block_sparse_decode": bsd.sparse_decode_cuda}
+           "block_sparse_decode": bsd.sparse_decode_cuda,
+           "gate_select_paged": gs.gate_select_paged_cuda,
+           "block_sparse_decode_paged": bsd.sparse_decode_paged_cuda}
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -55,6 +57,33 @@ def sparse_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                                       kv_len, block_size=block_size)
     return bsd.sparse_decode_plain(q, k_cache, v_cache, block_indices, kv_len,
                                    block_size=block_size)
+
+
+def gate_select_paged(qg: torch.Tensor, kg_pages: torch.Tensor,
+                      page_table: torch.Tensor, n_valid: torch.Tensor, cfg,
+                      max_selected: Optional[int] = None) -> torch.Tensor:
+    """Paged gate select: one layer's Kg pool [P,Hkv,Dg] scored through the
+    page table [S,npt]; qg [S,Hkv,Dg]. Returns logical ids [S,Hkv,k]."""
+    if _route(qg, "gate_select_paged"):
+        return gs.gate_select_paged_cuda(qg, kg_pages, page_table, n_valid,
+                                         cfg, max_selected)
+    return gs.gate_select_paged_plain(qg, kg_pages, page_table, n_valid, cfg,
+                                      max_selected)
+
+
+def paged_sparse_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, block_indices: torch.Tensor,
+                        page_table: torch.Tensor, kv_len: torch.Tensor, *,
+                        block_size: int) -> torch.Tensor:
+    """Block-sparse decode over the page pools [P,Hkv,ps,Dh]; logical
+    block ids, physical pages through ``page_table`` [B,npt]."""
+    if _route(q, "paged_sparse_decode"):
+        return bsd.sparse_decode_paged_cuda(q, k_pages, v_pages, block_indices,
+                                            page_table, kv_len,
+                                            block_size=block_size)
+    return bsd.sparse_decode_paged_plain(q, k_pages, v_pages, block_indices,
+                                         page_table, kv_len,
+                                         block_size=block_size)
 
 
 def launch_counts() -> Dict[str, int]:

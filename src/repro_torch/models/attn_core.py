@@ -1,8 +1,10 @@
-"""Attention layer-core helpers shared by the decode paths (port slice).
+"""Attention layer-core shared by the decode paths (port slice).
 
-The QKV projection, the policy gate and the decode-aux telemetry of the
-JAX package's ``models/attn_core.py``. The paged per-layer body arrives
-with the paged slice.
+The QKV projection, the policy gate, the decode-aux telemetry and the
+paged per-layer decode body (``attention_decode_paged`` ->
+``block_decode_paged``) of the JAX package's ``models/attn_core.py``:
+the unstaged, unsharded, fp branch. Selection schedules, sharding, int8
+pools and eviction telemetry arrive with their slices.
 """
 from __future__ import annotations
 
@@ -13,7 +15,11 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core import kcache as kc
 from repro_torch.core import sparsity as sp
-from repro_torch.models.common import linear, rms_norm
+from repro_torch.core.policy import DecodeOptions, SelectionInputs
+from repro_torch.kernels import ops
+from repro_torch.models.common import (apply_rope, decode_attention, linear,
+                                       mlp, rms_norm)
+from repro_torch.serve import paging as pg
 
 Params = Dict[str, Any]
 LayerAux = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -74,3 +80,74 @@ def aggregate_decode_aux(auxs: Sequence[LayerAux]) -> Dict[str, torch.Tensor]:
             "sparsity_rows": torch.mean(rho_rows, dim=0),
             "sel_blocks": torch.mean(sel, dim=0),
             "vis_blocks": torch.mean(vis, dim=0)}
+
+
+def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
+                           k_pages, v_pages, kg_pages, page_table, cur_len,
+                           active, options: DecodeOptions):
+    """One token over paged KV. x1 [S,1,d]; pools for ONE layer head-major
+    [P, Hkv, ps, Dh] (updated in place); page_table [S, npt] int32;
+    cur_len/active [S]. Returns (out [S,1,d], selection aux).
+
+    The new K/V are appended to each slot's trailing page and the Kg row
+    of a just-completed page is finalized (for the policy that reads it);
+    inactive rows write to the null page and do not advance. The gate then
+    scores ``kg_pages`` through the page table, and the block-sparse decode
+    reads only the selected physical pages. A dense policy, or a layer
+    without a gate, takes the dense fallback: ``gather_kv`` of the whole
+    table, then dense decode attention."""
+    b = x1.shape[0]
+    dh, hkv, g = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.gqa_group
+    ps = cfg.gate.block_size
+    policy = options.policy
+    sparse_on = _policy_active(policy, p)
+    q, k, v = _qkv(p, x1, cfg)
+    pos = cur_len[:, None]                                 # [S,1]
+    qr = apply_rope(q, pos, cfg.rope_theta)
+    kr = apply_rope(k, pos, cfg.rope_theta)
+    npt = page_table.shape[1]
+
+    # the Kg page rows only advance for the policy that reads them
+    gate_for_append = p.get("gate") if policy.needs_gate else None
+    pg.append_token_paged(k_pages, v_pages, kg_pages, kr[:, 0], v[:, 0],
+                          page_table, cur_len, active, gate_for_append,
+                          cfg.gate, rope_theta=cfg.rope_theta)
+    new_len = cur_len + active.to(cur_len.dtype)
+
+    if sparse_on:
+        inp = SelectionInputs(q_nope=q, qr=qr, pos=pos, new_len=new_len,
+                              gate_params=p.get("gate"), kg_pages=kg_pages,
+                              k_pages=k_pages, page_table=page_table)
+        idx = policy.select(inp, cfg, max_selected=options.max_selected(cfg))
+        qgrp = qr[:, 0].reshape(b, hkv, g, dh)
+        o = ops.paged_sparse_decode(qgrp, k_pages, v_pages, idx, page_table,
+                                    new_len, block_size=ps)
+        o = o.reshape(b, 1, hkv * g, dh)
+        aux = (_selection_aux(idx, kc.visible_blocks(
+                   torch.clamp_min(new_len, 1), ps), npt)
+               if options.measure_sparsity else _zero_layer_aux(b, x1.device))
+    else:
+        k_ct = pg.gather_kv(k_pages, page_table)           # [S,Hkv,npt*ps,Dh]
+        v_ct = pg.gather_kv(v_pages, page_table)
+        o = decode_attention(qr, k_ct, v_ct, new_len,
+                             logit_softcap=cfg.attn_logit_softcap)
+        aux = (_dense_aux(new_len, ps) if options.measure_sparsity
+               else _zero_layer_aux(b, x1.device))
+    out = linear(p["wo"], o.reshape(b, 1, hkv * g * dh))
+    return out, aux
+
+
+def block_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig,
+                       layer_pages, page_table, cur_len, active, *,
+                       options: DecodeOptions):
+    """One transformer block over paged KV; ``layer_pages`` is the layer's
+    (k_pages, v_pages, kg_pages). Returns (x1, selection aux)."""
+    k_pages, v_pages, kg_pages = layer_pages
+    h = rms_norm(p["ln1"], x1, cfg.norm_eps)
+    attn_out, aux = attention_decode_paged(
+        p["attn"], h, cfg, k_pages=k_pages, v_pages=v_pages,
+        kg_pages=kg_pages, page_table=page_table, cur_len=cur_len,
+        active=active, options=options)
+    x1 = x1 + attn_out
+    h2 = rms_norm(p["ln2"], x1, cfg.norm_eps)
+    return x1 + mlp(p["mlp"], h2, cfg.activation), aux

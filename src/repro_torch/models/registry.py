@@ -5,28 +5,50 @@ package's registry arrive with their slices.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import transformer as tf
+from repro_torch.serve.slotstate import CacheView
 
 
 class ModelApi(NamedTuple):
     """Decode-time behavior is carried by one frozen
-    ``core.policy.DecodeOptions``; ``decode_step`` returns a
+    ``core.policy.DecodeOptions``; the decode steps return a
     measured-selection ``aux`` dict for serving telemetry."""
     init_params: Callable          # (generator, cfg) -> params
     init_decode_state: Callable    # (cfg, batch_size, max_len, *, device) -> state
-    prefill: Callable              # (params, batch, cfg, max_len, options) -> (logits, state)
+    prefill: Callable              # (params, batch, cfg, max_len, options) -> (logits, state);
+    #                                 batch may carry "lengths" (right-padded rows)
     decode_step: Callable          # (params, state, token, cfg, *, options)
     #                                 -> (logits, state, aux)
+    # continuous-batching paged decode (serve.paging):
+    # (params, pages, slot_state, token, page_table, cur_len, active, cfg,
+    #  *, options) -> (logits, pages, slot_state, aux)
+    decode_step_paged: Any = None
+    # how many layer slices the page pools carry (cfg) -> int
+    paged_attn_layers: Callable = None
+    # (cfg, n_slots) -> per-slot recurrent state, None for pages-only families
+    init_slot_state: Any = None
+    # (prefill state) -> CacheView: what paged admission scatters into pools
+    state_view: Any = None
+
+
+def _tf_view(st) -> CacheView:
+    return CacheView(st.k_cache, st.v_cache, st.kg_cache, None, None, None)
 
 
 _TF_API = ModelApi(tf.init_lm, tf.init_decode_state, tf.lm_prefill,
-                   tf.lm_decode_step)
+                   tf.lm_decode_step,
+                   decode_step_paged=tf.lm_decode_step_paged,
+                   paged_attn_layers=tf.n_self_layers,
+                   init_slot_state=None,
+                   state_view=_tf_view)
 
 
 def get_api(cfg: ModelConfig) -> ModelApi:
     if cfg.family == "dense":
         return _TF_API
-    raise ValueError(f"family {cfg.family!r} is not ported (dense only)")
+    raise NotImplementedError(
+        f"family {cfg.family!r}: other families (Queue A item 9) are not "
+        "ported (dense only)")

@@ -1,9 +1,11 @@
 """Decoder transformer LM with SeerAttention-R gates (dense family), PyTorch.
 
 Port of the serving half of the JAX package's ``models/transformer.py``:
-``init_lm``, ``DecodeState``/``init_decode_state``, ``lm_prefill`` and
-the contiguous decode step (``attention_decode`` -> ``block_decode`` ->
-``lm_decode_step``, the non-staged, non-sharded branch).
+``init_lm``, ``DecodeState``/``init_decode_state``, ``lm_prefill`` (with
+right-padded ``lengths``), the contiguous decode step
+(``attention_decode`` -> ``block_decode`` -> ``lm_decode_step``) and the
+paged one (``lm_decode_step_paged`` over ``attn_core.block_decode_paged``),
+each the non-staged, non-sharded branch.
 
 Differences of idiom, not of result:
   * parameters are a dict whose ``"blocks"`` entry is a LIST of per-layer
@@ -30,7 +32,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.attn_core import (_dense_aux, _policy_active, _qkv,
                                           _selection_aux, _zero_layer_aux,
-                                          aggregate_decode_aux)
+                                          aggregate_decode_aux,
+                                          block_decode_paged)
 from repro_torch.models.common import (_randn, apply_rope, chunked_attention,
                                        decode_attention, init_linear, init_mlp,
                                        init_rmsnorm, linear, mlp, rms_norm,
@@ -153,13 +156,15 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
 
     ``batch["tokens"]`` [B, L] on the parameters' device. Only COMPLETE
     blocks enter the K-compression cache (the trailing partial block stays
-    a zero row until decode completes it). Right-padded prompts
-    (``batch["lengths"]``) belong to the paged slice and are refused.
-    ``options`` is accepted for the reference's signature; no policy of
-    this slice builds a prefill-side cache."""
+    a zero row until decode completes it). ``batch["lengths"]`` (optional,
+    [B] int) holds the TRUE prompt lengths of right-padded rows (the
+    serve path's power-of-two buckets): causality keeps real positions
+    blind to the pad tokens, the logits are taken at ``lengths - 1``,
+    ``cur_len``/``kg_n`` are the true lengths, and the Kg rows of blocks
+    that touch a pad token are zero. ``options`` is accepted for the
+    reference's signature; no policy of this slice builds a prefill-side
+    cache."""
     _check_family(cfg)
-    if batch.get("lengths") is not None:
-        raise NotImplementedError("bucketed prefill (batch['lengths']) is not ported")
     tokens = batch["tokens"]
     b, l = tokens.shape
     if l > max_len:
@@ -188,10 +193,22 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
         x = x + linear(p["wo"], o.reshape(b, l, -1))
         x = x + mlp(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps), cfg.activation)
         del q, k, v, qr, kr, o
-    state.cur_len.fill_(l)
+    lengths = batch.get("lengths")
+    if lengths is None:
+        state.cur_len.fill_(l)
+        last = x[:, -1]
+    else:
+        state.cur_len.copy_(torch.as_tensor(lengths, device=dev))
+        last = x[torch.arange(b, device=dev), torch.clamp_min(state.cur_len - 1, 0).long()]
     if state.kg_n is not None:
-        state.kg_n.fill_(nb)
-    return _logits(params, x[:, -1], cfg), state
+        state.kg_n.copy_((state.cur_len // bs)[None].expand_as(state.kg_n))
+        if lengths is not None:
+            # blocks touching pad tokens hold garbage Kg rows: zero them
+            # (rows >= lengths // bs), so a partial trailing block reads zero
+            row_ok = (torch.arange(state.kg_cache.shape[3], device=dev)[None, :]
+                      < (state.cur_len // bs)[:, None])
+            state.kg_cache.masked_fill_(~row_ok[None, :, None, :, None], 0)
+    return _logits(params, last, cfg), state
 
 
 # ---------------------------------------------------------------------------
@@ -287,3 +304,36 @@ def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
     logits = _logits(params, x1, cfg)
     new_state = state._replace(cur_len=state.cur_len + 1)
     return logits[:, 0], new_state, aggregate_decode_aux(auxs)
+
+
+# ---------------------------------------------------------------------------
+# paged decode (continuous batching): per-row ragged lengths + page pools
+# ---------------------------------------------------------------------------
+
+def lm_decode_step_paged(params: Params, pages, slot_state,
+                         token: torch.Tensor, page_table: torch.Tensor,
+                         cur_len: torch.Tensor, active: torch.Tensor,
+                         cfg: ModelConfig, *,
+                         options: Optional[DecodeOptions] = None):
+    """Continuous-batching decode step. token/cur_len/active [n_slots];
+    ``pages`` a ``serve.paging.PagedPages`` (layer-stacked pools, updated
+    IN PLACE); page_table [n_slots, npt] int32. Returns (logits [n_slots,
+    V], pages, slot_state, aux dict).
+
+    ``slot_state`` is the reference's per-slot recurrent-state seam; the
+    transformer is pages-only and passes ``None`` through. Inactive rows
+    produce garbage logits (the engine ignores them) but neither touch
+    live pages nor advance. The reference's per-request budget caps
+    (``budget_blocks``) and ``shard`` arrive with their slices."""
+    _check_family(cfg)
+    options = options if options is not None else default_options(cfg)
+    x1 = params["embed"]["w"][token[:, None]]
+    auxs = []
+    for i, lp in enumerate(params["blocks"]):
+        kg = pages.kg_pages[i] if pages.kg_pages is not None else None
+        x1, aux = block_decode_paged(
+            lp, x1, cfg, (pages.k_pages[i], pages.v_pages[i], kg), page_table,
+            cur_len, active, options=options)
+        auxs.append(aux)
+    logits = _logits(params, x1, cfg)
+    return logits[:, 0], pages, slot_state, aggregate_decode_aux(auxs)

@@ -1,20 +1,30 @@
-"""Sparse decode serving engine (contiguous path), PyTorch port.
+"""Sparse decode serving engine, PyTorch port.
 
-``DecodeEngine.generate(batch, n)`` is the uniform-batch path of the JAX
-package's engine: one contiguous ``DecodeState``, every row decodes in
-lockstep, gated block-sparse attention in every layer. Decode behaviour
-is one frozen ``core.policy.DecodeOptions``. The paged ``serve()`` path
-arrives with the next slice.
+Two serving paths of the JAX package's engine share the SeerAttention-R
+machinery (gate selection, block-sparse decode kernels):
 
-The engine runs on CUDA unless the caller passes ``device="cpu"``; with
-no card and no explicit device it raises. On a CUDA device every layer's
-selection and sparse attention go through the hand-written kernels
+  * ``generate(batch, n)``: the uniform-batch path. One contiguous
+    ``DecodeState``; every row decodes in lockstep.
+  * ``serve(requests)``: continuous batching over a PAGED KV cache
+    (``serve.paging`` + ``serve.scheduler``). Requests are admitted into
+    free decode slots each iteration, rows have ragged lengths, pages are
+    allocated lazily as decode crosses page boundaries, and a dry pool
+    preempts the least-progressed request to host swap space
+    (``serve.offload``) instead of stalling. Finished requests retire and
+    their pages are recycled at once.
+
+Decode behaviour is one frozen ``core.policy.DecodeOptions``. The engine
+runs on CUDA unless the caller passes ``device="cpu"``; with no card and
+no explicit device it raises. On a CUDA device every layer's selection
+and sparse attention go through the hand-written kernels
 (``kernels/ops.py``); on the CPU through their plain PyTorch versions.
+Options of the reference that belong to later slices raise
+``NotImplementedError`` naming the slice.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,16 +33,32 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.policy import DecodeOptions, default_options
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import get_api
+from repro_torch.serve import paging as pg
 from repro_torch.serve import sampling as smp
+from repro_torch.serve.offload import HostSwapSpace, SwapEntry
+from repro_torch.serve.scheduler import Request, Scheduler, pages_needed
 
 
 class GenerationResult(Dict):
     pass
 
 
+class ServeResult(Dict):
+    """rid -> list of generated token ids, plus ``stats`` (and ``logits``
+    when collected), with dict access like GenerationResult."""
+    pass
+
+
+def _not_ported(what: str, item: int, name: str) -> NotImplementedError:
+    return NotImplementedError(f"{what}: {name} (Queue A item {item}) is not ported")
+
+
 class DecodeEngine:
     def __init__(self, cfg: ModelConfig, params: Any, *, max_len: int,
-                 options: Optional[DecodeOptions] = None, device=None):
+                 options: Optional[DecodeOptions] = None, device=None,
+                 shard=None):
+        if shard is not None:
+            raise _not_ported("DecodeEngine(shard=...)", 11, "sharded serving")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.api = get_api(cfg)
@@ -44,6 +70,9 @@ class DecodeEngine:
         self.max_len = max_len
         self.options = options if options is not None else default_options(cfg)
         self._last_aux = None       # measured selection of the latest step
+        self._last_active = None    # serve(): slots active during that step
+        # serve(): the power-of-two prefill buckets (in pages) seen so far
+        self._prefill_buckets: set = set()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -71,7 +100,7 @@ class DecodeEngine:
     def generate(self, batch: Dict[str, Any], n_tokens: int) -> GenerationResult:
         """Uniform-batch greedy decode of ``n_tokens`` per row (the first
         comes from prefill, then ``n_tokens - 1`` decode steps)."""
-        self._last_aux = None
+        self._last_aux = self._last_active = None   # stats reflect THIS run
         t0 = time.perf_counter()
         token, state = self.prefill(batch)
         self._sync()
@@ -90,11 +119,343 @@ class DecodeEngine:
             tok_per_s=(n_tokens - 1) * out.shape[0] / max(decode_s, 1e-9),
             final_len=state.cur_len)
 
+    # -- continuous batching over paged KV ---------------------------------
+
+    @torch.no_grad()
+    def serve(self, requests: Sequence[Dict[str, Any]], *,
+              n_slots: int = 4, num_pages: Optional[int] = None,
+              collect_logits: bool = False,
+              max_steps: Optional[int] = None, admission: str = "lazy",
+              watermark: int = 0, eviction=None, swap_config=None,
+              faults=None, arrivals=None, on_token=None,
+              table_pages: Optional[int] = None) -> ServeResult:
+        """Continuous-batching greedy decode over a paged KV cache.
+
+        requests: each ``{"tokens": 1-D int array, "max_new_tokens": int}``
+        plus optional ``"rid"`` and the SLO-tier fields ``"tier"``,
+        ``"priority"`` (orders admission, protects against preemption) and
+        ``"reserve"`` (this request reserves its whole lifetime of pages
+        up front). Admission is priority-then-FIFO.
+
+        ``admission="lazy"`` (default) admits on current occupancy (prompt
+        pages only), grows each slot's pages on demand, holds
+        ``watermark`` free pages back from admission as growth headroom,
+        and when the pool runs dry PREEMPTS the active request of lowest
+        priority, then fewest generated tokens, then lowest rid: its pages
+        go to host swap space and it is re-admitted later with its pages
+        restored, resuming bitwise-identically. ``"reserve"`` reserves
+        every request's full lifetime at admission (no growth, no
+        preemption). ``num_pages`` defaults to every slot holding a
+        worst-case sequence, plus the null page. ``max_steps`` bounds the
+        decode loop: unfinished
+        requests then retire with ``status="error"``, as do rows whose
+        logits are not finite.
+
+        Returns ``ServeResult``: rid -> generated token ids (length
+        ``max_new_tokens``); ``res["stats"]`` holds throughput, scheduler
+        and swap telemetry and the measured sparsity per request;
+        ``res["logits"]`` (rid -> [n, V] fp32, prefill token included)
+        when ``collect_logits``. Per-request ``"sampling"``/``"budget"``
+        overrides, stochastic sampling, eviction, faults, a bounded swap
+        tier, open-loop arrivals (with their ``table_pages``) and
+        streaming callbacks are later slices and raise
+        ``NotImplementedError``.
+        """
+        for name, val in (("eviction", eviction), ("swap_config", swap_config),
+                          ("faults", faults), ("arrivals", arrivals),
+                          ("on_token", on_token), ("table_pages", table_pages)):
+            if val is not None:
+                raise _not_ported(f"serve({name}=...)", 7,
+                                  "the pressure and failure paths")
+        if not self.options.sampling.greedy:
+            raise _not_ported("serve()", 6, "stochastic sampling")
+        cfg = self.cfg
+        ps = cfg.gate.block_size
+        dev = self.device
+
+        reqs: List[Request] = []
+        rho_n: Dict[Any, int] = {}
+        for rd in requests:
+            for key in ("sampling", "budget"):
+                if rd.get(key) is not None:
+                    raise _not_ported(f"request {key!r} override", 6,
+                                      "per-request sampling and budgets")
+            req = Request(
+                rid=rd.get("rid", len(reqs)),
+                prompt=np.asarray(rd["tokens"], np.int32).reshape(-1),
+                max_new_tokens=int(rd["max_new_tokens"]),
+                tier=str(rd.get("tier", "default")),
+                priority=int(rd.get("priority", 0)),
+                admit_reserve=bool(rd.get("reserve", False)))
+            reqs.append(req)
+            rho_n[req.rid] = 0
+        if not reqs:
+            return ServeResult(stats={})
+        rids = [r.rid for r in reqs]
+        if len(set(rids)) != len(rids):
+            raise ValueError(f"duplicate request ids: {sorted(rids)}")
+        clash = set(rids) & {"stats", "logits"}
+        if clash:
+            raise ValueError(f"request ids collide with reserved result "
+                             f"keys: {clash}")
+        self._last_aux = self._last_active = None   # stats reflect THIS run
+
+        npt = max(pages_needed(r.prompt_len, r.max_new_tokens, ps) for r in reqs)
+        if num_pages is None:
+            # enough for every slot to hold a worst-case sequence (+null)
+            num_pages = n_slots * npt + 1
+        sched = Scheduler(n_slots, num_pages, ps, npt, admission=admission,
+                          watermark=watermark)
+        swap = HostSwapSpace()
+        for r in reqs:
+            sched.submit(r)
+
+        pages = pg.init_pages(cfg, num_pages, self.api.paged_attn_layers(cfg),
+                              device=dev)
+        slot_state = (None if self.api.init_slot_state is None
+                      else self.api.init_slot_state(cfg, n_slots))
+        token_buf = np.zeros((n_slots,), np.int32)
+        # per-step selection telemetry stays on the device until the run
+        # ends: (sparsity rows [S], sel rows [S], {slot: rid} of live rows)
+        telemetry: List[Any] = []
+        active_sum = active_max = idle_spins = 0
+        n_steps = 0
+        t0 = time.perf_counter()
+        limit = max_steps if max_steps is not None else sum(
+            r.max_new_tokens for r in reqs) + len(reqs) + 8
+
+        def fail_req(req: Request, reason: str) -> None:
+            sched.fail(req, reason)
+            swap.discard(req.rid)
+
+        def swap_out(req: Request) -> None:
+            """Preemption callback: copy the victim's CONTENT pages (in
+            logical order, padded as the reference pads them) and its
+            pending token to host swap space BEFORE the scheduler frees
+            the pages. A growth page allocated for the not-yet-written
+            next token is dropped; re-admission re-grows it."""
+            n_content = max(1, -(-req.swap_len // ps))
+            k, v, kg = pg.extract_pages(
+                pages, pg.pad_page_ids(req.pages[:n_content], device=dev))
+            swap.put(req.rid, SwapEntry(k=k, v=v, kg=kg,
+                                        token=int(token_buf[req.slot]),
+                                        cur_len=req.swap_len))
+
+        # a recycled page may hold a previous tenant's Kg row, and a partial
+        # trailing page must read a ZERO row. Freed pages are collected in
+        # ``dirty`` and zeroed in one batched call per iteration; admission
+        # reuse is cleaned by scatter_prefill/restore anyway, so growth only
+        # re-zeroes a page freed in the same iteration.
+        dirty: set = set()
+        # reserve admission never grows: every reuse goes through
+        # scatter_prefill, which zeroes the Kg rows itself
+        gate_paged = admission == "lazy" and pages.kg_pages is not None
+
+        def sweep_dirty(ids) -> None:
+            if ids and gate_paged:
+                pg.reset_kg_rows(pages, pg.pad_page_ids(sorted(ids), device=dev))
+            dirty.difference_update(ids)
+
+        def mark_live(ids) -> None:
+            """Pages just (re)written with live content leave both
+            pending-zero queues, so a later sweep cannot clobber them."""
+            live = set(ids)
+            dirty.difference_update(live)
+            sched.released = [p for p in sched.released if p not in live]
+
+        def fail_unfinished(reason: str) -> None:
+            for r in reqs:
+                if r.rid not in sched.finished:
+                    fail_req(r, reason)
+
+        while sched.has_work():
+            sched.now = n_steps
+            for req in sched.admissions():
+                if req.swapped:            # resume: restore, don't prefill
+                    entry = swap.pop(req.rid)
+                    n_content = max(1, -(-entry.cur_len // ps))
+                    pg.restore_pages(pages, entry.k, entry.v, entry.kg,
+                                     pg.pad_page_ids(req.pages[:n_content],
+                                                     device=dev))
+                    token_buf[req.slot] = entry.token
+                    req.swapped = False
+                else:
+                    first, lg = self._paged_prefill(pages, req, ps,
+                                                    collect_logits)
+                    req.out_tokens.append(first)
+                    sched.note_token(req, first)
+                    if collect_logits:
+                        req.out_logits.append(lg)
+                    token_buf[req.slot] = first
+                mark_live(req.pages)                 # content written
+                sched.retire_if_done(req)
+            fresh = sched.prepare_step(swap_out)   # lazy growth + preemption
+            dirty.update(sched.drain_released())
+            sweep_dirty([p for p in fresh if p in dirty])
+            if not sched.active.any():
+                if not sched.pending:
+                    break
+                # preemption may have just vacated every slot while freeing
+                # its pages: loop back through admissions once before
+                # declaring a stall
+                idle_spins += 1
+                if idle_spins > 1:
+                    # no-progress watchdog: fail the request admission keeps
+                    # choosing, which unblocks the queue by one
+                    fail_req(max(sched.pending, key=lambda r: r.priority),
+                             "admission_stall")
+                    idle_spins = 0
+                continue
+            idle_spins = 0
+            active_now = int(sched.active.sum())
+            active_sum += active_now
+            active_max = max(active_max, active_now)
+            logits, pages, slot_state, aux = self.api.decode_step_paged(
+                self.params, pages, slot_state,
+                torch.as_tensor(token_buf, device=dev),
+                torch.as_tensor(sched.page_table, device=dev),
+                torch.as_tensor(sched.cur_len, device=dev),
+                torch.as_tensor(sched.active, device=dev), cfg,
+                options=self.options)
+            self._last_aux = aux
+            # idle slots decode garbage rows: remember who was live, so
+            # sparsity_stats() averages active rows only
+            self._last_active = sched.active.copy()
+            slot_reqs = list(sched.slots)   # before retirement mutates it
+            # the argmax stays on the device; a row whose logits are not all
+            # finite comes back as -1, so one transfer of n_slots ints
+            # carries both
+            nxt_dev = torch.where(torch.isfinite(logits).all(dim=-1),
+                                  torch.argmax(logits, dim=-1), -1)
+            if self.options.measure_sparsity:
+                telemetry.append((aux["sparsity_rows"], aux["sel_blocks"],
+                                  {int(s): slot_reqs[s].rid
+                                   for s in np.nonzero(sched.active)[0]}))
+            lg_np = (logits.float().cpu().numpy() if collect_logits else None)
+            nxt = nxt_dev.to(torch.int32).cpu().numpy()
+            for slot in np.nonzero((nxt < 0) & sched.active)[0]:
+                fail_req(sched.slots[slot], "non_finite_logits")
+            sched.complete_step(nxt, lg_np)
+            dirty.update(sched.drain_released())   # retirements this step
+            sweep_dirty(set(dirty))
+            token_buf = np.where(sched.active, nxt, 0).astype(np.int32)
+            n_steps += 1
+            if n_steps > limit:
+                # step-limit watchdog: fail whatever is unfinished, keeping
+                # the finished requests' outputs
+                fail_unfinished("step_limit")
+                break
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+
+        rho_sum: Dict[Any, float] = {rid: 0.0 for rid in rho_n}
+        sel_sum: Dict[Any, float] = {rid: 0.0 for rid in rho_n}
+        if telemetry:
+            rho_all = torch.stack([t[0] for t in telemetry]).float().cpu().numpy()
+            sel_all = torch.stack([t[1] for t in telemetry]).float().cpu().numpy()
+            for i, (_, _, live) in enumerate(telemetry):
+                for slot, rid in live.items():
+                    rho_sum[rid] += float(rho_all[i, slot])
+                    sel_sum[rid] += float(sel_all[i, slot])
+                    rho_n[rid] += 1
+
+        out = ServeResult()
+        for r in reqs:
+            out[r.rid] = r.out_tokens
+        if collect_logits:
+            out["logits"] = {r.rid: np.stack(r.out_logits)
+                             for r in reqs if r.out_logits}
+        gen_toks = sum(len(r.out_tokens) for r in reqs)
+        # slot_util over DECODE-step tokens only (each admission's first
+        # token comes from prefill, not from a decode slot)
+        decode_toks = gen_toks - sched.n_admitted
+        retired_preempted = sum(1 for r in sched.finished.values()
+                                if r.n_preemptions > 0)
+        out["stats"] = {
+            "wall_s": wall, "decode_steps": n_steps,
+            "generated_tokens": gen_toks,
+            "tok_per_s": gen_toks / max(wall, 1e-9),
+            "slot_util": decode_toks / max(n_steps * n_slots, 1),
+            "admitted": sched.n_admitted, "retired": sched.n_retired,
+            "retired_clean": sched.n_retired - retired_preempted,
+            "retired_preempted": retired_preempted,
+            "admission_stalls": sched.admission_stalls,
+            "admission": admission, "watermark": watermark,
+            "preemptions": sched.n_preemptions,
+            "resumed": sched.n_resumed,
+            "swapped_out_bytes": swap.bytes_out,
+            "swapped_in_bytes": swap.bytes_in,
+            "failed": sched.n_failed,
+            "errors": {r.rid: r.error for r in sched.finished.values()
+                       if r.status != "ok"},
+            "swap": swap.stats(),
+            "mean_active_slots": active_sum / max(n_steps, 1),
+            "max_active_slots": active_max,
+            "peak_pages_used": (sched.allocator.num_pages - 1
+                                - sched.allocator.min_free),
+            "num_pages": num_pages, "page_size": ps,
+            "prefill_buckets_pages": sorted(self._prefill_buckets),
+            # measured per-request selection telemetry (decode steps only;
+            # empty when telemetry is off)
+            "sparsity_by_rid": {rid: rho_sum[rid] / rho_n[rid]
+                                for rid in rho_sum if rho_n[rid]},
+            "sel_blocks_by_rid": {rid: sel_sum[rid] / rho_n[rid]
+                                  for rid in sel_sum if rho_n[rid]},
+            # per-request lifecycle: ``*_step`` on the decode-loop clock,
+            # ``t_*`` wall-clock seconds, -1 where never reached
+            "timing_by_rid": {r.rid: {
+                "submit_step": r.submit_step,
+                "admit_step": r.admit_step,
+                "first_token_step": r.first_token_step,
+                "retire_step": r.retire_step,
+                "t_submit": r.t_submit, "t_admit": r.t_admit,
+                "t_first": r.t_first, "t_retire": r.t_retire,
+                "n_tokens": len(r.out_tokens)} for r in reqs},
+            "tier_by_rid": {r.rid: r.tier for r in reqs},
+        }
+        return out
+
+    def _paged_prefill(self, pages: pg.PagedPages, req: Request, ps: int,
+                       keep_logits: bool):
+        """Contiguous prefill of one request, scattered into its pages.
+
+        The prompt is right-padded to a power-of-two number of pages (the
+        reference's bucketing, which bounds its jit cache; kept here so
+        both packages run the same prefill arithmetic) and its true length
+        rides along as ``batch["lengths"]``: causality keeps real positions
+        blind to the pad tokens, the logits come from the last real token,
+        and ``scatter_prefill`` zeroes the Kg rows past the complete
+        blocks. Returns (greedy first token, fp32 logits row on the host
+        or None): the argmax is taken on the device."""
+        plen = req.prompt_len
+        n_prompt = -(-plen // ps)
+        bucket = 1 << (n_prompt - 1).bit_length()       # pages, power of 2
+        self._prefill_buckets.add(bucket)
+        toks = torch.zeros((1, bucket * ps), dtype=torch.int32, device=self.device)
+        toks[0, :plen] = torch.as_tensor(req.prompt, device=self.device)
+        lengths = torch.tensor([plen], dtype=torch.int32, device=self.device)
+        logits, cstate = self.api.prefill(self.params,
+                                          {"tokens": toks, "lengths": lengths},
+                                          self.cfg, bucket * ps,
+                                          options=self.options)
+        view = self.api.state_view(cstate)
+        if view.k_cache is not None:
+            pg.scatter_prefill(pages, view.k_cache, view.v_cache, view.kg_cache,
+                               plen, pg.pad_page_ids(req.pages, device=self.device),
+                               ps)
+        first = int(torch.argmax(logits[0]))
+        lg = logits[0].float().cpu().numpy() if keep_logits else None
+        return first, lg
+
     def sparsity_stats(self) -> Dict[str, Any]:
         """Measured selection economics of the LATEST decode step, from
-        the step's ACTUAL selected block mask (averaged over layers).
-        Before any step has run: the same keys, neutral values and
+        the step's ACTUAL selected block mask (averaged over layers); after
+        ``serve()``, over the slots that were active in that step only.
+        The derived I/O terms follow the paper's Fig. 6 model. Before any
+        step has run: the same keys, neutral values and
         ``measured=False``."""
+        cfg = self.cfg
         if self._last_aux is None or not self.options.measure_sparsity:
             sel = vis = rho = 0.0
             rows = np.zeros((0,), np.float32)
@@ -102,12 +463,22 @@ class DecodeEngine:
         else:
             aux = {k: v.detach().cpu().numpy() for k, v in self._last_aux.items()}
             rows = np.asarray(aux["sparsity_rows"], np.float32)
-            sel = float(np.mean(aux["sel_blocks"]))
-            vis = float(np.mean(aux["vis_blocks"]))
+            sel_rows = np.asarray(aux["sel_blocks"], np.float32)
+            vis_rows = np.asarray(aux["vis_blocks"], np.float32)
+            if self._last_active is not None:   # paged: skip idle slots
+                act = np.asarray(self._last_active, bool)
+                rows, sel_rows, vis_rows = rows[act], sel_rows[act], vis_rows[act]
+            sel = float(np.mean(sel_rows))
+            vis = float(np.mean(vis_rows))
             rho = float(np.mean(rows))
             measured = True
         return {
             "sparsity": rho, "sparsity_rows": rows,
             "sel_blocks": sel, "vis_blocks": vis,
+            "io_speedup": (vis / sel) if sel > 0 else 1.0,
+            "kv_bytes_read": sel * cfg.gate.block_size
+            * cfg.n_kv_heads * cfg.resolved_head_dim * 2 * 2,
+            "gate_overhead_frac": (cfg.gate.d_gate / cfg.gate.block_size)
+            / (2 * cfg.resolved_head_dim),
             "measured": measured,
         }

@@ -1,0 +1,269 @@
+"""Paged KV cache for continuous-batching sparse decode, PyTorch port.
+
+Port of the JAX package's ``serve/paging.py`` (fp pools only). Storage is
+a global pool of fixed-size pages shared by every sequence in flight; a
+per-slot page table maps logical KV block ids to physical pages. The page
+size EQUALS the gate block size: one page == one gate block, so the
+K-compression cache pages alongside the raw KV (``kg_pages`` holds one
+row per physical page). The gate still emits LOGICAL block ids; the
+logical -> physical translation happens inside the paged kernels (or in
+the gathers of their plain versions).
+
+Layout (``L`` = self-attn layers, ``P`` = pool pages, ``ps`` = page size;
+head-major, consumed natively by decode):
+  k_pages / v_pages  [L, P, Hkv, ps, Dh]   post-rope keys / values
+  kg_pages           [L, P, Hkv, Dg]       gate K-compression twin
+  page_table         [n_slots, npt] int32  physical ids; NULL_PAGE = empty
+
+Physical page 0 is the null/trash page: unallocated table entries point
+at it and writes of inactive slots are routed there. Several slots may
+write page 0 in one scatter, and a scatter with duplicate indices leaves
+an unspecified winner, so page 0 holds no data anyone reads: its Kg rows
+sit past every slot's visible-block cut and its K/V rows are never
+selected. The allocator never hands it out.
+
+The reference is functional (it returns new pools and donates the old
+ones); here every helper updates the pool tensors IN PLACE and returns
+nothing, except ``extract_pages``, which returns host copies. Staleness
+contract (as in ``core.kcache``): a page's ``kg_pages`` row is valid only
+once the page is FULL; a partial trailing page keeps a ZERO row.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.config import GateConfig, ModelConfig
+from repro_torch.core.kcache import finalize_block_kg
+from repro_torch.device import resolve_device
+from repro_torch.models.common import torch_dtype
+
+NULL_PAGE = 0
+
+
+class PagedPages(NamedTuple):
+    """Device-side page pools, stacked over self-attention layers. The
+    Quest metadata pools and the int8 scale pools of the reference arrive
+    with their slices."""
+    k_pages: torch.Tensor                 # [L, P, Hkv, ps, Dh]  (head-major)
+    v_pages: torch.Tensor                 # [L, P, Hkv, ps, Dh]
+    kg_pages: Optional[torch.Tensor]      # [L, P, Hkv, Dg]
+
+
+def init_pages(cfg: ModelConfig, num_pages: int, n_layers: int,
+               dtype: Optional[torch.dtype] = None, with_meta: bool = False,
+               ghost_rows: int = 0, quantize: Optional[str] = None, *,
+               device=None) -> PagedPages:
+    """Zeroed fp pools on ``device`` (``None`` = CUDA, which raises without
+    a card). The reference's Quest metadata pools (``with_meta``),
+    eviction ghost rows and int8 pools are later slices and raise."""
+    if with_meta:
+        raise NotImplementedError(
+            "Quest selection-metadata pools (Queue A item 6) are not ported")
+    if ghost_rows:
+        raise NotImplementedError(
+            "eviction ghost rows (Queue A item 7) are not ported")
+    if quantize is not None:
+        raise NotImplementedError(
+            "quantize='int8' pools (Queue A item 8) are not ported")
+    device = resolve_device(device)
+    dt = dtype or torch_dtype(cfg.dtype)
+    ps = cfg.gate.block_size
+    hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    kg = (torch.zeros((n_layers, num_pages, hkv, cfg.gate.d_gate), dtype=dt,
+                      device=device) if cfg.gate.enabled else None)
+    return PagedPages(
+        k_pages=torch.zeros((n_layers, num_pages, hkv, ps, dh), dtype=dt,
+                            device=device),
+        v_pages=torch.zeros((n_layers, num_pages, hkv, ps, dh), dtype=dt,
+                            device=device),
+        kg_pages=kg)
+
+
+def scatter_prefill(pages: PagedPages, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, kg_cache: Optional[torch.Tensor],
+                    length: int, page_ids: torch.Tensor,
+                    block_size: int) -> None:
+    """Copy one request's contiguous prefill caches into its pages.
+
+    k_cache/v_cache: head-major [L, 1, Hkv, S_max, Dh] from ``lm_prefill``
+    with S_max a whole number of pages; ``page_ids`` [n] the request's
+    pages in logical order, padded with NULL_PAGE (``pad_page_ids``).
+    Every listed page gets a cache page (rows past the cache repeat its
+    last page: filler that ``kv_len`` masks). Every listed page's Kg row
+    is zeroed except the ``length // block_size`` complete-block rows,
+    which are copied from ``kg_cache`` [L, 1, Hkv, nb, Dg].
+    """
+    n_ids = page_ids.shape[0]
+    nl, _, hkv, s_max, dh = k_cache.shape
+    n_cache = s_max // block_size
+    dev = k_cache.device
+    src = torch.clamp_max(torch.arange(n_ids, device=dev), n_cache - 1)
+
+    def page_rows(cache):                # [L,1,Hkv,S,Dh] -> [L,n_ids,Hkv,ps,Dh]
+        rows = cache[:, 0].reshape(nl, hkv, n_cache, block_size, dh)
+        return rows.transpose(1, 2)[:, src]
+
+    pages.k_pages[:, page_ids] = page_rows(k_cache).to(pages.k_pages.dtype)
+    pages.v_pages[:, page_ids] = page_rows(v_cache).to(pages.v_pages.dtype)
+    if pages.kg_pages is None:
+        return
+    pool = pages.kg_pages
+    new = torch.zeros((nl, n_ids) + tuple(pool.shape[2:]), dtype=pool.dtype,
+                      device=dev)
+    if kg_cache is not None:
+        nb = kg_cache.shape[3]
+        srcr = torch.clamp_max(torch.arange(n_ids, device=dev), nb - 1)
+        rows = kg_cache[:, 0].transpose(1, 2)[:, srcr]   # [L,n_ids,Hkv,Dg]
+        keep = (torch.arange(n_ids, device=dev) < length // block_size)
+        new = torch.where(keep[None, :, None, None], rows.to(pool.dtype), new)
+    pool[:, page_ids] = new
+
+
+def append_token_paged(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                       kg_pages: Optional[torch.Tensor],
+                       kr_new: torch.Tensor, v_new: torch.Tensor,
+                       page_table: torch.Tensor, cur_len: torch.Tensor,
+                       active: torch.Tensor, gate_params: Optional[Dict],
+                       cfg: GateConfig, *, rope_theta: float = 10000.0) -> None:
+    """ONE layer's paged twin of the contiguous write + ``update_kcache``.
+
+    kr_new/v_new: [S, Hkv, Dh] the new token's post-rope K / V per slot.
+    Writes land at (page_table[slot, cur_len // ps], :, cur_len % ps);
+    rows with ``active == False`` go to the null page. Then, when gate
+    parameters are given, the Kg row of each just-completed page is
+    finalized (``finalize_kg_paged``)."""
+    ps = cfg.block_size
+    sidx = torch.arange(cur_len.shape[0], device=cur_len.device)
+    logical = (cur_len // ps).long()
+    off = (cur_len % ps).long()
+    phys = torch.where(active, page_table[sidx, logical], NULL_PAGE).long()
+    k_pages[phys, :, off] = kr_new.to(k_pages.dtype)
+    v_pages[phys, :, off] = v_new.to(v_pages.dtype)
+    if kg_pages is None or gate_params is None:
+        return
+    finalize_kg_paged(k_pages, kg_pages, page_table, cur_len, active,
+                      gate_params, cfg, rope_theta=rope_theta)
+
+
+def finalize_kg_paged(k_pages: torch.Tensor, kg_pages: torch.Tensor,
+                      page_table: torch.Tensor, cur_len: torch.Tensor,
+                      active: torch.Tensor, gate_params: Dict,
+                      cfg: GateConfig, *, rope_theta: float = 10000.0) -> None:
+    """Finalize the Kg row of each slot's just-completed page, in place.
+
+    Called AFTER the new token's key is written. A slot whose page
+    completes ((cur_len + 1) % ps == 0) has the page's keys rotated back
+    to the pre-rope frame and pooled + projected into that page's row.
+    Every other slot writes the null page's row back UNCHANGED (the
+    reference's ``where(completed, kg_new, kg_cur)``), so no live row
+    moves."""
+    ps = cfg.block_size
+    sidx = torch.arange(cur_len.shape[0], device=cur_len.device)
+    logical = (cur_len // ps).long()
+    phys = torch.where(active, page_table[sidx, logical], NULL_PAGE).long()
+    completed = active & (((cur_len + 1) % ps) == 0)
+    blk = k_pages[phys].transpose(1, 2)                    # [S, ps, Hkv, Dh]
+    kg_new = finalize_block_kg(gate_params, blk, logical * ps, logical, cfg,
+                               is_roped=True, rope_theta=rope_theta)
+    phys_kg = torch.where(completed, phys, NULL_PAGE)
+    kg_cur = kg_pages[phys_kg]
+    kg_pages[phys_kg] = torch.where(completed[:, None, None],
+                                    kg_new.to(kg_pages.dtype), kg_cur)
+
+
+def gather_kg(kg_pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """[P, Hkv, Dg] x [S, npt] -> per-slot head-major logical Kg view
+    [S, Hkv, npt, Dg] (the paged gate select's plain version reads it)."""
+    return kg_pages[page_table.long()].transpose(1, 2)
+
+
+def gather_kv(pages_1l: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """[P, Hkv, ps, Dh] x [S, npt] -> head-major contiguous view
+    [S, Hkv, npt*ps, Dh]. The dense-attention fallback only: it copies a
+    cache-sized array; the sparse path reads selected pages in-kernel."""
+    s, npt = page_table.shape
+    g = pages_1l[page_table.long()].transpose(1, 2)        # [S,Hkv,npt,ps,Dh]
+    return g.reshape(s, pages_1l.shape[1], npt * pages_1l.shape[2],
+                     pages_1l.shape[3])
+
+
+class PageAllocator:
+    """Host-side free-list allocator over the physical page pool.
+
+    Page 0 (NULL_PAGE) is reserved. Allocation is LIFO over the free list
+    (freshly freed pages are reused first). ``min_free`` records the
+    low-watermark of the free list (peak-occupancy telemetry)."""
+
+    def __init__(self, num_pages: int):
+        if num_pages < 2:
+            raise ValueError("need at least 2 pages (page 0 is reserved)")
+        self.num_pages = num_pages
+        self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        self.min_free = len(self._free)
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """n pages, or None if the pool can't satisfy the request."""
+        if n > len(self._free):
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        self.min_free = min(self.min_free, len(self._free))
+        return out
+
+    def free(self, ids: Sequence[int]) -> None:
+        for i in ids:
+            if i == NULL_PAGE:
+                raise ValueError("page 0 is reserved")
+            if i in self._free:
+                raise ValueError(f"double free of page {i}")
+            self._free.append(int(i))
+
+
+def pad_page_ids(ids: Sequence[int], *, min_len: int = 1,
+                 device=None) -> torch.Tensor:
+    """A page-id list padded with NULL_PAGE to the next power-of-two
+    length, as the reference pads it to bound its jit cache. The port
+    keeps the padding so a swap entry holds the same rows (and bytes) as
+    the reference's; the padded rows are the trash page's."""
+    n = max(len(ids), min_len)
+    bucket = 1 << (n - 1).bit_length()
+    return torch.tensor(list(ids) + [NULL_PAGE] * (bucket - len(ids)),
+                        dtype=torch.int64, device=device)
+
+
+def reset_kg_rows(pages: PagedPages, page_ids: torch.Tensor) -> None:
+    """Zero the Kg rows of freshly (lazily) allocated pages: a recycled
+    page still holds its previous tenant's row, and a partial trailing
+    page must read a ZERO row. K/V contents need no reset: every read is
+    masked by the logical ``kv_len``."""
+    if pages.kg_pages is not None:
+        pages.kg_pages[:, page_ids] = 0
+
+
+def extract_pages(pages: PagedPages, page_ids: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """One request's pages for swap-out, copied to HOST memory before the
+    scheduler frees them: (k [L,n,Hkv,ps,Dh], v [L,n,Hkv,ps,Dh],
+    kg [L,n,Hkv,Dg] | None), physical ids given in LOGICAL order."""
+    k = pages.k_pages[:, page_ids].cpu()
+    v = pages.v_pages[:, page_ids].cpu()
+    kg = pages.kg_pages[:, page_ids].cpu() if pages.kg_pages is not None else None
+    return k, v, kg
+
+
+def restore_pages(pages: PagedPages, k: torch.Tensor, v: torch.Tensor,
+                  kg: Optional[torch.Tensor], page_ids: torch.Tensor) -> None:
+    """Scatter swapped-out page contents into fresh physical pages
+    (re-admission after preemption). The new ids may differ from the old
+    ones: every access goes through the page table, so the round trip is
+    bitwise lossless."""
+    dev = pages.k_pages.device
+    pages.k_pages[:, page_ids] = k.to(dev, pages.k_pages.dtype)
+    pages.v_pages[:, page_ids] = v.to(dev, pages.v_pages.dtype)
+    if pages.kg_pages is not None and kg is not None:
+        pages.kg_pages[:, page_ids] = kg.to(dev, pages.kg_pages.dtype)

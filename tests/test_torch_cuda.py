@@ -9,7 +9,8 @@ on a GPU machine with
 
 This file imports neither jax nor the reference package; the plain
 versions it compares against are themselves held against the JAX
-reference on the CPU (tests/test_torch_kernels.py, test_torch_engine.py).
+reference on the CPU (tests/test_torch_kernels.py, test_torch_engine.py,
+test_torch_paging.py, test_torch_serve.py).
 """
 import ctypes
 import dataclasses
@@ -190,6 +191,144 @@ def test_decode_limit_rejects_a_faulty_kernel(dev, mutant, tmp_path, monkeypatch
     assert bad > lim, f"{mutant}: error {bad} within the limit {lim}"
 
 
+def _paged_table(r, s, npt, n_valid, n_pages):
+    """Shuffled distinct physical pages for each row's first n_valid
+    logical blocks, the null page 0 past them."""
+    pt = np.zeros((s, npt), np.int32)
+    pool = r.permutation(np.arange(1, n_pages))
+    at = 0
+    for i in range(s):
+        pt[i, :n_valid[i]] = pool[at:at + n_valid[i]]
+        at += n_valid[i]
+    return pt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cfg", GATES, ids=range(len(GATES)))
+@pytest.mark.parametrize("shape", [(3, 2, 16, 16), (4, 8, 257, 128)])
+def test_gate_select_paged_kernel_matches_plain(dev, dtype, cfg, shape):
+    s, hkv, npt, dg = shape
+    n_pages = s * npt + 1
+    g = torch.Generator(device=dev).manual_seed(2)
+    qg = torch.randn(s, hkv, dg, generator=g, device=dev).to(dtype)
+    kgp = torch.randn(n_pages, hkv, dg, generator=g, device=dev).to(dtype)
+    nv_np = np.array(([npt, npt // 2 + 1, 1] * s)[:s], np.int32)
+    pt = torch.tensor(_paged_table(np.random.default_rng(2), s, npt, nv_np, n_pages),
+                      device=dev)
+    nv = torch.tensor(nv_np, device=dev)
+    for ms in (None, 5):
+        k_idx = gs.gate_select_paged_cuda(qg, kgp, pt, nv, cfg, ms)
+        p_idx = gs.gate_select_paged_plain(qg, kgp, pt, nv, cfg, ms)
+        torch.cuda.synchronize()
+        assert k_idx.shape == p_idx.shape and k_idx.dtype == torch.int32
+        ids_agree(k_idx, p_idx, gs.gate_scores_plain(
+            qg, kgp[pt.long()].transpose(1, 2), nv, cfg))
+
+
+def _paged_inputs(dev, dtype, s, hkv, g, dh, npt, bs, nsel, seed=0):
+    """A pool of s*npt+1 pages under a shuffled table, random selections
+    with the partial last block, -1 padding and one row with no valid key."""
+    q, k, v, idx, kv_len = _sparse_inputs(dev, dtype, s, hkv, g, dh, npt, bs, nsel, seed)
+    r = np.random.default_rng(seed + 1)
+    n_pages = s * npt + 1
+    pt = _paged_table(r, s, npt, np.full((s,), npt), n_pages)
+    kp = torch.zeros(n_pages, hkv, bs, dh, dtype=dtype, device=dev)
+    vp = torch.zeros_like(kp)
+    for i in range(s):                      # the contiguous caches, paged
+        for j in range(npt):
+            kp[pt[i, j]] = k[i, :, j * bs:(j + 1) * bs]
+            vp[pt[i, j]] = v[i, :, j * bs:(j + 1) * bs]
+    return q, kp, vp, idx, torch.tensor(pt, device=dev), kv_len, (k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hkv,g,dh,npt,bs,nsel", [
+    (2, 2, 2, 16, 8, 8, 4),
+    (3, 1, 5, 32, 6, 16, 6),
+    (4, 8, 2, 128, 257, 64, 64),           # the main path's shapes
+])
+def test_sparse_decode_paged_kernel_matches_plain(dev, dtype, s, hkv, g, dh, npt, bs, nsel):
+    q, kp, vp, idx, pt, kv_len, (k, v) = _paged_inputs(dev, dtype, s, hkv, g, dh, npt,
+                                                       bs, nsel)
+    o_k = bsd.sparse_decode_paged_cuda(q, kp, vp, idx, pt, kv_len, block_size=bs)
+    o_p = bsd.sparse_decode_paged_plain(q, kp, vp, idx, pt, kv_len, block_size=bs)
+    torch.cuda.synchronize()
+    assert o_k.dtype == dtype
+    if dtype == torch.float32:
+        np.testing.assert_allclose(o_k.cpu().numpy(), o_p.cpu().numpy(),
+                                   atol=1e-5, rtol=1e-5)
+    else:
+        assert float((o_k.float() - o_p.float()).abs().max()) <= _decode_limit(o_p)
+    assert torch.equal(o_k[0, 0], torch.zeros_like(o_k[0, 0]))
+    # the same blocks read in place from the contiguous caches: same kernel
+    # body, same arithmetic, bitwise the same output
+    assert torch.equal(o_k, bsd.sparse_decode_cuda(q, k, v, idx, kv_len, block_size=bs))
+
+
+PAGED_MUTANT = ("const int phys = max(page_table[(size_t)b * npt + blk], 0);",
+                "const int phys = blk;")
+
+
+def test_paged_decode_limit_rejects_logical_id_as_page(dev, tmp_path, monkeypatch):
+    """A paged decode kernel that reads the LOGICAL block id as the
+    physical page fails chip_smoke.py's 8-ulp limit on a shuffled table at
+    the main path's shape; the correct kernel passes it."""
+    old, new = PAGED_MUTANT
+    src = (build.CSRC / "block_sparse_decode.cu").read_text()
+    assert src.count(old) == 1
+    cu = tmp_path / "mutant_paged.cu"
+    cu.write_text(src.replace(old, new))
+    so = tmp_path / "mutant_paged.so"
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    q, kp, vp, idx, pt, kv_len, _ = _paged_inputs(dev, torch.bfloat16, 4, 8, 2, 128,
+                                                  257, 64, 64, seed=3)
+    o_p = bsd.sparse_decode_paged_plain(q, kp, vp, idx, pt, kv_len, block_size=64)
+    lim = _decode_limit(o_p)
+    o_k = bsd.sparse_decode_paged_cuda(q, kp, vp, idx, pt, kv_len, block_size=64)
+    good = float((o_k.float() - o_p.float()).abs().max())
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    o_m = bsd.sparse_decode_paged_cuda(q, kp, vp, idx, pt, kv_len, block_size=64)
+    torch.cuda.synchronize()
+    bad = float((o_m.float() - o_p.float()).abs().max())
+    print(f"[logical id as page] limit {lim:.3e}: correct kernel {good:.3e}, "
+          f"faulty kernel {bad:.3e}")
+    assert good <= lim < bad
+
+
+def test_engine_cuda_serve_matches_cpu_and_counts_launches(dev):
+    """serve() on the card equals serve() on the CPU (tiny config, fp32),
+    with an ample and a tight pool, and every decode step's layers went
+    through the two paged kernels."""
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import DecodeEngine
+    cfg = t_config.reduced(t_get("qwen3_0_6b")).replace(dtype="float32")
+    cfg = cfg.replace(gate=dataclasses.replace(cfg.gate, block_size=8, d_gate=16,
+                                               token_budget=32))
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+    r = np.random.default_rng(4)
+    reqs = [{"rid": i, "max_new_tokens": m,
+             "tokens": r.integers(0, cfg.vocab_size, size=(p,)).astype(np.int32)}
+            for i, (p, m) in enumerate([(20, 12), (18, 10), (22, 9)])]
+    gpu = DecodeEngine(cfg, params_to(params, dev), max_len=64)
+    cpu = DecodeEngine(cfg, params, max_len=64, device="cpu")
+    for pool in (None, 8):
+        want = cpu.serve(reqs, n_slots=3, num_pages=pool, collect_logits=True)
+        ops.reset_launch_counts()
+        got = gpu.serve(reqs, n_slots=3, num_pages=pool, collect_logits=True)
+        steps = got["stats"]["decode_steps"]
+        assert ops.launch_counts() == {"gate_select": 0, "block_sparse_decode": 0,
+                                       "gate_select_paged": cfg.num_layers * steps,
+                                       "block_sparse_decode_paged": cfg.num_layers * steps}
+        assert (got["stats"]["preemptions"] > 0) == (pool is not None)
+        for i in range(len(reqs)):
+            assert got[i] == want[i]
+            np.testing.assert_allclose(got["logits"][i], want["logits"][i], atol=1e-4)
+
+
 def test_engine_cuda_matches_cpu_and_counts_launches(dev):
     from repro_torch.models.transformer import init_lm
     from repro_torch.serve.engine import DecodeEngine
@@ -204,6 +343,7 @@ def test_engine_cuda_matches_cpu_and_counts_launches(dev):
     ops.reset_launch_counts()
     eng = DecodeEngine(cfg, gpu_params, max_len=64)
     res = eng.generate({"tokens": toks}, 13)
-    assert ops.launch_counts() == {"gate_select": 2 * 12, "block_sparse_decode": 2 * 12}
+    assert ops.launch_counts() == {"gate_select": 2 * 12, "block_sparse_decode": 2 * 12,
+                                   "gate_select_paged": 0, "block_sparse_decode_paged": 0}
     np.testing.assert_array_equal(res["tokens"].cpu().numpy(), cpu["tokens"].numpy())
 

@@ -96,7 +96,7 @@ def test_ct_rollout_matches_jax(method, options):
     np.testing.assert_array_equal(t_tk, j_tk)
     np.testing.assert_allclose(t_lg, j_lg, atol=1e-4, rtol=0)
     np.testing.assert_allclose(t_rho, j_rho, atol=1e-6, rtol=0)
-    assert t_ops.launch_counts() == {"gate_select": 0, "block_sparse_decode": 0}
+    assert t_ops.launch_counts() == dict.fromkeys(t_ops.KERNELS, 0)
 
 
 @pytest.mark.parametrize("override", [None, 1, 7, 8, 9, 20, 32, 33, 4096])
@@ -187,19 +187,25 @@ def test_engine_without_device_raises_when_no_cuda(monkeypatch):
     DecodeEngine(cfg, params, max_len=G.MAX_LEN, device="cpu")    # named: fine
 
 
-@pytest.mark.parametrize("entry", ["params_from_numpy", "init_decode_state"])
+@pytest.mark.parametrize("entry", ["params_from_numpy", "init_decode_state",
+                                   "init_pages"])
 def test_loaders_without_device_raise_when_no_cuda(monkeypatch, entry):
-    """The weight loader and the state allocator default to CUDA too."""
+    """The weight loader and the state and page-pool allocators default to
+    CUDA too."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from repro_torch.models.transformer import init_decode_state
+    from repro_torch.serve.paging import init_pages
     jcfg, tcfg = G.tiny_cfg("budget"), torch_tiny_cfg("budget")
     if entry == "params_from_numpy":
         tree = jax.device_get(get_api(jcfg).init_params(jax.random.PRNGKey(0), jcfg))
         call = lambda **kw: params_from_numpy(tree, tcfg, **kw)   # noqa: E731
+    elif entry == "init_pages":
+        call = lambda **kw: init_pages(tcfg, 9, tcfg.num_layers, **kw)  # noqa: E731
     else:
         call = lambda **kw: init_decode_state(tcfg, 2, G.MAX_LEN, **kw)  # noqa: E731
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
     out = call(device="cpu")                                      # named: fine
-    leaf = out["embed"]["w"] if entry == "params_from_numpy" else out.k_cache
+    leaf = (out["embed"]["w"] if entry == "params_from_numpy"
+            else out.k_pages if entry == "init_pages" else out.k_cache)
     assert leaf.device.type == "cpu"
