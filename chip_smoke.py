@@ -3,12 +3,17 @@
 
     python3 chip_smoke.py            # from the repository root, one card
 
-Two main paths, gated block-sparse decoding of qwen3_0_6b at full width:
+Three main paths, gated block-sparse decoding of qwen3_0_6b at full width:
 the contiguous path through ``DecodeEngine.generate`` (kernels
-``gate_select`` and ``block_sparse_decode``) and the paged continuous-
+``gate_select`` and ``block_sparse_decode``), the paged continuous-
 batching path through ``DecodeEngine.serve`` (kernels
-``gate_select_paged`` and ``block_sparse_decode_paged``). Phases (any
-failure exits non-zero):
+``gate_select_paged`` and ``block_sparse_decode_paged``), and the same
+``serve`` over int8 page pools, ``DecodeOptions(quantize="int8")``
+(kernels ``gate_select_paged`` and ``block_sparse_decode_paged_quant``).
+The contiguous int8 kernel ``block_sparse_decode_quant`` lies on no model
+path (in the reference neither): it is checked and timed on the generate
+path's layer-0 blocks, quantized per block. Phases (any failure exits
+non-zero):
 
   1. the card's name and power limit (nvidia-smi); build the CUDA kernels
      from ``src/repro_torch/kernels/csrc`` (one nvcc per source, started
@@ -17,7 +22,7 @@ failure exits non-zero):
      the same engine on the CPU (plain PyTorch path, itself held against
      the JAX reference by the CPU tests): ``generate`` tokens equal and
      logits close; ``serve`` with an ample and a tight (preempting) pool,
-     tokens equal and logits close;
+     fp and int8 pools, tokens equal and logits close;
   3. kernel vs plain on the card, on the tensors the main path gives
      layer 0 in its first decode step (captured from a real prefill +
      step): gate select for budget/threshold x force flags x n_valid
@@ -50,7 +55,20 @@ failure exits non-zero):
      slots' ``gather_kv`` view, masked at each slot's length;
   8. serve profile: the four longest requests on 4 slots, torch.profiler
      over three whole decode iterations (model step and host scheduling),
-     the top device kernels and the device's busy share.
+     the top device kernels and the device's busy share;
+  9. int8 serve: phase 6's requests and pools with int8 K/V pages; each
+     run must launch the int8 paged decode and the paged gate select
+     layers x decode steps times and nothing else, swap the int8 bytes plus
+     the scale rows (the fp run's bytes in the ratio of the page sizes),
+     and reproduce the ample run bitwise under the tight pool; the share
+     of tokens equal to the fp run's is printed, for information only;
+ 10. the int8 kernels against their plain versions: the paged one on the
+     tensors layer 0 of the int8 ample run's first decode step gave it
+     (with the decode limit of phase 3, and bitwise equal over shuffled
+     pages), the contiguous one on phase 3's caches quantized per block;
+     both timed as in phase 3. No single PyTorch call dequantizes and
+     attends, so their library time is null; dense SDPA over a
+     pre-dequantized gathered view is printed for context.
 
 The line before the last is a JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -75,6 +93,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 from repro_torch import configs  # noqa: E402
 from repro_torch.config import reduced  # noqa: E402
 from repro_torch.convert import params_to  # noqa: E402
+from repro_torch.core.policy import DecodeOptions  # noqa: E402
 from repro_torch.kernels import block_sparse_decode as bsd  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import gate_select as gs  # noqa: E402
@@ -180,34 +199,104 @@ def gate_bound_ms(qg, nv, k_sel):
     return bound_ms(*gate_work(qg, nv, k_sel))
 
 
-def decode_work(q, idx, kv_len, block_size):
+def decode_work(q, idx, kv_len, block_size, kv_es=None):
     """(bytes, operations) of the block-sparse decode: q and the output,
     the ids, kv_len, and the K and V rows of the valid tokens of the
-    selected blocks (what this run's data needs)."""
+    selected blocks (what this run's data needs). ``kv_es`` is the K/V
+    element size when it is not q's; int8 K/V (kv_es 1) also read a K and
+    a V f32 scale for each selected block that holds valid tokens."""
     es = q.element_size()
     b, h, g, dh = q.shape
     ix = idx.long().cpu()
     lens = kv_len.long().cpu()[:, None, None]
     tokens = torch.clamp(lens - ix * block_size, 0, block_size)
-    tokens = int(torch.where(ix >= 0, tokens, 0).sum())
-    nbytes = 2 * q.numel() * es + idx.numel() * 4 + b * 4 + 2 * tokens * dh * es
-    return nbytes, 4 * g * dh * tokens
+    tokens = torch.where(ix >= 0, tokens, 0)
+    n_tok = int(tokens.sum())
+    kv_bytes = 2 * n_tok * dh * (kv_es or es)
+    if kv_es == 1:
+        kv_bytes += 8 * int((tokens > 0).sum())
+    nbytes = 2 * q.numel() * es + idx.numel() * 4 + b * 4 + kv_bytes
+    return nbytes, 4 * g * dh * n_tok
 
 
-def decode_bound_ms(q, idx, kv_len, block_size):
-    return bound_ms(*decode_work(q, idx, kv_len, block_size))
+def decode_bound_ms(q, idx, kv_len, block_size, kv_es=None):
+    return bound_ms(*decode_work(q, idx, kv_len, block_size, kv_es))
 
 
-def paged_decode_bound_ms(q, idx, kv_len, block_size):
+def paged_decode_bound_ms(q, idx, kv_len, block_size, kv_es=None):
     """The contiguous decode's work plus one 4-byte page-table entry for
     each distinct (slot, block) that holds valid tokens."""
-    nbytes, ops_n = decode_work(q, idx, kv_len, block_size)
+    nbytes, ops_n = decode_work(q, idx, kv_len, block_size, kv_es)
     ix = idx.long().cpu()
     live = (ix >= 0) & (ix * block_size < kv_len.long().cpu()[:, None, None])
     b = ix.shape[0]
     keys = torch.where(live, torch.arange(b)[:, None, None] * (1 << 32) + ix, -1)
     n_entries = int(torch.unique(keys[keys >= 0]).numel())
     return bound_ms(nbytes + 4 * n_entries, ops_n)
+
+
+def decode_cases(q, idx, thr=None):
+    """The decode checks' inputs, as (label, q, ids): the captured
+    selection, its second half set to -1 padding, a threshold selection
+    (natural -1 padding) when given, and the captured selection with q x 8
+    (exact in bf16), whose peaked softmax leans on the running-max
+    rescale."""
+    pad = idx.clone()
+    pad[:, :, idx.shape[-1] // 2:] = -1
+    cases = [("captured", q, idx), ("half -1 padding", q, pad)]
+    if thr is not None:
+        cases.append(("threshold", q, thr))
+    return cases + [("q x 8", q * 8, idx)]
+
+
+def check_decode(name, kernel, plain, cases, shuffled=None):
+    """A decode kernel against its plain version, both called as
+    ``fn(q, ids)``, over ``cases``: within decode_limit, and, given
+    ``shuffled`` (the kernel over pools whose physical pages are shuffled
+    under the table), bitwise equal to it. Returns the largest error."""
+    worst = 0.0
+    for label, qq, ix in cases:
+        o_k, o_p = kernel(qq, ix), plain(qq, ix)
+        same = None if shuffled is None else torch.equal(o_k, shuffled(qq, ix))
+        torch.cuda.synchronize()
+        if same is False:
+            fail(f"{name} [{label}]: shuffled pages changed the output")
+        err = float((o_k.float() - o_p.float()).abs().max())
+        lim, ulp, top = decode_limit(o_p)
+        print(f"{name} [{label}, {int((ix < 0).sum())} padding slots]: max abs err {err:.3e} = "
+              f"{err / ulp if ulp else 0.0:.3g} ulp of max|o_plain| {top:.4f} (limit {lim:.3e} "
+              f"= min({DECODE_ULPS} ulp, {DECODE_TOL}))"
+              + ("; shuffled pages bitwise equal" if same else ""))
+        if not err <= lim:
+            fail(f"{name} disagrees with plain [{label}]: {err} > {lim}")
+        worst = max(worst, err)
+    return worst
+
+
+def shuffled_pages(table, *pools):
+    """(table, *pools) with the pools' physical pages permuted under a
+    remapped table (page 0, the trash page, stays): a kernel that reads
+    through the table must give the same bits. The permutation is seeded,
+    so two calls over pools of one size agree."""
+    n = pools[0].shape[0]
+    perm = torch.cat([torch.zeros(1, dtype=torch.long),
+                      1 + torch.randperm(n - 1, generator=torch.Generator().manual_seed(0))]
+                     ).to(table.device)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(n, device=table.device)
+    return (perm[table.long()].int(), *(p[inv] for p in pools))
+
+
+def sdpa_masked_ms(q, kc, vc, kv_len):
+    """Time of dense SDPA over head-major caches [B, Hkv, S, Dh] in q's
+    dtype, each row masked at its length, K/V heads expanded (the
+    expansion not timed)."""
+    b, hkv, g, dh = q.shape
+    ke, ve = kc.repeat_interleave(g, dim=1), vc.repeat_interleave(g, dim=1)
+    mask = (torch.arange(kc.shape[2], device=q.device)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return time_ms(lambda: sdpa(q.reshape(b, hkv * g, 1, dh), ke, ve, attn_mask=mask))
 
 
 def phase_build():
@@ -243,25 +332,33 @@ def phase_small():
     print(f"small-input agreement (tiny qwen3, fp32, 2x41 prompt, 12 steps): "
           f"tokens equal, logits max abs diff {err:.3e}")
 
-    # serve(): three ragged requests on 3 slots, ample pool and 8 pages
+    # serve(): three ragged requests on 3 slots, ample pool and 8 pages,
+    # fp and int8 pools; int8 allows for one int8 code flipped by a 1-ulp
+    # difference upstream (tests/test_torch_quant.py's tolerance)
     r = np.random.default_rng(4)
     reqs = [{"rid": i, "max_new_tokens": m,
              "tokens": r.integers(0, cfg.vocab_size, size=(p,)).astype(np.int32)}
             for i, (p, m) in enumerate([(20, 12), (18, 10), (22, 9)])]
-    engines = {dev: DecodeEngine(cfg, params_to(params, dev), max_len=64, device=dev)
-               for dev in ("cpu", "cuda")}
-    for pool in (None, 8):
-        res = {dev: e.serve(reqs, n_slots=3, num_pages=pool, collect_logits=True)
-               for dev, e in engines.items()}
-        same = all(res["cpu"][i] == res["cuda"][i] for i in range(len(reqs)))
-        err = max(float(np.abs(res["cpu"]["logits"][i] - res["cuda"]["logits"][i]).max())
-                  for i in range(len(reqs)))
-        pre = res["cuda"]["stats"]["preemptions"]
-        if not same or err > 1e-4 or (pre > 0) != (pool is not None):
-            fail(f"small serve agreement (pool {pool}): tokens equal {same}, logits "
-                 f"max abs diff {err:.3e} (limit 1e-4), preemptions {pre}")
-        print(f"small serve agreement (pool {pool or 'default'}, 3 requests on 3 slots): "
-              f"tokens equal, logits max abs diff {err:.3e}, preemptions {pre}")
+    for quant, tol in ((None, 1e-4), ("int8", 1e-3)):
+        opts = DecodeOptions(quantize=quant)
+        engines = {dev: DecodeEngine(cfg, params_to(params, dev), max_len=64, device=dev,
+                                     options=opts) for dev in ("cpu", "cuda")}
+        for pool in (None, 8):
+            res = {dev: e.serve(reqs, n_slots=3, num_pages=pool, collect_logits=True)
+                   for dev, e in engines.items()}
+            same = all(res["cpu"][i] == res["cuda"][i] for i in range(len(reqs)))
+            err = max(float(np.abs(res["cpu"]["logits"][i] - res["cuda"]["logits"][i]).max())
+                      for i in range(len(reqs)))
+            pre = res["cuda"]["stats"]["preemptions"]
+            swap_ok = (res["cpu"]["stats"]["swapped_out_bytes"]
+                       == res["cuda"]["stats"]["swapped_out_bytes"])
+            if not same or err > tol or (pre > 0) != (pool is not None) or not swap_ok:
+                fail(f"small serve agreement ({quant or 'fp'} pools, pool {pool}): tokens "
+                     f"equal {same}, logits max abs diff {err:.3e} (limit {tol}), "
+                     f"preemptions {pre}, swap bytes equal {swap_ok}")
+            print(f"small serve agreement ({quant or 'fp'} pools, pool {pool or 'default'}, "
+                  f"3 requests on 3 slots): tokens equal, logits max abs diff {err:.3e} "
+                  f"(limit {tol}), preemptions {pre}")
 
 
 def capture_layer0(eng, batch):
@@ -317,28 +414,13 @@ def phase_kernels(seen):
     print(f"gate_select: {checks} cases (budget/threshold x force flags x n_valid "
           f"full/partial/1) equal to plain; near-tie swaps {swaps}")
 
-    # block-sparse decode: the captured selection, with -1 padding, a
-    # threshold selection (natural -1 padding), and the captured selection
-    # with q x 8 (exact in bf16), whose peaked softmax leans on the
-    # running-max rescale; kv_len leaves a partial block
-    pad = idx.clone()
-    pad[:, :, idx.shape[-1] // 2:] = -1
+    # block-sparse decode; kv_len leaves a partial block
     thr = gs.gate_select_plain(qg, kg, nv, dataclasses.replace(gcfg, method="threshold"), ms)
-    dec_err = 0.0
-    for name, qq, ix in (("captured", q, idx), ("half -1 padding", q, pad),
-                         ("threshold", q, thr), ("q x 8", q * 8, idx)):
-        o_k = bsd.sparse_decode_cuda(qq, kc, vc, ix, kv_len, block_size=bs)
-        o_p = bsd.sparse_decode_plain(qq, kc, vc, ix, kv_len, block_size=bs)
-        torch.cuda.synchronize()
-        err = float((o_k.float() - o_p.float()).abs().max())
-        lim, ulp, top = decode_limit(o_p)
-        n_pad = int((ix < 0).sum())
-        print(f"block_sparse_decode [{name}, {n_pad} padding slots]: max abs err "
-              f"{err:.3e} = {err / ulp if ulp else 0.0:.3g} ulp of max|o_plain| "
-              f"{top:.4f} (limit {lim:.3e} = min({DECODE_ULPS} ulp, {DECODE_TOL}))")
-        if not err <= lim:
-            fail(f"block_sparse_decode disagrees with plain [{name}]: {err} > {lim}")
-        dec_err = max(dec_err, err)
+    dec_err = check_decode(
+        "block_sparse_decode",
+        lambda qq, ix: bsd.sparse_decode_cuda(qq, kc, vc, ix, kv_len, block_size=bs),
+        lambda qq, ix: bsd.sparse_decode_plain(qq, kc, vc, ix, kv_len, block_size=bs),
+        decode_cases(q, idx, thr))
     if int(kv_len[0]) % bs == 0:
         fail("expected a partial last block at the captured kv_len")
 
@@ -438,9 +520,9 @@ def phase_end_to_end(eng, batch, n_new, n_layers):
           f"(sel {stats['sel_blocks']:.1f} of {stats['vis_blocks']:.1f} blocks), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     print(f"launch counts over generate: {counts} (expected {n_layers} x {n_steps} = "
-          f"{n_layers * n_steps} for each contiguous kernel, 0 for the paged ones)")
+          f"{n_layers * n_steps} for each contiguous fp kernel, 0 for the others)")
     for name, c in counts.items():
-        want = 0 if name.endswith("_paged") else n_layers * n_steps
+        want = n_layers * n_steps if name in ("gate_select", "block_sparse_decode") else 0
         if c != want:
             fail(f"{name} launched {c} times, expected {want}")
     if len(finite) != n_steps or not bool(torch.stack(finite).all()):
@@ -461,15 +543,19 @@ def serve_requests(vocab):
 
 def capture_paged_layer0():
     """Patch the paged dispatchers so that their FIRST call (layer 0 of the
-    first decode step) keeps a copy of its arguments; the pools are updated
-    in place later, so tensors are cloned. Returns (seen, restore)."""
+    first decode step) keeps a copy of its arguments; the pools (and int8
+    scale rows) are updated in place later, so tensors are cloned. Returns
+    (seen, restore)."""
     seen = {}
     real = (ops.gate_select_paged, ops.paged_sparse_decode)
+
+    def copy(x):
+        return x.clone() if torch.is_tensor(x) else x
 
     def grab(name, fn):
         def wrapper(*a, **kw):
             if name not in seen:
-                seen[name] = (tuple(x.clone() if torch.is_tensor(x) else x for x in a), kw)
+                seen[name] = (tuple(map(copy, a)), {k: copy(v) for k, v in kw.items()})
             return fn(*a, **kw)
         return wrapper
 
@@ -483,7 +569,9 @@ def capture_paged_layer0():
 
 def run_serve(eng, reqs, num_pages, n_layers):
     """One serve() with the launch counters at 0 just before and read just
-    after, and the prefill time taken apart (synchronised)."""
+    after, and the prefill time taken apart (synchronised). The paged gate
+    select and the paged decode of the engine's pools (fp or int8) must
+    each launch layers x decode steps times, and no other kernel."""
     prefill = eng._paged_prefill
     spent = [0.0]
 
@@ -518,8 +606,10 @@ def run_serve(eng, reqs, num_pages, n_layers):
     print(f"serve measured sparsity by rid: "
           + ", ".join(f"{k}: {v:.4f}" for k, v in st["sparsity_by_rid"].items())
           + f"; launch counts {counts}")
-    want = {"gate_select": 0, "block_sparse_decode": 0,
-            "gate_select_paged": n_layers * steps, "block_sparse_decode_paged": n_layers * steps}
+    decode = ("block_sparse_decode_paged_quant" if eng.options.quantize
+              else "block_sparse_decode_paged")
+    want = {**dict.fromkeys(ops.KERNELS, 0), "gate_select_paged": n_layers * steps,
+            decode: n_layers * steps}
     if counts != want:
         fail(f"serve launch counts {counts}, expected {want}")
     if st["retired"] != len(reqs) or st["failed"] or st["errors"]:
@@ -533,11 +623,15 @@ def run_serve(eng, reqs, num_pages, n_layers):
     return res, counts, spent[0]
 
 
-def phase_serve(cfg, params):
+def phase_serve(cfg, params, quantize=None):
     """serve() at full width, ample pool then tight pool; layer-0 paged
-    kernel arguments captured from the ample run's first decode step."""
+    kernel arguments captured from the ample run's first decode step.
+    ``quantize="int8"`` serves from int8 pools, where the tight run must
+    reproduce the ample one bitwise (the swap moves the raw codes and scale
+    rows). Returns (launch counts, captured arguments, ample, tight)."""
     reqs = serve_requests(cfg.vocab_size)
-    eng = DecodeEngine(cfg, params, max_len=max(p + m for p, m in SERVE_SPECS))
+    eng = DecodeEngine(cfg, params, max_len=max(p + m for p, m in SERVE_SPECS),
+                       options=DecodeOptions(quantize=quantize))
     seen, restore = capture_paged_layer0()
     try:
         ample, counts, _ = run_serve(eng, reqs, None, cfg.num_layers)
@@ -549,6 +643,8 @@ def phase_serve(cfg, params):
     st = tight["stats"]
     if st["preemptions"] < 1 or st["resumed"] != st["preemptions"]:
         fail(f"tight pool: preemptions {st['preemptions']}, resumed {st['resumed']}")
+    if st["swapped_out_bytes"] != st["swapped_in_bytes"]:
+        fail(f"tight pool: swapped out {st['swapped_out_bytes']} B, in {st['swapped_in_bytes']} B")
     worst = 0.0
     for r in reqs:
         rid = r["rid"]
@@ -559,11 +655,42 @@ def phase_serve(cfg, params):
             top = float(np.abs(a).max())
             ulp = 2.0 ** -7 * 2.0 ** math.floor(math.log2(top))
             worst = max(worst, float(np.abs(a - b).max()) / ulp)
-    if worst > DECODE_ULPS:
-        fail(f"tight pool logits differ by {worst:.2f} bf16 ulps (limit {DECODE_ULPS})")
+    if worst > (0 if quantize else DECODE_ULPS):
+        fail(f"tight pool logits differ by {worst:.2f} bf16 ulps")
     print(f"tight pool reproduces the ample run: tokens equal for every rid, logits "
           + ("bitwise equal" if worst == 0 else f"within {worst:.2f} bf16 ulps"))
-    return counts, seen
+    return counts, seen, ample, tight
+
+
+def check_int8_serve(cfg, fp, q8):
+    """The int8 runs against the fp runs of phase 6: the same scheduling
+    (decode steps, peak pages, preemptions), swap bytes in the ratio of the
+    int8 page (codes, bf16 Kg row, two f32 scales per kv head) to the fp
+    page, and, for information only, the share of tokens equal to fp's."""
+    (fa, ft), (qa, qt) = fp, q8
+    for key in ("decode_steps", "peak_pages_used", "preemptions"):
+        for f, q in ((fa, qa), (ft, qt)):
+            if f["stats"][key] != q["stats"][key]:
+                fail(f"int8 serve {key} {q['stats'][key]} != fp {f['stats'][key]}")
+    ps, dh, hkv = cfg.gate.block_size, cfg.resolved_head_dim, cfg.n_kv_heads
+    es = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    kg = cfg.gate.d_gate * es
+    per_fp, per_q8 = hkv * (2 * ps * dh * es + kg), hkv * (2 * ps * dh + kg + 8)
+    fb, qb = ft["stats"]["swapped_out_bytes"], qt["stats"]["swapped_out_bytes"]
+    if qb * per_fp != fb * per_q8:
+        fail(f"int8 swap {qb} B is not fp's {fb} B x {per_q8}/{per_fp}")
+    pages = qb // (cfg.num_layers * per_q8)
+    same = total = 0
+    for rid in range(len(SERVE_SPECS)):
+        a, b = np.asarray(fa[rid]), np.asarray(qa[rid])
+        same += int((a == b).sum())
+        total += len(a)
+    n_pages = qa["stats"]["num_pages"]
+    kv = n_pages * cfg.num_layers * hkv * ps * dh * 2
+    print(f"int8 serve: swapped {qb} B each way = {pages} pages x {cfg.num_layers} layers x "
+          f"{per_q8} B (fp: {fb} B); K/V pools at {n_pages} pages {kv / 1e9:.2f} GB "
+          f"(fp {kv * es / 1e9:.2f} GB); tokens equal to the fp run {same}/{total} "
+          f"(information only)")
 
 
 def phase_paged_kernels(seen):
@@ -575,16 +702,9 @@ def phase_paged_kernels(seen):
     print(f"serve layer-0 shapes: qg {tuple(qg.shape)} kg_pages {tuple(kgp.shape)} page_table "
           f"{tuple(pt.shape)} n_valid {nv.tolist()} | q {tuple(q.shape)} pools "
           f"{tuple(kp.shape)} idx {tuple(idx.shape)} kv_len {kv_len.tolist()} ({kp.dtype})")
-    # a copy of the pools with the physical pages shuffled under the table:
-    # the kernels read through the table, so their outputs must not move
-    n_pages = kp.shape[0]
-    perm = torch.cat([torch.zeros(1, dtype=torch.long),
-                      1 + torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(0))]
-                     ).to(kp.device)
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(n_pages, device=kp.device)
-    pt_s, pt_ds = perm[pt.long()].int(), perm[pt_d.long()].int()
-    kgp_s, kp_s, vp_s = kgp[inv], kp[inv], vp[inv]
+    # the kernels read through the table, so shuffled pages must not move
+    # their outputs
+    pt_s, kgp_s = shuffled_pages(pt, kgp)
 
     swaps = checks = 0
     gate_err = 0.0
@@ -608,31 +728,22 @@ def phase_paged_kernels(seen):
     print(f"gate_select_paged: {checks} cases (budget/threshold x force flags x n_valid "
           f"captured/partial/1) equal to plain, and to the kernel over shuffled pages; "
           f"near-tie swaps {swaps}")
+    del kgp_s
 
-    pad = idx.clone()
-    pad[:, :, idx.shape[-1] // 2:] = -1
     thr = gs.gate_select_paged_plain(qg, kgp, pt, nv,
                                      dataclasses.replace(gcfg, method="threshold"), ms)
-    dec_err = 0.0
-    for name, qq, ix in (("captured", q, idx), ("half -1 padding", q, pad),
-                         ("threshold", q, thr), ("q x 8", q * 8, idx)):
-        o_k = bsd.sparse_decode_paged_cuda(qq, kp, vp, ix, pt_d, kv_len, block_size=bs)
-        o_p = bsd.sparse_decode_paged_plain(qq, kp, vp, ix, pt_d, kv_len, block_size=bs)
-        o_s = bsd.sparse_decode_paged_cuda(qq, kp_s, vp_s, ix, pt_ds, kv_len, block_size=bs)
-        torch.cuda.synchronize()
-        if not torch.equal(o_k, o_s):
-            fail(f"block_sparse_decode_paged [{name}]: shuffled pages changed the output")
-        err = float((o_k.float() - o_p.float()).abs().max())
-        lim, ulp, top = decode_limit(o_p)
-        print(f"block_sparse_decode_paged [{name}, {int((ix < 0).sum())} padding slots]: "
-              f"max abs err {err:.3e} = {err / ulp if ulp else 0.0:.3g} ulp of max|o_plain| "
-              f"{top:.4f} (limit {lim:.3e}); shuffled pages bitwise equal")
-        if not err <= lim:
-            fail(f"block_sparse_decode_paged disagrees with plain [{name}]: {err} > {lim}")
-        dec_err = max(dec_err, err)
+    pt_ds, kp_s, vp_s = shuffled_pages(pt_d, kp, vp)
+    dec_err = check_decode(
+        "block_sparse_decode_paged",
+        lambda qq, ix: bsd.sparse_decode_paged_cuda(qq, kp, vp, ix, pt_d, kv_len, block_size=bs),
+        lambda qq, ix: bsd.sparse_decode_paged_plain(qq, kp, vp, ix, pt_d, kv_len,
+                                                     block_size=bs),
+        decode_cases(q, idx, thr),
+        lambda qq, ix: bsd.sparse_decode_paged_cuda(qq, kp_s, vp_s, ix, pt_ds, kv_len,
+                                                    block_size=bs))
     if int(kv_len[0]) % bs == 0:
         fail("expected a partial last block at the captured kv_len")
-    del kgp_s, kp_s, vp_s
+    del kp_s, vp_s
 
     t_gk = time_ms(lambda: gs.gate_select_paged_cuda(qg, kgp, pt, nv, gcfg, ms))
     t_gp = time_ms(lambda: gs.gate_select_paged_plain(qg, kgp, pt, nv, gcfg, ms))
@@ -641,16 +752,8 @@ def phase_paged_kernels(seen):
     t_dp = time_ms(lambda: bsd.sparse_decode_paged_plain(q, kp, vp, idx, pt_d, kv_len,
                                                          block_size=bs))
     # yardstick: dense SDPA over the slots' gathered view (the gather is
-    # not timed), each slot masked at its length, K/V heads expanded
-    s_, hkv, g, dh = q.shape
-    kc, vc = pg.gather_kv(kp, pt_d), pg.gather_kv(vp, pt_d)
-    ke, ve = kc.repeat_interleave(g, dim=1), vc.repeat_interleave(g, dim=1)
-    mask = (torch.arange(kc.shape[2], device=q.device)[None, :]
-            < kv_len[:, None])[:, None, None, :]
-    qs = q.reshape(s_, hkv * g, 1, dh)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    t_lib = time_ms(lambda: sdpa(qs, ke, ve, attn_mask=mask))
-    del kc, vc, ke, ve
+    # not timed), each slot masked at its length
+    t_lib = sdpa_masked_ms(q, pg.gather_kv(kp, pt_d), pg.gather_kv(vp, pt_d), kv_len)
     k_sel = gs.n_selected(gcfg, npt, ms)
     gbytes, gops = gate_work(qg, nv, k_sel)
     gb, gby = bound_ms(gbytes + 4 * int(nv.sum()), gops)     # + page-table entries
@@ -665,6 +768,83 @@ def phase_paged_kernels(seen):
         "block_sparse_decode_paged": dict(max_abs_err=dec_err, ms=t_dk, plain_ms=t_dp,
                                           bound_ms=db, bound_by=dby, library_ms=t_lib),
     }
+
+
+def phase_paged_quant_kernels(seen):
+    """The int8 paged decode (TPU body 4q) vs plain on the int8 serve
+    path's layer-0 tensors, and over shuffled pages; timings and bound."""
+    (qg, kgp, pt, nv, gcfg, ms), _ = seen["gate_select_paged"]
+    (q, kp, vp, idx, pt_d, kv_len), kw = seen["paged_sparse_decode"]
+    bs, ks, vs = kw["block_size"], kw["k_scales"], kw["v_scales"]
+    print(f"int8 serve layer-0 shapes: q {tuple(q.shape)} pools {tuple(kp.shape)} ({kp.dtype}) "
+          f"scale rows {tuple(ks.shape)} ({ks.dtype}) idx {tuple(idx.shape)} kv_len "
+          f"{kv_len.tolist()}")
+
+    def kernel(qq, ix, pools=(pt_d, kp, vp, ks, vs)):
+        table, k, v, ksc, vsc = pools
+        return bsd.sparse_decode_paged_quant_cuda(qq, k, v, ix, table, kv_len, block_size=bs,
+                                                  k_scales=ksc, v_scales=vsc)
+
+    def plain(qq, ix):
+        return bsd.sparse_decode_paged_plain(qq, kp, vp, ix, pt_d, kv_len, block_size=bs,
+                                             k_scales=ks, v_scales=vs)
+
+    thr = gs.gate_select_paged_plain(qg, kgp, pt, nv,
+                                     dataclasses.replace(gcfg, method="threshold"), ms)
+    shuffled = shuffled_pages(pt_d, kp, vp, ks, vs)
+    err = check_decode("block_sparse_decode_paged_quant", kernel, plain,
+                       decode_cases(q, idx, thr), lambda qq, ix: kernel(qq, ix, shuffled))
+    if int(kv_len[0]) % bs == 0:
+        fail("expected a partial last block at the captured kv_len")
+    del shuffled
+    t_k = time_ms(lambda: kernel(q, idx))
+    t_p = time_ms(lambda: plain(q, idx))
+    t_ctx = sdpa_masked_ms(q, pg.gather_kv(kp, pt_d, ks).to(q.dtype),
+                           pg.gather_kv(vp, pt_d, vs).to(q.dtype), kv_len)
+    b_ms, b_by = paged_decode_bound_ms(q, idx, kv_len, bs, kv_es=1)
+    print(f"block_sparse_decode_paged_quant: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}); context only: SDPA dense over the pre-dequantized "
+          f"gathered view (masked at kv_len, dequant not timed) {t_ctx:.4f} ms")
+    return {"block_sparse_decode_paged_quant": dict(
+        max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None)}
+
+
+def phase_quant_kernels(seen):
+    """The contiguous int8 decode (TPU body 2q) vs plain on the generate
+    path's layer-0 caches quantized per cache block (no model path runs
+    it); timings and bound."""
+    (q, kc, vc, idx, kv_len), kw = seen["sparse_decode"]
+    bs = kw["block_size"]
+    b, hkv, s_max, dh = kc.shape
+    every = torch.ones((), dtype=torch.bool, device=kc.device)
+    (kq, ks), (vq, vs) = (
+        (c.reshape(kc.shape), sc[..., 0]) for c, sc in
+        (pg.quantize_block(x.reshape(b, hkv, s_max // bs, bs, dh), every) for x in (kc, vc)))
+    print(f"int8 contiguous caches from the generate path's layer 0: {tuple(kq.shape)} "
+          f"({kq.dtype}), scales {tuple(ks.shape)}")
+
+    def kernel(qq, ix):
+        return bsd.sparse_decode_quant_cuda(qq, kq, vq, ix, kv_len, block_size=bs,
+                                            k_scales=ks, v_scales=vs)
+
+    def plain(qq, ix):
+        return bsd.sparse_decode_plain(qq, kq, vq, ix, kv_len, block_size=bs, k_scales=ks,
+                                       v_scales=vs)
+
+    err = check_decode("block_sparse_decode_quant", kernel, plain, decode_cases(q, idx))
+    t_k = time_ms(lambda: kernel(q, idx))
+    t_p = time_ms(lambda: plain(q, idx))
+    n = int(kv_len.max())
+    deq = [pg.dequantize_block(c.reshape(b, hkv, s_max // bs, bs, dh), sc[..., None])
+           .reshape(kc.shape)[:, :, :n].to(q.dtype) for c, sc in ((kq, ks), (vq, vs))]
+    t_ctx = sdpa_masked_ms(q, *deq, kv_len)
+    del deq
+    b_ms, b_by = decode_bound_ms(q, idx, kv_len, bs, kv_es=1)
+    print(f"block_sparse_decode_quant: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}); context only: SDPA dense over the pre-dequantized cache "
+          f"({n} tokens, masked at kv_len, dequant not timed) {t_ctx:.4f} ms")
+    return {"block_sparse_decode_quant": dict(
+        max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None)}
 
 
 def phase_serve_profile(cfg, params, skip: int = 2, steps: int = 3):
@@ -735,6 +915,7 @@ def main() -> int:
 
     seen, state = capture_layer0(eng, batch)
     numbers = phase_kernels(seen)
+    numbers.update(phase_quant_kernels(seen))
     del seen, state
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -746,13 +927,23 @@ def main() -> int:
 
     print(f"serve: {SERVE_SLOTS} slots, (prompt, new tokens) {list(SERVE_SPECS)}, "
           f"prompts from seed {SERVE_SEED}; default pool, then {TIGHT_PAGES} pages")
-    serve_counts, seen = phase_serve(cfg, params)
+    serve_counts, seen, *fp_runs = phase_serve(cfg, params)
     numbers.update(phase_paged_kernels(seen))
     del seen
     counts = {**counts, **{k: serve_counts[k] for k in
                            ("gate_select_paged", "block_sparse_decode_paged")}}
     torch.cuda.empty_cache()
     phase_serve_profile(cfg, params)
+
+    print("int8 serve: the same requests and pools, quantize='int8'")
+    q8_counts, seen, *q8_runs = phase_serve(cfg, params, quantize="int8")
+    check_int8_serve(cfg, fp_runs, q8_runs)
+    numbers.update(phase_paged_quant_kernels(seen))
+    del seen, fp_runs, q8_runs
+    counts["block_sparse_decode_paged_quant"] = q8_counts["block_sparse_decode_paged_quant"]
+    # the contiguous int8 kernel lies on no model path
+    counts["block_sparse_decode_quant"] = 0
+    torch.cuda.empty_cache()
 
     meta = {
         "gate_select": ("src/repro_torch/kernels/csrc/gate_select.cu",
@@ -763,6 +954,11 @@ def main() -> int:
                               "src/repro/kernels/gate_select.py:218"),
         "block_sparse_decode_paged": ("src/repro_torch/kernels/csrc/block_sparse_decode.cu",
                                       "src/repro/kernels/block_sparse_decode.py:285"),
+        "block_sparse_decode_quant": ("src/repro_torch/kernels/csrc/block_sparse_decode.cu",
+                                      "src/repro/kernels/block_sparse_decode.py:170"),
+        "block_sparse_decode_paged_quant": (
+            "src/repro_torch/kernels/csrc/block_sparse_decode.cu",
+            "src/repro/kernels/block_sparse_decode.py:190"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **numbers[name])

@@ -77,7 +77,10 @@ def gate_k(params: Params, k_nope: torch.Tensor, cfg: GateConfig,
     one block per row, batched in place of the reference's vmap).
     """
     pooled = pool_k_blocks(k_nope, cfg.block_size)       # [B, nb, Hkv, 3Dh]
-    kg = torch.einsum("bnhe,hed->bnhd", pooled, params["wk"])
+    # mixed inputs (fp32 keys dequantized from int8 pools, bf16 weights)
+    # promote as jnp.einsum promotes them; equal dtypes are left as they are
+    dt = torch.promote_types(pooled.dtype, params["wk"].dtype)
+    kg = torch.einsum("bnhe,hed->bnhd", pooled.to(dt), params["wk"].to(dt))
     if cfg.use_rope:
         nb = kg.shape[1]
         ar = torch.arange(nb, device=kg.device)

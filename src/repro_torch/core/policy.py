@@ -11,8 +11,7 @@ paths (contiguous and paged) need:
 kernels, as in the reference. Kernel choice is NOT an option here: the
 kernel wrappers dispatch on the device of the tensors they are given
 (``kernels/ops.py``). The schedule, eviction and split-k fields of the
-reference arrive with their slices; ``quantize`` exists and refuses
-"int8" until the int8 slice.
+reference arrive with their slices.
 """
 from __future__ import annotations
 
@@ -88,8 +87,11 @@ class DecodeOptions:
                       (None = config budget)
     measure_sparsity: compute the measured selection telemetry (aux) in
                       every decode step
-    quantize:         page-pool storage (None = the working dtype; the
-                      reference's "int8" pools are a later slice)
+    quantize:         paged decode only: page-pool storage. None keeps the
+                      working dtype and the fp code path; "int8" allocates
+                      int8 K/V pools with per-page per-head f32 scale rows,
+                      dequantized inside the block-sparse decode kernel.
+                      ``generate`` ignores it, as the reference's does.
     """
     policy: Any = GatePolicy()
     sampling: SamplingParams = GREEDY
@@ -98,10 +100,9 @@ class DecodeOptions:
     quantize: Optional[str] = None
 
     def __post_init__(self):
-        if self.quantize is not None:
-            raise NotImplementedError(
-                f"quantize={self.quantize!r}: int8 pools (Queue A item 8) "
-                "are not ported")
+        if self.quantize not in (None, "int8"):
+            raise ValueError(
+                f"quantize must be None or 'int8': {self.quantize!r}")
         if self.budget_override is not None and self.budget_override <= 0:
             raise ValueError(
                 f"budget_override must be positive: {self.budget_override}")

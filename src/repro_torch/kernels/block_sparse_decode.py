@@ -25,11 +25,22 @@ and the masking stays in logical positions. ``sparse_decode_paged_plain``
 is the twin of ``kernels/ref.py::paged_sparse_decode_ref``;
 ``sparse_decode_paged_cuda`` launches the paged entry point of the same
 source and counts in ``sparse_decode_paged_cuda.launches``.
+
+Fused int8 dequant (TPU bodies ``_kernel_quant`` and
+``_kernel_paged_quant``): ``k_scales``/``v_scales`` are per-block
+symmetric dequant factors (value = stored int8 * scale), [B, Hkv, nb] for
+the contiguous cache and [P, Hkv, 1] pool rows (one per physical page)
+for the paged one. The plain versions multiply only the GATHERED selected
+blocks by their scales inside the fp32 upcast, as ``ref._deq`` does; None
+leaves them bitwise what they are for fp caches. ``sparse_decode_quant_cuda``
+and ``sparse_decode_paged_quant_cuda`` launch the int8 instances of the
+same CUDA body, each with its own launch counter.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -40,10 +51,26 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP_ELEMS = 4096            # G * Dh the kernel keeps in registers
 
 
+def _deq(g: torch.Tensor, scales: Optional[torch.Tensor], idx: torch.Tensor,
+         block_size: int) -> torch.Tensor:
+    """Gathered blocks g [B, Hkv, nsel*bs, Dh] -> fp32, each selected block
+    times its scale (``scales`` [B, Hkv, nb] gathered at ``idx``); None is
+    the plain upcast."""
+    if scales is None:
+        return g.to(torch.float32)
+    shp = g.shape
+    sel = torch.gather(scales, 2, idx)                              # [B,Hkv,nsel]
+    g = g.reshape(shp[:-2] + (idx.shape[-1], block_size, shp[-1]))
+    return (g.to(torch.float32) * sel[..., None, None]).reshape(shp)
+
+
 def sparse_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
                         v_cache: torch.Tensor, block_indices: torch.Tensor,
-                        kv_len: torch.Tensor, *, block_size: int) -> torch.Tensor:
-    """Plain PyTorch block-sparse decode (any device)."""
+                        kv_len: torch.Tensor, *, block_size: int,
+                        k_scales: Optional[torch.Tensor] = None,
+                        v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch block-sparse decode (any device); ``k_scales``/
+    ``v_scales`` [B, Hkv, nb] dequantize int8 caches block by block."""
     b, hkv, g, dh = q.shape
     s_max = k_cache.shape[2]
     nsel = block_indices.shape[-1]
@@ -53,8 +80,8 @@ def sparse_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
     pos = idx[..., None] * block_size + torch.arange(block_size, device=q.device)
     gpos = torch.clamp_max(pos.reshape(b, hkv, nsel * block_size), s_max - 1)
     gidx = gpos[..., None].expand(-1, -1, -1, dh)
-    kg = torch.gather(k_cache, 2, gidx).to(torch.float32)           # [B,Hkv,n*bs,Dh]
-    vg = torch.gather(v_cache, 2, gidx).to(torch.float32)
+    kg = _deq(torch.gather(k_cache, 2, gidx), k_scales, idx, block_size)  # [B,Hkv,n*bs,Dh]
+    vg = _deq(torch.gather(v_cache, 2, gidx), v_scales, idx, block_size)
     sc = torch.einsum("bhgd,bhkd->bhgk", q.to(torch.float32), kg) * scale
     valid = (block_indices[..., None] >= 0) & (pos < kv_len[:, None, None, None])
     valid = valid.reshape(b, hkv, 1, nsel * block_size)
@@ -69,9 +96,13 @@ def sparse_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
 def sparse_decode_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
                               v_pages: torch.Tensor, block_indices: torch.Tensor,
                               page_table: torch.Tensor, kv_len: torch.Tensor, *,
-                              block_size: int) -> torch.Tensor:
+                              block_size: int,
+                              k_scales: Optional[torch.Tensor] = None,
+                              v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch paged block-sparse decode (any device): gather the
-    selected physical pages off the pools, then the contiguous math."""
+    selected physical pages off the pools, then the contiguous math.
+    ``k_scales``/``v_scales`` [P, Hkv, 1] (or [P, Hkv]) dequantize int8
+    pools; each gathered page takes the scale row of its PHYSICAL page."""
     b, hkv, g, dh = q.shape
     ps = k_pages.shape[2]
     assert ps == block_size, (ps, block_size)
@@ -81,8 +112,14 @@ def sparse_decode_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
     pt = page_table.to(torch.int64)[:, None, :].expand(b, hkv, -1)
     phys = torch.gather(pt, 2, idx)                                 # [B,Hkv,nsel]
     har = torch.arange(hkv, device=q.device)[None, :, None]
-    kg = k_pages[phys, har].reshape(b, hkv, nsel * ps, dh).to(torch.float32)
-    vg = v_pages[phys, har].reshape(b, hkv, nsel * ps, dh).to(torch.float32)
+
+    def pages(pool, scales):                                        # -> [B,Hkv,n*ps,Dh]
+        blk = pool[phys, har].to(torch.float32)                     # [B,Hkv,nsel,ps,Dh]
+        if scales is not None:
+            blk = blk * scales.reshape(-1, hkv)[phys, har][..., None, None]
+        return blk.reshape(b, hkv, nsel * ps, dh)
+
+    kg, vg = pages(k_pages, k_scales), pages(v_pages, v_scales)
     # token positions are LOGICAL (masking against kv_len)
     pos = idx[..., None] * ps + torch.arange(ps, device=q.device)   # [B,Hkv,nsel,ps]
     sc = torch.einsum("bhgd,bhkd->bhgk", q.to(torch.float32), kg) * scale
@@ -95,11 +132,17 @@ def sparse_decode_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return o.to(q.dtype)
 
 
-def _bind(lib: ctypes.CDLL, paged: bool = False):
+def _bind(lib: ctypes.CDLL, paged: bool = False, quant: bool = False):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if paged:
+    if paged and quant:
+        fn = lib.block_sparse_decode_paged_quant_launch
+        types = [p] * 9 + [i, i, i, i, i, i, i, f, i, p]
+    elif paged:
         fn = lib.block_sparse_decode_paged_launch
         types = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+    elif quant:
+        fn = lib.block_sparse_decode_quant_launch
+        types = [p] * 8 + [i, i, i, i, i, i, i, i, f, i, p]
     else:
         fn = lib.block_sparse_decode_launch
         types = [p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
@@ -201,3 +244,105 @@ def sparse_decode_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 sparse_decode_paged_cuda.launches = 0
+
+
+def _check_quant(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scales, ints) -> None:
+    """Device, dtype and contiguity checks shared by the int8 wrappers."""
+    ins = (k, v, *scales, *ints)
+    if not (q.is_cuda and all(t.device == q.device for t in ins)):
+        raise ValueError(f"{name}: all inputs must be on one CUDA device")
+    if q.dtype not in _DTYPES or k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise TypeError(f"{name}: q must be float32 or bfloat16 and k/v int8, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if any(t.dtype != torch.float32 for t in scales):
+        raise TypeError(f"{name}: k_scales and v_scales must be float32")
+    if any(t.dtype != torch.int32 for t in ints):
+        raise TypeError(f"{name}: index tensors and kv_len must be int32")
+    if q.shape[2] * q.shape[3] > MAX_GROUP_ELEMS:
+        raise ValueError(f"{name}: G*Dh = {q.shape[2] * q.shape[3]} > {MAX_GROUP_ELEMS}")
+    if not all(t.is_contiguous() for t in (q,) + ins):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def sparse_decode_quant_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, block_indices: torch.Tensor,
+                             kv_len: torch.Tensor, *, block_size: int,
+                             k_scales: torch.Tensor,
+                             v_scales: torch.Tensor) -> torch.Tensor:
+    """Launch the int8 CUDA block-sparse decode (TPU body ``_kernel_quant``):
+    int8 caches [B, Hkv, S, Dh], per-block scales [B, Hkv, nb] float32."""
+    name = "sparse_decode_quant_cuda"
+    _check_quant(name, q, k_cache, v_cache, (k_scales, v_scales), (block_indices, kv_len))
+    b, hkv, g, dh = q.shape
+    s_max = k_cache.shape[2]
+    nb = -(-s_max // block_size)
+    nsel = block_indices.shape[-1]
+    if k_cache.shape != (b, hkv, s_max, dh) or v_cache.shape != k_cache.shape \
+            or k_scales.shape != (b, hkv, nb) or v_scales.shape != k_scales.shape \
+            or block_indices.shape[:2] != (b, hkv) or tuple(kv_len.shape) != (b,):
+        raise ValueError(
+            f"{name}: shapes q {tuple(q.shape)}, k {tuple(k_cache.shape)}, v "
+            f"{tuple(v_cache.shape)}, scales {tuple(k_scales.shape)}/"
+            f"{tuple(v_scales.shape)} (want {(b, hkv, nb)}), idx "
+            f"{tuple(block_indices.shape)}, kv_len {tuple(kv_len.shape)}")
+    out = torch.empty_like(q)
+    if nsel == 0:
+        return out.zero_()
+    lib = build.load("block_sparse_decode")
+    rc = _bind(lib, quant=True)(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scales.data_ptr(),
+        v_scales.data_ptr(), block_indices.data_ptr(), kv_len.data_ptr(),
+        out.data_ptr(), b, hkv, g, dh, s_max, nb, nsel, block_size,
+        1.0 / math.sqrt(dh), _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, rc, "block_sparse_decode_quant kernel launch")
+    sparse_decode_quant_cuda.launches += 1
+    return out
+
+
+sparse_decode_quant_cuda.launches = 0
+
+
+def sparse_decode_paged_quant_cuda(q: torch.Tensor, k_pages: torch.Tensor,
+                                   v_pages: torch.Tensor, block_indices: torch.Tensor,
+                                   page_table: torch.Tensor, kv_len: torch.Tensor, *,
+                                   block_size: int, k_scales: torch.Tensor,
+                                   v_scales: torch.Tensor) -> torch.Tensor:
+    """Launch the int8 paged CUDA block-sparse decode (TPU body
+    ``_kernel_paged_quant``): int8 pools [P, Hkv, ps, Dh], scale rows
+    [P, Hkv, 1] (or [P, Hkv]) float32, read at each block's PHYSICAL page."""
+    name = "sparse_decode_paged_quant_cuda"
+    _check_quant(name, q, k_pages, v_pages, (k_scales, v_scales),
+                 (block_indices, page_table, kv_len))
+    b, hkv, g, dh = q.shape
+    n_pages, ps = k_pages.shape[0], k_pages.shape[2]
+    nsel = block_indices.shape[-1]
+    if ps != block_size:
+        raise ValueError(f"{name}: page size {ps} != block size {block_size}")
+    if k_pages.shape != (n_pages, hkv, ps, dh) or v_pages.shape != k_pages.shape \
+            or any(t.numel() != n_pages * hkv or t.shape[:2] != (n_pages, hkv)
+                   for t in (k_scales, v_scales)) \
+            or block_indices.shape[:2] != (b, hkv) or page_table.dim() != 2 \
+            or page_table.shape[0] != b or tuple(kv_len.shape) != (b,):
+        raise ValueError(
+            f"{name}: shapes q {tuple(q.shape)}, k_pages {tuple(k_pages.shape)}, "
+            f"v_pages {tuple(v_pages.shape)}, scales {tuple(k_scales.shape)}/"
+            f"{tuple(v_scales.shape)} (want {(n_pages, hkv, 1)}), idx "
+            f"{tuple(block_indices.shape)}, page_table {tuple(page_table.shape)}, "
+            f"kv_len {tuple(kv_len.shape)}")
+    out = torch.empty_like(q)
+    if nsel == 0:
+        return out.zero_()
+    lib = build.load("block_sparse_decode")
+    rc = _bind(lib, paged=True, quant=True)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scales.data_ptr(),
+        v_scales.data_ptr(), block_indices.data_ptr(), page_table.data_ptr(),
+        kv_len.data_ptr(), out.data_ptr(), b, hkv, g, dh, page_table.shape[1], nsel,
+        block_size, 1.0 / math.sqrt(dh), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, rc, "block_sparse_decode_paged_quant kernel launch")
+    sparse_decode_paged_quant_cuda.launches += 1
+    return out
+
+
+sparse_decode_paged_quant_cuda.launches = 0

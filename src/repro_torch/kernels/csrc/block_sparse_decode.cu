@@ -1,11 +1,14 @@
 // Block-sparse flash decoding over a head-major KV cache or page pool
 // (Hopper, sm_90a).
 //
-// Replaces two TPU kernels of src/repro/kernels/block_sparse_decode.py:
+// Replaces four TPU kernel bodies of src/repro/kernels/block_sparse_decode.py:
 //   block_sparse_decode        (fp body _kernel -> _flash_group ->
 //                              _flash_accum): block_sparse_decode_launch;
 //   block_sparse_decode_paged  (fp body _kernel_paged): the same body over
-//                              the page pools, block_sparse_decode_paged_launch.
+//                              the page pools, block_sparse_decode_paged_launch;
+//   _kernel_quant, _kernel_paged_quant (fused int8 dequant):
+//                              block_sparse_decode_quant_launch and
+//                              block_sparse_decode_paged_quant_launch.
 // Contiguous contract:
 //   q        [B, Hkv, G, Dh]    one new query token, grouped per kv head
 //   k, v     [B, Hkv, S, Dh]    post-rope caches (bf16 or fp32, same as q)
@@ -26,6 +29,18 @@
 // _kernel_paged does. One page is one contiguous [ps, Dh] range, so the
 // copy is the contiguous kernel's.
 //
+// Int8 contract (Quant): k, v hold int8 codes (value = code * scale) and
+// the scales are f32, [B, H, nb] per cache block (contiguous) or [P, H]
+// per physical page (paged, the pool's [P, H, 1] rows). Each selected
+// block's two scales are read once, inside the block loop, at the block's
+// own (physical) id, and folded where they cost least: the K scale into
+// the score scale, s = (q . k_code) * (k_scale / sqrt(Dh)), the V scale
+// into the block's P.V partial, acc += v_scale * sum_t p[t] * v_code[t].
+// Within fp32 accumulation that is the plain version's function, which
+// scales every element before the dots. No fp copy of the cache is built;
+// the block copy moves int8 codes with the same 16-byte loads (a 128-wide
+// row is 128 bytes), so shared memory for K+V halves.
+//
 // Design: one CTA per (b, kv-head) loops over its nsel selected blocks. A
 // block's K and V rows [bs, Dh] are one contiguous range of the head-major
 // cache, so each is copied into shared memory with 16-byte vector loads,
@@ -41,7 +56,8 @@
 // Bound on the H100: at the main path's shape (B=4, Hkv=8, k=64 blocks x
 // 64 tokens x Dh 128, bf16, K+V) one call must read ~67 MB: ~20 us at
 // 3.35 TB/s (the paged entry point adds 4 bytes of page table per selected
-// block). This simple kernel does not reach it: B*Hkv = 32 CTAs run on
+// block; int8 pools halve the K/V bytes, ~10 us, plus 8 bytes of scales per
+// selected block). This simple kernel does not reach it: B*Hkv = 32 CTAs run on
 // 32 of the 132 SMs, and each CTA waits for a block's loads before it
 // computes on them, so at most one block per CTA is in flight (no
 // cp.async/TMA pipeline across blocks, no split across SMs, no wgmma).
@@ -50,6 +66,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -60,6 +78,7 @@ constexpr int kMaxPerThread = 16;  // G*Dh <= kThreads*kMaxPerThread = 4096
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 __device__ __forceinline__ void from_f32(float x, float* o) { *o = x; }
 __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* o) { *o = __float2bfloat16(x); }
 
@@ -119,13 +138,27 @@ __device__ __forceinline__ size_t block_offset(const int* __restrict__ page_tabl
   return (((size_t)b * H + h) * S + (size_t)blk * bs) * Dh;
 }
 
-template <typename T, bool Paged>
+// Index of logical block blk's dequant scale for (b, h): the per-block
+// scales [B, H, nsb] of the contiguous cache, or the scale row [P, H] of
+// the block's PHYSICAL page (the page id clamped at 0, as
+// _kernel_paged_quant's lookup does).
+template <bool Paged>
+__device__ __forceinline__ size_t scale_index(const int* __restrict__ page_table, int b, int h,
+                                              int H, int nsb, int npt, int blk) {
+  if (Paged) return (size_t)max(page_table[(size_t)b * npt + blk], 0) * H + h;
+  return ((size_t)b * H + h) * nsb + blk;
+}
+
+// T: q and out; KV: the cache elements (T, or int8_t when Quant).
+template <typename T, typename KV, bool Paged, bool Quant>
 __global__ void __launch_bounds__(kThreads)
-block_sparse_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                           const T* __restrict__ vc, const int* __restrict__ idx,
+block_sparse_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
+                           const KV* __restrict__ vc, const float* __restrict__ k_scales,
+                           const float* __restrict__ v_scales, const int* __restrict__ idx,
                            const int* __restrict__ page_table,
                            const int* __restrict__ kv_len, T* __restrict__ out, int H, int G,
-                           int Dh, int S, int npt, int nsel, int bs, float scale, int vec) {
+                           int Dh, int S, int nsb, int npt, int nsel, int bs, float sm_scale,
+                           int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int GD = G * Dh;
   float* qs = reinterpret_cast<float*>(smem_raw);  // [G*Dh]
@@ -134,8 +167,8 @@ block_sparse_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   float* l_s = m_s + G;                            // [G] running sum
   float* a_s = l_s + G;                            // [G] this block's rescale
   size_t off = ((size_t)(GD + G * bs + 3 * G) * sizeof(float) + 15) & ~(size_t)15;
-  T* ks = reinterpret_cast<T*>(smem_raw + off);  // [bs*Dh]
-  T* vs = ks + (size_t)bs * Dh;                  // [bs*Dh]
+  KV* ks = reinterpret_cast<KV*>(smem_raw + off);  // [bs*Dh]
+  KV* vs = ks + (size_t)bs * Dh;                   // [bs*Dh]
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H;
@@ -161,15 +194,22 @@ block_sparse_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     __syncthreads();                             // previous block done with ks/vs/ps
     const size_t boff = block_offset<Paged>(page_table, b, h, H, S, npt, Dh, bs, blk);
     load_kv(ks, vs, kc + boff, vc + boff, nt * Dh, vec != 0);
+    float scale = sm_scale, v_scale = 1.f;  // fp: the plain 1/sqrt(Dh)
+    if (Quant) {
+      const size_t si = scale_index<Paged>(page_table, b, h, H, nsb, npt, blk);
+      scale = k_scales[si] * sm_scale;
+      v_scale = v_scales[si];
+    }
     __syncthreads();
 
-    // scores s[g][t] = q[g] . k[t] * scale, masked past kv_len
+    // scores s[g][t] = q[g] . k[t] * scale, masked past kv_len (int8: the
+    // K scale rides in scale)
     for (int pr = warp; pr < G * bs; pr += kWarps) {
       const int g = pr / bs, t = pr - g * bs;
       float s = 0.f;
       if (t < nt) {
         const float* qg = qs + g * Dh;
-        const T* kt = ks + (size_t)t * Dh;
+        const KV* kt = ks + (size_t)t * Dh;
         for (int d = lane; d < Dh; d += 32) s += qg[d] * to_f32(kt[d]);
         for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       }
@@ -202,7 +242,8 @@ block_sparse_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     }
     __syncthreads();
 
-    // acc[g][d] = alpha[g] * acc[g][d] + sum_t p[g][t] * v[t][d]
+    // acc[g][d] = alpha[g] * acc[g][d] + sum_t p[g][t] * v[t][d] (int8: the
+    // block's sum over t times its V scale)
 #pragma unroll
     for (int i = 0; i < kMaxPerThread; ++i) {
       const int e = tid + i * kThreads;
@@ -210,7 +251,13 @@ block_sparse_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         const int g = e / Dh, d = e - g * Dh;
         const float* pg = ps + g * bs;
         float a = acc[i] * a_s[g];
-        for (int t = 0; t < nt; ++t) a += pg[t] * to_f32(vs[(size_t)t * Dh + d]);
+        if (Quant) {
+          float pv = 0.f;
+          for (int t = 0; t < nt; ++t) pv += pg[t] * to_f32(vs[(size_t)t * Dh + d]);
+          a += v_scale * pv;
+        } else {
+          for (int t = 0; t < nt; ++t) a += pg[t] * to_f32(vs[(size_t)t * Dh + d]);
+        }
         acc[i] = a;
       }
     }
@@ -226,42 +273,51 @@ block_sparse_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T, bool Paged>
-int launch(const void* q, const void* k, const void* v, const void* idx, const void* page_table,
-           const void* kv_len, void* out, int B, int H, int G, int Dh, int S, int npt, int nsel,
-           int bs, float scale, cudaStream_t stream) {
+template <typename T, typename KV, bool Paged, bool Quant>
+int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+           const void* idx, const void* page_table, const void* kv_len, void* out, int B, int H,
+           int G, int Dh, int S, int nsb, int npt, int nsel, int bs, float scale,
+           cudaStream_t stream) {
   const size_t head = ((size_t)(G * Dh + G * bs + 3 * G) * sizeof(float) + 15) & ~(size_t)15;
-  const size_t smem = head + 2 * (size_t)bs * Dh * sizeof(T);
+  const size_t smem = head + 2 * (size_t)bs * Dh * sizeof(KV);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  auto kernel = block_sparse_decode_kernel<T, KV, Paged, Quant>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(block_sparse_decode_kernel<T, Paged>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int vec = ((uintptr_t)k % 16 == 0) && ((uintptr_t)v % 16 == 0) &&
-                  ((Dh * sizeof(T)) % 16 == 0);
-  block_sparse_decode_kernel<T, Paged><<<B * H, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(idx), static_cast<const int*>(page_table),
-      static_cast<const int*>(kv_len), static_cast<T*>(out), H, G, Dh, S, npt, nsel, bs, scale,
-      vec);
+                  ((Dh * sizeof(KV)) % 16 == 0);
+  kernel<<<B * H, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
+      static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<const int*>(idx),
+      static_cast<const int*>(page_table), static_cast<const int*>(kv_len), static_cast<T*>(out),
+      H, G, Dh, S, nsb, npt, nsel, bs, scale, vec);
   return (int)cudaGetLastError();
 }
 
-template <bool Paged>
-int dispatch(const void* q, const void* k, const void* v, const void* idx,
-             const void* page_table, const void* kv_len, void* out, int B, int H, int G, int Dh,
-             int S, int npt, int nsel, int bs, float scale, int dtype, void* stream) {
+// Quant selects int8 K/V with f32 scales (ks, vs); otherwise K/V share q's
+// dtype and ks/vs are unused.
+template <bool Paged, bool Quant>
+int dispatch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+             const void* idx, const void* page_table, const void* kv_len, void* out, int B,
+             int H, int G, int Dh, int S, int nsb, int npt, int nsel, int bs, float scale,
+             int dtype, void* stream) {
   if (B <= 0 || H <= 0 || G <= 0 || Dh <= 0 || S <= 0 || nsel <= 0 || bs <= 0 ||
-      (Paged && npt <= 0) || G * Dh > kThreads * kMaxPerThread)
+      (Paged && npt <= 0) || (Quant && !Paged && nsb * bs < S) ||
+      G * Dh > kThreads * kMaxPerThread)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, Paged>(q, k, v, idx, page_table, kv_len, out, B, H, G, Dh, S, npt,
-                                nsel, bs, scale, s);
+    return launch<float, typename std::conditional<Quant, int8_t, float>::type, Paged, Quant>(
+        q, k, v, ks, vs, idx, page_table, kv_len, out, B, H, G, Dh, S, nsb, npt, nsel, bs, scale,
+        s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, Paged>(q, k, v, idx, page_table, kv_len, out, B, H, G, Dh, S,
-                                        npt, nsel, bs, scale, s);
+    return launch<__nv_bfloat16,
+                  typename std::conditional<Quant, int8_t, __nv_bfloat16>::type, Paged, Quant>(
+        q, k, v, ks, vs, idx, page_table, kv_len, out, B, H, G, Dh, S, nsb, npt, nsel, bs, scale,
+        s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -273,8 +329,8 @@ extern "C" {
 int block_sparse_decode_launch(const void* q, const void* k, const void* v, const void* idx,
                                const void* kv_len, void* out, int B, int H, int G, int Dh, int S,
                                int nsel, int bs, float scale, int dtype, void* stream) {
-  return dispatch<false>(q, k, v, idx, nullptr, kv_len, out, B, H, G, Dh, S, 0, nsel, bs, scale,
-                         dtype, stream);
+  return dispatch<false, false>(q, k, v, nullptr, nullptr, idx, nullptr, kv_len, out, B, H, G, Dh,
+                                S, 0, 0, nsel, bs, scale, dtype, stream);
 }
 
 // k_pages, v_pages [P, H, ps, Dh] with ps == bs; page_table [B, npt]. Blocks
@@ -283,8 +339,31 @@ int block_sparse_decode_paged_launch(const void* q, const void* k_pages, const v
                                      const void* idx, const void* page_table, const void* kv_len,
                                      void* out, int B, int H, int G, int Dh, int npt, int nsel,
                                      int bs, float scale, int dtype, void* stream) {
-  return dispatch<true>(q, k_pages, v_pages, idx, page_table, kv_len, out, B, H, G, Dh, npt * bs,
-                        npt, nsel, bs, scale, dtype, stream);
+  return dispatch<true, false>(q, k_pages, v_pages, nullptr, nullptr, idx, page_table, kv_len, out,
+                               B, H, G, Dh, npt * bs, 0, npt, nsel, bs, scale, dtype, stream);
+}
+
+// int8 k, v [B, H, S, Dh]; k_scales, v_scales [B, H, nsb] float32 with
+// nsb * bs >= S (one scale per cache block). dtype is q's and out's.
+int block_sparse_decode_quant_launch(const void* q, const void* k, const void* v,
+                                     const void* k_scales, const void* v_scales, const void* idx,
+                                     const void* kv_len, void* out, int B, int H, int G, int Dh,
+                                     int S, int nsb, int nsel, int bs, float scale, int dtype,
+                                     void* stream) {
+  return dispatch<false, true>(q, k, v, k_scales, v_scales, idx, nullptr, kv_len, out, B, H, G, Dh,
+                               S, nsb, 0, nsel, bs, scale, dtype, stream);
+}
+
+// int8 k_pages, v_pages [P, H, ps, Dh]; k_scales, v_scales [P, H] float32
+// (one row per physical page); page_table [B, npt]. dtype is q's and out's.
+int block_sparse_decode_paged_quant_launch(const void* q, const void* k_pages,
+                                           const void* v_pages, const void* k_scales,
+                                           const void* v_scales, const void* idx,
+                                           const void* page_table, const void* kv_len, void* out,
+                                           int B, int H, int G, int Dh, int npt, int nsel, int bs,
+                                           float scale, int dtype, void* stream) {
+  return dispatch<true, true>(q, k_pages, v_pages, k_scales, v_scales, idx, page_table, kv_len,
+                              out, B, H, G, Dh, npt * bs, 0, npt, nsel, bs, scale, dtype, stream);
 }
 
 const char* repro_error_string(int code) {

@@ -24,7 +24,9 @@ from repro_torch.kernels import gate_select as gs
 KERNELS = {"gate_select": gs.gate_select_cuda,
            "block_sparse_decode": bsd.sparse_decode_cuda,
            "gate_select_paged": gs.gate_select_paged_cuda,
-           "block_sparse_decode_paged": bsd.sparse_decode_paged_cuda}
+           "block_sparse_decode_paged": bsd.sparse_decode_paged_cuda,
+           "block_sparse_decode_quant": bsd.sparse_decode_quant_cuda,
+           "block_sparse_decode_paged_quant": bsd.sparse_decode_paged_quant_cuda}
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -50,13 +52,21 @@ def gate_select(qg: torch.Tensor, kg: torch.Tensor, n_valid: torch.Tensor,
 
 def sparse_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                   block_indices: torch.Tensor, kv_len: torch.Tensor, *,
-                  block_size: int) -> torch.Tensor:
-    """Block-sparse decode attention; caches HEAD-MAJOR [B, Hkv, S, Dh]."""
+                  block_size: int, k_scales: Optional[torch.Tensor] = None,
+                  v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Block-sparse decode attention; caches HEAD-MAJOR [B, Hkv, S, Dh].
+    ``k_scales``/``v_scales`` [B, Hkv, nb] f32 dequantize int8 caches inside
+    the block loop (None = the fp kernel)."""
     if _route(q, "sparse_decode"):
+        if k_scales is not None:
+            return bsd.sparse_decode_quant_cuda(q, k_cache, v_cache, block_indices,
+                                                kv_len, block_size=block_size,
+                                                k_scales=k_scales, v_scales=v_scales)
         return bsd.sparse_decode_cuda(q, k_cache, v_cache, block_indices,
                                       kv_len, block_size=block_size)
     return bsd.sparse_decode_plain(q, k_cache, v_cache, block_indices, kv_len,
-                                   block_size=block_size)
+                                   block_size=block_size, k_scales=k_scales,
+                                   v_scales=v_scales)
 
 
 def gate_select_paged(qg: torch.Tensor, kg_pages: torch.Tensor,
@@ -74,16 +84,24 @@ def gate_select_paged(qg: torch.Tensor, kg_pages: torch.Tensor,
 def paged_sparse_decode(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block_indices: torch.Tensor,
                         page_table: torch.Tensor, kv_len: torch.Tensor, *,
-                        block_size: int) -> torch.Tensor:
+                        block_size: int, k_scales: Optional[torch.Tensor] = None,
+                        v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Block-sparse decode over the page pools [P,Hkv,ps,Dh]; logical
-    block ids, physical pages through ``page_table`` [B,npt]."""
+    block ids, physical pages through ``page_table`` [B,npt].
+    ``k_scales``/``v_scales`` [P,Hkv,1] f32 dequantize int8 pools at each
+    block's physical page (None = the fp kernel)."""
     if _route(q, "paged_sparse_decode"):
+        if k_scales is not None:
+            return bsd.sparse_decode_paged_quant_cuda(
+                q, k_pages, v_pages, block_indices, page_table, kv_len,
+                block_size=block_size, k_scales=k_scales, v_scales=v_scales)
         return bsd.sparse_decode_paged_cuda(q, k_pages, v_pages, block_indices,
                                             page_table, kv_len,
                                             block_size=block_size)
     return bsd.sparse_decode_paged_plain(q, k_pages, v_pages, block_indices,
                                          page_table, kv_len,
-                                         block_size=block_size)
+                                         block_size=block_size, k_scales=k_scales,
+                                         v_scales=v_scales)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -3,8 +3,8 @@
 The QKV projection, the policy gate, the decode-aux telemetry and the
 paged per-layer decode body (``attention_decode_paged`` ->
 ``block_decode_paged``) of the JAX package's ``models/attn_core.py``:
-the unstaged, unsharded, fp branch. Selection schedules, sharding, int8
-pools and eviction telemetry arrive with their slices.
+the unstaged, unsharded branch, over fp or int8 page pools. Selection
+schedules, sharding and eviction telemetry arrive with their slices.
 """
 from __future__ import annotations
 
@@ -84,7 +84,8 @@ def aggregate_decode_aux(auxs: Sequence[LayerAux]) -> Dict[str, torch.Tensor]:
 
 def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
                            k_pages, v_pages, kg_pages, page_table, cur_len,
-                           active, options: DecodeOptions):
+                           active, options: DecodeOptions, k_scale=None,
+                           v_scale=None):
     """One token over paged KV. x1 [S,1,d]; pools for ONE layer head-major
     [P, Hkv, ps, Dh] (updated in place); page_table [S, npt] int32;
     cur_len/active [S]. Returns (out [S,1,d], selection aux).
@@ -95,7 +96,10 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     scores ``kg_pages`` through the page table, and the block-sparse decode
     reads only the selected physical pages. A dense policy, or a layer
     without a gate, takes the dense fallback: ``gather_kv`` of the whole
-    table, then dense decode attention."""
+    table, then dense decode attention. ``k_scale``/``v_scale`` [P, Hkv, 1]
+    mark int8 pools: the append requantizes the trailing page, the decode
+    kernel dequantizes inside its block loop, the fallback while
+    gathering."""
     b = x1.shape[0]
     dh, hkv, g = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.gqa_group
     ps = cfg.gate.block_size
@@ -109,9 +113,15 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
 
     # the Kg page rows only advance for the policy that reads them
     gate_for_append = p.get("gate") if policy.needs_gate else None
-    pg.append_token_paged(k_pages, v_pages, kg_pages, kr[:, 0], v[:, 0],
-                          page_table, cur_len, active, gate_for_append,
-                          cfg.gate, rope_theta=cfg.rope_theta)
+    if k_scale is not None:
+        pg.append_token_paged_quant(k_pages, v_pages, kg_pages, k_scale, v_scale,
+                                    kr[:, 0], v[:, 0], page_table, cur_len, active,
+                                    gate_for_append, cfg.gate,
+                                    rope_theta=cfg.rope_theta)
+    else:
+        pg.append_token_paged(k_pages, v_pages, kg_pages, kr[:, 0], v[:, 0],
+                              page_table, cur_len, active, gate_for_append,
+                              cfg.gate, rope_theta=cfg.rope_theta)
     new_len = cur_len + active.to(cur_len.dtype)
 
     if sparse_on:
@@ -121,14 +131,15 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
         idx = policy.select(inp, cfg, max_selected=options.max_selected(cfg))
         qgrp = qr[:, 0].reshape(b, hkv, g, dh)
         o = ops.paged_sparse_decode(qgrp, k_pages, v_pages, idx, page_table,
-                                    new_len, block_size=ps)
+                                    new_len, block_size=ps, k_scales=k_scale,
+                                    v_scales=v_scale)
         o = o.reshape(b, 1, hkv * g, dh)
         aux = (_selection_aux(idx, kc.visible_blocks(
                    torch.clamp_min(new_len, 1), ps), npt)
                if options.measure_sparsity else _zero_layer_aux(b, x1.device))
     else:
-        k_ct = pg.gather_kv(k_pages, page_table)           # [S,Hkv,npt*ps,Dh]
-        v_ct = pg.gather_kv(v_pages, page_table)
+        k_ct = pg.gather_kv(k_pages, page_table, k_scale)  # [S,Hkv,npt*ps,Dh]
+        v_ct = pg.gather_kv(v_pages, page_table, v_scale)
         o = decode_attention(qr, k_ct, v_ct, new_len,
                              logit_softcap=cfg.attn_logit_softcap)
         aux = (_dense_aux(new_len, ps) if options.measure_sparsity
@@ -141,13 +152,14 @@ def block_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig,
                        layer_pages, page_table, cur_len, active, *,
                        options: DecodeOptions):
     """One transformer block over paged KV; ``layer_pages`` is the layer's
-    (k_pages, v_pages, kg_pages). Returns (x1, selection aux)."""
-    k_pages, v_pages, kg_pages = layer_pages
+    (k_pages, v_pages, kg_pages, k_scale, v_scale), the scales None for fp
+    pools. Returns (x1, selection aux)."""
+    k_pages, v_pages, kg_pages, k_scale, v_scale = layer_pages
     h = rms_norm(p["ln1"], x1, cfg.norm_eps)
     attn_out, aux = attention_decode_paged(
         p["attn"], h, cfg, k_pages=k_pages, v_pages=v_pages,
         kg_pages=kg_pages, page_table=page_table, cur_len=cur_len,
-        active=active, options=options)
+        active=active, options=options, k_scale=k_scale, v_scale=v_scale)
     x1 = x1 + attn_out
     h2 = rms_norm(p["ln2"], x1, cfg.norm_eps)
     return x1 + mlp(p["mlp"], h2, cfg.activation), aux

@@ -330,10 +330,11 @@ def lm_decode_step_paged(params: Params, pages, slot_state,
     x1 = params["embed"]["w"][token[:, None]]
     auxs = []
     for i, lp in enumerate(params["blocks"]):
-        kg = pages.kg_pages[i] if pages.kg_pages is not None else None
+        kg, k_sc, v_sc = (None if pool is None else pool[i] for pool in
+                          (pages.kg_pages, pages.k_scale_pages, pages.v_scale_pages))
         x1, aux = block_decode_paged(
-            lp, x1, cfg, (pages.k_pages[i], pages.v_pages[i], kg), page_table,
-            cur_len, active, options=options)
+            lp, x1, cfg, (pages.k_pages[i], pages.v_pages[i], kg, k_sc, v_sc),
+            page_table, cur_len, active, options=options)
         auxs.append(aux)
     logits = _logits(params, x1, cfg)
     return logits[:, 0], pages, slot_state, aggregate_decode_aux(auxs)

@@ -211,7 +211,7 @@ class DecodeEngine:
             sched.submit(r)
 
         pages = pg.init_pages(cfg, num_pages, self.api.paged_attn_layers(cfg),
-                              device=dev)
+                              quantize=self.options.quantize, device=dev)
         slot_state = (None if self.api.init_slot_state is None
                       else self.api.init_slot_state(cfg, n_slots))
         token_buf = np.zeros((n_slots,), np.int32)
@@ -235,21 +235,24 @@ class DecodeEngine:
             the pages. A growth page allocated for the not-yet-written
             next token is dropped; re-admission re-grows it."""
             n_content = max(1, -(-req.swap_len // ps))
-            k, v, kg = pg.extract_pages(
+            k, v, kg, _, _, k_sc, v_sc = pg.extract_pages(
                 pages, pg.pad_page_ids(req.pages[:n_content], device=dev))
             swap.put(req.rid, SwapEntry(k=k, v=v, kg=kg,
                                         token=int(token_buf[req.slot]),
-                                        cur_len=req.swap_len))
+                                        cur_len=req.swap_len,
+                                        k_scale=k_sc, v_scale=v_sc))
 
-        # a recycled page may hold a previous tenant's Kg row, and a partial
-        # trailing page must read a ZERO row. Freed pages are collected in
-        # ``dirty`` and zeroed in one batched call per iteration; admission
-        # reuse is cleaned by scatter_prefill/restore anyway, so growth only
-        # re-zeroes a page freed in the same iteration.
+        # a recycled page may hold a previous tenant's Kg (and int8 scale)
+        # row, and a partial trailing page must read a ZERO row. Freed
+        # pages are collected in ``dirty`` and zeroed in one batched call
+        # per iteration; admission reuse is cleaned by scatter_prefill/
+        # restore anyway, so growth only re-zeroes a page freed in the same
+        # iteration.
         dirty: set = set()
         # reserve admission never grows: every reuse goes through
         # scatter_prefill, which zeroes the Kg rows itself
-        gate_paged = admission == "lazy" and pages.kg_pages is not None
+        gate_paged = admission == "lazy" and (
+            pages.kg_pages is not None or pages.k_scale_pages is not None)
 
         def sweep_dirty(ids) -> None:
             if ids and gate_paged:
@@ -276,7 +279,8 @@ class DecodeEngine:
                     n_content = max(1, -(-entry.cur_len // ps))
                     pg.restore_pages(pages, entry.k, entry.v, entry.kg,
                                      pg.pad_page_ids(req.pages[:n_content],
-                                                     device=dev))
+                                                     device=dev),
+                                     k_scale=entry.k_scale, v_scale=entry.v_scale)
                     token_buf[req.slot] = entry.token
                     req.swapped = False
                 else:

@@ -1,6 +1,6 @@
 """Paged KV cache for continuous-batching sparse decode, PyTorch port.
 
-Port of the JAX package's ``serve/paging.py`` (fp pools only). Storage is
+Port of the JAX package's ``serve/paging.py``. Storage is
 a global pool of fixed-size pages shared by every sequence in flight; a
 per-slot page table maps logical KV block ids to physical pages. The page
 size EQUALS the gate block size: one page == one gate block, so the
@@ -13,7 +13,19 @@ Layout (``L`` = self-attn layers, ``P`` = pool pages, ``ps`` = page size;
 head-major, consumed natively by decode):
   k_pages / v_pages  [L, P, Hkv, ps, Dh]   post-rope keys / values
   kg_pages           [L, P, Hkv, Dg]       gate K-compression twin
+  k/v_scale_pages    [L, P, Hkv, 1]  f32   per-page per-head dequant scales
+                                           (int8 pools only)
   page_table         [n_slots, npt] int32  physical ids; NULL_PAGE = empty
+
+Quantized pools (``init_pages(..., quantize="int8")``): K/V pages hold
+symmetric int8 (value = int8 * scale, scale = abs-max/127 per page per KV
+head over the page's valid rows). A scale row is zeroed on lazy growth,
+rewritten on every append to the trailing page (which is requantized
+whole) and frozen once the page completes. Dequant happens inside the
+decode kernels' block loop (or on the gathered blocks of their plain
+versions), so no fp copy of a cache-sized array is built; swap moves the
+int8 bytes plus the scale rows. ``quantize=None`` keeps the fp pools and
+the fp code path.
 
 Physical page 0 is the null/trash page: unallocated table entries point
 at it and writes of inactive slots are routed there. Several slots may
@@ -43,42 +55,85 @@ NULL_PAGE = 0
 
 
 class PagedPages(NamedTuple):
-    """Device-side page pools, stacked over self-attention layers. The
-    Quest metadata pools and the int8 scale pools of the reference arrive
-    with their slices."""
+    """Device-side page pools, stacked over self-attention layers, in the
+    reference's field order. ``k_scale_pages``/``v_scale_pages`` are the
+    int8 pools' dequant scales (None for fp pools). The Quest metadata
+    pools ``kmin_pages``/``kmax_pages`` arrive with their slice and stay
+    None."""
     k_pages: torch.Tensor                 # [L, P, Hkv, ps, Dh]  (head-major)
     v_pages: torch.Tensor                 # [L, P, Hkv, ps, Dh]
     kg_pages: Optional[torch.Tensor]      # [L, P, Hkv, Dg]
+    kmin_pages: Optional[torch.Tensor] = None      # not ported (Quest)
+    kmax_pages: Optional[torch.Tensor] = None      # not ported (Quest)
+    k_scale_pages: Optional[torch.Tensor] = None   # [L, P, Hkv, 1] float32
+    v_scale_pages: Optional[torch.Tensor] = None   # [L, P, Hkv, 1] float32
+
+
+INT8_MAX = 127.0
+
+
+def quantize_block(x: torch.Tensor, valid: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(page, head) int8 quantization of fp page contents.
+
+    x [..., ps, Dh]; ``valid`` bool, broadcastable against x, marks the
+    rows that hold real tokens (a recycled page carries its previous
+    tenant's rows, which must not inflate the scale). Returns (int8 page,
+    f32 scale [..., 1]): scale = abs-max/127 over the valid region, 1.0 for
+    an all-zero or empty region. The abs-max is multiplied by the f32
+    reciprocal of 127, which is what XLA compiles the reference's
+    ``amax / 127.0`` to inside its jitted pool updates; the page is then
+    DIVIDED by the scale (a traced divisor stays a division there) and
+    rounded half to even, as ``jnp.round`` does. So identical fp32 inputs
+    give the reference's serving-path codes and scales bit for bit."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.where(valid, xf.abs(), 0.0), dim=(-2, -1))
+    scale = torch.where(amax > 0, amax * (1.0 / INT8_MAX), 1.0)[..., None]
+    q = torch.clamp(torch.round(xf / scale[..., None]), -INT8_MAX, INT8_MAX)
+    return q.to(torch.int8), scale
+
+
+def dequantize_block(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 page [..., ps, Dh] x scale [..., 1] -> f32 page."""
+    return q.to(torch.float32) * scale[..., None]
 
 
 def init_pages(cfg: ModelConfig, num_pages: int, n_layers: int,
                dtype: Optional[torch.dtype] = None, with_meta: bool = False,
                ghost_rows: int = 0, quantize: Optional[str] = None, *,
                device=None) -> PagedPages:
-    """Zeroed fp pools on ``device`` (``None`` = CUDA, which raises without
-    a card). The reference's Quest metadata pools (``with_meta``),
-    eviction ghost rows and int8 pools are later slices and raise."""
+    """Zeroed pools on ``device`` (``None`` = CUDA, which raises without a
+    card). ``quantize="int8"`` allocates int8 K/V pools plus two distinct
+    zeroed f32 scale pools [L, P, Hkv, 1]; the Kg pool stays in the working
+    dtype, so selection does not depend on the value quantization. The
+    reference's Quest metadata pools (``with_meta``) and eviction ghost
+    rows are later slices and raise."""
     if with_meta:
         raise NotImplementedError(
             "Quest selection-metadata pools (Queue A item 6) are not ported")
     if ghost_rows:
         raise NotImplementedError(
             "eviction ghost rows (Queue A item 7) are not ported")
-    if quantize is not None:
-        raise NotImplementedError(
-            "quantize='int8' pools (Queue A item 8) are not ported")
+    if quantize not in (None, "int8"):
+        raise ValueError(f"quantize must be None or 'int8': {quantize!r}")
     device = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
     ps = cfg.gate.block_size
     hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     kg = (torch.zeros((n_layers, num_pages, hkv, cfg.gate.d_gate), dtype=dt,
                       device=device) if cfg.gate.enabled else None)
+    kv_dt, k_scale, v_scale = dt, None, None
+    if quantize == "int8":
+        kv_dt = torch.int8
+        k_scale, v_scale = (torch.zeros((n_layers, num_pages, hkv, 1),
+                                        dtype=torch.float32, device=device)
+                            for _ in range(2))
     return PagedPages(
-        k_pages=torch.zeros((n_layers, num_pages, hkv, ps, dh), dtype=dt,
+        k_pages=torch.zeros((n_layers, num_pages, hkv, ps, dh), dtype=kv_dt,
                             device=device),
-        v_pages=torch.zeros((n_layers, num_pages, hkv, ps, dh), dtype=dt,
+        v_pages=torch.zeros((n_layers, num_pages, hkv, ps, dh), dtype=kv_dt,
                             device=device),
-        kg_pages=kg)
+        kg_pages=kg, k_scale_pages=k_scale, v_scale_pages=v_scale)
 
 
 def scatter_prefill(pages: PagedPages, k_cache: torch.Tensor,
@@ -93,7 +148,9 @@ def scatter_prefill(pages: PagedPages, k_cache: torch.Tensor,
     Every listed page gets a cache page (rows past the cache repeat its
     last page: filler that ``kv_len`` masks). Every listed page's Kg row
     is zeroed except the ``length // block_size`` complete-block rows,
-    which are copied from ``kg_cache`` [L, 1, Hkv, nb, Dg].
+    which are copied from ``kg_cache`` [L, 1, Hkv, nb, Dg]. Int8 pools
+    quantize each page over its VALID token rows only (``tok < length``),
+    so the filler past the prompt does not enter the scale.
     """
     n_ids = page_ids.shape[0]
     nl, _, hkv, s_max, dh = k_cache.shape
@@ -105,8 +162,18 @@ def scatter_prefill(pages: PagedPages, k_cache: torch.Tensor,
         rows = cache[:, 0].reshape(nl, hkv, n_cache, block_size, dh)
         return rows.transpose(1, 2)[:, src]
 
-    pages.k_pages[:, page_ids] = page_rows(k_cache).to(pages.k_pages.dtype)
-    pages.v_pages[:, page_ids] = page_rows(v_cache).to(pages.v_pages.dtype)
+    if pages.k_scale_pages is not None:
+        tok = (torch.arange(n_ids, device=dev)[:, None] * block_size
+               + torch.arange(block_size, device=dev)[None, :])   # [n_ids, ps]
+        valid = (tok < length)[None, :, None, :, None]            # page axes
+        for pool, scales, cache in ((pages.k_pages, pages.k_scale_pages, k_cache),
+                                    (pages.v_pages, pages.v_scale_pages, v_cache)):
+            q, sc = quantize_block(page_rows(cache), valid)
+            pool[:, page_ids] = q
+            scales[:, page_ids] = sc
+    else:
+        pages.k_pages[:, page_ids] = page_rows(k_cache).to(pages.k_pages.dtype)
+        pages.v_pages[:, page_ids] = page_rows(v_cache).to(pages.v_pages.dtype)
     if pages.kg_pages is None:
         return
     pool = pages.kg_pages
@@ -147,10 +214,47 @@ def append_token_paged(k_pages: torch.Tensor, v_pages: torch.Tensor,
                       gate_params, cfg, rope_theta=rope_theta)
 
 
+def append_token_paged_quant(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                             kg_pages: Optional[torch.Tensor],
+                             k_scale: torch.Tensor, v_scale: torch.Tensor,
+                             kr_new: torch.Tensor, v_new: torch.Tensor,
+                             page_table: torch.Tensor, cur_len: torch.Tensor,
+                             active: torch.Tensor, gate_params: Optional[Dict],
+                             cfg: GateConfig, *,
+                             rope_theta: float = 10000.0) -> None:
+    """Int8 twin of ``append_token_paged``, in place.
+
+    Each slot's trailing page is REQUANTIZED: dequantized with its scale
+    row, the new fp row inserted at ``cur_len % ps``, quantized again over
+    the rows ``<= off``, and written back with its new scale row. Only
+    that one page per slot changes; completed pages stay frozen. Inactive
+    slots write to the null page. The Kg row of a just-completed page is
+    finalized from the DEQUANTIZED keys, which attention will read."""
+    ps = cfg.block_size
+    sidx = torch.arange(cur_len.shape[0], device=cur_len.device)
+    logical = (cur_len // ps).long()
+    off = (cur_len % ps).long()
+    phys = torch.where(active, page_table[sidx, logical], NULL_PAGE).long()
+    rows = torch.arange(ps, device=cur_len.device)[None, :]
+    onehot = (rows == off[:, None])[:, None, :, None]        # [S,1,ps,1]
+    valid = (rows <= off[:, None])[:, None, :, None]         # [S,1,ps,1]
+    for pool, scales, new in ((k_pages, k_scale, kr_new), (v_pages, v_scale, v_new)):
+        page = dequantize_block(pool[phys], scales[phys])
+        page = torch.where(onehot, new.to(torch.float32)[:, :, None, :], page)
+        q, sc = quantize_block(page, valid)
+        pool[phys] = q
+        scales[phys] = sc
+    if kg_pages is None or gate_params is None:
+        return
+    finalize_kg_paged(k_pages, kg_pages, page_table, cur_len, active,
+                      gate_params, cfg, rope_theta=rope_theta, k_scale=k_scale)
+
+
 def finalize_kg_paged(k_pages: torch.Tensor, kg_pages: torch.Tensor,
                       page_table: torch.Tensor, cur_len: torch.Tensor,
                       active: torch.Tensor, gate_params: Dict,
-                      cfg: GateConfig, *, rope_theta: float = 10000.0) -> None:
+                      cfg: GateConfig, *, rope_theta: float = 10000.0,
+                      k_scale: Optional[torch.Tensor] = None) -> None:
     """Finalize the Kg row of each slot's just-completed page, in place.
 
     Called AFTER the new token's key is written. A slot whose page
@@ -158,13 +262,17 @@ def finalize_kg_paged(k_pages: torch.Tensor, kg_pages: torch.Tensor,
     to the pre-rope frame and pooled + projected into that page's row.
     Every other slot writes the null page's row back UNCHANGED (the
     reference's ``where(completed, kg_new, kg_cur)``), so no live row
-    moves."""
+    moves. ``k_scale`` [P, Hkv, 1] (int8 pools) dequantizes the gathered
+    page first."""
     ps = cfg.block_size
     sidx = torch.arange(cur_len.shape[0], device=cur_len.device)
     logical = (cur_len // ps).long()
     phys = torch.where(active, page_table[sidx, logical], NULL_PAGE).long()
     completed = active & (((cur_len + 1) % ps) == 0)
-    blk = k_pages[phys].transpose(1, 2)                    # [S, ps, Hkv, Dh]
+    blk = k_pages[phys]                                    # [S, Hkv, ps, Dh]
+    if k_scale is not None:
+        blk = dequantize_block(blk, k_scale[phys])
+    blk = blk.transpose(1, 2)                              # [S, ps, Hkv, Dh]
     kg_new = finalize_block_kg(gate_params, blk, logical * ps, logical, cfg,
                                is_roped=True, rope_theta=rope_theta)
     phys_kg = torch.where(completed, phys, NULL_PAGE)
@@ -179,12 +287,17 @@ def gather_kg(kg_pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     return kg_pages[page_table.long()].transpose(1, 2)
 
 
-def gather_kv(pages_1l: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+def gather_kv(pages_1l: torch.Tensor, page_table: torch.Tensor,
+              scale_1l: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[P, Hkv, ps, Dh] x [S, npt] -> head-major contiguous view
     [S, Hkv, npt*ps, Dh]. The dense-attention fallback only: it copies a
-    cache-sized array; the sparse path reads selected pages in-kernel."""
+    cache-sized array; the sparse path reads selected pages in-kernel.
+    ``scale_1l`` [P, Hkv, 1] dequantizes int8 pools during the gather."""
     s, npt = page_table.shape
-    g = pages_1l[page_table.long()].transpose(1, 2)        # [S,Hkv,npt,ps,Dh]
+    g = pages_1l[page_table.long()]                        # [S,npt,Hkv,ps,Dh]
+    if scale_1l is not None:
+        g = dequantize_block(g, scale_1l[page_table.long()])
+    g = g.transpose(1, 2)                                  # [S,Hkv,npt,ps,Dh]
     return g.reshape(s, pages_1l.shape[1], npt * pages_1l.shape[2],
                      pages_1l.shape[3])
 
@@ -237,33 +350,49 @@ def pad_page_ids(ids: Sequence[int], *, min_len: int = 1,
 
 
 def reset_kg_rows(pages: PagedPages, page_ids: torch.Tensor) -> None:
-    """Zero the Kg rows of freshly (lazily) allocated pages: a recycled
-    page still holds its previous tenant's row, and a partial trailing
-    page must read a ZERO row. K/V contents need no reset: every read is
+    """Zero the Kg rows (and, for int8 pools, the scale rows) of freshly
+    (lazily) allocated pages: a recycled page still holds its previous
+    tenant's row, and a partial trailing page must read a ZERO row; a zero
+    scale makes stale int8 bytes dequantize to exactly 0 until the first
+    append rewrites the row. K/V contents need no reset: every read is
     masked by the logical ``kv_len``."""
     if pages.kg_pages is not None:
         pages.kg_pages[:, page_ids] = 0
+    if pages.k_scale_pages is not None:
+        pages.k_scale_pages[:, page_ids] = 0
+        pages.v_scale_pages[:, page_ids] = 0
 
 
 def extract_pages(pages: PagedPages, page_ids: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
+                             None, None, Optional[torch.Tensor],
+                             Optional[torch.Tensor]]:
     """One request's pages for swap-out, copied to HOST memory before the
-    scheduler frees them: (k [L,n,Hkv,ps,Dh], v [L,n,Hkv,ps,Dh],
-    kg [L,n,Hkv,Dg] | None), physical ids given in LOGICAL order."""
-    k = pages.k_pages[:, page_ids].cpu()
-    v = pages.v_pages[:, page_ids].cpu()
-    kg = pages.kg_pages[:, page_ids].cpu() if pages.kg_pages is not None else None
-    return k, v, kg
+    scheduler frees them, physical ids given in LOGICAL order: (k
+    [L,n,Hkv,ps,Dh], v, kg [L,n,Hkv,Dg] | None, kmin, kmax, k_scale
+    [L,n,Hkv,1] | None, v_scale | None), the reference's order; the Quest
+    rows are not ported and stay None. Int8 pools move their raw bytes
+    plus the scale rows, so the round trip is bitwise."""
+    def cut(pool):
+        return None if pool is None else pool[:, page_ids].cpu()
+    return (cut(pages.k_pages), cut(pages.v_pages), cut(pages.kg_pages), None, None,
+            cut(pages.k_scale_pages), cut(pages.v_scale_pages))
 
 
 def restore_pages(pages: PagedPages, k: torch.Tensor, v: torch.Tensor,
-                  kg: Optional[torch.Tensor], page_ids: torch.Tensor) -> None:
+                  kg: Optional[torch.Tensor], page_ids: torch.Tensor, *,
+                  k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None) -> None:
     """Scatter swapped-out page contents into fresh physical pages
     (re-admission after preemption). The new ids may differ from the old
     ones: every access goes through the page table, so the round trip is
-    bitwise lossless."""
+    bitwise lossless. Int8 pools get their raw bytes and scale rows back,
+    with no requantization."""
     dev = pages.k_pages.device
     pages.k_pages[:, page_ids] = k.to(dev, pages.k_pages.dtype)
     pages.v_pages[:, page_ids] = v.to(dev, pages.v_pages.dtype)
     if pages.kg_pages is not None and kg is not None:
         pages.kg_pages[:, page_ids] = kg.to(dev, pages.kg_pages.dtype)
+    if pages.k_scale_pages is not None and k_scale is not None:
+        pages.k_scale_pages[:, page_ids] = k_scale.to(dev)
+        pages.v_scale_pages[:, page_ids] = v_scale.to(dev)

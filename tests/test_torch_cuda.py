@@ -10,7 +10,7 @@ on a GPU machine with
 This file imports neither jax nor the reference package; the plain
 versions it compares against are themselves held against the JAX
 reference on the CPU (tests/test_torch_kernels.py, test_torch_engine.py,
-test_torch_paging.py, test_torch_serve.py).
+test_torch_paging.py, test_torch_serve.py, test_torch_quant.py).
 """
 import ctypes
 import dataclasses
@@ -29,6 +29,7 @@ from repro_torch.kernels import block_sparse_decode as bsd
 from repro_torch.kernels import build
 from repro_torch.kernels import gate_select as gs
 from repro_torch.kernels import ops
+from repro_torch.serve import paging as pg
 
 pytestmark = pytest.mark.cuda
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -299,15 +300,19 @@ def test_paged_decode_limit_rejects_logical_id_as_page(dev, tmp_path, monkeypatc
     assert good <= lim < bad
 
 
+def _tiny_cfg():
+    cfg = t_config.reduced(t_get("qwen3_0_6b")).replace(dtype="float32")
+    return cfg.replace(gate=dataclasses.replace(cfg.gate, block_size=8, d_gate=16,
+                                                token_budget=32))
+
+
 def test_engine_cuda_serve_matches_cpu_and_counts_launches(dev):
     """serve() on the card equals serve() on the CPU (tiny config, fp32),
     with an ample and a tight pool, and every decode step's layers went
     through the two paged kernels."""
     from repro_torch.models.transformer import init_lm
     from repro_torch.serve.engine import DecodeEngine
-    cfg = t_config.reduced(t_get("qwen3_0_6b")).replace(dtype="float32")
-    cfg = cfg.replace(gate=dataclasses.replace(cfg.gate, block_size=8, d_gate=16,
-                                               token_budget=32))
+    cfg = _tiny_cfg()
     params = init_lm(torch.Generator().manual_seed(0), cfg)
     r = np.random.default_rng(4)
     reqs = [{"rid": i, "max_new_tokens": m,
@@ -322,7 +327,9 @@ def test_engine_cuda_serve_matches_cpu_and_counts_launches(dev):
         steps = got["stats"]["decode_steps"]
         assert ops.launch_counts() == {"gate_select": 0, "block_sparse_decode": 0,
                                        "gate_select_paged": cfg.num_layers * steps,
-                                       "block_sparse_decode_paged": cfg.num_layers * steps}
+                                       "block_sparse_decode_paged": cfg.num_layers * steps,
+                                       "block_sparse_decode_quant": 0,
+                                       "block_sparse_decode_paged_quant": 0}
         assert (got["stats"]["preemptions"] > 0) == (pool is not None)
         for i in range(len(reqs)):
             assert got[i] == want[i]
@@ -332,9 +339,7 @@ def test_engine_cuda_serve_matches_cpu_and_counts_launches(dev):
 def test_engine_cuda_matches_cpu_and_counts_launches(dev):
     from repro_torch.models.transformer import init_lm
     from repro_torch.serve.engine import DecodeEngine
-    cfg = t_config.reduced(t_get("qwen3_0_6b")).replace(dtype="float32")
-    cfg = cfg.replace(gate=dataclasses.replace(cfg.gate, block_size=8, d_gate=16,
-                                               token_budget=32))
+    cfg = _tiny_cfg()
     params = init_lm(torch.Generator().manual_seed(0), cfg)
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 41))
     cpu = DecodeEngine(cfg, params, max_len=64, device="cpu").generate(
@@ -344,6 +349,190 @@ def test_engine_cuda_matches_cpu_and_counts_launches(dev):
     eng = DecodeEngine(cfg, gpu_params, max_len=64)
     res = eng.generate({"tokens": toks}, 13)
     assert ops.launch_counts() == {"gate_select": 2 * 12, "block_sparse_decode": 2 * 12,
-                                   "gate_select_paged": 0, "block_sparse_decode_paged": 0}
+                                   "gate_select_paged": 0, "block_sparse_decode_paged": 0,
+                                   "block_sparse_decode_quant": 0,
+                                   "block_sparse_decode_paged_quant": 0}
     np.testing.assert_array_equal(res["tokens"].cpu().numpy(), cpu["tokens"].numpy())
 
+
+
+# ---------------------------------------------------------------------------
+# int8 pools: the fused-dequant decode kernels (TPU bodies 2q and 4q)
+# ---------------------------------------------------------------------------
+
+def _quantize(x, bs, seed):
+    """x [..., S, Dh] fp -> (int8 codes of x times a per-block amplitude in
+    0.25..4, f32 scales [..., S // bs]): one scale per block of bs rows, so
+    scale rows differ from block to block by up to 16x."""
+    *lead, s, dh = x.shape
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    amp = 0.25 * 16 ** torch.rand(*lead, s // bs, 1, 1, generator=gen, device=x.device)
+    blk = x.float().reshape(*lead, s // bs, bs, dh) * amp
+    q, sc = pg.quantize_block(blk, torch.ones((), dtype=torch.bool, device=x.device))
+    return q.reshape(x.shape), sc[..., 0]
+
+
+def _quant_sparse_inputs(dev, dtype, b, hkv, g, dh, nb, bs, nsel, seed=0):
+    q, k, v, idx, kv_len = _sparse_inputs(dev, dtype, b, hkv, g, dh, nb, bs, nsel, seed)
+    (kq, ks), (vq, vs) = _quantize(k, bs, seed + 1), _quantize(v, bs, seed + 2)
+    return q, kq, vq, ks, vs, idx, kv_len
+
+
+def _quant_paged_inputs(dev, dtype, s, hkv, g, dh, npt, bs, nsel, seed=0):
+    """The int8 twin of ``_paged_inputs``: the contiguous int8 caches paged
+    under a shuffled table, each page's scale row beside it; the trash
+    page 0 holds codes and a scale row that no selected block may read."""
+    q, kq, vq, ks, vs, idx, kv_len = _quant_sparse_inputs(dev, dtype, s, hkv, g, dh, npt,
+                                                          bs, nsel, seed)
+    n_pages = s * npt + 1
+    pt = _paged_table(np.random.default_rng(seed + 1), s, npt, np.full((s,), npt), n_pages)
+    kp = torch.full((n_pages, hkv, bs, dh), 127, dtype=torch.int8, device=dev)
+    vp = kp.clone()
+    ksp = torch.full((n_pages, hkv, 1), float("nan"), device=dev)
+    vsp = ksp.clone()
+    for i in range(s):
+        for j in range(npt):
+            kp[pt[i, j]] = kq[i, :, j * bs:(j + 1) * bs]
+            vp[pt[i, j]] = vq[i, :, j * bs:(j + 1) * bs]
+            ksp[pt[i, j], :, 0], vsp[pt[i, j], :, 0] = ks[i, :, j], vs[i, :, j]
+    return (q, kp, vp, ksp, vsp, idx, torch.tensor(pt, device=dev), kv_len,
+            (kq, vq, ks, vs))
+
+
+def _check_decode(o_k, o_p, dtype):
+    assert o_k.dtype == dtype and torch.isfinite(o_k).all()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(o_k.cpu().numpy(), o_p.cpu().numpy(), atol=1e-5, rtol=1e-5)
+    else:
+        assert float((o_k.float() - o_p.float()).abs().max()) <= _decode_limit(o_p)
+    assert torch.equal(o_k[0, 0], torch.zeros_like(o_k[0, 0]))
+
+
+QUANT_SHAPES = [(2, 2, 2, 16, 8, 8, 4), (3, 1, 5, 32, 6, 16, 6),
+                (4, 8, 2, 128, 257, 64, 64)]       # the main path's shapes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hkv,g,dh,nb,bs,nsel", QUANT_SHAPES)
+def test_sparse_decode_quant_kernel_matches_plain(dev, dtype, b, hkv, g, dh, nb, bs, nsel):
+    """2q: int8 caches, one f32 scale per cache block."""
+    q, kq, vq, ks, vs, idx, kv_len = _quant_sparse_inputs(dev, dtype, b, hkv, g, dh, nb,
+                                                          bs, nsel)
+    o_k = bsd.sparse_decode_quant_cuda(q, kq, vq, idx, kv_len, block_size=bs,
+                                       k_scales=ks, v_scales=vs)
+    o_p = bsd.sparse_decode_plain(q, kq, vq, idx, kv_len, block_size=bs,
+                                  k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    _check_decode(o_k, o_p, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hkv,g,dh,npt,bs,nsel", QUANT_SHAPES)
+def test_sparse_decode_paged_quant_kernel_matches_plain(dev, dtype, s, hkv, g, dh, npt, bs,
+                                                        nsel):
+    """4q: int8 pools, a scale row per physical page. Also: the same blocks
+    read by 2q from the contiguous caches give the same bits, and shuffling
+    the physical pages (and their scale rows) under the table changes
+    nothing."""
+    q, kp, vp, ksp, vsp, idx, pt, kv_len, (kq, vq, ks, vs) = _quant_paged_inputs(
+        dev, dtype, s, hkv, g, dh, npt, bs, nsel)
+    o_k = bsd.sparse_decode_paged_quant_cuda(q, kp, vp, idx, pt, kv_len, block_size=bs,
+                                             k_scales=ksp, v_scales=vsp)
+    o_p = bsd.sparse_decode_paged_plain(q, kp, vp, idx, pt, kv_len, block_size=bs,
+                                        k_scales=ksp, v_scales=vsp)
+    torch.cuda.synchronize()
+    _check_decode(o_k, o_p, dtype)
+    assert torch.equal(o_k, bsd.sparse_decode_quant_cuda(q, kq, vq, idx, kv_len,
+                                                         block_size=bs, k_scales=ks,
+                                                         v_scales=vs))
+    n_pages = kp.shape[0]
+    perm = torch.cat([torch.zeros(1, dtype=torch.long),
+                      1 + torch.randperm(n_pages - 1,
+                                         generator=torch.Generator().manual_seed(1))]).to(dev)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(n_pages, device=dev)
+    o_s = bsd.sparse_decode_paged_quant_cuda(
+        q, kp[inv], vp[inv], idx, perm[pt.long()].int(), kv_len, block_size=bs,
+        k_scales=ksp[inv], v_scales=vsp[inv].reshape(n_pages, hkv))
+    assert torch.equal(o_k, o_s)
+
+
+# one-line faults in the int8 body: (source line, edit)
+QUANT_MUTANTS = {
+    "scale of the logical page": (
+        "if (Paged) return (size_t)max(page_table[(size_t)b * npt + blk], 0) * H + h;",
+        "if (Paged) return (size_t)blk * H + h;"),
+    "K scale applied to V": ("v_scale = v_scales[si];", "v_scale = k_scales[si];"),
+    "V scale applied twice": ("a += v_scale * pv;", "a += v_scale * v_scale * pv;"),
+    "K scale applied twice": ("scale = k_scales[si] * sm_scale;",
+                              "scale = k_scales[si] * k_scales[si] * sm_scale;"),
+}
+
+
+@pytest.mark.parametrize("mutant", list(QUANT_MUTANTS))
+def test_quant_decode_limit_rejects_a_faulty_kernel(dev, mutant, tmp_path, monkeypatch):
+    """chip_smoke.py's 8-ulp limit rejects an int8 paged decode kernel with
+    a one-line fault in its dequant, at the main path's shape with bf16 q,
+    page amplitudes that differ by up to 16x and a shuffled table; the
+    correct kernel passes the same check."""
+    old, new = QUANT_MUTANTS[mutant]
+    src = (build.CSRC / "block_sparse_decode.cu").read_text()
+    assert src.count(old) == 1, mutant
+    cu = tmp_path / "mutant_quant.cu"
+    cu.write_text(src.replace(old, new))
+    so = tmp_path / "mutant_quant.so"
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    q, kp, vp, ksp, vsp, idx, pt, kv_len, _ = _quant_paged_inputs(
+        dev, torch.bfloat16, 4, 8, 2, 128, 257, 64, 64, seed=3)
+    ksp[0], vsp[0] = 1.0, 1.0          # a finite trash row: a misread shows as an error
+    kw = dict(block_size=64, k_scales=ksp, v_scales=vsp)
+    o_p = bsd.sparse_decode_paged_plain(q, kp, vp, idx, pt, kv_len, **kw)
+    lim = _decode_limit(o_p)
+    o_k = bsd.sparse_decode_paged_quant_cuda(q, kp, vp, idx, pt, kv_len, **kw)
+    good = float((o_k.float() - o_p.float()).abs().max())
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    o_m = bsd.sparse_decode_paged_quant_cuda(q, kp, vp, idx, pt, kv_len, **kw)
+    torch.cuda.synchronize()
+    bad = float((o_m.float() - o_p.float()).abs().max())
+    print(f"[{mutant}] max|o_plain| {float(o_p.float().abs().max()):.4f}, limit "
+          f"{lim:.3e}: correct kernel {good:.3e}, faulty kernel {bad:.3e}")
+    assert good <= lim
+    assert not bad <= lim, f"{mutant}: error {bad} within the limit {lim}"
+
+
+def test_engine_cuda_int8_serve_matches_cpu_and_counts_launches(dev):
+    """int8 serve() on the card equals int8 serve() on the CPU (tiny
+    config, fp32 working dtype) with an ample and a tight pool; every
+    decode step's layers went through the int8 paged decode, never the fp
+    one. Logits within 1e-3, tests/test_torch_quant.py's tolerance for a
+    flipped int8 code."""
+    from repro_torch.core.policy import DecodeOptions
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import DecodeEngine
+    cfg = _tiny_cfg()
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+    r = np.random.default_rng(4)
+    reqs = [{"rid": i, "max_new_tokens": m,
+             "tokens": r.integers(0, cfg.vocab_size, size=(p,)).astype(np.int32)}
+            for i, (p, m) in enumerate([(20, 12), (18, 10), (22, 9)])]
+    opts = DecodeOptions(quantize="int8")
+    gpu = DecodeEngine(cfg, params_to(params, dev), max_len=64, options=opts)
+    cpu = DecodeEngine(cfg, params, max_len=64, options=opts, device="cpu")
+    for pool in (None, 8):
+        want = cpu.serve(reqs, n_slots=3, num_pages=pool, collect_logits=True)
+        ops.reset_launch_counts()
+        got = gpu.serve(reqs, n_slots=3, num_pages=pool, collect_logits=True)
+        n = cfg.num_layers * got["stats"]["decode_steps"]
+        assert ops.launch_counts() == {"gate_select": 0, "block_sparse_decode": 0,
+                                       "gate_select_paged": n, "block_sparse_decode_paged": 0,
+                                       "block_sparse_decode_quant": 0,
+                                       "block_sparse_decode_paged_quant": n}
+        assert (got["stats"]["preemptions"] > 0) == (pool is not None)
+        assert got["stats"]["swapped_out_bytes"] == want["stats"]["swapped_out_bytes"]
+        for i in range(len(reqs)):
+            assert got[i] == want[i]
+            np.testing.assert_allclose(got["logits"][i], want["logits"][i], atol=1e-3)

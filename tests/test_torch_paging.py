@@ -181,7 +181,9 @@ def test_paged_cpu_dispatch_takes_plain_and_counts_no_launch():
                        t_gs.gate_select_paged_plain(qg, kgp, pt, nv, cfg))
     assert t_ops.launch_counts() == dict.fromkeys(t_ops.KERNELS, 0)
     assert set(t_ops.KERNELS) == {"gate_select", "block_sparse_decode",
-                                  "gate_select_paged", "block_sparse_decode_paged"}
+                                  "gate_select_paged", "block_sparse_decode_paged",
+                                  "block_sparse_decode_quant",
+                                  "block_sparse_decode_paged_quant"}
 
 
 def test_paged_cuda_wrappers_refuse_cpu_tensors():
@@ -226,7 +228,7 @@ def test_scatter_prefill_matches_jax(length, ids):
     jpp = j_pg.scatter_prefill(jpp, jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(kgc),
                                jnp.asarray(length, jnp.int32), j_pg.pad_page_ids(ids), PS)
     # the null page may hold any of the padding writes: compare the rest
-    _eq_pools([t[:, 1:] for t in tp], jpp._replace(
+    _eq_pools([t[:, 1:] for t in tp[:3]], jpp._replace(
         k_pages=jpp.k_pages[:, 1:], v_pages=jpp.v_pages[:, 1:],
         kg_pages=jpp.kg_pages[:, 1:]))
     np.testing.assert_array_equal(t_pg.pad_page_ids(ids).numpy(),
@@ -244,7 +246,7 @@ def test_append_token_and_finalize_kg_match_jax(cur_len, active):
     for k, shp in (("wq", (HKV, 2 * DH, DG)), ("wk", (HKV, 3 * DH, DG))):
         w = randn(r, *shp) * 0.2
         tp_[k], jp_[k] = torch.tensor(w), jnp.asarray(w)
-    (tk, tv, tkg), jpp = _pools(r)
+    (tk, tv, tkg, *_), jpp = _pools(r)
     tk, tv, tkg = tk[0], tv[0], tkg[0]                    # one layer's pools
     jk, jv, jkg = jpp.k_pages[0], jpp.v_pages[0], jpp.kg_pages[0]
     cl, act = np.array(cur_len, np.int32), np.array(active)
@@ -273,7 +275,7 @@ def test_extract_restore_reset_and_gathers_match_jax():
     r = np.random.default_rng(12)
     tp, jpp = _pools(r)
     ids = [7, 3, 12]
-    tk, tv, tkg = t_pg.extract_pages(tp, t_pg.pad_page_ids(ids))
+    tk, tv, tkg, *_ = t_pg.extract_pages(tp, t_pg.pad_page_ids(ids))
     jk, jv, jkg, *_ = j_pg.extract_pages(jpp, j_pg.pad_page_ids(ids))
     assert tk.device.type == "cpu" and tk.shape == (L, 4, HKV, PS, DH)
     for t, j in ((tk, jk), (tv, jv), (tkg, jkg)):
@@ -281,7 +283,7 @@ def test_extract_restore_reset_and_gathers_match_jax():
     new = [9, 1, 14]
     t_pg.restore_pages(tp, tk, tv, tkg, t_pg.pad_page_ids(new))
     jpp = j_pg.restore_pages(jpp, jk, jv, jkg, j_pg.pad_page_ids(new))
-    _eq_pools([t[:, 1:] for t in tp], jpp._replace(
+    _eq_pools([t[:, 1:] for t in tp[:3]], jpp._replace(
         k_pages=jpp.k_pages[:, 1:], v_pages=jpp.v_pages[:, 1:],
         kg_pages=jpp.kg_pages[:, 1:]))
     for a, b in zip(ids, new):                       # the round trip moves bits
@@ -310,10 +312,19 @@ def test_page_allocator_and_init_pages():
     pools = t_pg.init_pages(cfg, 5, 2, device="cpu")
     assert pools.k_pages.shape == (2, 5, cfg.n_kv_heads, cfg.gate.block_size,
                                    cfg.resolved_head_dim)
-    for kw, item in (({"with_meta": True}, "item 6"), ({"ghost_rows": 2}, "item 7"),
-                     ({"quantize": "int8"}, "item 8")):
+    for kw, item in (({"with_meta": True}, "item 6"), ({"ghost_rows": 2}, "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             t_pg.init_pages(cfg, 5, 2, device="cpu", **kw)
+    q8 = t_pg.init_pages(cfg, 5, 2, device="cpu", quantize="int8")
+    assert q8.k_pages.dtype == q8.v_pages.dtype == torch.int8
+    assert q8.k_pages.shape == pools.k_pages.shape
+    for sc in (q8.k_scale_pages, q8.v_scale_pages):
+        assert sc.dtype == torch.float32 and sc.shape == (2, 5, cfg.n_kv_heads, 1)
+        assert not sc.any()
+    assert q8.k_scale_pages.data_ptr() != q8.v_scale_pages.data_ptr()
+    assert pools.k_scale_pages is None and q8.kmin_pages is None
+    with pytest.raises(ValueError, match="quantize"):
+        t_pg.init_pages(cfg, 5, 2, device="cpu", quantize="fp8")
 
 
 # ---------------------------------------------------------------------------

@@ -226,8 +226,10 @@ def test_unported_options_raise(models):
     stoch.options = stoch.options.replace(sampling=SamplingParams(temperature=0.7))
     with pytest.raises(NotImplementedError, match="item 6"):
         stoch.serve(reqs)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TOptions(quantize="int8")
+    q8 = TOptions(quantize="int8")
+    assert q8.quantize == "int8" and q8 == TOptions(quantize="int8")
+    with pytest.raises(ValueError, match="quantize"):
+        TOptions(quantize="fp8")
     with pytest.raises(NotImplementedError, match="item 11"):
         port_engine(models, "budget", shard=object())
     with pytest.raises(NotImplementedError, match="item 9"):
