@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py            # from the repository root, one card
 
-Three main paths, gated block-sparse decoding of qwen3_0_6b at full width:
+Five main paths, gated block-sparse decoding of qwen3_0_6b at full width:
 the contiguous path through ``DecodeEngine.generate`` (kernels
 ``gate_select`` and ``block_sparse_decode``), the paged continuous-
 batching path through ``DecodeEngine.serve`` (kernels
-``gate_select_paged`` and ``block_sparse_decode_paged``), and the same
+``gate_select_paged`` and ``block_sparse_decode_paged``), the same
 ``serve`` over int8 page pools, ``DecodeOptions(quantize="int8")``
-(kernels ``gate_select_paged`` and ``block_sparse_decode_paged_quant``).
+(kernels ``gate_select_paged`` and ``block_sparse_decode_paged_quant``),
+and the head-sharded ``serve`` with split-K decode,
+``DecodeOptions(split_k=4)`` on an engine with a one-rank NCCL process
+group, over fp and int8 pools (kernels ``gate_select_paged`` and
+``block_sparse_decode_paged_splitk``, or ``..._splitk_quant``).
 The contiguous int8 kernel ``block_sparse_decode_quant`` lies on no model
 path (in the reference neither): it is checked and timed on the generate
 path's layer-0 blocks, quantized per block. Phases (any failure exits
@@ -22,7 +26,10 @@ non-zero):
      the same engine on the CPU (plain PyTorch path, itself held against
      the JAX reference by the CPU tests): ``generate`` tokens equal and
      logits close; ``serve`` with an ample and a tight (preempting) pool,
-     fp and int8 pools, tokens equal and logits close;
+     fp and int8 pools, tokens equal and logits close; then the sharded
+     paths through the one-rank NCCL group against the same unsharded CPU
+     runs: head-sharded ``serve`` (fp at split_k 1 and 2, int8 at split_k
+     2, and a preempting pool) and sequence-sharded ``generate``;
   3. kernel vs plain on the card, on the tensors the main path gives
      layer 0 in its first decode step (captured from a real prefill +
      step): gate select for budget/threshold x force flags x n_valid
@@ -68,7 +75,25 @@ non-zero):
      pages), the contiguous one on phase 3's caches quantized per block;
      both timed as in phase 3. No single PyTorch call dequantizes and
      attends, so their library time is null; dense SDPA over a
-     pre-dequantized gathered view is printed for context.
+     pre-dequantized gathered view is printed for context;
+ 11. sharded serve: phase 6's requests and pools with
+     ``DecodeOptions(split_k=4)`` on the one-rank NCCL group
+     (4 splits x 8 KV heads x 4 slots = 128 CTAs); each run must launch
+     the split-K decode and the paged gate select layers x decode steps
+     times and nothing else, preempt and swap as phase 6 did, reproduce
+     the ample run bitwise under the tight pool, and measure the same
+     sparsity by request as phase 6; its first decode step's logits must
+     lie within 8 bf16 ulps of max|logit| of phase 6's (split-K only
+     reorders fp32 sums); the share of equal tokens is printed; then phase
+     8's profile of the same engine, to set beside phase 8's;
+ 12. the same over int8 pools, ample pool only;
+ 13. kernels 5 and 5q against their plain versions on the tensors layer 0
+     of phases 11 and 12's first decode steps gave them, at num_splits 2,
+     4, 8 and nsel + 3, with the decode limit of phase 3 and bitwise equal
+     over shuffled pages; timed at num_splits 4 beside #4 / #4q on the
+     same inputs, with a sweep over num_splits printed; bound = #4's
+     bytes plus the f32 partials written and read once; library yardstick
+     (fp) the masked dense SDPA of phase 7.
 
 The line before the last is a JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -81,12 +106,15 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
@@ -94,6 +122,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.config import reduced  # noqa: E402
 from repro_torch.convert import params_to  # noqa: E402
 from repro_torch.core.policy import DecodeOptions  # noqa: E402
+from repro_torch.distributed.sharding import Shard  # noqa: E402
 from repro_torch.kernels import block_sparse_decode as bsd  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import gate_select as gs  # noqa: E402
@@ -118,6 +147,11 @@ BATCH, PROMPT_LEN, NEW_TOKENS, SEED = 4, 16384, 32, 0
 # preemption (and resume) of the 16384-token request in the tight run
 SERVE_SLOTS, SERVE_SEED, TIGHT_PAGES = 4, 1, 644
 SERVE_SPECS = ((16384, 32), (12345, 24), (8191, 40), (4097, 16), (1500, 48), (63, 8))
+# the sharded serve phase: split-K over 4 segments (4 x 8 KV heads x 4
+# slots = 128 CTAs on the 132 SMs); kernels 5/5q checked at these splits
+SPLIT_K = 4
+SPLITS_CHECKED = (2, 4, 8)          # and nsel + 3 (empty segments)
+SPLITS_TIMED = (2, 4, 8, 16)
 
 
 def fail(msg: str) -> None:
@@ -223,15 +257,19 @@ def decode_bound_ms(q, idx, kv_len, block_size, kv_es=None):
     return bound_ms(*decode_work(q, idx, kv_len, block_size, kv_es))
 
 
-def paged_decode_bound_ms(q, idx, kv_len, block_size, kv_es=None):
+def paged_decode_bound_ms(q, idx, kv_len, block_size, kv_es=None, num_splits=1):
     """The contiguous decode's work plus one 4-byte page-table entry for
-    each distinct (slot, block) that holds valid tokens."""
+    each distinct (slot, block) that holds valid tokens; split-K
+    (``num_splits`` > 1) adds its f32 partials (acc [G, Dh], m and l [G]
+    per segment), written once and read once."""
     nbytes, ops_n = decode_work(q, idx, kv_len, block_size, kv_es)
     ix = idx.long().cpu()
     live = (ix >= 0) & (ix * block_size < kv_len.long().cpu()[:, None, None])
-    b = ix.shape[0]
+    b, hkv, g, dh = q.shape
     keys = torch.where(live, torch.arange(b)[:, None, None] * (1 << 32) + ix, -1)
     n_entries = int(torch.unique(keys[keys >= 0]).numel())
+    if num_splits > 1:
+        nbytes += 2 * b * hkv * num_splits * (g * dh + 2 * g) * 4
     return bound_ms(nbytes + 4 * n_entries, ops_n)
 
 
@@ -308,8 +346,16 @@ def phase_build():
           f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items()) or 'cached'})")
 
 
-def phase_small():
-    """Tiny config on the card vs the CPU plain path: same tokens, close logits."""
+def decode_kernel(options) -> str:
+    """The paged decode kernel a serve() with these options launches."""
+    return ("block_sparse_decode_paged" + ("_splitk" if options.split_k > 1 else "")
+            + ("_quant" if options.quantize else ""))
+
+
+def phase_small(shard):
+    """Tiny config on the card vs the CPU plain path: same tokens, close
+    logits; then the sharded paths through ``shard`` against the same CPU
+    runs."""
     cfg = reduced(configs.get("qwen3_0_6b")).replace(dtype="float32")
     cfg = cfg.replace(gate=dataclasses.replace(cfg.gate, block_size=8, d_gate=16,
                                                token_budget=32))
@@ -339,6 +385,7 @@ def phase_small():
     reqs = [{"rid": i, "max_new_tokens": m,
              "tokens": r.integers(0, cfg.vocab_size, size=(p,)).astype(np.int32)}
             for i, (p, m) in enumerate([(20, 12), (18, 10), (22, 9)])]
+    cpu_runs = {}
     for quant, tol in ((None, 1e-4), ("int8", 1e-3)):
         opts = DecodeOptions(quantize=quant)
         engines = {dev: DecodeEngine(cfg, params_to(params, dev), max_len=64, device=dev,
@@ -346,6 +393,7 @@ def phase_small():
         for pool in (None, 8):
             res = {dev: e.serve(reqs, n_slots=3, num_pages=pool, collect_logits=True)
                    for dev, e in engines.items()}
+            cpu_runs[quant, pool] = res["cpu"]
             same = all(res["cpu"][i] == res["cuda"][i] for i in range(len(reqs)))
             err = max(float(np.abs(res["cpu"]["logits"][i] - res["cuda"]["logits"][i]).max())
                       for i in range(len(reqs)))
@@ -359,6 +407,56 @@ def phase_small():
             print(f"small serve agreement ({quant or 'fp'} pools, pool {pool or 'default'}, "
                   f"3 requests on 3 slots): tokens equal, logits max abs diff {err:.3e} "
                   f"(limit {tol}), preemptions {pre}")
+    phase_small_sharded(cfg, params, toks, reqs, cpu_runs, shard)
+
+
+def phase_small_sharded(cfg, params, toks, reqs, cpu_runs, shard):
+    """The sharded paths of the tiny config through the one-rank NCCL group
+    against phase 2's unsharded CPU runs: head-sharded serve (fp at split_k
+    1 and 2, fp split_k 2 under the preempting pool, int8 at split_k 2):
+    tokens equal, logits within the unsharded comparison's limits, the
+    same preemptions and swap bytes, and each decode step's layers through
+    the paged gate select and the decode kernel of its options; then
+    sequence-sharded generate (budget and threshold): tokens equal to the
+    CPU's unsharded run. The threshold gate gets a budget of all 8 blocks:
+    the sharded path caps its candidates at the local cap and the
+    unsharded one at the budget, which agree where neither binds."""
+    gpu_params = params_to(params, "cuda")
+    for quant, split_k, pool, tol in ((None, 1, None, 1e-4), (None, 2, None, 1e-4),
+                                      (None, 2, 8, 1e-4), ("int8", 2, None, 1e-3)):
+        eng = DecodeEngine(cfg, gpu_params, max_len=64, shard=shard,
+                           options=DecodeOptions(quantize=quant, split_k=split_k))
+        want = cpu_runs[quant, pool]
+        ops.reset_launch_counts()
+        got = eng.serve(reqs, n_slots=3, num_pages=pool, collect_logits=True)
+        counts = ops.launch_counts()
+        n = cfg.num_layers * got["stats"]["decode_steps"]
+        expect = {**dict.fromkeys(ops.KERNELS, 0), "gate_select_paged": n,
+                  decode_kernel(eng.options): n}
+        same = all(got[i] == want[i] for i in range(len(reqs)))
+        err = max(float(np.abs(got["logits"][i] - want["logits"][i]).max())
+                  for i in range(len(reqs)))
+        stats_ok = all(got["stats"][k] == want["stats"][k]
+                       for k in ("preemptions", "swapped_out_bytes", "decode_steps"))
+        if counts != expect or not same or err > tol or not stats_ok:
+            fail(f"small sharded serve ({quant or 'fp'} pools, split_k {split_k}, pool "
+                 f"{pool}): launch counts {counts} (expected {expect}), tokens equal "
+                 f"{same}, logits max abs diff {err:.3e} (limit {tol}), stats equal {stats_ok}")
+        print(f"small sharded serve (one NCCL rank, {quant or 'fp'} pools, split_k {split_k}, "
+              f"pool {pool or 'default'}): tokens equal to the unsharded CPU run, logits max "
+              f"abs diff {err:.3e} (limit {tol}), preemptions {got['stats']['preemptions']}, "
+              f"{n} launches of {decode_kernel(eng.options)}")
+    for method in ("budget", "threshold"):
+        c = cfg.replace(gate=dataclasses.replace(
+            cfg.gate, method=method, threshold=2e-2,
+            token_budget=32 if method == "budget" else 64))
+        want = DecodeEngine(c, params, max_len=64, device="cpu").generate({"tokens": toks}, 13)
+        got = DecodeEngine(c, gpu_params, max_len=64,
+                           shard=shard).generate({"tokens": toks}, 13)
+        if not torch.equal(got["tokens"].cpu(), want["tokens"]):
+            fail(f"small sequence-sharded generate ({method}): tokens differ from the CPU's")
+        print(f"small sequence-sharded generate (one NCCL rank, {method}, 2x41 prompt, 12 "
+              f"steps): tokens equal to the unsharded CPU run")
 
 
 def capture_layer0(eng, batch):
@@ -547,7 +645,7 @@ def capture_paged_layer0():
     scale rows) are updated in place later, so tensors are cloned. Returns
     (seen, restore)."""
     seen = {}
-    real = (ops.gate_select_paged, ops.paged_sparse_decode)
+    real = (ops.gate_select_paged, ops.paged_sparse_decode, ops.paged_sparse_decode_splitk)
 
     def copy(x):
         return x.clone() if torch.is_tensor(x) else x
@@ -561,17 +659,19 @@ def capture_paged_layer0():
 
     ops.gate_select_paged = grab("gate_select_paged", real[0])
     ops.paged_sparse_decode = grab("paged_sparse_decode", real[1])
+    ops.paged_sparse_decode_splitk = grab("paged_sparse_decode_splitk", real[2])
 
     def restore():
-        ops.gate_select_paged, ops.paged_sparse_decode = real
+        ops.gate_select_paged, ops.paged_sparse_decode, ops.paged_sparse_decode_splitk = real
     return seen, restore
 
 
 def run_serve(eng, reqs, num_pages, n_layers):
     """One serve() with the launch counters at 0 just before and read just
     after, and the prefill time taken apart (synchronised). The paged gate
-    select and the paged decode of the engine's pools (fp or int8) must
-    each launch layers x decode steps times, and no other kernel."""
+    select and the paged decode of the engine's options (fp or int8 pools,
+    single-pass or split-K) must each launch layers x decode steps times,
+    and no other kernel."""
     prefill = eng._paged_prefill
     spent = [0.0]
 
@@ -606,10 +706,8 @@ def run_serve(eng, reqs, num_pages, n_layers):
     print(f"serve measured sparsity by rid: "
           + ", ".join(f"{k}: {v:.4f}" for k, v in st["sparsity_by_rid"].items())
           + f"; launch counts {counts}")
-    decode = ("block_sparse_decode_paged_quant" if eng.options.quantize
-              else "block_sparse_decode_paged")
     want = {**dict.fromkeys(ops.KERNELS, 0), "gate_select_paged": n_layers * steps,
-            decode: n_layers * steps}
+            decode_kernel(eng.options): n_layers * steps}
     if counts != want:
         fail(f"serve launch counts {counts}, expected {want}")
     if st["retired"] != len(reqs) or st["failed"] or st["errors"]:
@@ -623,15 +721,16 @@ def run_serve(eng, reqs, num_pages, n_layers):
     return res, counts, spent[0]
 
 
-def phase_serve(cfg, params, quantize=None):
-    """serve() at full width, ample pool then tight pool; layer-0 paged
-    kernel arguments captured from the ample run's first decode step.
-    ``quantize="int8"`` serves from int8 pools, where the tight run must
-    reproduce the ample one bitwise (the swap moves the raw codes and scale
-    rows). Returns (launch counts, captured arguments, ample, tight)."""
+def phase_serve(cfg, params, options=DecodeOptions(), shard=None, tight_pool=True):
+    """serve() at full width, ample pool then (``tight_pool``) tight pool;
+    layer-0 paged kernel arguments captured from the ample run's first
+    decode step. Int8 pools (``options.quantize``) and sharded runs must
+    reproduce the ample run bitwise under the tight pool (the swap moves
+    the raw bytes back). Returns (launch counts, captured arguments, ample,
+    tight or None)."""
     reqs = serve_requests(cfg.vocab_size)
     eng = DecodeEngine(cfg, params, max_len=max(p + m for p, m in SERVE_SPECS),
-                       options=DecodeOptions(quantize=quantize))
+                       options=options, shard=shard)
     seen, restore = capture_paged_layer0()
     try:
         ample, counts, _ = run_serve(eng, reqs, None, cfg.num_layers)
@@ -639,6 +738,8 @@ def phase_serve(cfg, params, quantize=None):
         restore()
     if ample["stats"]["preemptions"]:
         fail("the ample pool preempted")
+    if not tight_pool:
+        return counts, seen, ample, None
     tight, _, _ = run_serve(eng, reqs, TIGHT_PAGES, cfg.num_layers)
     st = tight["stats"]
     if st["preemptions"] < 1 or st["resumed"] != st["preemptions"]:
@@ -655,7 +756,7 @@ def phase_serve(cfg, params, quantize=None):
             top = float(np.abs(a).max())
             ulp = 2.0 ** -7 * 2.0 ** math.floor(math.log2(top))
             worst = max(worst, float(np.abs(a - b).max()) / ulp)
-    if worst > (0 if quantize else DECODE_ULPS):
+    if worst > (0 if options.quantize or shard is not None else DECODE_ULPS):
         fail(f"tight pool logits differ by {worst:.2f} bf16 ulps")
     print(f"tight pool reproduces the ample run: tokens equal for every rid, logits "
           + ("bitwise equal" if worst == 0 else f"within {worst:.2f} bf16 ulps"))
@@ -691,6 +792,119 @@ def check_int8_serve(cfg, fp, q8):
           f"{per_q8} B (fp: {fb} B); K/V pools at {n_pages} pages {kv / 1e9:.2f} GB "
           f"(fp {kv * es / 1e9:.2f} GB); tokens equal to the fp run {same}/{total} "
           f"(information only)")
+
+
+def check_sharded_serve(cfg, base, sharded):
+    """A sharded serve (ample, and tight or None) against the unsharded
+    runs of the same pools (``base``: ample, tight): the same decode steps,
+    peak pages, preemptions, swap bytes and measured sparsity by request;
+    the first decode step's logits of the requests admitted at once
+    within DECODE_ULPS bf16 ulps of max|logit| (split-K only reorders fp32
+    sums); the share of equal tokens printed, for information only."""
+    for b, sh in zip(base, sharded):
+        if sh is None:
+            continue
+        for key in ("decode_steps", "peak_pages_used", "preemptions", "resumed",
+                    "swapped_out_bytes", "swapped_in_bytes", "sparsity_by_rid"):
+            if b["stats"][key] != sh["stats"][key]:
+                fail(f"sharded serve {key} {sh['stats'][key]} != unsharded {b['stats'][key]}")
+    (ba, sa) = base[0], sharded[0]
+    worst = 0.0
+    for rid in range(SERVE_SLOTS):                 # admitted at step 0: same step
+        a, b = ba["logits"][rid][1], sa["logits"][rid][1]
+        ulp = 2.0 ** -7 * 2.0 ** math.floor(math.log2(float(np.abs(a).max())))
+        worst = max(worst, float(np.abs(a - b).max()) / ulp)
+    if worst > DECODE_ULPS:
+        fail(f"sharded serve: first decode step's logits {worst:.2f} bf16 ulps from the "
+             f"unsharded run's (limit {DECODE_ULPS})")
+    same = sum(int((np.asarray(ba[r]) == np.asarray(sa[r])).sum())
+               for r in range(len(SERVE_SPECS)))
+    total = sum(len(ba[r]) for r in range(len(SERVE_SPECS)))
+    print(f"sharded serve vs unsharded: steps, pages, preemptions, swap bytes "
+          f"({sa['stats']['swapped_out_bytes']} B out on the ample run, "
+          f"{sharded[1]['stats']['swapped_out_bytes'] if sharded[1] else 'no tight run'} on the "
+          f"tight run) and sparsity by rid equal; first decode step's logits within "
+          f"{worst:.3f} bf16 ulps of max|logit| (limit {DECODE_ULPS}); tokens equal {same}/"
+          f"{total} (information only)")
+
+
+def phase_splitk_kernels(seen):
+    """Kernel 5 (fp pools) or 5q (int8 pools) vs plain on a sharded serve's
+    layer-0 tensors at several num_splits, and over shuffled pages; timed
+    at SPLIT_K beside the single-pass kernel (#4 / #4q) on the same
+    inputs, with a sweep over num_splits; bound and library yardstick."""
+    (qg, kgp, pt, nv, gcfg, ms), _ = seen["gate_select_paged"]
+    (q, kp, vp, idx, pt_d, kv_len), kw = seen["paged_sparse_decode_splitk"]
+    bs, ks, vs = kw["block_size"], kw.get("k_scales"), kw.get("v_scales")
+    quant = ks is not None
+    name = "block_sparse_decode_paged_splitk" + ("_quant" if quant else "")
+    nsel = idx.shape[-1]
+    print(f"{name}: sharded serve layer-0 shapes: q {tuple(q.shape)} pools {tuple(kp.shape)} "
+          f"({kp.dtype}) idx {tuple(idx.shape)} kv_len {kv_len.tolist()}")
+
+    def kernel(qq, ix, ns, pools=(pt_d, kp, vp, ks, vs)):
+        table, k, v, ksc, vsc = pools
+        if quant:
+            return bsd.sparse_decode_paged_splitk_quant_cuda(
+                qq, k, v, ix, table, kv_len, block_size=bs, num_splits=ns, k_scales=ksc,
+                v_scales=vsc)
+        return bsd.sparse_decode_paged_splitk_cuda(qq, k, v, ix, table, kv_len, block_size=bs,
+                                                   num_splits=ns)
+
+    def plain(qq, ix, ns):
+        return bsd.sparse_decode_paged_splitk_plain(qq, kp, vp, ix, pt_d, kv_len, block_size=bs,
+                                                    num_splits=ns, k_scales=ks, v_scales=vs)
+
+    def single(qq, ix):
+        if quant:
+            return bsd.sparse_decode_paged_quant_cuda(qq, kp, vp, ix, pt_d, kv_len, block_size=bs,
+                                                      k_scales=ks, v_scales=vs)
+        return bsd.sparse_decode_paged_cuda(qq, kp, vp, ix, pt_d, kv_len, block_size=bs)
+
+    thr = gs.gate_select_paged_plain(qg, kgp, pt, nv,
+                                     dataclasses.replace(gcfg, method="threshold"), ms)
+    shuffled = shuffled_pages(pt_d, kp, vp, *((ks, vs) if quant else ()))
+    if not quant:
+        shuffled = shuffled + (None, None)
+    err = 0.0
+    for ns in SPLITS_CHECKED + (nsel + 3,):
+        err = max(err, check_decode(
+            f"{name} [num_splits {ns}]", lambda qq, ix: kernel(qq, ix, ns),
+            lambda qq, ix: plain(qq, ix, ns), decode_cases(q, idx, thr),
+            lambda qq, ix: kernel(qq, ix, ns, shuffled)))
+    if int(kv_len[0]) % bs == 0:
+        fail("expected a partial last block at the captured kv_len")
+    del shuffled
+    t_single = time_ms(lambda: single(q, idx))
+    t_k = time_ms(lambda: kernel(q, idx, SPLIT_K))
+    t_p = time_ms(lambda: plain(q, idx, SPLIT_K))
+    sweep = {ns: time_ms(lambda ns=ns: kernel(q, idx, ns)) for ns in SPLITS_TIMED}
+    t_single_again = time_ms(lambda: single(q, idx))
+    b_ms, b_by = paged_decode_bound_ms(q, idx, kv_len, bs, kv_es=1 if quant else None,
+                                       num_splits=SPLIT_K)
+    k_view = pg.gather_kv(kp, pt_d, ks).to(q.dtype)
+    v_view = pg.gather_kv(vp, pt_d, vs).to(q.dtype)
+    t_lib = sdpa_masked_ms(q, k_view, v_view, kv_len)
+    del k_view, v_view
+    single_name = "block_sparse_decode_paged" + ("_quant" if quant else "")
+    ctas = q.shape[0] * q.shape[1] * SPLIT_K
+    print(f"{name}: kernel {t_k:.4f} ms at num_splits {SPLIT_K} ({ctas} CTAs), plain {t_p:.4f} ms, bound {b_ms:.5f} ms ({b_by}); {single_name} on the same "
+          f"inputs {t_single:.4f} ms before, {t_single_again:.4f} ms after; sweep "
+          + ", ".join(f"{ns} splits {t:.4f} ms" for ns, t in sweep.items())
+          + f"; SDPA dense over the {'pre-dequantized ' if quant else ''}gathered view (masked "
+          f"at kv_len{', dequant not timed, context only' if quant else ''}) {t_lib:.4f} ms")
+    return {name: dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None if quant else t_lib)}
+
+
+def nccl_shard(store_dir: str) -> Shard:
+    """A one-rank NCCL process group on this card, as the ``model`` axis of
+    the sharded paths; the rendezvous goes through a file store in
+    ``store_dir`` (no network port)."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store_dir}/store", rank=0,
+                            world_size=1)
+    return Shard()
 
 
 def phase_paged_kernels(seen):
@@ -847,15 +1061,19 @@ def phase_quant_kernels(seen):
         max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None)}
 
 
-def phase_serve_profile(cfg, params, skip: int = 2, steps: int = 3):
+def phase_serve_profile(cfg, params, options=DecodeOptions(), shard=None,
+                        label: str = "serve", skip: int = 2, steps: int = 3):
     """Where a serve() decode iteration's time goes: torch.profiler from the
     start of decode step ``skip`` to the start of step ``skip + steps``, so
     the window holds whole iterations (the model step, the argmax copy and
-    the host's scheduling), with every slot busy."""
+    the host's scheduling), with every slot busy. Prints the top device
+    kernels and host ops, the device's busy share and the launches and
+    collectives per iteration."""
     from torch.profiler import ProfilerActivity, profile
     reqs = [dict(r, max_new_tokens=skip + steps + 2)
             for r in serve_requests(cfg.vocab_size)[:SERVE_SLOTS]]
-    eng = DecodeEngine(cfg, params, max_len=max(p for p, _ in SERVE_SPECS) + 8)
+    eng = DecodeEngine(cfg, params, max_len=max(p for p, _ in SERVE_SPECS) + 8,
+                       options=options, shard=shard)
     real = eng.api.decode_step_paged
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     calls, wall = [0], [0.0]
@@ -878,11 +1096,17 @@ def phase_serve_profile(cfg, params, skip: int = 2, steps: int = 3):
     kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps   # ms/step
     per_step = 1e3 * wall[0] / steps
+    # the profiler marks every c10d collective with one record_param_comms
+    comms = [e for e in ka if e.key == "record_param_comms"]
+    comm_ms = sum(e.self_cpu_time_total for e in comms) / 1e3 / steps   # host ms/step
     print(ka.table(sort_by="self_device_time_total", row_limit=15))
-    print(f"serve profile ({SERVE_SLOTS} slots busy, {steps} iterations): {per_step:.2f} ms "
+    print(ka.table(sort_by="self_cpu_time_total", row_limit=12))
+    print(f"{label} profile ({SERVE_SLOTS} slots busy, {steps} iterations): {per_step:.2f} ms "
           f"per iteration under the profiler; device busy {busy:.2f} ms/iteration = "
           f"{100 * busy / per_step:.1f}% of it; "
-          f"{sum(e.count for e in kernels) / steps:.0f} kernel launches/iteration")
+          f"{sum(e.count for e in kernels) / steps:.0f} kernel launches/iteration; "
+          f"{sum(e.count for e in comms) / steps:.0f} collectives/iteration, "
+          f"{comm_ms:.2f} ms/iteration of host time in them")
 
 
 def main() -> int:
@@ -894,7 +1118,19 @@ def main() -> int:
 
     print(card_line())
     phase_build()
-    phase_small()
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        shard = nccl_shard(store_dir)
+        try:
+            return run_phases(shard)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def run_phases(shard) -> int:
+    phase_small(shard)
 
     cfg = configs.get("qwen3_0_6b")
     bs = cfg.gate.block_size
@@ -936,11 +1172,32 @@ def main() -> int:
     phase_serve_profile(cfg, params)
 
     print("int8 serve: the same requests and pools, quantize='int8'")
-    q8_counts, seen, *q8_runs = phase_serve(cfg, params, quantize="int8")
+    q8_counts, seen, *q8_runs = phase_serve(cfg, params, DecodeOptions(quantize="int8"))
     check_int8_serve(cfg, fp_runs, q8_runs)
     numbers.update(phase_paged_quant_kernels(seen))
-    del seen, fp_runs, q8_runs
+    del seen
     counts["block_sparse_decode_paged_quant"] = q8_counts["block_sparse_decode_paged_quant"]
+    torch.cuda.empty_cache()
+
+    print(f"sharded serve: the same requests and pools, split_k={SPLIT_K}, "
+          f"one NCCL rank ({shard})")
+    sh_counts, seen, *sh_runs = phase_serve(cfg, params, DecodeOptions(split_k=SPLIT_K), shard)
+    check_sharded_serve(cfg, fp_runs, sh_runs)
+    numbers.update(phase_splitk_kernels(seen))
+    del seen, sh_runs, fp_runs
+    torch.cuda.empty_cache()
+    phase_serve_profile(cfg, params, DecodeOptions(split_k=SPLIT_K), shard,
+                        label=f"sharded serve (split_k {SPLIT_K})")
+    print(f"int8 sharded serve: the same requests, default pool, quantize='int8', "
+          f"split_k={SPLIT_K}")
+    shq_counts, seen, *shq_runs = phase_serve(
+        cfg, params, DecodeOptions(quantize="int8", split_k=SPLIT_K), shard, tight_pool=False)
+    check_sharded_serve(cfg, q8_runs, shq_runs)
+    numbers.update(phase_splitk_kernels(seen))
+    del seen, shq_runs, q8_runs
+    for name, runs in (("block_sparse_decode_paged_splitk", sh_counts),
+                       ("block_sparse_decode_paged_splitk_quant", shq_counts)):
+        counts[name] = runs[name]
     # the contiguous int8 kernel lies on no model path
     counts["block_sparse_decode_quant"] = 0
     torch.cuda.empty_cache()
@@ -959,6 +1216,12 @@ def main() -> int:
         "block_sparse_decode_paged_quant": (
             "src/repro_torch/kernels/csrc/block_sparse_decode.cu",
             "src/repro/kernels/block_sparse_decode.py:190"),
+        "block_sparse_decode_paged_splitk": (
+            "src/repro_torch/kernels/csrc/block_sparse_decode.cu",
+            "src/repro/kernels/block_sparse_decode.py:407"),
+        "block_sparse_decode_paged_splitk_quant": (
+            "src/repro_torch/kernels/csrc/block_sparse_decode.cu",
+            "src/repro/kernels/block_sparse_decode.py:393"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **numbers[name])

@@ -10,8 +10,10 @@ paths (contiguous and paged) need:
 ``DecodeOptions`` is frozen (hashable) and threaded engine -> model ->
 kernels, as in the reference. Kernel choice is NOT an option here: the
 kernel wrappers dispatch on the device of the tensors they are given
-(``kernels/ops.py``). The schedule, eviction and split-k fields of the
-reference arrive with their slices.
+(``kernels/ops.py``). The reference's ``kernel_impl="sharded"`` is no
+option either: an engine built with a ``shard`` takes the sharded paths,
+and ``DecodeEngine`` checks ``split_k`` and the policy against it. The
+schedule and eviction fields of the reference arrive with their slices.
 """
 from __future__ import annotations
 
@@ -92,17 +94,26 @@ class DecodeOptions:
                       int8 K/V pools with per-page per-head f32 scale rows,
                       dequantized inside the block-sparse decode kernel.
                       ``generate`` ignores it, as the reference's does.
+    split_k:          paged decode on a sharded engine (``DecodeEngine(
+                      shard=...)``, the reference's ``kernel_impl="sharded"``):
+                      reduce each rank's selected list in ``split_k`` flash
+                      partials (``ops.paged_sparse_decode_splitk``); 1 = the
+                      single-pass kernel, bitwise the unsharded step. The
+                      engine refuses ``split_k > 1`` without a shard
     """
     policy: Any = GatePolicy()
     sampling: SamplingParams = GREEDY
     budget_override: Optional[int] = None
     measure_sparsity: bool = True
     quantize: Optional[str] = None
+    split_k: int = 1
 
     def __post_init__(self):
         if self.quantize not in (None, "int8"):
             raise ValueError(
                 f"quantize must be None or 'int8': {self.quantize!r}")
+        if self.split_k < 1:
+            raise ValueError(f"split_k must be >= 1: {self.split_k}")
         if self.budget_override is not None and self.budget_override <= 0:
             raise ValueError(
                 f"budget_override must be positive: {self.budget_override}")

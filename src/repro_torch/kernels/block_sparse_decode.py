@@ -35,6 +35,18 @@ blocks by their scales inside the fp32 upcast, as ``ref._deq`` does; None
 leaves them bitwise what they are for fp caches. ``sparse_decode_quant_cuda``
 and ``sparse_decode_paged_quant_cuda`` launch the int8 instances of the
 same CUDA body, each with its own launch counter.
+
+Split-K (TPU kernel ``block_sparse_decode_paged_splitk``, fp body
+``_kernel_paged_splitk`` and int8 body ``_kernel_paged_splitk_quant``):
+the selected list is cut into ``num_splits`` segments of ``ceil(nsel /
+num_splits)`` entries (the tail padded with -1), each reduced to an
+unnormalised flash partial (acc, m, l), and the partials merge with the
+two-pass rescale ``m = max_s m_s``, ``l = sum_s l_s e^{m_s - m}``,
+``o = sum_s acc_s e^{m_s - m} / l``. ``sparse_decode_paged_splitk_plain``
+is the twin of ``kernels/ref.py::paged_sparse_decode_splitk_ref``;
+``sparse_decode_paged_splitk_cuda`` and
+``sparse_decode_paged_splitk_quant_cuda`` launch the split instances of
+the same CUDA body plus its combine kernel (two launches, one count).
 """
 from __future__ import annotations
 
@@ -132,9 +144,71 @@ def sparse_decode_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return o.to(q.dtype)
 
 
-def _bind(lib: ctypes.CDLL, paged: bool = False, quant: bool = False):
+def sparse_decode_paged_splitk_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                     v_pages: torch.Tensor, block_indices: torch.Tensor,
+                                     page_table: torch.Tensor, kv_len: torch.Tensor, *,
+                                     block_size: int, num_splits: int,
+                                     k_scales: Optional[torch.Tensor] = None,
+                                     v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch split-K paged decode (any device). Segment s holds
+    entries ``[s*per, (s+1)*per)`` of the selected list, ``per = ceil(nsel
+    / num_splits)``, padded with -1 past ``nsel``; a segment with no valid
+    key has l = 0 and m = NEG_INF and drops out of the combine.
+    ``num_splits <= 1`` is ``sparse_decode_paged_plain``, bitwise."""
+    if num_splits <= 1:
+        return sparse_decode_paged_plain(q, k_pages, v_pages, block_indices, page_table,
+                                         kv_len, block_size=block_size, k_scales=k_scales,
+                                         v_scales=v_scales)
+    b, hkv, g, dh = q.shape
+    ps = k_pages.shape[2]
+    assert ps == block_size, (ps, block_size)
+    nsel = block_indices.shape[-1]
+    scale = 1.0 / math.sqrt(dh)
+    per = -(-nsel // num_splits)
+    pad = per * num_splits - nsel
+    bi = block_indices
+    if pad:
+        bi = torch.cat([bi, torch.full((b, hkv, pad), -1, dtype=bi.dtype, device=bi.device)],
+                       dim=-1)
+    bi = bi.reshape(b, hkv, num_splits, per)
+    idx = torch.clamp_min(bi, 0).to(torch.int64)                    # [B,Hkv,NS,per]
+    pt = page_table.to(torch.int64)[:, None, None, :].expand(b, hkv, num_splits, -1)
+    phys = torch.gather(pt, 3, idx)                                 # [B,Hkv,NS,per]
+    har = torch.arange(hkv, device=q.device)[None, :, None, None]
+
+    def pages(pool, scales):                                        # -> [B,Hkv,NS,per*ps,Dh]
+        blk = pool[phys, har].to(torch.float32)                     # [B,Hkv,NS,per,ps,Dh]
+        if scales is not None:
+            blk = blk * scales.reshape(-1, hkv)[phys, har][..., None, None]
+        return blk.reshape(b, hkv, num_splits, per * ps, dh)
+
+    kg, vg = pages(k_pages, k_scales), pages(v_pages, v_scales)
+    pos = idx[..., None] * ps + torch.arange(ps, device=q.device)   # [B,Hkv,NS,per,ps]
+    valid = (bi[..., None] >= 0) & (pos < kv_len[:, None, None, None, None])
+    valid = valid.reshape(b, hkv, num_splits, 1, per * ps)
+    sc = torch.einsum("bhgd,bhskd->bhsgk", q.to(torch.float32), kg) * scale
+    sc = torch.where(valid, sc, NEG_INF)
+    m_s = torch.amax(sc, dim=-1, keepdim=True)                      # [B,Hkv,NS,G,1]
+    p = torch.where(sc > NEG_INF / 2, torch.exp(sc - m_s), 0.0)
+    l_s = torch.sum(p, dim=-1, keepdim=True)
+    acc_s = torch.einsum("bhsgk,bhskd->bhsgd", p, vg)
+    m = torch.amax(m_s, dim=2, keepdim=True)                        # over splits
+    rescale = torch.where(l_s > 0, torch.exp(m_s - m), 0.0)
+    l = torch.sum(l_s * rescale, dim=2)                             # [B,Hkv,G,1]
+    o = torch.sum(acc_s * rescale, dim=2) / torch.clamp_min(l, 1e-30)
+    return o.to(q.dtype)
+
+
+def _bind(lib: ctypes.CDLL, paged: bool = False, quant: bool = False,
+          split: bool = False):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if paged and quant:
+    if split and quant:
+        fn = lib.block_sparse_decode_paged_splitk_quant_launch
+        types = [p] * 10 + [i] * 8 + [f, i, p]
+    elif split:
+        fn = lib.block_sparse_decode_paged_splitk_launch
+        types = [p] * 8 + [i] * 8 + [f, i, p]
+    elif paged and quant:
         fn = lib.block_sparse_decode_paged_quant_launch
         types = [p] * 9 + [i, i, i, i, i, i, i, f, i, p]
     elif paged:
@@ -152,19 +226,34 @@ def _bind(lib: ctypes.CDLL, paged: bool = False, quant: bool = False):
     return fn
 
 
+def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ints,
+           scales=()) -> None:
+    """Device, dtype and contiguity checks shared by the wrappers: K/V in
+    q's dtype, or, given ``scales``, int8 K/V with float32 scales."""
+    ins = (k, v, *scales, *ints)
+    if not (q.is_cuda and all(t.device == q.device for t in ins)):
+        raise ValueError(f"{name}: all inputs must be on one CUDA device")
+    kv_dtype = torch.int8 if scales else q.dtype
+    if q.dtype not in _DTYPES or k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise TypeError(f"{name}: q must be float32 or bfloat16 and k/v "
+                        f"{'int8' if scales else 'of its dtype'}, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if any(t.dtype != torch.float32 for t in scales):
+        raise TypeError(f"{name}: k_scales and v_scales must be float32")
+    if any(t.dtype != torch.int32 for t in ints):
+        raise TypeError(f"{name}: index tensors and kv_len must be int32")
+    if q.shape[2] * q.shape[3] > MAX_GROUP_ELEMS:
+        raise ValueError(f"{name}: G*Dh = {q.shape[2] * q.shape[3]} > {MAX_GROUP_ELEMS}")
+    if not all(t.is_contiguous() for t in (q,) + ins):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
 def sparse_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                        v_cache: torch.Tensor, block_indices: torch.Tensor,
                        kv_len: torch.Tensor, *, block_size: int) -> torch.Tensor:
     """Launch the CUDA block-sparse decode kernel."""
     dev = q.device
-    if not (q.is_cuda and all(t.device == dev for t in
-                              (k_cache, v_cache, block_indices, kv_len))):
-        raise ValueError("sparse_decode_cuda: all inputs must be on one CUDA device")
-    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise TypeError(f"sparse_decode_cuda: q/k/v must share dtype float32 or "
-                        f"bfloat16, got {q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
-    if block_indices.dtype != torch.int32 or kv_len.dtype != torch.int32:
-        raise TypeError("sparse_decode_cuda: block_indices and kv_len must be int32")
+    _check("sparse_decode_cuda", q, k_cache, v_cache, (block_indices, kv_len))
     b, hkv, g, dh = q.shape
     s_max = k_cache.shape[2]
     nsel = block_indices.shape[-1]
@@ -174,10 +263,6 @@ def sparse_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             f"sparse_decode_cuda: shapes q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
             f"v {tuple(v_cache.shape)}, idx {tuple(block_indices.shape)}, "
             f"kv_len {tuple(kv_len.shape)}")
-    if g * dh > MAX_GROUP_ELEMS:
-        raise ValueError(f"sparse_decode_cuda: G*Dh = {g * dh} > {MAX_GROUP_ELEMS}")
-    if not all(t.is_contiguous() for t in (q, k_cache, v_cache, block_indices, kv_len)):
-        raise ValueError("sparse_decode_cuda: inputs must be contiguous")
     out = torch.empty_like(q)
     if nsel == 0:
         return out.zero_()
@@ -201,15 +286,8 @@ def sparse_decode_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                              block_size: int) -> torch.Tensor:
     """Launch the CUDA paged block-sparse decode kernel."""
     dev = q.device
-    ins = (k_pages, v_pages, block_indices, page_table, kv_len)
-    if not (q.is_cuda and all(t.device == dev for t in ins)):
-        raise ValueError("sparse_decode_paged_cuda: all inputs must be on one CUDA device")
-    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError(f"sparse_decode_paged_cuda: q/k/v must share dtype float32 or "
-                        f"bfloat16, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
-    if any(t.dtype != torch.int32 for t in (block_indices, page_table, kv_len)):
-        raise TypeError("sparse_decode_paged_cuda: block_indices, page_table and "
-                        "kv_len must be int32")
+    _check("sparse_decode_paged_cuda", q, k_pages, v_pages,
+              (block_indices, page_table, kv_len))
     b, hkv, g, dh = q.shape
     n_pages, ps = k_pages.shape[0], k_pages.shape[2]
     nsel = block_indices.shape[-1]
@@ -224,10 +302,6 @@ def sparse_decode_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
             f"{tuple(k_pages.shape)}, v_pages {tuple(v_pages.shape)}, idx "
             f"{tuple(block_indices.shape)}, page_table {tuple(page_table.shape)}, "
             f"kv_len {tuple(kv_len.shape)}")
-    if g * dh > MAX_GROUP_ELEMS:
-        raise ValueError(f"sparse_decode_paged_cuda: G*Dh = {g * dh} > {MAX_GROUP_ELEMS}")
-    if not all(t.is_contiguous() for t in (q,) + ins):
-        raise ValueError("sparse_decode_paged_cuda: inputs must be contiguous")
     out = torch.empty_like(q)
     if nsel == 0:
         return out.zero_()
@@ -246,25 +320,6 @@ def sparse_decode_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
 sparse_decode_paged_cuda.launches = 0
 
 
-def _check_quant(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 scales, ints) -> None:
-    """Device, dtype and contiguity checks shared by the int8 wrappers."""
-    ins = (k, v, *scales, *ints)
-    if not (q.is_cuda and all(t.device == q.device for t in ins)):
-        raise ValueError(f"{name}: all inputs must be on one CUDA device")
-    if q.dtype not in _DTYPES or k.dtype != torch.int8 or v.dtype != torch.int8:
-        raise TypeError(f"{name}: q must be float32 or bfloat16 and k/v int8, got "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if any(t.dtype != torch.float32 for t in scales):
-        raise TypeError(f"{name}: k_scales and v_scales must be float32")
-    if any(t.dtype != torch.int32 for t in ints):
-        raise TypeError(f"{name}: index tensors and kv_len must be int32")
-    if q.shape[2] * q.shape[3] > MAX_GROUP_ELEMS:
-        raise ValueError(f"{name}: G*Dh = {q.shape[2] * q.shape[3]} > {MAX_GROUP_ELEMS}")
-    if not all(t.is_contiguous() for t in (q,) + ins):
-        raise ValueError(f"{name}: inputs must be contiguous")
-
-
 def sparse_decode_quant_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                              v_cache: torch.Tensor, block_indices: torch.Tensor,
                              kv_len: torch.Tensor, *, block_size: int,
@@ -273,7 +328,7 @@ def sparse_decode_quant_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     """Launch the int8 CUDA block-sparse decode (TPU body ``_kernel_quant``):
     int8 caches [B, Hkv, S, Dh], per-block scales [B, Hkv, nb] float32."""
     name = "sparse_decode_quant_cuda"
-    _check_quant(name, q, k_cache, v_cache, (k_scales, v_scales), (block_indices, kv_len))
+    _check(name, q, k_cache, v_cache, (block_indices, kv_len), (k_scales, v_scales))
     b, hkv, g, dh = q.shape
     s_max = k_cache.shape[2]
     nb = -(-s_max // block_size)
@@ -312,8 +367,7 @@ def sparse_decode_paged_quant_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     ``_kernel_paged_quant``): int8 pools [P, Hkv, ps, Dh], scale rows
     [P, Hkv, 1] (or [P, Hkv]) float32, read at each block's PHYSICAL page."""
     name = "sparse_decode_paged_quant_cuda"
-    _check_quant(name, q, k_pages, v_pages, (k_scales, v_scales),
-                 (block_indices, page_table, kv_len))
+    _check(name, q, k_pages, v_pages, (block_indices, page_table, kv_len), (k_scales, v_scales))
     b, hkv, g, dh = q.shape
     n_pages, ps = k_pages.shape[0], k_pages.shape[2]
     nsel = block_indices.shape[-1]
@@ -346,3 +400,86 @@ def sparse_decode_paged_quant_cuda(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 sparse_decode_paged_quant_cuda.launches = 0
+
+
+def _splitk(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+            block_indices: torch.Tensor, page_table: torch.Tensor, kv_len: torch.Tensor,
+            block_size: int, num_splits: int, scales) -> torch.Tensor:
+    """Shape checks and the launch shared by the two split-K wrappers;
+    ``scales`` is (k_scales, v_scales) for int8 pools, else None (dtype and
+    device checks are the callers')."""
+    b, hkv, g, dh = q.shape
+    n_pages, ps = k_pages.shape[0], k_pages.shape[2]
+    nsel = block_indices.shape[-1]
+    if ps != block_size:
+        raise ValueError(f"{name}: page size {ps} != block size {block_size}")
+    if num_splits < 1:
+        raise ValueError(f"{name}: num_splits must be >= 1, got {num_splits}")
+    if k_pages.shape != (n_pages, hkv, ps, dh) or v_pages.shape != k_pages.shape \
+            or (scales is not None and any(t.numel() != n_pages * hkv
+                                           or t.shape[:2] != (n_pages, hkv) for t in scales)) \
+            or block_indices.shape[:2] != (b, hkv) or page_table.dim() != 2 \
+            or page_table.shape[0] != b or tuple(kv_len.shape) != (b,):
+        raise ValueError(
+            f"{name}: shapes q {tuple(q.shape)}, k_pages {tuple(k_pages.shape)}, v_pages "
+            f"{tuple(v_pages.shape)}, scales "
+            f"{None if scales is None else [tuple(t.shape) for t in scales]}, idx "
+            f"{tuple(block_indices.shape)}, page_table {tuple(page_table.shape)}, "
+            f"kv_len {tuple(kv_len.shape)}")
+    out = torch.empty_like(q)
+    if nsel == 0:
+        return out.zero_()
+    # the f32 partials: acc [B,Hkv,ns,G,Dh], then m and l [B,Hkv,ns,G]
+    work = torch.empty(b * hkv * num_splits * (g * dh + 2 * g), dtype=torch.float32,
+                       device=q.device)
+    lib = build.load("block_sparse_decode")
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
+    if scales is not None:
+        ptrs += tuple(t.data_ptr() for t in scales)
+    rc = _bind(lib, paged=True, quant=scales is not None, split=True)(
+        *ptrs, block_indices.data_ptr(), page_table.data_ptr(), kv_len.data_ptr(),
+        out.data_ptr(), work.data_ptr(), b, hkv, g, dh, page_table.shape[1], nsel,
+        block_size, num_splits, 1.0 / math.sqrt(dh), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, rc, f"{name} kernel launch")
+    return out
+
+
+def sparse_decode_paged_splitk_cuda(q: torch.Tensor, k_pages: torch.Tensor,
+                                    v_pages: torch.Tensor, block_indices: torch.Tensor,
+                                    page_table: torch.Tensor, kv_len: torch.Tensor, *,
+                                    block_size: int, num_splits: int) -> torch.Tensor:
+    """Launch the CUDA split-K paged decode (TPU body ``_kernel_paged_splitk``
+    and the combine of its entry point): B*Hkv*num_splits CTAs of the paged
+    body write their partials, one combine kernel writes o."""
+    name = "sparse_decode_paged_splitk_cuda"
+    _check(name, q, k_pages, v_pages, (block_indices, page_table, kv_len))
+    out = _splitk(name, q, k_pages, v_pages, block_indices, page_table, kv_len, block_size,
+                  num_splits, None)
+    if block_indices.shape[-1]:
+        sparse_decode_paged_splitk_cuda.launches += 1
+    return out
+
+
+sparse_decode_paged_splitk_cuda.launches = 0
+
+
+def sparse_decode_paged_splitk_quant_cuda(q: torch.Tensor, k_pages: torch.Tensor,
+                                          v_pages: torch.Tensor, block_indices: torch.Tensor,
+                                          page_table: torch.Tensor, kv_len: torch.Tensor, *,
+                                          block_size: int, num_splits: int,
+                                          k_scales: torch.Tensor,
+                                          v_scales: torch.Tensor) -> torch.Tensor:
+    """Launch the int8 CUDA split-K paged decode (TPU body
+    ``_kernel_paged_splitk_quant``): int8 pools, scale rows [P, Hkv, 1] (or
+    [P, Hkv]) read at each block's PHYSICAL page, then the combine."""
+    name = "sparse_decode_paged_splitk_quant_cuda"
+    _check(name, q, k_pages, v_pages, (block_indices, page_table, kv_len), (k_scales, v_scales))
+    out = _splitk(name, q, k_pages, v_pages, block_indices, page_table, kv_len, block_size,
+                  num_splits, (k_scales, v_scales))
+    if block_indices.shape[-1]:
+        sparse_decode_paged_splitk_quant_cuda.launches += 1
+    return out
+
+
+sparse_decode_paged_splitk_quant_cuda.launches = 0

@@ -1,14 +1,19 @@
 // Block-sparse flash decoding over a head-major KV cache or page pool
 // (Hopper, sm_90a).
 //
-// Replaces four TPU kernel bodies of src/repro/kernels/block_sparse_decode.py:
+// Replaces six TPU kernel bodies of src/repro/kernels/block_sparse_decode.py:
 //   block_sparse_decode        (fp body _kernel -> _flash_group ->
 //                              _flash_accum): block_sparse_decode_launch;
 //   block_sparse_decode_paged  (fp body _kernel_paged): the same body over
 //                              the page pools, block_sparse_decode_paged_launch;
 //   _kernel_quant, _kernel_paged_quant (fused int8 dequant):
 //                              block_sparse_decode_quant_launch and
-//                              block_sparse_decode_paged_quant_launch.
+//                              block_sparse_decode_paged_quant_launch;
+//   block_sparse_decode_paged_splitk (fp body _kernel_paged_splitk, the jnp
+//                              combine of its entry point) and its int8 body
+//                              _kernel_paged_splitk_quant:
+//                              block_sparse_decode_paged_splitk_launch and
+//                              block_sparse_decode_paged_splitk_quant_launch.
 // Contiguous contract:
 //   q        [B, Hkv, G, Dh]    one new query token, grouped per kv head
 //   k, v     [B, Hkv, S, Dh]    post-rope caches (bf16 or fp32, same as q)
@@ -41,6 +46,25 @@
 // the block copy moves int8 codes with the same 16-byte loads (a 128-wide
 // row is 128 bytes), so shared memory for K+V halves.
 //
+// Split-K contract (Split, paged only): the selected list of each (b, h) is
+// cut into num_splits segments of per = ceil(nsel / num_splits) entries,
+// segment s holding entries [s*per, min((s+1)*per, nsel)) (the reference's
+// boundaries: ref.paged_sparse_decode_splitk_ref pads the tail with -1; the
+// Pallas kernel only pads each segment to its blocks_per_step). CTA (b, h,
+// s) runs the same body over its segment and writes the UNNORMALISED flash
+// partial to an f32 workspace [B, H, ns, G, Dh] (acc), then [B, H, ns, G]
+// (m) and [B, H, ns, G] (l). A segment with no valid key writes acc = 0,
+// l = 0 and m = -inf: it has no maximum, and the combine's l > 0 mask keeps
+// it out of the sum (a row whose segments are all empty, an idle slot,
+// gives 0). A second small kernel combines the partials of each (b, h, g)
+// with the reference's two-pass rescale (block_sparse_decode.py:499-505):
+//   m = max_s m_s, r_s = (l_s > 0) ? exp(m_s - m) : 0,
+//   l = sum_s r_s l_s, o = sum_s r_s acc_s / max(l, 1e-30),
+// and writes o in q's dtype. The reference does the combine in jnp outside
+// its Pallas call; here it is a kernel, so that one call of the wrapper is
+// two launches (the serve step is host-bound: a dozen torch ops per layer
+// would cost more than the combine's work).
+//
 // Design: one CTA per (b, kv-head) loops over its nsel selected blocks. A
 // block's K and V rows [bs, Dh] are one contiguous range of the head-major
 // cache, so each is copied into shared memory with 16-byte vector loads,
@@ -61,10 +85,14 @@
 // 32 of the 132 SMs, and each CTA waits for a block's loads before it
 // computes on them, so at most one block per CTA is in flight (no
 // cp.async/TMA pipeline across blocks, no split across SMs, no wgmma).
-// Splitting the selected list across SMs (split-K) and pipelining the
-// block copies are the work of a later change.
+// The split-K instances spread each (b, h)'s serial block loop over
+// num_splits CTAs (4 splits x 32 = 128 CTAs at the main path's shape), at
+// the cost of writing and reading the f32 partials ((G*Dh + 2G) * 4 bytes
+// per split, 4 KiB per (b, h) at 4 splits). Pipelining the block copies
+// is the work of a later change.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -149,16 +177,19 @@ __device__ __forceinline__ size_t scale_index(const int* __restrict__ page_table
   return ((size_t)b * H + h) * nsb + blk;
 }
 
-// T: q and out; KV: the cache elements (T, or int8_t when Quant).
-template <typename T, typename KV, bool Paged, bool Quant>
+// T: q and out; KV: the cache elements (T, or int8_t when Quant). Split:
+// CTA blockIdx.x = (b * H + h) * ns + s reduces segment s of the selected
+// list into the partials in part (out unused); otherwise CTA b * H + h
+// reduces the whole list into out.
+template <typename T, typename KV, bool Paged, bool Quant, bool Split>
 __global__ void __launch_bounds__(kThreads)
 block_sparse_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
                            const KV* __restrict__ vc, const float* __restrict__ k_scales,
                            const float* __restrict__ v_scales, const int* __restrict__ idx,
                            const int* __restrict__ page_table,
-                           const int* __restrict__ kv_len, T* __restrict__ out, int H, int G,
-                           int Dh, int S, int nsb, int npt, int nsel, int bs, float sm_scale,
-                           int vec) {
+                           const int* __restrict__ kv_len, T* __restrict__ out,
+                           float* __restrict__ part, int H, int G, int Dh, int S, int nsb,
+                           int npt, int nsel, int bs, float sm_scale, int vec, int ns) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int GD = G * Dh;
   float* qs = reinterpret_cast<float*>(smem_raw);  // [G*Dh]
@@ -170,8 +201,16 @@ block_sparse_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
   KV* ks = reinterpret_cast<KV*>(smem_raw + off);  // [bs*Dh]
   KV* vs = ks + (size_t)bs * Dh;                   // [bs*Dh]
 
-  const int bh = blockIdx.x;
+  const int bh = Split ? blockIdx.x / ns : blockIdx.x;
   const int b = bh / H, h = bh - b * H;
+  // the entries of the selected list this CTA walks: all of them, or its
+  // segment (the reference's boundaries)
+  int j0 = 0, j1 = nsel;
+  if (Split) {
+    const int per = (nsel + ns - 1) / ns;
+    j0 = (blockIdx.x - bh * ns) * per;
+    j1 = min(j0 + per, nsel);
+  }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = kv_len[b];
   const int* irow = idx + (size_t)bh * nsel;
@@ -185,7 +224,7 @@ block_sparse_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
 #pragma unroll
   for (int i = 0; i < kMaxPerThread; ++i) acc[i] = 0.f;
 
-  for (int j = 0; j < nsel; ++j) {
+  for (int j = j0; j < j1; ++j) {
     const int blk = irow[j];
     if (blk < 0) continue;                       // -1 padding
     const int t0 = blk * bs;
@@ -263,25 +302,69 @@ block_sparse_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
     }
   }
   __syncthreads();
+  if (Split) {
+    // the unnormalised partial of this segment: acc, then m (-inf when the
+    // segment held no valid key) and l
+    float* pacc = part + (size_t)blockIdx.x * GD;
+    float* pm = part + (size_t)gridDim.x * GD + (size_t)blockIdx.x * G;
+    float* pl = pm + (size_t)gridDim.x * G;
 #pragma unroll
-  for (int i = 0; i < kMaxPerThread; ++i) {
-    const int e = tid + i * kThreads;
-    if (e < GD) {
-      const int g = e / Dh;
-      from_f32(acc[i] / fmaxf(l_s[g], 1e-30f), out + (size_t)bh * GD + e);
+    for (int i = 0; i < kMaxPerThread; ++i) {
+      const int e = tid + i * kThreads;
+      if (e < GD) pacc[e] = acc[i];
+    }
+    for (int g = tid; g < G; g += kThreads) {
+      pm[g] = (l_s[g] > 0.f) ? m_s[g] : -INFINITY;
+      pl[g] = l_s[g];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kMaxPerThread; ++i) {
+      const int e = tid + i * kThreads;
+      if (e < GD) {
+        const int g = e / Dh;
+        from_f32(acc[i] / fmaxf(l_s[g], 1e-30f), out + (size_t)bh * GD + e);
+      }
     }
   }
 }
 
-template <typename T, typename KV, bool Paged, bool Quant>
+// Combine the ns split-K partials of each (b, h, g) (the workspace layout
+// of the Split body; BH = B * H): one thread per output element, the
+// reference's two-pass rescale in fp32.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+splitk_combine_kernel(const float* __restrict__ part, T* __restrict__ out, int BH, int G,
+                      int Dh, int ns) {
+  const int GD = G * Dh;
+  const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= (size_t)BH * GD) return;
+  const size_t bh = e / GD;
+  const int r = (int)(e - bh * GD), g = r / Dh;
+  const float* acc = part + bh * ns * GD + r;                        // + s * GD
+  const float* pm = part + (size_t)BH * ns * GD + bh * ns * G + g;   // + s * G
+  const float* pl = pm + (size_t)BH * ns * G;
+  float m = -INFINITY;
+  for (int s = 0; s < ns; ++s) m = fmaxf(m, pm[s * G]);
+  float l = 0.f, o = 0.f;
+  for (int s = 0; s < ns; ++s) {
+    const float ls = pl[s * G];
+    const float rs = (ls > 0.f) ? expf(pm[s * G] - m) : 0.f;
+    l += rs * ls;
+    o += rs * acc[(size_t)s * GD];
+  }
+  from_f32(o / fmaxf(l, 1e-30f), out + e);
+}
+
+template <typename T, typename KV, bool Paged, bool Quant, bool Split>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-           const void* idx, const void* page_table, const void* kv_len, void* out, int B, int H,
-           int G, int Dh, int S, int nsb, int npt, int nsel, int bs, float scale,
-           cudaStream_t stream) {
+           const void* idx, const void* page_table, const void* kv_len, void* out, void* part,
+           int B, int H, int G, int Dh, int S, int nsb, int npt, int nsel, int bs, int ns,
+           float scale, cudaStream_t stream) {
   const size_t head = ((size_t)(G * Dh + G * bs + 3 * G) * sizeof(float) + 15) & ~(size_t)15;
   const size_t smem = head + 2 * (size_t)bs * Dh * sizeof(KV);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  auto kernel = block_sparse_decode_kernel<T, KV, Paged, Quant>;
+  auto kernel = block_sparse_decode_kernel<T, KV, Paged, Quant, Split>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -289,35 +372,42 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
   }
   const int vec = ((uintptr_t)k % 16 == 0) && ((uintptr_t)v % 16 == 0) &&
                   ((Dh * sizeof(KV)) % 16 == 0);
-  kernel<<<B * H, kThreads, smem, stream>>>(
+  kernel<<<B * H * (Split ? ns : 1), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<const int*>(idx),
       static_cast<const int*>(page_table), static_cast<const int*>(kv_len), static_cast<T*>(out),
-      H, G, Dh, S, nsb, npt, nsel, bs, scale, vec);
+      static_cast<float*>(part), H, G, Dh, S, nsb, npt, nsel, bs, scale, vec, ns);
+  cudaError_t e = cudaGetLastError();
+  if (!Split || e != cudaSuccess) return (int)e;
+  const size_t total = (size_t)B * H * G * Dh;
+  splitk_combine_kernel<T><<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0,
+                             stream>>>(static_cast<const float*>(part), static_cast<T*>(out),
+                                       B * H, G, Dh, ns);
   return (int)cudaGetLastError();
 }
 
 // Quant selects int8 K/V with f32 scales (ks, vs); otherwise K/V share q's
-// dtype and ks/vs are unused.
-template <bool Paged, bool Quant>
+// dtype and ks/vs are unused. Split takes the f32 workspace part of
+// B * H * ns * (G * Dh + 2 * G) floats; otherwise part is unused.
+template <bool Paged, bool Quant, bool Split>
 int dispatch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-             const void* idx, const void* page_table, const void* kv_len, void* out, int B,
-             int H, int G, int Dh, int S, int nsb, int npt, int nsel, int bs, float scale,
-             int dtype, void* stream) {
+             const void* idx, const void* page_table, const void* kv_len, void* out, void* part,
+             int B, int H, int G, int Dh, int S, int nsb, int npt, int nsel, int bs, int ns,
+             float scale, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || G <= 0 || Dh <= 0 || S <= 0 || nsel <= 0 || bs <= 0 ||
-      (Paged && npt <= 0) || (Quant && !Paged && nsb * bs < S) ||
+      (Paged && npt <= 0) || (Quant && !Paged && nsb * bs < S) || (Split && ns <= 0) ||
       G * Dh > kThreads * kMaxPerThread)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, typename std::conditional<Quant, int8_t, float>::type, Paged, Quant>(
-        q, k, v, ks, vs, idx, page_table, kv_len, out, B, H, G, Dh, S, nsb, npt, nsel, bs, scale,
-        s);
+    return launch<float, typename std::conditional<Quant, int8_t, float>::type, Paged, Quant,
+                  Split>(q, k, v, ks, vs, idx, page_table, kv_len, out, part, B, H, G, Dh, S,
+                         nsb, npt, nsel, bs, ns, scale, s);
   if (dtype == 1)
     return launch<__nv_bfloat16,
-                  typename std::conditional<Quant, int8_t, __nv_bfloat16>::type, Paged, Quant>(
-        q, k, v, ks, vs, idx, page_table, kv_len, out, B, H, G, Dh, S, nsb, npt, nsel, bs, scale,
-        s);
+                  typename std::conditional<Quant, int8_t, __nv_bfloat16>::type, Paged, Quant,
+                  Split>(q, k, v, ks, vs, idx, page_table, kv_len, out, part, B, H, G, Dh, S,
+                         nsb, npt, nsel, bs, ns, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -329,8 +419,9 @@ extern "C" {
 int block_sparse_decode_launch(const void* q, const void* k, const void* v, const void* idx,
                                const void* kv_len, void* out, int B, int H, int G, int Dh, int S,
                                int nsel, int bs, float scale, int dtype, void* stream) {
-  return dispatch<false, false>(q, k, v, nullptr, nullptr, idx, nullptr, kv_len, out, B, H, G, Dh,
-                                S, 0, 0, nsel, bs, scale, dtype, stream);
+  return dispatch<false, false, false>(q, k, v, nullptr, nullptr, idx, nullptr, kv_len, out,
+                                       nullptr, B, H, G, Dh, S, 0, 0, nsel, bs, 1, scale, dtype,
+                                       stream);
 }
 
 // k_pages, v_pages [P, H, ps, Dh] with ps == bs; page_table [B, npt]. Blocks
@@ -339,8 +430,9 @@ int block_sparse_decode_paged_launch(const void* q, const void* k_pages, const v
                                      const void* idx, const void* page_table, const void* kv_len,
                                      void* out, int B, int H, int G, int Dh, int npt, int nsel,
                                      int bs, float scale, int dtype, void* stream) {
-  return dispatch<true, false>(q, k_pages, v_pages, nullptr, nullptr, idx, page_table, kv_len, out,
-                               B, H, G, Dh, npt * bs, 0, npt, nsel, bs, scale, dtype, stream);
+  return dispatch<true, false, false>(q, k_pages, v_pages, nullptr, nullptr, idx, page_table,
+                                      kv_len, out, nullptr, B, H, G, Dh, npt * bs, 0, npt, nsel,
+                                      bs, 1, scale, dtype, stream);
 }
 
 // int8 k, v [B, H, S, Dh]; k_scales, v_scales [B, H, nsb] float32 with
@@ -350,8 +442,9 @@ int block_sparse_decode_quant_launch(const void* q, const void* k, const void* v
                                      const void* kv_len, void* out, int B, int H, int G, int Dh,
                                      int S, int nsb, int nsel, int bs, float scale, int dtype,
                                      void* stream) {
-  return dispatch<false, true>(q, k, v, k_scales, v_scales, idx, nullptr, kv_len, out, B, H, G, Dh,
-                               S, nsb, 0, nsel, bs, scale, dtype, stream);
+  return dispatch<false, true, false>(q, k, v, k_scales, v_scales, idx, nullptr, kv_len, out,
+                                      nullptr, B, H, G, Dh, S, nsb, 0, nsel, bs, 1, scale, dtype,
+                                      stream);
 }
 
 // int8 k_pages, v_pages [P, H, ps, Dh]; k_scales, v_scales [P, H] float32
@@ -362,8 +455,39 @@ int block_sparse_decode_paged_quant_launch(const void* q, const void* k_pages,
                                            const void* page_table, const void* kv_len, void* out,
                                            int B, int H, int G, int Dh, int npt, int nsel, int bs,
                                            float scale, int dtype, void* stream) {
-  return dispatch<true, true>(q, k_pages, v_pages, k_scales, v_scales, idx, page_table, kv_len,
-                              out, B, H, G, Dh, npt * bs, 0, npt, nsel, bs, scale, dtype, stream);
+  return dispatch<true, true, false>(q, k_pages, v_pages, k_scales, v_scales, idx, page_table,
+                                     kv_len, out, nullptr, B, H, G, Dh, npt * bs, 0, npt, nsel, bs,
+                                     1, scale, dtype, stream);
+}
+
+// Split-K paged decode: the fp pools of block_sparse_decode_paged_launch,
+// the selected list cut into num_splits segments; workspace holds B * H *
+// num_splits * (G * Dh + 2 * G) floats. Two launches: the split body, then
+// the combine into out.
+int block_sparse_decode_paged_splitk_launch(const void* q, const void* k_pages,
+                                            const void* v_pages, const void* idx,
+                                            const void* page_table, const void* kv_len, void* out,
+                                            void* workspace, int B, int H, int G, int Dh, int npt,
+                                            int nsel, int bs, int num_splits, float scale,
+                                            int dtype, void* stream) {
+  return dispatch<true, false, true>(q, k_pages, v_pages, nullptr, nullptr, idx, page_table,
+                                     kv_len, out, workspace, B, H, G, Dh, npt * bs, 0, npt, nsel,
+                                     bs, num_splits, scale, dtype, stream);
+}
+
+// The int8 twin: int8 pools with [P, H] float32 scale rows, as
+// block_sparse_decode_paged_quant_launch takes them.
+int block_sparse_decode_paged_splitk_quant_launch(const void* q, const void* k_pages,
+                                                  const void* v_pages, const void* k_scales,
+                                                  const void* v_scales, const void* idx,
+                                                  const void* page_table, const void* kv_len,
+                                                  void* out, void* workspace, int B, int H, int G,
+                                                  int Dh, int npt, int nsel, int bs,
+                                                  int num_splits, float scale, int dtype,
+                                                  void* stream) {
+  return dispatch<true, true, true>(q, k_pages, v_pages, k_scales, v_scales, idx, page_table,
+                                    kv_len, out, workspace, B, H, G, Dh, npt * bs, 0, npt, nsel,
+                                    bs, num_splits, scale, dtype, stream);
 }
 
 const char* repro_error_string(int code) {

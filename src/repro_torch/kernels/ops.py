@@ -26,7 +26,9 @@ KERNELS = {"gate_select": gs.gate_select_cuda,
            "gate_select_paged": gs.gate_select_paged_cuda,
            "block_sparse_decode_paged": bsd.sparse_decode_paged_cuda,
            "block_sparse_decode_quant": bsd.sparse_decode_quant_cuda,
-           "block_sparse_decode_paged_quant": bsd.sparse_decode_paged_quant_cuda}
+           "block_sparse_decode_paged_quant": bsd.sparse_decode_paged_quant_cuda,
+           "block_sparse_decode_paged_splitk": bsd.sparse_decode_paged_splitk_cuda,
+           "block_sparse_decode_paged_splitk_quant": bsd.sparse_decode_paged_splitk_quant_cuda}
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -102,6 +104,34 @@ def paged_sparse_decode(q: torch.Tensor, k_pages: torch.Tensor,
                                          page_table, kv_len,
                                          block_size=block_size, k_scales=k_scales,
                                          v_scales=v_scales)
+
+
+def paged_sparse_decode_splitk(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, block_indices: torch.Tensor,
+                               page_table: torch.Tensor, kv_len: torch.Tensor, *,
+                               block_size: int, num_splits: int,
+                               k_scales: Optional[torch.Tensor] = None,
+                               v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Split-K block-sparse decode over the page pools: the selected list
+    cut into ``num_splits`` segments, each a flash partial, merged by the
+    two-pass rescale. ``num_splits <= 1`` is ``paged_sparse_decode``, as in
+    the reference. ``k_scales``/``v_scales`` as ``paged_sparse_decode``."""
+    if num_splits <= 1:
+        return paged_sparse_decode(q, k_pages, v_pages, block_indices, page_table, kv_len,
+                                   block_size=block_size, k_scales=k_scales,
+                                   v_scales=v_scales)
+    if _route(q, "paged_sparse_decode_splitk"):
+        if k_scales is not None:
+            return bsd.sparse_decode_paged_splitk_quant_cuda(
+                q, k_pages, v_pages, block_indices, page_table, kv_len,
+                block_size=block_size, num_splits=num_splits, k_scales=k_scales,
+                v_scales=v_scales)
+        return bsd.sparse_decode_paged_splitk_cuda(
+            q, k_pages, v_pages, block_indices, page_table, kv_len, block_size=block_size,
+            num_splits=num_splits)
+    return bsd.sparse_decode_paged_splitk_plain(
+        q, k_pages, v_pages, block_indices, page_table, kv_len, block_size=block_size,
+        num_splits=num_splits, k_scales=k_scales, v_scales=v_scales)
 
 
 def launch_counts() -> Dict[str, int]:

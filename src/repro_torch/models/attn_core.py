@@ -3,8 +3,9 @@
 The QKV projection, the policy gate, the decode-aux telemetry and the
 paged per-layer decode body (``attention_decode_paged`` ->
 ``block_decode_paged``) of the JAX package's ``models/attn_core.py``:
-the unstaged, unsharded branch, over fp or int8 page pools. Selection
-schedules, sharding and eviction telemetry arrive with their slices.
+the unstaged branch, unsharded or over a rank's KV heads, over fp or
+int8 page pools. Selection schedules and eviction telemetry
+arrive with their slices.
 """
 from __future__ import annotations
 
@@ -85,7 +86,7 @@ def aggregate_decode_aux(auxs: Sequence[LayerAux]) -> Dict[str, torch.Tensor]:
 def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
                            k_pages, v_pages, kg_pages, page_table, cur_len,
                            active, options: DecodeOptions, k_scale=None,
-                           v_scale=None):
+                           v_scale=None, shard=None):
     """One token over paged KV. x1 [S,1,d]; pools for ONE layer head-major
     [P, Hkv, ps, Dh] (updated in place); page_table [S, npt] int32;
     cur_len/active [S]. Returns (out [S,1,d], selection aux).
@@ -94,12 +95,21 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     of a just-completed page is finalized (for the policy that reads it);
     inactive rows write to the null page and do not advance. The gate then
     scores ``kg_pages`` through the page table, and the block-sparse decode
-    reads only the selected physical pages. A dense policy, or a layer
-    without a gate, takes the dense fallback: ``gather_kv`` of the whole
-    table, then dense decode attention. ``k_scale``/``v_scale`` [P, Hkv, 1]
-    mark int8 pools: the append requantizes the trailing page, the decode
-    kernel dequantizes inside its block loop, the fallback while
-    gathering."""
+    reads only the selected physical pages, in ``options.split_k`` flash
+    partials (``ops.paged_sparse_decode_splitk``; 1 = the single-pass
+    kernel). A dense policy, or a layer without a gate, takes the dense
+    fallback: ``gather_kv`` of the whole table, then dense decode
+    attention. ``k_scale``/``v_scale`` [P, Hkv, 1] mark int8 pools: the
+    append requantizes the trailing page, the decode kernel dequantizes
+    inside its block loop, the fallback while gathering.
+
+    With a ``shard`` (``distributed.sharding.Shard``) the pools and scale
+    rows hold this rank's KV heads only: the step runs the same math on
+    the rank's heads (its query heads, K/V and gate weights) with no
+    collective inside the layer, and o and the selected ids are
+    all-gathered to full heads, in one collective, before ``wo``. Attention is independent
+    per KV head, so at ``split_k=1`` the step is bitwise the unsharded
+    one."""
     b = x1.shape[0]
     dh, hkv, g = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.gqa_group
     ps = cfg.gate.block_size
@@ -110,9 +120,15 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     qr = apply_rope(q, pos, cfg.rope_theta)
     kr = apply_rope(k, pos, cfg.rope_theta)
     npt = page_table.shape[1]
+    gate = p.get("gate")
+    if shard is not None:                  # this rank's KV heads and their queries
+        kr, v, q, qr = (shard.head_slice(x, 2) for x in (kr, v, q, qr))
+        if gate is not None:
+            gate = {name: shard.head_slice(w, 0) for name, w in gate.items()}
+    hl = kr.shape[2]
 
     # the Kg page rows only advance for the policy that reads them
-    gate_for_append = p.get("gate") if policy.needs_gate else None
+    gate_for_append = gate if policy.needs_gate else None
     if k_scale is not None:
         pg.append_token_paged_quant(k_pages, v_pages, kg_pages, k_scale, v_scale,
                                     kr[:, 0], v[:, 0], page_table, cur_len, active,
@@ -126,14 +142,16 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
 
     if sparse_on:
         inp = SelectionInputs(q_nope=q, qr=qr, pos=pos, new_len=new_len,
-                              gate_params=p.get("gate"), kg_pages=kg_pages,
+                              gate_params=gate, kg_pages=kg_pages,
                               k_pages=k_pages, page_table=page_table)
         idx = policy.select(inp, cfg, max_selected=options.max_selected(cfg))
-        qgrp = qr[:, 0].reshape(b, hkv, g, dh)
-        o = ops.paged_sparse_decode(qgrp, k_pages, v_pages, idx, page_table,
-                                    new_len, block_size=ps, k_scales=k_scale,
-                                    v_scales=v_scale)
-        o = o.reshape(b, 1, hkv * g, dh)
+        qgrp = qr[:, 0].reshape(b, hl, g, dh).contiguous()
+        o = ops.paged_sparse_decode_splitk(qgrp, k_pages, v_pages, idx, page_table,
+                                           new_len, block_size=ps,
+                                           num_splits=options.split_k,
+                                           k_scales=k_scale, v_scales=v_scale)
+        if shard is not None:
+            o, idx = shard.all_gather_packed([o, idx], 1)
         aux = (_selection_aux(idx, kc.visible_blocks(
                    torch.clamp_min(new_len, 1), ps), npt)
                if options.measure_sparsity else _zero_layer_aux(b, x1.device))
@@ -142,6 +160,8 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
         v_ct = pg.gather_kv(v_pages, page_table, v_scale)
         o = decode_attention(qr, k_ct, v_ct, new_len,
                              logit_softcap=cfg.attn_logit_softcap)
+        if shard is not None:
+            o = shard.all_gather(o, 2)
         aux = (_dense_aux(new_len, ps) if options.measure_sparsity
                else _zero_layer_aux(b, x1.device))
     out = linear(p["wo"], o.reshape(b, 1, hkv * g * dh))
@@ -150,16 +170,18 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
 
 def block_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig,
                        layer_pages, page_table, cur_len, active, *,
-                       options: DecodeOptions):
+                       options: DecodeOptions, shard=None):
     """One transformer block over paged KV; ``layer_pages`` is the layer's
     (k_pages, v_pages, kg_pages, k_scale, v_scale), the scales None for fp
-    pools. Returns (x1, selection aux)."""
+    pools (this rank's KV heads with a ``shard``). Returns (x1, selection
+    aux)."""
     k_pages, v_pages, kg_pages, k_scale, v_scale = layer_pages
     h = rms_norm(p["ln1"], x1, cfg.norm_eps)
     attn_out, aux = attention_decode_paged(
         p["attn"], h, cfg, k_pages=k_pages, v_pages=v_pages,
         kg_pages=kg_pages, page_table=page_table, cur_len=cur_len,
-        active=active, options=options, k_scale=k_scale, v_scale=v_scale)
+        active=active, options=options, k_scale=k_scale, v_scale=v_scale,
+        shard=shard)
     x1 = x1 + attn_out
     h2 = rms_norm(p["ln2"], x1, cfg.norm_eps)
     return x1 + mlp(p["mlp"], h2, cfg.activation), aux

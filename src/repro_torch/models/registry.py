@@ -20,11 +20,11 @@ class ModelApi(NamedTuple):
     init_decode_state: Callable    # (cfg, batch_size, max_len, *, device) -> state
     prefill: Callable              # (params, batch, cfg, max_len, options) -> (logits, state);
     #                                 batch may carry "lengths" (right-padded rows)
-    decode_step: Callable          # (params, state, token, cfg, *, options)
+    decode_step: Callable          # (params, state, token, cfg, *, options, shard)
     #                                 -> (logits, state, aux)
     # continuous-batching paged decode (serve.paging):
     # (params, pages, slot_state, token, page_table, cur_len, active, cfg,
-    #  *, options) -> (logits, pages, slot_state, aux)
+    #  *, options, shard) -> (logits, pages, slot_state, aux)
     decode_step_paged: Any = None
     # how many layer slices the page pools carry (cfg) -> int
     paged_attn_layers: Callable = None

@@ -5,7 +5,9 @@ Port of the serving half of the JAX package's ``models/transformer.py``:
 right-padded ``lengths``), the contiguous decode step
 (``attention_decode`` -> ``block_decode`` -> ``lm_decode_step``) and the
 paged one (``lm_decode_step_paged`` over ``attn_core.block_decode_paged``),
-each the non-staged, non-sharded branch.
+each the non-staged branch, unsharded or sharded (``serve/sharded.py``:
+the contiguous caches split along the sequence, the page pools over the
+KV heads).
 
 Differences of idiom, not of result:
   * parameters are a dict whose ``"blocks"`` entry is a LIST of per-layer
@@ -38,6 +40,7 @@ from repro_torch.models.common import (_randn, apply_rope, chunked_attention,
                                        decode_attention, init_linear, init_mlp,
                                        init_rmsnorm, linear, mlp, rms_norm,
                                        torch_dtype)
+from repro_torch.serve.sharded import sharded_sparse_decode
 
 Params = Dict[str, Any]
 
@@ -217,13 +220,20 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
 
 def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
                      k_cache, v_cache, kg_cache, kg_n, cur_len,
-                     options: DecodeOptions):
+                     options: DecodeOptions, shard=None):
     """One token. x1 [B,1,d]; caches for ONE layer HEAD-MAJOR [B,Hkv,S,Dh].
     Returns (out, (k_cache, v_cache, kg_cache, kg_n), selection_aux).
 
     Writes the new K/V at ``cur_len`` and advances the Kg cache with
     ``new_len = cur_len + 1`` (in place); selects with ``n_valid =
     visible_blocks(max(new_len, 1))`` and decodes with ``kv_len = new_len``.
+
+    With a ``shard`` and GatePolicy on a gated layer the step is the
+    sequence-sharded one (``serve.sharded.sharded_sparse_decode``): the
+    caches are this rank's part along the sequence, and the measured
+    sparsity comes from the selection counts summed over ranks. A shard
+    with any other selecting layer raises, as in the reference; a dense
+    policy runs unsharded on the replicated caches.
     """
     b = x1.shape[0]
     dh, hkv, g = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.gqa_group
@@ -235,6 +245,29 @@ def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     pos = cur_len[:, None]                                 # [B,1]
     qr = apply_rope(q, pos, cfg.rope_theta)
     kr = apply_rope(k, pos, cfg.rope_theta)
+
+    if shard is not None and not policy.dense:
+        if not (sparse_on and policy.needs_gate and "gate" in p):
+            raise ValueError(
+                "sharded decoding on the contiguous path needs GatePolicy on a "
+                "gated layer; other policies run unsharded")
+        qg = ag.gate_q(p["gate"], q_nope, pos, cfg.gate)[:, 0]    # [B,Hkv,Dg]
+        o, n_sel = sharded_sparse_decode(
+            qg, qr[:, 0].reshape(b, hkv, g, dh), kr[:, 0], v[:, 0], k_cache, v_cache,
+            kg_cache, cur_len, p["gate"]["wk"], shard=shard, cfg=cfg.gate,
+            rope_theta=cfg.rope_theta, max_selected=options.max_selected(cfg))
+        new_len = cur_len + 1
+        kg_n = torch.where((new_len % bs) == 0, new_len // bs, kg_n).to(torch.int32)
+        out = linear(p["wo"], o.reshape(b, 1, hkv * g * dh))
+        if options.measure_sparsity:
+            n_valid = kc.visible_blocks(torch.clamp_min(new_len, 1), bs).to(torch.float32)
+            frac = n_sel.to(torch.float32) / torch.clamp_min(n_valid[:, None], 1.0)
+            rho_rows = 1.0 - torch.mean(frac, dim=1)
+            aux = (torch.mean(rho_rows), rho_rows,
+                   torch.mean(n_sel.to(torch.float32), dim=1), n_valid)
+        else:
+            aux = _zero_layer_aux(b, x1.device)
+        return out, (k_cache, v_cache, kg_cache, kg_n), aux
 
     bidx = torch.arange(b, device=x1.device)
     k_cache[bidx, :, cur_len] = kr[:, 0]
@@ -269,12 +302,13 @@ def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
 
 
 def block_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, layer_state,
-                 cur_len: torch.Tensor, *, options: DecodeOptions):
+                 cur_len: torch.Tensor, *, options: DecodeOptions, shard=None):
     k_cache, v_cache, kg_cache, kg_n = layer_state
     h = rms_norm(p["ln1"], x1, cfg.norm_eps)
     attn_out, new_state, aux = attention_decode(
         p["attn"], h, cfg, k_cache=k_cache, v_cache=v_cache,
-        kg_cache=kg_cache, kg_n=kg_n, cur_len=cur_len, options=options)
+        kg_cache=kg_cache, kg_n=kg_n, cur_len=cur_len, options=options,
+        shard=shard)
     x1 = x1 + attn_out
     h2 = rms_norm(p["ln2"], x1, cfg.norm_eps)
     return x1 + mlp(p["mlp"], h2, cfg.activation), new_state, aux
@@ -282,13 +316,15 @@ def block_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, layer_state,
 
 def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
                    cfg: ModelConfig, *,
-                   options: Optional[DecodeOptions] = None):
+                   options: Optional[DecodeOptions] = None, shard=None):
     """token [B] -> (logits [B, V], DecodeState, aux dict).
 
     The caches in ``state`` are updated in place; the returned state holds
     the same cache tensors and ``cur_len + 1``. ``aux`` reports the
     MEASURED selection of this step (sparsity/sel_blocks/vis_blocks),
-    averaged over layers."""
+    averaged over layers. With a ``shard`` and a selecting policy the
+    caches are this rank's part along the sequence
+    (``distributed.sharding.seq_shard_state``)."""
     options = options if options is not None else default_options(cfg)
     x1 = params["embed"]["w"][token[:, None]]
     auxs = []
@@ -297,7 +333,7 @@ def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
         kgn = state.kg_n[i] if state.kg_n is not None else None
         x1, (_, _, _, new_n), aux = block_decode(
             lp, x1, cfg, (state.k_cache[i], state.v_cache[i], kg, kgn),
-            state.cur_len, options=options)
+            state.cur_len, options=options, shard=shard)
         if kgn is not None and new_n is not kgn:
             kgn.copy_(new_n)
         auxs.append(aux)
@@ -314,7 +350,7 @@ def lm_decode_step_paged(params: Params, pages, slot_state,
                          token: torch.Tensor, page_table: torch.Tensor,
                          cur_len: torch.Tensor, active: torch.Tensor,
                          cfg: ModelConfig, *,
-                         options: Optional[DecodeOptions] = None):
+                         options: Optional[DecodeOptions] = None, shard=None):
     """Continuous-batching decode step. token/cur_len/active [n_slots];
     ``pages`` a ``serve.paging.PagedPages`` (layer-stacked pools, updated
     IN PLACE); page_table [n_slots, npt] int32. Returns (logits [n_slots,
@@ -323,8 +359,10 @@ def lm_decode_step_paged(params: Params, pages, slot_state,
     ``slot_state`` is the reference's per-slot recurrent-state seam; the
     transformer is pages-only and passes ``None`` through. Inactive rows
     produce garbage logits (the engine ignores them) but neither touch
-    live pages nor advance. The reference's per-request budget caps
-    (``budget_blocks``) and ``shard`` arrive with their slices."""
+    live pages nor advance. With a ``shard`` the pools hold this rank's KV
+    heads (``attn_core.attention_decode_paged``).
+    The reference's per-request budget caps (``budget_blocks``) arrive with
+    their slice."""
     _check_family(cfg)
     options = options if options is not None else default_options(cfg)
     x1 = params["embed"]["w"][token[:, None]]
@@ -334,7 +372,7 @@ def lm_decode_step_paged(params: Params, pages, slot_state,
                           (pages.kg_pages, pages.k_scale_pages, pages.v_scale_pages))
         x1, aux = block_decode_paged(
             lp, x1, cfg, (pages.k_pages[i], pages.v_pages[i], kg, k_sc, v_sc),
-            page_table, cur_len, active, options=options)
+            page_table, cur_len, active, options=options, shard=shard)
         auxs.append(aux)
     logits = _logits(params, x1, cfg)
     return logits[:, 0], pages, slot_state, aggregate_decode_aux(auxs)

@@ -15,7 +15,18 @@ machinery (gate selection, block-sparse decode kernels):
 
 Decode behaviour is one frozen ``core.policy.DecodeOptions``. The engine
 runs on CUDA unless the caller passes ``device="cpu"``; with no card and
-no explicit device it raises. On a CUDA device every layer's selection
+no explicit device it raises.
+
+Sharded serving: ``DecodeEngine(..., shard=Shard(group),
+options=DecodeOptions(split_k=...))`` on every rank of a
+``torch.distributed`` group, each with the same (replicated) parameters
+and requests. ``serve`` then keeps only the rank's KV heads of every page
+pool (prefill scatters, swap moves and restores those heads) and gathers
+each layer's attention output over ranks; ``generate`` splits the
+prefilled caches along the sequence. Every rank computes the same logits,
+so the replicated scheduler takes the same decisions everywhere, and the
+stats a rank returns are the unsharded run's (swap bytes summed over
+ranks). On a CUDA device every layer's selection
 and sparse attention go through the hand-written kernels
 (``kernels/ops.py``); on the CPU through their plain PyTorch versions.
 Options of the reference that belong to later slices raise
@@ -30,8 +41,10 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.core.policy import DecodeOptions, default_options
+from repro_torch.core.policy import (DecodeOptions, DensePolicy, GatePolicy,
+                                     default_options)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import Shard, seq_shard_state
 from repro_torch.models.registry import get_api
 from repro_torch.serve import paging as pg
 from repro_torch.serve import sampling as smp
@@ -57,8 +70,17 @@ class DecodeEngine:
     def __init__(self, cfg: ModelConfig, params: Any, *, max_len: int,
                  options: Optional[DecodeOptions] = None, device=None,
                  shard=None):
-        if shard is not None:
-            raise _not_ported("DecodeEngine(shard=...)", 11, "sharded serving")
+        if shard is not None and not isinstance(shard, Shard):
+            raise TypeError(f"shard must be a repro_torch.distributed.sharding.Shard, "
+                            f"got {type(shard).__name__}")
+        options = options if options is not None else default_options(cfg)
+        if options.split_k > 1 and shard is None:
+            raise ValueError("split_k > 1 applies to the paged sharded path only: "
+                             "construct DecodeEngine(..., shard=Shard(group))")
+        if shard is not None and not isinstance(options.policy, (GatePolicy, DensePolicy)):
+            raise ValueError("sharded decoding supports GatePolicy (distributed gate "
+                             "top-k) or DensePolicy only")
+        self.shard = shard
         self.device = resolve_device(device)
         self.cfg = cfg
         self.api = get_api(cfg)
@@ -68,7 +90,7 @@ class DecodeEngine:
                              f"{self.device}: move them first")
         self.params = params
         self.max_len = max_len
-        self.options = options if options is not None else default_options(cfg)
+        self.options = options
         self._last_aux = None       # measured selection of the latest step
         self._last_active = None    # serve(): slots active during that step
         # serve(): the power-of-two prefill buckets (in pages) seen so far
@@ -83,7 +105,7 @@ class DecodeEngine:
         """One decode step: (next token, logits, state, aux). The state's
         caches are updated in place."""
         logits, state, aux = self.api.decode_step(
-            params, state, token, self.cfg, options=self.options)
+            params, state, token, self.cfg, options=self.options, shard=self.shard)
         nxt = smp.sample(logits, self.options.sampling)
         return nxt, logits, state, aux
 
@@ -99,10 +121,14 @@ class DecodeEngine:
     @torch.no_grad()
     def generate(self, batch: Dict[str, Any], n_tokens: int) -> GenerationResult:
         """Uniform-batch greedy decode of ``n_tokens`` per row (the first
-        comes from prefill, then ``n_tokens - 1`` decode steps)."""
+        comes from prefill, then ``n_tokens - 1`` decode steps). On a sharded
+        engine with a selecting policy the prefill is replicated, then each
+        rank keeps its part of the caches along the sequence."""
         self._last_aux = self._last_active = None   # stats reflect THIS run
         t0 = time.perf_counter()
         token, state = self.prefill(batch)
+        if self._seq_sharded():
+            state = seq_shard_state(state, self.shard, self.cfg.gate.block_size)
         self._sync()
         prefill_s = time.perf_counter() - t0
         toks = [token]
@@ -118,6 +144,12 @@ class DecodeEngine:
             tokens=out, prefill_s=prefill_s, decode_s=decode_s,
             tok_per_s=(n_tokens - 1) * out.shape[0] / max(decode_s, 1e-9),
             final_len=state.cur_len)
+
+    def _seq_sharded(self) -> bool:
+        """generate() splits its caches along the sequence: a shard and a
+        selecting policy (a dense policy reads every cache row on every
+        rank, as the reference's unsharded branch does)."""
+        return self.shard is not None and not self.options.policy.dense
 
     # -- continuous batching over paged KV ---------------------------------
 
@@ -210,8 +242,11 @@ class DecodeEngine:
         for r in reqs:
             sched.submit(r)
 
+        kv_heads = (self.shard.local_heads(cfg.n_kv_heads) if self.shard is not None
+                    else None)
         pages = pg.init_pages(cfg, num_pages, self.api.paged_attn_layers(cfg),
-                              quantize=self.options.quantize, device=dev)
+                              quantize=self.options.quantize, device=dev,
+                              kv_heads=kv_heads)
         slot_state = (None if self.api.init_slot_state is None
                       else self.api.init_slot_state(cfg, n_slots))
         token_buf = np.zeros((n_slots,), np.int32)
@@ -320,7 +355,7 @@ class DecodeEngine:
                 torch.as_tensor(sched.page_table, device=dev),
                 torch.as_tensor(sched.cur_len, device=dev),
                 torch.as_tensor(sched.active, device=dev), cfg,
-                options=self.options)
+                options=self.options, shard=self.shard)
             self._last_aux = aux
             # idle slots decode garbage rows: remember who was live, so
             # sparsity_stats() averages active rows only
@@ -376,6 +411,13 @@ class DecodeEngine:
         decode_toks = gen_toks - sched.n_admitted
         retired_preempted = sum(1 for r in sched.finished.values()
                                 if r.n_preemptions > 0)
+        swap_stats = swap.stats()
+        bytes_out, bytes_in = swap.bytes_out, swap.bytes_in
+        if self.shard is not None:
+            # each rank swapped its heads: the pool's bytes are the sum
+            bytes_out, bytes_in, swap_stats["host_bytes"], swap_stats["peak_host_bytes"] = \
+                self.shard.sum_ints([bytes_out, bytes_in, swap_stats["host_bytes"],
+                                     swap_stats["peak_host_bytes"]])
         out["stats"] = {
             "wall_s": wall, "decode_steps": n_steps,
             "generated_tokens": gen_toks,
@@ -388,12 +430,12 @@ class DecodeEngine:
             "admission": admission, "watermark": watermark,
             "preemptions": sched.n_preemptions,
             "resumed": sched.n_resumed,
-            "swapped_out_bytes": swap.bytes_out,
-            "swapped_in_bytes": swap.bytes_in,
+            "swapped_out_bytes": bytes_out,
+            "swapped_in_bytes": bytes_in,
             "failed": sched.n_failed,
             "errors": {r.rid: r.error for r in sched.finished.values()
                        if r.status != "ok"},
-            "swap": swap.stats(),
+            "swap": swap_stats,
             "mean_active_slots": active_sum / max(n_steps, 1),
             "max_active_slots": active_max,
             "peak_pages_used": (sched.allocator.num_pages - 1
@@ -445,9 +487,12 @@ class DecodeEngine:
                                           options=self.options)
         view = self.api.state_view(cstate)
         if view.k_cache is not None:
-            pg.scatter_prefill(pages, view.k_cache, view.v_cache, view.kg_cache,
-                               plen, pg.pad_page_ids(req.pages, device=self.device),
-                               ps)
+            k, v, kg = view.k_cache, view.v_cache, view.kg_cache
+            if self.shard is not None:            # this rank's KV heads only
+                k, v, kg = (None if x is None else self.shard.head_slice(x, 2)
+                            for x in (k, v, kg))
+            pg.scatter_prefill(pages, k, v, kg, plen,
+                               pg.pad_page_ids(req.pages, device=self.device), ps)
         first = int(torch.argmax(logits[0]))
         lg = logits[0].float().cpu().numpy() if keep_logits else None
         return first, lg

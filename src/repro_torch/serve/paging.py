@@ -101,11 +101,13 @@ def dequantize_block(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def init_pages(cfg: ModelConfig, num_pages: int, n_layers: int,
                dtype: Optional[torch.dtype] = None, with_meta: bool = False,
                ghost_rows: int = 0, quantize: Optional[str] = None, *,
-               device=None) -> PagedPages:
+               device=None, kv_heads: Optional[int] = None) -> PagedPages:
     """Zeroed pools on ``device`` (``None`` = CUDA, which raises without a
     card). ``quantize="int8"`` allocates int8 K/V pools plus two distinct
     zeroed f32 scale pools [L, P, Hkv, 1]; the Kg pool stays in the working
-    dtype, so selection does not depend on the value quantization. The
+    dtype, so selection does not depend on the value quantization.
+    ``kv_heads`` (default ``cfg.n_kv_heads``) sizes the head axis of every
+    pool: a rank of the head-sharded path allocates only its heads. The
     reference's Quest metadata pools (``with_meta``) and eviction ghost
     rows are later slices and raise."""
     if with_meta:
@@ -119,7 +121,7 @@ def init_pages(cfg: ModelConfig, num_pages: int, n_layers: int,
     device = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
     ps = cfg.gate.block_size
-    hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    hkv, dh = kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim
     kg = (torch.zeros((n_layers, num_pages, hkv, cfg.gate.d_gate), dtype=dt,
                       device=device) if cfg.gate.enabled else None)
     kv_dt, k_scale, v_scale = dt, None, None

@@ -136,8 +136,8 @@ MUTANTS = {
                                "const float alpha = 1.f;"),
     "sum not rescaled": ("l_s[g] = alpha * l_s[g] + sum;", "l_s[g] = l_s[g] + sum;"),
     "scale x 1.05": ("ps[pr] = (t < nt) ? s * scale", "ps[pr] = (t < nt) ? s * scale * 1.05f"),
-    "last selected block skipped": ("for (int j = 0; j < nsel; ++j) {",
-                                    "for (int j = 0; j < nsel - 1; ++j) {"),
+    "last selected block skipped": ("for (int j = j0; j < j1; ++j) {",
+                                    "for (int j = j0; j < j1 - 1; ++j) {"),
     "last key dropped from P.V": ("for (int t = 0; t < nt; ++t) a +=",
                                   "for (int t = 0; t < nt - 1; ++t) a +="),
 }
@@ -300,6 +300,11 @@ def test_paged_decode_limit_rejects_logical_id_as_page(dev, tmp_path, monkeypatc
     assert good <= lim < bad
 
 
+def _counts(**launched):
+    """Every kernel's launch count: 0 except the ones given."""
+    return {**dict.fromkeys(ops.KERNELS, 0), **launched}
+
+
 def _tiny_cfg():
     cfg = t_config.reduced(t_get("qwen3_0_6b")).replace(dtype="float32")
     return cfg.replace(gate=dataclasses.replace(cfg.gate, block_size=8, d_gate=16,
@@ -325,11 +330,8 @@ def test_engine_cuda_serve_matches_cpu_and_counts_launches(dev):
         ops.reset_launch_counts()
         got = gpu.serve(reqs, n_slots=3, num_pages=pool, collect_logits=True)
         steps = got["stats"]["decode_steps"]
-        assert ops.launch_counts() == {"gate_select": 0, "block_sparse_decode": 0,
-                                       "gate_select_paged": cfg.num_layers * steps,
-                                       "block_sparse_decode_paged": cfg.num_layers * steps,
-                                       "block_sparse_decode_quant": 0,
-                                       "block_sparse_decode_paged_quant": 0}
+        assert ops.launch_counts() == _counts(gate_select_paged=cfg.num_layers * steps,
+                                              block_sparse_decode_paged=cfg.num_layers * steps)
         assert (got["stats"]["preemptions"] > 0) == (pool is not None)
         for i in range(len(reqs)):
             assert got[i] == want[i]
@@ -348,10 +350,7 @@ def test_engine_cuda_matches_cpu_and_counts_launches(dev):
     ops.reset_launch_counts()
     eng = DecodeEngine(cfg, gpu_params, max_len=64)
     res = eng.generate({"tokens": toks}, 13)
-    assert ops.launch_counts() == {"gate_select": 2 * 12, "block_sparse_decode": 2 * 12,
-                                   "gate_select_paged": 0, "block_sparse_decode_paged": 0,
-                                   "block_sparse_decode_quant": 0,
-                                   "block_sparse_decode_paged_quant": 0}
+    assert ops.launch_counts() == _counts(gate_select=2 * 12, block_sparse_decode=2 * 12)
     np.testing.assert_array_equal(res["tokens"].cpu().numpy(), cpu["tokens"].numpy())
 
 
@@ -527,12 +526,210 @@ def test_engine_cuda_int8_serve_matches_cpu_and_counts_launches(dev):
         ops.reset_launch_counts()
         got = gpu.serve(reqs, n_slots=3, num_pages=pool, collect_logits=True)
         n = cfg.num_layers * got["stats"]["decode_steps"]
-        assert ops.launch_counts() == {"gate_select": 0, "block_sparse_decode": 0,
-                                       "gate_select_paged": n, "block_sparse_decode_paged": 0,
-                                       "block_sparse_decode_quant": 0,
-                                       "block_sparse_decode_paged_quant": n}
+        assert ops.launch_counts() == _counts(gate_select_paged=n,
+                                              block_sparse_decode_paged_quant=n)
         assert (got["stats"]["preemptions"] > 0) == (pool is not None)
         assert got["stats"]["swapped_out_bytes"] == want["stats"]["swapped_out_bytes"]
         for i in range(len(reqs)):
             assert got[i] == want[i]
             np.testing.assert_allclose(got["logits"][i], want["logits"][i], atol=1e-3)
+
+
+
+# ---------------------------------------------------------------------------
+# split-K paged decode (TPU kernels 5 and 5q) and the sharded paths
+# ---------------------------------------------------------------------------
+
+SPLITK_SHAPES = [(2, 2, 2, 16, 8, 8, 4), (3, 1, 5, 32, 6, 16, 6),
+                 (4, 8, 2, 128, 257, 64, 64)]      # the main path's shapes
+
+
+def _splits(nsel):
+    """num_splits cases: a few, one entry each, and more splits than
+    entries (empty segments)."""
+    return sorted({2, 3, 4, nsel, nsel + 3})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hkv,g,dh,npt,bs,nsel", SPLITK_SHAPES)
+def test_sparse_decode_paged_splitk_kernel_matches_plain(dev, dtype, s, hkv, g, dh, npt, bs,
+                                                        nsel):
+    """5: the split-K kernel against its plain version over shuffled pages
+    with -1 padding, a partial last block and a (slot, head) row with no
+    valid key, which gives 0 at every num_splits."""
+    q, kp, vp, idx, pt, kv_len, _ = _paged_inputs(dev, dtype, s, hkv, g, dh, npt, bs, nsel)
+    for ns in _splits(nsel):
+        o_k = bsd.sparse_decode_paged_splitk_cuda(q, kp, vp, idx, pt, kv_len, block_size=bs,
+                                                  num_splits=ns)
+        o_p = bsd.sparse_decode_paged_splitk_plain(q, kp, vp, idx, pt, kv_len, block_size=bs,
+                                                   num_splits=ns)
+        torch.cuda.synchronize()
+        _check_decode(o_k, o_p, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hkv,g,dh,npt,bs,nsel", SPLITK_SHAPES)
+def test_sparse_decode_paged_splitk_quant_kernel_matches_plain(dev, dtype, s, hkv, g, dh, npt,
+                                                              bs, nsel):
+    """5q: int8 pools under a shuffled table, scale rows per physical page
+    (the trash page's codes 127 and scales NaN), at every num_splits."""
+    q, kp, vp, ksp, vsp, idx, pt, kv_len, _ = _quant_paged_inputs(dev, dtype, s, hkv, g, dh,
+                                                                  npt, bs, nsel)
+    kw = dict(block_size=bs, k_scales=ksp, v_scales=vsp)
+    for ns in _splits(nsel):
+        o_k = bsd.sparse_decode_paged_splitk_quant_cuda(q, kp, vp, idx, pt, kv_len,
+                                                        num_splits=ns, **kw)
+        o_p = bsd.sparse_decode_paged_splitk_plain(q, kp, vp, idx, pt, kv_len, num_splits=ns,
+                                                   **kw)
+        torch.cuda.synchronize()
+        _check_decode(o_k, o_p, dtype)
+
+
+def test_splitk_wrappers_count_and_route(dev):
+    """ops routes num_splits=1 to the single-pass kernel and > 1 to the
+    split-K kernels; one wrapper call counts one launch."""
+    q, kp, vp, idx, pt, kv_len, _ = _paged_inputs(dev, torch.bfloat16, 2, 2, 2, 16, 8, 8, 4)
+    ops.reset_launch_counts()
+    ops.paged_sparse_decode_splitk(q, kp, vp, idx, pt, kv_len, block_size=8, num_splits=1)
+    ops.paged_sparse_decode_splitk(q, kp, vp, idx, pt, kv_len, block_size=8, num_splits=3)
+    assert ops.launch_counts() == _counts(block_sparse_decode_paged=1,
+                                          block_sparse_decode_paged_splitk=1)
+
+
+# one-line faults in the split-K instances: (source line, edit, int8 pools?)
+SPLITK_MUTANTS = {
+    "combine without the rescale": (
+        "const float rs = (ls > 0.f) ? expf(pm[s * G] - m) : 0.f;",
+        "const float rs = (ls > 0.f) ? 1.f : 0.f;", False),
+    "rescale not masked by l > 0": (
+        "const float rs = (ls > 0.f) ? expf(pm[s * G] - m) : 0.f;",
+        "const float rs = expf(pm[s * G] - m);", False),
+    "segment end one past the boundary": (
+        "j1 = min(j0 + per, nsel);", "j1 = min(j0 + per + 1, nsel);", False),
+    "V scale applied twice (5q)": (
+        "a += v_scale * pv;", "a += v_scale * v_scale * pv;", True),
+}
+
+
+@pytest.mark.parametrize("mutant", list(SPLITK_MUTANTS))
+def test_splitk_decode_limit_rejects_a_faulty_kernel(dev, mutant, tmp_path, monkeypatch):
+    """chip_smoke.py's 8-ulp limit rejects a split-K kernel with a one-line
+    fault in its segments or its combine, at the main path's shape with 4
+    splits, bf16 and a shuffled table (one (slot, head) row has no valid
+    key, so every segment of it is empty); the correct kernel passes."""
+    old, new, quant = SPLITK_MUTANTS[mutant]
+    src = (build.CSRC / "block_sparse_decode.cu").read_text()
+    assert src.count(old) == 1, mutant
+    cu = tmp_path / "mutant_splitk.cu"
+    cu.write_text(src.replace(old, new))
+    so = tmp_path / "mutant_splitk.so"
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    if quant:
+        q, kp, vp, ksp, vsp, idx, pt, kv_len, _ = _quant_paged_inputs(
+            dev, torch.bfloat16, 4, 8, 2, 128, 257, 64, 64, seed=3)
+        ksp[0], vsp[0] = 1.0, 1.0
+        kw = dict(block_size=64, num_splits=4, k_scales=ksp, v_scales=vsp)
+        kernel = bsd.sparse_decode_paged_splitk_quant_cuda
+    else:
+        q, kp, vp, idx, pt, kv_len, _ = _paged_inputs(dev, torch.bfloat16, 4, 8, 2, 128, 257,
+                                                      64, 64, seed=3)
+        kw = dict(block_size=64, num_splits=4)
+        kernel = bsd.sparse_decode_paged_splitk_cuda
+    o_p = bsd.sparse_decode_paged_splitk_plain(q, kp, vp, idx, pt, kv_len, **kw)
+    lim = _decode_limit(o_p)
+    o_k = kernel(q, kp, vp, idx, pt, kv_len, **kw)
+    good = float((o_k.float() - o_p.float()).abs().max())
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    o_m = kernel(q, kp, vp, idx, pt, kv_len, **kw)
+    torch.cuda.synchronize()
+    bad = float((o_m.float() - o_p.float()).abs().max())
+    print(f"[{mutant}] max|o_plain| {float(o_p.float().abs().max()):.4f}, limit "
+          f"{lim:.3e}: correct kernel {good:.3e}, faulty kernel {bad:.3e}")
+    assert good <= lim
+    assert not bad <= lim, f"{mutant}: error {bad} within the limit {lim}"
+
+
+@pytest.fixture(scope="module")
+def nccl_shard(tmp_path_factory):
+    """A one-rank NCCL process group on this card for the module's sharded
+    tests (one rendezvous through a file store), torn down after them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import Shard
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        yield Shard()
+    finally:
+        dist.destroy_process_group()
+
+
+def _tiny_requests(cfg):
+    r = np.random.default_rng(4)
+    return [{"rid": i, "max_new_tokens": m,
+             "tokens": r.integers(0, cfg.vocab_size, size=(p,)).astype(np.int32)}
+            for i, (p, m) in enumerate([(20, 12), (18, 10), (22, 9)])]
+
+
+@pytest.mark.parametrize("quant,split_k,pool", [(None, 1, None), (None, 2, None),
+                                                (None, 2, 8), ("int8", 2, None),
+                                                ("int8", 2, 8)])
+def test_engine_cuda_sharded_serve_matches_cpu(nccl_shard, quant, split_k, pool):
+    """Head-sharded serve() through a one-rank NCCL group on the card
+    equals the unsharded serve() on the CPU (tiny config, fp32): tokens
+    equal, logits within 1e-4 (1e-3 for int8 pools), swap bytes equal;
+    every decode step's layers went through the split-K decode when
+    split_k > 1, the single-pass one otherwise."""
+    from repro_torch.core.policy import DecodeOptions
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import DecodeEngine
+    cfg = _tiny_cfg()
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+    reqs = _tiny_requests(cfg)
+    cpu = DecodeEngine(cfg, params, max_len=64, device="cpu",
+                       options=DecodeOptions(quantize=quant))
+    gpu = DecodeEngine(cfg, params_to(params, "cuda"), max_len=64, shard=nccl_shard,
+                       options=DecodeOptions(quantize=quant, split_k=split_k))
+    want = cpu.serve(reqs, n_slots=3, num_pages=pool, collect_logits=True)
+    ops.reset_launch_counts()
+    got = gpu.serve(reqs, n_slots=3, num_pages=pool, collect_logits=True)
+    n = cfg.num_layers * got["stats"]["decode_steps"]
+    decode = "block_sparse_decode_paged" + ("_splitk" if split_k > 1 else "") \
+        + ("_quant" if quant else "")
+    assert ops.launch_counts() == _counts(gate_select_paged=n, **{decode: n})
+    assert (got["stats"]["preemptions"] > 0) == (pool is not None)
+    for key in ("swapped_out_bytes", "preemptions", "decode_steps"):
+        assert got["stats"][key] == want["stats"][key], key
+    for i in range(len(reqs)):
+        assert got[i] == want[i]
+        np.testing.assert_allclose(got["logits"][i], want["logits"][i],
+                                   atol=1e-3 if quant else 1e-4)
+
+
+@pytest.mark.parametrize("method", ["budget", "threshold"])
+def test_engine_cuda_sequence_sharded_generate_matches_cpu(nccl_shard, method):
+    """Sequence-sharded generate() through a one-rank NCCL group on the
+    card: the tokens of the unsharded CPU run (the one rank holds the whole
+    cache; the collectives still run through the group). The threshold
+    gate gets a budget of all 8 blocks: the sharded path caps its
+    candidates at the local cap, the unsharded one at the budget, and the
+    two agree where neither binds (as in the reference's own check)."""
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import DecodeEngine
+    cfg = _tiny_cfg()
+    cfg = cfg.replace(gate=dataclasses.replace(cfg.gate, method=method, threshold=2e-2,
+                                               token_budget=32 if method == "budget" else 64))
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 41))
+    cpu = DecodeEngine(cfg, params, max_len=64, device="cpu").generate({"tokens": toks}, 13)
+    ops.reset_launch_counts()
+    gpu = DecodeEngine(cfg, params_to(params, "cuda"), max_len=64,
+                       shard=nccl_shard).generate({"tokens": toks}, 13)
+    assert ops.launch_counts() == _counts()          # the sharded path is plain ops
+    np.testing.assert_array_equal(gpu["tokens"].cpu().numpy(), cpu["tokens"].numpy())

@@ -183,7 +183,9 @@ def test_paged_cpu_dispatch_takes_plain_and_counts_no_launch():
     assert set(t_ops.KERNELS) == {"gate_select", "block_sparse_decode",
                                   "gate_select_paged", "block_sparse_decode_paged",
                                   "block_sparse_decode_quant",
-                                  "block_sparse_decode_paged_quant"}
+                                  "block_sparse_decode_paged_quant",
+                                  "block_sparse_decode_paged_splitk",
+                                  "block_sparse_decode_paged_splitk_quant"}
 
 
 def test_paged_cuda_wrappers_refuse_cpu_tensors():

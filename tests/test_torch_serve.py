@@ -230,7 +230,7 @@ def test_unported_options_raise(models):
     assert q8.quantize == "int8" and q8 == TOptions(quantize="int8")
     with pytest.raises(ValueError, match="quantize"):
         TOptions(quantize="fp8")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Shard"):       # sharded serving: a Shard
         port_engine(models, "budget", shard=object())
     with pytest.raises(NotImplementedError, match="item 9"):
         DecodeEngine(torch_tiny_cfg("budget").replace(family="ssm"),

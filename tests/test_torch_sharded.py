@@ -1,0 +1,264 @@
+"""The port's sharded serving at world size 2 (two gloo ranks on the CPU)
+against the live unsharded JAX reference.
+
+The reference's own sharded path does not run on this toolchain (its
+shard_map tests fail on the installed JAX), and its contract is stated
+against its unsharded path, so that is what the port is held to
+(tests/sharded_helpers.py):
+
+  * head-sharded ``serve`` (``DecodeEngine(shard=...)``), the tiny
+    config, weights and requests of ``paged_sharded_parity``: at
+    ``split_k=1`` greedy tokens equal to the JAX engine's, logits bitwise
+    equal to the port's own unsharded ``serve`` and within LOGIT_TOL of
+    JAX's, also under the preempting 10-page pool, whose preemption and
+    swap-byte counters equal the unsharded run's; at ``split_k=2`` tokens
+    equal and logits within LOGIT_TOL (the reference's split-K bound);
+  * the same over int8 pools: bitwise equal to the port's unsharded int8
+    ``serve`` at ``split_k=1``, and at ``split_k=2`` tokens equal and
+    logits within INT8_TOL of the JAX int8 engine (tests/test_torch_quant.py's
+    bound); DensePolicy through the dense fallback over local heads,
+    bitwise equal to the unsharded port;
+  * sequence-sharded ``generate``: budget and threshold gates with
+    ``local_cap_factor=8.0`` (the candidate cap not binding), 12 decode
+    steps teacher-forced with the reference's greedy tokens: logits within
+    SEQ_TOL at every step, the caches gathered over ranks within SEQ_TOL,
+    ``kg_n`` equal. The reference's check runs its bf16 config; the port's
+    parity harness runs float32 (ROADMAP, port decisions);
+  * a world size that does not divide the KV heads (or the cache length)
+    raises ``ValueError``.
+
+Each path is one ``torch.multiprocessing.spawn`` of two ranks that runs all
+of its cases (``tests/torch_sharded_helpers.py``, which imports no JAX);
+the parent runs JAX and the port's unsharded engine. Both ranks must
+return the same results: every rank computes the same logits.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+import repro.configs as j_configs
+import torch_sharded_helpers as H
+from repro.config import reduced as j_reduced
+from repro.core.policy import DecodeOptions as JOptions
+from repro.core.policy import DensePolicy as JDense
+from repro.models import transformer as j_tf
+from repro.serve.engine import DecodeEngine as JaxEngine
+from repro_torch.config import reduced as t_reduced
+from repro_torch.configs import get as t_get
+from repro_torch.convert import params_from_numpy
+from repro_torch.core.policy import DecodeOptions as TOptions
+from repro_torch.serve.engine import DecodeEngine
+
+jax.config.update("jax_platform_name", "cpu")
+
+WORLD = 2
+LOGIT_TOL = 1e-4          # sharded_helpers.py:192, split_k=2 vs unsharded
+INT8_TOL = 1e-3           # tests/test_torch_quant.py: port int8 vs reference int8
+SEQ_TOL = 1e-3            # sharded_helpers.py:44-52, sequence-sharded decode
+SPECS = [(21, 8), (13, 10), (30, 6), (17, 7)]
+GATE = dict(block_size=8, d_gate=16)
+N_LAYERS = t_reduced(t_get("qwen3_0_6b")).num_layers
+
+
+def _cfgs(**gate):
+    j = j_reduced(j_configs.get("qwen3_0_6b")).replace(dtype="float32")
+    t = t_reduced(t_get("qwen3_0_6b")).replace(dtype="float32")
+    return (j.replace(gate=dataclasses.replace(j.gate, **GATE, **gate)),
+            t.replace(gate=dataclasses.replace(t.gate, **GATE, **gate)))
+
+
+def _spawn(tmp, task, args):
+    mp.spawn(H.run, args=(WORLD, str(tmp / f"{task}.store"), task, args, str(tmp)),
+             nprocs=WORLD, join=True)
+    return [torch.load(tmp / f"{task}-{r}.pt", weights_only=False) for r in range(WORLD)]
+
+
+def _same_on_every_rank(runs):
+    a, b = runs
+    for key in a["tokens"]:
+        assert a["tokens"][key] == b["tokens"][key]
+        np.testing.assert_array_equal(a["logits"][key], b["logits"][key])
+    assert a["stats"] == b["stats"]
+
+
+# ---------------------------------------------------------------------------
+# head-sharded serve
+# ---------------------------------------------------------------------------
+
+# sharded case -> (JAX options kwargs, serve kwargs of the JAX run it is
+# held to, port-unsharded twin for the bitwise check or None, tolerance)
+SERVE_REF = {
+    "fp": (dict(), dict(n_slots=2), "fp", LOGIT_TOL),
+    "fp-preempt": (dict(), dict(n_slots=4, num_pages=10), "fp-preempt", LOGIT_TOL),
+    "fp-split2": (dict(), dict(n_slots=2), None, LOGIT_TOL),
+    "int8": (dict(quantize="int8"), dict(n_slots=2), "int8", INT8_TOL),
+    "int8-preempt": (dict(quantize="int8"), dict(n_slots=4, num_pages=10), "int8-preempt",
+                     INT8_TOL),
+    "int8-split2": (dict(quantize="int8"), dict(n_slots=2), None, INT8_TOL),
+    "dense": (dict(policy=JDense()), dict(n_slots=2), "dense", LOGIT_TOL),
+}
+COUNTERS = ("preemptions", "resumed", "decode_steps", "peak_pages_used",
+            "swapped_out_bytes", "swapped_in_bytes", "swap")
+
+
+@pytest.fixture(scope="module")
+def serve_runs(tmp_path_factory):
+    """(JAX results, port unsharded results, per-rank sharded results)."""
+    jcfg, tcfg = _cfgs(token_budget=32)
+    params = j_tf.init_lm(jax.random.PRNGKey(0), jcfg)
+    np_params = jax.device_get(params)
+    rng = np.random.default_rng(7)
+    reqs = [{"rid": i, "max_new_tokens": mn,
+             "tokens": rng.integers(0, jcfg.vocab_size, size=(pl,)).astype(np.int32)}
+            for i, (pl, mn) in enumerate(SPECS)]
+    sharded = _spawn(tmp_path_factory.mktemp("serve"), "serve", (tcfg, np_params, reqs))
+    jax_res, port_res = {}, {}
+    tparams = params_from_numpy(np_params, tcfg, "cpu")
+    for name, (j_kw, serve_kw, twin, _) in SERVE_REF.items():
+        key = (tuple(sorted(j_kw)), tuple(sorted(serve_kw.items())))
+        if key not in jax_res:
+            eng = JaxEngine(jcfg, params, max_len=64, options=JOptions(**j_kw))
+            jax_res[key] = eng.serve([dict(r) for r in reqs], collect_logits=True,
+                                     **serve_kw)
+        if twin is not None:
+            opt_kw = H.SERVE_CASES[twin][0]
+            eng = DecodeEngine(tcfg, tparams, max_len=64, device="cpu",
+                               options=TOptions(**opt_kw))
+            port_res[name] = eng.serve([dict(r) for r in reqs], collect_logits=True,
+                                       **serve_kw)
+    jax_by_case = {name: jax_res[(tuple(sorted(j_kw)), tuple(sorted(s_kw.items())))]
+                   for name, (j_kw, s_kw, _, _) in SERVE_REF.items()}
+    return jax_by_case, port_res, sharded
+
+
+@pytest.mark.parametrize("case", list(SERVE_REF))
+def test_head_sharded_serve_matches_unsharded(serve_runs, case):
+    jax_res, port_res, sharded = serve_runs
+    _same_on_every_rank([r[case] for r in sharded])
+    got = sharded[0][case]
+    want = jax_res[case]
+    tol = SERVE_REF[case][3]
+    # every decode step gathered each layer's o over ranks (with its ids on
+    # a selecting layer, in the same collective): the sharded path ran
+    assert got["gathers"] == N_LAYERS * got["stats"]["decode_steps"] > 0
+    for rid, (_, n_new) in enumerate(SPECS):
+        assert got["tokens"][rid] == want[rid], f"rid {rid} tokens"
+        assert len(got["tokens"][rid]) == n_new
+        np.testing.assert_allclose(got["logits"][rid], want["logits"][rid], atol=tol, rtol=0)
+    print(f"{case}: max |port - JAX| logit " + "%.2e" % max(
+        float(np.abs(got["logits"][rid] - want["logits"][rid]).max())
+        for rid in range(len(SPECS))))
+    twin = port_res.get(case)
+    if twin is not None:                       # split_k=1: bitwise the unsharded port
+        for rid in range(len(SPECS)):
+            assert got["tokens"][rid] == twin[rid]
+            np.testing.assert_array_equal(got["logits"][rid], twin["logits"][rid])
+        for key in COUNTERS:
+            assert got["stats"][key] == twin["stats"][key], key
+        assert got["stats"]["sparsity_by_rid"] == twin["stats"]["sparsity_by_rid"]
+    for key in COUNTERS:
+        assert got["stats"][key] == want["stats"][key], key
+    if case.endswith("preempt"):
+        assert got["stats"]["preemptions"] > 0
+        assert got["stats"]["swapped_out_bytes"] == got["stats"]["swapped_in_bytes"] > 0
+
+
+def test_world_size_not_dividing_heads_raises(serve_runs):
+    """n_kv_heads 1 over two ranks (a serve with sharded pools), 3 heads
+    over two ranks, and a cache length of 60 tokens over two ranks of
+    8-token blocks: each raises ValueError on every rank."""
+    _, _, sharded = serve_runs
+    for rank in sharded:
+        assert all(e is not None for e in rank["errors"]), rank["errors"]
+        assert "not divisible" in rank["errors"][0]
+
+
+@pytest.mark.parametrize("case", list(SERVE_REF))
+def test_sharded_serve_allocates_the_ranks_heads(serve_runs, case):
+    """A sharded ``serve`` allocates its pools once, at this rank's block
+    of KV heads on axis 2 of every leaf (the reference's
+    ``paged_pool_pspecs``), the int8 scale rows included: never the whole
+    pool."""
+    _, _, sharded = serve_runs
+    local = _cfgs()[1].n_kv_heads // WORLD
+    for rank in sharded:
+        (leaves,) = rank[case]["pools"]
+        shapes = [x for x in leaves if x is not None]
+        assert len(shapes) == (5 if case.startswith("int8") else 3)   # k, v, kg (+ scales)
+        assert all(len(x) in (4, 5) and x[2] == local for x in shapes), shapes
+
+
+# ---------------------------------------------------------------------------
+# sequence-sharded generate
+# ---------------------------------------------------------------------------
+
+B, PRE, MAX, N_STEPS = 4, 120, 256, 12
+GEN_GATES = {
+    "budget": dict(token_budget=64, local_cap_factor=8.0),
+    "threshold": dict(method="threshold", threshold=2e-2, token_budget=256,
+                      local_cap_factor=8.0),
+}
+
+
+@pytest.fixture(scope="module")
+def generate_runs(tmp_path_factory):
+    """(JAX runs, per-rank port runs), one per gate method, in GEN_GATES order."""
+    jobs, refs = [], []
+    prompt = np.random.default_rng(3).integers(0, 256, (B, PRE)).astype(np.int32)
+    for gate in GEN_GATES.values():
+        jcfg, tcfg = _cfgs(**gate)
+        params = j_tf.init_lm(jax.random.PRNGKey(0), jcfg)
+        logits, st = j_tf.lm_prefill(params, {"tokens": jnp.asarray(prompt)}, jcfg,
+                                     max_len=MAX)
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)
+        step = jax.jit(lambda p, s, t, c=jcfg: j_tf.lm_decode_step(
+            p, s, t, c, options=JOptions()))
+        toks, lgs = [np.asarray(tok)], []
+        for _ in range(N_STEPS):
+            lg, st, _ = step(params, st, tok)
+            tok = jnp.argmax(lg, -1).astype(jnp.int32)
+            toks.append(np.asarray(tok))
+            lgs.append(np.asarray(lg, np.float32))
+        refs.append({"tokens": np.stack(toks), "logits": np.stack(lgs),
+                     "k_cache": np.asarray(st.k_cache), "v_cache": np.asarray(st.v_cache),
+                     "kg_cache": np.asarray(st.kg_cache), "kg_n": np.asarray(st.kg_n)})
+        jobs.append((tcfg, jax.device_get(params), prompt, refs[-1]["tokens"], MAX))
+    return refs, _spawn(tmp_path_factory.mktemp("generate"), "generate", (jobs,))
+
+
+@pytest.mark.parametrize("method", list(GEN_GATES))
+def test_sequence_sharded_generate_matches_unsharded(generate_runs, method):
+    refs, ranks = generate_runs
+    i = list(GEN_GATES).index(method)
+    ref = refs[i]
+    a, b = (r[i] for r in ranks)
+    for key in ("first", "logits", "k_cache", "v_cache", "kg_cache", "kg_n"):
+        np.testing.assert_array_equal(a[key], b[key], err_msg=f"ranks differ: {key}")
+    np.testing.assert_array_equal(a["first"], ref["tokens"][0])
+    # the budget gate gathers every rank's candidates once per layer and step
+    assert a["gathers"] == (2 * N_STEPS if method == "budget" else 0)
+    for step in range(N_STEPS):
+        d = float(np.max(np.abs(a["logits"][step] - ref["logits"][step])))
+        assert d < SEQ_TOL, f"step {step}: dlogit {d}"
+    print(f"{method}: max |port - JAX| logit over {N_STEPS} steps "
+          f"{float(np.abs(a['logits'] - ref['logits']).max()):.2e}")
+    for key in ("k_cache", "v_cache", "kg_cache"):
+        d = float(np.max(np.abs(a[key] - ref[key])))
+        assert d < SEQ_TOL, f"{key}: {d}"
+    np.testing.assert_array_equal(a["kg_n"], ref["kg_n"])
+    assert 0.0 < a["sparsity"] < 1.0
+
+
+def test_child_module_imports_no_jax():
+    """The ranks run tests/torch_sharded_helpers.py alone: it imports
+    neither JAX nor the reference package."""
+    import ast
+    tree = ast.parse(open(H.__file__).read())
+    mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    mods += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert mods and not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
