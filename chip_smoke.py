@@ -13,7 +13,10 @@ batching path through ``DecodeEngine.serve`` (kernels
 and the head-sharded ``serve`` with split-K decode,
 ``DecodeOptions(split_k=4)`` on an engine with a one-rank NCCL process
 group, over fp and int8 pools (kernels ``gate_select_paged`` and
-``block_sparse_decode_paged_splitk``, or ``..._splitk_quant``).
+``block_sparse_decode_paged_splitk``, or ``..._splitk_quant``); and a
+sixth, gate distillation training, ``train.loop.run_training`` in distill
+mode (kernel ``gate_gt_attention``, TPU kernel 6, on every layer of every
+forward).
 The contiguous int8 kernel ``block_sparse_decode_quant`` lies on no model
 path (in the reference neither): it is checked and timed on the generate
 path's layer-0 blocks, quantized per block. Phases (any failure exits
@@ -29,7 +32,9 @@ non-zero):
      fp and int8 pools, tokens equal and logits close; then the sharded
      paths through the one-rank NCCL group against the same unsharded CPU
      runs: head-sharded ``serve`` (fp at split_k 1 and 2, int8 at split_k
-     2, and a preempting pool) and sequence-sharded ``generate``;
+     2, and a preempting pool) and sequence-sharded ``generate``; and the
+     tiny config's 3 distill train steps on the card against the CPU's
+     from the same state (KL and gate parameters within 1e-4);
   3. kernel vs plain on the card, on the tensors the main path gives
      layer 0 in its first decode step (captured from a real prefill +
      step): gate select for budget/threshold x force flags x n_valid
@@ -93,7 +98,27 @@ non-zero):
      over shuffled pages; timed at num_splits 4 beside #4 / #4q on the
      same inputs, with a sweep over num_splits printed; bound = #4's
      bytes plus the f32 partials written and read once; library yardstick
-     (fp) the masked dense SDPA of phase 7.
+     (fp) the masked dense SDPA of phase 7;
+ 14. training: ``run_training`` on qwen3_0_6b in bf16 (seed-0 weights),
+     distill mode, batch 4 x 4096 tokens (the launcher's sequence; its
+     batch 16 cut to 4 to bound time and memory), documents of mean
+     length 2048, 4 steps with a checkpoint every 2 and a failure
+     injected before step 3. Launch counters set to 0 just before and
+     read just after: ``gate_gt_attention`` must launch 28 x the forwards
+     run (5: the failed step restores the step-2 checkpoint and replays
+     step 2), every other kernel never; every KL finite, the base
+     parameters bitwise those of the seed, the gate moved, the replayed
+     loss equal; wall time and peak memory printed;
+ 15. a training step's time before torch.profiler and under it, its top
+     device kernels and the device's busy share;
+ 16. kernel 6 against its plain version on the tensors layer 0 of the
+     first training step gave it, with the packed segments and without:
+     o within the decode limit of phase 3, blockmax exactly -1e30 in the
+     same places and elsewhere within 1e-4 of max|blockmax|; kernel and
+     plain timed (median of 10), and causal SDPA on the same q/k/v as
+     context (it computes no blockmax and no packing mask, so the
+     library time is null); bound from the bytes and the causal pairs
+     within documents.
 
 The line before the last is a JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -119,16 +144,19 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.config import reduced  # noqa: E402
-from repro_torch.convert import params_to  # noqa: E402
+from repro_torch.config import OptimConfig, TrainConfig, reduced  # noqa: E402
+from repro_torch.convert import params_to, train_state_to  # noqa: E402
 from repro_torch.core.policy import DecodeOptions  # noqa: E402
 from repro_torch.distributed.sharding import Shard  # noqa: E402
+from repro_torch.data.pipeline import DataState, make_batch  # noqa: E402
 from repro_torch.kernels import block_sparse_decode as bsd  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import gate_gt_fwd as gt  # noqa: E402
 from repro_torch.kernels import gate_select as gs  # noqa: E402
-from repro_torch.models.transformer import init_lm  # noqa: E402
+from repro_torch.models.transformer import init_lm, lm_forward  # noqa: E402
 from repro_torch.serve import paging as pg  # noqa: E402
 from repro_torch.serve.engine import DecodeEngine  # noqa: E402
+from repro_torch.train import loop as tl  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -152,6 +180,11 @@ SERVE_SPECS = ((16384, 32), (12345, 24), (8191, 40), (4097, 16), (1500, 48), (63
 SPLIT_K = 4
 SPLITS_CHECKED = (2, 4, 8)          # and nsel + 3 (empty segments)
 SPLITS_TIMED = (2, 4, 8, 16)
+# the training phase: distill mode at full width, batch 4 x 4096 tokens
+# (the launcher's seq; its batch 16 cut to 4), documents of mean length
+# 2048, 4 steps, a checkpoint every 2 and one failure injected before step 3
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 4096, 4, 2, 3
+GT_BM_REL = 1e-4          # kernel 6's blockmax: error within this share of max|blockmax|
 
 
 def fail(msg: str) -> None:
@@ -1108,6 +1141,245 @@ def phase_serve_profile(cfg, params, options=DecodeOptions(), shard=None,
           f"{sum(e.count for e in comms) / steps:.0f} collectives/iteration, "
           f"{comm_ms:.2f} ms/iteration of host time in them")
 
+# ---------------------------------------------------------------------------
+# gate distillation training (TPU kernel 6)
+# ---------------------------------------------------------------------------
+
+def tiny_cfg():
+    cfg = reduced(configs.get("qwen3_0_6b")).replace(dtype="float32")
+    return cfg.replace(gate=dataclasses.replace(cfg.gate, block_size=8, d_gate=16,
+                                                token_budget=32))
+
+
+def small_train_agreement(dev: str = "cuda"):
+    """The tiny config (fp32) takes 3 distill steps on ``dev`` and on the
+    CPU from the same state. Returns the KL history on ``dev``, the largest
+    KL difference relative to the CPU's, the largest gate parameter
+    difference, and the launch counts with those expected (each forward's
+    layers through kernel 6, nothing else)."""
+    cfg = tiny_cfg()
+    tcfg = TrainConfig(optim=OptimConfig(lr=3e-3, warmup_steps=2, total_steps=8))
+    state = tl.init_train_state(torch.Generator().manual_seed(0), cfg, tcfg)
+    states = {"cpu": state, dev: train_state_to(state, dev)}
+    step = tl.make_train_step(cfg, tcfg)
+    kls = {"cpu": [], dev: []}
+    ops.reset_launch_counts()
+    for i in range(3):
+        for d in ("cpu", dev):
+            batch = make_batch(cfg, 2, 64, DataState(0, i), device=d)
+            states[d], m = step(states[d], batch)
+            kls[d].append(float(m["kl"]))
+    counts = ops.launch_counts()
+    kl_err = max(abs(a - b) / abs(b) for a, b in zip(kls[dev], kls["cpu"]))
+    g_err = max(float((states[dev].gate[k].cpu() - t).abs().max())
+                for k, t in states["cpu"].gate.items())
+    want = {**dict.fromkeys(ops.KERNELS, 0), "gate_gt_attention": 3 * cfg.num_layers}
+    return kls[dev], kl_err, g_err, counts, want
+
+
+def phase_small_train():
+    """Small-input agreement of training: KL per step within 1e-4
+    relative, gate parameters within 1e-4 (the CPU run is held against the
+    JAX reference by tests/test_torch_train.py; an Adam update is ~lr =
+    3e-3 an entry, so a gradient sign flipped by rounding would show)."""
+    kls, kl_err, g_err, counts, want = small_train_agreement("cuda")
+    if counts != want or not kl_err <= 1e-4 or not g_err <= 1e-4:
+        fail(f"small train agreement: launch counts {counts} (expected {want}), KL rel diff "
+             f"{kl_err:.3e} (limit 1e-4), gate max abs diff {g_err:.3e} (limit 1e-4)")
+    print(f"small train agreement (tiny qwen3, fp32, 2x64 tokens, 3 distill steps): KL "
+          f"{[round(x, 6) for x in kls]}, rel diff to the CPU {kl_err:.3e}, gate max "
+          f"abs diff {g_err:.3e}, {counts['gate_gt_attention']} launches of gate_gt_attention")
+
+
+def capture_gt_layer0(params, batch, cfg):
+    """One distill forward; the arguments of its first gate_gt_attention
+    call (layer 0), which the training run's first step repeats."""
+    seen = {}
+    real = ops.gate_gt_attention
+
+    def grab(*a, **kw):
+        seen.setdefault("gate_gt_attention", (tuple(t.clone() for t in a),
+                                              {k: (v.clone() if torch.is_tensor(v) else v)
+                                               for k, v in kw.items()}))
+        return real(*a, **kw)
+
+    ops.gate_gt_attention = grab
+    try:
+        with torch.no_grad():
+            lm_forward(params, batch, cfg, mode="distill")
+    finally:
+        ops.gate_gt_attention = real
+    torch.cuda.synchronize()
+    return seen["gate_gt_attention"]
+
+
+def gt_work(q, k, seg, block_size):
+    """(bytes, operations) of kernel 6 on these inputs: q, k, v, o and
+    seg read or written once, blockmax written once; two matmuls over the
+    (query, key) pairs this data needs, the causal pairs within each
+    document: 4 * Dh * H * sum over documents of n (n + 1) / 2."""
+    b, l, h, dh = q.shape
+    nb = l // block_size
+    es = q.element_size()
+    nbytes = (2 * q.numel() + 2 * k.numel()) * es + b * h * l * nb * 4 + seg.numel() * 4
+    _, counts = torch.unique_consecutive(seg.cpu().long() + (torch.arange(b)[:, None] << 32),
+                                         return_counts=True)
+    n = counts.double()
+    pairs = float((n * (n + 1) / 2).sum())
+    return nbytes, 4 * dh * h * pairs
+
+
+def phase_gt_kernel(args, kw):
+    """Kernel 6 against its plain version on layer 0's tensors of the first
+    training step, with the packing segments and without; timings."""
+    q, k, v = args
+    seg, bs, qc = kw["segment_ids"], kw["block_size"], kw["q_chunk"]
+    b, l, h, dh = q.shape
+    print(f"kernel 6 inputs (layer 0, step 0): q {tuple(q.shape)} k/v {tuple(k.shape)} "
+          f"{q.dtype}, block {bs}, {int((seg[:, 1:] != seg[:, :-1]).sum()) + b} documents "
+          f"in {b} rows")
+    worst = 0.0
+    for label, sg in (("packed segments", seg), ("no segments", None)):
+        o_k, bm_k = gt.gate_gt_attention_cuda(q, k, v, block_size=bs, segment_ids=sg)
+        o_p, bm_p = gt.gate_gt_attention_plain(q, k, v, block_size=bs, q_chunk=qc,
+                                               segment_ids=sg)
+        torch.cuda.synchronize()
+        err = float((o_k.float() - o_p.float()).abs().max())
+        lim, ulp, top = decode_limit(o_p)
+        dead = bm_p <= -1e29
+        same_dead = torch.equal(bm_k <= -1e29, dead) and bool((bm_k[dead] == -1e30).all())
+        bm_top = float(bm_p[~dead].abs().max())
+        bm_err = float((bm_k[~dead] - bm_p[~dead]).abs().max())
+        print(f"gate_gt_attention [{label}]: o max abs err {err:.3e} = "
+              f"{err / ulp if ulp else 0.0:.3g} ulp of max|o_plain| {top:.4f} (limit {lim:.3e}); "
+              f"blockmax NEG_INF in the same {int(dead.sum())} places: {same_dead}, max abs err "
+              f"{bm_err:.3e} of max|blockmax| {bm_top:.3f} (limit {GT_BM_REL:g} of it)")
+        if not err <= lim or not same_dead or not bm_err <= GT_BM_REL * bm_top:
+            fail(f"gate_gt_attention disagrees with plain [{label}]")
+        worst = max(worst, err)
+        del o_k, bm_k, o_p, bm_p
+    t_k = time_ms(lambda: gt.gate_gt_attention_cuda(q, k, v, block_size=bs, segment_ids=seg),
+                  runs=10, warmup=2)
+    t_k0 = time_ms(lambda: gt.gate_gt_attention_cuda(q, k, v, block_size=bs), runs=10, warmup=2)
+    t_p = time_ms(lambda: gt.gate_gt_attention_plain(q, k, v, block_size=bs, q_chunk=qc,
+                                                     segment_ids=seg), runs=10, warmup=2)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), runs=10, warmup=2)
+    nbytes, ops_n = gt_work(q, k, seg, bs)
+    bound, by = bound_ms(nbytes, ops_n)
+    causal_ops = 4 * dh * b * h * l * (l + 1) / 2
+    print(f"gate_gt_attention: kernel {t_k:.3f} ms (no segments {t_k0:.3f} ms), plain "
+          f"{t_p:.3f} ms, bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {ops_n:.4g} "
+          f"operations within documents; all causal pairs {causal_ops:.4g}, "
+          f"{1e3 * causal_ops / BF16_OPS_PER_S:.4f} ms); context: SDPA causal, no segments, "
+          f"no blockmax {t_lib:.3f} ms")
+    return {"gate_gt_attention": dict(max_abs_err=worst, ms=t_k, plain_ms=t_p, bound_ms=bound,
+                                      bound_by=by, library_ms=None)}
+
+
+def phase_train(cfg):
+    """run_training at full width in distill mode (bf16, random weights
+    from seed 0): TRAIN_STEPS steps, a checkpoint every TRAIN_CKPT_EVERY,
+    one failure injected before step TRAIN_FAIL_AT. Launch counters at 0
+    just before, read just after: gate_gt_attention 28 x the forwards run,
+    every other kernel 0. Every KL finite, the base parameters bitwise
+    those of the seed, the gate moved, the replayed step's loss equal to
+    the first run's. Then kernel 6 on layer 0's tensors, and a profile."""
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+                           seed=SEED, checkpoint_every=TRAIN_CKPT_EVERY,
+                           checkpoint_dir=ckpt_dir, log_every=1,
+                           optim=OptimConfig(total_steps=TRAIN_STEPS, warmup_steps=1))
+        print(f"training: qwen3_0_6b distill, batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+              f"{TRAIN_STEPS} steps, checkpoint every {TRAIN_CKPT_EVERY}, failure before "
+              f"step {TRAIN_FAIL_AT}; {tcfg.optim}")
+        seed_state = tl.init_train_state(torch.Generator(device="cuda").manual_seed(SEED),
+                                         cfg, tcfg)
+        batch0 = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, DataState(SEED, 0), device="cuda")
+        captured = capture_gt_layer0(seed_state.params, batch0, cfg)
+        del batch0
+        armed = [True]
+
+        def fail_at(i):
+            if i == TRAIN_FAIL_AT and armed[0]:
+                armed[0] = False
+                raise RuntimeError("injected node failure")
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist = tl.run_training(cfg, tcfg, fail_at=fail_at, device="cuda")
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = [h["step"] for h in hist]
+        n_fwd = len(hist)
+        print(f"training: {n_fwd} forwards (steps {steps}) in {wall:.2f} s wall, including "
+              f"init, batches, checkpoints and the restore; peak memory {peak:.1f} GiB; "
+              f"launch counts {counts}")
+        want = {**dict.fromkeys(ops.KERNELS, 0), "gate_gt_attention": cfg.num_layers * n_fwd}
+        if counts != want:
+            fail(f"training launch counts {counts}, expected {want}")
+        if steps != [0, 1, 2, 2, 3] or int(state.step) != TRAIN_STEPS:
+            fail(f"training steps {steps}, final step {int(state.step)}")
+        if not all(math.isfinite(h["kl"]) and math.isfinite(h["loss"]) for h in hist):
+            fail("non-finite KL in training")
+        first, replay = (h["loss"] for h in hist if h["step"] == TRAIN_CKPT_EVERY)
+        if not abs(first - replay) <= 1e-6 * abs(first):
+            fail(f"replayed step {TRAIN_CKPT_EVERY}: loss {replay} != {first}")
+        seed_leaves = dict(tl._walk(seed_state.params))
+        frozen = all(torch.equal(t, seed_leaves[p])
+                     for p, t in tl._walk(state.params) if not tl.is_gate_path(p))
+        moved = sum(not torch.equal(state.gate[k], seed_state.gate[k]) for k in state.gate)
+        if not frozen or moved == 0:
+            fail(f"base params bitwise unchanged: {frozen}; gate leaves moved: {moved}")
+        print(f"training: KL by step {[(h['step'], round(h['kl'], 6)) for h in hist]}; "
+              f"replayed step {TRAIN_CKPT_EVERY} loss {'bitwise ' if first == replay else ''}"
+              f"equal; base params bitwise unchanged; {moved} of {len(state.gate)} gate "
+              f"leaves moved")
+        del seed_state
+        torch.cuda.empty_cache()
+        phase_train_profile(cfg, tcfg, state)
+        del state
+        torch.cuda.empty_cache()
+        return counts["gate_gt_attention"], captured
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def phase_train_profile(cfg, tcfg, state, steps: int = 2):
+    """Step time before the profiler (host clock around synchronised
+    steps), then one step under torch.profiler: top device kernels and the
+    device's busy share of the step."""
+    from torch.profiler import ProfilerActivity, profile
+    step_fn = tl.make_train_step(cfg, tcfg)
+    batch = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, DataState(SEED, TRAIN_STEPS), device="cuda")
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        float(m["kl"])
+        times.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        float(m["kl"])
+        under = time.perf_counter() - t0
+    ka = prof.key_averages()
+    kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6   # s
+    print(ka.table(sort_by="self_device_time_total", row_limit=15))
+    print(f"training step profile: {', '.join(f'{t:.3f}' for t in times)} s a step before the "
+          f"profiler, {under:.3f} s under it; device busy {busy:.3f} s = "
+          f"{100 * busy / under:.1f}% of the profiled step; "
+          f"{sum(e.count for e in kernels)} kernel launches")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1131,6 +1403,7 @@ def main() -> int:
 
 def run_phases(shard) -> int:
     phase_small(shard)
+    phase_small_train()
 
     cfg = configs.get("qwen3_0_6b")
     bs = cfg.gate.block_size
@@ -1200,6 +1473,12 @@ def run_phases(shard) -> int:
         counts[name] = runs[name]
     # the contiguous int8 kernel lies on no model path
     counts["block_sparse_decode_quant"] = 0
+    del params
+    torch.cuda.empty_cache()
+
+    counts["gate_gt_attention"], captured = phase_train(cfg)
+    numbers.update(phase_gt_kernel(*captured))
+    del captured
     torch.cuda.empty_cache()
 
     meta = {
@@ -1222,6 +1501,8 @@ def run_phases(shard) -> int:
         "block_sparse_decode_paged_splitk_quant": (
             "src/repro_torch/kernels/csrc/block_sparse_decode.cu",
             "src/repro/kernels/block_sparse_decode.py:393"),
+        "gate_gt_attention": ("src/repro_torch/kernels/csrc/gate_gt_fwd.cu",
+                              "src/repro/kernels/gate_gt_fwd.py:87"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **numbers[name])

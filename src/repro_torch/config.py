@@ -1,9 +1,9 @@
 """Configuration dataclasses of the PyTorch port.
 
 A copy of the JAX package's ``GateConfig``/``ModelConfig`` (with the
-``MoEConfig``/``SSMConfig`` sub-configs that ``ModelConfig`` carries) and
-of ``reduced``: the port imports nothing of the JAX package, so it keeps
-its own copy. The fields, defaults and the ``reduced`` rule are identical,
+``MoEConfig``/``SSMConfig`` sub-configs that ``ModelConfig`` carries), of
+``OptimConfig``/``TrainConfig`` and of ``reduced``: the port imports
+nothing of the JAX package, so it keeps its own copy. The fields, defaults and the ``reduced`` rule are identical,
 so a config built on either side compares equal field by field (the
 parity tests check that).
 """
@@ -112,6 +112,37 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    name: str = "adamw"
+    lr: float = 1e-3              # paper: 1e-3 for gate distillation
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    grad_clip: float = 1.0
+    schedule: str = "cosine"      # paper: cosine decay
+    warmup_steps: int = 40
+    total_steps: int = 800        # paper: 800 steps
+    # distributed-optimization knobs
+    grad_compression: str = "none"   # none | bf16 | topk_ef
+    topk_ratio: float = 0.05
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    mode: str = "distill"         # "distill" (paper) | "pretrain"
+    seq_len: int = 32768          # paper packs to 32k
+    global_batch: int = 16        # paper global batch 16
+    steps: int = 800
+    seed: int = 0
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    async_checkpoint: bool = True
+    log_every: int = 10
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -1,8 +1,11 @@
-"""Parameters from the JAX package's tree, as numpy, to the port's layout.
+"""Parameters and train states from the JAX package, as numpy, to the port.
 
 The reference's ``init_lm`` returns a dict pytree whose ``"blocks"``
 leaves are stacked over layers ``[L, ...]`` (for ``lax.scan``); the port
-keeps the same dict but with ``"blocks"`` a list of per-layer dicts.
+keeps the same dict but with ``"blocks"`` a list of per-layer dicts. Its
+distillation gate dict is keyed ``blocks/attn/gate/wq`` with stacked
+leaves; the port's is keyed ``blocks/<i>/attn/gate/wq``, one leaf per
+layer, and so are the AdamW moments over it.
 Leaves keep their dtype. A bfloat16 leaf (``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects) goes through float32 first, which is exact.
 """
@@ -52,6 +55,41 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     return out
 
 
+def _per_layer(tree: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """{"blocks/<rest>": [L, ...]} -> {"blocks/<i>/<rest>": [...]} on ``device``."""
+    out = {}
+    for path, leaf in tree.items():
+        head, rest = path.split("/", 1)
+        if head != "blocks":
+            raise NotImplementedError(f"gate leaf {path!r} outside the layer stack")
+        t = _leaf(leaf, device)
+        for i in range(t.shape[0]):
+            out[f"blocks/{i}/{rest}"] = t[i].clone()
+    return out
+
+
+def train_state_from_numpy(state: Any, cfg: ModelConfig,
+                           device: torch.device | str | None = None):
+    """The JAX package's distill ``TrainState`` (params, gate, opt =
+    AdamWState(m, v, count, ef), step; leaves as numpy, e.g. after
+    ``jax.device_get``) -> the port's ``train.loop.TrainState`` on
+    ``device`` (``None`` = CUDA): the same numbers in the port's layout."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.loop import TrainState, merge_gate
+    device = resolve_device(device)
+    if state.gate is None:
+        raise NotImplementedError("only a distill-mode train state is converted")
+    gate = _per_layer(state.gate, device)
+    params = merge_gate(params_from_numpy(state.params, cfg, device), gate)
+    opt = state.opt
+    to_i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=device)  # noqa: E731
+    return TrainState(params, gate,
+                      AdamWState(_per_layer(opt.m, device), _per_layer(opt.v, device),
+                                 to_i32(opt.count),
+                                 None if opt.ef is None else _per_layer(opt.ef, device)),
+                      to_i32(state.step))
+
+
 def params_to(params: Dict[str, Any], device) -> Dict[str, Any]:
     """The port's parameter tree (dicts and the per-layer list) on ``device``."""
     if isinstance(params, dict):
@@ -59,6 +97,18 @@ def params_to(params: Dict[str, Any], device) -> Dict[str, Any]:
     if isinstance(params, list):
         return [params_to(v, device) for v in params]
     return params.to(device)
+
+
+def train_state_to(state: Any, device) -> Any:
+    """The port's ``train.loop.TrainState`` on ``device``; the gate leaves
+    of ``params`` are the gate dict's, as the loop keeps them."""
+    from repro_torch.train.loop import TrainState, merge_gate
+    move = lambda d: None if d is None else {k: t.to(device) for k, t in d.items()}  # noqa: E731
+    gate, opt = move(state.gate), state.opt
+    return TrainState(merge_gate(params_to(state.params, device), gate), gate,
+                      opt._replace(m=move(opt.m), v=move(opt.v), count=opt.count.to(device),
+                                   ef=move(opt.ef)),
+                      state.step.to(device))
 
 
 def _leaves(t):

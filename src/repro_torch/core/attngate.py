@@ -1,4 +1,4 @@
-"""SeerAttention-R AttnGate (decode variant), PyTorch port.
+"""SeerAttention-R AttnGate (decode and distillation), PyTorch port.
 
 The gate predicts, for each new query token, a score per KV *block*:
 
@@ -90,3 +90,21 @@ def gate_k(params: Params, k_nope: torch.Tensor, cfg: GateConfig,
             pos = (first_block_index + ar) * cfg.block_size
         kg = apply_rope(kg, pos, cfg.rope_theta)
     return kg
+
+
+def gate_logits(qg: torch.Tensor, kg: torch.Tensor) -> torch.Tensor:
+    """Qg [B, L, Hkv, Dg] x Kg [B, nb, Hkv, Dg] -> [B, Hkv, L, nb] (fp32)."""
+    dg = qg.shape[-1]
+    return torch.einsum("blhd,bnhd->bhln", qg.to(torch.float32),
+                        kg.to(torch.float32)) / math.sqrt(dg)
+
+
+def block_causal_mask(q_positions: torch.Tensor, n_blocks: int,
+                      block_size: int) -> torch.Tensor:
+    """[L, nb] True where block ``j`` contains any position <= q position.
+
+    A block is visible once its FIRST token is in the past (the trailing
+    partial block is handled by force-selecting the last block, §3.2).
+    """
+    starts = torch.arange(n_blocks, device=q_positions.device) * block_size
+    return q_positions[:, None] >= starts[None, :]

@@ -1,0 +1,94 @@
+"""Synthetic packed-sequence data pipeline (dense family), PyTorch port.
+
+A copy of the JAX package's ``data/pipeline.py`` for the token families:
+deterministic, checkpointable batches of documents packed to a fixed
+sequence length, with segment ids and per-document positions (varlen
+attention), and planted long-range motif copies so that attention is
+sparse but not local. The numpy draws are the reference's, in the same
+order, so the same ``(seed, step)`` gives bitwise the same tokens,
+labels, segment ids, positions and loss mask; only the last step differs:
+the arrays become torch tensors on ``device``.
+
+Iterator state == (seed, step): restoring a checkpoint resumes the exact
+stream. The vlm and audio batches arrive with their families.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import resolve_device
+
+
+class DataState(NamedTuple):
+    seed: int
+    step: int
+
+
+def _doc_lengths(rng: np.random.Generator, total: int, mean_len: int) -> np.ndarray:
+    lens = []
+    left = total
+    while left > 0:
+        n = int(np.clip(rng.geometric(1.0 / mean_len), 16, left))
+        lens.append(n)
+        left -= n
+    return np.asarray(lens)
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(f"family {cfg.family!r}: its batches arrive with the "
+                                  "family (ROADMAP Queue A item 9)")
+
+
+def make_lm_batch(cfg: ModelConfig, batch: int, seq_len: int, state: DataState, *,
+                  mean_doc_len: int = 2048, motif_len: int = 16,
+                  device=None) -> Dict[str, torch.Tensor]:
+    """Packed LM batch on ``device`` (None = CUDA): tokens, labels,
+    segment_ids, positions (int32) and loss_mask (float32), each [B, L]."""
+    _check_family(cfg)
+    device = resolve_device(device)
+    rng = np.random.default_rng((state.seed * 1_000_003 + state.step) & 0x7FFFFFFF)
+    v = cfg.vocab_size
+    toks = rng.integers(0, v, size=(batch, seq_len), dtype=np.int32)
+    seg = np.zeros((batch, seq_len), np.int32)
+    pos = np.zeros((batch, seq_len), np.int32)
+    for b in range(batch):
+        lens = _doc_lengths(rng, seq_len, min(mean_doc_len, seq_len))
+        off = 0
+        for d, n in enumerate(lens):
+            seg[b, off:off + n] = d
+            pos[b, off:off + n] = np.arange(n)
+            # a motif written early reappears later in the document: the
+            # source span is the "important block" the gate must find
+            if n > 4 * motif_len:
+                src = off + rng.integers(0, n // 4)
+                n_copies = 1 + int(rng.integers(0, 3))
+                for _ in range(n_copies):
+                    dst = off + rng.integers(n // 2, n - motif_len)
+                    toks[b, dst:dst + motif_len] = toks[b, src:src + motif_len]
+            off += n
+    labels = np.roll(toks, -1, axis=1)
+    loss_mask = (seg == np.roll(seg, -1, axis=1)).astype(np.float32)
+    arrays = {"tokens": toks, "labels": labels, "segment_ids": seg, "positions": pos,
+              "loss_mask": loss_mask}
+    return {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
+
+
+def make_batch(cfg: ModelConfig, batch: int, seq_len: int, state: DataState, *,
+               device=None, **kw) -> Dict[str, torch.Tensor]:
+    return make_lm_batch(cfg, batch, seq_len, state, device=device, **kw)
+
+
+def data_iterator(cfg: ModelConfig, batch: int, seq_len: int, state: DataState, *,
+                  device=None) -> Iterator:
+    """Resumable iterator; yields (batch_dict, DataState-after)."""
+    step = state.step
+    while True:
+        st = DataState(state.seed, step)
+        yield (make_batch(cfg, batch, seq_len, st, device=device),
+               DataState(state.seed, step + 1))
+        step += 1

@@ -14,11 +14,12 @@ the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import block_sparse_decode as bsd
+from repro_torch.kernels import gate_gt_fwd as gt
 from repro_torch.kernels import gate_select as gs
 
 KERNELS = {"gate_select": gs.gate_select_cuda,
@@ -28,7 +29,8 @@ KERNELS = {"gate_select": gs.gate_select_cuda,
            "block_sparse_decode_quant": bsd.sparse_decode_quant_cuda,
            "block_sparse_decode_paged_quant": bsd.sparse_decode_paged_quant_cuda,
            "block_sparse_decode_paged_splitk": bsd.sparse_decode_paged_splitk_cuda,
-           "block_sparse_decode_paged_splitk_quant": bsd.sparse_decode_paged_splitk_quant_cuda}
+           "block_sparse_decode_paged_splitk_quant": bsd.sparse_decode_paged_splitk_quant_cuda,
+           "gate_gt_attention": gt.gate_gt_attention_cuda}
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -132,6 +134,31 @@ def paged_sparse_decode_splitk(q: torch.Tensor, k_pages: torch.Tensor,
     return bsd.sparse_decode_paged_splitk_plain(
         q, k_pages, v_pages, block_indices, page_table, kv_len, block_size=block_size,
         num_splits=num_splits, k_scales=k_scales, v_scales=v_scales)
+
+
+def gate_gt_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      block_size: int, q_chunk: int = 256,
+                      segment_ids: Optional[torch.Tensor] = None,
+                      logit_softcap: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal attention forward + distillation blockmax: q [B,L,H,Dh], k/v
+    [B,L,Hkv,Dh], optional packed ``segment_ids`` [B,L] -> (o [B,L,H,Dh],
+    blockmax [B,H,L,Lk//block_size] fp32). ``q_chunk`` bounds the plain
+    version's score tensor; the kernel tiles on its own. There is no
+    backward, in the reference either: an input that requires grad
+    raises."""
+    if k.shape[1] % block_size:
+        raise ValueError(f"gate_gt_attention: Lk {k.shape[1]} is not a multiple of the "
+                         f"block size {block_size}")
+    if any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError("gate_gt_attention has no backward: call it on "
+                                  "tensors that do not require grad")
+    if _route(q, "gate_gt_attention"):
+        seg = None if segment_ids is None else segment_ids.to(torch.int32).contiguous()
+        return gt.gate_gt_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                         block_size=block_size, segment_ids=seg,
+                                         logit_softcap=logit_softcap)
+    return gt.gate_gt_attention_plain(q, k, v, block_size=block_size, q_chunk=q_chunk,
+                                      segment_ids=segment_ids, logit_softcap=logit_softcap)
 
 
 def launch_counts() -> Dict[str, int]:

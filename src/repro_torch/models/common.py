@@ -147,7 +147,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       q_positions: Optional[torch.Tensor] = None,
                       kv_positions: Optional[torch.Tensor] = None,
                       q_chunk: int = 1024,
-                      logit_softcap: float = 0.0) -> torch.Tensor:
+                      logit_softcap: float = 0.0,
+                      gt_block_size: int = 0,
+                      segment_ids: Optional[torch.Tensor] = None):
     """Memory-bounded attention forward, plain matmul + softmax in fp32.
 
     q: [B, Lq, H, D]; k, v: [B, Lk, Hkv, D] (GQA expanded internally)
@@ -155,9 +157,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     materialised scores to [B, H, q_chunk, Lk]. With the default positions
     and ``causal``, a chunk reads only the keys up to its last query: the
     keys it skips are the ones the mask would zero (exp(NEG_INF - m) == 0),
-    so the result is the reference's up to summation order. The
-    distillation blockmax output of the reference belongs to the training
-    slice and is not ported here.
+    so the result is the reference's up to summation order.
+
+    ``segment_ids`` [B, L] (packed documents, Lq == Lk) masks every score
+    across documents. With ``gt_block_size`` > 0 the call returns
+    ``(o, blockmax)``: blockmax [B, H, Lq, Lk // gt_block_size] fp32 is the
+    max masked score of each (row, key block), exactly NEG_INF where the
+    whole block is masked, including the blocks the causal shortcut never
+    reads (the distillation target of the reference's
+    ``chunked_attention(gt_block_size=)``). Otherwise it returns o alone.
     """
     b, lq, h, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
@@ -173,6 +181,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kt = repeat_kv(k, group).transpose(1, 2).to(torch.float32)   # [B, H, Lk, D]
     vt = repeat_kv(v, group).transpose(1, 2).to(torch.float32)
 
+    gbs = gt_block_size
+    nb = lk // gbs if gbs else 0
+    bm = (torch.full((b, h, lq, nb), NEG_INF, dtype=torch.float32, device=q.device)
+          if gbs else None)
     q_chunk = max(1, min(q_chunk, lq))
     out = torch.empty((b, h, lq, d), dtype=torch.float32, device=q.device)
     for c0 in range(0, lq, q_chunk):
@@ -185,11 +197,22 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if causal:
             mask = qp[:, None] >= kv_positions[None, :kend]
             s = s.masked_fill_(~mask, NEG_INF)
+        if segment_ids is not None:
+            smask = segment_ids[:, c0:c1, None] == segment_ids[:, None, :kend]
+            s = s.masked_fill_(~smask[:, None], NEG_INF)
+        if gbs:
+            # the blocks the chunk reads; the tail of a partial last block
+            # lies past kend, masked for every row of the chunk
+            nbk = -(-kend // gbs)
+            sp = F.pad(s, (0, nbk * gbs - kend), value=NEG_INF)
+            bm[:, :, c0:c1, :nbk] = torch.amax(
+                sp.reshape(b, h, c1 - c0, nbk, gbs), dim=-1)
         m = torch.amax(s, dim=-1, keepdim=True)
         p = s.sub_(m).exp_()
         l = torch.sum(p, dim=-1, keepdim=True)
         out[:, :, c0:c1] = torch.matmul(p, vt[:, :, :kend]) / torch.clamp_min(l, 1e-30)
-    return out.transpose(1, 2).to(q.dtype)
+    o = out.transpose(1, 2).to(q.dtype)
+    return (o, bm) if gbs else o
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

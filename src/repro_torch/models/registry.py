@@ -17,6 +17,8 @@ class ModelApi(NamedTuple):
     ``core.policy.DecodeOptions``; the decode steps return a
     measured-selection ``aux`` dict for serving telemetry."""
     init_params: Callable          # (generator, cfg) -> params
+    forward: Callable              # (params, batch, cfg, *, mode, shard) -> (loss, metrics);
+    #                                 mode="distill" only (gate KL, base frozen)
     init_decode_state: Callable    # (cfg, batch_size, max_len, *, device) -> state
     prefill: Callable              # (params, batch, cfg, max_len, options) -> (logits, state);
     #                                 batch may carry "lengths" (right-padded rows)
@@ -38,7 +40,7 @@ def _tf_view(st) -> CacheView:
     return CacheView(st.k_cache, st.v_cache, st.kg_cache, None, None, None)
 
 
-_TF_API = ModelApi(tf.init_lm, tf.init_decode_state, tf.lm_prefill,
+_TF_API = ModelApi(tf.init_lm, tf.lm_forward, tf.init_decode_state, tf.lm_prefill,
                    tf.lm_decode_step,
                    decode_step_paged=tf.lm_decode_step_paged,
                    paged_attn_layers=tf.n_self_layers,

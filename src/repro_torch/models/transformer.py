@@ -1,6 +1,9 @@
 """Decoder transformer LM with SeerAttention-R gates (dense family), PyTorch.
 
-Port of the serving half of the JAX package's ``models/transformer.py``:
+Port of the JAX package's ``models/transformer.py``: the full-sequence
+forward of gate distillation (``attention_full`` -> ``block_fwd_full`` ->
+``lm_backbone`` -> ``lm_forward(mode="distill")`` and
+``lm_gate_collect``), and the serving half:
 ``init_lm``, ``DecodeState``/``init_decode_state``, ``lm_prefill`` (with
 right-padded ``lengths``), the contiguous decode step
 (``attention_decode`` -> ``block_decode`` -> ``lm_decode_step``) and the
@@ -17,7 +20,10 @@ Differences of idiom, not of result:
     ``DecodeState`` holding the same cache tensors and the advanced
     ``cur_len``;
   * prefill writes each layer's K/V/Kg straight into the preallocated
-    head-major state instead of stacking all layers and padding after.
+    head-major state instead of stacking all layers and padding after;
+  * the distillation forward runs the base model under ``torch.no_grad``
+    (the reference's ``stop_gradient`` on the attention target and the
+    gate's inputs): only the gate's own einsums build an autograd graph.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core import attngate as ag
 from repro_torch.core import kcache as kc
+from repro_torch.core.distill import gate_kl_loss, ground_truth_from_blockmax
 from repro_torch.core.policy import (DecodeOptions, SelectionInputs,
                                      default_options)
 from repro_torch.device import resolve_device
@@ -36,7 +43,7 @@ from repro_torch.models.attn_core import (_dense_aux, _policy_active, _qkv,
                                           _selection_aux, _zero_layer_aux,
                                           aggregate_decode_aux,
                                           block_decode_paged)
-from repro_torch.models.common import (_randn, apply_rope, chunked_attention,
+from repro_torch.models.common import (NEG_INF, _randn, apply_rope, chunked_attention,
                                        decode_attention, init_linear, init_mlp,
                                        init_rmsnorm, linear, mlp, rms_norm,
                                        torch_dtype)
@@ -106,6 +113,146 @@ def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ params["embed"]["w"].T
     return linear(params["lm_head"], x)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (gate distillation)
+# ---------------------------------------------------------------------------
+
+def attention_full(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                   rope_positions: torch.Tensor,
+                   segment_ids: Optional[torch.Tensor],
+                   distill: bool, collect_gate: bool = False):
+    """Returns (out, kl_loss, extras|None).
+
+    The base attention runs without autograd. On a gated layer in distill
+    mode its output and the distillation target come from one
+    ``ops.gate_gt_attention`` call (the TPU kernel #6 path); the gate
+    reads the pre-rope q/k, which carry no gradient, so only the gate's
+    parameters are differentiated. ``collect_gate`` (requires distill):
+    extras = {"glog", "gt", "qr", "kr"} for gate-quality evaluation.
+    """
+    b, l, _ = x.shape
+    gate_on = distill and "gate" in p
+    with torch.no_grad():
+        q, k, v = _qkv(p, x, cfg)
+        qr = apply_rope(q, rope_positions, cfg.rope_theta)
+        kr = apply_rope(k, rope_positions, cfg.rope_theta)
+        if gate_on:
+            o, bm = ops.gate_gt_attention(
+                qr, kr, v, block_size=cfg.gate.block_size, q_chunk=cfg.q_chunk,
+                segment_ids=segment_ids, logit_softcap=cfg.attn_logit_softcap)
+            gt = ground_truth_from_blockmax(bm, cfg.gqa_group)
+            del bm
+        else:
+            o = chunked_attention(qr, kr, v, causal=cfg.causal, q_chunk=cfg.q_chunk,
+                                  logit_softcap=cfg.attn_logit_softcap,
+                                  segment_ids=segment_ids)
+        out = linear(p["wo"], o.reshape(b, l, -1))
+    kl = torch.zeros((), dtype=torch.float32, device=x.device)
+    extras = None
+    if gate_on:
+        qg = ag.gate_q(p["gate"], q, rope_positions, cfg.gate)
+        kg = ag.gate_k(p["gate"], k, cfg.gate)
+        glog = ag.gate_logits(qg, kg)                          # [B,Hkv,L,nb]
+        mask = ag.block_causal_mask(torch.arange(l, device=x.device), kg.shape[1],
+                                    cfg.gate.block_size)
+        glog = torch.where(mask[None, None], glog, NEG_INF)
+        kl = gate_kl_loss(glog, gt)
+        if collect_gate:
+            extras = {"glog": glog, "gt": gt, "qr": qr, "kr": kr}
+    return out, kl, extras
+
+
+def block_fwd_full(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                   rope_positions, segment_ids, distill: bool,
+                   collect_gate: bool = False):
+    """One layer; the residual stream runs without autograd. Returns
+    (x, kl, extras|None). The reference's MoE router loss waits for that
+    family's port."""
+    with torch.no_grad():
+        h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    attn_out, kl, extras = attention_full(
+        p["attn"], h, cfg, rope_positions=rope_positions, segment_ids=segment_ids,
+        distill=distill, collect_gate=collect_gate)
+    with torch.no_grad():
+        x = x + attn_out
+        x = x + mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), cfg.activation)
+    return x, kl, extras
+
+
+def lm_backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                rope_positions, segment_ids, distill: bool,
+                collect_gate: bool = False):
+    """Runs the layer list (a Python loop in place of ``lax.scan``).
+    Returns (x, kl_sum, extras|None); extras stack each key over the
+    layers, [L, ...]."""
+    kl = torch.zeros((), dtype=torch.float32, device=x.device)
+    per_layer = []
+    for lp in params["blocks"]:
+        x, l_kl, extras = block_fwd_full(
+            lp, x, cfg, rope_positions=rope_positions, segment_ids=segment_ids,
+            distill=distill, collect_gate=collect_gate)
+        kl = kl + l_kl
+        per_layer.append(extras)
+    stacked = None
+    if collect_gate and per_layer and per_layer[0] is not None:
+        stacked = {key: torch.stack([e[key] for e in per_layer]) for key in per_layer[0]}
+    return x, kl, stacked
+
+
+def _n_gate_layers(cfg: ModelConfig) -> int:
+    if not (cfg.gate.enabled and cfg.has_attention and cfg.is_decoder):
+        return 0
+    return cfg.num_layers
+
+
+def _full_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    _check_family(cfg)
+    if not cfg.causal:
+        raise NotImplementedError("only causal attention is ported")
+    with torch.no_grad():
+        x = params["embed"]["w"][batch["tokens"]]
+    b, l = x.shape[:2]
+    pos = batch.get("positions")
+    if pos is None:
+        pos = torch.arange(l, device=x.device)[None, :].expand(b, l)
+    return x, pos, batch.get("segment_ids")
+
+
+def lm_forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+               mode: str = "pretrain", shard=None):
+    """mode 'distill' -> (kl_loss, {"kl"}): the gate KL summed over layers
+    and divided by the number of gated layers, differentiable with respect
+    to the gate parameters only. ``batch`` holds tokens [B, L] and, from
+    the data pipeline, the per-document ``positions`` (RoPE) and the
+    packing ``segment_ids`` (attention mask); the causal masks use the
+    global index. 'pretrain' needs the attention's backward (ROADMAP Queue
+    A item 10, left out) and raises, as does a ``shard``."""
+    if mode != "distill":
+        raise NotImplementedError(
+            f"lm_forward(mode={mode!r}): only mode='distill' is ported; pretrain "
+            "needs a backward through the attention (ROADMAP Queue A item 10)")
+    if shard is not None:
+        raise NotImplementedError("training under a Shard (ROADMAP Queue A item 10) "
+                                  "is not ported")
+    x, pos, seg = _full_inputs(params, batch, cfg)
+    _, kl, _ = lm_backbone(params, x, cfg, rope_positions=pos, segment_ids=seg,
+                           distill=True)
+    kl = kl / max(_n_gate_layers(cfg), 1)
+    return kl, {"kl": kl.detach()}
+
+
+def lm_gate_collect(params: Params, batch: Dict[str, torch.Tensor],
+                    cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Gate-quality evaluation pass: the distill forward collecting, per
+    layer, glog/gt [L, B, Hkv, Lq, nb] and the post-rope qr [L, B, Lq, H,
+    Dh] / kr [L, B, Lq, Hkv, Dh]."""
+    x, pos, seg = _full_inputs(params, batch, cfg)
+    with torch.no_grad():
+        _, _, extras = lm_backbone(params, x, cfg, rope_positions=pos,
+                                   segment_ids=seg, distill=True, collect_gate=True)
+    return extras
 
 
 # ---------------------------------------------------------------------------

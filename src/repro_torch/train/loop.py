@@ -1,0 +1,201 @@
+"""Training loop: gate distillation, with checkpoint/restart fault tolerance
+and deterministic data resume (PyTorch port of the JAX package's
+``train/loop.py``, distill mode).
+
+Distillation trains ONLY the AttnGate parameters (paper §2.3): the gate
+leaves are extracted into a flat ``{path: tensor}`` dict, gradients are
+taken with respect to that dict alone, and the base model stays frozen
+byte for byte (it never requires grad; the forward runs it without
+autograd).
+
+Fault tolerance (``run_training``):
+  * async checkpoints every ``checkpoint_every`` steps, published
+    atomically, carrying (params, gate, optimizer state) and the data
+    position;
+  * on any step failure: restore the latest checkpoint, resume the data
+    stream at its position, continue (bounded retries). An in-flight save
+    of this process is finished first, so a failure right after a save
+    restores that save;
+  * a step-time watchdog logs straggler steps (> ``watchdog_factor`` x
+    median).
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.checkpoint import manager as ckpt
+from repro_torch.config import ModelConfig, TrainConfig
+from repro_torch.data.pipeline import DataState, make_batch
+from repro_torch.device import resolve_device
+from repro_torch.models.registry import get_api
+from repro_torch.optim import adamw
+
+
+# ---------------------------------------------------------------------------
+# param partitioning (distill: train the gate only)
+# ---------------------------------------------------------------------------
+
+def _walk(tree: Any, prefix: str = ""):
+    """(path, leaf) pairs of a dict / per-layer list tree, paths joined by
+    '/' (``blocks/<i>/attn/gate/wq``)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _walk(v, f"{prefix}{k}/")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _walk(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def is_gate_path(path: str) -> bool:
+    return "/gate/" in path or path.endswith("/gate") or path.startswith("gate/")
+
+
+def extract_gate(params: Any) -> Dict[str, torch.Tensor]:
+    return {p: leaf for p, leaf in _walk(params) if is_gate_path(p)}
+
+
+def merge_gate(params: Any, gate: Dict[str, torch.Tensor], prefix: str = "") -> Any:
+    """A new tree with the gate leaves replaced; every other leaf is the
+    same tensor object."""
+    if isinstance(params, dict):
+        return {k: merge_gate(v, gate, f"{prefix}{k}/") for k, v in params.items()}
+    if isinstance(params, list):
+        return [merge_gate(v, gate, f"{prefix}{i}/") for i, v in enumerate(params)]
+    return gate.get(prefix[:-1], params)
+
+
+# ---------------------------------------------------------------------------
+# train step
+# ---------------------------------------------------------------------------
+
+class TrainState(NamedTuple):
+    params: Any                        # full model params, incl. the CURRENT gate
+    gate: Dict[str, torch.Tensor]      # the trainable subtree (authoritative)
+    opt: adamw.AdamWState
+    step: torch.Tensor                 # int32 scalar
+
+
+def _check_mode(tcfg: TrainConfig) -> None:
+    if tcfg.mode != "distill":
+        raise NotImplementedError(
+            f"mode {tcfg.mode!r}: only gate distillation is ported; pretrain needs a "
+            "backward through the attention (ROADMAP Queue A item 10)")
+
+
+def init_train_state(gen: torch.Generator, cfg: ModelConfig, tcfg: TrainConfig) -> TrainState:
+    """Random parameters from ``gen`` on its device, the gate extracted,
+    a zero AdamW state over it."""
+    _check_mode(tcfg)
+    params = get_api(cfg).init_params(gen, cfg)
+    gate = extract_gate(params)
+    if not gate:
+        raise ValueError(f"{cfg.arch_id}: distill mode but no gate params")
+    return TrainState(params, gate, adamw.init(gate, tcfg.optim),
+                      torch.zeros((), dtype=torch.int32, device=gen.device))
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, shard=None) -> Callable:
+    """(state, batch) -> (state, metrics {"loss", "kl", "lr", "grad_norm"},
+    scalar tensors on the device)."""
+    _check_mode(tcfg)
+    api = get_api(cfg)
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        keys = list(state.gate)
+        leaves = {k: state.gate[k].detach().requires_grad_(True) for k in keys}
+        with torch.enable_grad():
+            loss, metrics = api.forward(merge_gate(state.params, leaves), batch, cfg,
+                                        mode="distill", shard=shard)
+            grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
+        with torch.no_grad():
+            gate, opt, om = adamw.apply(state.gate, dict(zip(keys, grads)), state.opt,
+                                        tcfg.optim)
+        return (TrainState(merge_gate(state.params, gate), gate, opt, state.step + 1),
+                {"loss": loss.detach(), **metrics, **om})
+    return step
+
+
+# ---------------------------------------------------------------------------
+# outer loop with fault tolerance
+# ---------------------------------------------------------------------------
+
+def run_training(cfg: ModelConfig, tcfg: TrainConfig, *,
+                 steps: Optional[int] = None,
+                 batch_size: Optional[int] = None,
+                 seq_len: Optional[int] = None,
+                 fail_at: Optional[Callable[[int], None]] = None,
+                 max_retries: int = 3,
+                 watchdog_factor: float = 5.0,
+                 log: Callable[[str], None] = print,
+                 device=None) -> Tuple[TrainState, List[Dict]]:
+    """Returns (final state, metrics history). The parameters come from a
+    torch Generator seeded with ``tcfg.seed`` on ``device`` (None = CUDA).
+    ``fail_at(i)`` is called before step ``i`` (fault injection)."""
+    device = resolve_device(device)
+    steps = steps if steps is not None else tcfg.steps
+    bsz = batch_size or tcfg.global_batch
+    slen = seq_len or tcfg.seq_len
+
+    def fresh() -> TrainState:
+        return init_train_state(torch.Generator(device=device).manual_seed(tcfg.seed),
+                                cfg, tcfg)
+
+    state = fresh()
+    data_state = DataState(tcfg.seed, 0)
+    step_fn = make_train_step(cfg, tcfg)
+    saver = ckpt.AsyncCheckpointer(tcfg.checkpoint_dir)
+    history: List[Dict] = []
+    retries = 0
+    step_times: List[float] = []
+
+    def save(state, data_state):
+        tree = {"params": state.params, "gate": state.gate, "opt": state.opt}
+        saver.save(int(state.step), tree,
+                   meta={"data_step": data_state.step, "seed": data_state.seed})
+
+    i = int(state.step)
+    while i < steps:
+        try:
+            batch = make_batch(cfg, bsz, slen, DataState(data_state.seed, i), device=device)
+            if fail_at is not None:
+                fail_at(i)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}   # synchronises
+            dt = time.perf_counter() - t0
+            step_times.append(dt)
+            med = sorted(step_times)[len(step_times) // 2]
+            if len(step_times) > 4 and dt > watchdog_factor * med:
+                log(f"[watchdog] straggler step {i}: {dt:.2f}s vs median {med:.2f}s")
+            history.append({"step": i, **metrics})
+            if tcfg.log_every and i % tcfg.log_every == 0:
+                log(f"step {i}: " + " ".join(f"{k}={v:.4g}" for k, v in metrics.items()))
+            i = int(state.step)
+            if tcfg.checkpoint_every and i % tcfg.checkpoint_every == 0:
+                save(state, DataState(data_state.seed, i))
+        except KeyboardInterrupt:
+            raise
+        except Exception as e:  # noqa: BLE001 - node-failure recovery path
+            retries += 1
+            if retries > max_retries:
+                raise
+            saver.wait()
+            last = ckpt.latest_step(tcfg.checkpoint_dir)
+            log(f"[recover] step {i} failed ({type(e).__name__}: {e}); "
+                f"restoring step {last}")
+            if last is None:
+                state = fresh()
+                i = 0
+                continue
+            like = {"params": state.params, "gate": state.gate, "opt": state.opt}
+            tree, meta = ckpt.restore(tcfg.checkpoint_dir, last, like)
+            state = TrainState(tree["params"], tree["gate"], tree["opt"],
+                               torch.tensor(last, dtype=torch.int32, device=device))
+            i = int(meta["data_step"])
+    saver.wait()
+    return state, history

@@ -10,7 +10,8 @@ on a GPU machine with
 This file imports neither jax nor the reference package; the plain
 versions it compares against are themselves held against the JAX
 reference on the CPU (tests/test_torch_kernels.py, test_torch_engine.py,
-test_torch_paging.py, test_torch_serve.py, test_torch_quant.py).
+test_torch_paging.py, test_torch_serve.py, test_torch_quant.py,
+test_torch_train.py).
 """
 import ctypes
 import dataclasses
@@ -733,3 +734,148 @@ def test_engine_cuda_sequence_sharded_generate_matches_cpu(nccl_shard, method):
                        shard=nccl_shard).generate({"tokens": toks}, 13)
     assert ops.launch_counts() == _counts()          # the sharded path is plain ops
     np.testing.assert_array_equal(gpu["tokens"].cpu().numpy(), cpu["tokens"].numpy())
+
+
+# ---------------------------------------------------------------------------
+# gate distillation: the gate-GT flash forward (TPU kernel 6) and training
+# ---------------------------------------------------------------------------
+
+def _gt_inputs(dev, dtype, b, l, h, hkv, dh, bs, seg_cuts=None, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, l, h, dh, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, l, hkv, dh, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, l, hkv, dh, generator=gen, device=dev).to(dtype)
+    seg = None
+    if seg_cuts is not None:
+        s = np.zeros((b, l), np.int32)
+        for row in range(b):
+            for c in seg_cuts:
+                s[row, min(c + row, l - 1):] += 1
+        seg = torch.tensor(s, device=dev)
+    return q, k, v, seg
+
+
+def gt_errors(o_k, bm_k, o_p, bm_p):
+    """-> (o err, o limit, NEG_INF places equal, blockmax err, blockmax
+    limit) under the kernel-6 limits: o within 8 ulps of max|o_plain| in
+    the output dtype (the decode limit); blockmax exactly -1e30 in the
+    same places, elsewhere within 1e-4 of max|blockmax|."""
+    assert o_k.dtype == o_p.dtype and o_k.shape == o_p.shape and bm_k.shape == bm_p.shape
+    o_err = float((o_k.float() - o_p.float()).abs().max())
+    dead_k, dead_p = bm_k <= -1e29, bm_p <= -1e29
+    same = torch.equal(dead_k, dead_p) and bool((bm_k[dead_k] == -1e30).all())
+    live = ~dead_p
+    bm_err = float((bm_k[live] - bm_p[live]).abs().max())
+    return o_err, _decode_limit(o_p), same, bm_err, 1e-4 * float(bm_p[live].abs().max())
+
+
+def check_gt(o_k, bm_k, o_p, bm_p):
+    o_err, o_lim, same, bm_err, bm_lim = gt_errors(o_k, bm_k, o_p, bm_p)
+    assert o_err <= o_lim and same and bm_err <= bm_lim, (o_err, o_lim, same, bm_err, bm_lim)
+    return o_err, bm_err
+
+
+GT_CUDA_SHAPES = [
+    # b, l, h, hkv, dh, bs: the CPU sweep's, the tiny config's, a row tile
+    # cut short (l % 64 != 0), and the training shape at batch 1
+    (1, 64, 2, 1, 32, 16), (2, 128, 4, 2, 64, 32), (2, 128, 8, 2, 64, 64),
+    (1, 256, 4, 4, 128, 64), (2, 72, 4, 2, 16, 8), (3, 200, 4, 2, 32, 8),
+    (1, 4096, 16, 8, 128, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("segments", [False, True])
+@pytest.mark.parametrize("b,l,h,hkv,dh,bs", GT_CUDA_SHAPES)
+def test_gate_gt_kernel_matches_plain(dev, dtype, segments, b, l, h, hkv, dh, bs):
+    from repro_torch.kernels import gate_gt_fwd as gt
+    cuts = None
+    if segments:        # cut mid-block, at a block edge, one-token documents
+        cuts = [bs // 2 + 1, 2 * bs, 2 * bs + 1, l // 2 + 3, l - 2]
+    q, k, v, seg = _gt_inputs(dev, dtype, b, l, h, hkv, dh, bs, cuts)
+    o_k, bm_k = gt.gate_gt_attention_cuda(q, k, v, block_size=bs, segment_ids=seg)
+    o_p, bm_p = gt.gate_gt_attention_plain(q, k, v, block_size=bs, q_chunk=1024,
+                                           segment_ids=seg)
+    torch.cuda.synchronize()
+    o_err, bm_err = check_gt(o_k, bm_k, o_p, bm_p)
+    print(f"gate_gt {dtype} seg={segments} {(b, l, h, hkv, dh, bs)}: o err {o_err:.3e}, "
+          f"blockmax err {bm_err:.3e}")
+
+
+def test_gate_gt_ops_routes_and_counts(dev):
+    q, k, v, seg = _gt_inputs(dev, torch.float32, 2, 96, 4, 2, 32, 16, [10, 40])
+    ops.reset_launch_counts()
+    o, bm = ops.gate_gt_attention(q, k, v, block_size=16, segment_ids=seg.long())
+    assert ops.launch_counts() == _counts(gate_gt_attention=1)
+    o_p, bm_p = ops.gate_gt_attention(q.cpu(), k.cpu(), v.cpu(), block_size=16,
+                                      segment_ids=seg.cpu())
+    check_gt(o.cpu(), bm.cpu(), o_p, bm_p)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.gate_gt_attention(q.requires_grad_(), k, v, block_size=16)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        ops.gate_gt_attention(q.detach(), k, v, block_size=16, logit_softcap=30.0)
+    assert ops.launch_counts() == _counts(gate_gt_attention=1)
+
+
+def test_train_steps_cuda_match_cpu_and_count_launches(dev):
+    """Three distill steps of the tiny config (fp32) on the card and on the
+    CPU from the same state (chip_smoke.py's small-input agreement): KL
+    history and gate parameters agree, and every forward's layers went
+    through kernel 6 and nothing else."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    _, kl_err, g_err, counts, want = chip_smoke.small_train_agreement(dev)
+    assert counts == want
+    assert kl_err <= 1e-4
+    assert g_err <= 1e-4
+
+
+# one-line faults in kernel 6: (source line, edit)
+GT_MUTANTS = {
+    "no running-max rescale": ("const float alpha = expf(m[i] - m_new);",
+                               "const float alpha = 1.f;"),
+    "sum not rescaled": ("l[i] = alpha * l[i] + group_sum(ps);",
+                         "l[i] = l[i] + group_sum(ps);"),
+    "diagonal masked": ("kpos <= qpos && qseg[r] == kseg[col]",
+                        "kpos < qpos && qseg[r] == kseg[col]"),
+    "segments ignored": ("kpos <= qpos && qseg[r] == kseg[col]", "kpos <= qpos"),
+    "scale x 1.0005": ("s[i][c] = ok ? s[i][c] * scale : kNegInf;",
+                       "s[i][c] = ok ? s[i][c] * scale * 1.0005f : kNegInf;"),
+    "unread blocks left at 0": ("bm_rows[(size_t)(q0 + r) * nb + jb] = kNegInf;",
+                                "bm_rows[(size_t)(q0 + r) * nb + jb] = 0.f;"),
+}
+
+
+@pytest.mark.parametrize("mutant", list(GT_MUTANTS))
+def test_gate_gt_limits_reject_a_faulty_kernel(dev, mutant, tmp_path, monkeypatch):
+    """The kernel-6 limits of chip_smoke.py must reject a kernel with a
+    one-line fault, on bf16 inputs of the training shape's widths (16/8
+    heads x 128, block 64) with packed documents; the correct kernel
+    passes the same check on the same inputs."""
+    from repro_torch.kernels import gate_gt_fwd as gt
+    old, new = GT_MUTANTS[mutant]
+    src = (build.CSRC / "gate_gt_fwd.cu").read_text()
+    assert src.count(old) == 1, mutant
+    cu = tmp_path / "mutant.cu"
+    cu.write_text(src.replace(old, new))
+    so = tmp_path / "mutant.so"
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+
+    q, k, v, seg = _gt_inputs(dev, torch.bfloat16, 2, 1024, 16, 8, 128, 64,
+                              [100, 128, 129, 600])
+    o_p, bm_p = gt.gate_gt_attention_plain(q, k, v, block_size=64, q_chunk=1024,
+                                           segment_ids=seg)
+    good = gt_errors(*gt.gate_gt_attention_cuda(q, k, v, block_size=64, segment_ids=seg),
+                     o_p, bm_p)
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    bad = gt_errors(*gt.gate_gt_attention_cuda(q, k, v, block_size=64, segment_ids=seg),
+                    o_p, bm_p)
+    torch.cuda.synchronize()
+    print(f"[{mutant}] correct kernel (o err, limit, NEG_INF same, blockmax err, limit) "
+          f"{good}; faulty kernel {bad}")
+    assert good[0] <= good[1] and good[2] and good[3] <= good[4]
+    assert not (bad[0] <= bad[1] and bad[2] and bad[3] <= bad[4]), mutant

@@ -185,7 +185,8 @@ def test_paged_cpu_dispatch_takes_plain_and_counts_no_launch():
                                   "block_sparse_decode_quant",
                                   "block_sparse_decode_paged_quant",
                                   "block_sparse_decode_paged_splitk",
-                                  "block_sparse_decode_paged_splitk_quant"}
+                                  "block_sparse_decode_paged_splitk_quant",
+                                  "gate_gt_attention"}
 
 
 def test_paged_cuda_wrappers_refuse_cpu_tensors():
