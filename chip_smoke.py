@@ -108,17 +108,22 @@ non-zero):
      run (5: the failed step restores the step-2 checkpoint and replays
      step 2), every other kernel never; every KL finite, the base
      parameters bitwise those of the seed, the gate moved, the replayed
-     loss equal; wall time and peak memory printed;
+     loss equal; wall time and peak memory printed; the last checkpoint
+     (the final state, saved by the port) lists the JAX package's leaves
+     in its count, order, shapes and dtypes (derived here from its
+     flatten rule, without JAX) and reads back bitwise;
  15. a training step's time before torch.profiler and under it, its top
      device kernels and the device's busy share;
- 16. kernel 6 against its plain version on the tensors layer 0 of the
-     first training step gave it, with the packed segments and without:
-     o within the decode limit of phase 3, blockmax exactly -1e30 in the
-     same places and elsewhere within 1e-4 of max|blockmax|; kernel and
-     plain timed (median of 10), and causal SDPA on the same q/k/v as
-     context (it computes no blockmax and no packing mask, so the
-     library time is null); bound from the bytes and the causal pairs
-     within documents.
+ 16. kernel 6 (its bf16 tensor-core body) against its plain version on
+     the tensors layer 0 of the first training step gave it, with the
+     packed segments and without: o within the decode limit of phase 3,
+     blockmax exactly -1e30 in the same places and elsewhere within 1e-4
+     of max|blockmax|; kernel and plain timed (median of 10), and causal
+     SDPA on the same q/k/v as context (it computes no blockmax and no
+     packing mask, so the library time is null); bound from the bytes and
+     the causal pairs within documents; the share of (query tile, key
+     tile) pairs the kernel skips, and its rate over the operations it
+     issues.
 
 The line before the last is a JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -144,6 +149,7 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.checkpoint import manager as ckpt  # noqa: E402
 from repro_torch.config import OptimConfig, TrainConfig, reduced  # noqa: E402
 from repro_torch.convert import params_to, train_state_to  # noqa: E402
 from repro_torch.core.policy import DecodeOptions  # noqa: E402
@@ -1229,15 +1235,35 @@ def gt_work(q, k, seg, block_size):
     return nbytes, 4 * dh * h * pairs
 
 
+def gt_tile_pairs(seg):
+    """(pairs, causal pairs): the (query tile, key tile) pairs of each
+    (batch row, head) that kernel 6's bf16 body computes, summed over the
+    batch rows, and the causal pairs it would compute without skipping. A
+    pair is skipped when the two tiles' segment-id ranges do not overlap
+    (they share no document)."""
+    s = seg.cpu().numpy()
+    b, l = s.shape
+    nt = -(-l // gt.TILE)
+    tiles = np.pad(s, ((0, 0), (0, nt * gt.TILE - l)), mode="edge").reshape(b, nt, gt.TILE)
+    lo, hi = tiles.min(-1), tiles.max(-1)
+    causal = np.tril(np.ones((nt, nt), bool))
+    overlap = (lo[:, :, None] <= hi[:, None, :]) & (lo[:, None, :] <= hi[:, :, None])
+    return int((overlap & causal).sum()), b * int(causal.sum())
+
+
 def phase_gt_kernel(args, kw):
     """Kernel 6 against its plain version on layer 0's tensors of the first
-    training step, with the packing segments and without; timings."""
+    training step, with the packing segments and without; timings, the
+    share of tile pairs skipped and the rate over the operations issued."""
     q, k, v = args
     seg, bs, qc = kw["segment_ids"], kw["block_size"], kw["q_chunk"]
     b, l, h, dh = q.shape
+    heads = 2 if (h // k.shape[2]) % 2 == 0 else 1
+    smem = (heads + 4) * gt.TILE * (dh + 8) * 2 + 2 * gt.TILE * 4 + 8 * -(-l // gt.TILE)
     print(f"kernel 6 inputs (layer 0, step 0): q {tuple(q.shape)} k/v {tuple(k.shape)} "
           f"{q.dtype}, block {bs}, {int((seg[:, 1:] != seg[:, :-1]).sum()) + b} documents "
-          f"in {b} rows")
+          f"in {b} rows; bf16 tensor-core body: CTAs of 4 warps over {gt.TILE} rows x "
+          f"{heads} heads, {smem} B of dynamic shared memory")
     worst = 0.0
     for label, sg in (("packed segments", seg), ("no segments", None)):
         o_k, bm_k = gt.gate_gt_attention_cuda(q, k, v, block_size=bs, segment_ids=sg)
@@ -1269,11 +1295,18 @@ def phase_gt_kernel(args, kw):
     nbytes, ops_n = gt_work(q, k, seg, bs)
     bound, by = bound_ms(nbytes, ops_n)
     causal_ops = 4 * dh * b * h * l * (l + 1) / 2
-    print(f"gate_gt_attention: kernel {t_k:.3f} ms (no segments {t_k0:.3f} ms), plain "
+    pairs, all_pairs = gt_tile_pairs(seg)
+    tile_ops = 4 * dh * h * gt.TILE * gt.TILE       # the products of one pair, all heads
+    print(f"gate_gt_attention: kernel {t_k:.4f} ms (no segments {t_k0:.4f} ms), plain "
           f"{t_p:.3f} ms, bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {ops_n:.4g} "
           f"operations within documents; all causal pairs {causal_ops:.4g}, "
           f"{1e3 * causal_ops / BF16_OPS_PER_S:.4f} ms); context: SDPA causal, no segments, "
-          f"no blockmax {t_lib:.3f} ms")
+          f"no blockmax {t_lib:.4f} ms")
+    print(f"gate_gt_attention: {pairs} of {all_pairs} causal (query tile, key tile) pairs "
+          f"computed, {1 - pairs / all_pairs:.3f} skipped; operations issued "
+          f"{pairs * tile_ops:.4g} at {pairs * tile_ops / t_k / 1e9:.1f} TFLOP/s; without "
+          f"segments {all_pairs * tile_ops:.4g} at {all_pairs * tile_ops / t_k0 / 1e9:.1f} "
+          f"TFLOP/s; SDPA {causal_ops / t_lib / 1e9:.1f} TFLOP/s")
     return {"gate_gt_attention": dict(max_abs_err=worst, ms=t_k, plain_ms=t_p, bound_ms=bound,
                                       bound_by=by, library_ms=None)}
 
@@ -1341,6 +1374,7 @@ def phase_train(cfg):
               f"replayed step {TRAIN_CKPT_EVERY} loss {'bitwise ' if first == replay else ''}"
               f"equal; base params bitwise unchanged; {moved} of {len(state.gate)} gate "
               f"leaves moved")
+        check_train_checkpoint(ckpt_dir, state)
         del seed_state
         torch.cuda.empty_cache()
         phase_train_profile(cfg, tcfg, state)
@@ -1349,6 +1383,63 @@ def phase_train(cfg):
         return counts["gate_gt_attention"], captured
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def reference_leaves(state):
+    """[(path, shape, dtype)] of the train state's checkpoint tree
+    {"params", "gate", "opt"} as the JAX package holds and flattens it:
+    dict keys sorted at every level, the per-layer "blocks" list as one
+    dict of [L, ...] leaves, the gate and moment keys "blocks/<i>/<rest>"
+    as "blocks/<rest>" of [L, ...], AdamWState's fields in order (m, v,
+    count; ef None holds none). Written from that rule alone, not from the
+    port's checkpoint code."""
+    def tree(t, path):
+        if isinstance(t, dict):
+            return [x for key in sorted(t) for x in tree(t[key], f"{path}/{key}")]
+        if isinstance(t, list):     # the layer list: stacked
+            return [(p, [len(t)] + shape, dt) for p, shape, dt in tree(t[0], path)]
+        return [(path, list(t.shape), t.dtype)]
+
+    def layered(d, path):           # {"blocks/<i>/<rest>": t} -> "blocks/<rest>" [L, ...]
+        rest = {}
+        for key, t in d.items():
+            _, i, r = key.split("/", 2)
+            rest.setdefault(r, []).append(t)
+        return [(f"{path}/blocks/{r}", [len(ts)] + list(ts[0].shape), ts[0].dtype)
+                for r, ts in sorted(rest.items(), key=lambda kv: f"blocks/{kv[0]}")]
+
+    opt = state.opt
+    return (layered(state.gate, "gate") + layered(opt.m, "opt/m") + layered(opt.v, "opt/v")
+            + [("opt/count", list(opt.count.shape), opt.count.dtype)]
+            + tree(state.params, "params"))
+
+
+def check_train_checkpoint(ckpt_dir, state):
+    """The last checkpoint of run_training (the final state, saved by the
+    port): its manifest lists the reference's leaves (count, order, shapes,
+    dtypes), and read back it is the final state bitwise."""
+    step = ckpt.latest_step(ckpt_dir)
+    with open(os.path.join(ckpt_dir, f"step_{step}", "manifest.json")) as f:
+        manifest = json.load(f)
+    want = reference_leaves(state)
+    names = {torch.bfloat16: "bfloat16", torch.float32: "float32", torch.int32: "int32"}
+    if (manifest["n_leaves"] != len(want)
+            or manifest["shapes"] != [shape for _, shape, _ in want]
+            or manifest["dtypes"] != [names[dt] for _, _, dt in want]):
+        fail(f"checkpoint step {step}: {manifest['n_leaves']} leaves {manifest['shapes']} "
+             f"{manifest['dtypes']}, the reference's layout has {len(want)}: {want}")
+    tree, _ = ckpt.restore(ckpt_dir, step,
+                           {"params": state.params, "gate": state.gate, "opt": state.opt})
+    got, opt = dict(tl._walk(tree["params"])), tree["opt"]
+    equal = (all(torch.equal(got[p], t) for p, t in tl._walk(state.params))
+             and all(torch.equal(opt.m[k], state.opt.m[k]) and torch.equal(opt.v[k], state.opt.v[k])
+                     for k in state.opt.m)
+             and int(opt.count) == int(state.opt.count))
+    if not equal:
+        fail(f"checkpoint step {step} read back differs from the final state")
+    print(f"training checkpoint step {step}: the reference's layout, {len(want)} leaves in "
+          f"its order ({want[0][0]} .. {want[-1][0]}), {sum(math.prod(sh) for _, sh, _ in want)} "
+          f"numbers; read back bitwise equal to the final state")
 
 
 def phase_train_profile(cfg, tcfg, state, steps: int = 2):

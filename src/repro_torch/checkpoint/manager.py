@@ -1,4 +1,5 @@
-"""Checkpointing in the reference's on-disk layout, over the port's trees.
+"""Checkpointing in the reference's layout: the JAX package's files, leaf
+order and shapes, so each package restores the other's checkpoints.
 
 Layout (the JAX package's ``checkpoint/manager.py``):
 
@@ -6,10 +7,14 @@ Layout (the JAX package's ``checkpoint/manager.py``):
         manifest.json        step, n_leaves, meta, dtypes, shapes
         <leaf-idx>.npy       one file per leaf; bfloat16 stored as uint16
 
-A tree is any nesting of dicts (keys in sorted order, as ``jax.tree_util``
-flattens them), lists, tuples and NamedTuples of tensors; ``None`` holds
-no leaf. Restore reads into the structure of a ``like`` tree and puts
-each leaf on the device of its ``like`` leaf.
+A tree is any nesting of dicts, lists, tuples and NamedTuples of tensors;
+``None`` holds no leaf. It is written as the reference holds it:
+``convert.stack_layers`` stacks the per-layer leaves back to [L, ...]
+(``params["blocks"]``, the gate's ``blocks/<i>/...`` keys and the AdamW
+moments over them), and the leaves go in ``jax.tree_util``'s flatten order:
+dict keys sorted, NamedTuple fields in order. Restore reads into the
+structure of a ``like`` tree, unstacks, and puts each leaf on the device of
+its ``like`` leaf.
 
 Fault-tolerance contract used by ``train.loop``:
   * atomic publish (write ``.tmp_step_<N>``, rename to ``step_<N>``): a
@@ -28,6 +33,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import convert
 
 _NP_NAMES = {torch.float32: "float32", torch.float64: "float64", torch.float16: "float16",
              torch.bfloat16: "bfloat16", torch.int64: "int64", torch.int32: "int32",
@@ -65,8 +72,28 @@ def _unflatten(like: Any, leaves) -> Any:
     raise TypeError(f"checkpoint: unsupported tree node {type(like).__name__}")
 
 
+def _map(tree: Any, fn) -> Any:
+    """``tree`` with ``fn`` applied to every tensor."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map(t, fn) for t in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(t, fn) for t in tree)
+    raise TypeError(f"checkpoint: unsupported tree node {type(tree).__name__}")
+
+
+def _savable(tree: Any) -> List[Tuple[np.ndarray, str]]:
+    """The reference's leaves of ``tree``, on the host, in its order."""
+    host = _map(tree, lambda t: t.detach().cpu())
+    return [_to_savable(t) for t in _flatten(convert.stack_layers(host))]
+
+
 def _to_savable(t: torch.Tensor) -> Tuple[np.ndarray, str]:
-    t = t.detach().cpu()
     name = _NP_NAMES[t.dtype]
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), name
@@ -103,7 +130,7 @@ def _write(ckpt_dir: str, step: int, savable, meta: Optional[Dict]) -> str:
 
 def save(ckpt_dir: str, step: int, tree: Any, meta: Optional[Dict] = None) -> str:
     """Write ``tree`` as ``<ckpt_dir>/step_<step>``; returns its path."""
-    return _write(ckpt_dir, step, [_to_savable(t) for t in _flatten(tree)], meta)
+    return _write(ckpt_dir, step, _savable(tree), meta)
 
 
 class AsyncCheckpointer:
@@ -117,7 +144,7 @@ class AsyncCheckpointer:
         self.wait()
         # the device -> host copy on the caller's thread orders it after
         # the step that produced the leaves
-        savable = [_to_savable(t) for t in _flatten(tree)]
+        savable = _savable(tree)
         self._thread = threading.Thread(target=_write,
                                         args=(self.ckpt_dir, step, savable, meta))
         self._thread.start()
@@ -142,10 +169,16 @@ def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, Dict]:
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    like_leaves = _flatten(like)
+    # the reference's structure of `like`, on the meta device: no copy
+    ref_like = convert.stack_layers(_map(like, lambda t: t.detach().to("meta")))
+    like_leaves = _flatten(ref_like)
     if len(like_leaves) != manifest["n_leaves"]:
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
                          f"model {len(like_leaves)}")
-    leaves = [_from_savable(np.load(os.path.join(path, f"{i}.npy")), dt).to(ref.device)
-              for i, (dt, ref) in enumerate(zip(manifest["dtypes"], like_leaves))]
-    return _unflatten(like, iter(leaves)), manifest["meta"]
+    for i, (shape, ref) in enumerate(zip(manifest["shapes"], like_leaves)):
+        if list(ref.shape) != shape:
+            raise ValueError(f"checkpoint leaf {i} has shape {shape}, model "
+                             f"{list(ref.shape)}")
+    leaves = [_from_savable(np.load(os.path.join(path, f"{i}.npy")), dt)
+              for i, dt in enumerate(manifest["dtypes"])]
+    return convert.unstack_layers(_unflatten(ref_like, iter(leaves)), like), manifest["meta"]

@@ -1,4 +1,4 @@
-"""Parameters and train states from the JAX package, as numpy, to the port.
+"""The tree mapping between the JAX package's layout and the port's.
 
 The reference's ``init_lm`` returns a dict pytree whose ``"blocks"``
 leaves are stacked over layers ``[L, ...]`` (for ``lax.scan``); the port
@@ -6,11 +6,17 @@ keeps the same dict but with ``"blocks"`` a list of per-layer dicts. Its
 distillation gate dict is keyed ``blocks/attn/gate/wq`` with stacked
 leaves; the port's is keyed ``blocks/<i>/attn/gate/wq``, one leaf per
 layer, and so are the AdamW moments over it.
+
+``params_from_numpy`` / ``train_state_from_numpy`` carry the reference's
+arrays (numpy) into the port. ``stack_layers`` / ``unstack_layers`` map a
+port tree of tensors to the reference's structure and back, which is how
+the port's checkpoints are written in the reference's leaf order.
 Leaves keep their dtype. A bfloat16 leaf (``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects) goes through float32 first, which is exact.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict
 
 import numpy as np
@@ -88,6 +94,74 @@ def train_state_from_numpy(state: Any, cfg: ModelConfig,
                                  to_i32(opt.count),
                                  None if opt.ef is None else _per_layer(opt.ef, device)),
                       to_i32(state.step))
+
+
+_LAYER_KEY = re.compile(r"blocks/(\d+)/(.+)")
+
+
+def _is_namedtuple(t) -> bool:
+    return isinstance(t, tuple) and hasattr(t, "_fields")
+
+
+def _stack(layers):
+    """Per-layer trees of one structure -> one tree of [L, ...] leaves."""
+    if isinstance(layers[0], dict):
+        return {k: _stack([x[k] for x in layers]) for k in layers[0]}
+    return torch.stack(layers)
+
+
+def stack_layers(tree: Any) -> Any:
+    """A port tree -> the reference's structure: a ``"blocks"`` list of
+    per-layer dicts becomes one dict of [L, ...] leaves, and the keys
+    ``blocks/<i>/<rest>`` of a flat dict (the gate and its AdamW moments)
+    become ``blocks/<rest>`` holding the layers stacked in order. Every
+    other node keeps its place."""
+    if isinstance(tree, dict):
+        out, layers = {}, {}
+        for k, v in tree.items():
+            mt = _LAYER_KEY.fullmatch(k) if isinstance(k, str) else None
+            if mt:
+                layers.setdefault(f"blocks/{mt[2]}", {})[int(mt[1])] = v
+            elif k == "blocks" and isinstance(v, list):
+                out[k] = _stack([stack_layers(x) for x in v])
+            else:
+                out[k] = stack_layers(v)
+        for k, by_layer in layers.items():
+            if sorted(by_layer) != list(range(len(by_layer))):
+                raise ValueError(f"{k}: layers {sorted(by_layer)} are not 0..L-1")
+            out[k] = torch.stack([by_layer[i] for i in range(len(by_layer))])
+        return out
+    if _is_namedtuple(tree):
+        return type(tree)(*(stack_layers(t) for t in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(stack_layers(t) for t in tree)
+    return tree
+
+
+def unstack_layers(ref: Any, like: Any) -> Any:
+    """The inverse of ``stack_layers``: ``ref`` in the reference's structure
+    -> the structure of the port tree ``like``, each leaf copied to the
+    device of the ``like`` leaf in its place (in ``ref``'s dtype)."""
+    if like is None:
+        return None
+    if isinstance(like, torch.Tensor):
+        return ref.to(like.device, copy=True)
+    if isinstance(like, dict):
+        out = {}
+        for k, v in like.items():
+            mt = _LAYER_KEY.fullmatch(k) if isinstance(k, str) else None
+            if mt:
+                out[k] = unstack_layers(ref[f"blocks/{mt[2]}"][int(mt[1])], v)
+            elif k == "blocks" and isinstance(v, list):
+                out[k] = [unstack_layers(_layer(ref[k], i), x) for i, x in enumerate(v)]
+            else:
+                out[k] = unstack_layers(ref[k], v)
+        return out
+    if _is_namedtuple(like):
+        return type(like)(*(unstack_layers(r, t) for r, t in zip(ref, like)))
+    if isinstance(like, (list, tuple)):
+        return type(like)(unstack_layers(r, t) for r, t in zip(ref, like))
+    raise TypeError(f"unsupported tree node {type(like).__name__}")
 
 
 def params_to(params: Dict[str, Any], device) -> Dict[str, Any]:

@@ -21,8 +21,12 @@ segment_ids=)``, which is also the port's (one loop, in
 is held against on the card. With ``segment_ids=None`` it is the Pallas
 kernel's function. ``gate_gt_attention_cuda`` launches
 ``csrc/gate_gt_fwd.cu`` on the current stream and counts its launches in
-``gate_gt_attention_cuda.launches``. Neither has a backward: the
-distillation target is a constant of the gate's loss.
+``gate_gt_attention_cuda.launches``. The dtype picks the kernel's body:
+bfloat16 runs on the tensor cores (mma.sync, bf16 products, fp32 sums) at
+block sizes 8, 16, 32 and 64 only, and skips the (query tile, key tile)
+pairs that share no document; float32 runs on the CUDA cores in full fp32
+at any block size up to 64. Neither has a backward: the distillation
+target is a constant of the gate's loss.
 """
 from __future__ import annotations
 
@@ -37,7 +41,9 @@ from repro_torch.models.common import chunked_attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instances
-MAX_BLOCK = 64                    # key block rows the kernel stages at once
+MAX_BLOCK = 64                    # key block rows the fp32 body stages at once
+TC_BLOCKS = (8, 16, 32, 64)       # block sizes of the bf16 body: whole n8 tiles of a 64-key tile
+TILE = 64                         # query rows / keys per tile of the bf16 body
 
 
 def gate_gt_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -56,7 +62,7 @@ def _bind(lib: ctypes.CDLL):
     fn = lib.gate_gt_fwd_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 6 + [i] * 8 + [f, i, p]
+        fn.argtypes = [p] * 7 + [i] * 8 + [f, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -66,7 +72,10 @@ def gate_gt_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            logit_softcap: float = 0.0
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel. q, k, v contiguous and 16-byte aligned in one
-    dtype (float32 or bfloat16); ``segment_ids`` int32 [B, L]."""
+    dtype; ``segment_ids`` int32 [B, L]. bfloat16 takes the tensor-core
+    body, whose domain is narrower: ``block_size`` must be one of
+    ``TC_BLOCKS`` (8, 16, 32, 64), any other raises ValueError. float32
+    takes the CUDA-core body, any ``block_size`` in 1..64."""
     name = "gate_gt_attention_cuda"
     if logit_softcap:
         raise NotImplementedError(f"{name}: logit_softcap {logit_softcap} (no ported "
@@ -88,6 +97,9 @@ def gate_gt_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not 0 < block_size <= MAX_BLOCK or lk % block_size:
         raise ValueError(f"{name}: block size {block_size} must be in 1..{MAX_BLOCK} "
                          f"and divide Lk {lk}")
+    if q.dtype == torch.bfloat16 and block_size not in TC_BLOCKS:
+        raise ValueError(f"{name}: block size {block_size} is not one of the bfloat16 "
+                         f"kernel's {TC_BLOCKS}")
     if seg is not None:
         if seg.dtype != torch.int32 or tuple(seg.shape) != (b, lq) or lq != lk:
             raise ValueError(f"{name}: segment_ids must be int32 [B, L] with Lq == Lk, "
@@ -101,9 +113,13 @@ def gate_gt_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bm = torch.empty((b, h, lq, nb), dtype=torch.float32, device=q.device)
     if o.numel() == 0 or nb == 0:
         return o.zero_(), bm           # no query row, or no key: o is 0
+    # the bf16 body's scratch: each 64-row tile's lowest and highest segment id
+    tile_seg = (None if seg is None or q.dtype != torch.bfloat16 else
+                torch.empty((b, -(-lk // TILE), 2), dtype=torch.int32, device=q.device))
     lib = build.load("gate_gt_fwd")
     rc = _bind(lib)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if seg is None else seg.data_ptr(),
+        None if tile_seg is None else tile_seg.data_ptr(),
         o.data_ptr(), bm.data_ptr(), b, lq, lk, h, hkv, dh, block_size, nb,
         1.0 / math.sqrt(dh), _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, "gate_gt_fwd kernel launch")

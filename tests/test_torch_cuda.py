@@ -777,20 +777,35 @@ def check_gt(o_k, bm_k, o_p, bm_p):
 
 GT_CUDA_SHAPES = [
     # b, l, h, hkv, dh, bs: the CPU sweep's, the tiny config's, a row tile
-    # cut short (l % 64 != 0), and the training shape at batch 1
+    # cut short (l % 64 != 0), odd GQA groups (one head a CTA in the bf16
+    # body), and the training shape at batch 1
     (1, 64, 2, 1, 32, 16), (2, 128, 4, 2, 64, 32), (2, 128, 8, 2, 64, 64),
     (1, 256, 4, 4, 128, 64), (2, 72, 4, 2, 16, 8), (3, 200, 4, 2, 32, 8),
-    (1, 4096, 16, 8, 128, 64),
+    (1, 192, 6, 2, 64, 16), (1, 4096, 16, 8, 128, 64),
 ]
 
 
+def _short_docs(l, seed=0):
+    """Cuts of documents 64..200 tokens long over ``l``: whole (query
+    tile, key tile) pairs share no document, and the bf16 body skips them."""
+    r = np.random.default_rng(seed)
+    cuts, c = [], 0
+    while True:
+        c += int(r.integers(64, 201))
+        if c >= l:
+            return cuts
+        cuts.append(c)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("segments", [False, True])
+@pytest.mark.parametrize("segments", [False, True, "short docs"])
 @pytest.mark.parametrize("b,l,h,hkv,dh,bs", GT_CUDA_SHAPES)
 def test_gate_gt_kernel_matches_plain(dev, dtype, segments, b, l, h, hkv, dh, bs):
     from repro_torch.kernels import gate_gt_fwd as gt
     cuts = None
-    if segments:        # cut mid-block, at a block edge, one-token documents
+    if segments == "short docs":
+        cuts = _short_docs(l)
+    elif segments:      # cut mid-block, at a block edge, one-token documents
         cuts = [bs // 2 + 1, 2 * bs, 2 * bs + 1, l // 2 + 3, l - 2]
     q, k, v, seg = _gt_inputs(dev, dtype, b, l, h, hkv, dh, bs, cuts)
     o_k, bm_k = gt.gate_gt_attention_cuda(q, k, v, block_size=bs, segment_ids=seg)
@@ -800,6 +815,42 @@ def test_gate_gt_kernel_matches_plain(dev, dtype, segments, b, l, h, hkv, dh, bs
     o_err, bm_err = check_gt(o_k, bm_k, o_p, bm_p)
     print(f"gate_gt {dtype} seg={segments} {(b, l, h, hkv, dh, bs)}: o err {o_err:.3e}, "
           f"blockmax err {bm_err:.3e}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gate_gt_row_whose_first_tiles_hold_other_documents(dev, dtype):
+    """The rows of one long last document start at 300 (mid tile) and at
+    320 (a tile edge): their first key tiles hold only other documents, so
+    m stays -1e30 until their own keys, and the pairs before are skipped
+    where they share no document at all."""
+    from repro_torch.kernels import gate_gt_fwd as gt
+    l = 1024
+    q, k, v, _ = _gt_inputs(dev, dtype, 2, l, 4, 2, 64, 64)
+    s = np.zeros((2, l), np.int32)
+    s[0, 300:] = 1
+    s[1, 70:320] = 1
+    s[1, 320:] = 2
+    seg = torch.tensor(s, device=dev)
+    o_k, bm_k = gt.gate_gt_attention_cuda(q, k, v, block_size=64, segment_ids=seg)
+    o_p, bm_p = gt.gate_gt_attention_plain(q, k, v, block_size=64, q_chunk=1024,
+                                           segment_ids=seg)
+    torch.cuda.synchronize()
+    check_gt(o_k, bm_k, o_p, bm_p)
+    assert bool((bm_k[0, :, 300:, :4] == -1e30).all())
+
+
+def test_gate_gt_refuses_bf16_block_sizes_outside_its_tiles(dev):
+    """The bf16 body takes block sizes 8, 16, 32, 64 only: 12 raises and
+    launches nothing; fp32 still takes it (its CUDA-core body)."""
+    from repro_torch.kernels import gate_gt_fwd as gt
+    q, k, v, _ = _gt_inputs(dev, torch.bfloat16, 1, 96, 2, 1, 32, 12)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="block size 12"):
+        gt.gate_gt_attention_cuda(q, k, v, block_size=12)
+    assert ops.launch_counts() == _counts()
+    q, k, v = (t.float() for t in (q, k, v))
+    o_k, bm_k = gt.gate_gt_attention_cuda(q, k, v, block_size=12)
+    check_gt(o_k, bm_k, *gt.gate_gt_attention_plain(q, k, v, block_size=12))
 
 
 def test_gate_gt_ops_routes_and_counts(dev):
@@ -830,19 +881,20 @@ def test_train_steps_cuda_match_cpu_and_count_launches(dev):
     assert g_err <= 1e-4
 
 
-# one-line faults in kernel 6: (source line, edit)
+# one-line faults in kernel 6's bf16 tensor-core body: (source line, edit)
 GT_MUTANTS = {
-    "no running-max rescale": ("const float alpha = expf(m[i] - m_new);",
-                               "const float alpha = 1.f;"),
-    "sum not rescaled": ("l[i] = alpha * l[i] + group_sum(ps);",
-                         "l[i] = l[i] + group_sum(ps);"),
-    "diagonal masked": ("kpos <= qpos && qseg[r] == kseg[col]",
-                        "kpos < qpos && qseg[r] == kseg[col]"),
-    "segments ignored": ("kpos <= qpos && qseg[r] == kseg[col]", "kpos <= qpos"),
-    "scale x 1.0005": ("s[i][c] = ok ? s[i][c] * scale : kNegInf;",
-                       "s[i][c] = ok ? s[i][c] * scale * 1.0005f : kNegInf;"),
-    "unread blocks left at 0": ("bm_rows[(size_t)(q0 + r) * nb + jb] = kNegInf;",
-                                "bm_rows[(size_t)(q0 + r) * nb + jb] = 0.f;"),
+    "acc not rescaled": ("rescale(acc[hp][dt], alpha[0], alpha[1]);",
+                         "rescale(acc[hp][dt], 1.f, 1.f);"),
+    "l not rescaled": ("l[hp][i] = alpha[i] * l[hp][i] + ps;", "l[hp][i] = l[hp][i] + ps;"),
+    "diagonal masked": ("const bool keep = kpos <= qpos && kpos < Lk",
+                        "const bool keep = kpos < qpos && kpos < Lk"),
+    "segments ignored": (" && (!mixed || qsg[e >> 1] == ksg[col]);", ";"),
+    "scale x 1.0005": ("s[hp][n][e] *= scale;", "s[hp][n][e] *= scale * 1.0005f;"),
+    "unread blocks left at 0": (
+        "bm[(((size_t)b * H + h0 + hp) * Lq + q0 + r) * nb + jb] = kNegInf;",
+        "bm[(((size_t)b * H + h0 + hp) * Lq + q0 + r) * nb + jb] = 0.f;"),
+    "skip drops a pair sharing one document": ("return qlo <= r.y && r.x <= qhi;",
+                                               "return qlo < r.y && r.x <= qhi;"),
 }
 
 
