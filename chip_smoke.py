@@ -43,7 +43,12 @@ non-zero):
      peaked softmax (max abs error within 8 bf16 ulps of the plain
      output's largest element, and within 2e-2); each kernel, its plain
      version and the library yardstick timed with CUDA events (median of
-     30 runs);
+     30 runs, a spin kernel holding the card while the host enqueues each
+     call, so that the host's launch overhead is not counted: see
+     ``time_ms``; the per-call time with it counted is printed beside #2's
+     and #4's); for #2 its split plan (segments, CTAs), its
+     rate (the bound's bytes over its time), its share of the bound and a
+     sweep of the split count, for information; #2 must beat dense SDPA;
   4. end to end: ``generate`` on qwen3_0_6b in bf16 with random weights
      from a seed, every launch counter set to 0 just before and read just
      after; each kernel must launch layers x decode steps times; all
@@ -64,7 +69,8 @@ non-zero):
      0 of the ample run's first decode step gave them (captured during
      that run), with the decode limit of phase 3, and timed the same way;
      the library yardstick of the paged decode is dense SDPA over the
-     slots' ``gather_kv`` view, masked at each slot's length;
+     slots' ``gather_kv`` view, masked at each slot's length, which #4
+     must beat; #4's plan, rate, bound share and sweep as #2's;
   8. serve profile: the four longest requests on 4 slots, torch.profiler
      over three whole decode iterations (model step and host scheduling),
      the top device kernels and the device's busy share;
@@ -95,8 +101,8 @@ non-zero):
  13. kernels 5 and 5q against their plain versions on the tensors layer 0
      of phases 11 and 12's first decode steps gave them, at num_splits 2,
      4, 8 and nsel + 3, with the decode limit of phase 3 and bitwise equal
-     over shuffled pages; timed at num_splits 4 beside #4 / #4q on the
-     same inputs, with a sweep over num_splits printed; bound = #4's
+     over shuffled pages; timed at num_splits 4 beside #4 (its own
+     split plan) / #4q on the same inputs, with a sweep over num_splits printed; bound = #4's
      bytes plus the f32 partials written and read once; library yardstick
      (fp) the masked dense SDPA of phase 7;
  14. training: ``run_training`` on qwen3_0_6b in bf16 (seed-0 weights),
@@ -204,13 +210,46 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, runs: int = 30, warmup: int = 3) -> float:
-    """Median device time of one call, from CUDA events around each call."""
+_SPIN_PER_MS = []
+
+
+def spin_cycles_per_ms() -> float:
+    """Cycles of torch.cuda._sleep (a spin kernel) per ms on this card."""
+    if not _SPIN_PER_MS:
+        n = 10_000_000
+        torch.cuda._sleep(n // 10)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(n)
+        b.record()
+        b.synchronize()
+        _SPIN_PER_MS.append(n / a.elapsed_time(b))
+    return _SPIN_PER_MS[0]
+
+
+def time_ms(fn, runs: int = 30, warmup: int = 3, hide_host: bool = True) -> float:
+    """Median device time of one call, from CUDA events around each call.
+    With ``hide_host`` a spin kernel holds the card busy while the host
+    enqueues the call (twice the host's enqueue time of one call), so the
+    events see the call's device work back to back and not the host's
+    launch overhead, which a decode kernel of a few tens of us is shorter
+    than (that overhead is the step's, and phases 4-8 measure it). A call
+    that synchronises inside still counts its host time after the sync.
+    Without ``hide_host``: the events around a call the host enqueues onto
+    an idle card, which counts the host's enqueue where it is the longer."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    spin = int((2 * host_ms + 0.05) * spin_cycles_per_ms()) if hide_host else 0
     times = []
     for _ in range(runs):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(spin)
         a.record()
         fn()
         b.record()
@@ -296,11 +335,12 @@ def decode_bound_ms(q, idx, kv_len, block_size, kv_es=None):
     return bound_ms(*decode_work(q, idx, kv_len, block_size, kv_es))
 
 
-def paged_decode_bound_ms(q, idx, kv_len, block_size, kv_es=None, num_splits=1):
-    """The contiguous decode's work plus one 4-byte page-table entry for
-    each distinct (slot, block) that holds valid tokens; split-K
-    (``num_splits`` > 1) adds its f32 partials (acc [G, Dh], m and l [G]
-    per segment), written once and read once."""
+def paged_decode_work(q, idx, kv_len, block_size, kv_es=None, num_splits=1):
+    """(bytes, operations): the contiguous decode's work plus one 4-byte
+    page-table entry for each distinct (slot, block) that holds valid
+    tokens; split-K (``num_splits`` > 1, kernels 5/5q, whose partials the
+    reference's entry point writes too) adds its f32 partials (acc [G, Dh],
+    m and l [G] per segment), written once and read once."""
     nbytes, ops_n = decode_work(q, idx, kv_len, block_size, kv_es)
     ix = idx.long().cpu()
     live = (ix >= 0) & (ix * block_size < kv_len.long().cpu()[:, None, None])
@@ -309,7 +349,32 @@ def paged_decode_bound_ms(q, idx, kv_len, block_size, kv_es=None, num_splits=1):
     n_entries = int(torch.unique(keys[keys >= 0]).numel())
     if num_splits > 1:
         nbytes += 2 * b * hkv * num_splits * (g * dh + 2 * g) * 4
-    return bound_ms(nbytes + 4 * n_entries, ops_n)
+    return nbytes + 4 * n_entries, ops_n
+
+
+def paged_decode_bound_ms(q, idx, kv_len, block_size, kv_es=None, num_splits=1):
+    return bound_ms(*paged_decode_work(q, idx, kv_len, block_size, kv_es, num_splits))
+
+
+SPLIT_SWEEP = (1, 2, 4, 8, 16, 32)
+
+
+def report_fp_decode(name, q, idx, t_k, nbytes, b_ms, kernel):
+    """The fp decode's split plan (#2, #4), its achieved rate (the bound's
+    bytes over the time) and share of the bound, and, for information, a
+    sweep of the split count, ``kernel(num_splits)`` timed as ``time_ms``."""
+    b, hkv, g, dh = q.shape
+    nsel = idx.shape[-1]
+    ns = bsd.split_plan(b, hkv, nsel, bsd.n_sm(q.device))
+    segs = bsd.split_segments(nsel, ns)
+    sweep = {n: time_ms(lambda n=n: kernel(n)) for n in SPLIT_SWEEP}
+    print(f"{name}: split plan {ns} segments of {segs[0][1] - segs[0][0]} entries "
+          f"({b * hkv * ns} CTAs, B {b} x Hkv {hkv} x {ns}, on {bsd.n_sm(q.device)} SMs"
+          f"{'' if ns == 1 else ', + 1 combine launch'}); {nbytes / (t_k * 1e-3) / 1e9:.1f} GB/s "
+          f"({nbytes / 1e6:.2f} MB over {t_k:.4f} ms), {100 * b_ms / t_k:.1f}% of the bound; "
+          f"sweep (information only): "
+          + ", ".join(f"{n} splits {t:.4f} ms" for n, t in sweep.items()))
+    return ns
 
 
 def decode_cases(q, idx, thr=None):
@@ -364,16 +429,17 @@ def shuffled_pages(table, *pools):
     return (perm[table.long()].int(), *(p[inv] for p in pools))
 
 
-def sdpa_masked_ms(q, kc, vc, kv_len):
+def sdpa_masked_ms(q, kc, vc, kv_len, hide_host: bool = True):
     """Time of dense SDPA over head-major caches [B, Hkv, S, Dh] in q's
     dtype, each row masked at its length, K/V heads expanded (the
-    expansion not timed)."""
+    expansion not timed); ``hide_host`` as ``time_ms``."""
     b, hkv, g, dh = q.shape
     ke, ve = kc.repeat_interleave(g, dim=1), vc.repeat_interleave(g, dim=1)
     mask = (torch.arange(kc.shape[2], device=q.device)[None, :]
             < kv_len[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return time_ms(lambda: sdpa(q.reshape(b, hkv * g, 1, dh), ke, ve, attn_mask=mask))
+    return time_ms(lambda: sdpa(q.reshape(b, hkv * g, 1, dh), ke, ve, attn_mask=mask),
+                   hide_host=hide_host)
 
 
 def phase_build():
@@ -561,23 +627,33 @@ def phase_kernels(seen):
     if int(kv_len[0]) % bs == 0:
         fail("expected a partial last block at the captured kv_len")
 
-    # timings (median of 30 CUDA-event-timed calls each)
+    # timings (median of 30 CUDA-event-timed calls each, the host's enqueue
+    # hidden: see time_ms)
     t_gk = time_ms(lambda: gs.gate_select_cuda(qg, kg, nv, gcfg, ms))
     t_gp = time_ms(lambda: gs.gate_select_plain(qg, kg, nv, gcfg, ms))
-    t_dk = time_ms(lambda: bsd.sparse_decode_cuda(q, kc, vc, idx, kv_len, block_size=bs))
+    dec = lambda ns=None: bsd.sparse_decode_cuda(q, kc, vc, idx, kv_len, block_size=bs,
+                                                 num_splits=ns)
+    t_dk = time_ms(dec)
     t_dp = time_ms(lambda: bsd.sparse_decode_plain(q, kc, vc, idx, kv_len, block_size=bs))
     b, hkv, g, dh = q.shape
     n = int(kv_len.max())
     qs = q.reshape(b, hkv * g, 1, dh)
     ks, vs = kc[:, :, :n], vc[:, :, :n]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    t_lib = time_ms(lambda: sdpa(qs, ks, vs, enable_gqa=True))
+    lib_call = lambda: sdpa(qs, ks, vs, enable_gqa=True)
+    t_lib = time_ms(lib_call)
     k_sel = gs.n_selected(gcfg, nb, ms)
     gb, gby = gate_bound_ms(qg, nv, k_sel)
-    db, dby = decode_bound_ms(q, idx, kv_len, bs)
+    dbytes, dops = decode_work(q, idx, kv_len, bs)
+    db, dby = bound_ms(dbytes, dops)
     print(f"gate_select: kernel {t_gk:.4f} ms, plain {t_gp:.4f} ms, bound {gb:.5f} ms ({gby})")
     print(f"block_sparse_decode: kernel {t_dk:.4f} ms, plain {t_dp:.4f} ms, "
-          f"bound {db:.5f} ms ({dby}), SDPA dense over {n} tokens {t_lib:.4f} ms")
+          f"bound {db:.5f} ms ({dby}), SDPA dense over {n} tokens {t_lib:.4f} ms; "
+          f"with the host's enqueue counted: kernel {time_ms(dec, hide_host=False):.4f} ms, "
+          f"SDPA {time_ms(lib_call, hide_host=False):.4f} ms")
+    report_fp_decode("block_sparse_decode", q, idx, t_dk, dbytes, db, dec)
+    if not t_dk < t_lib:
+        fail(f"block_sparse_decode {t_dk:.4f} ms is not faster than dense SDPA {t_lib:.4f} ms")
     return {
         "gate_select": dict(max_abs_err=gate_err, ms=t_gk, plain_ms=t_gp,
                             bound_ms=gb, bound_by=gby, library_ms=None),
@@ -925,7 +1001,8 @@ def phase_splitk_kernels(seen):
     v_view = pg.gather_kv(vp, pt_d, vs).to(q.dtype)
     t_lib = sdpa_masked_ms(q, k_view, v_view, kv_len)
     del k_view, v_view
-    single_name = "block_sparse_decode_paged" + ("_quant" if quant else "")
+    single_name = ("block_sparse_decode_paged_quant" if quant else
+                   "block_sparse_decode_paged (#4: the sm90 body at its split plan)")
     ctas = q.shape[0] * q.shape[1] * SPLIT_K
     print(f"{name}: kernel {t_k:.4f} ms at num_splits {SPLIT_K} ({ctas} CTAs), plain {t_p:.4f} ms, bound {b_ms:.5f} ms ({b_by}); {single_name} on the same "
           f"inputs {t_single:.4f} ms before, {t_single_again:.4f} ms after; sweep "
@@ -1000,21 +1077,31 @@ def phase_paged_kernels(seen):
 
     t_gk = time_ms(lambda: gs.gate_select_paged_cuda(qg, kgp, pt, nv, gcfg, ms))
     t_gp = time_ms(lambda: gs.gate_select_paged_plain(qg, kgp, pt, nv, gcfg, ms))
-    t_dk = time_ms(lambda: bsd.sparse_decode_paged_cuda(q, kp, vp, idx, pt_d, kv_len,
-                                                        block_size=bs))
+    dec = lambda ns=None: bsd.sparse_decode_paged_cuda(
+        q, kp, vp, idx, pt_d, kv_len, block_size=bs, num_splits=ns)
+    t_dk = time_ms(dec)
     t_dp = time_ms(lambda: bsd.sparse_decode_paged_plain(q, kp, vp, idx, pt_d, kv_len,
                                                          block_size=bs))
     # yardstick: dense SDPA over the slots' gathered view (the gather is
     # not timed), each slot masked at its length
-    t_lib = sdpa_masked_ms(q, pg.gather_kv(kp, pt_d), pg.gather_kv(vp, pt_d), kv_len)
+    k_view, v_view = pg.gather_kv(kp, pt_d), pg.gather_kv(vp, pt_d)
+    t_lib = sdpa_masked_ms(q, k_view, v_view, kv_len)
+    t_lib_host = sdpa_masked_ms(q, k_view, v_view, kv_len, hide_host=False)
+    del k_view, v_view
     k_sel = gs.n_selected(gcfg, npt, ms)
     gbytes, gops = gate_work(qg, nv, k_sel)
     gb, gby = bound_ms(gbytes + 4 * int(nv.sum()), gops)     # + page-table entries
-    db, dby = paged_decode_bound_ms(q, idx, kv_len, bs)
+    dbytes, dops = paged_decode_work(q, idx, kv_len, bs)
+    db, dby = bound_ms(dbytes, dops)
     print(f"gate_select_paged: kernel {t_gk:.4f} ms, plain {t_gp:.4f} ms, bound {gb:.5f} ms ({gby})")
     print(f"block_sparse_decode_paged: kernel {t_dk:.4f} ms, plain {t_dp:.4f} ms, bound "
           f"{db:.5f} ms ({dby}), SDPA dense over the gathered view (masked at kv_len) "
-          f"{t_lib:.4f} ms")
+          f"{t_lib:.4f} ms; with the host's enqueue counted: kernel "
+          f"{time_ms(dec, hide_host=False):.4f} ms, SDPA {t_lib_host:.4f} ms")
+    report_fp_decode("block_sparse_decode_paged", q, idx, t_dk, dbytes, db, dec)
+    if not t_dk < t_lib:
+        fail(f"block_sparse_decode_paged {t_dk:.4f} ms is not faster than masked SDPA "
+             f"{t_lib:.4f} ms")
     return {
         "gate_select_paged": dict(max_abs_err=gate_err, ms=t_gk, plain_ms=t_gp,
                                   bound_ms=gb, bound_by=gby, library_ms=None),
@@ -1575,12 +1662,13 @@ def run_phases(shard) -> int:
     meta = {
         "gate_select": ("src/repro_torch/kernels/csrc/gate_select.cu",
                         "src/repro/kernels/gate_select.py:133"),
-        "block_sparse_decode": ("src/repro_torch/kernels/csrc/block_sparse_decode.cu",
+        "block_sparse_decode": ("src/repro_torch/kernels/csrc/block_sparse_decode_sm90.cu",
                                 "src/repro/kernels/block_sparse_decode.py:222"),
         "gate_select_paged": ("src/repro_torch/kernels/csrc/gate_select.cu",
                               "src/repro/kernels/gate_select.py:218"),
-        "block_sparse_decode_paged": ("src/repro_torch/kernels/csrc/block_sparse_decode.cu",
-                                      "src/repro/kernels/block_sparse_decode.py:285"),
+        "block_sparse_decode_paged": (
+            "src/repro_torch/kernels/csrc/block_sparse_decode_sm90.cu",
+            "src/repro/kernels/block_sparse_decode.py:285"),
         "block_sparse_decode_quant": ("src/repro_torch/kernels/csrc/block_sparse_decode.cu",
                                       "src/repro/kernels/block_sparse_decode.py:170"),
         "block_sparse_decode_paged_quant": (

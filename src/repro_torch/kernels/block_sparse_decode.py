@@ -15,8 +15,11 @@ are the reference's native head-major ones:
 ``kernels/ref.py::sparse_decode_ref`` (gather the selected blocks, masked
 softmax in fp32): the CPU execution path and the oracle the kernel is
 held against on the card. ``sparse_decode_cuda`` launches
-``csrc/block_sparse_decode.cu`` on the current stream and counts its
-launches in ``sparse_decode_cuda.launches``.
+``csrc/block_sparse_decode_sm90.cu`` on the current stream and counts its
+launches in ``sparse_decode_cuda.launches``. That body cuts each (b,
+kv-head)'s selected list into ``split_plan(...)`` segments, one CTA each,
+and combines their flash partials with the split-K rescale below; the
+plan depends on the shapes and the SM count only (see ``split_plan``).
 
 The paged pair reads the page pools ``k_pages``/``v_pages`` [P, Hkv, ps,
 Dh] (ps == block_size) through ``page_table`` [B, npt] int32: the
@@ -24,7 +27,8 @@ selected ids stay LOGICAL, a block's rows come from its physical page,
 and the masking stays in logical positions. ``sparse_decode_paged_plain``
 is the twin of ``kernels/ref.py::paged_sparse_decode_ref``;
 ``sparse_decode_paged_cuda`` launches the paged entry point of the same
-source and counts in ``sparse_decode_paged_cuda.launches``.
+source (same body, same plan) and counts in
+``sparse_decode_paged_cuda.launches``.
 
 Fused int8 dequant (TPU bodies ``_kernel_quant`` and
 ``_kernel_paged_quant``): ``k_scales``/``v_scales`` are per-block
@@ -33,8 +37,8 @@ the contiguous cache and [P, Hkv, 1] pool rows (one per physical page)
 for the paged one. The plain versions multiply only the GATHERED selected
 blocks by their scales inside the fp32 upcast, as ``ref._deq`` does; None
 leaves them bitwise what they are for fp caches. ``sparse_decode_quant_cuda``
-and ``sparse_decode_paged_quant_cuda`` launch the int8 instances of the
-same CUDA body, each with its own launch counter.
+and ``sparse_decode_paged_quant_cuda`` launch the int8 instances of
+``csrc/block_sparse_decode.cu``'s body, each with its own launch counter.
 
 Split-K (TPU kernel ``block_sparse_decode_paged_splitk``, fp body
 ``_kernel_paged_splitk`` and int8 body ``_kernel_paged_splitk_quant``):
@@ -46,7 +50,8 @@ two-pass rescale ``m = max_s m_s``, ``l = sum_s l_s e^{m_s - m}``,
 is the twin of ``kernels/ref.py::paged_sparse_decode_splitk_ref``;
 ``sparse_decode_paged_splitk_cuda`` and
 ``sparse_decode_paged_splitk_quant_cuda`` launch the split instances of
-the same CUDA body plus its combine kernel (two launches, one count).
+``csrc/block_sparse_decode.cu``'s body plus its combine kernel (two
+launches, one count).
 """
 from __future__ import annotations
 
@@ -61,6 +66,46 @@ from repro_torch.models.common import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP_ELEMS = 4096            # G * Dh the kernel keeps in registers
+SPLIT_CTAS_PER_SM = 2             # the fp decode's split plan: CTAs it aims for per SM ...
+SPLIT_MIN_ENTRIES = 4             # ... with at least this many selected entries each
+
+
+def split_plan(batch: int, hkv: int, nsel: int, n_sm: int) -> int:
+    """Segments the fp decode kernel cuts each (b, kv-head)'s selected list
+    into: enough CTAs for ``SPLIT_CTAS_PER_SM`` on each of the card's
+    ``n_sm`` SMs, each segment at least ``SPLIT_MIN_ENTRIES`` entries long,
+    trimmed so that no segment of ``split_segments`` is empty. A pure
+    function of these four numbers: kv_len, the pool and the page table do
+    not enter it, so the contiguous and the paged entry points, a tight and
+    an ample pool, and shuffled pages all reduce the same segments in the
+    same order (bitwise the same output). 8 segments of 8 entries (256
+    CTAs) at the main path's 4 x 8 heads x 64 entries on 132 SMs."""
+    if nsel <= 0:
+        return 1
+    want = -(-SPLIT_CTAS_PER_SM * n_sm // max(1, batch * hkv))
+    ns = max(1, min(want, nsel // SPLIT_MIN_ENTRIES))
+    per = -(-nsel // ns)
+    return -(-nsel // per)
+
+
+def split_segments(nsel: int, num_splits: int):
+    """[(j0, j1)] of each segment: ``per = ceil(nsel / num_splits)`` entries,
+    the last cut at nsel (the reference's split-K boundaries, as
+    ``sparse_decode_paged_splitk_plain`` cuts them); a segment past nsel is
+    empty."""
+    per = -(-nsel // num_splits)
+    return [(min(s * per, nsel), min((s + 1) * per, nsel)) for s in range(num_splits)]
+
+
+_N_SM: dict = {}
+
+
+def n_sm(device: torch.device) -> int:
+    """The card's SM count (cached per device)."""
+    key = torch.device(device).index or 0
+    if key not in _N_SM:
+        _N_SM[key] = torch.cuda.get_device_properties(key).multi_processor_count
+    return _N_SM[key]
 
 
 def _deq(g: torch.Tensor, scales: Optional[torch.Tensor], idx: torch.Tensor,
@@ -211,15 +256,15 @@ def _bind(lib: ctypes.CDLL, paged: bool = False, quant: bool = False,
     elif paged and quant:
         fn = lib.block_sparse_decode_paged_quant_launch
         types = [p] * 9 + [i, i, i, i, i, i, i, f, i, p]
-    elif paged:
-        fn = lib.block_sparse_decode_paged_launch
-        types = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
     elif quant:
         fn = lib.block_sparse_decode_quant_launch
         types = [p] * 8 + [i, i, i, i, i, i, i, i, f, i, p]
+    elif paged:          # csrc/block_sparse_decode_sm90.cu
+        fn = lib.block_sparse_decode_sm90_paged_launch
+        types = [p] * 8 + [i] * 8 + [f, i, p]
     else:
-        fn = lib.block_sparse_decode_launch
-        types = [p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+        fn = lib.block_sparse_decode_sm90_launch
+        types = [p] * 7 + [i] * 8 + [f, i, p]
     if fn.argtypes is None:
         fn.argtypes = types
         fn.restype = ctypes.c_int
@@ -248,32 +293,59 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ints,
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def _launch_sm90(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 block_indices: torch.Tensor, kv_len: torch.Tensor, block_size: int,
+                 num_splits: Optional[int], page_table: Optional[torch.Tensor] = None,
+                 s_max: int = 0) -> torch.Tensor:
+    """The launch shared by the two fp wrappers (shapes checked by them):
+    ``num_splits`` None takes ``split_plan``; > 1 allocates the f32
+    partials, acc [B,Hkv,ns,G,Dh] then m and l [B,Hkv,ns,G]."""
+    b, hkv, g, dh = q.shape
+    nsel = block_indices.shape[-1]
+    out = torch.empty_like(q)
+    if nsel == 0:
+        return out.zero_()
+    ns = split_plan(b, hkv, nsel, n_sm(q.device)) if num_splits is None else num_splits
+    if ns < 1:
+        raise ValueError(f"{name}: num_splits must be >= 1, got {ns}")
+    work = None
+    if ns > 1:
+        work = torch.empty(b * hkv * ns * (g * dh + 2 * g), dtype=torch.float32,
+                           device=q.device)
+    lib = build.load("block_sparse_decode_sm90")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), block_indices.data_ptr())
+    if page_table is not None:
+        ptrs += (page_table.data_ptr(),)
+    ptrs += (kv_len.data_ptr(), out.data_ptr(), 0 if work is None else work.data_ptr())
+    dims = (b, hkv, g, dh, s_max if page_table is None else page_table.shape[1], nsel,
+            block_size, ns)
+    rc = _bind(lib, paged=page_table is not None)(
+        *ptrs, *dims, 1.0 / math.sqrt(dh), _DTYPES[q.dtype], stream)
+    build.check(lib, rc, f"{name} kernel launch")
+    return out
+
+
 def sparse_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                        v_cache: torch.Tensor, block_indices: torch.Tensor,
-                       kv_len: torch.Tensor, *, block_size: int) -> torch.Tensor:
-    """Launch the CUDA block-sparse decode kernel."""
-    dev = q.device
+                       kv_len: torch.Tensor, *, block_size: int,
+                       num_splits: Optional[int] = None) -> torch.Tensor:
+    """Launch the CUDA block-sparse decode kernel (``block_sparse_decode_sm90``).
+    ``num_splits`` overrides the split plan (a sweep or a test); None, as
+    the model calls it, takes ``split_plan``."""
     _check("sparse_decode_cuda", q, k_cache, v_cache, (block_indices, kv_len))
     b, hkv, g, dh = q.shape
     s_max = k_cache.shape[2]
-    nsel = block_indices.shape[-1]
     if k_cache.shape != (b, hkv, s_max, dh) or v_cache.shape != k_cache.shape \
             or block_indices.shape[:2] != (b, hkv) or tuple(kv_len.shape) != (b,):
         raise ValueError(
             f"sparse_decode_cuda: shapes q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
             f"v {tuple(v_cache.shape)}, idx {tuple(block_indices.shape)}, "
             f"kv_len {tuple(kv_len.shape)}")
-    out = torch.empty_like(q)
-    if nsel == 0:
-        return out.zero_()
-    lib = build.load("block_sparse_decode")
-    rc = _bind(lib)(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        block_indices.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        b, hkv, g, dh, s_max, nsel, block_size, 1.0 / math.sqrt(dh),
-        _DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, rc, "block_sparse_decode kernel launch")
-    sparse_decode_cuda.launches += 1
+    out = _launch_sm90("block_sparse_decode", q, k_cache, v_cache, block_indices, kv_len,
+                       block_size, num_splits, s_max=s_max)
+    if block_indices.shape[-1]:
+        sparse_decode_cuda.launches += 1
     return out
 
 
@@ -283,14 +355,14 @@ sparse_decode_cuda.launches = 0
 def sparse_decode_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                              v_pages: torch.Tensor, block_indices: torch.Tensor,
                              page_table: torch.Tensor, kv_len: torch.Tensor, *,
-                             block_size: int) -> torch.Tensor:
-    """Launch the CUDA paged block-sparse decode kernel."""
-    dev = q.device
+                             block_size: int,
+                             num_splits: Optional[int] = None) -> torch.Tensor:
+    """Launch the CUDA paged block-sparse decode kernel (the paged instance
+    of ``block_sparse_decode_sm90``); ``num_splits`` as ``sparse_decode_cuda``."""
     _check("sparse_decode_paged_cuda", q, k_pages, v_pages,
-              (block_indices, page_table, kv_len))
+           (block_indices, page_table, kv_len))
     b, hkv, g, dh = q.shape
     n_pages, ps = k_pages.shape[0], k_pages.shape[2]
-    nsel = block_indices.shape[-1]
     if ps != block_size:
         raise ValueError(f"sparse_decode_paged_cuda: page size {ps} != block size "
                          f"{block_size}")
@@ -302,18 +374,10 @@ def sparse_decode_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
             f"{tuple(k_pages.shape)}, v_pages {tuple(v_pages.shape)}, idx "
             f"{tuple(block_indices.shape)}, page_table {tuple(page_table.shape)}, "
             f"kv_len {tuple(kv_len.shape)}")
-    out = torch.empty_like(q)
-    if nsel == 0:
-        return out.zero_()
-    lib = build.load("block_sparse_decode")
-    rc = _bind(lib, paged=True)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_indices.data_ptr(), page_table.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), b, hkv, g, dh, page_table.shape[1], nsel, block_size,
-        1.0 / math.sqrt(dh), _DTYPES[q.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, rc, "block_sparse_decode_paged kernel launch")
-    sparse_decode_paged_cuda.launches += 1
+    out = _launch_sm90("block_sparse_decode_paged", q, k_pages, v_pages, block_indices,
+                       kv_len, block_size, num_splits, page_table=page_table)
+    if block_indices.shape[-1]:
+        sparse_decode_paged_cuda.launches += 1
     return out
 
 

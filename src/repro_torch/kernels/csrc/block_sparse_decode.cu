@@ -1,11 +1,7 @@
-// Block-sparse flash decoding over a head-major KV cache or page pool
-// (Hopper, sm_90a).
+// Block-sparse flash decoding over int8 K/V, and split-K paged decode,
+// over a head-major KV cache or page pool (Hopper, sm_90a).
 //
-// Replaces six TPU kernel bodies of src/repro/kernels/block_sparse_decode.py:
-//   block_sparse_decode        (fp body _kernel -> _flash_group ->
-//                              _flash_accum): block_sparse_decode_launch;
-//   block_sparse_decode_paged  (fp body _kernel_paged): the same body over
-//                              the page pools, block_sparse_decode_paged_launch;
+// Replaces four TPU kernel bodies of src/repro/kernels/block_sparse_decode.py:
 //   _kernel_quant, _kernel_paged_quant (fused int8 dequant):
 //                              block_sparse_decode_quant_launch and
 //                              block_sparse_decode_paged_quant_launch;
@@ -14,6 +10,14 @@
 //                              _kernel_paged_splitk_quant:
 //                              block_sparse_decode_paged_splitk_launch and
 //                              block_sparse_decode_paged_splitk_quant_launch.
+// The fp single-pass bodies (block_sparse_decode, _kernel; and
+// block_sparse_decode_paged, _kernel_paged) moved to
+// block_sparse_decode_sm90.cu, a body redesigned for the card (split over
+// the SMs, a cp.async ring, warps with their own softmax state). The
+// template below still carries their instances (Quant = false, Split =
+// false), which no entry point launches; it is the body the four above
+// run, arithmetic unchanged, until they move onto the new one.
+//
 // Contiguous contract:
 //   q        [B, Hkv, G, Dh]    one new query token, grouped per kv head
 //   k, v     [B, Hkv, S, Dh]    post-rope caches (bf16 or fp32, same as q)
@@ -78,13 +82,13 @@
 // scalar-prefetch index map.
 //
 // Bound on the H100: at the main path's shape (B=4, Hkv=8, k=64 blocks x
-// 64 tokens x Dh 128, bf16, K+V) one call must read ~67 MB: ~20 us at
-// 3.35 TB/s (the paged entry point adds 4 bytes of page table per selected
-// block; int8 pools halve the K/V bytes, ~10 us, plus 8 bytes of scales per
-// selected block). This simple kernel does not reach it: B*Hkv = 32 CTAs run on
-// 32 of the 132 SMs, and each CTA waits for a block's loads before it
-// computes on them, so at most one block per CTA is in flight (no
-// cp.async/TMA pipeline across blocks, no split across SMs, no wgmma).
+// 64 tokens x Dh 128, K+V) int8 pools hold ~34 MB of codes: ~10 us at
+// 3.35 TB/s, plus 8 bytes of scales and 4 of page table per selected block
+// (the fp split-K instance reads bf16, ~67 MB, ~20 us). This simple
+// kernel does not reach it: B*Hkv = 32 CTAs run on 32 of the 132 SMs,
+// and each CTA waits for a block's loads before it computes on them, so
+// at most one block per CTA is in flight (no cp.async/TMA pipeline across
+// blocks, no split across SMs, no wgmma).
 // The split-K instances spread each (b, h)'s serial block loop over
 // num_splits CTAs (4 splits x 32 = 128 CTAs at the main path's shape), at
 // the cost of writing and reading the f32 partials ((G*Dh + 2G) * 4 bytes
@@ -415,25 +419,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks, const 
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
-int block_sparse_decode_launch(const void* q, const void* k, const void* v, const void* idx,
-                               const void* kv_len, void* out, int B, int H, int G, int Dh, int S,
-                               int nsel, int bs, float scale, int dtype, void* stream) {
-  return dispatch<false, false, false>(q, k, v, nullptr, nullptr, idx, nullptr, kv_len, out,
-                                       nullptr, B, H, G, Dh, S, 0, 0, nsel, bs, 1, scale, dtype,
-                                       stream);
-}
-
-// k_pages, v_pages [P, H, ps, Dh] with ps == bs; page_table [B, npt]. Blocks
-// are masked in logical positions against kv_len, up to npt * ps.
-int block_sparse_decode_paged_launch(const void* q, const void* k_pages, const void* v_pages,
-                                     const void* idx, const void* page_table, const void* kv_len,
-                                     void* out, int B, int H, int G, int Dh, int npt, int nsel,
-                                     int bs, float scale, int dtype, void* stream) {
-  return dispatch<true, false, false>(q, k_pages, v_pages, nullptr, nullptr, idx, page_table,
-                                      kv_len, out, nullptr, B, H, G, Dh, npt * bs, 0, npt, nsel,
-                                      bs, 1, scale, dtype, stream);
-}
+// dtype: 0 = float32, 1 = bfloat16 (q and out). Each entry point returns
+// cudaGetLastError() after its launches.
 
 // int8 k, v [B, H, S, Dh]; k_scales, v_scales [B, H, nsb] float32 with
 // nsb * bs >= S (one scale per cache block). dtype is q's and out's.
@@ -460,8 +447,8 @@ int block_sparse_decode_paged_quant_launch(const void* q, const void* k_pages,
                                      1, scale, dtype, stream);
 }
 
-// Split-K paged decode: the fp pools of block_sparse_decode_paged_launch,
-// the selected list cut into num_splits segments; workspace holds B * H *
+// Split-K paged decode over fp pools [P, H, ps, Dh] (ps == bs) and a page
+// table [B, npt], the selected list cut into num_splits segments; workspace holds B * H *
 // num_splits * (G * Dh + 2 * G) floats. Two launches: the split body, then
 // the combine into out.
 int block_sparse_decode_paged_splitk_launch(const void* q, const void* k_pages,

@@ -131,16 +131,23 @@ def test_sparse_decode_kernel_matches_plain(dev, dtype, b, hkv, g, dh, nb, bs, n
     assert torch.equal(o_k[0, 0], torch.zeros_like(o_k[0, 0]))
 
 
-# one-line faults in the decode kernel's arithmetic: (source line, edit)
+# the fp decode body (#2 and #4) and its one-line faults: (source line,
+# edit); the last two are faults of its split over the SMs
+SM90_SOURCE = "block_sparse_decode_sm90.cu"
 MUTANTS = {
-    "no running-max rescale": ("const float alpha = expf(m_prev - m_new);",
+    "no running-max rescale": ("const float alpha = exp2f(m - mx);",
                                "const float alpha = 1.f;"),
-    "sum not rescaled": ("l_s[g] = alpha * l_s[g] + sum;", "l_s[g] = l_s[g] + sum;"),
-    "scale x 1.05": ("ps[pr] = (t < nt) ? s * scale", "ps[pr] = (t < nt) ? s * scale * 1.05f"),
-    "last selected block skipped": ("for (int j = j0; j < j1; ++j) {",
-                                    "for (int j = j0; j < j1 - 1; ++j) {"),
-    "last key dropped from P.V": ("for (int t = 0; t < nt; ++t) a +=",
-                                  "for (int t = 0; t < nt - 1; ++t) a +="),
+    "sum not rescaled": ("l = alpha * l + sum;", "l = l + sum;"),
+    "scale x 1.05": ("s[t] = (t < nb) ? s[t] * scale2 : kNegInf;",
+                     "s[t] = (t < nb) ? s[t] * scale2 * 1.05f : kNegInf;"),
+    "last selected block skipped": ("while (j < j1) {", "while (j < j1 - 1) {"),
+    "last key dropped from P.V": ("for (int t = 0; t < kBatch; ++t)  // p = 0 past nb",
+                                  "for (int t = 0; t < kBatch - 1; ++t)  // p = 0 past nb"),
+    "segment end one past the boundary": ("const int j1 = min(j0 + per, p.nsel);",
+                                          "const int j1 = min(j0 + per + 1, p.nsel);"),
+    "combine without the rescale": (
+        "const float rs = (ls > 0.f) ? exp2f(pm[s * G] - m) : 0.f;",
+        "const float rs = (ls > 0.f) ? 1.f : 0.f;"),
 }
 
 
@@ -153,9 +160,10 @@ def test_decode_limit_rejects_a_faulty_kernel(dev, mutant, tmp_path, monkeypatch
     block among them, in random order. The outputs are then about 0.02, so
     a fixed 2e-2 limit would pass most of these faults; the limit of 8
     ulps of max|o_plain| must not. The correct kernel passes the same
-    check on the same inputs."""
+    check on the same inputs. The kernel runs its split plan (8 segments
+    on an H100), so the split and combine faults show."""
     old, new = MUTANTS[mutant]
-    src = (build.CSRC / "block_sparse_decode.cu").read_text()
+    src = (build.CSRC / SM90_SOURCE).read_text()
     assert src.count(old) == 1, mutant
     cu = tmp_path / "mutant.cu"
     cu.write_text(src.replace(old, new))
@@ -267,8 +275,39 @@ def test_sparse_decode_paged_kernel_matches_plain(dev, dtype, s, hkv, g, dh, npt
     assert torch.equal(o_k, bsd.sparse_decode_cuda(q, k, v, idx, kv_len, block_size=bs))
 
 
-PAGED_MUTANT = ("const int phys = max(page_table[(size_t)b * npt + blk], 0);",
-                "const int phys = blk;")
+PAGED_MUTANT = ("return max(page_table[(size_t)b * npt + blk], 0);", "return blk;")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hkv,g,dh,npt,bs,nsel", [
+    (2, 2, 2, 16, 8, 8, 4),
+    (3, 1, 5, 32, 6, 16, 6),
+    (4, 8, 2, 128, 257, 64, 64),           # the main path's shapes
+])
+def test_sparse_decode_split_plan_cases(dev, dtype, s, hkv, g, dh, npt, bs, nsel):
+    """#2 and #4 at the planned split and at 1, 2, nsel and nsel + 3 segments
+    (more segments than selected entries: the empty ones drop out of the
+    combine), on the same inputs as above plus a kv_len inside the first
+    block (every selected block past it masked): each within the limit of
+    its plain version, the (slot, head) row with no valid key 0 in every
+    segment, and the paged kernel bitwise the contiguous one."""
+    q, kp, vp, idx, pt, kv_len, (k, v) = _paged_inputs(dev, dtype, s, hkv, g, dh, npt,
+                                                       bs, nsel)
+    short = kv_len.clone()
+    short[1:] = bs // 2 + 1                 # rows 1.. end inside their first block
+    first = idx.clone()
+    first[1:, :, -1] = 0                    # ... which each of their heads selects
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"planned splits {bsd.split_plan(s, hkv, nsel, n_sm)} on {n_sm} SMs")
+    for lens, ids in ((kv_len, idx), (short, first)):
+        o_p = bsd.sparse_decode_plain(q, k, v, ids, lens, block_size=bs)
+        for ns in (None, 1, 2, nsel, nsel + 3):
+            o_k = bsd.sparse_decode_cuda(q, k, v, ids, lens, block_size=bs, num_splits=ns)
+            o_g = bsd.sparse_decode_paged_cuda(q, kp, vp, ids, pt, lens, block_size=bs,
+                                               num_splits=ns)
+            torch.cuda.synchronize()
+            _check_decode(o_k, o_p, dtype)
+            assert torch.equal(o_k, o_g), ns
 
 
 def test_paged_decode_limit_rejects_logical_id_as_page(dev, tmp_path, monkeypatch):
@@ -276,7 +315,7 @@ def test_paged_decode_limit_rejects_logical_id_as_page(dev, tmp_path, monkeypatc
     physical page fails chip_smoke.py's 8-ulp limit on a shuffled table at
     the main path's shape; the correct kernel passes it."""
     old, new = PAGED_MUTANT
-    src = (build.CSRC / "block_sparse_decode.cu").read_text()
+    src = (build.CSRC / SM90_SOURCE).read_text()
     assert src.count(old) == 1
     cu = tmp_path / "mutant_paged.cu"
     cu.write_text(src.replace(old, new))
