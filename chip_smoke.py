@@ -43,12 +43,13 @@ non-zero):
      peaked softmax (max abs error within 8 bf16 ulps of the plain
      output's largest element, and within 2e-2); each kernel, its plain
      version and the library yardstick timed with CUDA events (median of
-     30 runs, a spin kernel holding the card while the host enqueues each
-     call, so that the host's launch overhead is not counted: see
-     ``time_ms``; the per-call time with it counted is printed beside #2's
-     and #4's); for #2 its split plan (segments, CTAs), its
-     rate (the bound's bytes over its time), its share of the bound and a
-     sweep of the split count, for information; #2 must beat dense SDPA;
+     30 runs onto an idle card, the host's enqueue of a call counted
+     where it is the longer: see ``time_ms``); #2 must beat dense SDPA so
+     timed; for information, #2's and SDPA's times with the host's
+     enqueue hidden behind a spin kernel, #2's host enqueue of one call,
+     its split plan (segments, CTAs), its rate (the bound's bytes over
+     its time) and share of the bound at both times, and a sweep of the
+     split count;
   4. end to end: ``generate`` on qwen3_0_6b in bf16 with random weights
      from a seed, every launch counter set to 0 just before and read just
      after; each kernel must launch layers x decode steps times; all
@@ -227,24 +228,28 @@ def spin_cycles_per_ms() -> float:
     return _SPIN_PER_MS[0]
 
 
-def time_ms(fn, runs: int = 30, warmup: int = 3, hide_host: bool = True) -> float:
-    """Median device time of one call, from CUDA events around each call.
-    With ``hide_host`` a spin kernel holds the card busy while the host
-    enqueues the call (twice the host's enqueue time of one call), so the
-    events see the call's device work back to back and not the host's
-    launch overhead, which a decode kernel of a few tens of us is shorter
-    than (that overhead is the step's, and phases 4-8 measure it). A call
-    that synchronises inside still counts its host time after the sync.
-    Without ``hide_host``: the events around a call the host enqueues onto
-    an idle card, which counts the host's enqueue where it is the longer."""
+def time_ms(fn, runs: int = 30, warmup: int = 3, hide_host: bool = False) -> float:
+    """Median time of one call, from CUDA events around each call the host
+    enqueues onto an idle card: where the host's enqueue of the call is
+    longer than its device work, as for a decode kernel of a few tens of
+    us, the host's part counts. Every recorded ``ms``, the table of
+    PERF.md and every check here use this.
+
+    ``hide_host`` (printed beside #2's and #4's times, for information
+    only): a spin kernel holds the card busy while the host enqueues each
+    call (twice the host's enqueue time of one call), so the events see
+    the call's device work back to back and not the host's launch
+    overhead."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_ms = 1e3 * (time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    spin = int((2 * host_ms + 0.05) * spin_cycles_per_ms()) if hide_host else 0
+    spin = 0
+    if hide_host:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        spin = int((2 * host_ms + 0.05) * spin_cycles_per_ms())
     times = []
     for _ in range(runs):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -359,21 +364,40 @@ def paged_decode_bound_ms(q, idx, kv_len, block_size, kv_es=None, num_splits=1):
 SPLIT_SWEEP = (1, 2, 4, 8, 16, 32)
 
 
-def report_fp_decode(name, q, idx, t_k, nbytes, b_ms, kernel):
+def host_enqueue_ms(fn, runs: int = 30, warmup: int = 3) -> float:
+    """Median host time of one call onto an idle card: perf_counter around
+    the call, the card synchronised before it and after it, not inside."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def report_fp_decode(name, q, idx, t_k, t_dev, nbytes, b_ms, kernel):
     """The fp decode's split plan (#2, #4), its achieved rate (the bound's
-    bytes over the time) and share of the bound, and, for information, a
-    sweep of the split count, ``kernel(num_splits)`` timed as ``time_ms``."""
+    bytes over the time) and share of the bound, at the recorded time
+    ``t_k`` and at the time with the host's enqueue hidden ``t_dev``, the
+    host's enqueue of one call, and, for information, a sweep of the split
+    count, ``kernel(num_splits)`` timed with the host hidden."""
     b, hkv, g, dh = q.shape
     nsel = idx.shape[-1]
     ns = bsd.split_plan(b, hkv, nsel, bsd.n_sm(q.device))
     segs = bsd.split_segments(nsel, ns)
-    sweep = {n: time_ms(lambda n=n: kernel(n)) for n in SPLIT_SWEEP}
+    t_host = host_enqueue_ms(kernel)
+    sweep = {n: time_ms(lambda n=n: kernel(n), hide_host=True) for n in SPLIT_SWEEP}
+    rate = lambda t: f"{nbytes / (t * 1e-3) / 1e9:.1f} GB/s, {100 * b_ms / t:.1f}% of the bound"
     print(f"{name}: split plan {ns} segments of {segs[0][1] - segs[0][0]} entries "
           f"({b * hkv * ns} CTAs, B {b} x Hkv {hkv} x {ns}, on {bsd.n_sm(q.device)} SMs"
-          f"{'' if ns == 1 else ', + 1 combine launch'}); {nbytes / (t_k * 1e-3) / 1e9:.1f} GB/s "
-          f"({nbytes / 1e6:.2f} MB over {t_k:.4f} ms), {100 * b_ms / t_k:.1f}% of the bound; "
-          f"sweep (information only): "
-          + ", ".join(f"{n} splits {t:.4f} ms" for n, t in sweep.items()))
+          f"{'' if ns == 1 else ', + 1 combine launch'}); {nbytes / 1e6:.2f} MB: at the "
+          f"recorded {t_k:.4f} ms {rate(t_k)}; with the host's enqueue hidden {t_dev:.4f} ms "
+          f"{rate(t_dev)}; host enqueue of one call {t_host:.4f} ms; sweep (information "
+          f"only, host hidden): " + ", ".join(f"{n} splits {t:.4f} ms" for n, t in sweep.items()))
     return ns
 
 
@@ -429,7 +453,7 @@ def shuffled_pages(table, *pools):
     return (perm[table.long()].int(), *(p[inv] for p in pools))
 
 
-def sdpa_masked_ms(q, kc, vc, kv_len, hide_host: bool = True):
+def sdpa_masked_ms(q, kc, vc, kv_len, hide_host: bool = False):
     """Time of dense SDPA over head-major caches [B, Hkv, S, Dh] in q's
     dtype, each row masked at its length, K/V heads expanded (the
     expansion not timed); ``hide_host`` as ``time_ms``."""
@@ -627,8 +651,7 @@ def phase_kernels(seen):
     if int(kv_len[0]) % bs == 0:
         fail("expected a partial last block at the captured kv_len")
 
-    # timings (median of 30 CUDA-event-timed calls each, the host's enqueue
-    # hidden: see time_ms)
+    # timings (median of 30 CUDA-event-timed calls each: see time_ms)
     t_gk = time_ms(lambda: gs.gate_select_cuda(qg, kg, nv, gcfg, ms))
     t_gp = time_ms(lambda: gs.gate_select_plain(qg, kg, nv, gcfg, ms))
     dec = lambda ns=None: bsd.sparse_decode_cuda(q, kc, vc, idx, kv_len, block_size=bs,
@@ -647,11 +670,12 @@ def phase_kernels(seen):
     dbytes, dops = decode_work(q, idx, kv_len, bs)
     db, dby = bound_ms(dbytes, dops)
     print(f"gate_select: kernel {t_gk:.4f} ms, plain {t_gp:.4f} ms, bound {gb:.5f} ms ({gby})")
+    t_dk_dev, t_lib_dev = time_ms(dec, hide_host=True), time_ms(lib_call, hide_host=True)
     print(f"block_sparse_decode: kernel {t_dk:.4f} ms, plain {t_dp:.4f} ms, "
           f"bound {db:.5f} ms ({dby}), SDPA dense over {n} tokens {t_lib:.4f} ms; "
-          f"with the host's enqueue counted: kernel {time_ms(dec, hide_host=False):.4f} ms, "
-          f"SDPA {time_ms(lib_call, hide_host=False):.4f} ms")
-    report_fp_decode("block_sparse_decode", q, idx, t_dk, dbytes, db, dec)
+          f"with the host's enqueue hidden (information only): kernel {t_dk_dev:.4f} ms, "
+          f"SDPA {t_lib_dev:.4f} ms")
+    report_fp_decode("block_sparse_decode", q, idx, t_dk, t_dk_dev, dbytes, db, dec)
     if not t_dk < t_lib:
         fail(f"block_sparse_decode {t_dk:.4f} ms is not faster than dense SDPA {t_lib:.4f} ms")
     return {
@@ -1079,14 +1103,14 @@ def phase_paged_kernels(seen):
     t_gp = time_ms(lambda: gs.gate_select_paged_plain(qg, kgp, pt, nv, gcfg, ms))
     dec = lambda ns=None: bsd.sparse_decode_paged_cuda(
         q, kp, vp, idx, pt_d, kv_len, block_size=bs, num_splits=ns)
-    t_dk = time_ms(dec)
+    t_dk, t_dk_dev = time_ms(dec), time_ms(dec, hide_host=True)
     t_dp = time_ms(lambda: bsd.sparse_decode_paged_plain(q, kp, vp, idx, pt_d, kv_len,
                                                          block_size=bs))
     # yardstick: dense SDPA over the slots' gathered view (the gather is
     # not timed), each slot masked at its length
     k_view, v_view = pg.gather_kv(kp, pt_d), pg.gather_kv(vp, pt_d)
     t_lib = sdpa_masked_ms(q, k_view, v_view, kv_len)
-    t_lib_host = sdpa_masked_ms(q, k_view, v_view, kv_len, hide_host=False)
+    t_lib_dev = sdpa_masked_ms(q, k_view, v_view, kv_len, hide_host=True)
     del k_view, v_view
     k_sel = gs.n_selected(gcfg, npt, ms)
     gbytes, gops = gate_work(qg, nv, k_sel)
@@ -1096,9 +1120,9 @@ def phase_paged_kernels(seen):
     print(f"gate_select_paged: kernel {t_gk:.4f} ms, plain {t_gp:.4f} ms, bound {gb:.5f} ms ({gby})")
     print(f"block_sparse_decode_paged: kernel {t_dk:.4f} ms, plain {t_dp:.4f} ms, bound "
           f"{db:.5f} ms ({dby}), SDPA dense over the gathered view (masked at kv_len) "
-          f"{t_lib:.4f} ms; with the host's enqueue counted: kernel "
-          f"{time_ms(dec, hide_host=False):.4f} ms, SDPA {t_lib_host:.4f} ms")
-    report_fp_decode("block_sparse_decode_paged", q, idx, t_dk, dbytes, db, dec)
+          f"{t_lib:.4f} ms; with the host's enqueue hidden (information only): kernel "
+          f"{t_dk_dev:.4f} ms, SDPA {t_lib_dev:.4f} ms")
+    report_fp_decode("block_sparse_decode_paged", q, idx, t_dk, t_dk_dev, dbytes, db, dec)
     if not t_dk < t_lib:
         fail(f"block_sparse_decode_paged {t_dk:.4f} ms is not faster than masked SDPA "
              f"{t_lib:.4f} ms")

@@ -14,9 +14,8 @@
 // block_sparse_decode_paged, _kernel_paged) moved to
 // block_sparse_decode_sm90.cu, a body redesigned for the card (split over
 // the SMs, a cp.async ring, warps with their own softmax state). The
-// template below still carries their instances (Quant = false, Split =
-// false), which no entry point launches; it is the body the four above
-// run, arithmetic unchanged, until they move onto the new one.
+// template below is the body the four above run, arithmetic unchanged,
+// until they move onto the new one.
 //
 // Contiguous contract:
 //   q        [B, Hkv, G, Dh]    one new query token, grouped per kv head

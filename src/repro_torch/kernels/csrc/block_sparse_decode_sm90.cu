@@ -497,15 +497,32 @@ sm90_combine(const float* __restrict__ part, T* __restrict__ out, int BH, int G,
   from_f32(o / fmaxf(l, 1e-30f), out + e);
 }
 
+constexpr int kMaxDevices = 64;
+
+// Raises the instance's dynamic shared-memory limit on the current device
+// to at least smem, once: the largest limit set so far is kept per device,
+// so a call that needs no more than it makes no runtime call (a repeated
+// cudaFuncSetAttribute is host time on every launch).
+template <typename T, bool Paged, int NCH>
+int reserve_smem(size_t smem) {
+  static int set_to[kMaxDevices] = {};  // bytes, per device (0: the 48 KB default)
+  if (smem <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < kMaxDevices && set_to[dev] >= (int)smem) return 0;
+  e = cudaFuncSetAttribute(sparse_decode_sm90<T, Paged, NCH>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < kMaxDevices) set_to[dev] = (int)smem;
+  return 0;
+}
+
 template <typename T, bool Paged, int NCH>
 int launch_body(const Params& p, int grid, size_t smem, cudaStream_t stream) {
-  auto kernel = sparse_decode_sm90<T, Paged, NCH>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  const int rc = reserve_smem<T, Paged, NCH>(smem);
+  if (rc != 0) return rc;
+  sparse_decode_sm90<T, Paged, NCH><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -111,11 +111,29 @@ def _decode_limit(o_plain):
     return chip_smoke.decode_limit(o_plain)[0]
 
 
+# shapes that take the fp decode body's other paths (block_sparse_decode_sm90.cu):
+# query rows beyond one CTA's lane set go to g-chunk CTAs (G 16 x Dh 128:
+# 4 of them in fp32, 2 in bf16); heads wider than 32 lanes x 4 chunks to
+# column-slice CTAs (Dh 2048: 4 / 2 slices, a stage holding 2 / 4 rows of
+# a block; fp32 G 2 x Dh 1024 takes both kinds); rows of Dh 10 (20 / 40
+# bytes) fail the 16-byte test and take the plain stage fill; and 300
+# selected entries, past the 256 ids a CTA keeps in shared memory, where
+# a segment holds them all (num_splits 1 in the split-plan cases)
+OTHER_PATH_SHAPES = [
+    (2, 1, 16, 128, 6, 8, 4),
+    (2, 1, 1, 2048, 6, 8, 4),
+    (2, 1, 2, 1024, 6, 8, 4),
+    (3, 2, 3, 10, 6, 8, 5),
+    (2, 1, 2, 16, 320, 4, 300),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,hkv,g,dh,nb,bs,nsel", [
     (2, 2, 2, 16, 8, 8, 4),
     (3, 1, 5, 32, 6, 16, 6),
     (4, 8, 2, 128, 40, 64, 16),
+    *OTHER_PATH_SHAPES,
 ])
 def test_sparse_decode_kernel_matches_plain(dev, dtype, b, hkv, g, dh, nb, bs, nsel):
     q, k, v, idx, kv_len = _sparse_inputs(dev, dtype, b, hkv, g, dh, nb, bs, nsel)
@@ -283,6 +301,7 @@ PAGED_MUTANT = ("return max(page_table[(size_t)b * npt + blk], 0);", "return blk
     (2, 2, 2, 16, 8, 8, 4),
     (3, 1, 5, 32, 6, 16, 6),
     (4, 8, 2, 128, 257, 64, 64),           # the main path's shapes
+    *OTHER_PATH_SHAPES,
 ])
 def test_sparse_decode_split_plan_cases(dev, dtype, s, hkv, g, dh, npt, bs, nsel):
     """#2 and #4 at the planned split and at 1, 2, nsel and nsel + 3 segments
@@ -308,6 +327,39 @@ def test_sparse_decode_split_plan_cases(dev, dtype, s, hkv, g, dh, npt, bs, nsel
             torch.cuda.synchronize()
             _check_decode(o_k, o_p, dtype)
             assert torch.equal(o_k, o_g), ns
+
+
+def _unaligned(t):
+    """A contiguous copy of t whose base lies one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    u = buf[1:].view(t.shape)
+    u.copy_(t)
+    assert u.is_contiguous() and u.data_ptr() % 16
+    return u
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 128])
+def test_sparse_decode_unaligned_base_takes_the_plain_fill(dev, dtype, dh):
+    """K/V (or pools) whose base is not 16-byte aligned fail the body's
+    16-byte test, so their stages are filled by plain loads in place of
+    cp.async (Dh 16: rows padded to whole chunks; Dh 128: unpadded). The
+    stages then hold the same values, so the output is bitwise that of
+    aligned copies, contiguous and paged, at 1, 2 and the planned
+    segments, and within the limit of the plain version."""
+    q, kp, vp, idx, pt, kv_len, (k, v) = _paged_inputs(dev, dtype, 3, 2, 2, dh, 6, 16, 5)
+    ku, vu, kpu, vpu = (_unaligned(t) for t in (k, v, kp, vp))
+    o_p = bsd.sparse_decode_plain(q, k, v, idx, kv_len, block_size=16)
+    for ns in (None, 1, 2):
+        o = bsd.sparse_decode_cuda(q, k, v, idx, kv_len, block_size=16, num_splits=ns)
+        o_u = bsd.sparse_decode_cuda(q, ku, vu, idx, kv_len, block_size=16, num_splits=ns)
+        o_g = bsd.sparse_decode_paged_cuda(q, kpu, vpu, idx, pt, kv_len, block_size=16,
+                                           num_splits=ns)
+        torch.cuda.synchronize()
+        _check_decode(o_u, o_p, dtype)
+        assert torch.equal(o, o_u), ns
+        assert torch.equal(o, o_g), ns
 
 
 def test_paged_decode_limit_rejects_logical_id_as_page(dev, tmp_path, monkeypatch):
