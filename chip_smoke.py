@@ -81,13 +81,17 @@ non-zero):
      the scale rows (the fp run's bytes in the ratio of the page sizes),
      and reproduce the ample run bitwise under the tight pool; the share
      of tokens equal to the fp run's is printed, for information only;
- 10. the int8 kernels against their plain versions: the paged one on the
-     tensors layer 0 of the int8 ample run's first decode step gave it
-     (with the decode limit of phase 3, and bitwise equal over shuffled
+     then phase 8's profile over int8 pools;
+ 10. the int8 kernels (2q, 4q: the int8 instances of #2 and #4's body,
+     at the same split plan) against their plain versions: the paged one
+     on the tensors layer 0 of the int8 ample run's first decode step gave
+     it (with the decode limit of phase 3, and bitwise equal over shuffled
      pages), the contiguous one on phase 3's caches quantized per block;
-     both timed as in phase 3. No single PyTorch call dequantizes and
-     attends, so their library time is null; dense SDPA over a
-     pre-dequantized gathered view is printed for context;
+     both timed as in phase 3, with their host-hidden time, host enqueue,
+     split plan, rate, bound share and split sweep as #2's. No single
+     PyTorch call dequantizes and attends, so their library time is null;
+     dense SDPA over a pre-dequantized gathered view is printed for
+     context;
  11. sharded serve: phase 6's requests and pools with
      ``DecodeOptions(split_k=4)`` on the one-rank NCCL group
      (4 splits x 8 KV heads x 4 slots = 128 CTAs); each run must launch
@@ -102,8 +106,9 @@ non-zero):
  13. kernels 5 and 5q against their plain versions on the tensors layer 0
      of phases 11 and 12's first decode steps gave them, at num_splits 2,
      4, 8 and nsel + 3, with the decode limit of phase 3 and bitwise equal
-     over shuffled pages; timed at num_splits 4 beside #4 (its own
-     split plan) / #4q on the same inputs, with a sweep over num_splits printed; bound = #4's
+     over shuffled pages; timed at num_splits 4 beside #4 / #4q (each
+     at its own split plan) on the same inputs, with a sweep over
+     num_splits printed; #4q must be faster than 5q there; bound = #4's
      bytes plus the f32 partials written and read once; library yardstick
      (fp) the masked dense SDPA of phase 7;
  14. training: ``run_training`` on qwen3_0_6b in bf16 (seed-0 weights),
@@ -336,10 +341,6 @@ def decode_work(q, idx, kv_len, block_size, kv_es=None):
     return nbytes, 4 * g * dh * n_tok
 
 
-def decode_bound_ms(q, idx, kv_len, block_size, kv_es=None):
-    return bound_ms(*decode_work(q, idx, kv_len, block_size, kv_es))
-
-
 def paged_decode_work(q, idx, kv_len, block_size, kv_es=None, num_splits=1):
     """(bytes, operations): the contiguous decode's work plus one 4-byte
     page-table entry for each distinct (slot, block) that holds valid
@@ -379,12 +380,13 @@ def host_enqueue_ms(fn, runs: int = 30, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def report_fp_decode(name, q, idx, t_k, t_dev, nbytes, b_ms, kernel):
-    """The fp decode's split plan (#2, #4), its achieved rate (the bound's
-    bytes over the time) and share of the bound, at the recorded time
-    ``t_k`` and at the time with the host's enqueue hidden ``t_dev``, the
-    host's enqueue of one call, and, for information, a sweep of the split
-    count, ``kernel(num_splits)`` timed with the host hidden."""
+def report_decode(name, q, idx, t_k, t_dev, nbytes, b_ms, kernel):
+    """The sm90 decode body's split plan (#2, #4, and the int8 2q, 4q, whose
+    ``nbytes`` count 1-byte K/V and their scales), its achieved rate (the
+    bound's bytes over the time) and share of the bound, at the recorded
+    time ``t_k`` and at the time with the host's enqueue hidden ``t_dev``,
+    the host's enqueue of one call, and, for information, a sweep of the
+    split count, ``kernel(num_splits)`` timed with the host hidden."""
     b, hkv, g, dh = q.shape
     nsel = idx.shape[-1]
     ns = bsd.split_plan(b, hkv, nsel, bsd.n_sm(q.device))
@@ -675,7 +677,7 @@ def phase_kernels(seen):
           f"bound {db:.5f} ms ({dby}), SDPA dense over {n} tokens {t_lib:.4f} ms; "
           f"with the host's enqueue hidden (information only): kernel {t_dk_dev:.4f} ms, "
           f"SDPA {t_lib_dev:.4f} ms")
-    report_fp_decode("block_sparse_decode", q, idx, t_dk, t_dk_dev, dbytes, db, dec)
+    report_decode("block_sparse_decode", q, idx, t_dk, t_dk_dev, dbytes, db, dec)
     if not t_dk < t_lib:
         fail(f"block_sparse_decode {t_dk:.4f} ms is not faster than dense SDPA {t_lib:.4f} ms")
     return {
@@ -1025,14 +1027,17 @@ def phase_splitk_kernels(seen):
     v_view = pg.gather_kv(vp, pt_d, vs).to(q.dtype)
     t_lib = sdpa_masked_ms(q, k_view, v_view, kv_len)
     del k_view, v_view
-    single_name = ("block_sparse_decode_paged_quant" if quant else
-                   "block_sparse_decode_paged (#4: the sm90 body at its split plan)")
+    single_name = ("block_sparse_decode_paged_quant (#4q: the sm90 body at its split plan)"
+                   if quant else "block_sparse_decode_paged (#4: the sm90 body at its split plan)")
     ctas = q.shape[0] * q.shape[1] * SPLIT_K
     print(f"{name}: kernel {t_k:.4f} ms at num_splits {SPLIT_K} ({ctas} CTAs), plain {t_p:.4f} ms, bound {b_ms:.5f} ms ({b_by}); {single_name} on the same "
           f"inputs {t_single:.4f} ms before, {t_single_again:.4f} ms after; sweep "
           + ", ".join(f"{ns} splits {t:.4f} ms" for ns, t in sweep.items())
           + f"; SDPA dense over the {'pre-dequantized ' if quant else ''}gathered view (masked "
           f"at kv_len{', dequant not timed, context only' if quant else ''}) {t_lib:.4f} ms")
+    if quant and not max(t_single, t_single_again) < t_k:
+        fail(f"#4q ({t_single:.4f} / {t_single_again:.4f} ms) is not faster than {name} at "
+             f"num_splits {SPLIT_K} ({t_k:.4f} ms) on the same inputs")
     return {name: dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                        library_ms=None if quant else t_lib)}
 
@@ -1122,7 +1127,7 @@ def phase_paged_kernels(seen):
           f"{db:.5f} ms ({dby}), SDPA dense over the gathered view (masked at kv_len) "
           f"{t_lib:.4f} ms; with the host's enqueue hidden (information only): kernel "
           f"{t_dk_dev:.4f} ms, SDPA {t_lib_dev:.4f} ms")
-    report_fp_decode("block_sparse_decode_paged", q, idx, t_dk, t_dk_dev, dbytes, db, dec)
+    report_decode("block_sparse_decode_paged", q, idx, t_dk, t_dk_dev, dbytes, db, dec)
     if not t_dk < t_lib:
         fail(f"block_sparse_decode_paged {t_dk:.4f} ms is not faster than masked SDPA "
              f"{t_lib:.4f} ms")
@@ -1144,10 +1149,11 @@ def phase_paged_quant_kernels(seen):
           f"scale rows {tuple(ks.shape)} ({ks.dtype}) idx {tuple(idx.shape)} kv_len "
           f"{kv_len.tolist()}")
 
-    def kernel(qq, ix, pools=(pt_d, kp, vp, ks, vs)):
+    def kernel(qq, ix, pools=(pt_d, kp, vp, ks, vs), num_splits=None):
         table, k, v, ksc, vsc = pools
         return bsd.sparse_decode_paged_quant_cuda(qq, k, v, ix, table, kv_len, block_size=bs,
-                                                  k_scales=ksc, v_scales=vsc)
+                                                  k_scales=ksc, v_scales=vsc,
+                                                  num_splits=num_splits)
 
     def plain(qq, ix):
         return bsd.sparse_decode_paged_plain(qq, kp, vp, ix, pt_d, kv_len, block_size=bs,
@@ -1161,14 +1167,18 @@ def phase_paged_quant_kernels(seen):
     if int(kv_len[0]) % bs == 0:
         fail("expected a partial last block at the captured kv_len")
     del shuffled
-    t_k = time_ms(lambda: kernel(q, idx))
+    dec = lambda ns=None: kernel(q, idx, num_splits=ns)
+    t_k, t_k_dev = time_ms(dec), time_ms(dec, hide_host=True)
     t_p = time_ms(lambda: plain(q, idx))
     t_ctx = sdpa_masked_ms(q, pg.gather_kv(kp, pt_d, ks).to(q.dtype),
                            pg.gather_kv(vp, pt_d, vs).to(q.dtype), kv_len)
-    b_ms, b_by = paged_decode_bound_ms(q, idx, kv_len, bs, kv_es=1)
+    dbytes, dops = paged_decode_work(q, idx, kv_len, bs, kv_es=1)
+    b_ms, b_by = bound_ms(dbytes, dops)
     print(f"block_sparse_decode_paged_quant: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-          f"{b_ms:.5f} ms ({b_by}); context only: SDPA dense over the pre-dequantized "
-          f"gathered view (masked at kv_len, dequant not timed) {t_ctx:.4f} ms")
+          f"{b_ms:.5f} ms ({b_by}); with the host's enqueue hidden (information only): kernel "
+          f"{t_k_dev:.4f} ms; context only: SDPA dense over the pre-dequantized gathered view "
+          f"(masked at kv_len, dequant not timed) {t_ctx:.4f} ms")
+    report_decode("block_sparse_decode_paged_quant", q, idx, t_k, t_k_dev, dbytes, b_ms, dec)
     return {"block_sparse_decode_paged_quant": dict(
         max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None)}
 
@@ -1187,26 +1197,30 @@ def phase_quant_kernels(seen):
     print(f"int8 contiguous caches from the generate path's layer 0: {tuple(kq.shape)} "
           f"({kq.dtype}), scales {tuple(ks.shape)}")
 
-    def kernel(qq, ix):
+    def kernel(qq, ix, num_splits=None):
         return bsd.sparse_decode_quant_cuda(qq, kq, vq, ix, kv_len, block_size=bs,
-                                            k_scales=ks, v_scales=vs)
+                                            k_scales=ks, v_scales=vs, num_splits=num_splits)
 
     def plain(qq, ix):
         return bsd.sparse_decode_plain(qq, kq, vq, ix, kv_len, block_size=bs, k_scales=ks,
                                        v_scales=vs)
 
     err = check_decode("block_sparse_decode_quant", kernel, plain, decode_cases(q, idx))
-    t_k = time_ms(lambda: kernel(q, idx))
+    dec = lambda ns=None: kernel(q, idx, num_splits=ns)
+    t_k, t_k_dev = time_ms(dec), time_ms(dec, hide_host=True)
     t_p = time_ms(lambda: plain(q, idx))
     n = int(kv_len.max())
     deq = [pg.dequantize_block(c.reshape(b, hkv, s_max // bs, bs, dh), sc[..., None])
            .reshape(kc.shape)[:, :, :n].to(q.dtype) for c, sc in ((kq, ks), (vq, vs))]
     t_ctx = sdpa_masked_ms(q, *deq, kv_len)
     del deq
-    b_ms, b_by = decode_bound_ms(q, idx, kv_len, bs, kv_es=1)
+    dbytes, dops = decode_work(q, idx, kv_len, bs, kv_es=1)
+    b_ms, b_by = bound_ms(dbytes, dops)
     print(f"block_sparse_decode_quant: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-          f"{b_ms:.5f} ms ({b_by}); context only: SDPA dense over the pre-dequantized cache "
+          f"{b_ms:.5f} ms ({b_by}); with the host's enqueue hidden (information only): kernel "
+          f"{t_k_dev:.4f} ms; context only: SDPA dense over the pre-dequantized cache "
           f"({n} tokens, masked at kv_len, dequant not timed) {t_ctx:.4f} ms")
+    report_decode("block_sparse_decode_quant", q, idx, t_k, t_k_dev, dbytes, b_ms, dec)
     return {"block_sparse_decode_quant": dict(
         max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None)}
 
@@ -1653,6 +1667,7 @@ def run_phases(shard) -> int:
     del seen
     counts["block_sparse_decode_paged_quant"] = q8_counts["block_sparse_decode_paged_quant"]
     torch.cuda.empty_cache()
+    phase_serve_profile(cfg, params, DecodeOptions(quantize="int8"), label="int8 serve")
 
     print(f"sharded serve: the same requests and pools, split_k={SPLIT_K}, "
           f"one NCCL rank ({shard})")
@@ -1693,10 +1708,10 @@ def run_phases(shard) -> int:
         "block_sparse_decode_paged": (
             "src/repro_torch/kernels/csrc/block_sparse_decode_sm90.cu",
             "src/repro/kernels/block_sparse_decode.py:285"),
-        "block_sparse_decode_quant": ("src/repro_torch/kernels/csrc/block_sparse_decode.cu",
+        "block_sparse_decode_quant": ("src/repro_torch/kernels/csrc/block_sparse_decode_sm90.cu",
                                       "src/repro/kernels/block_sparse_decode.py:170"),
         "block_sparse_decode_paged_quant": (
-            "src/repro_torch/kernels/csrc/block_sparse_decode.cu",
+            "src/repro_torch/kernels/csrc/block_sparse_decode_sm90.cu",
             "src/repro/kernels/block_sparse_decode.py:190"),
         "block_sparse_decode_paged_splitk": (
             "src/repro_torch/kernels/csrc/block_sparse_decode.cu",

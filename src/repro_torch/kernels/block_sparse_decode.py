@@ -1,9 +1,11 @@
 """Block-sparse flash decoding: plain PyTorch versions + CUDA kernels.
 
 Replaces the TPU kernels
-``repro/kernels/block_sparse_decode.py::block_sparse_decode`` (fp body)
-and ``block_sparse_decode_paged`` (fp body ``_kernel_paged``). Layouts
-are the reference's native head-major ones:
+``repro/kernels/block_sparse_decode.py::block_sparse_decode`` (fp body
+``_kernel``, int8 body ``_kernel_quant``), ``block_sparse_decode_paged``
+(``_kernel_paged``, ``_kernel_paged_quant``) and
+``block_sparse_decode_paged_splitk``. Layouts are the reference's native
+head-major ones:
 
   q             [B, Hkv, G, Dh]   one new query token, grouped per kv head
   k_cache/v_... [B, Hkv, S, Dh]   post-rope caches
@@ -37,8 +39,9 @@ the contiguous cache and [P, Hkv, 1] pool rows (one per physical page)
 for the paged one. The plain versions multiply only the GATHERED selected
 blocks by their scales inside the fp32 upcast, as ``ref._deq`` does; None
 leaves them bitwise what they are for fp caches. ``sparse_decode_quant_cuda``
-and ``sparse_decode_paged_quant_cuda`` launch the int8 instances of
-``csrc/block_sparse_decode.cu``'s body, each with its own launch counter.
+and ``sparse_decode_paged_quant_cuda`` launch the int8 instances of the
+same ``csrc/block_sparse_decode_sm90.cu`` body at the same split plan,
+each with its own launch counter.
 
 Split-K (TPU kernel ``block_sparse_decode_paged_splitk``, fp body
 ``_kernel_paged_splitk`` and int8 body ``_kernel_paged_splitk_quant``):
@@ -66,20 +69,21 @@ from repro_torch.models.common import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP_ELEMS = 4096            # G * Dh the kernel keeps in registers
-SPLIT_CTAS_PER_SM = 2             # the fp decode's split plan: CTAs it aims for per SM ...
+SPLIT_CTAS_PER_SM = 2             # the decode's split plan: CTAs it aims for per SM ...
 SPLIT_MIN_ENTRIES = 4             # ... with at least this many selected entries each
 
 
 def split_plan(batch: int, hkv: int, nsel: int, n_sm: int) -> int:
-    """Segments the fp decode kernel cuts each (b, kv-head)'s selected list
-    into: enough CTAs for ``SPLIT_CTAS_PER_SM`` on each of the card's
-    ``n_sm`` SMs, each segment at least ``SPLIT_MIN_ENTRIES`` entries long,
-    trimmed so that no segment of ``split_segments`` is empty. A pure
-    function of these four numbers: kv_len, the pool and the page table do
-    not enter it, so the contiguous and the paged entry points, a tight and
-    an ample pool, and shuffled pages all reduce the same segments in the
-    same order (bitwise the same output). 8 segments of 8 entries (256
-    CTAs) at the main path's 4 x 8 heads x 64 entries on 132 SMs."""
+    """Segments the decode kernel (fp or int8) cuts each (b, kv-head)'s
+    selected list into: enough CTAs for ``SPLIT_CTAS_PER_SM`` on each of
+    the card's ``n_sm`` SMs, each segment at least ``SPLIT_MIN_ENTRIES``
+    entries long, trimmed so that no segment of ``split_segments`` is
+    empty. A pure function of these four numbers: kv_len, the pool, the
+    page table and the dtype do not enter it, so the contiguous and the
+    paged entry points, a tight and an ample pool, and shuffled pages all
+    reduce the same segments in the same order (bitwise the same output).
+    8 segments of 8 entries (256 CTAs) at the main path's 4 x 8 heads x 64
+    entries on 132 SMs."""
     if nsel <= 0:
         return 1
     want = -(-SPLIT_CTAS_PER_SM * n_sm // max(1, batch * hkv))
@@ -247,19 +251,19 @@ def sparse_decode_paged_splitk_plain(q: torch.Tensor, k_pages: torch.Tensor,
 def _bind(lib: ctypes.CDLL, paged: bool = False, quant: bool = False,
           split: bool = False):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if split and quant:
+    if split and quant:  # csrc/block_sparse_decode.cu
         fn = lib.block_sparse_decode_paged_splitk_quant_launch
         types = [p] * 10 + [i] * 8 + [f, i, p]
     elif split:
         fn = lib.block_sparse_decode_paged_splitk_launch
         types = [p] * 8 + [i] * 8 + [f, i, p]
-    elif paged and quant:
-        fn = lib.block_sparse_decode_paged_quant_launch
-        types = [p] * 9 + [i, i, i, i, i, i, i, f, i, p]
+    elif paged and quant:  # csrc/block_sparse_decode_sm90.cu
+        fn = lib.block_sparse_decode_sm90_paged_quant_launch
+        types = [p] * 10 + [i] * 8 + [f, i, p]
     elif quant:
-        fn = lib.block_sparse_decode_quant_launch
-        types = [p] * 8 + [i, i, i, i, i, i, i, i, f, i, p]
-    elif paged:          # csrc/block_sparse_decode_sm90.cu
+        fn = lib.block_sparse_decode_sm90_quant_launch
+        types = [p] * 9 + [i] * 9 + [f, i, p]
+    elif paged:
         fn = lib.block_sparse_decode_sm90_paged_launch
         types = [p] * 8 + [i] * 8 + [f, i, p]
     else:
@@ -296,10 +300,12 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ints,
 def _launch_sm90(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  block_indices: torch.Tensor, kv_len: torch.Tensor, block_size: int,
                  num_splits: Optional[int], page_table: Optional[torch.Tensor] = None,
-                 s_max: int = 0) -> torch.Tensor:
-    """The launch shared by the two fp wrappers (shapes checked by them):
-    ``num_splits`` None takes ``split_plan``; > 1 allocates the f32
-    partials, acc [B,Hkv,ns,G,Dh] then m and l [B,Hkv,ns,G]."""
+                 s_max: int = 0, scales=None) -> torch.Tensor:
+    """The launch shared by the four wrappers of the sm90 body (shapes
+    checked by them): ``num_splits`` None takes ``split_plan``; > 1
+    allocates the f32 partials, acc [B,Hkv,ns,G,Dh] then m and l
+    [B,Hkv,ns,G]. ``scales`` (k_scales, v_scales) selects the int8
+    instances."""
     b, hkv, g, dh = q.shape
     nsel = block_indices.shape[-1]
     out = torch.empty_like(q)
@@ -314,13 +320,20 @@ def _launch_sm90(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            device=q.device)
     lib = build.load("block_sparse_decode_sm90")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), block_indices.data_ptr())
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if scales is not None:
+        ptrs += tuple(t.data_ptr() for t in scales)
+    ptrs += (block_indices.data_ptr(),)
     if page_table is not None:
         ptrs += (page_table.data_ptr(),)
     ptrs += (kv_len.data_ptr(), out.data_ptr(), 0 if work is None else work.data_ptr())
-    dims = (b, hkv, g, dh, s_max if page_table is None else page_table.shape[1], nsel,
-            block_size, ns)
-    rc = _bind(lib, paged=page_table is not None)(
+    dims = (b, hkv, g, dh)
+    if page_table is not None:
+        dims += (page_table.shape[1],)
+    else:                       # S, and for int8 the scales per (b, head) row
+        dims += (s_max,) + ((scales[0].shape[-1],) if scales is not None else ())
+    dims += (nsel, block_size, ns)
+    rc = _bind(lib, paged=page_table is not None, quant=scales is not None)(
         *ptrs, *dims, 1.0 / math.sqrt(dh), _DTYPES[q.dtype], stream)
     build.check(lib, rc, f"{name} kernel launch")
     return out
@@ -387,16 +400,17 @@ sparse_decode_paged_cuda.launches = 0
 def sparse_decode_quant_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                              v_cache: torch.Tensor, block_indices: torch.Tensor,
                              kv_len: torch.Tensor, *, block_size: int,
-                             k_scales: torch.Tensor,
-                             v_scales: torch.Tensor) -> torch.Tensor:
-    """Launch the int8 CUDA block-sparse decode (TPU body ``_kernel_quant``):
-    int8 caches [B, Hkv, S, Dh], per-block scales [B, Hkv, nb] float32."""
+                             k_scales: torch.Tensor, v_scales: torch.Tensor,
+                             num_splits: Optional[int] = None) -> torch.Tensor:
+    """Launch the int8 CUDA block-sparse decode (TPU body ``_kernel_quant``;
+    the int8 instance of ``block_sparse_decode_sm90``): int8 caches [B, Hkv,
+    S, Dh], per-block scales [B, Hkv, nb] float32; ``num_splits`` as
+    ``sparse_decode_cuda``."""
     name = "sparse_decode_quant_cuda"
     _check(name, q, k_cache, v_cache, (block_indices, kv_len), (k_scales, v_scales))
     b, hkv, g, dh = q.shape
     s_max = k_cache.shape[2]
     nb = -(-s_max // block_size)
-    nsel = block_indices.shape[-1]
     if k_cache.shape != (b, hkv, s_max, dh) or v_cache.shape != k_cache.shape \
             or k_scales.shape != (b, hkv, nb) or v_scales.shape != k_scales.shape \
             or block_indices.shape[:2] != (b, hkv) or tuple(kv_len.shape) != (b,):
@@ -405,17 +419,10 @@ def sparse_decode_quant_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             f"{tuple(v_cache.shape)}, scales {tuple(k_scales.shape)}/"
             f"{tuple(v_scales.shape)} (want {(b, hkv, nb)}), idx "
             f"{tuple(block_indices.shape)}, kv_len {tuple(kv_len.shape)}")
-    out = torch.empty_like(q)
-    if nsel == 0:
-        return out.zero_()
-    lib = build.load("block_sparse_decode")
-    rc = _bind(lib, quant=True)(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scales.data_ptr(),
-        v_scales.data_ptr(), block_indices.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), b, hkv, g, dh, s_max, nb, nsel, block_size,
-        1.0 / math.sqrt(dh), _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, rc, "block_sparse_decode_quant kernel launch")
-    sparse_decode_quant_cuda.launches += 1
+    out = _launch_sm90("block_sparse_decode_quant", q, k_cache, v_cache, block_indices, kv_len,
+                       block_size, num_splits, s_max=s_max, scales=(k_scales, v_scales))
+    if block_indices.shape[-1]:
+        sparse_decode_quant_cuda.launches += 1
     return out
 
 
@@ -426,15 +433,17 @@ def sparse_decode_paged_quant_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                                    v_pages: torch.Tensor, block_indices: torch.Tensor,
                                    page_table: torch.Tensor, kv_len: torch.Tensor, *,
                                    block_size: int, k_scales: torch.Tensor,
-                                   v_scales: torch.Tensor) -> torch.Tensor:
+                                   v_scales: torch.Tensor,
+                                   num_splits: Optional[int] = None) -> torch.Tensor:
     """Launch the int8 paged CUDA block-sparse decode (TPU body
-    ``_kernel_paged_quant``): int8 pools [P, Hkv, ps, Dh], scale rows
-    [P, Hkv, 1] (or [P, Hkv]) float32, read at each block's PHYSICAL page."""
+    ``_kernel_paged_quant``; the int8 paged instance of
+    ``block_sparse_decode_sm90``): int8 pools [P, Hkv, ps, Dh], scale rows
+    [P, Hkv, 1] (or [P, Hkv]) float32, read at each block's PHYSICAL page;
+    ``num_splits`` as ``sparse_decode_cuda``."""
     name = "sparse_decode_paged_quant_cuda"
     _check(name, q, k_pages, v_pages, (block_indices, page_table, kv_len), (k_scales, v_scales))
     b, hkv, g, dh = q.shape
     n_pages, ps = k_pages.shape[0], k_pages.shape[2]
-    nsel = block_indices.shape[-1]
     if ps != block_size:
         raise ValueError(f"{name}: page size {ps} != block size {block_size}")
     if k_pages.shape != (n_pages, hkv, ps, dh) or v_pages.shape != k_pages.shape \
@@ -448,18 +457,11 @@ def sparse_decode_paged_quant_cuda(q: torch.Tensor, k_pages: torch.Tensor,
             f"{tuple(v_scales.shape)} (want {(n_pages, hkv, 1)}), idx "
             f"{tuple(block_indices.shape)}, page_table {tuple(page_table.shape)}, "
             f"kv_len {tuple(kv_len.shape)}")
-    out = torch.empty_like(q)
-    if nsel == 0:
-        return out.zero_()
-    lib = build.load("block_sparse_decode")
-    rc = _bind(lib, paged=True, quant=True)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scales.data_ptr(),
-        v_scales.data_ptr(), block_indices.data_ptr(), page_table.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), b, hkv, g, dh, page_table.shape[1], nsel,
-        block_size, 1.0 / math.sqrt(dh), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, rc, "block_sparse_decode_paged_quant kernel launch")
-    sparse_decode_paged_quant_cuda.launches += 1
+    out = _launch_sm90("block_sparse_decode_paged_quant", q, k_pages, v_pages, block_indices,
+                       kv_len, block_size, num_splits, page_table=page_table,
+                       scales=(k_scales, v_scales))
+    if block_indices.shape[-1]:
+        sparse_decode_paged_quant_cuda.launches += 1
     return out
 
 

@@ -1,66 +1,49 @@
-// Block-sparse flash decoding over int8 K/V, and split-K paged decode,
-// over a head-major KV cache or page pool (Hopper, sm_90a).
+// Split-K paged block-sparse decoding over fp or int8 K/V (Hopper, sm_90a).
 //
-// Replaces four TPU kernel bodies of src/repro/kernels/block_sparse_decode.py:
-//   _kernel_quant, _kernel_paged_quant (fused int8 dequant):
-//                              block_sparse_decode_quant_launch and
-//                              block_sparse_decode_paged_quant_launch;
+// Replaces two TPU kernel bodies of src/repro/kernels/block_sparse_decode.py:
 //   block_sparse_decode_paged_splitk (fp body _kernel_paged_splitk, the jnp
-//                              combine of its entry point) and its int8 body
-//                              _kernel_paged_splitk_quant:
+//                              combine of its entry point :407) and its int8
+//                              body _kernel_paged_splitk_quant (:393):
 //                              block_sparse_decode_paged_splitk_launch and
 //                              block_sparse_decode_paged_splitk_quant_launch.
-// The fp single-pass bodies (block_sparse_decode, _kernel; and
-// block_sparse_decode_paged, _kernel_paged) moved to
-// block_sparse_decode_sm90.cu, a body redesigned for the card (split over
-// the SMs, a cp.async ring, warps with their own softmax state). The
-// template below is the body the four above run, arithmetic unchanged,
-// until they move onto the new one.
+// Every other decode body moved to block_sparse_decode_sm90.cu, a body
+// redesigned for the card (split over the SMs, a cp.async ring, warps with
+// their own softmax state): the fp ones (#2, #4) and the int8 ones (2q, 4q).
+// This file keeps the original loop of kernels 5 and 5q, arithmetic
+// unchanged, with their combine, until they move onto that body too.
 //
-// Contiguous contract:
-//   q        [B, Hkv, G, Dh]    one new query token, grouped per kv head
-//   k, v     [B, Hkv, S, Dh]    post-rope caches (bf16 or fp32, same as q)
-//   idx      [B, Hkv, nsel]     int32 selected block ids, -1 = padding
-//   kv_len   [B] int32          valid lengths (masks the partial last block)
-//   out      [B, Hkv, G, Dh]    in q's dtype
-// GQA flash decode over ONLY the selected blocks: -1 entries are skipped,
-// positions >= kv_len are masked, scale 1/sqrt(Dh), fp32 online softmax
-// and accumulation, normalised by max(l, 1e-30): a row with no valid key
-// gives 0.
-//
-// Paged contract: k, v are the pools [P, Hkv, ps, Dh] with ps == bs, and
-// page_table [B, npt] int32 maps a LOGICAL block id to its physical page.
-// Selected ids stay logical: the block's base address becomes
+// Contract: q [B, Hkv, G, Dh], one new query token grouped per kv head;
+// k, v the pools [P, Hkv, ps, Dh] with ps == bs (bf16 or fp32, same as q,
+// or int8 codes); page_table [B, npt] int32 maps a LOGICAL block id to its
+// physical page; idx [B, Hkv, nsel] int32 selected block ids, -1 =
+// padding; kv_len [B] int32; out [B, Hkv, G, Dh] in q's dtype. Selected
+// ids stay logical: the block's base address becomes
 // ((page_table[b, blk] * Hkv + h) * ps) * Dh (the page id clamped at 0, as
-// the reference's kv_map does) in place of the cache row blk*bs, while the
-// masking stays in logical positions (t0 = blk*bs against kv_len), as
-// _kernel_paged does. One page is one contiguous [ps, Dh] range, so the
-// copy is the contiguous kernel's.
+// the reference's kv_map does), while the masking stays in logical
+// positions (t0 = blk*bs against kv_len), as _kernel_paged does. Scale
+// 1/sqrt(Dh), fp32 online softmax and accumulation.
 //
 // Int8 contract (Quant): k, v hold int8 codes (value = code * scale) and
-// the scales are f32, [B, H, nb] per cache block (contiguous) or [P, H]
-// per physical page (paged, the pool's [P, H, 1] rows). Each selected
-// block's two scales are read once, inside the block loop, at the block's
-// own (physical) id, and folded where they cost least: the K scale into
-// the score scale, s = (q . k_code) * (k_scale / sqrt(Dh)), the V scale
-// into the block's P.V partial, acc += v_scale * sum_t p[t] * v_code[t].
-// Within fp32 accumulation that is the plain version's function, which
-// scales every element before the dots. No fp copy of the cache is built;
-// the block copy moves int8 codes with the same 16-byte loads (a 128-wide
-// row is 128 bytes), so shared memory for K+V halves.
+// the scales are f32 [P, H] per physical page (the pool's [P, H, 1] rows).
+// Each selected block's two scales are read once, inside the block loop,
+// at the block's own physical page, and folded where they cost least: the
+// K scale into the score scale, s = (q . k_code) * (k_scale / sqrt(Dh)),
+// the V scale into the block's P.V partial, acc += v_scale * sum_t p[t] *
+// v_code[t]. Within fp32 accumulation that is the plain version's
+// function, which scales every element before the dots.
 //
-// Split-K contract (Split, paged only): the selected list of each (b, h) is
-// cut into num_splits segments of per = ceil(nsel / num_splits) entries,
-// segment s holding entries [s*per, min((s+1)*per, nsel)) (the reference's
-// boundaries: ref.paged_sparse_decode_splitk_ref pads the tail with -1; the
-// Pallas kernel only pads each segment to its blocks_per_step). CTA (b, h,
-// s) runs the same body over its segment and writes the UNNORMALISED flash
-// partial to an f32 workspace [B, H, ns, G, Dh] (acc), then [B, H, ns, G]
-// (m) and [B, H, ns, G] (l). A segment with no valid key writes acc = 0,
-// l = 0 and m = -inf: it has no maximum, and the combine's l > 0 mask keeps
-// it out of the sum (a row whose segments are all empty, an idle slot,
-// gives 0). A second small kernel combines the partials of each (b, h, g)
-// with the reference's two-pass rescale (block_sparse_decode.py:499-505):
+// Split-K: the selected list of each (b, h) is cut into num_splits
+// segments of per = ceil(nsel / num_splits) entries, segment s holding
+// entries [s*per, min((s+1)*per, nsel)) (the reference's boundaries:
+// ref.paged_sparse_decode_splitk_ref pads the tail with -1; the Pallas
+// kernel only pads each segment to its blocks_per_step). CTA (b, h, s)
+// runs the body over its segment and writes the UNNORMALISED flash partial
+// to an f32 workspace [B, H, ns, G, Dh] (acc), then [B, H, ns, G] (m) and
+// [B, H, ns, G] (l). A segment with no valid key writes acc = 0, l = 0 and
+// m = -inf: it has no maximum, and the combine's l > 0 mask keeps it out
+// of the sum (a row whose segments are all empty, an idle slot, gives 0).
+// A second small kernel combines the partials of each (b, h, g) with the
+// reference's two-pass rescale (block_sparse_decode.py:499-505):
 //   m = max_s m_s, r_s = (l_s > 0) ? exp(m_s - m) : 0,
 //   l = sum_s r_s l_s, o = sum_s r_s acc_s / max(l, 1e-30),
 // and writes o in q's dtype. The reference does the combine in jnp outside
@@ -68,31 +51,26 @@
 // two launches (the serve step is host-bound: a dozen torch ops per layer
 // would cost more than the combine's work).
 //
-// Design: one CTA per (b, kv-head) loops over its nsel selected blocks. A
-// block's K and V rows [bs, Dh] are one contiguous range of the head-major
-// cache, so each is copied into shared memory with 16-byte vector loads,
-// all of a thread's K and V loads issued before its stores (rows past
-// kv_len are neither copied nor read). The CTA computes the G x bs scores
-// in fp32 (one warp per (row, key) pair, lanes across Dh), runs the
-// online-softmax update per row, then accumulates P.V into registers
-// (each thread owns G*Dh/256 output elements). The TPU tiling
-// (blocks_per_step, the 16-row G padding, the 128-lane m/l scratch) is not
-// carried over: each CTA reads its own block-index row in place of the
-// scalar-prefetch index map.
+// Design: each CTA loops over its segment's selected blocks. A block's K
+// and V rows [bs, Dh] are one contiguous range of the pool, so each is
+// copied into shared memory with 16-byte vector loads, all of a thread's K
+// and V loads issued before its stores (rows past kv_len are neither
+// copied nor read). The CTA computes the G x bs scores in fp32 (one warp
+// per (row, key) pair, lanes across Dh), runs the online-softmax update per
+// row, then accumulates P.V into registers (each thread owns G*Dh/256
+// output elements). The TPU tiling (blocks_per_step, the 16-row G padding,
+// the 128-lane m/l scratch) is not carried over: each CTA reads its own
+// block-index row in place of the scalar-prefetch index map.
 //
 // Bound on the H100: at the main path's shape (B=4, Hkv=8, k=64 blocks x
-// 64 tokens x Dh 128, K+V) int8 pools hold ~34 MB of codes: ~10 us at
-// 3.35 TB/s, plus 8 bytes of scales and 4 of page table per selected block
-// (the fp split-K instance reads bf16, ~67 MB, ~20 us). This simple
-// kernel does not reach it: B*Hkv = 32 CTAs run on 32 of the 132 SMs,
-// and each CTA waits for a block's loads before it computes on them, so
-// at most one block per CTA is in flight (no cp.async/TMA pipeline across
-// blocks, no split across SMs, no wgmma).
-// The split-K instances spread each (b, h)'s serial block loop over
-// num_splits CTAs (4 splits x 32 = 128 CTAs at the main path's shape), at
-// the cost of writing and reading the f32 partials ((G*Dh + 2G) * 4 bytes
-// per split, 4 KiB per (b, h) at 4 splits). Pipelining the block copies
-// is the work of a later change.
+// 64 tokens x Dh 128, K+V) bf16 pools hold ~67 MB of the selected rows
+// (~20 us at 3.35 TB/s), int8 pools ~34 MB of codes (~10 us) plus 8 bytes
+// of scales and 4 of page table per selected block, and the f32 partials
+// add (G*Dh + 2G) * 4 bytes per split, written and read once (4 KiB per
+// (b, h) at 4 splits). This loop does not reach it: each CTA waits for a
+// block's loads before it computes on them, so at most one block per CTA
+// is in flight (no cp.async pipeline across blocks), and num_splits x
+// B*Hkv CTAs (128 at 4 splits) leave SMs idle.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -114,7 +92,7 @@ __device__ __forceinline__ void from_f32(float x, float* o) { *o = x; }
 __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* o) { *o = __float2bfloat16(x); }
 
 // copy the n valid elements of one block of K and of V (contiguous in the
-// head-major cache) global -> shared. Each thread issues all its K and V
+// head-major pool) global -> shared. Each thread issues all its K and V
 // loads before its stores, so a block's reads are in flight together
 // instead of one 16-byte load at a time. Rows past kv_len are not copied:
 // the score and P.V loops never read them.
@@ -156,43 +134,26 @@ __device__ __forceinline__ void load_kv(T* ks, T* vs, const T* __restrict__ kg,
   }
 }
 
-// Offset of the first element of logical block blk of (b, h): a row range
-// of the contiguous cache [B, H, S, Dh], or a page of the pool [P, H, ps, Dh]
-// through the page table (npt entries per row).
-template <bool Paged>
-__device__ __forceinline__ size_t block_offset(const int* __restrict__ page_table, int b, int h,
-                                               int H, int S, int npt, int Dh, int bs, int blk) {
-  if (Paged) {
-    const int phys = max(page_table[(size_t)b * npt + blk], 0);
-    return ((size_t)phys * H + h) * bs * Dh;
-  }
-  return (((size_t)b * H + h) * S + (size_t)blk * bs) * Dh;
+// The physical page of logical block blk of row b (npt table entries a
+// row), the id clamped at 0 as the reference's kv_map clamps it.
+__device__ __forceinline__ int phys_page(const int* __restrict__ page_table, int b, int npt,
+                                         int blk) {
+  return max(page_table[(size_t)b * npt + blk], 0);
 }
 
-// Index of logical block blk's dequant scale for (b, h): the per-block
-// scales [B, H, nsb] of the contiguous cache, or the scale row [P, H] of
-// the block's PHYSICAL page (the page id clamped at 0, as
-// _kernel_paged_quant's lookup does).
-template <bool Paged>
-__device__ __forceinline__ size_t scale_index(const int* __restrict__ page_table, int b, int h,
-                                              int H, int nsb, int npt, int blk) {
-  if (Paged) return (size_t)max(page_table[(size_t)b * npt + blk], 0) * H + h;
-  return ((size_t)b * H + h) * nsb + blk;
-}
-
-// T: q and out; KV: the cache elements (T, or int8_t when Quant). Split:
-// CTA blockIdx.x = (b * H + h) * ns + s reduces segment s of the selected
-// list into the partials in part (out unused); otherwise CTA b * H + h
-// reduces the whole list into out.
-template <typename T, typename KV, bool Paged, bool Quant, bool Split>
+// CTA blockIdx.x = (b * H + h) * ns + s reduces segment s of (b, h)'s
+// selected list into the partials in part. T: q and out; KV: the pool's
+// elements (T, or int8_t when Quant, with f32 scale rows [P, H]).
+template <typename T, typename KV, bool Quant>
 __global__ void __launch_bounds__(kThreads)
-block_sparse_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
-                           const KV* __restrict__ vc, const float* __restrict__ k_scales,
-                           const float* __restrict__ v_scales, const int* __restrict__ idx,
-                           const int* __restrict__ page_table,
-                           const int* __restrict__ kv_len, T* __restrict__ out,
-                           float* __restrict__ part, int H, int G, int Dh, int S, int nsb,
-                           int npt, int nsel, int bs, float sm_scale, int vec, int ns) {
+block_sparse_decode_splitk_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
+                                  const KV* __restrict__ vc, const float* __restrict__ k_scales,
+                                  const float* __restrict__ v_scales,
+                                  const int* __restrict__ idx,
+                                  const int* __restrict__ page_table,
+                                  const int* __restrict__ kv_len, float* __restrict__ part,
+                                  int H, int G, int Dh, int S, int npt, int nsel, int bs,
+                                  float sm_scale, int vec, int ns) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int GD = G * Dh;
   float* qs = reinterpret_cast<float*>(smem_raw);  // [G*Dh]
@@ -204,16 +165,13 @@ block_sparse_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
   KV* ks = reinterpret_cast<KV*>(smem_raw + off);  // [bs*Dh]
   KV* vs = ks + (size_t)bs * Dh;                   // [bs*Dh]
 
-  const int bh = Split ? blockIdx.x / ns : blockIdx.x;
+  const int bh = blockIdx.x / ns;
   const int b = bh / H, h = bh - b * H;
-  // the entries of the selected list this CTA walks: all of them, or its
-  // segment (the reference's boundaries)
-  int j0 = 0, j1 = nsel;
-  if (Split) {
-    const int per = (nsel + ns - 1) / ns;
-    j0 = (blockIdx.x - bh * ns) * per;
-    j1 = min(j0 + per, nsel);
-  }
+  // the entries of the selected list this CTA walks: its segment (the
+  // reference's boundaries)
+  const int per = (nsel + ns - 1) / ns;
+  const int j0 = (blockIdx.x - bh * ns) * per;
+  const int j1 = min(j0 + per, nsel);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = kv_len[b];
   const int* irow = idx + (size_t)bh * nsel;
@@ -234,11 +192,12 @@ block_sparse_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
     int nt = min(bs, min(len, S) - t0);          // valid rows of this block
     if (nt <= 0) continue;                       // wholly past kv_len: adds nothing
     __syncthreads();                             // previous block done with ks/vs/ps
-    const size_t boff = block_offset<Paged>(page_table, b, h, H, S, npt, Dh, bs, blk);
+    const int phys = phys_page(page_table, b, npt, blk);
+    const size_t boff = ((size_t)phys * H + h) * bs * Dh;
     load_kv(ks, vs, kc + boff, vc + boff, nt * Dh, vec != 0);
     float scale = sm_scale, v_scale = 1.f;  // fp: the plain 1/sqrt(Dh)
     if (Quant) {
-      const size_t si = scale_index<Paged>(page_table, b, h, H, nsb, npt, blk);
+      const size_t si = (size_t)phys * H + h;   // the scale row of the PHYSICAL page
       scale = k_scales[si] * sm_scale;
       v_scale = v_scales[si];
     }
@@ -305,35 +264,24 @@ block_sparse_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
     }
   }
   __syncthreads();
-  if (Split) {
-    // the unnormalised partial of this segment: acc, then m (-inf when the
-    // segment held no valid key) and l
-    float* pacc = part + (size_t)blockIdx.x * GD;
-    float* pm = part + (size_t)gridDim.x * GD + (size_t)blockIdx.x * G;
-    float* pl = pm + (size_t)gridDim.x * G;
+  // the unnormalised partial of this segment: acc, then m (-inf when the
+  // segment held no valid key) and l
+  float* pacc = part + (size_t)blockIdx.x * GD;
+  float* pm = part + (size_t)gridDim.x * GD + (size_t)blockIdx.x * G;
+  float* pl = pm + (size_t)gridDim.x * G;
 #pragma unroll
-    for (int i = 0; i < kMaxPerThread; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < GD) pacc[e] = acc[i];
-    }
-    for (int g = tid; g < G; g += kThreads) {
-      pm[g] = (l_s[g] > 0.f) ? m_s[g] : -INFINITY;
-      pl[g] = l_s[g];
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < kMaxPerThread; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < GD) {
-        const int g = e / Dh;
-        from_f32(acc[i] / fmaxf(l_s[g], 1e-30f), out + (size_t)bh * GD + e);
-      }
-    }
+  for (int i = 0; i < kMaxPerThread; ++i) {
+    const int e = tid + i * kThreads;
+    if (e < GD) pacc[e] = acc[i];
+  }
+  for (int g = tid; g < G; g += kThreads) {
+    pm[g] = (l_s[g] > 0.f) ? m_s[g] : -INFINITY;
+    pl[g] = l_s[g];
   }
 }
 
 // Combine the ns split-K partials of each (b, h, g) (the workspace layout
-// of the Split body; BH = B * H): one thread per output element, the
+// of the split body; BH = B * H): one thread per output element, the
 // reference's two-pass rescale in fp32.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -359,15 +307,15 @@ splitk_combine_kernel(const float* __restrict__ part, T* __restrict__ out, int B
   from_f32(o / fmaxf(l, 1e-30f), out + e);
 }
 
-template <typename T, typename KV, bool Paged, bool Quant, bool Split>
+template <typename T, typename KV, bool Quant>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
            const void* idx, const void* page_table, const void* kv_len, void* out, void* part,
-           int B, int H, int G, int Dh, int S, int nsb, int npt, int nsel, int bs, int ns,
-           float scale, cudaStream_t stream) {
+           int B, int H, int G, int Dh, int npt, int nsel, int bs, int ns, float scale,
+           cudaStream_t stream) {
   const size_t head = ((size_t)(G * Dh + G * bs + 3 * G) * sizeof(float) + 15) & ~(size_t)15;
   const size_t smem = head + 2 * (size_t)bs * Dh * sizeof(KV);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  auto kernel = block_sparse_decode_kernel<T, KV, Paged, Quant, Split>;
+  auto kernel = block_sparse_decode_splitk_kernel<T, KV, Quant>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -375,13 +323,13 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
   }
   const int vec = ((uintptr_t)k % 16 == 0) && ((uintptr_t)v % 16 == 0) &&
                   ((Dh * sizeof(KV)) % 16 == 0);
-  kernel<<<B * H * (Split ? ns : 1), kThreads, smem, stream>>>(
+  kernel<<<B * H * ns, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<const int*>(idx),
-      static_cast<const int*>(page_table), static_cast<const int*>(kv_len), static_cast<T*>(out),
-      static_cast<float*>(part), H, G, Dh, S, nsb, npt, nsel, bs, scale, vec, ns);
+      static_cast<const int*>(page_table), static_cast<const int*>(kv_len),
+      static_cast<float*>(part), H, G, Dh, npt * bs, npt, nsel, bs, scale, vec, ns);
   cudaError_t e = cudaGetLastError();
-  if (!Split || e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess) return (int)e;
   const size_t total = (size_t)B * H * G * Dh;
   splitk_combine_kernel<T><<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0,
                              stream>>>(static_cast<const float*>(part), static_cast<T*>(out),
@@ -390,27 +338,25 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
 }
 
 // Quant selects int8 K/V with f32 scales (ks, vs); otherwise K/V share q's
-// dtype and ks/vs are unused. Split takes the f32 workspace part of
-// B * H * ns * (G * Dh + 2 * G) floats; otherwise part is unused.
-template <bool Paged, bool Quant, bool Split>
+// dtype and ks/vs are unused. part is the f32 workspace of
+// B * H * ns * (G * Dh + 2 * G) floats.
+template <bool Quant>
 int dispatch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
              const void* idx, const void* page_table, const void* kv_len, void* out, void* part,
-             int B, int H, int G, int Dh, int S, int nsb, int npt, int nsel, int bs, int ns,
-             float scale, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || G <= 0 || Dh <= 0 || S <= 0 || nsel <= 0 || bs <= 0 ||
-      (Paged && npt <= 0) || (Quant && !Paged && nsb * bs < S) || (Split && ns <= 0) ||
+             int B, int H, int G, int Dh, int npt, int nsel, int bs, int ns, float scale,
+             int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || G <= 0 || Dh <= 0 || npt <= 0 || nsel <= 0 || bs <= 0 || ns <= 0 ||
       G * Dh > kThreads * kMaxPerThread)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, typename std::conditional<Quant, int8_t, float>::type, Paged, Quant,
-                  Split>(q, k, v, ks, vs, idx, page_table, kv_len, out, part, B, H, G, Dh, S,
-                         nsb, npt, nsel, bs, ns, scale, s);
+    return launch<float, typename std::conditional<Quant, int8_t, float>::type, Quant>(
+        q, k, v, ks, vs, idx, page_table, kv_len, out, part, B, H, G, Dh, npt, nsel, bs, ns,
+        scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16,
-                  typename std::conditional<Quant, int8_t, __nv_bfloat16>::type, Paged, Quant,
-                  Split>(q, k, v, ks, vs, idx, page_table, kv_len, out, part, B, H, G, Dh, S,
-                         nsb, npt, nsel, bs, ns, scale, s);
+    return launch<__nv_bfloat16, typename std::conditional<Quant, int8_t, __nv_bfloat16>::type,
+                  Quant>(q, k, v, ks, vs, idx, page_table, kv_len, out, part, B, H, G, Dh, npt,
+                         nsel, bs, ns, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -420,31 +366,6 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q and out). Each entry point returns
 // cudaGetLastError() after its launches.
-
-// int8 k, v [B, H, S, Dh]; k_scales, v_scales [B, H, nsb] float32 with
-// nsb * bs >= S (one scale per cache block). dtype is q's and out's.
-int block_sparse_decode_quant_launch(const void* q, const void* k, const void* v,
-                                     const void* k_scales, const void* v_scales, const void* idx,
-                                     const void* kv_len, void* out, int B, int H, int G, int Dh,
-                                     int S, int nsb, int nsel, int bs, float scale, int dtype,
-                                     void* stream) {
-  return dispatch<false, true, false>(q, k, v, k_scales, v_scales, idx, nullptr, kv_len, out,
-                                      nullptr, B, H, G, Dh, S, nsb, 0, nsel, bs, 1, scale, dtype,
-                                      stream);
-}
-
-// int8 k_pages, v_pages [P, H, ps, Dh]; k_scales, v_scales [P, H] float32
-// (one row per physical page); page_table [B, npt]. dtype is q's and out's.
-int block_sparse_decode_paged_quant_launch(const void* q, const void* k_pages,
-                                           const void* v_pages, const void* k_scales,
-                                           const void* v_scales, const void* idx,
-                                           const void* page_table, const void* kv_len, void* out,
-                                           int B, int H, int G, int Dh, int npt, int nsel, int bs,
-                                           float scale, int dtype, void* stream) {
-  return dispatch<true, true, false>(q, k_pages, v_pages, k_scales, v_scales, idx, page_table,
-                                     kv_len, out, nullptr, B, H, G, Dh, npt * bs, 0, npt, nsel, bs,
-                                     1, scale, dtype, stream);
-}
 
 // Split-K paged decode over fp pools [P, H, ps, Dh] (ps == bs) and a page
 // table [B, npt], the selected list cut into num_splits segments; workspace holds B * H *
@@ -456,13 +377,12 @@ int block_sparse_decode_paged_splitk_launch(const void* q, const void* k_pages,
                                             void* workspace, int B, int H, int G, int Dh, int npt,
                                             int nsel, int bs, int num_splits, float scale,
                                             int dtype, void* stream) {
-  return dispatch<true, false, true>(q, k_pages, v_pages, nullptr, nullptr, idx, page_table,
-                                     kv_len, out, workspace, B, H, G, Dh, npt * bs, 0, npt, nsel,
-                                     bs, num_splits, scale, dtype, stream);
+  return dispatch<false>(q, k_pages, v_pages, nullptr, nullptr, idx, page_table, kv_len, out,
+                         workspace, B, H, G, Dh, npt, nsel, bs, num_splits, scale, dtype, stream);
 }
 
-// The int8 twin: int8 pools with [P, H] float32 scale rows, as
-// block_sparse_decode_paged_quant_launch takes them.
+// The int8 twin: int8 pools with [P, H] float32 scale rows, one per
+// physical page.
 int block_sparse_decode_paged_splitk_quant_launch(const void* q, const void* k_pages,
                                                   const void* v_pages, const void* k_scales,
                                                   const void* v_scales, const void* idx,
@@ -471,9 +391,8 @@ int block_sparse_decode_paged_splitk_quant_launch(const void* q, const void* k_p
                                                   int Dh, int npt, int nsel, int bs,
                                                   int num_splits, float scale, int dtype,
                                                   void* stream) {
-  return dispatch<true, true, true>(q, k_pages, v_pages, k_scales, v_scales, idx, page_table,
-                                    kv_len, out, workspace, B, H, G, Dh, npt * bs, 0, npt, nsel,
-                                    bs, num_splits, scale, dtype, stream);
+  return dispatch<true>(q, k_pages, v_pages, k_scales, v_scales, idx, page_table, kv_len, out,
+                        workspace, B, H, G, Dh, npt, nsel, bs, num_splits, scale, dtype, stream);
 }
 
 const char* repro_error_string(int code) {

@@ -548,15 +548,154 @@ def test_sparse_decode_paged_quant_kernel_matches_plain(dev, dtype, s, hkv, g, d
     assert torch.equal(o_k, o_s)
 
 
-# one-line faults in the int8 body: (source line, edit)
+# the int8 twins of OTHER_PATH_SHAPES (int8 chunks are 8 codes, so a row
+# of 32 lanes x 4 chunks is 1024 codes): g-chunk CTAs (G 16 x Dh 128, 2 of
+# them); column-slice CTAs (G 1 x Dh 2048: 2 slices, a stage holding 8 rows
+# of a block; G 2 x Dh 2048 takes both kinds); rows of Dh 10 and 24 (not
+# whole 16-byte copies) take the plain stage fill into padded rows; and
+# 300 selected entries, past the 256 ids (and scales) a CTA keeps in
+# shared memory, where a segment holds them all
+QUANT_OTHER_PATH_SHAPES = [
+    (2, 1, 16, 128, 6, 8, 4),
+    (2, 1, 1, 2048, 6, 8, 4),
+    (2, 1, 2, 2048, 6, 8, 4),
+    (3, 2, 3, 10, 6, 8, 5),
+    (2, 2, 2, 24, 6, 8, 4),
+    (2, 1, 2, 16, 320, 4, 300),
+]
+
+
+def _shuffled_quant(kp, vp, ksp, vsp, pt):
+    """The pools' physical pages (and scale rows) permuted under a remapped
+    table, the trash page 0 left in place; the V scale rows as [P, Hkv]."""
+    n_pages = kp.shape[0]
+    perm = torch.cat([torch.zeros(1, dtype=torch.long),
+                      1 + torch.randperm(n_pages - 1,
+                                         generator=torch.Generator().manual_seed(1))]
+                     ).to(kp.device)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(n_pages, device=kp.device)
+    return (kp[inv], vp[inv], ksp[inv], vsp[inv].reshape(n_pages, -1),
+            perm[pt.long()].int())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hkv,g,dh,npt,bs,nsel", [*QUANT_SHAPES, *QUANT_OTHER_PATH_SHAPES])
+def test_sparse_decode_quant_split_plan_cases(dev, dtype, s, hkv, g, dh, npt, bs, nsel):
+    """2q and 4q at the planned split and at 1, 2, nsel and nsel + 3
+    segments (the empty ones drop out of the combine), also with a kv_len
+    inside the first block (every selected block past it masked, its
+    scales never used): each within the limit of the plain version, the
+    row with no valid key 0, 4q bitwise 2q on the same blocks, and 4q
+    bitwise itself over shuffled pages (the trash page's codes 127 and
+    scale rows NaN)."""
+    q, kp, vp, ksp, vsp, idx, pt, kv_len, (kq, vq, ks, vs) = _quant_paged_inputs(
+        dev, dtype, s, hkv, g, dh, npt, bs, nsel)
+    kp_s, vp_s, ksp_s, vsp_s, pt_s = _shuffled_quant(kp, vp, ksp, vsp, pt)
+    short = kv_len.clone()
+    short[1:] = bs // 2 + 1
+    first = idx.clone()
+    first[1:, :, -1] = 0
+    for lens, ids in ((kv_len, idx), (short, first)):
+        o_p = bsd.sparse_decode_plain(q, kq, vq, ids, lens, block_size=bs, k_scales=ks,
+                                      v_scales=vs)
+        for ns in (None, 1, 2, nsel, nsel + 3):
+            o_c = bsd.sparse_decode_quant_cuda(q, kq, vq, ids, lens, block_size=bs,
+                                               k_scales=ks, v_scales=vs, num_splits=ns)
+            o_g = bsd.sparse_decode_paged_quant_cuda(q, kp, vp, ids, pt, lens, block_size=bs,
+                                                     k_scales=ksp, v_scales=vsp, num_splits=ns)
+            o_s = bsd.sparse_decode_paged_quant_cuda(q, kp_s, vp_s, ids, pt_s, lens,
+                                                     block_size=bs, k_scales=ksp_s,
+                                                     v_scales=vsp_s, num_splits=ns)
+            torch.cuda.synchronize()
+            _check_decode(o_c, o_p, dtype)
+            assert torch.equal(o_c, o_g), ns
+            assert torch.equal(o_g, o_s), ns
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 128])
+def test_sparse_decode_quant_unaligned_base_takes_the_plain_fill(dev, dtype, dh):
+    """int8 caches (or pools) one byte past a 16-byte boundary fail the
+    16-byte test and are filled by plain loads: bitwise the output of
+    aligned copies, contiguous and paged, at 1, 2 and the planned
+    segments, and within the limit of the plain version."""
+    q, kp, vp, ksp, vsp, idx, pt, kv_len, (kq, vq, ks, vs) = _quant_paged_inputs(
+        dev, dtype, 3, 2, 2, dh, 6, 16, 5)
+    ku, vu, kpu, vpu = (_unaligned(t) for t in (kq, vq, kp, vp))
+    kw = dict(block_size=16, k_scales=ks, v_scales=vs)
+    o_p = bsd.sparse_decode_plain(q, kq, vq, idx, kv_len, **kw)
+    for ns in (None, 1, 2):
+        o = bsd.sparse_decode_quant_cuda(q, kq, vq, idx, kv_len, num_splits=ns, **kw)
+        o_u = bsd.sparse_decode_quant_cuda(q, ku, vu, idx, kv_len, num_splits=ns, **kw)
+        o_g = bsd.sparse_decode_paged_quant_cuda(q, kpu, vpu, idx, pt, kv_len, block_size=16,
+                                                 k_scales=ksp, v_scales=vsp, num_splits=ns)
+        torch.cuda.synchronize()
+        _check_decode(o_u, o_p, dtype)
+        assert torch.equal(o, o_u), ns
+        assert torch.equal(o, o_g), ns
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_decode_quant_full_code_range(dev, dtype):
+    """Blocks whose raw codes cover -128..127 (each code 32 times in a
+    64 x 128 block of V, and in K but for four columns) at scale 1, where
+    the arithmetic is exact
+    in both versions, so kernel and plain must agree bitwise, contiguous
+    and paged. With q = 0 every valid key has p = 1 and o is the mean of
+    the block's 64 V rows (integer sums, one division by 64): every code
+    of V. With q one-hot per query row at a large weight, each row's
+    softmax is one key (the next score is 181 lower: its exp is 0 in
+    fp32), the key with the largest code in that row's column; the four
+    rows' columns hold -128..-65, -64..-1, 0..63 and 64..127, so a code
+    read with the wrong sign or offset picks another key."""
+    b, hkv, g, dh, bs, nb = 2, 2, 4, 128, 64, 3
+    r = np.random.default_rng(7)
+    codes = np.tile(np.arange(-128, 128), bs * dh // 256)
+    kc, vc = (np.stack([r.permutation(codes).reshape(bs, dh)
+                        for _ in range(b * hkv * nb)]) for _ in range(2))
+    for blk in kc:                   # column j of every block: 64 distinct codes
+        for j in range(g):
+            blk[:, 17 * j] = r.permutation(np.arange(64 * j - 128, 64 * j - 64))
+    kq, vq = (torch.tensor(x.reshape(b, hkv, nb * bs, dh), dtype=torch.int8, device=dev)
+              for x in (kc, vc))
+    ones = torch.ones(b, hkv, nb, device=dev)
+    idx = torch.tensor([[[1, -1], [2, 0]], [[0, 2], [1, -1]]], dtype=torch.int32, device=dev)
+    kv_len = torch.full((b,), nb * bs, dtype=torch.int32, device=dev)
+    # the same caches paged: page 1 + (b * nb + blk), scale rows of 1
+    pt = torch.arange(b * nb, dtype=torch.int32, device=dev).reshape(b, nb) + 1
+    kp, vp = (torch.cat([torch.zeros(1, hkv, bs, dh, dtype=torch.int8, device=dev),
+                         x.reshape(b, hkv, nb, bs, dh).transpose(1, 2).reshape(b * nb, hkv,
+                                                                              bs, dh)])
+              for x in (kq, vq))
+    sp = torch.ones(b * nb + 1, hkv, 1, device=dev)
+    hot = torch.zeros(b, hkv, g, dh, device=dev)
+    for j in range(g):
+        hot[:, :, j, 17 * j] = 2048.0
+    for q in (torch.zeros(b, hkv, g, dh, device=dev).to(dtype), hot.to(dtype)):
+        o_p = bsd.sparse_decode_plain(q, kq, vq, idx, kv_len, block_size=bs, k_scales=ones,
+                                      v_scales=ones)
+        for ns in (None, 1, 2):
+            o_c = bsd.sparse_decode_quant_cuda(q, kq, vq, idx, kv_len, block_size=bs,
+                                               k_scales=ones, v_scales=ones, num_splits=ns)
+            o_g = bsd.sparse_decode_paged_quant_cuda(q, kp, vp, idx, pt, kv_len, block_size=bs,
+                                                     k_scales=sp, v_scales=sp, num_splits=ns)
+            torch.cuda.synchronize()
+            assert torch.equal(o_c, o_p), (ns, float((o_c.float() - o_p.float()).abs().max()))
+            assert torch.equal(o_g, o_c), ns
+
+
+# one-line faults in the int8 instances of the sm90 body: (source line,
+# edit)
 QUANT_MUTANTS = {
-    "scale of the logical page": (
-        "if (Paged) return (size_t)max(page_table[(size_t)b * npt + blk], 0) * H + h;",
-        "if (Paged) return (size_t)blk * H + h;"),
-    "K scale applied to V": ("v_scale = v_scales[si];", "v_scale = k_scales[si];"),
-    "V scale applied twice": ("a += v_scale * pv;", "a += v_scale * v_scale * pv;"),
-    "K scale applied twice": ("scale = k_scales[si] * sm_scale;",
-                              "scale = k_scales[si] * k_scales[si] * sm_scale;"),
+    "scale of the logical page": ("if (Paged) return (size_t)phys * p.H + h;",
+                                  "if (Paged) return (size_t)blk * p.H + h;"),
+    "K scale applied to V": ("return make_float2(p.k_scales[si], p.v_scales[si]);",
+                             "return make_float2(p.k_scales[si], p.k_scales[si]);"),
+    "V scale applied twice": ("lane_axpy<KV, NCH>(acc, s[t] * sc.y,",
+                              "lane_axpy<KV, NCH>(acc, s[t] * sc.y * sc.y,"),
+    "K scale applied twice": ("const float scale2 = scale0 * sc.x;",
+                              "const float scale2 = scale0 * sc.x * sc.x;"),
 }
 
 
@@ -564,10 +703,10 @@ QUANT_MUTANTS = {
 def test_quant_decode_limit_rejects_a_faulty_kernel(dev, mutant, tmp_path, monkeypatch):
     """chip_smoke.py's 8-ulp limit rejects an int8 paged decode kernel with
     a one-line fault in its dequant, at the main path's shape with bf16 q,
-    page amplitudes that differ by up to 16x and a shuffled table; the
-    correct kernel passes the same check."""
+    page amplitudes that differ by up to 16x and a shuffled table, at the
+    split plan; the correct kernel passes the same check."""
     old, new = QUANT_MUTANTS[mutant]
-    src = (build.CSRC / "block_sparse_decode.cu").read_text()
+    src = (build.CSRC / SM90_SOURCE).read_text()
     assert src.count(old) == 1, mutant
     cu = tmp_path / "mutant_quant.cu"
     cu.write_text(src.replace(old, new))

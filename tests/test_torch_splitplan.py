@@ -1,5 +1,5 @@
-"""The split plan of the port's fp block-sparse decode (TPU kernels #2 and
-#4), on the CPU.
+"""The split plan of the port's block-sparse decode (TPU kernels #2 and #4,
+and their int8 bodies 2q and 4q), on the CPU.
 
 The CUDA body cuts each (b, kv-head)'s selected list into
 ``split_plan(B, Hkv, nsel, n_sm)`` segments, one CTA each, and combines
@@ -18,7 +18,10 @@ bitwise. These tests hold:
     split only reorders fp32 sums: the two-pass rescale is exact
     algebra), and both match the JAX reference (``ref.paged_sparse_decode_ref``
     and ``ref.paged_sparse_decode_splitk_ref``, the Pallas split-K kernel in
-    interpret mode) at the bounds of tests/test_torch_splitk.py.
+    interpret mode) at the bounds of tests/test_torch_splitk.py; over
+    int8 pools with f32 scale rows too (the bounds of
+    tests/test_torch_quant.py), and over int8 contiguous caches paged under
+    a shuffled table against ``ref.sparse_decode_ref`` with scales.
 
 Inputs come from a numpy seed.
 """
@@ -33,6 +36,7 @@ import torch
 
 from repro.kernels import block_sparse_decode as j_bsd
 from repro.kernels import ref as j_ref
+from repro.serve import paging as j_pg
 from repro_torch.kernels import block_sparse_decode as t_bsd
 from repro_torch.kernels import build
 
@@ -91,11 +95,13 @@ class _Entry:
 
 @pytest.fixture
 def recorded(monkeypatch):
-    """The fp wrappers driven on CPU tensors against a stand-in library;
-    yields the list of calls it received."""
+    """The wrappers of the sm90 body (fp and int8) driven on CPU tensors
+    against a stand-in library; yields the list of calls it received."""
     calls = []
     lib = types.SimpleNamespace(block_sparse_decode_sm90_launch=_Entry(calls),
-                                block_sparse_decode_sm90_paged_launch=_Entry(calls))
+                                block_sparse_decode_sm90_paged_launch=_Entry(calls),
+                                block_sparse_decode_sm90_quant_launch=_Entry(calls),
+                                block_sparse_decode_sm90_paged_quant_launch=_Entry(calls))
     monkeypatch.setattr(build, "load", lambda name: lib)
     monkeypatch.setattr(t_bsd, "_check", lambda *a, **k: None)
     monkeypatch.setattr(t_bsd, "n_sm", lambda device: 132)
@@ -142,6 +148,61 @@ def test_wrappers_plan_from_the_shapes_only(recorded, b, hkv, nsel):
     assert recorded[0][14] == nsel + 3 and recorded[0][6] != 0
     with pytest.raises(ValueError, match="num_splits"):
         t_bsd.sparse_decode_cuda(q, k, k, idx, lens, block_size=bs, num_splits=0)
+
+
+def _q8(x, bs, seed):
+    """int8 codes of x [..., S, Dh] with one f32 scale per block of bs rows
+    (random amplitudes, so scales differ from block to block)."""
+    *lead, s, dh = x.shape
+    gen = torch.Generator().manual_seed(seed)
+    amp = 0.25 + 4 * torch.rand(*lead, s // bs, 1, 1, generator=gen)
+    blk = x.reshape(*lead, s // bs, bs, dh) * amp
+    amax = blk.abs().amax(dim=(-2, -1), keepdim=True)
+    sc = amax / 127
+    return torch.round(blk / sc).to(torch.int8).reshape(x.shape), sc[..., 0, 0]
+
+
+@pytest.mark.parametrize("b,hkv,nsel", [(4, 8, 64), (2, 2, 4), (1, 8, 33)])
+def test_quant_wrappers_plan_from_the_shapes_only(recorded, b, hkv, nsel):
+    """The int8 twins (2q, 4q): the same num_splits for the same (B, Hkv,
+    nsel) as the fp plan, whatever kv_len, the cache length, the pool size
+    and the page table; the scales' pointers and, contiguous, the scales
+    per (b, head) row handed over; a workspace exactly when ns > 1; an
+    explicit num_splits passed through, 0 refused; as many arguments as
+    the entry point declares."""
+    g, dh, bs = 2, 16, 8
+    want = t_bsd.split_plan(b, hkv, nsel, 132)
+    seen = set()
+    for seed, npt, n_pages, kv_len in ((0, 9, 40, 70), (1, 12, 100, 5), (2, 9, 73, 72)):
+        q, k, kp, idx, pt, lens = _case(seed, b, hkv, g, dh, npt, bs, nsel, n_pages, kv_len)
+        (kq, ks), (kpq, kps) = _q8(k, bs, seed), _q8(kp, bs, seed)
+        kps = kps.reshape(n_pages, hkv, 1)
+        recorded.clear()
+        t_bsd.sparse_decode_quant_cuda(q, kq, kq, idx, lens, block_size=bs, k_scales=ks,
+                                       v_scales=ks)
+        t_bsd.sparse_decode_paged_quant_cuda(q, kpq, kpq, idx, pt, lens, block_size=bs,
+                                             k_scales=kps, v_scales=kps)
+        (c_args, p_args) = recorded
+        # 9 (contiguous) / 10 (paged) pointers, the scales 4th and 5th; then
+        # B, H, G, Dh, S and nsb or npt, nsel, bs, num_splits
+        assert len(c_args) == 21 and len(p_args) == 21
+        assert c_args[3:5] == (ks.data_ptr(),) * 2 and p_args[3:5] == (kps.data_ptr(),) * 2
+        assert c_args[9:13] == p_args[10:14] == (b, hkv, g, dh)
+        assert c_args[13:15] == (npt * bs, npt) and p_args[14] == npt
+        assert c_args[15:18] == p_args[15:18] == (nsel, bs, want)
+        seen.add((c_args[17], p_args[17]))
+        for wp in (c_args[8], p_args[9]):
+            assert (wp != 0) == (want > 1)
+    assert seen == {(want, want)}
+    recorded.clear()
+    t_bsd.sparse_decode_paged_quant_cuda(q, kpq, kpq, idx, pt, lens, block_size=bs,
+                                         k_scales=kps, v_scales=kps, num_splits=nsel + 3)
+    assert recorded[0][17] == nsel + 3 and recorded[0][9] != 0
+    for fn, args in ((t_bsd.sparse_decode_quant_cuda, (q, kq, kq, idx, lens)),
+                     (t_bsd.sparse_decode_paged_quant_cuda, (q, kpq, kpq, idx, pt, lens))):
+        sc = ks if fn is t_bsd.sparse_decode_quant_cuda else kps
+        with pytest.raises(ValueError, match="num_splits"):
+            fn(*args, block_size=bs, k_scales=sc, v_scales=sc, num_splits=0)
 
 
 HKV, PS, DH = 2, 8, 16
@@ -200,3 +261,78 @@ def test_plain_over_the_plan_equals_the_paged_plain(s, g, npt, nsel, n_sm):
     np.testing.assert_allclose(o_split.numpy(), o_ref_split, atol=1e-6, rtol=0)
     np.testing.assert_allclose(o_split.numpy(), o_pal, atol=1e-5, rtol=0)
     assert torch.equal(o_split[0, 0], torch.zeros_like(o_split[0, 0]))
+
+
+def _inputs_int8(seed, s, g, npt, nsel):
+    """``_inputs``'s pools quantized: int8 codes of pages with amplitudes
+    0.25..4, an f32 scale row [P, Hkv, 1] per page (the reference's
+    ``quantize_block``); the trash page 0's codes 127 and scale rows 1e6."""
+    q, kp, vp, idx, pt, kv_len = _inputs(seed, s, g, npt, nsel)
+    r = np.random.default_rng(seed + 1)
+    full = jnp.ones((1,) + kp.shape[1:], bool)
+    pools = []
+    for x in (kp, vp):
+        x = x * r.uniform(0.25, 4.0, size=(x.shape[0], HKV, 1, 1)).astype(np.float32)
+        c, sc = (np.array(a) for a in j_pg.quantize_block(jnp.asarray(x), full))
+        c[0], sc[0] = 127, 1e6
+        pools += [c, sc]
+    return q, pools[0], pools[2], pools[1], pools[3], idx, pt, kv_len
+
+
+@pytest.mark.parametrize("s,g,npt,nsel,n_sm", PLAIN_CASES)
+def test_int8_plain_over_the_plan_equals_the_paged_plain(s, g, npt, nsel, n_sm):
+    """The int8 twin (4q over the plan): the split-K plain version with the
+    pools' scale rows over the plan's segments is the paged plain decode
+    with them within 1e-5 (fp32), and both match the JAX reference: the
+    split-free ref within 1e-5 (tests/test_torch_quant.py's bound), the
+    split-K ref and the Pallas split-K kernel in interpret mode within 1e-5
+    (tests/test_torch_splitk.py's int8 bounds); the row with no valid key
+    is 0."""
+    ns = t_bsd.split_plan(s, HKV, nsel, n_sm)
+    assert ns > 1
+    q, kq, vq, ks, vs, idx, pt, kv_len = _inputs_int8(23, s, g, npt, nsel)
+    t_in = [torch.tensor(x) for x in (q, kq, vq, idx, pt, kv_len)]
+    t_sc = dict(k_scales=torch.tensor(ks), v_scales=torch.tensor(vs))
+    j_in = [jnp.asarray(x) for x in (q, kq, vq, idx, pt, kv_len)]
+    j_sc = dict(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+    o_split = t_bsd.sparse_decode_paged_splitk_plain(*t_in, block_size=PS, num_splits=ns,
+                                                     **t_sc)
+    o_one = t_bsd.sparse_decode_paged_plain(*t_in, block_size=PS, **t_sc)
+    np.testing.assert_allclose(o_split.numpy(), o_one.numpy(), atol=1e-5, rtol=0)
+    o_ref = np.asarray(j_ref.paged_sparse_decode_ref(*j_in, block_size=PS, **j_sc))
+    o_ref_split = np.asarray(j_ref.paged_sparse_decode_splitk_ref(
+        *j_in, block_size=PS, num_splits=ns, **j_sc))
+    o_pal = np.asarray(j_bsd.block_sparse_decode_paged_splitk(
+        *j_in, block_size=PS, num_splits=ns, interpret=True, **j_sc))
+    np.testing.assert_allclose(o_one.numpy(), o_ref, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(o_split.numpy(), o_ref_split, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(o_split.numpy(), o_pal, atol=1e-5, rtol=0)
+    assert torch.equal(o_split[0, 0], torch.zeros_like(o_split[0, 0]))
+
+
+@pytest.mark.parametrize("s,g,npt,nsel,n_sm", PLAIN_CASES)
+def test_int8_contiguous_plain_over_the_plan(s, g, npt, nsel, n_sm):
+    """2q over the plan: int8 contiguous caches with a scale per cache
+    block, paged under a shuffled table (each page's scale row beside it).
+    The split-K plain version over the plan's segments equals the
+    contiguous plain decode with scales within 1e-5 (fp32), and that
+    matches ``ref.sparse_decode_ref`` with the same scales within 1e-5
+    (tests/test_torch_quant.py's bound)."""
+    ns = t_bsd.split_plan(s, HKV, nsel, n_sm)
+    q, kq, vq, ks, vs, idx, pt, kv_len = _inputs_int8(29, s, g, npt, nsel)
+    # the contiguous caches and per-block scales the pools hold under pt
+    kc, vc = (c[pt].transpose(0, 2, 1, 3, 4).reshape(s, HKV, npt * PS, DH) for c in (kq, vq))
+    ksc, vsc = (sc[pt][..., 0].transpose(0, 2, 1) for sc in (ks, vs))      # [s, Hkv, npt]
+    o_con = t_bsd.sparse_decode_plain(*map(torch.tensor, (q, kc, vc, idx, kv_len)),
+                                      block_size=PS, k_scales=torch.tensor(ksc),
+                                      v_scales=torch.tensor(vsc))
+    o_split = t_bsd.sparse_decode_paged_splitk_plain(
+        *map(torch.tensor, (q, kq, vq, idx, pt, kv_len)), block_size=PS, num_splits=ns,
+        k_scales=torch.tensor(ks), v_scales=torch.tensor(vs))
+    np.testing.assert_allclose(o_split.numpy(), o_con.numpy(), atol=1e-5, rtol=0)
+    o_ref = np.asarray(j_ref.sparse_decode_ref(
+        *map(jnp.asarray, (q, kc, vc, idx, kv_len)), block_size=PS,
+        k_scales=jnp.asarray(np.ascontiguousarray(ksc)),
+        v_scales=jnp.asarray(np.ascontiguousarray(vsc))))
+    np.testing.assert_allclose(o_con.numpy(), o_ref, atol=1e-5, rtol=0)
+    assert torch.equal(o_con[0, 0], torch.zeros_like(o_con[0, 0]))
