@@ -103,14 +103,15 @@ non-zero):
      reorders fp32 sums); the share of equal tokens is printed; then phase
      8's profile of the same engine, to set beside phase 8's;
  12. the same over int8 pools, ample pool only;
- 13. kernels 5 and 5q against their plain versions on the tensors layer 0
-     of phases 11 and 12's first decode steps gave them, at num_splits 2,
-     4, 8 and nsel + 3, with the decode limit of phase 3 and bitwise equal
-     over shuffled pages; timed at num_splits 4 beside #4 / #4q (each
-     at its own split plan) on the same inputs, with a sweep over
-     num_splits printed; #4q must be faster than 5q there; bound = #4's
-     bytes plus the f32 partials written and read once; library yardstick
-     (fp) the masked dense SDPA of phase 7;
+ 13. kernels 5 and 5q (the paged fp and int8 instances of #4's body at
+     the caller's num_splits) against their plain versions on the tensors
+     layer 0 of phases 11 and 12's first decode steps gave them, at
+     num_splits 2, 4, 8 and nsel + 3, with the decode limit of phase 3,
+     bitwise equal over shuffled pages and bitwise equal to #4 / #4q at the
+     same num_splits; timed at num_splits 4 and reported as #4 is (time
+     with the host hidden, host enqueue, rate, bound share, a sweep of the
+     split count); bound = #4's bytes plus the f32 partials written and
+     read once; library yardstick (fp) the masked dense SDPA of phase 7;
  14. training: ``run_training`` on qwen3_0_6b in bf16 (seed-0 weights),
      distill mode, batch 4 x 4096 tokens (the launcher's sequence; its
      batch 16 cut to 4 to bound time and memory), documents of mean
@@ -197,7 +198,6 @@ SERVE_SPECS = ((16384, 32), (12345, 24), (8191, 40), (4097, 16), (1500, 48), (63
 # slots = 128 CTAs on the 132 SMs); kernels 5/5q checked at these splits
 SPLIT_K = 4
 SPLITS_CHECKED = (2, 4, 8)          # and nsel + 3 (empty segments)
-SPLITS_TIMED = (2, 4, 8, 16)
 # the training phase: distill mode at full width, batch 4 x 4096 tokens
 # (the launcher's seq; its batch 16 cut to 4), documents of mean length
 # 2048, 4 steps, a checkpoint every 2 and one failure injected before step 3
@@ -380,21 +380,24 @@ def host_enqueue_ms(fn, runs: int = 30, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def report_decode(name, q, idx, t_k, t_dev, nbytes, b_ms, kernel):
-    """The sm90 decode body's split plan (#2, #4, and the int8 2q, 4q, whose
-    ``nbytes`` count 1-byte K/V and their scales), its achieved rate (the
-    bound's bytes over the time) and share of the bound, at the recorded
-    time ``t_k`` and at the time with the host's enqueue hidden ``t_dev``,
-    the host's enqueue of one call, and, for information, a sweep of the
-    split count, ``kernel(num_splits)`` timed with the host hidden."""
+def report_decode(name, q, idx, t_k, t_dev, nbytes, b_ms, kernel, ns=None):
+    """The sm90 decode body's split count (the split plan's for #2, #4 and
+    the int8 2q, 4q, whose ``nbytes`` count 1-byte K/V and their scales;
+    the caller's ``ns`` for 5, 5q), its achieved rate (the bound's bytes
+    over the time) and share of the bound, at the recorded time ``t_k`` and
+    at the time with the host's enqueue hidden ``t_dev``, the host's
+    enqueue of one call, and, for information, a sweep of the split count,
+    ``kernel(num_splits)`` timed with the host hidden."""
     b, hkv, g, dh = q.shape
     nsel = idx.shape[-1]
-    ns = bsd.split_plan(b, hkv, nsel, bsd.n_sm(q.device))
+    what = "split plan" if ns is None else "num_splits (the caller's)"
+    if ns is None:
+        ns = bsd.split_plan(b, hkv, nsel, bsd.n_sm(q.device))
     segs = bsd.split_segments(nsel, ns)
     t_host = host_enqueue_ms(kernel)
     sweep = {n: time_ms(lambda n=n: kernel(n), hide_host=True) for n in SPLIT_SWEEP}
     rate = lambda t: f"{nbytes / (t * 1e-3) / 1e9:.1f} GB/s, {100 * b_ms / t:.1f}% of the bound"
-    print(f"{name}: split plan {ns} segments of {segs[0][1] - segs[0][0]} entries "
+    print(f"{name}: {what} {ns} segments of {segs[0][1] - segs[0][0]} entries "
           f"({b * hkv * ns} CTAs, B {b} x Hkv {hkv} x {ns}, on {bsd.n_sm(q.device)} SMs"
           f"{'' if ns == 1 else ', + 1 combine launch'}); {nbytes / 1e6:.2f} MB: at the "
           f"recorded {t_k:.4f} ms {rate(t_k)}; with the host's enqueue hidden {t_dev:.4f} ms "
@@ -970,15 +973,17 @@ def check_sharded_serve(cfg, base, sharded):
 
 
 def phase_splitk_kernels(seen):
-    """Kernel 5 (fp pools) or 5q (int8 pools) vs plain on a sharded serve's
-    layer-0 tensors at several num_splits, and over shuffled pages; timed
-    at SPLIT_K beside the single-pass kernel (#4 / #4q) on the same
-    inputs, with a sweep over num_splits; bound and library yardstick."""
+    """Kernel 5 (fp pools) or 5q (int8 pools), the paged instances of the
+    sm90 body at the caller's num_splits, vs plain on a sharded serve's
+    layer-0 tensors at several num_splits, and over shuffled pages; bitwise
+    equal to #4 / #4q at the same num_splits; timed at SPLIT_K and reported
+    as the other sm90 instances are; bound and library yardstick."""
     (qg, kgp, pt, nv, gcfg, ms), _ = seen["gate_select_paged"]
     (q, kp, vp, idx, pt_d, kv_len), kw = seen["paged_sparse_decode_splitk"]
     bs, ks, vs = kw["block_size"], kw.get("k_scales"), kw.get("v_scales")
     quant = ks is not None
     name = "block_sparse_decode_paged_splitk" + ("_quant" if quant else "")
+    single_name = "block_sparse_decode_paged" + ("_quant (#4q)" if quant else " (#4)")
     nsel = idx.shape[-1]
     print(f"{name}: sharded serve layer-0 shapes: q {tuple(q.shape)} pools {tuple(kp.shape)} "
           f"({kp.dtype}) idx {tuple(idx.shape)} kv_len {kv_len.tolist()}")
@@ -996,14 +1001,16 @@ def phase_splitk_kernels(seen):
         return bsd.sparse_decode_paged_splitk_plain(qq, kp, vp, ix, pt_d, kv_len, block_size=bs,
                                                     num_splits=ns, k_scales=ks, v_scales=vs)
 
-    def single(qq, ix):
+    def single(qq, ix, ns):
         if quant:
             return bsd.sparse_decode_paged_quant_cuda(qq, kp, vp, ix, pt_d, kv_len, block_size=bs,
-                                                      k_scales=ks, v_scales=vs)
-        return bsd.sparse_decode_paged_cuda(qq, kp, vp, ix, pt_d, kv_len, block_size=bs)
+                                                      k_scales=ks, v_scales=vs, num_splits=ns)
+        return bsd.sparse_decode_paged_cuda(qq, kp, vp, ix, pt_d, kv_len, block_size=bs,
+                                            num_splits=ns)
 
     thr = gs.gate_select_paged_plain(qg, kgp, pt, nv,
                                      dataclasses.replace(gcfg, method="threshold"), ms)
+    cases = decode_cases(q, idx, thr)
     shuffled = shuffled_pages(pt_d, kp, vp, *((ks, vs) if quant else ()))
     if not quant:
         shuffled = shuffled + (None, None)
@@ -1011,33 +1018,34 @@ def phase_splitk_kernels(seen):
     for ns in SPLITS_CHECKED + (nsel + 3,):
         err = max(err, check_decode(
             f"{name} [num_splits {ns}]", lambda qq, ix: kernel(qq, ix, ns),
-            lambda qq, ix: plain(qq, ix, ns), decode_cases(q, idx, thr),
+            lambda qq, ix: plain(qq, ix, ns), cases,
             lambda qq, ix: kernel(qq, ix, ns, shuffled)))
+        # one body at the same segment boundaries: 5 at ns is #4 at ns
+        for label, qq, ix in cases:
+            if not torch.equal(kernel(qq, ix, ns), single(qq, ix, ns)):
+                fail(f"{name} [num_splits {ns}, {label}] is not bitwise {single_name} at "
+                     f"the same num_splits")
+    print(f"{name}: bitwise equal to {single_name} at num_splits "
+          f"{', '.join(map(str, SPLITS_CHECKED + (nsel + 3,)))} on all {len(cases)} cases")
     if int(kv_len[0]) % bs == 0:
         fail("expected a partial last block at the captured kv_len")
     del shuffled
-    t_single = time_ms(lambda: single(q, idx))
-    t_k = time_ms(lambda: kernel(q, idx, SPLIT_K))
+    dec = lambda ns=SPLIT_K: kernel(q, idx, ns)
+    t_k, t_k_dev = time_ms(dec), time_ms(dec, hide_host=True)
     t_p = time_ms(lambda: plain(q, idx, SPLIT_K))
-    sweep = {ns: time_ms(lambda ns=ns: kernel(q, idx, ns)) for ns in SPLITS_TIMED}
-    t_single_again = time_ms(lambda: single(q, idx))
-    b_ms, b_by = paged_decode_bound_ms(q, idx, kv_len, bs, kv_es=1 if quant else None,
-                                       num_splits=SPLIT_K)
+    dbytes, dops = paged_decode_work(q, idx, kv_len, bs, kv_es=1 if quant else None,
+                                     num_splits=SPLIT_K)
+    b_ms, b_by = bound_ms(dbytes, dops)
     k_view = pg.gather_kv(kp, pt_d, ks).to(q.dtype)
     v_view = pg.gather_kv(vp, pt_d, vs).to(q.dtype)
     t_lib = sdpa_masked_ms(q, k_view, v_view, kv_len)
     del k_view, v_view
-    single_name = ("block_sparse_decode_paged_quant (#4q: the sm90 body at its split plan)"
-                   if quant else "block_sparse_decode_paged (#4: the sm90 body at its split plan)")
-    ctas = q.shape[0] * q.shape[1] * SPLIT_K
-    print(f"{name}: kernel {t_k:.4f} ms at num_splits {SPLIT_K} ({ctas} CTAs), plain {t_p:.4f} ms, bound {b_ms:.5f} ms ({b_by}); {single_name} on the same "
-          f"inputs {t_single:.4f} ms before, {t_single_again:.4f} ms after; sweep "
-          + ", ".join(f"{ns} splits {t:.4f} ms" for ns, t in sweep.items())
-          + f"; SDPA dense over the {'pre-dequantized ' if quant else ''}gathered view (masked "
-          f"at kv_len{', dequant not timed, context only' if quant else ''}) {t_lib:.4f} ms")
-    if quant and not max(t_single, t_single_again) < t_k:
-        fail(f"#4q ({t_single:.4f} / {t_single_again:.4f} ms) is not faster than {name} at "
-             f"num_splits {SPLIT_K} ({t_k:.4f} ms) on the same inputs")
+    print(f"{name}: kernel {t_k:.4f} ms at num_splits {SPLIT_K}, plain {t_p:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}); with the host's enqueue hidden (information only): kernel "
+          f"{t_k_dev:.4f} ms; SDPA dense over the {'pre-dequantized ' if quant else ''}gathered "
+          f"view (masked at kv_len{', dequant not timed, context only' if quant else ''}) "
+          f"{t_lib:.4f} ms")
+    report_decode(name, q, idx, t_k, t_k_dev, dbytes, b_ms, dec, ns=SPLIT_K)
     return {name: dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                        library_ms=None if quant else t_lib)}
 
@@ -1714,10 +1722,10 @@ def run_phases(shard) -> int:
             "src/repro_torch/kernels/csrc/block_sparse_decode_sm90.cu",
             "src/repro/kernels/block_sparse_decode.py:190"),
         "block_sparse_decode_paged_splitk": (
-            "src/repro_torch/kernels/csrc/block_sparse_decode.cu",
+            "src/repro_torch/kernels/csrc/block_sparse_decode_sm90.cu",
             "src/repro/kernels/block_sparse_decode.py:407"),
         "block_sparse_decode_paged_splitk_quant": (
-            "src/repro_torch/kernels/csrc/block_sparse_decode.cu",
+            "src/repro_torch/kernels/csrc/block_sparse_decode_sm90.cu",
             "src/repro/kernels/block_sparse_decode.py:393"),
         "gate_gt_attention": ("src/repro_torch/kernels/csrc/gate_gt_fwd.cu",
                               "src/repro/kernels/gate_gt_fwd.py:87"),

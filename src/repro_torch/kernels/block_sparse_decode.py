@@ -4,7 +4,9 @@ Replaces the TPU kernels
 ``repro/kernels/block_sparse_decode.py::block_sparse_decode`` (fp body
 ``_kernel``, int8 body ``_kernel_quant``), ``block_sparse_decode_paged``
 (``_kernel_paged``, ``_kernel_paged_quant``) and
-``block_sparse_decode_paged_splitk``. Layouts are the reference's native
+``block_sparse_decode_paged_splitk`` (``_kernel_paged_splitk``,
+``_kernel_paged_splitk_quant``): all six run one CUDA body,
+``csrc/block_sparse_decode_sm90.cu``. Layouts are the reference's native
 head-major ones:
 
   q             [B, Hkv, G, Dh]   one new query token, grouped per kv head
@@ -16,21 +18,21 @@ head-major ones:
 ``sparse_decode_plain`` is the twin of the reference's
 ``kernels/ref.py::sparse_decode_ref`` (gather the selected blocks, masked
 softmax in fp32): the CPU execution path and the oracle the kernel is
-held against on the card. ``sparse_decode_cuda`` launches
-``csrc/block_sparse_decode_sm90.cu`` on the current stream and counts its
-launches in ``sparse_decode_cuda.launches``. That body cuts each (b,
-kv-head)'s selected list into ``split_plan(...)`` segments, one CTA each,
-and combines their flash partials with the split-K rescale below; the
-plan depends on the shapes and the SM count only (see ``split_plan``).
+held against on the card. ``sparse_decode_cuda`` launches the body on
+the current stream and counts its launches in
+``sparse_decode_cuda.launches``. The body cuts each (b, kv-head)'s
+selected list into segments of ``ceil(nsel / num_splits)`` entries, one
+CTA each, and combines their flash partials with the split-K rescale
+below; unless the caller names ``num_splits``, it takes
+``split_plan(...)``, which depends on the shapes and the SM count only.
 
 The paged pair reads the page pools ``k_pages``/``v_pages`` [P, Hkv, ps,
 Dh] (ps == block_size) through ``page_table`` [B, npt] int32: the
 selected ids stay LOGICAL, a block's rows come from its physical page,
 and the masking stays in logical positions. ``sparse_decode_paged_plain``
 is the twin of ``kernels/ref.py::paged_sparse_decode_ref``;
-``sparse_decode_paged_cuda`` launches the paged entry point of the same
-source (same body, same plan) and counts in
-``sparse_decode_paged_cuda.launches``.
+``sparse_decode_paged_cuda`` launches the paged instance of the body and
+counts in ``sparse_decode_paged_cuda.launches``.
 
 Fused int8 dequant (TPU bodies ``_kernel_quant`` and
 ``_kernel_paged_quant``): ``k_scales``/``v_scales`` are per-block
@@ -39,22 +41,20 @@ the contiguous cache and [P, Hkv, 1] pool rows (one per physical page)
 for the paged one. The plain versions multiply only the GATHERED selected
 blocks by their scales inside the fp32 upcast, as ``ref._deq`` does; None
 leaves them bitwise what they are for fp caches. ``sparse_decode_quant_cuda``
-and ``sparse_decode_paged_quant_cuda`` launch the int8 instances of the
-same ``csrc/block_sparse_decode_sm90.cu`` body at the same split plan,
-each with its own launch counter.
+and ``sparse_decode_paged_quant_cuda`` launch the int8 instances, each
+with its own launch counter.
 
-Split-K (TPU kernel ``block_sparse_decode_paged_splitk``, fp body
-``_kernel_paged_splitk`` and int8 body ``_kernel_paged_splitk_quant``):
-the selected list is cut into ``num_splits`` segments of ``ceil(nsel /
-num_splits)`` entries (the tail padded with -1), each reduced to an
-unnormalised flash partial (acc, m, l), and the partials merge with the
-two-pass rescale ``m = max_s m_s``, ``l = sum_s l_s e^{m_s - m}``,
-``o = sum_s acc_s e^{m_s - m} / l``. ``sparse_decode_paged_splitk_plain``
-is the twin of ``kernels/ref.py::paged_sparse_decode_splitk_ref``;
-``sparse_decode_paged_splitk_cuda`` and
-``sparse_decode_paged_splitk_quant_cuda`` launch the split instances of
-``csrc/block_sparse_decode.cu``'s body plus its combine kernel (two
-launches, one count).
+Split-K (TPU kernel ``block_sparse_decode_paged_splitk``): the selected
+list is cut into ``num_splits`` segments of ``ceil(nsel / num_splits)``
+entries (the tail padded with -1), each reduced to an unnormalised flash
+partial (acc, m, l), and the partials merge with the two-pass rescale
+``m = max_s m_s``, ``l = sum_s l_s e^{m_s - m}``, ``o = sum_s acc_s
+e^{m_s - m} / l``. ``sparse_decode_paged_splitk_plain`` is the twin of
+``kernels/ref.py::paged_sparse_decode_splitk_ref``. Those are the body's
+own segments and combine, so ``sparse_decode_paged_splitk_cuda`` and
+``sparse_decode_paged_splitk_quant_cuda`` are the paged fp and int8
+instances at the caller's ``num_splits`` (required: the reference's
+contract, never the plan), each with its own launch counter.
 """
 from __future__ import annotations
 
@@ -248,16 +248,9 @@ def sparse_decode_paged_splitk_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return o.to(q.dtype)
 
 
-def _bind(lib: ctypes.CDLL, paged: bool = False, quant: bool = False,
-          split: bool = False):
+def _bind(lib: ctypes.CDLL, paged: bool = False, quant: bool = False):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if split and quant:  # csrc/block_sparse_decode.cu
-        fn = lib.block_sparse_decode_paged_splitk_quant_launch
-        types = [p] * 10 + [i] * 8 + [f, i, p]
-    elif split:
-        fn = lib.block_sparse_decode_paged_splitk_launch
-        types = [p] * 8 + [i] * 8 + [f, i, p]
-    elif paged and quant:  # csrc/block_sparse_decode_sm90.cu
+    if paged and quant:
         fn = lib.block_sparse_decode_sm90_paged_quant_launch
         types = [p] * 10 + [i] * 8 + [f, i, p]
     elif quant:
@@ -301,19 +294,18 @@ def _launch_sm90(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  block_indices: torch.Tensor, kv_len: torch.Tensor, block_size: int,
                  num_splits: Optional[int], page_table: Optional[torch.Tensor] = None,
                  s_max: int = 0, scales=None) -> torch.Tensor:
-    """The launch shared by the four wrappers of the sm90 body (shapes
-    checked by them): ``num_splits`` None takes ``split_plan``; > 1
-    allocates the f32 partials, acc [B,Hkv,ns,G,Dh] then m and l
-    [B,Hkv,ns,G]. ``scales`` (k_scales, v_scales) selects the int8
-    instances."""
+    """The launch shared by the wrappers of the sm90 body (shapes checked
+    by them): ``num_splits`` None takes ``split_plan``; > 1 allocates the
+    f32 partials, acc [B,Hkv,ns,G,Dh] then m and l [B,Hkv,ns,G].
+    ``scales`` (k_scales, v_scales) selects the int8 instances."""
+    if num_splits is not None and num_splits < 1:
+        raise ValueError(f"{name}: num_splits must be >= 1, got {num_splits}")
     b, hkv, g, dh = q.shape
     nsel = block_indices.shape[-1]
     out = torch.empty_like(q)
     if nsel == 0:
         return out.zero_()
     ns = split_plan(b, hkv, nsel, n_sm(q.device)) if num_splits is None else num_splits
-    if ns < 1:
-        raise ValueError(f"{name}: num_splits must be >= 1, got {ns}")
     work = None
     if ns > 1:
         work = torch.empty(b * hkv * ns * (g * dh + 2 * g), dtype=torch.float32,
@@ -337,6 +329,32 @@ def _launch_sm90(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *ptrs, *dims, 1.0 / math.sqrt(dh), _DTYPES[q.dtype], stream)
     build.check(lib, rc, f"{name} kernel launch")
     return out
+
+
+def _launch_paged(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                  block_indices: torch.Tensor, page_table: torch.Tensor, kv_len: torch.Tensor,
+                  block_size: int, num_splits: Optional[int], scales=None) -> torch.Tensor:
+    """Checks and launch shared by the four paged wrappers (#4, 4q, 5, 5q):
+    pools [P, Hkv, ps, Dh] with ps == block_size, and for int8 (``scales``
+    given) scale rows [P, Hkv, 1] or [P, Hkv]."""
+    _check(name, q, k_pages, v_pages, (block_indices, page_table, kv_len), scales or ())
+    b, hkv, g, dh = q.shape
+    n_pages, ps = k_pages.shape[0], k_pages.shape[2]
+    if ps != block_size:
+        raise ValueError(f"{name}: page size {ps} != block size {block_size}")
+    if k_pages.shape != (n_pages, hkv, ps, dh) or v_pages.shape != k_pages.shape \
+            or any(t.numel() != n_pages * hkv or t.shape[:2] != (n_pages, hkv)
+                   for t in scales or ()) \
+            or block_indices.shape[:2] != (b, hkv) or page_table.dim() != 2 \
+            or page_table.shape[0] != b or tuple(kv_len.shape) != (b,):
+        raise ValueError(
+            f"{name}: shapes q {tuple(q.shape)}, k_pages {tuple(k_pages.shape)}, "
+            f"v_pages {tuple(v_pages.shape)}, scales "
+            f"{None if scales is None else [tuple(t.shape) for t in scales]} (want "
+            f"{(n_pages, hkv, 1)}), idx {tuple(block_indices.shape)}, page_table "
+            f"{tuple(page_table.shape)}, kv_len {tuple(kv_len.shape)}")
+    return _launch_sm90(name, q, k_pages, v_pages, block_indices, kv_len, block_size,
+                        num_splits, page_table=page_table, scales=scales)
 
 
 def sparse_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
@@ -372,23 +390,8 @@ def sparse_decode_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                              num_splits: Optional[int] = None) -> torch.Tensor:
     """Launch the CUDA paged block-sparse decode kernel (the paged instance
     of ``block_sparse_decode_sm90``); ``num_splits`` as ``sparse_decode_cuda``."""
-    _check("sparse_decode_paged_cuda", q, k_pages, v_pages,
-           (block_indices, page_table, kv_len))
-    b, hkv, g, dh = q.shape
-    n_pages, ps = k_pages.shape[0], k_pages.shape[2]
-    if ps != block_size:
-        raise ValueError(f"sparse_decode_paged_cuda: page size {ps} != block size "
-                         f"{block_size}")
-    if k_pages.shape != (n_pages, hkv, ps, dh) or v_pages.shape != k_pages.shape \
-            or block_indices.shape[:2] != (b, hkv) or page_table.dim() != 2 \
-            or page_table.shape[0] != b or tuple(kv_len.shape) != (b,):
-        raise ValueError(
-            f"sparse_decode_paged_cuda: shapes q {tuple(q.shape)}, k_pages "
-            f"{tuple(k_pages.shape)}, v_pages {tuple(v_pages.shape)}, idx "
-            f"{tuple(block_indices.shape)}, page_table {tuple(page_table.shape)}, "
-            f"kv_len {tuple(kv_len.shape)}")
-    out = _launch_sm90("block_sparse_decode_paged", q, k_pages, v_pages, block_indices,
-                       kv_len, block_size, num_splits, page_table=page_table)
+    out = _launch_paged("sparse_decode_paged_cuda", q, k_pages, v_pages, block_indices,
+                        page_table, kv_len, block_size, num_splits)
     if block_indices.shape[-1]:
         sparse_decode_paged_cuda.launches += 1
     return out
@@ -440,26 +443,8 @@ def sparse_decode_paged_quant_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     ``block_sparse_decode_sm90``): int8 pools [P, Hkv, ps, Dh], scale rows
     [P, Hkv, 1] (or [P, Hkv]) float32, read at each block's PHYSICAL page;
     ``num_splits`` as ``sparse_decode_cuda``."""
-    name = "sparse_decode_paged_quant_cuda"
-    _check(name, q, k_pages, v_pages, (block_indices, page_table, kv_len), (k_scales, v_scales))
-    b, hkv, g, dh = q.shape
-    n_pages, ps = k_pages.shape[0], k_pages.shape[2]
-    if ps != block_size:
-        raise ValueError(f"{name}: page size {ps} != block size {block_size}")
-    if k_pages.shape != (n_pages, hkv, ps, dh) or v_pages.shape != k_pages.shape \
-            or any(t.numel() != n_pages * hkv or t.shape[:2] != (n_pages, hkv)
-                   for t in (k_scales, v_scales)) \
-            or block_indices.shape[:2] != (b, hkv) or page_table.dim() != 2 \
-            or page_table.shape[0] != b or tuple(kv_len.shape) != (b,):
-        raise ValueError(
-            f"{name}: shapes q {tuple(q.shape)}, k_pages {tuple(k_pages.shape)}, "
-            f"v_pages {tuple(v_pages.shape)}, scales {tuple(k_scales.shape)}/"
-            f"{tuple(v_scales.shape)} (want {(n_pages, hkv, 1)}), idx "
-            f"{tuple(block_indices.shape)}, page_table {tuple(page_table.shape)}, "
-            f"kv_len {tuple(kv_len.shape)}")
-    out = _launch_sm90("block_sparse_decode_paged_quant", q, k_pages, v_pages, block_indices,
-                       kv_len, block_size, num_splits, page_table=page_table,
-                       scales=(k_scales, v_scales))
+    out = _launch_paged("sparse_decode_paged_quant_cuda", q, k_pages, v_pages, block_indices,
+                        page_table, kv_len, block_size, num_splits, (k_scales, v_scales))
     if block_indices.shape[-1]:
         sparse_decode_paged_quant_cuda.launches += 1
     return out
@@ -468,60 +453,16 @@ def sparse_decode_paged_quant_cuda(q: torch.Tensor, k_pages: torch.Tensor,
 sparse_decode_paged_quant_cuda.launches = 0
 
 
-def _splitk(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-            block_indices: torch.Tensor, page_table: torch.Tensor, kv_len: torch.Tensor,
-            block_size: int, num_splits: int, scales) -> torch.Tensor:
-    """Shape checks and the launch shared by the two split-K wrappers;
-    ``scales`` is (k_scales, v_scales) for int8 pools, else None (dtype and
-    device checks are the callers')."""
-    b, hkv, g, dh = q.shape
-    n_pages, ps = k_pages.shape[0], k_pages.shape[2]
-    nsel = block_indices.shape[-1]
-    if ps != block_size:
-        raise ValueError(f"{name}: page size {ps} != block size {block_size}")
-    if num_splits < 1:
-        raise ValueError(f"{name}: num_splits must be >= 1, got {num_splits}")
-    if k_pages.shape != (n_pages, hkv, ps, dh) or v_pages.shape != k_pages.shape \
-            or (scales is not None and any(t.numel() != n_pages * hkv
-                                           or t.shape[:2] != (n_pages, hkv) for t in scales)) \
-            or block_indices.shape[:2] != (b, hkv) or page_table.dim() != 2 \
-            or page_table.shape[0] != b or tuple(kv_len.shape) != (b,):
-        raise ValueError(
-            f"{name}: shapes q {tuple(q.shape)}, k_pages {tuple(k_pages.shape)}, v_pages "
-            f"{tuple(v_pages.shape)}, scales "
-            f"{None if scales is None else [tuple(t.shape) for t in scales]}, idx "
-            f"{tuple(block_indices.shape)}, page_table {tuple(page_table.shape)}, "
-            f"kv_len {tuple(kv_len.shape)}")
-    out = torch.empty_like(q)
-    if nsel == 0:
-        return out.zero_()
-    # the f32 partials: acc [B,Hkv,ns,G,Dh], then m and l [B,Hkv,ns,G]
-    work = torch.empty(b * hkv * num_splits * (g * dh + 2 * g), dtype=torch.float32,
-                       device=q.device)
-    lib = build.load("block_sparse_decode")
-    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
-    if scales is not None:
-        ptrs += tuple(t.data_ptr() for t in scales)
-    rc = _bind(lib, paged=True, quant=scales is not None, split=True)(
-        *ptrs, block_indices.data_ptr(), page_table.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), work.data_ptr(), b, hkv, g, dh, page_table.shape[1], nsel,
-        block_size, num_splits, 1.0 / math.sqrt(dh), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, rc, f"{name} kernel launch")
-    return out
-
-
 def sparse_decode_paged_splitk_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                                     v_pages: torch.Tensor, block_indices: torch.Tensor,
                                     page_table: torch.Tensor, kv_len: torch.Tensor, *,
                                     block_size: int, num_splits: int) -> torch.Tensor:
     """Launch the CUDA split-K paged decode (TPU body ``_kernel_paged_splitk``
-    and the combine of its entry point): B*Hkv*num_splits CTAs of the paged
-    body write their partials, one combine kernel writes o."""
-    name = "sparse_decode_paged_splitk_cuda"
-    _check(name, q, k_pages, v_pages, (block_indices, page_table, kv_len))
-    out = _splitk(name, q, k_pages, v_pages, block_indices, page_table, kv_len, block_size,
-                  num_splits, None)
+    and the combine of its entry point): the paged instance of
+    ``block_sparse_decode_sm90`` at the caller's ``num_splits``, B*Hkv*
+    num_splits CTAs, then (num_splits > 1) the combine kernel."""
+    out = _launch_paged("sparse_decode_paged_splitk_cuda", q, k_pages, v_pages, block_indices,
+                        page_table, kv_len, block_size, num_splits)
     if block_indices.shape[-1]:
         sparse_decode_paged_splitk_cuda.launches += 1
     return out
@@ -537,12 +478,12 @@ def sparse_decode_paged_splitk_quant_cuda(q: torch.Tensor, k_pages: torch.Tensor
                                           k_scales: torch.Tensor,
                                           v_scales: torch.Tensor) -> torch.Tensor:
     """Launch the int8 CUDA split-K paged decode (TPU body
-    ``_kernel_paged_splitk_quant``): int8 pools, scale rows [P, Hkv, 1] (or
-    [P, Hkv]) read at each block's PHYSICAL page, then the combine."""
-    name = "sparse_decode_paged_splitk_quant_cuda"
-    _check(name, q, k_pages, v_pages, (block_indices, page_table, kv_len), (k_scales, v_scales))
-    out = _splitk(name, q, k_pages, v_pages, block_indices, page_table, kv_len, block_size,
-                  num_splits, (k_scales, v_scales))
+    ``_kernel_paged_splitk_quant``): the int8 paged instance of
+    ``block_sparse_decode_sm90`` at the caller's ``num_splits``, scale rows
+    [P, Hkv, 1] (or [P, Hkv]) read at each block's PHYSICAL page."""
+    out = _launch_paged("sparse_decode_paged_splitk_quant_cuda", q, k_pages, v_pages,
+                        block_indices, page_table, kv_len, block_size, num_splits,
+                        (k_scales, v_scales))
     if block_indices.shape[-1]:
         sparse_decode_paged_splitk_quant_cuda.launches += 1
     return out

@@ -30,7 +30,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gate_select", "block_sparse_decode", "block_sparse_decode_sm90", "gate_gt_fwd")
+SOURCES = ("gate_select", "block_sparse_decode_sm90", "gate_gt_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,7 +1,7 @@
 // Block-sparse flash decoding over fp or int8 K/V, redesigned for Hopper
 // (sm_90a).
 //
-// Replaces four TPU kernel bodies of src/repro/kernels/block_sparse_decode.py:
+// Replaces six TPU kernel bodies of src/repro/kernels/block_sparse_decode.py:
 //   block_sparse_decode        (:222; fp body _kernel :165 -> _flash_group
 //                              -> _flash_accum): block_sparse_decode_sm90_launch;
 //                              int8 body _kernel_quant (:170):
@@ -10,11 +10,15 @@
 //                              template with Paged = true,
 //                              block_sparse_decode_sm90_paged_launch; int8
 //                              body _kernel_paged_quant (:190):
-//                              block_sparse_decode_sm90_paged_quant_launch.
-// The split-K instances of the reference's paged entry point (5, 5q) stay
-// in block_sparse_decode.cu.
+//                              block_sparse_decode_sm90_paged_quant_launch;
+//   block_sparse_decode_paged_splitk (:407; fp body _kernel_paged_splitk
+//                              :361, int8 body _kernel_paged_splitk_quant
+//                              :393, the jnp combine :499-505): the two paged
+//                              entry points above at the caller's num_splits,
+//                              whose segments are the reference's splits and
+//                              whose combine kernel is its rescale.
 //
-// Contract (as block_sparse_decode.cu's entry points had it):
+// Contract:
 //   q        [B, Hkv, G, Dh]    one new query token, grouped per kv head
 //   k, v     [B, Hkv, S, Dh]    post-rope caches (bf16 or fp32, same as q,
 //            or int8 codes), or, Paged, the pools [P, Hkv, ps, Dh] with
@@ -46,11 +50,15 @@
 // Design:
 // - Fill the card. The wrapper cuts each (b, kv-head)'s selected list into
 //   ns segments of per = ceil(nsel / ns) entries (the reference's split-K
-//   boundaries) and picks ns from (B, Hkv, nsel, the SM count) only, for
-//   about two CTAs per SM: 8 segments of 8 blocks, 256 CTAs at the main
-//   path's shape. kv_len, the pool, the page table and the dtype do not
-//   enter the plan, so the same inputs give the same bits whatever the
-//   pool holds, and the contiguous and paged entry points agree bitwise.
+//   boundaries). For #2, #4 and their int8 bodies it picks ns from (B,
+//   Hkv, nsel, the SM count) only, for about two CTAs per SM: 8 segments of
+//   8 blocks, 256 CTAs at the main path's shape; split-K (5, 5q) takes the
+//   caller's ns (4 on the sharded serve: 128 CTAs). A segment that starts
+//   past nsel (ns > nsel) stages nothing and writes an empty partial.
+//   kv_len, the pool, the page table and the dtype do not enter the plan,
+//   so the same inputs give the same bits whatever the pool holds, and the
+//   contiguous and paged entry points agree bitwise; 5 at ns is #4 at ns,
+//   bit for bit.
 //   A CTA holds up to 32 query rows, each lane at most kMaxChunks chunks
 //   of its row: further rows of a group go to ngc g-chunk CTAs and heads
 //   wider than 32 lanes x kMaxChunks chunks to ncs column-slice CTAs (none

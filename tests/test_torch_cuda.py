@@ -565,18 +565,24 @@ QUANT_OTHER_PATH_SHAPES = [
 ]
 
 
-def _shuffled_quant(kp, vp, ksp, vsp, pt):
-    """The pools' physical pages (and scale rows) permuted under a remapped
-    table, the trash page 0 left in place; the V scale rows as [P, Hkv]."""
-    n_pages = kp.shape[0]
+def _shuffled_pages(pt, *pools):
+    """(table, *pools) with the pools' physical pages permuted under a
+    remapped table, the trash page 0 left in place."""
+    n_pages = pools[0].shape[0]
     perm = torch.cat([torch.zeros(1, dtype=torch.long),
                       1 + torch.randperm(n_pages - 1,
                                          generator=torch.Generator().manual_seed(1))]
-                     ).to(kp.device)
+                     ).to(pt.device)
     inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(n_pages, device=kp.device)
-    return (kp[inv], vp[inv], ksp[inv], vsp[inv].reshape(n_pages, -1),
-            perm[pt.long()].int())
+    inv[perm] = torch.arange(n_pages, device=pt.device)
+    return (perm[pt.long()].int(), *(t[inv] for t in pools))
+
+
+def _shuffled_quant(kp, vp, ksp, vsp, pt):
+    """``_shuffled_pages`` over int8 pools and their scale rows, the V scale
+    rows as [P, Hkv]."""
+    pt_s, kp_s, vp_s, ksp_s, vsp_s = _shuffled_pages(pt, kp, vp, ksp, vsp)
+    return kp_s, vp_s, ksp_s, vsp_s.reshape(kp.shape[0], -1), pt_s
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -827,18 +833,55 @@ def test_splitk_wrappers_count_and_route(dev):
                                           block_sparse_decode_paged_splitk=1)
 
 
-# one-line faults in the split-K instances: (source line, edit, int8 pools?)
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hkv,g,dh,npt,bs,nsel", SPLITK_SHAPES)
+def test_splitk_kernels_are_the_paged_body_bitwise(dev, quant, dtype, s, hkv, g, dh, npt,
+                                                   bs, nsel):
+    """5 at num_splits = n is ``sparse_decode_paged_cuda(num_splits=n)`` bit
+    for bit, and 5q ``sparse_decode_paged_quant_cuda(num_splits=n)``: one
+    body at the same segment boundaries, for n in 1, 2, 3, 4, 8 and nsel +
+    3 (empty segments), over the pools and over their pages shuffled under
+    a remapped table."""
+    if quant:
+        q, kp, vp, ksp, vsp, idx, pt, kv_len, _ = _quant_paged_inputs(dev, dtype, s, hkv, g,
+                                                                      dh, npt, bs, nsel)
+        pt_s, kp_s, vp_s, ksp_s, vsp_s = _shuffled_pages(pt, kp, vp, ksp, vsp)
+        pools = [(pt, kp, vp, dict(k_scales=ksp, v_scales=vsp)),
+                 (pt_s, kp_s, vp_s, dict(k_scales=ksp_s, v_scales=vsp_s))]
+        split = bsd.sparse_decode_paged_splitk_quant_cuda
+        single = bsd.sparse_decode_paged_quant_cuda
+    else:
+        q, kp, vp, idx, pt, kv_len, _ = _paged_inputs(dev, dtype, s, hkv, g, dh, npt, bs, nsel)
+        pt_s, kp_s, vp_s = _shuffled_pages(pt, kp, vp)
+        pools = [(pt, kp, vp, {}), (pt_s, kp_s, vp_s, {})]
+        split, single = bsd.sparse_decode_paged_splitk_cuda, bsd.sparse_decode_paged_cuda
+    for ns in (1, 2, 3, 4, 8, nsel + 3):
+        want = single(q, kp, vp, idx, pt, kv_len, block_size=bs, num_splits=ns, **pools[0][3])
+        for table, k, v, kw in pools:
+            o5 = split(q, k, v, idx, table, kv_len, block_size=bs, num_splits=ns, **kw)
+            o4 = single(q, k, v, idx, table, kv_len, block_size=bs, num_splits=ns, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(o5, want), ns
+            assert torch.equal(o4, want), ns
+
+
+# one-line faults in the body of block_sparse_decode_sm90.cu that the
+# split-K kernels run, each driven through 5 or 5q at 4 splits: (source
+# line, edit, int8 pools?)
 SPLITK_MUTANTS = {
     "combine without the rescale": (
-        "const float rs = (ls > 0.f) ? expf(pm[s * G] - m) : 0.f;",
+        "const float rs = (ls > 0.f) ? exp2f(pm[s * G] - m) : 0.f;",
         "const float rs = (ls > 0.f) ? 1.f : 0.f;", False),
     "rescale not masked by l > 0": (
-        "const float rs = (ls > 0.f) ? expf(pm[s * G] - m) : 0.f;",
-        "const float rs = expf(pm[s * G] - m);", False),
+        "const float rs = (ls > 0.f) ? exp2f(pm[s * G] - m) : 0.f;",
+        "const float rs = exp2f(pm[s * G] - m);", False),
     "segment end one past the boundary": (
-        "j1 = min(j0 + per, nsel);", "j1 = min(j0 + per + 1, nsel);", False),
+        "const int j1 = min(j0 + per, p.nsel);",
+        "const int j1 = min(j0 + per + 1, p.nsel);", False),
     "V scale applied twice (5q)": (
-        "a += v_scale * pv;", "a += v_scale * v_scale * pv;", True),
+        "lane_axpy<KV, NCH>(acc, s[t] * sc.y,",
+        "lane_axpy<KV, NCH>(acc, s[t] * sc.y * sc.y,", True),
 }
 
 
@@ -849,7 +892,7 @@ def test_splitk_decode_limit_rejects_a_faulty_kernel(dev, mutant, tmp_path, monk
     splits, bf16 and a shuffled table (one (slot, head) row has no valid
     key, so every segment of it is empty); the correct kernel passes."""
     old, new, quant = SPLITK_MUTANTS[mutant]
-    src = (build.CSRC / "block_sparse_decode.cu").read_text()
+    src = (build.CSRC / SM90_SOURCE).read_text()
     assert src.count(old) == 1, mutant
     cu = tmp_path / "mutant_splitk.cu"
     cu.write_text(src.replace(old, new))

@@ -12,7 +12,9 @@ bitwise. These tests hold:
   * the planner: deterministic, at least one segment, its segments
     covering ``[0, nsel)`` exactly and none empty;
   * the wrappers: what they hand the library (driven with a stand-in
-    library that records its arguments) depends on the shapes only;
+    library that records its arguments) depends on the shapes only; the
+    split-K wrappers (kernels 5 and 5q, the same body's paged instances)
+    hand it the caller's num_splits instead;
   * the arithmetic: ``sparse_decode_paged_splitk_plain`` over the plan's
     segments equals ``sparse_decode_paged_plain`` within 1e-5 in fp32 (the
     split only reorders fp32 sums: the two-pass rescale is exact
@@ -38,7 +40,7 @@ from repro.kernels import block_sparse_decode as j_bsd
 from repro.kernels import ref as j_ref
 from repro.serve import paging as j_pg
 from repro_torch.kernels import block_sparse_decode as t_bsd
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ops
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -203,6 +205,58 @@ def test_quant_wrappers_plan_from_the_shapes_only(recorded, b, hkv, nsel):
         sc = ks if fn is t_bsd.sparse_decode_quant_cuda else kps
         with pytest.raises(ValueError, match="num_splits"):
             fn(*args, block_size=bs, k_scales=sc, v_scales=sc, num_splits=0)
+
+
+
+SM90_ENTRIES = ("block_sparse_decode_sm90_launch", "block_sparse_decode_sm90_paged_launch",
+                "block_sparse_decode_sm90_quant_launch",
+                "block_sparse_decode_sm90_paged_quant_launch")
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("nsel,num_splits", [(64, 4), (33, 4), (6, 4), (64, 1), (33, 36),
+                                             (4, 7)])
+def test_splitk_wrappers_take_the_callers_num_splits(recorded, monkeypatch, quant, nsel,
+                                                     num_splits):
+    """Kernels 5 and 5q launch the sm90 body's paged entry point (fp, or
+    int8) at the caller's num_splits, never the split plan's (which differs
+    in every case here), also where it does not divide nsel and at nsel +
+    3; a workspace exactly when num_splits > 1; each call bumps the
+    wrapper's own launch counter and no other; num_splits 0 is refused and
+    launches nothing."""
+    b, hkv, g, dh, bs, npt, n_pages = 4, 8, 2, 16, 8, 9, 40
+    assert num_splits != t_bsd.split_plan(b, hkv, nsel, 132)
+    q, _, kp, idx, pt, lens = _case(0, b, hkv, g, dh, npt, bs, nsel, n_pages, 70)
+    lib = build.load("block_sparse_decode_sm90")
+    per_entry = {name: [] for name in SM90_ENTRIES}
+    for name, calls in per_entry.items():
+        setattr(lib, name, _Entry(calls))
+    sources = []
+    monkeypatch.setattr(build, "load", lambda name: sources.append(name) or lib)
+    if quant:
+        kq, ks = _q8(kp, bs, 0)
+        ks = ks.reshape(n_pages, hkv, 1)
+        fn, kw = t_bsd.sparse_decode_paged_splitk_quant_cuda, dict(k_scales=ks, v_scales=ks)
+        kp, entry, n_ptr = kq, SM90_ENTRIES[3], 10
+        counter = "block_sparse_decode_paged_splitk_quant"
+    else:
+        fn, kw = t_bsd.sparse_decode_paged_splitk_cuda, {}
+        counter, entry, n_ptr = "block_sparse_decode_paged_splitk", SM90_ENTRIES[1], 8
+    ops.reset_launch_counts()
+    fn(q, kp, kp, idx, pt, lens, block_size=bs, num_splits=num_splits, **kw)
+    assert sources == ["block_sparse_decode_sm90"]
+    assert {name: len(c) for name, c in per_entry.items()} == {
+        name: int(name == entry) for name in SM90_ENTRIES}
+    (args,) = per_entry[entry]
+    # n_ptr pointers (the workspace last), then B, H, G, Dh, npt, nsel, bs,
+    # num_splits
+    assert args[n_ptr:n_ptr + 8] == (b, hkv, g, dh, npt, nsel, bs, num_splits)
+    assert (args[n_ptr - 1] != 0) == (num_splits > 1)
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), counter: 1}
+    with pytest.raises(ValueError, match="num_splits"):
+        fn(q, kp, kp, idx, pt, lens, block_size=bs, num_splits=0, **kw)
+    assert len(per_entry[entry]) == 1
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), counter: 1}
 
 
 HKV, PS, DH = 2, 8, 16
