@@ -38,14 +38,19 @@ non-zero):
   3. kernel vs plain on the card, on the tensors the main path gives
      layer 0 in its first decode step (captured from a real prefill +
      step): gate select for budget/threshold x force flags x n_valid
-     full/partial/1 (ids equal up to swaps of near-tied blocks), and the
+     full/partial/1 (ids equal up to swaps of near-tied blocks), the same
+     cases on exact ties at the same shapes (integer qg and Kg rows drawn
+     from 7 distinct ones: budget ids bitwise the plain version's), and the
      block-sparse decode with -1 padding, a partial last block and a
      peaked softmax (max abs error within 8 bf16 ulps of the plain
      output's largest element, and within 2e-2); each kernel, its plain
      version and the library yardstick timed with CUDA events (median of
      30 runs onto an idle card, the host's enqueue of a call counted
      where it is the longer: see ``time_ms``); #2 must beat dense SDPA so
-     timed; for information, #2's and SDPA's times with the host's
+     timed; for information, the gate select's CTAs and threads, its
+     device work with the host's enqueue hidden and its host enqueue, its
+     share of the bound at both times and, as context, einsum +
+     torch.topk on the same inputs; #2's and SDPA's times with the host's
      enqueue hidden behind a spin kernel, #2's host enqueue of one call,
      its split plan (segments, CTAs), its rate (the bound's bytes over
      its time) and share of the bound at both times, and a sweep of the
@@ -55,8 +60,8 @@ non-zero):
      after; each kernel must launch layers x decode steps times; all
      logits finite;
   5. profile, after the timed run so that it cannot slow it: a few decode
-     steps before, under and after torch.profiler, the top device kernels
-     and the device's busy share;
+     steps before, under and after torch.profiler, the top device kernels,
+     the device's busy share and the gate select's device time a call;
   6. serve: ``serve`` on qwen3_0_6b in bf16 (seed-0 weights, 4 slots, six
      requests of 16384/12345/8191/4097/1500/63 numpy-seeded prompt tokens
      and 32/24/40/16/48/8 new tokens), once with the default (ample) pool
@@ -68,13 +73,16 @@ non-zero):
      run's tokens and logits;
   7. the paged kernels against their plain versions on the tensors layer
      0 of the ample run's first decode step gave them (captured during
-     that run), with the decode limit of phase 3, and timed the same way;
+     that run), with the decode limit of phase 3, the gate select also on
+     exact ties and both bitwise equal over shuffled pages, and timed and
+     reported the same way;
      the library yardstick of the paged decode is dense SDPA over the
      slots' ``gather_kv`` view, masked at each slot's length, which #4
      must beat; #4's plan, rate, bound share and sweep as #2's;
   8. serve profile: the four longest requests on 4 slots, torch.profiler
      over three whole decode iterations (model step and host scheduling),
-     the top device kernels and the device's busy share;
+     the top device kernels, the device's busy share and the gate
+     select's device time a call;
   9. int8 serve: phase 6's requests and pools with int8 K/V pages; each
      run must launch the int8 paged decode and the paged gate select
      layers x decode steps times and nothing else, swap the int8 bytes plus
@@ -286,6 +294,85 @@ def compare_ids(k_idx, p_idx, scores):
         swaps += 1
         gap = max(gap, abs(sa - sb))
     return swaps, gap
+
+
+def tie_inputs(qg, kg, seed: int = 0):
+    """Integer-valued copies of a gate select's qg and Kg (contiguous [B,
+    Hkv, nb, Dg], or a pool [P, Hkv, Dg]) in their dtype: values in [-3, 3],
+    exact in bf16, and every dot an integer below 2**24, so the scores are
+    exact in any summation order; each (b, kv-head)'s rows (a pool's: all
+    rows) drawn from 7 distinct ones, so many blocks tie exactly."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randint(-3, 4, tuple(qg.shape), generator=g)
+    if kg.dim() == 4:
+        b, h, nb, dg = kg.shape
+        rows = torch.randint(-3, 4, (b, h, 7, dg), generator=g)
+        k = rows[:, :, torch.randint(0, 7, (nb,), generator=g)]
+    else:
+        rows = torch.randint(-3, 4, (7,) + tuple(kg.shape[1:]), generator=g)
+        k = rows[torch.randint(0, 7, (kg.shape[0],), generator=g)]
+    return q.to(qg.device, qg.dtype), k.to(kg.device, kg.dtype)
+
+
+def gate_cases(name, kernel, plain, scores, nv, nb, gcfg, exact=False, shuffled=None):
+    """#1 or #3 against its plain version, each called as ``fn(n_valid,
+    cfg)``, over budget/threshold x force flags x n_valid full/partial/1:
+    ids equal up to swaps of near-tied blocks (compare_ids, against
+    ``scores(n_valid, cfg)``), or, ``exact`` (inputs whose scores are
+    exact), bitwise for the budget method; given ``shuffled`` (the kernel
+    over pools whose pages are shuffled under the table), bitwise equal to
+    it. Returns (cases, swaps, largest swap gap)."""
+    checks = swaps = 0
+    gap = 0.0
+    part = torch.clamp(nv // 2 + 1, max=nb).to(torch.int32)
+    for method in ("budget", "threshold"):
+        for ff, fl in ((True, True), (False, True), (False, False)):
+            c = dataclasses.replace(gcfg, method=method, always_first_block=ff,
+                                    always_last_block=fl)
+            for n_valid in (nv, part, torch.ones_like(nv)):
+                k_idx, p_idx = kernel(n_valid, c), plain(n_valid, c)
+                same = None if shuffled is None else torch.equal(k_idx, shuffled(n_valid, c))
+                torch.cuda.synchronize()
+                if same is False:
+                    fail(f"{name}: shuffled pages changed the ids")
+                if exact and method == "budget":
+                    if not torch.equal(k_idx, p_idx):
+                        fail(f"{name}: ids differ from plain on exact ties (budget, force "
+                             f"first {ff}, last {fl}, n_valid {n_valid.tolist()})")
+                else:
+                    sw, gp = compare_ids(k_idx, p_idx, scores(n_valid, c))
+                    swaps += sw
+                    gap = max(gap, gp)
+                checks += 1
+    return checks, swaps, gap
+
+
+def report_gate(name, t_k, call, nbytes, b_ms, ctas, context):
+    """Gate select's CTAs and threads, its share of the bound at the
+    recorded time ``t_k`` and with the host's enqueue hidden, the host's
+    enqueue of one call, and, for context only, ``context`` (einsum +
+    torch.topk: two calls, no mask, pins or cutoff) with the host hidden.
+    (``src/repro_torch/launch/gate_phases.py`` splits its device time by
+    phase and CTA size.)"""
+    t_dev = time_ms(call, hide_host=True)
+    t_host = host_enqueue_ms(call)
+    t_ctx = time_ms(context, hide_host=True)
+    share = lambda t: f"{100 * b_ms / t:.2f}% of the bound"
+    print(f"{name}: {ctas} CTAs of {gs.cta_threads()} threads; {nbytes / 1e6:.3f} MB; at "
+          f"the recorded {t_k:.4f} ms {share(t_k)}; device work alone (host enqueue hidden) "
+          f"{t_dev:.4f} ms {share(t_dev)}; host enqueue of one call {t_host:.4f} ms; context, "
+          f"einsum + torch.topk (device work alone): {t_ctx:.4f} ms")
+
+
+def gate_profile(kernels, steps: int) -> str:
+    """Gate select's per-call device time in a profile's device kernels."""
+    g = [e for e in kernels if "gate_select_kernel" in e.key]
+    n = sum(e.count for e in g)
+    t = sum(e.self_device_time_total for e in g)
+    if n == 0:
+        fail("the profile holds no gate select kernel")
+    return (f"gate select {t / n:.2f} µs a call, {n / steps:.0f} calls and "
+            f"{t / 1e3 / steps:.3f} ms of device time a step")
 
 
 def decode_limit(o_plain):
@@ -625,26 +712,19 @@ def phase_kernels(seen):
           f"{nv.tolist()} | q {tuple(q.shape)} caches {tuple(kc.shape)} idx "
           f"{tuple(idx.shape)} kv_len {kv_len.tolist()} ({kc.dtype})")
 
-    # gate select: budget/threshold x force flags x n_valid full/partial/1
-    swaps = checks = 0
-    gate_err = 0.0
-    full = nv
-    part = torch.clamp(nv // 2 + 1, max=nb).to(torch.int32)
-    one = torch.ones_like(nv)
-    for method in ("budget", "threshold"):
-        for ff, fl in ((True, True), (False, True), (False, False)):
-            c = dataclasses.replace(gcfg, method=method, always_first_block=ff,
-                                    always_last_block=fl)
-            for n_valid in (full, part, one):
-                k_idx = gs.gate_select_cuda(qg, kg, n_valid, c, ms)
-                p_idx = gs.gate_select_plain(qg, kg, n_valid, c, ms)
-                torch.cuda.synchronize()
-                s, gap = compare_ids(k_idx, p_idx, gs.gate_scores_plain(qg, kg, n_valid, c))
-                swaps += s
-                gate_err = max(gate_err, gap)
-                checks += 1
+    # gate select: budget/threshold x force flags x n_valid full/partial/1,
+    # on the captured tensors and on exact ties at their shapes
+    def gate_checks(q_, k_, exact):
+        return gate_cases("gate_select", lambda n, c: gs.gate_select_cuda(q_, k_, n, c, ms),
+                          lambda n, c: gs.gate_select_plain(q_, k_, n, c, ms),
+                          lambda n, c: gs.gate_scores_plain(q_, k_, n, c), nv, nb, gcfg,
+                          exact=exact)
+    checks, swaps, gate_err = gate_checks(qg, kg, False)
     print(f"gate_select: {checks} cases (budget/threshold x force flags x n_valid "
           f"full/partial/1) equal to plain; near-tie swaps {swaps}")
+    checks, swaps, _ = gate_checks(*tie_inputs(qg, kg), True)
+    print(f"gate_select: exact ties (integer qg and Kg, rows from 7 distinct ones): {checks} "
+          f"cases, budget ids bitwise those of plain, threshold near-tie swaps {swaps}")
 
     # block-sparse decode; kv_len leaves a partial block
     thr = gs.gate_select_plain(qg, kg, nv, dataclasses.replace(gcfg, method="threshold"), ms)
@@ -675,6 +755,10 @@ def phase_kernels(seen):
     dbytes, dops = decode_work(q, idx, kv_len, bs)
     db, dby = bound_ms(dbytes, dops)
     print(f"gate_select: kernel {t_gk:.4f} ms, plain {t_gp:.4f} ms, bound {gb:.5f} ms ({gby})")
+    report_gate("gate_select", t_gk, lambda: gs.gate_select_cuda(qg, kg, nv, gcfg, ms),
+                gate_work(qg, nv, k_sel)[0], gb, qg.shape[0] * qg.shape[1],
+                lambda: torch.topk(torch.einsum("bhd,bhnd->bhn", qg.float(), kg.float()),
+                                   k_sel))
     t_dk_dev, t_lib_dev = time_ms(dec, hide_host=True), time_ms(lib_call, hide_host=True)
     print(f"block_sparse_decode: kernel {t_dk:.4f} ms, plain {t_dp:.4f} ms, "
           f"bound {db:.5f} ms ({dby}), SDPA dense over {n} tokens {t_lib:.4f} ms; "
@@ -720,7 +804,8 @@ def phase_profile(eng, batch, steps: int = 3):
     print(f"profile: decode step {before:.2f} ms wall before the profiler, "
           f"{under:.2f} ms under it, {after:.2f} ms after it; device busy "
           f"{busy:.2f} ms/step = {100 * busy / under:.1f}% of the profiled wall; "
-          f"{sum(e.count for e in kernels) / steps:.0f} kernel launches/step")
+          f"{sum(e.count for e in kernels) / steps:.0f} kernel launches/step; "
+          f"{gate_profile(kernels, steps)}")
 
 
 def host_launch_us(n: int = 2000) -> float:
@@ -1073,29 +1158,23 @@ def phase_paged_kernels(seen):
     # their outputs
     pt_s, kgp_s = shuffled_pages(pt, kgp)
 
-    swaps = checks = 0
-    gate_err = 0.0
-    part = torch.clamp(nv // 2 + 1, max=npt).to(torch.int32)
-    for method in ("budget", "threshold"):
-        for ff, fl in ((True, True), (False, True), (False, False)):
-            c = dataclasses.replace(gcfg, method=method, always_first_block=ff,
-                                    always_last_block=fl)
-            for n_valid in (nv, part, torch.ones_like(nv)):
-                k_idx = gs.gate_select_paged_cuda(qg, kgp, pt, n_valid, c, ms)
-                p_idx = gs.gate_select_paged_plain(qg, kgp, pt, n_valid, c, ms)
-                s_idx = gs.gate_select_paged_cuda(qg, kgp_s, pt_s, n_valid, c, ms)
-                torch.cuda.synchronize()
-                if not torch.equal(k_idx, s_idx):
-                    fail("gate_select_paged: shuffled pages changed the ids")
-                scores = gs.gate_scores_plain(qg, pg.gather_kg(kgp, pt), n_valid, c)
-                sw, gap = compare_ids(k_idx, p_idx, scores)
-                swaps += sw
-                gate_err = max(gate_err, gap)
-                checks += 1
+    def gate_checks(q_, pool, pool_s, exact):
+        return gate_cases(
+            "gate_select_paged", lambda n, c: gs.gate_select_paged_cuda(q_, pool, pt, n, c, ms),
+            lambda n, c: gs.gate_select_paged_plain(q_, pool, pt, n, c, ms),
+            lambda n, c: gs.gate_scores_plain(q_, pg.gather_kg(pool, pt), n, c), nv, npt,
+            gcfg, exact=exact,
+            shuffled=lambda n, c: gs.gate_select_paged_cuda(q_, pool_s, pt_s, n, c, ms))
+    checks, swaps, gate_err = gate_checks(qg, kgp, kgp_s, False)
     print(f"gate_select_paged: {checks} cases (budget/threshold x force flags x n_valid "
           f"captured/partial/1) equal to plain, and to the kernel over shuffled pages; "
           f"near-tie swaps {swaps}")
-    del kgp_s
+    tq, tk = tie_inputs(qg, kgp)
+    checks, swaps, _ = gate_checks(tq, tk, shuffled_pages(pt, tk)[1], True)
+    print(f"gate_select_paged: exact ties (integer qg and Kg pool, rows from 7 distinct ones): "
+          f"{checks} cases, budget ids bitwise those of plain, threshold near-tie swaps {swaps}, "
+          f"all bitwise equal over shuffled pages")
+    del kgp_s, tq, tk
 
     thr = gs.gate_select_paged_plain(qg, kgp, pt, nv,
                                      dataclasses.replace(gcfg, method="threshold"), ms)
@@ -1131,6 +1210,13 @@ def phase_paged_kernels(seen):
     dbytes, dops = paged_decode_work(q, idx, kv_len, bs)
     db, dby = bound_ms(dbytes, dops)
     print(f"gate_select_paged: kernel {t_gk:.4f} ms, plain {t_gp:.4f} ms, bound {gb:.5f} ms ({gby})")
+    kg_view = pg.gather_kg(kgp, pt)
+    report_gate("gate_select_paged", t_gk,
+                lambda: gs.gate_select_paged_cuda(qg, kgp, pt, nv, gcfg, ms),
+                gbytes + 4 * int(nv.sum()), gb, qg.shape[0] * qg.shape[1],
+                lambda: torch.topk(torch.einsum("bhd,bhnd->bhn", qg.float(), kg_view.float()),
+                                   k_sel))
+    del kg_view
     print(f"block_sparse_decode_paged: kernel {t_dk:.4f} ms, plain {t_dp:.4f} ms, bound "
           f"{db:.5f} ms ({dby}), SDPA dense over the gathered view (masked at kv_len) "
           f"{t_lib:.4f} ms; with the host's enqueue hidden (information only): kernel "
@@ -1278,7 +1364,7 @@ def phase_serve_profile(cfg, params, options=DecodeOptions(), shard=None,
           f"{100 * busy / per_step:.1f}% of it; "
           f"{sum(e.count for e in kernels) / steps:.0f} kernel launches/iteration; "
           f"{sum(e.count for e in comms) / steps:.0f} collectives/iteration, "
-          f"{comm_ms:.2f} ms/iteration of host time in them")
+          f"{comm_ms:.2f} ms/iteration of host time in them; {gate_profile(kernels, steps)}")
 
 # ---------------------------------------------------------------------------
 # gate distillation training (TPU kernel 6)

@@ -13,7 +13,9 @@ Replaces the TPU kernels ``repro/kernels/gate_select.py::fused_gate_select``
 CPU execution path and the oracle the kernel is held against on the card.
 ``gate_select_cuda`` launches ``csrc/gate_select.cu`` (built by
 ``kernels/build.py``) on the current stream and counts its launches in
-``gate_select_cuda.launches``.
+``gate_select_cuda.launches``: one CTA per (b, kv-head) scores the rows
+with 16-byte loads and picks the top k by a radix select over
+order-preserving keys, exact with the lower index first on ties.
 
 and ``fused_gate_select_paged`` (the same selection over the paged Kg
 pool, read through the page table):
@@ -43,6 +45,10 @@ from repro_torch.kernels import build
 from repro_torch.models.common import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's limits (csrc/gate_select.cu kMaxBlocks, kMaxDg): its scores,
+# survivor list and staged table row live in one CTA's shared memory
+MAX_BLOCKS = 16384
+MAX_DG = 1024
 
 
 def n_selected(cfg: GateConfig, nb: int,
@@ -94,6 +100,11 @@ def gate_select_paged_plain(qg: torch.Tensor, kg_pages: torch.Tensor,
                              cfg, max_selected)
 
 
+def cta_threads() -> int:
+    """Threads a CTA of the built kernel (its grid is B x Hkv CTAs)."""
+    return int(build.load("gate_select").gate_select_cta_threads())
+
+
 def _bind(lib: ctypes.CDLL, paged: bool = False):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if paged:
@@ -119,11 +130,19 @@ def _check_q(name: str, qg: torch.Tensor, kg: torch.Tensor,
         raise TypeError(f"{name}: n_valid must be int32, got {n_valid.dtype}")
 
 
+def _check_limits(name: str, nb: int, dg: int) -> None:
+    if nb > MAX_BLOCKS or dg > MAX_DG:
+        raise ValueError(f"{name}: {nb} blocks of Dg {dg} exceed the kernel's limits "
+                         f"({MAX_BLOCKS} blocks, Dg {MAX_DG})")
+
+
 def gate_select_cuda(qg: torch.Tensor, kg: torch.Tensor, n_valid: torch.Tensor,
                      cfg: GateConfig, max_selected: Optional[int] = None
                      ) -> torch.Tensor:
     """Launch the CUDA gate-select kernel; same result as the plain version
-    (ids equal up to swaps of blocks whose fp32 scores tie to rounding)."""
+    (ids equal up to swaps of blocks whose fp32 scores tie to rounding;
+    bitwise equal where the scores are exact). Takes nb <= ``MAX_BLOCKS``
+    and Dg <= ``MAX_DG``; raises ValueError past them."""
     _check_q("gate_select_cuda", qg, kg, n_valid)
     b, hkv, dg = qg.shape
     if kg.dim() != 4 or kg.shape[:2] != (b, hkv) or kg.shape[3] != dg \
@@ -133,6 +152,7 @@ def gate_select_cuda(qg: torch.Tensor, kg: torch.Tensor, n_valid: torch.Tensor,
     if not (qg.is_contiguous() and kg.is_contiguous() and n_valid.is_contiguous()):
         raise ValueError("gate_select_cuda: inputs must be contiguous")
     nb = kg.shape[2]
+    _check_limits("gate_select_cuda", nb, dg)
     k_sel = n_selected(cfg, nb, max_selected)
     out = torch.empty((b, hkv, k_sel), dtype=torch.int32, device=qg.device)
     lib = build.load("gate_select")
@@ -156,8 +176,9 @@ def gate_select_paged_cuda(qg: torch.Tensor, kg_pages: torch.Tensor,
                            ) -> torch.Tensor:
     """Launch the CUDA paged gate-select kernel; same result as
     ``gate_select_paged_plain`` (ids equal up to swaps of blocks whose
-    fp32 scores tie to rounding). The list width comes from the page-table
-    width ``npt``."""
+    fp32 scores tie to rounding; bitwise equal where the scores are exact).
+    The list width comes from the page-table width ``npt``, which is at most
+    ``MAX_BLOCKS`` (Dg at most ``MAX_DG``): ValueError past them."""
     _check_q("gate_select_paged_cuda", qg, kg_pages, n_valid)
     if page_table.device != qg.device or page_table.dtype != torch.int32:
         raise TypeError("gate_select_paged_cuda: page_table must be int32 on "
@@ -172,6 +193,7 @@ def gate_select_paged_cuda(qg: torch.Tensor, kg_pages: torch.Tensor,
     if not all(t.is_contiguous() for t in (qg, kg_pages, page_table, n_valid)):
         raise ValueError("gate_select_paged_cuda: inputs must be contiguous")
     npt = page_table.shape[1]
+    _check_limits("gate_select_paged_cuda", npt, dg)
     k_sel = n_selected(cfg, npt, max_selected)
     out = torch.empty((s, hkv, k_sel), dtype=torch.int32, device=qg.device)
     lib = build.load("gate_select")

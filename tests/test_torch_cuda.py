@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import gate_ties
 from repro_torch import config as t_config
 from repro_torch.configs import get as t_get
 from repro_torch.convert import params_to
@@ -251,6 +252,149 @@ def test_gate_select_paged_kernel_matches_plain(dev, dtype, cfg, shape):
         assert k_idx.shape == p_idx.shape and k_idx.dtype == torch.int32
         ids_agree(k_idx, p_idx, gs.gate_scores_plain(
             qg, kgp[pt.long()].transpose(1, 2), nv, cfg))
+
+
+# exact ties (tests/gate_ties.py): integer qg and Kg rows drawn from a few
+# distinct ones, so every score is exact in any summation order and many
+# blocks tie; the kernels' ids must then be bitwise the plain versions'
+TIE_NB = [1, 2, 31, 32, 33, 255, 256, 257, 1024, 8192]
+
+
+def _check_gate_ties(dev, dtype, nb, dg, seed=0):
+    """#1 and #3 on the exact-tie inputs (3 rows: n_valid full, partial
+    and 1; 2 kv heads), k 1, 64 and nb, both force flags on and both off:
+    budget ids bitwise those of the plain versions, threshold ids through
+    ids_agree, and the paged kernel over shuffled pages bitwise equal to it
+    over pages in order. Raises AssertionError at the first difference."""
+    b, hkv = 3, 2
+    nv_np = gate_ties.n_valid(b, nb)
+    nv = torch.tensor(nv_np, device=dev)
+    on = lambda x: torch.tensor(x, device=dev).to(dtype)
+    qg, kg = map(on, gate_ties.contiguous(seed, b, hkv, nb, dg))
+    qp, pool, table = gate_ties.paged(seed + 1, b, hkv, nb, dg, nv_np, shuffle=False)
+    _, pool_s, table_s = gate_ties.paged(seed + 1, b, hkv, nb, dg, nv_np)
+    qp, pool, pool_s = map(on, (qp, pool, pool_s))
+    table, table_s = (torch.tensor(t, device=dev) for t in (table, table_s))
+    for method in ("budget", "threshold"):
+        for force in (True, False):
+            cfg = t_config.GateConfig(**_GS, method=method, threshold=5e-3,
+                                      always_first_block=force, always_last_block=force)
+            for ms in sorted(k for k in {1, 64, nb} if k <= nb):
+                k_idx = gs.gate_select_cuda(qg, kg, nv, cfg, ms)
+                p_idx = gs.gate_select_plain(qg, kg, nv, cfg, ms)
+                g_idx = gs.gate_select_paged_cuda(qp, pool, table, nv, cfg, ms)
+                s_idx = gs.gate_select_paged_cuda(qp, pool_s, table_s, nv, cfg, ms)
+                pg_idx = gs.gate_select_paged_plain(qp, pool, table, nv, cfg, ms)
+                torch.cuda.synchronize()
+                case = (method, force, ms)
+                assert torch.equal(g_idx, s_idx), case
+                if method == "budget":
+                    assert torch.equal(k_idx, p_idx), case
+                    assert torch.equal(g_idx, pg_idx), case
+                else:
+                    ids_agree(k_idx, p_idx, gs.gate_scores_plain(qg, kg, nv, cfg))
+                    ids_agree(g_idx, pg_idx, gs.gate_scores_plain(
+                        qp, pg.gather_kg(pool, table), nv, cfg))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dg", [16, 128])
+@pytest.mark.parametrize("nb", TIE_NB)
+def test_gate_select_exact_ties_bitwise(dev, dtype, dg, nb):
+    _check_gate_ties(dev, dtype, nb, dg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gate_select_scalar_path(dev, dtype):
+    """Rows whose bytes are not a multiple of 16 (Dg 10), or a Kg base one
+    element past a 16-byte boundary, take the kernel's one-element chunks:
+    the same checks on exact ties, and ids bitwise those of aligned copies."""
+    _check_gate_ties(dev, dtype, 257, 10)
+    nv_np = gate_ties.n_valid(3, 257)
+    nv = torch.tensor(nv_np, device=dev)
+    qg, kg = (torch.tensor(x, device=dev).to(dtype)
+              for x in gate_ties.contiguous(3, 3, 2, 257, 128))
+    qp, pool, table = gate_ties.paged(4, 3, 2, 257, 128, nv_np)
+    qp, pool = (torch.tensor(x, device=dev).to(dtype) for x in (qp, pool))
+    table = torch.tensor(table, device=dev)
+    for cfg in GATES:
+        a = gs.gate_select_cuda(qg, kg, nv, cfg, 64)
+        u = gs.gate_select_cuda(qg, _unaligned(kg), nv, cfg, 64)
+        ap = gs.gate_select_paged_cuda(qp, pool, table, nv, cfg, 64)
+        up = gs.gate_select_paged_cuda(qp, _unaligned(pool), table, nv, cfg, 64)
+        torch.cuda.synchronize()
+        assert torch.equal(a, u) and torch.equal(ap, up)
+
+
+def test_gate_select_limits(dev):
+    """nb = MAX_BLOCKS at Dg = MAX_DG (the largest shared-memory plan) runs
+    and gives the plain version's ids bitwise on exact ties, k = nb; past
+    either limit both wrappers refuse with a ValueError."""
+    nb, dg = gs.MAX_BLOCKS, gs.MAX_DG
+    cfg = GATES[0]
+    nv_np = gate_ties.n_valid(3, nb)
+    nv = torch.tensor(nv_np, device=dev)
+    qg, kg = (torch.tensor(x, device=dev).to(torch.bfloat16)
+              for x in gate_ties.contiguous(5, 3, 1, nb, dg))
+    qp, pool, table = gate_ties.paged(6, 3, 1, nb, dg, nv_np)
+    qp, pool = (torch.tensor(x, device=dev).to(torch.bfloat16) for x in (qp, pool))
+    table = torch.tensor(table, device=dev)
+    k_idx = gs.gate_select_cuda(qg, kg, nv, cfg, nb)
+    g_idx = gs.gate_select_paged_cuda(qp, pool, table, nv, cfg, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(k_idx, gs.gate_select_plain(qg, kg, nv, cfg, nb))
+    assert torch.equal(g_idx, gs.gate_select_paged_plain(qp, pool, table, nv, cfg, nb))
+    del kg, pool
+    with pytest.raises(ValueError, match="limits"):
+        gs.gate_select_cuda(qg, torch.zeros(3, 1, nb + 1, dg, dtype=qg.dtype, device=dev),
+                            nv, cfg)
+    with pytest.raises(ValueError, match="limits"):
+        gs.gate_select_cuda(torch.zeros(3, 1, dg + 8, dtype=qg.dtype, device=dev),
+                            torch.zeros(3, 1, 8, dg + 8, dtype=qg.dtype, device=dev), nv, cfg)
+    with pytest.raises(ValueError, match="limits"):
+        gs.gate_select_paged_cuda(qp, torch.zeros(2, 1, dg, dtype=qg.dtype, device=dev),
+                                  torch.zeros(3, nb + 1, dtype=torch.int32, device=dev),
+                                  nv, cfg)
+
+
+# gate_select.cu's one-line faults: (source line, edit)
+GATE_SOURCE = "gate_select.cu"
+GATE_MUTANTS = {
+    "ties taken by the higher index": (
+        "return ko > km || (ko == km && (uint32_t)o < (uint32_t)me);",
+        "return ko > km || (ko == km && (uint32_t)o > (uint32_t)me);"),
+    "cutoff > as >=": ("return key > cut ? j : -1;", "return key >= cut ? j : -1;"),
+    "== K* survivor count one short": ("if (rank < k_left) orow[g + rank]",
+                                       "if (rank + 1 < k_left) orow[g + rank]"),
+    "visibility < nv as <= nv": ("vis[u] = j < nb && j < nv;", "vis[u] = j < nb && j <= nv;"),
+    "last pin at nv": ("if (force_last && j == nv - 1) r = kBig;",
+                       "if (force_last && j == nv) r = kBig;"),
+    "scale dropped": ("s[j] = vis[u] ? acc[u] * scale : kNegInf;",
+                      "s[j] = vis[u] ? acc[u] : kNegInf;"),
+}
+
+
+@pytest.mark.parametrize("mutant", list(GATE_MUTANTS))
+def test_gate_checks_reject_a_faulty_kernel(dev, mutant, tmp_path, monkeypatch):
+    """The exact-tie checks (_check_gate_ties at the main path's nb 257, Dg
+    128, bf16) must reject a gate-select kernel with a one-line fault in
+    either instance; the correct kernel passes the same checks."""
+    old, new = GATE_MUTANTS[mutant]
+    src = (build.CSRC / GATE_SOURCE).read_text()
+    assert src.count(old) == 1, mutant
+    cu = tmp_path / "mutant_gate.cu"
+    cu.write_text(src.replace(old, new))
+    so = tmp_path / "mutant_gate.so"
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    _check_gate_ties(dev, torch.bfloat16, 257, 128)
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    with pytest.raises(AssertionError) as caught:
+        _check_gate_ties(dev, torch.bfloat16, 257, 128)
+    print(f"[{mutant}] rejected: {str(caught.value).splitlines()[0]}")
 
 
 def _paged_inputs(dev, dtype, s, hkv, g, dh, npt, bs, nsel, seed=0):

@@ -92,6 +92,7 @@ def test_ct_rollout_matches_jax(method, options):
         0, jcfg.vocab_size, G.PROMPT_SHAPE).astype(np.int32)
     j_lg, j_tk, j_rho = _rollout_jax(jcfg, params, toks, **options)
     t_params = params_from_numpy(jax.device_get(params), tcfg, "cpu")
+    t_ops.reset_launch_counts()                      # CPU tensors: the plain path
     t_lg, t_tk, t_rho = _rollout_torch(tcfg, t_params, toks, **options)
     np.testing.assert_array_equal(t_tk, j_tk)
     np.testing.assert_allclose(t_lg, j_lg, atol=1e-4, rtol=0)

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import gate_ties
 from repro.config import GateConfig
 from repro.kernels import gate_select as j_gs
 from repro.kernels import ops as j_ops
@@ -75,19 +76,55 @@ def test_gate_select_plain_matches_ref_and_pallas(cfg, max_selected):
         j_gs.n_selected(cfg, nb, max_selected) == t_idx.shape[-1]
 
 
-@pytest.mark.parametrize("method", ["budget", "threshold"])
-def test_gate_select_plain_exact_ties(method):
-    """Duplicated Kg rows give bit-equal scores: lower block index first."""
-    cfg = GateConfig(**_GS, method=method, threshold=1e-3)
-    r = np.random.default_rng(5)
-    qg = r.standard_normal((2, 2, 16)).astype(np.float32)
-    kg = np.repeat(r.standard_normal((2, 2, 4, 16)).astype(np.float32), 4, axis=2)
-    n_valid = np.array([16, 11], np.int32)
+# (method, nb, max_selected, force flags): the two original cases (random
+# normal qg, Kg rows each repeated 4 times), then the tie-heavy integer
+# inputs of tests/gate_ties.py at nb <= 257, k 1, 64 and nb
+TIE_CASES = [("budget", None, None, None), ("threshold", None, None, None)] + [
+    (method, nb, k, force)
+    for method in ("budget", "threshold") for force in (True, False)
+    for nb in (1, 2, 33, 257) for k in sorted({1, 64, nb}) if k <= nb]
+TIE_IDS = ["budget", "threshold"] + [
+    f"{m}-nb{nb}-k{k}-force{int(f)}" for m, nb, k, f in TIE_CASES[2:]]
+
+
+@pytest.mark.parametrize("method,nb,max_selected,force", TIE_CASES, ids=TIE_IDS)
+def test_gate_select_plain_exact_ties(method, nb, max_selected, force):
+    """Bit-equal scores: the lower block index first, and ids exactly equal
+    across the plain version, the jnp reference and the Pallas kernel,
+    contiguous and paged (the card holds the CUDA kernels to the same plain
+    versions on the same inputs, tests/test_torch_cuda.py)."""
+    if nb is None:                 # duplicated Kg rows, random normal values
+        cfg = GateConfig(**_GS, method=method, threshold=1e-3)
+        r = np.random.default_rng(5)
+        qg = r.standard_normal((2, 2, 16)).astype(np.float32)
+        kg = np.repeat(r.standard_normal((2, 2, 4, 16)).astype(np.float32), 4, axis=2)
+        n_valid = np.array([16, 11], np.int32)
+        t_idx = t_gs.gate_select_plain(torch.tensor(qg), torch.tensor(kg),
+                                       torch.tensor(n_valid), tcfg(cfg), 6)
+        j_idx = j_gs.fused_gate_select(jnp.asarray(qg), jnp.asarray(kg),
+                                       jnp.asarray(n_valid), cfg, 6, interpret=True)
+        np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+        return
+    cfg = GateConfig(**_GS, method=method, threshold=5e-3,
+                     always_first_block=force, always_last_block=force)
+    b, hkv, dg = 3, 2, 16
+    nv = gate_ties.n_valid(b, nb)
+    qg, kg = gate_ties.contiguous(7, b, hkv, nb, dg)
     t_idx = t_gs.gate_select_plain(torch.tensor(qg), torch.tensor(kg),
-                                   torch.tensor(n_valid), tcfg(cfg), 6)
-    j_idx = j_gs.fused_gate_select(jnp.asarray(qg), jnp.asarray(kg),
-                                   jnp.asarray(n_valid), cfg, 6, interpret=True)
-    np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+                                   torch.tensor(nv), tcfg(cfg), max_selected)
+    j_args = (jnp.asarray(qg), jnp.asarray(kg), jnp.asarray(nv), cfg, max_selected)
+    np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_gs.gate_select_ref(*j_args)))
+    np.testing.assert_array_equal(
+        t_idx.numpy(), np.asarray(j_gs.fused_gate_select(*j_args, interpret=True)))
+    qg, pool, table = gate_ties.paged(8, b, hkv, nb, dg, nv)
+    t_idx = t_gs.gate_select_paged_plain(torch.tensor(qg), torch.tensor(pool),
+                                         torch.tensor(table), torch.tensor(nv),
+                                         tcfg(cfg), max_selected)
+    j_args = tuple(map(jnp.asarray, (qg, pool, table, nv))) + (cfg, max_selected)
+    np.testing.assert_array_equal(t_idx.numpy(),
+                                  np.asarray(j_gs.gate_select_paged_ref(*j_args)))
+    np.testing.assert_array_equal(
+        t_idx.numpy(), np.asarray(j_gs.fused_gate_select_paged(*j_args, interpret=True)))
 
 
 def _sparse_inputs(seed, b, hkv, g, dh, nb, bs, nsel):
