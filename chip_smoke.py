@@ -10,11 +10,14 @@ batching path through ``DecodeEngine.serve`` (kernels
 ``gate_select_paged`` and ``block_sparse_decode_paged``), the same
 ``serve`` over int8 page pools, ``DecodeOptions(quantize="int8")``
 (kernels ``gate_select_paged`` and ``block_sparse_decode_paged_quant``),
-and the head-sharded ``serve`` with split-K decode,
+the head-sharded ``serve`` with split-K decode,
 ``DecodeOptions(split_k=4)`` on an engine with a one-rank NCCL process
 group, over fp and int8 pools (kernels ``gate_select_paged`` and
-``block_sparse_decode_paged_splitk``, or ``..._splitk_quant``); and a
-sixth, gate distillation training, ``train.loop.run_training`` in distill
+``block_sparse_decode_paged_splitk``, or ``..._splitk_quant``); the rest
+of the decode API over the same kernels (Quest with its metadata cache,
+the oracle, the sliding window and selection schedules on ``generate``;
+Quest over fp and int8 pools and per-request budgets and sampling on
+``serve``); and gate distillation training, ``train.loop.run_training`` in distill
 mode (kernel ``gate_gt_attention``, TPU kernel 6, on every layer of every
 forward).
 The contiguous int8 kernel ``block_sparse_decode_quant`` lies on no model
@@ -120,7 +123,42 @@ non-zero):
      with the host hidden, host enqueue, rate, bound share, a sweep of the
      split count); bound = #4's bytes plus the f32 partials written and
      read once; library yardstick (fp) the masked dense SDPA of phase 7;
- 14. training: ``run_training`` on qwen3_0_6b in bf16 (seed-0 weights),
+ 14. Quest on generate: phase 4's batch with ``QuestPolicy`` (the
+     incremental metadata cache) and with ``QuestRecomputePolicy``, 8
+     decode steps each, counters at 0 just before each: only #2 launches,
+     28 x steps; the tokens, and every layer's ids in the first decode
+     step, bitwise equal between the two; the measured sparsity equal to
+     phase 4's; #2 against its plain version on layer 0's Quest lists (score
+     order, with -1 holes in the middle, with a budget-masked -1 tail),
+     each call timed as in phase 3; the Quest step's wall and device busy
+     time as phase 5 takes them;
+ 15. the oracle, SlidingWindowPolicy(sink_blocks=1), the gate under
+     SelectionSchedule(dense_first_n=2, select_layer=2,
+     correction_layers=(14,)) and under unify_heads=True, 3 decode steps
+     each from copies of one prefilled state: the launches their stages
+     predict (gate select at selecting layers only, none under
+     unify_heads; #2 at every non-dense layer); the oracle at a budget of
+     every block against DensePolicy: at layer 0 every visible block
+     selected and #2 over them within phase 3's decode limit of the dense
+     decode attention on the same inputs, and the first-step logits
+     within 8 bf16 ulps of max|logit| of DensePolicy's (phase 11's rule);
+     #2 on layer 0's window lists as in phase 14;
+ 16. Quest on serve: phase 6's requests with fp pools at the default 1029
+     pages and at 644 (which preempts): tight == ample (tokens, logits),
+     only #4 launching, the swapped bytes those of phase 6's tight run
+     plus each page's two f32 metadata rows; #4 on layer 0's captured Quest
+     lists and on window lists for its slots, plain and with holes and
+     tails; then once over int8 pools (ample), only 4q launching, 4q on
+     its lists likewise, and the share of tokens equal to the fp Quest
+     run's (information only);
+ 17. request overrides on serve: phase 6's requests, rids 0 and 1 capped
+     at 1024 tokens, rids 2 and 3 sampling at temperature 0.7, top-k 50,
+     top-p 0.9, ample and tight pools: each capped request selects exactly
+     16 blocks at every step, the tight run reproduces every request's
+     tokens (the stochastic ones too); #4 on the captured capped lists;
+     each of phases 14-17 prints its seconds, and its errors join the
+     kernels' max_abs_err;
+ 18. training: ``run_training`` on qwen3_0_6b in bf16 (seed-0 weights),
      distill mode, batch 4 x 4096 tokens (the launcher's sequence; its
      batch 16 cut to 4 to bound time and memory), documents of mean
      length 2048, 4 steps with a checkpoint every 2 and a failure
@@ -133,9 +171,9 @@ non-zero):
      (the final state, saved by the port) lists the JAX package's leaves
      in its count, order, shapes and dtypes (derived here from its
      flatten rule, without JAX) and reads back bitwise;
- 15. a training step's time before torch.profiler and under it, its top
+ 19. a training step's time before torch.profiler and under it, its top
      device kernels and the device's busy share;
- 16. kernel 6 (its bf16 tensor-core body) against its plain version on
+ 20. kernel 6 (its bf16 tensor-core body) against its plain version on
      the tensors layer 0 of the first training step gave it, with the
      packed segments and without: o within the decode limit of phase 3,
      blockmax exactly -1e30 in the same places and elsewhere within 1e-4
@@ -173,16 +211,21 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.checkpoint import manager as ckpt  # noqa: E402
 from repro_torch.config import OptimConfig, TrainConfig, reduced  # noqa: E402
 from repro_torch.convert import params_to, train_state_to  # noqa: E402
-from repro_torch.core.policy import DecodeOptions  # noqa: E402
+from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,  # noqa: E402
+                                     DensePolicy, OraclePolicy, QuestPolicy,
+                                     QuestRecomputePolicy, SelectionInputs,
+                                     SelectionSchedule, SlidingWindowPolicy)
 from repro_torch.distributed.sharding import Shard  # noqa: E402
 from repro_torch.data.pipeline import DataState, make_batch  # noqa: E402
 from repro_torch.kernels import block_sparse_decode as bsd  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import gate_gt_fwd as gt  # noqa: E402
 from repro_torch.kernels import gate_select as gs  # noqa: E402
+from repro_torch.models.common import decode_attention  # noqa: E402
 from repro_torch.models.transformer import init_lm, lm_forward  # noqa: E402
 from repro_torch.serve import paging as pg  # noqa: E402
 from repro_torch.serve.engine import DecodeEngine  # noqa: E402
+from repro_torch.serve.sampling import SamplingParams  # noqa: E402
 from repro_torch.train import loop as tl  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -211,6 +254,13 @@ SPLITS_CHECKED = (2, 4, 8)          # and nsel + 3 (empty segments)
 # 2048, 4 steps, a checkpoint every 2 and one failure injected before step 3
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 4096, 4, 2, 3
 GT_BM_REL = 1e-4          # kernel 6's blockmax: error within this share of max|blockmax|
+# the decode API phases: Quest on generate (phase 4's batch, 8 decode
+# steps), the other policies and schedules (3 steps each, from one
+# prefill), and serve with two requests capped at 1024 tokens (16 blocks)
+# and two sampling at temperature 0.7, top-k 50, top-p 0.9
+QUEST_NEW, POLICY_STEPS = 9, 3
+OVERRIDE_BUDGET = 1024
+OVERRIDE_SAMPLING = SamplingParams(temperature=0.7, top_k=50, top_p=0.9)
 
 
 def fail(msg: str) -> None:
@@ -573,6 +623,25 @@ def decode_kernel(options) -> str:
             + ("_quant" if options.quantize else ""))
 
 
+def stage_counts(options, n_layers, steps, paged=True):
+    """Every kernel's launches over ``steps`` decode steps with these
+    options, from the stages of their schedule: the gate select at each
+    selecting layer of the gate (none under unify_heads, which scores in
+    plain PyTorch), the decode kernel at each layer that is not dense."""
+    sched = options.schedule
+    stages = (sched.layer_stages(n_layers) if sched.needs_plan
+              else (STAGE_SELECT,) * n_layers)
+    want = dict.fromkeys(ops.KERNELS, 0)
+    if options.policy.dense:
+        return want
+    gate_name = "gate_select_paged" if paged else "gate_select"
+    if options.policy.needs_gate and not sched.unify_heads:
+        want[gate_name] = steps * sum(st == STAGE_SELECT for st in stages)
+    want[decode_kernel(options) if paged else "block_sparse_decode"] = \
+        steps * sum(st != STAGE_DENSE for st in stages)
+    return want
+
+
 def phase_small(shard):
     """Tiny config on the card vs the CPU plain path: same tokens, close
     logits; then the sharded paths through ``shard`` against the same CPU
@@ -775,12 +844,13 @@ def phase_kernels(seen):
     }
 
 
-def phase_profile(eng, batch, steps: int = 3):
+def phase_profile(eng, batch, steps: int = 3, label: str = "decode step"):
     """Where a decode step's time goes, after the end-to-end run so that
     the profiler cannot touch its timing: a fresh prefill, the wall time
     of a few plain steps, torch.profiler over as many more (top device
     kernels, device busy share), then as many plain steps again, which
-    shows what the profiler leaves behind."""
+    shows what the profiler leaves behind. Returns (wall ms a step before
+    the profiler, device busy ms a step)."""
     from torch.profiler import ProfilerActivity, profile
 
     def run():
@@ -801,11 +871,13 @@ def phase_profile(eng, batch, steps: int = 3):
     kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps   # ms/step
     print(ka.table(sort_by="self_device_time_total", row_limit=15))
-    print(f"profile: decode step {before:.2f} ms wall before the profiler, "
+    gate = (gate_profile(kernels, steps) if eng.options.policy.needs_gate
+            else "no gate select")
+    print(f"profile: {label} {before:.2f} ms wall before the profiler, "
           f"{under:.2f} ms under it, {after:.2f} ms after it; device busy "
           f"{busy:.2f} ms/step = {100 * busy / under:.1f}% of the profiled wall; "
-          f"{sum(e.count for e in kernels) / steps:.0f} kernel launches/step; "
-          f"{gate_profile(kernels, steps)}")
+          f"{sum(e.count for e in kernels) / steps:.0f} kernel launches/step; {gate}")
+    return before, busy
 
 
 def host_launch_us(n: int = 2000) -> float:
@@ -858,7 +930,7 @@ def phase_end_to_end(eng, batch, n_new, n_layers):
     if tuple(toks.shape) != (b, n_new) or int(toks.min()) < 0 \
             or int(toks.max()) >= eng.cfg.vocab_size:
         fail(f"bad tokens: shape {tuple(toks.shape)}")
-    return counts
+    return counts, stats["sparsity"]
 
 
 def serve_requests(vocab):
@@ -899,8 +971,9 @@ def run_serve(eng, reqs, num_pages, n_layers):
     """One serve() with the launch counters at 0 just before and read just
     after, and the prefill time taken apart (synchronised). The paged gate
     select and the paged decode of the engine's options (fp or int8 pools,
-    single-pass or split-K) must each launch layers x decode steps times,
-    and no other kernel."""
+    single-pass or split-K) must launch what ``stage_counts`` predicts
+    (layers x decode steps times each, for the gate under the trivial
+    schedule), and no other kernel."""
     prefill = eng._paged_prefill
     spent = [0.0]
 
@@ -935,8 +1008,7 @@ def run_serve(eng, reqs, num_pages, n_layers):
     print(f"serve measured sparsity by rid: "
           + ", ".join(f"{k}: {v:.4f}" for k, v in st["sparsity_by_rid"].items())
           + f"; launch counts {counts}")
-    want = {**dict.fromkeys(ops.KERNELS, 0), "gate_select_paged": n_layers * steps,
-            decode_kernel(eng.options): n_layers * steps}
+    want = stage_counts(eng.options, n_layers, steps)
     if counts != want:
         fail(f"serve launch counts {counts}, expected {want}")
     if st["retired"] != len(reqs) or st["failed"] or st["errors"]:
@@ -950,14 +1022,15 @@ def run_serve(eng, reqs, num_pages, n_layers):
     return res, counts, spent[0]
 
 
-def phase_serve(cfg, params, options=DecodeOptions(), shard=None, tight_pool=True):
+def phase_serve(cfg, params, options=DecodeOptions(), shard=None, tight_pool=True,
+                reqs=None):
     """serve() at full width, ample pool then (``tight_pool``) tight pool;
     layer-0 paged kernel arguments captured from the ample run's first
     decode step. Int8 pools (``options.quantize``) and sharded runs must
     reproduce the ample run bitwise under the tight pool (the swap moves
-    the raw bytes back). Returns (launch counts, captured arguments, ample,
-    tight or None)."""
-    reqs = serve_requests(cfg.vocab_size)
+    the raw bytes back). ``reqs`` defaults to ``serve_requests``. Returns
+    (launch counts, captured arguments, ample, tight or None)."""
+    reqs = reqs if reqs is not None else serve_requests(cfg.vocab_size)
     eng = DecodeEngine(cfg, params, max_len=max(p + m for p, m in SERVE_SPECS),
                        options=options, shard=shard)
     seen, restore = capture_paged_layer0()
@@ -1367,6 +1440,322 @@ def phase_serve_profile(cfg, params, options=DecodeOptions(), shard=None,
           f"{comm_ms:.2f} ms/iteration of host time in them; {gate_profile(kernels, steps)}")
 
 # ---------------------------------------------------------------------------
+# the rest of the decode API: Quest, the oracle, the sliding window, the
+# SelectionSchedule, per-request budgets and sampling
+# ---------------------------------------------------------------------------
+
+def holes(idx):
+    """The list widened to 2k with a -1 after every entry: -1 holes in the
+    middle of a list, as the sliding window leaves them."""
+    return torch.stack([idx, torch.full_like(idx, -1)], dim=-1).reshape(
+        *idx.shape[:-1], 2 * idx.shape[-1])
+
+
+def budget_tail(idx):
+    """Rows capped at k/4, k/2, 1 and k slots in turn, -1 past the cap, as
+    the per-request budget mask leaves them."""
+    k = idx.shape[-1]
+    caps = torch.tensor([max(1, k // 4), max(1, k // 2), 1, k],
+                        device=idx.device).repeat(idx.shape[0])[:idx.shape[0]]
+    keep = torch.arange(k, device=idx.device)[None, None, :] < caps[:, None, None]
+    return torch.where(keep, idx, -1)
+
+
+def window_ids(kv_len, k_cache=None, k_pages=None, page_table=None):
+    """SlidingWindowPolicy(sink_blocks=1)'s ids for these lengths: the
+    trailing block, the sink, then the window backwards."""
+    inp = SelectionInputs(q_nope=None, qr=None, pos=None, new_len=kv_len, k_cache=k_cache,
+                          k_pages=k_pages, page_table=page_table)
+    cfg = configs.get("qwen3_0_6b")
+    return SlidingWindowPolicy(sink_blocks=1).select(inp, cfg)
+
+
+def check_new_lists(name, kernel, plain, q, cases, kv_len, bs, paged=False, kv_es=None):
+    """A decode kernel (``kernel(q, ids)``) against its plain version on
+    the id lists of the decode API's other paths (score or window order,
+    -1 holes in the middle, a budget-masked -1 tail), within phase 3's
+    limit, each call timed as phase 3 times it, with its bound."""
+    err = check_decode(name, kernel, plain, cases)
+    work = paged_decode_work if paged else decode_work
+    for label, qq, ix in cases:
+        t_k = time_ms(lambda: kernel(qq, ix))
+        t_p = time_ms(lambda: plain(qq, ix))
+        b_ms, by = bound_ms(*work(qq, ix, kv_len, bs, kv_es))
+        print(f"{name} [{label}]: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({by}); {int((ix >= 0).sum())} of {ix.numel()} entries live")
+    return err
+
+
+def generate_capture(eng, batch, n_new, n_layers):
+    """generate() with the launch counters at 0 just before and read just
+    after; the ids of every layer's sparse decode in the first decode
+    step, and layer 0's arguments, kept."""
+    ids, layer0 = [], {}
+    real = ops.sparse_decode
+
+    def grab(q, kc, vc, idx, kv_len, **kw):
+        if len(ids) < n_layers:
+            if not ids:
+                layer0.update(q=q, kc=kc, vc=vc, idx=idx.clone(), kv_len=kv_len.clone(),
+                              bs=kw["block_size"])
+            ids.append(idx.clone())
+        return real(q, kc, vc, idx, kv_len, **kw)
+
+    ops.sparse_decode = grab
+    ops.reset_launch_counts()
+    try:
+        torch.cuda.synchronize()
+        res = eng.generate(batch, n_new)
+    finally:
+        counts = ops.launch_counts()
+        ops.sparse_decode = real
+    return res, counts, ids, layer0
+
+
+def phase_quest_generate(cfg, params, batch, max_len, gate_sparsity):
+    """Quest on generate at full width, against QuestRecomputePolicy on the
+    card: equal tokens, bitwise equal ids at every layer of the first
+    decode step, only #2 launching (28 x steps), the gate run's measured
+    sparsity; #2 on the Quest lists; then the step's wall and device busy
+    time."""
+    t0 = time.perf_counter()
+    steps = QUEST_NEW - 1
+    runs = {}
+    for name, pol in (("quest", QuestPolicy()), ("quest_recompute", QuestRecomputePolicy())):
+        eng = DecodeEngine(cfg, params, max_len=max_len, options=DecodeOptions(policy=pol))
+        res, counts, ids, layer0 = generate_capture(eng, batch, QUEST_NEW, cfg.num_layers)
+        want = stage_counts(eng.options, cfg.num_layers, steps, paged=False)
+        if counts != want:
+            fail(f"{name} generate launch counts {counts}, expected {want}")
+        stats = eng.sparsity_stats()
+        print(f"{name} generate: decode {1e3 * res['decode_s'] / steps:.2f} ms/step "
+              f"({steps} steps, batch {BATCH}), measured sparsity {stats['sparsity']:.6f} (sel "
+              f"{stats['sel_blocks']:.1f} of {stats['vis_blocks']:.1f} blocks); launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        runs[name] = (res["tokens"], ids, stats["sparsity"], eng, layer0)
+    (tq, iq, sq, eng, layer0), (tr, ir, sr, _, _) = runs["quest"], runs["quest_recompute"]
+    if not torch.equal(tq, tr):
+        fail("quest generate tokens differ from quest_recompute's")
+    bad = [i for i, (a, b) in enumerate(zip(iq, ir)) if not torch.equal(a, b)]
+    if len(iq) != cfg.num_layers or bad:
+        fail(f"quest first-step ids differ from quest_recompute's at layers {bad}")
+    if not sq == sr == gate_sparsity:
+        fail(f"quest measured sparsity {sq} (recompute {sr}) != the gate run's {gate_sparsity}")
+    print(f"quest generate: tokens and the first decode step's ids at all {cfg.num_layers} "
+          f"layers bitwise those of quest_recompute; measured sparsity {sq:.6f} equal to the "
+          f"gate run's")
+    del runs
+    q, kc, vc, idx, kv_len, bs = (layer0[k] for k in ("q", "kc", "vc", "idx", "kv_len", "bs"))
+    err = check_new_lists(
+        "block_sparse_decode (Quest lists)",
+        lambda qq, ix: bsd.sparse_decode_cuda(qq, kc, vc, ix, kv_len, block_size=bs),
+        lambda qq, ix: bsd.sparse_decode_plain(qq, kc, vc, ix, kv_len, block_size=bs), q,
+        [("quest score order", q, idx), ("quest, -1 holes in the middle", q, holes(idx)),
+         ("quest, budget-masked tail", q, budget_tail(idx))], kv_len, bs)
+    del layer0, q, kc, vc
+    torch.cuda.empty_cache()
+    wall, busy = phase_profile(eng, batch, label="quest decode step")
+    print(f"phase quest generate: {time.perf_counter() - t0:.1f} s; step {wall:.2f} ms wall, "
+          f"device busy {busy:.2f} ms")
+    return err
+
+
+def phase_policy_generate(cfg, params, batch, max_len):
+    """The oracle, the sliding window and two gate schedules on generate at
+    full width, each from a copy of one prefilled state: every run's
+    launches those its stages predict. The oracle at a budget of every
+    block against DensePolicy: at layer 0 of the first step it selects
+    every visible block, and #2 over them agrees with the dense decode
+    attention DensePolicy runs, on the same q/K/V, within phase 3's decode
+    limit; the first-step logits, after 28 layers of such differences in
+    bf16, within DECODE_ULPS bf16 ulps of max|logit| (phase 11's rule for
+    logits whose sums are only reordered). #2 on the window's lists."""
+    t0 = time.perf_counter()
+    base = DecodeEngine(cfg, params, max_len=max_len)
+    tok0, state0 = base.prefill(batch)
+    del base
+    variants = [
+        ("oracle", DecodeOptions(policy=OraclePolicy()), POLICY_STEPS),
+        ("sliding_window(sink_blocks=1)",
+         DecodeOptions(policy=SlidingWindowPolicy(sink_blocks=1)), POLICY_STEPS),
+        ("gate, dense 2 / select 2 / correction 14", DecodeOptions(
+            schedule=SelectionSchedule(dense_first_n=2, select_layer=2,
+                                       correction_layers=(14,))), POLICY_STEPS),
+        ("gate, unify_heads", DecodeOptions(schedule=SelectionSchedule(unify_heads=True)),
+         POLICY_STEPS),
+        ("oracle, every block", DecodeOptions(policy=OraclePolicy(), budget_override=max_len), 1),
+        ("dense", DecodeOptions(policy=DensePolicy()), 1),
+    ]
+    first, layer0 = {}, {}
+    for name, opts, steps in variants:
+        eng = DecodeEngine(cfg, params, max_len=max_len, options=opts)
+        state = state0._replace(**{f: getattr(state0, f).clone() for f in
+                                   ("k_cache", "v_cache", "kg_cache", "kg_n", "cur_len")})
+        tok = tok0
+        seen = []
+        real = ops.sparse_decode
+        if name.startswith(("sliding", "oracle, every")):
+            def grab(q, kc, vc, idx, kv_len, **kw):
+                if not seen:
+                    seen.append((q, kc, vc, idx.clone(), kv_len.clone(), kw["block_size"]))
+                return real(q, kc, vc, idx, kv_len, **kw)
+            ops.sparse_decode = grab
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        try:
+            for i in range(steps):
+                tok, lg, state, aux = eng._step(eng.params, state, tok)
+                if i == 0:
+                    first[name] = lg.float()
+            torch.cuda.synchronize()
+        finally:
+            counts = ops.launch_counts()
+            ops.sparse_decode = real
+        ms = 1e3 * (time.perf_counter() - t1) / steps
+        want = stage_counts(opts, cfg.num_layers, steps, paged=False)
+        print(f"{name} generate: {steps} steps, {ms:.2f} ms/step, measured sparsity of the "
+              f"last step {float(aux['sparsity']):.4f}; launches "
+              f"{ {k: v for k, v in counts.items() if v} } (expected from the stages)")
+        if counts != want:
+            fail(f"{name}: launch counts {counts}, expected {want}")
+        if not torch.isfinite(first[name]).all():
+            fail(f"{name}: non-finite logits")
+        if seen:
+            layer0[name] = seen[0]
+        del state, eng
+    del state0
+    q, kc, vc, idx, kv_len, bs = layer0.pop("oracle, every block")
+    vis = -(-kv_len // bs)
+    every = torch.arange(idx.shape[-1], device=idx.device)[None, None, :] < vis[:, None, None]
+    ar = torch.arange(idx.shape[-1], device=idx.device, dtype=idx.dtype)
+    if not bool((torch.sort(idx, dim=-1).values
+                 == torch.where(every, ar, -1).sort(dim=-1).values).all()):
+        fail(f"the oracle at a budget of every block did not select every visible block: "
+             f"{idx[:, 0].tolist()} (visible {vis.tolist()})")
+    b, hkv, g, dh = q.shape
+    o_k = bsd.sparse_decode_cuda(q, kc, vc, idx, kv_len, block_size=bs).reshape(b, 1, -1, dh)
+    o_d = decode_attention(q.reshape(b, 1, hkv * g, dh), kc, vc, kv_len)
+    err = float((o_k.float() - o_d.float()).abs().max())
+    lim, ulp, top = decode_limit(o_d)
+    print(f"oracle at a budget of every block, layer 0: all {int(vis.max())} visible blocks "
+          f"selected; #2 over them vs DensePolicy's dense decode attention: max abs err "
+          f"{err:.3e} = {err / ulp:.3g} ulp of max|o| {top:.4f} (limit {lim:.3e})")
+    if not err <= lim:
+        fail(f"oracle at full budget: layer 0 attention {err} from dense (limit {lim})")
+    a, d = first["oracle, every block"], first["dense"]
+    err = float((a - d).abs().max())
+    ulp = 2.0 ** -7 * 2.0 ** math.floor(math.log2(float(d.abs().max())))
+    print(f"oracle at a budget of every block vs dense: first-step logits max abs diff "
+          f"{err:.3e} = {err / ulp:.3g} bf16 ulps of max|logit| {float(d.abs().max()):.4f} "
+          f"(limit {DECODE_ULPS})")
+    if not err <= DECODE_ULPS * ulp:
+        fail(f"oracle at full budget: logits {err / ulp:.2f} bf16 ulps from dense's")
+    del o_k, o_d, q, kc, vc
+    q, kc, vc, idx, kv_len, bs = layer0.pop("sliding_window(sink_blocks=1)")
+    w_err = check_new_lists(
+        "block_sparse_decode (window lists)",
+        lambda qq, ix: bsd.sparse_decode_cuda(qq, kc, vc, ix, kv_len, block_size=bs),
+        lambda qq, ix: bsd.sparse_decode_plain(qq, kc, vc, ix, kv_len, block_size=bs), q,
+        [("window order", q, idx), ("window, -1 holes in the middle", q, holes(idx)),
+         ("window, budget-masked tail", q, budget_tail(idx))], kv_len, bs)
+    del layer0, q, kc, vc
+    torch.cuda.empty_cache()
+    print(f"phase policy generate: {time.perf_counter() - t0:.1f} s")
+    return w_err
+
+
+def paged_new_lists(name, seen):
+    """#4 or 4q on a serve's captured layer-0 tensors with its captured
+    ids and the window, hole and tail lists made from them."""
+    (q, kp, vp, idx, pt_d, kv_len), kw = seen["paged_sparse_decode"]
+    bs, ks, vs = kw["block_size"], kw.get("k_scales"), kw.get("v_scales")
+    quant = ks is not None
+    if quant:
+        kernel = lambda qq, ix: bsd.sparse_decode_paged_quant_cuda(
+            qq, kp, vp, ix, pt_d, kv_len, block_size=bs, k_scales=ks, v_scales=vs)
+    else:
+        kernel = lambda qq, ix: bsd.sparse_decode_paged_cuda(qq, kp, vp, ix, pt_d, kv_len,
+                                                             block_size=bs)
+    plain = lambda qq, ix: bsd.sparse_decode_paged_plain(qq, kp, vp, ix, pt_d, kv_len,
+                                                         block_size=bs, k_scales=ks,
+                                                         v_scales=vs)
+    win = window_ids(kv_len, k_pages=kp, page_table=pt_d)
+    cases = [("captured", q, idx), ("captured, -1 holes in the middle", q, holes(idx)),
+             ("captured, budget-masked tail", q, budget_tail(idx)),
+             ("window, sink 1", q, win), ("window, -1 holes in the middle", q, holes(win))]
+    return check_new_lists(name, kernel, plain, q, cases, kv_len, bs, paged=True,
+                           kv_es=1 if quant else None)
+
+
+def phase_quest_serve(cfg, params, gate_tight_stats):
+    """Quest on serve at full width over fp pools (1029 pages, then 644,
+    which preempts): tight == ample bitwise (the metadata rows survive the
+    swap), the swapped bytes those of the gate run plus the two f32
+    metadata rows of each page, only #4 launching; #4 on the captured Quest
+    lists; then once over int8 pools (ample), only 4q launching, 4q on its
+    lists, and the share of its tokens equal to the fp run's."""
+    t0 = time.perf_counter()
+    quest = DecodeOptions(policy=QuestPolicy())
+    counts, seen, qa, qt = phase_serve(cfg, params, quest)
+    ps, dh, hkv = cfg.gate.block_size, cfg.resolved_head_dim, cfg.n_kv_heads
+    es = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    per_gate = hkv * (2 * ps * dh * es + cfg.gate.d_gate * es)
+    per_quest = per_gate + hkv * 2 * dh * 4
+    gb, qb = gate_tight_stats["swapped_out_bytes"], qt["stats"]["swapped_out_bytes"]
+    if qb * per_gate != gb * per_quest or not qb:
+        fail(f"quest swap {qb} B is not the gate run's {gb} B x {per_quest}/{per_gate}")
+    print(f"quest serve: swapped {qb} B each way, the gate run's {gb} B with each page's two "
+          f"f32 metadata rows ({per_quest} B a page and layer, gate {per_gate})")
+    err = paged_new_lists("block_sparse_decode_paged (Quest serve)", seen)
+    del seen
+    q8 = quest.replace(quantize="int8")
+    q8_counts, seen, q8a, _ = phase_serve(cfg, params, q8, tight_pool=False)
+    same = sum(int((np.asarray(qa[r]) == np.asarray(q8a[r])).sum())
+               for r in range(len(SERVE_SPECS)))
+    total = sum(len(qa[r]) for r in range(len(SERVE_SPECS)))
+    print(f"quest int8 serve: {q8_counts['block_sparse_decode_paged_quant']} launches of "
+          f"block_sparse_decode_paged_quant; tokens equal to the fp Quest run {same}/{total} "
+          f"(information only)")
+    err_q = paged_new_lists("block_sparse_decode_paged_quant (Quest int8 serve)", seen)
+    del seen
+    torch.cuda.empty_cache()
+    print(f"phase quest serve: {time.perf_counter() - t0:.1f} s")
+    return err, err_q
+
+
+def phase_request_overrides(cfg, params):
+    """serve with per-request overrides at full width: rids 0 and 1 with a
+    budget of OVERRIDE_BUDGET tokens, rids 2 and 3 sampling at
+    OVERRIDE_SAMPLING, ample and tight pools: each capped request selects
+    exactly its cap in blocks at every step, the tight run reproduces the
+    ample one (the stochastic requests too); #4 on the captured capped
+    lists."""
+    t0 = time.perf_counter()
+    reqs = serve_requests(cfg.vocab_size)
+    for rid in (0, 1):
+        reqs[rid]["budget"] = OVERRIDE_BUDGET
+    for rid in (2, 3):
+        reqs[rid]["sampling"] = OVERRIDE_SAMPLING
+    _, seen, ample, tight = phase_serve(cfg, params, reqs=reqs)
+    cap = OVERRIDE_BUDGET // cfg.gate.block_size
+    st = ample["stats"]
+    for rid in (0, 1):
+        if st["sel_blocks_by_rid"][rid] != cap:
+            fail(f"rid {rid}: {st['sel_blocks_by_rid'][rid]} blocks selected a step, cap {cap}")
+    print(f"request overrides: rids 0, 1 (budget {OVERRIDE_BUDGET}) select {cap} blocks at "
+          f"every step, sparsity " + ", ".join(f"{r}: {st['sparsity_by_rid'][r]:.4f}"
+                                                  for r in range(len(reqs)))
+          + f"; rids 2, 3 sample at {OVERRIDE_SAMPLING}; tight pool "
+          f"({tight['stats']['preemptions']} preemptions) reproduces every request's tokens")
+    err = paged_new_lists("block_sparse_decode_paged (budget-capped serve)", seen)
+    del seen
+    torch.cuda.empty_cache()
+    print(f"phase request overrides: {time.perf_counter() - t0:.1f} s")
+    return err
+
+
+# ---------------------------------------------------------------------------
 # gate distillation training (TPU kernel 6)
 # ---------------------------------------------------------------------------
 
@@ -1739,7 +2128,7 @@ def run_phases(shard) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    counts = phase_end_to_end(eng, batch, NEW_TOKENS, cfg.num_layers)
+    counts, gate_sparsity = phase_end_to_end(eng, batch, NEW_TOKENS, cfg.num_layers)
     phase_profile(eng, batch)
     del eng
     torch.cuda.empty_cache()
@@ -1768,6 +2157,7 @@ def run_phases(shard) -> int:
     sh_counts, seen, *sh_runs = phase_serve(cfg, params, DecodeOptions(split_k=SPLIT_K), shard)
     check_sharded_serve(cfg, fp_runs, sh_runs)
     numbers.update(phase_splitk_kernels(seen))
+    gate_tight_stats = fp_runs[1]["stats"]
     del seen, sh_runs, fp_runs
     torch.cuda.empty_cache()
     phase_serve_profile(cfg, params, DecodeOptions(split_k=SPLIT_K), shard,
@@ -1784,6 +2174,18 @@ def run_phases(shard) -> int:
         counts[name] = runs[name]
     # the contiguous int8 kernel lies on no model path
     counts["block_sparse_decode_quant"] = 0
+    torch.cuda.empty_cache()
+
+    # the rest of the decode API; the errors on its id lists join the
+    # kernels' max_abs_err
+    errs = {"block_sparse_decode": [phase_quest_generate(cfg, params, batch, max_len,
+                                                         gate_sparsity),
+                                    phase_policy_generate(cfg, params, batch, max_len)]}
+    fp_err, q8_err = phase_quest_serve(cfg, params, gate_tight_stats)
+    errs["block_sparse_decode_paged"] = [fp_err, phase_request_overrides(cfg, params)]
+    errs["block_sparse_decode_paged_quant"] = [q8_err]
+    for name, more in errs.items():
+        numbers[name]["max_abs_err"] = max([numbers[name]["max_abs_err"], *more])
     del params
     torch.cuda.empty_cache()
 

@@ -3,9 +3,10 @@
 The QKV projection, the policy gate, the decode-aux telemetry and the
 paged per-layer decode body (``attention_decode_paged`` ->
 ``block_decode_paged``) of the JAX package's ``models/attn_core.py``:
-the unstaged branch, unsharded or over a rank's KV heads, over fp or
-int8 page pools. Selection schedules and eviction telemetry
-arrive with their slices.
+the unstaged and the staged (SelectionSchedule) branch with per-request
+budget caps, unsharded or (unstaged, uncapped) over a rank's KV heads,
+over fp or int8 page pools, with the metadata pools of Quest. Eviction
+telemetry arrives with its slice.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core import kcache as kc
 from repro_torch.core import sparsity as sp
-from repro_torch.core.policy import DecodeOptions, SelectionInputs
+from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,
+                                     SelectionInputs)
 from repro_torch.kernels import ops
 from repro_torch.models.common import (apply_rope, decode_attention, linear,
                                        mlp, rms_norm)
@@ -83,25 +85,48 @@ def aggregate_decode_aux(auxs: Sequence[LayerAux]) -> Dict[str, torch.Tensor]:
             "vis_blocks": torch.mean(vis, dim=0)}
 
 
+def _cap_budget(idx: torch.Tensor, budget_blocks) -> torch.Tensor:
+    """Per-slot runtime caps of per-request budgets: slot positions at or
+    past ``budget_blocks[slot]`` become -1 (forced blocks rank first, so a
+    cap at or above the forced count keeps them; re-masking a carried,
+    already-capped plan changes nothing)."""
+    if budget_blocks is None:
+        return idx
+    keep = (torch.arange(idx.shape[-1], device=idx.device)[None, None, :]
+            < budget_blocks.to(idx.device)[:, None, None])
+    return torch.where(keep, idx, -1)
+
+
 def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
                            k_pages, v_pages, kg_pages, page_table, cur_len,
-                           active, options: DecodeOptions, k_scale=None,
-                           v_scale=None, shard=None):
+                           active, options: DecodeOptions, budget_blocks=None,
+                           kmin_pages=None, kmax_pages=None, k_scale=None,
+                           v_scale=None, shard=None, stage=None, plan=None):
     """One token over paged KV. x1 [S,1,d]; pools for ONE layer head-major
     [P, Hkv, ps, Dh] (updated in place); page_table [S, npt] int32;
-    cur_len/active [S]. Returns (out [S,1,d], selection aux).
+    cur_len/active [S]. Returns (out [S,1,d], selection aux), plus the
+    next layer's plan when ``stage`` is given.
 
-    The new K/V are appended to each slot's trailing page and the Kg row
-    of a just-completed page is finalized (for the policy that reads it);
-    inactive rows write to the null page and do not advance. The gate then
-    scores ``kg_pages`` through the page table, and the block-sparse decode
-    reads only the selected physical pages, in ``options.split_k`` flash
-    partials (``ops.paged_sparse_decode_splitk``; 1 = the single-pass
-    kernel). A dense policy, or a layer without a gate, takes the dense
-    fallback: ``gather_kv`` of the whole table, then dense decode
-    attention. ``k_scale``/``v_scale`` [P, Hkv, 1] mark int8 pools: the
-    append requantizes the trailing page, the decode kernel dequantizes
-    inside its block loop, the fallback while gathering.
+    The new K/V are appended to each slot's trailing page; the Kg row and
+    the min/max metadata rows of a just-completed page are finalized, each
+    for the policy that reads it; inactive rows write to the null page and
+    do not advance. The policy then selects (the gate scores ``kg_pages``
+    through the page table; Quest reads the metadata pools and the
+    trailing page), ``budget_blocks`` [S] caps each slot's list at run
+    time (``_cap_budget``), and the block-sparse decode reads only the
+    selected physical pages, in ``options.split_k`` flash partials
+    (``ops.paged_sparse_decode_splitk``; 1 = the single-pass kernel). A
+    dense policy, or a layer without a gate, takes the dense fallback:
+    ``gather_kv`` of the whole table, then dense decode attention.
+    ``k_scale``/``v_scale`` [P, Hkv, 1] mark int8 pools: the append
+    requantizes the trailing page, every later reader (the metadata
+    finalize, Quest's trailing page, the kernel, the fallback) dequantizes
+    with the scale rows the append wrote.
+
+    ``stage``/``plan``: a plan-carrying SelectionSchedule, as in
+    ``transformer.attention_decode``. Only a selecting layer finalizes its
+    Kg and metadata rows; a reusing layer attends the carried plan, a
+    dense one the whole table.
 
     With a ``shard`` (``distributed.sharding.Shard``) the pools and scale
     rows hold this rank's KV heads only: the step runs the same math on
@@ -109,7 +134,7 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     collective inside the layer, and o and the selected ids are
     all-gathered to full heads, in one collective, before ``wo``. Attention is independent
     per KV head, so at ``split_k=1`` the step is bitwise the unsharded
-    one."""
+    one. The sharded body takes neither a schedule nor budget caps."""
     b = x1.shape[0]
     dh, hkv, g = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.gqa_group
     ps = cfg.gate.block_size
@@ -122,13 +147,19 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     npt = page_table.shape[1]
     gate = p.get("gate")
     if shard is not None:                  # this rank's KV heads and their queries
+        if stage is not None or budget_blocks is not None:
+            raise NotImplementedError(
+                "the sharded paged body takes no selection schedule and no "
+                "per-request budgets (Queue A item 6, sharded remainder)")
         kr, v, q, qr = (shard.head_slice(x, 2) for x in (kr, v, q, qr))
         if gate is not None:
             gate = {name: shard.head_slice(w, 0) for name, w in gate.items()}
     hl = kr.shape[2]
+    selecting = sparse_on and stage in (None, STAGE_SELECT)
 
-    # the Kg page rows only advance for the policy that reads them
-    gate_for_append = gate if policy.needs_gate else None
+    # the Kg page rows only advance for the policy that reads them, and
+    # under a schedule only at a selecting layer
+    gate_for_append = gate if policy.needs_gate and selecting else None
     if k_scale is not None:
         pg.append_token_paged_quant(k_pages, v_pages, kg_pages, k_scale, v_scale,
                                     kr[:, 0], v[:, 0], page_table, cur_len, active,
@@ -138,21 +169,32 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
         pg.append_token_paged(k_pages, v_pages, kg_pages, kr[:, 0], v[:, 0],
                               page_table, cur_len, active, gate_for_append,
                               cfg.gate, rope_theta=cfg.rope_theta)
+    # ... and the min/max rows only for the policy that reads THEM
+    if policy.needs_meta and kmin_pages is not None and selecting:
+        pg.append_meta_paged(kmin_pages, kmax_pages, k_pages, page_table, cur_len,
+                             active, ps, k_scale=k_scale)
     new_len = cur_len + active.to(cur_len.dtype)
 
-    if sparse_on:
+    idx = plan
+    if selecting:
         inp = SelectionInputs(q_nope=q, qr=qr, pos=pos, new_len=new_len,
                               gate_params=gate, kg_pages=kg_pages,
-                              k_pages=k_pages, page_table=page_table)
-        idx = policy.select(inp, cfg, max_selected=options.max_selected(cfg))
+                              k_pages=k_pages, page_table=page_table,
+                              kmin_pages=kmin_pages, kmax_pages=kmax_pages,
+                              k_scale_pages=k_scale)
+        idx = policy.select(inp, cfg, max_selected=options.max_selected(cfg),
+                            unify_heads=options.schedule.unify_heads)
+    if sparse_on and stage != STAGE_DENSE:
+        idx = _cap_budget(idx, budget_blocks)
         qgrp = qr[:, 0].reshape(b, hl, g, dh).contiguous()
         o = ops.paged_sparse_decode_splitk(qgrp, k_pages, v_pages, idx, page_table,
                                            new_len, block_size=ps,
                                            num_splits=options.split_k,
                                            k_scales=k_scale, v_scales=v_scale)
+        sel = idx
         if shard is not None:
-            o, idx = shard.all_gather_packed([o, idx], 1)
-        aux = (_selection_aux(idx, kc.visible_blocks(
+            o, sel = shard.all_gather_packed([o, idx], 1)
+        aux = (_selection_aux(sel, kc.visible_blocks(
                    torch.clamp_min(new_len, 1), ps), npt)
                if options.measure_sparsity else _zero_layer_aux(b, x1.device))
     else:
@@ -165,23 +207,27 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
         aux = (_dense_aux(new_len, ps) if options.measure_sparsity
                else _zero_layer_aux(b, x1.device))
     out = linear(p["wo"], o.reshape(b, 1, hkv * g * dh))
-    return out, aux
+    # a dense (or ungated) layer passes the plan through untouched
+    return (out, aux, idx) if stage is not None else (out, aux)
 
 
 def block_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig,
                        layer_pages, page_table, cur_len, active, *,
-                       options: DecodeOptions, shard=None):
+                       options: DecodeOptions, budget_blocks=None, shard=None,
+                       stage=None, plan=None):
     """One transformer block over paged KV; ``layer_pages`` is the layer's
-    (k_pages, v_pages, kg_pages, k_scale, v_scale), the scales None for fp
-    pools (this rank's KV heads with a ``shard``). Returns (x1, selection
-    aux)."""
-    k_pages, v_pages, kg_pages, k_scale, v_scale = layer_pages
+    (k_pages, v_pages, kg_pages, kmin_pages, kmax_pages, k_scale, v_scale)
+    in ``PagedPages`` order, None where a pool is not allocated (this
+    rank's KV heads with a ``shard``). Returns (x1, selection aux), plus
+    the plan when ``stage`` is given."""
+    k_pages, v_pages, kg_pages, kmin_pages, kmax_pages, k_scale, v_scale = layer_pages
     h = rms_norm(p["ln1"], x1, cfg.norm_eps)
-    attn_out, aux = attention_decode_paged(
+    ret = attention_decode_paged(
         p["attn"], h, cfg, k_pages=k_pages, v_pages=v_pages,
         kg_pages=kg_pages, page_table=page_table, cur_len=cur_len,
-        active=active, options=options, k_scale=k_scale, v_scale=v_scale,
-        shard=shard)
-    x1 = x1 + attn_out
+        active=active, options=options, budget_blocks=budget_blocks,
+        kmin_pages=kmin_pages, kmax_pages=kmax_pages, k_scale=k_scale,
+        v_scale=v_scale, shard=shard, stage=stage, plan=plan)
+    x1 = x1 + ret[0]
     h2 = rms_norm(p["ln2"], x1, cfg.norm_eps)
-    return x1 + mlp(p["mlp"], h2, cfg.activation), aux
+    return (x1 + mlp(p["mlp"], h2, cfg.activation),) + ret[1:]

@@ -19,14 +19,15 @@ class ModelApi(NamedTuple):
     init_params: Callable          # (generator, cfg) -> params
     forward: Callable              # (params, batch, cfg, *, mode, shard) -> (loss, metrics);
     #                                 mode="distill" only (gate KL, base frozen)
-    init_decode_state: Callable    # (cfg, batch_size, max_len, *, device) -> state
+    init_decode_state: Callable    # (cfg, batch_size, max_len, dtype, options, *, device)
+    #                                 -> state
     prefill: Callable              # (params, batch, cfg, max_len, options) -> (logits, state);
     #                                 batch may carry "lengths" (right-padded rows)
     decode_step: Callable          # (params, state, token, cfg, *, options, shard)
     #                                 -> (logits, state, aux)
     # continuous-batching paged decode (serve.paging):
     # (params, pages, slot_state, token, page_table, cur_len, active, cfg,
-    #  *, options, shard) -> (logits, pages, slot_state, aux)
+    #  *, options, budget_blocks, shard) -> (logits, pages, slot_state, aux)
     decode_step_paged: Any = None
     # how many layer slices the page pools carry (cfg) -> int
     paged_attn_layers: Callable = None
@@ -37,7 +38,8 @@ class ModelApi(NamedTuple):
 
 
 def _tf_view(st) -> CacheView:
-    return CacheView(st.k_cache, st.v_cache, st.kg_cache, None, None, None)
+    return CacheView(st.k_cache, st.v_cache, st.kg_cache, st.meta_kmin, st.meta_kmax,
+                     None)
 
 
 _TF_API = ModelApi(tf.init_lm, tf.lm_forward, tf.init_decode_state, tf.lm_prefill,

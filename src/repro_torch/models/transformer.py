@@ -8,13 +8,16 @@ forward of gate distillation (``attention_full`` -> ``block_fwd_full`` ->
 right-padded ``lengths``), the contiguous decode step
 (``attention_decode`` -> ``block_decode`` -> ``lm_decode_step``) and the
 paged one (``lm_decode_step_paged`` over ``attn_core.block_decode_paged``),
-each the non-staged branch, unsharded or sharded (``serve/sharded.py``:
-the contiguous caches split along the sequence, the page pools over the
-KV heads).
+each with the staged branch of a plan-carrying SelectionSchedule and
+Quest's metadata cache, unsharded, or (gate or dense, trivial schedule)
+sharded (``serve/sharded.py``: the contiguous caches split along the
+sequence, the page pools over the KV heads).
 
 Differences of idiom, not of result:
   * parameters are a dict whose ``"blocks"`` entry is a LIST of per-layer
-    dicts, and a Python loop over layers replaces ``lax.scan``;
+    dicts, and a Python loop over layers replaces ``lax.scan``: a layer's
+    stage is a Python branch, not a ``lax.cond``, and the plan a value
+    passed from layer to layer;
   * the decode state's caches are updated IN PLACE (the reference returns
     new arrays and donates the old state); ``lm_decode_step`` returns a
     ``DecodeState`` holding the same cache tensors and the advanced
@@ -34,9 +37,11 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core import attngate as ag
 from repro_torch.core import kcache as kc
+from repro_torch.core import metacache as mc
 from repro_torch.core.distill import gate_kl_loss, ground_truth_from_blockmax
-from repro_torch.core.policy import (DecodeOptions, SelectionInputs,
-                                     default_options)
+from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,
+                                     SelectionInputs, default_options,
+                                     selection_width)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.attn_core import (_dense_aux, _policy_active, _qkv,
@@ -260,12 +265,19 @@ def lm_gate_collect(params: Params, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 class DecodeState(NamedTuple):
-    """All caches are HEAD-MAJOR; decode reads and writes them in place."""
+    """All caches are HEAD-MAJOR; decode reads and writes them in place.
+    ``meta_*`` is the incremental selection-metadata cache (core.metacache)
+    of a policy that reads it (QuestPolicy): allocated and built at
+    prefill only when the prefill ``options`` carry such a policy, None
+    otherwise, and advanced per step only for that policy."""
     k_cache: torch.Tensor                   # [L, B, Hkv, S_max, Dh] (post-rope)
     v_cache: torch.Tensor                   # [L, B, Hkv, S_max, Dh]
     kg_cache: Optional[torch.Tensor]        # [L, B, Hkv, nb_max, Dg]
     kg_n: Optional[torch.Tensor]            # [L, B] int32
     cur_len: torch.Tensor                   # [B] int32
+    meta_kmin: Optional[torch.Tensor] = None    # [L, B, Hkv, nb_max, Dh] f32
+    meta_kmax: Optional[torch.Tensor] = None    # [L, B, Hkv, nb_max, Dh] f32
+    meta_n: Optional[torch.Tensor] = None       # [L, B] int32
 
 
 def n_self_layers(cfg: ModelConfig) -> int:
@@ -273,10 +285,11 @@ def n_self_layers(cfg: ModelConfig) -> int:
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      dtype: Optional[torch.dtype] = None, *,
+                      dtype: Optional[torch.dtype] = None,
+                      options: Optional[DecodeOptions] = None, *,
                       device: torch.device | str | None = None) -> DecodeState:
     """Zeroed caches on ``device`` (``None`` = CUDA, which raises without
-    a card)."""
+    a card); the metadata cache only for a ``needs_meta`` policy."""
     device = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
     dh, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
@@ -287,11 +300,18 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
         kg = torch.zeros((nl, batch, hkv, nb_max, cfg.gate.d_gate), dtype=dt,
                          device=device)
         kg_n = torch.zeros((nl, batch), dtype=torch.int32, device=device)
+    meta_kmin = meta_kmax = meta_n = None
+    if options is not None and options.policy.needs_meta:
+        meta_kmin, meta_kmax = (torch.zeros((nl, batch, hkv, nb_max, dh),
+                                            dtype=torch.float32, device=device)
+                                for _ in range(2))
+        meta_n = torch.zeros((nl, batch), dtype=torch.int32, device=device)
     return DecodeState(
         k_cache=torch.zeros((nl, batch, hkv, max_len, dh), dtype=dt, device=device),
         v_cache=torch.zeros((nl, batch, hkv, max_len, dh), dtype=dt, device=device),
         kg_cache=kg, kg_n=kg_n,
-        cur_len=torch.zeros((batch,), dtype=torch.int32, device=device))
+        cur_len=torch.zeros((batch,), dtype=torch.int32, device=device),
+        meta_kmin=meta_kmin, meta_kmax=meta_kmax, meta_n=meta_n)
 
 
 # ---------------------------------------------------------------------------
@@ -311,16 +331,17 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
     serve path's power-of-two buckets): causality keeps real positions
     blind to the pad tokens, the logits are taken at ``lengths - 1``,
     ``cur_len``/``kg_n`` are the true lengths, and the Kg rows of blocks
-    that touch a pad token are zero. ``options`` is accepted for the
-    reference's signature; no policy of this slice builds a prefill-side
-    cache."""
+    that touch a pad token are zero. ``options`` (those the decode steps
+    will run with) also builds the selection-metadata cache when its
+    policy reads one: the one O(S) pass that makes every QuestPolicy
+    step O(block_size)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     b, l = tokens.shape
     if l > max_len:
         raise ValueError(f"prompt length {l} > max_len {max_len}")
     dev = params["embed"]["w"].device
-    state = init_decode_state(cfg, b, max_len, device=dev)
+    state = init_decode_state(cfg, b, max_len, options=options, device=dev)
     bs = cfg.gate.block_size
     nb = l // bs
     pos = torch.arange(l, device=dev)[None, :].expand(b, l)
@@ -358,6 +379,14 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
             row_ok = (torch.arange(state.kg_cache.shape[3], device=dev)[None, :]
                       < (state.cur_len // bs)[:, None])
             state.kg_cache.masked_fill_(~row_ok[None, :, None, :, None], 0)
+    if state.meta_kmin is not None:
+        # kv_len masking keeps pad and beyond-length tokens out of min/max
+        for i in range(state.meta_kmin.shape[0]):
+            meta = mc.prefill_metacache(
+                mc.SelectionMetaCache(state.meta_kmin[i], state.meta_kmax[i],
+                                      state.meta_n[i]),
+                state.k_cache[i], state.cur_len, bs)
+            state.meta_n[i] = meta.n_complete
     return _logits(params, last, cfg), state
 
 
@@ -367,13 +396,24 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
 
 def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
                      k_cache, v_cache, kg_cache, kg_n, cur_len,
-                     options: DecodeOptions, shard=None):
+                     options: DecodeOptions, meta_kmin=None, meta_kmax=None,
+                     meta_n=None, shard=None, stage=None, plan=None):
     """One token. x1 [B,1,d]; caches for ONE layer HEAD-MAJOR [B,Hkv,S,Dh].
-    Returns (out, (k_cache, v_cache, kg_cache, kg_n), selection_aux).
+    Returns (out, (k_cache, v_cache, kg_cache, kg_n, meta_kmin, meta_kmax,
+    meta_n), selection_aux), and the next layer's plan as a 4th element
+    when ``stage`` is given.
 
-    Writes the new K/V at ``cur_len`` and advances the Kg cache with
-    ``new_len = cur_len + 1`` (in place); selects with ``n_valid =
+    Writes the new K/V at ``cur_len`` and advances the Kg and metadata
+    caches with ``new_len = cur_len + 1`` (in place, each only for the
+    policy that reads it); selects with ``n_valid =
     visible_blocks(max(new_len, 1))`` and decodes with ``kv_len = new_len``.
+
+    ``stage``/``plan`` (a plan-carrying SelectionSchedule): STAGE_DENSE
+    runs dense attention, STAGE_SELECT computes a fresh selection,
+    STAGE_REUSE attends the carried ``plan`` [B, Hkv, k] as it is; the
+    Python layer loop makes the stage a branch. Only a selecting layer
+    advances its Kg and metadata caches: a dense or reusing layer never
+    reads them.
 
     With a ``shard`` and GatePolicy on a gated layer the step is the
     sequence-sharded one (``serve.sharded.sharded_sparse_decode``): the
@@ -394,10 +434,11 @@ def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     kr = apply_rope(k, pos, cfg.rope_theta)
 
     if shard is not None and not policy.dense:
-        if not (sparse_on and policy.needs_gate and "gate" in p):
+        if not (sparse_on and policy.needs_gate and "gate" in p) or stage is not None:
             raise ValueError(
                 "sharded decoding on the contiguous path needs GatePolicy on a "
-                "gated layer; other policies run unsharded")
+                "gated layer and the trivial schedule; other policies run "
+                "unsharded")
         qg = ag.gate_q(p["gate"], q_nope, pos, cfg.gate)[:, 0]    # [B,Hkv,Dg]
         o, n_sel = sharded_sparse_decode(
             qg, qr[:, 0].reshape(b, hkv, g, dh), kr[:, 0], v[:, 0], k_cache, v_cache,
@@ -414,51 +455,79 @@ def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
                    torch.mean(n_sel.to(torch.float32), dim=1), n_valid)
         else:
             aux = _zero_layer_aux(b, x1.device)
-        return out, (k_cache, v_cache, kg_cache, kg_n), aux
+        return out, (k_cache, v_cache, kg_cache, kg_n, meta_kmin, meta_kmax,
+                     meta_n), aux
 
     bidx = torch.arange(b, device=x1.device)
     k_cache[bidx, :, cur_len] = kr[:, 0]
     v_cache[bidx, :, cur_len] = v[:, 0]
     new_len = cur_len + 1
+    dense = not sparse_on or stage == STAGE_DENSE
+    idx = plan
 
-    if sparse_on:
-        # the Kg cache only advances for the policy that reads it
+    if sparse_on and stage in (None, STAGE_SELECT):
+        # the Kg and metadata caches advance (in place) only for the
+        # policy that reads them, and only at a selecting layer
         if policy.needs_gate and "gate" in p and kg_cache is not None:
-            cache = kc.update_kcache(
-                kc.KCompressionCache(kg_cache, kg_n), p["gate"], k_cache,
-                new_len, cfg.gate, cache_is_roped=True,
-                rope_theta=cfg.rope_theta)
-            kg_cache, kg_n = cache.kg, cache.n_complete
+            kg_n = kc.update_kcache(
+                kc.KCompressionCache(kg_cache, kg_n), p["gate"], k_cache, new_len,
+                cfg.gate, cache_is_roped=True, rope_theta=cfg.rope_theta).n_complete
+        if policy.needs_meta and meta_kmin is not None:
+            meta_n = mc.update_metacache(
+                mc.SelectionMetaCache(meta_kmin, meta_kmax, meta_n), k_cache,
+                new_len, bs).n_complete
         inp = SelectionInputs(q_nope=q_nope, qr=qr, pos=pos, new_len=new_len,
                               gate_params=p.get("gate"), kg=kg_cache,
-                              k_cache=k_cache)
-        idx = policy.select(inp, cfg, max_selected=options.max_selected(cfg))
+                              k_cache=k_cache, meta_kmin=meta_kmin,
+                              meta_kmax=meta_kmax)
+        idx = policy.select(inp, cfg, max_selected=options.max_selected(cfg),
+                            unify_heads=options.schedule.unify_heads)
+    if dense:
+        o = decode_attention(qr, k_cache, v_cache, new_len,
+                             logit_softcap=cfg.attn_logit_softcap)
+        aux = (_dense_aux(new_len, bs) if options.measure_sparsity
+               else _zero_layer_aux(b, x1.device))
+    else:
         qgrp = qr[:, 0].reshape(b, hkv, g, dh)
         o = ops.sparse_decode(qgrp, k_cache, v_cache, idx, new_len, block_size=bs)
         o = o.reshape(b, 1, hkv * g, dh)
         aux = (_selection_aux(idx, kc.visible_blocks(
                    torch.clamp_min(new_len, 1), bs), k_cache.shape[2] // bs)
                if options.measure_sparsity else _zero_layer_aux(b, x1.device))
-    else:
-        o = decode_attention(qr, k_cache, v_cache, new_len,
-                             logit_softcap=cfg.attn_logit_softcap)
-        aux = (_dense_aux(new_len, bs) if options.measure_sparsity
-               else _zero_layer_aux(b, x1.device))
     out = linear(p["wo"], o.reshape(b, 1, hkv * g * dh))
-    return out, (k_cache, v_cache, kg_cache, kg_n), aux
+    ret = (out, (k_cache, v_cache, kg_cache, kg_n, meta_kmin, meta_kmax, meta_n), aux)
+    # a dense layer (or an ungated one) passes the plan through untouched
+    return ret + (idx,) if stage is not None else ret
 
 
 def block_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, layer_state,
-                 cur_len: torch.Tensor, *, options: DecodeOptions, shard=None):
-    k_cache, v_cache, kg_cache, kg_n = layer_state
+                 cur_len: torch.Tensor, *, options: DecodeOptions, shard=None,
+                 stage=None, plan=None):
+    """One transformer block; ``layer_state`` is the layer's (k_cache,
+    v_cache, kg_cache, kg_n, meta_kmin, meta_kmax, meta_n). Returns (x1,
+    new layer state, aux), plus the plan when ``stage`` is given."""
+    k_cache, v_cache, kg_cache, kg_n, meta_kmin, meta_kmax, meta_n = layer_state
     h = rms_norm(p["ln1"], x1, cfg.norm_eps)
-    attn_out, new_state, aux = attention_decode(
+    ret = attention_decode(
         p["attn"], h, cfg, k_cache=k_cache, v_cache=v_cache,
         kg_cache=kg_cache, kg_n=kg_n, cur_len=cur_len, options=options,
-        shard=shard)
+        meta_kmin=meta_kmin, meta_kmax=meta_kmax, meta_n=meta_n,
+        shard=shard, stage=stage, plan=plan)
+    attn_out, new_state, aux = ret[:3]
     x1 = x1 + attn_out
     h2 = rms_norm(p["ln2"], x1, cfg.norm_eps)
-    return x1 + mlp(p["mlp"], h2, cfg.activation), new_state, aux
+    return (x1 + mlp(p["mlp"], h2, cfg.activation), new_state, aux) + ret[3:]
+
+
+def _plan0(options: DecodeOptions, cfg: ModelConfig, batch: int, nb: int, device):
+    """The layer stages and the empty plan [B, Hkv, width] of a
+    plan-carrying schedule, or (None, None)."""
+    if not options.schedule.needs_plan:
+        return None, None
+    stages = options.schedule.layer_stages(n_self_layers(cfg))
+    width = selection_width(options.policy, cfg, nb, options.max_selected(cfg))
+    return stages, torch.full((batch, cfg.n_kv_heads, width), -1, dtype=torch.int32,
+                              device=device)
 
 
 def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
@@ -469,20 +538,33 @@ def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
     The caches in ``state`` are updated in place; the returned state holds
     the same cache tensors and ``cur_len + 1``. ``aux`` reports the
     MEASURED selection of this step (sparsity/sel_blocks/vis_blocks),
-    averaged over layers. With a ``shard`` and a selecting policy the
+    averaged over layers. A plan-carrying ``options.schedule`` stages each
+    layer and carries the plan from layer to layer, its width from
+    ``selection_width``. With a ``shard`` and a selecting policy the
     caches are this rank's part along the sequence
     (``distributed.sharding.seq_shard_state``)."""
     options = options if options is not None else default_options(cfg)
     x1 = params["embed"]["w"][token[:, None]]
+    stages, plan = _plan0(options, cfg, token.shape[0],
+                          state.k_cache.shape[3] // cfg.gate.block_size, x1.device)
     auxs = []
+
+    def row(t, i):
+        return None if t is None else t[i]
+
     for i, lp in enumerate(params["blocks"]):
-        kg = state.kg_cache[i] if state.kg_cache is not None else None
-        kgn = state.kg_n[i] if state.kg_n is not None else None
-        x1, (_, _, _, new_n), aux = block_decode(
-            lp, x1, cfg, (state.k_cache[i], state.v_cache[i], kg, kgn),
-            state.cur_len, options=options, shard=shard)
-        if kgn is not None and new_n is not kgn:
-            kgn.copy_(new_n)
+        layer_state = (state.k_cache[i], state.v_cache[i], row(state.kg_cache, i),
+                       row(state.kg_n, i), row(state.meta_kmin, i),
+                       row(state.meta_kmax, i), row(state.meta_n, i))
+        ret = block_decode(lp, x1, cfg, layer_state, state.cur_len, options=options,
+                           shard=shard, stage=None if stages is None else stages[i],
+                           plan=plan)
+        x1, new_state, aux = ret[:3]
+        if stages is not None:
+            plan = ret[3]
+        for counts, new in ((state.kg_n, new_state[3]), (state.meta_n, new_state[6])):
+            if counts is not None and new is not counts[i]:
+                counts[i] = new
         auxs.append(aux)
     logits = _logits(params, x1, cfg)
     new_state = state._replace(cur_len=state.cur_len + 1)
@@ -497,29 +579,35 @@ def lm_decode_step_paged(params: Params, pages, slot_state,
                          token: torch.Tensor, page_table: torch.Tensor,
                          cur_len: torch.Tensor, active: torch.Tensor,
                          cfg: ModelConfig, *,
-                         options: Optional[DecodeOptions] = None, shard=None):
+                         options: Optional[DecodeOptions] = None,
+                         budget_blocks: Optional[torch.Tensor] = None, shard=None):
     """Continuous-batching decode step. token/cur_len/active [n_slots];
     ``pages`` a ``serve.paging.PagedPages`` (layer-stacked pools, updated
-    IN PLACE); page_table [n_slots, npt] int32. Returns (logits [n_slots,
-    V], pages, slot_state, aux dict).
+    IN PLACE); page_table [n_slots, npt] int32; ``budget_blocks``
+    [n_slots] (optional) per-slot selected-block caps of per-request
+    budgets. Returns (logits [n_slots, V], pages, slot_state, aux dict).
 
     ``slot_state`` is the reference's per-slot recurrent-state seam; the
     transformer is pages-only and passes ``None`` through. Inactive rows
     produce garbage logits (the engine ignores them) but neither touch
-    live pages nor advance. With a ``shard`` the pools hold this rank's KV
-    heads (``attn_core.attention_decode_paged``).
-    The reference's per-request budget caps (``budget_blocks``) arrive with
-    their slice."""
+    live pages nor advance. A plan-carrying ``options.schedule`` stages
+    the layers as ``lm_decode_step`` does, the plan's width from the page
+    table's logical-block count. With a ``shard`` the pools hold this
+    rank's KV heads (``attn_core.attention_decode_paged``)."""
     _check_family(cfg)
     options = options if options is not None else default_options(cfg)
     x1 = params["embed"]["w"][token[:, None]]
+    stages, plan = _plan0(options, cfg, token.shape[0], page_table.shape[1], x1.device)
     auxs = []
     for i, lp in enumerate(params["blocks"]):
-        kg, k_sc, v_sc = (None if pool is None else pool[i] for pool in
-                          (pages.kg_pages, pages.k_scale_pages, pages.v_scale_pages))
-        x1, aux = block_decode_paged(
-            lp, x1, cfg, (pages.k_pages[i], pages.v_pages[i], kg, k_sc, v_sc),
-            page_table, cur_len, active, options=options, shard=shard)
+        layer_pages = tuple(None if pool is None else pool[i] for pool in pages)
+        ret = block_decode_paged(
+            lp, x1, cfg, layer_pages, page_table, cur_len, active, options=options,
+            budget_blocks=budget_blocks, shard=shard,
+            stage=None if stages is None else stages[i], plan=plan)
+        x1, aux = ret[:2]
+        if stages is not None:
+            plan = ret[2]
         auxs.append(aux)
     logits = _logits(params, x1, cfg)
     return logits[:, 0], pages, slot_state, aggregate_decode_aux(auxs)

@@ -13,9 +13,13 @@ machinery (gate selection, block-sparse decode kernels):
     (``serve.offload``) instead of stalling. Finished requests retire and
     their pages are recycled at once.
 
-Decode behaviour is one frozen ``core.policy.DecodeOptions``. The engine
-runs on CUDA unless the caller passes ``device="cpu"``; with no card and
-no explicit device it raises.
+Decode behaviour is one frozen ``core.policy.DecodeOptions``: the
+selection policy (gate, Quest with its metadata cache, Quest recompute,
+oracle, sliding window, dense), its SelectionSchedule, the budget and the
+sampling. ``serve`` also takes per-request ``"budget"`` caps (masked at
+run time) and ``"sampling"`` overrides, each request drawing from its own
+seeded stream. The engine runs on CUDA unless the caller passes
+``device="cpu"``; with no card and no explicit device it raises.
 
 Sharded serving: ``DecodeEngine(..., shard=Shard(group),
 options=DecodeOptions(split_k=...))`` on every rank of a
@@ -26,9 +30,12 @@ each layer's attention output over ranks; ``generate`` splits the
 prefilled caches along the sequence. Every rank computes the same logits,
 so the replicated scheduler takes the same decisions everywhere, and the
 stats a rank returns are the unsharded run's (swap bytes summed over
-ranks). On a CUDA device every layer's selection
-and sparse attention go through the hand-written kernels
-(``kernels/ops.py``); on the CPU through their plain PyTorch versions.
+ranks). A sharded engine takes GatePolicy or DensePolicy under the
+trivial schedule, greedy sampling and no request budgets. On a CUDA
+device every layer's selection and sparse attention go through the
+hand-written kernels (``kernels/ops.py``), or, for the policies the
+reference scores in jnp, through plain PyTorch on the card; on the CPU
+through the kernels' plain PyTorch versions.
 Options of the reference that belong to later slices raise
 ``NotImplementedError`` naming the slice.
 """
@@ -80,6 +87,12 @@ class DecodeEngine:
         if shard is not None and not isinstance(options.policy, (GatePolicy, DensePolicy)):
             raise ValueError("sharded decoding supports GatePolicy (distributed gate "
                              "top-k) or DensePolicy only")
+        if shard is not None and not options.schedule.is_trivial:
+            raise _not_ported("a sharded engine", 6, "a non-trivial SelectionSchedule "
+                              "on the sharded paths")
+        if shard is not None and not options.sampling.greedy:
+            raise _not_ported("a sharded engine", 6, "stochastic sampling on the "
+                              "sharded paths")
         self.shard = shard
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -101,32 +114,47 @@ class DecodeEngine:
             torch.cuda.synchronize(self.device)
 
     @torch.no_grad()
-    def _step(self, params, state, token):
+    def _step(self, params, state, token, generator=None):
         """One decode step: (next token, logits, state, aux). The state's
-        caches are updated in place."""
+        caches are updated in place; ``generator`` feeds stochastic
+        sampling."""
         logits, state, aux = self.api.decode_step(
             params, state, token, self.cfg, options=self.options, shard=self.shard)
-        nxt = smp.sample(logits, self.options.sampling)
+        nxt = smp.sample(logits, self.options.sampling, generator)
         return nxt, logits, state, aux
 
+    def _generator(self, generator):
+        """The caller's generator, or seed 0 on the engine's device when
+        sampling is stochastic (the reference's PRNGKey(0) default)."""
+        if generator is None and not self.options.sampling.greedy:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return generator
+
     @torch.no_grad()
-    def prefill(self, batch: Dict[str, Any]):
-        """batch["tokens"] [B, L] (tensor or array) -> (first token [B], state)."""
+    def prefill(self, batch: Dict[str, Any], generator=None):
+        """batch["tokens"] [B, L] (tensor or array) -> (first token [B],
+        state). The options ride along, so a metadata-reading policy gets
+        its metadata cache built here."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         logits, state = self.api.prefill(self.params, {"tokens": tokens},
                                          self.cfg, self.max_len,
                                          options=self.options)
-        return smp.sample(logits, self.options.sampling), state
+        return smp.sample(logits, self.options.sampling,
+                          self._generator(generator)), state
 
     @torch.no_grad()
-    def generate(self, batch: Dict[str, Any], n_tokens: int) -> GenerationResult:
-        """Uniform-batch greedy decode of ``n_tokens`` per row (the first
-        comes from prefill, then ``n_tokens - 1`` decode steps). On a sharded
-        engine with a selecting policy the prefill is replicated, then each
-        rank keeps its part of the caches along the sequence."""
+    def generate(self, batch: Dict[str, Any], n_tokens: int, *,
+                 generator: Optional[torch.Generator] = None) -> GenerationResult:
+        """Uniform-batch decode of ``n_tokens`` per row (the first comes
+        from prefill, then ``n_tokens - 1`` decode steps). ``generator``
+        (any device) feeds a stochastic ``options.sampling``, default seed 0
+        on the engine's device; greedy decoding consumes no randomness. On
+        a sharded engine with a selecting policy the prefill is replicated,
+        then each rank keeps its part of the caches along the sequence."""
         self._last_aux = self._last_active = None   # stats reflect THIS run
+        generator = self._generator(generator)
         t0 = time.perf_counter()
-        token, state = self.prefill(batch)
+        token, state = self.prefill(batch, generator)
         if self._seq_sharded():
             state = seq_shard_state(state, self.shard, self.cfg.gate.block_size)
         self._sync()
@@ -134,7 +162,7 @@ class DecodeEngine:
         toks = [token]
         t1 = time.perf_counter()
         for _ in range(n_tokens - 1):
-            token, _, state, aux = self._step(self.params, state, token)
+            token, _, state, aux = self._step(self.params, state, token, generator)
             self._last_aux = aux
             toks.append(token)
         self._sync()
@@ -157,17 +185,26 @@ class DecodeEngine:
     def serve(self, requests: Sequence[Dict[str, Any]], *,
               n_slots: int = 4, num_pages: Optional[int] = None,
               collect_logits: bool = False,
-              max_steps: Optional[int] = None, admission: str = "lazy",
+              max_steps: Optional[int] = None, sample_seed: int = 0,
+              admission: str = "lazy",
               watermark: int = 0, eviction=None, swap_config=None,
               faults=None, arrivals=None, on_token=None,
               table_pages: Optional[int] = None) -> ServeResult:
-        """Continuous-batching greedy decode over a paged KV cache.
+        """Continuous-batching decode over a paged KV cache.
 
         requests: each ``{"tokens": 1-D int array, "max_new_tokens": int}``
-        plus optional ``"rid"`` and the SLO-tier fields ``"tier"``,
+        plus optional ``"rid"``, the per-request overrides ``"sampling"``
+        (SamplingParams replacing ``options.sampling``) and ``"budget"``
+        (a token budget, applied as a run-time cap on the slot's selected
+        list: rounded UP to whole blocks and floored at the forced
+        first/last blocks; a cap past the list's width changes nothing),
+        and the SLO-tier fields ``"tier"``,
         ``"priority"`` (orders admission, protects against preemption) and
         ``"reserve"`` (this request reserves its whole lifetime of pages
-        up front). Admission is priority-then-FIFO.
+        up front). Admission is priority-then-FIFO. A stochastic request
+        draws its t-th token from a generator seeded by (``sample_seed``,
+        its registration index, t), so its trajectory depends neither on
+        its slot nor on preemption.
 
         ``admission="lazy"`` (default) admits on current occupancy (prompt
         pages only), grows each slot's pages on demand, holds
@@ -187,11 +224,10 @@ class DecodeEngine:
         ``max_new_tokens``); ``res["stats"]`` holds throughput, scheduler
         and swap telemetry and the measured sparsity per request;
         ``res["logits"]`` (rid -> [n, V] fp32, prefill token included)
-        when ``collect_logits``. Per-request ``"sampling"``/``"budget"``
-        overrides, stochastic sampling, eviction, faults, a bounded swap
-        tier, open-loop arrivals (with their ``table_pages``) and
-        streaming callbacks are later slices and raise
-        ``NotImplementedError``.
+        when ``collect_logits``. Eviction, faults, a bounded swap tier,
+        open-loop arrivals (with their ``table_pages``) and streaming
+        callbacks are a later slice and raise ``NotImplementedError``, as
+        do request budgets and stochastic sampling on a sharded engine.
         """
         for name, val in (("eviction", eviction), ("swap_config", swap_config),
                           ("faults", faults), ("arrivals", arrivals),
@@ -199,19 +235,23 @@ class DecodeEngine:
             if val is not None:
                 raise _not_ported(f"serve({name}=...)", 7,
                                   "the pressure and failure paths")
-        if not self.options.sampling.greedy:
-            raise _not_ported("serve()", 6, "stochastic sampling")
         cfg = self.cfg
         ps = cfg.gate.block_size
         dev = self.device
 
         reqs: List[Request] = []
         rho_n: Dict[Any, int] = {}
+        sampling_of: Dict[Any, smp.SamplingParams] = {}
+        budget_of: Dict[Any, Optional[int]] = {}
+        ridx_of: Dict[Any, int] = {}
         for rd in requests:
-            for key in ("sampling", "budget"):
-                if rd.get(key) is not None:
-                    raise _not_ported(f"request {key!r} override", 6,
-                                      "per-request sampling and budgets")
+            if self.shard is not None:
+                if rd.get("budget") is not None:
+                    raise _not_ported("request 'budget' override", 6,
+                                      "per-request budgets on the sharded paths")
+                if not (rd.get("sampling") or smp.GREEDY).greedy:
+                    raise _not_ported("request 'sampling' override", 6,
+                                      "stochastic sampling on the sharded paths")
             req = Request(
                 rid=rd.get("rid", len(reqs)),
                 prompt=np.asarray(rd["tokens"], np.int32).reshape(-1),
@@ -221,6 +261,9 @@ class DecodeEngine:
                 admit_reserve=bool(rd.get("reserve", False)))
             reqs.append(req)
             rho_n[req.rid] = 0
+            sampling_of[req.rid] = rd.get("sampling") or self.options.sampling
+            budget_of[req.rid] = rd.get("budget")
+            ridx_of[req.rid] = len(ridx_of)
         if not reqs:
             return ServeResult(stats={})
         rids = [r.rid for r in reqs]
@@ -242,9 +285,36 @@ class DecodeEngine:
         for r in reqs:
             sched.submit(r)
 
+        # per-slot caps on the selected list, only when some request sets a
+        # budget (otherwise no mask exists at all). Slots without one get a
+        # cap that never binds; a cap rounds UP to whole blocks (as
+        # DecodeOptions.max_selected does) and keeps the forced first/last
+        # blocks, which rank ahead of every scored block
+        no_cap = 2 ** 30
+        floor = max(1, int(cfg.gate.always_first_block) + int(cfg.gate.always_last_block))
+        budget_blocks = (np.full((n_slots,), no_cap, np.int32)
+                         if any(b is not None for b in budget_of.values()) else None)
+
+        def slot_cap(rid) -> int:
+            b = budget_of[rid]
+            return no_cap if b is None else max(floor, -(-int(b) // ps))
+
+        def sample_slot(req: Request, row: torch.Tensor) -> int:
+            """One slot's next token with the request's sampling params; a
+            stochastic draw uses the request's own seeded stream."""
+            params_s = sampling_of[req.rid]
+            if params_s.greedy:
+                return int(torch.argmax(row))
+            seed = np.random.SeedSequence(
+                [sample_seed, ridx_of[req.rid], len(req.out_tokens)]).generate_state(1)[0]
+            gen = torch.Generator().manual_seed(int(seed))
+            return int(smp.sample(row, params_s, gen))
+
         kv_heads = (self.shard.local_heads(cfg.n_kv_heads) if self.shard is not None
                     else None)
+        # min/max metadata pools only for the policy that reads them
         pages = pg.init_pages(cfg, num_pages, self.api.paged_attn_layers(cfg),
+                              with_meta=self.options.policy.needs_meta,
                               quantize=self.options.quantize, device=dev,
                               kv_heads=kv_heads)
         slot_state = (None if self.api.init_slot_state is None
@@ -270,15 +340,15 @@ class DecodeEngine:
             the pages. A growth page allocated for the not-yet-written
             next token is dropped; re-admission re-grows it."""
             n_content = max(1, -(-req.swap_len // ps))
-            k, v, kg, _, _, k_sc, v_sc = pg.extract_pages(
+            k, v, kg, kmin, kmax, k_sc, v_sc = pg.extract_pages(
                 pages, pg.pad_page_ids(req.pages[:n_content], device=dev))
             swap.put(req.rid, SwapEntry(k=k, v=v, kg=kg,
                                         token=int(token_buf[req.slot]),
-                                        cur_len=req.swap_len,
+                                        cur_len=req.swap_len, kmin=kmin, kmax=kmax,
                                         k_scale=k_sc, v_scale=v_sc))
 
-        # a recycled page may hold a previous tenant's Kg (and int8 scale)
-        # row, and a partial trailing page must read a ZERO row. Freed
+        # a recycled page may hold a previous tenant's Kg, metadata (and
+        # int8 scale) rows, and a partial trailing page must read ZERO rows. Freed
         # pages are collected in ``dirty`` and zeroed in one batched call
         # per iteration; admission reuse is cleaned by scatter_prefill/
         # restore anyway, so growth only re-zeroes a page freed in the same
@@ -287,7 +357,8 @@ class DecodeEngine:
         # reserve admission never grows: every reuse goes through
         # scatter_prefill, which zeroes the Kg rows itself
         gate_paged = admission == "lazy" and (
-            pages.kg_pages is not None or pages.k_scale_pages is not None)
+            pages.kg_pages is not None or pages.kmin_pages is not None
+            or pages.k_scale_pages is not None)
 
         def sweep_dirty(ids) -> None:
             if ids and gate_paged:
@@ -315,18 +386,22 @@ class DecodeEngine:
                     pg.restore_pages(pages, entry.k, entry.v, entry.kg,
                                      pg.pad_page_ids(req.pages[:n_content],
                                                      device=dev),
+                                     entry.kmin, entry.kmax,
                                      k_scale=entry.k_scale, v_scale=entry.v_scale)
                     token_buf[req.slot] = entry.token
                     req.swapped = False
                 else:
-                    first, lg = self._paged_prefill(pages, req, ps,
-                                                    collect_logits)
+                    row = self._paged_prefill(pages, req, ps)
+                    first = sample_slot(req, row)
+                    lg = row.float().cpu().numpy() if collect_logits else None
                     req.out_tokens.append(first)
                     sched.note_token(req, first)
                     if collect_logits:
                         req.out_logits.append(lg)
                     token_buf[req.slot] = first
                 mark_live(req.pages)                 # content written
+                if budget_blocks is not None:
+                    budget_blocks[req.slot] = slot_cap(req.rid)
                 sched.retire_if_done(req)
             fresh = sched.prepare_step(swap_out)   # lazy growth + preemption
             dirty.update(sched.drain_released())
@@ -355,7 +430,10 @@ class DecodeEngine:
                 torch.as_tensor(sched.page_table, device=dev),
                 torch.as_tensor(sched.cur_len, device=dev),
                 torch.as_tensor(sched.active, device=dev), cfg,
-                options=self.options, shard=self.shard)
+                options=self.options,
+                budget_blocks=(None if budget_blocks is None
+                               else torch.as_tensor(budget_blocks, device=dev)),
+                shard=self.shard)
             self._last_aux = aux
             # idle slots decode garbage rows: remember who was live, so
             # sparsity_stats() averages active rows only
@@ -374,6 +452,10 @@ class DecodeEngine:
             nxt = nxt_dev.to(torch.int32).cpu().numpy()
             for slot in np.nonzero((nxt < 0) & sched.active)[0]:
                 fail_req(sched.slots[slot], "non_finite_logits")
+            # stochastic requests draw on the device from their own stream
+            for slot in np.nonzero(sched.active)[0]:
+                if not sampling_of[slot_reqs[slot].rid].greedy:
+                    nxt[slot] = sample_slot(slot_reqs[slot], logits[slot])
             sched.complete_step(nxt, lg_np)
             dirty.update(sched.drain_released())   # retirements this step
             sweep_dirty(set(dirty))
@@ -462,8 +544,8 @@ class DecodeEngine:
         }
         return out
 
-    def _paged_prefill(self, pages: pg.PagedPages, req: Request, ps: int,
-                       keep_logits: bool):
+    def _paged_prefill(self, pages: pg.PagedPages, req: Request, ps: int
+                       ) -> torch.Tensor:
         """Contiguous prefill of one request, scattered into its pages.
 
         The prompt is right-padded to a power-of-two number of pages (the
@@ -471,9 +553,9 @@ class DecodeEngine:
         both packages run the same prefill arithmetic) and its true length
         rides along as ``batch["lengths"]``: causality keeps real positions
         blind to the pad tokens, the logits come from the last real token,
-        and ``scatter_prefill`` zeroes the Kg rows past the complete
-        blocks. Returns (greedy first token, fp32 logits row on the host
-        or None): the argmax is taken on the device."""
+        and ``scatter_prefill`` zeroes the Kg and metadata rows past the
+        complete blocks. Returns the logits row [V] on the device; the
+        caller samples."""
         plen = req.prompt_len
         n_prompt = -(-plen // ps)
         bucket = 1 << (n_prompt - 1).bit_length()       # pages, power of 2
@@ -487,15 +569,16 @@ class DecodeEngine:
                                           options=self.options)
         view = self.api.state_view(cstate)
         if view.k_cache is not None:
-            k, v, kg = view.k_cache, view.v_cache, view.kg_cache
+            caches = (view.k_cache, view.v_cache, view.kg_cache, view.meta_kmin,
+                      view.meta_kmax)
             if self.shard is not None:            # this rank's KV heads only
-                k, v, kg = (None if x is None else self.shard.head_slice(x, 2)
-                            for x in (k, v, kg))
+                caches = tuple(None if x is None else self.shard.head_slice(x, 2)
+                               for x in caches)
+            k, v, kg, kmin, kmax = caches
             pg.scatter_prefill(pages, k, v, kg, plen,
-                               pg.pad_page_ids(req.pages, device=self.device), ps)
-        first = int(torch.argmax(logits[0]))
-        lg = logits[0].float().cpu().numpy() if keep_logits else None
-        return first, lg
+                               pg.pad_page_ids(req.pages, device=self.device), ps,
+                               kmin_cache=kmin, kmax_cache=kmax)
+        return logits[0]
 
     def sparsity_stats(self) -> Dict[str, Any]:
         """Measured selection economics of the LATEST decode step, from

@@ -2,9 +2,9 @@
 
 Port of ``SwapEntry`` and ``HostSwapSpace`` from the JAX package's
 ``serve/offload.py``: the host-memory buffer the paged serving engine
-swaps a preempted request's pages into (page contents K/V/Kg, the int8
-pools' scale rows, the request's last sampled token and its length, keyed
-by request id), with
+swaps a preempted request's pages into (page contents K/V/Kg, the Quest
+metadata rows, the int8 pools' scale rows, the request's last sampled
+token and its length, keyed by request id), with
 byte counters for the serving stats. The reference's byte-bounded host
 tier, its disk tier, single evicted pages (``PageEntry``) and transfer
 retries arrive with the pressure-path slice; this store is unbounded.
@@ -19,16 +19,18 @@ import torch
 class SwapEntry(NamedTuple):
     """One preempted request's host-resident state: page contents in
     LOGICAL page order (CPU tensors) plus what decode resumes from, in the
-    reference's field order. Int8 pools keep their raw bytes and carry the
-    scale rows beside them, which the byte counters include. The Quest
-    rows ``kmin``/``kmax`` are not ported and stay None."""
+    reference's field order. ``kmin``/``kmax`` are the selection-metadata
+    page rows (metadata-reading policies only), so a resumed Quest decode
+    selects exactly what an unpreempted one would. Int8 pools keep their
+    raw bytes and carry the scale rows beside them. The byte counters
+    include every tensor of the entry."""
     k: torch.Tensor                 # [L, n_pages, Hkv, ps, Dh] (int8 if quant)
     v: torch.Tensor                 # [L, n_pages, Hkv, ps, Dh] (int8 if quant)
     kg: Optional[torch.Tensor]      # [L, n_pages, Hkv, Dg] | None
     token: int                      # last sampled token (re-fed on resume)
     cur_len: int                    # sequence length at preemption
-    kmin: None = None
-    kmax: None = None
+    kmin: Optional[torch.Tensor] = None      # [L, n_pages, Hkv, Dh] | None
+    kmax: Optional[torch.Tensor] = None      # [L, n_pages, Hkv, Dh] | None
     k_scale: Optional[torch.Tensor] = None   # [L, n_pages, Hkv, 1] | None
     v_scale: Optional[torch.Tensor] = None   # [L, n_pages, Hkv, 1] | None
 

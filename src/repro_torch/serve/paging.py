@@ -13,6 +13,8 @@ Layout (``L`` = self-attn layers, ``P`` = pool pages, ``ps`` = page size;
 head-major, consumed natively by decode):
   k_pages / v_pages  [L, P, Hkv, ps, Dh]   post-rope keys / values
   kg_pages           [L, P, Hkv, Dg]       gate K-compression twin
+  kmin/kmax_pages    [L, P, Hkv, Dh] f32   selection-metadata twin (Quest;
+                                           metadata-reading policies only)
   k/v_scale_pages    [L, P, Hkv, 1]  f32   per-page per-head dequant scales
                                            (int8 pools only)
   page_table         [n_slots, npt] int32  physical ids; NULL_PAGE = empty
@@ -37,8 +39,9 @@ selected. The allocator never hands it out.
 The reference is functional (it returns new pools and donates the old
 ones); here every helper updates the pool tensors IN PLACE and returns
 nothing, except ``extract_pages``, which returns host copies. Staleness
-contract (as in ``core.kcache``): a page's ``kg_pages`` row is valid only
-once the page is FULL; a partial trailing page keeps a ZERO row.
+contract (as in ``core.kcache``): a page's ``kg_pages`` row (and its
+``kmin_pages``/``kmax_pages`` rows) is valid only once the page is FULL; a
+partial trailing page keeps a ZERO row.
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ import torch
 
 from repro_torch.config import GateConfig, ModelConfig
 from repro_torch.core.kcache import finalize_block_kg
+from repro_torch.core.metacache import _block_minmax
 from repro_torch.device import resolve_device
 from repro_torch.models.common import torch_dtype
 
@@ -56,15 +60,16 @@ NULL_PAGE = 0
 
 class PagedPages(NamedTuple):
     """Device-side page pools, stacked over self-attention layers, in the
-    reference's field order. ``k_scale_pages``/``v_scale_pages`` are the
-    int8 pools' dequant scales (None for fp pools). The Quest metadata
-    pools ``kmin_pages``/``kmax_pages`` arrive with their slice and stay
-    None."""
+    reference's field order. ``kmin_pages``/``kmax_pages`` are the paged
+    twin of the selection-metadata cache (``core.metacache``): one f32
+    min/max row per physical page, allocated only for a policy that reads
+    them (QuestPolicy). ``k_scale_pages``/``v_scale_pages`` are the int8
+    pools' dequant scales. Each is None where not allocated."""
     k_pages: torch.Tensor                 # [L, P, Hkv, ps, Dh]  (head-major)
     v_pages: torch.Tensor                 # [L, P, Hkv, ps, Dh]
     kg_pages: Optional[torch.Tensor]      # [L, P, Hkv, Dg]
-    kmin_pages: Optional[torch.Tensor] = None      # not ported (Quest)
-    kmax_pages: Optional[torch.Tensor] = None      # not ported (Quest)
+    kmin_pages: Optional[torch.Tensor] = None      # [L, P, Hkv, Dh] float32
+    kmax_pages: Optional[torch.Tensor] = None      # [L, P, Hkv, Dh] float32
     k_scale_pages: Optional[torch.Tensor] = None   # [L, P, Hkv, 1] float32
     v_scale_pages: Optional[torch.Tensor] = None   # [L, P, Hkv, 1] float32
 
@@ -106,13 +111,12 @@ def init_pages(cfg: ModelConfig, num_pages: int, n_layers: int,
     card). ``quantize="int8"`` allocates int8 K/V pools plus two distinct
     zeroed f32 scale pools [L, P, Hkv, 1]; the Kg pool stays in the working
     dtype, so selection does not depend on the value quantization.
-    ``kv_heads`` (default ``cfg.n_kv_heads``) sizes the head axis of every
-    pool: a rank of the head-sharded path allocates only its heads. The
-    reference's Quest metadata pools (``with_meta``) and eviction ghost
-    rows are later slices and raise."""
-    if with_meta:
-        raise NotImplementedError(
-            "Quest selection-metadata pools (Queue A item 6) are not ported")
+    ``with_meta`` adds two distinct zeroed f32 min/max pools [L, P, Hkv,
+    Dh] (they stay f32 under int8, so selection does not depend on the
+    value quantization). ``kv_heads`` (default ``cfg.n_kv_heads``) sizes
+    the head axis of every pool: a rank of the head-sharded path allocates
+    only its heads. The reference's eviction ghost rows are a later slice
+    and raise."""
     if ghost_rows:
         raise NotImplementedError(
             "eviction ghost rows (Queue A item 7) are not ported")
@@ -124,6 +128,10 @@ def init_pages(cfg: ModelConfig, num_pages: int, n_layers: int,
     hkv, dh = kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim
     kg = (torch.zeros((n_layers, num_pages, hkv, cfg.gate.d_gate), dtype=dt,
                       device=device) if cfg.gate.enabled else None)
+    kmin = kmax = None
+    if with_meta:
+        kmin, kmax = (torch.zeros((n_layers, num_pages, hkv, dh), dtype=torch.float32,
+                                  device=device) for _ in range(2))
     kv_dt, k_scale, v_scale = dt, None, None
     if quantize == "int8":
         kv_dt = torch.int8
@@ -135,13 +143,15 @@ def init_pages(cfg: ModelConfig, num_pages: int, n_layers: int,
                             device=device),
         v_pages=torch.zeros((n_layers, num_pages, hkv, ps, dh), dtype=kv_dt,
                             device=device),
-        kg_pages=kg, k_scale_pages=k_scale, v_scale_pages=v_scale)
+        kg_pages=kg, kmin_pages=kmin, kmax_pages=kmax, k_scale_pages=k_scale,
+        v_scale_pages=v_scale)
 
 
 def scatter_prefill(pages: PagedPages, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, kg_cache: Optional[torch.Tensor],
                     length: int, page_ids: torch.Tensor,
-                    block_size: int) -> None:
+                    block_size: int, kmin_cache: Optional[torch.Tensor] = None,
+                    kmax_cache: Optional[torch.Tensor] = None) -> None:
     """Copy one request's contiguous prefill caches into its pages.
 
     k_cache/v_cache: head-major [L, 1, Hkv, S_max, Dh] from ``lm_prefill``
@@ -150,7 +160,9 @@ def scatter_prefill(pages: PagedPages, k_cache: torch.Tensor,
     Every listed page gets a cache page (rows past the cache repeat its
     last page: filler that ``kv_len`` masks). Every listed page's Kg row
     is zeroed except the ``length // block_size`` complete-block rows,
-    which are copied from ``kg_cache`` [L, 1, Hkv, nb, Dg]. Int8 pools
+    which are copied from ``kg_cache`` [L, 1, Hkv, nb, Dg]; the metadata
+    pools' rows follow the same rule from ``kmin_cache``/``kmax_cache``
+    [L, 1, Hkv, nb, Dh] (a metacache-building prefill). Int8 pools
     quantize each page over its VALID token rows only (``tok < length``),
     so the filler past the prompt does not enter the scale.
     """
@@ -176,18 +188,24 @@ def scatter_prefill(pages: PagedPages, k_cache: torch.Tensor,
     else:
         pages.k_pages[:, page_ids] = page_rows(k_cache).to(pages.k_pages.dtype)
         pages.v_pages[:, page_ids] = page_rows(v_cache).to(pages.v_pages.dtype)
-    if pages.kg_pages is None:
-        return
-    pool = pages.kg_pages
-    new = torch.zeros((nl, n_ids) + tuple(pool.shape[2:]), dtype=pool.dtype,
-                      device=dev)
-    if kg_cache is not None:
-        nb = kg_cache.shape[3]
-        srcr = torch.clamp_max(torch.arange(n_ids, device=dev), nb - 1)
-        rows = kg_cache[:, 0].transpose(1, 2)[:, srcr]   # [L,n_ids,Hkv,Dg]
-        keep = (torch.arange(n_ids, device=dev) < length // block_size)
-        new = torch.where(keep[None, :, None, None], rows.to(pool.dtype), new)
-    pool[:, page_ids] = new
+    def row_scatter(pool, rows_cache):
+        """Zero every listed page's row, then copy the complete-block rows
+        from the head-major contiguous cache [L, 1, Hkv, nb, *]."""
+        new = torch.zeros((nl, n_ids) + tuple(pool.shape[2:]), dtype=pool.dtype,
+                          device=dev)
+        if rows_cache is not None:
+            nb = rows_cache.shape[3]
+            srcr = torch.clamp_max(torch.arange(n_ids, device=dev), nb - 1)
+            rows = rows_cache[:, 0].transpose(1, 2)[:, srcr]   # [L,n_ids,Hkv,*]
+            keep = torch.arange(n_ids, device=dev) < length // block_size
+            new = torch.where(keep[None, :, None, None], rows.to(pool.dtype), new)
+        pool[:, page_ids] = new
+
+    if pages.kg_pages is not None:
+        row_scatter(pages.kg_pages, kg_cache)
+    if pages.kmin_pages is not None:
+        row_scatter(pages.kmin_pages, kmin_cache)
+        row_scatter(pages.kmax_pages, kmax_cache)
 
 
 def append_token_paged(k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -283,6 +301,35 @@ def finalize_kg_paged(k_pages: torch.Tensor, kg_pages: torch.Tensor,
                                     kg_new.to(kg_pages.dtype), kg_cur)
 
 
+def append_meta_paged(kmin_pages: torch.Tensor, kmax_pages: torch.Tensor,
+                      k_pages: torch.Tensor, page_table: torch.Tensor,
+                      cur_len: torch.Tensor, active: torch.Tensor, page_size: int,
+                      k_scale: Optional[torch.Tensor] = None) -> None:
+    """ONE layer's paged twin of ``metacache.update_metacache``, in place.
+
+    Called AFTER the new token's key is written (and, on int8 pools,
+    after its page was requantized): a slot whose page completes
+    ((cur_len + 1) % ps == 0) gets that page's key min/max written to its
+    ``kmin_pages``/``kmax_pages`` rows, reading one physical page per slot.
+    ``k_scale`` [P, Hkv, 1] dequantizes the page under the scale row the
+    append just wrote. Inactive and non-completing slots write the null
+    page's own rows back unchanged (several may; they write equal values)."""
+    ps = page_size
+    sidx = torch.arange(cur_len.shape[0], device=cur_len.device)
+    logical = (cur_len // ps).long()
+    phys = torch.where(active, page_table[sidx, logical], NULL_PAGE).long()
+    completed = active & (((cur_len + 1) % ps) == 0)
+    blk = k_pages[phys]                                    # [S, Hkv, ps, Dh]
+    if k_scale is not None:
+        blk = dequantize_block(blk, k_scale[phys])
+    ones = torch.ones((1, 1, ps, 1), dtype=torch.bool, device=blk.device)
+    mn_new, mx_new = _block_minmax(blk, ones)              # [S, Hkv, Dh]
+    phys_w = torch.where(completed, phys, NULL_PAGE)
+    wm = completed[:, None, None]
+    for pool, new in ((kmin_pages, mn_new), (kmax_pages, mx_new)):
+        pool.index_put_((phys_w,), torch.where(wm, new, pool[phys_w]))
+
+
 def gather_kg(kg_pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     """[P, Hkv, Dg] x [S, npt] -> per-slot head-major logical Kg view
     [S, Hkv, npt, Dg] (the paged gate select's plain version reads it)."""
@@ -352,49 +399,52 @@ def pad_page_ids(ids: Sequence[int], *, min_len: int = 1,
 
 
 def reset_kg_rows(pages: PagedPages, page_ids: torch.Tensor) -> None:
-    """Zero the Kg rows (and, for int8 pools, the scale rows) of freshly
-    (lazily) allocated pages: a recycled page still holds its previous
-    tenant's row, and a partial trailing page must read a ZERO row; a zero
+    """Zero the Kg and metadata rows (and, for int8 pools, the scale rows)
+    of freshly (lazily) allocated pages: a recycled page still holds its
+    previous tenant's rows, and a partial trailing page must read ZERO rows; a zero
     scale makes stale int8 bytes dequantize to exactly 0 until the first
     append rewrites the row. K/V contents need no reset: every read is
     masked by the logical ``kv_len``."""
     if pages.kg_pages is not None:
         pages.kg_pages[:, page_ids] = 0
+    if pages.kmin_pages is not None:
+        pages.kmin_pages[:, page_ids] = 0
+        pages.kmax_pages[:, page_ids] = 0
     if pages.k_scale_pages is not None:
         pages.k_scale_pages[:, page_ids] = 0
         pages.v_scale_pages[:, page_ids] = 0
 
 
 def extract_pages(pages: PagedPages, page_ids: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
-                             None, None, Optional[torch.Tensor],
-                             Optional[torch.Tensor]]:
+                  ) -> Tuple[Optional[torch.Tensor], ...]:
     """One request's pages for swap-out, copied to HOST memory before the
     scheduler frees them, physical ids given in LOGICAL order: (k
-    [L,n,Hkv,ps,Dh], v, kg [L,n,Hkv,Dg] | None, kmin, kmax, k_scale
-    [L,n,Hkv,1] | None, v_scale | None), the reference's order; the Quest
-    rows are not ported and stay None. Int8 pools move their raw bytes
-    plus the scale rows, so the round trip is bitwise."""
-    def cut(pool):
-        return None if pool is None else pool[:, page_ids].cpu()
-    return (cut(pages.k_pages), cut(pages.v_pages), cut(pages.kg_pages), None, None,
-            cut(pages.k_scale_pages), cut(pages.v_scale_pages))
+    [L,n,Hkv,ps,Dh], v, kg [L,n,Hkv,Dg] | None, kmin [L,n,Hkv,Dh] | None,
+    kmax | None, k_scale [L,n,Hkv,1] | None, v_scale | None), the
+    reference's order. Int8 pools move their raw bytes plus the scale
+    rows, so the round trip is bitwise."""
+    return tuple(None if pool is None else pool[:, page_ids].cpu() for pool in pages)
 
 
 def restore_pages(pages: PagedPages, k: torch.Tensor, v: torch.Tensor,
-                  kg: Optional[torch.Tensor], page_ids: torch.Tensor, *,
+                  kg: Optional[torch.Tensor], page_ids: torch.Tensor,
+                  kmin: Optional[torch.Tensor] = None,
+                  kmax: Optional[torch.Tensor] = None, *,
                   k_scale: Optional[torch.Tensor] = None,
                   v_scale: Optional[torch.Tensor] = None) -> None:
     """Scatter swapped-out page contents into fresh physical pages
     (re-admission after preemption). The new ids may differ from the old
     ones: every access goes through the page table, so the round trip is
-    bitwise lossless. Int8 pools get their raw bytes and scale rows back,
-    with no requantization."""
+    bitwise lossless. The metadata rows ride along; int8 pools get their
+    raw bytes and scale rows back, with no requantization."""
     dev = pages.k_pages.device
     pages.k_pages[:, page_ids] = k.to(dev, pages.k_pages.dtype)
     pages.v_pages[:, page_ids] = v.to(dev, pages.v_pages.dtype)
     if pages.kg_pages is not None and kg is not None:
         pages.kg_pages[:, page_ids] = kg.to(dev, pages.kg_pages.dtype)
+    if pages.kmin_pages is not None and kmin is not None:
+        pages.kmin_pages[:, page_ids] = kmin.to(dev)
+        pages.kmax_pages[:, page_ids] = kmax.to(dev)
     if pages.k_scale_pages is not None and k_scale is not None:
         pages.k_scale_pages[:, page_ids] = k_scale.to(dev)
         pages.v_scale_pages[:, page_ids] = v_scale.to(dev)

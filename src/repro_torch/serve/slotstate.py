@@ -16,8 +16,9 @@ import torch
 
 class CacheView(NamedTuple):
     """Head-major ``[L, 1, ...]`` caches of a one-request prefill state
-    (all None for a pages-free family), plus the request's recurrent rows
-    (None for pages-only families)."""
+    (all None for a pages-free family; the metadata caches None unless the
+    policy reads them), plus the request's recurrent rows (None for
+    pages-only families)."""
     k_cache: Optional[torch.Tensor]
     v_cache: Optional[torch.Tensor]
     kg_cache: Optional[torch.Tensor]

@@ -918,6 +918,139 @@ def test_engine_cuda_int8_serve_matches_cpu_and_counts_launches(dev):
 
 
 # ---------------------------------------------------------------------------
+# the rest of the decode API: id lists of the other policies and budgets
+# ---------------------------------------------------------------------------
+
+def _policy_lists(idx, form, seed=0):
+    """Reshape a kernel id list [B, Hkv, k] into what the other policies
+    and the budget mask hand the decode kernels: "order" the ids in a
+    shuffled, non-index order (Quest's and the oracle's score order);
+    "holes" -1 entries in the middle of the list (SlidingWindowPolicy's
+    sink/window duplicates), the list widened to keep every id; "tail" the
+    ids in score order, then a -1 tail past a per-row cap (the per-request
+    budget mask)."""
+    r = np.random.default_rng(seed)
+    ids = idx.cpu().numpy()
+    b, hkv, k = ids.shape
+    width = 2 * k if form == "holes" else k
+    out = np.full((b, hkv, width), -1, np.int32)
+    for bi in range(b):
+        cap = r.integers(1, k + 1)
+        for hi in range(hkv):
+            row = r.permutation(ids[bi, hi][ids[bi, hi] >= 0])
+            if form == "holes":
+                slots = np.sort(r.choice(np.arange(1, width), len(row) - 1, replace=False)) \
+                    if len(row) > 1 else np.zeros((0,), int)
+                out[bi, hi, np.concatenate([[0], slots])[:len(row)]] = row
+            elif form == "tail":
+                out[bi, hi, :min(cap, len(row))] = row[:cap]
+            else:
+                out[bi, hi, :len(row)] = row
+    return torch.tensor(out, device=idx.device)
+
+
+LIST_FORMS = ["order", "holes", "tail"]
+LIST_SHAPES = [(3, 2, 2, 16, 8, 8, 4), (4, 8, 2, 128, 257, 64, 64)]   # and the main path's
+
+
+@pytest.mark.parametrize("form", LIST_FORMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hkv,g,dh,nb,bs,nsel", LIST_SHAPES)
+def test_decode_kernels_on_policy_lists(dev, form, dtype, b, hkv, g, dh, nb, bs, nsel):
+    """#2, #4 and 4q against their plain versions on the id lists of the
+    other policies: ids out of index order, -1 holes in the middle of a
+    list, and a budget-masked -1 tail."""
+    q, k, v, idx, kv_len = _sparse_inputs(dev, dtype, b, hkv, g, dh, nb, bs, nsel)
+    lists = _policy_lists(idx, form)
+    o_k = bsd.sparse_decode_cuda(q, k, v, lists, kv_len, block_size=bs)
+    _check_decode(o_k, bsd.sparse_decode_plain(q, k, v, lists, kv_len, block_size=bs),
+                  dtype)
+    q, kp, vp, _, pt, kv_len, _ = _paged_inputs(dev, dtype, b, hkv, g, dh, nb, bs, nsel)
+    o_k = bsd.sparse_decode_paged_cuda(q, kp, vp, lists, pt, kv_len, block_size=bs)
+    _check_decode(o_k, bsd.sparse_decode_paged_plain(q, kp, vp, lists, pt, kv_len,
+                                                     block_size=bs), dtype)
+    q, kp, vp, ksp, vsp, _, pt, kv_len, _ = _quant_paged_inputs(dev, dtype, b, hkv, g, dh,
+                                                                nb, bs, nsel)
+    o_k = bsd.sparse_decode_paged_quant_cuda(q, kp, vp, lists, pt, kv_len, block_size=bs,
+                                             k_scales=ksp, v_scales=vsp)
+    _check_decode(o_k, bsd.sparse_decode_paged_plain(q, kp, vp, lists, pt, kv_len,
+                                                     block_size=bs, k_scales=ksp,
+                                                     v_scales=vsp), dtype)
+
+
+def test_engine_cuda_quest_cached_equals_recompute(dev):
+    """Quest with the incremental metadata cache and Quest recomputing the
+    min/max every step give bitwise the same tokens and logits on the
+    card; only the sparse decode launches (no gate select), and the
+    tokens are the CPU run's."""
+    from repro_torch.core.policy import DecodeOptions, QuestPolicy, QuestRecomputePolicy
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import DecodeEngine
+    cfg = _tiny_cfg()
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 41))
+    gpu_params = params_to(params, dev)
+    runs = []
+    for pol in (QuestPolicy(), QuestRecomputePolicy()):
+        eng = DecodeEngine(cfg, gpu_params, max_len=64, options=DecodeOptions(policy=pol))
+        tok, st = eng.prefill({"tokens": toks})
+        ops.reset_launch_counts()
+        out = []
+        for _ in range(12):
+            tok, lg, st, _ = eng._step(gpu_params, st, tok)
+            out.append((tok.clone(), lg.clone()))
+        assert ops.launch_counts() == _counts(block_sparse_decode=cfg.num_layers * 12)
+        runs.append(out)
+    for (ta, la), (tb, lb) in zip(*runs):
+        assert torch.equal(ta, tb) and torch.equal(la, lb)
+    cpu = DecodeEngine(cfg, params, max_len=64, device="cpu",
+                       options=DecodeOptions(policy=QuestPolicy())).generate(
+        {"tokens": toks}, 13)
+    res = DecodeEngine(cfg, gpu_params, max_len=64,
+                       options=DecodeOptions(policy=QuestPolicy())).generate(
+        {"tokens": toks}, 13)
+    np.testing.assert_array_equal(res["tokens"].cpu().numpy(), cpu["tokens"].numpy())
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_engine_cuda_quest_and_schedule_serve_match_cpu(dev, quantize):
+    """Quest serve and a staged gate serve (dense prefix, select, reuse,
+    correction on 4 layers) with request budgets, on the card against the
+    CPU, ample and tight pools: equal tokens, and the launches the stages
+    predict (gate select only at selecting layers, the paged decode at
+    every non-dense layer)."""
+    from repro_torch.core.policy import DecodeOptions, QuestPolicy, SelectionSchedule
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import DecodeEngine
+    cfg = _tiny_cfg().replace(num_layers=4)
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+    r = np.random.default_rng(4)
+    reqs = [{"rid": i, "max_new_tokens": m,
+             "tokens": r.integers(0, cfg.vocab_size, size=(p,)).astype(np.int32)}
+            for i, (p, m) in enumerate([(20, 12), (18, 10), (22, 9)])]
+    reqs[1]["budget"] = 16
+    decode = ("block_sparse_decode_paged_quant" if quantize else
+              "block_sparse_decode_paged")
+    sched = SelectionSchedule(dense_first_n=1, select_layer=1, correction_layers=(3,))
+    for opts, per_step in ((DecodeOptions(policy=QuestPolicy(), quantize=quantize),
+                            {decode: 4}),
+                           (DecodeOptions(schedule=sched, quantize=quantize),
+                            {"gate_select_paged": 2, decode: 3})):
+        gpu = DecodeEngine(cfg, params_to(params, dev), max_len=64, options=opts)
+        cpu = DecodeEngine(cfg, params, max_len=64, options=opts, device="cpu")
+        for pool in (None, 8):
+            want = cpu.serve(reqs, n_slots=3, num_pages=pool)
+            ops.reset_launch_counts()
+            got = gpu.serve(reqs, n_slots=3, num_pages=pool)
+            steps = got["stats"]["decode_steps"]
+            assert ops.launch_counts() == _counts(**{k: v * steps
+                                                     for k, v in per_step.items()})
+            assert (got["stats"]["preemptions"] > 0) == (pool is not None)
+            for i in range(len(reqs)):
+                assert got[i] == want[i]
+
+
+# ---------------------------------------------------------------------------
 # split-K paged decode (TPU kernels 5 and 5q) and the sharded paths
 # ---------------------------------------------------------------------------
 

@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import capture_golden_policy as G
 from repro.core.policy import DecodeOptions as JOptions
@@ -32,6 +33,8 @@ from repro_torch.configs import get as t_get
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.policy import DecodeOptions as TOptions
 from repro_torch.core.policy import DensePolicy as TDense
+from repro_torch.core.policy import SelectionSchedule as TSchedule
+from repro_torch.distributed.sharding import Shard
 from repro_torch.kernels import ops as t_ops
 from repro_torch.serve.engine import DecodeEngine
 from repro_torch.serve.sampling import SamplingParams
@@ -219,13 +222,20 @@ def test_unported_options_raise(models):
                      (dict(on_token=print), "item 7"), (dict(table_pages=9), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             eng.serve(reqs, **kw)
+    # a sharded engine refuses the item-6 pieces its paths lack (a Shard
+    # stub: every refusal comes before any collective)
+    stub = object.__new__(Shard)
+    stub.rank, stub.world, stub.group, stub.device = 0, 1, None, torch.device("cpu")
+    for opts in (TOptions(schedule=TSchedule(unify_heads=True)),
+                 TOptions(schedule=TSchedule(select_layer=0)),
+                 TOptions(sampling=SamplingParams(temperature=0.7))):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            DecodeEngine(models["budget"][2], models["budget"][3], max_len=64,
+                         device="cpu", options=opts, shard=stub)
+    sharded = port_engine(models, "budget", shard=stub)
     for key, val in (("budget", 16), ("sampling", SamplingParams(temperature=1.0))):
         with pytest.raises(NotImplementedError, match="item 6"):
-            eng.serve([dict(reqs[0], **{key: val})])
-    stoch = port_engine(models, "budget")
-    stoch.options = stoch.options.replace(sampling=SamplingParams(temperature=0.7))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        stoch.serve(reqs)
+            sharded.serve([dict(reqs[0], **{key: val})])
     q8 = TOptions(quantize="int8")
     assert q8.quantize == "int8" and q8 == TOptions(quantize="int8")
     with pytest.raises(ValueError, match="quantize"):
