@@ -19,7 +19,11 @@ the oracle, the sliding window and selection schedules on ``generate``;
 Quest over fp and int8 pools and per-request budgets and sampling on
 ``serve``); and gate distillation training, ``train.loop.run_training`` in distill
 mode (kernel ``gate_gt_attention``, TPU kernel 6, on every layer of every
-forward).
+forward). Then the other dense configs of the port at full width,
+``gemma_2b`` (MQA 8 x 256), ``granite_20b`` (MQA 48 x 128) and
+``deepseek_coder_33b`` (56 / 8 x 128), the last two cut in depth
+(``OTHER_CONFIGS``), through ``generate`` and ``serve`` and, for the
+first two, distill training.
 The contiguous int8 kernel ``block_sparse_decode_quant`` lies on no model
 path (in the reference neither): it is checked and timed on the generate
 path's layer-0 blocks, quantized per block. Phases (any failure exits
@@ -37,7 +41,12 @@ non-zero):
      runs: head-sharded ``serve`` (fp at split_k 1 and 2, int8 at split_k
      2, and a preempting pool) and sequence-sharded ``generate``; and the
      tiny config's 3 distill train steps on the card against the CPU's
-     from the same state (KL and gate parameters within 1e-4);
+     from the same state (KL and gate parameters within 1e-4); then each
+     other config's ``reduced()`` geometry and a one-layer model at its
+     own heads (8 x 256, 48 x 128, 56 / 8 x 128), fp32, card against CPU:
+     ``generate`` tokens equal, logits within 1e-4, #1 and #2 at every
+     layer and step; at ``reduced()`` also ``serve`` with an ample and a
+     preempting pool, the same checks through #3 and #4;
   3. kernel vs plain on the card, on the tensors the main path gives
      layer 0 in its first decode step (captured from a real prefill +
      step): gate select for budget/threshold x force flags x n_valid
@@ -182,7 +191,24 @@ non-zero):
      packing mask, so the library time is null); bound from the bytes and
      the causal pairs within documents; the share of (query tile, key
      tile) pairs the kernel skips, and its rate over the operations it
-     issues.
+     issues; then the same at 128-key blocks on the same tensors;
+ 21. each other config (``OTHER_CONFIGS``) at full width, bf16, seed-0
+     weights, the decode plan of its group printed (``bsd.group_plan``):
+     phase 3's checks and timings of #1, #2 and 2q on layer 0 of its
+     ``generate`` (#2 against dense SDPA printed, not required: dense SDPA
+     reads one KV head for 8 or 48 query heads); phase 4's ``generate``
+     (#1 and #2 layers x steps) and phase 5's profile; phase 6's ``serve``
+     (ample and 644 pages, tight == ample, #3 and #4 layers x steps);
+     phase 7's checks of #3 and #4, then 5 (phase 13's checks at 2, 4, 8
+     and nsel + 3 splits, bitwise #4) on the serve's layer-0 tensors, and
+     4q and 5q (phases 10 and 13) on them quantized per page; one JSON
+     line of its kernels' numbers;
+ 22. distill training of gemma_2b (kernel 6 at head dim 256) and
+     granite_20b (48 heads on one KV head) at their depths: 3 steps of 4
+     x 4096 tokens, kernel 6 layers x steps and nothing else, KL finite,
+     base frozen, gate moved; phase 20's check of kernel 6 on the first
+     step's layer-0 tensors. The launches of phases 21-22's main paths
+     join the counts of the kernels line, their errors its max_abs_err.
 
 The line before the last is a JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -261,6 +287,26 @@ GT_BM_REL = 1e-4          # kernel 6's blockmax: error within this share of max|
 QUEST_NEW, POLICY_STEPS = 9, 3
 OVERRIDE_BUDGET = 1024
 OVERRIDE_SAMPLING = SamplingParams(temperature=0.7, top_k=50, top_p=0.9)
+# the other dense configs, each at full width (widths, heads, head dim,
+# d_ff, vocab and gate as in its file), bf16, weights from seed 0, on the
+# main path's generate and serve cells; the one cut: granite_20b (52
+# layers, 56 GB of bf16 weights) and deepseek_coder_33b (62 layers, 66 GB)
+# to 8 layers, so that weights, caches and prefill fit one card and the
+# time limit (their prefill keeps the config's query chunks of 1024: the
+# fp32 scores of a chunk over 16384 keys, 13-15 GB at 48 and 56 heads,
+# fit beside 8 layers); gemma_2b runs all 18 layers
+OTHER_CONFIGS = {
+    "gemma_2b": {},
+    "granite_20b": dict(num_layers=8),
+    "deepseek_coder_33b": dict(num_layers=8),
+}
+# distill training of gemma_2b (kernel 6 at head dim 256) and granite_20b
+# (its 48-head MQA group, head pairs) at those depths: the qwen3 phase's
+# batch 4 x 4096 tokens (the launcher's batch 16 cut to 4), 3 steps, no
+# checkpoint; then kernel 6 at 128-key blocks on qwen3_0_6b's tensors
+OTHER_TRAIN = ("gemma_2b", "granite_20b")
+OTHER_TRAIN_STEPS = 3
+GT_BLOCK_BIG = 128
 
 
 def fail(msg: str) -> None:
@@ -531,11 +577,15 @@ def report_decode(name, q, idx, t_k, t_dev, nbytes, b_ms, kernel, ns=None):
     if ns is None:
         ns = bsd.split_plan(b, hkv, nsel, bsd.n_sm(q.device))
     segs = bsd.split_segments(nsel, ns)
+    plan = bsd.group_plan(g, dh, 64, q.dtype)   # the CTAs over the group and the head
+    cut = plan["ngc"] * plan["ncs"]
+    cuts = f" x {cut} (gp {plan['gp']} rows a CTA)" if cut > 1 else ""
     t_host = host_enqueue_ms(kernel)
     sweep = {n: time_ms(lambda n=n: kernel(n), hide_host=True) for n in SPLIT_SWEEP}
     rate = lambda t: f"{nbytes / (t * 1e-3) / 1e9:.1f} GB/s, {100 * b_ms / t:.1f}% of the bound"
     print(f"{name}: {what} {ns} segments of {segs[0][1] - segs[0][0]} entries "
-          f"({b * hkv * ns} CTAs, B {b} x Hkv {hkv} x {ns}, on {bsd.n_sm(q.device)} SMs"
+          f"({b * hkv * ns * cut} CTAs, B {b} x Hkv {hkv} x {ns}{cuts}, "
+          f"on {bsd.n_sm(q.device)} SMs"
           f"{'' if ns == 1 else ', + 1 combine launch'}); {nbytes / 1e6:.2f} MB: at the "
           f"recorded {t_k:.4f} ms {rate(t_k)}; with the host's enqueue hidden {t_dev:.4f} ms "
           f"{rate(t_dev)}; host enqueue of one call {t_host:.4f} ms; sweep (information "
@@ -771,8 +821,11 @@ def capture_layer0(eng, batch):
     return seen, state
 
 
-def phase_kernels(seen):
-    """Kernel vs plain on the main path's layer-0 tensors; timings."""
+def phase_kernels(seen, vs_sdpa: bool = True):
+    """Kernel vs plain on the main path's layer-0 tensors; timings. With
+    ``vs_sdpa`` #2 must beat dense SDPA (qwen3_0_6b's main path); without,
+    the comparison is printed only (the other configs' MQA groups, where
+    dense SDPA reads one KV head for 8 or 48 query heads)."""
     (qg, kg, nv, gcfg, ms), _ = seen["gate_select"]
     (q, kc, vc, idx, kv_len), kw = seen["sparse_decode"]
     bs = kw["block_size"]
@@ -834,7 +887,9 @@ def phase_kernels(seen):
           f"with the host's enqueue hidden (information only): kernel {t_dk_dev:.4f} ms, "
           f"SDPA {t_lib_dev:.4f} ms")
     report_decode("block_sparse_decode", q, idx, t_dk, t_dk_dev, dbytes, db, dec)
-    if not t_dk < t_lib:
+    print(f"block_sparse_decode: {t_dk:.4f} ms against dense SDPA {t_lib:.4f} ms: "
+          f"{'faster' if t_dk < t_lib else 'NOT faster'}")
+    if vs_sdpa and not t_dk < t_lib:
         fail(f"block_sparse_decode {t_dk:.4f} ms is not faster than dense SDPA {t_lib:.4f} ms")
     return {
         "gate_select": dict(max_abs_err=gate_err, ms=t_gk, plain_ms=t_gp,
@@ -1130,10 +1185,11 @@ def check_sharded_serve(cfg, base, sharded):
           f"{total} (information only)")
 
 
-def phase_splitk_kernels(seen):
+def phase_splitk_kernels(seen, source: str = "sharded serve"):
     """Kernel 5 (fp pools) or 5q (int8 pools), the paged instances of the
-    sm90 body at the caller's num_splits, vs plain on a sharded serve's
-    layer-0 tensors at several num_splits, and over shuffled pages; bitwise
+    sm90 body at the caller's num_splits, vs plain on a serve's (by
+    default the sharded serve's) layer-0 tensors at several num_splits,
+    and over shuffled pages; bitwise
     equal to #4 / #4q at the same num_splits; timed at SPLIT_K and reported
     as the other sm90 instances are; bound and library yardstick."""
     (qg, kgp, pt, nv, gcfg, ms), _ = seen["gate_select_paged"]
@@ -1143,7 +1199,7 @@ def phase_splitk_kernels(seen):
     name = "block_sparse_decode_paged_splitk" + ("_quant" if quant else "")
     single_name = "block_sparse_decode_paged" + ("_quant (#4q)" if quant else " (#4)")
     nsel = idx.shape[-1]
-    print(f"{name}: sharded serve layer-0 shapes: q {tuple(q.shape)} pools {tuple(kp.shape)} "
+    print(f"{name}: {source} layer-0 shapes: q {tuple(q.shape)} pools {tuple(kp.shape)} "
           f"({kp.dtype}) idx {tuple(idx.shape)} kv_len {kv_len.tolist()}")
 
     def kernel(qq, ix, ns, pools=(pt_d, kp, vp, ks, vs)):
@@ -1218,8 +1274,9 @@ def nccl_shard(store_dir: str) -> Shard:
     return Shard()
 
 
-def phase_paged_kernels(seen):
-    """Paged kernels vs plain on the serve path's layer-0 tensors; timings."""
+def phase_paged_kernels(seen, vs_sdpa: bool = True):
+    """Paged kernels vs plain on the serve path's layer-0 tensors; timings;
+    ``vs_sdpa`` as in ``phase_kernels``."""
     (qg, kgp, pt, nv, gcfg, ms), _ = seen["gate_select_paged"]
     (q, kp, vp, idx, pt_d, kv_len), kw = seen["paged_sparse_decode"]
     bs = kw["block_size"]
@@ -1295,7 +1352,9 @@ def phase_paged_kernels(seen):
           f"{t_lib:.4f} ms; with the host's enqueue hidden (information only): kernel "
           f"{t_dk_dev:.4f} ms, SDPA {t_lib_dev:.4f} ms")
     report_decode("block_sparse_decode_paged", q, idx, t_dk, t_dk_dev, dbytes, db, dec)
-    if not t_dk < t_lib:
+    print(f"block_sparse_decode_paged: {t_dk:.4f} ms against masked SDPA {t_lib:.4f} ms: "
+          f"{'faster' if t_dk < t_lib else 'NOT faster'}")
+    if vs_sdpa and not t_dk < t_lib:
         fail(f"block_sparse_decode_paged {t_dk:.4f} ms is not faster than masked SDPA "
              f"{t_lib:.4f} ms")
     return {
@@ -1866,7 +1925,7 @@ def phase_gt_kernel(args, kw):
     q, k, v = args
     seg, bs, qc = kw["segment_ids"], kw["block_size"], kw["q_chunk"]
     b, l, h, dh = q.shape
-    heads = 2 if (h // k.shape[2]) % 2 == 0 else 1
+    heads = 2 if (h // k.shape[2]) % 2 == 0 and dh <= 128 else 1
     smem = (heads + 4) * gt.TILE * (dh + 8) * 2 + 2 * gt.TILE * 4 + 8 * -(-l // gt.TILE)
     print(f"kernel 6 inputs (layer 0, step 0): q {tuple(q.shape)} k/v {tuple(k.shape)} "
           f"{q.dtype}, block {bs}, {int((seg[:, 1:] != seg[:, :-1]).sum()) + b} documents "
@@ -2080,6 +2139,219 @@ def phase_train_profile(cfg, tcfg, state, steps: int = 2):
           f"{sum(e.count for e in kernels)} kernel launches")
 
 
+# ---------------------------------------------------------------------------
+# the other dense configs: gemma_2b, granite_20b, deepseek_coder_33b
+# ---------------------------------------------------------------------------
+
+def other_config(arch):
+    """(config, the cuts as printed) of one of OTHER_CONFIGS."""
+    full = configs.get(arch)
+    cut = OTHER_CONFIGS[arch]
+    cfg = full.replace(**cut)
+    reduced_list = [f"{k} {getattr(full, k)} -> {v}" for k, v in cut.items()]
+    return cfg, reduced_list
+
+
+def phase_small_configs():
+    """Each other config's reduced() geometry (fp32, gate block 8) and a
+    one-layer model at its own head geometry (8 x 256 MQA, 48 x 128 MQA,
+    56 / 8 x 128) on the card against the CPU plain path: generate (2 x 41
+    prompt, 12 steps, tokens equal, logits within 1e-4, each step's
+    layers through #1 and #2), and, at reduced(), serve with an ample and
+    a preempting pool (tokens equal, logits within 1e-4, each step's
+    layers through #3 and #4)."""
+    for arch in OTHER_CONFIGS:
+        full = configs.get(arch)
+        for label, cfg in (("reduced", reduced(full)),
+                           ("own heads, 1 layer", reduced(
+                               full, num_layers=1, n_heads=full.n_heads,
+                               n_kv_heads=full.n_kv_heads, head_dim=full.head_dim))):
+            cfg = cfg.replace(dtype="float32")
+            params = init_lm(torch.Generator().manual_seed(0), cfg)
+            toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 41))
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                eng = DecodeEngine(cfg, params_to(params, dev), max_len=64, device=dev)
+                ops.reset_launch_counts()
+                tok, st = eng.prefill({"tokens": toks})
+                lgs, tks = [], []
+                for _ in range(12):
+                    tok, lg, st, _ = eng._step(eng.params, st, tok)
+                    lgs.append(lg.float().cpu())
+                    tks.append(tok.cpu())
+                runs[dev] = (torch.stack(lgs), torch.stack(tks), ops.launch_counts())
+            n = cfg.num_layers * 12
+            want = {**dict.fromkeys(ops.KERNELS, 0), "gate_select": n,
+                    "block_sparse_decode": n}
+            same = torch.equal(runs["cpu"][1], runs["cuda"][1])
+            err = float((runs["cpu"][0] - runs["cuda"][0]).abs().max())
+            if not same or err > 1e-4 or runs["cuda"][2] != want:
+                fail(f"{arch} small generate ({label}): tokens equal {same}, logits max abs "
+                     f"diff {err:.3e} (limit 1e-4), launches {runs['cuda'][2]} (expected "
+                     f"{want})")
+            msg = (f"{arch} small agreement ({label}: {cfg.num_layers} layers, "
+                   f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, fp32): "
+                   f"generate tokens equal, logits max abs diff {err:.3e}, {n} launches each "
+                   f"of #1 and #2")
+            if label == "reduced":
+                r = np.random.default_rng(4)
+                reqs = [{"rid": i, "max_new_tokens": m,
+                         "tokens": r.integers(0, cfg.vocab_size, size=(p,)).astype(np.int32)}
+                        for i, (p, m) in enumerate([(20, 12), (18, 10), (22, 9)])]
+                for pool in (None, 8):
+                    out = {}
+                    for dev in ("cpu", "cuda"):
+                        eng = DecodeEngine(cfg, params_to(params, dev), max_len=64, device=dev)
+                        ops.reset_launch_counts()
+                        out[dev] = (eng.serve(reqs, n_slots=3, num_pages=pool,
+                                              collect_logits=True), ops.launch_counts())
+                    got, counts = out["cuda"]
+                    want_r = out["cpu"][0]
+                    n = cfg.num_layers * got["stats"]["decode_steps"]
+                    expect = {**dict.fromkeys(ops.KERNELS, 0), "gate_select_paged": n,
+                              "block_sparse_decode_paged": n}
+                    same = all(got[i] == want_r[i] for i in range(len(reqs)))
+                    err = max(float(np.abs(got["logits"][i] - want_r["logits"][i]).max())
+                              for i in range(len(reqs)))
+                    pre = got["stats"]["preemptions"]
+                    if counts != expect or not same or err > 1e-4 \
+                            or (pre > 0) != (pool is not None):
+                        fail(f"{arch} small serve (pool {pool}): launches {counts} (expected "
+                             f"{expect}), tokens equal {same}, logits max abs diff {err:.3e}, "
+                             f"preemptions {pre}")
+                    msg += (f"; serve (pool {pool or 'default'}) tokens equal, logits max abs "
+                            f"diff {err:.3e}, preemptions {pre}")
+            print(msg)
+
+
+def quantized_pools(seen):
+    """The captured fp serve tensors with their K/V pools quantized per
+    page (one page is one gate block: the int8 pools' own rule, with every
+    row counted, as phase 10 quantizes the generate caches per block),
+    shaped as a capture of the int8 serve: (seen for 4q and 5q)."""
+    (q, kp, vp, idx, pt_d, kv_len), kw = seen["paged_sparse_decode"]
+    every = torch.ones((), dtype=torch.bool, device=kp.device)
+    (kq, ks), (vq, vs) = pg.quantize_block(kp, every), pg.quantize_block(vp, every)
+    print(f"int8 pools from the serve's layer-0 fp pools, quantized per page: "
+          f"{tuple(kq.shape)} ({kq.dtype}), scale rows {tuple(ks.shape)}")
+    return {"gate_select_paged": seen["gate_select_paged"],
+            "paged_sparse_decode": ((q, kq, vq, idx, pt_d, kv_len),
+                                    dict(kw, k_scales=ks, v_scales=vs))}
+
+
+def phase_config(arch):
+    """One of the other dense configs at full width (depth cut as
+    OTHER_CONFIGS says): phase 3's kernel checks of #1, #2 and 2q on
+    layer 0 of generate's first decode step; generate (batch 4, 16384-token
+    prompts, 31 decode steps, GatePolicy at budget 4096) with the counters
+    at 0 just before, #1 and #2 launching layers x steps; its profile;
+    serve with the default and the 644-page pool (tight == ample, #3 and
+    #4 launching layers x steps); #3 and #4 on the ample run's layer-0
+    tensors (plain and shuffled pages), 5 on them at 2, 4, 8 and nsel + 3
+    splits (bitwise #4 at the same count), and 4q and 5q on them quantized
+    per page (5q bitwise 4q). Returns (launch counts of the generate and
+    the ample serve, {kernel: numbers})."""
+    t0 = time.perf_counter()
+    cfg, cuts = other_config(arch)
+    bs = cfg.gate.block_size
+    max_len = -(-(PROMPT_LEN + NEW_TOKENS) // bs) * bs
+    print(f"{arch}: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads x {cfg.resolved_head_dim}, d_ff {cfg.d_ff} ({cfg.activation}), vocab "
+          f"{cfg.vocab_size}, tied embeddings {cfg.tie_embeddings}, {cfg.dtype}; gate block "
+          f"{bs}, d_gate {cfg.gate.d_gate}, budget {cfg.gate.token_budget}; batch {BATCH}, "
+          f"prompt {PROMPT_LEN}, {NEW_TOKENS} new tokens; reduced {cuts}")
+    for name, quant in (("fp", False), ("int8", True)):
+        plan = bsd.group_plan(cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim, bs,
+                              torch.bfloat16, quant)
+        print(f"{arch}: decode plan ({name} K/V, bf16 q): {plan}")
+    params = init_lm(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    toks = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT_LEN)).astype(np.int32)
+    batch = {"tokens": toks}
+    eng = DecodeEngine(cfg, params, max_len=max_len)
+    seen, state = capture_layer0(eng, batch)
+    numbers = phase_kernels(seen, vs_sdpa=False)
+    numbers.update(phase_quant_kernels(seen))
+    del seen, state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts, _ = phase_end_to_end(eng, batch, NEW_TOKENS, cfg.num_layers)
+    phase_profile(eng, batch)
+    del eng
+    torch.cuda.empty_cache()
+    serve_counts, seen, *_ = phase_serve(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    numbers.update(phase_paged_kernels(seen, vs_sdpa=False))
+    seen["paged_sparse_decode_splitk"] = seen["paged_sparse_decode"]
+    numbers.update(phase_splitk_kernels(seen, source=f"{arch} serve"))
+    q_seen = quantized_pools(seen)
+    del seen
+    numbers.update(phase_paged_quant_kernels(q_seen))
+    q_seen["paged_sparse_decode_splitk"] = q_seen["paged_sparse_decode"]
+    numbers.update(phase_splitk_kernels(q_seen, source=f"{arch} serve, quantized per page"))
+    del q_seen
+    torch.cuda.empty_cache()
+    counts = {**counts, **{k: serve_counts[k] for k in
+                           ("gate_select_paged", "block_sparse_decode_paged")}}
+    print(json.dumps({"config": arch, "reduced": cuts, "kernels": numbers}))
+    print(f"phase {arch}: {time.perf_counter() - t0:.1f} s")
+    return counts, numbers
+
+
+def phase_config_train(arch):
+    """run_training in distill mode on one of OTHER_TRAIN (its depth as in
+    OTHER_CONFIGS), OTHER_TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ, no
+    checkpoint: kernel 6 launches layers x steps and nothing else does;
+    every KL finite, the base bitwise the seed's, the gate moved; then
+    kernel 6 against its plain version on the first step's layer-0 tensors
+    (phase 20). Returns (launches of kernel 6, its numbers)."""
+    t0 = time.perf_counter()
+    cfg, cuts = other_config(arch)
+    tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=OTHER_TRAIN_STEPS,
+                       seed=SEED, checkpoint_every=0, log_every=1,
+                       optim=OptimConfig(total_steps=OTHER_TRAIN_STEPS, warmup_steps=1))
+    print(f"{arch} training: distill, batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+          f"{OTHER_TRAIN_STEPS} steps, no checkpoint; reduced {cuts} and batch 16 -> "
+          f"{TRAIN_BATCH}")
+    seed_state = tl.init_train_state(torch.Generator(device="cuda").manual_seed(SEED),
+                                     cfg, tcfg)
+    batch0 = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, DataState(SEED, 0), device="cuda")
+    captured = capture_gt_layer0(seed_state.params, batch0, cfg)
+    del batch0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    state, hist = tl.run_training(cfg, tcfg, device="cuda")
+    wall = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    want = {**dict.fromkeys(ops.KERNELS, 0),
+            "gate_gt_attention": cfg.num_layers * OTHER_TRAIN_STEPS}
+    if counts != want:
+        fail(f"{arch} training launch counts {counts}, expected {want}")
+    if not all(math.isfinite(h["kl"]) and math.isfinite(h["loss"]) for h in hist):
+        fail(f"{arch}: non-finite KL in training")
+    seed_leaves = dict(tl._walk(seed_state.params))
+    frozen = all(torch.equal(t, seed_leaves[p])
+                 for p, t in tl._walk(state.params) if not tl.is_gate_path(p))
+    moved = sum(not torch.equal(state.gate[k], seed_state.gate[k]) for k in state.gate)
+    if not frozen or moved == 0:
+        fail(f"{arch}: base params bitwise unchanged: {frozen}; gate leaves moved: {moved}")
+    print(f"{arch} training: {len(hist)} steps in {wall:.2f} s wall (init and batches "
+          f"included), peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; KL "
+          f"by step {[(h['step'], round(h['kl'], 6)) for h in hist]}; base params bitwise "
+          f"unchanged; {moved} of {len(state.gate)} gate leaves moved; launch counts {counts}")
+    del state, seed_state
+    torch.cuda.empty_cache()
+    numbers = phase_gt_kernel(*captured)
+    del captured
+    torch.cuda.empty_cache()
+    print(f"phase {arch} training: {time.perf_counter() - t0:.1f} s")
+    return counts["gate_gt_attention"], numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2103,6 +2375,7 @@ def main() -> int:
 def run_phases(shard) -> int:
     phase_small(shard)
     phase_small_train()
+    phase_small_configs()
 
     cfg = configs.get("qwen3_0_6b")
     bs = cfg.gate.block_size
@@ -2191,8 +2464,27 @@ def run_phases(shard) -> int:
 
     counts["gate_gt_attention"], captured = phase_train(cfg)
     numbers.update(phase_gt_kernel(*captured))
+    print(f"kernel 6 at {GT_BLOCK_BIG}-key blocks on the same tensors:")
+    more = {"gate_gt_attention": [
+        phase_gt_kernel(captured[0], dict(captured[1], block_size=GT_BLOCK_BIG))
+        ["gate_gt_attention"]["max_abs_err"]]}
     del captured
     torch.cuda.empty_cache()
+
+    # the other dense configs: their launches join the counts, their
+    # errors the kernels' max_abs_err
+    for arch in OTHER_CONFIGS:
+        c, nums = phase_config(arch)
+        for name, n in c.items():
+            counts[name] += n
+        for name, nb in nums.items():
+            more.setdefault(name, []).append(nb["max_abs_err"])
+    for arch in OTHER_TRAIN:
+        n, nums = phase_config_train(arch)
+        counts["gate_gt_attention"] += n
+        more["gate_gt_attention"].append(nums["gate_gt_attention"]["max_abs_err"])
+    for name, errs in more.items():
+        numbers[name]["max_abs_err"] = max([numbers[name]["max_abs_err"], *errs])
 
     meta = {
         "gate_select": ("src/repro_torch/kernels/csrc/gate_select.cu",

@@ -1,8 +1,9 @@
 """Architecture registry of the port: one module per ported architecture.
 
-``get(arch_id)`` returns the full-size ModelConfig. Only the dense
-``qwen3_0_6b`` family is ported so far; the other JAX configs arrive with
-their families' slices.
+``get(arch_id)`` returns the full-size ModelConfig. The four dense
+configs are ported (qwen3_0_6b, gemma_2b, granite_20b,
+deepseek_coder_33b); the MoE, SSM, hybrid, vision and audio configs
+arrive with their families' slices.
 """
 from __future__ import annotations
 
@@ -12,6 +13,9 @@ from repro_torch.config import ModelConfig
 
 ARCH_IDS = [
     "qwen3_0_6b",
+    "gemma_2b",
+    "granite_20b",
+    "deepseek_coder_33b",
 ]
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}

@@ -68,7 +68,12 @@ from repro_torch.kernels import build
 from repro_torch.models.common import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GROUP_ELEMS = 4096            # G * Dh the kernel keeps in registers
+# No limit on G or Dh of their own: a CTA holds at most 32 rows of the
+# group (further rows go to other CTAs) and a lane at most 4 chunks of its
+# row (wider heads go to column-slice CTAs). The body refuses a shape whose
+# shared memory passes 227 KB (``group_plan``; at G 1, Dh past 9216 fp32,
+# 14398 bf16, 14270 int8) or whose CTAs pass a grid's 2^31 - 1, and the
+# launch then raises RuntimeError.
 SPLIT_CTAS_PER_SM = 2             # the decode's split plan: CTAs it aims for per SM ...
 SPLIT_MIN_ENTRIES = 4             # ... with at least this many selected entries each
 
@@ -99,6 +104,24 @@ def split_segments(nsel: int, num_splits: int):
     empty."""
     per = -(-nsel // num_splits)
     return [(min(s * per, nsel), min((s + 1) * per, nsel)) for s in range(num_splits)]
+
+
+def group_plan(g: int, dh: int, block_size: int, dtype: torch.dtype,
+               quant: bool = False) -> dict:
+    """How the CUDA body cuts a (g, dh) group: ``gp`` query rows a CTA,
+    ``ngc`` CTAs over the group, ``ncs`` column slices, ``chunks`` a lane,
+    ``rows`` of K/V a ring stage, ``smem`` bytes, and ``ok``: False where
+    a launch would refuse the shapes. Asks the library, which it builds
+    at first use (nvcc)."""
+    lib = build.load("block_sparse_decode_sm90")
+    fn = lib.block_sparse_decode_sm90_plan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 6)()
+    rc = fn(g, dh, block_size, _DTYPES[dtype], int(quant), ctypes.addressof(out))
+    keys = ("gp", "ngc", "ncs", "chunks", "rows", "smem")
+    return {**dict(zip(keys, out)), "ok": rc == 0}
 
 
 _N_SM: dict = {}
@@ -284,8 +307,6 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ints,
         raise TypeError(f"{name}: k_scales and v_scales must be float32")
     if any(t.dtype != torch.int32 for t in ints):
         raise TypeError(f"{name}: index tensors and kv_len must be int32")
-    if q.shape[2] * q.shape[3] > MAX_GROUP_ELEMS:
-        raise ValueError(f"{name}: G*Dh = {q.shape[2] * q.shape[3]} > {MAX_GROUP_ELEMS}")
     if not all(t.is_contiguous() for t in (q,) + ins):
         raise ValueError(f"{name}: inputs must be contiguous")
 

@@ -59,10 +59,22 @@
 //   so the same inputs give the same bits whatever the pool holds, and the
 //   contiguous and paged entry points agree bitwise; 5 at ns is #4 at ns,
 //   bit for bit.
-//   A CTA holds up to 32 query rows, each lane at most kMaxChunks chunks
-//   of its row: further rows of a group go to ngc g-chunk CTAs and heads
-//   wider than 32 lanes x kMaxChunks chunks to ncs column-slice CTAs (none
-//   of either at the main path's G = 2, Dh = 128).
+//   A CTA holds gp query rows (a power of two up to 32), each lane at most
+//   kMaxChunks chunks of its row: further rows of a group go to ngc =
+//   ceil(G / gp) g-chunk CTAs and heads wider than 32 lanes x kMaxChunks
+//   chunks to ncs column-slice CTAs (none of either at the main path's G =
+//   2, Dh = 128; at granite_20b's MQA group, G 48 x Dh 128, bf16 and int8
+//   take gp 8 and ngc 6, fp32 gp 4 and ngc 12; at gemma_2b's G 8 x Dh 256
+//   bf16 and int8 take gp 4 and ngc 2, fp32 gp 2 and ngc 4). No register
+//   array grows with G or Dh, so neither has a limit of its own. The limits
+//   are the shared memory and the grid (plan_for, launch): the ring (3
+//   stages of K and V rows, at least one row each) or the warps' merge
+//   (kWarps x gp x (2 + Dh) floats), whichever is larger, plus the entry
+//   tables, must fit 227 KB (at G 1 that refuses Dh past 9216 fp32, 14398
+//   bf16 and 14270 int8; Dh 16384 in every dtype); and B x H x ns x ngc x ncs
+//   CTAs must fit a grid's x dimension (2^31 - 1). Every g-chunk and
+//   column-slice CTA stages the segment's blocks itself: at ngc 6 a call
+//   reads its selected K and V six times (from L2 after the first).
 // - Hide the copy latency. A ring of kStages shared-memory stages, each
 //   one (block, row chunk)'s K and V rows (at most kStageBytes together,
 //   so 64 bf16 rows of Dh 128: a whole block; an int8 block fills half a
@@ -122,7 +134,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kBatch = 16;                // keys a warp scores before its softmax update
 constexpr int kStages = 3;                // depth of the shared-memory ring
 constexpr int kStageBytes = 32 * 1024;    // K + V rows of one stage
-constexpr int kMaxGroupElems = 4096;      // G * Dh
+constexpr size_t kMaxSmem = 227 * 1024;   // dynamic shared memory an SM grants a CTA
 constexpr int kMaxChunks = 4;             // column chunks a lane holds of its row
 constexpr int kTab = 256;                 // selected entries a CTA keeps in shared memory
 
@@ -649,31 +661,53 @@ int launch_body(const Params& p, int grid, size_t smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename KV, bool Paged>
-int launch(Params p, int B, cudaStream_t stream) {
-  constexpr int V = Lane<KV>::kElems;
+// How a CTA cuts the group and the head (see the design notes): gp rows a
+// CTA, ngc CTAs over the group, ncs column slices, nch chunks a lane of its
+// slice (nchb those of the instance: 1, 2 or kMaxChunks), ldr the padded
+// row, rows the K/V rows a stage holds, smem the dynamic shared memory.
+struct Plan {
+  int gp, ngc, ncs, nch, nchb, ldr, rows;
+  size_t smem;
+};
+
+// kv_bytes: the size of a K/V element; V: elements of a lane's chunk
+Plan plan_for(int G, int Dh, int bs, int kv_bytes, int V, bool quant) {
+  Plan pl{};
   // rows of the group a CTA holds: as many as leave each lane at most
   // kMaxChunks chunks of its row (all of G where G * Dh fits 32 lanes x
   // kMaxChunks chunks); a row wider than one lane-set takes ncs CTAs
-  const int chunks = (p.Dh + V - 1) / V;
+  const int chunks = (Dh + V - 1) / V;
   auto nch_of = [&](int gp) { const int lpg = 32 / gp; return (chunks + lpg - 1) / lpg; };
   int gp = 1;
-  while (gp < p.G && gp < 32) gp <<= 1;
+  while (gp < G && gp < 32) gp <<= 1;
   while (gp > 1 && nch_of(gp) > kMaxChunks) gp >>= 1;
-  p.ncs = (nch_of(gp) + kMaxChunks - 1) / kMaxChunks;
-  const int nch = (nch_of(gp) + p.ncs - 1) / p.ncs;
-  p.gp = gp;
-  p.ngc = (p.G + gp - 1) / gp;
+  pl.gp = gp;
+  pl.ncs = (nch_of(gp) + kMaxChunks - 1) / kMaxChunks;
+  pl.nch = (nch_of(gp) + pl.ncs - 1) / pl.ncs;
+  pl.ngc = (G + gp - 1) / gp;
+  pl.nchb = pl.nch <= 1 ? 1 : pl.nch <= 2 ? 2 : kMaxChunks;  // the instance's chunks a lane
+  pl.ldr = pl.ncs * (32 / gp) * pl.nchb * V;                 // every lane's chunks, zero-padded
+  pl.rows = max(1, min(bs, kStageBytes / (2 * pl.ldr * kv_bytes)));
+  const size_t ring = (size_t)kStages * 2 * pl.rows * pl.ldr * kv_bytes;
+  const size_t merge = (size_t)kWarps * gp * (2 + Dh) * sizeof(float);
+  const size_t tabs = kTab * (2 * sizeof(int) + (quant ? sizeof(float2) : 0));
+  pl.smem = (ring > merge ? ring : merge) + tabs;
+  return pl;
+}
+
+template <typename T, typename KV, bool Paged>
+int launch(Params p, int B, cudaStream_t stream) {
+  const Plan pl = plan_for(p.G, p.Dh, p.bs, (int)sizeof(KV), Lane<KV>::kElems, kQuant<KV>);
+  p.gp = pl.gp;
+  p.ngc = pl.ngc;
+  p.ncs = pl.ncs;
+  p.ldr = pl.ldr;
+  p.rows = pl.rows;
   p.vec = ((uintptr_t)p.k % 16 == 0) && ((uintptr_t)p.v % 16 == 0) &&
           ((p.Dh * sizeof(KV)) % 16 == 0);
-  const int nchb = nch <= 1 ? 1 : nch <= 2 ? 2 : kMaxChunks;  // the instance's chunks a lane
-  p.ldr = p.ncs * (32 / gp) * nchb * V;                       // every lane's chunks, zero-padded
-  p.rows = max(1, min(p.bs, kStageBytes / (2 * p.ldr * (int)sizeof(KV))));
-  const size_t ring = (size_t)kStages * 2 * p.rows * p.ldr * sizeof(KV);
-  const size_t merge = (size_t)kWarps * gp * (2 + p.Dh) * sizeof(float);
-  const size_t tabs = kTab * (2 * sizeof(int) + (kQuant<KV> ? sizeof(float2) : 0));
-  const size_t smem = (ring > merge ? ring : merge) + tabs;
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const int nch = pl.nch;
+  const size_t smem = pl.smem;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   const long long grid = (long long)B * p.H * p.ns * p.ngc * p.ncs;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   int rc;
@@ -695,8 +729,7 @@ int launch(Params p, int B, cudaStream_t stream) {
 template <bool Paged>
 int dispatch(Params p, int B, int dtype, bool quant, void* stream) {
   if (B <= 0 || p.H <= 0 || p.G <= 0 || p.Dh <= 0 || p.S <= 0 || p.nsel <= 0 || p.bs <= 0 ||
-      p.ns <= 0 || (Paged && p.npt <= 0) || p.G * p.Dh > kMaxGroupElems ||
-      (p.ns > 1 && p.part == nullptr) ||
+      p.ns <= 0 || (Paged && p.npt <= 0) || (p.ns > 1 && p.part == nullptr) ||
       (quant && (p.k_scales == nullptr || p.v_scales == nullptr ||
                  (!Paged && (long long)p.nsb * p.bs < p.S))))
     return (int)cudaErrorInvalidValue;
@@ -794,6 +827,21 @@ int block_sparse_decode_sm90_paged_quant_launch(const void* q, const void* k_pag
                                     kv_len, out, workspace, H, G, Dh, npt * bs, npt, 0, nsel, bs,
                                     num_splits, scale),
                         B, dtype, true, stream);
+}
+
+// The plan a launch of these shapes takes (dtype and quant as above):
+// out[0..5] = gp, ngc, ncs, chunks a lane, K/V rows a stage, shared-memory
+// bytes. Returns cudaErrorInvalidValue where the launch would refuse the
+// shapes (the shared memory past 227 KB), else 0.
+int block_sparse_decode_sm90_plan(int G, int Dh, int bs, int dtype, int quant, long long* out) {
+  if (G <= 0 || Dh <= 0 || bs <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  const int kv_bytes = quant ? 1 : dtype == 0 ? 4 : 2;
+  const int V = quant ? Lane<int8_t>::kElems : dtype == 0 ? Lane<float>::kElems
+                                                           : Lane<__nv_bfloat16>::kElems;
+  const Plan pl = plan_for(G, Dh, bs, kv_bytes, V, quant != 0);
+  const long long v[6] = {pl.gp, pl.ngc, pl.ncs, pl.nch, pl.rows, (long long)pl.smem};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return pl.smem > kMaxSmem ? (int)cudaErrorInvalidValue : 0;
 }
 
 const char* repro_error_string(int code) {

@@ -27,11 +27,12 @@
 //
 // Two bodies, chosen by the dtype argument of the entry point:
 //
-// bf16, on the tensor cores (gate_gt_fwd_tc; bs 8, 16, 32 or 64, a template
-// parameter). The bound is the operations: 4 * Dh per (query, key) pair that
-// the data needs, the causal pairs within documents, at the bf16
-// tensor-core rate (989 TFLOP/s dense). At the training shape (B 4, L 4096,
-// H 16, Hkv 8, Dh 128, bs 64, documents of mean length 2048) that is
+// bf16, on the tensor cores (gate_gt_fwd_tc; bs 8, 16, 32, 64 or 128, a
+// template parameter; Dh 16 .. 256). The bound is the operations: 4 * Dh
+// per (query, key) pair that the data needs, the causal pairs within
+// documents, at the bf16 tensor-core rate (989 TFLOP/s dense). At the
+// training shape (B 4, L 4096, H 16, Hkv 8, Dh 128, bs 64, documents of
+// mean length 2048) that is
 // 1.38e11 operations, 0.14 ms; the bytes (q, k, v, o and bm once each,
 // ~268 MB) take 0.08 ms. The design:
 //   * Products on the tensor cores: mma.sync m16n8k16, bf16 operands, fp32
@@ -45,10 +46,13 @@
 //     even: both heads of a pair read one KV head, so each K and V fragment
 //     a warp loads feeds two heads' products, which halves the shared-memory
 //     reads per mma. Two CTAs fit on an SM (255 registers a thread, ~103 KB
-//     of shared memory at Dh 128). The KV tile is 64 keys: 64/bs gate
-//     blocks. The query tile is the fastest grid dimension, reversed, so the
-//     heaviest tiles of a head launch first and the CTAs in flight share
-//     their heads' K/V in L2.
+//     of shared memory at Dh 128). At Dh 256 a warp's output fragments
+//     alone are 128 fp32 registers a thread a head, so HP = 1 there, and
+//     one CTA fits an SM (~169 KB of shared memory). The KV tile is 64
+//     keys: 64/bs gate blocks, or half of a 128-key block. The query tile
+//     is the fastest grid dimension, reversed, so the heaviest tiles of a
+//     head launch first and the CTAs in flight share their heads' K/V in
+//     L2.
 //   * Copies: a two-stage ring of K/V tiles in shared memory filled by
 //     16-byte cp.async (commit_group / wait_group): tile j+1 is in flight
 //     while tile j is computed. Rows are padded by 16 bytes, so the 8 rows
@@ -66,21 +70,26 @@
 //   * Blockmax from the score fragments already in registers: the thread's
 //     two columns of each n8 tile, then the n8 tiles of a gate block, then
 //     __shfl_xor_sync over the quad that shares a row; one lane writes each
-//     (row, block). The softmax runs in base 2 on the special-function unit
-//     (ex2.approx.ftz) with no branch inside: the block size is a template
-//     parameter, and a masked score needs no test, since ex2 of -1.4e30 is 0.
+//     (row, block); a 128-key block's max carries over its two tiles in
+//     registers and is written after the second (or after the only one read
+//     where the other is skipped). The softmax runs in base 2 on the
+//     special-function unit (ex2.approx.ftz) with no branch inside: the
+//     block size is a template parameter, and a masked score needs no
+//     test, since ex2 of -1.4e30 is 0.
 //   * Deterministic: no atomics, a fixed order of every sum.
 //
-// fp32, on the CUDA cores (gate_gt_fwd_fp32; bs 1..64): the tensor cores
+// fp32, on the CUDA cores (gate_gt_fwd_fp32; bs 1..128): the tensor cores
 // would run fp32 as TF32, about three digits, so fp32 inputs keep a plain
 // tiled body. One CTA of 256 threads per (b, h, tile of 64 query rows),
 // heaviest tiles first. The CTA stages its Q tile in shared memory once,
 // then for each KV block from 0 to the last one that starts at or before
-// the tile's last row: stages the block's K and V rows; computes the 64 x bs
-// scores (thread (ty, tx) owns rows 4ty..4ty+3 and columns tx + 16c); masks,
-// takes each row's block max over the 16 lanes of its row group and writes
-// it to bm; folds the block into the running (m, l, acc); writes P to shared
-// memory and accumulates P.V.
+// the tile's last row, in chunks of at most 64 keys (a 128-key block is two):
+// stages the chunk's K and V rows; computes the 64 x 64 scores (thread (ty,
+// tx) owns rows 4ty..4ty+3 and columns tx + 16c); masks, takes each row's
+// chunk max over the 16 lanes of its row group into the block's; folds the
+// chunk into the running (m, l, acc); writes P to shared memory and
+// accumulates P.V; after the block's last chunk writes its max to bm. At Dh
+// 256 it holds ~194 KB of shared memory, one CTA an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -97,8 +106,10 @@ constexpr float kNegInf = -1e30f;
 
 constexpr int kThreads = 256;
 constexpr int kRows = 64;     // query rows per CTA: 16 row groups x 4 rows
-constexpr int kMaxBlock = 64; // key rows per block: 16 lanes x 4 columns
-constexpr int kPS = kMaxBlock + 4;  // P row stride: row groups 4 apart hit other banks
+constexpr int kChunk = 64;    // key rows staged at once: 16 lanes x 4 columns
+constexpr int kMaxBlock = 128; // gate block rows (both bodies): a block of the fp32 body
+                               // is staged in chunks of kChunk keys
+constexpr int kPS = kChunk + 4;  // P row stride: row groups 4 apart hit other banks
 
 // max / sum over the 16 lanes of a row group (lane bits 0..3)
 __device__ __forceinline__ float group_max(float x) {
@@ -138,20 +149,20 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, const float* __re
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, DH >= 256 ? 1 : 2)
     gate_gt_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const int* __restrict__ seg,
                      float* __restrict__ o, float* __restrict__ bm, int Lq, int Lk, int H,
                      int Hkv, int bs, int nb, float scale) {
   constexpr int kQS = DH + 4;   // Q/K row stride: float4 reads of 8 rows hit 8 bank quads
-  constexpr int kKB = (kMaxBlock * kQS > kRows * kPS) ? kMaxBlock * kQS : kRows * kPS;
+  constexpr int kKB = (kChunk * kQS > kRows * kPS) ? kChunk * kQS : kRows * kPS;
   constexpr int kNJ = DH / 16;  // output columns per thread and row
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;             // [kRows][kQS]
-  float* Ks = Qs + kRows * kQS; // [kMaxBlock][kQS]; P [kRows][kPS] once the scores are done
-  float* Vs = Ks + kKB;         // [kMaxBlock][DH]
+  float* Ks = Qs + kRows * kQS; // [kChunk][kQS]; P [kRows][kPS] once the scores are done
+  float* Vs = Ks + kKB;         // [kChunk][DH]
   __shared__ int qseg[kRows];
-  __shared__ int kseg[kMaxBlock];
+  __shared__ int kseg[kChunk];
 
   const int n_tiles = gridDim.x;
   const int tile = n_tiles - 1 - blockIdx.x;  // heaviest tiles first
@@ -180,12 +191,17 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float* vb = v + (size_t)b * Lk * Hkv * DH + (size_t)hk * DH;
   float* bm_rows = bm + ((size_t)b * H + h) * Lq * nb;
 
-  for (int jb = 0; jb < n_vis; ++jb) {
-    const int k0 = jb * bs;
-    __syncthreads();  // the previous block's P.V is done with Ks (P) and Vs
-    stage_rows<DH>(Ks, kQS, kb + (size_t)k0 * Hkv * DH, (size_t)Hkv * DH, bs, bs);
-    stage_rows<DH>(Vs, DH, vb + (size_t)k0 * Hkv * DH, (size_t)Hkv * DH, bs, bs);
-    if (tid < bs) kseg[tid] = seg != nullptr ? seg[(size_t)b * Lk + k0 + tid] : 0;
+  // chunk kc: keys [c0, c0 + nk) of block jb; a block's row maxima carry
+  // over its chunks (bmx) and are written after its last
+  const int cpb = (bs + kChunk - 1) / kChunk;  // chunks a block
+  float bmx[4] = {kNegInf, kNegInf, kNegInf, kNegInf};
+  for (int kc = 0; kc < n_vis * cpb; ++kc) {
+    const int jb = kc / cpb, c0 = (kc % cpb) * kChunk, nk = min(kChunk, bs - c0);
+    const int k0 = jb * bs + c0;
+    __syncthreads();  // the previous chunk's P.V is done with Ks (P) and Vs
+    stage_rows<DH>(Ks, kQS, kb + (size_t)k0 * Hkv * DH, (size_t)Hkv * DH, nk, nk);
+    stage_rows<DH>(Vs, DH, vb + (size_t)k0 * Hkv * DH, (size_t)Hkv * DH, nk, nk);
+    if (tid < nk) kseg[tid] = seg != nullptr ? seg[(size_t)b * Lk + k0 + tid] : 0;
     __syncthreads();
 
     // scores: rows 4ty+i, columns tx+16c
@@ -214,7 +230,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         }
     }
 
-    // mask, block row max -> bm, online softmax
+    // mask, the chunk's row max -> the block's (-> bm after its last
+    // chunk), online softmax
     float rbm[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -223,15 +240,16 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = tx + 16 * c, kpos = k0 + col;
-        const bool ok = col < bs && r < nq && kpos <= qpos && qseg[r] == kseg[col];
+        const bool ok = col < nk && r < nq && kpos <= qpos && qseg[r] == kseg[col];
         s[i][c] = ok ? s[i][c] * scale : kNegInf;
         mx = fmaxf(mx, s[i][c]);
       }
       rbm[i] = group_max(mx);
+      bmx[i] = c0 == 0 ? rbm[i] : fmaxf(bmx[i], rbm[i]);
     }
-    {
+    if (c0 + nk == bs) {
       const int i = tx & 3, r = 4 * ty + i;
-      const float val = i == 0 ? rbm[0] : i == 1 ? rbm[1] : i == 2 ? rbm[2] : rbm[3];
+      const float val = i == 0 ? bmx[0] : i == 1 ? bmx[1] : i == 2 ? bmx[2] : bmx[3];
       if (tx < 4 && r < nq) bm_rows[(size_t)(q0 + r) * nb + jb] = val;
     }
 #pragma unroll
@@ -257,12 +275,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        if (tx + 16 * c < bs) Ps[(4 * ty + i) * kPS + tx + 16 * c] = s[i][c];
+        if (tx + 16 * c < nk) Ps[(4 * ty + i) * kPS + tx + 16 * c] = s[i][c];
     __syncthreads();
 
     // P.V: rows 4ty+i, output columns tx+16j
     int c = 0;
-    for (; c + 4 <= bs; c += 4) {
+    for (; c + 4 <= nk; c += 4) {
       float4 p[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -280,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         }
       }
     }
-    for (; c < bs; ++c) {
+    for (; c < nk; ++c) {
 #pragma unroll
       for (int j = 0; j < kNJ; ++j) {
         const float vv = Vs[c * DH + tx + 16 * j];
@@ -312,8 +330,9 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* seg, vo
                 void* bm, int B, int Lq, int Lk, int H, int Hkv, int bs, int nb, float scale,
                 cudaStream_t stream) {
   constexpr int kQS = DH + 4;
-  constexpr int kKB = (kMaxBlock * kQS > kRows * kPS) ? kMaxBlock * kQS : kRows * kPS;
-  const size_t smem = (size_t)(kRows * kQS + kKB + kMaxBlock * DH) * sizeof(float);
+  constexpr int kKB = (kChunk * kQS > kRows * kPS) ? kChunk * kQS : kRows * kPS;
+  // 194 KB at Dh 256
+  const size_t smem = (size_t)(kRows * kQS + kKB + kChunk * DH) * sizeof(float);
   auto kernel = gate_gt_fwd_fp32<DH>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -432,9 +451,12 @@ __global__ void tile_segment_range(const int* __restrict__ seg, int2* __restrict
 // CTA: query rows [q0, q0 + 64) of heads h0 .. h0 + HP - 1 of batch row b;
 // warp w takes rows q0 + 16 w .. q0 + 16 w + 15 of every one of those heads,
 // so each K and V fragment it loads feeds HP heads' products. The gate
-// block is 2^BSL keys (8 .. 64).
+// block is 2^BSL keys (8 .. 128): up to 64 a KV tile holds 64 >> BSL blocks;
+// a 128-key block spans a pair of tiles, and each row's block max carries
+// over the pair (bmc) until the block's last read tile, then one lane
+// writes it. At Dh 256 one CTA fits an SM (~169 KB of shared memory).
 template <int DH, int HP, int BSL>
-__global__ void __launch_bounds__(128, 2)
+__global__ void __launch_bounds__(128, DH >= 256 ? 1 : 2)
     gate_gt_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const int* __restrict__ seg,
                    const int2* __restrict__ tile_seg, bf16* __restrict__ o,
@@ -460,8 +482,9 @@ __global__ void __launch_bounds__(128, 2)
   const int g = lane >> 2, t4 = lane & 3;
   const int nkt = (Lk + kTile - 1) / kTile;
   const int n_vis = min(nkt, (q0 + nq - 1) / kTile + 1);  // KV tiles at or before the last row
-  constexpr int kStep = 1 << (BSL - 3);                   // n8 tiles per gate block
-  constexpr int kNbt = kTile >> BSL;                      // gate blocks per KV tile
+  constexpr int kStep = BSL > 6 ? 8 : 1 << (BSL - 3);    // n8 tiles per gate block in a tile
+  constexpr int kNbt = BSL > 6 ? 1 : kTile >> BSL;        // gate blocks per KV tile
+  constexpr int kTpb = BSL > 6 ? 1 << (BSL - 6) : 1;      // KV tiles per gate block
 
   int qlo = 0, qhi = 0;
   if (seg != nullptr) {
@@ -516,18 +539,34 @@ __global__ void __launch_bounds__(128, 2)
   }
 
   float m[HP][2], l[HP][2], acc[HP][kDT][4];
+  float bmc[HP][2];  // kTpb > 1: the rows' max over the read tiles of block cjb
+  int cjb = -1;
 #pragma unroll
   for (int hp = 0; hp < HP; ++hp) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       m[hp][i] = kNegInf;
       l[hp][i] = 0.f;
+      bmc[hp][i] = kNegInf;
     }
 #pragma unroll
     for (int dt = 0; dt < kDT; ++dt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[hp][dt][e] = 0.f;
   }
+
+  // kTpb > 1: write the carried block max of block jb (one lane a row)
+  auto flush_block = [&](int jb) {
+#pragma unroll
+    for (int hp = 0; hp < HP; ++hp)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = wr + g + 8 * i;
+        if (t4 == 0 && row < nq)
+          bm[(((size_t)b * H + h0 + hp) * Lq + q0 + row) * nb + jb] = bmc[hp][i];
+        bmc[hp][i] = kNegInf;
+      }
+  };
 
   int st = 0;
   while (j < n_vis) {
@@ -538,6 +577,10 @@ __global__ void __launch_bounds__(128, 2)
     __syncthreads();
 
     const int k0 = j * kTile;
+    if (kTpb > 1 && j / kTpb != cjb) {  // the first read tile of another block
+      if (cjb >= 0) flush_block(cjb);
+      cjb = j / kTpb;
+    }
     const bf16* ks = Ks + st * kTile * kLd;
     const bf16* vs = Vs + st * kTile * kLd;
     const int* ksg = Ksg + st * kTile;
@@ -615,8 +658,9 @@ __global__ void __launch_bounds__(128, 2)
           const float x = quad_max(t[n]);
           mx = fmaxf(mx, x);
           const int jb = (k0 + 8 * n) >> BSL;
-          if ((n / kStep) % 4 == t4 && jb < nb && row < nq) bm_row[jb] = x;
+          if (kTpb == 1 && (n / kStep) % 4 == t4 && jb < nb && row < nq) bm_row[jb] = x;
         }
+        if (kTpb > 1) bmc[hp][i] = fmaxf(bmc[hp][i], mx);
         const float m_new = fmaxf(m[hp][i], mx);
         alpha[i] = ex2((m[hp][i] - m_new) * kLog2e);
         m[hp][i] = m_new;
@@ -666,6 +710,7 @@ __global__ void __launch_bounds__(128, 2)
     st ^= 1;
   }
   cp_async_wait<0>();
+  if (kTpb > 1 && cjb >= 0) flush_block(cjb);
 
 #pragma unroll
   for (int hp = 0; hp < HP; ++hp)
@@ -680,11 +725,17 @@ __global__ void __launch_bounds__(128, 2)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * dt) =
             __floats2bfloat162_rn(acc[hp][dt][2 * i] * inv, acc[hp][dt][2 * i + 1] * inv);
     }
-  // the blocks of every KV tile never read (past the tile's last row, or
-  // sharing no document): fully masked
-  for (int jt = 0; jt < nkt; ++jt) {
-    if (jt < n_vis && shares_doc(jt)) continue;
-    const int jb0 = (jt * kTile) >> BSL, nbj = min(kNbt, nb - jb0), per = nq * nbj;
+  // the blocks none of whose KV tiles was read (past the tile's last row,
+  // or sharing no document): fully masked
+  for (int jb0 = 0; jb0 < nb; jb0 += kNbt) {
+    bool read = false;
+#pragma unroll
+    for (int u = 0; u < kTpb; ++u) {
+      const int jt = (jb0 << BSL) / kTile + u;
+      read = read || (jt < n_vis && shares_doc(jt));
+    }
+    if (read) continue;
+    const int nbj = min(kNbt, nb - jb0), per = nq * nbj;
     for (int e = tid; e < HP * per; e += kNThreads) {
       const int hp = e / per, r = (e % per) / nbj, jb = jb0 + e % nbj;
       bm[(((size_t)b * H + h0 + hp) * Lq + q0 + r) * nb + jb] = kNegInf;
@@ -729,6 +780,7 @@ int tc_by_block(const void* q, const void* k, const void* v, const void* seg, vo
     case 16: return launch_tc<DH, HP, 4>(q, k, v, seg, tile_seg, o, bm, B, Lq, Lk, H, Hkv, nb, scale, s);
     case 32: return launch_tc<DH, HP, 5>(q, k, v, seg, tile_seg, o, bm, B, Lq, Lk, H, Hkv, nb, scale, s);
     case 64: return launch_tc<DH, HP, 6>(q, k, v, seg, tile_seg, o, bm, B, Lq, Lk, H, Hkv, nb, scale, s);
+    case 128: return launch_tc<DH, HP, 7>(q, k, v, seg, tile_seg, o, bm, B, Lq, Lk, H, Hkv, nb, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -742,6 +794,10 @@ int tc_by_head_dim(const void* q, const void* k, const void* v, const void* seg,
     case 32: return tc_by_block<32, HP>(q, k, v, seg, tile_seg, o, bm, B, Lq, Lk, H, Hkv, bs, nb, scale, s);
     case 64: return tc_by_block<64, HP>(q, k, v, seg, tile_seg, o, bm, B, Lq, Lk, H, Hkv, bs, nb, scale, s);
     case 128: return tc_by_block<128, HP>(q, k, v, seg, tile_seg, o, bm, B, Lq, Lk, H, Hkv, bs, nb, scale, s);
+    case 256:  // HP 1 only: two heads' output fragments would not fit the registers
+      if constexpr (HP == 1)
+        return tc_by_block<256, 1>(q, k, v, seg, tile_seg, o, bm, B, Lq, Lk, H, Hkv, bs, nb, scale, s);
+      return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -754,6 +810,7 @@ int fp32_by_head_dim(const void* q, const void* k, const void* v, const void* se
     case 32: return launch_fp32<32>(q, k, v, seg, o, bm, B, Lq, Lk, H, Hkv, bs, nb, scale, s);
     case 64: return launch_fp32<64>(q, k, v, seg, o, bm, B, Lq, Lk, H, Hkv, bs, nb, scale, s);
     case 128: return launch_fp32<128>(q, k, v, seg, o, bm, B, Lq, Lk, H, Hkv, bs, nb, scale, s);
+    case 256: return launch_fp32<256>(q, k, v, seg, o, bm, B, Lq, Lk, H, Hkv, bs, nb, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -762,8 +819,9 @@ int fp32_by_head_dim(const void* q, const void* k, const void* v, const void* se
 
 extern "C" {
 
-// dtype: 0 = float32 (CUDA-core body, bs 1..64), 1 = bfloat16 (tensor-core
-// body, bs 8, 16, 32 or 64) for q, k, v and o. seg may be null; with seg and
+// dtype: 0 = float32 (CUDA-core body, bs 1..128), 1 = bfloat16 (tensor-core
+// body, bs 8, 16, 32, 64 or 128) for q, k, v and o; Dh 16, 32, 64, 128 or
+// 256 (the bf16 body takes GQA head pairs, HP 2, at Dh <= 128 only). seg may be null; with seg and
 // bf16, tile_seg is scratch of B * ceil(Lk / 64) int2. q, k, v must be
 // 16-byte aligned. Returns cudaGetLastError() after the launch.
 int gate_gt_fwd_launch(const void* q, const void* k, const void* v, const void* seg,
@@ -778,7 +836,7 @@ int gate_gt_fwd_launch(const void* q, const void* k, const void* v, const void* 
   if (dtype == 0)
     return fp32_by_head_dim(q, k, v, seg, o, bm, B, Lq, Lk, H, Hkv, Dh, bs, nb, scale, s);
   if (dtype != 1 || (seg != nullptr && tile_seg == nullptr)) return (int)cudaErrorInvalidValue;
-  if ((H / Hkv) % 2 == 0)
+  if ((H / Hkv) % 2 == 0 && Dh <= 128)
     return tc_by_head_dim<2>(q, k, v, seg, tile_seg, o, bm, B, Lq, Lk, H, Hkv, Dh, bs, nb,
                              scale, s);
   return tc_by_head_dim<1>(q, k, v, seg, tile_seg, o, bm, B, Lq, Lk, H, Hkv, Dh, bs, nb, scale,

@@ -23,10 +23,11 @@ kernel's function. ``gate_gt_attention_cuda`` launches
 ``csrc/gate_gt_fwd.cu`` on the current stream and counts its launches in
 ``gate_gt_attention_cuda.launches``. The dtype picks the kernel's body:
 bfloat16 runs on the tensor cores (mma.sync, bf16 products, fp32 sums) at
-block sizes 8, 16, 32 and 64 only, and skips the (query tile, key tile)
-pairs that share no document; float32 runs on the CUDA cores in full fp32
-at any block size up to 64. Neither has a backward: the distillation
-target is a constant of the gate's loss.
+block sizes 8, 16, 32, 64 and 128 only, and skips the (query tile, key
+tile) pairs that share no document; float32 runs on the CUDA cores in full
+fp32 at any block size up to 128. Both take head dims 16, 32, 64, 128 and
+256. Neither has a backward: the distillation target is a constant of the
+gate's loss.
 """
 from __future__ import annotations
 
@@ -40,9 +41,10 @@ from repro_torch.kernels import build
 from repro_torch.models.common import chunked_attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instances
-MAX_BLOCK = 64                    # key block rows the fp32 body stages at once
-TC_BLOCKS = (8, 16, 32, 64)       # block sizes of the bf16 body: whole n8 tiles of a 64-key tile
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instances
+MAX_BLOCK = 128                   # largest block: the fp32 body stages it in chunks of 64 keys
+TC_BLOCKS = (8, 16, 32, 64, 128)  # block sizes of the bf16 body: whole n8 tiles of a
+                                  # 64-key tile, or a pair of tiles
 TILE = 64                         # query rows / keys per tile of the bf16 body
 
 
@@ -74,8 +76,9 @@ def gate_gt_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Launch the CUDA kernel. q, k, v contiguous and 16-byte aligned in one
     dtype; ``segment_ids`` int32 [B, L]. bfloat16 takes the tensor-core
     body, whose domain is narrower: ``block_size`` must be one of
-    ``TC_BLOCKS`` (8, 16, 32, 64), any other raises ValueError. float32
-    takes the CUDA-core body, any ``block_size`` in 1..64."""
+    ``TC_BLOCKS`` (8, 16, 32, 64, 128), any other raises ValueError.
+    float32 takes the CUDA-core body, any ``block_size`` in 1..128. The
+    head dim must be one of ``HEAD_DIMS``."""
     name = "gate_gt_attention_cuda"
     if logit_softcap:
         raise NotImplementedError(f"{name}: logit_softcap {logit_softcap} (no ported "

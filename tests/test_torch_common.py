@@ -67,8 +67,10 @@ def test_configs_match_reference():
         tc = t_config.reduced(t_get("qwen3_0_6b")).replace(
             dtype="float32", gate=tcfg(jc.gate))
         assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
-    assert dataclasses.asdict(t_config.reduced(t_get("qwen3_0_6b"))) == \
-        dataclasses.asdict(reduced(j_configs.get("qwen3_0_6b")))
+    for arch in ("qwen3_0_6b", "gemma_2b", "granite_20b", "deepseek_coder_33b"):
+        assert dataclasses.asdict(t_get(arch)) == dataclasses.asdict(j_configs.get(arch))
+        assert dataclasses.asdict(t_config.reduced(t_get(arch))) == \
+            dataclasses.asdict(reduced(j_configs.get(arch)))
     assert t_get("qwen3-0-6b").arch_id == "qwen3_0_6b"
 
 

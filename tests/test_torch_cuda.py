@@ -260,13 +260,13 @@ def test_gate_select_paged_kernel_matches_plain(dev, dtype, cfg, shape):
 TIE_NB = [1, 2, 31, 32, 33, 255, 256, 257, 1024, 8192]
 
 
-def _check_gate_ties(dev, dtype, nb, dg, seed=0):
+def _check_gate_ties(dev, dtype, nb, dg, seed=0, hkv=2):
     """#1 and #3 on the exact-tie inputs (3 rows: n_valid full, partial
-    and 1; 2 kv heads), k 1, 64 and nb, both force flags on and both off:
+    and 1; ``hkv`` kv heads), k 1, 64 and nb, both force flags on and both off:
     budget ids bitwise those of the plain versions, threshold ids through
     ids_agree, and the paged kernel over shuffled pages bitwise equal to it
     over pages in order. Raises AssertionError at the first difference."""
-    b, hkv = 3, 2
+    b = 3
     nv_np = gate_ties.n_valid(b, nb)
     nv = torch.tensor(nv_np, device=dev)
     on = lambda x: torch.tensor(x, device=dev).to(dtype)
@@ -1332,6 +1332,13 @@ GT_CUDA_SHAPES = [
     (1, 64, 2, 1, 32, 16), (2, 128, 4, 2, 64, 32), (2, 128, 8, 2, 64, 64),
     (1, 256, 4, 4, 128, 64), (2, 72, 4, 2, 16, 8), (3, 200, 4, 2, 32, 8),
     (1, 192, 6, 2, 64, 16), (1, 4096, 16, 8, 128, 64),
+    # head dim 256 (gemma_2b: 8 heads on one KV head), an even and an odd
+    # group, both one head a CTA at Dh 256, one with a row tile cut short
+    (1, 256, 8, 1, 256, 64), (2, 200, 3, 1, 256, 8),
+    # 128-key blocks (a pair of 64-key tiles) at every head dim, granite's
+    # MQA group (48 heads, head pairs) and the training widths
+    (1, 256, 2, 1, 16, 128), (2, 384, 4, 2, 32, 128), (1, 256, 4, 2, 64, 128),
+    (1, 512, 48, 1, 128, 128), (1, 256, 8, 1, 256, 128), (1, 2048, 16, 8, 128, 128),
 ]
 
 
@@ -1390,8 +1397,8 @@ def test_gate_gt_row_whose_first_tiles_hold_other_documents(dev, dtype):
 
 
 def test_gate_gt_refuses_bf16_block_sizes_outside_its_tiles(dev):
-    """The bf16 body takes block sizes 8, 16, 32, 64 only: 12 raises and
-    launches nothing; fp32 still takes it (its CUDA-core body)."""
+    """The bf16 body takes block sizes 8, 16, 32, 64 and 128 only: 12 raises
+    and launches nothing; fp32 still takes it (its CUDA-core body)."""
     from repro_torch.kernels import gate_gt_fwd as gt
     q, k, v, _ = _gt_inputs(dev, torch.bfloat16, 1, 96, 2, 1, 32, 12)
     ops.reset_launch_counts()
@@ -1479,5 +1486,183 @@ def test_gate_gt_limits_reject_a_faulty_kernel(dev, mutant, tmp_path, monkeypatc
     torch.cuda.synchronize()
     print(f"[{mutant}] correct kernel (o err, limit, NEG_INF same, blockmax err, limit) "
           f"{good}; faulty kernel {bad}")
+    assert good[0] <= good[1] and good[2] and good[3] <= good[4]
+    assert not (bad[0] <= bad[1] and bad[2] and bad[3] <= bad[4]), mutant
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gate_gt_block_128_half_live_blocks(dev, dtype):
+    """128-key blocks whose two 64-key tiles differ: a block whose first
+    tile shares no document with a query tile (skipped by the bf16 body)
+    keeps its max over the live tile; one whose second tile lies past the
+    query tile's last row keeps its max over the first; a block with
+    neither tile read is exactly -1e30."""
+    from repro_torch.kernels import gate_gt_fwd as gt
+    l, bs = 512, 128
+    q, k, v, _ = _gt_inputs(dev, dtype, 2, l, 4, 2, 64, bs)
+    s = np.zeros((2, l), np.int32)
+    s[0, 64:] = 1                        # row 0: documents [0, 64), [64, 512)
+    s[1, 64:200] = 1
+    s[1, 200:] = 2
+    seg = torch.tensor(s, device=dev)
+    for sg in (None, seg):          # the packed case last: its bm_k is checked below
+        o_k, bm_k = gt.gate_gt_attention_cuda(q, k, v, block_size=bs, segment_ids=sg)
+        o_p, bm_p = gt.gate_gt_attention_plain(q, k, v, block_size=bs, q_chunk=1024,
+                                               segment_ids=sg)
+        torch.cuda.synchronize()
+        check_gt(o_k, bm_k, o_p, bm_p)
+    # rows 64..127 of row 0: block 0 live over keys 64..row only (its
+    # first tile, keys 0..63, holds only the other document)
+    assert bool((bm_k[0, :, 64:128, 0] > -1e29).all())
+    # rows 0..63: block 1 lies past them
+    assert bool((bm_k[:, :, :64, 1:] == -1e30).all())
+
+
+def test_gate_gt_refuses_shapes_outside_its_instances(dev):
+    """What kernel 6 still refuses, each with a ValueError and no launch:
+    a head dim outside ``HEAD_DIMS`` (512) and a block past ``MAX_BLOCK``
+    (256), in either dtype."""
+    from repro_torch.kernels import gate_gt_fwd as gt
+    ops.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, _ = _gt_inputs(dev, dtype, 1, 256, 2, 1, 512, 64)
+        with pytest.raises(ValueError, match="head dim 512"):
+            gt.gate_gt_attention_cuda(q, k, v, block_size=64)
+        q, k, v, _ = _gt_inputs(dev, dtype, 1, 512, 2, 1, 64, 256)
+        with pytest.raises(ValueError, match="block size 256"):
+            gt.gate_gt_attention_cuda(q, k, v, block_size=256)
+    assert ops.launch_counts() == _counts()
+
+
+# ---------------------------------------------------------------------------
+# the other dense configs' decode groups (gemma_2b, granite_20b,
+# deepseek_coder_33b)
+# ---------------------------------------------------------------------------
+
+# (G, Dh) -> the planner's (gp, ngc) by K/V type: granite_20b's MQA group
+# 48 x 128, gemma_2b's 8 x 256, deepseek_coder_33b's 7 x 128
+CONFIG_GROUPS = {
+    (48, 128): {"float32": (4, 12), "bfloat16": (8, 6), "int8": (8, 6)},
+    (8, 256): {"float32": (2, 4), "bfloat16": (4, 2), "int8": (4, 2)},
+    (7, 128): {"float32": (4, 2), "bfloat16": (8, 1), "int8": (8, 1)},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,dh", list(CONFIG_GROUPS))
+def test_config_groups_decode_all_instances(dev, dtype, g, dh):
+    """#2, #4, 2q, 4q, 5 and 5q at the configs' (G, Dh), one KV head, 64-key
+    blocks: each within the limit of its plain version, the row with no
+    valid key 0; #4 bitwise #2; 5(n) and 5q(n) bitwise #4(n) and 4q(n) at
+    1, 4 and nsel + 3 splits; the planner's cut as predicted."""
+    s, hkv, npt, bs, nsel = 3, 1, 20, 64, 8
+    name = str(dtype).split(".")[-1]
+    for kv, quant in ((name, False), ("int8", True)):
+        plan = bsd.group_plan(g, dh, bs, dtype, quant)
+        assert plan["ok"] and (plan["gp"], plan["ngc"]) == CONFIG_GROUPS[(g, dh)][kv], plan
+        print(f"G {g} x Dh {dh}, {name} q, {kv} K/V: {plan}")
+    q, kp, vp, idx, pt, kv_len, (k, v) = _paged_inputs(dev, dtype, s, hkv, g, dh, npt,
+                                                       bs, nsel)
+    o2 = bsd.sparse_decode_cuda(q, k, v, idx, kv_len, block_size=bs)
+    _check_decode(o2, bsd.sparse_decode_plain(q, k, v, idx, kv_len, block_size=bs), dtype)
+    o4 = bsd.sparse_decode_paged_cuda(q, kp, vp, idx, pt, kv_len, block_size=bs)
+    _check_decode(o4, bsd.sparse_decode_paged_plain(q, kp, vp, idx, pt, kv_len,
+                                                    block_size=bs), dtype)
+    assert torch.equal(o2, o4)
+    for ns in (1, 4, nsel + 3):
+        o5 = bsd.sparse_decode_paged_splitk_cuda(q, kp, vp, idx, pt, kv_len, block_size=bs,
+                                                 num_splits=ns)
+        _check_decode(o5, bsd.sparse_decode_paged_splitk_plain(
+            q, kp, vp, idx, pt, kv_len, block_size=bs, num_splits=ns), dtype)
+        assert torch.equal(o5, bsd.sparse_decode_paged_cuda(q, kp, vp, idx, pt, kv_len,
+                                                            block_size=bs, num_splits=ns))
+    q, kp, vp, ksp, vsp, idx, pt, kv_len, (kq, vq, ks, vs) = _quant_paged_inputs(
+        dev, dtype, s, hkv, g, dh, npt, bs, nsel)
+    o2q = bsd.sparse_decode_quant_cuda(q, kq, vq, idx, kv_len, block_size=bs,
+                                       k_scales=ks, v_scales=vs)
+    _check_decode(o2q, bsd.sparse_decode_plain(q, kq, vq, idx, kv_len, block_size=bs,
+                                               k_scales=ks, v_scales=vs), dtype)
+    quant = dict(k_scales=ksp, v_scales=vsp)
+    o4q = bsd.sparse_decode_paged_quant_cuda(q, kp, vp, idx, pt, kv_len, block_size=bs,
+                                             **quant)
+    _check_decode(o4q, bsd.sparse_decode_paged_plain(q, kp, vp, idx, pt, kv_len,
+                                                     block_size=bs, **quant), dtype)
+    assert torch.equal(o2q, o4q)
+    for ns in (1, 4, nsel + 3):
+        o5q = bsd.sparse_decode_paged_splitk_quant_cuda(q, kp, vp, idx, pt, kv_len,
+                                                        block_size=bs, num_splits=ns, **quant)
+        _check_decode(o5q, bsd.sparse_decode_paged_splitk_plain(
+            q, kp, vp, idx, pt, kv_len, block_size=bs, num_splits=ns, **quant), dtype)
+        assert torch.equal(o5q, bsd.sparse_decode_paged_quant_cuda(
+            q, kp, vp, idx, pt, kv_len, block_size=bs, num_splits=ns, **quant))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_refuses_shapes_past_its_shared_memory(dev, dtype, quant):
+    """The decode body's one limit on (G, Dh): its shared memory. A head of
+    16384 elements needs more than 227 KB at G 1 in every dtype, so the
+    plan says so and the launch raises, counting nothing; G 64 x Dh 128
+    (more rows than any config) fits."""
+    assert bsd.group_plan(64, 128, 64, dtype, quant)["ok"]
+    plan = bsd.group_plan(1, 16384, 64, dtype, quant)
+    assert not plan["ok"] and plan["smem"] > 227 * 1024, plan
+    q, k, v, idx, kv_len = _sparse_inputs(dev, dtype, 1, 1, 1, 16384, 2, 64, 2)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="kernel launch"):
+        if quant:
+            (kq, ks), (vq, vs) = _quantize(k, 64, 1), _quantize(v, 64, 2)
+            bsd.sparse_decode_quant_cuda(q, kq, vq, idx, kv_len, block_size=64,
+                                         k_scales=ks, v_scales=vs)
+        else:
+            bsd.sparse_decode_cuda(q, k, v, idx, kv_len, block_size=64)
+    assert ops.launch_counts() == _counts()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nb", [257, 8192])
+def test_gate_select_exact_ties_mqa(dev, dtype, nb):
+    """#1 and #3 at one KV head (the MQA configs: B x Hkv CTAs), on exact
+    ties at d_gate 128: budget ids bitwise the plain versions'."""
+    _check_gate_ties(dev, dtype, nb, 128, hkv=1)
+
+
+# faults of the 128-key block's carried max: (source line, edit)
+GT_BLOCK128_MUTANTS = {
+    "block max of the last tile only": ("if (kTpb > 1) bmc[hp][i] = fmaxf(bmc[hp][i], mx);",
+                                        "if (kTpb > 1) bmc[hp][i] = mx;"),
+    "block max written per tile": ("if (kTpb > 1 && j / kTpb != cjb) {",
+                                   "if (kTpb > 1) {"),
+}
+
+
+@pytest.mark.parametrize("mutant", list(GT_BLOCK128_MUTANTS))
+def test_gate_gt_block_128_limits_reject_a_faulty_carry(dev, mutant, tmp_path, monkeypatch):
+    """The kernel-6 limits reject a bf16 body whose 128-key block max does
+    not carry over the block's two tiles, on the training widths (16/8
+    heads x 128) with packed documents; the correct kernel passes."""
+    from repro_torch.kernels import gate_gt_fwd as gt
+    old, new = GT_BLOCK128_MUTANTS[mutant]
+    src = (build.CSRC / "gate_gt_fwd.cu").read_text()
+    assert src.count(old) == 1, mutant
+    cu = tmp_path / "mutant.cu"
+    cu.write_text(src.replace(old, new))
+    so = tmp_path / "mutant.so"
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    q, k, v, seg = _gt_inputs(dev, torch.bfloat16, 2, 1024, 16, 8, 128, 128,
+                              [100, 128, 129, 600])
+    o_p, bm_p = gt.gate_gt_attention_plain(q, k, v, block_size=128, q_chunk=1024,
+                                           segment_ids=seg)
+    good = gt_errors(*gt.gate_gt_attention_cuda(q, k, v, block_size=128, segment_ids=seg),
+                     o_p, bm_p)
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    bad = gt_errors(*gt.gate_gt_attention_cuda(q, k, v, block_size=128, segment_ids=seg),
+                    o_p, bm_p)
+    torch.cuda.synchronize()
+    print(f"[{mutant}] correct kernel {good}; faulty kernel {bad}")
     assert good[0] <= good[1] and good[2] and good[3] <= good[4]
     assert not (bad[0] <= bad[1] and bad[2] and bad[3] <= bad[4]), mutant

@@ -98,7 +98,10 @@ def test_train_configs_match_reference():
 
 # the shapes of tests/test_kernels.py's GT_SWEEP: b, lq, h, hkv, dh, bs, q_chunk
 GT_SHAPES = [(1, 64, 2, 1, 32, 16, 16), (2, 128, 4, 2, 64, 32, 32),
-             (2, 128, 8, 2, 64, 64, 64), (1, 256, 4, 4, 128, 64, 128)]
+             (2, 128, 8, 2, 64, 64, 64), (1, 256, 4, 4, 128, 64, 128),
+             # head dim 256 (gemma_2b's MQA group of 8) and 128-key blocks
+             (1, 192, 8, 1, 256, 64, 64), (1, 256, 2, 1, 256, 128, 128),
+             (2, 256, 4, 2, 64, 128, 128), (1, 384, 6, 2, 128, 128, 128)]
 
 
 def _qkv(seed, b, lq, h, hkv, dh):
@@ -153,6 +156,29 @@ def test_gate_gt_plain_with_segments_matches_reference(qc):
     # a block holding only other documents' keys is fully masked: exactly
     # NEG_INF even where it is causally visible
     assert np32(bm_t)[0, :, 17, 0].max() == NEG
+
+
+@pytest.mark.parametrize("b,l,h,hkv,dh,bs,qc", [
+    (2, 256, 8, 1, 256, 64, 64), (2, 256, 2, 1, 256, 128, 128),
+    (2, 384, 4, 2, 64, 128, 96), (1, 512, 6, 2, 128, 128, 128)])
+def test_gate_gt_plain_with_segments_at_new_shapes(b, l, h, hkv, dh, bs, qc):
+    """Head dim 256 and 128-key blocks with packed documents (the Pallas
+    kernel takes no segments): against the reference's oracle and its
+    training path, documents cut mid-block, at a 64-key tile edge inside a
+    128-key block and at a block edge, one-token documents."""
+    q, k, v = _qkv(5, b, l, h, hkv, dh)
+    cuts = [(3, bs // 2, bs // 2 + 1, bs, l // 2 + 7, l - 1), (64, 65, 2 * bs - 1)]
+    seg = _segments(b, l, cuts[:b])
+    jq, jk, jv, js = (jnp.asarray(a) for a in (q, k, v, seg))
+    o_r, bm_r = j_ops.gate_gt_attention(jq, jk, jv, block_size=bs, impl="ref", segment_ids=js)
+    o_c, bm_c = j_cm.chunked_attention(jq, jk, jv, causal=True, q_chunk=qc,
+                                       gt_block_size=bs, segment_ids=js)
+    o_t, bm_t = t_ops.gate_gt_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                                        block_size=bs, q_chunk=qc,
+                                        segment_ids=torch.tensor(seg))
+    for o_j, bm_j in ((o_r, bm_r), (o_c, bm_c)):
+        np.testing.assert_allclose(np32(o_t), np32(o_j), **TOL)
+        check_blockmax(bm_t, bm_j)
 
 
 def test_gate_gt_attention_refusals():
