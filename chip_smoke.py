@@ -17,7 +17,10 @@ group, over fp and int8 pools (kernels ``gate_select_paged`` and
 of the decode API over the same kernels (Quest with its metadata cache,
 the oracle, the sliding window and selection schedules on ``generate``;
 Quest over fp and int8 pools and per-request budgets and sampling on
-``serve``); and gate distillation training, ``train.loop.run_training`` in distill
+``serve``); the pressure and failure paths of ``serve`` (RaaS page
+eviction with ghost rows and replay, over fp, int8 and sharded pools, the
+bounded swap tier with its disk spill, fault injection and the open-loop
+traffic frontend); and gate distillation training, ``train.loop.run_training`` in distill
 mode (kernel ``gate_gt_attention``, TPU kernel 6, on every layer of every
 forward). Then the other dense configs of the port at full width,
 ``gemma_2b`` (MQA 8 x 256), ``granite_20b`` (MQA 48 x 128) and
@@ -210,6 +213,49 @@ non-zero):
      step's layer-0 tensors. The launches of phases 21-22's main paths
      join the counts of the kernels line, their errors its max_abs_err.
 
+The pressure and failure paths of ``serve`` (phases 23-29) run after
+phase 13, on qwen3_0_6b at full width and phase 6's requests unless
+stated, each with the launch counters at 0 just before and read just
+after: the paged gate select and the decode kernel launch layers x
+(decode steps + replayed attempts) times, and their launches join the
+kernels line. Under eviction every table handed to the decode kernel is
+checked to hold no id past the pool, and the first layer call whose raw
+table held ghost ids is captured: #3 over the ghost-extended Kg pool
+(near-tie swaps only, bitwise on exact ties) and the decode kernel over
+the clamped table (phase 3's limit) against their plain versions, their
+errors joining max_abs_err.
+
+ 23. RaaS page eviction, ``EvictionConfig()``, at 644 pages: tokens and
+     every step's logits bitwise phase 6's ample run, no more preemptions
+     than phase 6's tight run; evictions, restores, replays, ghost rows
+     used, swapped bytes and ms/step printed;
+ 24. eviction under a resident cap of RESIDENT_CAP pages a request, the
+     default pool: replays > 0, no ``restore_thrash``, bitwise phase 6's
+     ample run; #3 and #4 on the captured ghost call;
+ 25. int8 eviction under the cap at 644 pages, against phase 9's ample
+     run: logits within 8 bf16 ulps of max|logit| (phase 11's rule) up to
+     each request's first differing token, the equal-token share printed
+     (a replay requantizes the trailing page from its codes, in the
+     reference too); #3 and 4q on the captured ghost call;
+ 26. sharded eviction under the cap at 644 pages (split_k 4, the one-rank
+     NCCL group): over fp pools bitwise phase 11's sharded ample run, over
+     int8 pools held to phase 12's by phase 25's rule; #3 and 5 / 5q on
+     the captured ghost call;
+ 27. a bounded swap tier (a host bound of SWAP_HOST_BYTES under the
+     preempted request's bytes, a temporary disk tier) at 644 pages: the
+     request goes through the disk tier and resumes bitwise phase 6's
+     ample run; the pinned and pageable host <-> device copy rates printed
+     beside the swap cost model's ``offload.PCIE_BW``;
+ 28. a fault storm (FAULT_PLAN over ``page_alloc``, swap put/pop and
+     ``logits``) over phase 6's requests with prompts of at most 4097
+     tokens at FAULT_PAGES pages: serve() returns, at least one request
+     fails alone with its partial tokens, the others are bitwise the run
+     without faults;
+ 29. the traffic frontend: a seeded Poisson trace of 16 requests in two
+     SLO tiers (``default_tiers``) through ``ServingFrontend`` with
+     streaming, twice: the same streams at the same virtual steps; TTFT
+     and TPOT p50/p99 by tier, in steps and ms, printed.
+
 The line before the last is a JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside the repository, the script exits non-zero and prints
@@ -249,9 +295,16 @@ from repro_torch.kernels import gate_gt_fwd as gt  # noqa: E402
 from repro_torch.kernels import gate_select as gs  # noqa: E402
 from repro_torch.models.common import decode_attention  # noqa: E402
 from repro_torch.models.transformer import init_lm, lm_forward  # noqa: E402
+from repro_torch.core.policy import default_tiers  # noqa: E402
+from repro_torch.serve import offload, traffic  # noqa: E402
 from repro_torch.serve import paging as pg  # noqa: E402
 from repro_torch.serve.engine import DecodeEngine  # noqa: E402
+from repro_torch.serve.eviction import EvictionConfig  # noqa: E402
+from repro_torch.serve.faults import FaultInjector  # noqa: E402
+from repro_torch.serve.frontend import ServingFrontend  # noqa: E402
+from repro_torch.serve.offload import SwapConfig  # noqa: E402
 from repro_torch.serve.sampling import SamplingParams  # noqa: E402
+from repro_torch.serve.scheduler import pages_needed  # noqa: E402
 from repro_torch.train import loop as tl  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -307,6 +360,29 @@ OTHER_CONFIGS = {
 OTHER_TRAIN = ("gemma_2b", "granite_20b")
 OTHER_TRAIN_STEPS = 3
 GT_BLOCK_BIG = 128
+# the pressure and failure paths of serve (phases 23-29), on the serve
+# phase's requests unless stated. RESIDENT_CAP pages a request on the card
+# under eviction: under the 64 blocks each head selects a step, so the
+# pages evicted to meet it before a request's first decode step are
+# selected, and that step is replayed after their restore. The bounded
+# swap tier holds SWAP_HOST_BYTES on the host, under the tight run's
+# 3,787,456,512 swapped bytes, so the preempted request goes to disk.
+RESIDENT_CAP = 16
+SWAP_HOST_BYTES = 1 << 30
+# the fault storm: the requests with prompts of at most 4097 tokens, at the
+# pool of their prompts' 65 + 24 + 1 pages and the null page (the first
+# page growth preempts), faults planned at every serve site: a stalled
+# admission and a failed growth (page_alloc), a transient swap put and pop
+# (retried), a non-finite logits row (the request fails alone)
+FAULT_PAGES = 91
+FAULT_PLAN = {"page_alloc": [1, 4], "swap_put": [0], "swap_pop": [0], "logits": [3]}
+# the frontend: 16 requests on a seeded Poisson trace at 0.5 a decode
+# step, prompts of 64-4096 tokens and 8-48 new ones, a quarter in the
+# latency tier (reserved pages, priority, a budget of 4 x 4096 tokens), the
+# rest in the throughput tier (lazy, 4096 tokens), default_tiers
+TRAFFIC_N, TRAFFIC_RATE, TRAFFIC_SEED = 16, 0.5, 3
+TRAFFIC_PROMPT, TRAFFIC_OUTPUT = (64, 4096), (8, 48)
+TRAFFIC_TIERS = {"latency": 0.25, "throughput": 0.75}
 
 
 def fail(msg: str) -> None:
@@ -1022,13 +1098,15 @@ def capture_paged_layer0():
     return seen, restore
 
 
-def run_serve(eng, reqs, num_pages, n_layers):
+def run_serve(eng, reqs, num_pages, n_layers, **kw):
     """One serve() with the launch counters at 0 just before and read just
     after, and the prefill time taken apart (synchronised). The paged gate
     select and the paged decode of the engine's options (fp or int8 pools,
     single-pass or split-K) must launch what ``stage_counts`` predicts
     (layers x decode steps times each, for the gate under the trivial
-    schedule), and no other kernel."""
+    schedule; a replayed attempt of a step under eviction launches as a
+    step does), and no other kernel. ``kw`` goes to serve() (eviction,
+    swap_config)."""
     prefill = eng._paged_prefill
     spent = [0.0]
 
@@ -1045,7 +1123,8 @@ def run_serve(eng, reqs, num_pages, n_layers):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     try:
-        res = eng.serve(reqs, n_slots=SERVE_SLOTS, num_pages=num_pages, collect_logits=True)
+        res = eng.serve(reqs, n_slots=SERVE_SLOTS, num_pages=num_pages, collect_logits=True,
+                        **kw)
     finally:
         counts = ops.launch_counts()
         eng._paged_prefill = prefill
@@ -1063,7 +1142,7 @@ def run_serve(eng, reqs, num_pages, n_layers):
     print(f"serve measured sparsity by rid: "
           + ", ".join(f"{k}: {v:.4f}" for k, v in st["sparsity_by_rid"].items())
           + f"; launch counts {counts}")
-    want = stage_counts(eng.options, n_layers, steps)
+    want = stage_counts(eng.options, n_layers, steps + st["replay_steps"])
     if counts != want:
         fail(f"serve launch counts {counts}, expected {want}")
     if st["retired"] != len(reqs) or st["failed"] or st["errors"]:
@@ -2352,6 +2431,411 @@ def phase_config_train(arch):
     return counts["gate_gt_attention"], numbers
 
 
+# ---------------------------------------------------------------------------
+# the pressure and failure paths of serve (phases 23-29)
+# ---------------------------------------------------------------------------
+
+def same_run(name, base, run, reqs):
+    """Fail unless ``run`` reproduces ``base``'s tokens and per-step logits
+    bitwise for every request."""
+    for r in reqs:
+        rid = r["rid"]
+        if run[rid] != base[rid]:
+            fail(f"{name}: rid {rid}'s tokens differ from the run without pressure")
+        if not np.array_equal(run["logits"][rid], base["logits"][rid]):
+            fail(f"{name}: rid {rid}'s logits differ from the run without pressure")
+
+
+def drift_ulps(base, run, reqs):
+    """-> (worst bf16 ulps of max|logit| over the steps both runs reached
+    from equal histories, tokens equal, tokens in all): the logits of each
+    request compared up to and including its first differing token."""
+    worst, same, total = 0.0, 0, 0
+    for r in reqs:
+        rid = r["rid"]
+        a, b = np.asarray(base[rid]), np.asarray(run[rid])
+        eq = a == b
+        n = len(a) if eq.all() else int(np.argmin(eq)) + 1
+        same += int(eq.sum())
+        total += len(a)
+        la, lb = base["logits"][rid][:n], run["logits"][rid][:n]
+        ulp = 2.0 ** -7 * 2.0 ** math.floor(math.log2(float(np.abs(la).max())))
+        worst = max(worst, float(np.abs(la - lb).max()) / ulp)
+    return worst, same, total
+
+
+class TableWatch:
+    """Wraps the paged gate select and the paged decode dispatch for one
+    serve: keeps each call's largest table id on the device (read once at
+    the end), and copies the arguments of the first gate call whose RAW
+    table holds a ghost id (>= the K/V pool's pages) and of the decode
+    call of the same layer right after it."""
+
+    def __init__(self, n_pages: int):
+        self.n_pages = n_pages
+        self.real = (ops.gate_select_paged, ops.paged_sparse_decode_splitk)
+        self.gate_max, self.decode_max, self.seen = [], [], {}
+        self.arm = False
+
+    def __enter__(self):
+        real_gate, real_dec = self.real
+
+        def copy(x):
+            return x.clone() if torch.is_tensor(x) else x
+
+        def gate(qg, kg_pages, page_table, n_valid, cfg, max_selected=None):
+            self.gate_max.append(page_table.max())
+            if "gate" not in self.seen and int(page_table.max()) >= self.n_pages:
+                self.seen["gate"] = tuple(map(copy, (qg, kg_pages, page_table, n_valid,
+                                                     cfg, max_selected)))
+                self.arm = True
+            return real_gate(qg, kg_pages, page_table, n_valid, cfg, max_selected)
+
+        def decode(*a, **kw):
+            self.decode_max.append(a[4].max())
+            if self.arm:
+                self.seen["decode"] = (tuple(map(copy, a)), {k: copy(v) for k, v in kw.items()})
+                self.arm = False
+            return real_dec(*a, **kw)
+        ops.gate_select_paged, ops.paged_sparse_decode_splitk = gate, decode
+        return self
+
+    def __exit__(self, *exc):
+        ops.gate_select_paged, ops.paged_sparse_decode_splitk = self.real
+
+    def check(self, name):
+        """-> the largest table ids the gate select and the decode kernel
+        got; fails if the decode kernel got one past the pool."""
+        top_dec = int(torch.stack(self.decode_max).max())
+        top_gate = int(torch.stack(self.gate_max).max())
+        if top_dec >= self.n_pages:
+            fail(f"{name}: a table handed to the decode kernel holds id {top_dec} >= "
+                 f"the pool's {self.n_pages} pages")
+        return top_gate, top_dec
+
+
+def run_pressure(label, eng, reqs, num_pages, n_layers, **kw):
+    """run_serve under a TableWatch, ghost rows counted through
+    ``paging.copy_gate_rows``; prints the eviction, swap and replay
+    telemetry. Returns (result, launch counts, watch)."""
+    real_copy = pg.copy_gate_rows
+    ghosts = set()
+
+    def copy_gate_rows(pages, src, dst):
+        ghosts.update(int(x) for x in dst.tolist() if x > 0)
+        return real_copy(pages, src, dst)
+    pg.copy_gate_rows = copy_gate_rows
+    if num_pages is None:                  # serve's default pool, named for the watch
+        num_pages = SERVE_SLOTS * max(pages_needed(r["tokens"].size, r["max_new_tokens"],
+                                                   eng.cfg.gate.block_size) for r in reqs) + 1
+    watch = TableWatch(num_pages)
+    try:
+        with watch:
+            res, counts, prefill_s = run_serve(eng, reqs, num_pages, n_layers, **kw)
+    finally:
+        pg.copy_gate_rows = real_copy
+    st = res["stats"]
+    top_gate, top_dec = watch.check(label)
+    steps = st["decode_steps"]
+    sw = st["swap"]
+    print(f"{label}: evictions {st['evictions']}, page restores {st['page_restores']}, "
+          f"replayed steps {st['replay_steps']}, ghost rows used {len(ghosts)}, preemptions "
+          f"{st['preemptions']}; swapped out {st['swapped_out_bytes']} B, in "
+          f"{st['swapped_in_bytes']} B (host tier peak {sw['peak_host_bytes']} B, disk tier "
+          f"peak {sw['peak_disk_bytes']} B, demotions {sw['demotions']}, promotions "
+          f"{sw['promotions']}); {steps} decode steps, "
+          f"{1e3 * (st['wall_s'] - prefill_s) / steps:.2f} ms/step with the replays and "
+          f"swaps; largest table id to the gate select {top_gate}, to the decode kernel "
+          f"{top_dec} (pool {st['num_pages']} pages)")
+    return res, counts, watch
+
+
+def check_ghost_kernels(name, watch, decode_kernel_fn, decode_plain_fn):
+    """#3 and a decode kernel against their plain versions on the first
+    layer call whose raw table held ghost ids (``watch.seen``): #3 over
+    the ghost-extended Kg pool through the raw table (near-tie swaps only,
+    and bitwise on exact ties), the decode kernel through the clamped
+    table (phase 3's limit). Returns (gate error, decode error)."""
+    if "gate" not in watch.seen:
+        fail(f"{name}: no step read a ghost id")
+    qg, kgp, pt, nv, gcfg, ms = watch.seen["gate"]
+    (q, kp, vp, idx, pt_kv, kv_len), kw = watch.seen["decode"]
+    kw = {k: kw[k] for k in ("block_size", "k_scales", "v_scales") if kw.get(k) is not None}
+    n_ghost = int((pt >= kp.shape[0]).sum())
+    print(f"{name}: layer 0 of the first attempt with ghost ids: {n_ghost} table entries "
+          f"past the pool's {kp.shape[0]} pages, Kg pool {tuple(kgp.shape)}; the decode's "
+          f"table clamped at {int(pt_kv.max())}")
+
+    def gate_checks(q_, pool, exact):
+        return gate_cases(
+            f"{name} gate_select_paged",
+            lambda n, c: gs.gate_select_paged_cuda(q_, pool, pt, n, c, ms),
+            lambda n, c: gs.gate_select_paged_plain(q_, pool, pt, n, c, ms),
+            lambda n, c: gs.gate_scores_plain(q_, pg.gather_kg(pool, pt), n, c), nv,
+            pt.shape[1], gcfg, exact=exact)
+    checks, swaps, gate_err = gate_checks(qg, kgp, False)
+    tq, tk = tie_inputs(qg, kgp)
+    t_checks, t_swaps, _ = gate_checks(tq, tk, True)
+    print(f"{name} gate_select_paged over ghost rows: {checks} cases equal to plain "
+          f"(near-tie swaps {swaps}); exact ties {t_checks} cases, budget ids bitwise, "
+          f"threshold swaps {t_swaps}")
+    dec_err = check_decode(f"{name} {decode_kernel_fn.__name__} (clamped table)",
+                           lambda qq, ix: decode_kernel_fn(qq, kp, vp, ix, pt_kv, kv_len, **kw),
+                           lambda qq, ix: decode_plain_fn(qq, kp, vp, ix, pt_kv, kv_len, **kw),
+                           decode_cases(q, idx))
+    return gate_err, dec_err
+
+
+def copy_rates(nbytes: int = 1 << 30):
+    """Host <-> device copy rates in GB/s over ``nbytes``, pinned and
+    pageable host memory (CUDA events, median of 5), beside the swap cost
+    model's ``offload.PCIE_BW``."""
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    out = {}
+    for kind, host in (("pinned", torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)),
+                       ("pageable", torch.empty(nbytes, dtype=torch.uint8))):
+        for way, (dst, src) in (("h2d", (dev, host)), ("d2h", (host, dev))):
+            t = time_ms(lambda: dst.copy_(src, non_blocking=True), runs=5, warmup=1)
+            out[f"{kind} {way}"] = nbytes / t / 1e6
+        del host
+    del dev
+    return out
+
+
+def phase_pressure(cfg, params, shard, fp_runs, q8_ample, sh_ample, shq_ample):
+    """Phases 23-27: serve's eviction (fp at the tight pool and under a
+    resident cap, int8 and sharded fp and int8 under the cap) and its
+    bounded swap tier, held to phase 6, 9, 11 and 12's runs. Returns
+    (launch counts of the paths, the kernels' errors on the eviction
+    path)."""
+    reqs = serve_requests(cfg.vocab_size)
+    max_len = max(p + m for p, m in SERVE_SPECS)
+    n = cfg.num_layers
+    fp_ample, fp_tight = fp_runs
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    errs = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] += v
+
+    def join(name, err):
+        errs.setdefault(name, []).append(err)
+
+    t0 = time.perf_counter()
+    eng = DecodeEngine(cfg, params, max_len=max_len)
+    print(f"eviction (phase 23): EvictionConfig() at {TIGHT_PAGES} pages")
+    res, c, _ = run_pressure("eviction at the tight pool", eng, reqs, TIGHT_PAGES, n,
+                             eviction=EvictionConfig())
+    add(c)
+    same_run("eviction at the tight pool", fp_ample, res, reqs)
+    if res["stats"]["preemptions"] > fp_tight["stats"]["preemptions"]:
+        fail(f"eviction preempted {res['stats']['preemptions']} requests, the tight run "
+             f"{fp_tight['stats']['preemptions']}")
+    print(f"eviction at the tight pool reproduces phase 6's ample run bitwise (tokens, "
+          f"logits) with {res['stats']['preemptions']} preemptions against the tight run's "
+          f"{fp_tight['stats']['preemptions']}")
+
+    cap = EvictionConfig(max_resident_pages=RESIDENT_CAP)
+    print(f"eviction under a resident cap (phase 24): {RESIDENT_CAP} pages a request, "
+          f"default pool")
+    res, c, watch = run_pressure("eviction under the cap", eng, reqs, None, n, eviction=cap)
+    add(c)
+    st = res["stats"]
+    if st["replay_steps"] < 1:
+        fail("the resident cap forced no replay")
+    same_run("eviction under the cap", fp_ample, res, reqs)
+    g_err, d_err = check_ghost_kernels("eviction under the cap", watch,
+                                       bsd.sparse_decode_paged_cuda,
+                                       bsd.sparse_decode_paged_plain)
+    join("gate_select_paged", g_err)
+    join("block_sparse_decode_paged", d_err)
+    print(f"eviction under the cap reproduces phase 6's ample run bitwise with "
+          f"{st['replay_steps']} replayed steps and no restore_thrash")
+    del eng, watch
+    torch.cuda.empty_cache()
+
+    print(f"int8 eviction (phase 25): the cap at {TIGHT_PAGES} pages, quantize='int8'")
+    eng = DecodeEngine(cfg, params, max_len=max_len, options=DecodeOptions(quantize="int8"))
+    res, c, watch = run_pressure("int8 eviction", eng, reqs, TIGHT_PAGES, n, eviction=cap)
+    add(c)
+    if res["stats"]["replay_steps"] < 1:
+        fail("int8 eviction replayed no step")
+    worst, same, total = drift_ulps(q8_ample, res, reqs)
+    if worst > DECODE_ULPS:
+        fail(f"int8 eviction: logits {worst:.2f} bf16 ulps from phase 9's ample run "
+             f"(limit {DECODE_ULPS})")
+    print(f"int8 eviction against phase 9's ample run: logits within {worst:.3f} bf16 ulps "
+          f"of max|logit| up to each request's first differing token (limit {DECODE_ULPS}; "
+          f"a replay requantizes the trailing page, as in the reference); tokens equal "
+          f"{same}/{total}")
+    g_err, d_err = check_ghost_kernels("int8 eviction", watch,
+                                       bsd.sparse_decode_paged_quant_cuda,
+                                       bsd.sparse_decode_paged_plain)
+    join("gate_select_paged", g_err)
+    join("block_sparse_decode_paged_quant", d_err)
+    del eng, watch
+    torch.cuda.empty_cache()
+
+    for quantize, kernel, base in ((None, bsd.sparse_decode_paged_splitk_cuda, sh_ample),
+                                   ("int8", bsd.sparse_decode_paged_splitk_quant_cuda,
+                                    shq_ample)):
+        label = "sharded eviction" + (" (int8)" if quantize else "")
+        print(f"{label} (phase 26): the cap at {TIGHT_PAGES} pages, split_k={SPLIT_K}, "
+              f"one NCCL rank")
+        eng = DecodeEngine(cfg, params, max_len=max_len, shard=shard,
+                           options=DecodeOptions(split_k=SPLIT_K, quantize=quantize))
+        res, c, watch = run_pressure(label, eng, reqs, TIGHT_PAGES, n, eviction=cap)
+        add(c)
+        if res["stats"]["replay_steps"] < 1:
+            fail(f"{label} replayed no step")
+        if quantize is None:
+            same_run(label, base, res, reqs)
+            print(f"{label} reproduces phase 11's sharded ample run bitwise")
+        else:
+            worst, same, total = drift_ulps(base, res, reqs)
+            if worst > DECODE_ULPS:
+                fail(f"{label}: logits {worst:.2f} bf16 ulps from phase 12's ample run")
+            print(f"{label} against phase 12's sharded int8 ample run: logits within "
+                  f"{worst:.3f} bf16 ulps up to each request's first differing token (limit "
+                  f"{DECODE_ULPS}); tokens equal {same}/{total}")
+        name = decode_kernel(eng.options)
+        splitk = lambda *a, kernel=kernel, **kw: kernel(*a, num_splits=SPLIT_K, **kw)
+        splitk.__name__ = name
+        g_err, d_err = check_ghost_kernels(
+            label, watch, splitk,
+            lambda *a, **kw: bsd.sparse_decode_paged_splitk_plain(*a, num_splits=SPLIT_K,
+                                                                  **kw))
+        join("gate_select_paged", g_err)
+        join(name, d_err)
+        del eng, watch
+        torch.cuda.empty_cache()
+
+    print(f"bounded swap (phase 27): {TIGHT_PAGES} pages, a host tier of {SWAP_HOST_BYTES} B "
+          f"over a temporary disk tier")
+    rates = copy_rates()
+    print("host <-> device copies, GB/s (1 GiB, CUDA events): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + f"; the swap cost model's PCIE_BW {offload.PCIE_BW / 1e9:.0f} GB/s (PCIe Gen5 "
+          f"x16, each way)")
+    eng = DecodeEngine(cfg, params, max_len=max_len)
+    disk = tempfile.mkdtemp(prefix="chip_smoke_swap_")
+    try:
+        res, c, _ = run_pressure("bounded swap", eng, reqs, TIGHT_PAGES, n,
+                                 swap_config=SwapConfig(host_capacity_bytes=SWAP_HOST_BYTES,
+                                                        disk_dir=disk))
+    finally:
+        shutil.rmtree(disk, ignore_errors=True)
+    add(c)
+    sw = res["stats"]["swap"]
+    if sw["peak_disk_bytes"] <= 0 or sw["peak_host_bytes"] > SWAP_HOST_BYTES:
+        fail(f"bounded swap: disk peak {sw['peak_disk_bytes']} B, host peak "
+             f"{sw['peak_host_bytes']} B")
+    same_run("bounded swap", fp_ample, res, reqs)
+    print(f"bounded swap: the preempted request went through the disk tier "
+          f"({sw['peak_disk_bytes']} B) and resumed bitwise")
+    del eng
+    torch.cuda.empty_cache()
+    print(f"pressure phases 23-27: {time.perf_counter() - t0:.1f} s; launch counts {counts}")
+    return counts, errs
+
+
+def phase_faults(cfg, params):
+    """Phase 28: a fault storm over ``page_alloc``, swap put/pop and
+    ``logits`` (FAULT_PLAN) on the requests of phase 6 with prompts of
+    at most 4097 tokens, at a pool of FAULT_PAGES that preempts: serve()
+    returns, every request retires or fails alone, and each one that did
+    not fail is bitwise the same run without faults."""
+    t0 = time.perf_counter()
+    reqs = [r for r in serve_requests(cfg.vocab_size) if r["tokens"].size <= 4097]
+    eng = DecodeEngine(cfg, params, max_len=max(p + m for p, m in SERVE_SPECS))
+    kw = dict(n_slots=SERVE_SLOTS, num_pages=FAULT_PAGES, collect_logits=True)
+    clean = eng.serve(reqs, **kw)
+    ops.reset_launch_counts()
+    res = eng.serve(reqs, faults=FaultInjector(FAULT_PLAN), **kw)
+    counts = ops.launch_counts()
+    st = res["stats"]
+    if st["retired"] + st["failed"] != len(reqs) or st["failed"] < 1:
+        fail(f"fault storm: retired {st['retired']}, failed {st['failed']} of {len(reqs)}")
+    for r in reqs:
+        rid = r["rid"]
+        if rid in st["errors"]:
+            continue
+        if res[rid] != clean[rid] or not np.array_equal(res["logits"][rid],
+                                                        clean["logits"][rid]):
+            fail(f"fault storm: surviving rid {rid} differs from the run without faults")
+    want = stage_counts(eng.options, cfg.num_layers, st["decode_steps"])
+    if counts != want:
+        fail(f"fault storm launch counts {counts}, expected {want}")
+    print(f"fault storm (phase 28): {len(reqs)} requests (prompts "
+          f"{[r['tokens'].size for r in reqs]}), {FAULT_PAGES} pages, plan {FAULT_PLAN}: "
+          f"errors {st['errors']}, partial tokens "
+          f"{ {rid: len(res[rid]) for rid in st['errors']} }, fired {st['faults']['fired']}, "
+          f"preemptions {st['preemptions']}, swap retries {st['swap']['retries_used']}; the "
+          f"survivors bitwise the fault-free run; {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_frontend(cfg, params):
+    """Phase 29: a seeded open-loop trace (TRAFFIC_*) in two SLO tiers
+    through ``ServingFrontend`` with streaming, twice: equal streams and
+    virtual-step stamps, the launches of the first run (layers x the decode
+    steps it ran); TTFT/TPOT p50/p99 by tier in decode steps and ms
+    printed."""
+    t0 = time.perf_counter()
+    trace = traffic.poisson_trace(TRAFFIC_N, TRAFFIC_RATE, seed=TRAFFIC_SEED,
+                                  prompt_len=TRAFFIC_PROMPT, output_len=TRAFFIC_OUTPUT,
+                                  tiers=TRAFFIC_TIERS)
+    eng = DecodeEngine(cfg, params, max_len=TRAFFIC_PROMPT[1] + TRAFFIC_OUTPUT[1])
+    # an open-loop gap ticks the step clock with no step run: count the
+    # steps the engine runs
+    real_api, ran = eng.api, [0]
+
+    def step(*a, **kw):
+        ran[0] += 1
+        return real_api.decode_step_paged(*a, **kw)
+    runs = []
+    for i in range(2):
+        fe = ServingFrontend(eng, tier_policy=default_tiers(cfg), n_slots=SERVE_SLOTS)
+        if i == 0:
+            eng.api = real_api._replace(decode_step_paged=step)
+            ops.reset_launch_counts()
+        try:
+            runs.append(fe.run(trace, collect_events=True))
+        finally:
+            eng.api = real_api
+        if i == 0:
+            counts = ops.launch_counts()
+    a, b = runs
+    st = a["stats"]
+    if st["errors"] or b["stats"]["errors"]:
+        fail(f"frontend: errors {st['errors']} / {b['stats']['errors']}")
+    for e in trace:
+        if a[e.rid] != b[e.rid] or len(a[e.rid]) != e.output_len:
+            fail(f"frontend: rid {e.rid}'s stream differs between runs or is short")
+    ev = [[(x.rid, x.token, x.index, x.step) for x in r["events"]] for r in runs]
+    if ev[0] != ev[1] or len(ev[0]) != sum(e.output_len for e in trace):
+        fail("frontend: the streamed events differ between the two runs")
+    want = stage_counts(eng.options, cfg.num_layers, ran[0])
+    if counts != want:
+        fail(f"frontend launch counts {counts}, expected {want}")
+    print(f"frontend (phase 29): {TRAFFIC_N} requests, Poisson at {TRAFFIC_RATE} a decode "
+          f"step (seed {TRAFFIC_SEED}), prompts {TRAFFIC_PROMPT}, outputs {TRAFFIC_OUTPUT}, "
+          f"tiers {TRAFFIC_TIERS} under default_tiers; {st['decode_steps']} steps on the "
+          f"clock, {ran[0]} of them decode steps, "
+          f"wall {st['wall_s']:.2f} / {b['stats']['wall_s']:.2f} s; two runs stream the same "
+          f"{len(ev[0])} tokens at the same steps")
+    for tier, row in st["tiers"].items():
+        print(f"frontend tier {tier}: n {row['n']:.0f}, TTFT p50/p99 "
+              f"{row['ttft_steps_p50']:.1f}/{row['ttft_steps_p99']:.1f} steps, "
+              f"{row['ttft_ms_p50']:.1f}/{row['ttft_ms_p99']:.1f} ms; TPOT p50/p99 "
+              f"{row['tpot_steps_p50']:.3f}/{row['tpot_steps_p99']:.3f} steps, "
+              f"{row['tpot_ms_p50']:.1f}/{row['tpot_ms_p99']:.1f} ms; "
+              f"{row['tok_per_s']:.1f} tok/s")
+    print(f"frontend: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2431,7 +2915,8 @@ def run_phases(shard) -> int:
     check_sharded_serve(cfg, fp_runs, sh_runs)
     numbers.update(phase_splitk_kernels(seen))
     gate_tight_stats = fp_runs[1]["stats"]
-    del seen, sh_runs, fp_runs
+    sh_ample = sh_runs[0]
+    del seen, sh_runs
     torch.cuda.empty_cache()
     phase_serve_profile(cfg, params, DecodeOptions(split_k=SPLIT_K), shard,
                         label=f"sharded serve (split_k {SPLIT_K})")
@@ -2441,12 +2926,24 @@ def run_phases(shard) -> int:
         cfg, params, DecodeOptions(quantize="int8", split_k=SPLIT_K), shard, tight_pool=False)
     check_sharded_serve(cfg, q8_runs, shq_runs)
     numbers.update(phase_splitk_kernels(seen))
+    q8_ample, shq_ample = q8_runs[0], shq_runs[0]
     del seen, shq_runs, q8_runs
     for name, runs in (("block_sparse_decode_paged_splitk", sh_counts),
                        ("block_sparse_decode_paged_splitk_quant", shq_counts)):
         counts[name] = runs[name]
     # the contiguous int8 kernel lies on no model path
     counts["block_sparse_decode_quant"] = 0
+    torch.cuda.empty_cache()
+
+    # the pressure and failure paths: their launches join the counts, the
+    # eviction path's kernel errors the kernels' max_abs_err
+    more, ev_errs = phase_pressure(cfg, params, shard, fp_runs, q8_ample, sh_ample, shq_ample)
+    del fp_runs, q8_ample, sh_ample, shq_ample
+    for c in (more, phase_faults(cfg, params), phase_frontend(cfg, params)):
+        for name, n in c.items():
+            counts[name] += n
+    for name, more_errs in ev_errs.items():
+        numbers[name]["max_abs_err"] = max([numbers[name]["max_abs_err"], *more_errs])
     torch.cuda.empty_cache()
 
     # the rest of the decode API; the errors on its id lists join the

@@ -1,7 +1,6 @@
 """Selection-metadata cache: incremental per-block key min/max, PyTorch port.
 
-Port of the JAX package's ``core/metacache.py`` (without ``BlockHeat``,
-which belongs to the eviction slice). The metadata twin of the Kg cache
+Port of the JAX package's ``core/metacache.py``. The metadata twin of the Kg cache
 (``core.kcache``): prefill bulk-builds it, decode pays an O(block_size)
 update only when ``cur_len`` crosses a block boundary, and the trailing
 PARTIAL block is overlaid on the fly from its one block-sized slice of
@@ -20,11 +19,15 @@ Entries at slots ``>= n_complete`` are stale; ``cur_len == 0`` rows
 The reference returns new arrays; ``update_metacache`` writes the one
 block row IN PLACE into the caller's tensors and returns the new counts.
 The paged twin lives in ``serve.paging`` (``kmin_pages``/``kmax_pages``).
+
+``BlockHeat`` is the host-side recency/mass twin that the page-eviction
+victim model reads (``serve.eviction``).
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.quest import _masked_minmax, quest_meta_decode
@@ -134,6 +137,41 @@ def trailing_meta_paged(k_pages: torch.Tensor, page_table: torch.Tensor,
     valid = (ar[None, :] < rem[:, None])[:, None, :, None]
     tmin, tmax = _block_minmax(blk, valid)
     return tmin, tmax, t_idx
+
+
+class BlockHeat:
+    """Host-side recency/mass twin of the selection metadata.
+
+    RaaS-style (arXiv 2502.11147) retention signal for the page-eviction
+    victim model: per (slot, logical block), the step of the LAST time any
+    head selected the block (``last_touch``) and an exponential moving
+    average of its selection mass (``ema`` — how often the block keeps
+    being re-touched). Updated once per COMMITTED decode step from the
+    touched-pages telemetry the step emits; replayed (discarded) attempts
+    are never observed, so the signal matches what the request actually
+    attended to. Plain numpy, as in the reference: the victim model runs
+    on the host between steps, like the scheduler."""
+
+    def __init__(self, n_slots: int, n_blocks: int, decay: float = 0.8):
+        self.decay = float(decay)
+        self.step = 0
+        self.last_touch = np.full((n_slots, n_blocks), -1, np.int64)
+        self.ema = np.zeros((n_slots, n_blocks), np.float32)
+
+    def observe(self, touched: np.ndarray, active: np.ndarray) -> None:
+        """touched [n_slots, n_blocks] bool (any layer, any head selected
+        the block this step); active [n_slots] bool."""
+        self.step += 1
+        t = touched & active[:, None]
+        self.ema[active] *= self.decay
+        self.ema[t] += 1.0
+        self.last_touch[t] = self.step
+
+    def reset_row(self, slot: int) -> None:
+        """A slot changed tenants (admission/retire/preempt): heat from
+        the previous request must not bias the new one's victim model."""
+        self.last_touch[slot] = -1
+        self.ema[slot] = 0.0
 
 
 def overlay_trailing(kmin: torch.Tensor, kmax: torch.Tensor,

@@ -1,7 +1,9 @@
 """Block-selection policies + the ``DecodeOptions`` decode API, PyTorch port.
 
-Port of the JAX package's ``core/policy.py`` (its SLO tiers arrive with
-the traffic-frontend slice):
+Port of the JAX package's ``core/policy.py``: the policies, the
+``DecodeOptions`` that carry them, and the SLO tiers (``TierSpec``,
+``TierPolicy``, ``default_tiers``) that map a tenant tier onto the
+serving engine's per-request fields.
 
   GatePolicy            the paper's learned gate: gate query -> fused gate
                         score + top-k over the K-compression cache
@@ -35,7 +37,7 @@ checks ``split_k``, the policy and the schedule against it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -478,6 +480,12 @@ class DecodeOptions:
     schedule:         step-level SelectionSchedule (cross-layer plan reuse,
                       cross-head unification); the default selects in
                       every layer per head
+    track_evictions:  paged decode only: emit a per-step ``touched_pages``
+                      [n_slots, npt] bool aux (which logical blocks any
+                      layer or head attended) and read K/V through the page
+                      table clamped into the physical pool, so the serving
+                      engine can run RaaS page eviction with optimistic
+                      execution + replay. Off by default
     """
     policy: Any = GatePolicy()
     sampling: SamplingParams = GREEDY
@@ -486,6 +494,7 @@ class DecodeOptions:
     quantize: Optional[str] = None
     split_k: int = 1
     schedule: SelectionSchedule = SelectionSchedule()
+    track_evictions: bool = False
 
     def __post_init__(self):
         if self.quantize not in (None, "int8"):
@@ -500,6 +509,22 @@ class DecodeOptions:
             raise ValueError("a non-trivial SelectionSchedule is "
                              "meaningless under DensePolicy (no selection "
                              "to schedule)")
+        if self.track_evictions and getattr(self.policy, "reads_full_kv", True):
+            raise ValueError(
+                "track_evictions (RaaS page eviction) requires a policy "
+                "that only reads SELECTED blocks' K/V "
+                f"(reads_full_kv=False); {type(self.policy).__name__} "
+                "reads the full cache, so evicted pages would be silently "
+                "read as garbage")
+        if self.track_evictions and (
+                self.schedule.dense_first_n > 0
+                or (self.schedule.select_layer or 0) > 0):
+            raise ValueError(
+                "track_evictions cannot run with a schedule that stages "
+                "any layer DENSE (dense_first_n > 0 or select_layer > 0): "
+                "DENSE-staged layers read every visible block, so every "
+                "evicted page would fault every step (evict/restore "
+                "thrash)")
 
     def max_selected(self, cfg: ModelConfig) -> Optional[int]:
         """Selected-list width override in BLOCKS (None = config budget).
@@ -526,3 +551,105 @@ def default_options(cfg: ModelConfig) -> DecodeOptions:
 
 
 DENSE_OPTIONS = DecodeOptions(policy=DensePolicy())
+
+
+# -- SLO tiers ---------------------------------------------------------------
+#
+# A tenant tier maps onto the serving engine's RUN-TIME knobs only: the
+# per-request token budget (a per-slot cap on the selected-block list),
+# per-request SamplingParams, per-request reserve admission and scheduler
+# priority. Anything that would change the step's program (policy class,
+# schedule) deliberately has no per-tier field, so every tier shares one
+# DecodeOptions per serve() call.
+
+@dataclasses.dataclass(frozen=True)
+class TierSpec:
+    """One tenant tier's serving contract.
+
+    priority:  admission order (higher first; FIFO within a tier) AND
+               preemption/eviction protection (victims are picked lowest
+               priority first — a latency-tier request is never preempted
+               or page-evicted while a throughput-tier victim exists).
+    admission: "reserve" pins the request's full-lifetime page budget at
+               admission (it can never stall mid-decode; the latency
+               contract), "lazy" admits on current occupancy and grows
+               on demand (the throughput contract — more concurrency,
+               preemptible).
+    budget:    per-request token budget override (run-time cap; None =
+               the engine options' budget). Latency tiers typically run
+               dense-ish (large budget), throughput tiers aggressively
+               sparse (small budget).
+    sampling:  per-request SamplingParams (None = engine default).
+    """
+    name: str = "default"
+    priority: int = 0
+    admission: str = "lazy"
+    budget: Optional[int] = None
+    sampling: Optional[SamplingParams] = None
+
+    def __post_init__(self):
+        if self.admission not in ("lazy", "reserve"):
+            raise ValueError(f"tier {self.name!r}: admission "
+                             f"{self.admission!r} not in ('lazy', 'reserve')")
+        if self.budget is not None and self.budget <= 0:
+            raise ValueError(f"tier {self.name!r}: budget must be positive: "
+                             f"{self.budget}")
+
+    def request_fields(self) -> dict:
+        """The per-request dict fields the serving engine understands —
+        merge into a request dict to place it in this tier."""
+        out = {"tier": self.name, "priority": self.priority,
+               "reserve": self.admission == "reserve"}
+        if self.budget is not None:
+            out["budget"] = self.budget
+        if self.sampling is not None:
+            out["sampling"] = self.sampling
+        return out
+
+
+class TierPolicy:
+    """tier name -> TierSpec registry with a default fallback.
+
+    ``apply(request_dict, tier)`` returns a NEW request dict carrying the
+    tier's engine fields; explicit per-request overrides in the input
+    dict win over the tier (a caller can still hand-tune one request).
+    """
+
+    def __init__(self, tiers: Sequence[TierSpec] = (),
+                 default: Optional[TierSpec] = None):
+        self.default = default if default is not None else TierSpec()
+        self.tiers: Dict[str, TierSpec] = {t.name: t for t in tiers}
+        if len(self.tiers) != len(tiers):
+            names = [t.name for t in tiers]
+            raise ValueError(f"duplicate tier names: {sorted(names)}")
+
+    def get(self, name: Optional[str]) -> TierSpec:
+        if name is None:
+            return self.default
+        try:
+            return self.tiers[name]
+        except KeyError:
+            raise ValueError(f"unknown tier {name!r}; have "
+                             f"{sorted(self.tiers)}") from None
+
+    def apply(self, request: dict, tier: Optional[str] = None) -> dict:
+        spec = self.get(tier if tier is not None else request.get("tier"))
+        merged = dict(spec.request_fields())
+        merged.update({k: v for k, v in request.items() if k != "tier"})
+        merged["tier"] = spec.name
+        return merged
+
+
+def default_tiers(cfg: ModelConfig) -> TierPolicy:
+    """The two-tier split of a reasoning server: a latency-critical tier
+    (reserved pages, priority, near-dense budget) and a best-effort
+    throughput tier (lazy admission, preemptible, aggressive sparsity).
+    Budgets scale with the config's token budget, so the tiers stay
+    meaningful at reduced test configs."""
+    base = max(cfg.gate.token_budget, cfg.gate.block_size)
+    return TierPolicy(tiers=(
+        TierSpec(name="latency", priority=10, admission="reserve",
+                 budget=4 * base),
+        TierSpec(name="throughput", priority=0, admission="lazy",
+                 budget=base),
+    ), default=TierSpec())

@@ -5,8 +5,9 @@ paged per-layer decode body (``attention_decode_paged`` ->
 ``block_decode_paged``) of the JAX package's ``models/attn_core.py``:
 the unstaged and the staged (SelectionSchedule) branch with per-request
 budget caps, unsharded or (unstaged, uncapped) over a rank's KV heads,
-over fp or int8 page pools, with the metadata pools of Quest. Eviction
-telemetry arrives with its slice.
+over fp or int8 page pools, with the metadata pools of Quest, and the
+RaaS eviction telemetry (``DecodeOptions.track_evictions``: the
+touched-pages mask and the clamped K/V table).
 """
 from __future__ import annotations
 
@@ -75,14 +76,39 @@ def _zero_layer_aux(batch: int, device) -> LayerAux:
     return torch.zeros((), dtype=torch.float32, device=device), z, z, z
 
 
+def _touched_pages(idx: torch.Tensor, nb: int) -> torch.Tensor:
+    """Selected block ids [B, Hkv, k] -> touched mask [B, nb] bool: which
+    logical blocks ANY head read this layer. The RaaS eviction signal
+    (``DecodeOptions.track_evictions``): the serving engine intersects it
+    with its evicted-page mask to detect a selected-but-evicted block
+    (fault -> restore -> replay) and feeds it to the ``BlockHeat`` recency
+    model."""
+    b = idx.shape[0]
+    cnt = torch.zeros((b, nb), dtype=torch.int32, device=idx.device)
+    cnt.scatter_add_(1, torch.clamp_min(idx, 0).reshape(b, -1).to(torch.int64),
+                     (idx >= 0).reshape(b, -1).to(torch.int32))
+    return cnt > 0
+
+
+def _dense_touched(new_len: torch.Tensor, block_size: int, nb: int) -> torch.Tensor:
+    """Dense decode touches every visible block."""
+    vis = kc.visible_blocks(torch.clamp_min(new_len, 1), block_size)   # [B]
+    return torch.arange(nb, device=new_len.device)[None, :] < vis[:, None]
+
+
 def aggregate_decode_aux(auxs: Sequence[LayerAux]) -> Dict[str, torch.Tensor]:
     """Per-layer (rho, rho_rows [B], sel [B], vis [B]) tuples -> the
-    decode-step aux dict, averaged over layers."""
-    rho, rho_rows, sel, vis = (torch.stack(list(x)) for x in zip(*auxs))
-    return {"sparsity": torch.mean(rho),
-            "sparsity_rows": torch.mean(rho_rows, dim=0),
-            "sel_blocks": torch.mean(sel, dim=0),
-            "vis_blocks": torch.mean(vis, dim=0)}
+    decode-step aux dict, averaged over layers. A fifth element (the
+    touched-pages mask [B, nb] under ``track_evictions``) ORs over layers:
+    a block is touched if ANY layer's selection read it."""
+    rho, rho_rows, sel, vis = (torch.stack(list(x)) for x in list(zip(*auxs))[:4])
+    out = {"sparsity": torch.mean(rho),
+           "sparsity_rows": torch.mean(rho_rows, dim=0),
+           "sel_blocks": torch.mean(sel, dim=0),
+           "vis_blocks": torch.mean(vis, dim=0)}
+    if len(auxs[0]) > 4:
+        out["touched_pages"] = torch.stack([a[4] for a in auxs]).any(dim=0)
+    return out
 
 
 def _cap_budget(idx: torch.Tensor, budget_blocks) -> torch.Tensor:
@@ -134,7 +160,18 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     collective inside the layer, and o and the selected ids are
     all-gathered to full heads, in one collective, before ``wo``. Attention is independent
     per KV head, so at ``split_k=1`` the step is bitwise the unsharded
-    one. The sharded body takes neither a schedule nor budget caps."""
+    one. The sharded body takes neither a schedule nor budget caps.
+
+    ``options.track_evictions`` (RaaS page eviction): the page table may
+    hold GHOST ids (>= the K/V pool size) for evicted blocks. They are
+    valid rows of the extended Kg and metadata pools, so SELECTION reads
+    them through the raw table unchanged; every K/V reader (the kernel,
+    the dense fallback) reads through the table clamped into the pool, and
+    the aux grows a fifth element, the touched-pages mask [S, npt] of this
+    layer (from the ids gathered over ranks on the sharded body), by which
+    the engine catches a selected evicted block and replays the step. The
+    append and the trailing-page reads use the raw table: the trailing
+    block is never evicted."""
     b = x1.shape[0]
     dh, hkv, g = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.gqa_group
     ps = cfg.gate.block_size
@@ -145,6 +182,8 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     qr = apply_rope(q, pos, cfg.rope_theta)
     kr = apply_rope(k, pos, cfg.rope_theta)
     npt = page_table.shape[1]
+    pt_kv = (torch.clamp_max(page_table, k_pages.shape[0] - 1)
+             if options.track_evictions else page_table)
     gate = p.get("gate")
     if shard is not None:                  # this rank's KV heads and their queries
         if stage is not None or budget_blocks is not None:
@@ -187,7 +226,7 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     if sparse_on and stage != STAGE_DENSE:
         idx = _cap_budget(idx, budget_blocks)
         qgrp = qr[:, 0].reshape(b, hl, g, dh).contiguous()
-        o = ops.paged_sparse_decode_splitk(qgrp, k_pages, v_pages, idx, page_table,
+        o = ops.paged_sparse_decode_splitk(qgrp, k_pages, v_pages, idx, pt_kv,
                                            new_len, block_size=ps,
                                            num_splits=options.split_k,
                                            k_scales=k_scale, v_scales=v_scale)
@@ -197,15 +236,19 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
         aux = (_selection_aux(sel, kc.visible_blocks(
                    torch.clamp_min(new_len, 1), ps), npt)
                if options.measure_sparsity else _zero_layer_aux(b, x1.device))
+        if options.track_evictions:
+            aux = aux + (_touched_pages(sel, npt),)
     else:
-        k_ct = pg.gather_kv(k_pages, page_table, k_scale)  # [S,Hkv,npt*ps,Dh]
-        v_ct = pg.gather_kv(v_pages, page_table, v_scale)
+        k_ct = pg.gather_kv(k_pages, pt_kv, k_scale)       # [S,Hkv,npt*ps,Dh]
+        v_ct = pg.gather_kv(v_pages, pt_kv, v_scale)
         o = decode_attention(qr, k_ct, v_ct, new_len,
                              logit_softcap=cfg.attn_logit_softcap)
         if shard is not None:
             o = shard.all_gather(o, 2)
         aux = (_dense_aux(new_len, ps) if options.measure_sparsity
                else _zero_layer_aux(b, x1.device))
+        if options.track_evictions:
+            aux = aux + (_dense_touched(new_len, ps, npt),)
     out = linear(p["wo"], o.reshape(b, 1, hkv * g * dh))
     # a dense (or ungated) layer passes the plan through untouched
     return (out, aux, idx) if stage is not None else (out, aux)

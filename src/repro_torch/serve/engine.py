@@ -11,7 +11,12 @@ machinery (gate selection, block-sparse decode kernels):
     allocated lazily as decode crosses page boundaries, and a dry pool
     preempts the least-progressed request to host swap space
     (``serve.offload``) instead of stalling. Finished requests retire and
-    their pages are recycled at once.
+    their pages are recycled at once. Under pressure the engine evicts
+    cold PAGES before whole requests (RaaS eviction with ghost rows and
+    replay, ``serve.eviction``), bounds the swap space in bytes with a
+    disk tier below it, isolates injected or real faults to the request
+    they hit, takes open-loop arrivals on a virtual step clock and streams
+    every token through a callback (``serve.frontend`` drives a trace).
 
 Decode behaviour is one frozen ``core.policy.DecodeOptions``: the
 selection policy (gate, Quest with its metadata cache, Quest recompute,
@@ -36,8 +41,8 @@ device every layer's selection and sparse attention go through the
 hand-written kernels (``kernels/ops.py``), or, for the policies the
 reference scores in jnp, through plain PyTorch on the card; on the CPU
 through the kernels' plain PyTorch versions.
-Options of the reference that belong to later slices raise
-``NotImplementedError`` naming the slice.
+What the sharded paths still lack (Queue A item 6's sharded remainder)
+raises ``NotImplementedError`` naming the item.
 """
 from __future__ import annotations
 
@@ -55,7 +60,9 @@ from repro_torch.distributed.sharding import Shard, seq_shard_state
 from repro_torch.models.registry import get_api
 from repro_torch.serve import paging as pg
 from repro_torch.serve import sampling as smp
-from repro_torch.serve.offload import HostSwapSpace, SwapEntry
+from repro_torch.serve.eviction import EvictionConfig, EvictionManager
+from repro_torch.serve.faults import FaultInjector
+from repro_torch.serve.offload import HostSwapSpace, SwapConfig, SwapEntry, SwapError
 from repro_torch.serve.scheduler import Request, Scheduler, pages_needed
 
 
@@ -186,9 +193,10 @@ class DecodeEngine:
               n_slots: int = 4, num_pages: Optional[int] = None,
               collect_logits: bool = False,
               max_steps: Optional[int] = None, sample_seed: int = 0,
-              admission: str = "lazy",
-              watermark: int = 0, eviction=None, swap_config=None,
-              faults=None, arrivals=None, on_token=None,
+              admission: str = "lazy", watermark: int = 0,
+              eviction: Optional[EvictionConfig] = None,
+              swap_config: Optional[SwapConfig] = None,
+              faults: Optional[FaultInjector] = None, arrivals=None, on_token=None,
               table_pages: Optional[int] = None) -> ServeResult:
         """Continuous-batching decode over a paged KV cache.
 
@@ -215,43 +223,79 @@ class DecodeEngine:
         restored, resuming bitwise-identically. ``"reserve"`` reserves
         every request's full lifetime at admission (no growth, no
         preemption). ``num_pages`` defaults to every slot holding a
-        worst-case sequence, plus the null page. ``max_steps`` bounds the
-        decode loop: unfinished
-        requests then retire with ``status="error"``, as do rows whose
-        logits are not finite.
+        worst-case sequence, plus the null page.
+
+        Open-loop traffic: ``arrivals`` has ``pull(step) -> list of
+        request dicts`` and an ``exhausted`` property
+        (``serve.traffic.StepArrivals``); requests join the running batch
+        at their arrival step on the VIRTUAL clock (decode-loop
+        iterations), so a fixed trace replays to identical token streams.
+        With ``arrivals``, ``requests`` may be empty, and ``max_steps`` and
+        ``table_pages`` (the page-table width, >= any arriving request's
+        lifetime pages) are required. ``on_token(req, token, index,
+        step)`` streams every generated token (the prefill's first
+        included) exactly once, in order, when it is appended; a
+        preempt/resume does not re-fire.
+
+        Memory pressure and failures:
+
+        ``eviction``: an ``EvictionConfig`` (or ``True`` for defaults)
+        turns on RaaS PAGE eviction: when the pool runs dry, the coldest
+        full pages of running requests are swapped out one by one before
+        any whole request is preempted; a step that selects an evicted
+        page is caught by its ``track_evictions`` telemetry, the page is
+        restored and the step replayed (``serve.eviction``). Needs lazy
+        admission and a policy that reads only the selected blocks.
+
+        ``swap_config``: a ``SwapConfig`` bounding the host swap tier in
+        bytes, with an optional disk tier below it (LRU demotion).
+
+        ``faults``: a ``serve.faults.FaultInjector`` driving deterministic
+        failures through the alloc, swap, disk and logits seams. After
+        argument validation, serve() does not raise for per-request
+        trouble: a request that hits an unrecoverable fault (an unreadable
+        swap entry, non-finite logits, an admission stall, the
+        ``max_steps`` watchdog) retires with ``status="error"`` and its
+        PARTIAL tokens are still returned; the rest of the batch is
+        unaffected. ``stats["errors"]`` maps rid -> reason.
 
         Returns ``ServeResult``: rid -> generated token ids (length
-        ``max_new_tokens``); ``res["stats"]`` holds throughput, scheduler
-        and swap telemetry and the measured sparsity per request;
-        ``res["logits"]`` (rid -> [n, V] fp32, prefill token included)
-        when ``collect_logits``. Eviction, faults, a bounded swap tier,
-        open-loop arrivals (with their ``table_pages``) and streaming
-        callbacks are a later slice and raise ``NotImplementedError``, as
-        do request budgets and stochastic sampling on a sharded engine.
+        ``max_new_tokens``); ``res["stats"]`` holds throughput, scheduler,
+        swap-tier, eviction and fault telemetry, the lifecycle stamps and
+        the measured sparsity per request; ``res["logits"]`` (rid -> [n, V]
+        fp32, prefill token included) when ``collect_logits``. A sharded
+        engine takes no request budgets, stochastic sampling or arrivals
+        (Queue A item 6's sharded remainder) and raises
+        ``NotImplementedError`` for them.
         """
-        for name, val in (("eviction", eviction), ("swap_config", swap_config),
-                          ("faults", faults), ("arrivals", arrivals),
-                          ("on_token", on_token), ("table_pages", table_pages)):
-            if val is not None:
-                raise _not_ported(f"serve({name}=...)", 7,
-                                  "the pressure and failure paths")
         cfg = self.cfg
         ps = cfg.gate.block_size
         dev = self.device
+        if arrivals is not None:
+            if max_steps is None:
+                raise ValueError(
+                    "arrivals requires an explicit max_steps — the engine "
+                    "cannot bound the run from an undrained arrival process")
+            if table_pages is None:
+                raise ValueError(
+                    "arrivals requires table_pages (page-table width >= any "
+                    "arriving request's lifetime pages) — the engine cannot "
+                    "size the table from an undrained arrival process")
+            if self.shard is not None:
+                raise _not_ported("serve(arrivals=...) on a sharded engine", 6,
+                                  "per-request budgets on the sharded paths")
 
         reqs: List[Request] = []
         rho_n: Dict[Any, int] = {}
         sampling_of: Dict[Any, smp.SamplingParams] = {}
         budget_of: Dict[Any, Optional[int]] = {}
         ridx_of: Dict[Any, int] = {}
-        for rd in requests:
-            if self.shard is not None:
-                if rd.get("budget") is not None:
-                    raise _not_ported("request 'budget' override", 6,
-                                      "per-request budgets on the sharded paths")
-                if not (rd.get("sampling") or smp.GREEDY).greedy:
-                    raise _not_ported("request 'sampling' override", 6,
-                                      "stochastic sampling on the sharded paths")
+        rejected_arrivals = 0
+
+        def register(rd: Dict[str, Any]) -> Request:
+            """One request dict -> a tracked Request, with its overrides and
+            its registration index (which seeds its sampling stream), for
+            upfront requests and arrivals alike."""
             req = Request(
                 rid=rd.get("rid", len(reqs)),
                 prompt=np.asarray(rd["tokens"], np.int32).reshape(-1),
@@ -264,7 +308,18 @@ class DecodeEngine:
             sampling_of[req.rid] = rd.get("sampling") or self.options.sampling
             budget_of[req.rid] = rd.get("budget")
             ridx_of[req.rid] = len(ridx_of)
-        if not reqs:
+            return req
+
+        for rd in requests:
+            if self.shard is not None:
+                if rd.get("budget") is not None:
+                    raise _not_ported("request 'budget' override", 6,
+                                      "per-request budgets on the sharded paths")
+                if not (rd.get("sampling") or smp.GREEDY).greedy:
+                    raise _not_ported("request 'sampling' override", 6,
+                                      "stochastic sampling on the sharded paths")
+            register(rd)
+        if not reqs and arrivals is None:
             return ServeResult(stats={})
         rids = [r.rid for r in reqs]
         if len(set(rids)) != len(rids):
@@ -275,13 +330,28 @@ class DecodeEngine:
                              f"keys: {clash}")
         self._last_aux = self._last_active = None   # stats reflect THIS run
 
-        npt = max(pages_needed(r.prompt_len, r.max_new_tokens, ps) for r in reqs)
+        if eviction is True:
+            eviction = EvictionConfig()
+        step_options = self.options
+        if eviction is not None:
+            if admission != "lazy":
+                raise ValueError(
+                    "eviction requires admission='lazy' (reserve admission "
+                    "never runs out of pages mid-flight)")
+            # validates the policy and schedule up front (reads_full_kv,
+            # dense-staged layers: see DecodeOptions)
+            step_options = self.options.replace(track_evictions=True)
+
+        npt = max([pages_needed(r.prompt_len, r.max_new_tokens, ps) for r in reqs]
+                  + ([int(table_pages)] if table_pages is not None else []))
         if num_pages is None:
             # enough for every slot to hold a worst-case sequence (+null)
             num_pages = n_slots * npt + 1
         sched = Scheduler(n_slots, num_pages, ps, npt, admission=admission,
-                          watermark=watermark)
-        swap = HostSwapSpace()
+                          watermark=watermark, eviction_enabled=eviction is not None,
+                          faults=faults)
+        sched.on_token = on_token
+        swap = HostSwapSpace(config=swap_config, faults=faults)
         for r in reqs:
             sched.submit(r)
 
@@ -289,11 +359,13 @@ class DecodeEngine:
         # budget (otherwise no mask exists at all). Slots without one get a
         # cap that never binds; a cap rounds UP to whole blocks (as
         # DecodeOptions.max_selected does) and keeps the forced first/last
-        # blocks, which rank ahead of every scored block
+        # blocks, which rank ahead of every scored block. With arrivals the
+        # mask exists from the start: a later arrival may carry a budget
         no_cap = 2 ** 30
         floor = max(1, int(cfg.gate.always_first_block) + int(cfg.gate.always_last_block))
-        budget_blocks = (np.full((n_slots,), no_cap, np.int32)
-                         if any(b is not None for b in budget_of.values()) else None)
+        use_budget = (arrivals is not None
+                      or any(b is not None for b in budget_of.values()))
+        budget_blocks = np.full((n_slots,), no_cap, np.int32) if use_budget else None
 
         def slot_cap(rid) -> int:
             b = budget_of[rid]
@@ -312,13 +384,23 @@ class DecodeEngine:
 
         kv_heads = (self.shard.local_heads(cfg.n_kv_heads) if self.shard is not None
                     else None)
+        ghosts = 0
+        if eviction is not None:
+            ghosts = (eviction.ghost_rows if eviction.ghost_rows is not None
+                      else n_slots * npt)
         # min/max metadata pools only for the policy that reads them
         pages = pg.init_pages(cfg, num_pages, self.api.paged_attn_layers(cfg),
                               with_meta=self.options.policy.needs_meta,
-                              quantize=self.options.quantize, device=dev,
-                              kv_heads=kv_heads)
+                              ghost_rows=ghosts, quantize=self.options.quantize,
+                              device=dev, kv_heads=kv_heads)
         slot_state = (None if self.api.init_slot_state is None
                       else self.api.init_slot_state(cfg, n_slots))
+        evmgr = None
+        if eviction is not None:
+            evmgr = EvictionManager(
+                sched, swap, num_phys=num_pages, ghost_rows=ghosts, page_size=ps,
+                page_bytes=EvictionManager.page_restore_bytes(pages),
+                always_first_block=cfg.gate.always_first_block, config=eviction)
         token_buf = np.zeros((n_slots,), np.int32)
         # per-step selection telemetry stays on the device until the run
         # ends: (sparsity rows [S], sel rows [S], {slot: rid} of live rows)
@@ -329,23 +411,65 @@ class DecodeEngine:
         limit = max_steps if max_steps is not None else sum(
             r.max_new_tokens for r in reqs) + len(reqs) + 8
 
+        # requests whose swap-out hit a permanent fault inside a scheduler
+        # callback (where failing in place would corrupt the preemption
+        # bookkeeping): failed right after the callback chain unwinds,
+        # before the next step runs
+        pending_failures: List[Any] = []
+
         def fail_req(req: Request, reason: str) -> None:
             sched.fail(req, reason)
             swap.discard(req.rid)
+
+        def flush_failures() -> None:
+            while pending_failures:
+                req, reason = pending_failures.pop()
+                if req.rid not in sched.finished:
+                    fail_req(req, reason)
 
         def swap_out(req: Request) -> None:
             """Preemption callback: copy the victim's CONTENT pages (in
             logical order, padded as the reference pads them) and its
             pending token to host swap space BEFORE the scheduler frees
             the pages. A growth page allocated for the not-yet-written
-            next token is dropped; re-admission re-grows it."""
+            next token is dropped; re-admission re-grows it.
+
+            Blocks of the victim that page eviction already moved to the
+            host are stitched back into the one SwapEntry from their
+            PageEntries (a ghost id holds no K/V, so it is extracted
+            through the trash page and overwritten), and the resume takes
+            the whole-request restore path. A permanent swap fault marks
+            the victim failed instead of raising through the scheduler."""
             n_content = max(1, -(-req.swap_len // ps))
+            content = [p if p < num_pages else pg.NULL_PAGE
+                       for p in req.pages[:n_content]]
             k, v, kg, kmin, kmax, k_sc, v_sc = pg.extract_pages(
-                pages, pg.pad_page_ids(req.pages[:n_content], device=dev))
-            swap.put(req.rid, SwapEntry(k=k, v=v, kg=kg,
-                                        token=int(token_buf[req.slot]),
-                                        cur_len=req.swap_len, kmin=kmin, kmax=kmax,
-                                        k_scale=k_sc, v_scale=v_sc))
+                pages, pg.pad_page_ids(content, device=dev))
+            reason = None
+            if evmgr is not None:
+                blocks = evmgr.evicted.pop(req.rid, None) or {}
+                for lb, ghost in sorted(blocks.items()):
+                    evmgr.ghost_free.append(ghost)
+                    try:
+                        pe = swap.pop(("page", req.rid, lb))
+                    except SwapError:
+                        reason = "restore_failed"
+                        continue
+                    for full, part in ((k, pe.k), (v, pe.v), (kg, pe.kg), (kmin, pe.kmin),
+                                       (kmax, pe.kmax), (k_sc, pe.k_scale),
+                                       (v_sc, pe.v_scale)):
+                        if full is not None and part is not None:
+                            full[:, lb] = part[:, 0]
+            if reason is None:
+                try:
+                    swap.put(req.rid, SwapEntry(k=k, v=v, kg=kg,
+                                                token=int(token_buf[req.slot]),
+                                                cur_len=req.swap_len, kmin=kmin, kmax=kmax,
+                                                k_scale=k_sc, v_scale=v_sc))
+                except SwapError:
+                    reason = "swap_put_failed"
+            if reason is not None:
+                pending_failures.append((req, reason))
 
         # a recycled page may hold a previous tenant's Kg, metadata (and
         # int8 scale) rows, and a partial trailing page must read ZERO rows. Freed
@@ -367,21 +491,62 @@ class DecodeEngine:
 
         def mark_live(ids) -> None:
             """Pages just (re)written with live content leave both
-            pending-zero queues, so a later sweep cannot clobber them."""
+            pending-zero queues, so a later sweep cannot clobber them (a
+            page can be freed and reused within one iteration: retirement
+            at admission, eviction, a replay's restore)."""
             live = set(ids)
             dirty.difference_update(live)
             sched.released = [p for p in sched.released if p not in live]
+
+        if evmgr is not None:
+            def evict_cb(n: int) -> int:
+                return evmgr.evict(pages, n)
+
+            def release_filter(req: Request):
+                # heat rows are per-slot state; the slot is being vacated
+                if req.slot >= 0 and sched.slots[req.slot] is req:
+                    evmgr.heat.reset_row(req.slot)
+                evmgr.forget(req)    # drop host entries, reclaim ghosts
+                return [p for p in req.pages if p < num_pages]
+
+            sched.evict_cb = evict_cb
+            sched.release_filter = release_filter
+            evmgr.mark_clean = mark_live
 
         def fail_unfinished(reason: str) -> None:
             for r in reqs:
                 if r.rid not in sched.finished:
                     fail_req(r, reason)
 
-        while sched.has_work():
+        while sched.has_work() or (arrivals is not None and not arrivals.exhausted):
+            # the virtual clock: lifecycle ``*_step`` stamps and the
+            # arrival schedule read the decode-loop iteration counter,
+            # never wall time
             sched.now = n_steps
+            if arrivals is not None:
+                for rd in arrivals.pull(n_steps):
+                    rid = rd.get("rid", len(reqs))
+                    if rid in ridx_of or rid in ("stats", "logits"):
+                        # a malformed trace entry is dropped: the running
+                        # batch must not pay for it
+                        rejected_arrivals += 1
+                        continue
+                    req = register(rd)
+                    try:
+                        sched.submit(req)
+                    except ValueError as e:
+                        # an arrival the pool or table can never hold
+                        # fails ALONE, with the reason, mid-run
+                        sched.fail(req, f"submit_rejected: {e}")
             for req in sched.admissions():
                 if req.swapped:            # resume: restore, don't prefill
-                    entry = swap.pop(req.rid)
+                    try:
+                        entry = swap.pop(req.rid)
+                    except SwapError:
+                        # a permanently unreadable swap entry: the request's
+                        # KV is gone. Fail IT, keep serving the others
+                        fail_req(req, "restore_failed")
+                        continue
                     n_content = max(1, -(-entry.cur_len // ps))
                     pg.restore_pages(pages, entry.k, entry.v, entry.kg,
                                      pg.pad_page_ids(req.pages[:n_content],
@@ -395,7 +560,7 @@ class DecodeEngine:
                     first = sample_slot(req, row)
                     lg = row.float().cpu().numpy() if collect_logits else None
                     req.out_tokens.append(first)
-                    sched.note_token(req, first)
+                    sched.note_token(req, first)   # first-token stamp + stream
                     if collect_logits:
                         req.out_logits.append(lg)
                     token_buf[req.slot] = first
@@ -403,11 +568,23 @@ class DecodeEngine:
                 if budget_blocks is not None:
                     budget_blocks[req.slot] = slot_cap(req.rid)
                 sched.retire_if_done(req)
+            if evmgr is not None:
+                evmgr.enforce_caps(pages)
             fresh = sched.prepare_step(swap_out)   # lazy growth + preemption
+            flush_failures()
             dirty.update(sched.drain_released())
             sweep_dirty([p for p in fresh if p in dirty])
             if not sched.active.any():
                 if not sched.pending:
+                    if arrivals is not None and not arrivals.exhausted:
+                        # an open-loop gap: nothing to decode yet, but the
+                        # trace has more arrivals. Tick the virtual clock
+                        # forward so they come due (bounded by max_steps)
+                        n_steps += 1
+                        if n_steps > limit:
+                            fail_unfinished("step_limit")
+                            break
+                        continue
                     break
                 # preemption may have just vacated every slot while freeing
                 # its pages: loop back through admissions once before
@@ -424,16 +601,76 @@ class DecodeEngine:
             active_now = int(sched.active.sum())
             active_sum += active_now
             active_max = max(active_max, active_now)
-            logits, pages, slot_state, aux = self.api.decode_step_paged(
-                self.params, pages, slot_state,
-                torch.as_tensor(token_buf, device=dev),
-                torch.as_tensor(sched.page_table, device=dev),
-                torch.as_tensor(sched.cur_len, device=dev),
-                torch.as_tensor(sched.active, device=dev), cfg,
-                options=self.options,
-                budget_blocks=(None if budget_blocks is None
-                               else torch.as_tensor(budget_blocks, device=dev)),
-                shard=self.shard)
+            replays = 0
+            while True:
+                logits, pages, slot_state_out, aux = self.api.decode_step_paged(
+                    self.params, pages, slot_state,
+                    torch.as_tensor(token_buf, device=dev),
+                    torch.as_tensor(sched.page_table, device=dev),
+                    torch.as_tensor(sched.cur_len, device=dev),
+                    torch.as_tensor(sched.active, device=dev), cfg,
+                    options=step_options,
+                    budget_blocks=(None if budget_blocks is None
+                                   else torch.as_tensor(budget_blocks, device=dev)),
+                    shard=self.shard)
+                if evmgr is None:
+                    break
+                touched = aux["touched_pages"].cpu().numpy()
+                faulted = (touched & (sched.page_table >= num_pages)
+                           & sched.active[:, None])
+                if not faulted.any():
+                    # the victim model feeds on fault-free steps only (a
+                    # replay's reads are restore traffic, not attention heat)
+                    evmgr.heat.observe(touched, sched.active)
+                    break
+                # optimistic execution faulted: a row selected a block whose
+                # K/V is evicted (its gate/meta ghost rows scored it as
+                # usual). Restore the pages and RE-RUN the step over the
+                # pools this attempt updated in place (its page writes are
+                # rewritten with the same values before any read)
+                evmgr.n_replays += 1
+                replays += 1
+                if replays > evmgr.config.max_replays:
+                    # evict/restore thrash: fail the faulted requests; the
+                    # surviving rows never read a ghost, so their logits
+                    # stand as they are
+                    for slot in np.nonzero(faulted.any(axis=1))[0]:
+                        if sched.slots[slot] is not None:
+                            fail_req(sched.slots[slot], "restore_thrash")
+                    break
+                # pin every page ANY active row touched (and each trailing
+                # block): restoring row A must not evict what row B's
+                # replay reads, or the replays could ping-pong forever
+                pinned = set()
+                for slot in np.nonzero(sched.active)[0]:
+                    r = sched.slots[slot]
+                    for lb in np.nonzero(touched[slot])[0]:
+                        pinned.add((r.rid, int(lb)))
+                    pinned.add((r.rid, int(sched.cur_len[slot]) // ps))
+                for slot in np.nonzero(faulted.any(axis=1))[0]:
+                    r = sched.slots[slot]
+                    if r is None or not sched.active[slot]:
+                        continue    # preempted while restoring another row
+                    lbs = [int(x) for x in np.nonzero(faulted[slot])[0]]
+                    if not evmgr.restore(pages, r, lbs, pinned=pinned, swap_out=swap_out):
+                        fail_req(r, "restore_failed")
+                flush_failures()
+                dirty.update(sched.drain_released())
+                if not sched.active.any():
+                    break
+            # the attempt that ended the loop is the accepted one (fault-
+            # free, or its surviving rows are valid); slots that failed or
+            # were preempted get their rows rewritten before anything
+            # reads them
+            slot_state = slot_state_out
+            if not sched.active.any():
+                # every row failed or was preempted mid-replay: count the
+                # spin against the step limit so fault storms terminate
+                n_steps += 1
+                if n_steps > limit:
+                    fail_unfinished("step_limit")
+                    break
+                continue
             self._last_aux = aux
             # idle slots decode garbage rows: remember who was live, so
             # sparsity_stats() averages active rows only
@@ -450,6 +687,11 @@ class DecodeEngine:
                                    for s in np.nonzero(sched.active)[0]}))
             lg_np = (logits.float().cpu().numpy() if collect_logits else None)
             nxt = nxt_dev.to(torch.int32).cpu().numpy()
+            if faults is not None and faults.fire("logits"):
+                # an injected non-finite row: the first active slot's
+                act = np.nonzero(sched.active)[0]
+                if act.size:
+                    nxt[act[0]] = -1
             for slot in np.nonzero((nxt < 0) & sched.active)[0]:
                 fail_req(sched.slots[slot], "non_finite_logits")
             # stochastic requests draw on the device from their own stream
@@ -497,9 +739,10 @@ class DecodeEngine:
         bytes_out, bytes_in = swap.bytes_out, swap.bytes_in
         if self.shard is not None:
             # each rank swapped its heads: the pool's bytes are the sum
-            bytes_out, bytes_in, swap_stats["host_bytes"], swap_stats["peak_host_bytes"] = \
-                self.shard.sum_ints([bytes_out, bytes_in, swap_stats["host_bytes"],
-                                     swap_stats["peak_host_bytes"]])
+            keys = ("host_bytes", "disk_bytes", "peak_host_bytes", "peak_disk_bytes")
+            summed = self.shard.sum_ints([bytes_out, bytes_in] + [swap_stats[k] for k in keys])
+            bytes_out, bytes_in = summed[:2]
+            swap_stats.update(zip(keys, summed[2:]))
         out["stats"] = {
             "wall_s": wall, "decode_steps": n_steps,
             "generated_tokens": gen_toks,
@@ -514,10 +757,15 @@ class DecodeEngine:
             "resumed": sched.n_resumed,
             "swapped_out_bytes": bytes_out,
             "swapped_in_bytes": bytes_in,
+            # failure isolation and memory-pressure telemetry
             "failed": sched.n_failed,
             "errors": {r.rid: r.error for r in sched.finished.values()
                        if r.status != "ok"},
             "swap": swap_stats,
+            "faults": None if faults is None else faults.stats(),
+            "evictions": 0 if evmgr is None else evmgr.n_evicted,
+            "page_restores": 0 if evmgr is None else evmgr.n_page_restores,
+            "replay_steps": 0 if evmgr is None else evmgr.n_replays,
             "mean_active_slots": active_sum / max(n_steps, 1),
             "max_active_slots": active_max,
             "peak_pages_used": (sched.allocator.num_pages - 1
@@ -541,6 +789,7 @@ class DecodeEngine:
                 "t_first": r.t_first, "t_retire": r.t_retire,
                 "n_tokens": len(r.out_tokens)} for r in reqs},
             "tier_by_rid": {r.rid: r.tier for r in reqs},
+            "rejected_arrivals": rejected_arrivals,
         }
         return out
 

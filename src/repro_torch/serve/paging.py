@@ -12,12 +12,14 @@ the gathers of their plain versions).
 Layout (``L`` = self-attn layers, ``P`` = pool pages, ``ps`` = page size;
 head-major, consumed natively by decode):
   k_pages / v_pages  [L, P, Hkv, ps, Dh]   post-rope keys / values
-  kg_pages           [L, P, Hkv, Dg]       gate K-compression twin
-  kmin/kmax_pages    [L, P, Hkv, Dh] f32   selection-metadata twin (Quest;
+  kg_pages           [L, P+G, Hkv, Dg]     gate K-compression twin
+  kmin/kmax_pages    [L, P+G, Hkv, Dh] f32 selection-metadata twin (Quest;
                                            metadata-reading policies only)
   k/v_scale_pages    [L, P, Hkv, 1]  f32   per-page per-head dequant scales
                                            (int8 pools only)
-  page_table         [n_slots, npt] int32  physical ids; NULL_PAGE = empty
+  page_table         [n_slots, npt] int32  physical ids; NULL_PAGE = empty;
+                                           ids >= P are eviction ghost rows
+(``G`` = the eviction ghost rows, 0 without eviction; ``init_pages``).
 
 Quantized pools (``init_pages(..., quantize="int8")``): K/V pages hold
 symmetric int8 (value = int8 * scale, scale = abs-max/127 per page per KV
@@ -115,22 +117,32 @@ def init_pages(cfg: ModelConfig, num_pages: int, n_layers: int,
     Dh] (they stay f32 under int8, so selection does not depend on the
     value quantization). ``kv_heads`` (default ``cfg.n_kv_heads``) sizes
     the head axis of every pool: a rank of the head-sharded path allocates
-    only its heads. The reference's eviction ghost rows are a later slice
-    and raise."""
-    if ghost_rows:
-        raise NotImplementedError(
-            "eviction ghost rows (Queue A item 7) are not ported")
+    only its heads.
+
+    ``ghost_rows`` (RaaS eviction) extends ONLY the gate and metadata pools
+    (Kg, kmin/kmax) by rows with ids in ``[num_pages, num_pages +
+    ghost_rows)``: an evicted page's K/V leaves the card, its
+    selection-side rows are parked in a ghost row and the page table is
+    pointed there, so selection reads evicted blocks' scores and metadata
+    through the table unchanged. The K/V and scale pools never grow (an
+    evicted int8 page's scales ride its host ``PageEntry``): attention
+    reads through a table clamped to the pool, and a step that selects an
+    evicted block is caught by the touched-pages telemetry and replayed
+    after a restore (``serve.eviction``)."""
+    if ghost_rows < 0:
+        raise ValueError(f"ghost_rows must be >= 0: {ghost_rows}")
     if quantize not in (None, "int8"):
         raise ValueError(f"quantize must be None or 'int8': {quantize!r}")
     device = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
     ps = cfg.gate.block_size
     hkv, dh = kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim
-    kg = (torch.zeros((n_layers, num_pages, hkv, cfg.gate.d_gate), dtype=dt,
+    gate_rows = num_pages + ghost_rows
+    kg = (torch.zeros((n_layers, gate_rows, hkv, cfg.gate.d_gate), dtype=dt,
                       device=device) if cfg.gate.enabled else None)
     kmin = kmax = None
     if with_meta:
-        kmin, kmax = (torch.zeros((n_layers, num_pages, hkv, dh), dtype=torch.float32,
+        kmin, kmax = (torch.zeros((n_layers, gate_rows, hkv, dh), dtype=torch.float32,
                                   device=device) for _ in range(2))
     kv_dt, k_scale, v_scale = dt, None, None
     if quantize == "int8":
@@ -413,6 +425,21 @@ def reset_kg_rows(pages: PagedPages, page_ids: torch.Tensor) -> None:
     if pages.k_scale_pages is not None:
         pages.k_scale_pages[:, page_ids] = 0
         pages.v_scale_pages[:, page_ids] = 0
+
+
+def copy_gate_rows(pages: PagedPages, src_ids: torch.Tensor,
+                   dst_ids: torch.Tensor) -> None:
+    """Copy the gate and metadata rows (Kg, kmin/kmax) from ``src_ids`` to
+    ``dst_ids``, in place: the evict-time park of a page's selection-side
+    state in a ghost row (its K/V go to the host through
+    ``extract_pages``, then the page is reclaimed). Both id lists are
+    padded with NULL_PAGE by the caller; the padding copies row 0 onto
+    itself, which is inert."""
+    if pages.kg_pages is not None:
+        pages.kg_pages[:, dst_ids] = pages.kg_pages[:, src_ids]
+    if pages.kmin_pages is not None:
+        pages.kmin_pages[:, dst_ids] = pages.kmin_pages[:, src_ids]
+        pages.kmax_pages[:, dst_ids] = pages.kmax_pages[:, src_ids]
 
 
 def extract_pages(pages: PagedPages, page_ids: torch.Tensor

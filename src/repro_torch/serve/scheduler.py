@@ -1,9 +1,9 @@
 """Iteration-level continuous-batching scheduler (vLLM-style, simplified).
 
 A copy of the JAX package's ``serve/scheduler.py`` (pure Python: the port
-keeps its own). The RaaS eviction seams (``evict_cb``,
-``release_filter``), the fault-injection seam and the streaming
-``on_token`` callback arrive with the pressure-path slice.
+keeps its own), with its RaaS eviction seams (``evict_cb``,
+``release_filter``), its fault-injection seam and its streaming
+``on_token`` callback.
 
 Host-side bookkeeping for the paged decode engine: a fixed number of
 decode SLOTS (rows of the batched step) and a page pool. Each
@@ -70,7 +70,7 @@ class Request:
     prompt: np.ndarray               # [prompt_len] int32
     max_new_tokens: int
     # SLO tier: ``priority`` orders admission (highest first;
-    # FIFO within a class) and INVERSELY orders preemption victim
+    # FIFO within a class) and INVERSELY orders preemption/eviction victim
     # selection (lowest first — a latency-tier request is never preempted
     # while a throughput-tier victim exists). ``admit_reserve`` gives this
     # request the upfront full-lifetime page reservation (the "reserve"
@@ -90,9 +90,9 @@ class Request:
     swap_len: int = 0                # cur_len at preemption
     n_preemptions: int = 0
     # failure isolation: a request that hits an unrecoverable per-request
-    # fault (non-finite logits, watchdog abort) is retired with
-    # status="error" and the reason in ``error``; its partial out_tokens
-    # still reach the caller
+    # fault (non-finite logits, permanent restore failure, watchdog abort)
+    # is retired with status="error" and the reason in ``error``; its
+    # partial out_tokens still reach the caller
     status: str = "ok"
     error: Optional[str] = None
     # lifecycle timestamps: ``*_step`` fields count decode-loop
@@ -134,7 +134,8 @@ def pages_needed(prompt_len: int, max_new_tokens: int, page_size: int) -> int:
 class Scheduler:
     def __init__(self, n_slots: int, num_pages: int, page_size: int,
                  max_pages_per_seq: int, *, admission: str = "lazy",
-                 watermark: int = 0):
+                 watermark: int = 0, eviction_enabled: bool = False,
+                 faults=None):
         if admission not in ADMISSION_MODES:
             raise ValueError(f"admission {admission!r} not in "
                              f"{ADMISSION_MODES}")
@@ -145,14 +146,29 @@ class Scheduler:
         self.max_pages_per_seq = max_pages_per_seq
         self.admission = admission
         self.watermark = watermark
+        # eviction seams, wired by the engine when eviction is on:
+        #   eviction_enabled — relaxes the full-lifetime admission bound
+        #     (growth past the pool is absorbed by page eviction) and makes
+        #     _pick_victim skip victims whose resume need can't fit
+        #   evict_cb(n) -> pages actually freed — try page-granular eviction
+        #     before falling back to whole-request preemption
+        #   release_filter(req) -> physical page ids to free — ghost ids of
+        #     evicted pages must never reach PageAllocator.free
+        self.eviction_enabled = eviction_enabled
+        self.evict_cb: Optional[Callable[[int], int]] = None
+        self.release_filter: Optional[Callable[[Request], List[int]]] = None
+        self.faults = faults
         # seams set by the engine:
         #   now — the decode-loop step counter (virtual clock); lifecycle
         #     ``*_step`` stamps read it, so they are deterministic for a
         #     fixed request list. The engine sets it each iteration.
         #   wall — wall-clock source for the ``t_*`` stamps; NEVER feeds
         #     control flow, only latency stats.
+        #   on_token(req, token, index, step) — streaming callback fired
+        #     by ``note_token`` exactly once per appended token, in order.
         self.now = 0
         self.wall: Callable[[], float] = time.perf_counter
+        self.on_token: Optional[Callable[[Request, int, int, int], None]] = None
         self.allocator = PageAllocator(num_pages)
         self.page_table = np.full((n_slots, max_pages_per_seq), NULL_PAGE,
                                   np.int32)
@@ -202,13 +218,28 @@ class Scheduler:
                     f"admission (pool {pool} minus watermark "
                     f"{self.watermark}) — it would head-of-line-block the "
                     f"queue forever")
-        if need > pool:
+        if need > pool and not (self.admission == "lazy"
+                                and self.eviction_enabled
+                                and not req.admit_reserve):
+            # with page eviction on, growth past the pool is absorbed by
+            # evicting cold pages, so only the admission need must fit —
+            # unless the request demands the full upfront reservation
+            # (admit_reserve), whose admission need IS the lifetime need
             raise ValueError(
                 f"request {req.rid} needs {need} pages but the pool only has "
                 f"{pool} — it can never be admitted")
         req.submit_step = self.now
         req.t_submit = self.wall()
         self.pending.append(req)
+
+    def _alloc(self, n: int) -> Optional[List[int]]:
+        """Allocate through the fault-injection seam: an injected
+        ``page_alloc`` fault reports exhaustion even when pages are free,
+        which the callers already survive (admission retries next
+        iteration; growth falls back to eviction/preemption)."""
+        if self.faults is not None and self.faults.fire("page_alloc"):
+            return None
+        return self.allocator.alloc(n)
 
     def has_work(self) -> bool:
         return bool(self.pending) or bool(self.active.any())
@@ -259,7 +290,7 @@ class Scheduler:
                         if self.admission == "lazy" and not req.swapped
                         and not req.admit_reserve
                         else 0)
-            ids = (self.allocator.alloc(need)
+            ids = (self._alloc(need)
                    if self.allocator.num_free - need >= headroom else None)
             if ids is None:
                 self.admission_stalls += 1
@@ -305,9 +336,21 @@ class Scheduler:
                 continue
             needed = int(self.cur_len[slot]) // self.page_size + 1
             while len(req.pages) < needed:
-                ids = self.allocator.alloc(1)
+                ids = self._alloc(1)
                 if ids is None:
+                    # graceful degradation order: evict cold PAGES of
+                    # running requests first; only preempt a whole
+                    # request when eviction can't free anything
+                    if (self.evict_cb is not None
+                            and self.evict_cb(1) > 0):
+                        continue
                     victim = self._pick_victim()
+                    if victim is None:
+                        # eviction mode, every victim unresumable and
+                        # nothing evictable — fail THIS request rather
+                        # than poisoning the batch or stalling forever
+                        self.fail(req, "pool_exhausted")
+                        break
                     self._preempt(victim, swap_out)
                     if victim is req:
                         break               # the grower itself was preempted
@@ -317,30 +360,47 @@ class Scheduler:
                 fresh.extend(ids)
         return fresh
 
-    def _pick_victim(self) -> Request:
+    def _pick_victim(self, exclude: Optional[Request] = None
+                     ) -> Optional[Request]:
         """Lowest-priority victim first (never preempt a latency-tier
         request while a throughput-tier victim exists), then fewest
         generated tokens (least progress lost per page freed), then LOWEST
         rid: victim selection is a pure function of request identity, not
-        of slot or admission order."""
+        of slot or admission order.
+
+        Under eviction the admission bound is relaxed, so a long request's
+        resume need (ceil(content / page_size)) may exceed the pool — such
+        a request is skipped (preempting it would strand it in pending
+        forever); returns None when no resumable victim exists. ``exclude``
+        protects the request a replay is currently restoring."""
         best: Optional[Request] = None
         best_key = None
+        pool = self.allocator.num_pages - 1
         for slot in range(self.n_slots):
             req = self.slots[slot]
-            if req is None or not self.active[slot]:
+            if req is None or not self.active[slot] or req is exclude:
                 continue
+            if self.eviction_enabled:
+                resume = max(1, -(-int(self.cur_len[slot]) // self.page_size))
+                if resume > pool:
+                    continue
             key = (req.priority, len(req.out_tokens), rid_sort_key(req.rid))
             if best_key is None or key < best_key:
                 best, best_key = req, key
-        assert best is not None, "preemption with no active slots"
+        if not self.eviction_enabled:
+            assert best is not None, "preemption with no active slots"
         return best
 
     def _release(self, req: Request) -> None:
         """Free a request's pages and queue them for the engine's Kg-row
-        sweep."""
-        if req.pages:
-            self.allocator.free(req.pages)
-            self.released.extend(req.pages)
+        sweep, routing through the engine's ``release_filter`` so ghost
+        ids of evicted pages (table aliases, not allocator pages) never
+        reach ``PageAllocator.free``."""
+        pages = (self.release_filter(req) if self.release_filter is not None
+                 else req.pages)
+        if pages:
+            self.allocator.free(pages)
+            self.released.extend(pages)
         req.pages = []
 
     def _preempt(self, req: Request,
@@ -383,13 +443,17 @@ class Scheduler:
         return retired
 
     def note_token(self, req: Request, token: int) -> None:
-        """Stamp the first-token time once. Called exactly once per token
-        APPENDED to ``req.out_tokens`` (the engine calls it for the
-        prefill's first token, ``complete_step`` for every decode step) —
-        never on preempt -> resume restores."""
+        """Stamp the first-token time once and fire the streaming callback.
+        Called exactly once per token APPENDED to ``req.out_tokens`` (the
+        engine calls it for the prefill's first token, ``complete_step``
+        for every decode step) — never on preempt -> resume restores,
+        which re-materialise KV, not tokens. So the streaming callback is
+        exactly-once and in order by construction."""
         if req.first_token_step < 0:
             req.first_token_step = self.now
             req.t_first = self.wall()
+        if self.on_token is not None:
+            self.on_token(req, token, len(req.out_tokens) - 1, self.now)
 
     def retire_if_done(self, req: Request) -> bool:
         """Retire a just-admitted request that needs no decode steps

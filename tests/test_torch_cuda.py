@@ -1666,3 +1666,137 @@ def test_gate_gt_block_128_limits_reject_a_faulty_carry(dev, mutant, tmp_path, m
     print(f"[{mutant}] correct kernel {good}; faulty kernel {bad}")
     assert good[0] <= good[1] and good[2] and good[3] <= good[4]
     assert not (bad[0] <= bad[1] and bad[2] and bad[3] <= bad[4]), mutant
+
+
+# ---------------------------------------------------------------------------
+# the pressure paths: eviction's ghost rows and clamped tables
+# ---------------------------------------------------------------------------
+
+def _ghost_table(table, n_pages, r, share=0.4):
+    """Move a share of each row's live table entries to ghost ids >= the
+    pool's ``n_pages`` rows (the trailing live block stays), as eviction
+    does; returns (the ghost-holding table, the source row of each ghost)."""
+    table = table.copy()
+    src = []
+    for i in range(table.shape[0]):
+        live = np.nonzero(table[i])[0][:-1]
+        for j in r.permutation(live)[:int(np.ceil(share * len(live)))]:
+            src.append(table[i, j])
+            table[i, j] = n_pages + len(src) - 1
+    return table, np.asarray(src, np.int64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nb", [2, 33, 257, 1024])
+def test_gate_select_paged_over_ghost_rows_bitwise(dev, dtype, nb):
+    """#3 over a Kg pool extended by ghost rows, through a table holding
+    ghost ids: on the exact-tie inputs (tests/gate_ties.py) its ids are
+    bitwise its plain version's on the same pool and table, and bitwise
+    its own over the pool before the rows moved."""
+    b, hkv, dg = 3, 2, 128
+    nv_np = gate_ties.n_valid(b, nb)
+    qg, pool, table = gate_ties.paged(5, b, hkv, nb, dg, nv_np)
+    ghost_table, src = _ghost_table(table, pool.shape[0], np.random.default_rng(nb))
+    assert (ghost_table >= pool.shape[0]).any()
+    ghost_pool = np.concatenate([pool, pool[src]])          # the parked rows
+    on = lambda x: torch.tensor(x, device=dev)
+    nv = on(nv_np)
+    for method in ("budget", "threshold"):
+        cfg = t_config.GateConfig(**_GS, method=method, threshold=5e-3)
+        for ms in sorted(k for k in {1, 64, nb} if k <= nb):
+            k_idx = gs.gate_select_paged_cuda(on(qg).to(dtype), on(ghost_pool).to(dtype),
+                                              on(ghost_table), nv, cfg, ms)
+            p_idx = gs.gate_select_paged_plain(on(qg).to(dtype), on(ghost_pool).to(dtype),
+                                               on(ghost_table), nv, cfg, ms)
+            base = gs.gate_select_paged_cuda(on(qg).to(dtype), on(pool).to(dtype),
+                                             on(table), nv, cfg, ms)
+            torch.cuda.synchronize()
+            assert torch.equal(k_idx, base), (method, ms)
+            if method == "budget":
+                assert torch.equal(k_idx, p_idx), (method, ms)
+            else:
+                ids_agree(k_idx, p_idx, gs.gate_scores_plain(
+                    on(qg).to(dtype), pg.gather_kg(on(ghost_pool).to(dtype),
+                                                   on(ghost_table)), nv, cfg))
+
+
+@pytest.mark.parametrize("kernel", ["paged", "paged_quant", "splitk", "splitk_quant"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hkv,g,dh,npt,bs,nsel", [
+    (3, 1, 5, 32, 6, 16, 6),
+    (4, 8, 2, 128, 257, 64, 64),           # the main path's shapes
+])
+def test_decode_kernels_over_clamped_ghost_table(dev, kernel, dtype, s, hkv, g, dh, npt,
+                                                 bs, nsel):
+    """#4, 4q, 5 and 5q (4 splits) read through an eviction's clamped table
+    (ghost ids -> the pool's last page, selected and unselected): within
+    the decode limit of their plain versions on the same clamped table,
+    which holds no id past the pool."""
+    quant = kernel.endswith("quant")
+    if quant:
+        q, kp, vp, ksp, vsp, idx, pt, kv_len, _ = _quant_paged_inputs(
+            dev, dtype, s, hkv, g, dh, npt, bs, nsel)
+        scales = dict(k_scales=ksp, v_scales=vsp)
+    else:
+        q, kp, vp, idx, pt, kv_len, _ = _paged_inputs(dev, dtype, s, hkv, g, dh, npt, bs,
+                                                      nsel)
+        scales = {}
+    n_pages = kp.shape[0]
+    ghost, _ = _ghost_table(pt.cpu().numpy(), n_pages, np.random.default_rng(npt))
+    pt_kv = torch.clamp_max(torch.tensor(ghost, device=dev), n_pages - 1)
+    assert int(pt_kv.max()) < n_pages and (ghost >= n_pages).any()
+    if kernel.startswith("splitk"):
+        wrapper = (bsd.sparse_decode_paged_splitk_quant_cuda if quant
+                   else bsd.sparse_decode_paged_splitk_cuda)
+        o_k = wrapper(q, kp, vp, idx, pt_kv, kv_len, block_size=bs, num_splits=4, **scales)
+        o_p = bsd.sparse_decode_paged_splitk_plain(q, kp, vp, idx, pt_kv, kv_len,
+                                                   block_size=bs, num_splits=4, **scales)
+    else:
+        wrapper = (bsd.sparse_decode_paged_quant_cuda if quant
+                   else bsd.sparse_decode_paged_cuda)
+        o_k = wrapper(q, kp, vp, idx, pt_kv, kv_len, block_size=bs, **scales)
+        o_p = bsd.sparse_decode_paged_plain(q, kp, vp, idx, pt_kv, kv_len, block_size=bs,
+                                            **scales)
+    torch.cuda.synchronize()
+    _check_decode(o_k, o_p, dtype)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_engine_cuda_eviction_serve_replays_and_matches(dev, quantize):
+    """serve(eviction=...) on the card (tiny config, fp32) under a resident
+    cap that forces fault -> restore -> replay: replays > 0, #3 and the
+    decode kernel launched layers x (decode steps + replays) times, the
+    tokens equal to the CPU eviction run's (logits within 1e-4, int8 1e-3)
+    and, over fp pools, bitwise the card's own run without eviction."""
+    from repro_torch.core.policy import DecodeOptions
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import DecodeEngine
+    from repro_torch.serve.eviction import EvictionConfig
+    cfg = _tiny_cfg()
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+    r = np.random.default_rng(3)
+    reqs = [{"rid": i, "max_new_tokens": m,
+             "tokens": r.integers(0, cfg.vocab_size, size=(p,)).astype(np.int32)}
+            for i, (p, m) in enumerate([(61, 10), (45, 12), (30, 9)])]
+    opts = DecodeOptions(quantize=quantize)
+    gpu = DecodeEngine(cfg, params_to(params, dev), max_len=128, options=opts)
+    cpu = DecodeEngine(cfg, params, max_len=128, options=opts, device="cpu")
+    ev = EvictionConfig(max_resident_pages=3)
+    want = cpu.serve(reqs, n_slots=3, collect_logits=True, eviction=ev)
+    ample = gpu.serve(reqs, n_slots=3, collect_logits=True)
+    ops.reset_launch_counts()
+    got = gpu.serve(reqs, n_slots=3, collect_logits=True, eviction=ev)
+    st = got["stats"]
+    assert st["replay_steps"] > 0 and st["errors"] == {}
+    for key in ("evictions", "page_restores", "replay_steps", "decode_steps"):
+        assert st[key] == want["stats"][key], key
+    n = cfg.num_layers * (st["decode_steps"] + st["replay_steps"])
+    decode = "block_sparse_decode_paged" + ("_quant" if quantize else "")
+    assert ops.launch_counts() == _counts(gate_select_paged=n, **{decode: n})
+    for i in range(len(reqs)):
+        assert got[i] == want[i]
+        np.testing.assert_allclose(got["logits"][i], want["logits"][i],
+                                   atol=1e-3 if quantize else 1e-4)
+        if quantize is None:
+            assert got[i] == ample[i]
+            np.testing.assert_array_equal(got["logits"][i], ample["logits"][i])

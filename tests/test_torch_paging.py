@@ -315,8 +315,10 @@ def test_page_allocator_and_init_pages():
     pools = t_pg.init_pages(cfg, 5, 2, device="cpu")
     assert pools.k_pages.shape == (2, 5, cfg.n_kv_heads, cfg.gate.block_size,
                                    cfg.resolved_head_dim)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t_pg.init_pages(cfg, 5, 2, device="cpu", ghost_rows=2)
+    # eviction ghost rows extend the Kg pool only (ids 5 and 6 here)
+    ghost = t_pg.init_pages(cfg, 5, 2, device="cpu", ghost_rows=2)
+    assert ghost.kg_pages.shape == (2, 7) + pools.kg_pages.shape[2:]
+    assert ghost.k_pages.shape == pools.k_pages.shape
     q8 = t_pg.init_pages(cfg, 5, 2, device="cpu", quantize="int8")
     assert q8.k_pages.dtype == q8.v_pages.dtype == torch.int8
     assert q8.k_pages.shape == pools.k_pages.shape

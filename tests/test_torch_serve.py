@@ -10,7 +10,9 @@ abs difference on a CPU run: 7.3e-7); under forced preemption the
 scheduler and swap counters must be equal too. Then port-only bitwise
 checks (lazy == reserve, tight pool == ample pool), the repaired
 ``sparsity_stats`` against the reference after ``generate`` and after
-``serve``, and the options this slice does not port, which must raise.
+``serve``, the pressure-path options (eviction, faults, a swap config,
+streaming, a table width, arrivals) against the reference's, and what a
+sharded engine does not take yet, which must raise.
 
 The JAX runs are cached per module so the file stays fast.
 """
@@ -26,7 +28,10 @@ import capture_golden_policy as G
 from repro.core.policy import DecodeOptions as JOptions
 from repro.core.policy import DensePolicy as JDense
 from repro.models.registry import get_api
+from repro.serve import traffic as j_traffic
 from repro.serve.engine import DecodeEngine as JaxEngine
+from repro.serve.faults import FaultInjector as JFaults
+from repro.serve.offload import SwapConfig as JSwapConfig
 from repro.serve.scheduler import pages_needed
 from repro_torch.config import reduced as t_reduced
 from repro_torch.configs import get as t_get
@@ -36,7 +41,10 @@ from repro_torch.core.policy import DensePolicy as TDense
 from repro_torch.core.policy import SelectionSchedule as TSchedule
 from repro_torch.distributed.sharding import Shard
 from repro_torch.kernels import ops as t_ops
+from repro_torch.serve import traffic as t_traffic
 from repro_torch.serve.engine import DecodeEngine
+from repro_torch.serve.faults import FaultInjector
+from repro_torch.serve.offload import SwapConfig
 from repro_torch.serve.sampling import SamplingParams
 
 jax.config.update("jax_platform_name", "cpu")
@@ -138,15 +146,16 @@ def test_serve_matches_jax(models, jax_runs, name):
 
 
 def test_serve_stats_keys_match_jax(models, jax_runs):
-    """The port reports the reference's stats keys, less those of the
-    options it does not port (eviction, faults, open-loop arrivals) and of
-    its jit cache."""
+    """The port reports the reference's stats keys, less the one of its
+    jit cache, with equal eviction, fault and arrival counters."""
     j_res, _ = jax_runs("ragged")
     t_res = port_engine(models, "budget").serve(
         requests(models["budget"][0], CASES["ragged"][1]), n_slots=3)
-    not_ported = {"faults", "evictions", "page_restores", "replay_steps",
-                  "rejected_arrivals", "prefill_jit_programs"}
+    not_ported = {"prefill_jit_programs"}
     assert set(t_res["stats"]) == set(j_res["stats"]) - not_ported
+    for key in ("faults", "evictions", "page_restores", "replay_steps",
+                "rejected_arrivals"):
+        assert t_res["stats"][key] == j_res["stats"][key], key
     assert t_res["stats"]["swap"] == j_res["stats"]["swap"]
     assert t_res["stats"]["prefill_buckets_pages"] == j_res["stats"]["prefill_buckets_pages"]
 
@@ -215,13 +224,33 @@ def test_sparsity_stats_match_jax_after_generate_and_serve(models, jax_runs):
 
 def test_unported_options_raise(models):
     eng = port_engine(models, "budget")
-    reqs = requests(models["budget"][0], [(9, 3)])
-    for kw, item in ((dict(eviction=True), "item 7"), (dict(faults=object()), "item 7"),
-                     (dict(swap_config=object()), "item 7"),
-                     (dict(arrivals=object()), "item 7"),
-                     (dict(on_token=print), "item 7"), (dict(table_pages=9), "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            eng.serve(reqs, **kw)
+    jcfg, jparams = models["budget"][:2]
+    reqs = requests(jcfg, [(9, 3)])
+    # the pressure-path options (Queue A item 7) are ported: each runs and
+    # gives the JAX engine's tokens and stream
+    j_eng = JaxEngine(jcfg, jparams, max_len=64)
+    seen = {"port": [], "jax": []}
+    trace = [t_traffic.TraceEntry(rid=0, arrival=0.0, prompt_len=9, output_len=3, seed=5),
+             t_traffic.TraceEntry(rid=1, arrival=1.5, prompt_len=12, output_len=4, seed=6)]
+    for t_kw, j_kw in (
+            (dict(eviction=True), dict(eviction=True)),
+            (dict(faults=FaultInjector({})), dict(faults=JFaults({}))),
+            (dict(swap_config=SwapConfig(retries=0)), dict(swap_config=JSwapConfig(retries=0))),
+            (dict(on_token=lambda r, tok, i, step: seen["port"].append((tok, i, step))),
+             dict(on_token=lambda r, tok, i, step: seen["jax"].append((tok, i, step)))),
+            (dict(table_pages=9), dict(table_pages=9)),
+            (dict(arrivals=t_traffic.StepArrivals(trace, jcfg.vocab_size), max_steps=20,
+                  table_pages=4),
+             dict(arrivals=j_traffic.StepArrivals(
+                 [j_traffic.TraceEntry(**dataclasses.asdict(e)) for e in trace],
+                 jcfg.vocab_size), max_steps=20, table_pages=4))):
+        got = eng.serve([] if "arrivals" in t_kw else reqs, **t_kw)
+        want = j_eng.serve([] if "arrivals" in j_kw else reqs, **j_kw)
+        rids = [e.rid for e in trace] if "arrivals" in t_kw else [0]
+        for rid in rids:
+            assert got[rid] == want[rid] and len(got[rid]) > 0
+        assert got["stats"]["errors"] == want["stats"]["errors"] == {}
+    assert seen["port"] == seen["jax"] and len(seen["port"]) == 3
     # a sharded engine refuses the item-6 pieces its paths lack (a Shard
     # stub: every refusal comes before any collective)
     stub = object.__new__(Shard)

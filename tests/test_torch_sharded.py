@@ -18,6 +18,12 @@ against its unsharded path, so that is what the port is held to
     logits within INT8_TOL of the JAX int8 engine (tests/test_torch_quant.py's
     bound); DensePolicy through the dense fallback over local heads,
     bitwise equal to the unsharded port;
+  * RaaS page eviction under a resident cap that forces replays, fp (at
+    ``split_k`` 1 and 2) and int8: the clamped table and the touched mask
+    (gathered over ranks with the ids) on the head-sharded body; the
+    eviction, restore and replay counters equal to the JAX engine's
+    eviction run, bitwise the port's unsharded eviction run at
+    ``split_k=1``;
   * sequence-sharded ``generate``: budget and threshold gates with
     ``local_cap_factor=8.0`` (the candidate cap not binding), 12 decode
     steps teacher-forced with the reference's greedy tokens: logits within
@@ -48,6 +54,7 @@ from repro.core.policy import DecodeOptions as JOptions
 from repro.core.policy import DensePolicy as JDense
 from repro.models import transformer as j_tf
 from repro.serve.engine import DecodeEngine as JaxEngine
+from repro.serve.eviction import EvictionConfig as JEviction
 from repro_torch.config import reduced as t_reduced
 from repro_torch.configs import get as t_get
 from repro_torch.convert import params_from_numpy
@@ -101,9 +108,21 @@ SERVE_REF = {
                      INT8_TOL),
     "int8-split2": (dict(quantize="int8"), dict(n_slots=2), None, INT8_TOL),
     "dense": (dict(policy=JDense()), dict(n_slots=2), "dense", LOGIT_TOL),
+    "fp-evict": (dict(), H.EVICT, "fp-evict", LOGIT_TOL),
+    "fp-evict-split2": (dict(), H.EVICT, None, LOGIT_TOL),
+    "int8-evict": (dict(quantize="int8"), H.EVICT, "int8-evict", INT8_TOL),
 }
 COUNTERS = ("preemptions", "resumed", "decode_steps", "peak_pages_used",
-            "swapped_out_bytes", "swapped_in_bytes", "swap")
+            "swapped_out_bytes", "swapped_in_bytes", "swap", "evictions",
+            "page_restores", "replay_steps", "errors")
+
+
+def _jax_serve_kw(serve_kw):
+    """The JAX engine's serve kwargs: its own EvictionConfig."""
+    ev = serve_kw.get("eviction")
+    if ev is None:
+        return serve_kw
+    return dict(serve_kw, eviction=JEviction(**dataclasses.asdict(ev)))
 
 
 @pytest.fixture(scope="module")
@@ -124,7 +143,7 @@ def serve_runs(tmp_path_factory):
         if key not in jax_res:
             eng = JaxEngine(jcfg, params, max_len=64, options=JOptions(**j_kw))
             jax_res[key] = eng.serve([dict(r) for r in reqs], collect_logits=True,
-                                     **serve_kw)
+                                     **_jax_serve_kw(serve_kw))
         if twin is not None:
             opt_kw = H.SERVE_CASES[twin][0]
             eng = DecodeEngine(tcfg, tparams, max_len=64, device="cpu",
@@ -143,9 +162,11 @@ def test_head_sharded_serve_matches_unsharded(serve_runs, case):
     got = sharded[0][case]
     want = jax_res[case]
     tol = SERVE_REF[case][3]
-    # every decode step gathered each layer's o over ranks (with its ids on
-    # a selecting layer, in the same collective): the sharded path ran
-    assert got["gathers"] == N_LAYERS * got["stats"]["decode_steps"] > 0
+    # every decode step, and every replayed attempt of one, gathered each
+    # layer's o over ranks (with its ids on a selecting layer, in the same
+    # collective): the sharded path ran
+    assert got["gathers"] == N_LAYERS * (got["stats"]["decode_steps"]
+                                         + got["stats"]["replay_steps"]) > 0
     for rid, (_, n_new) in enumerate(SPECS):
         assert got["tokens"][rid] == want[rid], f"rid {rid} tokens"
         assert len(got["tokens"][rid]) == n_new
@@ -163,6 +184,8 @@ def test_head_sharded_serve_matches_unsharded(serve_runs, case):
         assert got["stats"]["sparsity_by_rid"] == twin["stats"]["sparsity_by_rid"]
     for key in COUNTERS:
         assert got["stats"][key] == want["stats"][key], key
+    if "evict" in case:
+        assert got["stats"]["replay_steps"] > 0 and got["stats"]["evictions"] > 0
     if case.endswith("preempt"):
         assert got["stats"]["preemptions"] > 0
         assert got["stats"]["swapped_out_bytes"] == got["stats"]["swapped_in_bytes"] > 0

@@ -19,6 +19,10 @@ from repro_torch.core.policy import DecodeOptions, DensePolicy
 from repro_torch.distributed.sharding import Shard, decode_partition, seq_shard_state
 from repro_torch.serve import paging as pg
 from repro_torch.serve.engine import DecodeEngine
+from repro_torch.serve.eviction import EvictionConfig
+
+# a resident cap under the lists' width: evicts, faults and replays
+EVICT = dict(n_slots=4, num_pages=10, eviction=EvictionConfig(max_resident_pages=2))
 
 # name -> (DecodeOptions kwargs, serve kwargs); every engine has the shard
 SERVE_CASES = {
@@ -29,9 +33,13 @@ SERVE_CASES = {
     "int8-preempt": (dict(quantize="int8"), dict(n_slots=4, num_pages=10)),
     "int8-split2": (dict(quantize="int8", split_k=2), dict(n_slots=2)),
     "dense": (dict(policy=DensePolicy()), dict(n_slots=2)),
+    "fp-evict": (dict(), EVICT),
+    "fp-evict-split2": (dict(split_k=2), EVICT),
+    "int8-evict": (dict(quantize="int8"), EVICT),
 }
 STATS = ("preemptions", "resumed", "decode_steps", "peak_pages_used",
-         "swapped_out_bytes", "swapped_in_bytes", "sparsity_by_rid", "swap")
+         "swapped_out_bytes", "swapped_in_bytes", "sparsity_by_rid", "swap",
+         "evictions", "page_restores", "replay_steps", "errors")
 
 
 def _count_gathers(shard):
