@@ -26,7 +26,12 @@ forward). Then the other dense configs of the port at full width,
 ``gemma_2b`` (MQA 8 x 256), ``granite_20b`` (MQA 48 x 128) and
 ``deepseek_coder_33b`` (56 / 8 x 128), the last two cut in depth
 (``OTHER_CONFIGS``), through ``generate`` and ``serve`` and, for the
-first two, distill training.
+first two, distill training. Then the MoE and vision families
+(``FAMILY_CONFIGS``): ``deepseek_moe_16b`` (MHA 16 x 128, 64 experts, top
+6) at all 28 layers through ``generate`` and ``serve``, ``kimi_k2_1t_a32b``
+(64 / 8 x 128, 384 experts, top 8) at one layer and
+``llama_3_2_vision_11b`` (32 / 8 x 128, a cross-attention layer every 5)
+at all 40 layers through ``generate``.
 The contiguous int8 kernel ``block_sparse_decode_quant`` lies on no model
 path (in the reference neither): it is checked and timed on the generate
 path's layer-0 blocks, quantized per block. Phases (any failure exits
@@ -49,7 +54,12 @@ non-zero):
      own heads (8 x 256, 48 x 128, 56 / 8 x 128), fp32, card against CPU:
      ``generate`` tokens equal, logits within 1e-4, #1 and #2 at every
      layer and step; at ``reduced()`` also ``serve`` with an ample and a
-     preempting pool, the same checks through #3 and #4;
+     preempting pool, the same checks through #3 and #4; the same for the
+     family configs (``small_geometries``: the MoE ones also at their
+     published routers, whose capacity drops assignments, with ``serve``
+     at both geometries; the vision one with the same seeded image
+     embeddings on both devices, one unit of a self and a cross layer at
+     its own heads, ``generate`` only, #1 and #2 at every self layer);
   3. kernel vs plain on the card, on the tensors the main path gives
      layer 0 in its first decode step (captured from a real prefill +
      step): gate select for budget/threshold x force flags x n_valid
@@ -213,6 +223,32 @@ non-zero):
      step's layer-0 tensors. The launches of phases 21-22's main paths
      join the counts of the kernels line, their errors its max_abs_err.
 
+The MoE and vision families (phases 30-32, after phase 22; the launches
+of their main paths join the counts of the kernels line, their errors
+its max_abs_err):
+
+ 30. ``deepseek_moe_16b`` at full width and depth through phase 21's
+     steps: #1, #2 and 2q on layer 0 of its ``generate`` (G 1: 16 KV heads
+     of one query head each); ``generate`` (#1 and #2 28 x 31 times);
+     its profile, with the expert FFN's share of the step's device busy
+     time (one layer's ``moe_mlp`` on its captured decode input, the
+     host hidden, times the layers) and the floor of the routed experts'
+     bytes; ``serve`` at the default pool and at 644 pages, where the
+     tight run must equal the ample run, tokens and logits bitwise, only
+     up to the first decode step whose (slot, request) set differs (the
+     experts' capacity couples the rows of a step, in the reference
+     too: ``check_coupled_serve``); #3, #4, 5 at 2, 4, 8 and nsel + 3
+     splits, 4q and 5q on the serve's layer-0 tensors;
+ 31. ``kimi_k2_1t_a32b`` at one layer (G 8 at 8 KV heads, 384 experts),
+     its prompt cut to 8192 tokens and its query chunk to 256: the
+     layer-0 kernel checks and ``generate`` (#1 and #2 31 times), its
+     profile and expert FFN share;
+ 32. ``llama_3_2_vision_11b`` at full depth (G 4) with numpy-seeded
+     image embeddings: the kernel checks on self layer 0, ``generate``
+     (#1 and #2 32 self layers x 31 steps), its profile, and a cross
+     layer's dense decode attention over the 1601 image tokens timed
+     (plain PyTorch, as in the reference, SDPA beside it).
+
 The pressure and failure paths of ``serve`` (phases 23-29) run after
 phase 13, on qwen3_0_6b at full width and phase 6's requests unless
 stated, each with the launch counters at 0 just before and read just
@@ -264,6 +300,7 @@ no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -281,20 +318,21 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.checkpoint import manager as ckpt  # noqa: E402
-from repro_torch.config import OptimConfig, TrainConfig, reduced  # noqa: E402
+from repro_torch.config import MoEConfig, OptimConfig, TrainConfig, reduced  # noqa: E402
 from repro_torch.convert import params_to, train_state_to  # noqa: E402
 from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,  # noqa: E402
                                      DensePolicy, OraclePolicy, QuestPolicy,
                                      QuestRecomputePolicy, SelectionInputs,
                                      SelectionSchedule, SlidingWindowPolicy)
 from repro_torch.distributed.sharding import Shard  # noqa: E402
-from repro_torch.data.pipeline import DataState, make_batch  # noqa: E402
+from repro_torch.data.pipeline import DataState, image_embeds, make_batch  # noqa: E402
 from repro_torch.kernels import block_sparse_decode as bsd  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import gate_gt_fwd as gt  # noqa: E402
 from repro_torch.kernels import gate_select as gs  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.common import decode_attention  # noqa: E402
-from repro_torch.models.transformer import init_lm, lm_forward  # noqa: E402
+from repro_torch.models.transformer import init_lm, lm_forward, n_self_layers  # noqa: E402
 from repro_torch.core.policy import default_tiers  # noqa: E402
 from repro_torch.serve import offload, traffic  # noqa: E402
 from repro_torch.serve import paging as pg  # noqa: E402
@@ -344,19 +382,38 @@ OVERRIDE_SAMPLING = SamplingParams(temperature=0.7, top_k=50, top_p=0.9)
 # d_ff, vocab and gate as in its file), bf16, weights from seed 0, on the
 # main path's generate and serve cells; the one cut: granite_20b (52
 # layers, 56 GB of bf16 weights) and deepseek_coder_33b (62 layers, 66 GB)
-# to 8 layers, so that weights, caches and prefill fit one card and the
+# to 4 layers, so that weights, caches and prefill fit one card and the
 # time limit (their prefill keeps the config's query chunks of 1024: the
 # fp32 scores of a chunk over 16384 keys, 13-15 GB at 48 and 56 heads,
-# fit beside 8 layers); gemma_2b runs all 18 layers
+# fit beside them; 8 layers until the MoE and vision phases joined the
+# script); gemma_2b runs all 18 layers
 OTHER_CONFIGS = {
     "gemma_2b": {},
-    "granite_20b": dict(num_layers=8),
-    "deepseek_coder_33b": dict(num_layers=8),
+    "granite_20b": dict(num_layers=4),
+    "deepseek_coder_33b": dict(num_layers=4),
 }
 # distill training of gemma_2b (kernel 6 at head dim 256) and granite_20b
 # (its 48-head MQA group, head pairs) at those depths: the qwen3 phase's
 # batch 4 x 4096 tokens (the launcher's batch 16 cut to 4), 3 steps, no
 # checkpoint; then kernel 6 at 128-key blocks on qwen3_0_6b's tensors
+# the MoE and vision families (phases 30-32), each at full width (widths,
+# heads, experts and router as in its file), bf16, weights from seed 0:
+# deepseek_moe_16b at all 28 layers (33.8 GB of bf16 weights; generate's
+# contiguous K/V 15.1 GB, so generate and serve run one after the other)
+# on the generate and serve cells; kimi_k2_1t_a32b cut to one layer (its
+# 384 experts hold 33.8 GB a layer) on generate alone, with its prompt cut
+# to 8192 tokens and its query chunk to 256 (the prefill's expert buffers
+# grow with batch x prompt x top-k rows of 7168, the fp32 scores with 64
+# heads x chunk x prompt); llama_3_2_vision_11b at all 40 layers (32 self
+# + 8 cross, 19.6 GB) on generate alone (the reference has no paged step
+# for cross-attention), with numpy-seeded image embeddings
+FAMILY_CONFIGS = {
+    "deepseek_moe_16b": {},
+    "kimi_k2_1t_a32b": dict(num_layers=1, q_chunk=256),
+    "llama_3_2_vision_11b": {},
+}
+FAMILY_PROMPT = {"kimi_k2_1t_a32b": 8192}
+FAMILY_SERVE = ("deepseek_moe_16b",)
 OTHER_TRAIN = ("gemma_2b", "granite_20b")
 OTHER_TRAIN_STEPS = 3
 GT_BLOCK_BIG = 128
@@ -1168,15 +1225,22 @@ def phase_serve(cfg, params, options=DecodeOptions(), shard=None, tight_pool=Tru
     eng = DecodeEngine(cfg, params, max_len=max(p + m for p, m in SERVE_SPECS),
                        options=options, shard=shard)
     seen, restore = capture_paged_layer0()
+    coupled = cfg.family == "moe"
+    traces = ({}, {})
     try:
-        ample, counts, _ = run_serve(eng, reqs, None, cfg.num_layers)
+        ample, counts, _ = run_serve(eng, reqs, None, cfg.num_layers,
+                                     **slot_trace(traces[0]) if coupled else {})
     finally:
         restore()
     if ample["stats"]["preemptions"]:
         fail("the ample pool preempted")
     if not tight_pool:
         return counts, seen, ample, None
-    tight, _, _ = run_serve(eng, reqs, TIGHT_PAGES, cfg.num_layers)
+    tight, _, _ = run_serve(eng, reqs, TIGHT_PAGES, cfg.num_layers,
+                            **slot_trace(traces[1]) if coupled else {})
+    if coupled:
+        check_coupled_serve(reqs, ample, tight, *traces)
+        return counts, seen, ample, tight
     st = tight["stats"]
     if st["preemptions"] < 1 or st["resumed"] != st["preemptions"]:
         fail(f"tight pool: preemptions {st['preemptions']}, resumed {st['resumed']}")
@@ -1197,6 +1261,53 @@ def phase_serve(cfg, params, options=DecodeOptions(), shard=None, tight_pool=Tru
     print(f"tight pool reproduces the ample run: tokens equal for every rid, logits "
           + ("bitwise equal" if worst == 0 else f"within {worst:.2f} bf16 ulps"))
     return counts, seen, ample, tight
+
+
+def slot_trace(trace):
+    """serve() kwargs recording, for every token, its decode step and the
+    (slot, rid) that produced it: ``trace[rid]`` = [(step, index)], and
+    ``trace["steps"][step]`` the set of (slot, rid) pairs that decoded at
+    that step (the prefill's tokens excluded)."""
+    trace["steps"] = {}
+
+    def on_token(req, token, index, step):
+        trace.setdefault(req.rid, []).append(step)
+        if index > 0:
+            trace["steps"].setdefault(step, set()).add((req.slot, req.rid))
+    return {"on_token": on_token}
+
+
+def check_coupled_serve(reqs, ample, tight, t_ample, t_tight):
+    """A MoE model's tight run against its ample run: its experts' capacity
+    couples the rows of a step (every slot, active or not, routes in one
+    call), so a request's output depends on which slots are active, in the
+    reference too. The runs must agree bitwise, tokens and logits, on every
+    token produced before the first decode step whose (slot, request) set
+    differs, and the tight run must preempt and resume and swap its bytes
+    back."""
+    st = tight["stats"]
+    if st["preemptions"] < 1 or st["resumed"] != st["preemptions"]:
+        fail(f"tight pool: preemptions {st['preemptions']}, resumed {st['resumed']}")
+    if st["swapped_out_bytes"] != st["swapped_in_bytes"]:
+        fail(f"tight pool: swapped out {st['swapped_out_bytes']} B, in {st['swapped_in_bytes']} B")
+    steps = sorted(set(t_ample["steps"]) | set(t_tight["steps"]))
+    first = next((s for s in steps if t_ample["steps"].get(s) != t_tight["steps"].get(s)),
+                 steps[-1] + 1)
+    held = same = total = 0
+    for r in reqs:
+        rid = r["rid"]
+        n = min(sum(1 for step in t[rid] if step < first) for t in (t_ample, t_tight))
+        if tight[rid][:n] != ample[rid][:n] or not np.array_equal(
+                tight["logits"][rid][:n], ample["logits"][rid][:n]):
+            fail(f"tight pool changed rid {rid} before step {first}, where the active "
+                 f"slots still agree")
+        held += n
+        total += len(ample[rid])
+        same += sum(a == b for a, b in zip(ample[rid], tight[rid]))
+    print(f"tight pool against the ample run (MoE: rows coupled by the experts' capacity): "
+          f"the (slot, request) sets first differ at decode step {first}; the {held} tokens "
+          f"before it equal, logits bitwise; {same} of {total} tokens equal over the whole "
+          f"runs (information only)")
 
 
 def check_int8_serve(cfg, fp, q8):
@@ -2223,43 +2334,69 @@ def phase_train_profile(cfg, tcfg, state, steps: int = 2):
 # ---------------------------------------------------------------------------
 
 def other_config(arch):
-    """(config, the cuts as printed) of one of OTHER_CONFIGS."""
+    """(config, the cuts as printed) of one of OTHER_CONFIGS or FAMILY_CONFIGS."""
     full = configs.get(arch)
-    cut = OTHER_CONFIGS[arch]
+    cut = {**OTHER_CONFIGS, **FAMILY_CONFIGS}[arch]
     cfg = full.replace(**cut)
     reduced_list = [f"{k} {getattr(full, k)} -> {v}" for k, v in cut.items()]
+    if arch in FAMILY_PROMPT:
+        reduced_list.append(f"prompt {PROMPT_LEN} -> {FAMILY_PROMPT[arch]}")
     return cfg, reduced_list
 
 
+def small_geometries(arch):
+    """(label, fp32 config) of the small card-vs-CPU cases of one config:
+    its reduced() geometry, and a one-layer model at its own heads (a MoE
+    config also at its own router: E, top-k, shared experts and capacity
+    as published, experts of width 64; a vision model one unit of a self
+    and a cross layer)."""
+    full = configs.get(arch)
+    own = dict(n_heads=full.n_heads, n_kv_heads=full.n_kv_heads, head_dim=full.head_dim,
+               num_layers=2 if full.cross_attn_period else 1)
+    label = "own heads, 1 layer"
+    if full.family == "moe":
+        m = full.moe
+        own["moe"] = MoEConfig(n_experts=m.n_experts, top_k=m.top_k,
+                               n_shared_experts=m.n_shared_experts, expert_d_ff=64,
+                               capacity_factor=m.capacity_factor)
+        label = f"own heads and router ({m.n_experts} experts, top {m.top_k}), 1 layer"
+    elif full.cross_attn_period:
+        label = "own heads, 1 unit (a self and a cross layer)"
+    return [("reduced", reduced(full).replace(dtype="float32")),
+            (label, reduced(full, **own).replace(dtype="float32"))]
+
+
 def phase_small_configs():
-    """Each other config's reduced() geometry (fp32, gate block 8) and a
-    one-layer model at its own head geometry (8 x 256 MQA, 48 x 128 MQA,
-    56 / 8 x 128) on the card against the CPU plain path: generate (2 x 41
-    prompt, 12 steps, tokens equal, logits within 1e-4, each step's
-    layers through #1 and #2), and, at reduced(), serve with an ample and
-    a preempting pool (tokens equal, logits within 1e-4, each step's
-    layers through #3 and #4)."""
-    for arch in OTHER_CONFIGS:
-        full = configs.get(arch)
-        for label, cfg in (("reduced", reduced(full)),
-                           ("own heads, 1 layer", reduced(
-                               full, num_layers=1, n_heads=full.n_heads,
-                               n_kv_heads=full.n_kv_heads, head_dim=full.head_dim))):
-            cfg = cfg.replace(dtype="float32")
+    """Each other config's and each family config's reduced() geometry
+    (fp32, gate block 8) and a small model at its own head geometry (8 x
+    256 MQA, 48 x 128 MQA, 56 / 8 x 128; MHA 16 x 128 and 64 / 8 x 128
+    with their published routers; 32 / 8 x 128 with a cross layer) on the
+    card against the CPU plain path: generate (2 x 41 prompt, a vision
+    model with the same seeded image embeddings on both devices, 12 steps,
+    tokens equal, logits within 1e-4, each step's self layers through #1
+    and #2), and serve with an ample and a preempting pool (tokens equal,
+    logits within 1e-4, each step's layers through #3 and #4) at reduced()
+    for the dense configs and at both geometries for the MoE ones (the
+    reference has no paged step for a vision model)."""
+    for arch in (*OTHER_CONFIGS, *FAMILY_CONFIGS):
+        for label, cfg in small_geometries(arch):
             params = init_lm(torch.Generator().manual_seed(0), cfg)
-            toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 41))
+            batch = {"tokens": np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 41))}
+            if cfg.cross_attn_period:
+                batch["image_embeds"] = image_embeds(cfg, 2, DataState(SEED, 0),
+                                                     device="cpu").numpy()
             runs = {}
             for dev in ("cpu", "cuda"):
                 eng = DecodeEngine(cfg, params_to(params, dev), max_len=64, device=dev)
                 ops.reset_launch_counts()
-                tok, st = eng.prefill({"tokens": toks})
+                tok, st = eng.prefill(batch)
                 lgs, tks = [], []
                 for _ in range(12):
                     tok, lg, st, _ = eng._step(eng.params, st, tok)
                     lgs.append(lg.float().cpu())
                     tks.append(tok.cpu())
                 runs[dev] = (torch.stack(lgs), torch.stack(tks), ops.launch_counts())
-            n = cfg.num_layers * 12
+            n = n_self_layers(cfg) * 12
             want = {**dict.fromkeys(ops.KERNELS, 0), "gate_select": n,
                     "block_sparse_decode": n}
             same = torch.equal(runs["cpu"][1], runs["cuda"][1])
@@ -2271,8 +2408,8 @@ def phase_small_configs():
             msg = (f"{arch} small agreement ({label}: {cfg.num_layers} layers, "
                    f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, fp32): "
                    f"generate tokens equal, logits max abs diff {err:.3e}, {n} launches each "
-                   f"of #1 and #2")
-            if label == "reduced":
+                   f"of #1 and #2 ({n_self_layers(cfg)} self layers x 12 steps)")
+            if (label == "reduced" or cfg.family == "moe") and not cfg.cross_attn_period:
                 r = np.random.default_rng(4)
                 reqs = [{"rid": i, "max_new_tokens": m,
                          "tokens": r.integers(0, cfg.vocab_size, size=(p,)).astype(np.int32)}
@@ -2319,45 +2456,87 @@ def quantized_pools(seen):
 
 
 def phase_config(arch):
-    """One of the other dense configs at full width (depth cut as
-    OTHER_CONFIGS says): phase 3's kernel checks of #1, #2 and 2q on
-    layer 0 of generate's first decode step; generate (batch 4, 16384-token
-    prompts, 31 decode steps, GatePolicy at budget 4096) with the counters
-    at 0 just before, #1 and #2 launching layers x steps; its profile;
-    serve with the default and the 644-page pool (tight == ample, #3 and
-    #4 launching layers x steps); #3 and #4 on the ample run's layer-0
-    tensors (plain and shuffled pages), 5 on them at 2, 4, 8 and nsel + 3
-    splits (bitwise #4 at the same count), and 4q and 5q on them quantized
-    per page (5q bitwise 4q). Returns (launch counts of the generate and
-    the ample serve, {kernel: numbers})."""
+    """One of the other dense configs or the family configs at full width
+    (depth and prompt cut as OTHER_CONFIGS, FAMILY_CONFIGS and
+    FAMILY_PROMPT say): phase 3's kernel checks of #1, #2 and 2q on layer 0
+    of generate's first decode step (a vision model also times its cross
+    layers' dense attention on the prefill's image K/V); generate (batch
+    4, 16384-token prompts, 31 decode steps, GatePolicy at budget 4096; a
+    vision model with seeded image embeddings) with the counters at 0 just
+    before, #1 and #2 launching self layers x steps; its profile (a MoE
+    model's with the expert FFN's share of the device's busy time); then,
+    for the dense configs and FAMILY_SERVE, serve with the default and the
+    644-page pool (tight == ample, or, for MoE, tight == ample up to the
+    first step whose active slots differ; #3 and #4 launching layers x
+    steps); #3 and #4 on the ample run's layer-0 tensors (plain and
+    shuffled pages), 5 on them at 2, 4, 8 and nsel + 3 splits (bitwise #4
+    at the same count), and 4q and 5q on them quantized per page (5q
+    bitwise 4q). Returns (launch counts of the generate and the ample
+    serve, {kernel: numbers})."""
     t0 = time.perf_counter()
+    free_card()
     cfg, cuts = other_config(arch)
     bs = cfg.gate.block_size
-    max_len = -(-(PROMPT_LEN + NEW_TOKENS) // bs) * bs
+    prompt = FAMILY_PROMPT.get(arch, PROMPT_LEN)
+    nl = n_self_layers(cfg)
+    max_len = -(-(prompt + NEW_TOKENS) // bs) * bs
+    family = ""
+    if cfg.family == "moe":
+        m = cfg.moe
+        family = (f"; {m.n_experts} routed experts of d_ff {m.expert_d_ff}, top {m.top_k}, "
+                  f"{m.n_shared_experts} shared, capacity factor {m.capacity_factor}")
+    if cfg.cross_attn_period:
+        family = (f"; a cross-attention layer every {cfg.cross_attn_period} ({nl} self, "
+                  f"{cfg.num_layers - nl} cross) into {cfg.n_image_tokens} image tokens")
     print(f"{arch}: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
           f"heads x {cfg.resolved_head_dim}, d_ff {cfg.d_ff} ({cfg.activation}), vocab "
-          f"{cfg.vocab_size}, tied embeddings {cfg.tie_embeddings}, {cfg.dtype}; gate block "
-          f"{bs}, d_gate {cfg.gate.d_gate}, budget {cfg.gate.token_budget}; batch {BATCH}, "
-          f"prompt {PROMPT_LEN}, {NEW_TOKENS} new tokens; reduced {cuts}")
+          f"{cfg.vocab_size}, tied embeddings {cfg.tie_embeddings}, {cfg.dtype}{family}; gate "
+          f"block {bs}, d_gate {cfg.gate.d_gate}, budget {cfg.gate.token_budget}; batch "
+          f"{BATCH}, prompt {prompt}, {NEW_TOKENS} new tokens; reduced {cuts}")
     for name, quant in (("fp", False), ("int8", True)):
         plan = bsd.group_plan(cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim, bs,
                               torch.bfloat16, quant)
         print(f"{arch}: decode plan ({name} K/V, bf16 q): {plan}")
+    t1 = time.perf_counter()
     params = init_lm(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tl._walk(params))
+    print(f"{arch}: random weights (seed {SEED}) {n_params / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card, "
+          f"{time.perf_counter() - t1:.1f} s")
     toks = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (BATCH, PROMPT_LEN)).astype(np.int32)
+        0, cfg.vocab_size, (BATCH, prompt)).astype(np.int32)
     batch = {"tokens": toks}
+    if cfg.cross_attn_period:
+        batch["image_embeds"] = image_embeds(cfg, BATCH, DataState(SEED, 0), device="cuda")
     eng = DecodeEngine(cfg, params, max_len=max_len)
-    seen, state = capture_layer0(eng, batch)
+    moe_call, restore = capture_moe_call()
+    try:
+        seen, state = capture_layer0(eng, batch)
+    finally:
+        restore()
     numbers = phase_kernels(seen, vs_sdpa=False)
     numbers.update(phase_quant_kernels(seen))
+    if cfg.cross_attn_period:
+        cross_attention_times(cfg, params, state)
     del seen, state
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counts, _ = phase_end_to_end(eng, batch, NEW_TOKENS, cfg.num_layers)
-    phase_profile(eng, batch)
-    del eng
+    counts, _ = phase_end_to_end(eng, batch, NEW_TOKENS, nl)
+    _, busy = phase_profile(eng, batch)
+    if cfg.family == "moe":
+        moe_ffn_share(cfg, moe_call, busy)
+    del eng, moe_call
     torch.cuda.empty_cache()
+    if arch not in OTHER_CONFIGS and arch not in FAMILY_SERVE:
+        del params
+        torch.cuda.empty_cache()
+        why = ("the reference has no paged step for cross-attention" if cfg.cross_attn_period
+               else "generate only at this cut")
+        print(f"{arch}: no serve ({why})")
+        print(json.dumps({"config": arch, "reduced": cuts, "kernels": numbers}))
+        print(f"phase {arch}: {time.perf_counter() - t0:.1f} s")
+        return counts, numbers
     serve_counts, seen, *_ = phase_serve(cfg, params)
     del params
     torch.cuda.empty_cache()
@@ -2378,6 +2557,88 @@ def phase_config(arch):
     return counts, numbers
 
 
+def free_card():
+    """Collect the reference cycles an engine leaves (the timing wrappers
+    hold it through its bound methods), which would keep a finished
+    config's weights and pools on the card, and return the cached blocks:
+    a family config's weights take up to 40 GB."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"card memory before the next config: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+
+
+def cross_attention_times(cfg, params, state):
+    """A vision model's cross layers at decode: the dense decode attention
+    of one token over unit 0's image K/V (plain PyTorch, as in the
+    reference; no TPU kernel), timed as ``time_ms`` times a kernel, with
+    SDPA on the same inputs as context, and its cross blocks' share of the
+    weights printed."""
+    ck, cv = state.cross_k[0], state.cross_v[0]
+    b, hkv, n_img, dh = ck.shape
+    q = torch.randn(b, 1, cfg.n_heads, dh, generator=torch.Generator(device="cuda")
+                    .manual_seed(SEED), device="cuda").to(ck.dtype)
+    n = torch.full((b,), n_img, dtype=torch.int32, device="cuda")
+    t_plain = time_ms(lambda: decode_attention(q, ck, cv, n))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs = q[:, 0].reshape(b, cfg.n_heads, 1, dh)
+    t_lib = time_ms(lambda: sdpa(qs, ck, cv, enable_gqa=True))
+    nbytes = 2 * ck.numel() * ck.element_size()
+    o_p = decode_attention(q, ck, cv, n).reshape(b, cfg.n_heads, 1, dh).float()
+    err = float((sdpa(qs, ck, cv, enable_gqa=True).float() - o_p).abs().max())
+    print(f"{cfg.arch_id} cross layer at decode: dense attention of {b} x {cfg.n_heads} "
+          f"heads over {n_img} image tokens ({hkv} KV heads x {dh}), plain {t_plain:.4f} ms, "
+          f"SDPA {t_lib:.4f} ms (max abs diff {err:.2e}), bound "
+          f"{bound_ms(nbytes, 0)[0]:.5f} ms (the image K/V's {nbytes} B); "
+          f"{cfg.num_layers - n_self_layers(cfg)} such layers a step")
+
+
+def capture_moe_call():
+    """Patch ``moe_mlp`` so that its first call at decode (BATCH rows:
+    layer 0 of the first decode step) keeps its arguments. Returns
+    (captured dict, restore)."""
+    captured = {}
+    real = moe_mod.moe_mlp
+
+    def grab(p, x, *a, **kw):
+        if x.shape[0] == BATCH:
+            captured.setdefault("call", (p, x.clone(), a, kw))
+        return real(p, x, *a, **kw)
+
+    moe_mod.moe_mlp = grab
+
+    def restore():
+        moe_mod.moe_mlp = real
+    return captured, restore
+
+
+def moe_ffn_share(cfg, captured, busy_ms):
+    """A MoE model's expert FFN at decode: the device time of one layer's
+    ``moe_mlp`` (routing, dispatch, the einsums over all experts, the
+    gather and the shared experts) on the input layer 0 of a decode step
+    gave it (``capture_moe_call``), with the host's enqueue hidden, times
+    the layers, against the decode step's device busy time from the
+    profile; and the floor of its bytes (every routed expert's weights,
+    read by the einsums at any capacity) at the card's memory rate."""
+    p, x, a, kw = captured["call"]
+    fn = lambda: moe_mod.moe_mlp(p, x, *a, **kw)  # noqa: E731
+    t_wall = time_ms(fn)
+    t_dev = time_ms(fn, hide_host=True)
+    n_layers = n_self_layers(cfg)
+    w_bytes = sum(p[k].numel() * p[k].element_size() for k in ("wi_gate", "wi_up", "wo"))
+    floor = n_layers * w_bytes / HBM_BYTES_PER_S * 1e3
+    _, top_i, _ = moe_mod.route(x, p["router"]["w"], cfg.moe.top_k)
+    keep = moe_mod.dispatch(top_i, cfg.moe)[2]
+    print(f"{cfg.arch_id} expert FFN at decode ({x.shape[0]} rows, capacity "
+          f"{moe_mod.capacity(x.shape[0], cfg.moe)} an expert, {int((~keep).sum())} of "
+          f"{keep.numel()} assignments dropped at layer 0): {t_wall:.4f} ms a layer timed, "
+          f"{t_dev:.4f} ms device work alone; x {n_layers} layers = {n_layers * t_dev:.2f} ms "
+          f"of the step's {busy_ms:.2f} ms device busy "
+          f"({100 * n_layers * t_dev / busy_ms:.1f}%); the routed experts' weights, "
+          f"{w_bytes / 1e9:.3f} GB a layer, need >= {floor:.2f} ms a step at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+
+
 def phase_config_train(arch):
     """run_training in distill mode on one of OTHER_TRAIN (its depth as in
     OTHER_CONFIGS), OTHER_TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ, no
@@ -2386,6 +2647,7 @@ def phase_config_train(arch):
     kernel 6 against its plain version on the first step's layer-0 tensors
     (phase 20). Returns (launches of kernel 6, its numbers)."""
     t0 = time.perf_counter()
+    free_card()
     cfg, cuts = other_config(arch)
     tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=OTHER_TRAIN_STEPS,
                        seed=SEED, checkpoint_every=0, log_every=1,
@@ -2970,7 +3232,7 @@ def run_phases(shard) -> int:
 
     # the other dense configs: their launches join the counts, their
     # errors the kernels' max_abs_err
-    for arch in OTHER_CONFIGS:
+    for arch in (*OTHER_CONFIGS, *FAMILY_CONFIGS):
         c, nums = phase_config(arch)
         for name, n in c.items():
             counts[name] += n

@@ -1,8 +1,9 @@
 """Architecture registry of the port: one module per ported architecture.
 
 ``get(arch_id)`` returns the full-size ModelConfig. The four dense
-configs are ported (qwen3_0_6b, gemma_2b, granite_20b,
-deepseek_coder_33b); the MoE, SSM, hybrid, vision and audio configs
+configs (qwen3_0_6b, gemma_2b, granite_20b, deepseek_coder_33b), the two
+MoE configs (deepseek_moe_16b, kimi_k2_1t_a32b) and the vision backbone
+(llama_3_2_vision_11b) are ported; the SSM, hybrid and audio configs
 arrive with their families' slices.
 """
 from __future__ import annotations
@@ -16,6 +17,9 @@ ARCH_IDS = [
     "gemma_2b",
     "granite_20b",
     "deepseek_coder_33b",
+    "deepseek_moe_16b",
+    "kimi_k2_1t_a32b",
+    "llama_3_2_vision_11b",
 ]
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}

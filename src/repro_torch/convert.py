@@ -48,17 +48,43 @@ def _layer(t, i: int):
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device: torch.device | str | None = None) -> Dict[str, Any]:
     """Stacked numpy (or array-like) parameter tree -> port parameters on
-    ``device`` (``None`` = CUDA, which raises without a card)."""
-    if cfg.family != "dense" or "cross_blocks" in tree:
-        raise NotImplementedError("only the dense transformer tree is converted")
+    ``device`` (``None`` = CUDA, which raises without a card).
+
+    The dense and MoE trees stack each ``blocks`` leaf [L, ...] (a MoE
+    layer's ``moe`` dict: the fp32 ``router/w`` [L, d, E], the experts'
+    ``wi_gate``/``wi_up`` [L, E, d, f] and ``wo`` [L, E, f, d], and the
+    ``shared`` GLU). A cross-attention model's ``blocks`` leaves are
+    [n_units, n_self, ...] and become the flat list of self layers,
+    unit-major; its ``cross_blocks`` [n_units, ...] one block a unit."""
+    from repro_torch.models.transformer import _check_family, _units, n_self_layers
+    _check_family(cfg)
+    if bool(cfg.cross_attn_period) != ("cross_blocks" in tree):
+        raise ValueError("the tree's cross_blocks do not match the config's "
+                         f"cross_attn_period {cfg.cross_attn_period}")
     device = resolve_device(device)
-    out = {k: _tree(v, device) for k, v in tree.items() if k != "blocks"}
+    out = {k: _tree(v, device) for k, v in tree.items()
+           if k not in ("blocks", "cross_blocks")}
     blocks = _tree(tree["blocks"], device)
-    n = next(iter(_leaves(blocks))).shape[0]
-    if n != cfg.num_layers:
-        raise ValueError(f"tree has {n} layers, config {cfg.num_layers}")
-    out["blocks"] = [_layer(blocks, i) for i in range(n)]
+    if cfg.cross_attn_period:
+        blocks = _flat_units(blocks)
+        out["cross_blocks"] = _layers(_tree(tree["cross_blocks"], device), _units(cfg)[0])
+    out["blocks"] = _layers(blocks, n_self_layers(cfg))
     return out
+
+
+def _flat_units(t):
+    """[n_units, n_self, ...] leaves -> [n_units * n_self, ...]."""
+    if isinstance(t, dict):
+        return {k: _flat_units(v) for k, v in t.items()}
+    return t.reshape((-1,) + tuple(t.shape[2:]))
+
+
+def _layers(stacked, n: int):
+    """[n, ...] leaves -> a list of n per-layer trees."""
+    have = next(iter(_leaves(stacked))).shape[0]
+    if have != n:
+        raise ValueError(f"tree has {have} layers, config {n}")
+    return [_layer(stacked, i) for i in range(n)]
 
 
 def _per_layer(tree: Dict[str, Any], device) -> Dict[str, torch.Tensor]:

@@ -1,4 +1,4 @@
-"""Synthetic packed-sequence data pipeline (dense family), PyTorch port.
+"""Synthetic packed-sequence data pipeline (token families), PyTorch port.
 
 A copy of the JAX package's ``data/pipeline.py`` for the token families:
 deterministic, checkpointable batches of documents packed to a fixed
@@ -9,8 +9,14 @@ order, so the same ``(seed, step)`` gives bitwise the same tokens,
 labels, segment ids, positions and loss mask; only the last step differs:
 the arrays become torch tensors on ``device``.
 
+A vision model's batch also carries ``image_embeds`` [B, n_image_tokens,
+d_model] (standard normals in the working dtype, times 0.02, as the
+reference's). JAX's PRNG stream cannot be drawn without JAX, so these
+come from the port's own numpy generator, seeded by (seed, step) apart
+from the token draws; tests hand the same array to both packages.
+
 Iterator state == (seed, step): restoring a checkpoint resumes the exact
-stream. The vlm and audio batches arrive with their families.
+stream. The audio batches arrive with their family.
 """
 from __future__ import annotations
 
@@ -39,16 +45,18 @@ def _doc_lengths(rng: np.random.Generator, total: int, mean_len: int) -> np.ndar
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(f"family {cfg.family!r}: its batches arrive with the "
-                                  "family (ROADMAP Queue A item 9)")
+    if cfg.family == "audio":
+        raise NotImplementedError("family 'audio': its batches arrive with the family "
+                                  "(ROADMAP Queue A item 10)")
 
 
 def make_lm_batch(cfg: ModelConfig, batch: int, seq_len: int, state: DataState, *,
                   mean_doc_len: int = 2048, motif_len: int = 16,
                   device=None) -> Dict[str, torch.Tensor]:
     """Packed LM batch on ``device`` (None = CUDA): tokens, labels,
-    segment_ids, positions (int32) and loss_mask (float32), each [B, L]."""
+    segment_ids, positions (int32) and loss_mask (float32), each [B, L];
+    for a vision model also ``image_embeds`` [B, n_image_tokens, d_model]
+    in ``cfg.dtype``."""
     _check_family(cfg)
     device = resolve_device(device)
     rng = np.random.default_rng((state.seed * 1_000_003 + state.step) & 0x7FFFFFFF)
@@ -75,7 +83,21 @@ def make_lm_batch(cfg: ModelConfig, batch: int, seq_len: int, state: DataState, 
     loss_mask = (seg == np.roll(seg, -1, axis=1)).astype(np.float32)
     arrays = {"tokens": toks, "labels": labels, "segment_ids": seg, "positions": pos,
               "loss_mask": loss_mask}
-    return {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
+    out = {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
+    if cfg.family == "vlm":
+        out["image_embeds"] = image_embeds(cfg, batch, state, device=device)
+    return out
+
+
+def image_embeds(cfg: ModelConfig, batch: int, state: DataState, *,
+                 device=None) -> torch.Tensor:
+    """Stub image patch embeddings [B, n_image_tokens, d_model] in
+    ``cfg.dtype`` on ``device`` (None = CUDA), from a numpy stream of their
+    own seeded by (seed, step)."""
+    rng = np.random.default_rng([state.seed, state.step, 1])
+    z = rng.standard_normal((batch, cfg.n_image_tokens, cfg.d_model), np.float32)
+    dt = getattr(torch, cfg.dtype)
+    return (torch.from_numpy(z).to(device=resolve_device(device), dtype=dt) * 0.02)
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq_len: int, state: DataState, *,

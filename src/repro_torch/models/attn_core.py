@@ -5,7 +5,8 @@ paged per-layer decode body (``attention_decode_paged`` ->
 ``block_decode_paged``) of the JAX package's ``models/attn_core.py``:
 the unstaged and the staged (SelectionSchedule) branch with per-request
 budget caps, unsharded or (unstaged, uncapped) over a rank's KV heads,
-over fp or int8 page pools, with the metadata pools of Quest, and the
+over fp or int8 page pools, with the metadata pools of Quest, the
+block's feed-forward (dense or MoE, ``ffn``), and the
 RaaS eviction telemetry (``DecodeOptions.track_evictions``: the
 touched-pages mask and the clamped K/V table).
 """
@@ -21,6 +22,7 @@ from repro_torch.core import sparsity as sp
 from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,
                                      SelectionInputs)
 from repro_torch.kernels import ops
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (apply_rope, decode_attention, linear,
                                        mlp, rms_norm)
 from repro_torch.serve import paging as pg
@@ -39,6 +41,18 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
     return q, k, v
+
+
+def ffn(p: Params, h2: torch.Tensor, cfg: ModelConfig):
+    """A block's feed-forward over h2 [..., d]: (y, the MoE router loss or
+    None). A ``"moe"`` block routes all of h2's rows in one call, so at
+    decode every row of the step (each slot, active or not) competes for
+    the experts' capacity, as in the reference."""
+    if "moe" in p:
+        y, aux = moe_mod.moe_mlp(p["moe"], h2.reshape(-1, h2.shape[-1]), cfg.moe,
+                                 cfg.activation)
+        return y.reshape(h2.shape), aux
+    return mlp(p["mlp"], h2, cfg.activation), None
 
 
 def _policy_active(policy, p: Params) -> bool:
@@ -273,4 +287,4 @@ def block_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig,
         v_scale=v_scale, shard=shard, stage=stage, plan=plan)
     x1 = x1 + ret[0]
     h2 = rms_norm(p["ln2"], x1, cfg.norm_eps)
-    return (x1 + mlp(p["mlp"], h2, cfg.activation),) + ret[1:]
+    return (x1 + ffn(p, h2, cfg)[0],) + ret[1:]

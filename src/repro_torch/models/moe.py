@@ -1,0 +1,145 @@
+"""Mixture-of-Experts FFN (DeepSeekMoE / Kimi-K2 style), PyTorch port.
+
+Port of the JAX package's ``models/moe.py`` scatter path: shared plus
+routed fine-grained experts, top-k softmax routing, sort/scatter
+dispatch (not the GShard [T, E, C] one-hot einsum):
+
+  1. fp32 router logits -> softmax -> top-k expert ids per token (lower
+     index first on ties, as ``jax.lax.top_k``), weights renormalised by
+     ``max(sum, 1e-9)``; flatten to N = T * k assignments;
+  2. each assignment's rank within its expert from a STABLE sort over the
+     flattened [T, k] order;
+  3. scatter into an [E, C + 1, d] buffer, C = max(1, ceil(N / E *
+     capacity_factor)) for each call: an assignment at rank >= C goes to
+     the trash row C and contributes zero;
+  4. the batched per-expert GLU over [E, C, d] (three einsums over all E
+     experts);
+  5. gather back by (expert, slot), weight by the router, sum over k, add
+     the shared experts.
+
+The routed experts couple the rows of one call through their capacity:
+at decode the rows are the batch (or the serving slots, active or not),
+so a row's output depends on which other rows picked the same experts,
+as in the reference. The aux load-balance loss is the Switch
+``E * sum_e f_e * P_e * router_aux_coef``.
+
+The experts run as plain batched matmuls: the reference computes them
+outside any Pallas kernel, so there is no TPU kernel here to port. Expert
+parallelism (the reference's ``moe_mlp_sharded``) is not ported: every
+rank computes all experts (ROADMAP Queue A item 9, sharded remainder).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import MoEConfig
+from repro_torch.core.sparsity import ranked_top_k
+from repro_torch.models.common import _randn, glu_mlp, init_glu_mlp, torch_dtype
+
+Params = Dict[str, Any]
+
+
+def init_moe(gen: torch.Generator, d_model: int, mcfg: MoEConfig,
+             activation: str = "swiglu", dtype="bfloat16") -> Params:
+    """Random MoE parameters drawn from ``gen`` on its device; the router
+    stays fp32 whatever ``dtype`` is."""
+    del activation
+    e, f = mcfg.n_experts, mcfg.expert_d_ff
+    dt = torch_dtype(dtype)
+    s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(f)
+    # scaled in place: one fp32 draw at a time (a kimi_k2 layer's experts
+    # are 5.6 G values each)
+    p: Params = {
+        "router": {"w": _randn(gen, (d_model, e)).mul_(s_in)},
+        "wi_gate": _randn(gen, (e, d_model, f)).mul_(s_in).to(dt),
+        "wi_up": _randn(gen, (e, d_model, f)).mul_(s_in).to(dt),
+        "wo": _randn(gen, (e, f, d_model)).mul_(s_out).to(dt),
+    }
+    if mcfg.n_shared_experts:
+        p["shared"] = init_glu_mlp(gen, d_model, mcfg.n_shared_experts * f, dtype)
+    return p
+
+
+def route(x: torch.Tensor, router_w: torch.Tensor, k: int
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x [T, d] -> (probs [T, E] f32, top ids [T, k] int64, renormalised
+    top weights [T, k] f32)."""
+    probs = torch.softmax(x.float() @ router_w, dim=-1)
+    top_p, top_i = ranked_top_k(probs, k)
+    top_w = top_p / torch.clamp_min(top_p.sum(dim=-1, keepdim=True), 1e-9)
+    return probs, top_i, top_w
+
+
+def capacity(n_tokens: int, mcfg: MoEConfig) -> int:
+    """Slots per expert for one call of ``n_tokens`` rows."""
+    n = n_tokens * mcfg.top_k
+    return max(1, int(math.ceil(n / mcfg.n_experts * mcfg.capacity_factor)))
+
+
+def _expert_counts(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Assignments per expert [E] int64 (a scatter-add: no host sync, which
+    ``torch.bincount`` makes on a CUDA tensor)."""
+    return torch.zeros(n_experts, dtype=torch.int64, device=flat_e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+
+
+def _rank_within_expert(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """flat_e [N] expert ids -> [N] occurrence rank of each id (0-based),
+    in the flattened order (a stable sort)."""
+    n = flat_e.shape[0]
+    sort_idx = torch.argsort(flat_e, stable=True)
+    counts = _expert_counts(flat_e, n_experts)
+    offsets = torch.cumsum(counts, 0) - counts
+    rank_sorted = torch.arange(n, device=flat_e.device) - offsets[flat_e[sort_idx]]
+    return torch.empty_like(rank_sorted).scatter_(0, sort_idx, rank_sorted)
+
+
+def dispatch(top_i: torch.Tensor, mcfg: MoEConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """top ids [T, k] -> (flat expert ids [N], slots [N] (the trash row
+    ``cap`` for a dropped assignment), keep mask [N], cap)."""
+    cap = capacity(top_i.shape[0], mcfg)
+    flat_e = top_i.reshape(-1)
+    rank = _rank_within_expert(flat_e, mcfg.n_experts)
+    keep = rank < cap
+    slot = torch.where(keep, rank, cap)
+    return flat_e, slot, keep, cap
+
+
+def expert_glu(p: Params, xb: torch.Tensor, activation: str) -> torch.Tensor:
+    """The batched per-expert GLU: [E, C, d] -> [E, C, d]."""
+    g = torch.einsum("ecd,edf->ecf", xb, p["wi_gate"])
+    u = torch.einsum("ecd,edf->ecf", xb, p["wi_up"])
+    act = F.silu(g) if activation == "swiglu" else F.gelu(g, approximate="tanh")
+    return torch.einsum("ecf,efd->ecd", act * u, p["wo"])
+
+
+def moe_mlp(p: Params, x: torch.Tensor, mcfg: MoEConfig,
+            activation: str = "swiglu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [T, d] tokens -> (y [T, d] in x's dtype, aux loss f32 scalar)."""
+    t, d = x.shape
+    e, k = mcfg.n_experts, mcfg.top_k
+    probs, top_i, top_w = route(x, p["router"]["w"], k)
+    flat_e, slot, keep, cap = dispatch(top_i, mcfg)
+    # the kept (expert, slot) pairs are distinct; the trash row takes the
+    # dropped ones in any order and is never read back
+    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[flat_e, slot] = x.repeat_interleave(k, dim=0)
+    yb = expert_glu(p, buf[:, :cap], activation)
+    del buf
+    # a dropped assignment's weight is 0: the reference zeroes its row,
+    # then weights it (the buffers are freed as soon as they are read, the
+    # prefill's hold T * k rows of d)
+    w = torch.where(keep, top_w.reshape(-1).to(yb.dtype), 0)
+    y_rep = yb[flat_e, torch.clamp_max(slot, cap - 1)]
+    del yb
+    y = y_rep.mul_(w[:, None]).reshape(t, k, d).sum(dim=1)
+    if "shared" in p:
+        y = y + glu_mlp(p["shared"], x, activation)
+    frac = _expert_counts(flat_e, e).float() / (t * k)
+    aux = e * torch.sum(frac * probs.mean(dim=0)) * mcfg.router_aux_coef
+    return y.to(x.dtype), aux

@@ -1,7 +1,8 @@
 """Family dispatch: a uniform functional API over the ported model families.
 
-Only the dense transformer is ported; the other families of the JAX
-package's registry arrive with their slices.
+The transformer's families are ported: dense, moe and vlm (the vision
+backbone) share its ``ModelApi``; the recurrent families (ssm, hybrid) and
+the audio encoder arrive with their slices.
 """
 from __future__ import annotations
 
@@ -51,8 +52,13 @@ _TF_API = ModelApi(tf.init_lm, tf.lm_forward, tf.init_decode_state, tf.lm_prefil
 
 
 def get_api(cfg: ModelConfig) -> ModelApi:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         return _TF_API
-    raise NotImplementedError(
-        f"family {cfg.family!r}: other families (Queue A item 9) are not "
-        "ported (dense only)")
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"family {cfg.family!r}: the recurrent families (ROADMAP Queue A item 9, "
+            "recurrent half) are not ported")
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            "family 'audio': the audio encoder (ROADMAP Queue A item 10) is not ported")
+    raise ValueError(f"unknown family {cfg.family}")

@@ -1,21 +1,28 @@
-"""Decoder transformer LM with SeerAttention-R gates (dense family), PyTorch.
+"""Decoder transformer LM with SeerAttention-R gates, PyTorch.
 
-Port of the JAX package's ``models/transformer.py``: the full-sequence
-forward of gate distillation (``attention_full`` -> ``block_fwd_full`` ->
-``lm_backbone`` -> ``lm_forward(mode="distill")`` and
-``lm_gate_collect``), and the serving half:
-``init_lm``, ``DecodeState``/``init_decode_state``, ``lm_prefill`` (with
-right-padded ``lengths``), the contiguous decode step
-(``attention_decode`` -> ``block_decode`` -> ``lm_decode_step``) and the
-paged one (``lm_decode_step_paged`` over ``attn_core.block_decode_paged``),
-each with the staged branch of a plan-carrying SelectionSchedule and
-Quest's metadata cache, unsharded, or (gate or dense, trivial schedule)
-sharded (``serve/sharded.py``: the contiguous caches split along the
-sequence, the page pools over the KV heads).
+Port of the JAX package's ``models/transformer.py`` for three of its
+families: dense, MoE (``"moe"`` blocks in place of ``"mlp"``,
+``models/moe.py``) and the vision backbone (``cross_attn_period``: units
+of ``period - 1`` gated self layers and one ungated cross-attention layer
+into the batch's ``image_embeds``). Ported: the full-sequence forward of
+gate distillation (``attention_full`` / ``cross_attention_full`` ->
+``block_fwd_full`` -> ``lm_backbone`` -> ``lm_forward(mode="distill")``
+and ``lm_gate_collect``), and the serving half: ``init_lm``,
+``DecodeState``/``init_decode_state``, ``lm_prefill`` (with right-padded
+``lengths``), the contiguous decode step (``attention_decode`` ->
+``block_decode`` / ``cross_block_decode`` -> ``lm_decode_step``) and the
+paged one (``lm_decode_step_paged`` over ``attn_core.block_decode_paged``;
+not for cross-attention models, which the reference refuses too), each
+with the staged branch of a plan-carrying SelectionSchedule and Quest's
+metadata cache, unsharded, or (gate or dense, trivial schedule) sharded
+(``serve/sharded.py``: the contiguous caches split along the sequence,
+the page pools over the KV heads; the experts replicated on every rank).
 
 Differences of idiom, not of result:
   * parameters are a dict whose ``"blocks"`` entry is a LIST of per-layer
-    dicts, and a Python loop over layers replaces ``lax.scan``: a layer's
+    dicts (for a cross-attention model the self layers in execution
+    order, unit-major, and ``"cross_blocks"`` a list of one block a
+    unit), and a Python loop over layers replaces ``lax.scan``: a layer's
     stage is a Python branch, not a ``lax.cond``, and the plan a value
     passed from layer to layer;
   * the decode state's caches are updated IN PLACE (the reference returns
@@ -44,10 +51,11 @@ from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,
                                      selection_width)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attn_core import (_dense_aux, _policy_active, _qkv,
                                           _selection_aux, _zero_layer_aux,
                                           aggregate_decode_aux,
-                                          block_decode_paged)
+                                          block_decode_paged, ffn)
 from repro_torch.models.common import (NEG_INF, _randn, apply_rope, chunked_attention,
                                        decode_attention, init_linear, init_mlp,
                                        init_rmsnorm, linear, mlp, rms_norm,
@@ -62,7 +70,7 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, *,
-                   with_gate: bool) -> Params:
+                   with_gate: bool, cross: bool = False) -> Params:
     dh = cfg.resolved_head_dim
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_model
     p: Params = {
@@ -74,7 +82,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, *,
     if cfg.qk_norm:
         p["q_norm"] = init_rmsnorm(dh, cfg.dtype, gen.device)
         p["k_norm"] = init_rmsnorm(dh, cfg.dtype, gen.device)
-    if with_gate:
+    if with_gate and not cross:
         p["gate"] = ag.init_attngate(
             gen, n_kv_heads=hkv, group=cfg.gqa_group, head_dim=dh,
             cfg=cfg.gate, dtype=cfg.dtype)
@@ -82,19 +90,46 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, *,
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, *,
-               with_gate: bool) -> Params:
-    return {
+               with_gate: bool, cross: bool = False) -> Params:
+    p: Params = {
         "ln1": init_rmsnorm(cfg.d_model, cfg.dtype, gen.device),
         "ln2": init_rmsnorm(cfg.d_model, cfg.dtype, gen.device),
-        "attn": init_attention(gen, cfg, with_gate=with_gate),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, cfg.dtype),
+        "attn": init_attention(gen, cfg, with_gate=with_gate, cross=cross),
     }
+    if cfg.family == "moe" and not cross:
+        p["moe"] = moe_mod.init_moe(gen, cfg.d_model, cfg.moe, cfg.activation,
+                                    cfg.dtype)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, cfg.dtype)
+    return p
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.cross_attn_period:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: only the dense transformer is ported")
+    if cfg.family in ("dense", "moe", "vlm"):
+        return
+    item = 10 if cfg.family == "audio" else 9
+    raise NotImplementedError(
+        f"family {cfg.family!r} (ROADMAP Queue A item {item}) is not ported; the "
+        "transformer runs the dense, moe and vlm families")
+
+
+def _units(cfg: ModelConfig) -> Tuple[int, int]:
+    """(units, self layers a unit) of a cross-attention model."""
+    return cfg.num_layers // cfg.cross_attn_period, cfg.cross_attn_period - 1
+
+
+def layer_order(cfg: ModelConfig):
+    """The layers in execution order: ``("self", i)`` for self layer i (its
+    index into ``params["blocks"]`` and the caches) and, after each unit's
+    self layers, ``("cross", u)`` for unit u's cross-attention block."""
+    if not cfg.cross_attn_period:
+        return [("self", i) for i in range(cfg.num_layers)]
+    n_units, n_self = _units(cfg)
+    order = []
+    for u in range(n_units):
+        order += [("self", u * n_self + j) for j in range(n_self)]
+        order.append(("cross", u))
+    return order
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -106,7 +141,10 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     p: Params = {"embed": {"w": (_randn(gen, (cfg.vocab_size, cfg.d_model))
                                  * 0.02).to(torch_dtype(cfg.dtype))}}
     p["blocks"] = [init_block(gen, cfg, with_gate=gate_on)
-                   for _ in range(cfg.num_layers)]
+                   for _ in range(n_self_layers(cfg))]
+    if cfg.cross_attn_period:
+        p["cross_blocks"] = [init_block(gen, cfg, with_gate=False, cross=True)
+                             for _ in range(_units(cfg)[0])]
     p["final_norm"] = init_rmsnorm(cfg.d_model, cfg.dtype, gen.device)
     if not cfg.tie_embeddings:
         p["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size, cfg.dtype)
@@ -169,47 +207,89 @@ def attention_full(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return out, kl, extras
 
 
+def cross_attention_full(p: Params, x: torch.Tensor, kv, cfg: ModelConfig
+                         ) -> torch.Tensor:
+    """Cross-attention into a fixed context, the image embeddings, whose
+    K/V ``kv`` come from ``_cross_kv``: position-free, no RoPE on either
+    side, no mask."""
+    b, l, _ = x.shape
+    dh = cfg.resolved_head_dim
+    q = linear(p["wq"], x).reshape(b, l, cfg.n_heads, dh)
+    k, v = kv
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+    o = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk)
+    return linear(p["wo"], o.reshape(b, l, -1))
+
+
+def _cross_kv(p: Params, ctx: torch.Tensor, cfg: ModelConfig):
+    """The context's K/V, seq-major [B, n_img, Hkv, Dh] (k normed under
+    ``qk_norm``)."""
+    b, n = ctx.shape[:2]
+    dh = cfg.resolved_head_dim
+    k = linear(p["wk"], ctx).reshape(b, n, cfg.n_kv_heads, dh)
+    v = linear(p["wv"], ctx).reshape(b, n, cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    return k, v
+
+
 def block_fwd_full(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                    rope_positions, segment_ids, distill: bool,
-                   collect_gate: bool = False):
-    """One layer; the residual stream runs without autograd. Returns
-    (x, kl, extras|None). The reference's MoE router loss waits for that
-    family's port."""
+                   collect_gate: bool = False, cross_ctx=None):
+    """One layer; the residual stream runs without autograd. A given
+    ``cross_ctx`` makes it a cross-attention block. Returns (x, kl, MoE
+    router loss or None, extras|None)."""
     with torch.no_grad():
         h = rms_norm(p["ln1"], x, cfg.norm_eps)
-    attn_out, kl, extras = attention_full(
-        p["attn"], h, cfg, rope_positions=rope_positions, segment_ids=segment_ids,
-        distill=distill, collect_gate=collect_gate)
+    if cross_ctx is not None:
+        with torch.no_grad():
+            attn_out = cross_attention_full(p["attn"], h,
+                                            _cross_kv(p["attn"], cross_ctx, cfg), cfg)
+        kl, extras = torch.zeros((), dtype=torch.float32, device=x.device), None
+    else:
+        attn_out, kl, extras = attention_full(
+            p["attn"], h, cfg, rope_positions=rope_positions,
+            segment_ids=segment_ids, distill=distill, collect_gate=collect_gate)
     with torch.no_grad():
         x = x + attn_out
-        x = x + mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), cfg.activation)
-    return x, kl, extras
+        y, aux = ffn(p, rms_norm(p["ln2"], x, cfg.norm_eps), cfg)
+    return x + y, kl, aux, extras
 
 
 def lm_backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 rope_positions, segment_ids, distill: bool,
-                collect_gate: bool = False):
-    """Runs the layer list (a Python loop in place of ``lax.scan``).
-    Returns (x, kl_sum, extras|None); extras stack each key over the
-    layers, [L, ...]."""
+                collect_gate: bool = False, cross_ctx=None):
+    """Runs the layers in ``layer_order`` (a Python loop in place of
+    ``lax.scan``). Returns (x, kl_sum, aux_sum, extras|None): the gate KL
+    and the MoE router loss summed over layers; extras stack each key over
+    the self layers, [L, ...]."""
     kl = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.cross_attn_period and cross_ctx is None:
+        raise ValueError("a cross-attention model needs batch['image_embeds']")
     per_layer = []
-    for lp in params["blocks"]:
-        x, l_kl, extras = block_fwd_full(
+    for kind, i in layer_order(cfg):
+        lp = params["blocks"][i] if kind == "self" else params["cross_blocks"][i]
+        x, l_kl, l_aux, extras = block_fwd_full(
             lp, x, cfg, rope_positions=rope_positions, segment_ids=segment_ids,
-            distill=distill, collect_gate=collect_gate)
+            distill=distill and kind == "self", collect_gate=collect_gate,
+            cross_ctx=cross_ctx if kind == "cross" else None)
         kl = kl + l_kl
-        per_layer.append(extras)
+        if l_aux is not None:
+            aux = aux + l_aux
+        if kind == "self":
+            per_layer.append(extras)
     stacked = None
     if collect_gate and per_layer and per_layer[0] is not None:
         stacked = {key: torch.stack([e[key] for e in per_layer]) for key in per_layer[0]}
-    return x, kl, stacked
+    return x, kl, aux, stacked
 
 
 def _n_gate_layers(cfg: ModelConfig) -> int:
     if not (cfg.gate.enabled and cfg.has_attention and cfg.is_decoder):
         return 0
-    return cfg.num_layers
+    return n_self_layers(cfg)
 
 
 def _full_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
@@ -222,18 +302,27 @@ def _full_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfi
     pos = batch.get("positions")
     if pos is None:
         pos = torch.arange(l, device=x.device)[None, :].expand(b, l)
-    return x, pos, batch.get("segment_ids")
+    return x, pos, batch.get("segment_ids"), _image_ctx(batch, x.dtype)
+
+
+def _image_ctx(batch: Dict[str, torch.Tensor], dtype: torch.dtype):
+    """The batch's image embeddings in the working dtype, or None."""
+    ctx = batch.get("image_embeds")
+    return None if ctx is None else torch.as_tensor(ctx).to(dtype)
 
 
 def lm_forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
                mode: str = "pretrain", shard=None):
-    """mode 'distill' -> (kl_loss, {"kl"}): the gate KL summed over layers
-    and divided by the number of gated layers, differentiable with respect
-    to the gate parameters only. ``batch`` holds tokens [B, L] and, from
-    the data pipeline, the per-document ``positions`` (RoPE) and the
-    packing ``segment_ids`` (attention mask); the causal masks use the
-    global index. 'pretrain' needs the attention's backward (ROADMAP Queue
-    A item 10, left out) and raises, as does a ``shard``."""
+    """mode 'distill' -> (kl_loss + 0 * router loss, {"kl"}): the gate KL
+    summed over the gated layers and divided by their number,
+    differentiable with respect to the gate parameters only (the MoE
+    router loss enters with weight 0, as in the reference). ``batch``
+    holds tokens [B, L] and, from the data pipeline, the per-document
+    ``positions`` (RoPE) and the packing ``segment_ids`` (attention mask);
+    the causal masks use the global index; a vision model's batch also
+    carries ``image_embeds`` [B, n_img, d]. 'pretrain' needs the
+    attention's backward (ROADMAP Queue A item 10, left out) and raises,
+    as does a ``shard``."""
     if mode != "distill":
         raise NotImplementedError(
             f"lm_forward(mode={mode!r}): only mode='distill' is ported; pretrain "
@@ -241,22 +330,23 @@ def lm_forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     if shard is not None:
         raise NotImplementedError("training under a Shard (ROADMAP Queue A item 10) "
                                   "is not ported")
-    x, pos, seg = _full_inputs(params, batch, cfg)
-    _, kl, _ = lm_backbone(params, x, cfg, rope_positions=pos, segment_ids=seg,
-                           distill=True)
+    x, pos, seg, ctx = _full_inputs(params, batch, cfg)
+    _, kl, aux, _ = lm_backbone(params, x, cfg, rope_positions=pos, segment_ids=seg,
+                                distill=True, cross_ctx=ctx)
     kl = kl / max(_n_gate_layers(cfg), 1)
-    return kl, {"kl": kl.detach()}
+    return kl + aux * 0.0, {"kl": kl.detach()}
 
 
 def lm_gate_collect(params: Params, batch: Dict[str, torch.Tensor],
                     cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """Gate-quality evaluation pass: the distill forward collecting, per
-    layer, glog/gt [L, B, Hkv, Lq, nb] and the post-rope qr [L, B, Lq, H,
-    Dh] / kr [L, B, Lq, Hkv, Dh]."""
-    x, pos, seg = _full_inputs(params, batch, cfg)
+    self layer, glog/gt [L, B, Hkv, Lq, nb] and the post-rope qr [L, B,
+    Lq, H, Dh] / kr [L, B, Lq, Hkv, Dh]."""
+    x, pos, seg, ctx = _full_inputs(params, batch, cfg)
     with torch.no_grad():
-        _, _, extras = lm_backbone(params, x, cfg, rope_positions=pos,
-                                   segment_ids=seg, distill=True, collect_gate=True)
+        _, _, _, extras = lm_backbone(params, x, cfg, rope_positions=pos,
+                                      segment_ids=seg, distill=True,
+                                      collect_gate=True, cross_ctx=ctx)
     return extras
 
 
@@ -266,6 +356,9 @@ def lm_gate_collect(params: Params, batch: Dict[str, torch.Tensor],
 
 class DecodeState(NamedTuple):
     """All caches are HEAD-MAJOR; decode reads and writes them in place.
+    The caches of the gate, the K/V and the metadata hold the SELF layers
+    only; ``cross_k``/``cross_v`` hold each cross-attention unit's image
+    K/V, written at prefill and read, never written, by every step.
     ``meta_*`` is the incremental selection-metadata cache (core.metacache)
     of a policy that reads it (QuestPolicy): allocated and built at
     prefill only when the prefill ``options`` carry such a policy, None
@@ -275,12 +368,19 @@ class DecodeState(NamedTuple):
     kg_cache: Optional[torch.Tensor]        # [L, B, Hkv, nb_max, Dg]
     kg_n: Optional[torch.Tensor]            # [L, B] int32
     cur_len: torch.Tensor                   # [B] int32
+    cross_k: Optional[torch.Tensor] = None      # [n_units, B, Hkv, n_img, Dh]
+    cross_v: Optional[torch.Tensor] = None      # [n_units, B, Hkv, n_img, Dh]
     meta_kmin: Optional[torch.Tensor] = None    # [L, B, Hkv, nb_max, Dh] f32
     meta_kmax: Optional[torch.Tensor] = None    # [L, B, Hkv, nb_max, Dh] f32
     meta_n: Optional[torch.Tensor] = None       # [L, B] int32
 
 
 def n_self_layers(cfg: ModelConfig) -> int:
+    """The layers with a KV cache: all of them, or a cross-attention
+    model's self layers."""
+    if cfg.cross_attn_period:
+        n_units, n_self = _units(cfg)
+        return n_units * n_self
     return cfg.num_layers
 
 
@@ -306,11 +406,16 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                                             dtype=torch.float32, device=device)
                                 for _ in range(2))
         meta_n = torch.zeros((nl, batch), dtype=torch.int32, device=device)
+    cross_k = cross_v = None
+    if cfg.cross_attn_period:
+        cross_k, cross_v = (torch.zeros((_units(cfg)[0], batch, hkv, cfg.n_image_tokens,
+                                         dh), dtype=dt, device=device) for _ in range(2))
     return DecodeState(
         k_cache=torch.zeros((nl, batch, hkv, max_len, dh), dtype=dt, device=device),
         v_cache=torch.zeros((nl, batch, hkv, max_len, dh), dtype=dt, device=device),
         kg_cache=kg, kg_n=kg_n,
         cur_len=torch.zeros((batch,), dtype=torch.int32, device=device),
+        cross_k=cross_k, cross_v=cross_v,
         meta_kmin=meta_kmin, meta_kmax=meta_kmax, meta_n=meta_n)
 
 
@@ -334,7 +439,9 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
     that touch a pad token are zero. ``options`` (those the decode steps
     will run with) also builds the selection-metadata cache when its
     policy reads one: the one O(S) pass that makes every QuestPolicy
-    step O(block_size)."""
+    step O(block_size). A cross-attention model's ``batch["image_embeds"]``
+    [B, n_img, d] fills ``cross_k``/``cross_v`` (head-major), the
+    context every decode step attends."""
     _check_family(cfg)
     tokens = batch["tokens"]
     b, l = tokens.shape
@@ -346,7 +453,20 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
     nb = l // bs
     pos = torch.arange(l, device=dev)[None, :].expand(b, l)
     x = params["embed"]["w"][tokens]
-    for i, lp in enumerate(params["blocks"]):
+    ctx = _image_ctx(batch, x.dtype)
+    if cfg.cross_attn_period and ctx is None:
+        raise ValueError("a cross-attention model needs batch['image_embeds']")
+    for kind, i in layer_order(cfg):
+        if kind == "cross":
+            cp = params["cross_blocks"][i]
+            ck, cv = _cross_kv(cp["attn"], ctx, cfg)
+            state.cross_k[i] = ck.transpose(1, 2)
+            state.cross_v[i] = cv.transpose(1, 2)
+            x = x + cross_attention_full(cp["attn"], rms_norm(cp["ln1"], x, cfg.norm_eps),
+                                         (ck, cv), cfg)
+            x = x + mlp(cp["mlp"], rms_norm(cp["ln2"], x, cfg.norm_eps), cfg.activation)
+            continue
+        lp = params["blocks"][i]
         p = lp["attn"]
         h = rms_norm(lp["ln1"], x, cfg.norm_eps)
         q, k, v = _qkv(p, h, cfg)
@@ -362,8 +482,8 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
             kg = ag.gate_k(p["gate"], k[:, :nb * bs], cfg.gate)   # [B,nb,Hkv,Dg]
             state.kg_cache[i, :, :, :nb] = kg.transpose(1, 2).to(state.kg_cache.dtype)
         x = x + linear(p["wo"], o.reshape(b, l, -1))
-        x = x + mlp(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps), cfg.activation)
         del q, k, v, qr, kr, o
+        x = x + ffn(lp, rms_norm(lp["ln2"], x, cfg.norm_eps), cfg)[0]
     lengths = batch.get("lengths")
     if lengths is None:
         state.cur_len.fill_(l)
@@ -516,7 +636,23 @@ def block_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, layer_state,
     attn_out, new_state, aux = ret[:3]
     x1 = x1 + attn_out
     h2 = rms_norm(p["ln2"], x1, cfg.norm_eps)
-    return (x1 + mlp(p["mlp"], h2, cfg.activation), new_state, aux) + ret[3:]
+    return (x1 + ffn(p, h2, cfg)[0], new_state, aux) + ret[3:]
+
+
+def cross_block_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig,
+                       ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """A cross-attention block at decode: dense ``decode_attention`` of
+    the token over its unit's image K/V [B, Hkv, n_img, Dh] (precomputed
+    at prefill; no RoPE)."""
+    b = x1.shape[0]
+    h = rms_norm(p["ln1"], x1, cfg.norm_eps)
+    q = linear(p["attn"]["wq"], h).reshape(b, 1, cfg.n_heads, cfg.resolved_head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(p["attn"]["q_norm"], q, cfg.norm_eps)
+    n_img = torch.full((b,), ck.shape[2], dtype=torch.int32, device=x1.device)
+    o = decode_attention(q, ck, cv, n_img)
+    x1 = x1 + linear(p["attn"]["wo"], o.reshape(b, 1, -1))
+    return x1 + mlp(p["mlp"], rms_norm(p["ln2"], x1, cfg.norm_eps), cfg.activation)
 
 
 def _plan0(options: DecodeOptions, cfg: ModelConfig, batch: int, nb: int, device):
@@ -542,8 +678,16 @@ def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
     layer and carries the plan from layer to layer, its width from
     ``selection_width``. With a ``shard`` and a selecting policy the
     caches are this rank's part along the sequence
-    (``distributed.sharding.seq_shard_state``)."""
+    (``distributed.sharding.seq_shard_state``). A cross-attention model
+    runs its units' cross blocks over ``cross_k``/``cross_v`` between the
+    self layers and refuses a plan-carrying schedule, as the reference
+    does."""
     options = options if options is not None else default_options(cfg)
+    if options.schedule.needs_plan and cfg.cross_attn_period:
+        raise NotImplementedError(
+            "SelectionSchedule plans assume a uniform self-attn stack; "
+            "cross-attn unit families keep per-layer selection "
+            "(schedule=SelectionSchedule())")
     x1 = params["embed"]["w"][token[:, None]]
     stages, plan = _plan0(options, cfg, token.shape[0],
                           state.k_cache.shape[3] // cfg.gate.block_size, x1.device)
@@ -552,7 +696,12 @@ def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
     def row(t, i):
         return None if t is None else t[i]
 
-    for i, lp in enumerate(params["blocks"]):
+    for kind, i in layer_order(cfg):
+        if kind == "cross":
+            x1 = cross_block_decode(params["cross_blocks"][i], x1, cfg,
+                                    state.cross_k[i], state.cross_v[i])
+            continue
+        lp = params["blocks"][i]
         layer_state = (state.k_cache[i], state.v_cache[i], row(state.kg_cache, i),
                        row(state.kg_n, i), row(state.meta_kmin, i),
                        row(state.meta_kmax, i), row(state.meta_n, i))
@@ -593,8 +742,11 @@ def lm_decode_step_paged(params: Params, pages, slot_state,
     live pages nor advance. A plan-carrying ``options.schedule`` stages
     the layers as ``lm_decode_step`` does, the plan's width from the page
     table's logical-block count. With a ``shard`` the pools hold this
-    rank's KV heads (``attn_core.attention_decode_paged``)."""
+    rank's KV heads (``attn_core.attention_decode_paged``). A
+    cross-attention model has no paged step (the reference refuses it)."""
     _check_family(cfg)
+    if cfg.cross_attn_period:
+        raise NotImplementedError("paged decode: cross-attn families TBD")
     options = options if options is not None else default_options(cfg)
     x1 = params["embed"]["w"][token[:, None]]
     stages, plan = _plan0(options, cfg, token.shape[0], page_table.shape[1], x1.device)

@@ -140,11 +140,15 @@ class DecodeEngine:
     @torch.no_grad()
     def prefill(self, batch: Dict[str, Any], generator=None):
         """batch["tokens"] [B, L] (tensor or array) -> (first token [B],
-        state). The options ride along, so a metadata-reading policy gets
-        its metadata cache built here."""
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        logits, state = self.api.prefill(self.params, {"tokens": tokens},
-                                         self.cfg, self.max_len,
+        state); a vision model's ``batch["image_embeds"]`` [B, n_img, d]
+        rides along to its cross-attention layers. The options ride along
+        too, so a metadata-reading policy gets its metadata cache built
+        here."""
+        inputs = {"tokens": torch.as_tensor(batch["tokens"], device=self.device)}
+        if batch.get("image_embeds") is not None:
+            inputs["image_embeds"] = torch.as_tensor(batch["image_embeds"],
+                                                     device=self.device)
+        logits, state = self.api.prefill(self.params, inputs, self.cfg, self.max_len,
                                          options=self.options)
         return smp.sample(logits, self.options.sampling,
                           self._generator(generator)), state
@@ -266,11 +270,16 @@ class DecodeEngine:
         fp32, prefill token included) when ``collect_logits``. A sharded
         engine takes no request budgets, stochastic sampling or arrivals
         (Queue A item 6's sharded remainder) and raises
-        ``NotImplementedError`` for them.
+        ``NotImplementedError`` for them. A cross-attention (vision) model
+        has no paged step, in the reference neither, and raises
+        ``NotImplementedError`` before any work.
         """
         cfg = self.cfg
         ps = cfg.gate.block_size
         dev = self.device
+        if cfg.cross_attn_period:
+            raise NotImplementedError("paged decode: cross-attn families TBD "
+                                      "(serve a vision model through generate)")
         if arrivals is not None:
             if max_steps is None:
                 raise ValueError(

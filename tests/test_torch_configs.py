@@ -45,6 +45,8 @@ from repro_torch.serve.engine import DecodeEngine
 jax.config.update("jax_platform_name", "cpu")
 
 NEW = ["gemma_2b", "granite_20b", "deepseek_coder_33b"]
+# the MoE and vision configs (tests/test_torch_moe.py, tests/test_torch_vlm.py)
+FAMILIES = ["deepseek_moe_16b", "kimi_k2_1t_a32b", "llama_3_2_vision_11b"]
 LOGIT_TOL = 1e-4
 N_STEPS = 8
 SERVE_SPECS = [(20, 12), (18, 10), (22, 9)]     # three requests, 8 pages: preempts
@@ -104,14 +106,14 @@ def _assert_same_ids(j_ids, t_ids, n_calls):
 # ---------------------------------------------------------------------------
 
 def test_arch_ids_hold_the_four_dense_configs():
-    assert t_configs.ARCH_IDS == ["qwen3_0_6b", *NEW]
-    for arch in NEW:
+    assert t_configs.ARCH_IDS == ["qwen3_0_6b", *NEW, *FAMILIES]
+    for arch in NEW + FAMILIES:
         assert t_configs.get(arch.replace("_", "-")).arch_id == arch
     with pytest.raises(ValueError, match="unported"):
         t_configs.get("zamba2_1_2b")
 
 
-@pytest.mark.parametrize("arch", NEW)
+@pytest.mark.parametrize("arch", NEW + FAMILIES)
 def test_config_matches_reference(arch):
     j, t = j_configs.get(arch), t_configs.get(arch)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)

@@ -260,13 +260,12 @@ def test_gate_select_paged_kernel_matches_plain(dev, dtype, cfg, shape):
 TIE_NB = [1, 2, 31, 32, 33, 255, 256, 257, 1024, 8192]
 
 
-def _check_gate_ties(dev, dtype, nb, dg, seed=0, hkv=2):
-    """#1 and #3 on the exact-tie inputs (3 rows: n_valid full, partial
-    and 1; ``hkv`` kv heads), k 1, 64 and nb, both force flags on and both off:
+def _check_gate_ties(dev, dtype, nb, dg, seed=0, hkv=2, b=3):
+    """#1 and #3 on the exact-tie inputs (``b`` rows: n_valid full, partial
+    and 1, repeated; ``hkv`` kv heads), k 1, 64 and nb, both force flags on and both off:
     budget ids bitwise those of the plain versions, threshold ids through
     ids_agree, and the paged kernel over shuffled pages bitwise equal to it
     over pages in order. Raises AssertionError at the first difference."""
-    b = 3
     nv_np = gate_ties.n_valid(b, nb)
     nv = torch.tensor(nv_np, device=dev)
     on = lambda x: torch.tensor(x, device=dev).to(dtype)
@@ -1800,3 +1799,110 @@ def test_engine_cuda_eviction_serve_replays_and_matches(dev, quantize):
         if quantize is None:
             assert got[i] == ample[i]
             np.testing.assert_array_equal(got["logits"][i], ample["logits"][i])
+
+
+# ---------------------------------------------------------------------------
+# the MoE and vision families' shapes: the decode groups G 1 (deepseek_moe_16b,
+# MHA 16 x 128), G 4 (llama_3_2_vision_11b, 32 / 8 x 128) and G 8 (kimi_k2,
+# 64 / 8 x 128) at batch 4, 257 blocks of 64, 64 selected; the gate select at
+# 16 and 8 KV heads; moe_mlp on the card with capacity drops
+# ---------------------------------------------------------------------------
+
+FAMILY_SHAPES = {"g1": (4, 16, 1, 128, 257, 64, 64), "g4": (4, 8, 4, 128, 257, 64, 64),
+                 "g8": (4, 8, 8, 128, 257, 64, 64)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(FAMILY_SHAPES))
+def test_family_group_decode_kernels_match_plain(dev, dtype, shape):
+    """#2, #4, 2q, 4q, 5 and 5q against their plain versions at the
+    family's group (the split plan, ``group_plan`` and, at G 1, the int8
+    loop's lane mapping at one query row); #4 bitwise #2 over the same
+    blocks, 4q bitwise 2q, 5 / 5q bitwise #4 / 4q at the same split count."""
+    b, hkv, g, dh, nb, bs, nsel = FAMILY_SHAPES[shape]
+    q, k, v, idx, kv_len = _sparse_inputs(dev, dtype, b, hkv, g, dh, nb, bs, nsel)
+    o2 = bsd.sparse_decode_cuda(q, k, v, idx, kv_len, block_size=bs)
+    _check_decode(o2, bsd.sparse_decode_plain(q, k, v, idx, kv_len, block_size=bs), dtype)
+    q, kp, vp, idx, pt, kv_len, _ = _paged_inputs(dev, dtype, b, hkv, g, dh, nb, bs, nsel)
+    o4 = bsd.sparse_decode_paged_cuda(q, kp, vp, idx, pt, kv_len, block_size=bs)
+    _check_decode(o4, bsd.sparse_decode_paged_plain(q, kp, vp, idx, pt, kv_len,
+                                                    block_size=bs), dtype)
+    assert torch.equal(o4, o2)
+    for ns in (2, 4, 8, nsel + 3):
+        o5 = bsd.sparse_decode_paged_splitk_cuda(q, kp, vp, idx, pt, kv_len, block_size=bs,
+                                                 num_splits=ns)
+        _check_decode(o5, bsd.sparse_decode_paged_splitk_plain(
+            q, kp, vp, idx, pt, kv_len, block_size=bs, num_splits=ns), dtype)
+        assert torch.equal(o5, bsd.sparse_decode_paged_cuda(
+            q, kp, vp, idx, pt, kv_len, block_size=bs, num_splits=ns)), ns
+    q, kp, vp, ksp, vsp, idx, pt, kv_len, (kq, vq, ks, vs) = _quant_paged_inputs(
+        dev, dtype, b, hkv, g, dh, nb, bs, nsel)
+    o2q = bsd.sparse_decode_quant_cuda(q, kq, vq, idx, kv_len, block_size=bs, k_scales=ks,
+                                       v_scales=vs)
+    _check_decode(o2q, bsd.sparse_decode_plain(q, kq, vq, idx, kv_len, block_size=bs,
+                                               k_scales=ks, v_scales=vs), dtype)
+    kw = dict(block_size=bs, k_scales=ksp, v_scales=vsp)
+    o4q = bsd.sparse_decode_paged_quant_cuda(q, kp, vp, idx, pt, kv_len, **kw)
+    _check_decode(o4q, bsd.sparse_decode_paged_plain(q, kp, vp, idx, pt, kv_len, **kw), dtype)
+    assert torch.equal(o4q, o2q)
+    for ns in (2, 4, 8, nsel + 3):
+        o5q = bsd.sparse_decode_paged_splitk_quant_cuda(q, kp, vp, idx, pt, kv_len,
+                                                        num_splits=ns, **kw)
+        _check_decode(o5q, bsd.sparse_decode_paged_splitk_plain(
+            q, kp, vp, idx, pt, kv_len, num_splits=ns, **kw), dtype)
+        assert torch.equal(o5q, bsd.sparse_decode_paged_quant_cuda(
+            q, kp, vp, idx, pt, kv_len, num_splits=ns, **kw)), ns
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv", [16, 8])
+def test_family_heads_gate_select_matches_plain(dev, dtype, hkv):
+    """#1 and #3 at batch 4 over 16 KV heads (deepseek_moe_16b: 64 CTAs a
+    step) and 8 (kimi, the vision model), 257 blocks of Dg 128: random
+    inputs (ids equal up to near-tie swaps, #3 bitwise #1 over the same
+    rows paged), then exact ties bitwise."""
+    b, nb, dg = 4, 257, 128
+    g = torch.Generator(device=dev).manual_seed(3)
+    qg = torch.randn(b, hkv, dg, generator=g, device=dev).to(dtype)
+    kg = torch.randn(b, hkv, nb, dg, generator=g, device=dev).to(dtype)
+    nv = torch.tensor([nb, nb // 2 + 1, 1, nb - 3], dtype=torch.int32, device=dev)
+    pt = torch.arange(1, b * nb + 1, dtype=torch.int32, device=dev).reshape(b, nb)
+    pool = torch.cat([torch.zeros(1, hkv, dg, dtype=dtype, device=dev),
+                      kg.transpose(1, 2).reshape(b * nb, hkv, dg)])
+    for cfg in GATES:
+        cfg = dataclasses.replace(cfg, block_size=64, d_gate=dg, token_budget=4096)
+        k_idx = gs.gate_select_cuda(qg, kg, nv, cfg)
+        p_idx = gs.gate_select_plain(qg, kg, nv, cfg)
+        kp_idx = gs.gate_select_paged_cuda(qg, pool, pt, nv, cfg)
+        torch.cuda.synchronize()
+        scores = gs.gate_scores_plain(qg, kg, nv, cfg)
+        ids_agree(k_idx, p_idx, scores)
+        ids_agree(kp_idx, gs.gate_select_paged_plain(qg, pool, pt, nv, cfg), scores)
+        assert torch.equal(kp_idx, k_idx)
+    _check_gate_ties(dev, dtype, nb, dg, hkv=hkv, b=b)
+
+
+@pytest.mark.parametrize("tokens", [4, 64])
+def test_moe_mlp_cuda_matches_cpu(dev, tokens):
+    """deepseek_moe_16b's router (64 experts, top 6, 2 shared, capacity
+    1.25) at d 256 in fp32: decode's 4 rows (one slot an expert) and 64
+    rows; assignments drop at capacity in both. The keep mask equal to the
+    CPU's, the output within 1e-4, the aux loss too."""
+    from repro_torch.models import moe
+    mcfg = t_config.MoEConfig(n_experts=64, top_k=6, n_shared_experts=2, expert_d_ff=128,
+                              capacity_factor=1.25)
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe(gen, 256, mcfg, dtype="float32")
+    x = torch.randn(tokens, 256, generator=gen)
+    pc = params_to(p, dev)
+    keeps = []
+    for params, xs in ((p, x), (pc, x.to(dev))):
+        _, top_i, _ = moe.route(xs, params["router"]["w"], mcfg.top_k)
+        keeps.append(moe.dispatch(top_i, mcfg)[2].cpu())
+    assert torch.equal(keeps[0], keeps[1]) and not keeps[0].all()
+    y_c, aux_c = moe.moe_mlp(p, x, mcfg)
+    y_g, aux_g = moe.moe_mlp(pc, x.to(dev), mcfg)
+    torch.cuda.synchronize()
+    assert float((y_g.cpu() - y_c).abs().max()) <= 1e-4
+    assert abs(float(aux_g) - float(aux_c)) <= 1e-6

@@ -31,7 +31,13 @@ against its unsharded path, so that is what the port is held to
     ``kg_n`` equal. The reference's check runs its bf16 config; the port's
     parity harness runs float32 (ROADMAP, port decisions);
   * a world size that does not divide the KV heads (or the cache length)
-    raises ``ValueError``.
+    raises ``ValueError``;
+  * the MoE family (``deepseek_moe_16b`` at ``reduced()`` with its
+    published router, every rank computing all experts): the head-sharded
+    fp ``serve``, ample and preempting, greedy tokens equal to the JAX
+    engine's and logits bitwise the port's unsharded ``serve``; and the
+    sequence-sharded ``generate`` teacher-forced with the reference's
+    greedy tokens, logits within SEQ_TOL.
 
 Each path is one ``torch.multiprocessing.spawn`` of two ranks that runs all
 of its cases (``tests/torch_sharded_helpers.py``, which imports no JAX);
@@ -285,3 +291,91 @@ def test_child_module_imports_no_jax():
     mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     mods += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
     assert mods and not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: head-sharded serve and sequence-sharded generate
+# ---------------------------------------------------------------------------
+
+def _moe_cfgs():
+    j_full, t_full = j_configs.get("deepseek_moe_16b"), t_get("deepseek_moe_16b")
+    out = []
+    for full, reduce in ((j_full, j_reduced), (t_full, t_reduced)):
+        m = full.moe
+        cfg = reduce(full).replace(dtype="float32")
+        out.append(cfg.replace(
+            moe=type(m)(n_experts=m.n_experts, top_k=m.top_k,
+                        n_shared_experts=m.n_shared_experts, expert_d_ff=64,
+                        capacity_factor=m.capacity_factor),
+            gate=dataclasses.replace(cfg.gate, **GATE, token_budget=32)))
+    assert dataclasses.asdict(out[0]) == dataclasses.asdict(out[1])
+    return out
+
+
+@pytest.fixture(scope="module")
+def moe_runs(tmp_path_factory):
+    """(JAX serves by case, port unsharded serves by case, JAX generate,
+    per-rank sharded results)."""
+    jcfg, tcfg = _moe_cfgs()
+    params = j_tf.init_lm(jax.random.PRNGKey(0), jcfg)
+    np_params = jax.device_get(params)
+    rng = np.random.default_rng(7)
+    reqs = [{"rid": i, "max_new_tokens": mn,
+             "tokens": rng.integers(0, jcfg.vocab_size, size=(pl,)).astype(np.int32)}
+            for i, (pl, mn) in enumerate(SPECS)]
+    prompt = np.random.default_rng(3).integers(0, 256, (B, PRE)).astype(np.int32)
+    gcfg = [c.replace(gate=dataclasses.replace(c.gate, **GEN_GATES["budget"]))
+            for c in (jcfg, tcfg)]
+    gparams = j_tf.init_lm(jax.random.PRNGKey(0), gcfg[0])
+    logits, st = j_tf.lm_prefill(gparams, {"tokens": jnp.asarray(prompt)}, gcfg[0],
+                                 max_len=MAX)
+    tok = jnp.argmax(logits, -1).astype(jnp.int32)
+    step = jax.jit(lambda p, s, t: j_tf.lm_decode_step(p, s, t, gcfg[0],
+                                                       options=JOptions()))
+    toks, lgs = [np.asarray(tok)], []
+    for _ in range(N_STEPS):
+        lg, st, _ = step(gparams, st, tok)
+        tok = jnp.argmax(lg, -1).astype(jnp.int32)
+        toks.append(np.asarray(tok))
+        lgs.append(np.asarray(lg, np.float32))
+    gen_ref = {"tokens": np.stack(toks), "logits": np.stack(lgs)}
+    gen_job = (gcfg[1], jax.device_get(gparams), prompt, gen_ref["tokens"], MAX)
+    sharded = _spawn(tmp_path_factory.mktemp("moe"), "moe",
+                     (tcfg, np_params, reqs, gen_job))
+    jax_res, port_res = {}, {}
+    tparams = params_from_numpy(np_params, tcfg, "cpu")
+    for name in H.MOE_CASES:
+        serve_kw = H.SERVE_CASES[name][1]
+        jax_res[name] = JaxEngine(jcfg, params, max_len=64).serve(
+            [dict(r) for r in reqs], collect_logits=True, **serve_kw)
+        port_res[name] = DecodeEngine(tcfg, tparams, max_len=64, device="cpu").serve(
+            [dict(r) for r in reqs], collect_logits=True, **serve_kw)
+    return jax_res, port_res, gen_ref, sharded
+
+
+@pytest.mark.parametrize("case", H.MOE_CASES)
+def test_moe_head_sharded_serve_matches_unsharded(moe_runs, case):
+    jax_res, port_res, _, sharded = moe_runs
+    _same_on_every_rank([r[case] for r in sharded])
+    got, want, twin = sharded[0][case], jax_res[case], port_res[case]
+    assert got["gathers"] == N_LAYERS * got["stats"]["decode_steps"] > 0
+    for rid in range(len(SPECS)):
+        assert got["tokens"][rid] == want[rid] == twin[rid], f"rid {rid} tokens"
+        np.testing.assert_array_equal(got["logits"][rid], twin["logits"][rid])
+        np.testing.assert_allclose(got["logits"][rid], want["logits"][rid],
+                                   atol=LOGIT_TOL, rtol=0)
+    for key in COUNTERS:
+        assert got["stats"][key] == twin["stats"][key] == want["stats"][key], key
+    assert (got["stats"]["preemptions"] > 0) == case.endswith("preempt")
+
+
+def test_moe_sequence_sharded_generate_matches_unsharded(moe_runs):
+    _, _, ref, sharded = moe_runs
+    a, b = (r["generate"] for r in sharded)
+    for key in ("first", "logits", "k_cache", "v_cache", "kg_cache", "kg_n"):
+        np.testing.assert_array_equal(a[key], b[key], err_msg=f"ranks differ: {key}")
+    np.testing.assert_array_equal(a["first"], ref["tokens"][0])
+    assert a["gathers"] == N_LAYERS * N_STEPS
+    for step in range(N_STEPS):
+        d = float(np.max(np.abs(a["logits"][step] - ref["logits"][step])))
+        assert d < SEQ_TOL, f"step {step}: dlogit {d}"

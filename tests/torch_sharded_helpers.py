@@ -142,4 +142,28 @@ def _generate_one(shard, cfg, np_params, prompt, tokens, max_len):
             "kg_n": state.kg_n.numpy(), "sparsity": float(aux["sparsity"])}
 
 
-TASKS = {"serve": serve_cases, "generate": generate_teacher_forced}
+# the MoE family's head-sharded serve (fp only): the experts replicated
+MOE_CASES = ("fp", "fp-preempt")
+
+
+def moe_cases(shard, cfg, np_params, reqs, gen_job):
+    """MOE_CASES' serves of a MoE config on this rank (every rank computes
+    all experts over all slots), then the sequence-sharded ``generate`` of
+    ``gen_job`` (``_generate_one``'s arguments but the shard)."""
+    params = params_from_numpy(np_params, cfg, "cpu")
+    _count_gathers(shard)
+    out = {}
+    for name in MOE_CASES:
+        opt_kw, serve_kw = SERVE_CASES[name]
+        eng = DecodeEngine(cfg, params, max_len=64, device="cpu", shard=shard,
+                           options=DecodeOptions(**opt_kw))
+        shard.gathers = 0
+        res = eng.serve([dict(r) for r in reqs], collect_logits=True, **serve_kw)
+        out[name] = {"tokens": {r["rid"]: res[r["rid"]] for r in reqs},
+                     "logits": res["logits"], "gathers": shard.gathers,
+                     "stats": {k: res["stats"][k] for k in STATS}}
+    out["generate"] = _generate_one(shard, *gen_job)
+    return out
+
+
+TASKS = {"serve": serve_cases, "generate": generate_teacher_forced, "moe": moe_cases}
