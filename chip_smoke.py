@@ -28,10 +28,15 @@ forward). Then the other dense configs of the port at full width,
 (``OTHER_CONFIGS``), through ``generate`` and ``serve`` and, for the
 first two, distill training. Then the MoE and vision families
 (``FAMILY_CONFIGS``): ``deepseek_moe_16b`` (MHA 16 x 128, 64 experts, top
-6) at all 28 layers through ``generate`` and ``serve``, ``kimi_k2_1t_a32b``
-(64 / 8 x 128, 384 experts, top 8) at one layer and
+6) at 8 of its 28 layers through ``generate`` and ``serve``,
+``kimi_k2_1t_a32b`` (64 / 8 x 128, 384 experts, top 8) at one layer and
 ``llama_3_2_vision_11b`` (32 / 8 x 128, a cross-attention layer every 5)
-at all 40 layers through ``generate``.
+at 10 of its 40 layers through ``generate``. Then the recurrent families
+(``RECURRENT_CONFIGS``) at full width and depth: ``zamba2_1_2b`` (38
+Mamba2 layers and a gated shared attention block, MHA 32 x 64, after
+every 6 of them) through ``generate`` and ``serve`` (fp, int8, eviction),
+and ``falcon_mamba_7b`` (64 Mamba1 layers, no attention: no kernel runs)
+through ``generate`` and ``serve``, its prompts cut to 4096 tokens.
 The contiguous int8 kernel ``block_sparse_decode_quant`` lies on no model
 path (in the reference neither): it is checked and timed on the generate
 path's layer-0 blocks, quantized per block. Phases (any failure exits
@@ -227,9 +232,10 @@ The MoE and vision families (phases 30-32, after phase 22; the launches
 of their main paths join the counts of the kernels line, their errors
 its max_abs_err):
 
- 30. ``deepseek_moe_16b`` at full width and depth through phase 21's
-     steps: #1, #2 and 2q on layer 0 of its ``generate`` (G 1: 16 KV heads
-     of one query head each); ``generate`` (#1 and #2 28 x 31 times);
+ 30. ``deepseek_moe_16b`` at full width, 8 of its 28 layers, through
+     phase 21's steps: #1, #2 and 2q on layer 0 of its ``generate`` (G 1:
+     16 KV heads of one query head each); ``generate`` (#1 and #2 8 x 31
+     times);
      its profile, with the expert FFN's share of the step's device busy
      time (one layer's ``moe_mlp`` on its captured decode input, the
      host hidden, times the layers) and the floor of the routed experts'
@@ -243,11 +249,39 @@ its max_abs_err):
      its prompt cut to 8192 tokens and its query chunk to 256: the
      layer-0 kernel checks and ``generate`` (#1 and #2 31 times), its
      profile and expert FFN share;
- 32. ``llama_3_2_vision_11b`` at full depth (G 4) with numpy-seeded
-     image embeddings: the kernel checks on self layer 0, ``generate``
-     (#1 and #2 32 self layers x 31 steps), its profile, and a cross
-     layer's dense decode attention over the 1601 image tokens timed
-     (plain PyTorch, as in the reference, SDPA beside it).
+ 32. ``llama_3_2_vision_11b`` at 10 of its 40 layers (G 4) with
+     numpy-seeded image embeddings: the kernel checks on self layer 0,
+     ``generate`` (#1 and #2 8 self layers x 31 steps), its profile, and
+     a cross layer's dense decode attention over the 1601 image tokens
+     timed (plain PyTorch, as in the reference, SDPA beside it).
+
+The recurrent families (phases 33-34, after phase 32; the launches of
+their main paths join the counts of the kernels line, their errors its
+max_abs_err). Phase 2 also runs each one's reduced() model (zamba2_1_2b
+at 3 layers: a unit and a tail layer; falcon_mamba_7b with 8-token
+pages) card against CPU, fp32: ``generate`` tokens equal, logits within
+1e-4, #1 and #2 units x steps (none for falcon); ``serve`` ample and at 8
+pages, the same checks through #3 and #4, the swapped bytes equal.
+
+ 33. ``zamba2_1_2b`` at full width and depth (G 1 at 32 KV heads, Dh 64,
+     Dg 64; 6 units): phase 3's checks and timings of #1, #2 and 2q on
+     unit 0's shared-block tensors of ``generate``'s first decode step
+     (#2 against dense SDPA printed, not required); ``generate`` (#1 and
+     #2 6 units x 31 steps = 186 times) and its profile; ``serve`` with
+     phase 6's requests at the default pool and at 644 pages (#3 and #4
+     6 x decode steps, one preemption swapping the pages and the
+     request's recurrent rows, tight == ample bitwise: the rows are not
+     coupled); the same over int8 pools (#3 and 4q, the swapped bytes in
+     the int8/fp page ratio beside the recurrent rows); eviction under a
+     RESIDENT_CAP-page resident cap (replays > 0, bitwise the ample run);
+     #3, #4 and 5 at 2, 4, 8 and nsel + 3 splits on the fp serve's
+     layer-0 tensors, 4q and 5q on the int8 serve's;
+ 34. ``falcon_mamba_7b`` at full width and depth (64 Mamba1 layers, no
+     attention), its prompts cut to 4096 tokens: ``generate`` (every
+     launch counter 0, logits finite) and its profile; ``serve`` at the
+     default pool and at the first four cut prompts' pages + 2 (every
+     counter 0, tight == ample bitwise, the swapped bytes the preempted
+     request's recurrent rows alone).
 
 The pressure and failure paths of ``serve`` (phases 23-29) run after
 phase 13, on qwen3_0_6b at full width and phase 6's requests unless
@@ -332,6 +366,7 @@ from repro_torch.kernels import gate_gt_fwd as gt  # noqa: E402
 from repro_torch.kernels import gate_select as gs  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.common import decode_attention  # noqa: E402
+from repro_torch.models.registry import get_api  # noqa: E402
 from repro_torch.models.transformer import init_lm, lm_forward, n_self_layers  # noqa: E402
 from repro_torch.core.policy import default_tiers  # noqa: E402
 from repro_torch.serve import offload, traffic  # noqa: E402
@@ -398,22 +433,38 @@ OTHER_CONFIGS = {
 # checkpoint; then kernel 6 at 128-key blocks on qwen3_0_6b's tensors
 # the MoE and vision families (phases 30-32), each at full width (widths,
 # heads, experts and router as in its file), bf16, weights from seed 0:
-# deepseek_moe_16b at all 28 layers (33.8 GB of bf16 weights; generate's
-# contiguous K/V 15.1 GB, so generate and serve run one after the other)
-# on the generate and serve cells; kimi_k2_1t_a32b cut to one layer (its
-# 384 experts hold 33.8 GB a layer) on generate alone, with its prompt cut
-# to 8192 tokens and its query chunk to 256 (the prefill's expert buffers
-# grow with batch x prompt x top-k rows of 7168, the fp32 scores with 64
-# heads x chunk x prompt); llama_3_2_vision_11b at all 40 layers (32 self
-# + 8 cross, 19.6 GB) on generate alone (the reference has no paged step
-# for cross-attention), with numpy-seeded image embeddings
+# deepseek_moe_16b cut to 8 of its 28 layers on the generate and serve
+# cells; kimi_k2_1t_a32b cut to one layer (its 384 experts hold 33.8 GB a
+# layer) on generate alone, with its prompt cut to 8192 tokens and its
+# query chunk to 256 (the prefill's expert buffers grow with batch x
+# prompt x top-k rows of 7168, the fp32 scores with 64 heads x chunk x
+# prompt); llama_3_2_vision_11b cut to 10 of its 40 layers (two units of 4
+# self layers and a cross layer) on generate alone (the reference has no
+# paged step for cross-attention), with numpy-seeded image embeddings.
+# deepseek_moe_16b and llama_3_2_vision_11b ran at full depth until the
+# recurrent phases 33-34 joined the script: their depth was cut so that
+# the script stays inside its time limit
 FAMILY_CONFIGS = {
-    "deepseek_moe_16b": {},
+    "deepseek_moe_16b": dict(num_layers=8),
     "kimi_k2_1t_a32b": dict(num_layers=1, q_chunk=256),
-    "llama_3_2_vision_11b": {},
+    "llama_3_2_vision_11b": dict(num_layers=10),
 }
 FAMILY_PROMPT = {"kimi_k2_1t_a32b": 8192}
 FAMILY_SERVE = ("deepseek_moe_16b",)
+# the recurrent families (phases 33-34), each at full width and depth
+# (widths, state sizes, heads and gate as in its file), bf16, weights from
+# seed 0: zamba2_1_2b (38 Mamba2 layers in 6 units of 6 and a tail of 2,
+# the gated shared attention block after each unit: 32 KV heads of one
+# query head, Dh 64, Dg 64; 2.34 GB of bf16 weights) on the generate cell
+# and on serve with phase 6's requests (fp at both pools, int8, eviction
+# under RESIDENT_CAP); falcon_mamba_7b (64 Mamba1 layers, 14.56 GB, no
+# attention: no kernel runs on its paths) on generate and serve, its
+# prompts cut to FAMILY_PROMPT tokens (the plain PyTorch selective scan's
+# log-depth rounds over [batch, 256, 8192, 16] fp32 chunks take most of
+# its prefill) and its tight pool the first four cut prompts' pages, the
+# null page and one more (``tight_pool_pages``), as phase 6's 644
+RECURRENT_CONFIGS = ("zamba2_1_2b", "falcon_mamba_7b")
+FAMILY_PROMPT["falcon_mamba_7b"] = 4096
 OTHER_TRAIN = ("gemma_2b", "granite_20b")
 OTHER_TRAIN_STEPS = 3
 GT_BLOCK_BIG = 128
@@ -1121,11 +1172,23 @@ def phase_end_to_end(eng, batch, n_new, n_layers):
     return counts, stats["sparsity"]
 
 
-def serve_requests(vocab):
+def serve_requests(vocab, prompt_cut=None):
+    """Phase 6's requests; ``prompt_cut`` shortens each prompt to at most
+    that many of its tokens."""
     rng = np.random.default_rng(SERVE_SEED)
-    return [{"rid": i, "max_new_tokens": m,
+    reqs = [{"rid": i, "max_new_tokens": m,
              "tokens": rng.integers(0, vocab, size=(p,)).astype(np.int32)}
             for i, (p, m) in enumerate(SERVE_SPECS)]
+    if prompt_cut is not None:
+        for r in reqs:
+            r["tokens"] = r["tokens"][:prompt_cut]
+    return reqs
+
+
+def tight_pool_pages(reqs, page_size):
+    """The tight pool of phase 6's rule: the first four prompts' pages,
+    the null page and one more (644 for phase 6's requests)."""
+    return sum(-(-r["tokens"].size // page_size) for r in reqs[:SERVE_SLOTS]) + 2
 
 
 def capture_paged_layer0():
@@ -1214,21 +1277,24 @@ def run_serve(eng, reqs, num_pages, n_layers, **kw):
 
 
 def phase_serve(cfg, params, options=DecodeOptions(), shard=None, tight_pool=True,
-                reqs=None):
-    """serve() at full width, ample pool then (``tight_pool``) tight pool;
-    layer-0 paged kernel arguments captured from the ample run's first
-    decode step. Int8 pools (``options.quantize``) and sharded runs must
-    reproduce the ample run bitwise under the tight pool (the swap moves
-    the raw bytes back). ``reqs`` defaults to ``serve_requests``. Returns
-    (launch counts, captured arguments, ample, tight or None)."""
+                reqs=None, tight_pages=TIGHT_PAGES):
+    """serve() at full width, ample pool then (``tight_pool``) ``tight_pages``
+    pages; layer-0 paged kernel arguments captured from the ample run's
+    first decode step. Int8 pools (``options.quantize``), sharded runs and
+    the recurrent families must reproduce the ample run bitwise under the
+    tight pool (the swap moves the raw bytes and the recurrent rows back).
+    ``reqs`` defaults to ``serve_requests``. Returns (launch counts,
+    captured arguments, ample, tight or None)."""
     reqs = reqs if reqs is not None else serve_requests(cfg.vocab_size)
-    eng = DecodeEngine(cfg, params, max_len=max(p + m for p, m in SERVE_SPECS),
+    eng = DecodeEngine(cfg, params, max_len=max(r["tokens"].size + r["max_new_tokens"]
+                                                for r in reqs),
                        options=options, shard=shard)
+    n_layers = get_api(cfg).paged_attn_layers(cfg)
     seen, restore = capture_paged_layer0()
     coupled = cfg.family == "moe"
     traces = ({}, {})
     try:
-        ample, counts, _ = run_serve(eng, reqs, None, cfg.num_layers,
+        ample, counts, _ = run_serve(eng, reqs, None, n_layers,
                                      **slot_trace(traces[0]) if coupled else {})
     finally:
         restore()
@@ -1236,7 +1302,7 @@ def phase_serve(cfg, params, options=DecodeOptions(), shard=None, tight_pool=Tru
         fail("the ample pool preempted")
     if not tight_pool:
         return counts, seen, ample, None
-    tight, _, _ = run_serve(eng, reqs, TIGHT_PAGES, cfg.num_layers,
+    tight, _, _ = run_serve(eng, reqs, tight_pages, n_layers,
                             **slot_trace(traces[1]) if coupled else {})
     if coupled:
         check_coupled_serve(reqs, ample, tight, *traces)
@@ -1256,7 +1322,8 @@ def phase_serve(cfg, params, options=DecodeOptions(), shard=None, tight_pool=Tru
             top = float(np.abs(a).max())
             ulp = 2.0 ** -7 * 2.0 ** math.floor(math.log2(top))
             worst = max(worst, float(np.abs(a - b).max()) / ulp)
-    if worst > (0 if options.quantize or shard is not None else DECODE_ULPS):
+    bitwise = options.quantize or shard is not None or cfg.family in ("ssm", "hybrid")
+    if worst > (0 if bitwise else DECODE_ULPS):
         fail(f"tight pool logits differ by {worst:.2f} bf16 ulps")
     print(f"tight pool reproduces the ample run: tokens equal for every rid, logits "
           + ("bitwise equal" if worst == 0 else f"within {worst:.2f} bf16 ulps"))
@@ -1310,12 +1377,16 @@ def check_coupled_serve(reqs, ample, tight, t_ample, t_tight):
           f"runs (information only)")
 
 
-def check_int8_serve(cfg, fp, q8):
+def check_int8_serve(cfg, fp, q8, n_layers=None, state_bytes=0):
     """The int8 runs against the fp runs of phase 6: the same scheduling
     (decode steps, peak pages, preemptions), swap bytes in the ratio of the
     int8 page (codes, bf16 Kg row, two f32 scales per kv head) to the fp
-    page, and, for information only, the share of tokens equal to fp's."""
+    page, and, for information only, the share of tokens equal to fp's.
+    ``n_layers`` (default all) the layers the pools hold; ``state_bytes``
+    a recurrent family's rows a preempted request swaps beside its pages,
+    taken off both runs' bytes before the ratio."""
     (fa, ft), (qa, qt) = fp, q8
+    n_layers = n_layers or cfg.num_layers
     for key in ("decode_steps", "peak_pages_used", "preemptions"):
         for f, q in ((fa, qa), (ft, qt)):
             if f["stats"][key] != q["stats"][key]:
@@ -1324,19 +1395,20 @@ def check_int8_serve(cfg, fp, q8):
     es = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
     kg = cfg.gate.d_gate * es
     per_fp, per_q8 = hkv * (2 * ps * dh * es + kg), hkv * (2 * ps * dh + kg + 8)
-    fb, qb = ft["stats"]["swapped_out_bytes"], qt["stats"]["swapped_out_bytes"]
+    rec = state_bytes * qt["stats"]["preemptions"]
+    fb, qb = ft["stats"]["swapped_out_bytes"] - rec, qt["stats"]["swapped_out_bytes"] - rec
     if qb * per_fp != fb * per_q8:
         fail(f"int8 swap {qb} B is not fp's {fb} B x {per_q8}/{per_fp}")
-    pages = qb // (cfg.num_layers * per_q8)
+    pages = qb // (n_layers * per_q8)
     same = total = 0
     for rid in range(len(SERVE_SPECS)):
         a, b = np.asarray(fa[rid]), np.asarray(qa[rid])
         same += int((a == b).sum())
         total += len(a)
     n_pages = qa["stats"]["num_pages"]
-    kv = n_pages * cfg.num_layers * hkv * ps * dh * 2
-    print(f"int8 serve: swapped {qb} B each way = {pages} pages x {cfg.num_layers} layers x "
-          f"{per_q8} B (fp: {fb} B); K/V pools at {n_pages} pages {kv / 1e9:.2f} GB "
+    kv = n_pages * n_layers * hkv * ps * dh * 2
+    print(f"int8 serve: swapped {qb} B each way = {pages} pages x {n_layers} layers x "
+          f"{per_q8} B (fp: {fb} B), beside {rec} B of recurrent rows; K/V pools at {n_pages} pages {kv / 1e9:.2f} GB "
           f"(fp {kv * es / 1e9:.2f} GB); tokens equal to the fp run {same}/{total} "
           f"(information only)")
 
@@ -2349,8 +2421,17 @@ def small_geometries(arch):
     its reduced() geometry, and a one-layer model at its own heads (a MoE
     config also at its own router: E, top-k, shared experts and capacity
     as published, experts of width 64; a vision model one unit of a self
-    and a cross layer)."""
+    and a cross layer). A recurrent config has its reduced() geometry
+    alone: zamba2_1_2b at 3 layers (one unit of 2 Mamba2 layers and the
+    shared block, then a tail layer: both layer kinds), falcon_mamba_7b
+    with its (disabled) gate's block cut to 8, the page size serve pages
+    at."""
     full = configs.get(arch)
+    if full.family == "hybrid":
+        return [("reduced", reduced(full, num_layers=3).replace(dtype="float32"))]
+    if full.family == "ssm":
+        cfg = reduced(full).replace(dtype="float32")
+        return [("reduced", cfg.replace(gate=dataclasses.replace(cfg.gate, block_size=8)))]
     own = dict(n_heads=full.n_heads, n_kv_heads=full.n_kv_heads, head_dim=full.head_dim,
                num_layers=2 if full.cross_attn_period else 1)
     label = "own heads, 1 layer"
@@ -2367,20 +2448,25 @@ def small_geometries(arch):
 
 
 def phase_small_configs():
-    """Each other config's and each family config's reduced() geometry
-    (fp32, gate block 8) and a small model at its own head geometry (8 x
+    """Each other config's, each family config's and each recurrent
+    config's reduced() geometry (fp32, gate block 8) and, but for the
+    recurrent ones, a small model at its own head geometry (8 x
     256 MQA, 48 x 128 MQA, 56 / 8 x 128; MHA 16 x 128 and 64 / 8 x 128
     with their published routers; 32 / 8 x 128 with a cross layer) on the
     card against the CPU plain path: generate (2 x 41 prompt, a vision
     model with the same seeded image embeddings on both devices, 12 steps,
-    tokens equal, logits within 1e-4, each step's self layers through #1
-    and #2), and serve with an ample and a preempting pool (tokens equal,
-    logits within 1e-4, each step's layers through #3 and #4) at reduced()
-    for the dense configs and at both geometries for the MoE ones (the
+    tokens equal, logits within 1e-4, each step's attention layers (self
+    layers; the hybrid's shared-block units; none for the Mamba1 LM)
+    through #1 and #2), and serve with an ample and a preempting pool
+    (tokens equal, logits within 1e-4, swapped bytes equal, each step's
+    attention layers through #3 and #4) at reduced() for the dense and
+    recurrent configs and at both geometries for the MoE ones (the
     reference has no paged step for a vision model)."""
-    for arch in (*OTHER_CONFIGS, *FAMILY_CONFIGS):
+    for arch in (*OTHER_CONFIGS, *FAMILY_CONFIGS, *RECURRENT_CONFIGS):
         for label, cfg in small_geometries(arch):
-            params = init_lm(torch.Generator().manual_seed(0), cfg)
+            api = get_api(cfg)
+            n_attn = api.paged_attn_layers(cfg)
+            params = api.init_params(torch.Generator().manual_seed(0), cfg)
             batch = {"tokens": np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 41))}
             if cfg.cross_attn_period:
                 batch["image_embeds"] = image_embeds(cfg, 2, DataState(SEED, 0),
@@ -2396,7 +2482,7 @@ def phase_small_configs():
                     lgs.append(lg.float().cpu())
                     tks.append(tok.cpu())
                 runs[dev] = (torch.stack(lgs), torch.stack(tks), ops.launch_counts())
-            n = n_self_layers(cfg) * 12
+            n = n_attn * 12
             want = {**dict.fromkeys(ops.KERNELS, 0), "gate_select": n,
                     "block_sparse_decode": n}
             same = torch.equal(runs["cpu"][1], runs["cuda"][1])
@@ -2408,7 +2494,7 @@ def phase_small_configs():
             msg = (f"{arch} small agreement ({label}: {cfg.num_layers} layers, "
                    f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, fp32): "
                    f"generate tokens equal, logits max abs diff {err:.3e}, {n} launches each "
-                   f"of #1 and #2 ({n_self_layers(cfg)} self layers x 12 steps)")
+                   f"of #1 and #2 ({n_attn} attention layers x 12 steps)")
             if (label == "reduced" or cfg.family == "moe") and not cfg.cross_attn_period:
                 r = np.random.default_rng(4)
                 reqs = [{"rid": i, "max_new_tokens": m,
@@ -2423,20 +2509,21 @@ def phase_small_configs():
                                               collect_logits=True), ops.launch_counts())
                     got, counts = out["cuda"]
                     want_r = out["cpu"][0]
-                    n = cfg.num_layers * got["stats"]["decode_steps"]
+                    n = n_attn * got["stats"]["decode_steps"]
                     expect = {**dict.fromkeys(ops.KERNELS, 0), "gate_select_paged": n,
                               "block_sparse_decode_paged": n}
                     same = all(got[i] == want_r[i] for i in range(len(reqs)))
                     err = max(float(np.abs(got["logits"][i] - want_r["logits"][i]).max())
                               for i in range(len(reqs)))
                     pre = got["stats"]["preemptions"]
+                    swap = (got["stats"]["swapped_out_bytes"], want_r["stats"]["swapped_out_bytes"])
                     if counts != expect or not same or err > 1e-4 \
-                            or (pre > 0) != (pool is not None):
+                            or (pre > 0) != (pool is not None) or swap[0] != swap[1]:
                         fail(f"{arch} small serve (pool {pool}): launches {counts} (expected "
                              f"{expect}), tokens equal {same}, logits max abs diff {err:.3e}, "
-                             f"preemptions {pre}")
+                             f"preemptions {pre}, swapped bytes {swap}")
                     msg += (f"; serve (pool {pool or 'default'}) tokens equal, logits max abs "
-                            f"diff {err:.3e}, preemptions {pre}")
+                            f"diff {err:.3e}, preemptions {pre}, swapped {swap[0]} B")
             print(msg)
 
 
@@ -2691,6 +2778,138 @@ def phase_config_train(arch):
     torch.cuda.empty_cache()
     print(f"phase {arch} training: {time.perf_counter() - t0:.1f} s")
     return counts["gate_gt_attention"], numbers
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: zamba2_1_2b, falcon_mamba_7b (phases 33-34)
+# ---------------------------------------------------------------------------
+
+def recurrent_row_bytes(cfg):
+    """The bytes of one request's recurrent rows (conv windows in the
+    working dtype, fp32 hidden states) over every Mamba layer."""
+    st = get_api(cfg).init_slot_state(cfg, 1, device="meta")
+    return sum(t.numel() * t.element_size() for t in st)
+
+
+def phase_recurrent(arch):
+    """Phase 33 (zamba2_1_2b) or 34 (falcon_mamba_7b) at full width and
+    depth. The hybrid: phase 3's checks and timings of #1, #2 and 2q on
+    unit 0's shared-block tensors of generate's first decode step (#2
+    against dense SDPA printed, not required); generate (batch 4, phase 4's
+    prompt, 31 decode steps) with the counters at 0 just before, #1 and #2
+    launching units x steps; its profile; serve with phase 6's requests at
+    the default pool and at 644 pages (tight == ample bitwise, #3 and #4
+    units x steps), over int8 pools likewise (#3 and 4q), and under
+    eviction at a resident cap of RESIDENT_CAP pages (replays > 0, bitwise
+    the ample run); #3, #4, 5 at 2, 4, 8 and nsel + 3 splits on the fp
+    serve's layer-0 tensors, 4q and 5q on the int8 serve's. The Mamba1 LM:
+    generate and serve (both pools, tight == ample bitwise, the swapped
+    bytes the recurrent rows alone) with every counter at 0, and its
+    profile. Returns (launch counts of the paths, {kernel: numbers})."""
+    t0 = time.perf_counter()
+    free_card()
+    full = configs.get(arch)
+    cfg = full
+    api = get_api(cfg)
+    n_attn = api.paged_attn_layers(cfg)
+    prompt = FAMILY_PROMPT.get(arch, PROMPT_LEN)
+    cuts = [f"prompt {PROMPT_LEN} -> {prompt}"] if prompt != PROMPT_LEN else []
+    bs = cfg.gate.block_size
+    ssm = cfg.ssm
+    di = ssm.expand * cfg.d_model
+    row_b = recurrent_row_bytes(cfg)
+    attn = (f"; the shared attention block after every {cfg.hybrid_period} Mamba2 layers "
+            f"({n_attn} units, {cfg.num_layers - n_attn * cfg.hybrid_period} tail layers): "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, d_ff "
+            f"{cfg.d_ff}; gate block {bs}, d_gate {cfg.gate.d_gate}, budget "
+            f"{cfg.gate.token_budget}" if n_attn else "; no attention, gate disabled")
+    print(f"{arch}: {cfg.num_layers} Mamba{ssm.version} layers, d {cfg.d_model}, d_inner "
+          f"{di}, state {ssm.state_dim}, conv {ssm.conv_dim}, scan chunk {ssm.chunk_size}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}{attn}; a request's recurrent rows {row_b} B; "
+          f"batch {BATCH}, prompt {prompt}, {NEW_TOKENS} new tokens; reduced {cuts}")
+    if n_attn:
+        for name, quant in (("fp", False), ("int8", True)):
+            plan = bsd.group_plan(cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim, bs,
+                                  torch.bfloat16, quant)
+            print(f"{arch}: decode plan ({name} K/V, bf16 q): {plan}")
+    t1 = time.perf_counter()
+    params = api.init_params(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tl._walk(params))
+    print(f"{arch}: random weights (seed {SEED}) {n_params / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+          f"{time.perf_counter() - t1:.1f} s")
+    toks = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (BATCH, prompt)).astype(np.int32)
+    batch = {"tokens": toks}
+    max_len = -(-(prompt + NEW_TOKENS) // bs) * bs
+    eng = DecodeEngine(cfg, params, max_len=max_len)
+    numbers = {}
+    if n_attn:
+        seen, state = capture_layer0(eng, batch)
+        numbers.update(phase_kernels(seen, vs_sdpa=False))
+        numbers.update(phase_quant_kernels(seen))
+        del seen, state
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts, _ = phase_end_to_end(eng, batch, NEW_TOKENS, n_attn)
+    phase_profile(eng, batch)
+    del eng
+    torch.cuda.empty_cache()
+
+    reqs = serve_requests(cfg.vocab_size, None if prompt == PROMPT_LEN else prompt)
+    tight = tight_pool_pages(reqs, bs)
+    print(f"{arch} serve: {SERVE_SLOTS} slots, (prompt, new tokens) "
+          f"{[(r['tokens'].size, r['max_new_tokens']) for r in reqs]}; default pool, then "
+          f"{tight} pages")
+    serve_counts, seen, *fp_runs = phase_serve(cfg, params, reqs=reqs, tight_pages=tight)
+    st = fp_runs[1]["stats"]
+    if not n_attn:
+        if st["swapped_out_bytes"] != st["preemptions"] * row_b:
+            fail(f"{arch}: swapped {st['swapped_out_bytes']} B, expected the recurrent rows "
+                 f"alone, {st['preemptions']} x {row_b} B")
+        print(f"{arch}: the tight run swapped {st['swapped_out_bytes']} B = "
+              f"{st['preemptions']} preemptions x {row_b} B of recurrent rows alone")
+        if any(n for n in counts.values()) or any(n for n in serve_counts.values()):
+            fail(f"{arch}: a kernel launched on an attention-free model: {counts}, "
+                 f"{serve_counts}")
+        print(json.dumps({"config": arch, "reduced": cuts, "kernels": {}}))
+        print(f"phase {arch}: {time.perf_counter() - t0:.1f} s")
+        return counts, numbers
+    print(f"{arch}: the tight run swapped {st['swapped_out_bytes']} B ({st['preemptions']} "
+          f"preemptions, {row_b} B of recurrent rows each)")
+    numbers.update(phase_paged_kernels(seen, vs_sdpa=False))
+    seen["paged_sparse_decode_splitk"] = seen["paged_sparse_decode"]
+    numbers.update(phase_splitk_kernels(seen, source=f"{arch} serve"))
+    del seen
+    torch.cuda.empty_cache()
+    print(f"{arch} int8 serve: the same requests and pools, quantize='int8'")
+    q8_counts, seen, *q8_runs = phase_serve(cfg, params, DecodeOptions(quantize="int8"),
+                                            reqs=reqs, tight_pages=tight)
+    check_int8_serve(cfg, fp_runs, q8_runs, n_layers=n_attn, state_bytes=row_b)
+    numbers.update(phase_paged_quant_kernels(seen))
+    seen["paged_sparse_decode_splitk"] = seen["paged_sparse_decode"]
+    numbers.update(phase_splitk_kernels(seen, source=f"{arch} int8 serve"))
+    del seen, q8_runs
+    torch.cuda.empty_cache()
+    cap = EvictionConfig(max_resident_pages=RESIDENT_CAP)
+    print(f"{arch} eviction: {RESIDENT_CAP} pages a request, default pool")
+    eng = DecodeEngine(cfg, params, max_len=max(r["tokens"].size + r["max_new_tokens"]
+                                                for r in reqs))
+    res, ev_counts, _ = run_pressure(f"{arch} eviction under the cap", eng, reqs, None,
+                                     n_attn, eviction=cap)
+    if res["stats"]["replay_steps"] < 1:
+        fail(f"{arch}: the resident cap forced no replay")
+    same_run(f"{arch} eviction under the cap", fp_runs[0], res, reqs)
+    print(f"{arch} eviction under the cap reproduces the ample run bitwise with "
+          f"{res['stats']['replay_steps']} replayed steps")
+    del eng, params, fp_runs
+    torch.cuda.empty_cache()
+    counts = {name: counts[name] + serve_counts[name] + q8_counts[name] + ev_counts[name]
+              for name in counts}
+    print(json.dumps({"config": arch, "reduced": cuts, "kernels": numbers}))
+    print(f"phase {arch}: {time.perf_counter() - t0:.1f} s")
+    return counts, numbers
 
 
 # ---------------------------------------------------------------------------
@@ -3234,6 +3453,13 @@ def run_phases(shard) -> int:
     # errors the kernels' max_abs_err
     for arch in (*OTHER_CONFIGS, *FAMILY_CONFIGS):
         c, nums = phase_config(arch)
+        for name, n in c.items():
+            counts[name] += n
+        for name, nb in nums.items():
+            more.setdefault(name, []).append(nb["max_abs_err"])
+    # the recurrent families: the same
+    for arch in RECURRENT_CONFIGS:
+        c, nums = phase_recurrent(arch)
         for name, n in c.items():
             counts[name] += n
         for name, nb in nums.items():

@@ -2,9 +2,10 @@
 
 ``get(arch_id)`` returns the full-size ModelConfig. The four dense
 configs (qwen3_0_6b, gemma_2b, granite_20b, deepseek_coder_33b), the two
-MoE configs (deepseek_moe_16b, kimi_k2_1t_a32b) and the vision backbone
-(llama_3_2_vision_11b) are ported; the SSM, hybrid and audio configs
-arrive with their families' slices.
+MoE configs (deepseek_moe_16b, kimi_k2_1t_a32b), the vision backbone
+(llama_3_2_vision_11b) and the two recurrent configs (falcon_mamba_7b,
+the Mamba1 LM, and zamba2_1_2b, the Mamba2 hybrid) are ported; the audio
+config arrives with its family's slice.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ ARCH_IDS = [
     "deepseek_moe_16b",
     "kimi_k2_1t_a32b",
     "llama_3_2_vision_11b",
+    "falcon_mamba_7b",
+    "zamba2_1_2b",
 ]
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}

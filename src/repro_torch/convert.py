@@ -55,9 +55,18 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     ``wi_gate``/``wi_up`` [L, E, d, f] and ``wo`` [L, E, f, d], and the
     ``shared`` GLU). A cross-attention model's ``blocks`` leaves are
     [n_units, n_self, ...] and become the flat list of self layers,
-    unit-major; its ``cross_blocks`` [n_units, ...] one block a unit."""
+    unit-major; its ``cross_blocks`` [n_units, ...] one block a unit.
+
+    The recurrent trees: the Mamba1 LM's ``blocks`` [L, ...] become the
+    list of L layers; the hybrid's ``units`` [n_units, period, ...] a list
+    of units, each a list of its Mamba2 layers, its ``tail`` [rem, ...] a
+    list, and its ``shared_attn`` one transformer block. ``A_log``, ``D``
+    and ``dt_bias`` keep their float32 in a bf16 tree."""
     from repro_torch.models.transformer import _check_family, _units, n_self_layers
-    _check_family(cfg)
+    if cfg.family == "hybrid":
+        return _hybrid_from_numpy(tree, cfg, resolve_device(device))
+    if cfg.family != "ssm":
+        _check_family(cfg)
     if bool(cfg.cross_attn_period) != ("cross_blocks" in tree):
         raise ValueError("the tree's cross_blocks do not match the config's "
                          f"cross_attn_period {cfg.cross_attn_period}")
@@ -69,6 +78,19 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         blocks = _flat_units(blocks)
         out["cross_blocks"] = _layers(_tree(tree["cross_blocks"], device), _units(cfg)[0])
     out["blocks"] = _layers(blocks, n_self_layers(cfg))
+    return out
+
+
+def _hybrid_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device) -> Dict[str, Any]:
+    from repro_torch.models.hybrid import _plan
+    n_units, period, rem = _plan(cfg)
+    out = {k: _tree(v, device) for k, v in tree.items() if k not in ("units", "tail")}
+    units = _layers(_tree(tree["units"], device), n_units)
+    out["units"] = [_layers(u, period) for u in units]
+    if rem:
+        out["tail"] = _layers(_tree(tree["tail"], device), rem)
+    elif "tail" in tree:
+        raise ValueError(f"the tree has a tail, the config's plan {_plan(cfg)} none")
     return out
 
 

@@ -125,6 +125,14 @@ def aggregate_decode_aux(auxs: Sequence[LayerAux]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def zero_decode_aux(batch: int, device) -> Dict[str, torch.Tensor]:
+    """The decode-step aux of an attention-free path (the Mamba1 LM):
+    nothing is selected."""
+    z = torch.zeros((batch,), dtype=torch.float32, device=device)
+    return {"sparsity": torch.zeros((), dtype=torch.float32, device=device),
+            "sparsity_rows": z, "sel_blocks": z, "vis_blocks": z}
+
+
 def _cap_budget(idx: torch.Tensor, budget_blocks) -> torch.Tensor:
     """Per-slot runtime caps of per-request budgets: slot positions at or
     past ``budget_blocks[slot]`` become -1 (forced blocks rank first, so a

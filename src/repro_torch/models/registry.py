@@ -1,16 +1,19 @@
 """Family dispatch: a uniform functional API over the ported model families.
 
-The transformer's families are ported: dense, moe and vlm (the vision
-backbone) share its ``ModelApi``; the recurrent families (ssm, hybrid) and
-the audio encoder arrive with their slices.
+The transformer's families (dense, moe and vlm, the vision backbone)
+share its ``ModelApi``; the recurrent families have their own: ssm (the
+Mamba1 LM, pages-free: its whole decode state rides in the per-slot
+recurrent state) and hybrid (Mamba2 with a shared attention block, whose
+units page their K/V). The audio encoder arrives with its slice.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
 from repro_torch.config import ModelConfig
+from repro_torch.models import hybrid, ssm_lm
 from repro_torch.models import transformer as tf
-from repro_torch.serve.slotstate import CacheView
+from repro_torch.serve.slotstate import CacheView, SlotState
 
 
 class ModelApi(NamedTuple):
@@ -32,7 +35,8 @@ class ModelApi(NamedTuple):
     decode_step_paged: Any = None
     # how many layer slices the page pools carry (cfg) -> int
     paged_attn_layers: Callable = None
-    # (cfg, n_slots) -> per-slot recurrent state, None for pages-only families
+    # (cfg, n_slots, *, device) -> per-slot recurrent state
+    # (serve.slotstate.SlotState), None for pages-only families
     init_slot_state: Any = None
     # (prefill state) -> CacheView: what paged admission scatters into pools
     state_view: Any = None
@@ -43,21 +47,43 @@ def _tf_view(st) -> CacheView:
                      None)
 
 
+def _hybrid_view(st) -> CacheView:
+    return CacheView(st.k_cache, st.v_cache, st.kg_cache, None, None,
+                     SlotState(conv=st.conv[:, 0], h=st.h[:, 0]))
+
+
+def _ssm_view(st) -> CacheView:
+    return CacheView(None, None, None, None, None,
+                     SlotState(conv=st.conv[:, 0], h=st.h[:, 0]))
+
+
 _TF_API = ModelApi(tf.init_lm, tf.lm_forward, tf.init_decode_state, tf.lm_prefill,
                    tf.lm_decode_step,
                    decode_step_paged=tf.lm_decode_step_paged,
                    paged_attn_layers=tf.n_self_layers,
                    init_slot_state=None,
                    state_view=_tf_view)
+_SSM_API = ModelApi(ssm_lm.init_lm, ssm_lm.lm_forward, ssm_lm.init_decode_state,
+                    ssm_lm.lm_prefill, ssm_lm.lm_decode_step,
+                    decode_step_paged=ssm_lm.lm_decode_step_paged,
+                    paged_attn_layers=lambda cfg: 0,
+                    init_slot_state=ssm_lm.init_slot_state,
+                    state_view=_ssm_view)
+_HYBRID_API = ModelApi(hybrid.init_lm, hybrid.lm_forward, hybrid.init_decode_state,
+                       hybrid.lm_prefill, hybrid.lm_decode_step,
+                       decode_step_paged=hybrid.lm_decode_step_paged,
+                       paged_attn_layers=lambda cfg: hybrid._plan(cfg)[0],
+                       init_slot_state=hybrid.init_slot_state,
+                       state_view=_hybrid_view)
 
 
 def get_api(cfg: ModelConfig) -> ModelApi:
     if cfg.family in ("dense", "moe", "vlm"):
         return _TF_API
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the recurrent families (ROADMAP Queue A item 9, "
-            "recurrent half) are not ported")
+    if cfg.family == "ssm":
+        return _SSM_API
+    if cfg.family == "hybrid":
+        return _HYBRID_API
     if cfg.family == "audio":
         raise NotImplementedError(
             "family 'audio': the audio encoder (ROADMAP Queue A item 10) is not ported")

@@ -107,9 +107,11 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, *,
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family in ("dense", "moe", "vlm"):
         return
-    item = 10 if cfg.family == "audio" else 9
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(f"family {cfg.family!r} runs through models/ssm_lm.py or "
+                         "models/hybrid.py (registry.get_api), not the transformer")
     raise NotImplementedError(
-        f"family {cfg.family!r} (ROADMAP Queue A item {item}) is not ported; the "
+        f"family {cfg.family!r} (ROADMAP Queue A item 10) is not ported; the "
         "transformer runs the dense, moe and vlm families")
 
 
@@ -450,7 +452,6 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
     dev = params["embed"]["w"].device
     state = init_decode_state(cfg, b, max_len, options=options, device=dev)
     bs = cfg.gate.block_size
-    nb = l // bs
     pos = torch.arange(l, device=dev)[None, :].expand(b, l)
     x = params["embed"]["w"][tokens]
     ctx = _image_ctx(batch, x.dtype)
@@ -466,39 +467,10 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
                                          (ck, cv), cfg)
             x = x + mlp(cp["mlp"], rms_norm(cp["ln2"], x, cfg.norm_eps), cfg.activation)
             continue
-        lp = params["blocks"][i]
-        p = lp["attn"]
-        h = rms_norm(lp["ln1"], x, cfg.norm_eps)
-        q, k, v = _qkv(p, h, cfg)
-        qr = apply_rope(q, pos, cfg.rope_theta)
-        kr = apply_rope(k, pos, cfg.rope_theta)
-        o = chunked_attention(qr, kr, v, causal=cfg.causal, q_chunk=cfg.q_chunk,
-                              logit_softcap=cfg.attn_logit_softcap)
-        # the ONE-TIME layout conversion: seq-major activations ->
-        # head-major caches
-        state.k_cache[i, :, :, :l] = kr.transpose(1, 2)
-        state.v_cache[i, :, :, :l] = v.transpose(1, 2)
-        if state.kg_cache is not None and "gate" in p and nb:
-            kg = ag.gate_k(p["gate"], k[:, :nb * bs], cfg.gate)   # [B,nb,Hkv,Dg]
-            state.kg_cache[i, :, :, :nb] = kg.transpose(1, 2).to(state.kg_cache.dtype)
-        x = x + linear(p["wo"], o.reshape(b, l, -1))
-        del q, k, v, qr, kr, o
-        x = x + ffn(lp, rms_norm(lp["ln2"], x, cfg.norm_eps), cfg)[0]
-    lengths = batch.get("lengths")
-    if lengths is None:
-        state.cur_len.fill_(l)
-        last = x[:, -1]
-    else:
-        state.cur_len.copy_(torch.as_tensor(lengths, device=dev))
-        last = x[torch.arange(b, device=dev), torch.clamp_min(state.cur_len - 1, 0).long()]
-    if state.kg_n is not None:
-        state.kg_n.copy_((state.cur_len // bs)[None].expand_as(state.kg_n))
-        if lengths is not None:
-            # blocks touching pad tokens hold garbage Kg rows: zero them
-            # (rows >= lengths // bs), so a partial trailing block reads zero
-            row_ok = (torch.arange(state.kg_cache.shape[3], device=dev)[None, :]
-                      < (state.cur_len // bs)[:, None])
-            state.kg_cache.masked_fill_(~row_ok[None, :, None, :, None], 0)
+        x = prefill_block(params["blocks"][i], x, cfg, pos, state.k_cache[i],
+                          state.v_cache[i], None if state.kg_cache is None
+                          else state.kg_cache[i])
+    last = finish_prefill(state, x, batch.get("lengths"), bs)
     if state.meta_kmin is not None:
         # kv_len masking keeps pad and beyond-length tokens out of min/max
         for i in range(state.meta_kmin.shape[0]):
@@ -508,6 +480,59 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
                 state.k_cache[i], state.cur_len, bs)
             state.meta_n[i] = meta.n_complete
     return _logits(params, last, cfg), state
+
+
+def prefill_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor,
+                  k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  kg_cache: Optional[torch.Tensor]) -> torch.Tensor:
+    """One self-attention block over the prompt x [B, L, d], writing its
+    caches in place: the post-rope K and the V into ``k_cache``/``v_cache``
+    [B, Hkv, S_max, Dh] (the ONE-TIME layout conversion, seq-major to
+    head-major) and the Kg rows of the complete blocks into ``kg_cache``
+    [B, Hkv, nb_max, Dg] when given and the layer is gated. Returns x.
+    The transformer's layers and the hybrid's shared block take it."""
+    b, l, _ = x.shape
+    bs = cfg.gate.block_size
+    nb = l // bs
+    p = lp["attn"]
+    h = rms_norm(lp["ln1"], x, cfg.norm_eps)
+    q, k, v = _qkv(p, h, cfg)
+    qr = apply_rope(q, pos, cfg.rope_theta)
+    kr = apply_rope(k, pos, cfg.rope_theta)
+    o = chunked_attention(qr, kr, v, causal=cfg.causal, q_chunk=cfg.q_chunk,
+                          logit_softcap=cfg.attn_logit_softcap)
+    k_cache[:, :, :l] = kr.transpose(1, 2)
+    v_cache[:, :, :l] = v.transpose(1, 2)
+    if kg_cache is not None and "gate" in p and nb:
+        kg = ag.gate_k(p["gate"], k[:, :nb * bs], cfg.gate)       # [B,nb,Hkv,Dg]
+        kg_cache[:, :, :nb] = kg.transpose(1, 2).to(kg_cache.dtype)
+    x = x + linear(p["wo"], o.reshape(b, l, -1))
+    del q, k, v, qr, kr, o
+    return x + ffn(lp, rms_norm(lp["ln2"], x, cfg.norm_eps), cfg)[0]
+
+
+def finish_prefill(state, x: torch.Tensor, lengths, block_size: int) -> torch.Tensor:
+    """Sets ``state.cur_len`` (and ``kg_n`` [L, B] where the state has a
+    gate cache) from the prompt's (or right-padded rows' true) lengths,
+    zeroes the Kg rows of blocks that touch a pad token, and returns the
+    last real position's hidden state [B, d]."""
+    b, l = x.shape[:2]
+    dev = x.device
+    if lengths is None:
+        state.cur_len.fill_(l)
+        last = x[:, -1]
+    else:
+        state.cur_len.copy_(torch.as_tensor(lengths, device=dev))
+        last = x[torch.arange(b, device=dev), torch.clamp_min(state.cur_len - 1, 0).long()]
+    if state.kg_n is not None:
+        state.kg_n.copy_((state.cur_len // block_size)[None].expand_as(state.kg_n))
+        if lengths is not None:
+            # blocks touching pad tokens hold garbage Kg rows: zero them
+            # (rows >= lengths // bs), so a partial trailing block reads zero
+            row_ok = (torch.arange(state.kg_cache.shape[3], device=dev)[None, :]
+                      < (state.cur_len // block_size)[:, None])
+            state.kg_cache.masked_fill_(~row_ok[None, :, None, :, None], 0)
+    return last
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,14 @@ run time) and ``"sampling"`` overrides, each request drawing from its own
 seeded stream. The engine runs on CUDA unless the caller passes
 ``device="cpu"``; with no card and no explicit device it raises.
 
+The recurrent families (the Mamba1 LM, pages-free; the Mamba2 hybrid,
+whose shared attention block pages its K/V) carry a per-slot recurrent
+state (``serve.slotstate.SlotState``) beside the pools: written at
+admission and at resume, captured into the swap entry at preemption, and
+replaced by a step's new state only once the step is kept (an eviction
+replay re-runs from the same state). A sharded engine for them raises
+(Queue A item 9's sharded remainder).
+
 Sharded serving: ``DecodeEngine(..., shard=Shard(group),
 options=DecodeOptions(split_k=...))`` on every rank of a
 ``torch.distributed`` group, each with the same (replicated) parameters
@@ -64,6 +72,7 @@ from repro_torch.serve.eviction import EvictionConfig, EvictionManager
 from repro_torch.serve.faults import FaultInjector
 from repro_torch.serve.offload import HostSwapSpace, SwapConfig, SwapEntry, SwapError
 from repro_torch.serve.scheduler import Request, Scheduler, pages_needed
+from repro_torch.serve.slotstate import SlotState, read_slot, write_slot
 
 
 class GenerationResult(Dict):
@@ -87,6 +96,9 @@ class DecodeEngine:
         if shard is not None and not isinstance(shard, Shard):
             raise TypeError(f"shard must be a repro_torch.distributed.sharding.Shard, "
                             f"got {type(shard).__name__}")
+        if shard is not None and cfg.family in ("ssm", "hybrid"):
+            raise _not_ported(f"a sharded engine for the {cfg.family!r} family", 9,
+                              "the recurrent families under a Shard (sharded remainder)")
         options = options if options is not None else default_options(cfg)
         if options.split_k > 1 and shard is None:
             raise ValueError("split_k > 1 applies to the paged sharded path only: "
@@ -402,8 +414,10 @@ class DecodeEngine:
                               with_meta=self.options.policy.needs_meta,
                               ghost_rows=ghosts, quantize=self.options.quantize,
                               device=dev, kv_heads=kv_heads)
+        # the recurrent families' per-slot state: written at admission and
+        # resume, captured at preemption, and replaced by each accepted step
         slot_state = (None if self.api.init_slot_state is None
-                      else self.api.init_slot_state(cfg, n_slots))
+                      else self.api.init_slot_state(cfg, n_slots, device=dev))
         evmgr = None
         if eviction is not None:
             evmgr = EvictionManager(
@@ -447,8 +461,9 @@ class DecodeEngine:
             host are stitched back into the one SwapEntry from their
             PageEntries (a ghost id holds no K/V, so it is extracted
             through the trash page and overwritten), and the resume takes
-            the whole-request restore path. A permanent swap fault marks
-            the victim failed instead of raising through the scheduler."""
+            the whole-request restore path. A recurrent family's slot rows
+            ride along. A permanent swap fault marks the victim failed
+            instead of raising through the scheduler."""
             n_content = max(1, -(-req.swap_len // ps))
             content = [p if p < num_pages else pg.NULL_PAGE
                        for p in req.pages[:n_content]]
@@ -469,12 +484,15 @@ class DecodeEngine:
                                        (v_sc, pe.v_scale)):
                         if full is not None and part is not None:
                             full[:, lb] = part[:, 0]
+            row = (SlotState(None, None) if slot_state is None
+                   else SlotState(*(t.cpu() for t in read_slot(slot_state, req.slot))))
             if reason is None:
                 try:
                     swap.put(req.rid, SwapEntry(k=k, v=v, kg=kg,
                                                 token=int(token_buf[req.slot]),
                                                 cur_len=req.swap_len, kmin=kmin, kmax=kmax,
-                                                k_scale=k_sc, v_scale=v_sc))
+                                                k_scale=k_sc, v_scale=v_sc,
+                                                state_conv=row.conv, state_h=row.h))
                 except SwapError:
                     reason = "swap_put_failed"
             if reason is not None:
@@ -562,10 +580,13 @@ class DecodeEngine:
                                                      device=dev),
                                      entry.kmin, entry.kmax,
                                      k_scale=entry.k_scale, v_scale=entry.v_scale)
+                    if slot_state is not None:
+                        slot_state = write_slot(
+                            slot_state, SlotState(entry.state_conv, entry.state_h), req.slot)
                     token_buf[req.slot] = entry.token
                     req.swapped = False
                 else:
-                    row = self._paged_prefill(pages, req, ps)
+                    slot_state, row = self._paged_prefill(pages, slot_state, req, ps)
                     first = sample_slot(req, row)
                     lg = row.float().cpu().numpy() if collect_logits else None
                     req.out_tokens.append(first)
@@ -612,6 +633,9 @@ class DecodeEngine:
             active_max = max(active_max, active_now)
             replays = 0
             while True:
+                # the step returns a NEW recurrent state and never writes
+                # its input: a replayed attempt re-runs from the same
+                # slot_state, which is adopted only once the step is kept
                 logits, pages, slot_state_out, aux = self.api.decode_step_paged(
                     self.params, pages, slot_state,
                     torch.as_tensor(token_buf, device=dev),
@@ -802,8 +826,8 @@ class DecodeEngine:
         }
         return out
 
-    def _paged_prefill(self, pages: pg.PagedPages, req: Request, ps: int
-                       ) -> torch.Tensor:
+    def _paged_prefill(self, pages: pg.PagedPages, slot_state: Optional[SlotState],
+                       req: Request, ps: int):
         """Contiguous prefill of one request, scattered into its pages.
 
         The prompt is right-padded to a power-of-two number of pages (the
@@ -812,7 +836,10 @@ class DecodeEngine:
         rides along as ``batch["lengths"]``: causality keeps real positions
         blind to the pad tokens, the logits come from the last real token,
         and ``scatter_prefill`` zeroes the Kg and metadata rows past the
-        complete blocks. Returns the logits row [V] on the device; the
+        complete blocks. The family's ``state_view`` names what goes where:
+        the attention caches into the pools (nothing for a pages-free
+        family) and the recurrent rows into ``slot_state`` at the request's
+        slot. Returns (slot_state, the logits row [V] on the device); the
         caller samples."""
         plen = req.prompt_len
         n_prompt = -(-plen // ps)
@@ -836,7 +863,9 @@ class DecodeEngine:
             pg.scatter_prefill(pages, k, v, kg, plen,
                                pg.pad_page_ids(req.pages, device=self.device), ps,
                                kmin_cache=kmin, kmax_cache=kmax)
-        return logits[0]
+        if view.slot is not None:
+            slot_state = write_slot(slot_state, view.slot, req.slot)
+        return slot_state, logits[0]
 
     def sparsity_stats(self) -> Dict[str, Any]:
         """Measured selection economics of the LATEST decode step, from

@@ -13,8 +13,9 @@ simulator of the fetch. The constants are the H100's: ``HBM_BW`` the
 
 ``HostSwapSpace`` is the host-side buffer the paged serving engine swaps
 into: a preempted request's pages (``SwapEntry``: K/V/Kg, the Quest
-metadata rows, the int8 pools' scale rows, its last sampled token and
-its length, keyed by request id) and single evicted pages
+metadata rows, the int8 pools' scale rows, a recurrent family's
+per-layer state rows, its last sampled token and its length, keyed by
+request id) and single evicted pages
 (``PageEntry``, keyed ``("page", rid, logical_block)``) share one store.
 It is TIERED and BOUNDED: ``SwapConfig.host_capacity_bytes`` caps the
 in-memory tier, with LRU demotion to an on-disk ``.npz`` tier
@@ -102,8 +103,12 @@ class SwapEntry(NamedTuple):
     reference's field order. ``kmin``/``kmax`` are the selection-metadata
     page rows (metadata-reading policies only), so a resumed Quest decode
     selects exactly what an unpreempted one would. Int8 pools keep their
-    raw bytes and carry the scale rows beside them. The byte counters
-    include every tensor of the entry."""
+    raw bytes and carry the scale rows beside them. ``state_conv``/
+    ``state_h`` (the recurrent families) carry the request's per-layer
+    recurrent rows without the slot axis (``serve.slotstate.read_slot``),
+    restored bitwise into whatever slot the request lands in on resume.
+    The byte counters and the disk tier include every tensor of the
+    entry."""
     k: torch.Tensor                 # [L, n_pages, Hkv, ps, Dh] (int8 if quant)
     v: torch.Tensor                 # [L, n_pages, Hkv, ps, Dh] (int8 if quant)
     kg: Optional[torch.Tensor]      # [L, n_pages, Hkv, Dg] | None
@@ -113,6 +118,8 @@ class SwapEntry(NamedTuple):
     kmax: Optional[torch.Tensor] = None      # [L, n_pages, Hkv, Dh] | None
     k_scale: Optional[torch.Tensor] = None   # [L, n_pages, Hkv, 1] | None
     v_scale: Optional[torch.Tensor] = None   # [L, n_pages, Hkv, 1] | None
+    state_conv: Optional[torch.Tensor] = None    # [L_rec, K-1, d_conv] | None
+    state_h: Optional[torch.Tensor] = None       # [L_rec, ...] f32 | None
 
 
 class PageEntry(NamedTuple):

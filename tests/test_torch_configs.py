@@ -47,6 +47,8 @@ jax.config.update("jax_platform_name", "cpu")
 NEW = ["gemma_2b", "granite_20b", "deepseek_coder_33b"]
 # the MoE and vision configs (tests/test_torch_moe.py, tests/test_torch_vlm.py)
 FAMILIES = ["deepseek_moe_16b", "kimi_k2_1t_a32b", "llama_3_2_vision_11b"]
+# the recurrent configs (tests/test_torch_recurrent.py)
+RECURRENT = ["falcon_mamba_7b", "zamba2_1_2b"]
 LOGIT_TOL = 1e-4
 N_STEPS = 8
 SERVE_SPECS = [(20, 12), (18, 10), (22, 9)]     # three requests, 8 pages: preempts
@@ -106,11 +108,11 @@ def _assert_same_ids(j_ids, t_ids, n_calls):
 # ---------------------------------------------------------------------------
 
 def test_arch_ids_hold_the_four_dense_configs():
-    assert t_configs.ARCH_IDS == ["qwen3_0_6b", *NEW, *FAMILIES]
-    for arch in NEW + FAMILIES:
+    assert t_configs.ARCH_IDS == ["qwen3_0_6b", *NEW, *FAMILIES, *RECURRENT]
+    for arch in NEW + FAMILIES + RECURRENT:
         assert t_configs.get(arch.replace("_", "-")).arch_id == arch
     with pytest.raises(ValueError, match="unported"):
-        t_configs.get("zamba2_1_2b")
+        t_configs.get("hubert_xlarge")
 
 
 @pytest.mark.parametrize("arch", NEW + FAMILIES)

@@ -161,6 +161,9 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_no_reference():
     files = list(_port_files()) + [os.path.join(ROOT, "chip_smoke.py")]
     assert len(files) > 15
+    names = {os.path.relpath(f, PORT) for f in files}
+    assert {"models/mamba.py", "models/ssm_lm.py", "models/hybrid.py",
+            "serve/slotstate.py"} <= names
     bad = []
     for f in files:
         for mod in _imported_modules(f):

@@ -209,9 +209,10 @@ def test_refusals_mirror_the_reference():
             eng.generate(batch if pkg is TP else
                          {k: jnp.asarray(v) for k, v in batch.items()}, 3)
     assert t_registry.get_api(tcfg) is t_registry.get_api(t_configs.get("qwen3_0_6b"))
-    for family, item in (("ssm", "item 9"), ("hybrid", "item 9"), ("audio", "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_registry.get_api(tcfg.replace(family=family))
+    for family in ("ssm", "hybrid"):
+        assert t_registry.get_api(tcfg.replace(family=family)).init_slot_state is not None
+    with pytest.raises(NotImplementedError, match="item 10"):
+        t_registry.get_api(tcfg.replace(family="audio"))
 
 
 def test_lm_forward_distill_matches_reference():
