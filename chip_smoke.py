@@ -32,11 +32,18 @@ first two, distill training. Then the MoE and vision families
 ``kimi_k2_1t_a32b`` (64 / 8 x 128, 384 experts, top 8) at one layer and
 ``llama_3_2_vision_11b`` (32 / 8 x 128, a cross-attention layer every 5)
 at 10 of its 40 layers through ``generate``. Then the recurrent families
-(``RECURRENT_CONFIGS``) at full width and depth: ``zamba2_1_2b`` (38
-Mamba2 layers and a gated shared attention block, MHA 32 x 64, after
-every 6 of them) through ``generate`` and ``serve`` (fp, int8, eviction),
-and ``falcon_mamba_7b`` (64 Mamba1 layers, no attention: no kernel runs)
-through ``generate`` and ``serve``, its prompts cut to 4096 tokens.
+(``RECURRENT_CONFIGS``) at full width: ``zamba2_1_2b`` (38 Mamba2 layers
+and a gated shared attention block, MHA 32 x 64, after every 6 of them)
+at full depth through ``generate`` and ``serve`` (fp, int8, eviction),
+and ``falcon_mamba_7b`` (Mamba1 layers, no attention: no kernel runs) at
+32 of its 64 layers through ``generate`` and ``serve``, its prompts cut
+to 4096 tokens. Then
+the distillation of ``deepseek_moe_16b`` (8 layers) and ``zamba2_1_2b``
+(kernel 6 on the gated shared block, Dh 64, once a unit), and
+pretraining, ``run_training`` in pretrain mode (no kernel: the plain
+attention and scans, differentiated, as in the reference): ``qwen3_0_6b``
+and ``hubert_xlarge`` (the audio encoder) at full width and depth, and
+``falcon_mamba_7b`` cut to 4 layers (``PRETRAIN_CONFIGS``).
 The contiguous int8 kernel ``block_sparse_decode_quant`` lies on no model
 path (in the reference neither): it is checked and timed on the generate
 path's layer-0 blocks, quantized per block. Phases (any failure exits
@@ -65,6 +72,11 @@ non-zero):
      at both geometries; the vision one with the same seeded image
      embeddings on both devices, one unit of a self and a cross layer at
      its own heads, ``generate`` only, #1 and #2 at every self layer);
+     then each family's reduced() model (dense, MoE, vision, Mamba1,
+     hybrid, audio; ``SMALL_PRETRAIN``) takes one pretrain loss and
+     gradient on the card against the CPU: the loss within 1e-5
+     relative, every gradient leaf within 1e-4 of its largest entry, the
+     leaves the loss does not read zero on both, no kernel launched;
   3. kernel vs plain on the card, on the tensors the main path gives
      layer 0 in its first decode step (captured from a real prefill +
      step): gate select for budget/threshold x force flags x n_valid
@@ -222,11 +234,15 @@ non-zero):
      4q and 5q (phases 10 and 13) on them quantized per page; one JSON
      line of its kernels' numbers;
  22. distill training of gemma_2b (kernel 6 at head dim 256) and
-     granite_20b (48 heads on one KV head) at their depths: 3 steps of 4
-     x 4096 tokens, kernel 6 layers x steps and nothing else, KL finite,
-     base frozen, gate moved; phase 20's check of kernel 6 on the first
-     step's layer-0 tensors. The launches of phases 21-22's main paths
-     join the counts of the kernels line, their errors its max_abs_err.
+     granite_20b (48 heads on one KV head) at their depths, and (after
+     phase 34) of deepseek_moe_16b at 8 layers and zamba2_1_2b at full
+     depth (its shared block's 32 KV heads of one query head, Dh 64, 6
+     units): 3 steps of 4 x 4096 tokens, kernel 6 gated layers (units) x
+     steps and nothing else, KL finite, base frozen, gate moved; phase
+     20's check of kernel 6 on the first step's layer-0 (unit-0 shared
+     block) tensors, with its device work alone (the host hidden). The
+     launches of phases 21-22's main paths join the counts of the kernels
+     line, their errors its max_abs_err.
 
 The MoE and vision families (phases 30-32, after phase 22; the launches
 of their main paths join the counts of the kernels line, their errors
@@ -276,12 +292,32 @@ pages, the same checks through #3 and #4, the swapped bytes equal.
      RESIDENT_CAP-page resident cap (replays > 0, bitwise the ample run);
      #3, #4 and 5 at 2, 4, 8 and nsel + 3 splits on the fp serve's
      layer-0 tensors, 4q and 5q on the int8 serve's;
- 34. ``falcon_mamba_7b`` at full width and depth (64 Mamba1 layers, no
+ 34. ``falcon_mamba_7b`` at full width, 32 of its 64 Mamba1 layers (no
      attention), its prompts cut to 4096 tokens: ``generate`` (every
      launch counter 0, logits finite) and its profile; ``serve`` at the
      default pool and at the first four cut prompts' pages + 2 (every
      counter 0, tight == ample bitwise, the swapped bytes the preempted
      request's recurrent rows alone).
+
+Pretraining (phases 35-37, last; ``PRETRAIN_CONFIGS``): ``run_training``
+in pretrain mode, bf16, the configs' remat (a checkpoint a layer),
+weights from seed 0, lr 1e-2, 4 steps, the launch counters at 0 just
+before and read just after: no kernel launches; every loss finite; every
+leaf the loss reads moved from the seed, every leaf it does not read (the
+gate; the audio encoder's embed) bitwise its seed value after AdamW's
+weight decay alone; then one step's time before the profiler, one step
+under it (top device kernels, device busy) and the peak memory.
+
+ 35. ``qwen3_0_6b`` at full width and depth, 4 x 4096 tokens, a
+     checkpoint every 2 steps and a failure before step 3: the replayed
+     step's loss equal, the last checkpoint in the reference's layout
+     (its moments fp32 trees shaped like the parameters) and read back
+     bitwise;
+ 36. ``hubert_xlarge`` at full width and depth (48 layers, d 1280, Dh 80,
+     non-causal), 16 x 1024 frames, the same checkpoint and failure;
+ 37. ``falcon_mamba_7b`` cut to 4 of its 64 layers (its weights and
+     AdamW's fp32 moments do not fit one card whole), batch 1 x 2048,
+     no checkpoint.
 
 The pressure and failure paths of ``serve`` (phases 23-29) run after
 phase 13, on qwen3_0_6b at full width and phase 6's requests unless
@@ -367,7 +403,7 @@ from repro_torch.kernels import gate_select as gs  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.common import decode_attention  # noqa: E402
 from repro_torch.models.registry import get_api  # noqa: E402
-from repro_torch.models.transformer import init_lm, lm_forward, n_self_layers  # noqa: E402
+from repro_torch.models.transformer import init_lm, n_self_layers  # noqa: E402
 from repro_torch.core.policy import default_tiers  # noqa: E402
 from repro_torch.serve import offload, traffic  # noqa: E402
 from repro_torch.serve import paging as pg  # noqa: E402
@@ -451,21 +487,27 @@ FAMILY_CONFIGS = {
 }
 FAMILY_PROMPT = {"kimi_k2_1t_a32b": 8192}
 FAMILY_SERVE = ("deepseek_moe_16b",)
-# the recurrent families (phases 33-34), each at full width and depth
-# (widths, state sizes, heads and gate as in its file), bf16, weights from
+# the recurrent families (phases 33-34), each at full width (widths, state
+# sizes, heads and gate as in its file), bf16, weights from
 # seed 0: zamba2_1_2b (38 Mamba2 layers in 6 units of 6 and a tail of 2,
 # the gated shared attention block after each unit: 32 KV heads of one
 # query head, Dh 64, Dg 64; 2.34 GB of bf16 weights) on the generate cell
 # and on serve with phase 6's requests (fp at both pools, int8, eviction
 # under RESIDENT_CAP); falcon_mamba_7b (64 Mamba1 layers, 14.56 GB, no
-# attention: no kernel runs on its paths) on generate and serve, its
+# attention: no kernel runs on its paths) cut to 32 layers (RECURRENT_CUTS;
+# full depth until the pretrain phases 35-37 joined the script, which
+# must stay inside its time limit) on generate and serve, its
 # prompts cut to FAMILY_PROMPT tokens (the plain PyTorch selective scan's
 # log-depth rounds over [batch, 256, 8192, 16] fp32 chunks take most of
 # its prefill) and its tight pool the first four cut prompts' pages, the
 # null page and one more (``tight_pool_pages``), as phase 6's 644
 RECURRENT_CONFIGS = ("zamba2_1_2b", "falcon_mamba_7b")
+RECURRENT_CUTS = {"falcon_mamba_7b": dict(num_layers=32)}
 FAMILY_PROMPT["falcon_mamba_7b"] = 4096
-OTHER_TRAIN = ("gemma_2b", "granite_20b")
+# distill training (phase 22) also runs deepseek_moe_16b at the 8 layers
+# of FAMILY_CONFIGS and zamba2_1_2b at full depth (kernel 6 on the shared
+# block's 32 KV heads of one query head, Dh 64, once a unit)
+OTHER_TRAIN = ("gemma_2b", "granite_20b", "deepseek_moe_16b", "zamba2_1_2b")
 OTHER_TRAIN_STEPS = 3
 GT_BLOCK_BIG = 128
 # the pressure and failure paths of serve (phases 23-29), on the serve
@@ -491,6 +533,27 @@ FAULT_PLAN = {"page_alloc": [1, 4], "swap_put": [0], "swap_pop": [0], "logits": 
 TRAFFIC_N, TRAFFIC_RATE, TRAFFIC_SEED = 16, 0.5, 3
 TRAFFIC_PROMPT, TRAFFIC_OUTPUT = (64, 4096), (8, 48)
 TRAFFIC_TIERS = {"latency": 0.25, "throughput": 0.75}
+# pretraining (phases 35-37), bf16 with the configs' remat
+# ("nothing_saveable": a checkpoint a layer), weights from seed 0:
+# {arch: (cuts, batch, sequence, checkpoints and an injected failure)}.
+# qwen3_0_6b at full width and depth, the distill phase's 4 x 4096 tokens
+# (its tied 151936-token logits in fp32, 10 GB, are the largest tensor);
+# hubert_xlarge at full width and depth, 16 x 1024 frames (the same 16384
+# a step; a row is 20 s of audio at HuBERT's 50 frames a second, near the
+# 250k-sample, 15.6 s crops it pretrains on); falcon_mamba_7b cut to 4 of its 64
+# layers and batch 1 x 2048 (its 7.3 G parameters with AdamW's two fp32
+# moments, 87 GB, do not fit one card), steps only. The learning rate is
+# 1e-2 so that every leaf the loss reads moves in bf16 on the first step
+# (a norm's scale of 1.0 moves by lr, and bf16 holds 1 - 2**-8 below it)
+PRETRAIN_CONFIGS = {
+    "qwen3_0_6b": ({}, 4, 4096, True),
+    "hubert_xlarge": ({}, 16, 1024, True),
+    "falcon_mamba_7b": (dict(num_layers=4), 1, 2048, False),
+}
+PRETRAIN_STEPS, PRETRAIN_LR = 4, 1e-2
+# phase 2's small pretrain agreement: every family's reduced() model
+SMALL_PRETRAIN = ("qwen3_0_6b", "deepseek_moe_16b", "llama_3_2_vision_11b",
+                  "falcon_mamba_7b", "zamba2_1_2b", "hubert_xlarge")
 
 
 def fail(msg: str) -> None:
@@ -2128,7 +2191,8 @@ def phase_small_train():
 
 def capture_gt_layer0(params, batch, cfg):
     """One distill forward; the arguments of its first gate_gt_attention
-    call (layer 0), which the training run's first step repeats."""
+    call (layer 0; the hybrid's unit-0 shared block), which the training
+    run's first step repeats."""
     seen = {}
     real = ops.gate_gt_attention
 
@@ -2141,7 +2205,7 @@ def capture_gt_layer0(params, batch, cfg):
     ops.gate_gt_attention = grab
     try:
         with torch.no_grad():
-            lm_forward(params, batch, cfg, mode="distill")
+            get_api(cfg).forward(params, batch, cfg, mode="distill")
     finally:
         ops.gate_gt_attention = real
     torch.cuda.synchronize()
@@ -2216,6 +2280,8 @@ def phase_gt_kernel(args, kw):
     t_k = time_ms(lambda: gt.gate_gt_attention_cuda(q, k, v, block_size=bs, segment_ids=seg),
                   runs=10, warmup=2)
     t_k0 = time_ms(lambda: gt.gate_gt_attention_cuda(q, k, v, block_size=bs), runs=10, warmup=2)
+    t_dev = time_ms(lambda: gt.gate_gt_attention_cuda(q, k, v, block_size=bs, segment_ids=seg),
+                    runs=10, warmup=2, hide_host=True)
     t_p = time_ms(lambda: gt.gate_gt_attention_plain(q, k, v, block_size=bs, q_chunk=qc,
                                                      segment_ids=seg), runs=10, warmup=2)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -2226,7 +2292,8 @@ def phase_gt_kernel(args, kw):
     causal_ops = 4 * dh * b * h * l * (l + 1) / 2
     pairs, all_pairs = gt_tile_pairs(seg)
     tile_ops = 4 * dh * h * gt.TILE * gt.TILE       # the products of one pair, all heads
-    print(f"gate_gt_attention: kernel {t_k:.4f} ms (no segments {t_k0:.4f} ms), plain "
+    print(f"gate_gt_attention: kernel {t_k:.4f} ms (device work alone {t_dev:.4f} ms; no "
+          f"segments {t_k0:.4f} ms), plain "
           f"{t_p:.3f} ms, bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {ops_n:.4g} "
           f"operations within documents; all causal pairs {causal_ops:.4g}, "
           f"{1e3 * causal_ops / BF16_OPS_PER_S:.4f} ms); context: SDPA causal, no segments, "
@@ -2303,7 +2370,7 @@ def phase_train(cfg):
               f"replayed step {TRAIN_CKPT_EVERY} loss {'bitwise ' if first == replay else ''}"
               f"equal; base params bitwise unchanged; {moved} of {len(state.gate)} gate "
               f"leaves moved")
-        check_train_checkpoint(ckpt_dir, state)
+        check_train_checkpoint(ckpt_dir, state, cfg)
         del seed_state
         torch.cuda.empty_cache()
         phase_train_profile(cfg, tcfg, state)
@@ -2320,8 +2387,9 @@ def reference_leaves(state):
     dict keys sorted at every level, the per-layer "blocks" list as one
     dict of [L, ...] leaves, the gate and moment keys "blocks/<i>/<rest>"
     as "blocks/<rest>" of [L, ...], AdamWState's fields in order (m, v,
-    count; ef None holds none). Written from that rule alone, not from the
-    port's checkpoint code."""
+    count; ef None holds none); in pretrain (gate None, no leaves) the
+    moments are fp32 trees shaped like the parameters. Written from that
+    rule alone, not from the port's checkpoint code."""
     def tree(t, path):
         if isinstance(t, dict):
             return [x for key in sorted(t) for x in tree(t[key], f"{path}/{key}")]
@@ -2338,15 +2406,20 @@ def reference_leaves(state):
                 for r, ts in sorted(rest.items(), key=lambda kv: f"blocks/{kv[0]}")]
 
     opt = state.opt
+    count = [("opt/count", list(opt.count.shape), opt.count.dtype)]
+    params = tree(state.params, "params")
+    if state.gate is None:          # pretrain: the moments nested like params, fp32
+        return ([(f"opt/{k}{p[len('params'):]}", shape, torch.float32)
+                 for k in ("m", "v") for p, shape, _ in params] + count + params)
     return (layered(state.gate, "gate") + layered(opt.m, "opt/m") + layered(opt.v, "opt/v")
-            + [("opt/count", list(opt.count.shape), opt.count.dtype)]
-            + tree(state.params, "params"))
+            + count + params)
 
 
-def check_train_checkpoint(ckpt_dir, state):
+def check_train_checkpoint(ckpt_dir, state, cfg):
     """The last checkpoint of run_training (the final state, saved by the
-    port): its manifest lists the reference's leaves (count, order, shapes,
-    dtypes), and read back it is the final state bitwise."""
+    port), distill or pretrain: its manifest lists the reference's leaves
+    (count, order, shapes, dtypes), and read back it is the final state
+    bitwise."""
     step = ckpt.latest_step(ckpt_dir)
     with open(os.path.join(ckpt_dir, f"step_{step}", "manifest.json")) as f:
         manifest = json.load(f)
@@ -2357,9 +2430,9 @@ def check_train_checkpoint(ckpt_dir, state):
             or manifest["dtypes"] != [names[dt] for _, _, dt in want]):
         fail(f"checkpoint step {step}: {manifest['n_leaves']} leaves {manifest['shapes']} "
              f"{manifest['dtypes']}, the reference's layout has {len(want)}: {want}")
-    tree, _ = ckpt.restore(ckpt_dir, step,
-                           {"params": state.params, "gate": state.gate, "opt": state.opt})
-    got, opt = dict(tl._walk(tree["params"])), tree["opt"]
+    tree, _ = ckpt.restore(ckpt_dir, step, tl.checkpoint_tree(state), cfg=cfg)
+    back = tl.state_from_checkpoint_tree(tree, state.step)
+    got, opt = dict(tl._walk(back.params)), back.opt
     equal = (all(torch.equal(got[p], t) for p, t in tl._walk(state.params))
              and all(torch.equal(opt.m[k], state.opt.m[k]) and torch.equal(opt.v[k], state.opt.v[k])
                      for k in state.opt.m)
@@ -2371,34 +2444,37 @@ def check_train_checkpoint(ckpt_dir, state):
           f"numbers; read back bitwise equal to the final state")
 
 
-def phase_train_profile(cfg, tcfg, state, steps: int = 2):
+def phase_train_profile(cfg, tcfg, state, steps: int = 2, label: str = "training"):
     """Step time before the profiler (host clock around synchronised
     steps), then one step under torch.profiler: top device kernels and the
-    device's busy share of the step."""
+    device's busy share of the step. Returns (step seconds before the
+    profiler, device busy seconds of the profiled step)."""
     from torch.profiler import ProfilerActivity, profile
     step_fn = tl.make_train_step(cfg, tcfg)
-    batch = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, DataState(SEED, TRAIN_STEPS), device="cuda")
+    batch = make_batch(cfg, tcfg.global_batch, tcfg.seq_len, DataState(SEED, tcfg.steps),
+                       device="cuda")
     times = []
     for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step_fn(state, batch)
-        float(m["kl"])
+        float(m["loss"])
         times.append(time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step_fn(state, batch)
-        float(m["kl"])
+        float(m["loss"])
         under = time.perf_counter() - t0
     ka = prof.key_averages()
     kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6   # s
     print(ka.table(sort_by="self_device_time_total", row_limit=15))
-    print(f"training step profile: {', '.join(f'{t:.3f}' for t in times)} s a step before the "
+    print(f"{label} step profile: {', '.join(f'{t:.3f}' for t in times)} s a step before the "
           f"profiler, {under:.3f} s under it; device busy {busy:.3f} s = "
           f"{100 * busy / under:.1f}% of the profiled step; "
           f"{sum(e.count for e in kernels)} kernel launches")
+    return times, busy
 
 
 # ---------------------------------------------------------------------------
@@ -2406,9 +2482,10 @@ def phase_train_profile(cfg, tcfg, state, steps: int = 2):
 # ---------------------------------------------------------------------------
 
 def other_config(arch):
-    """(config, the cuts as printed) of one of OTHER_CONFIGS or FAMILY_CONFIGS."""
+    """(config, the cuts as printed) of one of OTHER_CONFIGS, FAMILY_CONFIGS
+    or RECURRENT_CONFIGS (uncut)."""
     full = configs.get(arch)
-    cut = {**OTHER_CONFIGS, **FAMILY_CONFIGS}[arch]
+    cut = {**OTHER_CONFIGS, **FAMILY_CONFIGS}.get(arch, {})
     cfg = full.replace(**cut)
     reduced_list = [f"{k} {getattr(full, k)} -> {v}" for k, v in cut.items()]
     if arch in FAMILY_PROMPT:
@@ -2728,11 +2805,13 @@ def moe_ffn_share(cfg, captured, busy_ms):
 
 def phase_config_train(arch):
     """run_training in distill mode on one of OTHER_TRAIN (its depth as in
-    OTHER_CONFIGS), OTHER_TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ, no
-    checkpoint: kernel 6 launches layers x steps and nothing else does;
-    every KL finite, the base bitwise the seed's, the gate moved; then
-    kernel 6 against its plain version on the first step's layer-0 tensors
-    (phase 20). Returns (launches of kernel 6, its numbers)."""
+    OTHER_CONFIGS or FAMILY_CONFIGS; zamba2_1_2b whole), OTHER_TRAIN_STEPS
+    steps of TRAIN_BATCH x TRAIN_SEQ, no checkpoint: kernel 6 launches
+    gated layers (the hybrid's units) x steps and nothing else does; every
+    KL finite, the base bitwise the seed's, the gate moved; then kernel 6
+    against its plain version on the first step's layer-0 (unit-0 shared
+    block) tensors (phase 20). Returns (launches of kernel 6, its
+    numbers)."""
     t0 = time.perf_counter()
     free_card()
     cfg, cuts = other_config(arch)
@@ -2755,8 +2834,8 @@ def phase_config_train(arch):
     state, hist = tl.run_training(cfg, tcfg, device="cuda")
     wall = time.perf_counter() - t1
     counts = ops.launch_counts()
-    want = {**dict.fromkeys(ops.KERNELS, 0),
-            "gate_gt_attention": cfg.num_layers * OTHER_TRAIN_STEPS}
+    gated = get_api(cfg).paged_attn_layers(cfg)
+    want = {**dict.fromkeys(ops.KERNELS, 0), "gate_gt_attention": gated * OTHER_TRAIN_STEPS}
     if counts != want:
         fail(f"{arch} training launch counts {counts}, expected {want}")
     if not all(math.isfinite(h["kl"]) and math.isfinite(h["loss"]) for h in hist):
@@ -2781,6 +2860,178 @@ def phase_config_train(arch):
 
 
 # ---------------------------------------------------------------------------
+# pretraining (phase 2's small agreement, phases 35-37)
+# ---------------------------------------------------------------------------
+
+def small_pretrain_cfg(arch):
+    """A family's reduced() model in fp32 (the hybrid at 5 layers: two
+    units of 2 Mamba2 layers, then a tail layer)."""
+    cfg = reduced(configs.get(arch)).replace(dtype="float32")
+    return cfg.replace(num_layers=5) if cfg.family == "hybrid" else cfg
+
+
+def small_pretrain_agreement(dev: str = "cuda"):
+    """Each of SMALL_PRETRAIN's reduced() models takes one pretrain loss and
+    gradient (``train.loop.pretrain_value_and_grad``) on ``dev`` and on the
+    CPU, from the same seed-0 parameters and batch (2 x 64). Returns, per
+    config: (arch, the loss's relative difference, the largest gradient
+    difference as a share of its leaf's largest entry, whether the leaves
+    zero on the CPU (the gate, the audio embed) are zero on ``dev``, the
+    number of leaves, the launch counts of the ``dev`` runs)."""
+    out = []
+    for arch in SMALL_PRETRAIN:
+        cfg = small_pretrain_cfg(arch)
+        params = get_api(cfg).init_params(torch.Generator().manual_seed(0), cfg)
+        batch = make_batch(cfg, 2, 64, DataState(SEED, 0), device="cpu")
+        res = {"cpu": tl.pretrain_value_and_grad(params, batch, cfg)}
+        ops.reset_launch_counts()
+        res[dev] = tl.pretrain_value_and_grad(params_to(params, dev),
+                                              {k: v.to(dev) for k, v in batch.items()}, cfg)
+        counts = ops.launch_counts()
+        want = float(res["cpu"][0])
+        loss_err = abs(float(res[dev][0]) - want) / abs(want)
+        g_err, zeros_ok = 0.0, True
+        for k, g in res["cpu"][2].items():
+            got = res[dev][2][k].cpu()
+            top = float(g.abs().max())
+            if top == 0:
+                zeros_ok = zeros_ok and not bool(got.any())
+                continue
+            g_err = max(g_err, float((got - g).abs().max()) / top)
+        out.append((arch, loss_err, g_err, zeros_ok, len(res["cpu"][2]), counts))
+    return out
+
+
+def phase_small_pretrain():
+    """Phase 2's pretraining agreement: the dense, MoE, vision, Mamba1,
+    hybrid and audio families' reduced() models (fp32), one pretrain loss
+    and gradient on the card against the CPU's plain path (itself held
+    against the JAX reference by tests/test_torch_pretrain.py and
+    tests/test_torch_train_recurrent.py): the loss within 1e-5 relative,
+    every gradient leaf within 1e-4 of its leaf's largest entry, the
+    unread leaves zero on both, and no kernel launched (the pretrain
+    attention is the plain chunked attention, as in the reference)."""
+    none = dict.fromkeys(ops.KERNELS, 0)
+    for arch, loss_err, g_err, zeros_ok, n, counts in small_pretrain_agreement("cuda"):
+        if counts != none or not loss_err <= 1e-5 or not g_err <= 1e-4 or not zeros_ok:
+            fail(f"{arch} small pretrain: loss rel diff {loss_err:.3e} (limit 1e-5), gradient "
+                 f"max diff {g_err:.3e} of its leaf's max (limit 1e-4), zero leaves zero "
+                 f"{zeros_ok}, launches {counts}")
+        print(f"{arch} small pretrain agreement (reduced, fp32, 2 x 64): loss rel diff "
+              f"{loss_err:.3e}, {n} gradient leaves within {g_err:.3e} of their max, "
+              f"unread leaves zero on both, no kernel launched")
+
+
+def phase_pretrain(arch):
+    """Phases 35-37: run_training in pretrain mode on one of
+    PRETRAIN_CONFIGS (bf16, the config's remat, seed-0 weights, lr
+    PRETRAIN_LR), PRETRAIN_STEPS steps; with checkpoints, one every
+    TRAIN_CKPT_EVERY steps and a failure injected before step
+    TRAIN_FAIL_AT. Launch counters at 0 just before, read just after: no
+    kernel launches. Every loss finite; every leaf the loss reads moved
+    from the seed; every leaf it does not read (the gate, the audio
+    encoder's embed) equal to its seed value after AdamW's weight decay
+    alone at each step's lr (zero gradient and moments: p - lr * wd * p,
+    rounded to its dtype, bitwise); the replayed step's loss equal; the
+    last checkpoint in the reference's layout and read back bitwise; wall
+    time, peak memory, then the step time and the device's busy share
+    (phase 19's profile)."""
+    t0 = time.perf_counter()
+    free_card()
+    cut, bsz, seq, with_ckpt = PRETRAIN_CONFIGS[arch]
+    full = configs.get(arch)
+    cfg = full.replace(**cut)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
+    try:
+        tcfg = TrainConfig(mode="pretrain", seq_len=seq, global_batch=bsz,
+                           steps=PRETRAIN_STEPS, seed=SEED,
+                           checkpoint_every=TRAIN_CKPT_EVERY if with_ckpt else 0,
+                           checkpoint_dir=ckpt_dir, log_every=1,
+                           optim=OptimConfig(lr=PRETRAIN_LR, total_steps=PRETRAIN_STEPS,
+                                             warmup_steps=1))
+        cuts = [f"{k} {getattr(full, k)} -> {v}" for k, v in cut.items()]
+        print(f"{arch} pretraining: {cfg.num_layers} layers, d {cfg.d_model}, "
+              f"{cfg.dtype}, remat {cfg.remat}; batch {bsz} x {seq}, {PRETRAIN_STEPS} "
+              f"steps" + (f", checkpoint every {TRAIN_CKPT_EVERY}, failure before step "
+                          f"{TRAIN_FAIL_AT}" if with_ckpt else ", no checkpoint")
+              + (f"; reduced {cuts}" if cuts else "") + f"; {tcfg.optim}")
+        # run_training draws the same weights from the same seed
+        seed = dict(tl._walk(get_api(cfg).init_params(
+            torch.Generator(device="cuda").manual_seed(SEED), cfg)))
+        armed = [with_ckpt]
+
+        def fail_at(i):
+            if i == TRAIN_FAIL_AT and armed[0]:
+                armed[0] = False
+                raise RuntimeError("injected node failure")
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        state, hist = tl.run_training(cfg, tcfg, fail_at=fail_at, device="cuda")
+        wall = time.perf_counter() - t1
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = [h["step"] for h in hist]
+        print(f"{arch} pretraining: {len(hist)} steps {steps} in {wall:.2f} s wall, "
+              f"including init, batches, checkpoints and the restore; peak memory "
+              f"{peak:.1f} GiB; launch counts {counts}")
+        if counts != dict.fromkeys(ops.KERNELS, 0):
+            fail(f"{arch} pretraining launched kernels: {counts}")
+        want_steps = ([0, 1, 2, 2, 3] if with_ckpt else list(range(PRETRAIN_STEPS)))
+        if steps != want_steps or int(state.step) != PRETRAIN_STEPS:
+            fail(f"{arch} pretraining steps {steps}, final step {int(state.step)}")
+        if not all(math.isfinite(h["loss"]) and math.isfinite(h["ce"]) for h in hist):
+            fail(f"{arch}: non-finite loss in pretraining")
+        if with_ckpt:
+            first, replay = (h["loss"] for h in hist if h["step"] == TRAIN_CKPT_EVERY)
+            if not abs(first - replay) <= 1e-6 * abs(first):
+                fail(f"{arch} replayed step {TRAIN_CKPT_EVERY}: loss {replay} != {first}")
+        unread = [p for p in seed if tl.is_gate_path(p)
+                  or (cfg.family == "audio" and p == "embed/w")]
+        lrs = [h["lr"] for h in sorted({h["step"]: h for h in hist}.values(),
+                                       key=lambda h: h["step"])]
+        wd = tcfg.optim.weight_decay
+        final = dict(tl._walk(state.params))
+        still = [p for p, t in final.items() if p not in unread and torch.equal(t, seed[p])]
+        decayed = 0
+        for p in unread:
+            e = seed[p]
+            for lr in lrs:
+                p32 = e.float()
+                e = (p32 - torch.tensor(lr, dtype=torch.float32, device=p32.device)
+                     * (wd * p32)).to(e.dtype)
+            decayed += torch.equal(final[p], e)
+        if still or decayed != len(unread):
+            fail(f"{arch}: read leaves unmoved {still}; {decayed} of {len(unread)} unread "
+                 f"leaves at their weight-decay value")
+        moved_unread = sum(not torch.equal(final[p], seed[p]) for p in unread)
+        print(f"{arch} pretraining: loss by step "
+              f"{[(h['step'], round(h['loss'], 5)) for h in hist]}"
+              + ("; replayed step loss equal" if with_ckpt else "")
+              + f"; all {len(final) - len(unread)} leaves the loss reads moved; the "
+              f"{len(unread)} it does not read ({'gate' if cfg.gate.enabled else 'embed'}) "
+              f"at their weight-decay values, bitwise ({moved_unread} of them changed in "
+              f"{cfg.dtype})")
+        del seed, final
+        if with_ckpt:
+            check_train_checkpoint(ckpt_dir, state, cfg)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        times, busy = phase_train_profile(cfg, tcfg, state, steps=1,
+                                          label=f"{arch} pretraining")
+        print(f"phase {arch} pretraining: {time.perf_counter() - t0:.1f} s; step "
+              f"{min(times):.3f} s, device busy {busy:.3f} s, peak memory {peak:.1f} GiB "
+              f"({card_line()})")
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # the recurrent families: zamba2_1_2b, falcon_mamba_7b (phases 33-34)
 # ---------------------------------------------------------------------------
 
@@ -2792,8 +3043,8 @@ def recurrent_row_bytes(cfg):
 
 
 def phase_recurrent(arch):
-    """Phase 33 (zamba2_1_2b) or 34 (falcon_mamba_7b) at full width and
-    depth. The hybrid: phase 3's checks and timings of #1, #2 and 2q on
+    """Phase 33 (zamba2_1_2b) or 34 (falcon_mamba_7b) at full width, at
+    the depth of RECURRENT_CUTS (zamba2_1_2b whole). The hybrid: phase 3's checks and timings of #1, #2 and 2q on
     unit 0's shared-block tensors of generate's first decode step (#2
     against dense SDPA printed, not required); generate (batch 4, phase 4's
     prompt, 31 decode steps) with the counters at 0 just before, #1 and #2
@@ -2809,11 +3060,13 @@ def phase_recurrent(arch):
     t0 = time.perf_counter()
     free_card()
     full = configs.get(arch)
-    cfg = full
+    cut = RECURRENT_CUTS.get(arch, {})
+    cfg = full.replace(**cut)
     api = get_api(cfg)
     n_attn = api.paged_attn_layers(cfg)
     prompt = FAMILY_PROMPT.get(arch, PROMPT_LEN)
-    cuts = [f"prompt {PROMPT_LEN} -> {prompt}"] if prompt != PROMPT_LEN else []
+    cuts = [f"{k} {getattr(full, k)} -> {v}" for k, v in cut.items()]
+    cuts += [f"prompt {PROMPT_LEN} -> {prompt}"] if prompt != PROMPT_LEN else []
     bs = cfg.gate.block_size
     ssm = cfg.ssm
     di = ssm.expand * cfg.d_model
@@ -3341,6 +3594,7 @@ def run_phases(shard) -> int:
     phase_small(shard)
     phase_small_train()
     phase_small_configs()
+    phase_small_pretrain()
 
     cfg = configs.get("qwen3_0_6b")
     bs = cfg.gate.block_size
@@ -3470,6 +3724,9 @@ def run_phases(shard) -> int:
         more["gate_gt_attention"].append(nums["gate_gt_attention"]["max_abs_err"])
     for name, errs in more.items():
         numbers[name]["max_abs_err"] = max([numbers[name]["max_abs_err"], *errs])
+    # pretraining: no kernel (plain attention and scans, as in the reference)
+    for arch in PRETRAIN_CONFIGS:
+        phase_pretrain(arch)
 
     meta = {
         "gate_select": ("src/repro_torch/kernels/csrc/gate_select.cu",

@@ -10,11 +10,15 @@ Layout (the JAX package's ``checkpoint/manager.py``):
 A tree is any nesting of dicts, lists, tuples and NamedTuples of tensors;
 ``None`` holds no leaf. It is written as the reference holds it:
 ``convert.stack_layers`` stacks the per-layer leaves back to [L, ...]
-(``params["blocks"]``, the gate's ``blocks/<i>/...`` keys and the AdamW
-moments over them), and the leaves go in ``jax.tree_util``'s flatten order:
-dict keys sorted, NamedTuple fields in order. Restore reads into the
-structure of a ``like`` tree, unstacks, and puts each leaf on the device of
-its ``like`` leaf.
+(the layer lists of every family's parameters, the gate's
+``blocks/<i>/...`` keys and the AdamW moments over them; a vision
+model's self layers to [n_units, n_self, ...], for which the model's
+``cfg`` is passed), and the leaves go in ``jax.tree_util``'s flatten
+order: dict keys sorted, NamedTuple fields in order. Restore reads into
+the structure of a ``like`` tree, unstacks, and puts each leaf on the
+device of its ``like`` leaf. A training state's tree is
+``train.loop.checkpoint_tree``'s (pretraining's moments nested like the
+parameters).
 
 Fault-tolerance contract used by ``train.loop``:
   * atomic publish (write ``.tmp_step_<N>``, rename to ``step_<N>``): a
@@ -87,10 +91,10 @@ def _map(tree: Any, fn) -> Any:
     raise TypeError(f"checkpoint: unsupported tree node {type(tree).__name__}")
 
 
-def _savable(tree: Any) -> List[Tuple[np.ndarray, str]]:
+def _savable(tree: Any, cfg=None) -> List[Tuple[np.ndarray, str]]:
     """The reference's leaves of ``tree``, on the host, in its order."""
     host = _map(tree, lambda t: t.detach().cpu())
-    return [_to_savable(t) for t in _flatten(convert.stack_layers(host))]
+    return [_to_savable(t) for t in _flatten(convert.stack_layers(host, cfg))]
 
 
 def _to_savable(t: torch.Tensor) -> Tuple[np.ndarray, str]:
@@ -128,23 +132,26 @@ def _write(ckpt_dir: str, step: int, savable, meta: Optional[Dict]) -> str:
     return final
 
 
-def save(ckpt_dir: str, step: int, tree: Any, meta: Optional[Dict] = None) -> str:
-    """Write ``tree`` as ``<ckpt_dir>/step_<step>``; returns its path."""
-    return _write(ckpt_dir, step, _savable(tree), meta)
+def save(ckpt_dir: str, step: int, tree: Any, meta: Optional[Dict] = None, *,
+         cfg=None) -> str:
+    """Write ``tree`` (the model config ``cfg`` gives a vision model's unit
+    stacks) as ``<ckpt_dir>/step_<step>``; returns its path."""
+    return _write(ckpt_dir, step, _savable(tree, cfg), meta)
 
 
 class AsyncCheckpointer:
     """Overlaps checkpoint serialization with training."""
 
-    def __init__(self, ckpt_dir: str):
+    def __init__(self, ckpt_dir: str, *, cfg=None):
         self.ckpt_dir = ckpt_dir
+        self.cfg = cfg
         self._thread: Optional[threading.Thread] = None
 
     def save(self, step: int, tree: Any, meta: Optional[Dict] = None):
         self.wait()
         # the device -> host copy on the caller's thread orders it after
         # the step that produced the leaves
-        savable = _savable(tree)
+        savable = _savable(tree, self.cfg)
         self._thread = threading.Thread(target=_write,
                                         args=(self.ckpt_dir, step, savable, meta))
         self._thread.start()
@@ -162,15 +169,15 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, Dict]:
-    """Read ``step_<step>`` into the structure of ``like``; each leaf goes
-    to the device of the ``like`` leaf in its place, in its saved dtype.
-    Returns (tree, meta)."""
+def restore(ckpt_dir: str, step: int, like: Any, *, cfg=None) -> Tuple[Any, Dict]:
+    """Read ``step_<step>`` into the structure of ``like`` (``cfg`` as at
+    ``save``); each leaf goes to the device of the ``like`` leaf in its
+    place, in its saved dtype. Returns (tree, meta)."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     # the reference's structure of `like`, on the meta device: no copy
-    ref_like = convert.stack_layers(_map(like, lambda t: t.detach().to("meta")))
+    ref_like = convert.stack_layers(_map(like, lambda t: t.detach().to("meta")), cfg)
     like_leaves = _flatten(ref_like)
     if len(like_leaves) != manifest["n_leaves"]:
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
@@ -181,4 +188,5 @@ def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, Dict]:
                              f"{list(ref.shape)}")
     leaves = [_from_savable(np.load(os.path.join(path, f"{i}.npy")), dt)
               for i, dt in enumerate(manifest["dtypes"])]
-    return convert.unstack_layers(_unflatten(ref_like, iter(leaves)), like), manifest["meta"]
+    return (convert.unstack_layers(_unflatten(ref_like, iter(leaves)), like, cfg),
+            manifest["meta"])

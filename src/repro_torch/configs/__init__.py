@@ -1,11 +1,12 @@
 """Architecture registry of the port: one module per ported architecture.
 
-``get(arch_id)`` returns the full-size ModelConfig. The four dense
-configs (qwen3_0_6b, gemma_2b, granite_20b, deepseek_coder_33b), the two
-MoE configs (deepseek_moe_16b, kimi_k2_1t_a32b), the vision backbone
-(llama_3_2_vision_11b) and the two recurrent configs (falcon_mamba_7b,
-the Mamba1 LM, and zamba2_1_2b, the Mamba2 hybrid) are ported; the audio
-config arrives with its family's slice.
+``get(arch_id)`` returns the full-size ModelConfig. All ten configs of
+the JAX package are ported: the four dense configs (qwen3_0_6b,
+gemma_2b, granite_20b, deepseek_coder_33b), the two MoE configs
+(deepseek_moe_16b, kimi_k2_1t_a32b), the vision backbone
+(llama_3_2_vision_11b), the two recurrent configs (falcon_mamba_7b, the
+Mamba1 LM, and zamba2_1_2b, the Mamba2 hybrid) and the audio encoder
+(hubert_xlarge, pretraining only).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ ARCH_IDS = [
     "llama_3_2_vision_11b",
     "falcon_mamba_7b",
     "zamba2_1_2b",
+    "hubert_xlarge",
 ]
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}

@@ -1,6 +1,6 @@
-"""Synthetic packed-sequence data pipeline (token families), PyTorch port.
+"""Synthetic data pipeline, PyTorch port.
 
-A copy of the JAX package's ``data/pipeline.py`` for the token families:
+A copy of the JAX package's ``data/pipeline.py``. For the token families:
 deterministic, checkpointable batches of documents packed to a fixed
 sequence length, with segment ids and per-document positions (varlen
 attention), and planted long-range motif copies so that attention is
@@ -15,8 +15,13 @@ reference's). JAX's PRNG stream cannot be drawn without JAX, so these
 come from the port's own numpy generator, seeded by (seed, step) apart
 from the token draws; tests hand the same array to both packages.
 
+The audio encoder's batch (``make_audio_batch``) is frame features [B,
+L, n_audio_features] in ``cfg.dtype`` (standard normals) and cluster
+labels [B, L], the reference's layout; its values come from the port's
+own numpy stream seeded by (seed, step), for the same reason.
+
 Iterator state == (seed, step): restoring a checkpoint resumes the exact
-stream. The audio batches arrive with their family.
+stream.
 """
 from __future__ import annotations
 
@@ -44,12 +49,6 @@ def _doc_lengths(rng: np.random.Generator, total: int, mean_len: int) -> np.ndar
     return np.asarray(lens)
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "audio":
-        raise NotImplementedError("family 'audio': its batches arrive with the family "
-                                  "(ROADMAP Queue A item 10)")
-
-
 def make_lm_batch(cfg: ModelConfig, batch: int, seq_len: int, state: DataState, *,
                   mean_doc_len: int = 2048, motif_len: int = 16,
                   device=None) -> Dict[str, torch.Tensor]:
@@ -57,7 +56,6 @@ def make_lm_batch(cfg: ModelConfig, batch: int, seq_len: int, state: DataState, 
     segment_ids, positions (int32) and loss_mask (float32), each [B, L];
     for a vision model also ``image_embeds`` [B, n_image_tokens, d_model]
     in ``cfg.dtype``."""
-    _check_family(cfg)
     device = resolve_device(device)
     rng = np.random.default_rng((state.seed * 1_000_003 + state.step) & 0x7FFFFFFF)
     v = cfg.vocab_size
@@ -100,8 +98,25 @@ def image_embeds(cfg: ModelConfig, batch: int, state: DataState, *,
     return (torch.from_numpy(z).to(device=resolve_device(device), dtype=dt) * 0.02)
 
 
+def make_audio_batch(cfg: ModelConfig, batch: int, seq_len: int, state: DataState, *,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """The audio encoder's batch on ``device`` (None = CUDA): ``features``
+    [B, L, n_audio_features] standard normals in ``cfg.dtype`` and
+    ``labels`` [B, L] uniform over the vocabulary (int32), from a numpy
+    stream seeded by (seed, step)."""
+    rng = np.random.default_rng([state.seed, state.step, 2])
+    feats = rng.standard_normal((batch, seq_len, cfg.n_audio_features), np.float32)
+    labels = rng.integers(0, cfg.vocab_size, size=(batch, seq_len), dtype=np.int32)
+    device = resolve_device(device)
+    return {"features": torch.from_numpy(feats).to(device=device,
+                                                   dtype=getattr(torch, cfg.dtype)),
+            "labels": torch.from_numpy(labels).to(device)}
+
+
 def make_batch(cfg: ModelConfig, batch: int, seq_len: int, state: DataState, *,
                device=None, **kw) -> Dict[str, torch.Tensor]:
+    if cfg.family == "audio":
+        return make_audio_batch(cfg, batch, seq_len, state, device=device)
     return make_lm_batch(cfg, batch, seq_len, state, device=device, **kw)
 
 

@@ -1,19 +1,25 @@
-"""Gate-distillation training launcher (PyTorch port of ``repro.launch.train``).
+"""Training launcher (PyTorch port of ``repro.launch.train``): gate
+distillation or pretraining.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0_6b \\
-        [--steps 100] [--batch 16] [--seq 4096] [--reduced] [--device cpu] \\
-        [--ckpt-dir DIR] [--ckpt-every 50]
+        [--mode distill|pretrain] [--steps 100] [--batch 16] [--seq 4096] \\
+        [--reduced] [--device cpu] [--ckpt-dir DIR] [--ckpt-every 50]
+
+``--mode distill`` (the default) trains the SeerAttention-R gate of a
+model that has one and exits with a message for a model that has none
+(falcon_mamba_7b, hubert_xlarge). ``--mode pretrain`` trains every
+parameter of any config, e.g.
+``--arch hubert_xlarge --mode pretrain --reduced --device cpu``.
 
 Without ``--ckpt-dir`` the checkpoints go to a new directory under the
 temporary directory (``TMPDIR``), so two runs never restore each other's
 state; the directory is printed.
 
 Runs on the CUDA device unless ``--device`` names another. One process,
-one device: there is no multi-host initialisation, and ``--mode
-pretrain`` raises (pretrain needs a backward through the attention). The
-loop carries the reference's fault-tolerance path: atomic async
-checkpoints, restore-on-failure, deterministic data resume and a
-straggler watchdog (``repro_torch.train.loop``).
+one device: there is no multi-host initialisation. The loop carries the
+reference's fault-tolerance path: atomic async checkpoints,
+restore-on-failure, deterministic data resume and a straggler watchdog
+(``repro_torch.train.loop``).
 """
 from __future__ import annotations
 
@@ -44,8 +50,10 @@ def main(argv=None):
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if not (cfg.gate.enabled and cfg.has_attention and cfg.is_decoder):
-        raise SystemExit(f"{args.arch}: no gate to distill (family {cfg.family})")
+    if args.mode == "distill" and not (cfg.gate.enabled and cfg.has_attention
+                                       and cfg.is_decoder):
+        raise SystemExit(f"{args.arch}: no gate to distill (family {cfg.family}); "
+                         "use --mode pretrain")
     seq = args.seq or (512 if args.reduced else 4096)
     bsz = args.batch or (4 if args.reduced else 16)
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_torch_ckpt_")
@@ -57,7 +65,8 @@ def main(argv=None):
     print(f"train: arch={cfg.arch_id} mode={args.mode} steps={args.steps} "
           f"batch={bsz} seq={seq} device={args.device or 'cuda'} ckpt_dir={ckpt_dir}")
     _, hist = train_loop.run_training(cfg, tcfg, device=args.device)
-    print(f"done. kl: {hist[0]['kl']:.4f} -> {hist[-1]['kl']:.4f}")
+    key = "kl" if args.mode == "distill" else "ce"
+    print(f"done. {key}: {hist[0][key]:.4f} -> {hist[-1][key]:.4f}")
     return hist
 
 

@@ -11,10 +11,11 @@ dtype at the end.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 Params = Dict[str, Any]
 
@@ -61,6 +62,23 @@ def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(x * x, dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps) * p["scale"].float()
     return out.to(dt)
+
+
+def remat(fn: Callable, cfg) -> Callable:
+    """``fn`` under the config's rematerialisation, the reference's
+    ``jax.checkpoint`` of a layer body: ``"nothing_saveable"`` and
+    ``"dots_saveable"`` map to ``torch.utils.checkpoint`` (non-reentrant;
+    the layer's activations are recomputed in the backward, none saved),
+    ``"none"`` and ``"full"`` (everything saved) to ``fn`` itself. Values
+    are the same either way; only memory and time differ."""
+    if cfg.remat not in ("nothing_saveable", "dots_saveable"):
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +177,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keys it skips are the ones the mask would zero (exp(NEG_INF - m) == 0),
     so the result is the reference's up to summation order.
 
+    Differentiable: where autograd records (grad enabled and q, k or v
+    requiring grad) the masking and the softmax run out of place, the
+    reference's pretrain path (``jax.grad`` through its jnp attention);
+    otherwise in place on the score chunk, with the same values and no
+    extra chunk-sized buffers.
+
     ``segment_ids`` [B, L] (packed documents, Lq == Lk) masks every score
     across documents. With ``gt_block_size`` > 0 the call returns
     ``(o, blockmax)``: blockmax [B, H, Lq, Lk // gt_block_size] fp32 is the
@@ -186,6 +210,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bm = (torch.full((b, h, lq, nb), NEG_INF, dtype=torch.float32, device=q.device)
           if gbs else None)
     q_chunk = max(1, min(q_chunk, lq))
+    inplace = not (torch.is_grad_enabled()
+                   and (q.requires_grad or k.requires_grad or v.requires_grad))
     out = torch.empty((b, h, lq, d), dtype=torch.float32, device=q.device)
     for c0 in range(0, lq, q_chunk):
         c1 = min(c0 + q_chunk, lq)
@@ -196,10 +222,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = _softcap(s, logit_softcap)
         if causal:
             mask = qp[:, None] >= kv_positions[None, :kend]
-            s = s.masked_fill_(~mask, NEG_INF)
+            s = s.masked_fill_(~mask, NEG_INF) if inplace else s.masked_fill(~mask, NEG_INF)
         if segment_ids is not None:
-            smask = segment_ids[:, c0:c1, None] == segment_ids[:, None, :kend]
-            s = s.masked_fill_(~smask[:, None], NEG_INF)
+            smask = (segment_ids[:, c0:c1, None] == segment_ids[:, None, :kend])[:, None]
+            s = s.masked_fill_(~smask, NEG_INF) if inplace else s.masked_fill(~smask, NEG_INF)
         if gbs:
             # the blocks the chunk reads; the tail of a partial last block
             # lies past kend, masked for every row of the chunk
@@ -208,7 +234,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             bm[:, :, c0:c1, :nbk] = torch.amax(
                 sp.reshape(b, h, c1 - c0, nbk, gbs), dim=-1)
         m = torch.amax(s, dim=-1, keepdim=True)
-        p = s.sub_(m).exp_()
+        p = s.sub_(m).exp_() if inplace else torch.exp(s - m)
         l = torch.sum(p, dim=-1, keepdim=True)
         out[:, :, c0:c1] = torch.matmul(p, vt[:, :, :kend]) / torch.clamp_min(l, 1e-30)
     o = out.transpose(1, 2).to(q.dtype)
@@ -235,3 +261,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.to(torch.float32))
     return o.reshape(b, 1, h, d).to(q.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits [B, L, V] -> the mean fp32 negative log-likelihood of
+    ``labels`` [B, L], over the positions where ``mask`` [B, L] (optional)
+    is nonzero: sum(nll * mask) / max(sum(mask), 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

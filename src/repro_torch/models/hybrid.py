@@ -3,9 +3,10 @@ attention block run after every ``hybrid_period`` Mamba2 layers, each run
 with its own KV cache. The shared block carries the SeerAttention-R gate:
 the paper's technique applies there.
 
-Port of the JAX package's ``models/hybrid.py``, its serving half (the
-distillation forward waits for the recurrent families' training, ROADMAP
-Queue A item 10). Layer plan at num_layers=38, period=6: 6 units of (6
+Port of the JAX package's ``models/hybrid.py``: the training forward in
+both modes (``lm_forward``: pretraining, and the distillation of the
+shared block's gate, whose target comes from kernel 6 on the card) and
+the serving half. Layer plan at num_layers=38, period=6: 6 units of (6
 Mamba2 layers + the shared block), then 2 trailing Mamba2 layers.
 
 ``params["units"]`` is a list of units, each a list of per-layer
@@ -29,7 +30,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import mamba
 from repro_torch.models import transformer as tf
 from repro_torch.models.attn_core import aggregate_decode_aux, block_decode_paged
-from repro_torch.models.common import _randn, init_linear, init_rmsnorm, torch_dtype
+from repro_torch.models.common import (_randn, cross_entropy_loss, init_linear,
+                                       init_rmsnorm, torch_dtype)
 from repro_torch.serve.slotstate import SlotState
 
 Params = Dict[str, Any]
@@ -77,11 +79,53 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def lm_forward(params: Params, batch, cfg: ModelConfig, *, mode: str = "pretrain",
                shard=None):
-    """Pretraining and the gate's distillation are training: the recurrent
-    families' training (ROADMAP Queue A item 10) is not ported."""
-    raise NotImplementedError(
-        f"lm_forward(mode={mode!r}) of the {cfg.family!r} family: the recurrent "
-        "families' training (ROADMAP Queue A item 10) is not ported")
+    """The reference's forward. Each unit runs its Mamba2 layers, then the
+    shared block through ``transformer.block_fwd_full`` (the same
+    parameters every unit), then the tail.
+
+    mode 'pretrain' -> (ce, {"ce"}): everything differentiable, a
+    checkpoint a layer under the config's ``remat``; the shared block's
+    gradient sums over the units. mode 'distill' -> (kl, {"kl"}): the
+    Mamba2 layers run without autograd, the shared block frozen with its
+    gate differentiable; the gate KL is summed over the units and divided
+    by their number. ``batch`` is the packed LM batch (``positions`` and
+    ``segment_ids`` reach the shared block's attention only). Training
+    under a ``shard`` (ROADMAP Queue A item 10c) raises."""
+    if mode not in ("pretrain", "distill"):
+        raise ValueError(f"lm_forward: unknown mode {mode!r}")
+    if shard is not None:
+        raise NotImplementedError("training under a Shard (ROADMAP Queue A item 10c) "
+                                  "is not ported")
+    n_units = _plan(cfg)[0]
+    distill = mode == "distill"
+    tokens = batch["tokens"]
+    b, l = tokens.shape
+    pos = batch.get("positions")
+    if pos is None:
+        pos = torch.arange(l, device=tokens.device)[None, :].expand(b, l)
+    seg = batch.get("segment_ids")
+    shared = params["shared_attn"]
+    shared_fwd = tf._pretrain_block(cfg, pos, seg, None)
+    kl = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    with tf._base_grad(distill):
+        x = params["embed"]["w"][tokens]
+    for unit in params["units"]:
+        with tf._base_grad(distill):
+            x = mamba.stack_train(unit, x, cfg, mamba.mamba2_full)
+        if distill:
+            x, l_kl, _, _ = tf.block_fwd_full(shared, x, cfg, rope_positions=pos,
+                                              segment_ids=seg, distill=True)
+            kl = kl + l_kl
+        else:
+            x, _ = shared_fwd(shared, x)
+    with tf._base_grad(distill):
+        x = mamba.stack_train(params.get("tail", []), x, cfg, mamba.mamba2_full)
+    if distill:
+        kl = kl / max(n_units, 1)
+        return kl, {"kl": kl.detach()}
+    ce = cross_entropy_loss(tf._logits(params, x, cfg), batch["labels"],
+                            batch.get("loss_mask"))
+    return ce, {"ce": ce.detach()}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,

@@ -19,6 +19,14 @@ state. Differences of idiom, not of result:
     so no ``[B, chunk, nh, hd, n]`` tensor is built.
   * So the results equal the reference's within fp32 rounding, not
     bitwise; the CPU tests state the tolerance.
+  * Both sequence paths are differentiable (training): Mamba1's chunk
+    scan switches to out-of-place doubling rounds where autograd records
+    (``_scan_chunk``), Mamba2's SSD chunk is out of place throughout.
+    The SSD chunk's causal decay mask is applied before its exp, not
+    after: the same forward values, and a finite gradient where the
+    reference's (``jnp.where`` after ``jnp.exp``) is NaN, i.e. wherever
+    a masked decay overflows, which a reduced or full hybrid config
+    reaches (tests/test_torch_train_recurrent.py).
 
 A step never writes its input state: it returns new conv windows and new
 hidden states, so a replayed step can re-run from the same input.
@@ -33,7 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.common import (_randn, init_linear, init_rmsnorm, linear,
-                                       rms_norm, torch_dtype)
+                                       remat, rms_norm, torch_dtype)
 
 Params = Dict[str, Any]
 
@@ -86,8 +94,18 @@ def _scan_chunk(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     """Inclusive scan of h_t = a_t * h_{t-1} + b_t over axis 1 from h = 0:
     (prod a, h) at every t. a, b [B, Q, ...] float32, consumed. Each
     doubling round combines every t with t - d, (a1, b1) then (a2, b2) ->
-    (a1 a2, a2 b1 + b2), into the other buffer of a ping-pong pair."""
+    (a1 a2, a2 b1 + b2), into the other buffer of a ping-pong pair; where
+    autograd records (grad enabled and a or b requiring grad), into new
+    tensors instead, with the same products in the same order."""
     q = a.shape[1]
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        d = 1
+        while d < q:
+            a, b = (torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1),
+                    torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])],
+                              dim=1))
+            d *= 2
+        return a, b
     a2, b2 = torch.empty_like(a), torch.empty_like(b)
     d = 1
     while d < q:
@@ -271,7 +289,10 @@ def _ssd_chunks(xh: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
         # intra-chunk: scores[t,s] = (C_t . B_s) * exp(cum_t - cum_s), t >= s
         cb = torch.einsum("btn,bsn->bts", cc, bc)                      # [B,Q,Q]
         decay = cum[:, :, None, :] - cum[:, None, :, :]                # [B,Q,Q,nh]
-        lmask = torch.where(tri[None, :, :, None], torch.exp(decay), 0.0)
+        # masked before the exp: the same values as the reference's
+        # where(tri, exp(decay), 0), whose gradient is 0 * inf = NaN where
+        # the masked decay (t < s, positive) overflows; this one's is 0
+        lmask = torch.exp(torch.where(tri[None, :, :, None], decay, -math.inf))
         y = torch.einsum("btsh,bshd->bthd", cb[..., None] * lmask, xc)
         del decay, lmask
         # inter-chunk: y_t += exp(cum_t) * (C_t . h_prev)
@@ -355,6 +376,18 @@ def stack_full(blocks, x: torch.Tensor, cfg: ModelConfig, full_fn,
         convs.append(conv)
         hs.append(h)
     return x, convs, hs
+
+
+def stack_train(blocks, x: torch.Tensor, cfg: ModelConfig, full_fn) -> torch.Tensor:
+    """The training forward of the same layers: x + full_fn(ln(x)) for
+    each block, under the config's ``remat`` (``common.remat``: a
+    checkpoint a layer, where autograd records), no states kept."""
+    def layer(bp, x):
+        return x + full_fn(bp["mixer"], rms_norm(bp["ln"], x, cfg.norm_eps), cfg)[0]
+    layer = remat(layer, cfg)
+    for bp in blocks:
+        x = layer(bp, x)
+    return x
 
 
 def stack_step(blocks, x1: torch.Tensor, cfg: ModelConfig, step_fn, conv, h):

@@ -23,6 +23,11 @@ so a row's output depends on which other rows picked the same experts,
 as in the reference. The aux load-balance loss is the Switch
 ``E * sum_e f_e * P_e * router_aux_coef``.
 
+Training differentiates through the router (the renormalised top-k
+weights and the aux loss's probabilities) and the experts, as
+``jax.grad`` of the reference does; the capacity drops and the tie order
+are the same with or without autograd.
+
 The experts run as plain batched matmuls: the reference computes them
 outside any Pallas kernel, so there is no TPU kernel here to port. Expert
 parallelism (the reference's ``moe_mlp_sharded``) is not ported: every
@@ -137,7 +142,10 @@ def moe_mlp(p: Params, x: torch.Tensor, mcfg: MoEConfig,
     w = torch.where(keep, top_w.reshape(-1).to(yb.dtype), 0)
     y_rep = yb[flat_e, torch.clamp_max(slot, cap - 1)]
     del yb
-    y = y_rep.mul_(w[:, None]).reshape(t, k, d).sum(dim=1)
+    # in place unless autograd records the product (its backward reads
+    # y_rep for the router weights' gradient)
+    y_rep = y_rep * w[:, None] if torch.is_grad_enabled() else y_rep.mul_(w[:, None])
+    y = y_rep.reshape(t, k, d).sum(dim=1)
     if "shared" in p:
         y = y + glu_mlp(p["shared"], x, activation)
     frac = _expert_counts(flat_e, e).float() / (t * k)

@@ -1,10 +1,11 @@
 """Family dispatch: a uniform functional API over the ported model families.
 
-The transformer's families (dense, moe and vlm, the vision backbone)
-share its ``ModelApi``; the recurrent families have their own: ssm (the
-Mamba1 LM, pages-free: its whole decode state rides in the per-slot
-recurrent state) and hybrid (Mamba2 with a shared attention block, whose
-units page their K/V). The audio encoder arrives with its slice.
+The transformer's families (dense, moe, vlm, the vision backbone, and
+audio, the encoder, which has a forward and no decode: its prefill and
+decode steps raise) share its ``ModelApi``; the recurrent families have
+their own: ssm (the Mamba1 LM, pages-free: its whole decode state rides
+in the per-slot recurrent state) and hybrid (Mamba2 with a shared
+attention block, whose units page their K/V).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ class ModelApi(NamedTuple):
     measured-selection ``aux`` dict for serving telemetry."""
     init_params: Callable          # (generator, cfg) -> params
     forward: Callable              # (params, batch, cfg, *, mode, shard) -> (loss, metrics);
-    #                                 mode="distill" only (gate KL, base frozen)
+    #                                 mode="pretrain" (CE) or "distill" (gate KL, base frozen)
     init_decode_state: Callable    # (cfg, batch_size, max_len, dtype, options, *, device)
     #                                 -> state
     prefill: Callable              # (params, batch, cfg, max_len, options) -> (logits, state);
@@ -78,13 +79,10 @@ _HYBRID_API = ModelApi(hybrid.init_lm, hybrid.lm_forward, hybrid.init_decode_sta
 
 
 def get_api(cfg: ModelConfig) -> ModelApi:
-    if cfg.family in ("dense", "moe", "vlm"):
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
         return _TF_API
     if cfg.family == "ssm":
         return _SSM_API
     if cfg.family == "hybrid":
         return _HYBRID_API
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            "family 'audio': the audio encoder (ROADMAP Queue A item 10) is not ported")
     raise ValueError(f"unknown family {cfg.family}")

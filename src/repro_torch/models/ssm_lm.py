@@ -1,9 +1,9 @@
 """Attention-free Mamba1 LM (the falcon-mamba-7b family), PyTorch.
 
-Port of the JAX package's ``models/ssm_lm.py``: the serving half (the
-reference's forward is pretraining only, whose port waits for the
-recurrent families' training, ROADMAP Queue A item 10). SeerAttention-R
-does not apply (no attention), so no kernel runs on this family's paths;
+Port of the JAX package's ``models/ssm_lm.py``: the pretraining forward
+(``lm_forward``, autograd through the Mamba1 layers, a checkpoint a layer
+under the config's ``remat``) and the serving half. SeerAttention-R does
+not apply (no attention), so no kernel runs on this family's paths;
 decode carries an O(1) recurrent state per layer. A Python loop over the
 layers replaces ``lax.scan``; ``params["blocks"]`` is a list of per-layer
 ``{"ln", "mixer"}`` dicts.
@@ -18,7 +18,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import mamba
 from repro_torch.models.attn_core import zero_decode_aux
-from repro_torch.models.common import _randn, init_linear, init_rmsnorm, torch_dtype
+from repro_torch.models.common import (_randn, cross_entropy_loss, init_linear,
+                                       init_rmsnorm, torch_dtype)
 from repro_torch.models.transformer import _logits
 from repro_torch.serve.slotstate import SlotState
 
@@ -49,11 +50,21 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def lm_forward(params: Params, batch, cfg: ModelConfig, *, mode: str = "pretrain",
                shard=None):
-    """The reference's forward is pretraining: the recurrent families'
-    training (ROADMAP Queue A item 10) is not ported."""
-    raise NotImplementedError(
-        f"lm_forward(mode={mode!r}) of the {cfg.family!r} family: the recurrent "
-        "families' training (ROADMAP Queue A item 10) is not ported")
+    """The reference's forward, pretraining in either ``mode`` (the model
+    has no gate to distill): the Mamba1 layers over ``batch["tokens"]``
+    [B, L] (positions and segment ids are not read: the recurrence runs
+    across packed documents, as in the reference), the final norm, the
+    logits and the fp32 cross-entropy of ``batch["labels"]`` under its
+    ``loss_mask``. Returns (ce, {"ce"}). Training under a ``shard``
+    (ROADMAP Queue A item 10c) raises."""
+    if shard is not None:
+        raise NotImplementedError("training under a Shard (ROADMAP Queue A item 10c) "
+                                  "is not ported")
+    x = params["embed"]["w"][batch["tokens"]]
+    x = mamba.stack_train(params["blocks"], x, cfg, mamba.mamba1_full)
+    ce = cross_entropy_loss(_logits(params, x, cfg), batch["labels"],
+                            batch.get("loss_mask"))
+    return ce, {"ce": ce.detach()}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int = 0,

@@ -1,13 +1,15 @@
-"""Decoder transformer LM with SeerAttention-R gates, PyTorch.
+"""Decoder (and encoder) transformer LM with SeerAttention-R gates, PyTorch.
 
-Port of the JAX package's ``models/transformer.py`` for three of its
+Port of the JAX package's ``models/transformer.py`` for its four
 families: dense, MoE (``"moe"`` blocks in place of ``"mlp"``,
-``models/moe.py``) and the vision backbone (``cross_attn_period``: units
+``models/moe.py``), the vision backbone (``cross_attn_period``: units
 of ``period - 1`` gated self layers and one ungated cross-attention layer
-into the batch's ``image_embeds``). Ported: the full-sequence forward of
-gate distillation (``attention_full`` / ``cross_attention_full`` ->
-``block_fwd_full`` -> ``lm_backbone`` -> ``lm_forward(mode="distill")``
-and ``lm_gate_collect``), and the serving half: ``init_lm``,
+into the batch's ``image_embeds``) and the audio encoder (``in_proj`` of
+the batch's frame ``features``, non-causal attention, no gate, no
+decode). Ported: the full-sequence forward in both training modes
+(``attention_full`` / ``cross_attention_full`` -> ``block_fwd_full`` ->
+``lm_backbone`` -> ``lm_forward(mode="pretrain" | "distill")``) and
+``lm_gate_collect``, and the serving half: ``init_lm``,
 ``DecodeState``/``init_decode_state``, ``lm_prefill`` (with right-padded
 ``lengths``), the contiguous decode step (``attention_decode`` ->
 ``block_decode`` / ``cross_block_decode`` -> ``lm_decode_step``) and the
@@ -33,10 +35,16 @@ Differences of idiom, not of result:
     head-major state instead of stacking all layers and padding after;
   * the distillation forward runs the base model under ``torch.no_grad``
     (the reference's ``stop_gradient`` on the attention target and the
-    gate's inputs): only the gate's own einsums build an autograd graph.
+    gate's inputs): only the gate's own einsums build an autograd graph;
+  * pretraining differentiates the whole tree through the plain
+    ``chunked_attention`` (the reference's ``jax.grad`` through its jnp
+    attention; no kernel), each layer under ``common.remat`` for the
+    config's ``remat``. The gate is not read there: the train loop gives
+    it, and any leaf autograd leaves out, a zero gradient.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -57,9 +65,9 @@ from repro_torch.models.attn_core import (_dense_aux, _policy_active, _qkv,
                                           aggregate_decode_aux,
                                           block_decode_paged, ffn)
 from repro_torch.models.common import (NEG_INF, _randn, apply_rope, chunked_attention,
-                                       decode_attention, init_linear, init_mlp,
-                                       init_rmsnorm, linear, mlp, rms_norm,
-                                       torch_dtype)
+                                       cross_entropy_loss, decode_attention,
+                                       init_linear, init_mlp, init_rmsnorm, linear,
+                                       mlp, remat, rms_norm, torch_dtype)
 from repro_torch.serve.sharded import sharded_sparse_decode
 
 Params = Dict[str, Any]
@@ -104,15 +112,18 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, *,
     return p
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in ("dense", "moe", "vlm"):
-        return
+def _check_family(cfg: ModelConfig, *, decode: bool = False) -> None:
+    """The transformer runs the dense, moe, vlm and audio families; with
+    ``decode`` (prefill and the decode steps) not the audio encoder, which
+    has no decode, in the reference neither."""
     if cfg.family in ("ssm", "hybrid"):
         raise ValueError(f"family {cfg.family!r} runs through models/ssm_lm.py or "
                          "models/hybrid.py (registry.get_api), not the transformer")
-    raise NotImplementedError(
-        f"family {cfg.family!r} (ROADMAP Queue A item 10) is not ported; the "
-        "transformer runs the dense, moe and vlm families")
+    if cfg.family not in ("dense", "moe", "vlm", "audio"):
+        raise ValueError(f"unknown family {cfg.family!r}")
+    if decode and not cfg.is_decoder:
+        raise ValueError(f"{cfg.arch_id}: the {cfg.family!r} family is an encoder "
+                         "(lm_forward only): it has no prefill or decode")
 
 
 def _units(cfg: ModelConfig) -> Tuple[int, int]:
@@ -140,8 +151,13 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     the numbers differ from JAX's, the shapes and scales do not)."""
     _check_family(cfg)
     gate_on = cfg.gate.enabled and cfg.has_attention and cfg.is_decoder
-    p: Params = {"embed": {"w": (_randn(gen, (cfg.vocab_size, cfg.d_model))
-                                 * 0.02).to(torch_dtype(cfg.dtype))}}
+    p: Params = {}
+    if cfg.family == "audio":
+        # the frame features' projection; the encoder never reads "embed"
+        # (the reference keeps it all the same: it trains to zero gradient)
+        p["in_proj"] = init_linear(gen, cfg.n_audio_features, cfg.d_model, cfg.dtype)
+    p["embed"] = {"w": (_randn(gen, (cfg.vocab_size, cfg.d_model))
+                        * 0.02).to(torch_dtype(cfg.dtype))}
     p["blocks"] = [init_block(gen, cfg, with_gate=gate_on)
                    for _ in range(n_self_layers(cfg))]
     if cfg.cross_attn_period:
@@ -161,8 +177,14 @@ def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# full-sequence forward (gate distillation)
+# full-sequence forward (pretraining and gate distillation)
 # ---------------------------------------------------------------------------
+
+def _base_grad(distill: bool):
+    """The context the base model runs in: no autograd in distillation,
+    the caller's otherwise (pretraining)."""
+    return torch.no_grad() if distill else contextlib.nullcontext()
+
 
 def attention_full(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                    rope_positions: torch.Tensor,
@@ -170,16 +192,19 @@ def attention_full(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                    distill: bool, collect_gate: bool = False):
     """Returns (out, kl_loss, extras|None).
 
-    The base attention runs without autograd. On a gated layer in distill
-    mode its output and the distillation target come from one
+    In distill mode the base attention runs without autograd, and on a
+    gated layer its output and the distillation target come from one
     ``ops.gate_gt_attention`` call (the TPU kernel #6 path); the gate
     reads the pre-rope q/k, which carry no gradient, so only the gate's
-    parameters are differentiated. ``collect_gate`` (requires distill):
-    extras = {"glog", "gt", "qr", "kr"} for gate-quality evaluation.
+    parameters are differentiated. Otherwise (pretraining) the attention
+    is the plain, differentiable ``chunked_attention`` (causal or not as
+    the config says).
+    ``collect_gate`` (requires distill): extras = {"glog", "gt", "qr",
+    "kr"} for gate-quality evaluation.
     """
     b, l, _ = x.shape
     gate_on = distill and "gate" in p
-    with torch.no_grad():
+    with _base_grad(distill):
         q, k, v = _qkv(p, x, cfg)
         qr = apply_rope(q, rope_positions, cfg.rope_theta)
         kr = apply_rope(k, rope_positions, cfg.rope_theta)
@@ -239,13 +264,15 @@ def _cross_kv(p: Params, ctx: torch.Tensor, cfg: ModelConfig):
 def block_fwd_full(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                    rope_positions, segment_ids, distill: bool,
                    collect_gate: bool = False, cross_ctx=None):
-    """One layer; the residual stream runs without autograd. A given
-    ``cross_ctx`` makes it a cross-attention block. Returns (x, kl, MoE
-    router loss or None, extras|None)."""
-    with torch.no_grad():
+    """One layer. ``distill`` runs the residual stream without autograd
+    (the gate's own einsums aside); otherwise the whole block is
+    differentiable (pretraining). A given ``cross_ctx`` makes it a
+    cross-attention block (no gate). Returns (x, kl, MoE router loss or
+    None, extras|None)."""
+    with _base_grad(distill):
         h = rms_norm(p["ln1"], x, cfg.norm_eps)
     if cross_ctx is not None:
-        with torch.no_grad():
+        with _base_grad(distill):
             attn_out = cross_attention_full(p["attn"], h,
                                             _cross_kv(p["attn"], cross_ctx, cfg), cfg)
         kl, extras = torch.zeros((), dtype=torch.float32, device=x.device), None
@@ -253,10 +280,23 @@ def block_fwd_full(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         attn_out, kl, extras = attention_full(
             p["attn"], h, cfg, rope_positions=rope_positions,
             segment_ids=segment_ids, distill=distill, collect_gate=collect_gate)
-    with torch.no_grad():
+    with _base_grad(distill):
         x = x + attn_out
         y, aux = ffn(p, rms_norm(p["ln2"], x, cfg.norm_eps), cfg)
     return x + y, kl, aux, extras
+
+
+def _pretrain_block(cfg: ModelConfig, rope_positions, segment_ids, cross_ctx):
+    """A block of the pretraining forward as a function of (params, x) ->
+    (x, MoE router loss), for ``common.remat``: every tensor it returns
+    is one the backward can reach."""
+    def fwd(lp, x):
+        y, _, aux, _ = block_fwd_full(lp, x, cfg, rope_positions=rope_positions,
+                                      segment_ids=segment_ids, distill=False,
+                                      cross_ctx=cross_ctx)
+        return y, (torch.zeros((), dtype=torch.float32, device=x.device)
+                   if aux is None else aux)
+    return remat(fwd, cfg)
 
 
 def lm_backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -265,17 +305,29 @@ def lm_backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """Runs the layers in ``layer_order`` (a Python loop in place of
     ``lax.scan``). Returns (x, kl_sum, aux_sum, extras|None): the gate KL
     and the MoE router loss summed over layers; extras stack each key over
-    the self layers, [L, ...]."""
+    the self layers, [L, ...]. ``distill`` freezes the base (every layer,
+    the cross-attention ones too); otherwise each layer is differentiable
+    and runs under the config's ``remat``."""
     kl = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.cross_attn_period and cross_ctx is None:
         raise ValueError("a cross-attention model needs batch['image_embeds']")
+    if not distill:
+        self_fwd = _pretrain_block(cfg, rope_positions, segment_ids, None)
+        cross_fwd = _pretrain_block(cfg, rope_positions, segment_ids, cross_ctx)
+        for kind, i in layer_order(cfg):
+            if kind == "self":
+                x, l_aux = self_fwd(params["blocks"][i], x)
+            else:
+                x, l_aux = cross_fwd(params["cross_blocks"][i], x)
+            aux = aux + l_aux
+        return x, kl, aux, None
     per_layer = []
     for kind, i in layer_order(cfg):
         lp = params["blocks"][i] if kind == "self" else params["cross_blocks"][i]
         x, l_kl, l_aux, extras = block_fwd_full(
             lp, x, cfg, rope_positions=rope_positions, segment_ids=segment_ids,
-            distill=distill and kind == "self", collect_gate=collect_gate,
+            distill=True, collect_gate=collect_gate,
             cross_ctx=cross_ctx if kind == "cross" else None)
         kl = kl + l_kl
         if l_aux is not None:
@@ -294,12 +346,18 @@ def _n_gate_layers(cfg: ModelConfig) -> int:
     return n_self_layers(cfg)
 
 
-def _full_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+def _full_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                 distill: bool = True):
+    """(x, positions, segment ids, image context) of a full-sequence
+    forward: the token embeddings, or the audio encoder's ``in_proj`` of
+    ``batch["features"]`` [B, L, n_audio_features]; without autograd in
+    distill mode."""
     _check_family(cfg)
-    if not cfg.causal:
-        raise NotImplementedError("only causal attention is ported")
-    with torch.no_grad():
-        x = params["embed"]["w"][batch["tokens"]]
+    with _base_grad(distill):
+        if cfg.family == "audio":
+            x = linear(params["in_proj"], batch["features"])
+        else:
+            x = params["embed"]["w"][batch["tokens"]]
     b, l = x.shape[:2]
     pos = batch.get("positions")
     if pos is None:
@@ -315,28 +373,37 @@ def _image_ctx(batch: Dict[str, torch.Tensor], dtype: torch.dtype):
 
 def lm_forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
                mode: str = "pretrain", shard=None):
-    """mode 'distill' -> (kl_loss + 0 * router loss, {"kl"}): the gate KL
-    summed over the gated layers and divided by their number,
-    differentiable with respect to the gate parameters only (the MoE
-    router loss enters with weight 0, as in the reference). ``batch``
-    holds tokens [B, L] and, from the data pipeline, the per-document
-    ``positions`` (RoPE) and the packing ``segment_ids`` (attention mask);
-    the causal masks use the global index; a vision model's batch also
-    carries ``image_embeds`` [B, n_img, d]. 'pretrain' needs the
-    attention's backward (ROADMAP Queue A item 10, left out) and raises,
-    as does a ``shard``."""
-    if mode != "distill":
-        raise NotImplementedError(
-            f"lm_forward(mode={mode!r}): only mode='distill' is ported; pretrain "
-            "needs a backward through the attention (ROADMAP Queue A item 10)")
+    """mode 'pretrain' -> (ce + router loss, {"ce", "aux"}): the final
+    norm, the tied or untied logits and the fp32 cross-entropy of
+    ``batch["labels"]`` under its ``loss_mask``, plus the MoE router loss
+    summed over layers; differentiable with respect to every leaf the
+    forward reads (the gate is not read: its gradient is zero). mode
+    'distill' -> (kl_loss + 0 * router loss, {"kl"}): the gate KL summed
+    over the gated layers and divided by their number, differentiable
+    with respect to the gate parameters only (the MoE router loss enters
+    with weight 0, as in the reference). ``batch`` holds tokens [B, L]
+    and, from the data pipeline, the per-document ``positions`` (RoPE)
+    and the packing ``segment_ids`` (attention mask); the causal masks use
+    the global index; a vision model's batch also carries
+    ``image_embeds`` [B, n_img, d]; the audio encoder's holds
+    ``features`` [B, L, n_audio_features] and ``labels`` (positions
+    ``arange``, no segments, non-causal attention). Training under a
+    ``shard`` (ROADMAP Queue A item 10c) raises."""
+    if mode not in ("pretrain", "distill"):
+        raise ValueError(f"lm_forward: unknown mode {mode!r}")
     if shard is not None:
-        raise NotImplementedError("training under a Shard (ROADMAP Queue A item 10) "
+        raise NotImplementedError("training under a Shard (ROADMAP Queue A item 10c) "
                                   "is not ported")
-    x, pos, seg, ctx = _full_inputs(params, batch, cfg)
-    _, kl, aux, _ = lm_backbone(params, x, cfg, rope_positions=pos, segment_ids=seg,
-                                distill=True, cross_ctx=ctx)
-    kl = kl / max(_n_gate_layers(cfg), 1)
-    return kl + aux * 0.0, {"kl": kl.detach()}
+    distill = mode == "distill"
+    x, pos, seg, ctx = _full_inputs(params, batch, cfg, distill)
+    x, kl, aux, _ = lm_backbone(params, x, cfg, rope_positions=pos, segment_ids=seg,
+                                distill=distill, cross_ctx=ctx)
+    if distill:
+        kl = kl / max(_n_gate_layers(cfg), 1)
+        return kl + aux * 0.0, {"kl": kl.detach()}
+    ce = cross_entropy_loss(_logits(params, x, cfg), batch["labels"],
+                            batch.get("loss_mask"))
+    return ce + aux, {"ce": ce.detach(), "aux": aux.detach()}
 
 
 def lm_gate_collect(params: Params, batch: Dict[str, torch.Tensor],
@@ -444,7 +511,7 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
     step O(block_size). A cross-attention model's ``batch["image_embeds"]``
     [B, n_img, d] fills ``cross_k``/``cross_v`` (head-major), the
     context every decode step attends."""
-    _check_family(cfg)
+    _check_family(cfg, decode=True)
     tokens = batch["tokens"]
     b, l = tokens.shape
     if l > max_len:
@@ -769,7 +836,7 @@ def lm_decode_step_paged(params: Params, pages, slot_state,
     table's logical-block count. With a ``shard`` the pools hold this
     rank's KV heads (``attn_core.attention_decode_paged``). A
     cross-attention model has no paged step (the reference refuses it)."""
-    _check_family(cfg)
+    _check_family(cfg, decode=True)
     if cfg.cross_attn_period:
         raise NotImplementedError("paged decode: cross-attn families TBD")
     options = options if options is not None else default_options(cfg)

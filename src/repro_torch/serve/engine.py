@@ -93,6 +93,9 @@ class DecodeEngine:
     def __init__(self, cfg: ModelConfig, params: Any, *, max_len: int,
                  options: Optional[DecodeOptions] = None, device=None,
                  shard=None):
+        if not cfg.is_decoder:
+            raise ValueError(f"{cfg.arch_id}: the {cfg.family!r} family is an encoder "
+                             "with no decode; it runs through lm_forward only")
         if shard is not None and not isinstance(shard, Shard):
             raise TypeError(f"shard must be a repro_torch.distributed.sharding.Shard, "
                             f"got {type(shard).__name__}")

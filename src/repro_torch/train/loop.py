@@ -1,12 +1,21 @@
-"""Training loop: gate distillation, with checkpoint/restart fault tolerance
-and deterministic data resume (PyTorch port of the JAX package's
-``train/loop.py``, distill mode).
+"""Training loop: gate distillation and pretraining, with checkpoint/restart
+fault tolerance and deterministic data resume (PyTorch port of the JAX
+package's ``train/loop.py``).
 
 Distillation trains ONLY the AttnGate parameters (paper §2.3): the gate
 leaves are extracted into a flat ``{path: tensor}`` dict, gradients are
 taken with respect to that dict alone, and the base model stays frozen
 byte for byte (it never requires grad; the forward runs it without
 autograd).
+
+Pretraining trains the whole tree: every leaf, flattened to ``{path:
+tensor}`` by ``_walk`` (``blocks/<i>/attn/wq/w``, ``units/<u>/<j>/...``,
+``shared_attn/...``), is differentiated, and AdamW's moments are kept
+over the same paths. A leaf the loss does not read (the gate, the audio
+encoder's ``embed``) gets a zero gradient, as ``jax.value_and_grad``
+gives it, and AdamW still decays it. The checkpoints hold the moments
+nested like the parameters (``checkpoint_tree``), the reference's
+layout.
 
 Fault tolerance (``run_training``):
   * async checkpoints every ``checkpoint_every`` steps, published
@@ -60,8 +69,9 @@ def extract_gate(params: Any) -> Dict[str, torch.Tensor]:
 
 
 def merge_gate(params: Any, gate: Dict[str, torch.Tensor], prefix: str = "") -> Any:
-    """A new tree with the gate leaves replaced; every other leaf is the
-    same tensor object."""
+    """A new tree with the leaves at the paths of ``gate`` (the gate's, or
+    any ``{path: tensor}`` of ``_walk`` paths) replaced; every other leaf
+    is the same tensor object."""
     if isinstance(params, dict):
         return {k: merge_gate(v, gate, f"{prefix}{k}/") for k, v in params.items()}
     if isinstance(params, list):
@@ -75,34 +85,40 @@ def merge_gate(params: Any, gate: Dict[str, torch.Tensor], prefix: str = "") -> 
 
 class TrainState(NamedTuple):
     params: Any                        # full model params, incl. the CURRENT gate
-    gate: Dict[str, torch.Tensor]      # the trainable subtree (authoritative)
-    opt: adamw.AdamWState
+    # distill: the trainable subtree (authoritative); None in pretrain
+    gate: Optional[Dict[str, torch.Tensor]]
+    opt: adamw.AdamWState              # over ``gate``, or over every ``_walk`` path
     step: torch.Tensor                 # int32 scalar
 
 
 def _check_mode(tcfg: TrainConfig) -> None:
-    if tcfg.mode != "distill":
-        raise NotImplementedError(
-            f"mode {tcfg.mode!r}: only gate distillation is ported; pretrain needs a "
-            "backward through the attention (ROADMAP Queue A item 10)")
+    if tcfg.mode not in ("distill", "pretrain"):
+        raise ValueError(f"unknown training mode {tcfg.mode!r}")
 
 
 def init_train_state(gen: torch.Generator, cfg: ModelConfig, tcfg: TrainConfig) -> TrainState:
-    """Random parameters from ``gen`` on its device, the gate extracted,
-    a zero AdamW state over it."""
+    """Random parameters from ``gen`` on its device and a zero AdamW state:
+    over the extracted gate (distill; a model without one raises), or
+    over every leaf of the tree (pretrain; ``gate`` None)."""
     _check_mode(tcfg)
     params = get_api(cfg).init_params(gen, cfg)
+    step = torch.zeros((), dtype=torch.int32, device=gen.device)
+    if tcfg.mode == "pretrain":
+        return TrainState(params, None, adamw.init(dict(_walk(params)), tcfg.optim), step)
     gate = extract_gate(params)
     if not gate:
         raise ValueError(f"{cfg.arch_id}: distill mode but no gate params")
-    return TrainState(params, gate, adamw.init(gate, tcfg.optim),
-                      torch.zeros((), dtype=torch.int32, device=gen.device))
+    return TrainState(params, gate, adamw.init(gate, tcfg.optim), step)
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, shard=None) -> Callable:
-    """(state, batch) -> (state, metrics {"loss", "kl", "lr", "grad_norm"},
-    scalar tensors on the device)."""
+    """(state, batch) -> (state, metrics: {"loss", "kl", "lr", "grad_norm"}
+    in distill mode, {"loss", the forward's metrics ("ce", and "aux" for
+    the transformer), "lr", "grad_norm"} in pretrain; scalar tensors on
+    the device)."""
     _check_mode(tcfg)
+    if tcfg.mode == "pretrain":
+        return _pretrain_step(cfg, tcfg, shard)
     api = get_api(cfg)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
@@ -118,6 +134,53 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, shard=None) -> Callable
         return (TrainState(merge_gate(state.params, gate), gate, opt, state.step + 1),
                 {"loss": loss.detach(), **metrics, **om})
     return step
+
+
+def pretrain_value_and_grad(params: Any, batch, cfg: ModelConfig, shard=None):
+    """The pretraining loss of ``params`` on ``batch`` and its gradient
+    with respect to every leaf: (loss, metrics, {path: grad}) over the
+    ``_walk`` paths, a leaf the loss does not read holding zeros (autograd
+    gives None, ``jax.value_and_grad`` zeros)."""
+    flat = dict(_walk(params))
+    leaves = {k: t.detach().requires_grad_(True) for k, t in flat.items()}
+    with torch.enable_grad():
+        loss, metrics = get_api(cfg).forward(merge_gate(params, leaves), batch, cfg,
+                                             mode="pretrain", shard=shard)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return loss.detach(), metrics, {k: torch.zeros_like(flat[k]) if g is None else g
+                                    for k, g in zip(leaves, grads)}
+
+
+def _pretrain_step(cfg: ModelConfig, tcfg: TrainConfig, shard) -> Callable:
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        loss, metrics, grads = pretrain_value_and_grad(state.params, batch, cfg, shard)
+        with torch.no_grad():
+            new, opt, om = adamw.apply(dict(_walk(state.params)), grads, state.opt,
+                                       tcfg.optim)
+        return (TrainState(merge_gate(state.params, new), None, opt, state.step + 1),
+                {"loss": loss, **metrics, **om})
+    return step
+
+
+def checkpoint_tree(state: TrainState) -> Dict[str, Any]:
+    """The tree a checkpoint holds, {"params", "gate", "opt"}, as the
+    reference's loop saves it: in pretrain the AdamW moments (and the
+    error-feedback residual) nested like the parameters, in distill the
+    gate's flat dicts as they are."""
+    opt = state.opt
+    if state.gate is None:
+        nest = lambda d: None if d is None else merge_gate(state.params, d)  # noqa: E731
+        opt = opt._replace(m=nest(opt.m), v=nest(opt.v), ef=nest(opt.ef))
+    return {"params": state.params, "gate": state.gate, "opt": opt}
+
+
+def state_from_checkpoint_tree(tree: Dict[str, Any], step: torch.Tensor) -> TrainState:
+    """The inverse of ``checkpoint_tree``: a TrainState at ``step``."""
+    opt = tree["opt"]
+    if tree["gate"] is None:
+        flat = lambda t: None if t is None else dict(_walk(t))  # noqa: E731
+        opt = opt._replace(m=flat(opt.m), v=flat(opt.v), ef=flat(opt.ef))
+    return TrainState(tree["params"], tree["gate"], opt, step)
 
 
 # ---------------------------------------------------------------------------
@@ -148,14 +211,13 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *,
     state = fresh()
     data_state = DataState(tcfg.seed, 0)
     step_fn = make_train_step(cfg, tcfg)
-    saver = ckpt.AsyncCheckpointer(tcfg.checkpoint_dir)
+    saver = ckpt.AsyncCheckpointer(tcfg.checkpoint_dir, cfg=cfg)
     history: List[Dict] = []
     retries = 0
     step_times: List[float] = []
 
     def save(state, data_state):
-        tree = {"params": state.params, "gate": state.gate, "opt": state.opt}
-        saver.save(int(state.step), tree,
+        saver.save(int(state.step), checkpoint_tree(state),
                    meta={"data_step": data_state.step, "seed": data_state.seed})
 
     i = int(state.step)
@@ -192,10 +254,10 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *,
                 state = fresh()
                 i = 0
                 continue
-            like = {"params": state.params, "gate": state.gate, "opt": state.opt}
-            tree, meta = ckpt.restore(tcfg.checkpoint_dir, last, like)
-            state = TrainState(tree["params"], tree["gate"], tree["opt"],
-                               torch.tensor(last, dtype=torch.int32, device=device))
+            tree, meta = ckpt.restore(tcfg.checkpoint_dir, last, checkpoint_tree(state),
+                                      cfg=cfg)
+            state = state_from_checkpoint_tree(
+                tree, torch.tensor(last, dtype=torch.int32, device=device))
             i = int(meta["data_step"])
     saver.wait()
     return state, history

@@ -108,11 +108,14 @@ def _assert_same_ids(j_ids, t_ids, n_calls):
 # ---------------------------------------------------------------------------
 
 def test_arch_ids_hold_the_four_dense_configs():
-    assert t_configs.ARCH_IDS == ["qwen3_0_6b", *NEW, *FAMILIES, *RECURRENT]
-    for arch in NEW + FAMILIES + RECURRENT:
+    """All ten configs of the reference, the audio encoder last."""
+    assert t_configs.ARCH_IDS == ["qwen3_0_6b", *NEW, *FAMILIES, *RECURRENT,
+                                  "hubert_xlarge"]
+    assert sorted(t_configs.ARCH_IDS) == sorted(j_configs.ARCH_IDS)
+    for arch in NEW + FAMILIES + RECURRENT + ["hubert_xlarge"]:
         assert t_configs.get(arch.replace("_", "-")).arch_id == arch
     with pytest.raises(ValueError, match="unported"):
-        t_configs.get("hubert_xlarge")
+        t_configs.get("hubert_base")
 
 
 @pytest.mark.parametrize("arch", NEW + FAMILIES)

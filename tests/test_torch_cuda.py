@@ -1338,6 +1338,9 @@ GT_CUDA_SHAPES = [
     # MQA group (48 heads, head pairs) and the training widths
     (1, 256, 2, 1, 16, 128), (2, 384, 4, 2, 32, 128), (1, 256, 4, 2, 64, 128),
     (1, 512, 48, 1, 128, 128), (1, 256, 8, 1, 256, 128), (1, 2048, 16, 8, 128, 128),
+    # zamba2_1_2b's shared block in distillation: 32 KV heads of one query
+    # head at Dh 64 (one head a CTA)
+    (2, 1024, 32, 32, 64, 64),
 ]
 
 
@@ -1435,6 +1438,22 @@ def test_train_steps_cuda_match_cpu_and_count_launches(dev):
     assert counts == want
     assert kl_err <= 1e-4
     assert g_err <= 1e-4
+
+
+def test_pretrain_step_cuda_matches_cpu(dev):
+    """One pretrain loss and gradient of every family's reduced() model
+    (fp32) on the card against the CPU (chip_smoke.py's phase-2 pretrain
+    agreement): the loss within 1e-5 relative, every gradient leaf within
+    1e-4 of its largest entry, the unread leaves zero on both, and no
+    kernel launched."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    rows = chip_smoke.small_pretrain_agreement(dev)
+    assert [r[0] for r in rows] == list(chip_smoke.SMALL_PRETRAIN)
+    for arch, loss_err, g_err, zeros_ok, n, counts in rows:
+        print(f"{arch}: loss rel diff {loss_err:.3e}, {n} leaves within {g_err:.3e}")
+        assert counts == _counts(), arch
+        assert loss_err <= 1e-5 and g_err <= 1e-4 and zeros_ok, arch
 
 
 # one-line faults in kernel 6's bf16 tensor-core body: (source line, edit)

@@ -344,7 +344,9 @@ def test_serve_tight_and_ample_differ_in_both_packages():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_lm_forward_distill_matches_reference(arch):
     """The gate KL over the self layers plus 0 x the router loss, on a
-    packed batch of the port's pipeline handed to both packages."""
+    packed batch of the port's pipeline handed to both packages; and the
+    pretrain loss (CE plus the router loss, which the published router's
+    capacity drops feed) and its metrics on the same batch."""
     jcfg, params, tcfg, tparams = _pair(arch, "published")
     batch = make_batch(tcfg, 2, 64, DataState(0, 1), device="cpu")
     jb = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
@@ -356,5 +358,8 @@ def test_lm_forward_distill_matches_reference(arch):
     _, _, aux, _ = t_tf.lm_backbone(tparams, x, tcfg, rope_positions=batch["positions"],
                                     segment_ids=batch["segment_ids"], distill=False)
     assert float(aux) > 0 and float(kl_t) > 0
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_tf.lm_forward(tparams, batch, tcfg, mode="pretrain")
+    loss_j, mj = get_api(jcfg).forward(params, jb, jcfg, mode="pretrain")
+    loss_t, mt = t_tf.lm_forward(tparams, batch, tcfg, mode="pretrain")
+    for got, want in ((loss_t, loss_j), (mt["ce"], mj["ce"]), (mt["aux"], mj["aux"])):
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    np.testing.assert_allclose(float(mt["aux"]), float(aux), rtol=1e-6)

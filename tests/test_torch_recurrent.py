@@ -367,7 +367,9 @@ def test_refusals_mirror_the_reference():
     """Quest on the hybrid has no metadata cache (ValueError at its first
     step, in both packages); a plan-carrying schedule has no paged hybrid
     step (NotImplementedError in both); the port refuses a sharded engine
-    for a recurrent family and the recurrent families' lm_forward."""
+    for a recurrent family and training under a shard (item 10c). The
+    recurrent families' lm_forward with mode="distill" is the reference's:
+    the Mamba1 LM pretrains in either mode (CE), the hybrid distils."""
     jcfg, params, tcfg, tparams = _pair("zamba2_1_2b", 5)
     toks = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 20)).astype(np.int32)
     with pytest.raises(ValueError, match="selection-metadata cache"):
@@ -390,9 +392,18 @@ def test_refusals_mirror_the_reference():
         _, _, cfg, p = _pair(arch, _layers(arch))
         with pytest.raises(NotImplementedError, match="item 9"):
             DecodeEngine(cfg, p, max_len=64, device="cpu", shard=shard)
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="item 10c"):
             t_registry.get_api(cfg).forward(p, {"tokens": torch.tensor(toks)}, cfg,
-                                            mode="distill")
+                                            mode="distill", shard=shard)
+        jc, jp, _, _ = _pair(arch, _layers(arch))
+        tk = toks[:, :16]                 # whole gate blocks for the distill target
+        batch = {"tokens": tk, "labels": np.roll(tk, -1, axis=1)}
+        want, _ = get_api(jc).forward(jp, {k: jnp.asarray(v) for k, v in batch.items()},
+                                      jc, mode="distill")
+        got, metrics = t_registry.get_api(cfg).forward(
+            p, {k: torch.tensor(v) for k, v in batch.items()}, cfg, mode="distill")
+        assert set(metrics) == ({"ce"} if arch == "falcon_mamba_7b" else {"kl"})
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

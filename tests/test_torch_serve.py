@@ -271,7 +271,7 @@ def test_unported_options_raise(models):
         TOptions(quantize="fp8")
     with pytest.raises(TypeError, match="Shard"):       # sharded serving: a Shard
         port_engine(models, "budget", shard=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="encoder with no decode"):
         DecodeEngine(torch_tiny_cfg("budget").replace(family="audio"),
                      models["budget"][3], max_len=64, device="cpu")
     assert eng.serve(reqs)[0] == eng.serve(reqs)[0]          # still serves

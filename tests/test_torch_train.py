@@ -359,8 +359,13 @@ def test_lm_forward_distill_matches_reference(slice_setup):
         np.testing.assert_allclose(float(kl_t), float(kl_j), rtol=1e-5)
         np.testing.assert_allclose(float(mt["kl"]), float(mj["kl"]), rtol=1e-5)
         assert float(kl_t) > 0
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_tf.lm_forward(tstate.params, batches[0][1], tcfg, mode="pretrain")
+    # pretrain mode on the same state: CE of the tied logits, router loss 0
+    jb, tb = batches[0]
+    loss_j, mj = j_get_api(jcfg).forward(jstate.params, jb, jcfg, mode="pretrain")
+    loss_t, mt = t_tf.lm_forward(tstate.params, tb, tcfg, mode="pretrain")
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
+    np.testing.assert_allclose(float(mt["ce"]), float(mj["ce"]), rtol=1e-5)
+    assert float(mt["aux"]) == float(mj["aux"]) == 0.0
 
 
 def test_gate_gradients_match_reference(slice_setup):
@@ -508,8 +513,12 @@ def test_port_launcher_trains_on_cpu(tmp_path, monkeypatch, ckpt_dir):
     assert [h["step"] for h in hist] == [0, 1]
     assert all(np.isfinite(h["kl"]) for h in hist)
     assert t_ckpt.latest_step(str(where)) == 2
-    with pytest.raises(NotImplementedError, match="pretrain"):
-        t_launch.main(argv + ["--mode", "pretrain"])
+    # --mode pretrain trains every leaf: a CE history and its own checkpoints
+    pre = tmp_path / "pretrain"
+    hist = t_launch.main(argv + ["--mode", "pretrain", "--ckpt-dir", str(pre)])
+    assert [h["step"] for h in hist] == [0, 1]
+    assert all(np.isfinite(h["ce"]) and "kl" not in h for h in hist)
+    assert t_ckpt.latest_step(str(pre)) == 2
 
 
 def test_port_checkpoint_roundtrip_bitwise(tmp_path):

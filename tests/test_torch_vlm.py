@@ -211,8 +211,8 @@ def test_refusals_mirror_the_reference():
     assert t_registry.get_api(tcfg) is t_registry.get_api(t_configs.get("qwen3_0_6b"))
     for family in ("ssm", "hybrid"):
         assert t_registry.get_api(tcfg.replace(family=family)).init_slot_state is not None
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_registry.get_api(tcfg.replace(family="audio"))
+    # the audio encoder shares the transformer's api (forward only)
+    assert t_registry.get_api(tcfg.replace(family="audio")) is t_registry.get_api(tcfg)
 
 
 def test_lm_forward_distill_matches_reference():
@@ -249,6 +249,8 @@ def test_vision_batch_matches_reference_layout(seed, step):
     assert 0.015 < float(img.std()) < 0.025 and abs(float(img.mean())) < 2e-3
     again = t_pipe.make_batch(tcfg, 2, 64, t_pipe.DataState(seed, step), device="cpu")
     assert torch.equal(again["image_embeds"], tb["image_embeds"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_pipe.make_batch(tcfg.replace(family="audio"), 2, 64, t_pipe.DataState(0, 0),
-                          device="cpu")
+    # an audio config's batch is the encoder's (features and labels), no tokens
+    audio = t_pipe.make_batch(tcfg.replace(family="audio", n_audio_features=8), 2, 64,
+                              t_pipe.DataState(0, 0), device="cpu")
+    assert set(audio) == {"features", "labels"}
+    assert tuple(audio["features"].shape) == (2, 64, 8)
