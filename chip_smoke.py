@@ -24,26 +24,31 @@ traffic frontend); and gate distillation training, ``train.loop.run_training`` i
 mode (kernel ``gate_gt_attention``, TPU kernel 6, on every layer of every
 forward). Then the other dense configs of the port at full width,
 ``gemma_2b`` (MQA 8 x 256), ``granite_20b`` (MQA 48 x 128) and
-``deepseek_coder_33b`` (56 / 8 x 128), the last two cut in depth
+``deepseek_coder_33b`` (56 / 8 x 128), each cut in depth
 (``OTHER_CONFIGS``), through ``generate`` and ``serve`` and, for the
 first two, distill training. Then the MoE and vision families
 (``FAMILY_CONFIGS``): ``deepseek_moe_16b`` (MHA 16 x 128, 64 experts, top
-6) at 8 of its 28 layers through ``generate`` and ``serve``,
+6) at 4 of its 28 layers through ``generate`` and ``serve``,
 ``kimi_k2_1t_a32b`` (64 / 8 x 128, 384 experts, top 8) at one layer and
 ``llama_3_2_vision_11b`` (32 / 8 x 128, a cross-attention layer every 5)
 at 10 of its 40 layers through ``generate``. Then the recurrent families
 (``RECURRENT_CONFIGS``) at full width: ``zamba2_1_2b`` (38 Mamba2 layers
 and a gated shared attention block, MHA 32 x 64, after every 6 of them)
-at full depth through ``generate`` and ``serve`` (fp, int8, eviction),
-and ``falcon_mamba_7b`` (Mamba1 layers, no attention: no kernel runs) at
-32 of its 64 layers through ``generate`` and ``serve``, its prompts cut
+at 20 of its 38 layers (3 of its 6 units) through ``generate`` and
+``serve`` (fp, int8, eviction), and ``falcon_mamba_7b`` (Mamba1 layers, no
+attention: no kernel runs) at 16 of its 64 layers through ``generate``
+and ``serve``, its prompts cut
 to 4096 tokens. Then
-the distillation of ``deepseek_moe_16b`` (8 layers) and ``zamba2_1_2b``
+the distillation of ``deepseek_moe_16b`` (4 layers) and ``zamba2_1_2b``
 (kernel 6 on the gated shared block, Dh 64, once a unit), and
 pretraining, ``run_training`` in pretrain mode (no kernel: the plain
 attention and scans, differentiated, as in the reference): ``qwen3_0_6b``
-and ``hubert_xlarge`` (the audio encoder) at full width and depth, and
-``falcon_mamba_7b`` cut to 4 layers (``PRETRAIN_CONFIGS``).
+at full width and depth, ``hubert_xlarge`` (the audio encoder) at full
+width and half its depth, and ``falcon_mamba_7b`` cut to 4 layers (``PRETRAIN_CONFIGS``). Last, the
+user's entry points: the serving launcher (``repro_torch.launch.serve``)
+at full width, the four examples (``repro_torch.examples``) at their own
+reduced scale, and the head-sharded engine with a selection schedule,
+request budgets, sampling and open-loop arrivals.
 The contiguous int8 kernel ``block_sparse_decode_quant`` lies on no model
 path (in the reference neither): it is checked and timed on the generate
 path's layer-0 blocks, quantized per block. Phases (any failure exits
@@ -235,7 +240,7 @@ non-zero):
      line of its kernels' numbers;
  22. distill training of gemma_2b (kernel 6 at head dim 256) and
      granite_20b (48 heads on one KV head) at their depths, and (after
-     phase 34) of deepseek_moe_16b at 8 layers and zamba2_1_2b at full
+     phase 34) of deepseek_moe_16b at 4 layers and zamba2_1_2b at full
      depth (its shared block's 32 KV heads of one query head, Dh 64, 6
      units): 3 steps of 4 x 4096 tokens, kernel 6 gated layers (units) x
      steps and nothing else, KL finite, base frozen, gate moved; phase
@@ -248,9 +253,9 @@ The MoE and vision families (phases 30-32, after phase 22; the launches
 of their main paths join the counts of the kernels line, their errors
 its max_abs_err):
 
- 30. ``deepseek_moe_16b`` at full width, 8 of its 28 layers, through
+ 30. ``deepseek_moe_16b`` at full width, 4 of its 28 layers, through
      phase 21's steps: #1, #2 and 2q on layer 0 of its ``generate`` (G 1:
-     16 KV heads of one query head each); ``generate`` (#1 and #2 8 x 31
+     16 KV heads of one query head each); ``generate`` (#1 and #2 4 x 31
      times);
      its profile, with the expert FFN's share of the step's device busy
      time (one layer's ``moe_mlp`` on its captured decode input, the
@@ -279,20 +284,20 @@ pages) card against CPU, fp32: ``generate`` tokens equal, logits within
 1e-4, #1 and #2 units x steps (none for falcon); ``serve`` ample and at 8
 pages, the same checks through #3 and #4, the swapped bytes equal.
 
- 33. ``zamba2_1_2b`` at full width and depth (G 1 at 32 KV heads, Dh 64,
-     Dg 64; 6 units): phase 3's checks and timings of #1, #2 and 2q on
-     unit 0's shared-block tensors of ``generate``'s first decode step
-     (#2 against dense SDPA printed, not required); ``generate`` (#1 and
-     #2 6 units x 31 steps = 186 times) and its profile; ``serve`` with
-     phase 6's requests at the default pool and at 644 pages (#3 and #4
-     6 x decode steps, one preemption swapping the pages and the
+ 33. ``zamba2_1_2b`` at full width, 20 of its 38 layers (G 1 at 32 KV
+     heads, Dh 64, Dg 64; 3 of its 6 units and the tail): phase 3's checks
+     and timings of #1, #2 and 2q on unit 0's shared-block tensors of
+     ``generate``'s first decode step (#2 against dense SDPA printed, not
+     required); ``generate`` (#1 and #2 3 units x 31 steps = 93 times) and
+     its profile; ``serve`` with phase 6's requests at the default pool
+     and at 644 pages (#3 and #4 3 x decode steps, one preemption swapping the pages and the
      request's recurrent rows, tight == ample bitwise: the rows are not
      coupled); the same over int8 pools (#3 and 4q, the swapped bytes in
      the int8/fp page ratio beside the recurrent rows); eviction under a
      RESIDENT_CAP-page resident cap (replays > 0, bitwise the ample run);
      #3, #4 and 5 at 2, 4, 8 and nsel + 3 splits on the fp serve's
      layer-0 tensors, 4q and 5q on the int8 serve's;
- 34. ``falcon_mamba_7b`` at full width, 32 of its 64 Mamba1 layers (no
+ 34. ``falcon_mamba_7b`` at full width, 16 of its 64 Mamba1 layers (no
      attention), its prompts cut to 4096 tokens: ``generate`` (every
      launch counter 0, logits finite) and its profile; ``serve`` at the
      default pool and at the first four cut prompts' pages + 2 (every
@@ -313,11 +318,45 @@ under it (top device kernels, device busy) and the peak memory.
      step's loss equal, the last checkpoint in the reference's layout
      (its moments fp32 trees shaped like the parameters) and read back
      bitwise;
- 36. ``hubert_xlarge`` at full width and depth (48 layers, d 1280, Dh 80,
+ 36. ``hubert_xlarge`` at full width, 24 of its 48 layers (d 1280, Dh 80,
      non-causal), 16 x 1024 frames, the same checkpoint and failure;
  37. ``falcon_mamba_7b`` cut to 4 of its 64 layers (its weights and
      AdamW's fp32 moments do not fit one card whole), batch 1 x 2048,
      no checkpoint.
+
+The serving launcher, the examples and the sharded engine with every
+decode option (phases 38-40, after pretraining), each run with the launch
+counters at 0 just before and read just after; their launches join the
+kernels line and their kernel errors its max_abs_err:
+
+ 38. ``python -m repro_torch.launch.serve``'s ``main`` at full width
+     (``LAUNCH_ARGV``: qwen3_0_6b, nothing cut, 4 x 16384 tokens, 32 new,
+     GatePolicy at a 4096-token budget), then with ``--policy quest``: #2
+     launches 28 x the decode steps, #1 as often under the gate and never
+     under Quest; the gate run's own engine holds the seed-0 parameters
+     built here bitwise and measures the sparsity printed, and the two
+     runs' prefill tokens are equal;
+     ms/step and tok/s printed with the card's name and power limit;
+ 39. each example through its entry point at its own reduced scale
+     (bf16, head dim 16, 16-token gate blocks): ``serve_sparse`` (generate;
+     ``--paged``; ``--paged --eviction`` at EXAMPLE_EVICT_PAGES pages, which
+     evicts; ``--paged --quantize int8``), ``serve_stream``, ``quickstart``
+     (QUICKSTART_STEPS) and ``distill_and_eval --size small``
+     (DISTILL_STEPS, checkpoints in a temporary directory): each kernel it
+     reaches launches, and is held against its plain version on the
+     tensors of its first call with the limits of phases 3, 7 and 16 (#1
+     and #3 ids bitwise on exact ties, near-tie swaps only on the captured
+     inputs); each kernel's first run at that shape timed beside its plain
+     version;
+ 40. the head-sharded engine on the one-rank NCCL group at full width with
+     the SHARD_SCHEDULE schedule and phase 17's budgets and sampling on
+     phase 6's requests: at split_k 1 tokens and logits bitwise the
+     unsharded engine's same run (steps, sparsity and selected blocks by
+     request equal); at SPLIT_K the first decode step within DECODE_ULPS
+     bf16 ulps; #3, #4 and 5 on the first selecting layer's call (the plan
+     the later layers carry, under the budget caps) against their plain
+     versions; then phase 29's trace through ``ServingFrontend`` on the
+     sharded engine, streaming phase 29's tokens at its steps.
 
 The pressure and failure paths of ``serve`` (phases 23-29) run after
 phase 13, on qwen3_0_6b at full width and phase 6's requests unless
@@ -395,6 +434,9 @@ from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,  
                                      QuestRecomputePolicy, SelectionInputs,
                                      SelectionSchedule, SlidingWindowPolicy)
 from repro_torch.distributed.sharding import Shard  # noqa: E402
+from repro_torch.examples import (distill_and_eval, quickstart, serve_sparse,  # noqa: E402
+                                  serve_stream)
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.data.pipeline import DataState, image_embeds, make_batch  # noqa: E402
 from repro_torch.kernels import block_sparse_decode as bsd  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
@@ -457,9 +499,10 @@ OVERRIDE_SAMPLING = SamplingParams(temperature=0.7, top_k=50, top_p=0.9)
 # time limit (their prefill keeps the config's query chunks of 1024: the
 # fp32 scores of a chunk over 16384 keys, 13-15 GB at 48 and 56 heads,
 # fit beside them; 8 layers until the MoE and vision phases joined the
-# script); gemma_2b runs all 18 layers
+# script); gemma_2b runs 9 of its 18 layers (all 18 until the launcher,
+# example and sharded-option phases 38-40 joined the script)
 OTHER_CONFIGS = {
-    "gemma_2b": {},
+    "gemma_2b": dict(num_layers=9),
     "granite_20b": dict(num_layers=4),
     "deepseek_coder_33b": dict(num_layers=4),
 }
@@ -469,7 +512,7 @@ OTHER_CONFIGS = {
 # checkpoint; then kernel 6 at 128-key blocks on qwen3_0_6b's tensors
 # the MoE and vision families (phases 30-32), each at full width (widths,
 # heads, experts and router as in its file), bf16, weights from seed 0:
-# deepseek_moe_16b cut to 8 of its 28 layers on the generate and serve
+# deepseek_moe_16b cut to 4 of its 28 layers on the generate and serve
 # cells; kimi_k2_1t_a32b cut to one layer (its 384 experts hold 33.8 GB a
 # layer) on generate alone, with its prompt cut to 8192 tokens and its
 # query chunk to 256 (the prefill's expert buffers grow with batch x
@@ -478,10 +521,11 @@ OTHER_CONFIGS = {
 # self layers and a cross layer) on generate alone (the reference has no
 # paged step for cross-attention), with numpy-seeded image embeddings.
 # deepseek_moe_16b and llama_3_2_vision_11b ran at full depth until the
-# recurrent phases 33-34 joined the script: their depth was cut so that
-# the script stays inside its time limit
+# recurrent phases 33-34 joined the script (deepseek_moe_16b at 8 until
+# the launcher, example and sharded-option phases 38-40 joined it): their
+# depth was cut so that the script stays inside its time limit
 FAMILY_CONFIGS = {
-    "deepseek_moe_16b": dict(num_layers=8),
+    "deepseek_moe_16b": dict(num_layers=4),
     "kimi_k2_1t_a32b": dict(num_layers=1, q_chunk=256),
     "llama_3_2_vision_11b": dict(num_layers=10),
 }
@@ -494,17 +538,19 @@ FAMILY_SERVE = ("deepseek_moe_16b",)
 # query head, Dh 64, Dg 64; 2.34 GB of bf16 weights) on the generate cell
 # and on serve with phase 6's requests (fp at both pools, int8, eviction
 # under RESIDENT_CAP); falcon_mamba_7b (64 Mamba1 layers, 14.56 GB, no
-# attention: no kernel runs on its paths) cut to 32 layers (RECURRENT_CUTS;
-# full depth until the pretrain phases 35-37 joined the script, which
-# must stay inside its time limit) on generate and serve, its
+# attention: no kernel runs on its paths) cut to 16 layers (RECURRENT_CUTS;
+# full depth until the pretrain phases 35-37 joined the script, 32 until
+# phases 38-40 did: the script must stay inside its time limit) and
+# zamba2_1_2b cut to 20 layers, 3 of its 6 units and the tail (full depth
+# until phases 38-40 joined the script) on generate and serve, falcon's
 # prompts cut to FAMILY_PROMPT tokens (the plain PyTorch selective scan's
 # log-depth rounds over [batch, 256, 8192, 16] fp32 chunks take most of
 # its prefill) and its tight pool the first four cut prompts' pages, the
 # null page and one more (``tight_pool_pages``), as phase 6's 644
 RECURRENT_CONFIGS = ("zamba2_1_2b", "falcon_mamba_7b")
-RECURRENT_CUTS = {"falcon_mamba_7b": dict(num_layers=32)}
+RECURRENT_CUTS = {"falcon_mamba_7b": dict(num_layers=16), "zamba2_1_2b": dict(num_layers=20)}
 FAMILY_PROMPT["falcon_mamba_7b"] = 4096
-# distill training (phase 22) also runs deepseek_moe_16b at the 8 layers
+# distill training (phase 22) also runs deepseek_moe_16b at the 4 layers
 # of FAMILY_CONFIGS and zamba2_1_2b at full depth (kernel 6 on the shared
 # block's 32 KV heads of one query head, Dh 64, once a unit)
 OTHER_TRAIN = ("gemma_2b", "granite_20b", "deepseek_moe_16b", "zamba2_1_2b")
@@ -536,21 +582,40 @@ TRAFFIC_TIERS = {"latency": 0.25, "throughput": 0.75}
 # pretraining (phases 35-37), bf16 with the configs' remat
 # ("nothing_saveable": a checkpoint a layer), weights from seed 0:
 # {arch: (cuts, batch, sequence, checkpoints and an injected failure)}.
-# qwen3_0_6b at full width and depth, the distill phase's 4 x 4096 tokens
-# (its tied 151936-token logits in fp32, 10 GB, are the largest tensor);
-# hubert_xlarge at full width and depth, 16 x 1024 frames (the same 16384
+# qwen3_0_6b at full width, the distill phase's 4 x 4096 tokens (its tied
+# 151936-token logits in fp32, 10 GB, are the largest tensor);
+# hubert_xlarge at full width, 16 x 1024 frames (the same 16384
 # a step; a row is 20 s of audio at HuBERT's 50 frames a second, near the
 # 250k-sample, 15.6 s crops it pretrains on); falcon_mamba_7b cut to 4 of its 64
 # layers and batch 1 x 2048 (its 7.3 G parameters with AdamW's two fp32
 # moments, 87 GB, do not fit one card), steps only. The learning rate is
 # 1e-2 so that every leaf the loss reads moves in bf16 on the first step
-# (a norm's scale of 1.0 moves by lr, and bf16 holds 1 - 2**-8 below it)
+# (a norm's scale of 1.0 moves by lr, and bf16 holds 1 - 2**-8 below it).
+# hubert_xlarge ran at full depth until phases 38-40 joined the script;
+# it runs half its layers so that the script stays inside its limit
 PRETRAIN_CONFIGS = {
-    "qwen3_0_6b": ({}, 4, 4096, True),
-    "hubert_xlarge": ({}, 16, 1024, True),
+    "qwen3_0_6b": (dict(), 4, 4096, True),
+    "hubert_xlarge": (dict(num_layers=24), 16, 1024, True),
     "falcon_mamba_7b": (dict(num_layers=4), 1, 2048, False),
 }
 PRETRAIN_STEPS, PRETRAIN_LR = 4, 1e-2
+# the serving launcher (phase 38): its command line at full width, nothing
+# cut, the main path's batch, prompt and new tokens, GatePolicy at a
+# 4096-token budget (then --policy quest)
+LAUNCH_BUDGET = 4096
+LAUNCH_ARGV = ["--arch", "qwen3_0_6b", "--batch", str(BATCH), "--prefill", str(PROMPT_LEN),
+               "--new", str(NEW_TOKENS), "--budget", str(LAUNCH_BUDGET)]
+# the examples (phase 39), each at its own reduced scale: serve_sparse's
+# undersized pool under eviction (its ragged requests need 34 pages at
+# its default pool of 39), quickstart's pretrain and distill steps (a few:
+# its kernels' first calls and launches are what is checked) and
+# distill_and_eval's steps (a checkpoint at step 50)
+EXAMPLE_EVICT_PAGES = 20
+QUICKSTART_STEPS = (4, 4)
+DISTILL_STEPS = 60
+# the sharded engine with every decode option (phase 40): the dense 2 /
+# select 2 / correction 14 schedule on phase 17's overridden requests
+SHARD_SCHEDULE = SelectionSchedule(dense_first_n=2, select_layer=2, correction_layers=(14,))
 # phase 2's small pretrain agreement: every family's reduced() model
 SMALL_PRETRAIN = ("qwen3_0_6b", "deepseek_moe_16b", "llama_3_2_vision_11b",
                   "falcon_mamba_7b", "zamba2_1_2b", "hubert_xlarge")
@@ -1254,13 +1319,13 @@ def tight_pool_pages(reqs, page_size):
     return sum(-(-r["tokens"].size // page_size) for r in reqs[:SERVE_SLOTS]) + 2
 
 
-def capture_paged_layer0():
-    """Patch the paged dispatchers so that their FIRST call (layer 0 of the
-    first decode step) keeps a copy of its arguments; the pools (and int8
-    scale rows) are updated in place later, so tensors are cloned. Returns
-    (seen, restore)."""
+def capture_first(names):
+    """Patch ``ops.<name>`` for each of ``names`` so that its FIRST call
+    (layer 0 of the first decode step, or of the first forward) keeps
+    clones of its arguments: pools and caches are updated in place later.
+    Returns (seen, restore)."""
     seen = {}
-    real = (ops.gate_select_paged, ops.paged_sparse_decode, ops.paged_sparse_decode_splitk)
+    real = {name: getattr(ops, name) for name in names}
 
     def copy(x):
         return x.clone() if torch.is_tensor(x) else x
@@ -1272,13 +1337,16 @@ def capture_paged_layer0():
             return fn(*a, **kw)
         return wrapper
 
-    ops.gate_select_paged = grab("gate_select_paged", real[0])
-    ops.paged_sparse_decode = grab("paged_sparse_decode", real[1])
-    ops.paged_sparse_decode_splitk = grab("paged_sparse_decode_splitk", real[2])
+    for name, fn in real.items():
+        setattr(ops, name, grab(name, fn))
 
     def restore():
-        ops.gate_select_paged, ops.paged_sparse_decode, ops.paged_sparse_decode_splitk = real
+        for name, fn in real.items():
+            setattr(ops, name, fn)
     return seen, restore
+
+
+PAGED_CALLS = ("gate_select_paged", "paged_sparse_decode", "paged_sparse_decode_splitk")
 
 
 def run_serve(eng, reqs, num_pages, n_layers, **kw):
@@ -1353,7 +1421,7 @@ def phase_serve(cfg, params, options=DecodeOptions(), shard=None, tight_pool=Tru
                                                 for r in reqs),
                        options=options, shard=shard)
     n_layers = get_api(cfg).paged_attn_layers(cfg)
-    seen, restore = capture_paged_layer0()
+    seen, restore = capture_first(PAGED_CALLS)
     coupled = cfg.family == "moe"
     traces = ({}, {})
     try:
@@ -3515,7 +3583,8 @@ def phase_frontend(cfg, params):
     through ``ServingFrontend`` with streaming, twice: equal streams and
     virtual-step stamps, the launches of the first run (layers x the decode
     steps it ran); TTFT/TPOT p50/p99 by tier in decode steps and ms
-    printed."""
+    printed. Returns (launch counts, the streamed (rid, token, index,
+    step) events), which phase 40's sharded frontend must reproduce."""
     t0 = time.perf_counter()
     trace = traffic.poisson_trace(TRAFFIC_N, TRAFFIC_RATE, seed=TRAFFIC_SEED,
                                   prompt_len=TRAFFIC_PROMPT, output_len=TRAFFIC_OUTPUT,
@@ -3567,7 +3636,378 @@ def phase_frontend(cfg, params):
               f"{row['tpot_ms_p50']:.1f}/{row['tpot_ms_p99']:.1f} ms; "
               f"{row['tok_per_s']:.1f} tok/s")
     print(f"frontend: {time.perf_counter() - t0:.1f} s")
-    return counts
+    return counts, ev[0]
+
+
+# ---------------------------------------------------------------------------
+# the serving launcher, the examples and the sharded engine with every
+# decode option (phases 38-40)
+# ---------------------------------------------------------------------------
+
+EXAMPLE_CALLS = ("gate_select", "sparse_decode", "gate_select_paged", "paged_sparse_decode",
+                 "gate_gt_attention")
+
+
+def first_run_line(name, label, kernel, plain):
+    """Print a kernel's time at an example's shape beside its plain
+    version's (``time_ms``) and the card."""
+    print(f"{name} [{label}]: kernel {time_ms(kernel):.4f} ms, plain {time_ms(plain):.4f} ms "
+          f"({card_line()})")
+
+
+def check_example_kernels(label, seen):
+    """Every kernel an example reached, against its plain version on the
+    tensors its first call got (``capture_first``), with the limits of
+    phases 3, 7 and 16: #1 and #3 ids equal up to near-tie swaps and
+    bitwise on exact ties at the same shapes (#3 also over shuffled
+    pages), the decode kernels within DECODE_ULPS of max|o_plain|, kernel 6
+    as phase 16 holds it. Each kernel's first run at this shape is timed
+    beside its plain version. Returns {kernel: max_abs_err}."""
+    errs = {}
+    if "gate_select" in seen:
+        (qg, kg, nv, gcfg, ms), _ = seen["gate_select"]
+        nb, worst = kg.shape[2], 0.0
+        for exact, (q_, k_) in ((False, (qg, kg)), (True, tie_inputs(qg, kg))):
+            checks, swaps, gap = gate_cases(
+                f"{label}: gate_select", lambda n, c: gs.gate_select_cuda(q_, k_, n, c, ms),
+                lambda n, c: gs.gate_select_plain(q_, k_, n, c, ms),
+                lambda n, c: gs.gate_scores_plain(q_, k_, n, c), nv, nb, gcfg, exact=exact)
+            worst = max(worst, gap)
+            print(f"{label}: gate_select {'exact ties, budget ids bitwise' if exact else 'captured'}"
+                  f" ({tuple(qg.shape)}, Kg {tuple(kg.shape)} {kg.dtype}): {checks} cases, "
+                  f"near-tie swaps {swaps}")
+        first_run_line("gate_select", label, lambda: gs.gate_select_cuda(qg, kg, nv, gcfg, ms),
+                       lambda: gs.gate_select_plain(qg, kg, nv, gcfg, ms))
+        errs["gate_select"] = worst
+    if "sparse_decode" in seen:
+        (q, kc, vc, idx, kv_len), kw = seen["sparse_decode"]
+        bs = kw["block_size"]
+        kernel = lambda qq, ix: bsd.sparse_decode_cuda(qq, kc, vc, ix, kv_len, block_size=bs)
+        plain = lambda qq, ix: bsd.sparse_decode_plain(qq, kc, vc, ix, kv_len, block_size=bs)
+        print(f"{label}: block_sparse_decode q {tuple(q.shape)} {q.dtype}, caches "
+              f"{tuple(kc.shape)}, block {bs}, plan {bsd.group_plan(q.shape[2], q.shape[3], bs, q.dtype)}")
+        errs["block_sparse_decode"] = check_decode(f"{label}: block_sparse_decode", kernel,
+                                                   plain, decode_cases(q, idx))
+        first_run_line("block_sparse_decode", label, lambda: kernel(q, idx),
+                       lambda: plain(q, idx))
+    if "gate_select_paged" in seen:
+        (qg, kgp, pt, nv, gcfg, ms), _ = seen["gate_select_paged"]
+        npt, worst = pt.shape[1], 0.0
+        pt_s, kgp_s = shuffled_pages(pt, kgp)
+        tq, tk = tie_inputs(qg, kgp)
+        for exact, (q_, pool, pool_s) in ((False, (qg, kgp, kgp_s)),
+                                          (True, (tq, tk, shuffled_pages(pt, tk)[1]))):
+            checks, swaps, gap = gate_cases(
+                f"{label}: gate_select_paged",
+                lambda n, c: gs.gate_select_paged_cuda(q_, pool, pt, n, c, ms),
+                lambda n, c: gs.gate_select_paged_plain(q_, pool, pt, n, c, ms),
+                lambda n, c: gs.gate_scores_plain(q_, pg.gather_kg(pool, pt), n, c), nv, npt,
+                gcfg, exact=exact,
+                shuffled=lambda n, c: gs.gate_select_paged_cuda(q_, pool_s, pt_s, n, c, ms))
+            worst = max(worst, gap)
+            print(f"{label}: gate_select_paged {'exact ties, budget ids bitwise' if exact else 'captured'}"
+                  f" (qg {tuple(qg.shape)}, pool {tuple(kgp.shape)} {kgp.dtype}): {checks} "
+                  f"cases, near-tie swaps {swaps}, bitwise over shuffled pages")
+        first_run_line("gate_select_paged", label,
+                       lambda: gs.gate_select_paged_cuda(qg, kgp, pt, nv, gcfg, ms),
+                       lambda: gs.gate_select_paged_plain(qg, kgp, pt, nv, gcfg, ms))
+        errs["gate_select_paged"] = worst
+    if "paged_sparse_decode" in seen:
+        (q, kp, vp, idx, pt_d, kv_len), kw = seen["paged_sparse_decode"]
+        bs, ks, vs = kw["block_size"], kw.get("k_scales"), kw.get("v_scales")
+        quant = ks is not None
+        name = "block_sparse_decode_paged" + ("_quant" if quant else "")
+        if quant:
+            kernel = lambda qq, ix, p=(pt_d, kp, vp, ks, vs): bsd.sparse_decode_paged_quant_cuda(
+                qq, p[1], p[2], ix, p[0], kv_len, block_size=bs, k_scales=p[3], v_scales=p[4])
+        else:
+            kernel = lambda qq, ix, p=(pt_d, kp, vp): bsd.sparse_decode_paged_cuda(
+                qq, p[1], p[2], ix, p[0], kv_len, block_size=bs)
+        plain = lambda qq, ix: bsd.sparse_decode_paged_plain(
+            qq, kp, vp, ix, pt_d, kv_len, block_size=bs, k_scales=ks, v_scales=vs)
+        shuffled = shuffled_pages(pt_d, kp, vp, *((ks, vs) if quant else ()))
+        print(f"{label}: {name} q {tuple(q.shape)} {q.dtype}, pools {tuple(kp.shape)} "
+              f"{kp.dtype}, block {bs}")
+        errs[name] = check_decode(f"{label}: {name}", kernel, plain, decode_cases(q, idx),
+                                  lambda qq, ix: kernel(qq, ix, shuffled))
+        del shuffled
+        first_run_line(name, label, lambda: kernel(q, idx), lambda: plain(q, idx))
+    if "gate_gt_attention" in seen:
+        errs["gate_gt_attention"] = phase_gt_kernel(*seen["gate_gt_attention"])[
+            "gate_gt_attention"]["max_abs_err"]
+    return errs
+
+
+def param_leaves(tree):
+    """The tensors of nested dicts and lists of parameters, in order."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in param_leaves(v)]
+    return [tree]
+
+
+def run_counted(fn, *a, names=EXAMPLE_CALLS, **kw):
+    """``fn(*a, **kw)`` with every launch counter at 0 just before and the
+    first-call arguments of each dispatcher in ``names`` captured: (its
+    result, the launch counts read just after, the captured arguments)."""
+    seen, restore = capture_first(names)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    try:
+        out = fn(*a, **kw)
+    finally:
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        restore()
+    return out, counts, seen
+
+
+def phase_launcher():
+    """Phase 38: the serving launcher's command line at full width
+    (``LAUNCH_ARGV``: qwen3_0_6b, nothing cut, GatePolicy at a 4096-token
+    budget, then ``--policy quest``), each with the launch counters at 0
+    just before and read just after: #2 launches layers x decode steps
+    times, #1 as many under the gate and none under Quest. The gate run's
+    own engine (recorded as the launcher builds it) holds parameters
+    bitwise those built here from seed 0 and measures the sparsity the
+    launcher printed; the two runs share their dense prefill, so their
+    first tokens are equal."""
+    t0 = time.perf_counter()
+    cfg = launch_serve.launch_config("qwen3_0_6b", budget=LAUNCH_BUDGET)
+    steps = NEW_TOKENS - 1
+    runs, engines, total = {}, {}, dict.fromkeys(ops.KERNELS, 0)
+    real_engine = launch_serve.DecodeEngine
+    for policy in ("gate", "quest"):
+        made = []
+
+        def recording(*a, **kw):
+            made.append(real_engine(*a, **kw))
+            return made[-1]
+        launch_serve.DecodeEngine = recording
+        try:
+            res, counts, _ = run_counted(launch_serve.main,
+                                         LAUNCH_ARGV + ["--policy", policy])
+        finally:
+            launch_serve.DecodeEngine = real_engine
+        want = dict.fromkeys(ops.KERNELS, 0)
+        want["block_sparse_decode"] = cfg.num_layers * steps
+        if policy == "gate":
+            want["gate_select"] = cfg.num_layers * steps
+        if counts != want:
+            fail(f"launcher --policy {policy}: launch counts {counts}, expected {want}")
+        toks = res["tokens"]
+        if tuple(toks.shape) != (BATCH, NEW_TOKENS) or int(toks.min()) < 0 \
+                or int(toks.max()) >= cfg.vocab_size:
+            fail(f"launcher --policy {policy}: bad tokens {tuple(toks.shape)}")
+        print(f"launcher (phase 38) --policy {policy}: prefill {res['prefill_ms']:.1f} ms, "
+              f"decode {res['decode_ms'] / steps:.2f} ms/step, {res['tok_per_s']:.1f} tok/s, "
+              f"measured sparsity {res['sparsity']:.4f}; launches {counts}; {card_line()}")
+        runs[policy], engines[policy] = res, made
+        for name, n in counts.items():
+            total[name] += n
+    if len(engines["gate"]) != 1:
+        fail(f"launcher: built {len(engines['gate'])} engines, expected 1")
+    eng = engines["gate"][0]
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    mine, theirs = param_leaves(params), param_leaves(eng.params)
+    if len(mine) != len(theirs) or not all(torch.equal(a, b) for a, b in zip(mine, theirs)):
+        fail("launcher: its parameters are not the seed-0 parameters built here")
+    stats = eng.sparsity_stats()
+    if not stats["measured"] or stats["sparsity"] != runs["gate"]["sparsity"]:
+        fail(f"launcher: printed sparsity {runs['gate']['sparsity']}, its engine measured "
+             f"{stats['sparsity']}")
+    if not torch.equal(runs["gate"]["tokens"][:, 0], runs["quest"]["tokens"][:, 0]):
+        fail("launcher: the gate and Quest runs' prefill tokens differ")
+    print(f"launcher: its engine's parameters bitwise the seed-0 ones built here, measured "
+          f"sparsity {stats['sparsity']:.4f} as printed, prefill tokens equal across policies; "
+          f"phase 38 {time.perf_counter() - t0:.1f} s")
+    del eng, engines, params, mine, theirs, runs
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_examples():
+    """Phase 39: each example at its own reduced scale (bf16, head dim 16,
+    16-token gate blocks), through its entry point, with the launch
+    counters at 0 just before and read just after: every kernel it
+    reaches launches at least once, and is held against its plain version
+    on the tensors of its first call (``check_example_kernels``).
+    ``serve_sparse``: generate, ``--paged``, ``--paged --eviction`` at an
+    undersized pool (evictions happen), ``--paged --quantize int8``;
+    ``serve_stream`` (its default Poisson trace); ``quickstart``
+    (QUICKSTART_STEPS); ``distill_and_eval --size small`` (DISTILL_STEPS,
+    its checkpoints in a temporary directory, removed after). Returns
+    (launch counts, {kernel: [max_abs_err]})."""
+    t_all = time.perf_counter()
+    total, errs = dict.fromkeys(ops.KERNELS, 0), {}
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_distill_")
+    runs = [
+        ("serve_sparse", serve_sparse.main, ([],), {}, ("gate_select", "block_sparse_decode")),
+        ("serve_sparse --paged", serve_sparse.main, (["--paged"],), {},
+         ("gate_select_paged", "block_sparse_decode_paged")),
+        ("serve_sparse --paged --eviction", serve_sparse.main,
+         (["--paged", "--pool-pages", str(EXAMPLE_EVICT_PAGES), "--eviction"],), {},
+         ("gate_select_paged", "block_sparse_decode_paged")),
+        ("serve_sparse --paged --quantize int8", serve_sparse.main,
+         (["--paged", "--quantize", "int8"],), {},
+         ("gate_select_paged", "block_sparse_decode_paged_quant")),
+        ("serve_stream", serve_stream.main, (["--quiet"],), {},
+         ("gate_select_paged", "block_sparse_decode_paged")),
+        ("quickstart", quickstart.quickstart, (),
+         dict(pretrain_steps=QUICKSTART_STEPS[0], distill_steps=QUICKSTART_STEPS[1]),
+         ("gate_gt_attention", "gate_select", "block_sparse_decode")),
+        ("distill_and_eval --size small", distill_and_eval.distill_and_eval, ("small",),
+         dict(steps=DISTILL_STEPS, ckpt_dir=ckpt_dir), ("gate_gt_attention",)),
+    ]
+    try:
+        for label, fn, a, kw, reached in runs:
+            t0 = time.perf_counter()
+            res, counts, seen = run_counted(fn, *a, **kw)
+            missing = [k for k in reached if counts[k] < 1]
+            if missing:
+                fail(f"{label}: no launch of {missing} (counts {counts})")
+            if label.endswith("--eviction") and res["stats"]["evictions"] < 1:
+                fail(f"{label}: the pool of {EXAMPLE_EVICT_PAGES} pages evicted nothing")
+            if "--paged" in label or label == "serve_stream":
+                st = res["stats"]
+                if st["errors"]:
+                    fail(f"{label}: errors {st['errors']}")
+            if label == "quickstart" and not all(math.isfinite(x) for x in res["ce"] + res["kl"]):
+                fail("quickstart: non-finite loss")
+            if label.startswith("distill_and_eval"):
+                if not all(math.isfinite(h["kl"]) for h in res["history"]):
+                    fail("distill_and_eval: non-finite KL")
+                print(f"{label}: recalls by token budget {res['recalls']}")
+            t_run = time.perf_counter() - t0
+            for name, err in check_example_kernels(label, seen).items():
+                errs.setdefault(name, []).append(err)
+            print(f"{label} (phase 39): {t_run:.1f} s, launches "
+                  + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+            for name, n in counts.items():
+                total[name] += n
+            del res, seen
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 39: {time.perf_counter() - t_all:.1f} s")
+    return total, errs
+
+
+def sharded_option_requests(vocab):
+    """Phase 6's requests with phase 17's overrides: rids 0 and 1 capped
+    at OVERRIDE_BUDGET tokens, rids 2 and 3 sampling at OVERRIDE_SAMPLING."""
+    reqs = serve_requests(vocab)
+    for rid in (0, 1):
+        reqs[rid]["budget"] = OVERRIDE_BUDGET
+    for rid in (2, 3):
+        reqs[rid]["sampling"] = OVERRIDE_SAMPLING
+    return reqs
+
+
+def phase_sharded_options(shard, frontend_stream):
+    """Phase 40: the head-sharded engine at full width on the one-rank
+    NCCL group with every decode option: the SHARD_SCHEDULE schedule,
+    phase 17's budgets and sampling on phase 6's requests. At split_k 1
+    the tokens and logits are bitwise the unsharded engine's same run,
+    its stats equal; at SPLIT_K the first decode step's logits lie within
+    DECODE_ULPS bf16 ulps (phase 11's rule). Each with the launch counters
+    at 0 just before and read just after (``stage_counts``). #3 and #4
+    (5 at SPLIT_K) on the captured layer-0 call of a selecting layer's
+    carried plan and budget caps against their plain versions. Then phase
+    29's Poisson trace on the sharded engine through ``ServingFrontend``:
+    its stream equals phase 29's unsharded ``frontend_stream``. Returns (launch counts,
+    {kernel: [max_abs_err]})."""
+    t_all = time.perf_counter()
+    cfg = configs.get("qwen3_0_6b")
+    params = init_lm(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    reqs = sharded_option_requests(cfg.vocab_size)
+    max_len = max(r["tokens"].size + r["max_new_tokens"] for r in reqs)
+    opts = DecodeOptions(schedule=SHARD_SCHEDULE)
+    total, errs, res = dict.fromkeys(ops.KERNELS, 0), {}, {}
+    for label, o, sh in (("unsharded", opts, None), ("sharded", opts, shard),
+                         (f"sharded, split_k {SPLIT_K}", opts.replace(split_k=SPLIT_K), shard)):
+        eng = DecodeEngine(cfg, params, max_len=max_len, options=o, shard=sh)
+        out, counts, seen = run_counted(eng.serve, [dict(r) for r in reqs],
+                                        names=EXAMPLE_CALLS + ("paged_sparse_decode_splitk",),
+                                        n_slots=SERVE_SLOTS, collect_logits=True)
+        st = out["stats"]
+        want = stage_counts(o, cfg.num_layers, st["decode_steps"])
+        if counts != want:
+            fail(f"phase 40 {label}: launch counts {counts}, expected {want}")
+        if st["errors"] or st["retired"] != len(reqs):
+            fail(f"phase 40 {label}: errors {st['errors']}")
+        print(f"phase 40 {label} serve: wall {st['wall_s']:.2f} s, {st['decode_steps']} decode "
+              f"steps, sparsity by rid " + ", ".join(f"{k}: {v:.4f}" for k, v in
+                                                  st["sparsity_by_rid"].items())
+              + f"; sel blocks by rid {st['sel_blocks_by_rid']}; launches {counts}")
+        if sh is not None:
+            if o.split_k == 1:
+                first_ids = seen["paged_sparse_decode"][0][3].cpu()
+            for name, n in counts.items():
+                total[name] += n
+            for name, err in check_example_kernels(f"phase 40 {label}", seen).items():
+                errs.setdefault(name, []).append(err)
+            if "paged_sparse_decode_splitk" in seen:
+                errs.setdefault("block_sparse_decode_paged_splitk", []).append(
+                    phase_splitk_kernels(seen, source=f"phase 40 {label}")[
+                        "block_sparse_decode_paged_splitk"]["max_abs_err"])
+        res[label] = out
+        del eng, seen
+    base, one, split = res["unsharded"], res["sharded"], res[f"sharded, split_k {SPLIT_K}"]
+    for r in reqs:
+        rid = r["rid"]
+        if one[rid] != base[rid] or not np.array_equal(one["logits"][rid], base["logits"][rid]):
+            fail(f"phase 40: the sharded run's rid {rid} is not bitwise the unsharded run's")
+    for key in ("decode_steps", "peak_pages_used", "preemptions", "sparsity_by_rid",
+                "sel_blocks_by_rid"):
+        if one["stats"][key] != base["stats"][key]:
+            fail(f"phase 40: sharded {key} {one['stats'][key]} != {base['stats'][key]}")
+    # rids 0 and 1 hold slots 0 and 1 at the first decode step: the first
+    # selecting layer's lists (the plan the next layers carry) keep their cap
+    cap = OVERRIDE_BUDGET // cfg.gate.block_size
+    live = (first_ids >= 0).sum(-1)
+    if not bool((live[:2] == cap).all()) or not bool((live[2:] > cap).all()):
+        fail(f"phase 40: live entries a list at the first selecting layer {live.tolist()}, "
+             f"expected {cap} for the capped rids 0 and 1 and more for the others")
+    worst = 0.0
+    for rid in range(SERVE_SLOTS):                 # admitted at step 0: same step
+        a, b = base["logits"][rid][1], split["logits"][rid][1]
+        ulp = 2.0 ** -7 * 2.0 ** math.floor(math.log2(float(np.abs(a).max())))
+        worst = max(worst, float(np.abs(a - b).max()) / ulp)
+    if worst > DECODE_ULPS:
+        fail(f"phase 40: split_k {SPLIT_K}'s first decode step {worst:.2f} bf16 ulps from the "
+             f"unsharded run's (limit {DECODE_ULPS})")
+    print(f"phase 40: sharded at split_k 1 bitwise the unsharded run (tokens, logits, steps, "
+          f"sparsity and selected blocks by rid) under {SHARD_SCHEDULE}, budgets on rids 0, 1 "
+          f"and sampling on rids 2, 3; split_k {SPLIT_K} first decode step within {worst:.3f} "
+          f"bf16 ulps of max|logit| (limit {DECODE_ULPS})")
+    del res, base, one, split
+    # open-loop arrivals on the sharded engine: phase 29's trace, against
+    # phase 29's stream (``frontend_stream``)
+    trace = traffic.poisson_trace(TRAFFIC_N, TRAFFIC_RATE, seed=TRAFFIC_SEED,
+                                  prompt_len=TRAFFIC_PROMPT, output_len=TRAFFIC_OUTPUT,
+                                  tiers=TRAFFIC_TIERS)
+    eng = DecodeEngine(cfg, params, max_len=TRAFFIC_PROMPT[1] + TRAFFIC_OUTPUT[1], shard=shard)
+    fe = ServingFrontend(eng, tier_policy=default_tiers(cfg), n_slots=SERVE_SLOTS)
+    out, counts, _ = run_counted(fe.run, trace, collect_events=True)
+    if out["stats"]["errors"]:
+        fail(f"phase 40 frontend: errors {out['stats']['errors']}")
+    stream = [(x.rid, x.token, x.index, x.step) for x in out["events"]]
+    if stream != frontend_stream:
+        fail("phase 40: the sharded frontend's stream differs from phase 29's")
+    for name, n in counts.items():
+        total[name] += n
+    tiers = {t: (row["ttft_steps_p99"], row["tpot_steps_p99"])
+             for t, row in out["stats"]["tiers"].items()}
+    print(f"phase 40 frontend (sharded): {len(stream)} tokens streamed at phase 29's steps, "
+          f"{out['stats']['decode_steps']} steps, wall {out['stats']['wall_s']:.2f} s, TTFT/TPOT "
+          f"p99 in steps by tier {tiers}; launches {counts}; phase 40 "
+          f"{time.perf_counter() - t_all:.1f} s")
+    del eng, fe, out
+    del params
+    torch.cuda.empty_cache()
+    return total, errs
 
 
 def main() -> int:
@@ -3674,7 +4114,8 @@ def run_phases(shard) -> int:
     # eviction path's kernel errors the kernels' max_abs_err
     more, ev_errs = phase_pressure(cfg, params, shard, fp_runs, q8_ample, sh_ample, shq_ample)
     del fp_runs, q8_ample, sh_ample, shq_ample
-    for c in (more, phase_faults(cfg, params), phase_frontend(cfg, params)):
+    fe_counts, frontend_stream = phase_frontend(cfg, params)
+    for c in (more, phase_faults(cfg, params), fe_counts):
         for name, n in c.items():
             counts[name] += n
     for name, more_errs in ev_errs.items():
@@ -3727,6 +4168,18 @@ def run_phases(shard) -> int:
     # pretraining: no kernel (plain attention and scans, as in the reference)
     for arch in PRETRAIN_CONFIGS:
         phase_pretrain(arch)
+    # the serving launcher, the examples and the sharded engine with every
+    # decode option: their launches join the counts, their errors the
+    # kernels' max_abs_err
+    c38 = phase_launcher()
+    c39, e39 = phase_examples()
+    c40, e40 = phase_sharded_options(shard, frontend_stream)
+    for c in (c38, c39, c40):
+        for name, n in c.items():
+            counts[name] += n
+    for e in (e39, e40):
+        for name, errs in e.items():
+            numbers[name]["max_abs_err"] = max([numbers[name]["max_abs_err"], *errs])
 
     meta = {
         "gate_select": ("src/repro_torch/kernels/csrc/gate_select.cu",

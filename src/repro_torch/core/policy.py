@@ -165,6 +165,10 @@ class SelectionInputs(NamedTuple):
     # int8 K pool scales: a policy that reads raw ``k_pages`` dequantizes
     # first, so selection sees what attention reads
     k_scale_pages: Optional[torch.Tensor] = None  # [P, Hkv, 1] float32
+    # the head-sharded paged step: the views hold this rank's KV heads,
+    # and the gate's cross-head reduction (``unify_heads``) spans the
+    # ranks (the engine shards GatePolicy and DensePolicy only)
+    shard: Optional[Any] = None
 
     @property
     def n_kv_heads(self) -> int:
@@ -206,9 +210,12 @@ def _grouped_q(inp: SelectionInputs) -> torch.Tensor:
     return inp.qr[:, 0].reshape(b, hkv, h // hkv, dh)
 
 
-def _unify_scores(scores: torch.Tensor) -> torch.Tensor:
-    """[B, Hkv, nb] -> [B, 1, nb]: the cross-head max."""
-    return torch.amax(scores, dim=1, keepdim=True)
+def _unify_scores(scores: torch.Tensor, shard=None) -> torch.Tensor:
+    """[B, Hkv, nb] -> [B, 1, nb]: the cross-head max; with a ``shard``
+    the scores hold this rank's heads, and their max is reduced over the
+    ranks too (exact: every rank gets the unsharded max)."""
+    m = torch.amax(scores, dim=1, keepdim=True)
+    return m if shard is None else shard.all_max(m)
 
 
 def _broadcast_heads(idx: torch.Tensor, hkv: int) -> torch.Tensor:
@@ -257,7 +264,8 @@ class GatePolicy:
             # the masked fp32 scores, max-reduced over heads BEFORE the
             # threshold method's softmax
             scores = _unify_scores(gs.gate_scores_plain(
-                qg, kg, n_valid, dataclasses.replace(cfg.gate, method="budget")))
+                qg, kg, n_valid, dataclasses.replace(cfg.gate, method="budget")),
+                inp.shard)
             if cfg.gate.method == "threshold":
                 scores = torch.softmax(scores, dim=-1)
             idx, _ = sp.select_blocks(scores, n_valid, cfg.gate, max_selected)

@@ -4,8 +4,8 @@ The QKV projection, the policy gate, the decode-aux telemetry and the
 paged per-layer decode body (``attention_decode_paged`` ->
 ``block_decode_paged``) of the JAX package's ``models/attn_core.py``:
 the unstaged and the staged (SelectionSchedule) branch with per-request
-budget caps, unsharded or (unstaged, uncapped) over a rank's KV heads,
-over fp or int8 page pools, with the metadata pools of Quest, the
+budget caps, unsharded or over a rank's KV heads, over fp or int8 page
+pools, with the metadata pools of Quest, the
 block's feed-forward (dense or MoE, ``ffn``), and the
 RaaS eviction telemetry (``DecodeOptions.track_evictions``: the
 touched-pages mask and the clamped K/V table).
@@ -182,7 +182,12 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     collective inside the layer, and o and the selected ids are
     all-gathered to full heads, in one collective, before ``wo``. Attention is independent
     per KV head, so at ``split_k=1`` the step is bitwise the unsharded
-    one. The sharded body takes neither a schedule nor budget caps.
+    one. A carried ``plan`` is then this rank's KV heads' ids [S,
+    Hkv/world, k]: a reusing layer attends it with no collective, a dense
+    layer passes it through, and ``budget_blocks`` (replicated) caps the
+    local lists. ``unify_heads`` max-reduces the gate scores over the
+    rank's heads and then over ranks (one ``all_max`` a selecting layer),
+    so every rank ranks the unsharded run's scores.
 
     ``options.track_evictions`` (RaaS page eviction): the page table may
     hold GHOST ids (>= the K/V pool size) for evicted blocks. They are
@@ -208,10 +213,6 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
              if options.track_evictions else page_table)
     gate = p.get("gate")
     if shard is not None:                  # this rank's KV heads and their queries
-        if stage is not None or budget_blocks is not None:
-            raise NotImplementedError(
-                "the sharded paged body takes no selection schedule and no "
-                "per-request budgets (Queue A item 6, sharded remainder)")
         kr, v, q, qr = (shard.head_slice(x, 2) for x in (kr, v, q, qr))
         if gate is not None:
             gate = {name: shard.head_slice(w, 0) for name, w in gate.items()}
@@ -242,7 +243,7 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
                               gate_params=gate, kg_pages=kg_pages,
                               k_pages=k_pages, page_table=page_table,
                               kmin_pages=kmin_pages, kmax_pages=kmax_pages,
-                              k_scale_pages=k_scale)
+                              k_scale_pages=k_scale, shard=shard)
         idx = policy.select(inp, cfg, max_selected=options.max_selected(cfg),
                             unify_heads=options.schedule.unify_heads)
     if sparse_on and stage != STAGE_DENSE:

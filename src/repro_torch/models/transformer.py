@@ -16,9 +16,10 @@ decode). Ported: the full-sequence forward in both training modes
 paged one (``lm_decode_step_paged`` over ``attn_core.block_decode_paged``;
 not for cross-attention models, which the reference refuses too), each
 with the staged branch of a plan-carrying SelectionSchedule and Quest's
-metadata cache, unsharded, or (gate or dense, trivial schedule) sharded
-(``serve/sharded.py``: the contiguous caches split along the sequence,
-the page pools over the KV heads; the experts replicated on every rank).
+metadata cache, unsharded, or sharded: the contiguous caches split
+along the sequence (``serve/sharded.py``; gate or dense, trivial
+schedule), the page pools over the KV heads (any schedule, budget caps);
+the experts replicated on every rank.
 
 Differences of idiom, not of result:
   * parameters are a dict whose ``"blocks"`` entry is a LIST of per-layer
@@ -630,9 +631,12 @@ def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     With a ``shard`` and GatePolicy on a gated layer the step is the
     sequence-sharded one (``serve.sharded.sharded_sparse_decode``): the
     caches are this rank's part along the sequence, and the measured
-    sparsity comes from the selection counts summed over ranks. A shard
-    with any other selecting layer raises, as in the reference; a dense
-    policy runs unsharded on the replicated caches.
+    sparsity comes from the selection counts summed over ranks. Its
+    selection is fused into the collectives, so it carries no plan and
+    no cross-head reduction: a shard with any other selecting layer or a
+    non-trivial schedule raises, as the reference refuses a plan there
+    (``serve`` takes schedules on a sharded engine); a dense policy runs
+    unsharded on the replicated caches.
     """
     b = x1.shape[0]
     dh, hkv, g = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.gqa_group
@@ -646,11 +650,13 @@ def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     kr = apply_rope(k, pos, cfg.rope_theta)
 
     if shard is not None and not policy.dense:
-        if not (sparse_on and policy.needs_gate and "gate" in p) or stage is not None:
+        if not (sparse_on and policy.needs_gate and "gate" in p) \
+                or not options.schedule.is_trivial:
             raise ValueError(
                 "sharded decoding on the contiguous path needs GatePolicy on a "
-                "gated layer and the trivial schedule; other policies run "
-                "unsharded")
+                "gated layer and the trivial schedule (its selection is fused "
+                "into the collectives and carries no plan); serve() takes "
+                "schedules on a sharded engine")
         qg = ag.gate_q(p["gate"], q_nope, pos, cfg.gate)[:, 0]    # [B,Hkv,Dg]
         o, n_sel = sharded_sparse_decode(
             qg, qr[:, 0].reshape(b, hkv, g, dh), kr[:, 0], v[:, 0], k_cache, v_cache,
@@ -747,15 +753,17 @@ def cross_block_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig,
     return x1 + mlp(p["mlp"], rms_norm(p["ln2"], x1, cfg.norm_eps), cfg.activation)
 
 
-def _plan0(options: DecodeOptions, cfg: ModelConfig, batch: int, nb: int, device):
-    """The layer stages and the empty plan [B, Hkv, width] of a
-    plan-carrying schedule, or (None, None)."""
+def _plan0(options: DecodeOptions, cfg: ModelConfig, batch: int, nb: int, device,
+           hkv: Optional[int] = None):
+    """The layer stages and the empty plan [B, hkv, width] of a
+    plan-carrying schedule, or (None, None); ``hkv`` defaults to every KV
+    head (a head-sharded step carries its rank's)."""
     if not options.schedule.needs_plan:
         return None, None
     stages = options.schedule.layer_stages(n_self_layers(cfg))
     width = selection_width(options.policy, cfg, nb, options.max_selected(cfg))
-    return stages, torch.full((batch, cfg.n_kv_heads, width), -1, dtype=torch.int32,
-                              device=device)
+    hkv = cfg.n_kv_heads if hkv is None else hkv
+    return stages, torch.full((batch, hkv, width), -1, dtype=torch.int32, device=device)
 
 
 def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
@@ -834,14 +842,16 @@ def lm_decode_step_paged(params: Params, pages, slot_state,
     live pages nor advance. A plan-carrying ``options.schedule`` stages
     the layers as ``lm_decode_step`` does, the plan's width from the page
     table's logical-block count. With a ``shard`` the pools hold this
-    rank's KV heads (``attn_core.attention_decode_paged``). A
+    rank's KV heads (``attn_core.attention_decode_paged``), and so does
+    the carried plan. A
     cross-attention model has no paged step (the reference refuses it)."""
     _check_family(cfg, decode=True)
     if cfg.cross_attn_period:
         raise NotImplementedError("paged decode: cross-attn families TBD")
     options = options if options is not None else default_options(cfg)
     x1 = params["embed"]["w"][token[:, None]]
-    stages, plan = _plan0(options, cfg, token.shape[0], page_table.shape[1], x1.device)
+    stages, plan = _plan0(options, cfg, token.shape[0], page_table.shape[1], x1.device,
+                          None if shard is None else shard.local_heads(cfg.n_kv_heads))
     auxs = []
     for i, lp in enumerate(params["blocks"]):
         layer_pages = tuple(None if pool is None else pool[i] for pool in pages)

@@ -43,14 +43,18 @@ each layer's attention output over ranks; ``generate`` splits the
 prefilled caches along the sequence. Every rank computes the same logits,
 so the replicated scheduler takes the same decisions everywhere, and the
 stats a rank returns are the unsharded run's (swap bytes summed over
-ranks). A sharded engine takes GatePolicy or DensePolicy under the
-trivial schedule, greedy sampling and no request budgets. On a CUDA
+ranks). A sharded engine takes GatePolicy or DensePolicy, and ``serve``
+on it takes every decode option of the unsharded one: a
+SelectionSchedule (the carried plan holds the rank's heads; the gate's
+``unify_heads`` max is reduced over ranks), per-request budgets and
+sampling, and open-loop arrivals. Sampling reads the replicated logits
+and every rank draws from the same seeded generator, so every rank picks
+the same token. ``generate``'s sequence-sharded step takes the trivial
+schedule only, as the reference's does. On a CUDA
 device every layer's selection and sparse attention go through the
 hand-written kernels (``kernels/ops.py``), or, for the policies the
 reference scores in jnp, through plain PyTorch on the card; on the CPU
 through the kernels' plain PyTorch versions.
-What the sharded paths still lack (Queue A item 6's sharded remainder)
-raises ``NotImplementedError`` naming the item.
 """
 from __future__ import annotations
 
@@ -109,12 +113,6 @@ class DecodeEngine:
         if shard is not None and not isinstance(options.policy, (GatePolicy, DensePolicy)):
             raise ValueError("sharded decoding supports GatePolicy (distributed gate "
                              "top-k) or DensePolicy only")
-        if shard is not None and not options.schedule.is_trivial:
-            raise _not_ported("a sharded engine", 6, "a non-trivial SelectionSchedule "
-                              "on the sharded paths")
-        if shard is not None and not options.sampling.greedy:
-            raise _not_ported("a sharded engine", 6, "stochastic sampling on the "
-                              "sharded paths")
         self.shard = shard
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -176,7 +174,14 @@ class DecodeEngine:
         (any device) feeds a stochastic ``options.sampling``, default seed 0
         on the engine's device; greedy decoding consumes no randomness. On
         a sharded engine with a selecting policy the prefill is replicated,
-        then each rank keeps its part of the caches along the sequence."""
+        then each rank keeps its part of the caches along the sequence;
+        that step takes the trivial schedule only, and any other raises
+        ValueError before the prefill."""
+        if self._seq_sharded() and not self.options.schedule.is_trivial:
+            raise ValueError(
+                "sharded generate needs the trivial schedule (its selection is "
+                "fused into the collectives and carries no plan); serve() takes "
+                "schedules on a sharded engine")
         self._last_aux = self._last_active = None   # stats reflect THIS run
         generator = self._generator(generator)
         t0 = time.perf_counter()
@@ -283,9 +288,8 @@ class DecodeEngine:
         swap-tier, eviction and fault telemetry, the lifecycle stamps and
         the measured sparsity per request; ``res["logits"]`` (rid -> [n, V]
         fp32, prefill token included) when ``collect_logits``. A sharded
-        engine takes no request budgets, stochastic sampling or arrivals
-        (Queue A item 6's sharded remainder) and raises
-        ``NotImplementedError`` for them. A cross-attention (vision) model
+        engine takes all of these; its scheduler is replicated and takes
+        the same decisions on every rank. A cross-attention (vision) model
         has no paged step, in the reference neither, and raises
         ``NotImplementedError`` before any work.
         """
@@ -305,9 +309,6 @@ class DecodeEngine:
                     "arrivals requires table_pages (page-table width >= any "
                     "arriving request's lifetime pages) — the engine cannot "
                     "size the table from an undrained arrival process")
-            if self.shard is not None:
-                raise _not_ported("serve(arrivals=...) on a sharded engine", 6,
-                                  "per-request budgets on the sharded paths")
 
         reqs: List[Request] = []
         rho_n: Dict[Any, int] = {}
@@ -335,13 +336,6 @@ class DecodeEngine:
             return req
 
         for rd in requests:
-            if self.shard is not None:
-                if rd.get("budget") is not None:
-                    raise _not_ported("request 'budget' override", 6,
-                                      "per-request budgets on the sharded paths")
-                if not (rd.get("sampling") or smp.GREEDY).greedy:
-                    raise _not_ported("request 'sampling' override", 6,
-                                      "stochastic sampling on the sharded paths")
             register(rd)
         if not reqs and arrivals is None:
             return ServeResult(stats={})

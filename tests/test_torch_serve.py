@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import capture_golden_policy as G
 from repro.core.policy import DecodeOptions as JOptions
@@ -222,7 +223,7 @@ def test_sparsity_stats_match_jax_after_generate_and_serve(models, jax_runs):
     assert len(stats["sparsity_rows"]) < 3          # the last step had idle slots
 
 
-def test_unported_options_raise(models):
+def test_unported_options_raise(models, tmp_path):
     eng = port_engine(models, "budget")
     jcfg, jparams = models["budget"][:2]
     reqs = requests(jcfg, [(9, 3)])
@@ -251,20 +252,26 @@ def test_unported_options_raise(models):
             assert got[rid] == want[rid] and len(got[rid]) > 0
         assert got["stats"]["errors"] == want["stats"]["errors"] == {}
     assert seen["port"] == seen["jax"] and len(seen["port"]) == 3
-    # a sharded engine refuses the item-6 pieces its paths lack (a Shard
-    # stub: every refusal comes before any collective)
+    # a sharded engine takes the decode options it once refused (a Shard
+    # stub: construction makes no collective) ...
     stub = object.__new__(Shard)
     stub.rank, stub.world, stub.group, stub.device = 0, 1, None, torch.device("cpu")
     for opts in (TOptions(schedule=TSchedule(unify_heads=True)),
                  TOptions(schedule=TSchedule(select_layer=0)),
                  TOptions(sampling=SamplingParams(temperature=0.7))):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            DecodeEngine(models["budget"][2], models["budget"][3], max_len=64,
-                         device="cpu", options=opts, shard=stub)
-    sharded = port_engine(models, "budget", shard=stub)
-    for key, val in (("budget", 16), ("sampling", SamplingParams(temperature=1.0))):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            sharded.serve([dict(reqs[0], **{key: val})])
+        assert DecodeEngine(models["budget"][2], models["budget"][3], max_len=64,
+                            device="cpu", options=opts, shard=stub).options == opts
+    # ... and serves the request overrides on a one-rank gloo group as the
+    # unsharded engine does (two ranks: tests/test_torch_sharded_options.py)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        sharded = port_engine(models, "budget", shard=Shard())
+        for key, val in (("budget", 16), ("sampling", SamplingParams(temperature=1.0))):
+            rd = [dict(reqs[0], **{key: val})]
+            assert sharded.serve(rd)[0] == eng.serve(rd)[0]
+    finally:
+        dist.destroy_process_group()
     q8 = TOptions(quantize="int8")
     assert q8.quantize == "int8" and q8 == TOptions(quantize="int8")
     with pytest.raises(ValueError, match="quantize"):

@@ -1,5 +1,6 @@
-"""Child-process bodies of tests/test_torch_sharded.py: the port's sharded
-serving over a gloo process group, one process per rank.
+"""Child-process bodies of tests/test_torch_sharded.py and
+tests/test_torch_sharded_options.py: the port's sharded serving over a
+gloo process group, one process per rank.
 
 This module imports torch, numpy and the port only: it is what the child
 processes import (the test module imports JAX for the reference, and a
@@ -8,6 +9,7 @@ target of ``torch.multiprocessing.spawn``; it joins the group through a
 ``file://`` store, runs one task and saves the task's result to
 ``<out_dir>/<task>-<rank>.pt`` for the parent to check.
 """
+import contextlib
 import os
 
 import numpy as np
@@ -15,11 +17,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.convert import params_from_numpy
-from repro_torch.core.policy import DecodeOptions, DensePolicy
+from repro_torch.core import policy as TP
+from repro_torch.core.policy import DecodeOptions, DensePolicy, SelectionSchedule
 from repro_torch.distributed.sharding import Shard, decode_partition, seq_shard_state
 from repro_torch.serve import paging as pg
 from repro_torch.serve.engine import DecodeEngine
 from repro_torch.serve.eviction import EvictionConfig
+from repro_torch.serve.frontend import ServingFrontend
+from repro_torch.serve.sampling import SamplingParams
 
 # a resident cap under the lists' width: evicts, faults and replays
 EVICT = dict(n_slots=4, num_pages=10, eviction=EvictionConfig(max_resident_pages=2))
@@ -166,4 +171,113 @@ def moe_cases(shard, cfg, np_params, reqs, gen_job):
     return out
 
 
-TASKS = {"serve": serve_cases, "generate": generate_teacher_forced, "moe": moe_cases}
+# ---------------------------------------------------------------------------
+# every decode option on the head-sharded serve (tests/test_torch_sharded_options.py)
+# ---------------------------------------------------------------------------
+
+# the dense 2 / select 2 / correction 14 schedule needs 15 layers; the
+# other options run on the 2-layer tiny config (fewer collectives a step)
+OPTION_LAYERS = 15
+SCHEDULE = dict(dense_first_n=2, select_layer=2, correction_layers=(14,))
+OPTION_SPECS = [(20, 8), (18, 7), (22, 6)]
+BUDGETS = {0: {"budget": 16}, 1: {"budget": 20}}
+# name -> (layers, DecodeOptions, per-request overrides by rid, serve kwargs)
+OPTION_CASES = {
+    "schedule": (OPTION_LAYERS, DecodeOptions(schedule=SelectionSchedule(**SCHEDULE)), {},
+                 {}),
+    "schedule-unify": (OPTION_LAYERS, DecodeOptions(schedule=SelectionSchedule(
+        **SCHEDULE, unify_heads=True)), {}, {}),
+    "budgets": (2, DecodeOptions(), BUDGETS, {}),
+    "sampling": (2, DecodeOptions(sampling=SamplingParams(temperature=0.8, top_p=0.95)),
+                 {0: {"sampling": SamplingParams(temperature=0.7, top_k=50, top_p=0.9)}},
+                 dict(sample_seed=3)),
+    "arrivals": (2, DecodeOptions(), {}, {}),
+    # split-K under a carried plan and budget caps: within the bf16-ulp rule
+    "schedule-budgets-split4": (OPTION_LAYERS, DecodeOptions(
+        schedule=SelectionSchedule(**SCHEDULE), split_k=4), BUDGETS, {}),
+}
+# pool -> serve kwargs of the closed-loop cases / ServingFrontend kwargs
+POOLS = {"ample": dict(n_slots=3), "tight": dict(n_slots=3, num_pages=7)}
+FRONTEND_POOLS = {"ample": dict(n_slots=3), "tight": dict(n_slots=3, num_pages=10)}
+# the stochastic sequence-sharded generate: options, prompt shape, new tokens
+GEN_SAMPLING = DecodeOptions(sampling=SamplingParams(temperature=0.8, top_p=0.95))
+GEN_SHAPE, GEN_NEW = (2, 24), 6
+OPTION_RUNS = [(name, pool) for name in OPTION_CASES for pool in POOLS
+               if not (name.endswith("split4") and pool == "tight")]
+STEP_STATS = ("preemptions", "resumed", "decode_steps", "peak_pages_used",
+              "swapped_out_bytes", "swapped_in_bytes", "sparsity_by_rid",
+              "sel_blocks_by_rid", "errors", "rejected_arrivals")
+STEP_STAMPS = ("submit_step", "admit_step", "first_token_step", "retire_step", "n_tokens")
+
+
+@contextlib.contextmanager
+def recording_gate_ids():
+    """Every id list ``GatePolicy.select`` returns while the block runs,
+    in call order (numpy copies)."""
+    real = TP.GatePolicy.select
+    ids = []
+
+    def recording(self, inp, cfg, **kw):
+        idx = real(self, inp, cfg, **kw)
+        ids.append(idx.clone().numpy())
+        return idx
+    TP.GatePolicy.select = recording
+    try:
+        yield ids
+    finally:
+        TP.GatePolicy.select = real
+
+
+def option_case(shard, cfg, params, name, pool, reqs, trace):
+    """One OPTION_RUNS case on ``shard`` (None: the unsharded engine):
+    its tokens, logits, the gate's id lists and the step-clock stats. The
+    unsharded engine runs a split-K case at one split."""
+    _, opts, extra, serve_kw = OPTION_CASES[name]
+    if shard is None:
+        opts = opts.replace(split_k=1)
+    eng = DecodeEngine(cfg, params, max_len=64, device="cpu", shard=shard, options=opts)
+    with recording_gate_ids() as ids:
+        if name == "arrivals":
+            res = ServingFrontend(eng, tier_policy=TP.default_tiers(cfg),
+                                  **FRONTEND_POOLS[pool]).run(trace, collect_logits=True)
+        else:
+            res = eng.serve([dict(r, **extra.get(r["rid"], {})) for r in reqs],
+                            collect_logits=True, **POOLS[pool], **serve_kw)
+    st = res["stats"]
+    rids = [e.rid for e in trace] if name == "arrivals" else [r["rid"] for r in reqs]
+    out = {"tokens": {rid: res[rid] for rid in rids}, "logits": res["logits"],
+           "ids": ids, "stats": {k: st[k] for k in STEP_STATS},
+           "timing": {rid: {k: st["timing_by_rid"][rid][k] for k in STEP_STAMPS}
+                      for rid in rids}}
+    if name == "arrivals":
+        out["tiers"] = {tier: {k: v for k, v in row.items() if "steps" in k or k == "n"}
+                        for tier, row in st["tiers"].items()}
+    return out
+
+
+def sampled_generate(shard, cfg, params, options=GEN_SAMPLING):
+    """``generate`` of a fixed [2, 24] batch on ``shard`` (None: the
+    unsharded engine) under ``options``, drawing from a generator of seed 3;
+    returns the tokens [2, GEN_NEW]."""
+    toks = np.random.default_rng(11).integers(0, cfg.vocab_size, GEN_SHAPE).astype(np.int32)
+    eng = DecodeEngine(cfg, params, max_len=64, device="cpu", shard=shard, options=options)
+    res = eng.generate({"tokens": toks}, GEN_NEW, generator=torch.Generator().manual_seed(3))
+    return res["tokens"].numpy()
+
+
+def option_cases(shard, models, reqs, trace):
+    """Every OPTION_RUNS case on this rank, then the stochastic sharded
+    ``generate`` on the 2-layer model (key ``"generate-sampling"``), in one
+    process group; ``models`` maps a case's layer count to its (config,
+    numpy parameters)."""
+    params = {n: params_from_numpy(p, cfg, "cpu") for n, (cfg, p) in models.items()}
+    out = {}
+    for name, pool in OPTION_RUNS:
+        n = OPTION_CASES[name][0]
+        out[name, pool] = option_case(shard, models[n][0], params[n], name, pool, reqs, trace)
+    out["generate-sampling"] = sampled_generate(shard, models[2][0], params[2])
+    return out
+
+
+TASKS = {"serve": serve_cases, "generate": generate_teacher_forced, "moe": moe_cases,
+         "options": option_cases}
