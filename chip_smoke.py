@@ -28,27 +28,31 @@ forward). Then the other dense configs of the port at full width,
 (``OTHER_CONFIGS``), through ``generate`` and ``serve`` and, for the
 first two, distill training. Then the MoE and vision families
 (``FAMILY_CONFIGS``): ``deepseek_moe_16b`` (MHA 16 x 128, 64 experts, top
-6) at 4 of its 28 layers through ``generate`` and ``serve``,
+6) at 2 of its 28 layers through ``generate`` and ``serve``,
 ``kimi_k2_1t_a32b`` (64 / 8 x 128, 384 experts, top 8) at one layer and
 ``llama_3_2_vision_11b`` (32 / 8 x 128, a cross-attention layer every 5)
-at 10 of its 40 layers through ``generate``. Then the recurrent families
+at 5 of its 40 layers through ``generate``. Then the recurrent families
 (``RECURRENT_CONFIGS``) at full width: ``zamba2_1_2b`` (38 Mamba2 layers
 and a gated shared attention block, MHA 32 x 64, after every 6 of them)
-at 20 of its 38 layers (3 of its 6 units) through ``generate`` and
+at 14 of its 38 layers (2 of its 6 units) through ``generate`` and
 ``serve`` (fp, int8, eviction), and ``falcon_mamba_7b`` (Mamba1 layers, no
-attention: no kernel runs) at 16 of its 64 layers through ``generate``
+attention: no kernel runs) at 8 of its 64 layers through ``generate``
 and ``serve``, its prompts cut
 to 4096 tokens. Then
-the distillation of ``deepseek_moe_16b`` (4 layers) and ``zamba2_1_2b``
+the distillation of ``deepseek_moe_16b`` (2 layers) and ``zamba2_1_2b``
 (kernel 6 on the gated shared block, Dh 64, once a unit), and
 pretraining, ``run_training`` in pretrain mode (no kernel: the plain
 attention and scans, differentiated, as in the reference): ``qwen3_0_6b``
-at full width and depth, ``hubert_xlarge`` (the audio encoder) at full
-width and half its depth, and ``falcon_mamba_7b`` cut to 4 layers (``PRETRAIN_CONFIGS``). Last, the
+at full width and half its depth, ``hubert_xlarge`` (the audio encoder)
+at full width and a quarter of its depth, and ``falcon_mamba_7b`` cut to 4
+layers (``PRETRAIN_CONFIGS``). Last, the
 user's entry points: the serving launcher (``repro_torch.launch.serve``)
 at full width, the four examples (``repro_torch.examples``) at their own
-reduced scale, and the head-sharded engine with a selection schedule,
-request budgets, sampling and open-loop arrivals.
+reduced scale, the head-sharded engine with a selection schedule,
+request budgets, sampling and open-loop arrivals, and training under a
+``Shard`` (tensor-parallel distillation and pretraining on the one-rank
+NCCL group, kernel 6 on the rank's heads; the training launcher under
+torchrun's environment).
 The contiguous int8 kernel ``block_sparse_decode_quant`` lies on no model
 path (in the reference neither): it is checked and timed on the generate
 path's layer-0 blocks, quantized per block. Phases (any failure exits
@@ -240,7 +244,7 @@ non-zero):
      line of its kernels' numbers;
  22. distill training of gemma_2b (kernel 6 at head dim 256) and
      granite_20b (48 heads on one KV head) at their depths, and (after
-     phase 34) of deepseek_moe_16b at 4 layers and zamba2_1_2b at full
+     phase 34) of deepseek_moe_16b at 2 layers and zamba2_1_2b at full
      depth (its shared block's 32 KV heads of one query head, Dh 64, 6
      units): 3 steps of 4 x 4096 tokens, kernel 6 gated layers (units) x
      steps and nothing else, KL finite, base frozen, gate moved; phase
@@ -253,9 +257,9 @@ The MoE and vision families (phases 30-32, after phase 22; the launches
 of their main paths join the counts of the kernels line, their errors
 its max_abs_err):
 
- 30. ``deepseek_moe_16b`` at full width, 4 of its 28 layers, through
+ 30. ``deepseek_moe_16b`` at full width, 2 of its 28 layers, through
      phase 21's steps: #1, #2 and 2q on layer 0 of its ``generate`` (G 1:
-     16 KV heads of one query head each); ``generate`` (#1 and #2 4 x 31
+     16 KV heads of one query head each); ``generate`` (#1 and #2 2 x 31
      times);
      its profile, with the expert FFN's share of the step's device busy
      time (one layer's ``moe_mlp`` on its captured decode input, the
@@ -270,9 +274,9 @@ its max_abs_err):
      its prompt cut to 8192 tokens and its query chunk to 256: the
      layer-0 kernel checks and ``generate`` (#1 and #2 31 times), its
      profile and expert FFN share;
- 32. ``llama_3_2_vision_11b`` at 10 of its 40 layers (G 4) with
+ 32. ``llama_3_2_vision_11b`` at 5 of its 40 layers (G 4) with
      numpy-seeded image embeddings: the kernel checks on self layer 0,
-     ``generate`` (#1 and #2 8 self layers x 31 steps), its profile, and
+     ``generate`` (#1 and #2 4 self layers x 31 steps), its profile, and
      a cross layer's dense decode attention over the 1601 image tokens
      timed (plain PyTorch, as in the reference, SDPA beside it).
 
@@ -284,20 +288,20 @@ pages) card against CPU, fp32: ``generate`` tokens equal, logits within
 1e-4, #1 and #2 units x steps (none for falcon); ``serve`` ample and at 8
 pages, the same checks through #3 and #4, the swapped bytes equal.
 
- 33. ``zamba2_1_2b`` at full width, 20 of its 38 layers (G 1 at 32 KV
-     heads, Dh 64, Dg 64; 3 of its 6 units and the tail): phase 3's checks
+ 33. ``zamba2_1_2b`` at full width, 14 of its 38 layers (G 1 at 32 KV
+     heads, Dh 64, Dg 64; 2 of its 6 units and the tail): phase 3's checks
      and timings of #1, #2 and 2q on unit 0's shared-block tensors of
      ``generate``'s first decode step (#2 against dense SDPA printed, not
-     required); ``generate`` (#1 and #2 3 units x 31 steps = 93 times) and
+     required); ``generate`` (#1 and #2 2 units x 31 steps = 62 times) and
      its profile; ``serve`` with phase 6's requests at the default pool
-     and at 644 pages (#3 and #4 3 x decode steps, one preemption swapping the pages and the
+     and at 644 pages (#3 and #4 2 x decode steps, one preemption swapping the pages and the
      request's recurrent rows, tight == ample bitwise: the rows are not
      coupled); the same over int8 pools (#3 and 4q, the swapped bytes in
      the int8/fp page ratio beside the recurrent rows); eviction under a
      RESIDENT_CAP-page resident cap (replays > 0, bitwise the ample run);
      #3, #4 and 5 at 2, 4, 8 and nsel + 3 splits on the fp serve's
      layer-0 tensors, 4q and 5q on the int8 serve's;
- 34. ``falcon_mamba_7b`` at full width, 16 of its 64 Mamba1 layers (no
+ 34. ``falcon_mamba_7b`` at full width, 8 of its 64 Mamba1 layers (no
      attention), its prompts cut to 4096 tokens: ``generate`` (every
      launch counter 0, logits finite) and its profile; ``serve`` at the
      default pool and at the first four cut prompts' pages + 2 (every
@@ -313,12 +317,12 @@ gate; the audio encoder's embed) bitwise its seed value after AdamW's
 weight decay alone; then one step's time before the profiler, one step
 under it (top device kernels, device busy) and the peak memory.
 
- 35. ``qwen3_0_6b`` at full width and depth, 4 x 4096 tokens, a
+ 35. ``qwen3_0_6b`` at full width, 14 of its 28 layers, 4 x 4096 tokens, a
      checkpoint every 2 steps and a failure before step 3: the replayed
      step's loss equal, the last checkpoint in the reference's layout
      (its moments fp32 trees shaped like the parameters) and read back
      bitwise;
- 36. ``hubert_xlarge`` at full width, 24 of its 48 layers (d 1280, Dh 80,
+ 36. ``hubert_xlarge`` at full width, 12 of its 48 layers (d 1280, Dh 80,
      non-causal), 16 x 1024 frames, the same checkpoint and failure;
  37. ``falcon_mamba_7b`` cut to 4 of its 64 layers (its weights and
      AdamW's fp32 moments do not fit one card whole), batch 1 x 2048,
@@ -356,7 +360,21 @@ kernels line and their kernel errors its max_abs_err:
      bf16 ulps; #3, #4 and 5 on the first selecting layer's call (the plan
      the later layers carry, under the budget caps) against their plain
      versions; then phase 29's trace through ``ServingFrontend`` on the
-     sharded engine, streaming phase 29's tokens at its steps.
+     sharded engine, streaming phase 29's tokens at its steps;
+ 41. training under a ``Shard``, tensor-parallel over the one-rank NCCL
+     group (every collective runs; every block is the whole leaf), each
+     case SHARD_TRAIN_STEPS steps sharded and unsharded from the same seed
+     state on the same batches, every metric, parameter and moment
+     bitwise, launch counters at 0 just before the sharded steps and read
+     just after: (a) qwen3_0_6b distillation, TRAIN_BATCH x TRAIN_SEQ,
+     kernel 6 28 launches a forward; (b) deepseek_moe_16b pretraining,
+     expert-parallel, at SHARD_MOE_LAYERS of its 28 layers, SHARD_MOE_SEQ,
+     no kernel; (c) zamba2_1_2b distillation at one unit, kernel 6 (Dh 64)
+     once a forward; kernel 6 against its plain version on (a)'s and (c)'s
+     first call (the rank's heads); the step times side by side with the
+     card; (d) ``python -m repro_torch.launch.train`` (LAUNCH_TRAIN_ARGV)
+     in a subprocess under a one-rank torchrun environment: exit 0, its
+     checkpoint the full tree in the reference's layout.
 
 The pressure and failure paths of ``serve`` (phases 23-29) run after
 phase 13, on qwen3_0_6b at full width and phase 6's requests unless
@@ -414,6 +432,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -495,16 +514,17 @@ OVERRIDE_SAMPLING = SamplingParams(temperature=0.7, top_k=50, top_p=0.9)
 # d_ff, vocab and gate as in its file), bf16, weights from seed 0, on the
 # main path's generate and serve cells; the one cut: granite_20b (52
 # layers, 56 GB of bf16 weights) and deepseek_coder_33b (62 layers, 66 GB)
-# to 4 layers, so that weights, caches and prefill fit one card and the
+# to 2 layers, so that weights, caches and prefill fit one card and the
 # time limit (their prefill keeps the config's query chunks of 1024: the
 # fp32 scores of a chunk over 16384 keys, 13-15 GB at 48 and 56 heads,
 # fit beside them; 8 layers until the MoE and vision phases joined the
-# script); gemma_2b runs 9 of its 18 layers (all 18 until the launcher,
-# example and sharded-option phases 38-40 joined the script)
+# script, 4 until phase 41 did); gemma_2b runs 5 of its 18 layers (all 18
+# until the launcher, example and sharded-option phases 38-40 joined the
+# script, 9 until phase 41 did)
 OTHER_CONFIGS = {
-    "gemma_2b": dict(num_layers=9),
-    "granite_20b": dict(num_layers=4),
-    "deepseek_coder_33b": dict(num_layers=4),
+    "gemma_2b": dict(num_layers=5),
+    "granite_20b": dict(num_layers=2),
+    "deepseek_coder_33b": dict(num_layers=2),
 }
 # distill training of gemma_2b (kernel 6 at head dim 256) and granite_20b
 # (its 48-head MQA group, head pairs) at those depths: the qwen3 phase's
@@ -512,22 +532,23 @@ OTHER_CONFIGS = {
 # checkpoint; then kernel 6 at 128-key blocks on qwen3_0_6b's tensors
 # the MoE and vision families (phases 30-32), each at full width (widths,
 # heads, experts and router as in its file), bf16, weights from seed 0:
-# deepseek_moe_16b cut to 4 of its 28 layers on the generate and serve
+# deepseek_moe_16b cut to 2 of its 28 layers on the generate and serve
 # cells; kimi_k2_1t_a32b cut to one layer (its 384 experts hold 33.8 GB a
 # layer) on generate alone, with its prompt cut to 8192 tokens and its
 # query chunk to 256 (the prefill's expert buffers grow with batch x
 # prompt x top-k rows of 7168, the fp32 scores with 64 heads x chunk x
-# prompt); llama_3_2_vision_11b cut to 10 of its 40 layers (two units of 4
+# prompt); llama_3_2_vision_11b cut to 5 of its 40 layers (one unit of 4
 # self layers and a cross layer) on generate alone (the reference has no
 # paged step for cross-attention), with numpy-seeded image embeddings.
 # deepseek_moe_16b and llama_3_2_vision_11b ran at full depth until the
 # recurrent phases 33-34 joined the script (deepseek_moe_16b at 8 until
-# the launcher, example and sharded-option phases 38-40 joined it): their
-# depth was cut so that the script stays inside its time limit
+# the launcher, example and sharded-option phases 38-40 joined it, both
+# at 4 and 10 until phase 41 did): their depth was cut so that the script
+# stays inside its time limit
 FAMILY_CONFIGS = {
-    "deepseek_moe_16b": dict(num_layers=4),
+    "deepseek_moe_16b": dict(num_layers=2),
     "kimi_k2_1t_a32b": dict(num_layers=1, q_chunk=256),
-    "llama_3_2_vision_11b": dict(num_layers=10),
+    "llama_3_2_vision_11b": dict(num_layers=5),
 }
 FAMILY_PROMPT = {"kimi_k2_1t_a32b": 8192}
 FAMILY_SERVE = ("deepseek_moe_16b",)
@@ -538,19 +559,20 @@ FAMILY_SERVE = ("deepseek_moe_16b",)
 # query head, Dh 64, Dg 64; 2.34 GB of bf16 weights) on the generate cell
 # and on serve with phase 6's requests (fp at both pools, int8, eviction
 # under RESIDENT_CAP); falcon_mamba_7b (64 Mamba1 layers, 14.56 GB, no
-# attention: no kernel runs on its paths) cut to 16 layers (RECURRENT_CUTS;
+# attention: no kernel runs on its paths) cut to 8 layers (RECURRENT_CUTS;
 # full depth until the pretrain phases 35-37 joined the script, 32 until
-# phases 38-40 did: the script must stay inside its time limit) and
-# zamba2_1_2b cut to 20 layers, 3 of its 6 units and the tail (full depth
-# until phases 38-40 joined the script) on generate and serve, falcon's
+# phases 38-40 did, 16 until phase 41 did: the script must stay inside its
+# time limit) and zamba2_1_2b cut to 14 layers, 2 of its 6 units and the
+# tail (full depth until phases 38-40 joined the script, 20 until phase 41
+# did) on generate and serve, falcon's
 # prompts cut to FAMILY_PROMPT tokens (the plain PyTorch selective scan's
 # log-depth rounds over [batch, 256, 8192, 16] fp32 chunks take most of
 # its prefill) and its tight pool the first four cut prompts' pages, the
 # null page and one more (``tight_pool_pages``), as phase 6's 644
 RECURRENT_CONFIGS = ("zamba2_1_2b", "falcon_mamba_7b")
-RECURRENT_CUTS = {"falcon_mamba_7b": dict(num_layers=16), "zamba2_1_2b": dict(num_layers=20)}
+RECURRENT_CUTS = {"falcon_mamba_7b": dict(num_layers=8), "zamba2_1_2b": dict(num_layers=14)}
 FAMILY_PROMPT["falcon_mamba_7b"] = 4096
-# distill training (phase 22) also runs deepseek_moe_16b at the 4 layers
+# distill training (phase 22) also runs deepseek_moe_16b at the 2 layers
 # of FAMILY_CONFIGS and zamba2_1_2b at full depth (kernel 6 on the shared
 # block's 32 KV heads of one query head, Dh 64, once a unit)
 OTHER_TRAIN = ("gemma_2b", "granite_20b", "deepseek_moe_16b", "zamba2_1_2b")
@@ -582,7 +604,8 @@ TRAFFIC_TIERS = {"latency": 0.25, "throughput": 0.75}
 # pretraining (phases 35-37), bf16 with the configs' remat
 # ("nothing_saveable": a checkpoint a layer), weights from seed 0:
 # {arch: (cuts, batch, sequence, checkpoints and an injected failure)}.
-# qwen3_0_6b at full width, the distill phase's 4 x 4096 tokens (its tied
+# qwen3_0_6b at full width, 14 of its 28 layers (full depth until phase 41
+# joined the script), the distill phase's 4 x 4096 tokens (its tied
 # 151936-token logits in fp32, 10 GB, are the largest tensor);
 # hubert_xlarge at full width, 16 x 1024 frames (the same 16384
 # a step; a row is 20 s of audio at HuBERT's 50 frames a second, near the
@@ -591,11 +614,12 @@ TRAFFIC_TIERS = {"latency": 0.25, "throughput": 0.75}
 # moments, 87 GB, do not fit one card), steps only. The learning rate is
 # 1e-2 so that every leaf the loss reads moves in bf16 on the first step
 # (a norm's scale of 1.0 moves by lr, and bf16 holds 1 - 2**-8 below it).
-# hubert_xlarge ran at full depth until phases 38-40 joined the script;
-# it runs half its layers so that the script stays inside its limit
+# hubert_xlarge ran at full depth until phases 38-40 joined the script,
+# at 24 layers until phase 41 did; it runs a quarter of its layers so that
+# the script stays inside its limit
 PRETRAIN_CONFIGS = {
-    "qwen3_0_6b": (dict(), 4, 4096, True),
-    "hubert_xlarge": (dict(num_layers=24), 16, 1024, True),
+    "qwen3_0_6b": (dict(num_layers=14), 4, 4096, True),
+    "hubert_xlarge": (dict(num_layers=12), 16, 1024, True),
     "falcon_mamba_7b": (dict(num_layers=4), 1, 2048, False),
 }
 PRETRAIN_STEPS, PRETRAIN_LR = 4, 1e-2
@@ -617,6 +641,10 @@ DISTILL_STEPS = 60
 # select 2 / correction 14 schedule on phase 17's overridden requests
 SHARD_SCHEDULE = SelectionSchedule(dense_first_n=2, select_layer=2, correction_layers=(14,))
 # phase 2's small pretrain agreement: every family's reduced() model
+SHARD_TRAIN_STEPS = 2                 # phase 41: steps a case, sharded and not
+SHARD_MOE_LAYERS = 2                  # of deepseek_moe_16b's 28
+SHARD_MOE_SEQ = (1, 2048)             # its pretraining batch, rows x tokens
+LAUNCH_TRAIN_ARGV = ["--arch", "qwen3_0_6b", "--reduced", "--steps", "4", "--ckpt-every", "2"]
 SMALL_PRETRAIN = ("qwen3_0_6b", "deepseek_moe_16b", "llama_3_2_vision_11b",
                   "falcon_mamba_7b", "zamba2_1_2b", "hubert_xlarge")
 
@@ -2312,6 +2340,30 @@ def gt_tile_pairs(seg):
     return int((overlap & causal).sum()), b * int(causal.sum())
 
 
+def gt_agreement(q, k, v, bs, qc, seg, label):
+    """Kernel 6 against its plain version on one input: o within phase 3's
+    decode limit, blockmax NEG_INF in the same places and within GT_BM_REL
+    of max|blockmax| elsewhere; fails otherwise. Returns o's max abs
+    error."""
+    o_k, bm_k = gt.gate_gt_attention_cuda(q, k, v, block_size=bs, segment_ids=seg)
+    o_p, bm_p = gt.gate_gt_attention_plain(q, k, v, block_size=bs, q_chunk=qc,
+                                           segment_ids=seg)
+    torch.cuda.synchronize()
+    err = float((o_k.float() - o_p.float()).abs().max())
+    lim, ulp, top = decode_limit(o_p)
+    dead = bm_p <= -1e29
+    same_dead = torch.equal(bm_k <= -1e29, dead) and bool((bm_k[dead] == -1e30).all())
+    bm_top = float(bm_p[~dead].abs().max())
+    bm_err = float((bm_k[~dead] - bm_p[~dead]).abs().max())
+    print(f"gate_gt_attention [{label}]: o max abs err {err:.3e} = "
+          f"{err / ulp if ulp else 0.0:.3g} ulp of max|o_plain| {top:.4f} (limit {lim:.3e}); "
+          f"blockmax NEG_INF in the same {int(dead.sum())} places: {same_dead}, max abs err "
+          f"{bm_err:.3e} of max|blockmax| {bm_top:.3f} (limit {GT_BM_REL:g} of it)")
+    if not err <= lim or not same_dead or not bm_err <= GT_BM_REL * bm_top:
+        fail(f"gate_gt_attention disagrees with plain [{label}]")
+    return err
+
+
 def phase_gt_kernel(args, kw):
     """Kernel 6 against its plain version on layer 0's tensors of the first
     training step, with the packing segments and without; timings, the
@@ -2325,26 +2377,8 @@ def phase_gt_kernel(args, kw):
           f"{q.dtype}, block {bs}, {int((seg[:, 1:] != seg[:, :-1]).sum()) + b} documents "
           f"in {b} rows; bf16 tensor-core body: CTAs of 4 warps over {gt.TILE} rows x "
           f"{heads} heads, {smem} B of dynamic shared memory")
-    worst = 0.0
-    for label, sg in (("packed segments", seg), ("no segments", None)):
-        o_k, bm_k = gt.gate_gt_attention_cuda(q, k, v, block_size=bs, segment_ids=sg)
-        o_p, bm_p = gt.gate_gt_attention_plain(q, k, v, block_size=bs, q_chunk=qc,
-                                               segment_ids=sg)
-        torch.cuda.synchronize()
-        err = float((o_k.float() - o_p.float()).abs().max())
-        lim, ulp, top = decode_limit(o_p)
-        dead = bm_p <= -1e29
-        same_dead = torch.equal(bm_k <= -1e29, dead) and bool((bm_k[dead] == -1e30).all())
-        bm_top = float(bm_p[~dead].abs().max())
-        bm_err = float((bm_k[~dead] - bm_p[~dead]).abs().max())
-        print(f"gate_gt_attention [{label}]: o max abs err {err:.3e} = "
-              f"{err / ulp if ulp else 0.0:.3g} ulp of max|o_plain| {top:.4f} (limit {lim:.3e}); "
-              f"blockmax NEG_INF in the same {int(dead.sum())} places: {same_dead}, max abs err "
-              f"{bm_err:.3e} of max|blockmax| {bm_top:.3f} (limit {GT_BM_REL:g} of it)")
-        if not err <= lim or not same_dead or not bm_err <= GT_BM_REL * bm_top:
-            fail(f"gate_gt_attention disagrees with plain [{label}]")
-        worst = max(worst, err)
-        del o_k, bm_k, o_p, bm_p
+    worst = max(gt_agreement(q, k, v, bs, qc, sg, label)
+                for label, sg in (("packed segments", seg), ("no segments", None)))
     t_k = time_ms(lambda: gt.gate_gt_attention_cuda(q, k, v, block_size=bs, segment_ids=seg),
                   runs=10, warmup=2)
     t_k0 = time_ms(lambda: gt.gate_gt_attention_cuda(q, k, v, block_size=bs), runs=10, warmup=2)
@@ -3097,6 +3131,220 @@ def phase_pretrain(arch):
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# training under a Shard (phase 41)
+# ---------------------------------------------------------------------------
+
+def capture_first_gt():
+    """Wrap ``ops.gate_gt_attention`` to keep a copy of its first call's
+    arguments (a list that holds one (args, kwargs) once it ran); returns
+    (the list, a function that unwraps it)."""
+    seen, real = [], ops.gate_gt_attention
+
+    def grab(*a, **kw):
+        if not seen:
+            seen.append((tuple(t.clone() for t in a),
+                         {k: (v.clone() if torch.is_tensor(v) else v) for k, v in kw.items()}))
+        return real(*a, **kw)
+
+    def undo():
+        ops.gate_gt_attention = real
+    ops.gate_gt_attention = grab
+    return seen, undo
+
+
+def timed_steps(step_fn, state, batches):
+    """Each batch through ``step_fn``: (final state, metrics by step as
+    floats, host seconds a step, each ended by reading the metrics)."""
+    hist, secs = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        hist.append({k: float(v) for k, v in m.items()})
+        secs.append(time.perf_counter() - t0)
+    return state, hist, secs
+
+
+def counting_collectives(shard):
+    """Wrap the shard's collectives (``all_sum``, ``all_max``,
+    ``all_gather``) to count them and their host time: (the counts
+    {"n", "host_s"}, a function that unwraps them)."""
+    stats = {"n": 0, "host_s": 0.0}
+    names = ("all_sum", "all_max", "all_gather")
+
+    def wrap(fn):
+        def counted(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                stats["n"] += 1
+                stats["host_s"] += time.perf_counter() - t0
+        return counted
+
+    for name in names:
+        setattr(shard, name, wrap(getattr(shard, name)))
+
+    def undo():
+        for name in names:
+            delattr(shard, name)
+    return stats, undo
+
+
+def same_state(a, b) -> bool:
+    """Every parameter, moment and counter of two full train states equal,
+    bitwise."""
+    pa, pb = dict(tl._walk(a.params)), dict(tl._walk(b.params))
+    return (pa.keys() == pb.keys() and all(torch.equal(pa[k], t) for k, t in pb.items())
+            and all(torch.equal(getattr(a.opt, f)[k], t) for f in ("m", "v")
+                    for k, t in getattr(b.opt, f).items())
+            and int(a.opt.count) == int(b.opt.count) and int(a.step) == int(b.step))
+
+
+def shard_train_case(label, cfg, tcfg, bsz, seq, shard, n_gt):
+    """The sharded ``make_train_step`` on the one-rank group and the
+    unsharded one, SHARD_TRAIN_STEPS steps each from the same seed state
+    on the same batches: every metric, parameter and moment bitwise;
+    launch counters at 0 just before the sharded run and read just after:
+    kernel 6 ``n_gt`` a forward, nothing else; the collectives a step and
+    their host time; kernel 6 against its plain version on the sharded
+    first step's first call (the rank's heads). Returns (kernel 6
+    launches, its error or None). The sharded run goes first and is
+    gathered before the unsharded one starts from the seed, so that the
+    card holds at most three states (a state of deepseek_moe_16b's two
+    layers with its moments is 11.5 GB)."""
+    t0 = time.perf_counter()
+    free_card()
+    seed = tl.init_train_state(torch.Generator(device="cuda").manual_seed(SEED), cfg, tcfg)
+    batches = [make_batch(cfg, bsz, seq, DataState(SEED, i), device="cuda")
+               for i in range(tcfg.steps)]
+    box = [tl.shard_state(seed, cfg, shard)]
+    step = tl.make_train_step(cfg, tcfg, shard)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    seen, undo = capture_first_gt()
+    coll, uncount = counting_collectives(shard)
+    try:
+        local, s_hist, s_secs = timed_steps(step, box.pop(), batches)
+    finally:
+        undo()
+        uncount()
+    counts = ops.launch_counts()
+    want = {**dict.fromkeys(ops.KERNELS, 0), "gate_gt_attention": n_gt * tcfg.steps}
+    if counts != want:
+        fail(f"{label} sharded training launch counts {counts}, expected {want}")
+    full = tl.gather_state(local, cfg, shard)
+    del local
+    box.append(seed)
+    del seed
+    plain, p_hist, p_secs = timed_steps(tl.make_train_step(cfg, tcfg), box.pop(), batches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same = s_hist == p_hist and same_state(full, plain)
+    if not same or not all(math.isfinite(h["loss"]) for h in s_hist):
+        fail(f"{label}: the sharded steps differ from the unsharded ones: {s_hist} vs "
+             f"{p_hist}")
+    key = "kl" if tcfg.mode == "distill" else "ce"
+    print(f"{label}: {tcfg.steps} steps of {bsz} x {seq} on the one-rank NCCL group bitwise "
+          f"the unsharded steps ({key} {[round(h[key], 6) for h in s_hist]}, every one of "
+          f"{len(dict(tl._walk(full.params)))} parameter leaves and their moments); step s "
+          f"sharded {', '.join(f'{t:.3f}' for t in s_secs)} against unsharded "
+          f"{', '.join(f'{t:.3f}' for t in p_secs)}; {coll['n'] / tcfg.steps:.0f} "
+          f"collectives a step, {1e3 * coll['host_s'] / tcfg.steps:.2f} ms of host time a "
+          f"step in them; peak memory {peak:.1f} GiB; launch counts {counts} "
+          f"({card_line()})")
+    del full, plain, batches
+    err = None
+    if n_gt:
+        (q, k, v), kw = seen[0]
+        print(f"{label}: kernel 6 on the rank's heads, q {tuple(q.shape)} k/v {tuple(k.shape)} "
+              f"{q.dtype}, block {kw['block_size']}")
+        err = gt_agreement(q, k, v, kw["block_size"], kw["q_chunk"], kw["segment_ids"],
+                           f"{label}, step 0 layer 0, local heads")
+    del seen
+    torch.cuda.empty_cache()
+    print(f"phase 41 {label}: {time.perf_counter() - t0:.1f} s")
+    return counts["gate_gt_attention"], err
+
+
+def launcher_under_torchrun():
+    """``python -m repro_torch.launch.train --arch qwen3_0_6b --reduced
+    --steps 4 --ckpt-every 2`` in a subprocess under a one-rank torchrun
+    environment (the launcher joins an NCCL group and trains through its
+    shard): exit 0, and its last checkpoint the full tree in the
+    reference's layout (leaf count, order, shapes and dtypes)."""
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_launch_train_")
+    try:
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   PYTHONPATH=os.pathsep.join(filter(None, [os.path.join(root, "src"),
+                                                            os.environ.get("PYTHONPATH")])))
+        argv = [sys.executable, "-m", "repro_torch.launch.train", *LAUNCH_TRAIN_ARGV,
+                "--ckpt-dir", ckpt_dir]
+        out = subprocess.run(argv, env=env, cwd=root, capture_output=True, text=True,
+                             timeout=600)
+        print(out.stdout.strip())
+        if out.returncode != 0 or "ranks=1 (tensor-parallel)" not in out.stdout:
+            print(out.stderr[-4000:], file=sys.stderr)
+            fail(f"the training launcher under torchrun's environment exited "
+                 f"{out.returncode}")
+        cfg = reduced(configs.get("qwen3_0_6b"))
+        want = reference_leaves(tl.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                                    TrainConfig()))
+        step = ckpt.latest_step(ckpt_dir)
+        with open(os.path.join(ckpt_dir, f"step_{step}", "manifest.json")) as f:
+            manifest = json.load(f)
+        names = {torch.bfloat16: "bfloat16", torch.float32: "float32", torch.int32: "int32"}
+        if (step != 4 or manifest["shapes"] != [sh for _, sh, _ in want]
+                or manifest["dtypes"] != [names[dt] for _, _, dt in want]):
+            fail(f"the launcher's checkpoint step {step} is not the full tree: "
+                 f"{manifest['shapes']} {manifest['dtypes']}")
+        print(f"launch.train under a one-rank torchrun environment: exit 0; checkpoint step "
+              f"{step}, the full tree in the reference's layout ({len(want)} leaves); "
+              f"{time.perf_counter() - t0:.1f} s with the process's start")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def phase_sharded_train(shard):
+    """Phase 41: training under a Shard, tensor-parallel over the one-rank
+    NCCL group: (a) qwen3_0_6b distillation at full width and depth, (b)
+    deepseek_moe_16b pretraining, expert-parallel, at SHARD_MOE_LAYERS
+    layers, (c) zamba2_1_2b distillation at one unit, each bitwise the
+    unsharded steps (``shard_train_case``), then (d) the training launcher
+    under torchrun's environment. Returns (kernel 6 launches, its
+    errors)."""
+    t0 = time.perf_counter()
+    distill = TrainConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                          steps=SHARD_TRAIN_STEPS, seed=SEED, checkpoint_every=0,
+                          optim=OptimConfig(total_steps=SHARD_TRAIN_STEPS, warmup_steps=1))
+    n, errs = 0, []
+    qwen = configs.get("qwen3_0_6b")
+    moe = configs.get("deepseek_moe_16b").replace(num_layers=SHARD_MOE_LAYERS)
+    hybrid = configs.get("zamba2_1_2b")
+    hybrid = hybrid.replace(num_layers=hybrid.hybrid_period)
+    pretrain = dataclasses.replace(distill, mode="pretrain", seq_len=SHARD_MOE_SEQ[1],
+                                   global_batch=SHARD_MOE_SEQ[0],
+                                   optim=dataclasses.replace(distill.optim, lr=PRETRAIN_LR))
+    for label, cfg, tcfg, n_gt in (
+            ("qwen3_0_6b distill (a)", qwen, distill, qwen.num_layers),
+            ("deepseek_moe_16b pretrain, expert-parallel (b)", moe, pretrain, 0),
+            ("zamba2_1_2b distill, one unit (c)", hybrid, distill, 1)):
+        got, err = shard_train_case(label, cfg, tcfg, tcfg.global_batch, tcfg.seq_len, shard,
+                                    n_gt)
+        n += got
+        errs += [] if err is None else [err]
+    launcher_under_torchrun()
+    print(f"phase 41 (training under a Shard): {time.perf_counter() - t0:.1f} s")
+    return n, errs
 
 
 # ---------------------------------------------------------------------------
@@ -4180,6 +4428,11 @@ def run_phases(shard) -> int:
     for e in (e39, e40):
         for name, errs in e.items():
             numbers[name]["max_abs_err"] = max([numbers[name]["max_abs_err"], *errs])
+    # training under the shard: kernel 6 on the rank's heads
+    n41, e41 = phase_sharded_train(shard)
+    counts["gate_gt_attention"] += n41
+    numbers["gate_gt_attention"]["max_abs_err"] = max(
+        [numbers["gate_gt_attention"]["max_abs_err"], *e41])
 
     meta = {
         "gate_select": ("src/repro_torch/kernels/csrc/gate_select.cu",

@@ -25,7 +25,10 @@ Fault-tolerance contract used by ``train.loop``:
     crash mid-save never corrupts the latest checkpoint;
   * the data-iterator position and seed are saved in ``meta``;
   * the async writer copies the leaves to the host on the caller's thread
-    (ordered after the step that made them) and writes them on another.
+    (ordered after the step that made them) and writes them on another;
+  * under a training ``Shard`` the tree written is the full one, which
+    every rank gathers and rank 0 alone writes (``train.loop``); every
+    rank restores it whole onto its ``device`` and slices it.
 """
 from __future__ import annotations
 
@@ -169,10 +172,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like: Any, *, cfg=None) -> Tuple[Any, Dict]:
+def restore(ckpt_dir: str, step: int, like: Any, *, cfg=None,
+            device=None) -> Tuple[Any, Dict]:
     """Read ``step_<step>`` into the structure of ``like`` (``cfg`` as at
-    ``save``); each leaf goes to the device of the ``like`` leaf in its
-    place, in its saved dtype. Returns (tree, meta)."""
+    ``save``); each leaf goes to ``device``, or without one to the device
+    of the ``like`` leaf in its place (a ``like`` of meta tensors, the
+    full shapes of a sharded state, needs ``device``), in its saved
+    dtype. Returns (tree, meta)."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -188,5 +194,6 @@ def restore(ckpt_dir: str, step: int, like: Any, *, cfg=None) -> Tuple[Any, Dict
                              f"{list(ref.shape)}")
     leaves = [_from_savable(np.load(os.path.join(path, f"{i}.npy")), dt)
               for i, dt in enumerate(manifest["dtypes"])]
-    return (convert.unstack_layers(_unflatten(ref_like, iter(leaves)), like, cfg),
+    return (convert.unstack_layers(_unflatten(ref_like, iter(leaves)), like, cfg,
+                                   device=device),
             manifest["meta"])

@@ -239,15 +239,16 @@ def stack_layers(tree: Any, cfg: Optional[ModelConfig] = None) -> Any:
     return tree
 
 
-def unstack_layers(ref: Any, like: Any, cfg: Optional[ModelConfig] = None) -> Any:
+def unstack_layers(ref: Any, like: Any, cfg: Optional[ModelConfig] = None,
+                   device=None) -> Any:
     """The inverse of ``stack_layers`` (the same ``cfg``): ``ref`` in the
     reference's structure -> the structure of the port tree ``like``, each
-    leaf copied to the device of the ``like`` leaf in its place (in
-    ``ref``'s dtype)."""
+    leaf copied to ``device``, or without one to the device of the
+    ``like`` leaf in its place (in ``ref``'s dtype)."""
     if like is None:
         return None
     if isinstance(like, torch.Tensor):
-        return ref.to(like.device, copy=True)
+        return ref.to(device if device is not None else like.device, copy=True)
     flat_units = _flat_units if _unit_shape(cfg) else (lambda t: t)
     if isinstance(like, dict):
         out = {}
@@ -255,20 +256,20 @@ def unstack_layers(ref: Any, like: Any, cfg: Optional[ModelConfig] = None) -> An
             mt = _LAYER_KEY.fullmatch(k) if isinstance(k, str) else None
             if mt:
                 out[k] = unstack_layers(flat_units(ref[f"blocks/{mt[2]}"])[int(mt[1])], v,
-                                        cfg)
+                                        cfg, device)
             elif _is_layer_list(v):
                 stacked = flat_units(ref[k]) if k == "blocks" else ref[k]
-                out[k] = [unstack_layers(_layer(stacked, i), x, cfg)
+                out[k] = [unstack_layers(_layer(stacked, i), x, cfg, device)
                           for i, x in enumerate(v)]
             else:
-                out[k] = unstack_layers(ref[k], v, cfg)
+                out[k] = unstack_layers(ref[k], v, cfg, device)
         return out
     if _is_namedtuple(like):
-        return type(like)(*(unstack_layers(r, t, cfg) for r, t in zip(ref, like)))
+        return type(like)(*(unstack_layers(r, t, cfg, device) for r, t in zip(ref, like)))
     if _is_layer_list(like):
-        return [unstack_layers(_layer(ref, i), x, cfg) for i, x in enumerate(like)]
+        return [unstack_layers(_layer(ref, i), x, cfg, device) for i, x in enumerate(like)]
     if isinstance(like, (list, tuple)):
-        return type(like)(unstack_layers(r, t, cfg) for r, t in zip(ref, like))
+        return type(like)(unstack_layers(r, t, cfg, device) for r, t in zip(ref, like))
     raise TypeError(f"unsupported tree node {type(like).__name__}")
 
 

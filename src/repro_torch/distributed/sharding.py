@@ -1,18 +1,22 @@
-"""Sharding for the serving paths, over ``torch.distributed`` (port slice).
+"""Sharding over ``torch.distributed``: serving and training (port slice).
 
 The JAX package shards with a device mesh whose ``model`` axis carries the
 KV heads of the paged pools (``paged_pool_pspecs``) or the sequence axis
-of the contiguous caches (``decode_partition``); GSPMD and ``shard_map``
-insert the collectives. Here a ``Shard`` built from a process group plays
-that ``model`` axis: every rank is one shard, holds only its part of the
+of the contiguous caches (``decode_partition``), and, in training, the
+parameters by its ``param_pspecs`` rules; GSPMD and ``shard_map`` insert
+the collectives. Here a ``Shard`` built from a process group plays that
+``model`` axis: every rank is one shard, holds only its part of the
 state, and the collectives are explicit calls on the group. Data-parallel
-axes have no counterpart: a data-parallel replica is another engine.
+axes have no counterpart: a data-parallel replica is another engine (in
+training, another run; ZeRO-1's split of the moments over the data axes
+has none either).
 
 The group's backend is the caller's (gloo for CPU tensors, NCCL for CUDA
 ones); ``Shard.device`` is where the collectives' tensors live. Every
 collective goes through the group, also at world size 1.
 
-What is sliced, and where (each rank keeps block ``rank`` of ``world``):
+Serving. What is sliced, and where (each rank keeps block ``rank`` of
+``world``):
   * paged pools: axis 2, the KV heads, of every 5-dim leaf
     ``[L, P, Hkv, ps, Dh]`` and 4-dim leaf ``[L, P, Hkv, Dg]`` or
     ``[L, P, Hkv, 1]`` (the int8 scale rows), allocated at
@@ -22,10 +26,78 @@ What is sliced, and where (each rank keeps block ``rank`` of ``world``):
   * contiguous decode caches (``decode_partition``, ``seq_shard_state``):
     rank r holds tokens ``[r*S/w, (r+1)*S/w)`` of ``[L, B, Hkv, S, Dh]``
     and the matching Kg blocks of ``[L, B, Hkv, nb, Dg]``.
+
+Training (``lm_forward(..., shard=)``, ``train.loop``): tensor parallelism,
+Megatron-style. The batch is replicated: every rank reads the same batch,
+holds block ``rank`` of each split parameter (``param_layout``,
+``shard_params``) and computes the same loss. Two differentiable
+collectives carry the layers: ``copy_to_model`` (forward identity,
+backward sum over ranks) where a replicated tensor enters a split
+computation, ``reduce_from_model`` (forward sum over ranks, backward
+identity) where a split computation's partial sums leave it. A module
+whose split size the world size does not divide stays replicated on every
+rank and runs without collectives (the counterpart of ``sanitize_spec``'s
+fallback to replication). The scheme:
+  * attention: whole KV-head groups. A rank holds ``Hkv / w`` KV heads,
+    their ``G`` query heads and the gate's ``wq``/``wk [Hkv, ., Dg]`` for
+    them: ``wq``/``wk``/``wv`` split by columns, ``wo`` by rows, a sum
+    after ``wo``. The gate KL is the global mean over (b, kv head, row):
+    every rank's mean over the same number of rows, summed over ranks and
+    divided by ``w``. A world size that does not divide ``Hkv`` (MQA)
+    keeps the block and its gate replicated: a KV head's query group is
+    never split (``gate_q`` and the ground truth's max over the group
+    need all of it on one rank). The vision cross blocks split the same
+    way; ``q_norm``/``k_norm`` stay replicated, their gradient summed
+    over ranks;
+  * dense MLP: ``wi_gate``/``wi_up`` by columns, ``wo`` by rows, a sum
+    after;
+  * embedding and logits by vocabulary (``embed/w`` rows, ``lm_head/w``
+    columns): the lookup gives each rank's range and zeros elsewhere,
+    then a sum; the cross-entropy is vocabulary-parallel
+    (``vocab_parallel_nll``: the max and the sum of exponentials over
+    ranks, the label's logit from the rank that owns it). A vocabulary
+    that ``w`` does not divide stays replicated; so does the audio
+    ``in_proj``;
+  * MoE: expert parallelism. The router stays replicated: the routing,
+    the capacity and each assignment's rank within its expert are
+    computed alike on every rank, so the drops are the unsharded ones. A
+    rank holds ``E / w`` experts and computes only their rows; a sum
+    combines. The shared experts split like a dense MLP. This is the
+    reference's decode-size ``moe_mlp_sharded`` scheme (rows replicated,
+    each shard its experts, a psum), whatever ``dispatch`` says;
+  * Mamba1: ``in_proj``'s x and z halves each split on ``d_inner``;
+    ``conv_w``/``conv_b``, ``dt_proj`` (columns), ``dt_bias``, ``A_log``
+    and ``D`` on ``d_inner``; ``x_proj`` by rows with a sum before the
+    ``[dt | B | C]`` split; ``out_proj`` by rows with a sum after. The
+    scan is per channel and runs locally;
+  * Mamba2: ``z``, ``x`` and ``dt`` split by heads; ``B`` and ``C`` (one
+    group) replicated with their ``in_proj`` columns and conv channels,
+    whose gradients are summed over ranks (``sync_grad_parts``); the
+    gated RMSNorm over all of ``d_inner`` takes its mean square over
+    ranks; ``out_proj`` by rows;
+  * norms and other scalars stay replicated.
+A replicated leaf's gradient is the full one on every rank; a split
+leaf's is the gradient of its block.
+
+Deviations from the reference's per-leaf layout (``param_pspecs``), each
+a split that computes the same function; the checkpoint layout is the
+reference's, always full:
+  * the gate's ``wq``/``wk`` split on their KV-head axis where the
+    reference replicates them (the gate runs on the rank's heads);
+  * Mamba1 ``in_proj`` split per half (the reference cuts the
+    concatenated ``[x | z]`` columns in one block), Mamba2 ``in_proj``
+    per part of ``[z | x | B | C | dt]`` with ``B``/``C`` replicated
+    (the reference cuts it in one block), Mamba2 ``conv_w``/``conv_b``
+    likewise per ``[x | B | C]``, and Mamba2 ``norm/scale`` split on
+    ``d_inner`` (the reference replicates it);
+  * the experts split whether or not ``ep_major`` is set; the MoE buffer
+    is never resplit (no all-to-all: the rows are replicated).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import math
 
 import torch
 import torch.distributed as dist
@@ -105,6 +177,11 @@ class Shard:
         dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self.group)
         return y
 
+    def barrier(self) -> None:
+        """Return once every rank has called it (a one-element sum, waited
+        for on the host)."""
+        float(self.all_sum(torch.zeros((1,), device=self.device))[0])
+
     def sum_ints(self, values: Sequence[int]) -> Tuple[int, ...]:
         """Host integers summed over ranks (byte counters of per-rank state)."""
         t = torch.tensor(list(values), dtype=torch.int64, device=self.device)
@@ -132,3 +209,315 @@ def seq_shard_state(state, shard: Shard, block_size: int):
         k_cache=state.k_cache.narrow(3, tok0, s_loc).clone(),
         v_cache=state.v_cache.narrow(3, tok0, s_loc).clone(),
         kg_cache=None if kg is None else kg.narrow(3, nb0, nb_loc).clone())
+
+
+# ---------------------------------------------------------------------------
+# training: the parameters' layout
+# ---------------------------------------------------------------------------
+
+class Layout(NamedTuple):
+    """How a leaf splits: along ``axis``, which is the concatenation of
+    ``parts``, each (full size, split?). A rank's leaf holds, part by
+    part, its block of each split part and the whole of each replicated
+    one."""
+    axis: int
+    parts: Tuple[Tuple[int, bool], ...]
+
+    def local_parts(self, world: int) -> Tuple[Tuple[int, bool], ...]:
+        return tuple((n // world if split else n, split) for n, split in self.parts)
+
+    def replicated_slices(self, world: int) -> List[Tuple[int, int]]:
+        """(offset, size) of each replicated part along ``axis`` of a rank's
+        leaf."""
+        out, at = [], 0
+        for n, split in self.local_parts(world):
+            if not split:
+                out.append((at, n))
+            at += n
+        return out
+
+
+def check_shard(shard) -> None:
+    """A training shard is a ``Shard`` or None."""
+    if shard is not None and not isinstance(shard, Shard):
+        raise TypeError(f"shard must be a repro_torch.distributed.sharding.Shard, "
+                        f"got {type(shard).__name__}")
+
+
+def part(shard: Optional[Shard], n: int) -> Optional[Shard]:
+    """``shard`` where its world size divides ``n`` (the module of size
+    ``n`` splits), else None (it stays replicated and runs alone)."""
+    return shard if shard is not None and n % shard.world == 0 else None
+
+
+def _mlp_rule(leaf: str, d_ff: int, world: int):
+    if d_ff % world:
+        return None
+    return {"wi_gate/w": (1, None), "wi_up/w": (1, None), "wo/w": (0, None)}.get(leaf)
+
+
+def _mixer_rule(leaf: str, cfg, world: int):
+    if cfg.family == "ssm":                         # Mamba1
+        di = cfg.ssm.expand * cfg.d_model
+        if di % world:
+            return None
+        return {"in_proj/w": (1, ((di, True), (di, True))), "conv_w": (1, None),
+                "conv_b": (0, None), "x_proj/w": (0, None), "dt_proj/w": (1, None),
+                "dt_bias": (0, None), "A_log": (0, None), "D": (0, None),
+                "out_proj/w": (0, None)}.get(leaf)
+    from repro_torch.models.mamba import _m2_dims   # Mamba2: [z | x | B | C | dt]
+    di, _, nh, n = _m2_dims(cfg)
+    if nh % world:
+        return None
+    xbc = ((di, True), (2 * n, False))
+    return {"in_proj/w": (1, ((di, True), (di, True), (2 * n, False), (nh, True))),
+            "conv_w": (1, xbc), "conv_b": (0, xbc), "A_log": (0, None),
+            "dt_bias": (0, None), "D": (0, None), "norm/scale": (0, None),
+            "out_proj/w": (0, None)}.get(leaf)
+
+
+def _leaf_rule(path: str, cfg, world: int):
+    """(axis, parts or None for one split part) of a leaf, or None."""
+    if path == "embed/w":
+        return (0, None) if cfg.vocab_size % world == 0 else None
+    if path == "lm_head/w":
+        return (1, None) if cfg.vocab_size % world == 0 else None
+    if "/mixer/" in path:
+        return _mixer_rule(path.split("/mixer/", 1)[1], cfg, world)
+    if "/attn/" in path:                    # self, cross and the hybrid's shared block
+        if cfg.n_kv_heads % world:
+            return None
+        return {"wq/w": (1, None), "wk/w": (1, None), "wv/w": (1, None),
+                "wo/w": (0, None), "gate/wq": (0, None),
+                "gate/wk": (0, None)}.get(path.split("/attn/", 1)[1])
+    if "/moe/" in path:
+        leaf = path.split("/moe/", 1)[1]
+        if leaf in ("wi_gate", "wi_up", "wo"):
+            return (0, None) if cfg.moe.n_experts % world == 0 else None
+        if leaf.startswith("shared/"):
+            return _mlp_rule(leaf[len("shared/"):],
+                             cfg.moe.n_shared_experts * cfg.moe.expert_d_ff, world)
+        return None                         # the router
+    if "/mlp/" in path:
+        return _mlp_rule(path.split("/mlp/", 1)[1], cfg.d_ff, world)
+    return None                             # norms, scalars, the audio in_proj
+
+
+def param_layout(path: str, shape: Sequence[int], cfg, world: int, *,
+                 local: bool = False) -> Optional[Layout]:
+    """The ``Layout`` of the leaf at ``path`` (the port's ``/``-joined path
+    of a per-layer leaf: ``blocks/<i>/attn/wq/w``, ``units/<u>/<j>/mixer/
+    in_proj/w``; the moments and the gate dict use the same paths) of FULL
+    ``shape`` under ``world`` ranks, or of a rank's ``shape`` with
+    ``local``; None where it is replicated. The port's own copy of the
+    reference's ``_base_param_rule`` and ``sanitize_spec`` for the scheme
+    in this module's docstring; the port's leaves are per layer, so no
+    stack depth is stripped."""
+    rule = _leaf_rule(path, cfg, world)
+    if rule is None:
+        return None
+    axis, parts = rule
+    if parts is None:
+        parts = ((shape[axis] * world if local else shape[axis], True),)
+    return Layout(axis, parts)
+
+
+def _walk(tree: Any, prefix: str = ""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _walk(v, f"{prefix}{k}/")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _walk(v, f"{prefix}{i}/")
+    elif tree is not None:
+        yield prefix[:-1], tree
+
+
+def _map_paths(tree: Any, fn, prefix: str = "") -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_paths(v, fn, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_paths(v, fn, f"{prefix}{i}/") for i, v in enumerate(tree)]
+    return None if tree is None else fn(prefix[:-1], tree)
+
+
+def local_block(t: torch.Tensor, layout: Layout, rank: int, world: int) -> torch.Tensor:
+    """Rank ``rank``'s part of the full leaf ``t``, a new contiguous tensor."""
+    pieces, at = [], 0
+    for n, split in layout.parts:
+        m = n // world if split else n
+        pieces.append(t.narrow(layout.axis, at + (rank * m if split else 0), m))
+        at += n
+    if len(pieces) == 1:
+        return pieces[0].clone(memory_format=torch.contiguous_format)
+    return torch.cat(pieces, layout.axis)
+
+
+def shard_params(tree: Any, cfg, shard: Shard) -> Any:
+    """A full tree (the parameters, or a ``{path: tensor}`` dict of the
+    gate or of moments) -> this rank's: each split leaf its block (a new
+    tensor), each replicated leaf the same tensor."""
+    def one(path, t):
+        lay = param_layout(path, tuple(t.shape), cfg, shard.world)
+        return t if lay is None else local_block(t, lay, shard.rank, shard.world)
+    return _map_paths(tree, one)
+
+
+_GATHER_CHUNK = 1 << 30           # bytes of local leaves per collective
+_ALIGN = 16
+
+
+def gather_trees(trees: Sequence[Any], cfg, shard: Shard) -> List[Any]:
+    """The inverse of ``shard_params`` on every rank, for each of ``trees``
+    (None stays None): the full trees, exactly. The split leaves' bytes
+    are gathered, packed into one collective per ``_GATHER_CHUNK`` bytes,
+    and put back in place; the replicated leaves are this rank's
+    tensors."""
+    split = [(i, path, t, param_layout(path, tuple(t.shape), cfg, shard.world, local=True))
+             for i, tree in enumerate(trees) for path, t in _walk(tree)]
+    split = [((i, path), t, lay) for i, path, t, lay in split if lay is not None]
+    full: Dict[Tuple[int, str], torch.Tensor] = {}
+    i = 0
+    while i < len(split):
+        chunk, size = [], 0
+        while i < len(split) and (not chunk or size < _GATHER_CHUNK):
+            path, t, lay = split[i]
+            nb = t.numel() * t.element_size()
+            chunk.append((path, t, lay, size, nb))
+            size += -(-nb // _ALIGN) * _ALIGN
+            i += 1
+        buf = torch.zeros(size, dtype=torch.uint8, device=chunk[0][1].device)
+        for _, t, _, at, nb in chunk:
+            buf[at:at + nb] = t.contiguous().reshape(-1).view(torch.uint8)
+        got = shard.all_gather(buf[None], 0)                       # [world, size]
+        for path, t, lay, at, nb in chunk:
+            blocks = [got[r, at:at + nb].clone().view(t.dtype).reshape(t.shape)
+                      for r in range(shard.world)]
+            pieces, off = [], 0
+            for n, is_split in lay.local_parts(shard.world):
+                if is_split:
+                    pieces += [b.narrow(lay.axis, off, n) for b in blocks]
+                else:
+                    pieces.append(t.narrow(lay.axis, off, n))
+                off += n
+            full[path] = torch.cat(pieces, lay.axis)
+        del got, buf
+    return [_map_paths(tree, lambda path, t, i=i: full.get((i, path), t))
+            for i, tree in enumerate(trees)]
+
+
+# ---------------------------------------------------------------------------
+# training: the differentiable collectives
+# ---------------------------------------------------------------------------
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard.all_sum(g), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        return shard.all_sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
+    """Where a replicated tensor enters a split computation: forward the
+    identity, backward the sum over ranks of the gradient (each rank's
+    part of it). Identity without a shard."""
+    return x if shard is None else _CopyToModel.apply(x, shard)
+
+
+def reduce_from_model(x: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
+    """Where a split computation's partial sums leave it: forward the sum
+    over ranks, backward the identity (every rank's loss is the same, so
+    ``torch.distributed.nn``'s all_reduce, whose backward sums again,
+    would multiply the gradient by the world size). Identity without a
+    shard."""
+    return x if shard is None else _ReduceFromModel.apply(x, shard)
+
+
+class _SyncGradParts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, shard, axis, slices):
+        ctx.shard, ctx.axis, ctx.slices = shard, axis, slices
+        return w
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        parts = [g.narrow(ctx.axis, at, n) for at, n in ctx.slices]
+        summed = ctx.shard.all_sum(torch.cat([p.reshape(-1) for p in parts]))
+        at = 0
+        for p in parts:
+            p.copy_(summed[at:at + p.numel()].view(p.shape))
+            at += p.numel()
+        return g, None, None, None
+
+
+def sync_grad_parts(w: torch.Tensor, shard: Optional[Shard], axis: int,
+                    slices: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """A split leaf with replicated parts (the Mamba2 ``B``/``C`` columns):
+    forward the identity, backward the gradient with the ``(offset, size)``
+    slices along ``axis`` summed over ranks (each rank's heads read them)."""
+    return w if shard is None else _SyncGradParts.apply(w, shard, axis, tuple(slices))
+
+
+def vocab_parallel_embed(w: torch.Tensor, tokens: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """Rows ``tokens`` of the full table whose block rank ``shard.rank``'s
+    ``w`` [V / world, d] holds: this rank's rows where the token is in its
+    range, zeros elsewhere, summed over ranks."""
+    v = w.shape[0]
+    t = tokens.long() - shard.rank * v
+    mine = (t >= 0) & (t < v)
+    x = torch.where(mine[..., None], w[t.clamp(0, v - 1)], 0)
+    return reduce_from_model(x, shard)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """The negative log-likelihood of ``labels`` under logits split by
+    vocabulary, with ``torch.logsumexp``'s and ``torch.gather``'s own
+    arithmetic and backward (so a one-rank group is the unsharded loss and
+    gradient bitwise): the max and the sum of exponentials over ranks,
+    the label's logit from the rank that owns it."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, shard):
+        lf = logits.float()
+        v = lf.shape[-1]
+        t = labels.long() - shard.rank * v
+        mine = (t >= 0) & (t < v)
+        t = t.clamp(0, v - 1)
+        m = shard.all_max(torch.amax(lf, dim=-1))
+        m = m.masked_fill(m.abs() == math.inf, 0)
+        s = torch.sum(torch.exp(lf - m[..., None]), dim=-1)
+        ll = torch.where(mine, torch.gather(lf, -1, t[..., None])[..., 0], 0)
+        s, ll = shard.all_sum(torch.stack([s, ll])).unbind(0)
+        lse = torch.log(s) + m
+        ctx.save_for_backward(logits, lse, t, mine)
+        return lse - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, t, mine = ctx.saved_tensors
+        grad = g[..., None] * (logits.float() - lse[..., None]).exp()
+        hot = torch.zeros_like(grad).scatter_add_(-1, t[..., None],
+                                                  torch.where(mine, -g, 0)[..., None])
+        return (grad + hot).to(logits.dtype), None, None
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                       shard: Shard) -> torch.Tensor:
+    """logits [..., V / world] (this rank's vocabulary block) -> the fp32
+    NLL [...] of ``labels`` over the full vocabulary, on every rank."""
+    return _VocabParallelNLL.apply(logits, labels, shard)

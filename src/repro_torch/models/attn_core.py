@@ -19,6 +19,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core import kcache as kc
 from repro_torch.core import sparsity as sp
+from repro_torch.distributed.sharding import copy_to_model, part
 from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,
                                      SelectionInputs)
 from repro_torch.kernels import ops
@@ -31,28 +32,34 @@ Params = Dict[str, Any]
 LayerAux = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
+def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, shard=None):
+    """q [B, L, H, Dh], k, v [B, L, Hkv, Dh] of the heads whose columns
+    ``p`` holds (all of them, or a rank's under a training ``shard``,
+    which also sums the replicated ``q_norm``/``k_norm`` gradients over
+    the ranks)."""
     b, l, _ = x.shape
     dh = cfg.resolved_head_dim
-    q = linear(p["wq"], x).reshape(b, l, cfg.n_heads, dh)
-    k = linear(p["wk"], x).reshape(b, l, cfg.n_kv_heads, dh)
-    v = linear(p["wv"], x).reshape(b, l, cfg.n_kv_heads, dh)
+    q = linear(p["wq"], x).reshape(b, l, -1, dh)
+    k = linear(p["wk"], x).reshape(b, l, -1, dh)
+    v = linear(p["wv"], x).reshape(b, l, -1, dh)
     if cfg.qk_norm:
-        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
-        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+        q = rms_norm({"scale": copy_to_model(p["q_norm"]["scale"], shard)}, q, cfg.norm_eps)
+        k = rms_norm({"scale": copy_to_model(p["k_norm"]["scale"], shard)}, k, cfg.norm_eps)
     return q, k, v
 
 
-def ffn(p: Params, h2: torch.Tensor, cfg: ModelConfig):
+def ffn(p: Params, h2: torch.Tensor, cfg: ModelConfig, shard=None):
     """A block's feed-forward over h2 [..., d]: (y, the MoE router loss or
     None). A ``"moe"`` block routes all of h2's rows in one call, so at
     decode every row of the step (each slot, active or not) competes for
-    the experts' capacity, as in the reference."""
+    the experts' capacity, as in the reference. Under a training
+    ``shard`` the experts are expert-parallel and a dense MLP splits its
+    hidden units (``distributed.sharding``)."""
     if "moe" in p:
         y, aux = moe_mod.moe_mlp(p["moe"], h2.reshape(-1, h2.shape[-1]), cfg.moe,
-                                 cfg.activation)
+                                 cfg.activation, shard=shard)
         return y.reshape(h2.shape), aux
-    return mlp(p["mlp"], h2, cfg.activation), None
+    return mlp(p["mlp"], h2, cfg.activation, part(shard, cfg.d_ff)), None
 
 
 def _policy_active(policy, p: Params) -> bool:

@@ -17,6 +17,9 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.distributed.sharding import (copy_to_model, reduce_from_model,
+                                              vocab_parallel_nll)
+
 Params = Dict[str, Any]
 
 NEG_INF = -1e30
@@ -56,10 +59,15 @@ def init_rmsnorm(d: int, dtype: str, device: torch.device | str) -> Params:
     return {"scale": torch.ones((d,), dtype=torch_dtype(dtype), device=device)}
 
 
-def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6, shard=None) -> torch.Tensor:
+    """RMSNorm over the last axis; under a ``shard`` that axis is split
+    over the ranks (each holds the same share of it and of ``scale``) and
+    the mean square is the mean over ranks of each rank's."""
     dt = x.dtype
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
+    if shard is not None:
+        var = copy_to_model(reduce_from_model(var, shard), shard) / shard.world
     out = x * torch.rsqrt(var + eps) * p["scale"].float()
     return out.to(dt)
 
@@ -70,7 +78,9 @@ def remat(fn: Callable, cfg) -> Callable:
     ``"dots_saveable"`` map to ``torch.utils.checkpoint`` (non-reentrant;
     the layer's activations are recomputed in the backward, none saved),
     ``"none"`` and ``"full"`` (everything saved) to ``fn`` itself. Values
-    are the same either way; only memory and time differ."""
+    are the same either way; only memory and time differ. Under a shard
+    the backward re-runs the layer's collectives, in the same order on
+    every rank (the autograd graph is the same on each)."""
     if cfg.remat not in ("nothing_saveable", "dots_saveable"):
         return fn
 
@@ -119,17 +129,22 @@ def init_glu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def glu_mlp(p: Params, x: torch.Tensor, activation: str = "swiglu") -> torch.Tensor:
+def glu_mlp(p: Params, x: torch.Tensor, activation: str = "swiglu",
+            shard=None) -> torch.Tensor:
+    """The (gated) MLP; under a ``shard`` the rank holds a block of the
+    hidden units (``wi_*`` columns, ``wo`` rows) and the output is the sum
+    over ranks."""
+    x = copy_to_model(x, shard)
     g = linear(p["wi_gate"], x)
     if activation == "swiglu":
         g = F.silu(g)
     elif activation == "geglu":
         g = F.gelu(g, approximate="tanh")
     elif activation == "gelu":
-        return linear(p["wo"], F.gelu(g, approximate="tanh"))
+        return reduce_from_model(linear(p["wo"], F.gelu(g, approximate="tanh")), shard)
     else:
         raise ValueError(activation)
-    return linear(p["wo"], g * linear(p["wi_up"], x))
+    return reduce_from_model(linear(p["wo"], g * linear(p["wi_up"], x)), shard)
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
@@ -140,8 +155,8 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
             "wo": init_linear(gen, d_ff, d_model, dtype)}
 
 
-def mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
-    return glu_mlp(p, x, activation)
+def mlp(p: Params, x: torch.Tensor, activation: str, shard=None) -> torch.Tensor:
+    return glu_mlp(p, x, activation, shard)
 
 
 # ---------------------------------------------------------------------------
@@ -264,14 +279,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       mask: Optional[torch.Tensor] = None, shard=None) -> torch.Tensor:
     """logits [B, L, V] -> the mean fp32 negative log-likelihood of
     ``labels`` [B, L], over the positions where ``mask`` [B, L] (optional)
-    is nonzero: sum(nll * mask) / max(sum(mask), 1)."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+    is nonzero: sum(nll * mask) / max(sum(mask), 1). Under a ``shard`` the
+    logits are the rank's vocabulary block [B, L, V / world]
+    (``sharding.vocab_parallel_nll``)."""
+    if shard is not None:
+        nll = vocab_parallel_nll(logits, labels, shard)
+    else:
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = lse - ll
     if mask is not None:
         mask = mask.to(nll.dtype)
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

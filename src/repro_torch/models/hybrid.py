@@ -5,8 +5,8 @@ the paper's technique applies there.
 
 Port of the JAX package's ``models/hybrid.py``: the training forward in
 both modes (``lm_forward``: pretraining, and the distillation of the
-shared block's gate, whose target comes from kernel 6 on the card) and
-the serving half. Layer plan at num_layers=38, period=6: 6 units of (6
+shared block's gate, whose target comes from kernel 6 on the card;
+tensor-parallel under a ``Shard``) and the serving half. Layer plan at num_layers=38, period=6: 6 units of (6
 Mamba2 layers + the shared block), then 2 trailing Mamba2 layers.
 
 ``params["units"]`` is a list of units, each a list of per-layer
@@ -27,11 +27,11 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core.policy import default_options
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import check_shard
 from repro_torch.models import mamba
 from repro_torch.models import transformer as tf
 from repro_torch.models.attn_core import aggregate_decode_aux, block_decode_paged
-from repro_torch.models.common import (_randn, cross_entropy_loss, init_linear,
-                                       init_rmsnorm, torch_dtype)
+from repro_torch.models.common import _randn, init_linear, init_rmsnorm, torch_dtype
 from repro_torch.serve.slotstate import SlotState
 
 Params = Dict[str, Any]
@@ -89,13 +89,15 @@ def lm_forward(params: Params, batch, cfg: ModelConfig, *, mode: str = "pretrain
     Mamba2 layers run without autograd, the shared block frozen with its
     gate differentiable; the gate KL is summed over the units and divided
     by their number. ``batch`` is the packed LM batch (``positions`` and
-    ``segment_ids`` reach the shared block's attention only). Training
-    under a ``shard`` (ROADMAP Queue A item 10c) raises."""
+    ``segment_ids`` reach the shared block's attention only). Under a
+    ``shard`` (a ``distributed.sharding.Shard``; anything else raises
+    TypeError) the training is tensor-parallel over its group: the
+    Mamba2 mixers by heads, the shared block as the transformer's (in
+    distillation kernel 6 and the gate on the rank's heads), the
+    embedding and the logits by vocabulary."""
     if mode not in ("pretrain", "distill"):
         raise ValueError(f"lm_forward: unknown mode {mode!r}")
-    if shard is not None:
-        raise NotImplementedError("training under a Shard (ROADMAP Queue A item 10c) "
-                                  "is not ported")
+    check_shard(shard)
     n_units = _plan(cfg)[0]
     distill = mode == "distill"
     tokens = batch["tokens"]
@@ -105,26 +107,25 @@ def lm_forward(params: Params, batch, cfg: ModelConfig, *, mode: str = "pretrain
         pos = torch.arange(l, device=tokens.device)[None, :].expand(b, l)
     seg = batch.get("segment_ids")
     shared = params["shared_attn"]
-    shared_fwd = tf._pretrain_block(cfg, pos, seg, None)
+    shared_fwd = tf._pretrain_block(cfg, pos, seg, None, shard)
     kl = torch.zeros((), dtype=torch.float32, device=tokens.device)
     with tf._base_grad(distill):
-        x = params["embed"]["w"][tokens]
+        x = tf.embed(params, tokens, cfg, shard)
     for unit in params["units"]:
         with tf._base_grad(distill):
-            x = mamba.stack_train(unit, x, cfg, mamba.mamba2_full)
+            x = mamba.stack_train(unit, x, cfg, mamba.mamba2_full, shard)
         if distill:
             x, l_kl, _, _ = tf.block_fwd_full(shared, x, cfg, rope_positions=pos,
-                                              segment_ids=seg, distill=True)
+                                              segment_ids=seg, distill=True, shard=shard)
             kl = kl + l_kl
         else:
             x, _ = shared_fwd(shared, x)
     with tf._base_grad(distill):
-        x = mamba.stack_train(params.get("tail", []), x, cfg, mamba.mamba2_full)
+        x = mamba.stack_train(params.get("tail", []), x, cfg, mamba.mamba2_full, shard)
     if distill:
-        kl = kl / max(n_units, 1)
+        kl = tf.global_kl(kl, cfg, shard) / max(n_units, 1)
         return kl, {"kl": kl.detach()}
-    ce = cross_entropy_loss(tf._logits(params, x, cfg), batch["labels"],
-                            batch.get("loss_mask"))
+    ce = tf.lm_loss(params, x, batch, cfg, shard)
     return ce, {"ce": ce.detach()}
 
 

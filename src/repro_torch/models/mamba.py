@@ -30,6 +30,12 @@ state. Differences of idiom, not of result:
 
 A step never writes its input state: it returns new conv windows and new
 hidden states, so a replayed step can re-run from the same input.
+
+Under a training ``Shard`` (``mamba1_full``/``mamba2_full``/
+``stack_train`` with ``shard=``) a mixer is tensor-parallel over
+``d_inner`` (Mamba1: channels; Mamba2: whole heads), with the layout and
+the collectives of ``distributed.sharding``; the scans are per channel
+or per head and run on the rank's alone.
 """
 from __future__ import annotations
 
@@ -40,6 +46,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.sharding import (copy_to_model, part, reduce_from_model,
+                                              sync_grad_parts)
 from repro_torch.models.common import (_randn, init_linear, init_rmsnorm, linear,
                                        remat, rms_norm, torch_dtype)
 
@@ -179,7 +187,7 @@ def _mask_dt(dt: torch.Tensor, lengths: Optional[torch.Tensor], l: int) -> torch
 
 def mamba1_full(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 h0: Optional[torch.Tensor] = None,
-                lengths: Optional[torch.Tensor] = None):
+                lengths: Optional[torch.Tensor] = None, shard=None):
     """x [B, L, d] -> (y [B, L, d], (conv_state [B, K-1, di], h [B, di, n]
     float32)).
 
@@ -187,14 +195,21 @@ def mamba1_full(p: Params, x: torch.Tensor, cfg: ModelConfig,
     positions inject nothing into the scan and the conv state is gathered
     at the true tail, so the returned states resume decode as if the pads
     never existed; y at pad positions is garbage (callers read
-    ``lengths - 1``)."""
+    ``lengths - 1``). Under a training ``shard`` ``p`` holds the rank's
+    channels (di / world of them, the states too): ``x_proj``'s partial
+    sums are summed over ranks before the [dt | B | C] split, y after
+    ``out_proj``."""
     bsz, l, d = x.shape
-    di = cfg.ssm.expand * d
+    shard = part(shard, cfg.ssm.expand * d)
+    di = p["D"].shape[0]
     n = cfg.ssm.state_dim
     dtr = _dt_rank(d)
-    xs, z = linear(p["in_proj"], x).split(di, dim=-1)
+    xs, z = linear(p["in_proj"], copy_to_model(x, shard)).split(di, dim=-1)
     xc = F.silu(_causal_conv_full(xs, p["conv_w"], p["conv_b"]))
-    dt_in, b_in, c_in = linear(p["x_proj"], xc).split([dtr, n, n], dim=-1)
+    dbc = linear(p["x_proj"], xc)
+    if shard is not None:
+        dbc = copy_to_model(reduce_from_model(dbc, shard), shard)
+    dt_in, b_in, c_in = dbc.split([dtr, n, n], dim=-1)
     dt = F.softplus(linear(p["dt_proj"], dt_in).float() + p["dt_bias"])   # [B,L,di]
     dt = _mask_dt(dt, lengths, l)
     a_mat = -torch.exp(p["A_log"])                                         # [di, n]
@@ -207,7 +222,7 @@ def mamba1_full(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y = y + p["D"] * xcf
     y = (y * F.silu(z.float())).to(x.dtype)
     conv_state = _conv_tail(xs, cfg.ssm.conv_dim, lengths)
-    return linear(p["out_proj"], y), (conv_state, h)
+    return reduce_from_model(linear(p["out_proj"], y), shard), (conv_state, h)
 
 
 def mamba1_step(p: Params, x1: torch.Tensor, cfg: ModelConfig,
@@ -307,17 +322,30 @@ def _ssd_chunks(xh: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
 
 def mamba2_full(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 h0: Optional[torch.Tensor] = None,
-                lengths: Optional[torch.Tensor] = None):
+                lengths: Optional[torch.Tensor] = None, shard=None):
     """x [B, L, d] -> (y [B, L, d], (conv_state [B, K-1, di + 2n] of the raw
     pre-conv inputs, h [B, nh, hd, n] float32)). ``lengths``: the
     bucketed-prefill contract of ``mamba1_full`` (loga = 0 adds nothing to
-    the chunk's cumsum, the dt-scaled input is 0)."""
+    the chunk's cumsum, the dt-scaled input is 0). Under a training
+    ``shard`` ``p`` holds the rank's heads (nh / world; di, the states and
+    the conv channels of x with them) and all of B and C, whose
+    ``in_proj`` columns and conv channels sum their gradients over ranks;
+    the gated norm's mean square is over all ranks, y summed after
+    ``out_proj``."""
     bsz, l, d = x.shape
-    di, hd, nh, n = _m2_dims(cfg)
-    zxbcdt = linear(p["in_proj"], x)
+    _, hd, nh, n = _m2_dims(cfg)
+    shard = part(shard, nh)
+    nh = p["D"].shape[0]
+    di = nh * hd
+    w_in, conv_w, conv_b = p["in_proj"]["w"], p["conv_w"], p["conv_b"]
+    if shard is not None:
+        w_in = sync_grad_parts(w_in, shard, 1, [(2 * di, 2 * n)])
+        conv_w = sync_grad_parts(conv_w, shard, 1, [(di, 2 * n)])
+        conv_b = sync_grad_parts(conv_b, shard, 0, [(di, 2 * n)])
+    zxbcdt = linear({"w": w_in}, copy_to_model(x, shard))
     z, xs, bc, dt_in = zxbcdt.split([di, di, 2 * n, nh], dim=-1)
     raw_xbc = zxbcdt[..., di:2 * di + 2 * n]
-    xbc = F.silu(_causal_conv_full(raw_xbc, p["conv_w"], p["conv_b"]))
+    xbc = F.silu(_causal_conv_full(raw_xbc, conv_w, conv_b))
     xs, bmat, cmat = xbc.split([di, n, n], dim=-1)
     dt = F.softplus(dt_in.float() + p["dt_bias"])                          # [B,L,nh]
     dt = _mask_dt(dt, lengths, l)
@@ -329,9 +357,9 @@ def mamba2_full(p: Params, x: torch.Tensor, cfg: ModelConfig,
                        min(cfg.ssm.chunk_size, l))
     y = (y + p["D"][:, None] * xsf).reshape(bsz, l, di)
     y = y * F.silu(z.float())
-    y = rms_norm(p["norm"], y.to(x.dtype), cfg.norm_eps)
+    y = rms_norm(p["norm"], y.to(x.dtype), cfg.norm_eps, shard)
     conv_state = _conv_tail(raw_xbc, cfg.ssm.conv_dim, lengths)
-    return linear(p["out_proj"], y), (conv_state, h)
+    return reduce_from_model(linear(p["out_proj"], y), shard), (conv_state, h)
 
 
 def mamba2_step(p: Params, x1: torch.Tensor, cfg: ModelConfig,
@@ -378,12 +406,15 @@ def stack_full(blocks, x: torch.Tensor, cfg: ModelConfig, full_fn,
     return x, convs, hs
 
 
-def stack_train(blocks, x: torch.Tensor, cfg: ModelConfig, full_fn) -> torch.Tensor:
+def stack_train(blocks, x: torch.Tensor, cfg: ModelConfig, full_fn,
+                shard=None) -> torch.Tensor:
     """The training forward of the same layers: x + full_fn(ln(x)) for
     each block, under the config's ``remat`` (``common.remat``: a
-    checkpoint a layer, where autograd records), no states kept."""
+    checkpoint a layer, where autograd records), no states kept; each
+    mixer tensor-parallel under a ``shard``."""
     def layer(bp, x):
-        return x + full_fn(bp["mixer"], rms_norm(bp["ln"], x, cfg.norm_eps), cfg)[0]
+        return x + full_fn(bp["mixer"], rms_norm(bp["ln"], x, cfg.norm_eps), cfg,
+                           shard=shard)[0]
     layer = remat(layer, cfg)
     for bp in blocks:
         x = layer(bp, x)

@@ -29,9 +29,16 @@ weights and the aux loss's probabilities) and the experts, as
 are the same with or without autograd.
 
 The experts run as plain batched matmuls: the reference computes them
-outside any Pallas kernel, so there is no TPU kernel here to port. Expert
-parallelism (the reference's ``moe_mlp_sharded``) is not ported: every
-rank computes all experts (ROADMAP Queue A item 9, sharded remainder).
+outside any Pallas kernel, so there is no TPU kernel here to port.
+
+Training under a ``Shard`` is expert-parallel (``moe_mlp(shard=)``, the
+reference's decode-size ``moe_mlp_sharded`` scheme): the rows and the
+router are replicated, so every rank routes, counts the capacity and
+drops exactly as the unsharded call does; a rank holds ``E / world``
+experts and computes only the rows assigned to them, the shared experts
+split their hidden units, and one sum over ranks combines. Decode does
+not take a shard yet: a sharded engine computes all experts on every
+rank (ROADMAP Queue A item 15's item-9 half).
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import MoEConfig
 from repro_torch.core.sparsity import ranked_top_k
+from repro_torch.distributed.sharding import copy_to_model, part, reduce_from_model
 from repro_torch.models.common import _randn, glu_mlp, init_glu_mlp, torch_dtype
 
 Params = Dict[str, Any]
@@ -124,30 +132,55 @@ def expert_glu(p: Params, xb: torch.Tensor, activation: str) -> torch.Tensor:
 
 
 def moe_mlp(p: Params, x: torch.Tensor, mcfg: MoEConfig,
-            activation: str = "swiglu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [T, d] tokens -> (y [T, d] in x's dtype, aux loss f32 scalar)."""
+            activation: str = "swiglu", shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [T, d] tokens -> (y [T, d] in x's dtype, aux loss f32 scalar).
+    Under a training ``shard`` the routed experts are this rank's block
+    ``p["wi_gate"]`` [E / world, ...] (expert parallelism where the world
+    size divides E) and the shared experts a block of their hidden units;
+    y is the sum over ranks."""
     t, d = x.shape
     e, k = mcfg.n_experts, mcfg.top_k
     probs, top_i, top_w = route(x, p["router"]["w"], k)
     flat_e, slot, keep, cap = dispatch(top_i, mcfg)
+    ep = part(shard, e)
+    sp = part(shard, mcfg.n_shared_experts * mcfg.expert_d_ff) if "shared" in p else None
+    xe = copy_to_model(x, shard) if (ep or sp) else x
+    e_loc = p["wi_gate"].shape[0]
+    if ep is not None:
+        # this rank's experts [e0, e0 + e_loc); another rank's assignment
+        # goes to the trash row with weight 0
+        local_e = flat_e - ep.rank * e_loc
+        mine = (local_e >= 0) & (local_e < e_loc)
+        local_e = local_e.clamp(0, e_loc - 1)
+        slot = torch.where(mine, slot, cap)
+        keep = keep & mine
+        top_w = copy_to_model(top_w, ep)
+    else:
+        local_e = flat_e
     # the kept (expert, slot) pairs are distinct; the trash row takes the
     # dropped ones in any order and is never read back
-    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[flat_e, slot] = x.repeat_interleave(k, dim=0)
+    buf = torch.zeros((e_loc, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[local_e, slot] = (xe if ep is not None else x).repeat_interleave(k, dim=0)
     yb = expert_glu(p, buf[:, :cap], activation)
     del buf
     # a dropped assignment's weight is 0: the reference zeroes its row,
     # then weights it (the buffers are freed as soon as they are read, the
     # prefill's hold T * k rows of d)
     w = torch.where(keep, top_w.reshape(-1).to(yb.dtype), 0)
-    y_rep = yb[flat_e, torch.clamp_max(slot, cap - 1)]
+    y_rep = yb[local_e, torch.clamp_max(slot, cap - 1)]
     del yb
     # in place unless autograd records the product (its backward reads
     # y_rep for the router weights' gradient)
     y_rep = y_rep * w[:, None] if torch.is_grad_enabled() else y_rep.mul_(w[:, None])
     y = y_rep.reshape(t, k, d).sum(dim=1)
     if "shared" in p:
-        y = y + glu_mlp(p["shared"], x, activation)
+        ys = glu_mlp(p["shared"], xe if sp is not None else x, activation)
+        if ep is not None and sp is not None:
+            y = reduce_from_model(y + ys, ep)
+        else:
+            y = reduce_from_model(y, ep) + reduce_from_model(ys, sp)
+    else:
+        y = reduce_from_model(y, ep)
     frac = _expert_counts(flat_e, e).float() / (t * k)
     aux = e * torch.sum(frac * probs.mean(dim=0)) * mcfg.router_aux_coef
     return y.to(x.dtype), aux

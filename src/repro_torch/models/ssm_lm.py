@@ -2,7 +2,8 @@
 
 Port of the JAX package's ``models/ssm_lm.py``: the pretraining forward
 (``lm_forward``, autograd through the Mamba1 layers, a checkpoint a layer
-under the config's ``remat``) and the serving half. SeerAttention-R does
+under the config's ``remat``; tensor-parallel under a ``Shard``) and the
+serving half. SeerAttention-R does
 not apply (no attention), so no kernel runs on this family's paths;
 decode carries an O(1) recurrent state per layer. A Python loop over the
 layers replaces ``lax.scan``; ``params["blocks"]`` is a list of per-layer
@@ -16,11 +17,11 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import check_shard
 from repro_torch.models import mamba
 from repro_torch.models.attn_core import zero_decode_aux
-from repro_torch.models.common import (_randn, cross_entropy_loss, init_linear,
-                                       init_rmsnorm, torch_dtype)
-from repro_torch.models.transformer import _logits
+from repro_torch.models.common import _randn, init_linear, init_rmsnorm, torch_dtype
+from repro_torch.models.transformer import _logits, embed, lm_loss
 from repro_torch.serve.slotstate import SlotState
 
 Params = Dict[str, Any]
@@ -55,15 +56,14 @@ def lm_forward(params: Params, batch, cfg: ModelConfig, *, mode: str = "pretrain
     [B, L] (positions and segment ids are not read: the recurrence runs
     across packed documents, as in the reference), the final norm, the
     logits and the fp32 cross-entropy of ``batch["labels"]`` under its
-    ``loss_mask``. Returns (ce, {"ce"}). Training under a ``shard``
-    (ROADMAP Queue A item 10c) raises."""
-    if shard is not None:
-        raise NotImplementedError("training under a Shard (ROADMAP Queue A item 10c) "
-                                  "is not ported")
-    x = params["embed"]["w"][batch["tokens"]]
-    x = mamba.stack_train(params["blocks"], x, cfg, mamba.mamba1_full)
-    ce = cross_entropy_loss(_logits(params, x, cfg), batch["labels"],
-                            batch.get("loss_mask"))
+    ``loss_mask``. Returns (ce, {"ce"}). Under a ``shard`` (a
+    ``distributed.sharding.Shard``; anything else raises TypeError) the
+    training is tensor-parallel over its group: the embedding and the
+    logits split by vocabulary, each Mamba1 mixer over ``d_inner``."""
+    check_shard(shard)
+    x = embed(params, batch["tokens"], cfg, shard)
+    x = mamba.stack_train(params["blocks"], x, cfg, mamba.mamba1_full, shard)
+    ce = lm_loss(params, x, batch, cfg, shard)
     return ce, {"ce": ce.detach()}
 
 

@@ -19,7 +19,10 @@ with the staged branch of a plan-carrying SelectionSchedule and Quest's
 metadata cache, unsharded, or sharded: the contiguous caches split
 along the sequence (``serve/sharded.py``; gate or dense, trivial
 schedule), the page pools over the KV heads (any schedule, budget caps);
-the experts replicated on every rank.
+the experts replicated on every rank. Training takes a ``Shard`` too:
+``lm_forward(..., shard=)`` is tensor-parallel over its group (whole KV
+head groups, the MLP's hidden units, the vocabulary, expert parallelism;
+``distributed/sharding.py``), kernel 6 running on the rank's heads.
 
 Differences of idiom, not of result:
   * parameters are a dict whose ``"blocks"`` entry is a LIST of per-layer
@@ -59,6 +62,8 @@ from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,
                                      SelectionInputs, default_options,
                                      selection_width)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (check_shard, copy_to_model, part,
+                                              reduce_from_model, vocab_parallel_embed)
 from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attn_core import (_dense_aux, _policy_active, _qkv,
@@ -170,8 +175,11 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
-def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig, shard=None) -> torch.Tensor:
+    """The final norm and the tied or untied logits; under a training
+    ``shard`` (one that splits the vocabulary) the rank's vocabulary
+    block [..., V / world]."""
+    x = copy_to_model(rms_norm(params["final_norm"], x, cfg.norm_eps), shard)
     if cfg.tie_embeddings:
         return x @ params["embed"]["w"].T
     return linear(params["lm_head"], x)
@@ -190,8 +198,13 @@ def _base_grad(distill: bool):
 def attention_full(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                    rope_positions: torch.Tensor,
                    segment_ids: Optional[torch.Tensor],
-                   distill: bool, collect_gate: bool = False):
+                   distill: bool, collect_gate: bool = False, shard=None):
     """Returns (out, kl_loss, extras|None).
+
+    Under a training ``shard`` that splits the KV heads ``p`` holds the
+    rank's heads (``distributed.sharding``): q/k/v, the attention, kernel
+    6 and the gate run on them, ``out`` is summed over ranks and
+    ``kl_loss`` is the rank's mean (``_global_kl`` combines the ranks').
 
     In distill mode the base attention runs without autograd, and on a
     gated layer its output and the distillation target come from one
@@ -205,8 +218,9 @@ def attention_full(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """
     b, l, _ = x.shape
     gate_on = distill and "gate" in p
+    shard = part(shard, cfg.n_kv_heads)
     with _base_grad(distill):
-        q, k, v = _qkv(p, x, cfg)
+        q, k, v = _qkv(p, copy_to_model(x, shard), cfg, shard)
         qr = apply_rope(q, rope_positions, cfg.rope_theta)
         kr = apply_rope(k, rope_positions, cfg.rope_theta)
         if gate_on:
@@ -219,7 +233,7 @@ def attention_full(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             o = chunked_attention(qr, kr, v, causal=cfg.causal, q_chunk=cfg.q_chunk,
                                   logit_softcap=cfg.attn_logit_softcap,
                                   segment_ids=segment_ids)
-        out = linear(p["wo"], o.reshape(b, l, -1))
+        out = reduce_from_model(linear(p["wo"], o.reshape(b, l, -1)), shard)
     kl = torch.zeros((), dtype=torch.float32, device=x.device)
     extras = None
     if gate_on:
@@ -235,66 +249,73 @@ def attention_full(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return out, kl, extras
 
 
-def cross_attention_full(p: Params, x: torch.Tensor, kv, cfg: ModelConfig
-                         ) -> torch.Tensor:
+def cross_attention_full(p: Params, x: torch.Tensor, kv, cfg: ModelConfig,
+                         shard=None) -> torch.Tensor:
     """Cross-attention into a fixed context, the image embeddings, whose
     K/V ``kv`` come from ``_cross_kv``: position-free, no RoPE on either
-    side, no mask."""
+    side, no mask. Under a training ``shard`` on the rank's heads, the
+    output summed over ranks."""
     b, l, _ = x.shape
     dh = cfg.resolved_head_dim
-    q = linear(p["wq"], x).reshape(b, l, cfg.n_heads, dh)
+    shard = part(shard, cfg.n_kv_heads)
+    q = linear(p["wq"], copy_to_model(x, shard)).reshape(b, l, -1, dh)
     k, v = kv
     if cfg.qk_norm:
-        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+        q = rms_norm({"scale": copy_to_model(p["q_norm"]["scale"], shard)}, q, cfg.norm_eps)
     o = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk)
-    return linear(p["wo"], o.reshape(b, l, -1))
+    return reduce_from_model(linear(p["wo"], o.reshape(b, l, -1)), shard)
 
 
-def _cross_kv(p: Params, ctx: torch.Tensor, cfg: ModelConfig):
+def _cross_kv(p: Params, ctx: torch.Tensor, cfg: ModelConfig, shard=None):
     """The context's K/V, seq-major [B, n_img, Hkv, Dh] (k normed under
-    ``qk_norm``)."""
+    ``qk_norm``), of the heads whose columns ``p`` holds."""
     b, n = ctx.shape[:2]
     dh = cfg.resolved_head_dim
-    k = linear(p["wk"], ctx).reshape(b, n, cfg.n_kv_heads, dh)
-    v = linear(p["wv"], ctx).reshape(b, n, cfg.n_kv_heads, dh)
+    shard = part(shard, cfg.n_kv_heads)
+    ctx = copy_to_model(ctx, shard)
+    k = linear(p["wk"], ctx).reshape(b, n, -1, dh)
+    v = linear(p["wv"], ctx).reshape(b, n, -1, dh)
     if cfg.qk_norm:
-        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+        k = rms_norm({"scale": copy_to_model(p["k_norm"]["scale"], shard)}, k, cfg.norm_eps)
     return k, v
 
 
 def block_fwd_full(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                    rope_positions, segment_ids, distill: bool,
-                   collect_gate: bool = False, cross_ctx=None):
+                   collect_gate: bool = False, cross_ctx=None, shard=None):
     """One layer. ``distill`` runs the residual stream without autograd
     (the gate's own einsums aside); otherwise the whole block is
     differentiable (pretraining). A given ``cross_ctx`` makes it a
-    cross-attention block (no gate). Returns (x, kl, MoE router loss or
-    None, extras|None)."""
+    cross-attention block (no gate). Under a training ``shard`` the
+    attention and the feed-forward run tensor-parallel; the residual
+    stream is replicated. Returns (x, kl, MoE router loss or None,
+    extras|None)."""
     with _base_grad(distill):
         h = rms_norm(p["ln1"], x, cfg.norm_eps)
     if cross_ctx is not None:
         with _base_grad(distill):
-            attn_out = cross_attention_full(p["attn"], h,
-                                            _cross_kv(p["attn"], cross_ctx, cfg), cfg)
+            attn_out = cross_attention_full(
+                p["attn"], h, _cross_kv(p["attn"], cross_ctx, cfg, shard), cfg, shard)
         kl, extras = torch.zeros((), dtype=torch.float32, device=x.device), None
     else:
         attn_out, kl, extras = attention_full(
             p["attn"], h, cfg, rope_positions=rope_positions,
-            segment_ids=segment_ids, distill=distill, collect_gate=collect_gate)
+            segment_ids=segment_ids, distill=distill, collect_gate=collect_gate,
+            shard=shard)
     with _base_grad(distill):
         x = x + attn_out
-        y, aux = ffn(p, rms_norm(p["ln2"], x, cfg.norm_eps), cfg)
+        y, aux = ffn(p, rms_norm(p["ln2"], x, cfg.norm_eps), cfg, shard)
     return x + y, kl, aux, extras
 
 
-def _pretrain_block(cfg: ModelConfig, rope_positions, segment_ids, cross_ctx):
+def _pretrain_block(cfg: ModelConfig, rope_positions, segment_ids, cross_ctx, shard=None):
     """A block of the pretraining forward as a function of (params, x) ->
     (x, MoE router loss), for ``common.remat``: every tensor it returns
     is one the backward can reach."""
     def fwd(lp, x):
         y, _, aux, _ = block_fwd_full(lp, x, cfg, rope_positions=rope_positions,
                                       segment_ids=segment_ids, distill=False,
-                                      cross_ctx=cross_ctx)
+                                      cross_ctx=cross_ctx, shard=shard)
         return y, (torch.zeros((), dtype=torch.float32, device=x.device)
                    if aux is None else aux)
     return remat(fwd, cfg)
@@ -302,7 +323,7 @@ def _pretrain_block(cfg: ModelConfig, rope_positions, segment_ids, cross_ctx):
 
 def lm_backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 rope_positions, segment_ids, distill: bool,
-                collect_gate: bool = False, cross_ctx=None):
+                collect_gate: bool = False, cross_ctx=None, shard=None):
     """Runs the layers in ``layer_order`` (a Python loop in place of
     ``lax.scan``). Returns (x, kl_sum, aux_sum, extras|None): the gate KL
     and the MoE router loss summed over layers; extras stack each key over
@@ -314,8 +335,8 @@ def lm_backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.cross_attn_period and cross_ctx is None:
         raise ValueError("a cross-attention model needs batch['image_embeds']")
     if not distill:
-        self_fwd = _pretrain_block(cfg, rope_positions, segment_ids, None)
-        cross_fwd = _pretrain_block(cfg, rope_positions, segment_ids, cross_ctx)
+        self_fwd = _pretrain_block(cfg, rope_positions, segment_ids, None, shard)
+        cross_fwd = _pretrain_block(cfg, rope_positions, segment_ids, cross_ctx, shard)
         for kind, i in layer_order(cfg):
             if kind == "self":
                 x, l_aux = self_fwd(params["blocks"][i], x)
@@ -329,7 +350,7 @@ def lm_backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         x, l_kl, l_aux, extras = block_fwd_full(
             lp, x, cfg, rope_positions=rope_positions, segment_ids=segment_ids,
             distill=True, collect_gate=collect_gate,
-            cross_ctx=cross_ctx if kind == "cross" else None)
+            cross_ctx=cross_ctx if kind == "cross" else None, shard=shard)
         kl = kl + l_kl
         if l_aux is not None:
             aux = aux + l_aux
@@ -348,9 +369,10 @@ def _n_gate_layers(cfg: ModelConfig) -> int:
 
 
 def _full_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-                 distill: bool = True):
+                 distill: bool = True, shard=None):
     """(x, positions, segment ids, image context) of a full-sequence
-    forward: the token embeddings, or the audio encoder's ``in_proj`` of
+    forward: the token embeddings (vocabulary-parallel under a training
+    ``shard``), or the audio encoder's ``in_proj`` of
     ``batch["features"]`` [B, L, n_audio_features]; without autograd in
     distill mode."""
     _check_family(cfg)
@@ -358,12 +380,43 @@ def _full_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfi
         if cfg.family == "audio":
             x = linear(params["in_proj"], batch["features"])
         else:
-            x = params["embed"]["w"][batch["tokens"]]
+            x = embed(params, batch["tokens"], cfg, shard)
     b, l = x.shape[:2]
     pos = batch.get("positions")
     if pos is None:
         pos = torch.arange(l, device=x.device)[None, :].expand(b, l)
     return x, pos, batch.get("segment_ids"), _image_ctx(batch, x.dtype)
+
+
+def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig, shard=None
+          ) -> torch.Tensor:
+    """The token embeddings [..., d]: the table's rows, or under a training
+    ``shard`` that splits the vocabulary the sum over ranks of each rank's
+    rows (``sharding.vocab_parallel_embed``)."""
+    shard = part(shard, cfg.vocab_size)
+    if shard is None:
+        return params["embed"]["w"][tokens]
+    return vocab_parallel_embed(params["embed"]["w"], tokens, shard)
+
+
+def lm_loss(params: Params, x: torch.Tensor, batch, cfg: ModelConfig, shard=None
+            ) -> torch.Tensor:
+    """The fp32 cross-entropy of ``batch["labels"]`` under its
+    ``loss_mask`` from the last hidden states x (vocabulary-parallel
+    under a training ``shard`` that splits the vocabulary)."""
+    shard = part(shard, cfg.vocab_size)
+    return cross_entropy_loss(_logits(params, x, cfg, shard), batch["labels"],
+                              batch.get("loss_mask"), shard)
+
+
+def global_kl(kl: torch.Tensor, cfg: ModelConfig, shard=None) -> torch.Tensor:
+    """The gate KL over all KV heads from a rank's mean over its own (the
+    same number of rows on every rank): their mean over ranks. The
+    rank's value itself where the attention stays replicated."""
+    shard = part(shard, cfg.n_kv_heads)
+    if shard is None:
+        return kl
+    return reduce_from_model(kl, shard) / shard.world
 
 
 def _image_ctx(batch: Dict[str, torch.Tensor], dtype: torch.dtype):
@@ -388,22 +441,24 @@ def lm_forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     the global index; a vision model's batch also carries
     ``image_embeds`` [B, n_img, d]; the audio encoder's holds
     ``features`` [B, L, n_audio_features] and ``labels`` (positions
-    ``arange``, no segments, non-causal attention). Training under a
-    ``shard`` (ROADMAP Queue A item 10c) raises."""
+    ``arange``, no segments, non-causal attention).
+
+    ``shard`` (a ``distributed.sharding.Shard``; anything else raises
+    TypeError): tensor-parallel training over its group, ``params`` this
+    rank's blocks (``sharding.shard_params``), the batch the same on
+    every rank; the loss and metrics are the whole model's on every
+    rank."""
     if mode not in ("pretrain", "distill"):
         raise ValueError(f"lm_forward: unknown mode {mode!r}")
-    if shard is not None:
-        raise NotImplementedError("training under a Shard (ROADMAP Queue A item 10c) "
-                                  "is not ported")
+    check_shard(shard)
     distill = mode == "distill"
-    x, pos, seg, ctx = _full_inputs(params, batch, cfg, distill)
+    x, pos, seg, ctx = _full_inputs(params, batch, cfg, distill, shard)
     x, kl, aux, _ = lm_backbone(params, x, cfg, rope_positions=pos, segment_ids=seg,
-                                distill=distill, cross_ctx=ctx)
+                                distill=distill, cross_ctx=ctx, shard=shard)
     if distill:
-        kl = kl / max(_n_gate_layers(cfg), 1)
+        kl = global_kl(kl, cfg, shard) / max(_n_gate_layers(cfg), 1)
         return kl + aux * 0.0, {"kl": kl.detach()}
-    ce = cross_entropy_loss(_logits(params, x, cfg), batch["labels"],
-                            batch.get("loss_mask"))
+    ce = lm_loss(params, x, batch, cfg, shard)
     return ce + aux, {"ce": ce.detach(), "aux": aux.detach()}
 
 

@@ -27,6 +27,14 @@ Fault tolerance (``run_training``):
     restores that save;
   * a step-time watchdog logs straggler steps (> ``watchdog_factor`` x
     median).
+
+Under a ``Shard`` (``make_train_step(shard=)``, ``run_training(shard=)``)
+the training is tensor-parallel over its group (``distributed.sharding``):
+every rank holds its blocks of the parameters, of the distilled gate and
+of the AdamW moments, reads the same batch and gets the same loss. A
+checkpoint is always the full tree in the reference's layout: every rank
+gathers it, rank 0 writes it, and a restore reads it on every rank and
+slices it.
 """
 from __future__ import annotations
 
@@ -39,6 +47,8 @@ from repro_torch.checkpoint import manager as ckpt
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.data.pipeline import DataState, make_batch
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (Shard, check_shard, gather_trees,
+                                              param_layout, shard_params)
 from repro_torch.models.registry import get_api
 from repro_torch.optim import adamw
 
@@ -111,36 +121,60 @@ def init_train_state(gen: torch.Generator, cfg: ModelConfig, tcfg: TrainConfig) 
     return TrainState(params, gate, adamw.init(gate, tcfg.optim), step)
 
 
+def _layouts(tree: Dict[str, torch.Tensor], cfg: ModelConfig, shard) -> Callable:
+    """path -> the ``Layout`` of a rank's leaf of ``tree`` (a flat dict),
+    for ``adamw.apply``."""
+    out = {k: param_layout(k, tuple(t.shape), cfg, shard.world, local=True)
+           for k, t in tree.items()}
+    return out.get
+
+
+def _opt_kw(tree, cfg: ModelConfig, shard) -> Dict[str, Any]:
+    return {} if shard is None else {"shard": shard, "layout": _layouts(tree, cfg, shard)}
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, shard=None) -> Callable:
     """(state, batch) -> (state, metrics: {"loss", "kl", "lr", "grad_norm"}
     in distill mode, {"loss", the forward's metrics ("ce", and "aux" for
     the transformer), "lr", "grad_norm"} in pretrain; scalar tensors on
-    the device)."""
+    the device). Under a ``shard`` (``distributed.sharding.Shard``) the
+    state is this rank's (``shard_state``) and the step tensor-parallel;
+    the metrics are the whole model's on every rank."""
     _check_mode(tcfg)
+    check_shard(shard)
     if tcfg.mode == "pretrain":
         return _pretrain_step(cfg, tcfg, shard)
-    api = get_api(cfg)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        keys = list(state.gate)
-        leaves = {k: state.gate[k].detach().requires_grad_(True) for k in keys}
-        with torch.enable_grad():
-            loss, metrics = api.forward(merge_gate(state.params, leaves), batch, cfg,
-                                        mode="distill", shard=shard)
-            grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
+        loss, metrics, grads = distill_value_and_grad(state.params, state.gate, batch, cfg,
+                                                      shard)
         with torch.no_grad():
-            gate, opt, om = adamw.apply(state.gate, dict(zip(keys, grads)), state.opt,
-                                        tcfg.optim)
+            gate, opt, om = adamw.apply(state.gate, grads, state.opt,
+                                        tcfg.optim, **_opt_kw(state.gate, cfg, shard))
         return (TrainState(merge_gate(state.params, gate), gate, opt, state.step + 1),
-                {"loss": loss.detach(), **metrics, **om})
+                {"loss": loss, **metrics, **om})
     return step
+
+
+def distill_value_and_grad(params: Any, gate: Dict[str, torch.Tensor], batch,
+                           cfg: ModelConfig, shard=None):
+    """The distillation loss of ``params`` with the gate leaves ``gate`` on
+    ``batch`` and its gradient with respect to those leaves alone: (loss,
+    metrics, {path: grad}); under a ``shard`` the rank's blocks."""
+    leaves = {k: t.detach().requires_grad_(True) for k, t in gate.items()}
+    with torch.enable_grad():
+        loss, metrics = get_api(cfg).forward(merge_gate(params, leaves), batch, cfg,
+                                             mode="distill", shard=shard)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), metrics, dict(zip(leaves, grads))
 
 
 def pretrain_value_and_grad(params: Any, batch, cfg: ModelConfig, shard=None):
     """The pretraining loss of ``params`` on ``batch`` and its gradient
     with respect to every leaf: (loss, metrics, {path: grad}) over the
     ``_walk`` paths, a leaf the loss does not read holding zeros (autograd
-    gives None, ``jax.value_and_grad`` zeros)."""
+    gives None, ``jax.value_and_grad`` zeros). Under a ``shard`` the
+    parameters and the gradients are the rank's blocks."""
     flat = dict(_walk(params))
     leaves = {k: t.detach().requires_grad_(True) for k, t in flat.items()}
     with torch.enable_grad():
@@ -154,9 +188,10 @@ def pretrain_value_and_grad(params: Any, batch, cfg: ModelConfig, shard=None):
 def _pretrain_step(cfg: ModelConfig, tcfg: TrainConfig, shard) -> Callable:
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         loss, metrics, grads = pretrain_value_and_grad(state.params, batch, cfg, shard)
+        flat = dict(_walk(state.params))
         with torch.no_grad():
-            new, opt, om = adamw.apply(dict(_walk(state.params)), grads, state.opt,
-                                       tcfg.optim)
+            new, opt, om = adamw.apply(flat, grads, state.opt, tcfg.optim,
+                                       **_opt_kw(flat, cfg, shard))
         return (TrainState(merge_gate(state.params, new), None, opt, state.step + 1),
                 {"loss": loss, **metrics, **om})
     return step
@@ -172,6 +207,43 @@ def checkpoint_tree(state: TrainState) -> Dict[str, Any]:
         nest = lambda d: None if d is None else merge_gate(state.params, d)  # noqa: E731
         opt = opt._replace(m=nest(opt.m), v=nest(opt.v), ef=nest(opt.ef))
     return {"params": state.params, "gate": state.gate, "opt": opt}
+
+
+def shard_state(state: TrainState, cfg: ModelConfig, shard: Shard) -> TrainState:
+    """A full state -> this rank's (``sharding.shard_params`` of the
+    parameters, the gate and the moments; the counters as they are)."""
+    params = shard_params(state.params, cfg, shard)
+    opt = state.opt
+    m, v, ef = (None if d is None else shard_params(d, cfg, shard) for d in (opt.m, opt.v, opt.ef))
+    return TrainState(params, None if state.gate is None else extract_gate(params),
+                      opt._replace(m=m, v=v, ef=ef), state.step)
+
+
+def gather_state(state: TrainState, cfg: ModelConfig, shard: Shard) -> TrainState:
+    """The inverse of ``shard_state`` on every rank (a collective): the
+    full state, exactly."""
+    opt = state.opt
+    params, m, v, ef = gather_trees([state.params, opt.m, opt.v, opt.ef], cfg, shard)
+    return TrainState(params, None if state.gate is None else extract_gate(params),
+                      opt._replace(m=m, v=v, ef=ef), state.step)
+
+
+def _full_like(state: TrainState, cfg: ModelConfig, shard: Shard) -> TrainState:
+    """A rank's state with every leaf a meta tensor of its full shape (the
+    ``like`` tree of a restore)."""
+    def full(path, t):
+        lay = param_layout(path, tuple(t.shape), cfg, shard.world, local=True)
+        shape = list(t.shape)
+        if lay is not None:
+            shape[lay.axis] = sum(n for n, _ in lay.parts)
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+
+    def tree(t):
+        return None if t is None else merge_gate(t, {p: full(p, x) for p, x in _walk(t)})
+    params, opt = tree(state.params), state.opt
+    return TrainState(params, None if state.gate is None else extract_gate(params),
+                      opt._replace(m=tree(opt.m), v=tree(opt.v), ef=tree(opt.ef)),
+                      state.step)
 
 
 def state_from_checkpoint_tree(tree: Dict[str, Any], step: torch.Tensor) -> TrainState:
@@ -195,30 +267,57 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *,
                  max_retries: int = 3,
                  watchdog_factor: float = 5.0,
                  log: Callable[[str], None] = print,
-                 device=None) -> Tuple[TrainState, List[Dict]]:
+                 device=None, shard=None) -> Tuple[TrainState, List[Dict]]:
     """Returns (final state, metrics history). The parameters come from a
     torch Generator seeded with ``tcfg.seed`` on ``device`` (None = CUDA).
-    ``fail_at(i)`` is called before step ``i`` (fault injection)."""
+    ``fail_at(i)`` is called before step ``i`` (fault injection).
+
+    ``shard`` (a ``distributed.sharding.Shard``, every rank of its group
+    calling with the same arguments) trains tensor-parallel: the port's
+    counterpart of the reference's multi-process run, whose processes
+    ``launch.train.maybe_init_distributed`` joins into one mesh (the
+    reference's ``run_training`` itself takes no mesh). Every rank
+    initialises the same full state and keeps its blocks; the returned
+    state is the rank's. A checkpoint is gathered on every rank and
+    written by rank 0 in the unsharded layout; a failure (raised on
+    every rank at the same step) restores every rank from the same
+    step, after rank 0's writes are published and a barrier."""
     device = resolve_device(device)
+    if shard is not None:
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device != shard.device:
+            raise ValueError(f"run_training: device {device} is not the shard's "
+                             f"{shard.device}")
     steps = steps if steps is not None else tcfg.steps
     bsz = batch_size or tcfg.global_batch
     slen = seq_len or tcfg.seq_len
+    writer = shard is None or shard.rank == 0
 
     def fresh() -> TrainState:
-        return init_train_state(torch.Generator(device=device).manual_seed(tcfg.seed),
-                                cfg, tcfg)
+        state = init_train_state(torch.Generator(device=device).manual_seed(tcfg.seed),
+                                 cfg, tcfg)
+        return state if shard is None else shard_state(state, cfg, shard)
 
     state = fresh()
     data_state = DataState(tcfg.seed, 0)
-    step_fn = make_train_step(cfg, tcfg)
+    step_fn = make_train_step(cfg, tcfg, shard)
     saver = ckpt.AsyncCheckpointer(tcfg.checkpoint_dir, cfg=cfg)
     history: List[Dict] = []
     retries = 0
     step_times: List[float] = []
 
     def save(state, data_state):
-        saver.save(int(state.step), checkpoint_tree(state),
-                   meta={"data_step": data_state.step, "seed": data_state.seed})
+        full = state if shard is None else gather_state(state, cfg, shard)
+        if writer:
+            saver.save(int(state.step), checkpoint_tree(full),
+                       meta={"data_step": data_state.step, "seed": data_state.seed})
+
+    def published():
+        """Rank 0's writes finished, every rank past them."""
+        saver.wait()
+        if shard is not None:
+            shard.barrier()
 
     i = int(state.step)
     while i < steps:
@@ -246,7 +345,7 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *,
             retries += 1
             if retries > max_retries:
                 raise
-            saver.wait()
+            published()
             last = ckpt.latest_step(tcfg.checkpoint_dir)
             log(f"[recover] step {i} failed ({type(e).__name__}: {e}); "
                 f"restoring step {last}")
@@ -254,10 +353,13 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *,
                 state = fresh()
                 i = 0
                 continue
-            tree, meta = ckpt.restore(tcfg.checkpoint_dir, last, checkpoint_tree(state),
-                                      cfg=cfg)
+            like = state if shard is None else _full_like(state, cfg, shard)
+            tree, meta = ckpt.restore(tcfg.checkpoint_dir, last, checkpoint_tree(like),
+                                      cfg=cfg, device=device)
             state = state_from_checkpoint_tree(
                 tree, torch.tensor(last, dtype=torch.int32, device=device))
+            if shard is not None:
+                state = shard_state(state, cfg, shard)
             i = int(meta["data_step"])
-    saver.wait()
+    published()
     return state, history

@@ -1440,6 +1440,67 @@ def test_train_steps_cuda_match_cpu_and_count_launches(dev):
     assert g_err <= 1e-4
 
 
+# kernel 6 on a rank's heads under a training Shard (sharding.py: whole KV
+# head groups, Hkv / world of them): qwen3_0_6b (16 / 8 x 128) at world
+# sizes 2 and 8, zamba2_1_2b's shared block (32 / 32 x 64) at 2 and 32,
+# deepseek_moe_16b (16 / 16 x 128) at 4
+GT_LOCAL_SHAPES = [(2, 1024, 8, 4, 128, 64), (2, 1024, 2, 1, 128, 64),
+                   (2, 1024, 16, 16, 64, 64), (2, 1024, 1, 1, 64, 64),
+                   (1, 2048, 4, 4, 128, 64)]
+
+
+@pytest.mark.parametrize("b,l,h,hkv,dh,bs", GT_LOCAL_SHAPES)
+def test_gate_gt_kernel_on_local_heads_matches_plain(dev, b, l, h, hkv, dh, bs):
+    """Kernel 6 (bf16) at the head counts a rank holds, packed segments."""
+    from repro_torch.kernels import gate_gt_fwd as gt
+    q, k, v, seg = _gt_inputs(dev, torch.bfloat16, b, l, h, hkv, dh, bs, _short_docs(l))
+    o_k, bm_k = gt.gate_gt_attention_cuda(q, k, v, block_size=bs, segment_ids=seg)
+    o_p, bm_p = gt.gate_gt_attention_plain(q, k, v, block_size=bs, q_chunk=1024,
+                                           segment_ids=seg)
+    torch.cuda.synchronize()
+    o_err, bm_err = check_gt(o_k, bm_k, o_p, bm_p)
+    print(f"gate_gt local heads {(b, l, h, hkv, dh, bs)}: o err {o_err:.3e}, blockmax err "
+          f"{bm_err:.3e}")
+
+
+@pytest.mark.parametrize("arch,mode", [("qwen3_0_6b", "distill"), ("zamba2_1_2b", "distill"),
+                                       ("deepseek_moe_16b", "pretrain")])
+def test_sharded_train_step_one_rank_nccl_is_unsharded(nccl_shard, arch, mode):
+    """Two steps of a reduced() model (bf16) under the one-rank NCCL shard
+    bitwise the unsharded steps: metrics, every parameter and moment;
+    kernel 6 on every gated layer of every sharded distill forward."""
+    from repro_torch.data.pipeline import DataState, make_batch
+    from repro_torch.train import loop as tl
+    kw = {"num_layers": 5} if arch == "zamba2_1_2b" else {}
+    cfg = t_config.reduced(t_get(arch), **kw)
+    tcfg = t_config.TrainConfig(mode=mode, steps=2,
+                                optim=t_config.OptimConfig(warmup_steps=1, total_steps=2))
+    seed = tl.init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg, tcfg)
+    batches = [make_batch(cfg, 2, 64, DataState(0, i), device="cuda") for i in range(2)]
+    runs = {}
+    for name, shard in (("plain", None), ("sharded", nccl_shard)):
+        state = seed if shard is None else tl.shard_state(seed, cfg, shard)
+        step = tl.make_train_step(cfg, tcfg, shard)
+        ops.reset_launch_counts()
+        hist = []
+        for batch in batches:
+            state, m = step(state, batch)
+            hist.append({k: float(v) for k, v in m.items()})
+        counts = ops.launch_counts()
+        if shard is not None:
+            state = tl.gather_state(state, cfg, shard)
+        runs[name] = (hist, state, counts)
+    (p_hist, p_state, p_counts), (s_hist, s_state, s_counts) = runs["plain"], runs["sharded"]
+    gated = 2 if arch == "zamba2_1_2b" else cfg.num_layers
+    assert s_counts == p_counts == _counts(gate_gt_attention=2 * gated if mode == "distill"
+                                           else 0)
+    assert s_hist == p_hist
+    for a, b in ((s_state.params, p_state.params), (s_state.opt.m, p_state.opt.m),
+                 (s_state.opt.v, p_state.opt.v)):
+        pa, pb = dict(tl._walk(a)), dict(tl._walk(b))
+        assert pa.keys() == pb.keys() and all(torch.equal(pa[k], t) for k, t in pb.items())
+
+
 def test_pretrain_step_cuda_matches_cpu(dev):
     """One pretrain loss and gradient of every family's reduced() model
     (fp32) on the card against the CPU (chip_smoke.py's phase-2 pretrain

@@ -267,7 +267,7 @@ def test_remat_matches_no_remat(arch):
 def test_pretrain_refusals():
     _, _, tcfg, tparams = pair("qwen3_0_6b")
     tb, _ = batches(tcfg)
-    with pytest.raises(NotImplementedError, match="item 10c"):
+    with pytest.raises(TypeError, match="Shard"):
         t_tf.lm_forward(tparams, tb, tcfg, mode="pretrain", shard=object())
     with pytest.raises(ValueError, match="unknown mode"):
         t_tf.lm_forward(tparams, tb, tcfg, mode="finetune")

@@ -36,6 +36,7 @@ import pytest
 import torch
 
 import repro.configs as j_configs
+import torch_sharded_helpers as H
 from repro.config import reduced as j_reduced
 from repro.core import policy as JP
 from repro.models.registry import get_api
@@ -45,7 +46,7 @@ from repro_torch import configs as t_configs
 from repro_torch.config import reduced as t_reduced
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import policy as TP
-from repro_torch.distributed.sharding import Shard
+from repro_torch.distributed.sharding import Shard, shard_params
 from repro_torch.kernels import ops as t_ops
 from repro_torch.models import hybrid as t_hybrid
 from repro_torch.models import registry as t_registry
@@ -363,13 +364,14 @@ def test_hybrid_int8_serve_matches_jax(pool):
 # refusals
 # ---------------------------------------------------------------------------
 
-def test_refusals_mirror_the_reference():
+def test_refusals_mirror_the_reference(tmp_path):
     """Quest on the hybrid has no metadata cache (ValueError at its first
     step, in both packages); a plan-carrying schedule has no paged hybrid
     step (NotImplementedError in both); the port refuses a sharded engine
-    for a recurrent family and training under a shard (item 10c). The
-    recurrent families' lm_forward with mode="distill" is the reference's:
-    the Mamba1 LM pretrains in either mode (CE), the hybrid distils."""
+    for a recurrent family (item 9). The recurrent families' lm_forward
+    with mode="distill" is the reference's: the Mamba1 LM pretrains in
+    either mode (CE), the hybrid distils; under a one-rank shard it is
+    the unsharded loss bitwise."""
     jcfg, params, tcfg, tparams = _pair("zamba2_1_2b", 5)
     toks = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 20)).astype(np.int32)
     with pytest.raises(ValueError, match="selection-metadata cache"):
@@ -392,18 +394,20 @@ def test_refusals_mirror_the_reference():
         _, _, cfg, p = _pair(arch, _layers(arch))
         with pytest.raises(NotImplementedError, match="item 9"):
             DecodeEngine(cfg, p, max_len=64, device="cpu", shard=shard)
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            t_registry.get_api(cfg).forward(p, {"tokens": torch.tensor(toks)}, cfg,
-                                            mode="distill", shard=shard)
         jc, jp, _, _ = _pair(arch, _layers(arch))
         tk = toks[:, :16]                 # whole gate blocks for the distill target
         batch = {"tokens": tk, "labels": np.roll(tk, -1, axis=1)}
         want, _ = get_api(jc).forward(jp, {k: jnp.asarray(v) for k, v in batch.items()},
                                       jc, mode="distill")
-        got, metrics = t_registry.get_api(cfg).forward(
-            p, {k: torch.tensor(v) for k, v in batch.items()}, cfg, mode="distill")
+        tb = {k: torch.tensor(v) for k, v in batch.items()}
+        got, metrics = t_registry.get_api(cfg).forward(p, tb, cfg, mode="distill")
         assert set(metrics) == ({"ce"} if arch == "falcon_mamba_7b" else {"kl"})
         np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+        with H.one_rank_group(tmp_path / f"{arch}.store") as one:
+            local = shard_params(p, cfg, one)
+            got_sh, metrics_sh = t_registry.get_api(cfg).forward(local, tb, cfg,
+                                                                 mode="distill", shard=one)
+        assert torch.equal(got_sh, got) and metrics_sh.keys() == metrics.keys()
 
 
 @pytest.mark.parametrize("arch", ARCHS)

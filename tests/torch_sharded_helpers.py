@@ -1,6 +1,7 @@
-"""Child-process bodies of tests/test_torch_sharded.py and
-tests/test_torch_sharded_options.py: the port's sharded serving over a
-gloo process group, one process per rank.
+"""Child-process bodies of tests/test_torch_sharded.py,
+tests/test_torch_sharded_options.py and tests/test_torch_train_sharded.py:
+the port's sharded serving and training over a gloo process group, one
+process per rank.
 
 This module imports torch, numpy and the port only: it is what the child
 processes import (the test module imports JAX for the reference, and a
@@ -19,12 +20,17 @@ import torch.distributed as dist
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import policy as TP
 from repro_torch.core.policy import DecodeOptions, DensePolicy, SelectionSchedule
-from repro_torch.distributed.sharding import Shard, decode_partition, seq_shard_state
+from repro_torch.data.pipeline import DataState, make_batch
+from repro_torch.distributed.sharding import (Shard, decode_partition, gather_trees,
+                                              seq_shard_state, shard_params)
+from repro_torch.models import moe as moe_mod
+from repro_torch.optim import adamw
 from repro_torch.serve import paging as pg
 from repro_torch.serve.engine import DecodeEngine
 from repro_torch.serve.eviction import EvictionConfig
 from repro_torch.serve.frontend import ServingFrontend
 from repro_torch.serve.sampling import SamplingParams
+from repro_torch.train import loop as tl
 
 # a resident cap under the lists' width: evicts, faults and replays
 EVICT = dict(n_slots=4, num_pages=10, eviction=EvictionConfig(max_resident_pages=2))
@@ -57,6 +63,17 @@ def _count_gathers(shard):
         shard.gathers += 1
         return real(x, axis)
     shard.all_gather = counted
+
+
+@contextlib.contextmanager
+def one_rank_group(store):
+    """A one-rank gloo group in this process (a ``file://`` store at
+    ``store``), its ``Shard`` yielded, the group destroyed after."""
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        yield Shard()
+    finally:
+        dist.destroy_process_group()
 
 
 def run(rank, world, store, task, args, out_dir):
@@ -279,5 +296,104 @@ def option_cases(shard, models, reqs, trace):
     return out
 
 
+# ---------------------------------------------------------------------------
+# training under a shard
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_L = 2, 32
+
+
+@contextlib.contextmanager
+def recording_drops():
+    """Record (flat expert ids, keep mask, capacity) of every MoE dispatch,
+    in call order, by wrapping ``moe.dispatch``."""
+    rec, real = [], moe_mod.dispatch
+
+    def recording(top_i, mcfg):
+        out = real(top_i, mcfg)
+        rec.append((out[0].numpy().copy(), out[2].numpy().copy(), out[3]))
+        return out
+    moe_mod.dispatch = recording
+    try:
+        yield rec
+    finally:
+        moe_mod.dispatch = real
+
+
+def value_and_grad(state, batch, cfg, mode, shard=None):
+    """(loss, metrics, {path: grad}) of the state's training loss: every
+    leaf in pretrain, the gate's in distill; the rank's under a shard."""
+    if mode == "pretrain":
+        return tl.pretrain_value_and_grad(state.params, batch, cfg, shard)
+    return tl.distill_value_and_grad(state.params, state.gate, batch, cfg, shard)
+
+
+def train_case(shard, cfg, tcfg, start):
+    """From the full state ``start``: the step-0 loss, metrics and gradient
+    (gathered), the MoE dispatches of that forward, two ``make_train_step``
+    steps (metrics, and the state after each, gathered), and the shapes of
+    the rank's parameter leaves. ``shard`` None: the unsharded port."""
+    state = start if shard is None else tl.shard_state(start, cfg, shard)
+    full = (lambda t: t) if shard is None else (lambda t: gather_trees([t], cfg, shard)[0])
+    batch = make_batch(cfg, TRAIN_B, TRAIN_L, DataState(tcfg.seed, 0), device="cpu")
+    with recording_drops() as drops:
+        loss, metrics, grads = value_and_grad(state, batch, cfg, tcfg.mode, shard)
+    out = {"loss": float(loss), "metrics": {k: float(v) for k, v in metrics.items()},
+           "grads": full(grads), "drops": drops, "hist": [], "states": [],
+           "local": {p: tuple(t.shape) for p, t in tl._walk(state.params)}}
+    step = tl.make_train_step(cfg, tcfg, shard)
+    for i in range(2):
+        batch = make_batch(cfg, TRAIN_B, TRAIN_L, DataState(tcfg.seed, i), device="cpu")
+        state, m = step(state, batch)
+        out["hist"].append({k: float(v) for k, v in m.items()})
+        out["states"].append(state if shard is None else tl.gather_state(state, cfg, shard))
+    return out
+
+
+def recovering_run(shard, cfg, tcfg):
+    """``run_training`` with a failure injected before step 3 (every rank):
+    (history, the final state gathered, the recovery log lines)."""
+    armed, logs = [True], []
+
+    def fail_at(i):
+        if i == 3 and armed[0]:
+            armed[0] = False
+            raise RuntimeError("injected node failure")
+
+    state, hist = tl.run_training(cfg, tcfg, fail_at=fail_at, log=logs.append,
+                                  device="cpu", shard=shard)
+    if shard is not None:
+        state = tl.gather_state(state, cfg, shard)
+    return hist, state, [m for m in logs if m.startswith("[recover]")]
+
+
+def sharded_optimizer(shard, cfg, ocfg, params, grads, opt):
+    """``adamw.apply`` on the rank's blocks of full flat trees, gathered:
+    (new params, m, v, ef, grad_norm); ``shard`` None: the unsharded
+    apply."""
+    if shard is not None:
+        params, grads = (shard_params(t, cfg, shard) for t in (params, grads))
+        opt = opt._replace(**{f: None if getattr(opt, f) is None
+                              else shard_params(getattr(opt, f), cfg, shard)
+                              for f in ("m", "v", "ef")})
+    new, opt, om = adamw.apply(params, grads, opt, ocfg, **tl._opt_kw(params, cfg, shard))
+    if shard is not None:
+        new, m, v, ef = gather_trees([new, opt.m, opt.v, opt.ef], cfg, shard)
+        opt = opt._replace(m=m, v=v, ef=ef)
+    return new, opt, float(om["grad_norm"])
+
+
+def train_cases(shard, cases, recover, optim):
+    """Every training case on this rank: ``cases`` {name: (cfg, tcfg,
+    full start state)}, ``recover`` (cfg, tcfg) of the failing
+    ``run_training``, ``optim`` {name: (cfg, OptimConfig, params, grads,
+    AdamWState)} of the optimizer alone."""
+    torch.manual_seed(0)
+    out = {name: train_case(shard, *case) for name, case in cases.items()}
+    out["recover"] = recovering_run(shard, *recover)
+    out["optim"] = {name: sharded_optimizer(shard, *case) for name, case in optim.items()}
+    return out
+
+
 TASKS = {"serve": serve_cases, "generate": generate_teacher_forced, "moe": moe_cases,
-         "options": option_cases}
+         "options": option_cases, "train": train_cases}
