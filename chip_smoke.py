@@ -52,7 +52,10 @@ reduced scale, the head-sharded engine with a selection schedule,
 request budgets, sampling and open-loop arrivals, and training under a
 ``Shard`` (tensor-parallel distillation and pretraining on the one-rank
 NCCL group, kernel 6 on the rank's heads; the training launcher under
-torchrun's environment).
+torchrun's environment); then falcon_mamba_7b, zamba2_1_2b and
+deepseek_moe_16b on a sharded engine (the Mamba mixers and their slot
+state at the rank's channels or heads, the routed experts
+expert-parallel).
 The contiguous int8 kernel ``block_sparse_decode_quant`` lies on no model
 path (in the reference neither): it is checked and timed on the generate
 path's layer-0 blocks, quantized per block. Phases (any failure exits
@@ -374,7 +377,30 @@ kernels line and their kernel errors its max_abs_err:
      first call (the rank's heads); the step times side by side with the
      card; (d) ``python -m repro_torch.launch.train`` (LAUNCH_TRAIN_ARGV)
      in a subprocess under a one-rank torchrun environment: exit 0, its
-     checkpoint the full tree in the reference's layout.
+     checkpoint the full tree in the reference's layout;
+ 42. the recurrent families and expert parallelism on a sharded engine,
+     over the one-rank NCCL group at full width and the depths of phases
+     30, 33 and 34 (the engine keeps the rank's block of every Mamba mixer
+     and routed expert, a one-rank block being the whole leaf):
+     falcon_mamba_7b's serve (phase 34's requests at its tight pool,
+     preempting) and generate; zamba2_1_2b's serve over fp pools (the
+     tight pool), int8 pools, and at split_k 2 over fp and int8 pools, and
+     its generate (the shared block's sequence-sharded step);
+     deepseek_moe_16b's serve (phase 30's requests, the ample pool), each
+     rank computing its experts and gathering their outputs. Each run is
+     bitwise phase 30's, 33's or 34's unsharded run of the same requests
+     and pool (tokens, every step's logits and the scheduling and swap
+     stats), except where the decode is another arithmetic: split_k 2 and
+     the hybrid's sequence-sharded generate, whose every step reached from
+     equal histories stays within DECODE_ULPS bf16 ulps of the unsharded
+     run's (``drift_ulps``). The paged kernels launch layers x steps on
+     the hybrid's and the MoE model's serves and nothing launches
+     elsewhere; #3, #4, 4q, 5 and 5q on the first call of the hybrid's
+     sharded serves against their plain versions (phase 40's checks).
+     Printed beside the card: ms a decode step, collectives a decode step
+     and their host time, device busy over three profiled steps of each
+     model's first serve, the rank's slot-state bytes and its
+     routed-expert bytes.
 
 The pressure and failure paths of ``serve`` (phases 23-29) run after
 phase 13, on qwen3_0_6b at full width and phase 6's requests unless
@@ -439,8 +465,15 @@ import tempfile
 import time
 
 import numpy as np
-import torch
-import torch.distributed as dist
+
+# torch.profiler (Kineto) leaves CUPTI's callbacks subscribed after a
+# profiled window unless it is told to tear CUPTI down, and every launch
+# after the first window then pays for them: a host-bound step grows by
+# that much for the rest of the run. Set before torch is imported
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
+
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
@@ -452,7 +485,7 @@ from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,  
                                      DensePolicy, OraclePolicy, QuestPolicy,
                                      QuestRecomputePolicy, SelectionInputs,
                                      SelectionSchedule, SlidingWindowPolicy)
-from repro_torch.distributed.sharding import Shard  # noqa: E402
+from repro_torch.distributed.sharding import Shard, local_shape, state_layouts  # noqa: E402
 from repro_torch.examples import (distill_and_eval, quickstart, serve_sparse,  # noqa: E402
                                   serve_stream)
 from repro_torch.launch import serve as launch_serve  # noqa: E402
@@ -570,6 +603,11 @@ FAMILY_SERVE = ("deepseek_moe_16b",)
 # its prefill) and its tight pool the first four cut prompts' pages, the
 # null page and one more (``tight_pool_pages``), as phase 6's 644
 RECURRENT_CONFIGS = ("zamba2_1_2b", "falcon_mamba_7b")
+# phase 42: the configs it runs on a sharded engine, at the depths of
+# phases 30, 33 and 34, and those phases' unsharded runs it holds them to
+SHARDED_FAMILIES = ("falcon_mamba_7b", "zamba2_1_2b", "deepseek_moe_16b")
+BASE_RUNS: dict = {}
+SHARDED_SPLIT_K = 2
 RECURRENT_CUTS = {"falcon_mamba_7b": dict(num_layers=8), "zamba2_1_2b": dict(num_layers=14)}
 FAMILY_PROMPT["falcon_mamba_7b"] = 4096
 # distill training (phase 22) also runs deepseek_moe_16b at the 2 layers
@@ -1288,16 +1326,20 @@ def host_launch_us(n: int = 2000) -> float:
     return 1e6 * t / n
 
 
-def phase_end_to_end(eng, batch, n_new, n_layers):
-    """generate() with every launch counter at 0 just before; logits checked."""
+def phase_end_to_end(eng, batch, n_new, n_layers, keep=None):
+    """generate() with every launch counter at 0 just before; logits
+    checked. ``keep`` (a dict) gets the tokens and every decode step's
+    logits, for phase 42 to hold its sharded run to."""
     print(f"host: {host_launch_us():.2f} µs to enqueue a tiny CUDA op, "
           f"{os.cpu_count()} CPUs, load average {os.getloadavg()[0]:.2f}")
-    finite = []
+    finite, logits = [], []
     step = eng._step
 
     def checked_step(*a):
         out = step(*a)
         finite.append(torch.isfinite(out[1]).all())
+        if keep is not None:
+            logits.append(out[1].clone())
         return out
 
     eng._step = checked_step
@@ -1325,6 +1367,8 @@ def phase_end_to_end(eng, batch, n_new, n_layers):
     if tuple(toks.shape) != (b, n_new) or int(toks.min()) < 0 \
             or int(toks.max()) >= eng.cfg.vocab_size:
         fail(f"bad tokens: shape {tuple(toks.shape)}")
+    if keep is not None:
+        keep.update(tokens=toks.cpu(), logits=torch.stack(logits).float().cpu())
     return counts, stats["sparsity"]
 
 
@@ -1476,11 +1520,7 @@ def phase_serve(cfg, params, options=DecodeOptions(), shard=None, tight_pool=Tru
         rid = r["rid"]
         if tight[rid] != ample[rid]:
             fail(f"tight pool changed rid {rid}'s tokens")
-        a, b = ample["logits"][rid], tight["logits"][rid]
-        if not np.array_equal(a, b):
-            top = float(np.abs(a).max())
-            ulp = 2.0 ** -7 * 2.0 ** math.floor(math.log2(top))
-            worst = max(worst, float(np.abs(a - b).max()) / ulp)
+        worst = max(worst, bf16_ulps(ample["logits"][rid], tight["logits"][rid]))
     bitwise = options.quantize or shard is not None or cfg.family in ("ssm", "hybrid")
     if worst > (0 if bitwise else DECODE_ULPS):
         fail(f"tight pool logits differ by {worst:.2f} bf16 ulps")
@@ -1589,9 +1629,7 @@ def check_sharded_serve(cfg, base, sharded):
     (ba, sa) = base[0], sharded[0]
     worst = 0.0
     for rid in range(SERVE_SLOTS):                 # admitted at step 0: same step
-        a, b = ba["logits"][rid][1], sa["logits"][rid][1]
-        ulp = 2.0 ** -7 * 2.0 ** math.floor(math.log2(float(np.abs(a).max())))
-        worst = max(worst, float(np.abs(a - b).max()) / ulp)
+        worst = max(worst, bf16_ulps(ba["logits"][rid][1], sa["logits"][rid][1]))
     if worst > DECODE_ULPS:
         fail(f"sharded serve: first decode step's logits {worst:.2f} bf16 ulps from the "
              f"unsharded run's (limit {DECODE_ULPS})")
@@ -1872,52 +1910,86 @@ def phase_quant_kernels(seen):
         max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None)}
 
 
+def profiled_window(eng, skip: int = 2, steps: int = 3):
+    """Profile decode steps ``skip`` to ``skip + steps`` of the engine's
+    next serve with torch.profiler, from the start of one step to the
+    start of another, so that the window holds whole iterations (the model
+    step, the argmax copy and the host's scheduling): returns the window's
+    record, which ``window_stats`` reads once the serve ran, and a
+    function that unwraps the engine's step. The record's ``wall`` is the
+    window's steps, its ``span`` that and the profiler's start and stop
+    (what the window adds to the serve's wall)."""
+    from torch.profiler import ProfilerActivity, profile
+    real = eng.api
+    rec = {"prof": profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]),
+           "steps": steps, "wall": 0.0, "span": 0.0}
+    calls = [0]
+
+    def step(*a, **kw):
+        if calls[0] == skip:
+            rec["span"] = time.perf_counter()
+            rec["prof"].start()
+            torch.cuda.synchronize()
+            rec["wall"] = time.perf_counter()
+        elif calls[0] == skip + steps:
+            torch.cuda.synchronize()
+            rec["wall"] = time.perf_counter() - rec["wall"]
+            rec["prof"].stop()
+            rec["span"] = time.perf_counter() - rec["span"]
+            rec["done"] = True
+        calls[0] += 1
+        return real.decode_step_paged(*a, **kw)
+
+    eng.api = real._replace(decode_step_paged=step)
+
+    def undo():
+        eng.api = real
+    return rec, undo
+
+
+def window_stats(rec) -> dict:
+    """A closed ``profiled_window``'s key averages and device kernels, and a
+    step's numbers: its wall under the profiler, device busy and the NCCL
+    kernels' part of it (ms), kernel launches, collectives and their host
+    time (ms)."""
+    if not rec.get("done"):
+        fail("the profiled window did not close: the serve ran too few steps")
+    steps = rec["steps"]
+    ka = rec["prof"].key_averages()
+    kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the profiler marks every c10d collective with one record_param_comms
+    comms = [e for e in ka if e.key == "record_param_comms"]
+    return {"ka": ka, "kernels": kernels, "per_step": 1e3 * rec["wall"] / steps,
+            "busy": sum(e.self_device_time_total for e in kernels) / 1e3 / steps,
+            "nccl": sum(e.self_device_time_total for e in kernels
+                        if "nccl" in e.key.lower()) / 1e3 / steps,
+            "launches": sum(e.count for e in kernels) / steps,
+            "collectives": sum(e.count for e in comms) / steps,
+            "comm_ms": sum(e.self_cpu_time_total for e in comms) / 1e3 / steps}
+
+
 def phase_serve_profile(cfg, params, options=DecodeOptions(), shard=None,
                         label: str = "serve", skip: int = 2, steps: int = 3):
-    """Where a serve() decode iteration's time goes: torch.profiler from the
-    start of decode step ``skip`` to the start of step ``skip + steps``, so
-    the window holds whole iterations (the model step, the argmax copy and
-    the host's scheduling), with every slot busy. Prints the top device
-    kernels and host ops, the device's busy share and the launches and
-    collectives per iteration."""
-    from torch.profiler import ProfilerActivity, profile
+    """Where a serve() decode iteration's time goes: ``profiled_window``
+    over decode steps ``skip`` to ``skip + steps``, with every slot busy.
+    Prints the top device kernels and host ops, the device's busy share
+    and the launches and collectives per iteration."""
     reqs = [dict(r, max_new_tokens=skip + steps + 2)
             for r in serve_requests(cfg.vocab_size)[:SERVE_SLOTS]]
     eng = DecodeEngine(cfg, params, max_len=max(p for p, _ in SERVE_SPECS) + 8,
                        options=options, shard=shard)
-    real = eng.api.decode_step_paged
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    calls, wall = [0], [0.0]
-
-    def step(*a, **kw):
-        if calls[0] == skip:
-            prof.start()
-            torch.cuda.synchronize()
-            wall[0] = time.perf_counter()
-        elif calls[0] == skip + steps:
-            torch.cuda.synchronize()
-            wall[0] = time.perf_counter() - wall[0]
-            prof.stop()
-        calls[0] += 1
-        return real(*a, **kw)
-
-    eng.api = eng.api._replace(decode_step_paged=step)
+    rec, _ = profiled_window(eng, skip, steps)
     eng.serve(reqs, n_slots=SERVE_SLOTS)
-    ka = prof.key_averages()
-    kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps   # ms/step
-    per_step = 1e3 * wall[0] / steps
-    # the profiler marks every c10d collective with one record_param_comms
-    comms = [e for e in ka if e.key == "record_param_comms"]
-    comm_ms = sum(e.self_cpu_time_total for e in comms) / 1e3 / steps   # host ms/step
-    print(ka.table(sort_by="self_device_time_total", row_limit=15))
-    print(ka.table(sort_by="self_cpu_time_total", row_limit=12))
-    print(f"{label} profile ({SERVE_SLOTS} slots busy, {steps} iterations): {per_step:.2f} ms "
-          f"per iteration under the profiler; device busy {busy:.2f} ms/iteration = "
-          f"{100 * busy / per_step:.1f}% of it; "
-          f"{sum(e.count for e in kernels) / steps:.0f} kernel launches/iteration; "
-          f"{sum(e.count for e in comms) / steps:.0f} collectives/iteration, "
-          f"{comm_ms:.2f} ms/iteration of host time in them; {gate_profile(kernels, steps)}")
+    w = window_stats(rec)
+    print(w["ka"].table(sort_by="self_device_time_total", row_limit=15))
+    print(w["ka"].table(sort_by="self_cpu_time_total", row_limit=12))
+    print(f"{label} profile ({SERVE_SLOTS} slots busy, {steps} iterations): "
+          f"{w['per_step']:.2f} ms per iteration under the profiler; device busy "
+          f"{w['busy']:.2f} ms/iteration = {100 * w['busy'] / w['per_step']:.1f}% of it; "
+          f"{w['launches']:.0f} kernel launches/iteration; "
+          f"{w['collectives']:.0f} collectives/iteration, "
+          f"{w['comm_ms']:.2f} ms/iteration of host time in them; "
+          f"{gate_profile(w['kernels'], steps)}")
 
 # ---------------------------------------------------------------------------
 # the rest of the decode API: Quest, the oracle, the sliding window, the
@@ -2803,8 +2875,10 @@ def phase_config(arch):
         print(json.dumps({"config": arch, "reduced": cuts, "kernels": numbers}))
         print(f"phase {arch}: {time.perf_counter() - t0:.1f} s")
         return counts, numbers
-    serve_counts, seen, *_ = phase_serve(cfg, params)
-    del params
+    serve_counts, seen, *runs = phase_serve(cfg, params)
+    if arch in SHARDED_FAMILIES:
+        BASE_RUNS[arch] = {"serve": runs}
+    del params, runs
     torch.cuda.empty_cache()
     numbers.update(phase_paged_kernels(seen, vs_sdpa=False))
     seen["paged_sparse_decode_splitk"] = seen["paged_sparse_decode"]
@@ -3170,8 +3244,8 @@ def timed_steps(step_fn, state, batches):
 
 def counting_collectives(shard):
     """Wrap the shard's collectives (``all_sum``, ``all_max``,
-    ``all_gather``) to count them and their host time: (the counts
-    {"n", "host_s"}, a function that unwraps them)."""
+    ``all_gather``) to count them and their host time: (the counts {"n",
+    "host_s"}, a function that unwraps them)."""
     stats = {"n": 0, "host_s": 0.0}
     names = ("all_sum", "all_max", "all_gather")
 
@@ -3348,6 +3422,272 @@ def phase_sharded_train(shard):
 
 
 # ---------------------------------------------------------------------------
+# the recurrent families and expert parallelism on a sharded engine (phase 42)
+# ---------------------------------------------------------------------------
+
+def counted_prefills(eng, coll):
+    """Count apart the collectives the engine's paged prefills make (a
+    prefill's Mamba sums and expert gathers): returns {"n"}, kept up to
+    date while ``coll`` (``counting_collectives``' counts) runs."""
+    inside, real = {"n": 0}, eng._paged_prefill
+
+    def prefill(*a, **kw):
+        n0 = coll["n"]
+        try:
+            return real(*a, **kw)
+        finally:
+            inside["n"] += coll["n"] - n0
+    eng._paged_prefill = prefill
+    return inside
+
+
+def sharded_serve(label, eng, reqs, num_pages, n_layers, shard, profiled=False):
+    """One ``run_serve`` of the sharded engine (launch counters checked
+    there), with the first call of each paged kernel captured and the
+    collectives counted (those of the prefills apart); ``profiled``: three
+    decode steps under torch.profiler (``profiled_window``), left out of
+    the ms a decode step. Returns (result, launch counts, captured
+    arguments)."""
+    coll, uncount = counting_collectives(shard)
+    pre = counted_prefills(eng, coll)
+    seen, restore = capture_first(PAGED_CALLS)
+    rec, unprofile = profiled_window(eng) if profiled else (None, lambda: None)
+    try:
+        res, counts, prefill_s = run_serve(eng, reqs, num_pages, n_layers)
+    finally:
+        unprofile()
+        restore()
+        uncount()
+        del eng._paged_prefill
+    st = res["stats"]
+    steps = st["decode_steps"] + st["replay_steps"]
+    decode_s, n, window = st["wall_s"] - prefill_s, st["decode_steps"], ""
+    if rec is not None:
+        w = window_stats(rec)
+        decode_s, n = decode_s - rec["span"], n - rec["steps"]
+        window = (f"; profiled over {rec['steps']} steps: {w['per_step']:.2f} ms a step under "
+                  f"the profiler, device busy {w['busy']:.2f} ms = "
+                  f"{100 * w['busy'] / w['per_step']:.1f}%, of which NCCL kernels "
+                  f"{w['nccl']:.3f} ms; {w['launches']:.0f} kernel launches and "
+                  f"{w['collectives']:.0f} collectives a step, {w['comm_ms']:.2f} ms of host "
+                  f"time in them")
+    print(f"{label}: {1e3 * decode_s / n:.2f} ms a decode step"
+          + (" outside the profiled window" if rec is not None else "")
+          + f"; {(coll['n'] - pre['n'] - 1) / steps:.1f} collectives a decode step "
+          f"({pre['n']} in the {st['admitted']} prefills, 1 for the stats), "
+          f"{1e3 * coll['host_s'] / steps:.3f} ms of host time a step in all of them"
+          f"{window} ({card_line()})")
+    return res, counts, seen
+
+
+def held_serve(label, base, run, reqs, bitwise=True):
+    """``run`` against the unsharded ``base`` of the same requests and
+    pool: the same scheduling, swap and sparsity stats, and the tokens and
+    every step's logits bitwise, or (split-K reorders the softmax sums)
+    every step reached from equal histories within DECODE_ULPS bf16 ulps
+    of max|logit| (``drift_ulps``)."""
+    for key in ("decode_steps", "peak_pages_used", "preemptions", "resumed",
+                "swapped_out_bytes", "swapped_in_bytes", "sparsity_by_rid", "replay_steps"):
+        if run["stats"][key] != base["stats"][key]:
+            fail(f"{label}: {key} {run['stats'][key]} != the unsharded run's "
+                 f"{base['stats'][key]}")
+    if bitwise:
+        same_run(label, base, run, reqs)
+        held = "bitwise the unsharded run (tokens, every step's logits"
+    else:
+        worst, same, total = drift_ulps(base, run, reqs)
+        if worst > DECODE_ULPS:
+            fail(f"{label}: logits {worst:.2f} bf16 ulps from the unsharded run's "
+                 f"(limit {DECODE_ULPS})")
+        held = (f"within {worst:.3f} bf16 ulps of max|logit| of the unsharded run up to each "
+                f"request's first differing token (limit {DECODE_ULPS}; tokens equal "
+                f"{same}/{total}")
+    print(f"{label}: {held}, steps, pages, preemptions {run['stats']['preemptions']}, swap "
+          f"bytes {run['stats']['swapped_out_bytes']}, sparsity by request)")
+
+
+def sharded_generate(label, eng, batch, base, bitwise):
+    """The sharded engine's ``generate`` of phase 33's or 34's batch with
+    every launch counter at 0 just before (nothing launches: the Mamba1 LM
+    has no attention, the hybrid's shared block takes the sequence-sharded
+    step, plain PyTorch as the reference's jnp), held to the unsharded
+    run: bitwise, or every decode step reached from equal histories within
+    DECODE_ULPS bf16 ulps (``drift_ulps``, each row a request)."""
+    logits, step = [], eng._step
+
+    def keep(*a):
+        out = step(*a)
+        logits.append(out[1].clone())
+        return out
+    eng._step = keep
+    ops.reset_launch_counts()
+    try:
+        res = eng.generate(batch, NEW_TOKENS)
+    finally:
+        del eng._step
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        fail(f"{label}: a kernel launched on the sequence-sharded generate: {counts}")
+    toks, lg = res["tokens"].cpu(), torch.stack(logits).float().cpu()
+    n_steps = NEW_TOKENS - 1
+    if bitwise:
+        if not (torch.equal(toks, base["tokens"]) and torch.equal(lg, base["logits"])):
+            fail(f"{label}: not bitwise the unsharded generate")
+        held = "bitwise the unsharded run (tokens and every step's logits)"
+    else:
+        if not torch.equal(toks[:, 0], base["tokens"][:, 0]):
+            fail(f"{label}: the prefill's tokens differ from the unsharded run's")
+        rows = [{"rid": b} for b in range(toks.shape[0])]
+
+        def as_serve(t, lgs):
+            # row b's decoded tokens and the logits that chose them
+            return {**{b: t[b, 1:].tolist() for b in range(t.shape[0])},
+                    "logits": {b: lgs[:, b].numpy() for b in range(t.shape[0])}}
+        worst, same, total = drift_ulps(as_serve(base["tokens"], base["logits"]),
+                                        as_serve(toks, lg), rows)
+        if worst > DECODE_ULPS:
+            fail(f"{label}: decode logits {worst:.2f} bf16 ulps from the unsharded run's "
+                 f"(limit {DECODE_ULPS})")
+        held = (f"every decode step reached from equal histories within {worst:.3f} bf16 ulps "
+                f"of max|logit| of the unsharded run's (limit {DECODE_ULPS}); decoded tokens "
+                f"equal {same}/{total}")
+    print(f"{label}: prefill {res['prefill_s']:.2f} s, decode "
+          f"{1e3 * res['decode_s'] / n_steps:.2f} ms/step ({n_steps} steps, batch "
+          f"{toks.shape[0]}); {held} ({card_line()})")
+
+
+def rank_bytes(cfg, eng, shard):
+    """Print a request's recurrent rows and the routed experts' leaves as
+    this rank holds them, beside the unsharded sizes and (computed from
+    the layouts, not measured) a two-rank engine's."""
+    api = get_api(cfg)
+    if api.init_slot_state is not None:
+        rows = [sum(t.numel() * t.element_size() for t in api.init_slot_state(
+            cfg, 1, device="meta", shard=sh)) for sh in (shard, None)]
+        conv_l, h_l = state_layouts(cfg, 2)
+        st = api.init_slot_state(cfg, 1, device="meta")
+        two = sum(math.prod(local_shape(t.shape, lay, 2)) * t.element_size()
+                  for t, lay in zip(st, (conv_l, h_l)))
+        print(f"{cfg.arch_id}: a request's recurrent rows on this rank {rows[0]} B of the "
+              f"unsharded {rows[1]} B; at two ranks {two} B a rank (computed)")
+    experts = [(path, t) for path, t in tl._walk(eng.params)
+               if "/moe/" in path and path.split("/moe/")[1] in ("wi_gate", "wi_up", "wo")]
+    if experts:
+        nb = sum(t.numel() * t.element_size() for _, t in experts)
+        e = cfg.moe.n_experts
+        print(f"{cfg.arch_id}: this rank's routed experts {experts[0][1].shape[0]} of {e} a "
+              f"layer, {nb / 1e9:.3f} GB in {len(experts)} leaves; at two ranks "
+              f"{nb * (e // 2) // experts[0][1].shape[0] / 1e9:.3f} GB a rank (computed)")
+
+
+def check_splitk_first(label, seen):
+    """Kernel 5 or 5q against its plain version on its first call of a
+    sharded serve, at the serve's split count (phase 11's limits)."""
+    (q, kp, vp, idx, pt, kv_len), kw = seen["paged_sparse_decode_splitk"]
+    bs, ks, vs, ns = kw["block_size"], kw.get("k_scales"), kw.get("v_scales"), kw["num_splits"]
+    quant = ks is not None
+    name = "block_sparse_decode_paged_splitk" + ("_quant" if quant else "")
+
+    def kernel(qq, ix):
+        if quant:
+            return bsd.sparse_decode_paged_splitk_quant_cuda(
+                qq, kp, vp, ix, pt, kv_len, block_size=bs, num_splits=ns, k_scales=ks,
+                v_scales=vs)
+        return bsd.sparse_decode_paged_splitk_cuda(qq, kp, vp, ix, pt, kv_len, block_size=bs,
+                                                   num_splits=ns)
+
+    def plain(qq, ix):
+        return bsd.sparse_decode_paged_splitk_plain(qq, kp, vp, ix, pt, kv_len, block_size=bs,
+                                                    num_splits=ns, k_scales=ks, v_scales=vs)
+    print(f"{label}: {name} q {tuple(q.shape)} {q.dtype}, pools {tuple(kp.shape)} {kp.dtype}, "
+          f"num_splits {ns}")
+    return {name: check_decode(f"{label}: {name} [num_splits {ns}]", kernel, plain,
+                               decode_cases(q, idx))}
+
+
+def phase_sharded_families(shard):
+    """Phase 42: falcon_mamba_7b, zamba2_1_2b and deepseek_moe_16b on a
+    sharded engine over the one-rank NCCL group, each held to phase 34's,
+    33's or 30's unsharded run of the same requests and pool
+    (``BASE_RUNS``), the hybrid's paged kernels against their plain
+    versions on their first sharded call. Returns (launch counts of the
+    sharded serves, {kernel: [max_abs_err]})."""
+    t_all = time.perf_counter()
+    total, errs = dict.fromkeys(ops.KERNELS, 0), {}
+    for arch in SHARDED_FAMILIES:
+        t0 = time.perf_counter()
+        free_card()
+        full = configs.get(arch)
+        cfg = full.replace(**{**FAMILY_CONFIGS, **RECURRENT_CUTS}.get(arch, {}))
+        api = get_api(cfg)
+        n_attn = api.paged_attn_layers(cfg)
+        base = BASE_RUNS.pop(arch)
+        params = api.init_params(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+        prompt = FAMILY_PROMPT.get(arch, PROMPT_LEN)
+        reqs = serve_requests(cfg.vocab_size, None if prompt == PROMPT_LEN else prompt)
+        max_len = max(r["tokens"].size + r["max_new_tokens"] for r in reqs)
+        print(f"phase 42 {arch}: {cfg.num_layers} of {full.num_layers} layers on the one-rank "
+              f"NCCL group ({shard})")
+        # (name, options, pool pages, the unsharded run held to): a recurrent
+        # family's fp serve at its tight pool (preempting: the rank's rows
+        # through the swap), the MoE model's at the ample one; the first
+        # run with three decode steps profiled
+        if cfg.family == "moe":
+            runs = [("fp", DecodeOptions(), None, base["serve"][0])]
+        else:
+            tight = tight_pool_pages(reqs, cfg.gate.block_size)
+            runs = [("fp", DecodeOptions(), tight, base["serve"][1])]
+        if cfg.family == "hybrid":
+            q8, ns = base["int8"][0], SHARDED_SPLIT_K
+            runs += [("int8", DecodeOptions(quantize="int8"), None, q8),
+                     (f"fp, split_k {ns}", DecodeOptions(split_k=ns), None, base["serve"][0]),
+                     (f"int8, split_k {ns}", DecodeOptions(quantize="int8", split_k=ns), None,
+                      q8)]
+        for i, (name, opts, pages, want) in enumerate(runs):
+            label = (f"phase 42 {arch} sharded serve ({name}"
+                     + (f", {pages} pages)" if pages is not None else ")"))
+            eng = DecodeEngine(cfg, params, max_len=max_len, options=opts, shard=shard)
+            if i == 0:
+                rank_bytes(cfg, eng, shard)
+            run, counts, seen = sharded_serve(label, eng, reqs, pages, n_attn, shard,
+                                              profiled=i == 0)
+            for k, n in counts.items():
+                total[k] += n
+            held_serve(label, want, run, reqs, bitwise=opts.split_k == 1)
+            if pages is not None and run["stats"]["preemptions"] < 1:
+                fail(f"{label}: the tight pool preempted nothing")
+            if cfg.family == "hybrid":
+                found = (check_splitk_first(label, seen) if opts.split_k > 1
+                         else check_example_kernels(label, seen))
+                for k, e in found.items():
+                    errs.setdefault(k, []).append(e)
+            del eng, run, seen
+            torch.cuda.empty_cache()
+        if base.get("generate"):
+            toks = np.random.default_rng(SEED).integers(
+                0, cfg.vocab_size, (BATCH, prompt)).astype(np.int32)
+            bs = cfg.gate.block_size
+            eng = DecodeEngine(cfg, params, max_len=-(-(prompt + NEW_TOKENS) // bs) * bs,
+                               shard=shard)
+            coll, uncount = counting_collectives(shard)
+            try:
+                sharded_generate(f"phase 42 {arch} sharded generate", eng, {"tokens": toks},
+                                 base["generate"], bitwise=not n_attn)
+            finally:
+                uncount()
+            print(f"phase 42 {arch} sharded generate: {coll['n']} collectives over the "
+                  f"prefill and {NEW_TOKENS - 1} steps, {1e3 * coll['host_s']:.1f} ms of host "
+                  f"time in them")
+            del eng
+        del params, base
+        torch.cuda.empty_cache()
+        print(f"phase 42 {arch}: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 42 (the recurrent families and expert parallelism on a sharded engine): "
+          f"{time.perf_counter() - t_all:.1f} s; launches {total}")
+    return total, errs
+
+
+# ---------------------------------------------------------------------------
 # the recurrent families: zamba2_1_2b, falcon_mamba_7b (phases 33-34)
 # ---------------------------------------------------------------------------
 
@@ -3421,7 +3761,8 @@ def phase_recurrent(arch):
         del seen, state
         torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counts, _ = phase_end_to_end(eng, batch, NEW_TOKENS, n_attn)
+    base = BASE_RUNS[arch] = {"generate": {}}
+    counts, _ = phase_end_to_end(eng, batch, NEW_TOKENS, n_attn, keep=base["generate"])
     phase_profile(eng, batch)
     del eng
     torch.cuda.empty_cache()
@@ -3432,6 +3773,7 @@ def phase_recurrent(arch):
           f"{[(r['tokens'].size, r['max_new_tokens']) for r in reqs]}; default pool, then "
           f"{tight} pages")
     serve_counts, seen, *fp_runs = phase_serve(cfg, params, reqs=reqs, tight_pages=tight)
+    base["serve"] = fp_runs
     st = fp_runs[1]["stats"]
     if not n_attn:
         if st["swapped_out_bytes"] != st["preemptions"] * row_b:
@@ -3456,6 +3798,7 @@ def phase_recurrent(arch):
     q8_counts, seen, *q8_runs = phase_serve(cfg, params, DecodeOptions(quantize="int8"),
                                             reqs=reqs, tight_pages=tight)
     check_int8_serve(cfg, fp_runs, q8_runs, n_layers=n_attn, state_bytes=row_b)
+    base["int8"] = q8_runs
     numbers.update(phase_paged_quant_kernels(seen))
     seen["paged_sparse_decode_splitk"] = seen["paged_sparse_decode"]
     numbers.update(phase_splitk_kernels(seen, source=f"{arch} int8 serve"))
@@ -3496,6 +3839,13 @@ def same_run(name, base, run, reqs):
             fail(f"{name}: rid {rid}'s logits differ from the run without pressure")
 
 
+def bf16_ulps(a, b) -> float:
+    """max|a - b| in bf16 ulps of max|a| (0 where they are equal)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    ulp = 2.0 ** -7 * 2.0 ** math.floor(math.log2(float(np.abs(a).max())))
+    return float(np.abs(a - b).max()) / ulp
+
+
 def drift_ulps(base, run, reqs):
     """-> (worst bf16 ulps of max|logit| over the steps both runs reached
     from equal histories, tokens equal, tokens in all): the logits of each
@@ -3508,9 +3858,7 @@ def drift_ulps(base, run, reqs):
         n = len(a) if eq.all() else int(np.argmin(eq)) + 1
         same += int(eq.sum())
         total += len(a)
-        la, lb = base["logits"][rid][:n], run["logits"][rid][:n]
-        ulp = 2.0 ** -7 * 2.0 ** math.floor(math.log2(float(np.abs(la).max())))
-        worst = max(worst, float(np.abs(la - lb).max()) / ulp)
+        worst = max(worst, bf16_ulps(base["logits"][rid][:n], run["logits"][rid][:n]))
     return worst, same, total
 
 
@@ -4220,9 +4568,7 @@ def phase_sharded_options(shard, frontend_stream):
              f"expected {cap} for the capped rids 0 and 1 and more for the others")
     worst = 0.0
     for rid in range(SERVE_SLOTS):                 # admitted at step 0: same step
-        a, b = base["logits"][rid][1], split["logits"][rid][1]
-        ulp = 2.0 ** -7 * 2.0 ** math.floor(math.log2(float(np.abs(a).max())))
-        worst = max(worst, float(np.abs(a - b).max()) / ulp)
+        worst = max(worst, bf16_ulps(base["logits"][rid][1], split["logits"][rid][1]))
     if worst > DECODE_ULPS:
         fail(f"phase 40: split_k {SPLIT_K}'s first decode step {worst:.2f} bf16 ulps from the "
              f"unsharded run's (limit {DECODE_ULPS})")
@@ -4433,6 +4779,12 @@ def run_phases(shard) -> int:
     counts["gate_gt_attention"] += n41
     numbers["gate_gt_attention"]["max_abs_err"] = max(
         [numbers["gate_gt_attention"]["max_abs_err"], *e41])
+    # the recurrent families and expert parallelism on a sharded engine
+    c42, e42 = phase_sharded_families(shard)
+    for name, n in c42.items():
+        counts[name] += n
+    for name, errs in e42.items():
+        numbers[name]["max_abs_err"] = max([numbers[name]["max_abs_err"], *errs])
 
     meta = {
         "gate_select": ("src/repro_torch/kernels/csrc/gate_select.cu",

@@ -25,7 +25,32 @@ Serving. What is sliced, and where (each rank keeps block ``rank`` of
     any head-major per-step operand (``head_slice``);
   * contiguous decode caches (``decode_partition``, ``seq_shard_state``):
     rank r holds tokens ``[r*S/w, (r+1)*S/w)`` of ``[L, B, Hkv, S, Dh]``
-    and the matching Kg blocks of ``[L, B, Hkv, nb, Dg]``.
+    and the matching Kg blocks of ``[L, B, Hkv, nb, Dg]``;
+  * the parameters (``decode_params``, ``decode_layout``): the engine
+    takes the full tree and keeps the rank's block of every Mamba mixer
+    leaf and of the routed experts ``moe/{wi_gate,wi_up,wo}``, cut as in
+    training (below). Every other leaf stays whole: the attention
+    projections (the head-sharded attention gathers its outputs and
+    applies the full ``wo``), the gate, the router, the dense MLPs, the
+    shared experts and the embeddings;
+  * the recurrent state (``state_layouts``): the per-slot state and a
+    prefill's recurrent rows split as their mixer's parameters, Mamba1
+    conv windows ``[L, S, K-1, di]`` and hidden states ``[L, S, di, n]``
+    by channel, Mamba2 conv windows ``[L, S, K-1, di + 2n]`` in the
+    ``[x | B | C]`` parts of its conv weights (x split, ``B|C`` whole) and
+    hidden states ``[L, S, nh, hd, n]`` by head. The one-token steps
+    (``mamba1_step``/``mamba2_step`` with ``shard=``) are the training
+    split's: Mamba1 sums ``x_proj``'s output and ``out_proj``'s, Mamba2
+    the gated norm's mean square and ``out_proj``'s, two ``all_sum`` a
+    layer;
+  * the routed experts at decode (``moe_mlp(..., gather=True)``): the
+    router, the capacity and the drops replicated, each rank computes its
+    ``E / w`` experts' rows and ``all_gather`` collects the
+    ``[E, C, d]`` outputs exactly; the weighting and the sum over top-k
+    are then the unsharded call's, so the step stays bitwise the
+    unsharded one wherever the per-expert matmuls are.
+A module whose split size the world size does not divide (the mixer's
+channels or heads, the experts) stays whole and runs alone.
 
 Training (``lm_forward(..., shard=)``, ``train.loop``): tensor parallelism,
 Megatron-style. The batch is replicated: every rank reads the same batch,
@@ -91,7 +116,16 @@ reference's, always full:
     likewise per ``[x | B | C]``, and Mamba2 ``norm/scale`` split on
     ``d_inner`` (the reference replicates it);
   * the experts split whether or not ``ep_major`` is set; the MoE buffer
-    is never resplit (no all-to-all: the rows are replicated).
+    is never resplit (no all-to-all: the rows are replicated);
+  * serving's recurrent state splits with its mixer's parameters, where
+    the reference's ``decode_state_pspecs`` puts the ``model`` axis on
+    each state's widest trailing dim (Mamba2's conv windows whole on
+    ``di + 2n``); the same function, each rank's state the rows its own
+    channels and heads read and write;
+  * serving keeps the shared experts whole (training splits them like a
+    dense MLP), and combines the routed experts by an exact gather where
+    the reference's ``moe_mlp_sharded`` sums over its shards: the sharded
+    serve stays bitwise the unsharded one.
 """
 from __future__ import annotations
 
@@ -361,6 +395,78 @@ def shard_params(tree: Any, cfg, shard: Shard) -> Any:
         lay = param_layout(path, tuple(t.shape), cfg, shard.world)
         return t if lay is None else local_block(t, lay, shard.rank, shard.world)
     return _map_paths(tree, one)
+
+
+# ---------------------------------------------------------------------------
+# serving: the decode-side cut of the parameters and the recurrent state
+# ---------------------------------------------------------------------------
+
+_EXPERT_LEAVES = ("wi_gate", "wi_up", "wo")
+
+
+def decode_layout(path: str, shape: Sequence[int], cfg, world: int) -> Optional[Layout]:
+    """The ``Layout`` a sharded engine cuts the leaf at ``path`` (FULL
+    ``shape``) by: a mixer leaf or a routed-expert leaf as in training
+    (``param_layout``), None (replicated) for every other leaf."""
+    if "/mixer/" not in path and not (
+            "/moe/" in path and path.split("/moe/", 1)[1] in _EXPERT_LEAVES):
+        return None
+    return param_layout(path, shape, cfg, world)
+
+
+def decode_params(tree: Any, cfg, shard: Shard) -> Any:
+    """A full parameter tree -> the tree a sharded engine decodes with:
+    the rank's block of every mixer leaf and of the routed experts (new
+    tensors), every other leaf the same tensor."""
+    def one(path, t):
+        lay = decode_layout(path, tuple(t.shape), cfg, shard.world)
+        return t if lay is None else local_block(t, lay, shard.rank, shard.world)
+    return _map_paths(tree, one)
+
+
+def state_layouts(cfg, world: int) -> Tuple[Optional[Layout], Optional[Layout]]:
+    """(conv, h) ``Layout``s of a recurrent family's per-layer state, slot
+    or batch axis at 1: the conv windows ``[L, S, K-1, d_conv]`` on axis
+    3, the hidden states on axis 2 (Mamba1 ``[L, S, di, n]``, Mamba2
+    ``[L, S, nh, hd, n]``), split as the mixer's parameters are: Mamba1 by
+    channel, Mamba2 by head with the conv windows' ``B|C`` columns whole.
+    (None, None) for a family without one, or where the world size does
+    not divide the mixer (it stays replicated)."""
+    if cfg.family == "ssm":
+        di = cfg.ssm.expand * cfg.d_model
+        if di % world:
+            return None, None
+        return Layout(3, ((di, True),)), Layout(2, ((di, True),))
+    if cfg.family == "hybrid":
+        from repro_torch.models.mamba import _m2_dims
+        di, _, nh, n = _m2_dims(cfg)
+        if nh % world:
+            return None, None
+        return Layout(3, ((di, True), (2 * n, False))), Layout(2, ((nh, True),))
+    return None, None
+
+
+def local_shape(shape: Sequence[int], layout: Optional[Layout], world: int) -> Tuple[int, ...]:
+    """A full ``shape`` cut to a rank's along ``layout`` (unchanged for None)."""
+    shape = tuple(shape)
+    if layout is None:
+        return shape
+    n = sum(m for m, _ in layout.local_parts(world))
+    return shape[:layout.axis] + (n,) + shape[layout.axis + 1:]
+
+
+def replicated_state_bytes(cfg, world: int, state) -> int:
+    """Bytes of one request's recurrent rows (``state`` a rank's slot state
+    ``(conv, h)``) that every rank of ``world`` holds whole: Mamba2's
+    ``B|C`` conv columns, or all of them where the world size does not
+    divide the mixer. A sum over the ranks counts them ``world`` times,
+    the unsharded engine once."""
+    conv_l, _ = state_layouts(cfg, world)
+    if conv_l is None:
+        return sum(t[:, 0].numel() * t.element_size() for t in state)
+    conv = state[0]
+    cols = sum(n for _, n in conv_l.replicated_slices(world))
+    return conv.shape[0] * conv.shape[2] * cols * conv.element_size()
 
 
 _GATHER_CHUNK = 1 << 30           # bytes of local leaves per collective

@@ -48,18 +48,22 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, shard=None):
     return q, k, v
 
 
-def ffn(p: Params, h2: torch.Tensor, cfg: ModelConfig, shard=None):
+def ffn(p: Params, h2: torch.Tensor, cfg: ModelConfig, shard=None, *,
+        decode: bool = False):
     """A block's feed-forward over h2 [..., d]: (y, the MoE router loss or
     None). A ``"moe"`` block routes all of h2's rows in one call, so at
     decode every row of the step (each slot, active or not) competes for
     the experts' capacity, as in the reference. Under a training
     ``shard`` the experts are expert-parallel and a dense MLP splits its
-    hidden units (``distributed.sharding``)."""
+    hidden units (``distributed.sharding``); under a sharded engine's
+    (``decode``: its prefill and decode bodies) the routed experts are
+    expert-parallel with an exact gather (``moe.moe_mlp(gather=True)``)
+    and a dense MLP runs whole."""
     if "moe" in p:
         y, aux = moe_mod.moe_mlp(p["moe"], h2.reshape(-1, h2.shape[-1]), cfg.moe,
-                                 cfg.activation, shard=shard)
+                                 cfg.activation, shard=shard, gather=decode)
         return y.reshape(h2.shape), aux
-    return mlp(p["mlp"], h2, cfg.activation, part(shard, cfg.d_ff)), None
+    return mlp(p["mlp"], h2, cfg.activation, None if decode else part(shard, cfg.d_ff)), None
 
 
 def _policy_active(policy, p: Params) -> bool:
@@ -291,7 +295,8 @@ def block_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig,
     """One transformer block over paged KV; ``layer_pages`` is the layer's
     (k_pages, v_pages, kg_pages, kmin_pages, kmax_pages, k_scale, v_scale)
     in ``PagedPages`` order, None where a pool is not allocated (this
-    rank's KV heads with a ``shard``). Returns (x1, selection aux), plus
+    rank's KV heads with a ``shard``, which also runs the routed experts
+    of a MoE block expert-parallel). Returns (x1, selection aux), plus
     the plan when ``stage`` is given."""
     k_pages, v_pages, kg_pages, kmin_pages, kmax_pages, k_scale, v_scale = layer_pages
     h = rms_norm(p["ln1"], x1, cfg.norm_eps)
@@ -303,4 +308,4 @@ def block_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig,
         v_scale=v_scale, shard=shard, stage=stage, plan=plan)
     x1 = x1 + ret[0]
     h2 = rms_norm(p["ln2"], x1, cfg.norm_eps)
-    return (x1 + ffn(p, h2, cfg)[0],) + ret[1:]
+    return (x1 + ffn(p, h2, cfg, shard, decode=True)[0],) + ret[1:]

@@ -6,8 +6,11 @@ the paper's technique applies there.
 Port of the JAX package's ``models/hybrid.py``: the training forward in
 both modes (``lm_forward``: pretraining, and the distillation of the
 shared block's gate, whose target comes from kernel 6 on the card;
-tensor-parallel under a ``Shard``) and the serving half. Layer plan at num_layers=38, period=6: 6 units of (6
-Mamba2 layers + the shared block), then 2 trailing Mamba2 layers.
+tensor-parallel under a ``Shard``) and the serving half (under a sharded
+engine's ``Shard`` the Mamba2 layers over the rank's heads, the shared
+block over its KV heads or its part of the sequence). Layer plan at
+num_layers=38, period=6: 6 units of (6 Mamba2 layers + the shared
+block), then 2 trailing Mamba2 layers.
 
 ``params["units"]`` is a list of units, each a list of per-layer
 ``{"ln", "mixer"}`` dicts; ``params["tail"]`` the trailing layers;
@@ -27,7 +30,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core.policy import default_options
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import check_shard
+from repro_torch.distributed.sharding import check_shard, local_shape, state_layouts
 from repro_torch.models import mamba
 from repro_torch.models import transformer as tf
 from repro_torch.models.attn_core import aggregate_decode_aux, block_decode_paged
@@ -129,17 +132,31 @@ def lm_forward(params: Params, batch, cfg: ModelConfig, *, mode: str = "pretrain
     return ce, {"ce": ce.detach()}
 
 
-def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      dtype: Optional[torch.dtype] = None, options=None, *,
-                      device=None) -> HybridDecodeState:
-    """Zeroed state on ``device`` (``None`` = CUDA, which raises without a
-    card). The hybrid keeps no selection-metadata cache, so ``options``
-    allocates nothing (a QuestPolicy step raises, as in the reference)."""
-    device = resolve_device(device)
+def _recurrent_zeros(cfg: ModelConfig, batch: int, dtype: torch.dtype, device,
+                     shard) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed (conv [L_m, B, K-1, di + 2n], h [L_m, B, nh, hd, n] f32), at a
+    serving ``shard``'s heads (``sharding.state_layouts``)."""
     n_units, period, rem = _plan(cfg)
     di, hd, nh, n = mamba._m2_dims(cfg)
-    dt = dtype or torch_dtype(cfg.dtype)
     lm = n_units * period + rem
+    world = 1 if shard is None else shard.world
+    conv_l, h_l = state_layouts(cfg, world)
+    return (torch.zeros(local_shape((lm, batch, cfg.ssm.conv_dim - 1, di + 2 * n), conv_l,
+                                    world), dtype=dtype, device=device),
+            torch.zeros(local_shape((lm, batch, nh, hd, n), h_l, world), dtype=torch.float32,
+                        device=device))
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      dtype: Optional[torch.dtype] = None, options=None, *,
+                      device=None, shard=None) -> HybridDecodeState:
+    """Zeroed state on ``device`` (``None`` = CUDA, which raises without a
+    card), the recurrent part at a serving ``shard``'s heads. The hybrid
+    keeps no selection-metadata cache, so ``options`` allocates nothing (a
+    QuestPolicy step raises, as in the reference)."""
+    device = resolve_device(device)
+    n_units = _plan(cfg)[0]
+    dt = dtype or torch_dtype(cfg.dtype)
     dh, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
     nb_max = max_len // cfg.gate.block_size
     kg = kg_n = None
@@ -147,10 +164,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
         kg = torch.zeros((n_units, batch, hkv, nb_max, cfg.gate.d_gate), dtype=dt,
                          device=device)
         kg_n = torch.zeros((n_units, batch), dtype=torch.int32, device=device)
+    conv, h = _recurrent_zeros(cfg, batch, dt, device, shard)
     return HybridDecodeState(
-        conv=torch.zeros((lm, batch, cfg.ssm.conv_dim - 1, di + 2 * n), dtype=dt,
-                         device=device),
-        h=torch.zeros((lm, batch, nh, hd, n), dtype=torch.float32, device=device),
+        conv=conv, h=h,
         k_cache=torch.zeros((n_units, batch, hkv, max_len, dh), dtype=dt, device=device),
         v_cache=torch.zeros((n_units, batch, hkv, max_len, dh), dtype=dt, device=device),
         kg_cache=kg, kg_n=kg_n,
@@ -163,7 +179,7 @@ def _mamba_blocks(params: Params):
 
 
 def lm_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-               max_len: int, options=None):
+               max_len: int, options=None, shard=None):
     """Full forward filling the shared block's per-unit K/V/Kg caches
     (head-major, written once by ``transformer.prefill_block``) and
     collecting every Mamba2 layer's final (conv, h). Returns (last logits
@@ -174,7 +190,10 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     exact identity on the Mamba2 recurrences, the Kg rows of blocks that
     touch a pad token are zero and the logits row is taken at ``lengths -
     1``. ``options`` is taken for the ``ModelApi``'s uniformity: the
-    hybrid builds no selection-metadata cache."""
+    hybrid builds no selection-metadata cache. Under a serving ``shard``
+    (``params`` cut by ``sharding.decode_params``) each Mamba2 mixer runs
+    over the rank's heads and the state holds them; the shared block's
+    prefill is replicated (its caches whole)."""
     tokens = batch["tokens"]
     b, l = tokens.shape
     if l > max_len:
@@ -183,18 +202,19 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     dev = params["embed"]["w"].device
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=dev)
-    state = init_decode_state(cfg, b, max_len, device=dev)
+    state = init_decode_state(cfg, b, max_len, device=dev, shard=shard)
     pos = torch.arange(l, device=dev)[None, :].expand(b, l)
     x = params["embed"]["w"][tokens]
     convs, hs = [], []
     for u, unit in enumerate(params["units"]):
-        x, c, h = mamba.stack_full(unit, x, cfg, mamba.mamba2_full, lengths)
+        x, c, h = mamba.stack_full(unit, x, cfg, mamba.mamba2_full, lengths, shard)
         convs += c
         hs += h
         x = tf.prefill_block(params["shared_attn"], x, cfg, pos, state.k_cache[u],
                              state.v_cache[u],
-                             None if state.kg_cache is None else state.kg_cache[u])
-    x, c, h = mamba.stack_full(params.get("tail", []), x, cfg, mamba.mamba2_full, lengths)
+                             None if state.kg_cache is None else state.kg_cache[u], shard)
+    x, c, h = mamba.stack_full(params.get("tail", []), x, cfg, mamba.mamba2_full, lengths,
+                               shard)
     convs += c
     hs += h
     last = tf.finish_prefill(state, x, lengths, cfg.gate.block_size)
@@ -211,14 +231,18 @@ def lm_decode_step(params: Params, state: HybridDecodeState, token: torch.Tensor
     in place, the returned state holds new conv/h tensors and ``cur_len +
     1``. The shared block selects afresh in every unit (no metadata cache,
     no carried plan: a plan-carrying schedule runs as per-layer selection
-    here, as in the reference)."""
+    here, as in the reference). Under a serving ``shard`` the Mamba2 steps
+    run over the rank's heads and the shared block takes the
+    sequence-sharded step (``transformer.attention_decode``) on the
+    rank's part of its caches (``sharding.seq_shard_state``)."""
     options = options if options is not None else default_options(cfg)
     x1 = params["embed"]["w"][token[:, None]]
     convs, hs, auxs = [], [], []
     li = 0
     for u, unit in enumerate(params["units"]):
         x1, c, h = mamba.stack_step(unit, x1, cfg, mamba.mamba2_step,
-                                    state.conv[li:li + len(unit)], state.h[li:li + len(unit)])
+                                    state.conv[li:li + len(unit)], state.h[li:li + len(unit)],
+                                    shard)
         li += len(unit)
         convs += c
         hs += h
@@ -231,7 +255,7 @@ def lm_decode_step(params: Params, state: HybridDecodeState, token: torch.Tensor
             state.kg_n[u] = new_state[3]
         auxs.append(aux)
     x1, c, h = mamba.stack_step(params.get("tail", []), x1, cfg, mamba.mamba2_step,
-                                state.conv[li:], state.h[li:])
+                                state.conv[li:], state.h[li:], shard)
     convs += c
     hs += h
     new = state._replace(conv=torch.stack(convs).to(state.conv.dtype), h=torch.stack(hs),
@@ -239,16 +263,12 @@ def lm_decode_step(params: Params, state: HybridDecodeState, token: torch.Tensor
     return tf._logits(params, x1, cfg)[:, 0], new, aggregate_decode_aux(auxs)
 
 
-def init_slot_state(cfg: ModelConfig, n_slots: int, *, device=None) -> SlotState:
-    """Zeroed per-slot recurrent state for the paged serving engine."""
-    device = resolve_device(device)
-    n_units, period, rem = _plan(cfg)
-    di, hd, nh, n = mamba._m2_dims(cfg)
-    lm = n_units * period + rem
-    return SlotState(
-        conv=torch.zeros((lm, n_slots, cfg.ssm.conv_dim - 1, di + 2 * n),
-                         dtype=torch_dtype(cfg.dtype), device=device),
-        h=torch.zeros((lm, n_slots, nh, hd, n), dtype=torch.float32, device=device))
+def init_slot_state(cfg: ModelConfig, n_slots: int, *, device=None,
+                    shard=None) -> SlotState:
+    """Zeroed per-slot recurrent state for the paged serving engine, at a
+    ``shard``'s heads."""
+    return SlotState(*_recurrent_zeros(cfg, n_slots, torch_dtype(cfg.dtype),
+                                       resolve_device(device), shard))
 
 
 def lm_decode_step_paged(params: Params, pages, slot_state: SlotState,
@@ -263,7 +283,8 @@ def lm_decode_step_paged(params: Params, pages, slot_state: SlotState,
     rows are garbage, rewritten by the engine at admission or restore).
     Returns (logits [S, V], pages, SlotState, aux). A plan-carrying
     schedule raises, as in the reference: the one shared block re-selects
-    in every unit."""
+    in every unit. Under a ``shard`` the Mamba2 steps and the slot state
+    hold the rank's heads, the shared block's pools its KV heads."""
     options = options if options is not None else default_options(cfg)
     if options.schedule.needs_plan:
         raise NotImplementedError(
@@ -276,7 +297,7 @@ def lm_decode_step_paged(params: Params, pages, slot_state: SlotState,
     for u, unit in enumerate(params["units"]):
         x1, c, h = mamba.stack_step(unit, x1, cfg, mamba.mamba2_step,
                                     slot_state.conv[li:li + len(unit)],
-                                    slot_state.h[li:li + len(unit)])
+                                    slot_state.h[li:li + len(unit)], shard)
         li += len(unit)
         convs += c
         hs += h
@@ -286,7 +307,7 @@ def lm_decode_step_paged(params: Params, pages, slot_state: SlotState,
                                      budget_blocks=budget_blocks, shard=shard)
         auxs.append(aux)
     x1, c, h = mamba.stack_step(params.get("tail", []), x1, cfg, mamba.mamba2_step,
-                                slot_state.conv[li:], slot_state.h[li:])
+                                slot_state.conv[li:], slot_state.h[li:], shard)
     convs += c
     hs += h
     new = SlotState(conv=torch.stack(convs).to(slot_state.conv.dtype), h=torch.stack(hs))

@@ -31,11 +31,13 @@ state. Differences of idiom, not of result:
 A step never writes its input state: it returns new conv windows and new
 hidden states, so a replayed step can re-run from the same input.
 
-Under a training ``Shard`` (``mamba1_full``/``mamba2_full``/
-``stack_train`` with ``shard=``) a mixer is tensor-parallel over
-``d_inner`` (Mamba1: channels; Mamba2: whole heads), with the layout and
-the collectives of ``distributed.sharding``; the scans are per channel
-or per head and run on the rank's alone.
+Under a ``Shard`` (``mamba1_full``/``mamba2_full``/``stack_train`` in
+training and at a sharded engine's prefill, ``mamba1_step``/
+``mamba2_step``/``stack_step`` at its decode) a mixer is tensor-parallel
+over ``d_inner`` (Mamba1: channels; Mamba2: whole heads), with the
+layout and the collectives of ``distributed.sharding``; the scans are
+per channel or per head and run on the rank's alone, and so does the
+state a step carries.
 """
 from __future__ import annotations
 
@@ -226,17 +228,25 @@ def mamba1_full(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def mamba1_step(p: Params, x1: torch.Tensor, cfg: ModelConfig,
-                conv_state: torch.Tensor, h: torch.Tensor):
+                conv_state: torch.Tensor, h: torch.Tensor, shard=None):
     """x1 [B, 1, d]; conv_state [B, K-1, di]; h [B, di, n]. Returns (y
-    [B, 1, d], (new conv_state, new h)); the inputs are not written."""
+    [B, 1, d], (new conv_state, new h)); the inputs are not written.
+    Under a serving ``shard`` (no autograd) ``p`` and the states hold the
+    rank's channels (``distributed.sharding.decode_params``): ``x_proj``'s
+    partial sums are summed over ranks before the [dt | B | C] split, y
+    after ``out_proj``."""
     d = x1.shape[-1]
-    di = cfg.ssm.expand * d
+    shard = part(shard, cfg.ssm.expand * d)
+    di = p["D"].shape[0]
     n = cfg.ssm.state_dim
     dtr = _dt_rank(d)
     xs, z = linear(p["in_proj"], x1)[:, 0].split(di, dim=-1)              # [B, di]
     window = torch.cat([conv_state, xs[:, None]], dim=1)                   # [B,K,di]
     xc = F.silu(torch.einsum("bkd,kd->bd", window, p["conv_w"]) + p["conv_b"])
-    dt_in, b_in, c_in = linear(p["x_proj"], xc).split([dtr, n, n], dim=-1)
+    dbc = linear(p["x_proj"], xc)
+    if shard is not None:
+        dbc = shard.all_sum(dbc)
+    dt_in, b_in, c_in = dbc.split([dtr, n, n], dim=-1)
     dt = F.softplus((dt_in @ p["dt_proj"]["w"]).float() + p["dt_bias"])   # [B, di]
     a_mat = -torch.exp(p["A_log"])
     da = torch.exp(dt[..., None] * a_mat)                                  # [B,di,n]
@@ -245,7 +255,13 @@ def mamba1_step(p: Params, x1: torch.Tensor, cfg: ModelConfig,
     y = torch.einsum("bdn,bn->bd", h_new, c_in.float())
     y = y + p["D"] * xc.float()
     y = (y * F.silu(z.float())).to(x1.dtype)
-    return linear(p["out_proj"], y)[:, None], (window[:, 1:], h_new)
+    return _out(p, y, shard)[:, None], (window[:, 1:], h_new)
+
+
+def _out(p: Params, y: torch.Tensor, shard) -> torch.Tensor:
+    """A step's ``out_proj``, summed over the ranks of a serving ``shard``."""
+    y = linear(p["out_proj"], y)
+    return y if shard is None else shard.all_sum(y)
 
 
 # ---------------------------------------------------------------------------
@@ -363,12 +379,18 @@ def mamba2_full(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def mamba2_step(p: Params, x1: torch.Tensor, cfg: ModelConfig,
-                conv_state: torch.Tensor, h: torch.Tensor):
+                conv_state: torch.Tensor, h: torch.Tensor, shard=None):
     """x1 [B, 1, d]; conv_state [B, K-1, di + 2n]; h [B, nh, hd, n].
     Returns (y [B, 1, d], (new conv_state, new h)); the inputs are not
-    written."""
+    written. Under a serving ``shard`` (no autograd) ``p`` and the states
+    hold the rank's heads (di, x's conv channels with them) and all of B
+    and C: the gated norm's mean square is over all ranks, y summed after
+    ``out_proj``."""
     bsz = x1.shape[0]
-    di, hd, nh, n = _m2_dims(cfg)
+    _, hd, nh, n = _m2_dims(cfg)
+    shard = part(shard, nh)
+    nh = p["D"].shape[0]
+    di = nh * hd
     zxbcdt = linear(p["in_proj"], x1)[:, 0]
     z, dt_in = zxbcdt[:, :di], zxbcdt[:, 2 * di + 2 * n:]
     raw = zxbcdt[:, di:2 * di + 2 * n]                                     # [B, di+2n]
@@ -383,8 +405,8 @@ def mamba2_step(p: Params, x1: torch.Tensor, cfg: ModelConfig,
     y = torch.einsum("bhdn,bn->bhd", h_new, cmat.float())
     y = (y + p["D"][:, None] * xsf).reshape(bsz, di)
     y = y * F.silu(z.float())
-    y = rms_norm(p["norm"], y.to(x1.dtype), cfg.norm_eps)
-    return linear(p["out_proj"], y)[:, None], (window[:, 1:], h_new)
+    y = rms_norm(p["norm"], y.to(x1.dtype), cfg.norm_eps, shard)
+    return _out(p, y, shard)[:, None], (window[:, 1:], h_new)
 
 
 # ---------------------------------------------------------------------------
@@ -392,14 +414,15 @@ def mamba2_step(p: Params, x1: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def stack_full(blocks, x: torch.Tensor, cfg: ModelConfig, full_fn,
-               lengths: Optional[torch.Tensor] = None):
+               lengths: Optional[torch.Tensor] = None, shard=None):
     """Pre-norm residual Mamba layers over a sequence: each block's
     ``{"ln", "mixer"}`` through ``full_fn`` (``mamba1_full`` or
-    ``mamba2_full``). Returns (x, [conv_state], [h]), one a layer."""
+    ``mamba2_full``; each mixer over the rank's channels or heads under a
+    serving ``shard``). Returns (x, [conv_state], [h]), one a layer."""
     convs, hs = [], []
     for bp in blocks:
         y, (conv, h) = full_fn(bp["mixer"], rms_norm(bp["ln"], x, cfg.norm_eps), cfg,
-                               lengths=lengths)
+                               lengths=lengths, shard=shard)
         x = x + y
         convs.append(conv)
         hs.append(h)
@@ -421,13 +444,15 @@ def stack_train(blocks, x: torch.Tensor, cfg: ModelConfig, full_fn,
     return x
 
 
-def stack_step(blocks, x1: torch.Tensor, cfg: ModelConfig, step_fn, conv, h):
+def stack_step(blocks, x1: torch.Tensor, cfg: ModelConfig, step_fn, conv, h,
+               shard=None):
     """The same layers for one token: block i steps from ``conv[i]`` and
-    ``h[i]`` (slot or batch axis first). Returns (x1, [new conv], [new h])."""
+    ``h[i]`` (slot or batch axis first), under a serving ``shard`` over the
+    rank's channels or heads. Returns (x1, [new conv], [new h])."""
     convs, hs = [], []
     for i, bp in enumerate(blocks):
         y, (c2, h2) = step_fn(bp["mixer"], rms_norm(bp["ln"], x1, cfg.norm_eps), cfg,
-                              conv[i], h[i])
+                              conv[i], h[i], shard)
         x1 = x1 + y
         convs.append(c2)
         hs.append(h2)

@@ -36,9 +36,17 @@ reference's decode-size ``moe_mlp_sharded`` scheme): the rows and the
 router are replicated, so every rank routes, counts the capacity and
 drops exactly as the unsharded call does; a rank holds ``E / world``
 experts and computes only the rows assigned to them, the shared experts
-split their hidden units, and one sum over ranks combines. Decode does
-not take a shard yet: a sharded engine computes all experts on every
-rank (ROADMAP Queue A item 15's item-9 half).
+split their hidden units, and one sum over ranks combines.
+
+Decode under a sharded engine's ``Shard`` is expert-parallel too
+(``moe_mlp(..., gather=True)``, which the engine's decode and prefill
+bodies pick): the rank holds and computes its ``E / world`` experts
+only, but the combine is an exact gather of every rank's expert outputs
+(``Shard.all_gather`` on the expert axis, ``[E, C, d]``) followed by the
+unsharded weighting and sum over top-k, and the shared experts stay whole on
+every rank. So a sharded serve is bitwise the unsharded one wherever the
+per-expert matmuls are. The gather carries ``E * C * d`` elements a
+call, about ``capacity_factor * T * top_k * d``.
 """
 from __future__ import annotations
 
@@ -131,38 +139,65 @@ def expert_glu(p: Params, xb: torch.Tensor, activation: str) -> torch.Tensor:
     return torch.einsum("ecf,efd->ecd", act * u, p["wo"])
 
 
+def _expert_rows(p: Params, x: torch.Tensor, local_e: torch.Tensor, slot: torch.Tensor,
+                 cap: int, k: int, activation: str) -> torch.Tensor:
+    """The experts ``p`` holds over their assigned rows: x [T, d], each of
+    its T * k assignments at (``local_e``, ``slot``) -> [E_p, cap, d]. The
+    kept (expert, slot) pairs are distinct; the trash row ``cap`` takes
+    the dropped ones (and another rank's) in any order and is never read
+    back."""
+    buf = torch.zeros((p["wi_gate"].shape[0], cap + 1, x.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    buf[local_e, slot] = x.repeat_interleave(k, dim=0)
+    return expert_glu(p, buf[:, :cap], activation)
+
+
+def _local_experts(flat_e: torch.Tensor, shard, e_loc: int):
+    """(expert ids within rank ``shard.rank``'s block [e0, e0 + e_loc),
+    clamped; which assignments are its own)."""
+    local_e = flat_e - shard.rank * e_loc
+    mine = (local_e >= 0) & (local_e < e_loc)
+    return local_e.clamp(0, e_loc - 1), mine
+
+
 def moe_mlp(p: Params, x: torch.Tensor, mcfg: MoEConfig,
-            activation: str = "swiglu", shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            activation: str = "swiglu", shard=None,
+            gather: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [T, d] tokens -> (y [T, d] in x's dtype, aux loss f32 scalar).
     Under a training ``shard`` the routed experts are this rank's block
     ``p["wi_gate"]`` [E / world, ...] (expert parallelism where the world
     size divides E) and the shared experts a block of their hidden units;
-    y is the sum over ranks."""
+    y is the sum over ranks. With ``gather`` (decode, no autograd) the
+    routed experts are the rank's block as well, gathered exactly into
+    the unsharded [E, cap, d] outputs, and the shared experts whole: every
+    other step is the unsharded call's."""
     t, d = x.shape
     e, k = mcfg.n_experts, mcfg.top_k
     probs, top_i, top_w = route(x, p["router"]["w"], k)
     flat_e, slot, keep, cap = dispatch(top_i, mcfg)
     ep = part(shard, e)
-    sp = part(shard, mcfg.n_shared_experts * mcfg.expert_d_ff) if "shared" in p else None
-    xe = copy_to_model(x, shard) if (ep or sp) else x
     e_loc = p["wi_gate"].shape[0]
-    if ep is not None:
-        # this rank's experts [e0, e0 + e_loc); another rank's assignment
-        # goes to the trash row with weight 0
-        local_e = flat_e - ep.rank * e_loc
-        mine = (local_e >= 0) & (local_e < e_loc)
-        local_e = local_e.clamp(0, e_loc - 1)
-        slot = torch.where(mine, slot, cap)
-        keep = keep & mine
-        top_w = copy_to_model(top_w, ep)
+    if gather:
+        if ep is None:
+            yb = _expert_rows(p, x, flat_e, slot, cap, k, activation)
+        else:
+            local_e, mine = _local_experts(flat_e, ep, e_loc)
+            yb = ep.all_gather(_expert_rows(p, x, local_e, torch.where(mine, slot, cap),
+                                            cap, k, activation), 0)
+        local_e, ep, sp, xe = flat_e, None, None, x
     else:
-        local_e = flat_e
-    # the kept (expert, slot) pairs are distinct; the trash row takes the
-    # dropped ones in any order and is never read back
-    buf = torch.zeros((e_loc, cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[local_e, slot] = (xe if ep is not None else x).repeat_interleave(k, dim=0)
-    yb = expert_glu(p, buf[:, :cap], activation)
-    del buf
+        sp = part(shard, mcfg.n_shared_experts * mcfg.expert_d_ff) if "shared" in p else None
+        xe = copy_to_model(x, shard) if (ep or sp) else x
+        if ep is not None:
+            # this rank's experts; another rank's assignment goes to the
+            # trash row with weight 0
+            local_e, mine = _local_experts(flat_e, ep, e_loc)
+            slot = torch.where(mine, slot, cap)
+            keep = keep & mine
+            top_w = copy_to_model(top_w, ep)
+        else:
+            local_e = flat_e
+        yb = _expert_rows(p, xe if ep is not None else x, local_e, slot, cap, k, activation)
     # a dropped assignment's weight is 0: the reference zeroes its row,
     # then weights it (the buffers are freed as soon as they are read, the
     # prefill's hold T * k rows of d)

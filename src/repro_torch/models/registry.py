@@ -26,8 +26,9 @@ class ModelApi(NamedTuple):
     #                                 mode="pretrain" (CE) or "distill" (gate KL, base frozen)
     init_decode_state: Callable    # (cfg, batch_size, max_len, dtype, options, *, device)
     #                                 -> state
-    prefill: Callable              # (params, batch, cfg, max_len, options) -> (logits, state);
-    #                                 batch may carry "lengths" (right-padded rows)
+    prefill: Callable              # (params, batch, cfg, max_len, options, shard)
+    #                                 -> (logits, state); batch may carry "lengths"
+    #                                 (right-padded rows)
     decode_step: Callable          # (params, state, token, cfg, *, options, shard)
     #                                 -> (logits, state, aux)
     # continuous-batching paged decode (serve.paging):
@@ -36,8 +37,9 @@ class ModelApi(NamedTuple):
     decode_step_paged: Any = None
     # how many layer slices the page pools carry (cfg) -> int
     paged_attn_layers: Callable = None
-    # (cfg, n_slots, *, device) -> per-slot recurrent state
-    # (serve.slotstate.SlotState), None for pages-only families
+    # (cfg, n_slots, *, device, shard) -> per-slot recurrent state
+    # (serve.slotstate.SlotState, at the shard's channels or heads), None
+    # for pages-only families
     init_slot_state: Any = None
     # (prefill state) -> CacheView: what paged admission scatters into pools
     state_view: Any = None

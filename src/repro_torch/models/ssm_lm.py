@@ -3,7 +3,8 @@
 Port of the JAX package's ``models/ssm_lm.py``: the pretraining forward
 (``lm_forward``, autograd through the Mamba1 layers, a checkpoint a layer
 under the config's ``remat``; tensor-parallel under a ``Shard``) and the
-serving half. SeerAttention-R does
+serving half (over the rank's channels under a sharded engine's
+``Shard``). SeerAttention-R does
 not apply (no attention), so no kernel runs on this family's paths;
 decode carries an O(1) recurrent state per layer. A Python loop over the
 layers replaces ``lax.scan``; ``params["blocks"]`` is a list of per-layer
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import check_shard
+from repro_torch.distributed.sharding import check_shard, local_shape, state_layouts
 from repro_torch.models import mamba
 from repro_torch.models.attn_core import zero_decode_aux
 from repro_torch.models.common import _randn, init_linear, init_rmsnorm, torch_dtype
@@ -69,28 +70,34 @@ def lm_forward(params: Params, batch, cfg: ModelConfig, *, mode: str = "pretrain
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int = 0,
                       dtype: Optional[torch.dtype] = None, options=None, *,
-                      device=None) -> SSMDecodeState:
+                      device=None, shard=None) -> SSMDecodeState:
     """Zeroed recurrent state on ``device`` (``None`` = CUDA, which raises
-    without a card); ``max_len`` and ``options`` are taken for the
-    ``ModelApi``'s uniformity."""
+    without a card), at a serving ``shard``'s channels
+    (``sharding.state_layouts``); ``max_len`` and ``options`` are taken
+    for the ``ModelApi``'s uniformity."""
     device = resolve_device(device)
     di = cfg.ssm.expand * cfg.d_model
+    world = 1 if shard is None else shard.world
+    conv_l, h_l = state_layouts(cfg, world)
     return SSMDecodeState(
-        conv=torch.zeros((cfg.num_layers, batch, cfg.ssm.conv_dim - 1, di),
+        conv=torch.zeros(local_shape((cfg.num_layers, batch, cfg.ssm.conv_dim - 1, di),
+                                     conv_l, world),
                          dtype=dtype or torch_dtype(cfg.dtype), device=device),
-        h=torch.zeros((cfg.num_layers, batch, di, cfg.ssm.state_dim),
+        h=torch.zeros(local_shape((cfg.num_layers, batch, di, cfg.ssm.state_dim), h_l, world),
                       dtype=torch.float32, device=device),
         cur_len=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
 def lm_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-               max_len: int = 0, options=None):
+               max_len: int = 0, options=None, shard=None):
     """Full forward collecting every layer's final (conv, h). Returns (last
     logits [B, V], SSMDecodeState). ``batch["lengths"]`` [B] (optional):
     the true lengths of right-padded prompts; pad tokens are an exact
     identity on the recurrent state (``mamba._mask_dt``), ``cur_len`` is
     the true length and the logits row is taken at ``lengths - 1``.
-    ``options`` is taken for the ``ModelApi``'s uniformity."""
+    ``options`` is taken for the ``ModelApi``'s uniformity. Under a
+    serving ``shard`` (``params`` cut by ``sharding.decode_params``) each
+    mixer runs over the rank's channels and the state holds them."""
     tokens = batch["tokens"]
     b, l = tokens.shape
     lengths = batch.get("lengths")
@@ -98,7 +105,8 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=dev)
     x = params["embed"]["w"][tokens]
-    x, convs, hs = mamba.stack_full(params["blocks"], x, cfg, mamba.mamba1_full, lengths)
+    x, convs, hs = mamba.stack_full(params["blocks"], x, cfg, mamba.mamba1_full, lengths,
+                                    shard)
     if lengths is None:
         cur_len = torch.full((b,), l, dtype=torch.int32, device=dev)
         last = x[:, -1]
@@ -116,18 +124,21 @@ def lm_decode_step(params: Params, state: SSMDecodeState, token: torch.Tensor,
     """token [B] -> (logits [B, V], new SSMDecodeState, aux). The input
     state is not written; ``options`` is taken for the ``ModelApi``'s
     uniformity (only its sampling matters, applied by the engine) and the
-    aux reports that nothing was selected."""
+    aux reports that nothing was selected. Under a serving ``shard`` the
+    state and the mixers hold the rank's channels."""
     x1 = params["embed"]["w"][token[:, None]]
     x1, convs, hs = mamba.stack_step(params["blocks"], x1, cfg, mamba.mamba1_step,
-                                     state.conv, state.h)
+                                     state.conv, state.h, shard)
     new = SSMDecodeState(torch.stack(convs).to(state.conv.dtype), torch.stack(hs),
                          state.cur_len + 1)
     return _logits(params, x1, cfg)[:, 0], new, zero_decode_aux(token.shape[0], x1.device)
 
 
-def init_slot_state(cfg: ModelConfig, n_slots: int, *, device=None) -> SlotState:
-    """Zeroed per-slot recurrent state for the paged serving engine."""
-    st = init_decode_state(cfg, n_slots, device=device)
+def init_slot_state(cfg: ModelConfig, n_slots: int, *, device=None,
+                    shard=None) -> SlotState:
+    """Zeroed per-slot recurrent state for the paged serving engine, at a
+    ``shard``'s channels."""
+    st = init_decode_state(cfg, n_slots, device=device, shard=shard)
     return SlotState(conv=st.conv, h=st.h)
 
 
@@ -142,11 +153,12 @@ def lm_decode_step_paged(params: Params, pages, slot_state: SlotState,
     slot lifecycle (admission, preemption swap, eviction replay) covers
     this family too. Returns (logits [S, V], pages, a NEW SlotState, aux);
     inactive slots get garbage rows, rewritten by the engine at their
-    next admission or restore."""
-    del page_table, cur_len, active, budget_blocks, shard
+    next admission or restore. Under a ``shard`` the slot state and the
+    mixers hold the rank's channels."""
+    del page_table, cur_len, active, budget_blocks
     x1 = params["embed"]["w"][token[:, None]]
     x1, convs, hs = mamba.stack_step(params["blocks"], x1, cfg, mamba.mamba1_step,
-                                     slot_state.conv, slot_state.h)
+                                     slot_state.conv, slot_state.h, shard)
     new = SlotState(conv=torch.stack(convs).to(slot_state.conv.dtype), h=torch.stack(hs))
     return (_logits(params, x1, cfg)[:, 0], pages, new,
             zero_decode_aux(token.shape[0], x1.device))

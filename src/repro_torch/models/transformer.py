@@ -550,7 +550,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 
 def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig, max_len: int,
-               options: Optional[DecodeOptions] = None
+               options: Optional[DecodeOptions] = None, shard=None
                ) -> Tuple[torch.Tensor, DecodeState]:
     """Full forward filling the caches. Returns (last logits [B, V], state).
 
@@ -566,7 +566,9 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
     policy reads one: the one O(S) pass that makes every QuestPolicy
     step O(block_size). A cross-attention model's ``batch["image_embeds"]``
     [B, n_img, d] fills ``cross_k``/``cross_v`` (head-major), the
-    context every decode step attends."""
+    context every decode step attends. A sharded engine's ``shard`` runs
+    the routed experts of a MoE model expert-parallel (``params`` cut by
+    ``sharding.decode_params``); the caches stay whole."""
     _check_family(cfg, decode=True)
     tokens = batch["tokens"]
     b, l = tokens.shape
@@ -592,7 +594,7 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
             continue
         x = prefill_block(params["blocks"][i], x, cfg, pos, state.k_cache[i],
                           state.v_cache[i], None if state.kg_cache is None
-                          else state.kg_cache[i])
+                          else state.kg_cache[i], shard)
     last = finish_prefill(state, x, batch.get("lengths"), bs)
     if state.meta_kmin is not None:
         # kv_len masking keeps pad and beyond-length tokens out of min/max
@@ -607,13 +609,15 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
 
 def prefill_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor,
                   k_cache: torch.Tensor, v_cache: torch.Tensor,
-                  kg_cache: Optional[torch.Tensor]) -> torch.Tensor:
+                  kg_cache: Optional[torch.Tensor], shard=None) -> torch.Tensor:
     """One self-attention block over the prompt x [B, L, d], writing its
     caches in place: the post-rope K and the V into ``k_cache``/``v_cache``
     [B, Hkv, S_max, Dh] (the ONE-TIME layout conversion, seq-major to
     head-major) and the Kg rows of the complete blocks into ``kg_cache``
     [B, Hkv, nb_max, Dg] when given and the layer is gated. Returns x.
-    The transformer's layers and the hybrid's shared block take it."""
+    The transformer's layers and the hybrid's shared block take it; a
+    sharded engine's ``shard`` runs a MoE block's routed experts
+    expert-parallel (``attn_core.ffn(decode=True)``), the rest whole."""
     b, l, _ = x.shape
     bs = cfg.gate.block_size
     nb = l // bs
@@ -631,7 +635,7 @@ def prefill_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tens
         kg_cache[:, :, :nb] = kg.transpose(1, 2).to(kg_cache.dtype)
     x = x + linear(p["wo"], o.reshape(b, l, -1))
     del q, k, v, qr, kr, o
-    return x + ffn(lp, rms_norm(lp["ln2"], x, cfg.norm_eps), cfg)[0]
+    return x + ffn(lp, rms_norm(lp["ln2"], x, cfg.norm_eps), cfg, shard, decode=True)[0]
 
 
 def finish_prefill(state, x: torch.Tensor, lengths, block_size: int) -> torch.Tensor:
@@ -789,7 +793,7 @@ def block_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, layer_state,
     attn_out, new_state, aux = ret[:3]
     x1 = x1 + attn_out
     h2 = rms_norm(p["ln2"], x1, cfg.norm_eps)
-    return (x1 + ffn(p, h2, cfg)[0], new_state, aux) + ret[3:]
+    return (x1 + ffn(p, h2, cfg, shard, decode=True)[0], new_state, aux) + ret[3:]
 
 
 def cross_block_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig,

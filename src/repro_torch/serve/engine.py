@@ -31,19 +31,31 @@ whose shared attention block pages its K/V) carry a per-slot recurrent
 state (``serve.slotstate.SlotState``) beside the pools: written at
 admission and at resume, captured into the swap entry at preemption, and
 replaced by a step's new state only once the step is kept (an eviction
-replay re-runs from the same state). A sharded engine for them raises
-(Queue A item 9's sharded remainder).
+replay re-runs from the same state).
 
 Sharded serving: ``DecodeEngine(..., shard=Shard(group),
 options=DecodeOptions(split_k=...))`` on every rank of a
-``torch.distributed`` group, each with the same (replicated) parameters
-and requests. ``serve`` then keeps only the rank's KV heads of every page
-pool (prefill scatters, swap moves and restores those heads) and gathers
-each layer's attention output over ranks; ``generate`` splits the
-prefilled caches along the sequence. Every rank computes the same logits,
-so the replicated scheduler takes the same decisions everywhere, and the
-stats a rank returns are the unsharded run's (swap bytes summed over
-ranks). A sharded engine takes GatePolicy or DensePolicy, and ``serve``
+``torch.distributed`` group, each with the same full parameters and
+requests; every decoder family takes it. The engine keeps the rank's
+block of the Mamba mixers and of the routed experts
+(``distributed.sharding.decode_params``; the other leaves whole).
+``serve`` then keeps only the rank's KV heads of every page pool
+(prefill scatters, swap moves and restores those heads) and gathers each
+layer's attention output over ranks; the Mamba layers run over the
+rank's channels (Mamba1) or heads (Mamba2) with their per-slot state at
+that size (admission writes, swap captures and restores the rank's
+rows), and a MoE block computes the rank's experts and gathers their
+outputs. ``generate`` splits the prefilled attention caches along the
+sequence (the Mamba1 LM has none: its state alone is the rank's). Every
+rank computes the same logits, so the replicated scheduler takes the
+same decisions everywhere, and the stats a rank returns are the
+unsharded run's: the swapped bytes are summed over the ranks, with the
+recurrent rows that every rank holds whole (Mamba2's ``B|C`` conv
+columns) counted once. Every rank's swap entries are the same size, so a
+bounded swap tier demotes, and refuses, alike on every rank; its own
+figures (``stats["swap"]``) are what the ranks' tiers held, summed. A
+sharded engine takes
+GatePolicy or DensePolicy, and ``serve``
 on it takes every decode option of the unsharded one: a
 SelectionSchedule (the carried plan holds the rank's heads; the gate's
 ``unify_heads`` max is reduced over ranks), per-request budgets and
@@ -68,7 +80,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.policy import (DecodeOptions, DensePolicy, GatePolicy,
                                      default_options)
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import Shard, seq_shard_state
+from repro_torch.distributed.sharding import (Shard, decode_params, replicated_state_bytes,
+                                              seq_shard_state)
 from repro_torch.models.registry import get_api
 from repro_torch.serve import paging as pg
 from repro_torch.serve import sampling as smp
@@ -89,10 +102,6 @@ class ServeResult(Dict):
     pass
 
 
-def _not_ported(what: str, item: int, name: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: {name} (Queue A item {item}) is not ported")
-
-
 class DecodeEngine:
     def __init__(self, cfg: ModelConfig, params: Any, *, max_len: int,
                  options: Optional[DecodeOptions] = None, device=None,
@@ -103,9 +112,6 @@ class DecodeEngine:
         if shard is not None and not isinstance(shard, Shard):
             raise TypeError(f"shard must be a repro_torch.distributed.sharding.Shard, "
                             f"got {type(shard).__name__}")
-        if shard is not None and cfg.family in ("ssm", "hybrid"):
-            raise _not_ported(f"a sharded engine for the {cfg.family!r} family", 9,
-                              "the recurrent families under a Shard (sharded remainder)")
         options = options if options is not None else default_options(cfg)
         if options.split_k > 1 and shard is None:
             raise ValueError("split_k > 1 applies to the paged sharded path only: "
@@ -121,7 +127,9 @@ class DecodeEngine:
         if w.device.type != self.device.type:
             raise ValueError(f"params live on {w.device}, engine device is "
                              f"{self.device}: move them first")
-        self.params = params
+        # the rank's mixers and routed experts (the caller's full tree
+        # stays as it is)
+        self.params = params if shard is None else decode_params(params, cfg, shard)
         self.max_len = max_len
         self.options = options
         self._last_aux = None       # measured selection of the latest step
@@ -162,7 +170,7 @@ class DecodeEngine:
             inputs["image_embeds"] = torch.as_tensor(batch["image_embeds"],
                                                      device=self.device)
         logits, state = self.api.prefill(self.params, inputs, self.cfg, self.max_len,
-                                         options=self.options)
+                                         options=self.options, shard=self.shard)
         return smp.sample(logits, self.options.sampling,
                           self._generator(generator)), state
 
@@ -173,10 +181,11 @@ class DecodeEngine:
         from prefill, then ``n_tokens - 1`` decode steps). ``generator``
         (any device) feeds a stochastic ``options.sampling``, default seed 0
         on the engine's device; greedy decoding consumes no randomness. On
-        a sharded engine with a selecting policy the prefill is replicated,
-        then each rank keeps its part of the caches along the sequence;
-        that step takes the trivial schedule only, and any other raises
-        ValueError before the prefill."""
+        a sharded engine with a selecting policy the prefill's attention is
+        replicated, then each rank keeps its part of the caches along the
+        sequence; that step takes the trivial schedule only, and any other
+        raises ValueError before the prefill. A recurrent family's state
+        comes out of the prefill at the rank's size."""
         if self._seq_sharded() and not self.options.schedule.is_trivial:
             raise ValueError(
                 "sharded generate needs the trivial schedule (its selection is "
@@ -205,10 +214,12 @@ class DecodeEngine:
             final_len=state.cur_len)
 
     def _seq_sharded(self) -> bool:
-        """generate() splits its caches along the sequence: a shard and a
-        selecting policy (a dense policy reads every cache row on every
-        rank, as the reference's unsharded branch does)."""
-        return self.shard is not None and not self.options.policy.dense
+        """generate() splits its attention caches along the sequence: a
+        shard, a selecting policy (a dense policy reads every cache row on
+        every rank, as the reference's unsharded branch does) and a model
+        with attention caches (the Mamba1 LM has none)."""
+        return (self.shard is not None and not self.options.policy.dense
+                and self.api.paged_attn_layers(self.cfg) > 0)
 
     # -- continuous batching over paged KV ---------------------------------
 
@@ -369,7 +380,14 @@ class DecodeEngine:
                           watermark=watermark, eviction_enabled=eviction is not None,
                           faults=faults)
         sched.on_token = on_token
+        # the recurrent families' per-slot state: written at admission and
+        # resume, captured at preemption, and replaced by each accepted step
+        slot_state = (None if self.api.init_slot_state is None
+                      else self.api.init_slot_state(cfg, n_slots, device=dev,
+                                                    shard=self.shard))
         swap = HostSwapSpace(config=swap_config, faults=faults)
+        # swap entries moved out and back in carrying recurrent rows
+        state_swaps = [0, 0]
         for r in reqs:
             sched.submit(r)
 
@@ -400,8 +418,8 @@ class DecodeEngine:
             gen = torch.Generator().manual_seed(int(seed))
             return int(smp.sample(row, params_s, gen))
 
-        kv_heads = (self.shard.local_heads(cfg.n_kv_heads) if self.shard is not None
-                    else None)
+        kv_heads = (self.shard.local_heads(cfg.n_kv_heads)
+                    if self.shard is not None and self.api.paged_attn_layers(cfg) else None)
         ghosts = 0
         if eviction is not None:
             ghosts = (eviction.ghost_rows if eviction.ghost_rows is not None
@@ -411,10 +429,6 @@ class DecodeEngine:
                               with_meta=self.options.policy.needs_meta,
                               ghost_rows=ghosts, quantize=self.options.quantize,
                               device=dev, kv_heads=kv_heads)
-        # the recurrent families' per-slot state: written at admission and
-        # resume, captured at preemption, and replaced by each accepted step
-        slot_state = (None if self.api.init_slot_state is None
-                      else self.api.init_slot_state(cfg, n_slots, device=dev))
         evmgr = None
         if eviction is not None:
             evmgr = EvictionManager(
@@ -490,6 +504,8 @@ class DecodeEngine:
                                                 cur_len=req.swap_len, kmin=kmin, kmax=kmax,
                                                 k_scale=k_sc, v_scale=v_sc,
                                                 state_conv=row.conv, state_h=row.h))
+                    if slot_state is not None:
+                        state_swaps[0] += 1
                 except SwapError:
                     reason = "swap_put_failed"
             if reason is not None:
@@ -578,6 +594,7 @@ class DecodeEngine:
                                      entry.kmin, entry.kmax,
                                      k_scale=entry.k_scale, v_scale=entry.v_scale)
                     if slot_state is not None:
+                        state_swaps[1] += 1
                         slot_state = write_slot(
                             slot_state, SlotState(entry.state_conv, entry.state_h), req.slot)
                     token_buf[req.slot] = entry.token
@@ -768,10 +785,15 @@ class DecodeEngine:
         swap_stats = swap.stats()
         bytes_out, bytes_in = swap.bytes_out, swap.bytes_in
         if self.shard is not None:
-            # each rank swapped its heads: the pool's bytes are the sum
+            # each rank swapped its heads and channels: the bytes are the
+            # sum, less the recurrent rows every rank holds whole, counted
+            # once as the unsharded engine counts them. The tiers' own
+            # figures stay what the ranks' hosts and disks held
             keys = ("host_bytes", "disk_bytes", "peak_host_bytes", "peak_disk_bytes")
             summed = self.shard.sum_ints([bytes_out, bytes_in] + [swap_stats[k] for k in keys])
-            bytes_out, bytes_in = summed[:2]
+            extra = 0 if slot_state is None else (self.shard.world - 1) * \
+                replicated_state_bytes(cfg, self.shard.world, slot_state)
+            bytes_out, bytes_in = (b - extra * n for b, n in zip(summed[:2], state_swaps))
             swap_stats.update(zip(keys, summed[2:]))
         out["stats"] = {
             "wall_s": wall, "decode_steps": n_steps,
@@ -848,7 +870,7 @@ class DecodeEngine:
         logits, cstate = self.api.prefill(self.params,
                                           {"tokens": toks, "lengths": lengths},
                                           self.cfg, bucket * ps,
-                                          options=self.options)
+                                          options=self.options, shard=self.shard)
         view = self.api.state_view(cstate)
         if view.k_cache is not None:
             caches = (view.k_cache, view.v_cache, view.kg_cache, view.meta_kmin,

@@ -282,7 +282,9 @@ class HostSwapSpace:
                 f"exceeds bound {cfg.disk_capacity_bytes} (entry {key!r})")
         self._attempt("disk_write")
         os.makedirs(cfg.disk_dir, exist_ok=True)
-        path = os.path.join(cfg.disk_dir, f"swap_{self._disk_seq}.npz")
+        # the process id keeps the ranks of a sharded engine that share a
+        # disk tier from writing the same files
+        path = os.path.join(cfg.disk_dir, f"swap_{os.getpid()}_{self._disk_seq}.npz")
         self._disk_seq += 1
         np.savez(path, **_pack_entry(entry))
         self._disk[key] = path

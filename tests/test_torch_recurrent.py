@@ -22,7 +22,7 @@ off-by-one unit would break every step).
   also through the disk tier; hybrid eviction with restore and replay
   bitwise the ample run; the hybrid's int8 serve against the reference's;
 - the refusals mirrored: Quest on the hybrid, a plan-carrying schedule on
-  its paged step, a sharded engine, ``lm_forward``.
+  its paged step, Quest on a sharded engine, ``lm_forward``.
 
 Every test that asserts a launch count resets the counters first.
 """
@@ -367,8 +367,9 @@ def test_hybrid_int8_serve_matches_jax(pool):
 def test_refusals_mirror_the_reference(tmp_path):
     """Quest on the hybrid has no metadata cache (ValueError at its first
     step, in both packages); a plan-carrying schedule has no paged hybrid
-    step (NotImplementedError in both); the port refuses a sharded engine
-    for a recurrent family (item 9). The recurrent families' lm_forward
+    step (NotImplementedError in both); a sharded engine for a recurrent
+    family (tests/test_torch_sharded_recurrent.py) refuses Quest, as for
+    every family, before any collective. The recurrent families' lm_forward
     with mode="distill" is the reference's: the Mamba1 LM pretrains in
     either mode (CE), the hybrid distils; under a one-rank shard it is
     the unsharded loss bitwise."""
@@ -392,8 +393,9 @@ def test_refusals_mirror_the_reference(tmp_path):
     shard = Shard.__new__(Shard)          # the refusal comes before any collective
     for arch in ARCHS:
         _, _, cfg, p = _pair(arch, _layers(arch))
-        with pytest.raises(NotImplementedError, match="item 9"):
-            DecodeEngine(cfg, p, max_len=64, device="cpu", shard=shard)
+        with pytest.raises(ValueError, match="GatePolicy"):
+            DecodeEngine(cfg, p, max_len=64, device="cpu", shard=shard,
+                         options=TP.DecodeOptions(policy=TP.QuestPolicy()))
         jc, jp, _, _ = _pair(arch, _layers(arch))
         tk = toks[:, :16]                 # whole gate blocks for the distill target
         batch = {"tokens": tk, "labels": np.roll(tk, -1, axis=1)}

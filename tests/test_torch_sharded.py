@@ -33,9 +33,11 @@ against its unsharded path, so that is what the port is held to
   * a world size that does not divide the KV heads (or the cache length)
     raises ``ValueError``;
   * the MoE family (``deepseek_moe_16b`` at ``reduced()`` with its
-    published router, every rank computing all experts): the head-sharded
+    published router, expert-parallel: each rank holds and computes
+    ``E / 2`` routed experts and gathers their outputs): the head-sharded
     fp ``serve``, ample and preempting, greedy tokens equal to the JAX
-    engine's and logits bitwise the port's unsharded ``serve``; and the
+    engine's and logits bitwise the port's unsharded ``serve``, with one
+    expert gather a MoE layer at every prefill and decode step; and the
     sequence-sharded ``generate`` teacher-forced with the reference's
     greedy tokens, logits within SEQ_TOL.
 
@@ -367,6 +369,25 @@ def test_moe_head_sharded_serve_matches_unsharded(moe_runs, case):
     for key in COUNTERS:
         assert got["stats"][key] == twin["stats"][key] == want["stats"][key], key
     assert (got["stats"]["preemptions"] > 0) == case.endswith("preempt")
+
+
+@pytest.mark.parametrize("case", H.MOE_CASES)
+def test_moe_rank_holds_its_experts(moe_runs, case):
+    """The engine keeps block ``rank`` of the routed experts, E / 2 of each
+    of ``wi_gate``/``wi_up``/``wo`` a layer, and every MoE layer gathered
+    their outputs once at every prefill and decode step (counted by the
+    calls that compute the rank's expert rows, apart from the head gathers
+    above)."""
+    _, _, _, sharded = moe_runs
+    e = _moe_cfgs()[1].moe.n_experts
+    for rank in sharded:
+        got = rank[case]
+        assert got["experts"].keys() == got["full_experts"].keys()
+        assert len(got["experts"]) == 3 * N_LAYERS
+        for path, full in got["full_experts"].items():
+            assert full[0] == e and got["experts"][path] == (e // WORLD,) + full[1:], path
+        st = got["stats"]
+        assert got["expert_gathers"] == N_LAYERS * (st["decode_steps"] + st["admitted"]) > 0
 
 
 def test_moe_sequence_sharded_generate_matches_unsharded(moe_runs):

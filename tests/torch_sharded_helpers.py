@@ -1,7 +1,7 @@
 """Child-process bodies of tests/test_torch_sharded.py,
-tests/test_torch_sharded_options.py and tests/test_torch_train_sharded.py:
-the port's sharded serving and training over a gloo process group, one
-process per rank.
+tests/test_torch_sharded_options.py, tests/test_torch_train_sharded.py and
+tests/test_torch_sharded_recurrent.py: the port's sharded serving and
+training over a gloo process group, one process per rank.
 
 This module imports torch, numpy and the port only: it is what the child
 processes import (the test module imports JAX for the reference, and a
@@ -11,6 +11,7 @@ target of ``torch.multiprocessing.spawn``; it joins the group through a
 ``<out_dir>/<task>-<rank>.pt`` for the parent to check.
 """
 import contextlib
+import dataclasses
 import os
 
 import numpy as np
@@ -24,11 +25,13 @@ from repro_torch.data.pipeline import DataState, make_batch
 from repro_torch.distributed.sharding import (Shard, decode_partition, gather_trees,
                                               seq_shard_state, shard_params)
 from repro_torch.models import moe as moe_mod
+from repro_torch.models.registry import get_api
 from repro_torch.optim import adamw
 from repro_torch.serve import paging as pg
 from repro_torch.serve.engine import DecodeEngine
 from repro_torch.serve.eviction import EvictionConfig
 from repro_torch.serve.frontend import ServingFrontend
+from repro_torch.serve.offload import SwapConfig
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.train import loop as tl
 
@@ -63,6 +66,26 @@ def _count_gathers(shard):
         shard.gathers += 1
         return real(x, axis)
     shard.all_gather = counted
+
+
+def _count_calls(shard, name):
+    """Count the calls of the shard's collective ``name`` in
+    ``shard.calls[name]``."""
+    real = getattr(shard, name)
+    if not hasattr(shard, "calls"):
+        shard.calls = {}
+    shard.calls[name] = 0
+
+    def counted(*a, **kw):
+        shard.calls[name] += 1
+        return real(*a, **kw)
+    setattr(shard, name, counted)
+
+
+def _expert_shapes(params):
+    """{path: shape} of the routed-expert leaves of a parameter tree."""
+    return {path: tuple(t.shape) for path, t in tl._walk(params)
+            if path.split("/moe/")[-1] in ("wi_gate", "wi_up", "wo") and "/moe/" in path}
 
 
 @contextlib.contextmanager
@@ -169,22 +192,39 @@ MOE_CASES = ("fp", "fp-preempt")
 
 
 def moe_cases(shard, cfg, np_params, reqs, gen_job):
-    """MOE_CASES' serves of a MoE config on this rank (every rank computes
-    all experts over all slots), then the sequence-sharded ``generate`` of
-    ``gen_job`` (``_generate_one``'s arguments but the shard)."""
+    """MOE_CASES' serves of a MoE config on this rank (each rank computes
+    its experts over all slots and gathers their outputs), then the
+    sequence-sharded ``generate`` of ``gen_job`` (``_generate_one``'s
+    arguments but the shard). Each serve also reports the expert gathers
+    and the shapes of the engine's routed-expert leaves."""
     params = params_from_numpy(np_params, cfg, "cpu")
     _count_gathers(shard)
+    # a sharded decode gathers the rank's expert outputs once a call of
+    # ``_expert_rows``: each call counts that gather as an expert gather and
+    # takes it out of ``shard.gathers``, which keeps the head (and
+    # candidate) gathers
+    rows, real = [0], moe_mod._expert_rows
+
+    def counted_rows(*a, **kw):
+        rows[0] += 1
+        shard.gathers -= 1
+        return real(*a, **kw)
+    moe_mod._expert_rows = counted_rows
     out = {}
     for name in MOE_CASES:
         opt_kw, serve_kw = SERVE_CASES[name]
         eng = DecodeEngine(cfg, params, max_len=64, device="cpu", shard=shard,
                            options=DecodeOptions(**opt_kw))
-        shard.gathers = 0
+        shard.gathers = rows[0] = 0
         res = eng.serve([dict(r) for r in reqs], collect_logits=True, **serve_kw)
         out[name] = {"tokens": {r["rid"]: res[r["rid"]] for r in reqs},
                      "logits": res["logits"], "gathers": shard.gathers,
-                     "stats": {k: res["stats"][k] for k in STATS}}
+                     "stats": {k: res["stats"][k] for k in STATS + ("admitted",)},
+                     "expert_gathers": rows[0],
+                     "experts": _expert_shapes(eng.params),
+                     "full_experts": _expert_shapes(params)}
     out["generate"] = _generate_one(shard, *gen_job)
+    moe_mod._expert_rows = real
     return out
 
 
@@ -395,5 +435,127 @@ def train_cases(shard, cases, recover, optim):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the recurrent families on a sharded engine
+# (tests/test_torch_sharded_recurrent.py)
+# ---------------------------------------------------------------------------
+
+# ragged prompts (bucketed prefill, mid-stream admission) on 3 slots and 8
+# pages of 8 tokens: the first three fill the pool and growth preempts
+REC_SPECS = ((21, 6), (13, 9), (16, 8), (5, 7))
+TIGHT = dict(n_slots=3, num_pages=8)
+# a host swap tier bounded between a rank's swap entry of the hybrid's
+# preemption (23744 B at two ranks, 46528 B unsharded) and the same less
+# its replicated ``B|C`` conv rows (960 B): every rank writes the entry to
+# the disk tier alike, and reads it back on resume
+DISK_HOST_CAP = 23300
+# name -> (arch, DecodeOptions kwargs, serve kwargs)
+REC_CASES = {
+    "falcon": ("falcon_mamba_7b", {}, TIGHT),
+    "zamba2": ("zamba2_1_2b", {}, TIGHT),
+    "zamba2-evict": ("zamba2_1_2b", {}, dict(TIGHT, eviction=EvictionConfig())),
+    "zamba2-int8": ("zamba2_1_2b", dict(quantize="int8"), TIGHT),
+    "zamba2-split2": ("zamba2_1_2b", dict(split_k=2), TIGHT),
+    "zamba2-disk": ("zamba2_1_2b", {},
+                    dict(TIGHT, swap_config=SwapConfig(host_capacity_bytes=DISK_HOST_CAP))),
+}
+# the MoE model's serve at world size 1 (tests/test_torch_sharded.py holds
+# it at two ranks)
+MOE_ONE_RANK = {"deepseek": ("deepseek_moe_16b", {}, TIGHT)}
+REC_GEN_SHAPE, REC_GEN_NEW = (2, 37), 7            # generate: prompt, new tokens
+REC_STATS = STATS + ("admitted", "retired", "failed")
+COLLECTIVES = ("all_sum", "all_gather", "all_max")
+
+
+def rec_requests(vocab, specs, seed=0):
+    """The numpy-seeded requests of tests/test_torch_recurrent.py."""
+    rng = np.random.default_rng(seed)
+    return [{"rid": i, "max_new_tokens": mn,
+             "tokens": rng.integers(0, vocab, size=(pl,)).astype(np.int32)}
+            for i, (pl, mn) in enumerate(specs)]
+
+
+def _counted(shard):
+    """A snapshot of the shard's collective counters (zeros without one)."""
+    calls = getattr(shard, "calls", {})
+    return {n: calls.get(n, 0) for n in COLLECTIVES}
+
+
+def rec_serve(shard, cfg, params, name, disk_dir=None):
+    """One REC_CASES (or MOE_ONE_RANK) serve on ``shard`` (None: the
+    unsharded engine; it runs a split-K case at one split): tokens,
+    logits, stats and the collectives it made. A bounded swap tier's disk
+    tier lies in ``disk_dir``."""
+    _, opt_kw, serve_kw = REC_CASES[name] if name in REC_CASES else MOE_ONE_RANK[name]
+    if shard is None:
+        opt_kw = dict(opt_kw, split_k=1)
+    if "swap_config" in serve_kw:
+        serve_kw = dict(serve_kw, swap_config=dataclasses.replace(serve_kw["swap_config"],
+                                                                  disk_dir=disk_dir))
+    reqs = rec_requests(cfg.vocab_size, REC_SPECS)
+    eng = DecodeEngine(cfg, params, max_len=64, device="cpu", shard=shard,
+                       options=DecodeOptions(**opt_kw))
+    before = _counted(shard)
+    res = eng.serve([dict(r) for r in reqs], collect_logits=True, **serve_kw)
+    return {"tokens": {r["rid"]: res[r["rid"]] for r in reqs}, "logits": res["logits"],
+            "stats": {k: res["stats"][k] for k in REC_STATS},
+            "collectives": {n: c - before[n] for n, c in _counted(shard).items()}}
+
+
+def rec_generate(shard, cfg, params):
+    """``generate`` of a numpy-seeded REC_GEN_SHAPE prompt on ``shard``
+    (None: unsharded): tokens [B, REC_GEN_NEW], each decode step's logits
+    and the all_sum calls."""
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                             REC_GEN_SHAPE).astype(np.int32)
+    eng = DecodeEngine(cfg, params, max_len=64, device="cpu", shard=shard)
+    logits, step = [], eng._step
+
+    def recording(*a, **kw):
+        out = step(*a, **kw)
+        logits.append(out[1].numpy().copy())
+        return out
+    eng._step = recording
+    before = _counted(shard)
+    res = eng.generate({"tokens": toks}, REC_GEN_NEW)
+    return {"tokens": res["tokens"].numpy(), "logits": np.stack(logits),
+            "collectives": {n: c - before[n] for n, c in _counted(shard).items()}}
+
+
+def rank_shapes(shard, cfg, params):
+    """The shapes a sharded engine holds: its mixer and routed-expert
+    leaves ({path: shape}) and a 3-slot state's (conv, h)."""
+    eng = DecodeEngine(cfg, params, max_len=64, device="cpu", shard=shard)
+    leaves = {path: tuple(t.shape) for path, t in tl._walk(eng.params)
+              if "/mixer/" in path}
+    st = get_api(cfg).init_slot_state(cfg, 3, device="cpu", shard=shard)
+    return {"leaves": leaves, "state": tuple(tuple(t.shape) for t in st)}
+
+
+def recurrent_cases(shard, models, disk_dir):
+    """Every REC_CASES serve and each family's ``generate`` on this rank,
+    the shapes the rank holds, and the error a world size that does not
+    divide the hybrid's KV heads raises; ``models`` maps an arch to its
+    (config, numpy parameters); the ranks share the disk tier
+    ``disk_dir``."""
+    params = {a: params_from_numpy(p, cfg, "cpu") for a, (cfg, p) in models.items()}
+    for name in COLLECTIVES:
+        _count_calls(shard, name)
+    out = {name: rec_serve(shard, models[arch][0], params[arch], name, disk_dir)
+           for name, (arch, *_) in REC_CASES.items()}
+    for arch, (cfg, _) in models.items():
+        out[arch, "generate"] = rec_generate(shard, cfg, params[arch])
+        out[arch, "shapes"] = rank_shapes(shard, cfg, params[arch])
+    cfg = models["zamba2_1_2b"][0]
+    odd = DecodeEngine(cfg.replace(n_kv_heads=1), params["zamba2_1_2b"], max_len=64,
+                       device="cpu", shard=shard)
+    try:
+        odd.serve(rec_requests(cfg.vocab_size, REC_SPECS[:1]), n_slots=1)
+        out["odd_heads"] = None
+    except ValueError as e:
+        out["odd_heads"] = str(e)
+    return out
+
+
 TASKS = {"serve": serve_cases, "generate": generate_teacher_forced, "moe": moe_cases,
-         "options": option_cases, "train": train_cases}
+         "options": option_cases, "train": train_cases, "recurrent": recurrent_cases}
