@@ -55,7 +55,8 @@ NCCL group, kernel 6 on the rank's heads; the training launcher under
 torchrun's environment); then falcon_mamba_7b, zamba2_1_2b and
 deepseek_moe_16b on a sharded engine (the Mamba mixers and their slot
 state at the rank's channels or heads, the routed experts
-expert-parallel).
+expert-parallel); and last the dry-run (``repro_torch.launch.dryrun``),
+its predictions over fake tensors held against two real qwen3_0_6b steps.
 The contiguous int8 kernel ``block_sparse_decode_quant`` lies on no model
 path (in the reference neither): it is checked and timed on the generate
 path's layer-0 blocks, quantized per block. Phases (any failure exits
@@ -401,6 +402,25 @@ kernels line and their kernel errors its max_abs_err:
      and their host time, device busy over three profiled steps of each
      model's first serve, the rank's slot-state bytes and its
      routed-expert bytes.
+ 43. the dry-run (``repro_torch.launch.dryrun``), grounded on the card at
+     full width of qwen3_0_6b on the local mesh (one card, no shard): its
+     predictions over fake tensors on the CPU (traced in worker processes
+     while phase 1 builds the kernels), then the same two cells for
+     real. The distill cell (TRAIN_BATCH x TRAIN_SEQ, phase 14's
+     size; ``make_train_step``), its state allocated fresh from a
+     baseline with nothing else of the phase alive: the predicted
+     argument bytes equal the real state's and batch's exactly, the
+     step's ``max_memory_allocated`` less the baseline within
+     DRYRUN_PEAK_REL of the predicted peak, the predicted kernel calls
+     equal the launch counters' deltas over the step (kernel 6: 28). The
+     decode cell (BATCH rows at phase 4's context, one ``decode_step``
+     with telemetry off on a zeroed cache at PROMPT_LEN tokens, the distill
+     cell's parameters): the predicted argument bytes (parameters, decode
+     state, token) equal the real ones, the predicted calls of #1 and #2
+     the deltas (28 each). For information, each cell's roofline time
+     (the largest of its three computed terms) beside the step's
+     measured device busy and wall. Last, the record of one production
+     cell, kimi_k2_1t_a32b x decode_32k at ``--mesh single``.
 
 The pressure and failure paths of ``serve`` (phases 23-29) run after
 phase 13, on qwen3_0_6b at full width and phase 6's requests unless
@@ -479,7 +499,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.checkpoint import manager as ckpt  # noqa: E402
-from repro_torch.config import MoEConfig, OptimConfig, TrainConfig, reduced  # noqa: E402
+from repro_torch.config import (MoEConfig, OptimConfig, ShapeConfig, TrainConfig,  # noqa: E402
+                                reduced)
 from repro_torch.convert import params_to, train_state_to  # noqa: E402
 from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,  # noqa: E402
                                      DensePolicy, OraclePolicy, QuestPolicy,
@@ -488,7 +509,9 @@ from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,  
 from repro_torch.distributed.sharding import Shard, local_shape, state_layouts  # noqa: E402
 from repro_torch.examples import (distill_and_eval, quickstart, serve_sparse,  # noqa: E402
                                   serve_stream)
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import specs as dryrun_specs  # noqa: E402
 from repro_torch.data.pipeline import DataState, image_embeds, make_batch  # noqa: E402
 from repro_torch.kernels import block_sparse_decode as bsd  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
@@ -535,6 +558,7 @@ SPLITS_CHECKED = (2, 4, 8)          # and nsel + 3 (empty segments)
 # (the launcher's seq; its batch 16 cut to 4), documents of mean length
 # 2048, 4 steps, a checkpoint every 2 and one failure injected before step 3
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 4096, 4, 2, 3
+DRYRUN_PEAK_REL = 0.10    # phase 43: the distill step's measured peak within this share
 GT_BM_REL = 1e-4          # kernel 6's blockmax: error within this share of max|blockmax|
 # the decode API phases: Quest on generate (phase 4's batch, 8 decode
 # steps), the other policies and schedules (3 steps each, from one
@@ -1277,6 +1301,24 @@ def phase_kernels(seen, vs_sdpa: bool = True):
     }
 
 
+def cuda_kernels(ka):
+    """The CUDA kernels' rows of torch.profiler key averages ``ka``, and
+    their device time in ms."""
+    kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    return kernels, sum(e.self_device_time_total for e in kernels) / 1e3
+
+
+def profiled(fn):
+    """``fn()`` under torch.profiler, synchronised: (its result, the key
+    averages, the CUDA kernels' rows, their device time in ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    return (out, ka, *cuda_kernels(ka))
+
+
 def phase_profile(eng, batch, steps: int = 3, label: str = "decode step"):
     """Where a decode step's time goes, after the end-to-end run so that
     the profiler cannot touch its timing: a fresh prefill, the wall time
@@ -1284,8 +1326,6 @@ def phase_profile(eng, batch, steps: int = 3, label: str = "decode step"):
     kernels, device busy share), then as many plain steps again, which
     shows what the profiler leaves behind. Returns (wall ms a step before
     the profiler, device busy ms a step)."""
-    from torch.profiler import ProfilerActivity, profile
-
     def run():
         nonlocal tok, state
         torch.cuda.synchronize()
@@ -1297,12 +1337,9 @@ def phase_profile(eng, batch, steps: int = 3, label: str = "decode step"):
 
     tok, state = eng.prefill(batch)
     before = run()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        under = run()
+    under, ka, kernels, busy = profiled(run)
+    busy /= steps   # ms/step
     after = run()
-    ka = prof.key_averages()
-    kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps   # ms/step
     print(ka.table(sort_by="self_device_time_total", row_limit=15))
     gate = (gate_profile(kernels, steps) if eng.options.policy.needs_gate
             else "no gate select")
@@ -1956,11 +1993,11 @@ def window_stats(rec) -> dict:
         fail("the profiled window did not close: the serve ran too few steps")
     steps = rec["steps"]
     ka = rec["prof"].key_averages()
-    kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels, busy = cuda_kernels(ka)
     # the profiler marks every c10d collective with one record_param_comms
     comms = [e for e in ka if e.key == "record_param_comms"]
     return {"ka": ka, "kernels": kernels, "per_step": 1e3 * rec["wall"] / steps,
-            "busy": sum(e.self_device_time_total for e in kernels) / 1e3 / steps,
+            "busy": busy / steps,
             "nccl": sum(e.self_device_time_total for e in kernels
                         if "nccl" in e.key.lower()) / 1e3 / steps,
             "launches": sum(e.count for e in kernels) / steps,
@@ -2623,7 +2660,6 @@ def phase_train_profile(cfg, tcfg, state, steps: int = 2, label: str = "training
     steps), then one step under torch.profiler: top device kernels and the
     device's busy share of the step. Returns (step seconds before the
     profiler, device busy seconds of the profiled step)."""
-    from torch.profiler import ProfilerActivity, profile
     step_fn = tl.make_train_step(cfg, tcfg)
     batch = make_batch(cfg, tcfg.global_batch, tcfg.seq_len, DataState(SEED, tcfg.steps),
                        device="cuda")
@@ -2634,15 +2670,15 @@ def phase_train_profile(cfg, tcfg, state, steps: int = 2, label: str = "training
         state, m = step_fn(state, batch)
         float(m["loss"])
         times.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def one_step():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = step_fn(state, batch)
-        float(m["loss"])
-        under = time.perf_counter() - t0
-    ka = prof.key_averages()
-    kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6   # s
+        out = step_fn(state, batch)
+        float(out[1]["loss"])
+        return out, time.perf_counter() - t0
+    ((state, m), under), ka, kernels, busy = profiled(one_step)
+    busy /= 1e3   # s
     print(ka.table(sort_by="self_device_time_total", row_limit=15))
     print(f"{label} step profile: {', '.join(f'{t:.3f}' for t in times)} s a step before the "
           f"profiler, {under:.3f} s under it; device busy {busy:.3f} s = "
@@ -4604,6 +4640,155 @@ def phase_sharded_options(shard, frontend_stream):
     return total, errs
 
 
+def timed_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def dryrun_cells():
+    """Phase 43's cells as ``dryrun.run_cell`` takes them: qwen3_0_6b's
+    distill (TRAIN_BATCH x TRAIN_SEQ) and decode (BATCH rows at phase 4's
+    context) cells on the local mesh, and one production cell."""
+    cfg = configs.get("qwen3_0_6b")
+    bs = cfg.gate.block_size
+    max_len = -(-(PROMPT_LEN + NEW_TOKENS) // bs) * bs
+    return {"distill": (cfg, ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train"), "local"),
+            "decode": (cfg, ShapeConfig("decode", max_len, BATCH, "decode"), "local"),
+            "production": ("kimi_k2_1t_a32b", "decode_32k", "single")}
+
+
+def hide_card() -> None:
+    """A tracing worker's start: no CUDA device is visible to it."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+
+
+def trace_dryrun_cells(during):
+    """Phase 43's predictions: its cells traced over fake tensors on the
+    CPU, one worker process each, while ``during()`` runs (the kernels'
+    build, which leaves CPU cores idle); the workers see no card and are
+    gone on return. {label: record}."""
+    import concurrent.futures
+    import multiprocessing
+    cells = dryrun_cells()
+    with concurrent.futures.ProcessPoolExecutor(
+            len(cells), mp_context=multiprocessing.get_context("spawn"),
+            initializer=hide_card) as pool:
+        futures = {k: pool.submit(dryrun.run_cell, *c, verbose=False) for k, c in cells.items()}
+        during()
+        return {k: f.result() for k, f in futures.items()}
+
+
+def phase_dryrun(preds):
+    """Phase 43: the dry-run's predictions (``trace_dryrun_cells``) held
+    against the card. Returns the launch counters' deltas over the two
+    real steps."""
+    t_all = time.perf_counter()
+    cfg, decode_shape, _ = dryrun_cells()["decode"]
+    measured = dryrun_on_card(cfg, decode_shape.seq_len)
+    for label, rec in preds.items():
+        if not rec["ok"]:
+            fail(f"phase 43: the dry-run of the {label} cell failed: {rec['error']}\n"
+                 f"{rec['traceback']}")
+        print(f"phase 43 {label} cell predicted (fake tensors, {rec['t_trace_s']:.1f} s): "
+              f"arguments {rec['argument_size_in_bytes']} B, peak {rec['peak_bytes']} B, "
+              f"kernels {rec['kernels']}, flops {rec['flops']:.4e}, bytes {rec['bytes']:.4e}")
+    for label in ("distill", "decode"):
+        rec, (real_args, counts, peak, busy, wall) = preds[label], measured[label]
+        if real_args != rec["argument_size_in_bytes"]:
+            fail(f"phase 43 {label}: predicted argument bytes {rec['argument_size_in_bytes']} "
+                 f"!= the card's {real_args}")
+        want = {**dict.fromkeys(ops.KERNELS, 0), **rec["kernels"]}
+        if counts != want:
+            fail(f"phase 43 {label}: launches {counts} != the predicted calls {want}")
+        line = (f"phase 43 {label}: arguments {real_args} B on the card, predicted "
+                f"{rec['argument_size_in_bytes']} (equal); launches equal the predicted calls "
+                f"{rec['kernels']}")
+        if peak is not None:
+            rel = abs(peak - rec["peak_bytes"]) / rec["peak_bytes"]
+            line += (f"; peak over the step {peak} B measured (max_memory_allocated less the "
+                     f"baseline) against {rec['peak_bytes']} predicted ({100 * rel:.2f}% apart, "
+                     f"limit {100 * DRYRUN_PEAK_REL:.0f}%)")
+            if rel > DRYRUN_PEAK_REL:
+                fail(f"phase 43: the distill step's peak {peak} B is {100 * rel:.2f}% from "
+                     f"the predicted {rec['peak_bytes']}")
+        print(line)
+        terms = {k: rec[f"t_{k}"] for k in ("compute", "memory", "collective")}
+        print(f"phase 43 {label}: roofline {1e3 * max(terms.values()):.3f} ms "
+              f"({rec['bottleneck']}; computed from the data sheet: compute "
+              f"{1e3 * terms['compute']:.3f}, memory {1e3 * terms['memory']:.3f}, collective "
+              f"{1e3 * terms['collective']:.3f} ms) | measured device busy {busy:.3f} ms, "
+              f"wall {wall:.3f} ms ({card_line()})")
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"phase 43: the card's total_memory {total} B, the dry-run's fits limit "
+          f"{dryrun.HBM_BYTES} B ({'equal' if total == dryrun.HBM_BYTES else 'they differ'}; "
+          f"{card_line()})")
+    print(f"phase 43 production cell: {json.dumps(preds['production'])}")
+    print(f"phase 43: {time.perf_counter() - t_all:.1f} s")
+    return {name: sum(measured[c][1][name] for c in ("distill", "decode"))
+            for name in ops.KERNELS}
+
+
+def dryrun_on_card(cfg, max_len):
+    """Phase 43's two cells for real: {label: (argument bytes, launch
+    deltas over the step, the step's peak less the baseline or None,
+    device busy ms of a second step, wall ms of the first)}."""
+    out = {}
+    # the distill cell: its state allocated fresh from a baseline with
+    # nothing else of the phase alive
+    free_card()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    tcfg = dryrun_specs.default_train_cfg(cfg)
+    state = tl.init_train_state(torch.Generator(device="cuda").manual_seed(SEED), cfg, tcfg)
+    batch = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, DataState(SEED, 0), device="cuda")
+    real_args = dryrun.storage_bytes((state, batch))
+    step = tl.make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = []
+    wall = timed_ms(lambda: res.append(step(state, batch)))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    if not math.isfinite(float(res[0][1]["loss"])):
+        fail("phase 43: the distill step's loss is not finite")
+    del res
+    busy = profiled(lambda: step(state, batch))[3]
+    out["distill"] = (real_args, counts, peak, busy, wall)
+
+    # the decode cell, on the distill cell's parameters: a zeroed cache at
+    # PROMPT_LEN tokens
+    params = state.params
+    del state, batch, step
+    free_card()
+    bs = cfg.gate.block_size
+    options = dryrun_specs.decode_options(cfg)
+    api = get_api(cfg)
+    dstate = api.init_decode_state(cfg, BATCH, max_len, None, options, device="cuda")
+    dstate.cur_len.fill_(PROMPT_LEN)
+    dstate.kg_n.fill_(PROMPT_LEN // bs)
+    token = torch.zeros((BATCH,), dtype=torch.int32, device="cuda")
+    real_args = dryrun.storage_bytes((params, dstate, token))
+
+    def one_step():
+        with torch.no_grad():
+            return api.decode_step(params, dstate, token, cfg, options=options)
+    ops.reset_launch_counts()
+    logits = []
+    wall = timed_ms(lambda: logits.append(one_step()[0]))
+    counts = ops.launch_counts()
+    if not bool(torch.isfinite(logits[0]).all()):
+        fail("phase 43: the decode step's logits are not finite")
+    busy = profiled(one_step)[3]
+    out["decode"] = (real_args, counts, None, busy, wall)
+    del params, dstate, token, logits
+    free_card()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4612,23 +4797,29 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     print(card_line())
-    phase_build()
+    dryrun_preds = trace_dryrun_cells(phase_build)
     store_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         shard = nccl_shard(store_dir)
         try:
-            return run_phases(shard)
+            return run_phases(shard, dryrun_preds)
         finally:
             dist.destroy_process_group()
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
 
 
-def run_phases(shard) -> int:
+def run_phases(shard, dryrun_preds) -> int:
+    marks = [("start", time.perf_counter())]
+
+    def mark(label):
+        marks.append((label, time.perf_counter()))
+
     phase_small(shard)
     phase_small_train()
     phase_small_configs()
     phase_small_pretrain()
+    mark("2 small agreement")
 
     cfg = configs.get("qwen3_0_6b")
     bs = cfg.gate.block_size
@@ -4653,11 +4844,13 @@ def run_phases(shard) -> int:
     del seen, state
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    mark("3 kernels")
 
     counts, gate_sparsity = phase_end_to_end(eng, batch, NEW_TOKENS, cfg.num_layers)
     phase_profile(eng, batch)
     del eng
     torch.cuda.empty_cache()
+    mark("4-5 generate")
 
     print(f"serve: {SERVE_SLOTS} slots, (prompt, new tokens) {list(SERVE_SPECS)}, "
           f"prompts from seed {SERVE_SEED}; default pool, then {TIGHT_PAGES} pages")
@@ -4668,6 +4861,7 @@ def run_phases(shard) -> int:
                            ("gate_select_paged", "block_sparse_decode_paged")}}
     torch.cuda.empty_cache()
     phase_serve_profile(cfg, params)
+    mark("6-8 serve")
 
     print("int8 serve: the same requests and pools, quantize='int8'")
     q8_counts, seen, *q8_runs = phase_serve(cfg, params, DecodeOptions(quantize="int8"))
@@ -4677,6 +4871,7 @@ def run_phases(shard) -> int:
     counts["block_sparse_decode_paged_quant"] = q8_counts["block_sparse_decode_paged_quant"]
     torch.cuda.empty_cache()
     phase_serve_profile(cfg, params, DecodeOptions(quantize="int8"), label="int8 serve")
+    mark("9 int8 serve")
 
     print(f"sharded serve: the same requests and pools, split_k={SPLIT_K}, "
           f"one NCCL rank ({shard})")
@@ -4703,6 +4898,7 @@ def run_phases(shard) -> int:
     # the contiguous int8 kernel lies on no model path
     counts["block_sparse_decode_quant"] = 0
     torch.cuda.empty_cache()
+    mark("10-13 sharded serve")
 
     # the pressure and failure paths: their launches join the counts, the
     # eviction path's kernel errors the kernels' max_abs_err
@@ -4715,6 +4911,7 @@ def run_phases(shard) -> int:
     for name, more_errs in ev_errs.items():
         numbers[name]["max_abs_err"] = max([numbers[name]["max_abs_err"], *more_errs])
     torch.cuda.empty_cache()
+    mark("23-29 pressure, faults, frontend")
 
     # the rest of the decode API; the errors on its id lists join the
     # kernels' max_abs_err
@@ -4728,6 +4925,7 @@ def run_phases(shard) -> int:
         numbers[name]["max_abs_err"] = max([numbers[name]["max_abs_err"], *more])
     del params
     torch.cuda.empty_cache()
+    mark("14-17 decode API")
 
     counts["gate_gt_attention"], captured = phase_train(cfg)
     numbers.update(phase_gt_kernel(*captured))
@@ -4737,6 +4935,7 @@ def run_phases(shard) -> int:
         ["gate_gt_attention"]["max_abs_err"]]}
     del captured
     torch.cuda.empty_cache()
+    mark("18-20 distill training, kernel 6")
 
     # the other dense configs: their launches join the counts, their
     # errors the kernels' max_abs_err
@@ -4746,6 +4945,7 @@ def run_phases(shard) -> int:
             counts[name] += n
         for name, nb in nums.items():
             more.setdefault(name, []).append(nb["max_abs_err"])
+    mark("21, 30-32 other configs")
     # the recurrent families: the same
     for arch in RECURRENT_CONFIGS:
         c, nums = phase_recurrent(arch)
@@ -4753,6 +4953,7 @@ def run_phases(shard) -> int:
             counts[name] += n
         for name, nb in nums.items():
             more.setdefault(name, []).append(nb["max_abs_err"])
+    mark("33-34 recurrent")
     for arch in OTHER_TRAIN:
         n, nums = phase_config_train(arch)
         counts["gate_gt_attention"] += n
@@ -4760,14 +4961,17 @@ def run_phases(shard) -> int:
     for name, errs in more.items():
         numbers[name]["max_abs_err"] = max([numbers[name]["max_abs_err"], *errs])
     # pretraining: no kernel (plain attention and scans, as in the reference)
+    mark("22 other configs' training")
     for arch in PRETRAIN_CONFIGS:
         phase_pretrain(arch)
+    mark("35-37 pretraining")
     # the serving launcher, the examples and the sharded engine with every
     # decode option: their launches join the counts, their errors the
     # kernels' max_abs_err
     c38 = phase_launcher()
     c39, e39 = phase_examples()
     c40, e40 = phase_sharded_options(shard, frontend_stream)
+    mark("38-40 launcher, examples, sharded options")
     for c in (c38, c39, c40):
         for name, n in c.items():
             counts[name] += n
@@ -4777,6 +4981,7 @@ def run_phases(shard) -> int:
     # training under the shard: kernel 6 on the rank's heads
     n41, e41 = phase_sharded_train(shard)
     counts["gate_gt_attention"] += n41
+    mark("41 sharded training")
     numbers["gate_gt_attention"]["max_abs_err"] = max(
         [numbers["gate_gt_attention"]["max_abs_err"], *e41])
     # the recurrent families and expert parallelism on a sharded engine
@@ -4785,6 +4990,14 @@ def run_phases(shard) -> int:
         counts[name] += n
     for name, errs in e42.items():
         numbers[name]["max_abs_err"] = max([numbers[name]["max_abs_err"], *errs])
+    mark("42 sharded families")
+    # the dry-run against the card: its steps' launches join the counts
+    for name, n in phase_dryrun(dryrun_preds).items():
+        counts[name] += n
+    mark("43 dry-run")
+    print("seconds by group of phases: " + ", ".join(
+        f"{label} {t - t_prev:.1f}" for (_, t_prev), (label, t) in zip(marks, marks[1:]))
+        + f"; run_phases {marks[-1][1] - marks[0][1]:.1f}")
 
     meta = {
         "gate_select": ("src/repro_torch/kernels/csrc/gate_select.cu",

@@ -2,6 +2,7 @@
 
 A copy of the JAX package's ``GateConfig``/``ModelConfig`` (with the
 ``MoEConfig``/``SSMConfig`` sub-configs that ``ModelConfig`` carries), of
+the dry-run's input shapes ``ShapeConfig``/``SHAPES``, of
 ``OptimConfig``/``TrainConfig`` and of ``reduced``: the port imports
 nothing of the JAX package, so it keeps its own copy. The fields, defaults and the ``reduced`` rule are identical,
 so a config built on either side compares equal field by field (the
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Mapping
 
 
 @dataclass(frozen=True)
@@ -112,6 +113,23 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell (assigned per architecture)."""
+    name: str                     # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                     # "train" | "prefill" | "decode"
+
+
+SHAPES: Mapping[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

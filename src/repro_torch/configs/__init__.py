@@ -11,8 +11,9 @@ Mamba1 LM, and zamba2_1_2b, the Mamba2 hybrid) and the audio encoder
 from __future__ import annotations
 
 import importlib
+from typing import List
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import SHAPES, ModelConfig, ShapeConfig
 
 ARCH_IDS = [
     "qwen3_0_6b",
@@ -40,3 +41,19 @@ def get(arch_id: str) -> ModelConfig:
         raise ValueError(f"unknown or unported arch {arch_id!r}; have {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.CONFIG
+
+
+def shapes_for(arch_id: str) -> List[ShapeConfig]:
+    """The dry-run's input shapes of an architecture (the JAX package's
+    rule): training and prefill for every config, decode for a decoder,
+    ``long_500k`` only where decode is sub-quadratic (the SSM and hybrid
+    families natively, an attention model through the gate's sparse
+    decode; a full-attention decode with the gate disabled does not
+    qualify)."""
+    cfg = get(arch_id)
+    names = ["train_4k", "prefill_32k"]
+    if cfg.is_decoder:
+        names += ["decode_32k", "long_500k"]
+    if cfg.is_decoder and cfg.has_attention and not cfg.gate.enabled:
+        names.remove("long_500k")
+    return [SHAPES[n] for n in names]

@@ -14,6 +14,8 @@ has none either).
 The group's backend is the caller's (gloo for CPU tensors, NCCL for CUDA
 ones); ``Shard.device`` is where the collectives' tensors live. Every
 collective goes through the group, also at world size 1.
+``AbstractShard`` is the dry-run's ``Shard`` (``launch/specs.py``): no
+group, fake tensors only, each collective logged in place of being run.
 
 Serving. What is sliced, and where (each rank keeps block ``rank`` of
 ``world``):
@@ -135,6 +137,7 @@ import math
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
 
 
 class Shard:
@@ -177,7 +180,7 @@ class Shard:
         one buffer (a view of it at world size 1)."""
         x = x.contiguous()
         out = x.new_empty((self.world * x.shape[0],) + tuple(x.shape[1:]))
-        dist.all_gather_into_tensor(out, x, group=self.group)
+        self._all_gather_into(out, x)
         shape = x.shape[:axis] + (self.world * x.shape[axis],) + x.shape[axis + 1:]
         return out.view((self.world,) + tuple(x.shape)).movedim(0, axis).reshape(shape)
 
@@ -202,13 +205,13 @@ class Shard:
     def all_max(self, x: torch.Tensor) -> torch.Tensor:
         """Elementwise max over ranks (a new tensor)."""
         y = x.contiguous().clone()
-        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group)
+        self._all_reduce(y, dist.ReduceOp.MAX)
         return y
 
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
         """Elementwise sum over ranks (a new tensor)."""
         y = x.contiguous().clone()
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self.group)
+        self._all_reduce(y, dist.ReduceOp.SUM)
         return y
 
     def barrier(self) -> None:
@@ -220,6 +223,69 @@ class Shard:
         """Host integers summed over ranks (byte counters of per-rank state)."""
         t = torch.tensor(list(values), dtype=torch.int64, device=self.device)
         return tuple(int(v) for v in self.all_sum(t).cpu())
+
+    # -- the two collectives every method above reaches ---------------------
+
+    def _all_gather_into(self, out: torch.Tensor, x: torch.Tensor) -> None:
+        dist.all_gather_into_tensor(out, x, group=self.group)
+
+    def _all_reduce(self, y: torch.Tensor, op) -> None:
+        dist.all_reduce(y, op=op, group=self.group)
+
+
+class Collective(NamedTuple):
+    """One collective an ``AbstractShard`` stood in for: its kind (the
+    reference dry-run's names, "all-gather" or "all-reduce"), the shape of
+    the rank's operand and the operand's bytes."""
+    kind: str
+    shape: Tuple[int, ...]
+    nbytes: int
+
+
+class AbstractShard(Shard):
+    """Rank ``rank`` of a ``world``-rank model axis with no process group:
+    the dry-run's ``Shard`` (``launch/specs.py``). It runs every local op
+    of ``Shard``'s methods (the copies, the clones, the moves of the
+    gathered axis), so a step's tensors and their shapes are the real
+    rank's, and in place of each collective it appends a ``Collective``
+    to ``log``: an all-gather's result is left unwritten, a reduction's is
+    the rank's own operand. Its results have the right shapes and no
+    meaning, so it takes only ``FakeTensor``s, and raises on any other
+    tensor: it never stands in for a real group. ``sum_ints`` returns
+    ``world`` times the rank's values (every rank alike) and ``barrier``
+    returns at once; each logs its all-reduce."""
+
+    def __init__(self, rank: int, world: int):
+        if not 0 <= rank < world:
+            raise ValueError(f"AbstractShard: rank {rank} of world size {world}")
+        self.group = None
+        self.rank, self.world = rank, world
+        self.device = torch.device("cpu")
+        self.log: List[Collective] = []
+
+    def __repr__(self) -> str:
+        return f"AbstractShard(rank={self.rank}, world={self.world})"
+
+    def _record(self, kind: str, x: torch.Tensor) -> None:
+        if not isinstance(x, FakeTensor):
+            raise TypeError(f"AbstractShard takes FakeTensors only (a shape-only stand-in "
+                            f"for a process group), got a real {x.device} tensor of shape "
+                            f"{tuple(x.shape)}")
+        self.log.append(Collective(kind, tuple(x.shape), x.numel() * x.element_size()))
+
+    def _all_gather_into(self, out: torch.Tensor, x: torch.Tensor) -> None:
+        self._record("all-gather", x)
+
+    def _all_reduce(self, y: torch.Tensor, op) -> None:
+        self._record("all-reduce", y)
+
+    def barrier(self) -> None:
+        self._record("all-reduce", torch.zeros((1,), device=self.device))
+
+    def sum_ints(self, values: Sequence[int]) -> Tuple[int, ...]:
+        self._record("all-reduce", torch.zeros((len(values),), dtype=torch.int64,
+                                               device=self.device))
+        return tuple(int(v) * self.world for v in values)
 
 
 def decode_partition(shard: Shard, max_len: int, block_size: int) -> Tuple[int, int]:

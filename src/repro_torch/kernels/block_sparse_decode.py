@@ -64,7 +64,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, fake
 from repro_torch.models.common import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -402,6 +402,27 @@ def sparse_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 sparse_decode_cuda.launches = 0
+
+
+def sparse_decode_fake(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       block_indices: torch.Tensor, kv_len: torch.Tensor, *,
+                       block_size: int) -> torch.Tensor:
+    """The dry-run's stand-in for ``sparse_decode_cuda`` on fake tensors: an
+    unwritten output like q, and one call (none for an empty list, as the
+    wrapper counts) charged to the open ``fake.KernelLedger`` with the
+    bound's work, every selected block full of valid tokens (a full
+    context; an upper bound on a shorter one): the K and V rows of the
+    selected tokens, q, the output, the ids and kv_len; 4 x G x Dh
+    operations a selected token."""
+    b, hkv, g, dh = q.shape
+    nsel = block_indices.shape[-1]
+    out = torch.empty_like(q)
+    if nsel:
+        tokens = b * hkv * min(nsel * block_size, k_cache.shape[2])
+        fake.charge("block_sparse_decode", 4.0 * g * dh * tokens,
+                    2 * tokens * dh * k_cache.element_size() + 2 * q.nbytes
+                    + block_indices.nbytes + kv_len.nbytes)
+    return out
 
 
 def sparse_decode_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,

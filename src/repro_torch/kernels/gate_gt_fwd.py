@@ -37,7 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, fake
 from repro_torch.models.common import chunked_attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -131,3 +131,32 @@ def gate_gt_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 gate_gt_attention_cuda.launches = 0
+
+
+def gate_gt_attention_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                           block_size: int, segment_ids: Optional[torch.Tensor] = None,
+                           logit_softcap: float = 0.0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dry-run's stand-in for ``gate_gt_attention_cuda`` on fake
+    tensors: unwritten (o, blockmax) of the kernel's shapes and dtypes,
+    the head dims and softcap it refuses refused alike, and one call
+    charged to the open ``fake.KernelLedger`` with the bound's work:
+    q, k, v, o, the segment ids read or written once and blockmax written
+    once; 4 x Dh x H operations a causal (query, key) pair, every pair of
+    a row counted (one document a row; an upper bound on packed ones)."""
+    if logit_softcap:
+        raise NotImplementedError(f"gate_gt_attention_fake: logit_softcap {logit_softcap} "
+                                  "(no ported family has one)")
+    b, lq, h, dh = q.shape
+    lk = k.shape[1]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"gate_gt_attention_fake: head dim {dh} not in {HEAD_DIMS}")
+    nb = lk // block_size
+    o = torch.empty_like(q)
+    bm = torch.empty((b, h, lq, nb), dtype=torch.float32, device=q.device)
+    # query i sees keys 0 .. i + lk - lq (the query rows end the keys)
+    pairs = b * (lq * (lq + 1) // 2 + lq * (lk - lq))
+    seg = 0 if segment_ids is None else segment_ids.nbytes
+    fake.charge("gate_gt_attention", 4.0 * dh * h * pairs,
+                2 * q.nbytes + k.nbytes + v.nbytes + bm.nbytes + seg)
+    return o, bm

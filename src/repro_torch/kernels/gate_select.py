@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.config import GateConfig
 from repro_torch.core import sparsity as sp
-from repro_torch.kernels import build
+from repro_torch.kernels import build, fake
 from repro_torch.models.common import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -168,6 +168,25 @@ def gate_select_cuda(qg: torch.Tensor, kg: torch.Tensor, n_valid: torch.Tensor,
 
 
 gate_select_cuda.launches = 0
+
+
+def gate_select_fake(qg: torch.Tensor, kg: torch.Tensor, n_valid: torch.Tensor,
+                     cfg: GateConfig, max_selected: Optional[int] = None
+                     ) -> torch.Tensor:
+    """The dry-run's stand-in for ``gate_select_cuda`` on fake tensors: an
+    unwritten id tensor of the kernel's shape and dtype, and one call
+    charged to the open ``fake.KernelLedger`` with the bound's work,
+    every Kg row visible (a full context; an upper bound on a shorter
+    one): q, the Kg rows x Dg, n_valid and the ids; 2 x Dg operations a
+    row."""
+    b, hkv, dg = qg.shape
+    nb = kg.shape[2]
+    out = torch.empty((b, hkv, n_selected(cfg, nb, max_selected)), dtype=torch.int32,
+                      device=qg.device)
+    rows = b * hkv * nb
+    fake.charge("gate_select", 2.0 * rows * dg,
+                qg.nbytes + rows * dg * kg.element_size() + n_valid.nbytes + out.nbytes)
+    return out
 
 
 def gate_select_paged_cuda(qg: torch.Tensor, kg_pages: torch.Tensor,

@@ -102,6 +102,15 @@ class ServeResult(Dict):
     pass
 
 
+def seq_sharded(cfg: ModelConfig, options: DecodeOptions, shard) -> bool:
+    """Whether ``generate`` splits its attention caches along the sequence:
+    a shard, a selecting policy (a dense policy reads every cache row on
+    every rank, as the reference's unsharded branch does) and a model with
+    attention caches (the Mamba1 LM has none)."""
+    return (shard is not None and not options.policy.dense
+            and get_api(cfg).paged_attn_layers(cfg) > 0)
+
+
 class DecodeEngine:
     def __init__(self, cfg: ModelConfig, params: Any, *, max_len: int,
                  options: Optional[DecodeOptions] = None, device=None,
@@ -186,7 +195,8 @@ class DecodeEngine:
         sequence; that step takes the trivial schedule only, and any other
         raises ValueError before the prefill. A recurrent family's state
         comes out of the prefill at the rank's size."""
-        if self._seq_sharded() and not self.options.schedule.is_trivial:
+        sharded = seq_sharded(self.cfg, self.options, self.shard)
+        if sharded and not self.options.schedule.is_trivial:
             raise ValueError(
                 "sharded generate needs the trivial schedule (its selection is "
                 "fused into the collectives and carries no plan); serve() takes "
@@ -195,7 +205,7 @@ class DecodeEngine:
         generator = self._generator(generator)
         t0 = time.perf_counter()
         token, state = self.prefill(batch, generator)
-        if self._seq_sharded():
+        if sharded:
             state = seq_shard_state(state, self.shard, self.cfg.gate.block_size)
         self._sync()
         prefill_s = time.perf_counter() - t0
@@ -212,14 +222,6 @@ class DecodeEngine:
             tokens=out, prefill_s=prefill_s, decode_s=decode_s,
             tok_per_s=(n_tokens - 1) * out.shape[0] / max(decode_s, 1e-9),
             final_len=state.cur_len)
-
-    def _seq_sharded(self) -> bool:
-        """generate() splits its attention caches along the sequence: a
-        shard, a selecting policy (a dense policy reads every cache row on
-        every rank, as the reference's unsharded branch does) and a model
-        with attention caches (the Mamba1 LM has none)."""
-        return (self.shard is not None and not self.options.policy.dense
-                and self.api.paged_attn_layers(self.cfg) > 0)
 
     # -- continuous batching over paged KV ---------------------------------
 
