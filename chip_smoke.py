@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # from the repository root, one card
 
-Five main paths, gated block-sparse decoding of qwen3_0_6b at full width:
+Five main paths, gated block-sparse decoding of qwen3_0_6b at full width
+and 16 of its 28 layers (``DECODE_LAYERS``; its training runs all 28):
 the contiguous path through ``DecodeEngine.generate`` (kernels
 ``gate_select`` and ``block_sparse_decode``), the paged continuous-
 batching path through ``DecodeEngine.serve`` (kernels
@@ -72,7 +73,9 @@ non-zero):
      fp and int8 pools, tokens equal and logits close; then the sharded
      paths through the one-rank NCCL group against the same unsharded CPU
      runs: head-sharded ``serve`` (fp at split_k 1 and 2, int8 at split_k
-     2, and a preempting pool) and sequence-sharded ``generate``; and the
+     2, and a preempting pool; the rank's parameter bytes against the sum
+     of ``local_shape`` over the layout, and the collectives a decode
+     step, printed) and sequence-sharded ``generate``; and the
      tiny config's 3 distill train steps on the card against the CPU's
      from the same state (KL and gate parameters within 1e-4); then each
      other config's ``reduced()`` geometry and a one-layer model at its
@@ -164,7 +167,9 @@ non-zero):
      sparsity by request as phase 6; its first decode step's logits must
      lie within 8 bf16 ulps of max|logit| of phase 6's (split-K only
      reorders fp32 sums); the share of equal tokens is printed; then phase
-     8's profile of the same engine, to set beside phase 8's;
+     8's profile of the same engine, to set beside phase 8's; the rank's
+     parameter bytes (equal to the layout's sum) and the collectives a
+     decode step printed;
  12. the same over int8 pools, ample pool only;
  13. kernels 5 and 5q (the paged fp and int8 instances of #4's body at
      the caller's num_splits) against their plain versions on the tensors
@@ -364,7 +369,9 @@ kernels line and their kernel errors its max_abs_err:
      bf16 ulps; #3, #4 and 5 on the first selecting layer's call (the plan
      the later layers carry, under the budget caps) against their plain
      versions; then phase 29's trace through ``ServingFrontend`` on the
-     sharded engine, streaming phase 29's tokens at its steps;
+     sharded engine, streaming phase 29's tokens at its steps; the rank's
+     parameter bytes and each sharded serve's collectives a decode step
+     printed;
  41. training under a ``Shard``, tensor-parallel over the one-rank NCCL
      group (every collective runs; every block is the whole leaf), each
      case SHARD_TRAIN_STEPS steps sharded and unsharded from the same seed
@@ -400,8 +407,8 @@ kernels line and their kernel errors its max_abs_err:
      sharded serves against their plain versions (phase 40's checks).
      Printed beside the card: ms a decode step, collectives a decode step
      and their host time, device busy over three profiled steps of each
-     model's first serve, the rank's slot-state bytes and its
-     routed-expert bytes.
+     model's first serve, the rank's slot-state bytes, its routed-expert
+     bytes and its parameter bytes (equal to the layout's sum).
  43. the dry-run (``repro_torch.launch.dryrun``), grounded on the card at
      full width of qwen3_0_6b on the local mesh (one card, no shard): its
      predictions over fake tensors on the CPU (traced in worker processes
@@ -472,6 +479,7 @@ no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -506,7 +514,8 @@ from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,  
                                      DensePolicy, OraclePolicy, QuestPolicy,
                                      QuestRecomputePolicy, SelectionInputs,
                                      SelectionSchedule, SlidingWindowPolicy)
-from repro_torch.distributed.sharding import Shard, local_shape, state_layouts  # noqa: E402
+from repro_torch.distributed.sharding import (Shard, decode_layout, local_shape,  # noqa: E402
+                                              state_layouts)
 from repro_torch.examples import (distill_and_eval, quickstart, serve_sparse,  # noqa: E402
                                   serve_stream)
 from repro_torch.launch import dryrun  # noqa: E402
@@ -550,6 +559,13 @@ BATCH, PROMPT_LEN, NEW_TOKENS, SEED = 4, 16384, 32, 0
 # preemption (and resume) of the 16384-token request in the tight run
 SERVE_SLOTS, SERVE_SEED, TIGHT_PAGES = 4, 1, 644
 SERVE_SPECS = ((16384, 32), (12345, 24), (8191, 40), (4097, 16), (1500, 48), (63, 8))
+# qwen3_0_6b's decode phases (3-17 and 23-29, and phase 40, which holds
+# its frontend to phase 29's stream) run 16 of its 28 layers: the host's
+# per-layer glue sets their time, and the script must stay inside its
+# limit (full depth until the sharded engine's per-layer collectives
+# joined the script). Phase 40's schedule corrects at layer 14, so 15 at
+# the least. Training and the launcher keep all 28.
+DECODE_LAYERS = 16
 # the sharded serve phase: split-K over 4 segments (4 x 8 KV heads x 4
 # slots = 128 CTAs on the 132 SMs); kernels 5/5q checked at these splits
 SPLIT_K = 4
@@ -1168,10 +1184,16 @@ def phase_small_sharded(cfg, params, toks, reqs, cpu_runs, shard):
                                       (None, 2, 8, 1e-4), ("int8", 2, None, 1e-3)):
         eng = DecodeEngine(cfg, gpu_params, max_len=64, shard=shard,
                            options=DecodeOptions(quantize=quant, split_k=split_k))
+        label = (f"small sharded serve ({quant or 'fp'} pools, split_k {split_k}, pool "
+                 f"{pool or 'default'})")
+        if split_k == 1:
+            rank_params(label, cfg, gpu_params, eng, shard)
         want = cpu_runs[quant, pool]
         ops.reset_launch_counts()
-        got = eng.serve(reqs, n_slots=3, num_pages=pool, collect_logits=True)
+        with collectives_counted(eng, shard) as (coll, pre):
+            got = eng.serve(reqs, n_slots=3, num_pages=pool, collect_logits=True)
         counts = ops.launch_counts()
+        print_step_collectives(label, coll, pre, got["stats"])
         n = cfg.num_layers * got["stats"]["decode_steps"]
         expect = {**dict.fromkeys(ops.KERNELS, 0), "gate_select_paged": n,
                   decode_kernel(eng.options): n}
@@ -1193,12 +1215,17 @@ def phase_small_sharded(cfg, params, toks, reqs, cpu_runs, shard):
             cfg.gate, method=method, threshold=2e-2,
             token_budget=32 if method == "budget" else 64))
         want = DecodeEngine(c, params, max_len=64, device="cpu").generate({"tokens": toks}, 13)
-        got = DecodeEngine(c, gpu_params, max_len=64,
-                           shard=shard).generate({"tokens": toks}, 13)
+        coll, uncount = counting_collectives(shard)
+        try:
+            got = DecodeEngine(c, gpu_params, max_len=64,
+                               shard=shard).generate({"tokens": toks}, 13)
+        finally:
+            uncount()
         if not torch.equal(got["tokens"].cpu(), want["tokens"]):
             fail(f"small sequence-sharded generate ({method}): tokens differ from the CPU's")
         print(f"small sequence-sharded generate (one NCCL rank, {method}, 2x41 prompt, 12 "
-              f"steps): tokens equal to the unsharded CPU run")
+              f"steps): tokens equal to the unsharded CPU run; {coll['n']} collectives over "
+              f"the prefill, the cut to the sequence and 12 steps")
 
 
 def capture_layer0(eng, batch):
@@ -1533,11 +1560,17 @@ def phase_serve(cfg, params, options=DecodeOptions(), shard=None, tight_pool=Tru
     seen, restore = capture_first(PAGED_CALLS)
     coupled = cfg.family == "moe"
     traces = ({}, {})
+    if shard is not None:
+        rank_params("sharded serve", cfg, params, eng, shard)
     try:
-        ample, counts, _ = run_serve(eng, reqs, None, n_layers,
-                                     **slot_trace(traces[0]) if coupled else {})
+        with (collectives_counted(eng, shard) if shard is not None
+              else contextlib.nullcontext((None, None))) as (coll, pre):
+            ample, counts, _ = run_serve(eng, reqs, None, n_layers,
+                                         **slot_trace(traces[0]) if coupled else {})
     finally:
         restore()
+    if shard is not None:
+        print_step_collectives("sharded serve (ample pool)", coll, pre, ample["stats"])
     if ample["stats"]["preemptions"]:
         fail("the ample pool preempted")
     if not tight_pool:
@@ -3477,6 +3510,48 @@ def counted_prefills(eng, coll):
     return inside
 
 
+@contextlib.contextmanager
+def collectives_counted(eng, shard):
+    """The shard's collectives counted while the block runs (a ``serve``
+    of ``eng``), those of the engine's paged prefills apart: yields
+    (``counting_collectives``' counts, ``counted_prefills``')."""
+    coll, uncount = counting_collectives(shard)
+    pre = counted_prefills(eng, coll)
+    try:
+        yield coll, pre
+    finally:
+        uncount()
+        del eng._paged_prefill
+
+
+def print_step_collectives(label, coll, pre, st):
+    """A counted serve's collectives a decode step (its stats ``st``)."""
+    steps = st["decode_steps"] + st["replay_steps"]
+    print(f"{label}: {(coll['n'] - pre['n'] - 1) / steps:.1f} collectives a decode step "
+          f"({pre['n']} in the {st['admitted']} prefills, 1 for the stats), "
+          f"{1e3 * coll['host_s'] / steps:.3f} ms of host time a step in all of them")
+
+
+def rank_params(label, cfg, params, eng, shard):
+    """A sharded engine's parameter bytes on this rank beside the sum, over
+    the full tree ``params``, of each leaf's ``local_shape`` under its
+    ``decode_layout`` (the phase fails unless they are equal), and a
+    two-rank engine's by the same layout (computed, not measured)."""
+    full = list(tl._walk(params))
+
+    def laid(world):
+        return sum(math.prod(local_shape(t.shape, decode_layout(path, tuple(t.shape), cfg,
+                                                                world), world))
+                   * t.element_size() for path, t in full)
+    held = sum(t.numel() * t.element_size() for _, t in tl._walk(eng.params))
+    want = laid(shard.world)
+    if held != want:
+        fail(f"{label}: this rank holds {held} B of parameters, the layout {want} B")
+    print(f"{label}: this rank's parameters {held} B = the sum of local_shape over the "
+          f"layout at world size {shard.world}; at two ranks {laid(2)} B a rank of the "
+          f"unsharded {laid(1)} B (computed)")
+
+
 def sharded_serve(label, eng, reqs, num_pages, n_layers, shard, profiled=False):
     """One ``run_serve`` of the sharded engine (launch counters checked
     there), with the first call of each paged kernel captured and the
@@ -3685,6 +3760,7 @@ def phase_sharded_families(shard):
             eng = DecodeEngine(cfg, params, max_len=max_len, options=opts, shard=shard)
             if i == 0:
                 rank_bytes(cfg, eng, shard)
+                rank_params(f"phase 42 {arch}", cfg, params, eng, shard)
             run, counts, seen = sharded_serve(label, eng, reqs, pages, n_attn, shard,
                                               profiled=i == 0)
             for k, n in counts.items():
@@ -4551,7 +4627,7 @@ def phase_sharded_options(shard, frontend_stream):
     its stream equals phase 29's unsharded ``frontend_stream``. Returns (launch counts,
     {kernel: [max_abs_err]})."""
     t_all = time.perf_counter()
-    cfg = configs.get("qwen3_0_6b")
+    cfg = configs.get("qwen3_0_6b").replace(num_layers=DECODE_LAYERS)
     params = init_lm(torch.Generator(device="cuda").manual_seed(SEED), cfg)
     reqs = sharded_option_requests(cfg.vocab_size)
     max_len = max(r["tokens"].size + r["max_new_tokens"] for r in reqs)
@@ -4560,10 +4636,17 @@ def phase_sharded_options(shard, frontend_stream):
     for label, o, sh in (("unsharded", opts, None), ("sharded", opts, shard),
                          (f"sharded, split_k {SPLIT_K}", opts.replace(split_k=SPLIT_K), shard)):
         eng = DecodeEngine(cfg, params, max_len=max_len, options=o, shard=sh)
-        out, counts, seen = run_counted(eng.serve, [dict(r) for r in reqs],
-                                        names=EXAMPLE_CALLS + ("paged_sparse_decode_splitk",),
-                                        n_slots=SERVE_SLOTS, collect_logits=True)
+        if sh is not None and o.split_k == 1:
+            rank_params(f"phase 40 {label}", cfg, params, eng, sh)
+        with (collectives_counted(eng, sh) if sh is not None
+              else contextlib.nullcontext((None, None))) as (coll, pre):
+            out, counts, seen = run_counted(
+                eng.serve, [dict(r) for r in reqs],
+                names=EXAMPLE_CALLS + ("paged_sparse_decode_splitk",), n_slots=SERVE_SLOTS,
+                collect_logits=True)
         st = out["stats"]
+        if sh is not None:
+            print_step_collectives(f"phase 40 {label}", coll, pre, st)
         want = stage_counts(o, cfg.num_layers, st["decode_steps"])
         if counts != want:
             fail(f"phase 40 {label}: launch counts {counts}, expected {want}")
@@ -4821,10 +4904,12 @@ def run_phases(shard, dryrun_preds) -> int:
     phase_small_pretrain()
     mark("2 small agreement")
 
-    cfg = configs.get("qwen3_0_6b")
+    full = configs.get("qwen3_0_6b")
+    cfg = full.replace(num_layers=DECODE_LAYERS)
     bs = cfg.gate.block_size
     max_len = -(-(PROMPT_LEN + NEW_TOKENS) // bs) * bs
-    print(f"qwen3_0_6b: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+    print(f"qwen3_0_6b: {cfg.num_layers} of {full.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/"
           f"{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}; gate block {bs}, d_gate {cfg.gate.d_gate}, "
           f"budget {cfg.gate.token_budget}; batch {BATCH}, prompt {PROMPT_LEN}, "
@@ -4927,7 +5012,7 @@ def run_phases(shard, dryrun_preds) -> int:
     torch.cuda.empty_cache()
     mark("14-17 decode API")
 
-    counts["gate_gt_attention"], captured = phase_train(cfg)
+    counts["gate_gt_attention"], captured = phase_train(full)
     numbers.update(phase_gt_kernel(*captured))
     print(f"kernel 6 at {GT_BLOCK_BIG}-key blocks on the same tensors:")
     more = {"gate_gt_attention": [

@@ -29,12 +29,25 @@ Serving. What is sliced, and where (each rank keeps block ``rank`` of
     rank r holds tokens ``[r*S/w, (r+1)*S/w)`` of ``[L, B, Hkv, S, Dh]``
     and the matching Kg blocks of ``[L, B, Hkv, nb, Dg]``;
   * the parameters (``decode_params``, ``decode_layout``): the engine
-    takes the full tree and keeps the rank's block of every Mamba mixer
-    leaf and of the routed experts ``moe/{wi_gate,wi_up,wo}``, cut as in
-    training (below). Every other leaf stays whole: the attention
-    projections (the head-sharded attention gathers its outputs and
-    applies the full ``wo``), the gate, the router, the dense MLPs, the
-    shared experts and the embeddings;
+    takes the full tree and keeps the rank's block of every leaf that
+    training splits (``param_layout``, below), but the gate's ``wq``/``wk``,
+    which stay whole, as the reference's ``param_pspecs`` has them, and
+    are head-sliced at each step. So attention runs on the rank's KV
+    heads (``wq``/``wk``/``wv`` columns, ``wo`` rows, one sum after
+    ``wo``), a dense MLP and a MoE block's shared experts on the rank's
+    hidden units (one sum), the embedding and the logits on the rank's
+    vocabulary (a sum after the lookup; the logits gathered exactly, so
+    that every rank samples from the same full row). A module whose split
+    size the world size does not divide stays whole, as in training
+    (MQA's attention, and with it its caches and pools: the paged pools
+    then raise, see ``local_heads``);
+  * the prefill's caches come out at the rank's KV heads; ``generate``'s
+    sequence-sharded step gathers them over the heads once, layer by
+    layer, and keeps the rank's part along the sequence
+    (``seq_shard_state(gather_heads=True)``); its step gathers the rank's
+    new q/k/v heads (one packed gather a layer), since the sequence split
+    needs every head on every rank, and applies the rank's ``wo`` rows to
+    the rank's heads of the combined output;
   * the recurrent state (``state_layouts``): the per-slot state and a
     prefill's recurrent rows split as their mixer's parameters, Mamba1
     conv windows ``[L, S, K-1, di]`` and hidden states ``[L, S, di, n]``
@@ -49,10 +62,18 @@ Serving. What is sliced, and where (each rank keeps block ``rank`` of
     router, the capacity and the drops replicated, each rank computes its
     ``E / w`` experts' rows and ``all_gather`` collects the
     ``[E, C, d]`` outputs exactly; the weighting and the sum over top-k
-    are then the unsharded call's, so the step stays bitwise the
-    unsharded one wherever the per-expert matmuls are.
-A module whose split size the world size does not divide (the mixer's
-channels or heads, the experts) stays whole and runs alone.
+    are then the unsharded call's.
+The collectives of a paged decode step: one sum for the embedding, a
+layer one sum after ``wo``, one gather of the selected ids where the
+telemetry or eviction's touched pages read them (a selecting or reusing
+layer; the dense fallback gathers nothing), the ``unify_heads`` max of a
+selecting layer, one sum for a dense MLP, and for a MoE block one expert
+gather and one sum for its shared experts; two sums a Mamba layer; one
+gather of the logits. A row-split ``wo`` or MLP sums its partials over
+the ranks in another order than the unsharded matmul, so a sharded run
+agrees with the unsharded one to fp32 rounding, as the reference's own
+sharded reduce does; at world size 1 every sum is an identity and the
+run is bitwise the unsharded one.
 
 Training (``lm_forward(..., shard=)``, ``train.loop``): tensor parallelism,
 Megatron-style. The batch is replicated: every rank reads the same batch,
@@ -109,8 +130,9 @@ leaf's is the gradient of its block.
 Deviations from the reference's per-leaf layout (``param_pspecs``), each
 a split that computes the same function; the checkpoint layout is the
 reference's, always full:
-  * the gate's ``wq``/``wk`` split on their KV-head axis where the
-    reference replicates them (the gate runs on the rank's heads);
+  * the gate's ``wq``/``wk`` split on their KV-head axis in training,
+    where the reference replicates them (the gate runs on the rank's
+    heads); serving keeps them whole, as the reference does;
   * Mamba1 ``in_proj`` split per half (the reference cuts the
     concatenated ``[x | z]`` columns in one block), Mamba2 ``in_proj``
     per part of ``[z | x | B | C | dt]`` with ``B``/``C`` replicated
@@ -124,10 +146,8 @@ reference's, always full:
     each state's widest trailing dim (Mamba2's conv windows whole on
     ``di + 2n``); the same function, each rank's state the rows its own
     channels and heads read and write;
-  * serving keeps the shared experts whole (training splits them like a
-    dense MLP), and combines the routed experts by an exact gather where
-    the reference's ``moe_mlp_sharded`` sums over its shards: the sharded
-    serve stays bitwise the unsharded one.
+  * serving combines the routed experts by an exact gather where the
+    reference's ``moe_mlp_sharded`` sums over its shards.
 """
 from __future__ import annotations
 
@@ -298,17 +318,41 @@ def decode_partition(shard: Shard, max_len: int, block_size: int) -> Tuple[int, 
     return shard.rank * s_loc, s_loc
 
 
-def seq_shard_state(state, shard: Shard, block_size: int):
-    """A prefilled ``DecodeState`` (replicated on every rank) -> this rank's
-    part along the sequence: tokens ``[tok0, tok0 + s_loc)`` of the K/V
-    caches and the matching Kg blocks, as copies; lengths stay replicated."""
+def seq_shard_state(state, shard: Shard, block_size: int, *, gather_heads: bool = False):
+    """A prefilled decode state -> this rank's part along the sequence:
+    tokens ``[tok0, tok0 + s_loc)`` of the K/V caches and the matching Kg
+    blocks, as copies; lengths and any other cache stay as they are. With
+    ``gather_heads`` the caches hold the rank's KV heads (a sharded
+    engine's prefill, whose attention splits): each layer's K, V and Kg
+    heads are first gathered over the ranks, in one collective a layer,
+    and the rank's part holds every head."""
     tok0, s_loc = decode_partition(shard, state.k_cache.shape[3], block_size)
     nb0, nb_loc = tok0 // block_size, s_loc // block_size
     kg = state.kg_cache
-    return state._replace(
-        k_cache=state.k_cache.narrow(3, tok0, s_loc).clone(),
-        v_cache=state.v_cache.narrow(3, tok0, s_loc).clone(),
-        kg_cache=None if kg is None else kg.narrow(3, nb0, nb_loc).clone())
+    if not gather_heads:
+        return state._replace(
+            k_cache=state.k_cache.narrow(3, tok0, s_loc).clone(),
+            v_cache=state.v_cache.narrow(3, tok0, s_loc).clone(),
+            kg_cache=None if kg is None else kg.narrow(3, nb0, nb_loc).clone())
+    caches = [state.k_cache, state.v_cache] + ([] if kg is None else [kg])
+    cuts = [(tok0, s_loc), (tok0, s_loc), (nb0, nb_loc)]
+    out = [c.new_empty(c.shape[:2] + (c.shape[2] * shard.world, n) + c.shape[4:])
+           for c, (_, n) in zip(caches, cuts)]
+    for i in range(state.k_cache.shape[0]):
+        full = shard.all_gather_packed([c[i] for c in caches], 1)
+        for o, f, (at, n) in zip(out, full, cuts):
+            o[i] = f.narrow(2, at, n)
+        del full
+    return state._replace(k_cache=out[0], v_cache=out[1],
+                          kg_cache=None if kg is None else out[2])
+
+
+def attn_kv_heads(cfg, shard: Optional[Shard]) -> int:
+    """The KV heads a sharded engine's attention holds on a rank: its block
+    where the world size divides them, all of them otherwise (the block
+    stays whole) or without a shard."""
+    n = cfg.n_kv_heads
+    return n // shard.world if part(shard, n) is not None else n
 
 
 # ---------------------------------------------------------------------------
@@ -467,26 +511,29 @@ def shard_params(tree: Any, cfg, shard: Shard) -> Any:
 # serving: the decode-side cut of the parameters and the recurrent state
 # ---------------------------------------------------------------------------
 
-_EXPERT_LEAVES = ("wi_gate", "wi_up", "wo")
+_WHOLE_IN_SERVING = ("/gate/wq", "/gate/wk")
 
 
 def decode_layout(path: str, shape: Sequence[int], cfg, world: int) -> Optional[Layout]:
     """The ``Layout`` a sharded engine cuts the leaf at ``path`` (FULL
-    ``shape``) by: a mixer leaf or a routed-expert leaf as in training
-    (``param_layout``), None (replicated) for every other leaf."""
-    if "/mixer/" not in path and not (
-            "/moe/" in path and path.split("/moe/", 1)[1] in _EXPERT_LEAVES):
+    ``shape``) by: training's (``param_layout``), but None (whole) for the
+    gate's ``wq``/``wk``, as the reference's ``param_pspecs`` replicates
+    them."""
+    if path.endswith(_WHOLE_IN_SERVING):
         return None
     return param_layout(path, shape, cfg, world)
 
 
 def decode_params(tree: Any, cfg, shard: Shard) -> Any:
-    """A full parameter tree -> the tree a sharded engine decodes with:
-    the rank's block of every mixer leaf and of the routed experts (new
-    tensors), every other leaf the same tensor."""
+    """A full parameter tree -> the tree a sharded engine serves with: the
+    rank's block of every leaf ``decode_layout`` splits (new tensors),
+    every other leaf the same tensor. At world size 1 a block is the whole
+    leaf, and the same tensor is kept."""
     def one(path, t):
         lay = decode_layout(path, tuple(t.shape), cfg, shard.world)
-        return t if lay is None else local_block(t, lay, shard.rank, shard.world)
+        if lay is None or shard.world == 1:
+            return t
+        return local_block(t, lay, shard.rank, shard.world)
     return _map_paths(tree, one)
 
 

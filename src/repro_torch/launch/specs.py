@@ -12,15 +12,19 @@ port's own, which the caller runs once under that mode:
   * train: ``train.loop.make_train_step(cfg, tcfg, shard=)`` on the state
     of ``init_train_state`` at full size cut by ``shard_state``;
   * prefill: ``api.prefill(..., shard=)`` on the parameters cut by
-    ``sharding.decode_params``, as a sharded ``DecodeEngine`` holds them
-    (the audio encoder: ``forward(mode="pretrain")`` on the training
-    layout, ``shard_params``);
+    ``sharding.decode_params``, as a sharded ``DecodeEngine`` holds them:
+    every leaf at the rank's block of ``param_layout`` (attention by KV
+    heads, MLPs and shared experts by hidden units, routed experts,
+    mixers, vocabulary), the gate whole (the audio encoder:
+    ``forward(mode="pretrain")`` on the training layout,
+    ``shard_params``);
   * decode: ``api.decode_step(..., shard=)`` with telemetry off (the
-    reference's ``measure_sparsity=False``), on the decode state of
-    ``init_decode_state`` at full size, its attention caches cut along
-    the sequence by ``seq_shard_state`` (as ``DecodeEngine.generate``
-    cuts them) and a recurrent family's state at the rank's channels or
-    heads.
+    reference's ``measure_sparsity=False``) on the same parameters, on
+    the decode state of ``init_decode_state`` at full size, its attention
+    caches cut along the sequence by ``seq_shard_state`` (as
+    ``DecodeEngine.generate`` holds them after its prefill, every head)
+    or, for a dense policy, at the rank's KV heads, and a recurrent
+    family's state at the rank's channels or heads.
 
 The model axis is an ``AbstractShard(0, mesh.model)`` (``None`` on a
 model axis of 1: the local mesh runs the unsharded program, as
@@ -39,9 +43,8 @@ difference is also in every dry-run record's ``notes``):
     the reference), so a rank holds all of its moments;
   * the parameters follow the port's Megatron layout
     (``sharding.param_layout``, ROADMAP 10c) and not ``param_pspecs``;
-  * a sharded engine's prefill splits only the Mamba mixers and the
-    routed experts (``decode_params``): attention and dense MLPs run
-    whole on every rank;
+    an attention whose KV heads the model axis does not divide stays
+    whole on every rank (``cell_notes`` names each such cell);
   * at ``long_500k`` (batch 1) the sequence is split over the model axis
     only; the reference spreads it over data x model
     (``decode_state_pspecs``).
@@ -55,8 +58,8 @@ import torch
 
 from repro_torch.config import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.core.policy import DecodeOptions, default_options
-from repro_torch.distributed.sharding import (AbstractShard, decode_params,
-                                              seq_shard_state, shard_params)
+from repro_torch.distributed.sharding import (AbstractShard, attn_kv_heads, decode_params,
+                                              part, seq_shard_state, shard_params)
 from repro_torch.launch.mesh import MeshSpec, batch_per_rank
 from repro_torch.models.common import torch_dtype
 from repro_torch.models.registry import get_api
@@ -127,12 +130,16 @@ def abstract_decode_state(cfg: ModelConfig, bsz: int, max_len: int, options: Dec
                           shard: Optional[AbstractShard] = None):
     """``init_decode_state`` at full size (a recurrent family's state at the
     rank's channels or heads), its attention caches then cut along the
-    sequence where the engine's ``generate`` cuts them."""
+    sequence where the engine's ``generate`` cuts them (every head), or
+    else at the rank's KV heads, as a sharded prefill leaves them."""
     _need_fake_mode()
+    seq = seq_sharded(cfg, options, shard)
     kw = {"shard": shard} if cfg.family in ("ssm", "hybrid") else {}
+    if cfg.family != "ssm" and not seq:
+        kw["kv_heads"] = attn_kv_heads(cfg, shard)
     state = get_api(cfg).init_decode_state(cfg, bsz, max_len, None, options, device=DEVICE,
                                            **kw)
-    if seq_sharded(cfg, options, shard):
+    if seq:
         state = seq_shard_state(state, shard, cfg.gate.block_size)
     return state
 
@@ -151,10 +158,11 @@ def cell_notes(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec) -> List[str
     if mesh.model > 1:
         notes.append("collective term at NVLink's rate for every rank: a model axis past 8 "
                      "cards spans two NVLink domains, so it is a lower bound there")
-    if shape.kind == "prefill" and cfg.is_decoder and mesh.model > 1:
-        notes.append("a sharded engine's prefill: only the Mamba mixers and the routed "
-                     "experts split (sharding.decode_params); attention and dense MLPs run "
-                     "whole on every rank, where the reference splits them over the model axis")
+    if (shape.kind in ("prefill", "decode") and cfg.is_decoder and cfg.has_attention
+            and part(cell_shard(mesh), cfg.n_kv_heads) is None and mesh.model > 1):
+        notes.append(f"attention whole on every rank: the model axis ({mesh.model}) does not "
+                     f"divide the {cfg.n_kv_heads} KV heads (sharding.decode_params keeps the "
+                     "block whole, as training does; the reference splits its heads' columns)")
     if shape.kind == "decode":
         if seq_sharded(cfg, decode_options(cfg), cell_shard(mesh)):
             notes.append("sequence-sharded decode (serve/sharded.py): plain PyTorch, no kernel")

@@ -19,7 +19,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core import kcache as kc
 from repro_torch.core import sparsity as sp
-from repro_torch.distributed.sharding import copy_to_model, part
+from repro_torch.distributed.sharding import copy_to_model, part, reduce_from_model
 from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,
                                      SelectionInputs)
 from repro_torch.kernels import ops
@@ -34,9 +34,9 @@ LayerAux = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, shard=None):
     """q [B, L, H, Dh], k, v [B, L, Hkv, Dh] of the heads whose columns
-    ``p`` holds (all of them, or a rank's under a training ``shard``,
-    which also sums the replicated ``q_norm``/``k_norm`` gradients over
-    the ranks)."""
+    ``p`` holds (all of them, or a rank's: a sharded engine's block, or
+    training's, whose ``shard`` also sums the replicated
+    ``q_norm``/``k_norm`` gradients over the ranks)."""
     b, l, _ = x.shape
     dh = cfg.resolved_head_dim
     q = linear(p["wq"], x).reshape(b, l, -1, dh)
@@ -53,17 +53,26 @@ def ffn(p: Params, h2: torch.Tensor, cfg: ModelConfig, shard=None, *,
     """A block's feed-forward over h2 [..., d]: (y, the MoE router loss or
     None). A ``"moe"`` block routes all of h2's rows in one call, so at
     decode every row of the step (each slot, active or not) competes for
-    the experts' capacity, as in the reference. Under a training
-    ``shard`` the experts are expert-parallel and a dense MLP splits its
-    hidden units (``distributed.sharding``); under a sharded engine's
-    (``decode``: its prefill and decode bodies) the routed experts are
-    expert-parallel with an exact gather (``moe.moe_mlp(gather=True)``)
-    and a dense MLP runs whole."""
+    the experts' capacity, as in the reference. Under a ``shard``
+    (training's, or a sharded engine's at ``decode``: its prefill and
+    decode bodies) a dense MLP and a MoE block's shared experts split
+    their hidden units with one sum (``distributed.sharding``), and the
+    routed experts are expert-parallel: summed in training, gathered
+    exactly at ``decode`` (``moe.moe_mlp(gather=True)``)."""
     if "moe" in p:
         y, aux = moe_mod.moe_mlp(p["moe"], h2.reshape(-1, h2.shape[-1]), cfg.moe,
                                  cfg.activation, shard=shard, gather=decode)
         return y.reshape(h2.shape), aux
-    return mlp(p["mlp"], h2, cfg.activation, None if decode else part(shard, cfg.d_ff)), None
+    return mlp(p["mlp"], h2, cfg.activation, part(shard, cfg.d_ff)), None
+
+
+def rank_gate(gate, shard):
+    """The whole gate's ``wq``/``wk`` [Hkv, ., Dg] at a sharded engine's
+    rank's KV heads (the gate itself without a shard, None without a
+    gate)."""
+    if gate is None or shard is None:
+        return gate
+    return {name: shard.head_slice(w, 0) for name, w in gate.items()}
 
 
 def _policy_active(policy, p: Params) -> bool:
@@ -187,18 +196,25 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     Kg and metadata rows; a reusing layer attends the carried plan, a
     dense one the whole table.
 
-    With a ``shard`` (``distributed.sharding.Shard``) the pools and scale
-    rows hold this rank's KV heads only: the step runs the same math on
-    the rank's heads (its query heads, K/V and gate weights) with no
-    collective inside the layer, and o and the selected ids are
-    all-gathered to full heads, in one collective, before ``wo``. Attention is independent
-    per KV head, so at ``split_k=1`` the step is bitwise the unsharded
-    one. A carried ``plan`` is then this rank's KV heads' ids [S,
-    Hkv/world, k]: a reusing layer attends it with no collective, a dense
-    layer passes it through, and ``budget_blocks`` (replicated) caps the
-    local lists. ``unify_heads`` max-reduces the gate scores over the
-    rank's heads and then over ranks (one ``all_max`` a selecting layer),
-    so every rank ranks the unsharded run's scores.
+    With a ``shard`` (``distributed.sharding.Shard``) ``p`` holds the
+    rank's block of the projections (``sharding.decode_params``: the
+    ``wq``/``wk``/``wv`` columns and the ``wo`` rows of its KV heads; the
+    gate whole, head-sliced here) and the pools and scale rows hold this
+    rank's KV heads only: the step runs the same math on the rank's heads
+    with no collective inside the attention, the rank's ``wo`` rows give
+    its partial output, and one sum over the ranks the layer's. The
+    selected ids are gathered over the ranks (one collective) only where
+    the telemetry (``measure_sparsity``) or eviction's touched-pages mask
+    reads them; the dense fallback gathers nothing. Attention is
+    independent per KV head, so at world size 1 and ``split_k=1`` the
+    step is bitwise the unsharded one; at more ranks the sum after ``wo``
+    reorders the fp32 additions. A carried ``plan`` is then this rank's
+    KV heads' ids [S, Hkv/world, k]: a reusing layer attends it with no
+    collective, a dense layer passes it through, and ``budget_blocks``
+    (replicated) caps the local lists. ``unify_heads`` max-reduces the
+    gate scores over the rank's heads and then over ranks (one
+    ``all_max`` a selecting layer), so every rank ranks the scores of
+    the same max.
 
     ``options.track_evictions`` (RaaS page eviction): the page table may
     hold GHOST ids (>= the K/V pool size) for evicted blocks. They are
@@ -211,22 +227,18 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     append and the trailing-page reads use the raw table: the trailing
     block is never evicted."""
     b = x1.shape[0]
-    dh, hkv, g = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.gqa_group
+    dh, g = cfg.resolved_head_dim, cfg.gqa_group
     ps = cfg.gate.block_size
     policy = options.policy
     sparse_on = _policy_active(policy, p)
-    q, k, v = _qkv(p, x1, cfg)
+    q, k, v = _qkv(p, x1, cfg)                             # the heads p holds
     pos = cur_len[:, None]                                 # [S,1]
     qr = apply_rope(q, pos, cfg.rope_theta)
     kr = apply_rope(k, pos, cfg.rope_theta)
     npt = page_table.shape[1]
     pt_kv = (torch.clamp_max(page_table, k_pages.shape[0] - 1)
              if options.track_evictions else page_table)
-    gate = p.get("gate")
-    if shard is not None:                  # this rank's KV heads and their queries
-        kr, v, q, qr = (shard.head_slice(x, 2) for x in (kr, v, q, qr))
-        if gate is not None:
-            gate = {name: shard.head_slice(w, 0) for name, w in gate.items()}
+    gate = rank_gate(p.get("gate"), shard)
     hl = kr.shape[2]
     selecting = sparse_on and stage in (None, STAGE_SELECT)
 
@@ -265,8 +277,8 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
                                            num_splits=options.split_k,
                                            k_scales=k_scale, v_scales=v_scale)
         sel = idx
-        if shard is not None:
-            o, sel = shard.all_gather_packed([o, idx], 1)
+        if shard is not None and (options.measure_sparsity or options.track_evictions):
+            sel = shard.all_gather(idx, 1)
         aux = (_selection_aux(sel, kc.visible_blocks(
                    torch.clamp_min(new_len, 1), ps), npt)
                if options.measure_sparsity else _zero_layer_aux(b, x1.device))
@@ -277,13 +289,11 @@ def attention_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
         v_ct = pg.gather_kv(v_pages, pt_kv, v_scale)
         o = decode_attention(qr, k_ct, v_ct, new_len,
                              logit_softcap=cfg.attn_logit_softcap)
-        if shard is not None:
-            o = shard.all_gather(o, 2)
         aux = (_dense_aux(new_len, ps) if options.measure_sparsity
                else _zero_layer_aux(b, x1.device))
         if options.track_evictions:
             aux = aux + (_dense_touched(new_len, ps, npt),)
-    out = linear(p["wo"], o.reshape(b, 1, hkv * g * dh))
+    out = reduce_from_model(linear(p["wo"], o.reshape(b, 1, hl * g * dh)), shard)
     # a dense (or ungated) layer passes the plan through untouched
     return (out, aux, idx) if stage is not None else (out, aux)
 
@@ -295,9 +305,10 @@ def block_decode_paged(p: Params, x1: torch.Tensor, cfg: ModelConfig,
     """One transformer block over paged KV; ``layer_pages`` is the layer's
     (k_pages, v_pages, kg_pages, kmin_pages, kmax_pages, k_scale, v_scale)
     in ``PagedPages`` order, None where a pool is not allocated (this
-    rank's KV heads with a ``shard``, which also runs the routed experts
-    of a MoE block expert-parallel). Returns (x1, selection aux), plus
-    the plan when ``stage`` is given."""
+    rank's KV heads with a ``shard``, under which ``p`` is the rank's
+    block: the attention on its heads, the feed-forward on its hidden
+    units and experts, ``ffn(decode=True)``). Returns (x1, selection
+    aux), plus the plan when ``stage`` is given."""
     k_pages, v_pages, kg_pages, kmin_pages, kmax_pages, k_scale, v_scale = layer_pages
     h = rms_norm(p["ln1"], x1, cfg.norm_eps)
     ret = attention_decode_paged(

@@ -8,7 +8,9 @@ both modes (``lm_forward``: pretraining, and the distillation of the
 shared block's gate, whose target comes from kernel 6 on the card;
 tensor-parallel under a ``Shard``) and the serving half (under a sharded
 engine's ``Shard`` the Mamba2 layers over the rank's heads, the shared
-block over its KV heads or its part of the sequence). Layer plan at
+block's weights at the rank's block, its attention over its KV heads or,
+in ``generate``'s step, its part of the sequence, and the embedding and
+logits over the rank's vocabulary). Layer plan at
 num_layers=38, period=6: 6 units of (6 Mamba2 layers + the shared
 block), then 2 trailing Mamba2 layers.
 
@@ -30,7 +32,8 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core.policy import default_options
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import check_shard, local_shape, state_layouts
+from repro_torch.distributed.sharding import (attn_kv_heads, check_shard, local_shape,
+                                              state_layouts)
 from repro_torch.models import mamba
 from repro_torch.models import transformer as tf
 from repro_torch.models.attn_core import aggregate_decode_aux, block_decode_paged
@@ -149,15 +152,18 @@ def _recurrent_zeros(cfg: ModelConfig, batch: int, dtype: torch.dtype, device,
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       dtype: Optional[torch.dtype] = None, options=None, *,
-                      device=None, shard=None) -> HybridDecodeState:
+                      device=None, shard=None,
+                      kv_heads: Optional[int] = None) -> HybridDecodeState:
     """Zeroed state on ``device`` (``None`` = CUDA, which raises without a
-    card), the recurrent part at a serving ``shard``'s heads. The hybrid
-    keeps no selection-metadata cache, so ``options`` allocates nothing (a
-    QuestPolicy step raises, as in the reference)."""
+    card), the recurrent part at a serving ``shard``'s heads, the shared
+    block's caches at ``kv_heads`` KV heads (all of them by default). The
+    hybrid keeps no selection-metadata cache, so ``options`` allocates
+    nothing (a QuestPolicy step raises, as in the reference)."""
     device = resolve_device(device)
     n_units = _plan(cfg)[0]
     dt = dtype or torch_dtype(cfg.dtype)
-    dh, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    dh = cfg.resolved_head_dim
+    hkv = cfg.n_kv_heads if kv_heads is None else kv_heads
     nb_max = max_len // cfg.gate.block_size
     kg = kg_n = None
     if cfg.gate.enabled:
@@ -192,8 +198,10 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     1``. ``options`` is taken for the ``ModelApi``'s uniformity: the
     hybrid builds no selection-metadata cache. Under a serving ``shard``
     (``params`` cut by ``sharding.decode_params``) each Mamba2 mixer runs
-    over the rank's heads and the state holds them; the shared block's
-    prefill is replicated (its caches whole)."""
+    over the rank's heads and the state holds them; the shared block runs
+    on its rank's block (``transformer.prefill_block``), its caches at the
+    rank's KV heads; the embedding and logits on the rank's vocabulary,
+    the last logits gathered whole."""
     tokens = batch["tokens"]
     b, l = tokens.shape
     if l > max_len:
@@ -202,9 +210,10 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     dev = params["embed"]["w"].device
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=dev)
-    state = init_decode_state(cfg, b, max_len, device=dev, shard=shard)
+    state = init_decode_state(cfg, b, max_len, device=dev, shard=shard,
+                              kv_heads=attn_kv_heads(cfg, shard))
     pos = torch.arange(l, device=dev)[None, :].expand(b, l)
-    x = params["embed"]["w"][tokens]
+    x = tf.embed(params, tokens, cfg, shard)
     convs, hs = [], []
     for u, unit in enumerate(params["units"]):
         x, c, h = mamba.stack_full(unit, x, cfg, mamba.mamba2_full, lengths, shard)
@@ -221,7 +230,7 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     del x
     state = state._replace(conv=torch.stack(convs).to(state.conv.dtype),
                            h=torch.stack(hs))
-    return tf._logits(params, last, cfg), state
+    return tf.serve_logits(params, last, cfg, shard), state
 
 
 def lm_decode_step(params: Params, state: HybridDecodeState, token: torch.Tensor,
@@ -234,9 +243,11 @@ def lm_decode_step(params: Params, state: HybridDecodeState, token: torch.Tensor
     here, as in the reference). Under a serving ``shard`` the Mamba2 steps
     run over the rank's heads and the shared block takes the
     sequence-sharded step (``transformer.attention_decode``) on the
-    rank's part of its caches (``sharding.seq_shard_state``)."""
+    rank's part of its caches (``sharding.seq_shard_state``), or with a
+    dense policy attends its KV heads; the embedding and logits run on
+    the rank's vocabulary."""
     options = options if options is not None else default_options(cfg)
-    x1 = params["embed"]["w"][token[:, None]]
+    x1 = tf.embed(params, token[:, None], cfg, shard)
     convs, hs, auxs = [], [], []
     li = 0
     for u, unit in enumerate(params["units"]):
@@ -260,7 +271,7 @@ def lm_decode_step(params: Params, state: HybridDecodeState, token: torch.Tensor
     hs += h
     new = state._replace(conv=torch.stack(convs).to(state.conv.dtype), h=torch.stack(hs),
                          cur_len=state.cur_len + 1)
-    return tf._logits(params, x1, cfg)[:, 0], new, aggregate_decode_aux(auxs)
+    return tf.serve_logits(params, x1, cfg, shard)[:, 0], new, aggregate_decode_aux(auxs)
 
 
 def init_slot_state(cfg: ModelConfig, n_slots: int, *, device=None,
@@ -284,14 +295,15 @@ def lm_decode_step_paged(params: Params, pages, slot_state: SlotState,
     Returns (logits [S, V], pages, SlotState, aux). A plan-carrying
     schedule raises, as in the reference: the one shared block re-selects
     in every unit. Under a ``shard`` the Mamba2 steps and the slot state
-    hold the rank's heads, the shared block's pools its KV heads."""
+    hold the rank's heads, the shared block's weights its block and its
+    pools its KV heads, and the embedding and logits its vocabulary."""
     options = options if options is not None else default_options(cfg)
     if options.schedule.needs_plan:
         raise NotImplementedError(
             "step-level selection plans assume a uniform self-attn stack; "
             "the hybrid family's single shared attention block re-selects "
             "every unit (schedule=SelectionSchedule())")
-    x1 = params["embed"]["w"][token[:, None]]
+    x1 = tf.embed(params, token[:, None], cfg, shard)
     convs, hs, auxs = [], [], []
     li = 0
     for u, unit in enumerate(params["units"]):
@@ -311,4 +323,4 @@ def lm_decode_step_paged(params: Params, pages, slot_state: SlotState,
     convs += c
     hs += h
     new = SlotState(conv=torch.stack(convs).to(slot_state.conv.dtype), h=torch.stack(hs))
-    return tf._logits(params, x1, cfg)[:, 0], pages, new, aggregate_decode_aux(auxs)
+    return tf.serve_logits(params, x1, cfg, shard)[:, 0], pages, new, aggregate_decode_aux(auxs)

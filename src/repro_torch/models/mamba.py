@@ -231,8 +231,9 @@ def mamba1_step(p: Params, x1: torch.Tensor, cfg: ModelConfig,
                 conv_state: torch.Tensor, h: torch.Tensor, shard=None):
     """x1 [B, 1, d]; conv_state [B, K-1, di]; h [B, di, n]. Returns (y
     [B, 1, d], (new conv_state, new h)); the inputs are not written.
-    Under a serving ``shard`` (no autograd) ``p`` and the states hold the
-    rank's channels (``distributed.sharding.decode_params``): ``x_proj``'s
+    Under a serving ``shard`` (no autograd) ``p``, the mixer of the
+    engine's per-rank tree (``distributed.sharding.decode_params``), and
+    the states hold the rank's channels: ``x_proj``'s
     partial sums are summed over ranks before the [dt | B | C] split, y
     after ``out_proj``."""
     d = x1.shape[-1]

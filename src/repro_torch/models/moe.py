@@ -43,10 +43,12 @@ Decode under a sharded engine's ``Shard`` is expert-parallel too
 bodies pick): the rank holds and computes its ``E / world`` experts
 only, but the combine is an exact gather of every rank's expert outputs
 (``Shard.all_gather`` on the expert axis, ``[E, C, d]``) followed by the
-unsharded weighting and sum over top-k, and the shared experts stay whole on
-every rank. So a sharded serve is bitwise the unsharded one wherever the
-per-expert matmuls are. The gather carries ``E * C * d`` elements a
-call, about ``capacity_factor * T * top_k * d``.
+unsharded weighting and sum over top-k; the shared experts split their
+hidden units with one sum, as in training. The routed part is so bitwise
+the unsharded call's wherever the per-expert matmuls are, and the shared
+experts' sum reorders fp32 additions at more than one rank. The gather
+carries ``E * C * d`` elements a call, about ``capacity_factor * T *
+top_k * d``.
 """
 from __future__ import annotations
 
@@ -169,13 +171,14 @@ def moe_mlp(p: Params, x: torch.Tensor, mcfg: MoEConfig,
     size divides E) and the shared experts a block of their hidden units;
     y is the sum over ranks. With ``gather`` (decode, no autograd) the
     routed experts are the rank's block as well, gathered exactly into
-    the unsharded [E, cap, d] outputs, and the shared experts whole: every
-    other step is the unsharded call's."""
+    the unsharded [E, cap, d] outputs, whose weighting and sum over top-k
+    are the unsharded call's; the shared experts split as in training."""
     t, d = x.shape
     e, k = mcfg.n_experts, mcfg.top_k
     probs, top_i, top_w = route(x, p["router"]["w"], k)
     flat_e, slot, keep, cap = dispatch(top_i, mcfg)
     ep = part(shard, e)
+    sp = part(shard, mcfg.n_shared_experts * mcfg.expert_d_ff) if "shared" in p else None
     e_loc = p["wi_gate"].shape[0]
     if gather:
         if ep is None:
@@ -184,9 +187,8 @@ def moe_mlp(p: Params, x: torch.Tensor, mcfg: MoEConfig,
             local_e, mine = _local_experts(flat_e, ep, e_loc)
             yb = ep.all_gather(_expert_rows(p, x, local_e, torch.where(mine, slot, cap),
                                             cap, k, activation), 0)
-        local_e, ep, sp, xe = flat_e, None, None, x
+        local_e, ep, xe = flat_e, None, x
     else:
-        sp = part(shard, mcfg.n_shared_experts * mcfg.expert_d_ff) if "shared" in p else None
         xe = copy_to_model(x, shard) if (ep or sp) else x
         if ep is not None:
             # this rank's experts; another rank's assignment goes to the

@@ -3,8 +3,9 @@
 Port of the JAX package's ``models/ssm_lm.py``: the pretraining forward
 (``lm_forward``, autograd through the Mamba1 layers, a checkpoint a layer
 under the config's ``remat``; tensor-parallel under a ``Shard``) and the
-serving half (over the rank's channels under a sharded engine's
-``Shard``). SeerAttention-R does
+serving half (under a sharded engine's ``Shard`` over the rank's
+channels, the embedding and logits over its vocabulary). SeerAttention-R
+does
 not apply (no attention), so no kernel runs on this family's paths;
 decode carries an O(1) recurrent state per layer. A Python loop over the
 layers replaces ``lax.scan``; ``params["blocks"]`` is a list of per-layer
@@ -22,7 +23,7 @@ from repro_torch.distributed.sharding import check_shard, local_shape, state_lay
 from repro_torch.models import mamba
 from repro_torch.models.attn_core import zero_decode_aux
 from repro_torch.models.common import _randn, init_linear, init_rmsnorm, torch_dtype
-from repro_torch.models.transformer import _logits, embed, lm_loss
+from repro_torch.models.transformer import embed, lm_loss, serve_logits
 from repro_torch.serve.slotstate import SlotState
 
 Params = Dict[str, Any]
@@ -97,14 +98,16 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     the true length and the logits row is taken at ``lengths - 1``.
     ``options`` is taken for the ``ModelApi``'s uniformity. Under a
     serving ``shard`` (``params`` cut by ``sharding.decode_params``) each
-    mixer runs over the rank's channels and the state holds them."""
+    mixer runs over the rank's channels and the state holds them; the
+    embedding and logits run on the rank's vocabulary, the last logits
+    gathered whole."""
     tokens = batch["tokens"]
     b, l = tokens.shape
     lengths = batch.get("lengths")
     dev = params["embed"]["w"].device
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=dev)
-    x = params["embed"]["w"][tokens]
+    x = embed(params, tokens, cfg, shard)
     x, convs, hs = mamba.stack_full(params["blocks"], x, cfg, mamba.mamba1_full, lengths,
                                     shard)
     if lengths is None:
@@ -116,7 +119,7 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     del x
     state = SSMDecodeState(conv=torch.stack(convs).to(torch_dtype(cfg.dtype)),
                            h=torch.stack(hs), cur_len=cur_len)
-    return _logits(params, last, cfg), state
+    return serve_logits(params, last, cfg, shard), state
 
 
 def lm_decode_step(params: Params, state: SSMDecodeState, token: torch.Tensor,
@@ -125,13 +128,15 @@ def lm_decode_step(params: Params, state: SSMDecodeState, token: torch.Tensor,
     state is not written; ``options`` is taken for the ``ModelApi``'s
     uniformity (only its sampling matters, applied by the engine) and the
     aux reports that nothing was selected. Under a serving ``shard`` the
-    state and the mixers hold the rank's channels."""
-    x1 = params["embed"]["w"][token[:, None]]
+    state and the mixers hold the rank's channels, and the embedding and
+    logits run on the rank's vocabulary."""
+    x1 = embed(params, token[:, None], cfg, shard)
     x1, convs, hs = mamba.stack_step(params["blocks"], x1, cfg, mamba.mamba1_step,
                                      state.conv, state.h, shard)
     new = SSMDecodeState(torch.stack(convs).to(state.conv.dtype), torch.stack(hs),
                          state.cur_len + 1)
-    return _logits(params, x1, cfg)[:, 0], new, zero_decode_aux(token.shape[0], x1.device)
+    return (serve_logits(params, x1, cfg, shard)[:, 0], new,
+            zero_decode_aux(token.shape[0], x1.device))
 
 
 def init_slot_state(cfg: ModelConfig, n_slots: int, *, device=None,
@@ -154,11 +159,12 @@ def lm_decode_step_paged(params: Params, pages, slot_state: SlotState,
     this family too. Returns (logits [S, V], pages, a NEW SlotState, aux);
     inactive slots get garbage rows, rewritten by the engine at their
     next admission or restore. Under a ``shard`` the slot state and the
-    mixers hold the rank's channels."""
+    mixers hold the rank's channels, and the embedding and logits run on
+    the rank's vocabulary."""
     del page_table, cur_len, active, budget_blocks
-    x1 = params["embed"]["w"][token[:, None]]
+    x1 = embed(params, token[:, None], cfg, shard)
     x1, convs, hs = mamba.stack_step(params["blocks"], x1, cfg, mamba.mamba1_step,
                                      slot_state.conv, slot_state.h, shard)
     new = SlotState(conv=torch.stack(convs).to(slot_state.conv.dtype), h=torch.stack(hs))
-    return (_logits(params, x1, cfg)[:, 0], pages, new,
+    return (serve_logits(params, x1, cfg, shard)[:, 0], pages, new,
             zero_decode_aux(token.shape[0], x1.device))

@@ -16,10 +16,13 @@ decode). Ported: the full-sequence forward in both training modes
 paged one (``lm_decode_step_paged`` over ``attn_core.block_decode_paged``;
 not for cross-attention models, which the reference refuses too), each
 with the staged branch of a plan-carrying SelectionSchedule and Quest's
-metadata cache, unsharded, or sharded: the contiguous caches split
-along the sequence (``serve/sharded.py``; gate or dense, trivial
-schedule), the page pools over the KV heads (any schedule, budget caps);
-the experts replicated on every rank. Training takes a ``Shard`` too:
+metadata cache, unsharded, or sharded (a sharded engine's parameters
+at the rank's block: attention by KV heads, the MLPs by hidden units,
+the routed experts by expert, the embedding and logits by vocabulary;
+``distributed/sharding.py``): the contiguous caches split along the
+sequence (``serve/sharded.py``; gate or dense, trivial schedule), the
+page pools over the KV heads (any schedule, budget caps). Training
+takes a ``Shard`` too:
 ``lm_forward(..., shard=)`` is tensor-parallel over its group (whole KV
 head groups, the MLP's hidden units, the vocabulary, expert parallelism;
 ``distributed/sharding.py``), kernel 6 running on the rank's heads.
@@ -62,14 +65,14 @@ from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,
                                      SelectionInputs, default_options,
                                      selection_width)
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (check_shard, copy_to_model, part,
-                                              reduce_from_model, vocab_parallel_embed)
+from repro_torch.distributed.sharding import (attn_kv_heads, check_shard, copy_to_model,
+                                              part, reduce_from_model, vocab_parallel_embed)
 from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attn_core import (_dense_aux, _policy_active, _qkv,
                                           _selection_aux, _zero_layer_aux,
                                           aggregate_decode_aux,
-                                          block_decode_paged, ffn)
+                                          block_decode_paged, ffn, rank_gate)
 from repro_torch.models.common import (NEG_INF, _randn, apply_rope, chunked_attention,
                                        cross_entropy_loss, decode_attention,
                                        init_linear, init_mlp, init_rmsnorm, linear,
@@ -176,13 +179,24 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig, shard=None) -> torch.Tensor:
-    """The final norm and the tied or untied logits; under a training
-    ``shard`` (one that splits the vocabulary) the rank's vocabulary
-    block [..., V / world]."""
+    """The final norm and the tied or untied logits; under a ``shard``
+    that splits the vocabulary the rank's vocabulary block [..., V /
+    world]."""
     x = copy_to_model(rms_norm(params["final_norm"], x, cfg.norm_eps), shard)
     if cfg.tie_embeddings:
         return x @ params["embed"]["w"].T
     return linear(params["lm_head"], x)
+
+
+def serve_logits(params: Params, x: torch.Tensor, cfg: ModelConfig, shard=None
+                 ) -> torch.Tensor:
+    """The serving paths' logits [..., V], whole on every rank: under a
+    sharded engine's ``shard`` that splits the vocabulary, the rank's
+    block gathered exactly over the ranks (the replicated samplers and
+    schedulers read the full row, the same on every rank)."""
+    vs = part(shard, cfg.vocab_size)
+    out = _logits(params, x, cfg, vs)
+    return out if vs is None else vs.all_gather(out, out.dim() - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -390,9 +404,10 @@ def _full_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfi
 
 def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig, shard=None
           ) -> torch.Tensor:
-    """The token embeddings [..., d]: the table's rows, or under a training
-    ``shard`` that splits the vocabulary the sum over ranks of each rank's
-    rows (``sharding.vocab_parallel_embed``)."""
+    """The token embeddings [..., d]: the table's rows, or under a
+    ``shard`` (training's or a sharded engine's) that splits the
+    vocabulary the sum over ranks of each rank's rows
+    (``sharding.vocab_parallel_embed``)."""
     shard = part(shard, cfg.vocab_size)
     if shard is None:
         return params["embed"]["w"][tokens]
@@ -512,12 +527,16 @@ def n_self_layers(cfg: ModelConfig) -> int:
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       dtype: Optional[torch.dtype] = None,
                       options: Optional[DecodeOptions] = None, *,
-                      device: torch.device | str | None = None) -> DecodeState:
+                      device: torch.device | str | None = None,
+                      kv_heads: Optional[int] = None) -> DecodeState:
     """Zeroed caches on ``device`` (``None`` = CUDA, which raises without
-    a card); the metadata cache only for a ``needs_meta`` policy."""
+    a card) at ``kv_heads`` KV heads (all of them by default; a sharded
+    engine's prefill: its rank's); the metadata cache only for a
+    ``needs_meta`` policy."""
     device = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
-    dh, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    dh = cfg.resolved_head_dim
+    hkv = cfg.n_kv_heads if kv_heads is None else kv_heads
     nl = n_self_layers(cfg)
     nb_max = max_len // cfg.gate.block_size
     kg = kg_n = None
@@ -566,31 +585,35 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
     policy reads one: the one O(S) pass that makes every QuestPolicy
     step O(block_size). A cross-attention model's ``batch["image_embeds"]``
     [B, n_img, d] fills ``cross_k``/``cross_v`` (head-major), the
-    context every decode step attends. A sharded engine's ``shard`` runs
-    the routed experts of a MoE model expert-parallel (``params`` cut by
-    ``sharding.decode_params``); the caches stay whole."""
+    context every decode step attends. Under a sharded engine's ``shard``
+    (``params`` cut by ``sharding.decode_params``) every block runs on the
+    rank's block of its weights, the embedding and logits on the rank's
+    vocabulary (the last logits gathered whole), and the caches, the
+    cross ones too, hold the rank's KV heads."""
     _check_family(cfg, decode=True)
     tokens = batch["tokens"]
     b, l = tokens.shape
     if l > max_len:
         raise ValueError(f"prompt length {l} > max_len {max_len}")
     dev = params["embed"]["w"].device
-    state = init_decode_state(cfg, b, max_len, options=options, device=dev)
+    state = init_decode_state(cfg, b, max_len, options=options, device=dev,
+                              kv_heads=attn_kv_heads(cfg, shard))
     bs = cfg.gate.block_size
     pos = torch.arange(l, device=dev)[None, :].expand(b, l)
-    x = params["embed"]["w"][tokens]
+    x = embed(params, tokens, cfg, shard)
     ctx = _image_ctx(batch, x.dtype)
     if cfg.cross_attn_period and ctx is None:
         raise ValueError("a cross-attention model needs batch['image_embeds']")
     for kind, i in layer_order(cfg):
         if kind == "cross":
             cp = params["cross_blocks"][i]
-            ck, cv = _cross_kv(cp["attn"], ctx, cfg)
+            ck, cv = _cross_kv(cp["attn"], ctx, cfg, shard)
             state.cross_k[i] = ck.transpose(1, 2)
             state.cross_v[i] = cv.transpose(1, 2)
             x = x + cross_attention_full(cp["attn"], rms_norm(cp["ln1"], x, cfg.norm_eps),
-                                         (ck, cv), cfg)
-            x = x + mlp(cp["mlp"], rms_norm(cp["ln2"], x, cfg.norm_eps), cfg.activation)
+                                         (ck, cv), cfg, shard)
+            x = x + mlp(cp["mlp"], rms_norm(cp["ln2"], x, cfg.norm_eps), cfg.activation,
+                        part(shard, cfg.d_ff))
             continue
         x = prefill_block(params["blocks"][i], x, cfg, pos, state.k_cache[i],
                           state.v_cache[i], None if state.kg_cache is None
@@ -604,7 +627,7 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
                                       state.meta_n[i]),
                 state.k_cache[i], state.cur_len, bs)
             state.meta_n[i] = meta.n_complete
-    return _logits(params, last, cfg), state
+    return serve_logits(params, last, cfg, shard), state
 
 
 def prefill_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor,
@@ -615,13 +638,17 @@ def prefill_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tens
     [B, Hkv, S_max, Dh] (the ONE-TIME layout conversion, seq-major to
     head-major) and the Kg rows of the complete blocks into ``kg_cache``
     [B, Hkv, nb_max, Dg] when given and the layer is gated. Returns x.
-    The transformer's layers and the hybrid's shared block take it; a
-    sharded engine's ``shard`` runs a MoE block's routed experts
-    expert-parallel (``attn_core.ffn(decode=True)``), the rest whole."""
+    The transformer's layers and the hybrid's shared block take it. Under
+    a sharded engine's ``shard`` ``lp`` is the rank's block: the attention
+    runs on its KV heads (the caches hold them; the whole gate is
+    head-sliced), its ``wo`` rows give a partial output summed over the
+    ranks, and the feed-forward splits as ``attn_core.ffn(decode=True)``
+    splits it."""
     b, l, _ = x.shape
     bs = cfg.gate.block_size
     nb = l // bs
     p = lp["attn"]
+    ash = part(shard, cfg.n_kv_heads)
     h = rms_norm(lp["ln1"], x, cfg.norm_eps)
     q, k, v = _qkv(p, h, cfg)
     qr = apply_rope(q, pos, cfg.rope_theta)
@@ -631,9 +658,9 @@ def prefill_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tens
     k_cache[:, :, :l] = kr.transpose(1, 2)
     v_cache[:, :, :l] = v.transpose(1, 2)
     if kg_cache is not None and "gate" in p and nb:
-        kg = ag.gate_k(p["gate"], k[:, :nb * bs], cfg.gate)       # [B,nb,Hkv,Dg]
+        kg = ag.gate_k(rank_gate(p["gate"], ash), k[:, :nb * bs], cfg.gate)  # [B,nb,Hkv,Dg]
         kg_cache[:, :, :nb] = kg.transpose(1, 2).to(kg_cache.dtype)
-    x = x + linear(p["wo"], o.reshape(b, l, -1))
+    x = x + reduce_from_model(linear(p["wo"], o.reshape(b, l, -1)), ash)
     del q, k, v, qr, kr, o
     return x + ffn(lp, rms_norm(lp["ln2"], x, cfg.norm_eps), cfg, shard, decode=True)[0]
 
@@ -687,26 +714,32 @@ def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     advances its Kg and metadata caches: a dense or reusing layer never
     reads them.
 
-    With a ``shard`` and GatePolicy on a gated layer the step is the
-    sequence-sharded one (``serve.sharded.sharded_sparse_decode``): the
-    caches are this rank's part along the sequence, and the measured
-    sparsity comes from the selection counts summed over ranks. Its
-    selection is fused into the collectives, so it carries no plan and
-    no cross-head reduction: a shard with any other selecting layer or a
-    non-trivial schedule raises, as the reference refuses a plan there
-    (``serve`` takes schedules on a sharded engine); a dense policy runs
-    unsharded on the replicated caches.
+    With a ``shard`` (``p`` the rank's block of a sharded engine: the
+    projections of its KV heads, the gate whole) and GatePolicy on a gated
+    layer the step is the sequence-sharded one
+    (``serve.sharded.sharded_sparse_decode``): the caches are this rank's
+    part along the sequence, at every head, so the rank's new q/k/v heads
+    are gathered over the ranks first (one packed collective) and the
+    gate query comes from the whole q and the whole gate; the rank's
+    heads of the combined output take its ``wo`` rows and one sum. The
+    measured sparsity comes from the selection counts summed over ranks.
+    Its selection is fused into the collectives, so it carries no plan
+    and no cross-head reduction: a shard with any other selecting layer
+    or a non-trivial schedule raises, as the reference refuses a plan
+    there (``serve`` takes schedules on a sharded engine). A dense policy
+    attends the rank's KV heads of the caches (a sharded prefill's), then
+    the same ``wo`` rows and sum. An attention that the world size does
+    not split (MQA) runs whole on every rank, with no collective but the
+    sequence-sharded step's own.
     """
     b = x1.shape[0]
     dh, hkv, g = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.gqa_group
     bs = cfg.gate.block_size
     policy = options.policy
     sparse_on = _policy_active(policy, p)
-    q, k, v = _qkv(p, x1, cfg)
-    q_nope = q
+    ash = part(shard, hkv)
+    q, k, v = _qkv(p, x1, cfg)                             # the heads p holds
     pos = cur_len[:, None]                                 # [B,1]
-    qr = apply_rope(q, pos, cfg.rope_theta)
-    kr = apply_rope(k, pos, cfg.rope_theta)
 
     if shard is not None and not policy.dense:
         if not (sparse_on and policy.needs_gate and "gate" in p) \
@@ -716,14 +749,21 @@ def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
                 "gated layer and the trivial schedule (its selection is fused "
                 "into the collectives and carries no plan); serve() takes "
                 "schedules on a sharded engine")
-        qg = ag.gate_q(p["gate"], q_nope, pos, cfg.gate)[:, 0]    # [B,Hkv,Dg]
+        if ash is not None:                  # every head, from the ranks' blocks
+            q, k, v = ash.all_gather_packed([q.reshape(b, 1, k.shape[2], -1), k, v], 2)
+            q = q.reshape(b, 1, -1, dh)
+        qr = apply_rope(q, pos, cfg.rope_theta)
+        kr = apply_rope(k, pos, cfg.rope_theta)
+        qg = ag.gate_q(p["gate"], q, pos, cfg.gate)[:, 0]         # [B,Hkv,Dg]
         o, n_sel = sharded_sparse_decode(
             qg, qr[:, 0].reshape(b, hkv, g, dh), kr[:, 0], v[:, 0], k_cache, v_cache,
             kg_cache, cur_len, p["gate"]["wk"], shard=shard, cfg=cfg.gate,
             rope_theta=cfg.rope_theta, max_selected=options.max_selected(cfg))
         new_len = cur_len + 1
         kg_n = torch.where((new_len % bs) == 0, new_len // bs, kg_n).to(torch.int32)
-        out = linear(p["wo"], o.reshape(b, 1, hkv * g * dh))
+        if ash is not None:
+            o = ash.head_slice(o, 1)
+        out = reduce_from_model(linear(p["wo"], o.reshape(b, 1, -1)), ash)
         if options.measure_sparsity:
             n_valid = kc.visible_blocks(torch.clamp_min(new_len, 1), bs).to(torch.float32)
             frac = n_sel.to(torch.float32) / torch.clamp_min(n_valid[:, None], 1.0)
@@ -735,6 +775,9 @@ def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
         return out, (k_cache, v_cache, kg_cache, kg_n, meta_kmin, meta_kmax,
                      meta_n), aux
 
+    q_nope = q
+    qr = apply_rope(q, pos, cfg.rope_theta)
+    kr = apply_rope(k, pos, cfg.rope_theta)
     bidx = torch.arange(b, device=x1.device)
     k_cache[bidx, :, cur_len] = kr[:, 0]
     v_cache[bidx, :, cur_len] = v[:, 0]
@@ -765,13 +808,12 @@ def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
         aux = (_dense_aux(new_len, bs) if options.measure_sparsity
                else _zero_layer_aux(b, x1.device))
     else:
-        qgrp = qr[:, 0].reshape(b, hkv, g, dh)
+        qgrp = qr[:, 0].reshape(b, -1, g, dh)
         o = ops.sparse_decode(qgrp, k_cache, v_cache, idx, new_len, block_size=bs)
-        o = o.reshape(b, 1, hkv * g, dh)
         aux = (_selection_aux(idx, kc.visible_blocks(
                    torch.clamp_min(new_len, 1), bs), k_cache.shape[2] // bs)
                if options.measure_sparsity else _zero_layer_aux(b, x1.device))
-    out = linear(p["wo"], o.reshape(b, 1, hkv * g * dh))
+    out = reduce_from_model(linear(p["wo"], o.reshape(b, 1, -1)), ash)
     ret = (out, (k_cache, v_cache, kg_cache, kg_n, meta_kmin, meta_kmax, meta_n), aux)
     # a dense layer (or an ungated one) passes the plan through untouched
     return ret + (idx,) if stage is not None else ret
@@ -797,19 +839,24 @@ def block_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, layer_state,
 
 
 def cross_block_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig,
-                       ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+                       ck: torch.Tensor, cv: torch.Tensor, shard=None) -> torch.Tensor:
     """A cross-attention block at decode: dense ``decode_attention`` of
     the token over its unit's image K/V [B, Hkv, n_img, Dh] (precomputed
-    at prefill; no RoPE)."""
+    at prefill; no RoPE). Under a sharded engine's ``shard`` ``p`` is the
+    rank's block and the image K/V the rank's heads (``lm_prefill``): the
+    attention is local, its ``wo`` rows and the MLP's hidden units each
+    give a partial output, summed over the ranks."""
     b = x1.shape[0]
     h = rms_norm(p["ln1"], x1, cfg.norm_eps)
-    q = linear(p["attn"]["wq"], h).reshape(b, 1, cfg.n_heads, cfg.resolved_head_dim)
+    q = linear(p["attn"]["wq"], h).reshape(b, 1, -1, cfg.resolved_head_dim)
     if cfg.qk_norm:
         q = rms_norm(p["attn"]["q_norm"], q, cfg.norm_eps)
     n_img = torch.full((b,), ck.shape[2], dtype=torch.int32, device=x1.device)
     o = decode_attention(q, ck, cv, n_img)
-    x1 = x1 + linear(p["attn"]["wo"], o.reshape(b, 1, -1))
-    return x1 + mlp(p["mlp"], rms_norm(p["ln2"], x1, cfg.norm_eps), cfg.activation)
+    x1 = x1 + reduce_from_model(linear(p["attn"]["wo"], o.reshape(b, 1, -1)),
+                                part(shard, cfg.n_kv_heads))
+    return x1 + mlp(p["mlp"], rms_norm(p["ln2"], x1, cfg.norm_eps), cfg.activation,
+                    part(shard, cfg.d_ff))
 
 
 def _plan0(options: DecodeOptions, cfg: ModelConfig, batch: int, nb: int, device,
@@ -835,9 +882,11 @@ def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
     MEASURED selection of this step (sparsity/sel_blocks/vis_blocks),
     averaged over layers. A plan-carrying ``options.schedule`` stages each
     layer and carries the plan from layer to layer, its width from
-    ``selection_width``. With a ``shard`` and a selecting policy the
-    caches are this rank's part along the sequence
-    (``distributed.sharding.seq_shard_state``). A cross-attention model
+    ``selection_width``. With a ``shard`` (``params`` a sharded engine's)
+    and a selecting policy the caches are this rank's part along the
+    sequence (``distributed.sharding.seq_shard_state``), with a dense one
+    its KV heads; the embedding and the logits run on the rank's
+    vocabulary, the logits gathered whole. A cross-attention model
     runs its units' cross blocks over ``cross_k``/``cross_v`` between the
     self layers and refuses a plan-carrying schedule, as the reference
     does."""
@@ -847,7 +896,7 @@ def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
             "SelectionSchedule plans assume a uniform self-attn stack; "
             "cross-attn unit families keep per-layer selection "
             "(schedule=SelectionSchedule())")
-    x1 = params["embed"]["w"][token[:, None]]
+    x1 = embed(params, token[:, None], cfg, shard)
     stages, plan = _plan0(options, cfg, token.shape[0],
                           state.k_cache.shape[3] // cfg.gate.block_size, x1.device)
     auxs = []
@@ -858,7 +907,7 @@ def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
     for kind, i in layer_order(cfg):
         if kind == "cross":
             x1 = cross_block_decode(params["cross_blocks"][i], x1, cfg,
-                                    state.cross_k[i], state.cross_v[i])
+                                    state.cross_k[i], state.cross_v[i], shard)
             continue
         lp = params["blocks"][i]
         layer_state = (state.k_cache[i], state.v_cache[i], row(state.kg_cache, i),
@@ -874,7 +923,7 @@ def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
             if counts is not None and new is not counts[i]:
                 counts[i] = new
         auxs.append(aux)
-    logits = _logits(params, x1, cfg)
+    logits = serve_logits(params, x1, cfg, shard)
     new_state = state._replace(cur_len=state.cur_len + 1)
     return logits[:, 0], new_state, aggregate_decode_aux(auxs)
 
@@ -900,15 +949,17 @@ def lm_decode_step_paged(params: Params, pages, slot_state,
     produce garbage logits (the engine ignores them) but neither touch
     live pages nor advance. A plan-carrying ``options.schedule`` stages
     the layers as ``lm_decode_step`` does, the plan's width from the page
-    table's logical-block count. With a ``shard`` the pools hold this
-    rank's KV heads (``attn_core.attention_decode_paged``), and so does
-    the carried plan. A
-    cross-attention model has no paged step (the reference refuses it)."""
+    table's logical-block count. With a ``shard`` (``params`` a sharded
+    engine's) the pools hold this rank's KV heads
+    (``attn_core.attention_decode_paged``), and so does the carried plan;
+    the embedding and the logits run on the rank's vocabulary, the
+    logits gathered whole. A cross-attention model has no paged step (the
+    reference refuses it)."""
     _check_family(cfg, decode=True)
     if cfg.cross_attn_period:
         raise NotImplementedError("paged decode: cross-attn families TBD")
     options = options if options is not None else default_options(cfg)
-    x1 = params["embed"]["w"][token[:, None]]
+    x1 = embed(params, token[:, None], cfg, shard)
     stages, plan = _plan0(options, cfg, token.shape[0], page_table.shape[1], x1.device,
                           None if shard is None else shard.local_heads(cfg.n_kv_heads))
     auxs = []
@@ -922,5 +973,5 @@ def lm_decode_step_paged(params: Params, pages, slot_state,
         if stages is not None:
             plan = ret[2]
         auxs.append(aux)
-    logits = _logits(params, x1, cfg)
+    logits = serve_logits(params, x1, cfg, shard)
     return logits[:, 0], pages, slot_state, aggregate_decode_aux(auxs)

@@ -37,19 +37,23 @@ Sharded serving: ``DecodeEngine(..., shard=Shard(group),
 options=DecodeOptions(split_k=...))`` on every rank of a
 ``torch.distributed`` group, each with the same full parameters and
 requests; every decoder family takes it. The engine keeps the rank's
-block of the Mamba mixers and of the routed experts
-(``distributed.sharding.decode_params``; the other leaves whole).
-``serve`` then keeps only the rank's KV heads of every page pool
-(prefill scatters, swap moves and restores those heads) and gathers each
-layer's attention output over ranks; the Mamba layers run over the
-rank's channels (Mamba1) or heads (Mamba2) with their per-slot state at
-that size (admission writes, swap captures and restores the rank's
+block of the parameters, as the reference's per-rank layout cuts them
+(``distributed.sharding.decode_params``): each attention's projections
+of its KV heads (the gate whole), the dense MLPs' and shared experts'
+hidden units, the routed experts, the Mamba mixers, the embedding and
+the logits' vocabulary; a module that the world size does not divide
+stays whole. ``serve`` then keeps only the rank's KV heads of every page
+pool (the prefill writes them, swap moves and restores them) and sums
+each layer's partial outputs over the ranks; the Mamba layers run over
+the rank's channels (Mamba1) or heads (Mamba2) with their per-slot state
+at that size (admission writes, swap captures and restores the rank's
 rows), and a MoE block computes the rank's experts and gathers their
-outputs. ``generate`` splits the prefilled attention caches along the
-sequence (the Mamba1 LM has none: its state alone is the rank's). Every
-rank computes the same logits, so the replicated scheduler takes the
-same decisions everywhere, and the stats a rank returns are the
-unsharded run's: the swapped bytes are summed over the ranks, with the
+outputs. ``generate`` gathers the prefill's caches over the heads and
+splits them along the sequence (the Mamba1 LM has none: its state alone
+is the rank's). Every rank computes the same logits (the vocabulary
+blocks gathered whole), so the replicated scheduler takes the same
+decisions everywhere, and the stats a rank returns are the unsharded
+run's: the swapped bytes are summed over the ranks, with the
 recurrent rows that every rank holds whole (Mamba2's ``B|C`` conv
 columns) counted once. Every rank's swap entries are the same size, so a
 bounded swap tier demotes, and refuses, alike on every rank; its own
@@ -80,8 +84,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.policy import (DecodeOptions, DensePolicy, GatePolicy,
                                      default_options)
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (Shard, decode_params, replicated_state_bytes,
-                                              seq_shard_state)
+from repro_torch.distributed.sharding import (Shard, decode_params, part,
+                                              replicated_state_bytes, seq_shard_state)
 from repro_torch.models.registry import get_api
 from repro_torch.serve import paging as pg
 from repro_torch.serve import sampling as smp
@@ -136,7 +140,7 @@ class DecodeEngine:
         if w.device.type != self.device.type:
             raise ValueError(f"params live on {w.device}, engine device is "
                              f"{self.device}: move them first")
-        # the rank's mixers and routed experts (the caller's full tree
+        # the rank's block of every split leaf (the caller's full tree
         # stays as it is)
         self.params = params if shard is None else decode_params(params, cfg, shard)
         self.max_len = max_len
@@ -194,7 +198,8 @@ class DecodeEngine:
         replicated, then each rank keeps its part of the caches along the
         sequence; that step takes the trivial schedule only, and any other
         raises ValueError before the prefill. A recurrent family's state
-        comes out of the prefill at the rank's size."""
+        comes out of the prefill at the rank's size, and so do the
+        attention caches of a dense policy (the rank's KV heads)."""
         sharded = seq_sharded(self.cfg, self.options, self.shard)
         if sharded and not self.options.schedule.is_trivial:
             raise ValueError(
@@ -206,7 +211,7 @@ class DecodeEngine:
         t0 = time.perf_counter()
         token, state = self.prefill(batch, generator)
         if sharded:
-            state = seq_shard_state(state, self.shard, self.cfg.gate.block_size)
+            state = self.seq_shard(state)
         self._sync()
         prefill_s = time.perf_counter() - t0
         toks = [token]
@@ -222,6 +227,13 @@ class DecodeEngine:
             tokens=out, prefill_s=prefill_s, decode_s=decode_s,
             tok_per_s=(n_tokens - 1) * out.shape[0] / max(decode_s, 1e-9),
             final_len=state.cur_len)
+
+    def seq_shard(self, state):
+        """A sharded prefill's state -> the sequence-sharded step's: the
+        attention caches gathered over the KV heads (where the world size
+        splits them) and cut to the rank's part along the sequence."""
+        return seq_shard_state(state, self.shard, self.cfg.gate.block_size,
+                               gather_heads=part(self.shard, self.cfg.n_kv_heads) is not None)
 
     # -- continuous batching over paged KV ---------------------------------
 
@@ -874,16 +886,10 @@ class DecodeEngine:
                                           self.cfg, bucket * ps,
                                           options=self.options, shard=self.shard)
         view = self.api.state_view(cstate)
-        if view.k_cache is not None:
-            caches = (view.k_cache, view.v_cache, view.kg_cache, view.meta_kmin,
-                      view.meta_kmax)
-            if self.shard is not None:            # this rank's KV heads only
-                caches = tuple(None if x is None else self.shard.head_slice(x, 2)
-                               for x in caches)
-            k, v, kg, kmin, kmax = caches
-            pg.scatter_prefill(pages, k, v, kg, plen,
+        if view.k_cache is not None:              # a sharded prefill's: the rank's heads
+            pg.scatter_prefill(pages, view.k_cache, view.v_cache, view.kg_cache, plen,
                                pg.pad_page_ids(req.pages, device=self.device), ps,
-                               kmin_cache=kmin, kmax_cache=kmax)
+                               kmin_cache=view.meta_kmin, kmax_cache=view.meta_kmax)
         if view.slot is not None:
             slot_state = write_slot(slot_state, view.slot, req.slot)
         return slot_state, logits[0]

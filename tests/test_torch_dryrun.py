@@ -470,13 +470,45 @@ def test_run_cell_on_a_reduced_config(kind, mesh):
     assert rec["bytes"] > 0 and rec["flops"] > 0 and rec["fits"]
     assert rec["bottleneck"] in ("compute", "memory", "collective")
     local = mesh == "local"
-    # a dense model's sharded prefill is replicated (the engine's caches
-    # stay whole): no collective
-    assert (rec["collectives"]["_count"] == 0) == (local or kind == "prefill")
+    # a sharded engine's prefill and decode split attention, the MLP and
+    # the vocabulary: collectives on the model axis of 2, none on the
+    # local mesh
+    assert (rec["collectives"]["_count"] == 0) == local
     expect = {"train": {"gate_gt_attention": 2},
               "prefill": {},
               "decode": {"gate_select": 2, "block_sparse_decode": 2} if local else {}}[kind]
     assert rec["kernels"] == expect
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "gemma_2b"])
+def test_sharded_cells_hold_the_ranks_blocks(arch, kind):
+    """A prefill and a decode cell on a model axis of 2: the rank's
+    parameter argument holds every leaf at ``local_shape`` of its
+    ``param_layout`` block (the gate's ``wq``/``wk`` whole), so its bytes
+    are their sum. gemma_2b's single KV head (MQA) keeps its attention
+    whole; its MLP and vocabulary split."""
+    cfg = t_config.reduced(t_configs.get(arch))
+    shard = sharding.AbstractShard(0, 2)
+    with FakeTensorMode(allow_fallback_kernels=False):
+        full = dict(t_loop._walk(specs.abstract_params(cfg)))
+        _, args, got_shard = specs.cell_fn_and_specs(cfg, SMALL_SHAPES[kind], MeshSpec(1, 1, 2))
+        rank = dict(t_loop._walk(args[0]))
+        want = 0
+        assert rank.keys() == full.keys() and got_shard.world == 2
+        for path, t in full.items():
+            lay = sharding.param_layout(path, tuple(t.shape), cfg, 2)
+            if "/gate/" in path:
+                lay = None
+            shape = sharding.local_shape(t.shape, lay, 2)
+            assert tuple(rank[path].shape) == shape, path
+            want += math.prod(shape) * t.element_size()
+        assert dryrun.storage_bytes(args[0]) == want < dryrun.storage_bytes(full)
+    attn = (rank["blocks/0/attn/wq/w"].shape, rank["blocks/0/attn/wo/w"].shape)
+    whole = (full["blocks/0/attn/wq/w"].shape, full["blocks/0/attn/wo/w"].shape)
+    assert (attn == whole) == (cfg.n_kv_heads == 1)
+    assert rank["blocks/0/mlp/wo/w"].shape[0] == cfg.d_ff // 2
+    assert rank["embed/w"].shape[0] == cfg.vocab_size // 2
 
 
 def test_fits_limit_is_the_same_on_every_host(monkeypatch):

@@ -19,11 +19,14 @@ pool and a preempting one, on the tiny config (the schedule's cases at
   * open-loop arrivals through ``ServingFrontend`` with the default SLO
     tiers (the tiers set budgets and reserve admission).
 
-At ``split_k=1`` the tokens, logits, every id list the gate returns (rank
-r's KV heads of the unsharded run's, ties included) and the step-clock
-stats are bitwise the unsharded port's; the greedy tokens equal the JAX
-engine's, and so do its counters and, under arrivals, TTFT/TPOT in decode
-steps by tier. At ``split_k=4`` (a schedule with budget caps) the logits
+At ``split_k=1`` the tokens, every id list the gate returns (rank r's KV
+heads of the unsharded run's, ties included) and the step-clock stats
+are the unsharded port's, exactly, and the logits lie within LOGIT_TOL
+of its logits (each rank holds its block of the weights, and the
+row-split ``wo`` and MLP sum their partials over the ranks in another
+order, as the reference's production layout does); the greedy tokens
+equal the JAX engine's, and so do its counters and, under arrivals,
+TTFT/TPOT in decode steps by tier. At ``split_k=4`` (a schedule with budget caps) the logits
 lie within 8 bf16 ulps of max|logit| of the unsharded run's, the rule
 ``chip_smoke.py`` holds split-K to. The same spawn runs the
 sequence-sharded ``generate`` under stochastic sampling: both ranks draw
@@ -60,6 +63,7 @@ jax.config.update("jax_platform_name", "cpu")
 
 WORLD = 2
 ULPS = 8                      # chip_smoke.py's DECODE_ULPS: split-K reorders sums
+LOGIT_TOL = 1e-4              # tests/test_torch_sharded.py: the ranks' partial sums
 GREEDY = ("schedule", "schedule-unify", "budgets", "arrivals")
 JAX_OPTIONS = {
     "schedule": JP.DecodeOptions(schedule=JP.SelectionSchedule(**H.SCHEDULE)),
@@ -161,7 +165,8 @@ def test_sharded_option_is_the_unsharded_run(runs, run):
         return
     assert a["tokens"] == want["tokens"]
     for rid in want["logits"]:
-        np.testing.assert_array_equal(a["logits"][rid], want["logits"][rid])
+        np.testing.assert_allclose(a["logits"][rid], want["logits"][rid], atol=LOGIT_TOL,
+                                   rtol=0)
     assert a["stats"] == want["stats"] and a["timing"] == want["timing"]
     assert a.get("tiers") == want.get("tiers")
     # each rank's id lists are its KV heads of the unsharded run's, call by call

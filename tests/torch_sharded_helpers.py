@@ -23,7 +23,7 @@ from repro_torch.core import policy as TP
 from repro_torch.core.policy import DecodeOptions, DensePolicy, SelectionSchedule
 from repro_torch.data.pipeline import DataState, make_batch
 from repro_torch.distributed.sharding import (Shard, decode_partition, gather_trees,
-                                              seq_shard_state, shard_params)
+                                              shard_params)
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.registry import get_api
 from repro_torch.optim import adamw
@@ -54,18 +54,7 @@ SERVE_CASES = {
 STATS = ("preemptions", "resumed", "decode_steps", "peak_pages_used",
          "swapped_out_bytes", "swapped_in_bytes", "sparsity_by_rid", "swap",
          "evictions", "page_restores", "replay_steps", "errors")
-
-
-def _count_gathers(shard):
-    """Count the shard's head and candidate gathers, the collectives that
-    show a sharded path ran (an unsharded step makes none)."""
-    real = shard.all_gather
-    shard.gathers = 0
-
-    def counted(x, axis):
-        shard.gathers += 1
-        return real(x, axis)
-    shard.all_gather = counted
+COLLECTIVES = ("all_sum", "all_gather", "all_max")
 
 
 def _count_calls(shard, name):
@@ -82,10 +71,32 @@ def _count_calls(shard, name):
     setattr(shard, name, counted)
 
 
+def _count_collectives(shard):
+    """Count every collective of the shard by kind (``shard.calls``)."""
+    for name in COLLECTIVES:
+        _count_calls(shard, name)
+
+
+def _counted(shard):
+    """A snapshot of the shard's collective counters (zeros without one)."""
+    calls = getattr(shard, "calls", {})
+    return {n: calls.get(n, 0) for n in COLLECTIVES}
+
+
+def _since(shard, before):
+    """The collectives by kind since the snapshot ``before``."""
+    return {n: c - before[n] for n, c in _counted(shard).items()}
+
+
 def _expert_shapes(params):
     """{path: shape} of the routed-expert leaves of a parameter tree."""
     return {path: tuple(t.shape) for path, t in tl._walk(params)
             if path.split("/moe/")[-1] in ("wi_gate", "wi_up", "wo") and "/moe/" in path}
+
+
+def _leaf_shapes(params):
+    """{path: shape} of every leaf of a parameter tree."""
+    return {path: tuple(t.shape) for path, t in tl._walk(params)}
 
 
 @contextlib.contextmanager
@@ -125,23 +136,25 @@ def _record_pools():
 
 
 def serve_cases(shard, cfg, np_params, reqs):
-    """Every SERVE_CASES case on this rank: tokens, logits, stats and the
-    shapes of the allocated pools per case, and the errors a world size
-    that does not divide the KV heads must raise."""
+    """Every SERVE_CASES case on this rank: tokens, logits, stats, the
+    collectives by kind and the shapes of the allocated pools per case,
+    the shapes of the engine's parameter leaves, and the errors a world
+    size that does not divide the KV heads must raise."""
     params = params_from_numpy(np_params, cfg, "cpu")
-    _count_gathers(shard)
+    _count_collectives(shard)
     pools = _record_pools()
     out = {}
     for name, (opt_kw, serve_kw) in SERVE_CASES.items():
         eng = DecodeEngine(cfg, params, max_len=64, device="cpu", shard=shard,
                            options=DecodeOptions(**opt_kw))
-        shard.gathers = 0
         n_alloc = len(pools)
+        before = _counted(shard)
         res = eng.serve([dict(r) for r in reqs], collect_logits=True, **serve_kw)
         out[name] = {"tokens": {r["rid"]: res[r["rid"]] for r in reqs},
-                     "logits": res["logits"], "gathers": shard.gathers,
+                     "logits": res["logits"], "collectives": _since(shard, before),
                      "pools": pools[n_alloc:],
-                     "stats": {k: res["stats"][k] for k in STATS}}
+                     "stats": {k: res["stats"][k] for k in STATS + ("admitted",)}}
+    out["leaves"], out["full_leaves"] = _leaf_shapes(eng.params), _leaf_shapes(params)
     errors = []
     odd = DecodeEngine(cfg.replace(n_kv_heads=1), params, max_len=64, device="cpu",
                        shard=shard)
@@ -159,7 +172,7 @@ def serve_cases(shard, cfg, np_params, reqs):
 
 def generate_teacher_forced(shard, jobs):
     """``_generate_one`` for each job of ``jobs``, in one process group."""
-    _count_gathers(shard)
+    _count_collectives(shard)
     return [_generate_one(shard, *job) for job in jobs]
 
 
@@ -167,20 +180,31 @@ def _generate_one(shard, cfg, np_params, prompt, tokens, max_len):
     """Sequence-sharded decode of ``prompt`` [B, L] fed the reference's
     greedy tokens (``tokens`` [n_steps + 1, B]: the prefill's, then each
     step's). Returns the prefill token, every step's logits, the caches
-    gathered over ranks along the sequence, and kg_n."""
+    gathered over ranks along the sequence, kg_n, and the collectives by
+    kind of the prefill, of the cut to the sequence-sharded caches, of
+    the first step and of all the steps."""
     params = params_from_numpy(np_params, cfg, "cpu")
     eng = DecodeEngine(cfg, params, max_len=max_len, device="cpu", shard=shard)
+    before = _counted(shard)
     first, state = eng.prefill({"tokens": prompt})
-    full_len = state.k_cache.shape[3]           # the prefill is replicated
-    state = seq_shard_state(state, shard, cfg.gate.block_size)
-    assert state.k_cache.shape[3] == full_len // shard.world
+    coll = {"prefill": _since(shard, before)}
+    full_len = state.k_cache.shape[3]
+    # the prefill's caches hold the rank's KV heads: gathered over them
+    # and cut along the sequence
+    assert state.k_cache.shape[2] == cfg.n_kv_heads // shard.world
+    before = _counted(shard)
+    state = eng.seq_shard(state)
+    coll["seq_shard"] = _since(shard, before)
+    assert state.k_cache.shape[2:4] == (cfg.n_kv_heads, full_len // shard.world)
     logits = []
-    shard.gathers = 0
-    for t in tokens[:-1]:
+    before = _counted(shard)
+    for i, t in enumerate(tokens[:-1]):
         _, lg, state, aux = eng._step(eng.params, state, torch.as_tensor(t))
         logits.append(lg.numpy())
-    gathers = shard.gathers
-    return {"first": first.numpy(), "logits": np.stack(logits), "gathers": gathers,
+        if i == 0:
+            coll["step"] = _since(shard, before)
+    coll["steps"] = _since(shard, before)
+    return {"first": first.numpy(), "logits": np.stack(logits), "collectives": coll,
             "k_cache": shard.all_gather(state.k_cache, axis=3).numpy(),
             "v_cache": shard.all_gather(state.v_cache, axis=3).numpy(),
             "kg_cache": shard.all_gather(state.kg_cache, axis=3).numpy(),
@@ -195,19 +219,16 @@ def moe_cases(shard, cfg, np_params, reqs, gen_job):
     """MOE_CASES' serves of a MoE config on this rank (each rank computes
     its experts over all slots and gathers their outputs), then the
     sequence-sharded ``generate`` of ``gen_job`` (``_generate_one``'s
-    arguments but the shard). Each serve also reports the expert gathers
-    and the shapes of the engine's routed-expert leaves."""
+    arguments but the shard). Each serve also reports its collectives by
+    kind, the calls that computed the rank's expert rows (one expert
+    gather each), the shapes of the engine's routed-expert leaves and of
+    all its leaves."""
     params = params_from_numpy(np_params, cfg, "cpu")
-    _count_gathers(shard)
-    # a sharded decode gathers the rank's expert outputs once a call of
-    # ``_expert_rows``: each call counts that gather as an expert gather and
-    # takes it out of ``shard.gathers``, which keeps the head (and
-    # candidate) gathers
+    _count_collectives(shard)
     rows, real = [0], moe_mod._expert_rows
 
     def counted_rows(*a, **kw):
         rows[0] += 1
-        shard.gathers -= 1
         return real(*a, **kw)
     moe_mod._expert_rows = counted_rows
     out = {}
@@ -215,14 +236,17 @@ def moe_cases(shard, cfg, np_params, reqs, gen_job):
         opt_kw, serve_kw = SERVE_CASES[name]
         eng = DecodeEngine(cfg, params, max_len=64, device="cpu", shard=shard,
                            options=DecodeOptions(**opt_kw))
-        shard.gathers = rows[0] = 0
+        rows[0] = 0
+        before = _counted(shard)
         res = eng.serve([dict(r) for r in reqs], collect_logits=True, **serve_kw)
         out[name] = {"tokens": {r["rid"]: res[r["rid"]] for r in reqs},
-                     "logits": res["logits"], "gathers": shard.gathers,
+                     "logits": res["logits"], "collectives": _since(shard, before),
                      "stats": {k: res["stats"][k] for k in STATS + ("admitted",)},
                      "expert_gathers": rows[0],
                      "experts": _expert_shapes(eng.params),
-                     "full_experts": _expert_shapes(params)}
+                     "full_experts": _expert_shapes(params),
+                     "leaves": _leaf_shapes(eng.params),
+                     "full_leaves": _leaf_shapes(params)}
     out["generate"] = _generate_one(shard, *gen_job)
     moe_mod._expert_rows = real
     return out
@@ -459,12 +483,12 @@ REC_CASES = {
     "zamba2-disk": ("zamba2_1_2b", {},
                     dict(TIGHT, swap_config=SwapConfig(host_capacity_bytes=DISK_HOST_CAP))),
 }
-# the MoE model's serve at world size 1 (tests/test_torch_sharded.py holds
-# it at two ranks)
-MOE_ONE_RANK = {"deepseek": ("deepseek_moe_16b", {}, TIGHT)}
+# the MoE model's and the dense model's serves at world size 1
+# (tests/test_torch_sharded.py holds them at two ranks)
+ONE_RANK_CASES = {"deepseek": ("deepseek_moe_16b", {}, TIGHT),
+                  "qwen3": ("qwen3_0_6b", {}, TIGHT)}
 REC_GEN_SHAPE, REC_GEN_NEW = (2, 37), 7            # generate: prompt, new tokens
 REC_STATS = STATS + ("admitted", "retired", "failed")
-COLLECTIVES = ("all_sum", "all_gather", "all_max")
 
 
 def rec_requests(vocab, specs, seed=0):
@@ -475,18 +499,24 @@ def rec_requests(vocab, specs, seed=0):
             for i, (pl, mn) in enumerate(specs)]
 
 
-def _counted(shard):
-    """A snapshot of the shard's collective counters (zeros without one)."""
-    calls = getattr(shard, "calls", {})
-    return {n: calls.get(n, 0) for n in COLLECTIVES}
+def rec_batch(cfg):
+    """The numpy-seeded ``generate`` batch of REC_GEN_SHAPE tokens, with a
+    vision model's image embeddings."""
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                             REC_GEN_SHAPE).astype(np.int32)
+    if not cfg.cross_attn_period:
+        return {"tokens": toks}
+    img = np.random.default_rng(2).standard_normal(
+        (REC_GEN_SHAPE[0], cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    return {"tokens": toks, "image_embeds": img}
 
 
 def rec_serve(shard, cfg, params, name, disk_dir=None):
-    """One REC_CASES (or MOE_ONE_RANK) serve on ``shard`` (None: the
+    """One REC_CASES (or ONE_RANK_CASES) serve on ``shard`` (None: the
     unsharded engine; it runs a split-K case at one split): tokens,
     logits, stats and the collectives it made. A bounded swap tier's disk
     tier lies in ``disk_dir``."""
-    _, opt_kw, serve_kw = REC_CASES[name] if name in REC_CASES else MOE_ONE_RANK[name]
+    _, opt_kw, serve_kw = REC_CASES[name] if name in REC_CASES else ONE_RANK_CASES[name]
     if shard is None:
         opt_kw = dict(opt_kw, split_k=1)
     if "swap_config" in serve_kw:
@@ -499,15 +529,13 @@ def rec_serve(shard, cfg, params, name, disk_dir=None):
     res = eng.serve([dict(r) for r in reqs], collect_logits=True, **serve_kw)
     return {"tokens": {r["rid"]: res[r["rid"]] for r in reqs}, "logits": res["logits"],
             "stats": {k: res["stats"][k] for k in REC_STATS},
-            "collectives": {n: c - before[n] for n, c in _counted(shard).items()}}
+            "collectives": _since(shard, before)}
 
 
 def rec_generate(shard, cfg, params):
-    """``generate`` of a numpy-seeded REC_GEN_SHAPE prompt on ``shard``
-    (None: unsharded): tokens [B, REC_GEN_NEW], each decode step's logits
-    and the all_sum calls."""
-    toks = np.random.default_rng(1).integers(0, cfg.vocab_size,
-                                             REC_GEN_SHAPE).astype(np.int32)
+    """``generate`` of ``rec_batch`` on ``shard`` (None: unsharded):
+    tokens [B, REC_GEN_NEW], each decode step's logits and the
+    collectives by kind."""
     eng = DecodeEngine(cfg, params, max_len=64, device="cpu", shard=shard)
     logits, step = [], eng._step
 
@@ -517,19 +545,19 @@ def rec_generate(shard, cfg, params):
         return out
     eng._step = recording
     before = _counted(shard)
-    res = eng.generate({"tokens": toks}, REC_GEN_NEW)
+    res = eng.generate(rec_batch(cfg), REC_GEN_NEW)
     return {"tokens": res["tokens"].numpy(), "logits": np.stack(logits),
-            "collectives": {n: c - before[n] for n, c in _counted(shard).items()}}
+            "collectives": _since(shard, before)}
 
 
 def rank_shapes(shard, cfg, params):
-    """The shapes a sharded engine holds: its mixer and routed-expert
-    leaves ({path: shape}) and a 3-slot state's (conv, h)."""
+    """The shapes a sharded engine holds: every parameter leaf ({path:
+    shape}) and, for a recurrent family, a 3-slot state's (conv, h)."""
     eng = DecodeEngine(cfg, params, max_len=64, device="cpu", shard=shard)
-    leaves = {path: tuple(t.shape) for path, t in tl._walk(eng.params)
-              if "/mixer/" in path}
-    st = get_api(cfg).init_slot_state(cfg, 3, device="cpu", shard=shard)
-    return {"leaves": leaves, "state": tuple(tuple(t.shape) for t in st)}
+    api = get_api(cfg)
+    st = (() if api.init_slot_state is None
+          else api.init_slot_state(cfg, 3, device="cpu", shard=shard))
+    return {"leaves": _leaf_shapes(eng.params), "state": tuple(tuple(t.shape) for t in st)}
 
 
 def recurrent_cases(shard, models, disk_dir):
@@ -539,8 +567,7 @@ def recurrent_cases(shard, models, disk_dir):
     (config, numpy parameters); the ranks share the disk tier
     ``disk_dir``."""
     params = {a: params_from_numpy(p, cfg, "cpu") for a, (cfg, p) in models.items()}
-    for name in COLLECTIVES:
-        _count_calls(shard, name)
+    _count_collectives(shard)
     out = {name: rec_serve(shard, models[arch][0], params[arch], name, disk_dir)
            for name, (arch, *_) in REC_CASES.items()}
     for arch, (cfg, _) in models.items():
