@@ -56,8 +56,9 @@ NCCL group, kernel 6 on the rank's heads; the training launcher under
 torchrun's environment); then falcon_mamba_7b, zamba2_1_2b and
 deepseek_moe_16b on a sharded engine (the Mamba mixers and their slot
 state at the rank's channels or heads, the routed experts
-expert-parallel); and last the dry-run (``repro_torch.launch.dryrun``),
-its predictions over fake tensors held against two real qwen3_0_6b steps.
+expert-parallel); then the dry-run (``repro_torch.launch.dryrun``),
+its predictions over fake tensors held against two real qwen3_0_6b steps;
+and last the data axis beside the model axis on one-rank groups.
 The contiguous int8 kernel ``block_sparse_decode_quant`` lies on no model
 path (in the reference neither): it is checked and timed on the generate
 path's layer-0 blocks, quantized per block. Phases (any failure exits
@@ -428,6 +429,17 @@ kernels line and their kernel errors its max_abs_err:
      (the largest of its three computed terms) beside the step's
      measured device busy and wall. Last, the record of one production
      cell, kimi_k2_1t_a32b x decode_32k at ``--mesh single``.
+ 44. the data axis (``sharding.data_model_shards(1, 1)``: a one-rank NCCL
+     data group beside a one-rank NCCL model group): qwen3_0_6b
+     distillation at phase 14's shape (kernel 6 launched and counted, on
+     the data replica's rows, against its plain version) and its
+     pretraining at PRETRAIN_CONFIGS' depth (a one-rank data group slices
+     no moment and sends no gradient), SHARD_TRAIN_STEPS steps each
+     bitwise the unsharded steps; ``generate`` at batch BATCH and at batch
+     1 (DATA_GEN_PROMPT-token prompts, DATA_GEN_NEW tokens, DECODE_LAYERS
+     layers) bitwise the engine with the model group alone; phase 43's two
+     local-mesh cells log no collective. Two NCCL ranks cannot share the
+     card: ``check_nccl_cards(2, "nccl")`` must raise.
 
 The pressure and failure paths of ``serve`` (phases 23-29) run after
 phase 13, on qwen3_0_6b at full width and phase 6's requests unless
@@ -514,7 +526,8 @@ from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,  
                                      DensePolicy, OraclePolicy, QuestPolicy,
                                      QuestRecomputePolicy, SelectionInputs,
                                      SelectionSchedule, SlidingWindowPolicy)
-from repro_torch.distributed.sharding import (Shard, decode_layout, local_shape,  # noqa: E402
+from repro_torch.distributed.sharding import (Shard, check_nccl_cards,  # noqa: E402
+                                              data_model_shards, decode_layout, local_shape,
                                               state_layouts)
 from repro_torch.examples import (distill_and_eval, quickstart, serve_sparse,  # noqa: E402
                                   serve_stream)
@@ -721,6 +734,9 @@ SHARD_SCHEDULE = SelectionSchedule(dense_first_n=2, select_layer=2, correction_l
 # phase 2's small pretrain agreement: every family's reduced() model
 SHARD_TRAIN_STEPS = 2                 # phase 41: steps a case, sharded and not
 SHARD_MOE_LAYERS = 2                  # of deepseek_moe_16b's 28
+# phase 44's generate over the data axis: prompt tokens, new tokens (one
+# batch of BATCH rows and one of 1, at DECODE_LAYERS layers)
+DATA_GEN_PROMPT, DATA_GEN_NEW = 2048, 8
 SHARD_MOE_SEQ = (1, 2048)             # its pretraining batch, rows x tokens
 LAUNCH_TRAIN_ARGV = ["--arch", "qwen3_0_6b", "--reduced", "--steps", "4", "--ckpt-every", "2"]
 SMALL_PRETRAIN = ("qwen3_0_6b", "deepseek_moe_16b", "llama_3_2_vision_11b",
@@ -3347,9 +3363,10 @@ def same_state(a, b) -> bool:
             and int(a.opt.count) == int(b.opt.count) and int(a.step) == int(b.step))
 
 
-def shard_train_case(label, cfg, tcfg, bsz, seq, shard, n_gt):
-    """The sharded ``make_train_step`` on the one-rank group and the
-    unsharded one, SHARD_TRAIN_STEPS steps each from the same seed state
+def shard_train_case(label, cfg, tcfg, bsz, seq, shard, n_gt, data=None, phase="41"):
+    """The sharded ``make_train_step`` on the one-rank group (with a
+    ``data`` axis too: phase 44's one-rank data group, which slices no
+    moments and sends no gradient) and the unsharded one, SHARD_TRAIN_STEPS steps each from the same seed state
     on the same batches: every metric, parameter and moment bitwise;
     launch counters at 0 just before the sharded run and read just after:
     kernel 6 ``n_gt`` a forward, nothing else; the collectives a step and
@@ -3364,23 +3381,33 @@ def shard_train_case(label, cfg, tcfg, bsz, seq, shard, n_gt):
     seed = tl.init_train_state(torch.Generator(device="cuda").manual_seed(SEED), cfg, tcfg)
     batches = [make_batch(cfg, bsz, seq, DataState(SEED, i), device="cuda")
                for i in range(tcfg.steps)]
-    box = [tl.shard_state(seed, cfg, shard)]
-    step = tl.make_train_step(cfg, tcfg, shard)
+    box = [tl.shard_state(seed, cfg, shard, data)]
+    if data is not None:
+        n_zero = len(tl.zero1_map(box[0].params, cfg, shard, data)) if tcfg.mode == "pretrain" \
+            else 0
+        why = ("pretraining" if n_zero else "a one-rank data group slices nothing"
+               if tcfg.mode == "pretrain" else "the gate moments stay whole")
+        print(f"{label}: {n_zero} leaves' moments at the data rank's ZeRO-1 slice ({why})")
+    step = tl.make_train_step(cfg, tcfg, shard, data)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     seen, undo = capture_first_gt()
     coll, uncount = counting_collectives(shard)
+    dcoll, duncount = counting_collectives(data) if data is not None else ({"n": 0,
+                                                                            "host_s": 0.0},
+                                                                           lambda: None)
     try:
         local, s_hist, s_secs = timed_steps(step, box.pop(), batches)
     finally:
         undo()
         uncount()
+        duncount()
     counts = ops.launch_counts()
     want = {**dict.fromkeys(ops.KERNELS, 0), "gate_gt_attention": n_gt * tcfg.steps}
     if counts != want:
         fail(f"{label} sharded training launch counts {counts}, expected {want}")
-    full = tl.gather_state(local, cfg, shard)
+    full = tl.gather_state(local, cfg, shard, data)
     del local
     box.append(seed)
     del seed
@@ -3397,8 +3424,10 @@ def shard_train_case(label, cfg, tcfg, bsz, seq, shard, n_gt):
           f"sharded {', '.join(f'{t:.3f}' for t in s_secs)} against unsharded "
           f"{', '.join(f'{t:.3f}' for t in p_secs)}; {coll['n'] / tcfg.steps:.0f} "
           f"collectives a step, {1e3 * coll['host_s'] / tcfg.steps:.2f} ms of host time a "
-          f"step in them; peak memory {peak:.1f} GiB; launch counts {counts} "
-          f"({card_line()})")
+          f"step in them" + ("" if data is None else
+                             f"; over the data group {dcoll['n'] / tcfg.steps:.0f} a step, "
+                             f"{1e3 * dcoll['host_s'] / tcfg.steps:.2f} ms of host time")
+          + f"; peak memory {peak:.1f} GiB; launch counts {counts} ({card_line()})")
     del full, plain, batches
     err = None
     if n_gt:
@@ -3409,7 +3438,7 @@ def shard_train_case(label, cfg, tcfg, bsz, seq, shard, n_gt):
                            f"{label}, step 0 layer 0, local heads")
     del seen
     torch.cuda.empty_cache()
-    print(f"phase 41 {label}: {time.perf_counter() - t0:.1f} s")
+    print(f"phase {phase} {label}: {time.perf_counter() - t0:.1f} s")
     return counts["gate_gt_attention"], err
 
 
@@ -3435,7 +3464,7 @@ def launcher_under_torchrun():
         out = subprocess.run(argv, env=env, cwd=root, capture_output=True, text=True,
                              timeout=600)
         print(out.stdout.strip())
-        if out.returncode != 0 or "ranks=1 (tensor-parallel)" not in out.stdout:
+        if out.returncode != 0 or "ranks=1 (data 1 x model 1)" not in out.stdout:
             print(out.stderr[-4000:], file=sys.stderr)
             fail(f"the training launcher under torchrun's environment exited "
                  f"{out.returncode}")
@@ -3487,6 +3516,107 @@ def phase_sharded_train(shard):
         errs += [] if err is None else [err]
     launcher_under_torchrun()
     print(f"phase 41 (training under a Shard): {time.perf_counter() - t0:.1f} s")
+    return n, errs
+
+
+# ---------------------------------------------------------------------------
+# the data axis (phase 44)
+# ---------------------------------------------------------------------------
+
+def data_generate_case(label, cfg, params, toks, model, data):
+    """``generate`` of ``toks`` on an engine over the one-rank data and
+    model groups (the rows over the data group, the MoE routing global)
+    and on the engine with the model group alone, every launch counter at
+    0 just before each run: tokens and every decode step's logits bitwise,
+    no kernel launched (the sequence-sharded step is plain PyTorch, as the
+    reference's jnp). Returns the data run's host seconds."""
+    bs = cfg.gate.block_size
+    max_len = -(-(toks.shape[1] + DATA_GEN_NEW) // bs) * bs
+    runs = []
+    for d in (data, None):
+        eng = DecodeEngine(cfg, params, max_len=max_len, shard=model, data=d)
+        logits, step = [], eng._step
+
+        def keep(*a, step=step, logits=logits):
+            out = step(*a)
+            logits.append(out[1].clone())
+            return out
+        eng._step = keep
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.generate({"tokens": toks}, DATA_GEN_NEW)
+        torch.cuda.synchronize()
+        runs.append((res["tokens"].cpu(), torch.stack(logits).float().cpu(),
+                     ops.launch_counts(), time.perf_counter() - t0))
+        del eng, logits
+    (ta, la, ca, sa), (tb, lb, cb, sb) = runs
+    if any(ca.values()) or any(cb.values()):
+        fail(f"{label}: a kernel launched on the sequence-sharded generate: {ca} {cb}")
+    if not (torch.equal(ta, tb) and torch.equal(la, lb)):
+        fail(f"{label}: the run over the data group is not bitwise the model group's")
+    print(f"{label}: batch {toks.shape[0]} x {toks.shape[1]} prompt, {DATA_GEN_NEW} tokens, "
+          f"bitwise the engine without the data axis (tokens and {la.shape[0]} steps' "
+          f"logits); {sa:.2f} s against {sb:.2f} s ({card_line()})")
+    return sa
+
+
+def phase_data_axis(dryrun_preds):
+    """Phase 44: the data axis on the card, over a one-rank NCCL data group
+    and a one-rank NCCL model group (``data_model_shards(1, 1)``): (a)
+    qwen3_0_6b distillation at phase 14's shape (kernel 6 launched and
+    counted) and (b) its pretraining at PRETRAIN_CONFIGS' depth (no
+    ZeRO-1 slice at one data rank), each bitwise the unsharded steps
+    (``shard_train_case``);
+    (c) ``generate`` at batch BATCH and at batch 1 bitwise the engine
+    with the model group alone; (d) phase 43's two local-mesh cells carry
+    no data axis (their predictions phase 43 held to the card). Two NCCL
+    ranks cannot share one card: a data group of two raises. Returns
+    (kernel 6 launches, its errors)."""
+    t0 = time.perf_counter()
+    model, data = data_model_shards(1, 1)
+    try:
+        check_nccl_cards(2, "nccl")
+        if torch.cuda.device_count() < 2:
+            fail("phase 44: two NCCL ranks on one card did not raise")
+    except ValueError as e:
+        print(f"phase 44: a data group of two on this card refused: {e}")
+    qwen = configs.get("qwen3_0_6b")
+    distill = TrainConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                          steps=SHARD_TRAIN_STEPS, seed=SEED, checkpoint_every=0,
+                          optim=OptimConfig(total_steps=SHARD_TRAIN_STEPS, warmup_steps=1))
+    cut, bsz, seq, _ = PRETRAIN_CONFIGS["qwen3_0_6b"]
+    pretrain = TrainConfig(mode="pretrain", seq_len=seq, global_batch=bsz,
+                           steps=SHARD_TRAIN_STEPS, seed=SEED, checkpoint_every=0,
+                           optim=OptimConfig(lr=PRETRAIN_LR, total_steps=SHARD_TRAIN_STEPS,
+                                             warmup_steps=1))
+    n, errs = 0, []
+    for label, cfg, tcfg, n_gt in (
+            ("qwen3_0_6b distill over data 1 x model 1 (a)", qwen, distill, qwen.num_layers),
+            (f"qwen3_0_6b pretrain over data 1 x model 1, {cut['num_layers']} layers (b)",
+             qwen.replace(**cut), pretrain, 0)):
+        got, err = shard_train_case(label, cfg, tcfg, tcfg.global_batch, tcfg.seq_len, model,
+                                    n_gt, data=data, phase="44")
+        n += got
+        errs += [] if err is None else [err]
+    free_card()
+    cfg = qwen.replace(num_layers=DECODE_LAYERS)
+    params = init_lm(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    rng = np.random.default_rng(SEED)
+    for b in (BATCH, 1):
+        toks = rng.integers(0, cfg.vocab_size, (b, DATA_GEN_PROMPT)).astype(np.int32)
+        data_generate_case(f"phase 44 qwen3_0_6b ({cfg.num_layers} layers) generate over "
+                           f"data 1 x model 1 (c)", cfg, params, toks, model, data)
+    del params
+    free_card()
+    for label in ("distill", "decode"):
+        rec = dryrun_preds[label]
+        if rec.get("collectives_by_axis") != {} or rec["collectives"]["_count"]:
+            fail(f"phase 44: phase 43's {label} cell at the local mesh logged collectives "
+                 f"{rec.get('collectives_by_axis')}")
+    print("phase 44 (d): phase 43's distill and decode cells at the local mesh carry no data "
+          "or model axis (no collective logged); phase 43 held their predictions to the card")
+    print(f"phase 44 (the data axis): {time.perf_counter() - t0:.1f} s")
     return n, errs
 
 
@@ -5080,6 +5210,12 @@ def run_phases(shard, dryrun_preds) -> int:
     for name, n in phase_dryrun(dryrun_preds).items():
         counts[name] += n
     mark("43 dry-run")
+    # the data axis: kernel 6 on the data replica's rows
+    n44, e44 = phase_data_axis(dryrun_preds)
+    counts["gate_gt_attention"] += n44
+    numbers["gate_gt_attention"]["max_abs_err"] = max(
+        [numbers["gate_gt_attention"]["max_abs_err"], *e44])
+    mark("44 data axis")
     print("seconds by group of phases: " + ", ".join(
         f"{label} {t - t_prev:.1f}" for (_, t_prev), (label, t) in zip(marks, marks[1:]))
         + f"; run_phases {marks[-1][1] - marks[0][1]:.1f}")

@@ -6,10 +6,42 @@ of the contiguous caches (``decode_partition``), and, in training, the
 parameters by its ``param_pspecs`` rules; GSPMD and ``shard_map`` insert
 the collectives. Here a ``Shard`` built from a process group plays that
 ``model`` axis: every rank is one shard, holds only its part of the
-state, and the collectives are explicit calls on the group. Data-parallel
-axes have no counterpart: a data-parallel replica is another engine (in
-training, another run; ZeRO-1's split of the moments over the data axes
-has none either).
+state, and the collectives are explicit calls on the group.
+
+The data axis (the reference's ``("data", "model")`` mesh, or
+``("pod", "data", "model")`` with pod x data as one axis) is a second
+``Shard``: ``data_model_shards(D, M)`` cuts a world of ``W = D x M``
+ranks, rank ``d*M + m`` (model the minor axis, as in
+``jax.make_mesh((D, M), ("data", "model"))``), into the model group of
+each ``d`` (the ``shard=`` of every call below, unchanged) and the data
+group of each ``m`` (a new ``data=`` argument). ``data=None``, or a data
+group of one rank, is the model-only program bitwise. What the data axis
+carries:
+  * training (``train.loop``, ``optim.adamw``): each data rank takes its
+    rows of the global batch (``data_rows``, the reference's
+    ``batch_pspecs`` rule); the losses are the global batch's (the masked
+    means' numerators and denominators summed over the data group,
+    ``reduce_from_model(x, data)``); the gradient is all-reduced over the
+    data group in fp32 before the optimizer compresses, clips and
+    applies it, so every replica steps on the reference's global
+    gradient; in pretraining the AdamW moments (and the error-feedback
+    residual) hold the rank's ZeRO-1 slice (``zero1_dim``, the
+    reference's ``zero1_param_pspecs`` rule; distillation's gate moments
+    stay whole, as the reference's ``P()``), the update runs on that
+    slice and the parameter is all-gathered over the data group;
+  * the MoE routing stays global (``models/moe.py``): the router's top-k
+    ids are gathered over the data group, so the capacity and each
+    assignment's rank within its expert, hence the drops, are those of
+    the whole batch in one call; each replica then computes its rows;
+  * ``generate`` (``serve/engine.py``): a batch that ``D`` divides is
+    split by rows, each replica decoding its own; a batch it does not
+    divide (batch 1) keeps every row on every replica and splits the
+    contiguous caches' sequence over the whole world in rank order (the
+    reference's ``dp + ("model",)`` of ``decode_partition``): the model
+    shard's ``seq`` (``Shard.over_sequence``) is that world group;
+  * paged ``serve``: nothing. The reference's ``paged_pool_pspecs`` puts
+    nothing on the data axis, so a data replica of ``serve`` is another
+    engine.
 
 The group's backend is the caller's (gloo for CPU tensors, NCCL for CUDA
 ones); ``Shard.device`` is where the collectives' tensors live. Every
@@ -153,6 +185,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import copy
 import math
 
 import torch
@@ -175,9 +208,25 @@ class Shard:
         backend = str(dist.get_backend(self.group)).lower()
         self.device = (torch.device("cuda", torch.cuda.current_device())
                        if backend == "nccl" else torch.device("cpu"))
+        self.seq: Optional["Shard"] = None
 
     def __repr__(self) -> str:
         return f"Shard(rank={self.rank}, world={self.world}, device={self.device})"
+
+    def over_sequence(self, seq: "Shard") -> "Shard":
+        """A copy of this model-axis shard whose sequence-sharded decode
+        splits the contiguous caches over ``seq``'s ranks (the data x model
+        world of a batch the data axis does not divide) instead of its
+        own; the weights, the head gathers and every other collective stay
+        on this shard's group."""
+        out = copy.copy(self)
+        out.seq = seq
+        return out
+
+    @property
+    def seq_group(self) -> "Shard":
+        """The shard a sequence-sharded decode splits the caches over."""
+        return self if self.seq is None else self.seq
 
     # -- head axis ---------------------------------------------------------
 
@@ -234,6 +283,24 @@ class Shard:
         self._all_reduce(y, dist.ReduceOp.SUM)
         return y
 
+    def all_sum_packed(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """``all_sum`` of each of ``xs`` (one dtype), their elements packed
+        side by side into one collective per ``_GATHER_CHUNK`` bytes;
+        new tensors in ``xs``' shapes."""
+        out, i = [], 0
+        while i < len(xs):
+            chunk, size = [], 0
+            while i < len(xs) and (not chunk or size < _GATHER_CHUNK):
+                chunk.append(xs[i])
+                size += xs[i].numel() * xs[i].element_size()
+                i += 1
+            flat = self.all_sum(torch.cat([x.reshape(-1) for x in chunk]))
+            at = 0
+            for x in chunk:
+                out.append(flat[at:at + x.numel()].view(x.shape))
+                at += x.numel()
+        return out
+
     def barrier(self) -> None:
         """Return once every rank has called it (a one-element sum, waited
         for on the host)."""
@@ -273,18 +340,22 @@ class AbstractShard(Shard):
     meaning, so it takes only ``FakeTensor``s, and raises on any other
     tensor: it never stands in for a real group. ``sum_ints`` returns
     ``world`` times the rank's values (every rank alike) and ``barrier``
-    returns at once; each logs its all-reduce."""
+    returns at once; each logs its all-reduce. ``axis`` names the mesh
+    axis it stands for ("model", "data", or "world" for the sequence
+    group of a batch-1 decode), which the dry-run reads to rate its
+    collectives."""
 
-    def __init__(self, rank: int, world: int):
+    def __init__(self, rank: int, world: int, axis: str = "model"):
         if not 0 <= rank < world:
             raise ValueError(f"AbstractShard: rank {rank} of world size {world}")
         self.group = None
-        self.rank, self.world = rank, world
+        self.rank, self.world, self.axis = rank, world, axis
         self.device = torch.device("cpu")
+        self.seq = None
         self.log: List[Collective] = []
 
     def __repr__(self) -> str:
-        return f"AbstractShard(rank={self.rank}, world={self.world})"
+        return f"AbstractShard(rank={self.rank}, world={self.world}, axis={self.axis!r})"
 
     def _record(self, kind: str, x: torch.Tensor) -> None:
         if not isinstance(x, FakeTensor):
@@ -325,8 +396,10 @@ def seq_shard_state(state, shard: Shard, block_size: int, *, gather_heads: bool 
     ``gather_heads`` the caches hold the rank's KV heads (a sharded
     engine's prefill, whose attention splits): each layer's K, V and Kg
     heads are first gathered over the ranks, in one collective a layer,
-    and the rank's part holds every head."""
-    tok0, s_loc = decode_partition(shard, state.k_cache.shape[3], block_size)
+    and the rank's part holds every head. The sequence is cut over
+    ``shard.seq_group`` (the shard itself, or the data x model world of
+    ``Shard.over_sequence``); the heads are gathered over ``shard``."""
+    tok0, s_loc = decode_partition(shard.seq_group, state.k_cache.shape[3], block_size)
     nb0, nb_loc = tok0 // block_size, s_loc // block_size
     kg = state.kg_cache
     if not gather_heads:
@@ -623,6 +696,228 @@ def gather_trees(trees: Sequence[Any], cfg, shard: Shard) -> List[Any]:
         del got, buf
     return [_map_paths(tree, lambda path, t, i=i: full.get((i, path), t))
             for i, tree in enumerate(trees)]
+
+
+# ---------------------------------------------------------------------------
+# the data axis: the two groups, the rows, ZeRO-1
+# ---------------------------------------------------------------------------
+
+def check_nccl_cards(world: int, backend: str) -> None:
+    """NCCL runs one rank a card: a group of ``world`` NCCL ranks on a host
+    with fewer visible cards raises (two ranks never share a card, and
+    nothing falls back to gloo)."""
+    if backend == "nccl" and world > torch.cuda.device_count():
+        raise ValueError(f"{world} NCCL ranks need {world} cards, "
+                         f"{torch.cuda.device_count()} visible: NCCL runs one rank a card")
+
+
+def data_model_shards(data_world: int, model_world: int) -> Tuple[Shard, Shard]:
+    """(model shard, data shard) of this rank on a world of ``data_world x
+    model_world`` ranks (the initialised default group's), rank ``d *
+    model_world + m``: the model group of its ``d`` (ranks ``d*M ..
+    d*M + M - 1``) and the data group of its ``m`` (ranks ``m, M + m,
+    ...``). Every group is built on every rank in the same order
+    (``dist.new_group`` is collective); the backend is the default
+    group's."""
+    if not dist.is_initialized():
+        raise RuntimeError("data_model_shards needs an initialised torch.distributed "
+                           "process group (init_process_group)")
+    world = dist.get_world_size()
+    if data_world < 1 or model_world < 1 or data_world * model_world != world:
+        raise ValueError(f"data {data_world} x model {model_world} != world size {world}")
+    check_nccl_cards(world, str(dist.get_backend()).lower())
+    d, m = divmod(dist.get_rank(), model_world)
+    model = data = None
+    for dd in range(data_world):
+        g = dist.new_group([dd * model_world + mm for mm in range(model_world)])
+        if dd == d:
+            model = Shard(g)
+    for mm in range(model_world):
+        g = dist.new_group([dd * model_world + mm for dd in range(data_world)])
+        if mm == m:
+            data = Shard(g)
+    return model, data
+
+
+def replica_rows(batch_size: int, world: int) -> int:
+    """The rows of a ``batch_size`` batch on each of ``world`` data
+    replicas: ``batch_size / world`` where ``world`` divides it, else the
+    whole batch (the reference's ``batch_pspecs``: the batch dim
+    replicated where the data axes do not divide it)."""
+    return batch_size // world if batch_size % world == 0 else batch_size
+
+
+def data_rows(global_batch: int, data: Optional[Shard]) -> Tuple[int, int]:
+    """(first row, rows) of data rank ``data.rank``'s share of a
+    ``global_batch`` batch: rows ``[d*B/D, (d+1)*B/D)`` where ``D``
+    divides ``B``, else every row (and without a data shard)."""
+    if data is None:
+        return 0, global_batch
+    n = replica_rows(global_batch, data.world)
+    return (data.rank * n, n) if n * data.world == global_batch else (0, global_batch)
+
+
+ZERO1_MIN_SIZE = 1 << 16          # the reference's "skip tiny leaves"
+
+
+def stack_position(path: str, cfg) -> Tuple[Tuple[int, int], ...]:
+    """((index, size), ...) of the per-layer leaf at ``path`` along the
+    reference's leading layer-stack dims (its ``_stack_depth``): ``blocks``
+    [L] (a vision model's [n_units, n_self], the port's self layers
+    unit-major), ``cross_blocks`` [n_units], the hybrid's ``units``
+    [n_units, period] and ``tail`` [n_tail]; () for any other leaf."""
+    parts = path.split("/")
+    top = parts[0]
+    if top == "units":
+        period = cfg.hybrid_period
+        return ((int(parts[1]), cfg.num_layers // period), (int(parts[2]), period))
+    if top == "tail":
+        return ((int(parts[1]), cfg.num_layers % cfg.hybrid_period),)
+    if top in ("blocks", "cross_blocks") and cfg.cross_attn_period:
+        n_units, n_self = cfg.num_layers // cfg.cross_attn_period, cfg.cross_attn_period - 1
+        i = int(parts[1])
+        if top == "cross_blocks":
+            return ((i, n_units),)
+        return ((i // n_self, n_units), (i % n_self, n_self))
+    if top == "blocks":
+        return ((int(parts[1]), cfg.num_layers),)
+    return ()
+
+
+def zero1_dim(path: str, local_shape: Sequence[int], cfg, data_world: int,
+              model_world: int = 1) -> Optional[int]:
+    """The reference's ``zero1_param_pspecs`` choice for the leaf at
+    ``path`` (a rank's ``local_shape`` under ``model_world`` model ranks):
+    the dim of the REFERENCE's stacked leaf (its layer-stack dims first,
+    ``stack_position``) that ZeRO-1 splits over ``data_world`` data ranks,
+    or None. None for a leaf whose global stacked size is under
+    ``ZERO1_MIN_SIZE``; otherwise the first dim that the model axis does
+    not split (``param_layout``'s axis) and that ``data_world`` divides,
+    as the reference takes the first dim its ``param_pspecs`` leaves
+    unsharded. None for every leaf of a one-rank data group, which
+    slices nothing."""
+    if data_world == 1:
+        return None
+    lay = (param_layout(path, tuple(local_shape), cfg, model_world, local=True)
+           if model_world > 1 else None)
+    full = list(local_shape)
+    if lay is not None:
+        full[lay.axis] = sum(n for n, _ in lay.parts)
+    stack = stack_position(path, cfg)
+    gshape = [n for _, n in stack] + full
+    if math.prod(gshape) < ZERO1_MIN_SIZE:
+        return None
+    split = None if lay is None else len(stack) + lay.axis
+    for i, n in enumerate(gshape):
+        if i != split and n % data_world == 0 and n >= data_world:
+            return i
+    return None
+
+
+class Zero1(NamedTuple):
+    """Every data rank's ZeRO-1 slice of a rank's (model-local) leaf:
+    ``bounds[r]`` is (start, size) of data rank r's along ``axis``. A
+    split of one of the leaf's dims gives each rank an equal block; a
+    split of the reference's layer-stack dim gives the layer's owner the
+    whole leaf and every other rank none of it (size 0)."""
+    axis: int
+    bounds: Tuple[Tuple[int, int], ...]
+
+    def piece(self, t: torch.Tensor, rank: int) -> torch.Tensor:
+        start, n = self.bounds[rank]
+        return t.narrow(self.axis, start, n)
+
+
+def zero1_slice(path: str, local_shape: Sequence[int], cfg, data_world: int,
+                model_world: int = 1) -> Optional[Zero1]:
+    """The ``Zero1`` of the leaf at ``path`` (``zero1_dim``'s choice on
+    the port's per-layer leaf), or None where ZeRO-1 leaves it whole."""
+    dim = zero1_dim(path, local_shape, cfg, data_world, model_world)
+    if dim is None:
+        return None
+    stack = stack_position(path, cfg)
+    if dim >= len(stack):
+        axis = dim - len(stack)
+        n = local_shape[axis] // data_world
+        return Zero1(axis, tuple((r * n, n) for r in range(data_world)))
+    idx, size = stack[dim]
+    owner = idx // (size // data_world)
+    whole = local_shape[0]
+    return Zero1(0, tuple((0, whole if r == owner else 0) for r in range(data_world)))
+
+
+def zero1_slices(tree: Dict[str, torch.Tensor], cfg, data: Shard,
+                 model_world: int = 1) -> Dict[str, Zero1]:
+    """path -> ``Zero1`` of each leaf of a flat ``{path: tensor}`` tree of
+    a rank's (model-local, unsliced) leaves that ZeRO-1 splits."""
+    out = {}
+    for k, t in tree.items():
+        z = zero1_slice(k, tuple(t.shape), cfg, data.world, model_world)
+        if z is not None:
+            out[k] = z
+    return out
+
+
+def zero1_pieces(tree: Optional[Dict[str, torch.Tensor]], slices: Dict[str, Zero1],
+                 data: Shard) -> Optional[Dict[str, torch.Tensor]]:
+    """A flat tree -> this data rank's ZeRO-1 pieces of the leaves in
+    ``slices`` (new tensors), every other leaf the same tensor."""
+    if tree is None:
+        return None
+    return {k: slices[k].piece(t, data.rank).clone() if k in slices else t
+            for k, t in tree.items()}
+
+
+def zero1_gather(pieces: Dict[str, torch.Tensor], slices: Dict[str, Zero1],
+                 data: Shard) -> Dict[str, torch.Tensor]:
+    """The inverse of ``zero1_pieces`` on every data rank (a collective
+    over the data group): each sliced leaf whole, exactly. Every rank's
+    pieces are packed as bytes, one collective per ``_GATHER_CHUNK``
+    bytes (a chunk padded to its largest rank's share), and put back in
+    rank order along the slice's axis; the other leaves are this rank's
+    tensors. A chunk ends on every rank at the same key: its size counts
+    each leaf at its largest rank's share, since a split of the layer
+    stack gives the owner the whole leaf and the other ranks nothing."""
+    keys = [k for k in pieces if k in slices]
+    out = dict(pieces)
+
+    def shape_of(k, r):
+        t, z = pieces[k], slices[k]
+        return t.shape[:z.axis] + (z.bounds[r][1],) + t.shape[z.axis + 1:]
+
+    def nbytes(k, r):
+        return math.prod(shape_of(k, r)) * pieces[k].element_size()
+
+    def aligned(n):
+        return -(-n // _ALIGN) * _ALIGN
+
+    i = 0
+    while i < len(keys):
+        chunk, size = [], 0
+        while i < len(keys) and (not chunk or size < _GATHER_CHUNK):
+            chunk.append(keys[i])
+            size += max(aligned(nbytes(keys[i], r)) for r in range(data.world))
+            i += 1
+        width = max(sum(aligned(nbytes(k, r)) for k in chunk) for r in range(data.world))
+        buf = torch.zeros(max(width, _ALIGN), dtype=torch.uint8,
+                          device=pieces[chunk[0]].device)
+        at = 0
+        for k in chunk:
+            n = nbytes(k, data.rank)
+            buf[at:at + n] = pieces[k].contiguous().reshape(-1).view(torch.uint8)
+            at += aligned(n)
+        got = data.all_gather(buf[None], 0)                      # [world, width]
+        offs = [0] * data.world
+        for k in chunk:
+            parts = []
+            for r in range(data.world):
+                n = nbytes(k, r)
+                parts.append(got[r, offs[r]:offs[r] + n].clone().view(pieces[k].dtype)
+                             .reshape(shape_of(k, r)))
+                offs[r] += aligned(n)
+            out[k] = torch.cat(parts, slices[k].axis)
+        del got, buf
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -33,9 +33,11 @@ What one rank would hold and do is counted on the way:
     until it is freed (autograd's saved tensors keep theirs alive);
     ``temp_size_in_bytes`` is the peak less the arguments,
     ``output_size_in_bytes`` the storages the step returns that it made;
-  * ``collectives``: the ``AbstractShard``'s log, bytes per kind (the
-    rank's operand, as the reference's ``collective_bytes`` sums), with
-    ``_count`` and ``total``;
+  * ``collectives``: the ``AbstractShard``s' logs (the model axis, the
+    data axis, and the pod x data x model world of a batch-1 decode),
+    bytes per kind (the rank's operand, as the reference's
+    ``collective_bytes`` sums), with ``_count`` and ``total``; and
+    ``collectives_by_axis``, the same per axis;
   * ``kernels``: calls per hand-written kernel (their ``*_fake``
     stand-ins; ``kernels/fake.py``).
 
@@ -270,7 +272,7 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec) -> Dict:
 
     from repro_torch.launch import specs
     with FakeTensorMode(allow_fallback_kernels=False):
-        fn, args, shard = specs.cell_fn_and_specs(cfg, shape, mesh)
+        fn, args, axes = specs.cell_fn_specs_axes(cfg, shape, mesh)
         arg_bytes = storage_bytes(args)
         arg_ids = {id(t.untyped_storage()) for t in _tensors(args)}
         ledger = fake.KernelLedger()
@@ -280,11 +282,13 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec) -> Dict:
         peak = counter.tracker.peak
         out_bytes = storage_bytes(out, exclude=arg_ids)
         del fn, args, out
-    coll = collective_summary([] if shard is None else shard.log)
+    axes = [a for a in axes if a is not None]
+    coll = collective_summary([c for a in axes for c in a.log])
     return {"flops": float(flops.get_total_flops()) + ledger.flops,
             "bytes": counter.bytes + ledger.bytes,
             "bytes_flash": counter.bytes - counter.score_bytes + ledger.bytes,
             "collectives": coll,
+            "collectives_by_axis": {a.axis: collective_summary(a.log) for a in axes},
             "kernels": dict(ledger.calls),
             "argument_size_in_bytes": arg_bytes,
             "temp_size_in_bytes": peak - arg_bytes,

@@ -7,22 +7,27 @@ starts no process group. Its axes keep the reference's names and sizes:
   * ``model`` is the port's ``Shard``, tensor parallelism over a
     ``torch.distributed`` group (``distributed/sharding.py``): the size of
     a cell's ``AbstractShard`` and of the collectives it logs;
-  * ``data`` (and ``pod``) are data-parallel replicas: they divide the
-    global batch (``batch_per_rank``, the reference's ``batch_pspecs``
-    rule) and cost nothing else in the port (no ZeRO-1, no gradient
-    all-reduce across replicas).
+  * ``data`` (and ``pod``) are data-parallel replicas, one data
+    ``AbstractShard`` of pod x data ranks: they divide the global batch
+    (``batch_per_rank``, the reference's ``batch_pspecs`` rule, shared
+    with ``sharding.data_rows``), carry the gradient all-reduce and, in
+    pretraining, the ZeRO-1 moments and their parameter all-gather, and a
+    batch they do not divide splits its decode sequence over every rank.
 
 The roofline's rates are one NVIDIA H100 SXM's, from NVIDIA's data
 sheet (dense rates without sparsity, at the full 700 W power limit).
 ``HBM_BYTES``, the limit of ``fits``, is the ``total_memory`` that
 ``torch.cuda.get_device_properties`` reports on an NVIDIA H100 80GB
 HBM3 (700 W): one number on every host, with a card or without. A
-model axis of 16 spans two 8-card NVLink domains, so the collective term,
-which assumes NVLink's rate for every rank, is a lower bound there.
+model axis of 16 spans two 8-card NVLink domains, and the data axes span
+nodes, so the collective term, which assumes NVLink's rate for every
+rank and every axis, is a lower bound there.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+from repro_torch.distributed.sharding import replica_rows
 
 PEAK_FLOPS_BF16 = 989e12          # dense bf16 tensor-core FLOP/s a card
 HBM_BW = 3.35e12                  # HBM bytes/s a card
@@ -63,8 +68,6 @@ def batch_per_rank(batch_size: int, mesh: MeshSpec, ep_major: bool = False) -> i
     if ep_major and batch_size % (dp * mesh.model) == 0:
         return batch_size // (dp * mesh.model)
     if batch_size % dp == 0:
-        return batch_size // dp
-    if batch_size % mesh.data == 0:
-        return batch_size // mesh.data
-    return batch_size
+        return replica_rows(batch_size, dp)
+    return replica_rows(batch_size, mesh.data)
 

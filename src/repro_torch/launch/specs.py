@@ -29,25 +29,33 @@ port's own, which the caller runs once under that mode:
 The model axis is an ``AbstractShard(0, mesh.model)`` (``None`` on a
 model axis of 1: the local mesh runs the unsharded program, as
 ``DecodeEngine`` and ``run_training`` do without a shard); the
-data-parallel axes divide the batch (``mesh.batch_per_rank``). The
-tensors live on the CPU: this build of PyTorch cannot move a fake
+data-parallel axes (pod x data, one ``AbstractShard(0, D, "data")``)
+divide the batch (``mesh.batch_per_rank``) and carry, as the reference's
+do:
+  * in training, the gradient all-reduce over the data axis, the global
+    losses' sums and the MoE's global routing (its top-k ids gathered);
+    in pretraining the AdamW moments at rank 0's ZeRO-1 slice
+    (``sharding.zero1_slices``, the reference's ``zero1_param_pspecs``)
+    and the updated parameters' all-gather; distillation's gate moments
+    whole;
+  * in prefill and decode, the MoE's global routing of the rows over
+    data;
+  * at a batch the data axes do not divide (``long_500k``, batch 1), the
+    contiguous caches' sequence split over pod x data x model (an
+    ``AbstractShard(0, W, "world")`` as the model shard's
+    ``over_sequence``), the reference's ``decode_state_pspecs``.
+The tensors live on the CPU: this build of PyTorch cannot move a fake
 tensor to CUDA, and ``init_params`` places its leaves on the generator's
 device. Nothing in the model code branches on the device except the
 kernels' routing (``kernels/ops.py``), where a fake tensor takes the
 kernel's ``*_fake`` stand-in, so the traced program is the card's.
 
 Where the port's per-rank program differs from the reference's (each
-difference is also in every dry-run record's ``notes``):
-  * data parallelism costs nothing: no gradient all-reduce over the data
-    axes and no ZeRO-1 split of the AdamW moments (``specs.py:76-78`` of
-    the reference), so a rank holds all of its moments;
-  * the parameters follow the port's Megatron layout
-    (``sharding.param_layout``, ROADMAP 10c) and not ``param_pspecs``;
-    an attention whose KV heads the model axis does not divide stays
-    whole on every rank (``cell_notes`` names each such cell);
-  * at ``long_500k`` (batch 1) the sequence is split over the model axis
-    only; the reference spreads it over data x model
-    (``decode_state_pspecs``).
+difference is also in every dry-run record's ``notes``): the parameters
+follow the port's Megatron layout (``sharding.param_layout``, ROADMAP
+10c) and not ``param_pspecs``; an attention whose KV heads the model axis
+does not divide stays whole on every rank (``cell_notes`` names each
+such cell).
 """
 from __future__ import annotations
 
@@ -86,6 +94,26 @@ def cell_shard(mesh: MeshSpec) -> Optional[AbstractShard]:
     return None if mesh.model == 1 else AbstractShard(0, mesh.model)
 
 
+def cell_data(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec
+              ) -> Optional[AbstractShard]:
+    """Rank 0 of the data replicas the cell's batch splits over (pod x
+    data, or data alone: ``mesh.batch_per_rank``), or None where the batch
+    stays whole (or one replica takes it)."""
+    n = shape.global_batch // batch_per_rank(shape.global_batch, mesh, cfg.ep_major)
+    return AbstractShard(0, n, "data") if n > 1 else None
+
+
+def cell_seq(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec,
+             shard: Optional[AbstractShard]) -> Optional[AbstractShard]:
+    """The model shard of a decode cell whose batch the data axes do not
+    divide, its sequence split over the whole pod x data x model world
+    (``Shard.over_sequence``); else ``shard``."""
+    if (shard is None or shape.kind != "decode" or mesh.pod * mesh.data == 1
+            or batch_per_rank(shape.global_batch, mesh, cfg.ep_major) != shape.global_batch):
+        return shard
+    return shard.over_sequence(AbstractShard(0, mesh.size, "world"))
+
+
 def abstract_batch(cfg: ModelConfig, bsz: int, slen: int) -> Dict[str, torch.Tensor]:
     """A training batch of ``bsz`` rows: the keys, shapes and dtypes of
     ``data.pipeline.make_batch``, unwritten."""
@@ -114,11 +142,15 @@ def abstract_params(cfg: ModelConfig, shard: Optional[AbstractShard] = None,
 
 
 def abstract_train_state(cfg: ModelConfig, tcfg: TrainConfig,
-                         shard: Optional[AbstractShard] = None) -> train_loop.TrainState:
-    """``init_train_state`` at full size, cut by ``shard_state``."""
+                         shard: Optional[AbstractShard] = None,
+                         data: Optional[AbstractShard] = None) -> train_loop.TrainState:
+    """``init_train_state`` at full size, cut by ``shard_state`` (the
+    pretraining moments at the ``data`` rank's ZeRO-1 slice)."""
     _need_fake_mode()
     state = train_loop.init_train_state(_gen(), cfg, tcfg)
-    return state if shard is None else train_loop.shard_state(state, cfg, shard)
+    if shard is None and data is None:
+        return state
+    return train_loop.shard_state(state, cfg, shard, data)
 
 
 def decode_options(cfg: ModelConfig) -> DecodeOptions:
@@ -130,8 +162,9 @@ def abstract_decode_state(cfg: ModelConfig, bsz: int, max_len: int, options: Dec
                           shard: Optional[AbstractShard] = None):
     """``init_decode_state`` at full size (a recurrent family's state at the
     rank's channels or heads), its attention caches then cut along the
-    sequence where the engine's ``generate`` cuts them (every head), or
-    else at the rank's KV heads, as a sharded prefill leaves them."""
+    sequence where the engine's ``generate`` cuts them (every head; over
+    ``shard.seq_group``), or else at the rank's KV heads, as a sharded
+    prefill leaves them."""
     _need_fake_mode()
     seq = seq_sharded(cfg, options, shard)
     kw = {"shard": shard} if cfg.family in ("ssm", "hybrid") else {}
@@ -153,11 +186,19 @@ def cell_notes(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec) -> List[str
     """What the port's per-rank program of this cell does differently from
     the reference's, and what its numbers bound."""
     notes = [f"model axis {mesh.model}: the port's Shard (tensor parallelism in the Megatron "
-             "layout of ROADMAP 10c, not param_pspecs); data axes divide the batch only: no "
-             "data-parallel collectives, no ZeRO-1 of the AdamW moments"]
-    if mesh.model > 1:
+             "layout of ROADMAP 10c, not param_pspecs)"]
+    data = cell_data(cfg, shape, mesh)
+    seq = cell_seq(cfg, shape, mesh, cell_shard(mesh))
+    if data is not None:
+        what = {"train": "the gradient all-reduce, the global losses and the MoE routing"
+                         + (", ZeRO-1 moments and the parameters' all-gather"
+                            if default_train_cfg(cfg).mode == "pretrain" else ""),
+                "prefill": "the MoE routing", "decode": "the MoE routing"}[shape.kind]
+        notes.append(f"data axis {data.world}: each replica's rows of the batch; over it "
+                     f"{what} (a dense model's prefill and decode need no data collective)")
+    if mesh.size > 1:
         notes.append("collective term at NVLink's rate for every rank: a model axis past 8 "
-                     "cards spans two NVLink domains, so it is a lower bound there")
+                     "cards, and any data axis, spans NVLink domains, so it is a lower bound")
     if (shape.kind in ("prefill", "decode") and cfg.is_decoder and cfg.has_attention
             and part(cell_shard(mesh), cfg.n_kv_heads) is None and mesh.model > 1):
         notes.append(f"attention whole on every rank: the model axis ({mesh.model}) does not "
@@ -166,9 +207,9 @@ def cell_notes(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec) -> List[str
     if shape.kind == "decode":
         if seq_sharded(cfg, decode_options(cfg), cell_shard(mesh)):
             notes.append("sequence-sharded decode (serve/sharded.py): plain PyTorch, no kernel")
-            if batch_per_rank(shape.global_batch, mesh, cfg.ep_major) == shape.global_batch:
-                notes.append("the sequence split over the model axis only (the reference "
-                             "spreads it over data x model)")
+            if seq is not None and seq.seq is not None:
+                notes.append(f"the sequence split over pod x data x model ({seq.seq.world} "
+                             "ranks), as the reference's decode_state_pspecs")
         notes.append("kernel costs count every selected block valid (a full context): an "
                      "upper bound")
     return notes
@@ -176,18 +217,27 @@ def cell_notes(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec) -> List[str
 
 def cell_fn_and_specs(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec
                       ) -> Tuple[Callable, Tuple, Optional[AbstractShard]]:
-    """(step, rank 0's arguments, the cell's AbstractShard or None); call
-    ``step(*args)`` under the same FakeTensorMode."""
+    """(step, rank 0's arguments, the cell's model-axis AbstractShard or
+    None); call ``step(*args)`` under the same FakeTensorMode."""
+    fn, args, axes = cell_fn_specs_axes(cfg, shape, mesh)
+    return fn, args, axes[0]
+
+
+def cell_fn_specs_axes(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec
+                       ) -> Tuple[Callable, Tuple, List[Optional[AbstractShard]]]:
+    """(step, rank 0's arguments, [model, data, world] AbstractShards, each
+    or None), every collective the step makes logged in one of them."""
     _need_fake_mode()
     api = get_api(cfg)
     shard = cell_shard(mesh)
+    data = cell_data(cfg, shape, mesh)
     bsz = batch_per_rank(shape.global_batch, mesh, cfg.ep_major)
 
     if shape.kind == "train":
         tcfg = default_train_cfg(cfg)
-        step = train_loop.make_train_step(cfg, tcfg, shard=shard)
-        return step, (abstract_train_state(cfg, tcfg, shard),
-                      abstract_batch(cfg, bsz, shape.seq_len)), shard
+        step = train_loop.make_train_step(cfg, tcfg, shard=shard, data=data)
+        return step, (abstract_train_state(cfg, tcfg, shard, data),
+                      abstract_batch(cfg, bsz, shape.seq_len)), [shard, data, None]
 
     if shape.kind == "prefill":
         batch = abstract_batch(cfg, bsz, shape.seq_len)
@@ -196,25 +246,30 @@ def cell_fn_and_specs(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec
             @torch.no_grad()
             def encoder_step(params, batch):
                 return api.forward(params, batch, cfg, mode="pretrain", shard=shard)
-            return encoder_step, (abstract_params(cfg, shard, "train"), batch), shard
+            return encoder_step, (abstract_params(cfg, shard, "train"), batch), \
+                [shard, None, None]
         batch = {k: v for k, v in batch.items() if k in ("tokens", "image_embeds")}
         options = default_options(cfg)
 
         @torch.no_grad()
         def prefill_step(params, batch):
             return api.prefill(params, batch, cfg, shape.seq_len, options=options,
-                               shard=shard)
-        return prefill_step, (abstract_params(cfg, shard), batch), shard
+                               shard=shard, data=data)
+        return prefill_step, (abstract_params(cfg, shard), batch), [shard, data, None]
 
     if shape.kind == "decode":
         options = decode_options(cfg)
+        step_shard = cell_seq(cfg, shape, mesh, shard)
+        world = None if step_shard is None else step_shard.seq
 
         @torch.no_grad()
         def serve_step(params, state, token):
-            return api.decode_step(params, state, token, cfg, options=options, shard=shard)
+            return api.decode_step(params, state, token, cfg, options=options,
+                                   shard=step_shard, data=data)
         token = torch.empty((bsz,), dtype=torch.int32, device=DEVICE)
         return serve_step, (abstract_params(cfg, shard),
-                            abstract_decode_state(cfg, bsz, shape.seq_len, options, shard),
-                            token), shard
+                            abstract_decode_state(cfg, bsz, shape.seq_len, options,
+                                                  step_shard),
+                            token), [shard, data, world]
 
     raise ValueError(shape.kind)

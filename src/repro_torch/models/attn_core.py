@@ -49,7 +49,7 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, shard=None):
 
 
 def ffn(p: Params, h2: torch.Tensor, cfg: ModelConfig, shard=None, *,
-        decode: bool = False):
+        decode: bool = False, data=None):
     """A block's feed-forward over h2 [..., d]: (y, the MoE router loss or
     None). A ``"moe"`` block routes all of h2's rows in one call, so at
     decode every row of the step (each slot, active or not) competes for
@@ -58,10 +58,11 @@ def ffn(p: Params, h2: torch.Tensor, cfg: ModelConfig, shard=None, *,
     decode bodies) a dense MLP and a MoE block's shared experts split
     their hidden units with one sum (``distributed.sharding``), and the
     routed experts are expert-parallel: summed in training, gathered
-    exactly at ``decode`` (``moe.moe_mlp(gather=True)``)."""
+    exactly at ``decode`` (``moe.moe_mlp(gather=True)``). Rows split over
+    a ``data`` shard keep the MoE routing of the global rows."""
     if "moe" in p:
         y, aux = moe_mod.moe_mlp(p["moe"], h2.reshape(-1, h2.shape[-1]), cfg.moe,
-                                 cfg.activation, shard=shard, gather=decode)
+                                 cfg.activation, shard=shard, gather=decode, data=data)
         return y.reshape(h2.shape), aux
     return mlp(p["mlp"], h2, cfg.activation, part(shard, cfg.d_ff)), None
 

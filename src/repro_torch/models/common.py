@@ -11,7 +11,7 @@ dtype at the end.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -278,13 +278,26 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(b, 1, h, d).to(q.dtype)
 
 
+def masked_sums(values: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum(values * mask), sum(mask)): the numerator and denominator of a
+    masked mean, which a data axis sums over its replicas before the
+    division."""
+    mask = mask.to(values.dtype)
+    return torch.sum(values * mask), torch.sum(mask)
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None, shard=None) -> torch.Tensor:
+                       mask: Optional[torch.Tensor] = None, shard=None,
+                       data=None) -> torch.Tensor:
     """logits [B, L, V] -> the mean fp32 negative log-likelihood of
     ``labels`` [B, L], over the positions where ``mask`` [B, L] (optional)
     is nonzero: sum(nll * mask) / max(sum(mask), 1). Under a ``shard`` the
     logits are the rank's vocabulary block [B, L, V / world]
-    (``sharding.vocab_parallel_nll``)."""
+    (``sharding.vocab_parallel_nll``). Over a ``data`` shard the rows are
+    the replica's share of the global batch and the mean is the global
+    one: the numerator summed over the data group forward (its gradient
+    each replica's own, ``reduce_from_model``), the denominator summed;
+    without a mask the replicas' equal-sized means averaged."""
     if shard is not None:
         nll = vocab_parallel_nll(logits, labels, shard)
     else:
@@ -293,6 +306,9 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
         nll = lse - ll
     if mask is not None:
-        mask = mask.to(nll.dtype)
-        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
-    return torch.mean(nll)
+        num, den = masked_sums(nll, mask)
+        if data is not None:
+            num, den = reduce_from_model(num, data), data.all_sum(den)
+        return num / torch.clamp_min(den, 1.0)
+    mean = torch.mean(nll)
+    return mean if data is None else reduce_from_model(mean, data) / data.world

@@ -84,7 +84,7 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def lm_forward(params: Params, batch, cfg: ModelConfig, *, mode: str = "pretrain",
-               shard=None):
+               shard=None, data=None):
     """The reference's forward. Each unit runs its Mamba2 layers, then the
     shared block through ``transformer.block_fwd_full`` (the same
     parameters every unit), then the tail.
@@ -100,10 +100,13 @@ def lm_forward(params: Params, batch, cfg: ModelConfig, *, mode: str = "pretrain
     TypeError) the training is tensor-parallel over its group: the
     Mamba2 mixers by heads, the shared block as the transformer's (in
     distillation kernel 6 and the gate on the rank's heads), the
-    embedding and the logits by vocabulary."""
+    embedding and the logits by vocabulary. ``data`` (the data axis):
+    ``batch`` is this replica's rows, and the loss is the global
+    batch's."""
     if mode not in ("pretrain", "distill"):
         raise ValueError(f"lm_forward: unknown mode {mode!r}")
     check_shard(shard)
+    check_shard(data)
     n_units = _plan(cfg)[0]
     distill = mode == "distill"
     tokens = batch["tokens"]
@@ -129,9 +132,9 @@ def lm_forward(params: Params, batch, cfg: ModelConfig, *, mode: str = "pretrain
     with tf._base_grad(distill):
         x = mamba.stack_train(params.get("tail", []), x, cfg, mamba.mamba2_full, shard)
     if distill:
-        kl = tf.global_kl(kl, cfg, shard) / max(n_units, 1)
+        kl = tf.global_kl(kl, cfg, shard, data) / max(n_units, 1)
         return kl, {"kl": kl.detach()}
-    ce = tf.lm_loss(params, x, batch, cfg, shard)
+    ce = tf.lm_loss(params, x, batch, cfg, shard, data)
     return ce, {"ce": ce.detach()}
 
 
@@ -185,7 +188,7 @@ def _mamba_blocks(params: Params):
 
 
 def lm_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-               max_len: int, options=None, shard=None):
+               max_len: int, options=None, shard=None, data=None):
     """Full forward filling the shared block's per-unit K/V/Kg caches
     (head-major, written once by ``transformer.prefill_block``) and
     collecting every Mamba2 layer's final (conv, h). Returns (last logits
@@ -234,7 +237,7 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def lm_decode_step(params: Params, state: HybridDecodeState, token: torch.Tensor,
-                   cfg: ModelConfig, *, options=None, shard=None):
+                   cfg: ModelConfig, *, options=None, shard=None, data=None):
     """token [B] -> (logits [B, V], state, aux), as
     ``transformer.lm_decode_step``: the shared block's caches are updated
     in place, the returned state holds new conv/h tensors and ``cur_len +

@@ -49,6 +49,18 @@ the unsharded call's wherever the per-expert matmuls are, and the shared
 experts' sum reorders fp32 additions at more than one rank. The gather
 carries ``E * C * d`` elements a call, about ``capacity_factor * T *
 top_k * d``.
+
+Rows split over a data axis (``moe_mlp(..., data=)``: training's
+replicas, or ``generate``'s rows over data) keep the GLOBAL routing of
+the reference's one call over every row (``dispatch="gspmd"``): the
+router's top-k ids are gathered over the data group (small ints), the
+capacity and each assignment's rank within its expert are computed on
+the global rows, and each replica then computes its own rows only, so
+the drops are the single-device call's. The router loss's token
+fractions count the global assignments and its probability mass is the
+replicas' (equal-sized) means averaged. Each replica's buffer keeps the
+global capacity's slots, about D times the rows it fills (the
+reference's GSPMD buffer splits its capacity over data instead).
 """
 from __future__ import annotations
 
@@ -164,7 +176,7 @@ def _local_experts(flat_e: torch.Tensor, shard, e_loc: int):
 
 def moe_mlp(p: Params, x: torch.Tensor, mcfg: MoEConfig,
             activation: str = "swiglu", shard=None,
-            gather: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            gather: bool = False, data=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [T, d] tokens -> (y [T, d] in x's dtype, aux loss f32 scalar).
     Under a training ``shard`` the routed experts are this rank's block
     ``p["wi_gate"]`` [E / world, ...] (expert parallelism where the world
@@ -172,11 +184,20 @@ def moe_mlp(p: Params, x: torch.Tensor, mcfg: MoEConfig,
     y is the sum over ranks. With ``gather`` (decode, no autograd) the
     routed experts are the rank's block as well, gathered exactly into
     the unsharded [E, cap, d] outputs, whose weighting and sum over top-k
-    are the unsharded call's; the shared experts split as in training."""
+    are the unsharded call's; the shared experts split as in training.
+    Over a ``data`` shard x is the replica's rows (the same count on every
+    replica, in global row order by data rank) and the routing is the
+    global rows' (the module docstring)."""
     t, d = x.shape
     e, k = mcfg.n_experts, mcfg.top_k
     probs, top_i, top_w = route(x, p["router"]["w"], k)
-    flat_e, slot, keep, cap = dispatch(top_i, mcfg)
+    if data is None:
+        flat_e, slot, keep, cap = dispatch(top_i, mcfg)
+        all_e = flat_e
+    else:
+        all_e, slot, keep, cap = dispatch(data.all_gather(top_i, 0), mcfg)
+        mine = slice(data.rank * t * k, (data.rank + 1) * t * k)
+        flat_e, slot, keep = all_e[mine], slot[mine], keep[mine]
     ep = part(shard, e)
     sp = part(shard, mcfg.n_shared_experts * mcfg.expert_d_ff) if "shared" in p else None
     e_loc = p["wi_gate"].shape[0]
@@ -218,6 +239,9 @@ def moe_mlp(p: Params, x: torch.Tensor, mcfg: MoEConfig,
             y = reduce_from_model(y, ep) + reduce_from_model(ys, sp)
     else:
         y = reduce_from_model(y, ep)
-    frac = _expert_counts(flat_e, e).float() / (t * k)
-    aux = e * torch.sum(frac * probs.mean(dim=0)) * mcfg.router_aux_coef
+    frac = _expert_counts(all_e, e).float() / all_e.shape[0]
+    pmass = probs.mean(dim=0)
+    if data is not None:
+        pmass = reduce_from_model(pmass, data) / data.world
+    aux = e * torch.sum(frac * pmass) * mcfg.router_aux_coef
     return y.to(x.dtype), aux

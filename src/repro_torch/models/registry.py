@@ -22,15 +22,20 @@ class ModelApi(NamedTuple):
     ``core.policy.DecodeOptions``; the decode steps return a
     measured-selection ``aux`` dict for serving telemetry."""
     init_params: Callable          # (generator, cfg) -> params
-    forward: Callable              # (params, batch, cfg, *, mode, shard) -> (loss, metrics);
-    #                                 mode="pretrain" (CE) or "distill" (gate KL, base frozen)
+    forward: Callable              # (params, batch, cfg, *, mode, shard, data)
+    #                                 -> (loss, metrics); mode="pretrain" (CE) or "distill"
+    #                                 (gate KL, base frozen); data: the data axis's Shard
+    #                                 (batch a replica's rows, the loss the global one)
     init_decode_state: Callable    # (cfg, batch_size, max_len, dtype, options, *, device)
     #                                 -> state
-    prefill: Callable              # (params, batch, cfg, max_len, options, shard)
+    prefill: Callable              # (params, batch, cfg, max_len, options, shard, data)
     #                                 -> (logits, state); batch may carry "lengths"
     #                                 (right-padded rows)
-    decode_step: Callable          # (params, state, token, cfg, *, options, shard)
+    decode_step: Callable          # (params, state, token, cfg, *, options, shard, data)
     #                                 -> (logits, state, aux)
+    # (prefill's and decode_step's ``data``: the rows are a data replica's
+    # share; a MoE block routes as the whole batch would, and the other
+    # families' rows are independent, so they read nothing of it)
     # continuous-batching paged decode (serve.paging):
     # (params, pages, slot_state, token, page_table, cur_len, active, cfg,
     #  *, options, budget_blocks, shard) -> (logits, pages, slot_state, aux)

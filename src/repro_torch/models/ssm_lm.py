@@ -52,7 +52,7 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def lm_forward(params: Params, batch, cfg: ModelConfig, *, mode: str = "pretrain",
-               shard=None):
+               shard=None, data=None):
     """The reference's forward, pretraining in either ``mode`` (the model
     has no gate to distill): the Mamba1 layers over ``batch["tokens"]``
     [B, L] (positions and segment ids are not read: the recurrence runs
@@ -61,11 +61,14 @@ def lm_forward(params: Params, batch, cfg: ModelConfig, *, mode: str = "pretrain
     ``loss_mask``. Returns (ce, {"ce"}). Under a ``shard`` (a
     ``distributed.sharding.Shard``; anything else raises TypeError) the
     training is tensor-parallel over its group: the embedding and the
-    logits split by vocabulary, each Mamba1 mixer over ``d_inner``."""
+    logits split by vocabulary, each Mamba1 mixer over ``d_inner``.
+    ``data`` (the data axis): ``batch`` is this replica's rows, and the
+    loss is the global batch's."""
     check_shard(shard)
+    check_shard(data)
     x = embed(params, batch["tokens"], cfg, shard)
     x = mamba.stack_train(params["blocks"], x, cfg, mamba.mamba1_full, shard)
-    ce = lm_loss(params, x, batch, cfg, shard)
+    ce = lm_loss(params, x, batch, cfg, shard, data)
     return ce, {"ce": ce.detach()}
 
 
@@ -90,7 +93,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int = 0,
 
 
 def lm_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-               max_len: int = 0, options=None, shard=None):
+               max_len: int = 0, options=None, shard=None, data=None):
     """Full forward collecting every layer's final (conv, h). Returns (last
     logits [B, V], SSMDecodeState). ``batch["lengths"]`` [B] (optional):
     the true lengths of right-padded prompts; pad tokens are an exact
@@ -123,7 +126,7 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def lm_decode_step(params: Params, state: SSMDecodeState, token: torch.Tensor,
-                   cfg: ModelConfig, *, options=None, shard=None):
+                   cfg: ModelConfig, *, options=None, shard=None, data=None):
     """token [B] -> (logits [B, V], new SSMDecodeState, aux). The input
     state is not written; ``options`` is taken for the ``ModelApi``'s
     uniformity (only its sampling matters, applied by the engine) and the

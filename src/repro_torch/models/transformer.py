@@ -296,13 +296,14 @@ def _cross_kv(p: Params, ctx: torch.Tensor, cfg: ModelConfig, shard=None):
 
 def block_fwd_full(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                    rope_positions, segment_ids, distill: bool,
-                   collect_gate: bool = False, cross_ctx=None, shard=None):
+                   collect_gate: bool = False, cross_ctx=None, shard=None, data=None):
     """One layer. ``distill`` runs the residual stream without autograd
     (the gate's own einsums aside); otherwise the whole block is
     differentiable (pretraining). A given ``cross_ctx`` makes it a
     cross-attention block (no gate). Under a training ``shard`` the
     attention and the feed-forward run tensor-parallel; the residual
-    stream is replicated. Returns (x, kl, MoE router loss or None,
+    stream is replicated. Rows split over a ``data`` shard keep the MoE
+    routing of the global rows. Returns (x, kl, MoE router loss or None,
     extras|None)."""
     with _base_grad(distill):
         h = rms_norm(p["ln1"], x, cfg.norm_eps)
@@ -318,18 +319,19 @@ def block_fwd_full(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             shard=shard)
     with _base_grad(distill):
         x = x + attn_out
-        y, aux = ffn(p, rms_norm(p["ln2"], x, cfg.norm_eps), cfg, shard)
+        y, aux = ffn(p, rms_norm(p["ln2"], x, cfg.norm_eps), cfg, shard, data=data)
     return x + y, kl, aux, extras
 
 
-def _pretrain_block(cfg: ModelConfig, rope_positions, segment_ids, cross_ctx, shard=None):
+def _pretrain_block(cfg: ModelConfig, rope_positions, segment_ids, cross_ctx, shard=None,
+                    data=None):
     """A block of the pretraining forward as a function of (params, x) ->
     (x, MoE router loss), for ``common.remat``: every tensor it returns
     is one the backward can reach."""
     def fwd(lp, x):
         y, _, aux, _ = block_fwd_full(lp, x, cfg, rope_positions=rope_positions,
                                       segment_ids=segment_ids, distill=False,
-                                      cross_ctx=cross_ctx, shard=shard)
+                                      cross_ctx=cross_ctx, shard=shard, data=data)
         return y, (torch.zeros((), dtype=torch.float32, device=x.device)
                    if aux is None else aux)
     return remat(fwd, cfg)
@@ -337,7 +339,7 @@ def _pretrain_block(cfg: ModelConfig, rope_positions, segment_ids, cross_ctx, sh
 
 def lm_backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 rope_positions, segment_ids, distill: bool,
-                collect_gate: bool = False, cross_ctx=None, shard=None):
+                collect_gate: bool = False, cross_ctx=None, shard=None, data=None):
     """Runs the layers in ``layer_order`` (a Python loop in place of
     ``lax.scan``). Returns (x, kl_sum, aux_sum, extras|None): the gate KL
     and the MoE router loss summed over layers; extras stack each key over
@@ -349,8 +351,8 @@ def lm_backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.cross_attn_period and cross_ctx is None:
         raise ValueError("a cross-attention model needs batch['image_embeds']")
     if not distill:
-        self_fwd = _pretrain_block(cfg, rope_positions, segment_ids, None, shard)
-        cross_fwd = _pretrain_block(cfg, rope_positions, segment_ids, cross_ctx, shard)
+        self_fwd = _pretrain_block(cfg, rope_positions, segment_ids, None, shard, data)
+        cross_fwd = _pretrain_block(cfg, rope_positions, segment_ids, cross_ctx, shard, data)
         for kind, i in layer_order(cfg):
             if kind == "self":
                 x, l_aux = self_fwd(params["blocks"][i], x)
@@ -364,7 +366,7 @@ def lm_backbone(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         x, l_kl, l_aux, extras = block_fwd_full(
             lp, x, cfg, rope_positions=rope_positions, segment_ids=segment_ids,
             distill=True, collect_gate=collect_gate,
-            cross_ctx=cross_ctx if kind == "cross" else None, shard=shard)
+            cross_ctx=cross_ctx if kind == "cross" else None, shard=shard, data=data)
         kl = kl + l_kl
         if l_aux is not None:
             aux = aux + l_aux
@@ -414,24 +416,27 @@ def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig, shard=None
     return vocab_parallel_embed(params["embed"]["w"], tokens, shard)
 
 
-def lm_loss(params: Params, x: torch.Tensor, batch, cfg: ModelConfig, shard=None
-            ) -> torch.Tensor:
+def lm_loss(params: Params, x: torch.Tensor, batch, cfg: ModelConfig, shard=None,
+            data=None) -> torch.Tensor:
     """The fp32 cross-entropy of ``batch["labels"]`` under its
     ``loss_mask`` from the last hidden states x (vocabulary-parallel
-    under a training ``shard`` that splits the vocabulary)."""
+    under a training ``shard`` that splits the vocabulary); over a
+    ``data`` shard the global batch's (``common.cross_entropy_loss``)."""
     shard = part(shard, cfg.vocab_size)
     return cross_entropy_loss(_logits(params, x, cfg, shard), batch["labels"],
-                              batch.get("loss_mask"), shard)
+                              batch.get("loss_mask"), shard, data)
 
 
-def global_kl(kl: torch.Tensor, cfg: ModelConfig, shard=None) -> torch.Tensor:
+def global_kl(kl: torch.Tensor, cfg: ModelConfig, shard=None, data=None) -> torch.Tensor:
     """The gate KL over all KV heads from a rank's mean over its own (the
     same number of rows on every rank): their mean over ranks. The
-    rank's value itself where the attention stays replicated."""
-    shard = part(shard, cfg.n_kv_heads)
-    if shard is None:
-        return kl
-    return reduce_from_model(kl, shard) / shard.world
+    rank's value itself where the attention stays replicated. Over a
+    ``data`` shard, whose replicas hold equal shares of the rows, the
+    mean over the data ranks as well (the global batch's)."""
+    ash = part(shard, cfg.n_kv_heads)
+    if ash is not None:
+        kl = reduce_from_model(kl, ash) / ash.world
+    return kl if data is None else reduce_from_model(kl, data) / data.world
 
 
 def _image_ctx(batch: Dict[str, torch.Tensor], dtype: torch.dtype):
@@ -441,7 +446,7 @@ def _image_ctx(batch: Dict[str, torch.Tensor], dtype: torch.dtype):
 
 
 def lm_forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-               mode: str = "pretrain", shard=None):
+               mode: str = "pretrain", shard=None, data=None):
     """mode 'pretrain' -> (ce + router loss, {"ce", "aux"}): the final
     norm, the tied or untied logits and the fp32 cross-entropy of
     ``batch["labels"]`` under its ``loss_mask``, plus the MoE router loss
@@ -462,18 +467,21 @@ def lm_forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     TypeError): tensor-parallel training over its group, ``params`` this
     rank's blocks (``sharding.shard_params``), the batch the same on
     every rank; the loss and metrics are the whole model's on every
-    rank."""
+    rank. ``data`` (a second ``Shard``, the data axis): ``batch`` is this
+    replica's rows of the global batch, and the loss, the metrics and the
+    MoE routing are the global batch's."""
     if mode not in ("pretrain", "distill"):
         raise ValueError(f"lm_forward: unknown mode {mode!r}")
     check_shard(shard)
+    check_shard(data)
     distill = mode == "distill"
     x, pos, seg, ctx = _full_inputs(params, batch, cfg, distill, shard)
     x, kl, aux, _ = lm_backbone(params, x, cfg, rope_positions=pos, segment_ids=seg,
-                                distill=distill, cross_ctx=ctx, shard=shard)
+                                distill=distill, cross_ctx=ctx, shard=shard, data=data)
     if distill:
-        kl = global_kl(kl, cfg, shard) / max(_n_gate_layers(cfg), 1)
+        kl = global_kl(kl, cfg, shard, data) / max(_n_gate_layers(cfg), 1)
         return kl + aux * 0.0, {"kl": kl.detach()}
-    ce = lm_loss(params, x, batch, cfg, shard)
+    ce = lm_loss(params, x, batch, cfg, shard, data)
     return ce + aux, {"ce": ce.detach(), "aux": aux.detach()}
 
 
@@ -569,7 +577,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 
 def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig, max_len: int,
-               options: Optional[DecodeOptions] = None, shard=None
+               options: Optional[DecodeOptions] = None, shard=None, data=None
                ) -> Tuple[torch.Tensor, DecodeState]:
     """Full forward filling the caches. Returns (last logits [B, V], state).
 
@@ -589,7 +597,9 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
     (``params`` cut by ``sharding.decode_params``) every block runs on the
     rank's block of its weights, the embedding and logits on the rank's
     vocabulary (the last logits gathered whole), and the caches, the
-    cross ones too, hold the rank's KV heads."""
+    cross ones too, hold the rank's KV heads. ``data``: the rows are a
+    data replica's share of the batch, and a MoE block routes as the
+    whole batch would (``moe.moe_mlp(data=)``)."""
     _check_family(cfg, decode=True)
     tokens = batch["tokens"]
     b, l = tokens.shape
@@ -617,7 +627,7 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
             continue
         x = prefill_block(params["blocks"][i], x, cfg, pos, state.k_cache[i],
                           state.v_cache[i], None if state.kg_cache is None
-                          else state.kg_cache[i], shard)
+                          else state.kg_cache[i], shard, data)
     last = finish_prefill(state, x, batch.get("lengths"), bs)
     if state.meta_kmin is not None:
         # kv_len masking keeps pad and beyond-length tokens out of min/max
@@ -632,7 +642,7 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
 
 def prefill_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor,
                   k_cache: torch.Tensor, v_cache: torch.Tensor,
-                  kg_cache: Optional[torch.Tensor], shard=None) -> torch.Tensor:
+                  kg_cache: Optional[torch.Tensor], shard=None, data=None) -> torch.Tensor:
     """One self-attention block over the prompt x [B, L, d], writing its
     caches in place: the post-rope K and the V into ``k_cache``/``v_cache``
     [B, Hkv, S_max, Dh] (the ONE-TIME layout conversion, seq-major to
@@ -662,7 +672,8 @@ def prefill_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tens
         kg_cache[:, :, :nb] = kg.transpose(1, 2).to(kg_cache.dtype)
     x = x + reduce_from_model(linear(p["wo"], o.reshape(b, l, -1)), ash)
     del q, k, v, qr, kr, o
-    return x + ffn(lp, rms_norm(lp["ln2"], x, cfg.norm_eps), cfg, shard, decode=True)[0]
+    return x + ffn(lp, rms_norm(lp["ln2"], x, cfg.norm_eps), cfg, shard, decode=True,
+                   data=data)[0]
 
 
 def finish_prefill(state, x: torch.Tensor, lengths, block_size: int) -> torch.Tensor:
@@ -730,7 +741,11 @@ def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     attends the rank's KV heads of the caches (a sharded prefill's), then
     the same ``wo`` rows and sum. An attention that the world size does
     not split (MQA) runs whole on every rank, with no collective but the
-    sequence-sharded step's own.
+    sequence-sharded step's own. The sequence is split over
+    ``shard.seq_group``: the shard's own group, or for a batch the data
+    axis does not divide the data x model world (``Shard.over_sequence``),
+    whose candidate gather and combine then span every rank while the
+    head gather and the ``wo`` sum stay on the model group.
     """
     b = x1.shape[0]
     dh, hkv, g = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.gqa_group
@@ -757,7 +772,7 @@ def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
         qg = ag.gate_q(p["gate"], q, pos, cfg.gate)[:, 0]         # [B,Hkv,Dg]
         o, n_sel = sharded_sparse_decode(
             qg, qr[:, 0].reshape(b, hkv, g, dh), kr[:, 0], v[:, 0], k_cache, v_cache,
-            kg_cache, cur_len, p["gate"]["wk"], shard=shard, cfg=cfg.gate,
+            kg_cache, cur_len, p["gate"]["wk"], shard=shard.seq_group, cfg=cfg.gate,
             rope_theta=cfg.rope_theta, max_selected=options.max_selected(cfg))
         new_len = cur_len + 1
         kg_n = torch.where((new_len % bs) == 0, new_len // bs, kg_n).to(torch.int32)
@@ -821,7 +836,7 @@ def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
 
 def block_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, layer_state,
                  cur_len: torch.Tensor, *, options: DecodeOptions, shard=None,
-                 stage=None, plan=None):
+                 stage=None, plan=None, data=None):
     """One transformer block; ``layer_state`` is the layer's (k_cache,
     v_cache, kg_cache, kg_n, meta_kmin, meta_kmax, meta_n). Returns (x1,
     new layer state, aux), plus the plan when ``stage`` is given."""
@@ -835,7 +850,8 @@ def block_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, layer_state,
     attn_out, new_state, aux = ret[:3]
     x1 = x1 + attn_out
     h2 = rms_norm(p["ln2"], x1, cfg.norm_eps)
-    return (x1 + ffn(p, h2, cfg, shard, decode=True)[0], new_state, aux) + ret[3:]
+    return (x1 + ffn(p, h2, cfg, shard, decode=True, data=data)[0], new_state,
+            aux) + ret[3:]
 
 
 def cross_block_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig,
@@ -874,7 +890,7 @@ def _plan0(options: DecodeOptions, cfg: ModelConfig, batch: int, nb: int, device
 
 def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
                    cfg: ModelConfig, *,
-                   options: Optional[DecodeOptions] = None, shard=None):
+                   options: Optional[DecodeOptions] = None, shard=None, data=None):
     """token [B] -> (logits [B, V], DecodeState, aux dict).
 
     The caches in ``state`` are updated in place; the returned state holds
@@ -889,7 +905,8 @@ def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
     vocabulary, the logits gathered whole. A cross-attention model
     runs its units' cross blocks over ``cross_k``/``cross_v`` between the
     self layers and refuses a plan-carrying schedule, as the reference
-    does."""
+    does. ``data``: the rows are a data replica's share of the batch, and
+    a MoE block routes as the whole batch would."""
     options = options if options is not None else default_options(cfg)
     if options.schedule.needs_plan and cfg.cross_attn_period:
         raise NotImplementedError(
@@ -915,7 +932,7 @@ def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
                        row(state.meta_kmax, i), row(state.meta_n, i))
         ret = block_decode(lp, x1, cfg, layer_state, state.cur_len, options=options,
                            shard=shard, stage=None if stages is None else stages[i],
-                           plan=plan)
+                           plan=plan, data=data)
         x1, new_state, aux = ret[:3]
         if stages is not None:
             plan = ret[3]

@@ -66,7 +66,26 @@ SelectionSchedule (the carried plan holds the rank's heads; the gate's
 sampling, and open-loop arrivals. Sampling reads the replicated logits
 and every rank draws from the same seeded generator, so every rank picks
 the same token. ``generate``'s sequence-sharded step takes the trivial
-schedule only, as the reference's does. On a CUDA
+schedule only, as the reference's does.
+
+A data axis (``DecodeEngine(..., shard=model, data=data)``, the two
+groups of ``distributed.sharding.data_model_shards``; the rank is ``d *
+M + m``) reaches ``generate`` only. A batch that the data axis divides
+is split by rows (``sharding.data_rows``): each replica prefills and
+decodes its rows on its model group, a MoE block routing as the whole
+batch would (``moe.moe_mlp(data=)``), and the tokens are gathered over
+the data group, so every rank returns the whole batch's. That routing
+costs a MoE model: each replica's expert buffer holds the global
+capacity, so D data replicas compute D times the expert rows of one
+engine on the whole batch (slot ranges over data, ROADMAP A2, are the
+fix). A batch it
+does not divide (batch 1) stays whole on every replica, and the
+sequence-sharded step splits the caches over the whole data x model
+world in rank order (the reference's ``dp + ("model",)``,
+``Shard.over_sequence``): the weights stay at the model group's layout,
+and the per-step q/k/v head gather stays on the model group. Paged
+``serve`` takes no data axis: the reference's ``paged_pool_pspecs`` puts
+nothing on it, so a data replica of ``serve`` is another engine. On a CUDA
 device every layer's selection and sparse attention go through the
 hand-written kernels (``kernels/ops.py``), or, for the policies the
 reference scores in jnp, through plain PyTorch on the card; on the CPU
@@ -79,12 +98,13 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.policy import (DecodeOptions, DensePolicy, GatePolicy,
                                      default_options)
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (Shard, decode_params, part,
+from repro_torch.distributed.sharding import (Shard, data_rows, decode_params, part,
                                               replicated_state_bytes, seq_shard_state)
 from repro_torch.models.registry import get_api
 from repro_torch.serve import paging as pg
@@ -118,13 +138,17 @@ def seq_sharded(cfg: ModelConfig, options: DecodeOptions, shard) -> bool:
 class DecodeEngine:
     def __init__(self, cfg: ModelConfig, params: Any, *, max_len: int,
                  options: Optional[DecodeOptions] = None, device=None,
-                 shard=None):
+                 shard=None, data=None):
         if not cfg.is_decoder:
             raise ValueError(f"{cfg.arch_id}: the {cfg.family!r} family is an encoder "
                              "with no decode; it runs through lm_forward only")
-        if shard is not None and not isinstance(shard, Shard):
-            raise TypeError(f"shard must be a repro_torch.distributed.sharding.Shard, "
-                            f"got {type(shard).__name__}")
+        for grp in (shard, data):
+            if grp is not None and not isinstance(grp, Shard):
+                raise TypeError(f"shard and data must be repro_torch.distributed.sharding."
+                                f"Shard, got {type(grp).__name__}")
+        if data is not None and shard is None:
+            raise ValueError("a data axis needs the model group's Shard too (a one-rank "
+                             "group at model parallelism 1): sharding.data_model_shards")
         options = options if options is not None else default_options(cfg)
         if options.split_k > 1 and shard is None:
             raise ValueError("split_k > 1 applies to the paged sharded path only: "
@@ -133,6 +157,8 @@ class DecodeEngine:
             raise ValueError("sharded decoding supports GatePolicy (distributed gate "
                              "top-k) or DensePolicy only")
         self.shard = shard
+        self.data = data
+        self._world = None          # the data x model world, built on first use
         self.device = resolve_device(device)
         self.cfg = cfg
         self.api = get_api(cfg)
@@ -155,12 +181,14 @@ class DecodeEngine:
             torch.cuda.synchronize(self.device)
 
     @torch.no_grad()
-    def _step(self, params, state, token, generator=None):
+    def _step(self, params, state, token, generator=None, shard=None, data=None):
         """One decode step: (next token, logits, state, aux). The state's
         caches are updated in place; ``generator`` feeds stochastic
-        sampling."""
+        sampling. ``shard`` (default the engine's) and ``data`` are
+        ``generate``'s for this batch."""
         logits, state, aux = self.api.decode_step(
-            params, state, token, self.cfg, options=self.options, shard=self.shard)
+            params, state, token, self.cfg, options=self.options,
+            shard=self.shard if shard is None else shard, data=data)
         nxt = smp.sample(logits, self.options.sampling, generator)
         return nxt, logits, state, aux
 
@@ -172,18 +200,18 @@ class DecodeEngine:
         return generator
 
     @torch.no_grad()
-    def prefill(self, batch: Dict[str, Any], generator=None):
+    def prefill(self, batch: Dict[str, Any], generator=None, *, data=None):
         """batch["tokens"] [B, L] (tensor or array) -> (first token [B],
         state); a vision model's ``batch["image_embeds"]`` [B, n_img, d]
         rides along to its cross-attention layers. The options ride along
         too, so a metadata-reading policy gets its metadata cache built
-        here."""
+        here. ``data``: the batch is that data replica's rows."""
         inputs = {"tokens": torch.as_tensor(batch["tokens"], device=self.device)}
         if batch.get("image_embeds") is not None:
             inputs["image_embeds"] = torch.as_tensor(batch["image_embeds"],
                                                      device=self.device)
         logits, state = self.api.prefill(self.params, inputs, self.cfg, self.max_len,
-                                         options=self.options, shard=self.shard)
+                                         options=self.options, shard=self.shard, data=data)
         return smp.sample(logits, self.options.sampling,
                           self._generator(generator)), state
 
@@ -199,7 +227,11 @@ class DecodeEngine:
         sequence; that step takes the trivial schedule only, and any other
         raises ValueError before the prefill. A recurrent family's state
         comes out of the prefill at the rank's size, and so do the
-        attention caches of a dense policy (the rank's KV heads)."""
+        attention caches of a dense policy (the rank's KV heads). With a
+        data axis the rows split over it where it divides the batch (the
+        tokens gathered back over it; ``sparsity_stats`` reads the
+        replica's rows), else the sequence splits over the whole world
+        (the module docstring)."""
         sharded = seq_sharded(self.cfg, self.options, self.shard)
         if sharded and not self.options.schedule.is_trivial:
             raise ValueError(
@@ -208,32 +240,67 @@ class DecodeEngine:
                 "schedules on a sharded engine")
         self._last_aux = self._last_active = None   # stats reflect THIS run
         generator = self._generator(generator)
+        shard, data, rows = self._axes(len(batch["tokens"]))
+        if rows is not None:
+            batch = {k: None if v is None else v[rows[0]:rows[0] + rows[1]]
+                     for k, v in batch.items()}
         t0 = time.perf_counter()
-        token, state = self.prefill(batch, generator)
+        token, state = self.prefill(batch, generator, data=data)
         if sharded:
-            state = self.seq_shard(state)
+            state = self.seq_shard(state, shard)
         self._sync()
         prefill_s = time.perf_counter() - t0
         toks = [token]
         t1 = time.perf_counter()
         for _ in range(n_tokens - 1):
-            token, _, state, aux = self._step(self.params, state, token, generator)
+            token, _, state, aux = self._step(self.params, state, token, generator, shard,
+                                              data)
             self._last_aux = aux
             toks.append(token)
         self._sync()
         decode_s = time.perf_counter() - t1
-        out = torch.stack(toks, dim=1)
+        out, final_len = torch.stack(toks, dim=1), state.cur_len
+        if data is not None:
+            out, final_len = (data.all_gather(t, 0) for t in (out, final_len))
         return GenerationResult(
             tokens=out, prefill_s=prefill_s, decode_s=decode_s,
             tok_per_s=(n_tokens - 1) * out.shape[0] / max(decode_s, 1e-9),
-            final_len=state.cur_len)
+            final_len=final_len)
 
-    def seq_shard(self, state):
+    def _axes(self, batch_size: int):
+        """(the step's shard, the rows' data shard or None, (first row,
+        rows) or None) of a ``generate`` of ``batch_size`` rows: without a
+        data axis the engine's shard over every row; rows over the data
+        axis where it divides them; else every row, the sequence over the
+        data x model world."""
+        if self.data is None:
+            return self.shard, None, None
+        row0, rows = data_rows(batch_size, self.data)
+        if rows * self.data.world == batch_size:
+            return self.shard, self.data, (row0, rows)
+        return self.shard.over_sequence(self.world_shard()), None, None
+
+    def world_shard(self) -> Shard:
+        """The data x model world in rank order ``d * M + m``: the default
+        process group, which must be exactly those ranks."""
+        if self._world is None:
+            d, m = self.data, self.shard
+            if (dist.get_world_size() != d.world * m.world
+                    or dist.get_rank() != d.rank * m.world + m.rank):
+                raise ValueError(f"the default group (rank {dist.get_rank()} of "
+                                 f"{dist.get_world_size()}) is not data {d.world} x model "
+                                 f"{m.world} in rank order d * M + m")
+            self._world = Shard()
+        return self._world
+
+    def seq_shard(self, state, shard=None):
         """A sharded prefill's state -> the sequence-sharded step's: the
         attention caches gathered over the KV heads (where the world size
-        splits them) and cut to the rank's part along the sequence."""
-        return seq_shard_state(state, self.shard, self.cfg.gate.block_size,
-                               gather_heads=part(self.shard, self.cfg.n_kv_heads) is not None)
+        splits them) and cut to the rank's part along the sequence (over
+        ``shard``'s ``seq_group``; ``shard`` default the engine's)."""
+        shard = self.shard if shard is None else shard
+        return seq_shard_state(state, shard, self.cfg.gate.block_size,
+                               gather_heads=part(shard, self.cfg.n_kv_heads) is not None)
 
     # -- continuous batching over paged KV ---------------------------------
 

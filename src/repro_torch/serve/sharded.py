@@ -47,7 +47,6 @@ def sharded_sparse_decode(qg: torch.Tensor, qr: torch.Tensor, kr_new: torch.Tens
     selected blocks summed over ranks, for measured sparsity)."""
     b, hkv, s_loc, dh = k_loc.shape
     nb_loc = kg_loc.shape[2]
-    dg = qg.shape[-1]
     bs = cfg.block_size
     nsh = shard.world
     dev = k_loc.device
@@ -76,37 +75,10 @@ def sharded_sparse_decode(qg: torch.Tensor, qr: torch.Tensor, kr_new: torch.Tens
     kg_loc[bidx, :, lblk] = torch.where(own_blk[:, None, None], kg_new.to(kg_loc.dtype),
                                         kg_loc[bidx, :, lblk])
 
-    # 3) local gate scores and the local top-c candidates
-    gid = blk0 + torch.arange(nb_loc, device=dev)                 # global block ids
-    n_valid = -(-new_len // bs)
-    s_gate = torch.einsum("bhd,bhnd->bhn", qg.to(torch.float32),
-                          kg_loc.to(torch.float32)) / math.sqrt(dg)
-    vis = gid[None, None, :] < n_valid[:, None, None]
-    s_raw = torch.where(vis, s_gate, NEG_INF)                     # unforced scores
-    s_gate = s_raw
-    if cfg.always_last_block:
-        s_gate = torch.where(gid[None, None, :] == (n_valid - 1)[:, None, None], 1e30,
-                             s_gate)
-    if cfg.always_first_block:
-        s_gate = torch.where(gid[None, None, :] == 0, 1e30, s_gate)
-    c = min(cap, nb_loc)
-    cand_v, cand_i = sp.ranked_top_k(s_gate, c)                   # [B, Hkv, c] local
-
-    if cfg.method == "threshold":
-        # 4t) the softmax threshold over the UNFORCED scores of all ranks;
-        # forced candidates pass unconditionally
-        gm = shard.all_max(torch.amax(s_raw, dim=-1, keepdim=True))
-        gl = shard.all_sum(torch.sum(torch.where(vis, torch.exp(s_raw - gm), 0.0),
-                                     dim=-1, keepdim=True))
-        cand_raw = torch.gather(s_raw, -1, cand_i)
-        probs = torch.exp(cand_raw - gm) / torch.clamp_min(gl, 1e-30)
-        mine = ((probs > cfg.threshold) | (cand_v > 1e29)) & (cand_raw > NEG_INF / 2)
-    else:
-        # 4) exact global top-k: every rank's candidates, one gather
-        allv = shard.all_gather(cand_v[None], axis=0)             # [w, B, Hkv, c]
-        allv = allv.movedim(0, -2).reshape(b, hkv, nsh * c)
-        thr = sp.ranked_top_k(allv, min(k_budget, nsh * c))[0][..., -1:]
-        mine = (cand_v >= thr) & (cand_v > NEG_INF / 2)
+    # 3-4) the rank's selected blocks: local candidates, global top-k
+    cand_i, mine = sharded_select(qg, kg_loc, new_len, shard=shard, cfg=cfg,
+                                  k_budget=k_budget, cap=cap)
+    c = cand_i.shape[-1]
 
     # 5) block-sparse attention over this rank's selected blocks
     pos_l = cand_i[..., None] * bs + torch.arange(bs, device=dev)  # [B, Hkv, c, bs]
@@ -126,3 +98,52 @@ def sharded_sparse_decode(qg: torch.Tensor, qr: torch.Tensor, kr_new: torch.Tens
     o = shard.all_sum(torch.einsum("bhgk,bhkd->bhgd", p / torch.clamp_min(l, 1e-30), vg_))
     n_sel = shard.all_sum(torch.sum(mine.to(torch.int32), dim=-1))
     return o.to(qr.dtype), n_sel
+
+
+def sharded_select(qg: torch.Tensor, kg_loc: torch.Tensor, new_len: torch.Tensor, *,
+                   shard: Shard, cfg: GateConfig, k_budget: int, cap: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gate's selection over the sequence-sharded Kg cache: this rank's
+    local top-c candidates (``cap`` of them at most; forced first and last
+    blocks scored 1e30) and which of them the global selection keeps:
+    (candidate ids [B, Hkv, c] within the rank's blocks, kept mask [B, Hkv,
+    c]). The budget's global top-k is one all-gather of every rank's
+    candidate scores; the threshold method reduces the softmax max and
+    sum over ranks instead. Rank r's block i is global block ``r * nb/w +
+    i``."""
+    b, hkv, nb_loc, dg = kg_loc.shape
+    dev = kg_loc.device
+    nsh = shard.world
+    blk0 = shard.rank * nb_loc
+    bs = cfg.block_size
+    gid = blk0 + torch.arange(nb_loc, device=dev)                 # global block ids
+    n_valid = -(-new_len // bs)
+    s_gate = torch.einsum("bhd,bhnd->bhn", qg.to(torch.float32),
+                          kg_loc.to(torch.float32)) / math.sqrt(dg)
+    vis = gid[None, None, :] < n_valid[:, None, None]
+    s_raw = torch.where(vis, s_gate, NEG_INF)                     # unforced scores
+    s_gate = s_raw
+    if cfg.always_last_block:
+        s_gate = torch.where(gid[None, None, :] == (n_valid - 1)[:, None, None], 1e30,
+                             s_gate)
+    if cfg.always_first_block:
+        s_gate = torch.where(gid[None, None, :] == 0, 1e30, s_gate)
+    c = min(cap, nb_loc)
+    cand_v, cand_i = sp.ranked_top_k(s_gate, c)                   # [B, Hkv, c] local
+
+    if cfg.method == "threshold":
+        # the softmax threshold over the UNFORCED scores of all ranks;
+        # forced candidates pass unconditionally
+        gm = shard.all_max(torch.amax(s_raw, dim=-1, keepdim=True))
+        gl = shard.all_sum(torch.sum(torch.where(vis, torch.exp(s_raw - gm), 0.0),
+                                     dim=-1, keepdim=True))
+        cand_raw = torch.gather(s_raw, -1, cand_i)
+        probs = torch.exp(cand_raw - gm) / torch.clamp_min(gl, 1e-30)
+        mine = ((probs > cfg.threshold) | (cand_v > 1e29)) & (cand_raw > NEG_INF / 2)
+    else:
+        # exact global top-k: every rank's candidates, one gather
+        allv = shard.all_gather(cand_v[None], axis=0)             # [w, B, Hkv, c]
+        allv = allv.movedim(0, -2).reshape(b, hkv, nsh * c)
+        thr = sp.ranked_top_k(allv, min(k_budget, nsh * c))[0][..., -1:]
+        mine = (cand_v >= thr) & (cand_v > NEG_INF / 2)
+    return cand_i, mine

@@ -1,7 +1,8 @@
 """Child-process bodies of tests/test_torch_sharded.py,
-tests/test_torch_sharded_options.py, tests/test_torch_train_sharded.py and
-tests/test_torch_sharded_recurrent.py: the port's sharded serving and
-training over a gloo process group, one process per rank.
+tests/test_torch_sharded_options.py, tests/test_torch_train_sharded.py,
+tests/test_torch_sharded_recurrent.py and tests/test_torch_data_parallel.py:
+the port's sharded serving and training over a gloo process group, one
+process per rank.
 
 This module imports torch, numpy and the port only: it is what the child
 processes import (the test module imports JAX for the reference, and a
@@ -13,6 +14,7 @@ target of ``torch.multiprocessing.spawn``; it joins the group through a
 import contextlib
 import dataclasses
 import os
+import sys
 
 import numpy as np
 import torch
@@ -22,8 +24,10 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import policy as TP
 from repro_torch.core.policy import DecodeOptions, DensePolicy, SelectionSchedule
 from repro_torch.data.pipeline import DataState, make_batch
-from repro_torch.distributed.sharding import (Shard, decode_partition, gather_trees,
-                                              shard_params)
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import (Shard, data_model_shards, data_rows,
+                                              decode_partition, gather_trees, shard_params,
+                                              zero1_gather, zero1_pieces, zero1_slices)
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.registry import get_api
 from repro_torch.optim import adamw
@@ -32,6 +36,7 @@ from repro_torch.serve.engine import DecodeEngine
 from repro_torch.serve.eviction import EvictionConfig
 from repro_torch.serve.frontend import ServingFrontend
 from repro_torch.serve.offload import SwapConfig
+from repro_torch.serve import sharded as serve_sharded
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.train import loop as tl
 
@@ -584,5 +589,190 @@ def recurrent_cases(shard, models, disk_dir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the data axis (tests/test_torch_data_parallel.py)
+# ---------------------------------------------------------------------------
+
+# the global batch of the data-parallel training cases: 4 rows of 32 tokens
+# at DataState(0, DP_STEP0 + i); its two halves hold 60 and 62 loss-mask
+# positions at both steps, so a mean of the replicas' means is not the
+# global mean
+DP_B, DP_L, DP_STEP0 = 4, 32, 2
+# ZeRO-1's size floor for the reduced configs, whose leaves are all under
+# the reference's 2**16 elements: low enough that the layers, the
+# embedding and the logits split (sharding.ZERO1_MIN_SIZE at full size)
+DP_ZERO1_MIN = 1 << 10
+DP_GEN_NEW = 8
+# zero1_gather's bytes a collective in the chunked cases (sharding's
+# _GATHER_CHUNK at full size): under one sliced leaf at its owner, so the
+# owner-whole layer slices cross chunk boundaries
+DP_GATHER_CHUNK = 1 << 12
+
+
+def dp_batch(cfg, i):
+    """The global batch of data-parallel training step ``i``."""
+    return make_batch(cfg, DP_B, DP_L, DataState(0, DP_STEP0 + i), device="cpu")
+
+
+def dp_train_case(shard, data, cfg, tcfg, start):
+    """Two ``make_train_step`` steps from the full state ``start`` over the
+    ``data`` axis (each rank its rows of ``dp_batch``; None: the unsharded
+    port on the whole batch): each step's metrics and the state after it
+    (gathered over both axes), the MoE dispatches of the first step, and
+    this rank's moment shapes and bytes."""
+    split = shard is not None or data is not None
+    state = tl.shard_state(start, cfg, shard, data) if split else start
+    row0, rows = data_rows(DP_B, data)
+    step = tl.make_train_step(cfg, tcfg, shard, data)
+    out = {"hist": [], "states": []}
+    for i in range(2):
+        batch = {k: v[row0:row0 + rows] for k, v in dp_batch(cfg, i).items()}
+        with recording_drops() as drops:
+            state, m = step(state, batch)
+        if i == 0:
+            out["drops"] = drops
+        out["hist"].append({k: float(v) for k, v in m.items()})
+        out["states"].append(tl.gather_state(state, cfg, shard, data) if split else state)
+    out["moments"] = {k: tuple(t.shape) for k, t in state.opt.m.items()}
+    out["moment_bytes"] = sum(t.numel() * t.element_size() for t in state.opt.m.values())
+    return out
+
+
+def dp_optimizer(data, cfg, ocfg, params, grads, opt):
+    """``adamw.apply`` over the data axis on full flat trees, pretraining's
+    ZeRO-1 slices of the moments: rank r's gradient is ``grads[r]`` (the
+    parent holds the unsharded apply to their sum). Returns the new
+    params, the gathered m, v and ef, and the grad norm."""
+    z = zero1_slices(params, cfg, data)
+    opt = opt._replace(**{f: zero1_pieces(getattr(opt, f), z, data) for f in ("m", "v", "ef")})
+    new, opt, om = adamw.apply(params, grads[data.rank], opt, ocfg, data=data, zero1=z)
+    m, v, ef = (None if t is None else zero1_gather(t, z, data) for t in (opt.m, opt.v, opt.ef))
+    return new, opt._replace(m=m, v=v, ef=ef), float(om["grad_norm"])
+
+
+def dp_recovering_run(shard, data, cfg, tcfg):
+    """``run_training`` over the data axis with a failure before step 3:
+    (history, the final state gathered, the recovery log lines)."""
+    armed, logs = [True], []
+
+    def fail_at(i):
+        if i == 3 and armed[0]:
+            armed[0] = False
+            raise RuntimeError("injected node failure")
+
+    state, hist = tl.run_training(cfg, tcfg, fail_at=fail_at, log=logs.append,
+                                  device="cpu", shard=shard, data=data)
+    if shard is not None or data is not None:
+        state = tl.gather_state(state, cfg, shard, data)
+    return hist, state, [m for m in logs if m.startswith("[recover]")]
+
+
+@contextlib.contextmanager
+def recording_seq_ids():
+    """Every sequence-sharded selection (``serve.sharded.sharded_select``)
+    while the block runs, as the sorted global block ids each (b, KV head)
+    selects [B, Hkv, n] (-1 padded), gathered over the ranks of the
+    selection's shard."""
+    real = serve_sharded.sharded_select
+    ids = []
+
+    def recording(qg, kg_loc, new_len, *, shard, **kw):
+        cand_i, mine = real(qg, kg_loc, new_len, shard=shard, **kw)
+        glob = torch.where(mine, shard.rank * kg_loc.shape[2] + cand_i, -1)
+        got = shard.all_gather(glob, glob.dim() - 1)
+        ids.append(torch.sort(got, dim=-1, descending=True).values.numpy())
+        return cand_i, mine
+    serve_sharded.sharded_select = recording
+    try:
+        yield ids
+    finally:
+        serve_sharded.sharded_select = real
+
+
+def dp_generate(shard, data, cfg, params, batch, n_new=DP_GEN_NEW, seq_ids=False):
+    """``generate`` on an engine over the data axis (``shard`` None: the
+    unsharded engine): tokens, each decode step's logits, the K cache's
+    shape after the cut to the sequence-sharded step (if any) and, with
+    ``seq_ids``, the sequence-sharded selections' ids."""
+    eng = DecodeEngine(cfg, params, max_len=64, device="cpu", shard=shard, data=data)
+    logits, cuts, step, cut = [], [], eng._step, eng.seq_shard
+
+    def recording(*a, **kw):
+        out = step(*a, **kw)
+        logits.append(out[1].numpy().copy())
+        return out
+
+    def recording_cut(*a, **kw):
+        state = cut(*a, **kw)
+        cuts.append(tuple(state.k_cache.shape))
+        return state
+    eng._step, eng.seq_shard = recording, recording_cut
+    with (recording_seq_ids() if seq_ids else contextlib.nullcontext([])) as ids:
+        res = eng.generate(batch, n_new)
+    return {"tokens": res["tokens"].numpy(), "logits": logits, "ids": ids, "cuts": cuts,
+            "final_len": res["final_len"].numpy()}
+
+
+def dp_chunked(shard, data, jobs):
+    """The "train" and "optim" cases of ``jobs`` again with
+    ``zero1_gather``'s chunk at ``DP_GATHER_CHUNK`` bytes, so that each
+    gather of the parameters (``adamw.apply``) and of the moments
+    (``gather_state``) is many collectives: their results, the number of
+    ``zero1_gather`` calls and the number of its collectives (the data
+    group's all_gathers of bytes)."""
+    calls = {"zero1_gather": 0, "collectives": 0}
+    real, real_gather = data.all_gather, sharding.zero1_gather
+    users = (sharding, tl, sys.modules[__name__])
+
+    def counting(x, axis):
+        calls["collectives"] += x.dtype == torch.uint8
+        return real(x, axis)
+
+    def counting_gather(*a, **kw):
+        calls["zero1_gather"] += 1
+        return real_gather(*a, **kw)
+    data.all_gather, chunk = counting, sharding._GATHER_CHUNK
+    for mod in users:
+        mod.zero1_gather = counting_gather
+    sharding._GATHER_CHUNK = DP_GATHER_CHUNK
+    try:
+        out = {"train": {name: dp_train_case(shard, data, *case)
+                         for name, case in jobs.get("train", {}).items()},
+               "optim": {name: dp_optimizer(data, *case)
+                         for name, case in jobs.get("optim", {}).items()}}
+    finally:
+        del data.all_gather
+        for mod in users:
+            mod.zero1_gather = real_gather
+        sharding._GATHER_CHUNK = chunk
+    out["calls"] = calls
+    return out
+
+
+def data_cases(_, n_data, n_model, jobs):
+    """The data-parallel cases on this rank of a ``n_data x n_model``
+    world: ``jobs`` {"train": {name: (cfg, tcfg, full start state)},
+    "optim": {name: (cfg, OptimConfig, params, [grads of each data rank],
+    AdamWState)}, "recover": (cfg, tcfg), "generate": {name: (cfg, params,
+    batch, seq_ids)}, "chunked": {"train": ..., "optim": ...}}, each part
+    optional."""
+    shard, data = data_model_shards(n_data, n_model)
+    sharding.ZERO1_MIN_SIZE = DP_ZERO1_MIN
+    torch.manual_seed(0)
+    out = {"train": {name: dp_train_case(shard, data, *case)
+                     for name, case in jobs.get("train", {}).items()},
+           "optim": {name: dp_optimizer(data, *case)
+                     for name, case in jobs.get("optim", {}).items()},
+           "generate": {name: dp_generate(shard, data, cfg, p, batch, seq_ids=ids)
+                        for name, (cfg, p, batch, ids) in jobs.get("generate", {}).items()}}
+    if "recover" in jobs:
+        out["recover"] = dp_recovering_run(shard, data, *jobs["recover"])
+    if "chunked" in jobs:
+        out["chunked"] = dp_chunked(shard, data, jobs["chunked"])
+    out["ranks"] = (shard.rank, shard.world, data.rank, data.world)
+    return out
+
+
 TASKS = {"serve": serve_cases, "generate": generate_teacher_forced, "moe": moe_cases,
-         "options": option_cases, "train": train_cases, "recurrent": recurrent_cases}
+         "options": option_cases, "train": train_cases, "recurrent": recurrent_cases,
+         "data": data_cases}
