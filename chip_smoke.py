@@ -440,6 +440,19 @@ kernels line and their kernel errors its max_abs_err:
      layers) bitwise the engine with the model group alone; phase 43's two
      local-mesh cells log no collective. Two NCCL ranks cannot share the
      card: ``check_nccl_cards(2, "nccl")`` must raise.
+ 45. the MoE's expert dispatch as the reference shards it
+     (``phase_moe_dispatch``): deepseek_moe_16b at full width and
+     SHARD_MOE_LAYERS layers over the one-rank NCCL data and model groups,
+     three ways (MOE_WAYS: the default dispatch with the capacity's slots
+     split over data, ``dispatch="shard_map"``, the EP-major layout): a
+     distill and a pretrain step (SHARD_TRAIN_STEPS each on SHARD_MOE_SEQ)
+     and ``generate`` at batch BATCH (DATA_GEN_PROMPT-token prompts,
+     DATA_GEN_NEW tokens), each held against the model-only run (metrics
+     within MOE_WAY_REL, tokens equal; bitwise or not is printed), with
+     the collectives and all-to-alls a step and their host time; kernel 6
+     launched on the distill steps, #1 and #2 on EP-major's generate (the
+     others take the sequence-sharded step, no kernel), each held against
+     its plain version.
 
 The pressure and failure paths of ``serve`` (phases 23-29) run after
 phase 13, on qwen3_0_6b at full width and phase 6's requests unless
@@ -738,6 +751,10 @@ SHARD_MOE_LAYERS = 2                  # of deepseek_moe_16b's 28
 # batch of BATCH rows and one of 1, at DECODE_LAYERS layers)
 DATA_GEN_PROMPT, DATA_GEN_NEW = 2048, 8
 SHARD_MOE_SEQ = (1, 2048)             # its pretraining batch, rows x tokens
+# phase 45's three ways of the MoE's dispatch: name -> (dispatch, EP-major)
+MOE_WAYS = {"slot ranges": ("gspmd", False), "shard_map": ("shard_map", False),
+            "ep_major": ("shard_map", True)}
+MOE_WAY_REL = 1e-3     # a way's metrics against the model-only run's, where not bitwise
 LAUNCH_TRAIN_ARGV = ["--arch", "qwen3_0_6b", "--reduced", "--steps", "4", "--ckpt-every", "2"]
 SMALL_PRETRAIN = ("qwen3_0_6b", "deepseek_moe_16b", "llama_3_2_vision_11b",
                   "falcon_mamba_7b", "zamba2_1_2b", "hubert_xlarge")
@@ -3329,23 +3346,28 @@ def timed_steps(step_fn, state, batches):
 
 def counting_collectives(shard):
     """Wrap the shard's collectives (``all_sum``, ``all_max``,
-    ``all_gather``) to count them and their host time: (the counts {"n",
-    "host_s"}, a function that unwraps them)."""
-    stats = {"n": 0, "host_s": 0.0}
-    names = ("all_sum", "all_max", "all_gather")
+    ``all_gather``, ``all_to_all``) to count them and their host time: (the
+    counts {"n", "host_s", and of the all-to-alls apart "a2a", "a2a_s"}, a
+    function that unwraps them)."""
+    stats = {"n": 0, "host_s": 0.0, "a2a": 0, "a2a_s": 0.0}
+    names = ("all_sum", "all_max", "all_gather", "all_to_all")
 
-    def wrap(fn):
+    def wrap(fn, name):
         def counted(*a, **kw):
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
+                dt = time.perf_counter() - t0
                 stats["n"] += 1
-                stats["host_s"] += time.perf_counter() - t0
+                stats["host_s"] += dt
+                if name == "all_to_all":
+                    stats["a2a"] += 1
+                    stats["a2a_s"] += dt
         return counted
 
     for name in names:
-        setattr(shard, name, wrap(getattr(shard, name)))
+        setattr(shard, name, wrap(getattr(shard, name), name))
 
     def undo():
         for name in names:
@@ -3618,6 +3640,225 @@ def phase_data_axis(dryrun_preds):
           "or model axis (no collective logged); phase 43 held their predictions to the card")
     print(f"phase 44 (the data axis): {time.perf_counter() - t0:.1f} s")
     return n, errs
+
+
+# ---------------------------------------------------------------------------
+# the MoE's expert dispatch over data x model (phase 45)
+# ---------------------------------------------------------------------------
+
+def moe_way(cfg, dispatch, ep_major):
+    """``cfg`` at one of phase 45's dispatches."""
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch=dispatch), ep_major=ep_major)
+
+
+def exchange_line(coll, n) -> str:
+    """Collectives a step (of ``n``) and their host time, all-to-alls apart."""
+    return (f"{coll['n'] / n:.0f} collectives a step ({coll['a2a'] / n:.0f} all-to-alls), "
+            f"{1e3 * coll['host_s'] / n:.2f} ms of host a step in them "
+            f"({1e3 * coll['a2a_s'] / n:.2f} in the all-to-alls)")
+
+
+def same_or_close(label, got_hist, want_hist, got_state, want_state) -> str:
+    """Phase 45's rule for a training way against the model-only run:
+    every metric within MOE_WAY_REL relative; whether it is bitwise is
+    reported, else the largest parameter difference."""
+    for g, w in zip(got_hist, want_hist):
+        for k in w:
+            if not math.isfinite(g[k]) or abs(g[k] - w[k]) > MOE_WAY_REL * max(abs(w[k]), 1e-12):
+                fail(f"{label}: metric {k} {g[k]} against the model-only run's {w[k]}")
+    if got_hist == want_hist and same_state(got_state, want_state):
+        return "bitwise the model-only steps"
+    pa, pb = dict(tl._walk(got_state.params)), dict(tl._walk(want_state.params))
+    gap = max(float((pa[k].float() - t.float()).abs().max()) for k, t in pb.items())
+    return (f"metrics within {MOE_WAY_REL:g} relative of the model-only steps (not bitwise: "
+            f"largest parameter difference {gap:.3e})")
+
+
+def moe_train_way(label, cfg, tcfg, model, data, batches, want, n_gt):
+    """One phase-45 training way: ``make_train_step(cfg, tcfg, model,
+    data)`` from the seed state on ``batches``, the launch counters at 0
+    just before and read just after (kernel 6 ``n_gt`` a forward, nothing
+    else), held against the model-only run ``want`` (hist, state); kernel
+    6 against its plain version on its first call. Returns (kernel 6
+    launches, its error or None)."""
+    # the only reference to the start state is timed_steps': each step's
+    # state frees the one before (a pretrain state of these two layers with
+    # its moments is 11.5 GB, and the model-only run's final one is kept)
+    box = [tl.shard_state(tl.init_train_state(torch.Generator(device="cuda").manual_seed(SEED),
+                                              cfg, tcfg), cfg, model, data)]
+    step = tl.make_train_step(cfg, tcfg, model, data)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    seen, undo = capture_first_gt()
+    mcoll, muncount = counting_collectives(model)
+    dcoll, duncount = counting_collectives(data)
+    try:
+        local, hist, secs = timed_steps(step, box.pop(), batches)
+    finally:
+        undo()
+        muncount()
+        duncount()
+    counts = ops.launch_counts()
+    expect = {**dict.fromkeys(ops.KERNELS, 0), "gate_gt_attention": n_gt * tcfg.steps}
+    if counts != expect:
+        fail(f"{label}: launch counts {counts}, expected {expect}")
+    # one rank on each axis holds the whole state: no gathered copy
+    full = local if model.world == data.world == 1 else tl.gather_state(local, cfg, model, data)
+    del local
+    verdict = same_or_close(label, hist, want[0], full, want[1])
+    key = "kl" if tcfg.mode == "distill" else "ce"
+    print(f"{label}: {verdict} ({key} {[round(h[key], 6) for h in hist]}); step s "
+          f"{', '.join(f'{t:.3f}' for t in secs)}; model group: "
+          f"{exchange_line(mcoll, tcfg.steps)}; data group: {exchange_line(dcoll, tcfg.steps)}; "
+          f"kernel 6 launches {counts['gate_gt_attention']} ({card_line()})")
+    del full
+    err = None
+    if n_gt:
+        (q, k, v), kw = seen[0]
+        err = gt_agreement(q, k, v, kw["block_size"], kw["q_chunk"], kw["segment_ids"],
+                           f"{label}, step 0 layer 0")
+    del seen
+    free_card()
+    return counts["gate_gt_attention"], err
+
+
+def moe_generate_way(label, cfg, params, toks, model, data, want):
+    """One phase-45 ``generate`` (the launch counters at 0 just before and
+    read just after; the first #1 and #2 calls kept): with ``want`` (the
+    model-only run's tokens and logits) its tokens must equal them, the
+    logits' largest difference reported. Returns (tokens, logits, launch
+    counts, the kept kernel calls, ms a decode step)."""
+    bs = cfg.gate.block_size
+    max_len = -(-(toks.shape[1] + DATA_GEN_NEW) // bs) * bs
+    eng = DecodeEngine(cfg, params, max_len=max_len, shard=model, data=data)
+    logits, step = [], eng._step
+
+    def keep(*a, step=step, logits=logits):
+        out = step(*a)
+        logits.append(out[1].clone())
+        return out
+    eng._step = keep
+    seen, restore = capture_first(["gate_select", "sparse_decode"])
+    colls = [counting_collectives(g) for g in (model, data) if g is not None]
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    try:
+        res = eng.generate({"tokens": toks}, DATA_GEN_NEW)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+        for _, undo in colls:
+            undo()
+    counts = ops.launch_counts()
+    tokens, lg = res["tokens"].cpu(), torch.stack(logits).float().cpu()
+    ms = 1e3 * res["decode_s"] / (DATA_GEN_NEW - 1)
+    coll = {k: sum(c[k] for c, _ in colls) for k in ("n", "host_s", "a2a", "a2a_s")}
+    line = (f"{ms:.2f} ms a decode step; {coll['n']} collectives ({coll['a2a']} all-to-alls) "
+            f"over the prefill and {DATA_GEN_NEW - 1} steps, {1e3 * coll['host_s']:.2f} ms of "
+            f"host in them ({1e3 * coll['a2a_s']:.2f} in the all-to-alls); launches of #1 "
+            f"{counts['gate_select']}, #2 {counts['block_sparse_decode']} ({card_line()})")
+    if want is None:
+        print(f"{label}: {line}")
+    else:
+        if not torch.equal(tokens, want[0]):
+            fail(f"{label}: tokens differ from the model-only run's")
+        gap = float((lg - want[1]).abs().max())
+        print(f"{label}: tokens equal to the model-only run's; logits "
+              + ("bitwise" if gap == 0.0 else f"max |diff| {gap:.3e}") + f"; {line}")
+    del eng, logits
+    return tokens, lg, counts, seen, ms
+
+
+def phase_moe_dispatch():
+    """Phase 45: the MoE's expert dispatch as the reference shards it, on
+    deepseek_moe_16b at full width and SHARD_MOE_LAYERS layers over a
+    one-rank NCCL data group beside a one-rank NCCL model group
+    (``data_model_shards(1, 1)``), three ways (MOE_WAYS): the default
+    dispatch with the capacity's slots split over data, ``dispatch=
+    "shard_map"`` (the large-T all-to-all body on training and prefill
+    rows, the decode-size body on decode rows) and the EP-major layout.
+    (a) a distill and (b) a pretrain step, SHARD_TRAIN_STEPS each on
+    SHARD_MOE_SEQ, each way held against the model-only run (kernel 6
+    launched on the distill steps and held against its plain version);
+    (c) ``generate`` at batch BATCH (DATA_GEN_PROMPT-token prompts,
+    DATA_GEN_NEW tokens), tokens equal to the model-only engine's: the
+    default dispatch and ``shard_map`` take the sequence-sharded step
+    (plain PyTorch, no kernel), EP-major the engine's own rows through #1
+    and #2, held against the engine without a shard and, on its first
+    decode step's layer 0, against their plain versions. Returns
+    ({kernel: launches}, {kernel: [errors]})."""
+    t0 = time.perf_counter()
+    free_card()
+    model, data = data_model_shards(1, 1)
+    cfg = configs.get("deepseek_moe_16b").replace(num_layers=SHARD_MOE_LAYERS)
+    m = cfg.moe
+    print(f"phase 45: deepseek_moe_16b at {cfg.num_layers} of 28 layers, d {cfg.d_model}, "
+          f"{m.n_experts} routed experts of d_ff {m.expert_d_ff}, top {m.top_k}, "
+          f"{m.n_shared_experts} shared, capacity factor {m.capacity_factor}; data 1 x model 1 "
+          f"(one NCCL rank each)")
+    distill = TrainConfig(seq_len=SHARD_MOE_SEQ[1], global_batch=SHARD_MOE_SEQ[0],
+                          steps=SHARD_TRAIN_STEPS, seed=SEED, checkpoint_every=0,
+                          optim=OptimConfig(total_steps=SHARD_TRAIN_STEPS, warmup_steps=1))
+    pretrain = dataclasses.replace(distill, mode="pretrain",
+                                   optim=dataclasses.replace(distill.optim, lr=PRETRAIN_LR))
+    counts = dict.fromkeys(("gate_select", "block_sparse_decode", "gate_gt_attention"), 0)
+    errs = {name: [] for name in counts}
+    for mode, tcfg, n_gt in (("distill (a)", distill, cfg.num_layers),
+                             ("pretrain (b)", pretrain, 0)):
+        batches = [make_batch(cfg, tcfg.global_batch, tcfg.seq_len, DataState(SEED, i),
+                              device="cuda") for i in range(tcfg.steps)]
+        box = [tl.init_train_state(torch.Generator(device="cuda").manual_seed(SEED), cfg, tcfg)]
+        plain, hist, secs = timed_steps(tl.make_train_step(cfg, tcfg, model), box.pop(), batches)
+        print(f"phase 45 {mode}, model-only: step s {', '.join(f'{t:.3f}' for t in secs)}")
+        want = (hist, plain)
+        for way, (dispatch, ep) in MOE_WAYS.items():
+            n, err = moe_train_way(f"phase 45 {mode}, {way}", moe_way(cfg, dispatch, ep), tcfg,
+                                   model, data, batches, want, n_gt)
+            counts["gate_gt_attention"] += n
+            errs["gate_gt_attention"] += [] if err is None else [err]
+        del plain, want, batches
+        free_card()
+    params = init_lm(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                (BATCH, DATA_GEN_PROMPT)).astype(np.int32)
+    base = {}
+    for name, shard in (("model-only", model), ("no shard", None)):
+        tokens, lg, _, _, _ = moe_generate_way(f"phase 45 generate (c), {name}", cfg, params,
+                                               toks, shard, None, None)
+        base[name] = (tokens, lg)
+    for way, (dispatch, ep) in MOE_WAYS.items():
+        label = f"phase 45 generate (c), {way}"
+        want = base["no shard" if ep else "model-only"]
+        _, _, c, seen, _ = moe_generate_way(label, moe_way(cfg, dispatch, ep), params, toks,
+                                            model, data, want)
+        expect = cfg.num_layers * (DATA_GEN_NEW - 1) if ep else 0
+        if c != {**dict.fromkeys(ops.KERNELS, 0), "gate_select": expect,
+                 "block_sparse_decode": expect}:
+            fail(f"{label}: launch counts {c}, expected #1 and #2 {expect} each")
+        counts["gate_select"] += c["gate_select"]
+        counts["block_sparse_decode"] += c["block_sparse_decode"]
+        if ep:
+            (qg, kg, nv, gcfg, msel), _ = seen["gate_select"]
+            checks, swaps, gerr = gate_cases(
+                "gate_select", lambda n, gc: gs.gate_select_cuda(qg, kg, n, gc, msel),
+                lambda n, gc: gs.gate_select_plain(qg, kg, n, gc, msel),
+                lambda n, gc: gs.gate_scores_plain(qg, kg, n, gc), nv, kg.shape[2], gcfg)
+            print(f"{label}: #1 on layer 0 of the first decode step, {checks} cases equal to "
+                  f"plain, near-tie swaps {swaps}")
+            (q, kc, vc, idx, kv_len), kw = seen["sparse_decode"]
+            bs = kw["block_size"]
+            derr = check_decode(
+                "block_sparse_decode",
+                lambda qq, ix: bsd.sparse_decode_cuda(qq, kc, vc, ix, kv_len, block_size=bs),
+                lambda qq, ix: bsd.sparse_decode_plain(qq, kc, vc, ix, kv_len, block_size=bs),
+                decode_cases(q, idx))
+            errs["gate_select"].append(gerr)
+            errs["block_sparse_decode"].append(derr)
+        del seen
+    del params, base
+    free_card()
+    print(f"phase 45 (the MoE's expert dispatch): {time.perf_counter() - t0:.1f} s")
+    return counts, errs
 
 
 # ---------------------------------------------------------------------------
@@ -5216,6 +5457,13 @@ def run_phases(shard, dryrun_preds) -> int:
     numbers["gate_gt_attention"]["max_abs_err"] = max(
         [numbers["gate_gt_attention"]["max_abs_err"], *e44])
     mark("44 data axis")
+    # the MoE's expert dispatch: #1, #2 and kernel 6 on its paths
+    c45, e45 = phase_moe_dispatch()
+    for name, n in c45.items():
+        counts[name] += n
+    for name, errs in e45.items():
+        numbers[name]["max_abs_err"] = max([numbers[name]["max_abs_err"], *errs])
+    mark("45 MoE dispatch")
     print("seconds by group of phases: " + ", ".join(
         f"{label} {t - t_prev:.1f}" for (_, t_prev), (label, t) in zip(marks, marks[1:]))
         + f"; run_phases {marks[-1][1] - marks[0][1]:.1f}")

@@ -29,10 +29,22 @@ carries:
     reference's ``zero1_param_pspecs`` rule; distillation's gate moments
     stay whole, as the reference's ``P()``), the update runs on that
     slice and the parameter is all-gathered over the data group;
-  * the MoE routing stays global (``models/moe.py``): the router's top-k
-    ids are gathered over the data group, so the capacity and each
-    assignment's rank within its expert, hence the drops, are those of
-    the whole batch in one call; each replica then computes its rows;
+  * the MoE routing stays global on the default dispatch (``models/moe.py``):
+    the router's top-k ids are gathered over the data group, so the
+    capacity and each assignment's rank within its expert, hence the
+    drops, are those of the whole batch in one call; the capacity's slots
+    split over data (the reference's ``moe_buffer: P(MODEL, dpa, None)``):
+    data rank ``q`` computes slots ``[q*cs, (q+1)*cs)``, ``cs = ceil(C /
+    D)``, of its model rank's experts, one ``all_to_all`` over the data
+    group carrying each kept assignment's row to its slot's owner and one
+    carrying the output back. Under ``dispatch="shard_map"`` the MoE
+    takes the reference's ``moe_mlp_sharded`` bodies instead, whose
+    capacity is local to a shard's rows (a different function wherever
+    capacity binds): large T (each model rank routes its block of the
+    replica's rows, one dispatch ``all_to_all`` over the model group each
+    way, the rows gathered back), decode-size T (rows replicated, each
+    rank its experts, a sum in training, the exact gather at decode) and
+    EP-major (below);
   * ``generate`` (``serve/engine.py``): a batch that ``D`` divides is
     split by rows, each replica decoding its own; a batch it does not
     divide (batch 1) keeps every row on every replica and splits the
@@ -43,9 +55,29 @@ carries:
     nothing on the data axis, so a data replica of ``serve`` is another
     engine.
 
+The EP-major layout (``cfg.ep_major``, the reference's ``_ep_major_rule``
+and ``batch_pspecs(ep_major=True)``; the MoE family, ``dispatch=
+"shard_map"``): only the routed experts (on E) and ``lm_head/w`` (by
+columns) split over the model axis, every other leaf whole; the rows
+split over data x model, rank ``d*M + m`` block ``d*M + m`` (``ep_rows``;
+a batch that world does not divide raises, where the reference falls
+back to the data axis alone). The model code runs over ``ep_view(shard,
+cfg)``, a view of the model shard over which ``part`` splits nothing:
+attention, MLPs, the embedding and the shared experts run whole on the
+rank's own rows, and the MoE's EP-major body exchanges them over the
+model group (one dispatch ``all_to_all`` each way); the logits gather
+the model group's rows first and then run vocabulary-parallel (training's
+CE, ``generate``'s whole rows), each rank keeping its own. Training sums
+the gradient of every whole leaf over the model group
+(``sync_replicated_grads``) before the data all-reduce; ``generate``
+gathers the tokens over the world; paged ``serve`` refuses the layout (it
+has no data axis).
+
 The group's backend is the caller's (gloo for CPU tensors, NCCL for CUDA
 ones); ``Shard.device`` is where the collectives' tensors live. Every
-collective goes through the group, also at world size 1.
+collective goes through the group, also at world size 1: the gathers and
+sums, and ``Shard.all_to_all`` (``all_to_all`` under autograd, whose
+backward is the reverse exchange).
 ``AbstractShard`` is the dry-run's ``Shard`` (``launch/specs.py``): no
 group, fake tensors only, each collective logged in place of being run.
 
@@ -138,13 +170,15 @@ fallback to replication). The scheme:
     ranks, the label's logit from the rank that owns it). A vocabulary
     that ``w`` does not divide stays replicated; so does the audio
     ``in_proj``;
-  * MoE: expert parallelism. The router stays replicated: the routing,
-    the capacity and each assignment's rank within its expert are
-    computed alike on every rank, so the drops are the unsharded ones. A
-    rank holds ``E / w`` experts and computes only their rows; a sum
-    combines. The shared experts split like a dense MLP. This is the
-    reference's decode-size ``moe_mlp_sharded`` scheme (rows replicated,
-    each shard its experts, a psum), whatever ``dispatch`` says;
+  * MoE: expert parallelism. On the default dispatch the router stays
+    replicated: the routing, the capacity and each assignment's rank
+    within its expert are computed alike on every rank, so the drops are
+    the unsharded ones. A rank holds ``E / w`` experts and computes only
+    their rows; a sum combines. The shared experts split like a dense
+    MLP. Under ``dispatch="shard_map"`` the reference's bodies (above);
+    the large-T body's row slice takes ``copy_to_model`` (each rank's rows'
+    gradient summed) and its row gather ``gather_rows`` (backward the
+    rank's own rows);
   * Mamba1: ``in_proj``'s x and z halves each split on ``d_inner``;
     ``conv_w``/``conv_b``, ``dt_proj`` (columns), ``dt_bias``, ``A_log``
     and ``D`` on ``d_inner``; ``x_proj`` by rows with a sum before the
@@ -171,8 +205,13 @@ reference's, always full:
     (the reference cuts it in one block), Mamba2 ``conv_w``/``conv_b``
     likewise per ``[x | B | C]``, and Mamba2 ``norm/scale`` split on
     ``d_inner`` (the reference replicates it);
-  * the experts split whether or not ``ep_major`` is set; the MoE buffer
-    is never resplit (no all-to-all: the rows are replicated);
+  * the large-T body's rows enter at full d, replicated over the model
+    axis, and each model rank takes its row block where the reference
+    resplits d-sharded activations by an all-to-all, and the rows return
+    by a gather; under EP-major the logits gather the model group's rows
+    where the reference's ``logits`` constraint splits rows and
+    vocabulary alike, and a batch the data x model world does not divide
+    raises where the reference keeps its rows on the data axis;
   * serving's recurrent state splits with its mixer's parameters, where
     the reference's ``decode_state_pspecs`` puts the ``model`` axis on
     each state's widest trailing dim (Mamba2's conv windows whole on
@@ -198,6 +237,8 @@ class Shard:
     ``group=None`` is the default (world) group, which must be
     initialised."""
 
+    ep_major = False        # the EP-major layout's view (``as_ep_major``)
+
     def __init__(self, group: Optional[dist.ProcessGroup] = None):
         if not dist.is_initialized():
             raise RuntimeError("Shard needs an initialised torch.distributed process "
@@ -221,6 +262,15 @@ class Shard:
         on this shard's group."""
         out = copy.copy(self)
         out.seq = seq
+        return out
+
+    def as_ep_major(self) -> "Shard":
+        """A copy of this model-axis shard for the EP-major layout: ``part``
+        splits nothing over it (every module but the routed experts and
+        the logits runs whole, on the rank's own rows); the group and its
+        collectives are this shard's."""
+        out = copy.copy(self)
+        out.ep_major = True
         return out
 
     @property
@@ -301,6 +351,21 @@ class Shard:
                 at += x.numel()
         return out
 
+    # -- exchange -----------------------------------------------------------
+
+    def all_to_all(self, x: torch.Tensor, send: Optional[Sequence[int]] = None,
+                   recv: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """x's rows (dim 0) cut into ``world`` consecutive blocks, block j
+        sent to rank j; the blocks received, concatenated in rank order
+        along dim 0 (a new tensor). Equal blocks by default, else ``send[j]``
+        rows to rank j and ``recv[j]`` rows from it. Exact."""
+        x = x.contiguous()
+        rows = x.shape[0] if recv is None else sum(recv)
+        out = x.new_empty((rows,) + tuple(x.shape[1:]))
+        self._all_to_all(out, x, None if send is None else list(send),
+                         None if recv is None else list(recv))
+        return out
+
     def barrier(self) -> None:
         """Return once every rank has called it (a one-element sum, waited
         for on the host)."""
@@ -311,7 +376,7 @@ class Shard:
         t = torch.tensor(list(values), dtype=torch.int64, device=self.device)
         return tuple(int(v) for v in self.all_sum(t).cpu())
 
-    # -- the two collectives every method above reaches ---------------------
+    # -- the three collectives every method above reaches -------------------
 
     def _all_gather_into(self, out: torch.Tensor, x: torch.Tensor) -> None:
         dist.all_gather_into_tensor(out, x, group=self.group)
@@ -319,11 +384,16 @@ class Shard:
     def _all_reduce(self, y: torch.Tensor, op) -> None:
         dist.all_reduce(y, op=op, group=self.group)
 
+    def _all_to_all(self, out: torch.Tensor, x: torch.Tensor, send, recv) -> None:
+        dist.all_to_all_single(out, x, output_split_sizes=recv, input_split_sizes=send,
+                               group=self.group)
+
 
 class Collective(NamedTuple):
     """One collective an ``AbstractShard`` stood in for: its kind (the
-    reference dry-run's names, "all-gather" or "all-reduce"), the shape of
-    the rank's operand and the operand's bytes."""
+    reference dry-run's names, "all-gather", "all-reduce" or
+    "all-to-all"), the shape of the rank's operand and the operand's
+    bytes."""
     kind: str
     shape: Tuple[int, ...]
     nbytes: int
@@ -369,6 +439,9 @@ class AbstractShard(Shard):
 
     def _all_reduce(self, y: torch.Tensor, op) -> None:
         self._record("all-reduce", y)
+
+    def _all_to_all(self, out: torch.Tensor, x: torch.Tensor, send, recv) -> None:
+        self._record("all-to-all", x)
 
     def barrier(self) -> None:
         self._record("all-reduce", torch.zeros((1,), device=self.device))
@@ -463,8 +536,58 @@ def check_shard(shard) -> None:
 
 def part(shard: Optional[Shard], n: int) -> Optional[Shard]:
     """``shard`` where its world size divides ``n`` (the module of size
-    ``n`` splits), else None (it stays replicated and runs alone)."""
-    return shard if shard is not None and n % shard.world == 0 else None
+    ``n`` splits), else None (it stays replicated and runs alone); None
+    for an EP-major shard, over which no such module splits."""
+    if shard is None or shard.ep_major or n % shard.world:
+        return None
+    return shard
+
+
+def ep_view(shard: Optional[Shard], cfg) -> Optional[Shard]:
+    """The model shard the forward runs over: its EP-major view where
+    ``cfg.ep_major`` is set (the MoE family only), else ``shard``."""
+    if shard is None or not cfg.ep_major or shard.ep_major:
+        return shard
+    if cfg.family != "moe":
+        raise ValueError(f"{cfg.arch_id}: the EP-major layout is the MoE family's "
+                         f"(the reference's REPRO_EP_MAJOR), not the {cfg.family!r} family's")
+    return shard.as_ep_major()
+
+
+def ep_rows(batch_size: int, shard: Shard, data: Optional[Shard]) -> Tuple[int, int]:
+    """(first row, rows) of this rank's share of a ``batch_size`` batch
+    under the EP-major layout: the rows split over data x model (the
+    reference's ``batch_pspecs(ep_major=True)``), block ``d * M + m``. A
+    batch the world does not divide raises (the reference then falls back
+    to the data axis alone; the port's EP-major runs only where the rows
+    split)."""
+    d_world, d_rank = (1, 0) if data is None else (data.world, data.rank)
+    world = d_world * shard.world
+    if batch_size % world:
+        raise ValueError(f"EP-major: the batch {batch_size} is not a multiple of data "
+                         f"{d_world} x model {shard.world}")
+    n = batch_size // world
+    return (d_rank * shard.world + shard.rank) * n, n
+
+
+def sync_replicated_grads(grads: Dict[str, torch.Tensor], cfg,
+                          shard: Optional[Shard]) -> Dict[str, torch.Tensor]:
+    """Under the EP-major layout each model rank's gradient of a leaf it
+    holds whole (every leaf but the routed experts and the logits) is its
+    own rows' share: summed over the model group here (packed), so that
+    the optimizer sees the whole gradient on every rank, as for any
+    replicated leaf. The gradients as they are otherwise."""
+    if shard is None or not cfg.ep_major:
+        return grads
+    keys = [k for k, g in grads.items()
+            if param_layout(k, tuple(g.shape), cfg, shard.world, local=True) is None]
+    out = dict(grads)
+    by_dtype: Dict[torch.dtype, List[str]] = {}
+    for k in keys:
+        by_dtype.setdefault(grads[k].dtype, []).append(k)
+    for ks in by_dtype.values():
+        out.update(zip(ks, shard.all_sum_packed([grads[k] for k in ks])))
+    return out
 
 
 def _mlp_rule(leaf: str, d_ff: int, world: int):
@@ -493,8 +616,21 @@ def _mixer_rule(leaf: str, cfg, world: int):
             "out_proj/w": (0, None)}.get(leaf)
 
 
+def _ep_major_rule(path: str, cfg, world: int):
+    """The reference's ``_ep_major_rule``: only the routed experts (on
+    E) and ``lm_head/w`` (by columns) split; everything else, the shared
+    experts too, whole."""
+    if path == "lm_head/w":
+        return (1, None) if cfg.vocab_size % world == 0 else None
+    if "/moe/" in path and path.split("/moe/", 1)[1] in ("wi_gate", "wi_up", "wo"):
+        return (0, None) if cfg.moe.n_experts % world == 0 else None
+    return None
+
+
 def _leaf_rule(path: str, cfg, world: int):
     """(axis, parts or None for one split part) of a leaf, or None."""
+    if cfg.ep_major:
+        return _ep_major_rule(path, cfg, world)
     if path == "embed/w":
         return (0, None) if cfg.vocab_size % world == 0 else None
     if path == "lm_head/w":
@@ -943,6 +1079,42 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard, send, recv):
+        ctx.shard, ctx.send, ctx.recv = shard, send, recv
+        return shard.all_to_all(x, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard.all_to_all(g, ctx.recv, ctx.send), None, None, None
+
+
+def all_to_all(x: torch.Tensor, shard: Shard, send: Optional[Sequence[int]] = None,
+               recv: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``Shard.all_to_all`` under autograd: the backward sends each row's
+    gradient back to where the row came from (the reverse exchange)."""
+    return _AllToAll.apply(x, shard, send, recv)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard, ctx.rows = shard, x.shape[0]
+        return shard.all_gather(x, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(0, ctx.shard.rank * ctx.rows, ctx.rows), None
+
+
+def gather_rows(x: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """Every rank's rows of ``x`` in rank order, where what follows runs
+    replicated on every rank: forward the gather, backward the rank's own
+    rows of the (replicated, whole) gradient."""
+    return _GatherRows.apply(x, shard)
 
 
 def copy_to_model(x: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:

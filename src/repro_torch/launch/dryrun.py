@@ -52,11 +52,21 @@ its data sheet's rates (``launch/mesh.py``): computed, not measured;
         --shape decode_32k --mesh single
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh both] \\
         [--out dryrun_torch_results.json] [--force]
+
+The reference's MoE switches apply to a MoE config's cells (``switched``):
+``REPRO_MOE_IMPL=shard_map`` (the all-to-all dispatch; its exchanges are
+the ``all-to-all`` collectives) and ``REPRO_EP_MAJOR=1`` (the EP-major
+layout, which runs that dispatch and needs the batch to split over data x
+model). On the default dispatch a data replica computes its share of the
+capacity's slots; the exchange of its rows over data is data-dependent,
+so on fake tensors it is counted at each rank's assignments spread evenly.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import sys
 import time
 import traceback
@@ -296,18 +306,35 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec) -> Dict:
             "peak_bytes": peak}
 
 
+def switched(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` under the reference dry-run's MoE switches, by the same
+    names: ``REPRO_MOE_IMPL=shard_map`` sets the MoE's
+    ``dispatch="shard_map"`` (the reference's ``moe_mlp_sharded``), and
+    ``REPRO_EP_MAJOR=1`` the EP-major layout (``ep_major``), each on a
+    MoE config only."""
+    if not cfg.moe.n_experts:
+        return cfg
+    if os.environ.get("REPRO_MOE_IMPL") == "shard_map":
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch="shard_map"))
+    if os.environ.get("REPRO_EP_MAJOR") == "1":
+        cfg = cfg.replace(ep_major=True)
+    return cfg
+
+
 def run_cell(arch: Union[str, ModelConfig], shape: Union[str, ShapeConfig],
              mesh_kind: Union[str, MeshSpec], verbose: bool = True) -> Dict:
     """One record: ``arch`` a config name (or a ModelConfig), ``shape`` a
     name of ``SHAPES`` (or a ShapeConfig), ``mesh_kind`` as
     ``resolve_mesh`` takes it. A failure gives ``ok`` False with
     ``error`` and ``traceback``."""
-    cfg = configs.get(arch) if isinstance(arch, str) else arch
+    cfg = switched(configs.get(arch) if isinstance(arch, str) else arch)
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     mesh = resolve_mesh(mesh_kind)
     label = mesh_kind if isinstance(mesh_kind, str) else repr(mesh_kind)
     rec = {"arch": cfg.arch_id, "shape": shape.name, "mesh": label, "chips": mesh.size,
            "ok": False}
+    if cfg.moe.n_experts:
+        rec.update(moe_dispatch=cfg.moe.dispatch, ep_major=cfg.ep_major)
     t0 = time.perf_counter()
     try:
         from repro_torch.launch import specs
@@ -375,8 +402,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             cells.append((configs.canon(args.arch), args.shape, m))
 
     results = load_results(args.out)
+    tag = "".join(f"|{k}={os.environ[k]}" for k in ("REPRO_MOE_IMPL", "REPRO_EP_MAJOR")
+                  if os.environ.get(k))
     for aid, shp, m in cells:
-        key = f"{aid}|{shp}|{m}"
+        key = f"{aid}|{shp}|{m}{tag}"
         if not args.force and results.get(key, {}).get("ok"):
             print(f"[{key}] cached OK, skip")
             continue

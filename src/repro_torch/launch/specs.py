@@ -67,7 +67,8 @@ import torch
 from repro_torch.config import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.core.policy import DecodeOptions, default_options
 from repro_torch.distributed.sharding import (AbstractShard, attn_kv_heads, decode_params,
-                                              part, seq_shard_state, shard_params)
+                                              ep_rows, ep_view, part, seq_shard_state,
+                                              shard_params)
 from repro_torch.launch.mesh import MeshSpec, batch_per_rank
 from repro_torch.models.common import torch_dtype
 from repro_torch.models.registry import get_api
@@ -98,8 +99,14 @@ def cell_data(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec
               ) -> Optional[AbstractShard]:
     """Rank 0 of the data replicas the cell's batch splits over (pod x
     data, or data alone: ``mesh.batch_per_rank``), or None where the batch
-    stays whole (or one replica takes it)."""
-    n = shape.global_batch // batch_per_rank(shape.global_batch, mesh, cfg.ep_major)
+    stays whole (or one replica takes it). Under ``cfg.ep_major``, where
+    the batch splits over data x model too, the data axes alone: the
+    model axis's share of the rows is the EP-major view's
+    (``sharding.ep_rows``)."""
+    per = batch_per_rank(shape.global_batch, mesh, cfg.ep_major)
+    n = shape.global_batch // per
+    if cfg.ep_major and mesh.model > 1 and per * mesh.size == shape.global_batch:
+        n = mesh.pod * mesh.data
     return AbstractShard(0, n, "data") if n > 1 else None
 
 
@@ -232,6 +239,8 @@ def cell_fn_specs_axes(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec
     shard = cell_shard(mesh)
     data = cell_data(cfg, shape, mesh)
     bsz = batch_per_rank(shape.global_batch, mesh, cfg.ep_major)
+    if ep_view(shard, cfg) is not shard:        # the rows over data x model, or it raises
+        ep_rows(shape.global_batch, shard, AbstractShard(0, mesh.pod * mesh.data, "data"))
 
     if shape.kind == "train":
         tcfg = default_train_cfg(cfg)

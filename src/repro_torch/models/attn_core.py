@@ -59,7 +59,11 @@ def ffn(p: Params, h2: torch.Tensor, cfg: ModelConfig, shard=None, *,
     their hidden units with one sum (``distributed.sharding``), and the
     routed experts are expert-parallel: summed in training, gathered
     exactly at ``decode`` (``moe.moe_mlp(gather=True)``). Rows split over
-    a ``data`` shard keep the MoE routing of the global rows."""
+    a ``data`` shard keep the MoE routing of the global rows, their
+    capacity's slots split over data, or take the reference's
+    ``moe_mlp_sharded`` bodies under ``dispatch="shard_map"``; under an
+    EP-major ``shard`` (each rank its own rows) the routed experts
+    exchange their rows over the model group by all-to-all."""
     if "moe" in p:
         y, aux = moe_mod.moe_mlp(p["moe"], h2.reshape(-1, h2.shape[-1]), cfg.moe,
                                  cfg.activation, shard=shard, gather=decode, data=data)

@@ -66,7 +66,8 @@ from repro_torch.core.policy import (STAGE_DENSE, STAGE_SELECT, DecodeOptions,
                                      selection_width)
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (attn_kv_heads, check_shard, copy_to_model,
-                                              part, reduce_from_model, vocab_parallel_embed)
+                                              ep_view, gather_rows, part, reduce_from_model,
+                                              vocab_parallel_embed)
 from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attn_core import (_dense_aux, _policy_active, _qkv,
@@ -188,12 +189,30 @@ def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig, shard=None) -> to
     return linear(params["lm_head"], x)
 
 
+def _ep_vocab(shard, cfg: ModelConfig):
+    """Under an EP-major ``shard``, the shard ``lm_head/w`` splits its
+    columns over (None where it stays whole: tied, or a vocabulary the
+    world does not divide); None otherwise."""
+    if shard is None or not shard.ep_major or cfg.tie_embeddings \
+            or cfg.vocab_size % shard.world:
+        return None
+    return shard
+
+
 def serve_logits(params: Params, x: torch.Tensor, cfg: ModelConfig, shard=None
                  ) -> torch.Tensor:
     """The serving paths' logits [..., V], whole on every rank: under a
     sharded engine's ``shard`` that splits the vocabulary, the rank's
     block gathered exactly over the ranks (the replicated samplers and
-    schedulers read the full row, the same on every rank)."""
+    schedulers read the full row, the same on every rank). Under the
+    EP-major layout, whose model ranks hold other rows, each rank's rows
+    are gathered first, the rank's vocabulary block computed for all of
+    them and gathered, and the rank keeps its own rows."""
+    ev = _ep_vocab(shard, cfg)
+    if ev is not None:
+        n = x.shape[0]
+        out = _logits(params, ev.all_gather(x, 0), cfg)
+        return ev.all_gather(out, out.dim() - 1).narrow(0, ev.rank * n, n)
     vs = part(shard, cfg.vocab_size)
     out = _logits(params, x, cfg, vs)
     return out if vs is None else vs.all_gather(out, out.dim() - 1)
@@ -422,6 +441,15 @@ def lm_loss(params: Params, x: torch.Tensor, batch, cfg: ModelConfig, shard=None
     ``loss_mask`` from the last hidden states x (vocabulary-parallel
     under a training ``shard`` that splits the vocabulary); over a
     ``data`` shard the global batch's (``common.cross_entropy_loss``)."""
+    ev = _ep_vocab(shard, cfg)
+    if ev is not None:
+        # EP-major: the model group's rows gathered (each rank's gradient
+        # of them summed back to its own), then the vocabulary-parallel CE
+        # over the group's rows, the same on every rank of it
+        x = copy_to_model(gather_rows(x, ev), ev)
+        mask = batch.get("loss_mask")
+        return cross_entropy_loss(_logits(params, x, cfg), ev.all_gather(batch["labels"], 0),
+                                  None if mask is None else ev.all_gather(mask, 0), ev, data)
     shard = part(shard, cfg.vocab_size)
     return cross_entropy_loss(_logits(params, x, cfg, shard), batch["labels"],
                               batch.get("loss_mask"), shard, data)
@@ -434,6 +462,8 @@ def global_kl(kl: torch.Tensor, cfg: ModelConfig, shard=None, data=None) -> torc
     ``data`` shard, whose replicas hold equal shares of the rows, the
     mean over the data ranks as well (the global batch's)."""
     ash = part(shard, cfg.n_kv_heads)
+    if ash is None and shard is not None and shard.ep_major:
+        ash = shard                     # EP-major: each model rank its own rows
     if ash is not None:
         kl = reduce_from_model(kl, ash) / ash.world
     return kl if data is None else reduce_from_model(kl, data) / data.world
@@ -474,6 +504,7 @@ def lm_forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         raise ValueError(f"lm_forward: unknown mode {mode!r}")
     check_shard(shard)
     check_shard(data)
+    shard = ep_view(shard, cfg)
     distill = mode == "distill"
     x, pos, seg, ctx = _full_inputs(params, batch, cfg, distill, shard)
     x, kl, aux, _ = lm_backbone(params, x, cfg, rope_positions=pos, segment_ids=seg,
@@ -601,6 +632,7 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
     data replica's share of the batch, and a MoE block routes as the
     whole batch would (``moe.moe_mlp(data=)``)."""
     _check_family(cfg, decode=True)
+    shard = ep_view(shard, cfg)
     tokens = batch["tokens"]
     b, l = tokens.shape
     if l > max_len:
@@ -756,7 +788,7 @@ def attention_decode(p: Params, x1: torch.Tensor, cfg: ModelConfig, *,
     q, k, v = _qkv(p, x1, cfg)                             # the heads p holds
     pos = cur_len[:, None]                                 # [B,1]
 
-    if shard is not None and not policy.dense:
+    if shard is not None and not shard.ep_major and not policy.dense:
         if not (sparse_on and policy.needs_gate and "gate" in p) \
                 or not options.schedule.is_trivial:
             raise ValueError(
@@ -913,6 +945,7 @@ def lm_decode_step(params: Params, state: DecodeState, token: torch.Tensor,
             "SelectionSchedule plans assume a uniform self-attn stack; "
             "cross-attn unit families keep per-layer selection "
             "(schedule=SelectionSchedule())")
+    shard = ep_view(shard, cfg)
     x1 = embed(params, token[:, None], cfg, shard)
     stages, plan = _plan0(options, cfg, token.shape[0],
                           state.k_cache.shape[3] // cfg.gate.block_size, x1.device)

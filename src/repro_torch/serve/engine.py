@@ -73,12 +73,13 @@ groups of ``distributed.sharding.data_model_shards``; the rank is ``d *
 M + m``) reaches ``generate`` only. A batch that the data axis divides
 is split by rows (``sharding.data_rows``): each replica prefills and
 decodes its rows on its model group, a MoE block routing as the whole
-batch would (``moe.moe_mlp(data=)``), and the tokens are gathered over
-the data group, so every rank returns the whole batch's. That routing
-costs a MoE model: each replica's expert buffer holds the global
-capacity, so D data replicas compute D times the expert rows of one
-engine on the whole batch (slot ranges over data, ROADMAP A2, are the
-fix). A batch it
+batch would (``moe.moe_mlp(data=)``, each replica computing its share
+of the capacity's slots), and the tokens are gathered over the data
+group, so every rank returns the whole batch's. Under the EP-major
+layout (``cfg.ep_major``) the rows split over data x model instead, each
+rank decoding its own with the attention whole and the MoE's experts
+exchanged over the model group, and the tokens are gathered over that
+world; ``serve`` refuses that layout. A batch it
 does not divide (batch 1) stays whole on every replica, and the
 sequence-sharded step splits the caches over the whole data x model
 world in rank order (the reference's ``dp + ("model",)``,
@@ -104,8 +105,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.policy import (DecodeOptions, DensePolicy, GatePolicy,
                                      default_options)
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (Shard, data_rows, decode_params, part,
-                                              replicated_state_bytes, seq_shard_state)
+from repro_torch.distributed.sharding import (Shard, data_rows, decode_params, ep_rows,
+                                              ep_view, part, replicated_state_bytes,
+                                              seq_shard_state)
 from repro_torch.models.registry import get_api
 from repro_torch.serve import paging as pg
 from repro_torch.serve import sampling as smp
@@ -131,7 +133,7 @@ def seq_sharded(cfg: ModelConfig, options: DecodeOptions, shard) -> bool:
     a shard, a selecting policy (a dense policy reads every cache row on
     every rank, as the reference's unsharded branch does) and a model with
     attention caches (the Mamba1 LM has none)."""
-    return (shard is not None and not options.policy.dense
+    return (shard is not None and not cfg.ep_major and not options.policy.dense
             and get_api(cfg).paged_attn_layers(cfg) > 0)
 
 
@@ -156,6 +158,8 @@ class DecodeEngine:
         if shard is not None and not isinstance(options.policy, (GatePolicy, DensePolicy)):
             raise ValueError("sharded decoding supports GatePolicy (distributed gate "
                              "top-k) or DensePolicy only")
+        if ep_view(shard, cfg) is not shard and cfg.moe.dispatch != "shard_map":
+            raise ValueError("the EP-major layout runs the MoE's dispatch='shard_map' only")
         self.shard = shard
         self.data = data
         self._world = None          # the data x model world, built on first use
@@ -240,7 +244,7 @@ class DecodeEngine:
                 "schedules on a sharded engine")
         self._last_aux = self._last_active = None   # stats reflect THIS run
         generator = self._generator(generator)
-        shard, data, rows = self._axes(len(batch["tokens"]))
+        shard, data, rows, gather = self._axes(len(batch["tokens"]))
         if rows is not None:
             batch = {k: None if v is None else v[rows[0]:rows[0] + rows[1]]
                      for k, v in batch.items()}
@@ -260,8 +264,8 @@ class DecodeEngine:
         self._sync()
         decode_s = time.perf_counter() - t1
         out, final_len = torch.stack(toks, dim=1), state.cur_len
-        if data is not None:
-            out, final_len = (data.all_gather(t, 0) for t in (out, final_len))
+        if gather is not None:
+            out, final_len = (gather.all_gather(t, 0) for t in (out, final_len))
         return GenerationResult(
             tokens=out, prefill_s=prefill_s, decode_s=decode_s,
             tok_per_s=(n_tokens - 1) * out.shape[0] / max(decode_s, 1e-9),
@@ -269,16 +273,22 @@ class DecodeEngine:
 
     def _axes(self, batch_size: int):
         """(the step's shard, the rows' data shard or None, (first row,
-        rows) or None) of a ``generate`` of ``batch_size`` rows: without a
-        data axis the engine's shard over every row; rows over the data
-        axis where it divides them; else every row, the sequence over the
-        data x model world."""
+        rows) or None, the group the tokens are gathered over or None) of a
+        ``generate`` of ``batch_size`` rows: without a data axis the
+        engine's shard over every row; rows over the data axis where it
+        divides them; else every row, the sequence over the data x model
+        world. Under the EP-major layout the rows split over data x model
+        (``sharding.ep_rows``; a batch that world does not divide raises)."""
+        if ep_view(self.shard, self.cfg) is not self.shard:
+            rows = ep_rows(batch_size, self.shard, self.data)
+            world = self.shard if self.data is None else self.world_shard()
+            return self.shard, self.data, rows, world
         if self.data is None:
-            return self.shard, None, None
+            return self.shard, None, None, None
         row0, rows = data_rows(batch_size, self.data)
         if rows * self.data.world == batch_size:
-            return self.shard, self.data, (row0, rows)
-        return self.shard.over_sequence(self.world_shard()), None, None
+            return self.shard, self.data, (row0, rows), self.data
+        return self.shard.over_sequence(self.world_shard()), None, None, None
 
     def world_shard(self) -> Shard:
         """The data x model world in rank order ``d * M + m``: the default
@@ -383,7 +393,9 @@ class DecodeEngine:
         engine takes all of these; its scheduler is replicated and takes
         the same decisions on every rank. A cross-attention (vision) model
         has no paged step, in the reference neither, and raises
-        ``NotImplementedError`` before any work.
+        ``NotImplementedError`` before any work; so does an engine at the
+        EP-major layout (ValueError), whose rows split over data x model:
+        paged serving has no data axis.
         """
         cfg = self.cfg
         ps = cfg.gate.block_size
@@ -391,6 +403,10 @@ class DecodeEngine:
         if cfg.cross_attn_period:
             raise NotImplementedError("paged decode: cross-attn families TBD "
                                       "(serve a vision model through generate)")
+        if ep_view(self.shard, cfg) is not self.shard:
+            raise ValueError("serve: the EP-major layout splits the rows over data x model; "
+                             "paged serving keeps every slot on every rank (build the engine "
+                             "without ep_major)")
         if arrivals is not None:
             if max_steps is None:
                 raise ValueError(

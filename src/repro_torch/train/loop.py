@@ -60,8 +60,9 @@ from repro_torch.checkpoint import manager as ckpt
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.data.pipeline import DataState, make_batch
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (Shard, check_shard, data_rows, gather_trees,
-                                              param_layout, shard_params, zero1_gather,
+from repro_torch.distributed.sharding import (Shard, check_shard, data_rows, ep_rows, ep_view,
+                                              gather_trees, param_layout, shard_params,
+                                              sync_replicated_grads, zero1_gather,
                                               zero1_pieces, zero1_slices)
 from repro_torch.models.registry import get_api
 from repro_torch.optim import adamw
@@ -168,7 +169,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, shard=None, data=None) 
     the metrics are the whole model's on every rank. Under a ``data``
     shard as well the batch is the data rank's rows (``data_rows``), the
     metrics are the global batch's and the gradient is all-reduced over
-    the data group (pretraining's moments at the rank's ZeRO-1 slice)."""
+    the data group (pretraining's moments at the rank's ZeRO-1 slice).
+    Under ``cfg.ep_major`` (the MoE family, ``dispatch="shard_map"``) the
+    state is at the EP-major layout and the batch this rank's rows of
+    the data x model world (``sharding.ep_rows``); the gradient of every
+    leaf but the routed experts and the logits is summed over the model
+    group before the update."""
     _check_mode(tcfg)
     check_shard(shard)
     check_shard(data)
@@ -178,6 +184,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, shard=None, data=None) 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         loss, metrics, grads = distill_value_and_grad(state.params, state.gate, batch, cfg,
                                                       shard, data)
+        grads = sync_replicated_grads(grads, cfg, shard)
         with torch.no_grad():
             gate, opt, om = adamw.apply(state.gate, grads, state.opt,
                                         tcfg.optim, **_opt_kw(state.gate, cfg, shard, data))
@@ -221,6 +228,7 @@ def pretrain_value_and_grad(params: Any, batch, cfg: ModelConfig, shard=None, da
 def _pretrain_step(cfg: ModelConfig, tcfg: TrainConfig, shard, data) -> Callable:
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         loss, metrics, grads = pretrain_value_and_grad(state.params, batch, cfg, shard, data)
+        grads = sync_replicated_grads(grads, cfg, shard)
         flat = dict(_walk(state.params))
         zero1 = zero1_map(state.params, cfg, shard, data)
         with torch.no_grad():
@@ -347,9 +355,9 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *,
     divide it), the moments of a pretraining state hold its ZeRO-1
     slice, and rank 0 of the world (data rank 0, model rank 0) writes the
     checkpoints. A MoE model routes the global batch in every replica
-    (``moe.moe_mlp(data=)``), whose expert buffer holds the global
-    capacity: D data replicas compute D times the expert rows of one
-    unsharded step (slot ranges over data, ROADMAP A2, are the fix)."""
+    (``moe.moe_mlp(data=)``), each data replica computing its share of
+    the capacity's slots. Under ``cfg.ep_major`` the rows split over data
+    x model (``make_train_step``)."""
     device = resolve_device(device)
     for grp in (shard, data):
         if grp is not None:
@@ -361,10 +369,13 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *,
     steps = steps if steps is not None else tcfg.steps
     bsz = batch_size or tcfg.global_batch
     slen = seq_len or tcfg.seq_len
-    row0, rows = data_rows(bsz, data)
-    if data is not None and data.world > 1 and rows == bsz:
-        raise ValueError(f"run_training: the data axis ({data.world}) does not divide the "
-                         f"global batch {bsz}")
+    if ep_view(shard, cfg) is not shard:
+        row0, rows = ep_rows(bsz, shard, data)
+    else:
+        row0, rows = data_rows(bsz, data)
+        if data is not None and data.world > 1 and rows == bsz:
+            raise ValueError(f"run_training: the data axis ({data.world}) does not divide "
+                             f"the global batch {bsz}")
     writer = all(g is None or g.rank == 0 for g in (shard, data))
     split = shard is not None or data is not None
 

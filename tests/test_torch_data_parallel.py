@@ -241,9 +241,8 @@ def runs(tmp_path_factory):
                     for half in np.split(toks, 2)])
             plain_gen[name] = got
     finally:
-        for ctx in ctxs.values():
-            while not ctx.join():
-                pass
+        for (n_data, n_model), ctx in ctxs.items():
+            H.join(ctx, str(tmp / f"{n_data}x{n_model}"), "data")
     ranks = {layout: [torch.load(tmp / f"{layout[0]}x{layout[1]}" / f"data-{r}.pt",
                                  weights_only=False) for r in range(layout[0] * layout[1])]
              for layout in jobs}

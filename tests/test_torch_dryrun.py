@@ -546,3 +546,72 @@ def test_main_writes_its_json(tmp_path, monkeypatch):
     assert all(r["ok"] and RECORD_KEYS <= set(r) for r in recs.values())
     assert recs["qwen3_0_6b|decode_32k|multi"]["chips"] == 512
     assert dryrun.main(argv) == 0                 # cached: skipped
+
+
+def test_abstract_shard_logs_all_to_all():
+    """``AbstractShard.all_to_all`` returns the exchange's shape (even
+    blocks, or the rows the splits say it receives) and logs the rank's
+    operand as one "all-to-all"; a real tensor is refused."""
+    shard = sharding.AbstractShard(0, 2)
+    with pytest.raises(TypeError, match="FakeTensors only"):
+        shard.all_to_all(torch.ones(4, 3))
+    with FakeTensorMode():
+        x = torch.empty((4, 6), dtype=torch.bfloat16)
+        assert tuple(shard.all_to_all(x).shape) == (4, 6)
+        assert tuple(shard.all_to_all(x, [1, 3], [2, 5]).shape) == (7, 6)
+    assert [(c.kind, c.shape, c.nbytes) for c in shard.log] == [
+        ("all-to-all", (4, 6), 48), ("all-to-all", (4, 6), 48)]
+
+
+def test_moe_switches_at_full_size(monkeypatch):
+    """deepseek_moe_16b x train_4k x multi (data 32 x model 16): on the
+    default dispatch each rank's expert buffer holds its data replica's
+    ceil(C / D) slots of the global capacity C, [E / M, 3840, d]; under
+    the reference's ``REPRO_MOE_IMPL=shard_map`` the large-T body's
+    [E / M, M * C_ll, d], with one dispatch all-to-all each way on the
+    model axis a MoE layer (distillation runs the base without autograd),
+    its bytes counted; ``REPRO_EP_MAJOR=1`` refuses the cell, whose 256
+    rows do not split over the 512 ranks."""
+    cfg = t_configs.get("deepseek_moe_16b")
+    shape = t_config.SHAPES["train_4k"]
+    e, k, d, cf = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model, cfg.moe.capacity_factor
+    mesh = make_production_mesh(multi_pod=True)
+    n_data = mesh.pod * mesh.data
+    tokens = shape.global_batch * shape.seq_len
+    cap = math.ceil(tokens * k / e * cf)
+    c_ll = math.ceil(tokens // (n_data * mesh.model) * k / e * cf)
+    got = {}
+    for switches in ({}, {"REPRO_MOE_IMPL": "shard_map"},
+                     {"REPRO_MOE_IMPL": "shard_map", "REPRO_EP_MAJOR": "1"}):
+        for key in ("REPRO_MOE_IMPL", "REPRO_EP_MAJOR"):
+            monkeypatch.delenv(key, raising=False)
+        for key, value in switches.items():
+            monkeypatch.setenv(key, value)
+        with H.recording_expert_buffers() as bufs:
+            rec = dryrun.run_cell("deepseek_moe_16b", "train_4k", "multi", verbose=False)
+        got[len(switches)] = rec, bufs
+    (plain, plain_bufs), (sm, sm_bufs), (ep, _) = got[0], got[1], got[2]
+    assert plain["ok"] and sm["ok"], (plain.get("traceback"), sm.get("traceback"))
+    assert plain["moe_dispatch"] == "gspmd" and sm["moe_dispatch"] == "shard_map"
+    assert set(plain_bufs) == {(e // mesh.model, -(-cap // n_data), d)}
+    assert set(sm_bufs) == {(e // mesh.model, mesh.model * c_ll, d)}
+    assert len(sm_bufs) == len(plain_bufs) > 0                  # a MoE layer each
+    a2a = sm["collectives_by_axis"]["model"]["all-to-all"]
+    assert a2a == len(sm_bufs) * 2 * e * c_ll * d * 2            # bf16 rows, each way
+    assert plain["collectives_by_axis"]["model"]["all-to-all"] == 0
+    assert plain["collectives_by_axis"]["data"]["all-to-all"] > 0   # the slot exchange
+    assert not ep["ok"] and "EP-major" in ep["error"]
+
+
+def test_ep_major_cell_on_a_reduced_config(monkeypatch):
+    """Both switches on a reduced MoE train cell over data 2 x model 2:
+    the rows split over the four ranks, only the experts and the logits
+    split, the dispatch's all-to-alls on the model axis."""
+    monkeypatch.setenv("REPRO_MOE_IMPL", "shard_map")
+    monkeypatch.setenv("REPRO_EP_MAJOR", "1")
+    cfg = t_config.reduced(t_configs.get("deepseek_moe_16b"))
+    rec = dryrun.run_cell(cfg, t_config.ShapeConfig("train_s", 64, 8, "train"),
+                          MeshSpec(1, 2, 2), verbose=False)
+    assert rec["ok"], rec.get("traceback")
+    assert rec["ep_major"] and rec["moe_dispatch"] == "shard_map"
+    assert rec["collectives_by_axis"]["model"]["all-to-all"] > 0

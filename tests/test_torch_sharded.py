@@ -104,8 +104,8 @@ def _cfgs(**gate):
 
 
 def _spawn(tmp, task, args):
-    mp.spawn(H.run, args=(WORLD, str(tmp / f"{task}.store"), task, args, str(tmp)),
-             nprocs=WORLD, join=True)
+    H.join(mp.spawn(H.run, args=(WORLD, str(tmp / f"{task}.store"), task, args, str(tmp)),
+                    nprocs=WORLD, join=False), str(tmp), task)
     return [torch.load(tmp / f"{task}-{r}.pt", weights_only=False) for r in range(WORLD)]
 
 

@@ -103,9 +103,9 @@ def runs(tmp_path_factory):
     trace = _trace()
     tmp = tmp_path_factory.mktemp("options")
     np_models = {n: (tcfg, jax.device_get(p)) for n, (_, p, tcfg) in models.items()}
-    mp.spawn(H.run, args=(WORLD, str(tmp / "options.store"), "options",
-                          (np_models, reqs, trace), str(tmp)),
-             nprocs=WORLD, join=True)
+    H.join(mp.spawn(H.run, args=(WORLD, str(tmp / "options.store"), "options",
+                                 (np_models, reqs, trace), str(tmp)),
+                    nprocs=WORLD, join=False), str(tmp), "options")
     sharded = [torch.load(tmp / f"options-{r}.pt", weights_only=False)
                for r in range(WORLD)]
     tparams = {n: params_from_numpy(p, tcfg, "cpu") for n, (tcfg, p) in np_models.items()}

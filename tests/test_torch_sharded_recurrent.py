@@ -210,8 +210,7 @@ def runs(tmp_path_factory):
                 if (arch, "generate") not in one:
                     one[arch, "generate"] = H.rec_generate(shard, cfg, p)
     finally:
-        while not ctx.join():
-            pass
+        H.join(ctx, str(tmp), "recurrent")
     sharded = [torch.load(tmp / f"recurrent-{r}.pt", weights_only=False)
                for r in range(WORLD)]
     return {"models": models, "port": port, "ref": ref, "sharded": sharded, "one": one,

@@ -268,8 +268,7 @@ def runs(tmp_path_factory):
             recover[1], checkpoint_dir=str(tmp / "ckpt_plain")))
         plain_optim = {name: H.sharded_optimizer(None, *case) for name, case in optim.items()}
     finally:
-        while not ctx.join():
-            pass
+        H.join(ctx, str(tmp), "train")
     sharded = [torch.load(tmp / f"train-{r}.pt", weights_only=False) for r in range(WORLD)]
     return {"setups": setups, "port": port, "ref": ref, "sharded": sharded, "tmp": tmp,
             "recover": (recover, plain_recover), "optim": (optim, plain_optim)}

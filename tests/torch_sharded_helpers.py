@@ -13,12 +13,14 @@ target of ``torch.multiprocessing.spawn``; it joins the group through a
 """
 import contextlib
 import dataclasses
+import faulthandler
 import os
 import sys
 
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import policy as TP
@@ -116,14 +118,49 @@ def one_rank_group(store):
 
 
 def run(rank, world, store, task, args, out_dir):
+    """One rank: joins the group, runs ``TASKS[task]``, saves its result.
+    A native abort of the rank (a C++ ``std::terminate``, a fatal signal)
+    dumps every thread's Python stack to ``<out_dir>/<task>-<rank>.trace``
+    (``faulthandler``), which ``join`` puts in the fixture's error. The
+    rank leaves the group only once every rank has saved its result (a
+    barrier), and then leaves the process at once (``os._exit``): no rank
+    tears down its gloo pairs while a peer still uses them, and none runs
+    the C++ runtime's exit-time teardown."""
+    trace = open(os.path.join(out_dir, f"{task}-{rank}.trace"), "w")
+    faulthandler.enable(trace, all_threads=True)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                             world_size=world)
     torch.set_num_threads(1)
     try:
         out = TASKS[task](Shard(), *args)
         torch.save(out, os.path.join(out_dir, f"{task}-{rank}.pt"))
+        dist.barrier()
     finally:
         dist.destroy_process_group()
+    faulthandler.disable()
+    trace.close()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def join(ctx, out_dir, task):
+    """``ctx.join()`` of a ``run`` spawn until every rank is done. A rank
+    that died of a signal raises with, for each rank, its stack dump
+    (``run``'s ``<task>-<rank>.trace``) and whether it saved its result;
+    a rank's Python exception raises as ``torch.multiprocessing`` reports
+    it, with the rank's traceback."""
+    try:
+        while not ctx.join():
+            pass
+    except mp.ProcessExitedException as e:
+        lines = [f"{e} (exit code {e.exit_code})"]
+        for r in range(len(ctx.processes)):
+            path = os.path.join(out_dir, f"{task}-{r}")
+            dump = open(path + ".trace").read() if os.path.exists(path + ".trace") else ""
+            saved = "saved" if os.path.exists(path + ".pt") else "not saved"
+            lines.append(f"--- rank {r}: result {saved}; stack dump:\n{dump or '(none)'}")
+        raise RuntimeError("\n".join(lines)) from e
 
 
 def _record_pools():
@@ -622,7 +659,10 @@ def dp_train_case(shard, data, cfg, tcfg, start):
     this rank's moment shapes and bytes."""
     split = shard is not None or data is not None
     state = tl.shard_state(start, cfg, shard, data) if split else start
-    row0, rows = data_rows(DP_B, data)
+    if sharding.ep_view(shard, cfg) is not shard:
+        row0, rows = sharding.ep_rows(DP_B, shard, data)
+    else:
+        row0, rows = data_rows(DP_B, data)
     step = tl.make_train_step(cfg, tcfg, shard, data)
     out = {"hist": [], "states": []}
     for i in range(2):
@@ -689,12 +729,15 @@ def recording_seq_ids():
         serve_sharded.sharded_select = real
 
 
-def dp_generate(shard, data, cfg, params, batch, n_new=DP_GEN_NEW, seq_ids=False):
+def dp_generate(shard, data, cfg, params, batch, n_new=DP_GEN_NEW, seq_ids=False,
+                options=None):
     """``generate`` on an engine over the data axis (``shard`` None: the
-    unsharded engine): tokens, each decode step's logits, the K cache's
-    shape after the cut to the sequence-sharded step (if any) and, with
-    ``seq_ids``, the sequence-sharded selections' ids."""
-    eng = DecodeEngine(cfg, params, max_len=64, device="cpu", shard=shard, data=data)
+    unsharded engine) under ``options`` (the engine's default for None):
+    tokens, each decode step's logits, the K cache's shape after the cut
+    to the sequence-sharded step (if any) and, with ``seq_ids``, the
+    sequence-sharded selections' ids."""
+    eng = DecodeEngine(cfg, params, max_len=64, device="cpu", shard=shard, data=data,
+                       options=options)
     logits, cuts, step, cut = [], [], eng._step, eng.seq_shard
 
     def recording(*a, **kw):
@@ -773,6 +816,121 @@ def data_cases(_, n_data, n_model, jobs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the MoE's expert dispatch over data x model (tests/test_torch_moe_dispatch.py)
+# ---------------------------------------------------------------------------
+
+EXCHANGES = ("all_sum", "all_gather", "all_to_all")
+
+
+@contextlib.contextmanager
+def recording_expert_buffers():
+    """The shape of every expert buffer ``moe.expert_glu`` computes over,
+    in call order."""
+    real, shapes = moe_mod.expert_glu, []
+
+    def recording(p, xb, activation):
+        shapes.append(tuple(xb.shape))
+        return real(p, xb, activation)
+    moe_mod.expert_glu = recording
+    try:
+        yield shapes
+    finally:
+        moe_mod.expert_glu = real
+
+
+def _count_exchanges(*groups):
+    """Count the calls of EXCHANGES on each group from 0."""
+    for g in groups:
+        for name in EXCHANGES:
+            if name in getattr(g, "calls", {}):
+                g.calls[name] = 0
+            else:
+                _count_calls(g, name)
+
+
+def _exchanges(group):
+    return {n: group.calls[n] for n in EXCHANGES}
+
+
+def moe_layer_params(np_params, shard, ep_major):
+    """A rank's MoE layer from the full numpy one (``{"router/w", ...,
+    "shared/<n>/w"}``): its block of the routed experts, the shared
+    experts' block of hidden units (whole under ``ep_major``), the router
+    whole; every leaf a fresh leaf that requires grad."""
+    t = {k: torch.tensor(v) for k, v in np_params.items()}
+    e_loc = t["wi_gate"].shape[0] // shard.world
+    ff = t["shared/wo/w"].shape[0]
+    f_loc = ff if ep_major or ff % shard.world else ff // shard.world
+    lo = 0 if f_loc == ff else shard.rank * f_loc
+    p = {"router": {"w": t["router/w"]},
+         "wi_gate": t["wi_gate"].narrow(0, shard.rank * e_loc, e_loc),
+         "wi_up": t["wi_up"].narrow(0, shard.rank * e_loc, e_loc),
+         "wo": t["wo"].narrow(0, shard.rank * e_loc, e_loc),
+         "shared": {"wi_gate": {"w": t["shared/wi_gate/w"].narrow(1, lo, f_loc)},
+                    "wi_up": {"w": t["shared/wi_up/w"].narrow(1, lo, f_loc)},
+                    "wo": {"w": t["shared/wo/w"].narrow(0, lo, f_loc)}}}
+    return _fresh(p)
+
+
+def _fresh(tree):
+    if isinstance(tree, dict):
+        return {k: _fresh(v) for k, v in tree.items()}
+    return tree.clone().requires_grad_(True)
+
+
+def moe_layer_case(shard, data, world, np_params, mcfg, x, r, ep_major):
+    """One MoE layer on this rank of a data x model world: its rows of x
+    (the replica's, or under ``ep_major`` its block of the world's), the
+    loss ``sum(y * r) + aux`` summed over the rows' group, and its
+    backward. Returns y, aux, dx and the gradient of each of the rank's
+    leaves ({path: array}), the dispatch branch, the expert buffers'
+    shapes and the exchanges on each group."""
+    rows_group = world if ep_major else data
+    n = x.shape[0] // rows_group.world
+    lo = rows_group.rank * n
+    xr = torch.tensor(x[lo:lo + n]).requires_grad_(True)
+    p = moe_layer_params(np_params, shard, ep_major)
+    _count_exchanges(shard, data, world)
+    mshard = shard.as_ep_major() if ep_major else shard
+    with recording_expert_buffers() as bufs:
+        y, aux = moe_mod.moe_mlp(p, xr, mcfg, shard=mshard, data=data)
+        loss = sharding.reduce_from_model((y * torch.tensor(r[lo:lo + n])).sum(),
+                                          rows_group) + aux
+        loss.backward()
+    return {"y": y.detach().numpy(), "aux": float(aux), "dx": xr.grad.numpy(),
+            "grads": {k: v.grad.numpy() for k, v in tl._walk(p)},
+            "branch": moe_mod.dispatch_branch(n, mcfg, mshard),
+            "buffers": bufs,
+            "exchanges": {name: _exchanges(g) for name, g in
+                          (("model", shard), ("data", data), ("world", world))}}
+
+
+def dispatch_cases(_, jobs):
+    """The MoE dispatch cases on this rank of a data 2 x model 2 world:
+    ``jobs`` {"layers": (numpy layer, {name: (MoEConfig, x, r,
+    ep_major)}), "train": {name: (cfg, tcfg, full start state)},
+    "generate": {name: (cfg, params, batch, options)}}. Training and
+    ``generate`` record their expert buffers' shapes."""
+    shard, data = data_model_shards(2, 2)
+    world = Shard()
+    np_params, cases = jobs["layers"]
+    out = {"layers": {name: moe_layer_case(shard, data, world, np_params, *case)
+                      for name, case in cases.items()}, "train": {}, "generate": {}}
+    torch.manual_seed(0)
+    for name, case in jobs["train"].items():
+        with recording_expert_buffers() as bufs:
+            out["train"][name] = dp_train_case(shard, data, *case)
+        out["train"][name]["buffers"] = bufs
+    for name, (cfg, params, batch, options) in jobs["generate"].items():
+        with recording_expert_buffers() as bufs:
+            out["generate"][name] = dp_generate(shard, data, cfg, params, batch,
+                                                options=options)
+        out["generate"][name]["buffers"] = bufs
+    out["ranks"] = (shard.rank, data.rank, world.rank)
+    return out
+
+
 TASKS = {"serve": serve_cases, "generate": generate_teacher_forced, "moe": moe_cases,
          "options": option_cases, "train": train_cases, "recurrent": recurrent_cases,
-         "data": data_cases}
+         "data": data_cases, "dispatch": dispatch_cases}
